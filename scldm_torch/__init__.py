@@ -1,0 +1,11 @@
+"""PyTorch / CUDA port of scldm_tpu.
+
+The JAX package `scldm_tpu` is the reference; this package computes the same
+functions in PyTorch, with the Pallas TPU kernels rewritten by hand for
+NVIDIA Hopper (`scldm_torch/kernels/csrc`). It imports neither jax nor flax.
+
+Ported so far: CFG generation (`training.ldm_task.LDMTask.make_sample_fn`)
+with the VAE decoder, the DiT and the flow-matching ODE samplers.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,256 @@
+"""Network cores: the set Encoder/Decoder and the DiT denoiser (counterpart
+of scldm_tpu/nn/nnets.py). Conditioning here is the sampling-time one: no
+CFG dropout and no random class selection, which belong to training."""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+import torch.nn as nn
+
+from scldm_torch.nn.layers import (
+    Block,
+    CrossAttentionBlock,
+    FinalLayerDiT,
+    LayerNormFP32,
+    TimestepEmbedder,
+    get_1d_sincos_pos_embed,
+)
+
+
+class Encoder(nn.Module):
+    """MCAB pooling of the gene tokens into `n_inducing_points` latent tokens,
+    `n_layer` self-attention blocks, then Linear(E -> E_latent) + non-affine LN.
+
+    `pos_embed` is the reference's all-zeros, never-trained positional table
+    (`positional_encoding: true` in every shipped config), kept so that its
+    checkpoints load."""
+
+    def __init__(
+        self,
+        n_layer: int,
+        n_inducing_points: int,
+        n_embed: int,
+        n_embed_latent: int,
+        n_head: int,
+        n_head_cross: int,
+        bias: bool = False,
+        multiple_of: int = 4,
+        layernorm_eps: float = 1e-8,
+    ):
+        super().__init__()
+        self.n_inducing_points = n_inducing_points
+        self.n_embed_latent = n_embed_latent
+        self.ca_layer = CrossAttentionBlock(
+            n_embed, n_inducing_points, n_head_cross, bias, multiple_of, layernorm_eps
+        )
+        self.pos_embed = nn.Parameter(
+            torch.zeros(1, n_inducing_points, n_embed), requires_grad=False
+        )
+        self.encoder_layers = nn.ModuleList(
+            Block(n_embed, n_head, bias, multiple_of, layernorm_eps) for _ in range(n_layer)
+        )
+        self.encoder_latent_input = nn.Sequential(
+            nn.Linear(n_embed, n_embed_latent, bias=bias),
+            LayerNormFP32(n_embed_latent, layernorm_eps, affine=False),
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.ca_layer(x) + self.pos_embed.to(x.dtype)
+        for block in self.encoder_layers:
+            x = block(x)
+        return self.encoder_latent_input(x)
+
+
+class Decoder(nn.Module):
+    """Latent tokens -> per-gene hidden states through gene-embedding queries:
+    (G, E) queries shared by the batch, or (B, G, E) per cell."""
+
+    def __init__(
+        self,
+        n_genes: int,
+        n_embed: int,
+        n_embed_latent: int,
+        n_head: int,
+        n_head_cross: int,
+        n_layer: int,
+        bias: bool = False,
+        multiple_of: int = 4,
+        layernorm_eps: float = 1e-8,
+    ):
+        super().__init__()
+        self.n_genes = n_genes
+        self.n_embed = n_embed
+        self.decoder_latent_input = nn.Sequential(
+            LayerNormFP32(n_embed_latent, layernorm_eps, affine=False),
+            nn.Linear(n_embed_latent, n_embed, bias=bias),
+        )
+        self.decoder_layers = nn.ModuleList(
+            Block(n_embed, n_head, bias, multiple_of, layernorm_eps) for _ in range(n_layer)
+        )
+        self.decoder_cross_attention = CrossAttentionBlock(
+            n_embed, 0, n_head_cross, bias, multiple_of, layernorm_eps
+        )
+
+    def forward(self, x: torch.Tensor, gene_queries: torch.Tensor) -> torch.Tensor:
+        if gene_queries.ndim not in (2, 3) or not gene_queries.is_floating_point():
+            raise ValueError("the decoder expects pre-embedded gene queries (G, E) or (B, G, E)")
+        x = self.decoder_latent_input(x)
+        for block in self.decoder_layers:
+            x = block(x)
+        return self.decoder_cross_attention(x, gene_queries)
+
+
+def build_cfg_segments(x, t, condition, cfg_scale, class_vocab_sizes, strategy):
+    """The fused-CFG row layout [uncond(2B) | per-class cond(B) ...].
+
+    Returns (seg_x, seg_t, seg_cond, scale_segments, batch, half); null ids
+    equal the class's vocab size."""
+    batch = x.shape[0]
+    half = batch // 2
+    class_names = tuple(sorted(class_vocab_sizes.keys()))
+
+    def null(n, rows):
+        return torch.full((rows,), class_vocab_sizes[n], dtype=torch.int64, device=x.device)
+
+    if not (condition and cfg_scale and class_names):
+        return x, t, {n: null(n, batch) for n in class_names}, [], batch, half
+
+    if strategy == "joint":
+        seg_x = torch.cat([x, x[half:]])
+        seg_t = torch.cat([t, t[half:]])
+        seg_cond = {
+            n: torch.cat([
+                null(n, batch),
+                condition[n][half:].long() if n in condition else null(n, half),
+            ])
+            for n in class_names
+        }
+        scale_segments = [("__joint__", sum(cfg_scale.values()) / len(cfg_scale))]
+    else:
+        scale_names = sorted(cfg_scale.keys())
+        seg_x = torch.cat([x] + [x[half:]] * len(scale_names))
+        seg_t = torch.cat([t] + [t[half:]] * len(scale_names))
+        seg_cond = {}
+        for n in class_names:
+            cols = [null(n, batch)]
+            for name in scale_names:
+                cols.append(
+                    condition[n][half:].long()
+                    if n == name and n in condition
+                    else null(n, half)
+                )
+            seg_cond[n] = torch.cat(cols)
+        scale_segments = [(name, cfg_scale[name]) for name in scale_names]
+    return seg_x, seg_t, seg_cond, scale_segments, batch, half
+
+
+def combine_cfg_segments(out, scale_segments, batch, half):
+    """Fold the segmented output back into [uncond(B/2) | guided(B/2)]."""
+    uncond_out = out[:batch]
+    base_half = uncond_out[half:]
+    guided = base_half
+    for i, (_, scale) in enumerate(scale_segments):
+        cond_pred = out[batch + i * half : batch + (i + 1) * half]
+        guided = guided + scale * (cond_pred - base_half)
+    return torch.cat([uncond_out[:half], guided])
+
+
+class DiT(nn.Module):
+    """Diffusion Transformer over latent tokens with adaLN-zero conditioning.
+
+    Each class table holds one extra null row at index `vocab_size` (when
+    `cfg_dropout_prob > 0`), the unconditional token of guidance."""
+
+    def __init__(
+        self,
+        n_embed: int,
+        n_embed_input: int,
+        n_layer: int,
+        n_head: int,
+        seq_len: int,
+        bias: bool = True,
+        multiple_of: int = 4,
+        layernorm_eps: float = 1e-8,
+        class_vocab_sizes: Optional[Dict[str, int]] = None,
+        cfg_dropout_prob: float = 0.1,
+        condition_strategy: str = "mutually_exclusive",
+    ):
+        super().__init__()
+        self.n_embed, self.n_embed_input = n_embed, n_embed_input
+        self.n_layer, self.n_head, self.seq_len = n_layer, n_head, seq_len
+        self.layernorm_eps = layernorm_eps
+        self.class_vocab_sizes = dict(class_vocab_sizes or {})
+        self.cfg_dropout_prob = cfg_dropout_prob
+        self.condition_strategy = condition_strategy
+        extra = int(cfg_dropout_prob > 0)
+        self.class_embeddings = nn.ModuleDict(
+            {n: nn.Embedding(v + extra, n_embed) for n, v in sorted(self.class_vocab_sizes.items())}
+        )
+        self.t_embedder = TimestepEmbedder(n_embed)
+        self.blocks = nn.ModuleList(
+            Block(n_embed, n_head, bias, multiple_of, layernorm_eps,
+                  use_adaln=True, elementwise_affine=False)
+            for _ in range(n_layer)
+        )
+        self.input_proj = nn.Linear(n_embed_input, n_embed, bias=bias)
+        self.final_layer = FinalLayerDiT(n_embed, n_embed_input, bias, layernorm_eps)
+        pos = torch.from_numpy(get_1d_sincos_pos_embed(n_embed, seq_len))[None]
+        self.register_buffer("pos_embed", pos, persistent=False)
+
+    def _check_null_rows(self) -> None:
+        if self.cfg_dropout_prob <= 0:
+            raise ValueError(
+                "null tokens need the CFG embedding row, but cfg_dropout_prob=0 "
+                "allocated none; train with cfg_dropout_prob>0 to use CFG"
+            )
+
+    def condition_embedding(self, condition: Dict[str, torch.Tensor], rows: int) -> torch.Tensor:
+        """No-dropout sum over every class table; absent classes ride as null."""
+        emb = torch.zeros((), device=self.pos_embed.device)
+        for name in sorted(self.class_vocab_sizes):
+            if name in condition:
+                vals = condition[name].long()
+            else:
+                self._check_null_rows()
+                vals = torch.full((rows,), self.class_vocab_sizes[name],
+                                  dtype=torch.int64, device=self.pos_embed.device)
+            emb = emb + self.class_embeddings[name](vals)
+        return emb
+
+    def forward(
+        self,
+        x: torch.Tensor,  # (B, seq_len, n_embed_input)
+        t: torch.Tensor,  # (B,)
+        condition: Optional[Dict[str, torch.Tensor]] = None,
+    ) -> torch.Tensor:
+        """Sampling-time forward: class tables summed without dropout."""
+        c = self.t_embedder(t)
+        if self.class_vocab_sizes and condition:
+            c = c + self.condition_embedding(condition, x.shape[0])
+        c = c[:, None, :]
+        x = self.input_proj(x) + self.pos_embed.to(x.dtype)
+        for block in self.blocks:
+            x = block(x, c)
+        return self.final_layer(x, c).float()
+
+    def forward_with_cfg_batched(
+        self,
+        x: torch.Tensor,
+        t: torch.Tensor,
+        condition: Optional[Dict[str, torch.Tensor]] = None,
+        cfg_scale: Optional[Dict[str, float]] = None,
+    ) -> torch.Tensor:
+        """Doubled-batch CFG with every guidance branch in one model call:
+        rows = [uncond(2B) | class_1 cond(B) | ... ]; the first half of the
+        output is unconditional, the second half guided."""
+        if cfg_scale:
+            self._check_null_rows()
+        seg_x, seg_t, seg_cond, scale_segments, batch, half = build_cfg_segments(
+            x, t, condition, cfg_scale, self.class_vocab_sizes, self.condition_strategy
+        )
+        out = self(seg_x, seg_t, seg_cond)
+        if not scale_segments:
+            return out
+        return combine_cfg_segments(out, scale_segments, batch, half)

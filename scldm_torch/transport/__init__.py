@@ -1,0 +1,6 @@
+"""Flow-matching transport and ODE samplers."""
+
+from scldm_torch.transport.factory import create_transport
+from scldm_torch.transport.transport import Sampler, Transport
+
+__all__ = ["Sampler", "Transport", "create_transport"]

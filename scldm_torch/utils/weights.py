@@ -1,0 +1,78 @@
+"""Weights for the port's modules.
+
+`load_reference_state_dict` is the bridge from the JAX package: the port's
+modules carry the reference's PyTorch names, which is what
+`scldm_tpu.utils.torch_import.export_torch_state_dict` emits, so a flax tree
+loads with a transpose-free `load_state_dict`.
+
+`init_reference_` gives a module fresh weights from a `torch.Generator`,
+with the initialisers of the JAX package (xavier-uniform Linear, zero
+biases, N(0, 1) gene embeddings and inducing points, N(0, 0.02) class and
+timestep tables, adaLN-zero). `zero_init=False` draws the adaLN and final
+layers like any other Linear, so a randomly initialised DiT is not the
+identity.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+_LIGHTNING_PREFIXES = ("vae_model.", "diffusion_model.", "ema_model.ema_model.")
+
+
+def load_reference_state_dict(module: nn.Module, state_dict: Mapping, strict: bool = True):
+    """Load a reference-named state dict (numpy arrays or tensors) into
+    `module`, casting to each parameter's dtype and device. Lightning
+    prefixes are stripped. Returns `load_state_dict`'s result."""
+    cleaned: Dict[str, torch.Tensor] = {}
+    for k, v in state_dict.items():
+        for prefix in _LIGHTNING_PREFIXES:
+            if k.startswith(prefix):
+                k = k[len(prefix):]
+                break
+        cleaned[k] = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.array(v))
+    return module.load_state_dict(cleaned, strict=strict)
+
+
+def _zero_init(name: str) -> bool:
+    return "adaln_modulation" in name or name.startswith("final_layer.linear")
+
+
+@torch.no_grad()
+def init_reference_(
+    module: nn.Module, generator: torch.Generator, *, zero_init: bool = True
+) -> nn.Module:
+    """Re-initialise every parameter of `module` in place from `generator`
+    (a generator on the parameters' device). Returns the module."""
+    def normal_(p, std):
+        p.copy_(torch.randn(p.shape, generator=generator, device=p.device) * std)
+
+    for mod_name, mod in module.named_modules():
+        prefix = f"{mod_name}." if mod_name else ""
+        for p_name, p in mod.named_parameters(recurse=False):
+            name = prefix + p_name
+            if isinstance(mod, nn.Linear) and p_name == "weight":
+                if zero_init and _zero_init(name):
+                    p.zero_()
+                elif name.startswith("t_embedder."):
+                    normal_(p, 0.02)
+                else:
+                    fan_out, fan_in = p.shape
+                    a = math.sqrt(6.0 / (fan_in + fan_out))
+                    p.copy_(torch.rand(p.shape, generator=generator, device=p.device) * 2 * a - a)
+            elif p_name == "bias":
+                p.zero_()
+            elif name.startswith("class_embeddings."):
+                normal_(p, 0.02)
+            elif name.endswith("theta.weight") or (p_name == "weight" and p.ndim == 1):
+                p.fill_(1.0)  # shared-theta table, LayerNorm scales
+            elif p_name == "pos_embed":
+                p.zero_()  # the reference's frozen all-zeros encoder table
+            else:
+                normal_(p, 1.0)  # gene embedding, inducing points
+    return module

@@ -1,0 +1,109 @@
+"""The port's DiT block (scldm_torch.ops.fused_dit) against the JAX Pallas
+kernel run in interpret mode, on the same numpy inputs.
+
+Tolerance rtol = atol = 1e-5: both sides compute in f32 and differ only in
+the order of their sums. The CUDA kernel itself is compared with the plain
+version on the card in test_torch_port_cuda.py."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from scldm_tpu.ops.fused_dit import fused_dit_block
+from scldm_torch.ops import fused_dit as port
+
+T, E, H = 16, 64, 4
+HIDDEN = 172  # MLP(64) hidden: int(2 * 256 / 3) rounded up to a multiple of 4
+EPS = 1e-8
+
+
+@pytest.fixture(autouse=True)
+def _exact_matmuls():
+    with jax.default_matmul_precision("highest"):
+        yield
+
+
+def _inputs(R, seed=0):
+    rng = np.random.default_rng(seed)
+    shapes = {
+        "wada": (E, 6 * E), "bada": (6 * E,), "wqkv": (E, 3 * E), "bqkv": (3 * E,),
+        "wproj": (E, E), "bproj": (E,), "w1": (E, HIDDEN), "w2": (E, HIDDEN),
+        "wmlp": (HIDDEN, E),
+    }
+    # non-zero adaLN weights: adaLN-zero init would make the block the identity
+    weights = {
+        k: (rng.normal(size=s) / np.sqrt(s[0] if len(s) == 2 else 4)).astype(np.float32)
+        for k, s in shapes.items()
+    }
+    x = rng.normal(size=(R, T, E)).astype(np.float32)
+    c = rng.normal(size=(R, E)).astype(np.float32)
+    return x, c, weights
+
+
+def _jax(x, c, weights):
+    kp = {k: jnp.asarray(v) for k, v in weights.items()}
+    return np.asarray(fused_dit_block(jnp.asarray(x), jnp.asarray(c), kp, n_head=H, eps=EPS,
+                                      interpret=True))
+
+
+def _torch(fn, x, c, weights):
+    w = {k: torch.from_numpy(v) for k, v in weights.items()}
+    return fn(torch.from_numpy(x), torch.from_numpy(c), w, H, EPS).numpy()
+
+
+@pytest.mark.parametrize("R", [12, 5])
+@pytest.mark.parametrize("fn", ["dit_block_reference", "dit_block"])
+def test_block_matches_pallas_interpret(R, fn):
+    x, c, weights = _inputs(R)
+    want = _jax(x, c, weights)
+    before = port.DIT_BLOCK_LAUNCHES.count
+    got = _torch(getattr(port, fn), x, c, weights)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    # a CPU tensor takes the plain version: no kernel launch is counted
+    assert port.DIT_BLOCK_LAUNCHES.count == before
+
+
+def test_block_is_not_identity():
+    x, c, weights = _inputs(4)
+    got = _torch(port.dit_block, x, c, weights)
+    assert np.abs(got - x).max() > 1e-2
+
+
+def test_block_params_from_module_match_pallas():
+    """extract_block_params turns torch (out, in) Linear weights into the
+    kernel's (in, out) matrices."""
+    from scldm_torch.nn.layers import Block
+    from scldm_torch.utils.weights import init_reference_
+
+    block = Block(E, H, bias=True, use_adaln=True, elementwise_affine=False)
+    init_reference_(block, torch.Generator().manual_seed(0), zero_init=False)
+    kp = port.extract_block_params(block)
+    x, c, _ = _inputs(3)
+    want = _jax(x, c, {k: v.numpy() for k, v in kp.items()})
+    with torch.no_grad():
+        mod = block(torch.from_numpy(x), torch.from_numpy(c)[:, None, :]).numpy()
+    np.testing.assert_allclose(mod, want, rtol=1e-5, atol=1e-5)
+
+
+def test_smem_need_and_limit():
+    # the sampler's shape fits one CTA; the census latent (T=64, E=512) does not
+    assert port.dit_block_smem_bytes(16, 256, 8, 684) <= port.MAX_SMEM_BYTES
+    x = torch.zeros(2, 64, 512)
+    weights = {
+        "wada": torch.zeros(512, 3072), "bada": torch.zeros(3072),
+        "wqkv": torch.zeros(512, 1536), "bqkv": torch.zeros(1536),
+        "wproj": torch.zeros(512, 512), "bproj": torch.zeros(512),
+        "w1": torch.zeros(512, 1368), "w2": torch.zeros(512, 1368),
+        "wmlp": torch.zeros(1368, 512),
+    }
+    with pytest.raises(ValueError, match="shared memory"):
+        port._check_shapes(x, torch.zeros(2, 512), weights, 8)
+
+
+def test_other_devices_raise():
+    x, c, weights = _inputs(2)
+    w = {k: torch.from_numpy(v).to("meta") for k, v in weights.items()}
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        port.dit_block(torch.from_numpy(x).to("meta"), torch.from_numpy(c).to("meta"), w, H, EPS)
