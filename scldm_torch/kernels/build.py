@@ -1,6 +1,7 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
-Every `csrc/*.cu` file is compiled for Hopper (`sm_90a`) into one shared
+Every `csrc/*.cu` file is compiled for Hopper (`sm_90a`), one `nvcc` per
+source, all started together, and the objects are linked into one shared
 library with a plain C interface, on first use, into `_build/` beside this
 file (listed in `.gitignore`). The library's name carries a hash of the
 sources and flags, so an edited source builds anew; the ptxas report
@@ -22,7 +23,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -32,6 +33,20 @@ _SIGNATURES = {
         [_P] * 12
         + [ctypes.c_int] * 5  # R, T, E, H, Hd
         + [ctypes.c_float, ctypes.c_longlong, _P],  # eps, smem_bytes, stream
+        ctypes.c_int,
+    ),
+    # pointers: qp, q, kfull, vproj, ln2g, ln2b, w12, wv, wmu, bmu, out
+    "scldm_decoder_tail_forward": (
+        [_P] * 11
+        + [ctypes.c_int] * 6  # B, G, E, H, M, Hd
+        + [ctypes.c_float, ctypes.c_float, _P],  # eps, scale, stream
+        ctypes.c_int,
+    ),
+    # pointers: qp, q, kfull, vproj, the six weights, dy, then the ten gradients
+    "scldm_decoder_tail_backward": (
+        [_P] * 21
+        + [ctypes.c_int] * 6  # B, G, E, H, M, Hd
+        + [ctypes.c_float, ctypes.c_float, _P],  # eps, scale, stream
         ctypes.c_int,
     ),
     "scldm_cuda_error_string": ([ctypes.c_int], ctypes.c_char_p),
@@ -66,6 +81,19 @@ def report_path(library: Path) -> Path:
     return library.with_suffix(".ptxas.txt")
 
 
+def _run_nvcc(cmds: list[list[str]]) -> str:
+    """Run the nvcc commands all at once and wait for every one; return their
+    joined output, or raise with the output of those that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    failed = [f"nvcc failed ({p.returncode}):\n{' '.join(c)}\n{o}"
+              for c, p, o in zip(cmds, procs, outs) if p.returncode != 0]
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return "".join(outs)
+
+
 def build() -> Path:
     """Compile the kernels if the current sources have no library yet, and
     return the library's path."""
@@ -73,14 +101,18 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
-    report_path(out).write_text(proc.stdout + proc.stderr)
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc, srcs = _nvcc(), _sources()
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in srcs]
+    tmp = BUILD_DIR / f"{tag}.so.tmp"
+    try:
+        report = _run_nvcc([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                            for src, obj in zip(srcs, objs)])
+        _run_nvcc([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    report_path(out).write_text(report)
     os.replace(tmp, out)  # the library last: where it exists, so does its report
     return out
 

@@ -93,13 +93,18 @@ class Decoder(nn.Module):
             n_embed, 0, n_head_cross, bias, multiple_of, layernorm_eps
         )
 
-    def forward(self, x: torch.Tensor, gene_queries: torch.Tensor) -> torch.Tensor:
-        if gene_queries.ndim not in (2, 3) or not gene_queries.is_floating_point():
-            raise ValueError("the decoder expects pre-embedded gene queries (G, E) or (B, G, E)")
+    def trunk(self, x: torch.Tensor) -> torch.Tensor:
+        """Latent LN + projection + the self-attention blocks: the (B, M, E)
+        pre-cross latents (JAX `trunk_only=True`), the input of the fused tail."""
         x = self.decoder_latent_input(x)
         for block in self.decoder_layers:
             x = block(x)
-        return self.decoder_cross_attention(x, gene_queries)
+        return x
+
+    def forward(self, x: torch.Tensor, gene_queries: torch.Tensor) -> torch.Tensor:
+        if gene_queries.ndim not in (2, 3) or not gene_queries.is_floating_point():
+            raise ValueError("the decoder expects pre-embedded gene queries (G, E) or (B, G, E)")
+        return self.decoder_cross_attention(self.trunk(x), gene_queries)
 
 
 def build_cfg_segments(x, t, condition, cfg_scale, class_vocab_sizes, strategy):

@@ -7,7 +7,7 @@ at temperature 1."""
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -33,6 +33,26 @@ class TransformerVAE(nn.Module):
         self.decoder = decoder
         self.decoder_head = decoder_head
 
+    def _head_params(
+        self, h_x: torch.Tensor, genes: torch.Tensor, library_size: torch.Tensor
+    ) -> Dict[str, torch.Tensor]:
+        mu, theta = self.decoder_head(h_x, genes, library_size)
+        return {"mu": mu, "theta": theta}
+
+    def forward(
+        self,
+        counts: torch.Tensor,  # noqa: ARG002 (unused: the reference's signature)
+        genes: torch.Tensor,
+        library_size: torch.Tensor,
+        counts_subset: torch.Tensor,
+        genes_subset: torch.Tensor,
+    ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+        """The full call: encode the token window, decode every gene of
+        `genes`. Returns ({"mu", "theta"}, h_z)."""
+        h_z = self.encoder(self.input_layer(counts_subset, genes_subset))
+        h_x = self.decoder(h_z, self.input_layer.embed_genes(genes))
+        return self._head_params(h_x, genes, library_size), h_z
+
     def encode(
         self,
         counts: torch.Tensor,
@@ -51,9 +71,9 @@ class TransformerVAE(nn.Module):
     ) -> Dict[str, torch.Tensor]:
         """z (B, M, E_latent); genes (G,) shared by the batch or (B, G);
         library_size (B, 1) -> {"mu": (B, G), "theta": (G,) or (B, G)}."""
-        h = self.decoder(z, self.input_layer.embed_genes(genes))
-        mu, theta = self.decoder_head(h, genes, library_size)
-        return {"mu": mu, "theta": theta}
+        return self._head_params(
+            self.decoder(z, self.input_layer.embed_genes(genes)), genes, library_size
+        )
 
 
 def build_transformer_vae(

@@ -1,4 +1,5 @@
-"""Negative-binomial sampling (counterpart of scldm_tpu/ops/distributions.py).
+"""Negative-binomial log-pmf and sampling (counterpart of
+scldm_tpu/ops/distributions.py).
 
 Every draw comes from an explicit `torch.Generator` on the tensors' device.
 `torch._standard_gamma` takes no generator, so the gamma draws are written
@@ -60,3 +61,18 @@ def nb_sample(
 def nb_mean(mu: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:  # noqa: ARG001
     """Mean of NB(mu, theta): the mu parameter itself."""
     return mu
+
+
+def log_nb_positive(
+    x: torch.Tensor, mu: torch.Tensor, theta: torch.Tensor, eps: float = 1e-8
+) -> torch.Tensor:
+    """Elementwise log-pmf of NB(mu, theta) (scvi convention), in f32."""
+    x, mu, theta = x.float(), mu.float(), theta.float()
+    log_theta_mu_eps = torch.log(theta + mu + eps)
+    return (
+        theta * (torch.log(theta + eps) - log_theta_mu_eps)
+        + x * (torch.log(mu + eps) - log_theta_mu_eps)
+        + torch.lgamma(x + theta)
+        - torch.lgamma(theta)
+        - torch.lgamma(x + 1.0)
+    )

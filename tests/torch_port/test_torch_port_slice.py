@@ -157,6 +157,8 @@ def test_import_without_jax():
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['flax'] = None\n"
         "import scldm_torch.training.ldm_task, scldm_torch.utils.weights, scldm_torch.kernels.build\n"
+        "import scldm_torch.training.vae_task, scldm_torch.training.optim, scldm_torch.training.state\n"
+        "import scldm_torch.training.metrics, scldm_torch.ops.fused_decoder\n"
         "assert 'jax' not in [m for m in sys.modules if sys.modules[m] is not None]\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
