@@ -12,14 +12,22 @@ generation (`LDMTask.make_sample_fn`) at the dentate-gyrus configuration with
 random weights made from the seed, with dopri5 and with euler-50, checks the
 outputs, checks that every DiT block went through the kernel, and holds one
 DiT evaluation of the sampler (the kernel path) against the plain module path
-(`DiT.forward_with_cfg_batched`) on the same inputs. Phase 3 trains the
+(`DiT.forward_with_cfg_batched`) on the same inputs. Phase 1c holds the DiT
+block backward kernels against their plain version at the LDM training
+step's shape and a ragged one, timing both. Phase 3 trains the
 dentate-gyrus VAE (`VAETask.train_step`) on lean wire batches made like
 bench.py's for a warm-up step and TRAIN_STEPS timed steps, checks the losses
 and that each tail kernel ran once per step, and holds one step's loss and
-gradients on the kernel path against the module path. The line before the last is a
-JSON summary of the kernels; the last is {"ok": true, "device": {...}}. Any
-failure raises, so the script exits non-zero and prints no result; so does a
-machine without CUDA, or a directory without the port's sources.
+gradients on the kernel path against the module path. Phase 4 trains the
+dentate-gyrus DiT on the frozen VAE's latents (`LDMTask.train_step`) the same
+way, checks that every block ran its forward and backward kernels once per
+step and that the EMA ticked once per step, holds one step's loss and
+gradients on the kernel path against the module path, and generates from the
+trained state's EMA weights. The line before the last is a JSON summary of
+the kernels, each with its time beside the least time the card could take for
+the same work; the last is {"ok": true, "device": {...}}. Any failure raises,
+so the script exits non-zero and prints no result; so does a machine without
+CUDA, or a directory without the port's sources.
 """
 
 from __future__ import annotations
@@ -43,6 +51,11 @@ TOL = dict(rtol=1e-4, atol=1e-4)  # kernel vs plain: f32 both, sums in other ord
 # bench.py's VAE training step: B=128 cells, a window of S=6,147 expressed tokens
 WINDOW = 6_147
 TRAIN_STEPS = 10  # timed steps, after one warm-up step
+EPS = 1e-8  # the DiT's LayerNorm eps
+# the H100 SXM's published peaks (NVIDIA's data sheet, dense), at 700 W
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12  # f32 outside the tensor cores
+BF16_FLOPS = 989e12  # bf16 tensor cores
 
 
 def log(msg: str) -> None:
@@ -61,29 +74,84 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+HIDDEN = 684  # the DiT's SwiGLU hidden width at n_embed 256
+
+
+def random_block_weights(g) -> dict:
+    """One DiT block's kernel weights, (in, out), drawn from `g` on the card;
+    non-zero adaLN weights: adaLN-zero init would make the block the identity
+    and most of its weight gradients 0."""
+    import torch
+
+    E = DIT["n_embed"]
+
+    def rnd(*shape, scale):
+        return torch.randn(*shape, generator=g, device="cuda") * scale
+
+    return {"wada": rnd(E, 6 * E, scale=E**-0.5), "bada": rnd(6 * E, scale=0.1),
+            "wqkv": rnd(E, 3 * E, scale=E**-0.5), "bqkv": rnd(3 * E, scale=0.1),
+            "wproj": rnd(E, E, scale=E**-0.5), "bproj": rnd(E, scale=0.1),
+            "w1": rnd(E, HIDDEN, scale=E**-0.5), "w2": rnd(E, HIDDEN, scale=E**-0.5),
+            "wmlp": rnd(HIDDEN, E, scale=HIDDEN**-0.5)}
+
+
+def bound(n_bytes: float, flops: float, peak: float) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over `peak`."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / peak
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def dit_block_bound(R: int, backward: bool) -> dict:
+    """One DiT block at R rows, f32. Operations: two per multiply-add of its
+    products (per row the adaLN product 6E^2; per token qkv 3E^2, scores and
+    probabilities times values 2TE, the projection E^2, the SwiGLU 3E*Hd),
+    three times that for the backward, which recomputes the forward; the
+    elementwise work is left out. Bytes: each input read once and each output
+    written once (backward: x, c, dy and the weights in; dx, dc and the
+    weight gradients out)."""
+    T, E = DIT["seq_len"], DIT["n_embed"]
+    weights = 10 * E * E + 10 * E + 3 * E * HIDDEN
+    flops = 2 * R * (6 * E * E + T * (4 * E * E + 2 * T * E + 3 * E * HIDDEN))
+    if backward:
+        return bound(4 * (3 * R * T * E + 2 * R * E + 2 * weights), 3 * flops, F32_FLOPS)
+    return bound(4 * (2 * R * T * E + R * E + weights), flops, F32_FLOPS)
+
+
+def decoder_tail_bound(B: int, G: int, backward: bool) -> dict:
+    """The decoder tail at B cells and G genes (E=32, 4 heads, 16 latent
+    tokens, hidden 88). Its products take bf16 operands, so the bf16 tensor-
+    core peak: per (cell, gene) pair, scores over the head blocks M*E,
+    probabilities times values H*M*E, the up projection 2E*Hd, and the wv and
+    wmu dots, two operations per multiply-add; three times that for the
+    backward. Bytes: qp, q (G, E), kfull, vproj (B, H*M, E) and the weights in,
+    the (B, G) logits out; the backward reads dy and writes a gradient of
+    each input."""
+    E, H, M, Hd = 32, 4, 16, 88
+    weights = 3 * E + 2 * E * Hd + Hd + 1
+    inputs = 2 * G * E + 2 * B * H * M * E + weights
+    flops = 2 * B * G * (M * E + H * M * E + 2 * E * Hd + Hd + E)
+    if backward:
+        return bound(4 * (2 * inputs + B * G), 3 * flops, BF16_FLOPS)
+    return bound(4 * (inputs + B * G), flops, BF16_FLOPS)
+
+
 def phase1_dit_block(seed: int) -> dict:
     """dit_block vs dit_block_reference at the sampler's shape and a ragged R."""
     import torch
 
     from scldm_torch.ops import fused_dit
 
-    E, H, hidden, T = DIT["n_embed"], DIT["n_head"], 684, DIT["seq_len"]
+    E, H, T = DIT["n_embed"], DIT["n_head"], DIT["seq_len"]
     g = torch.Generator(device="cuda").manual_seed(seed)
-
-    def rnd(*shape, scale=1.0):
-        return torch.randn(*shape, generator=g, device="cuda") * scale
-
-    # non-zero adaLN weights: adaLN-zero init would make the block the identity
-    w = {"wada": rnd(E, 6 * E, scale=E**-0.5), "bada": rnd(6 * E, scale=0.1),
-         "wqkv": rnd(E, 3 * E, scale=E**-0.5), "bqkv": rnd(3 * E, scale=0.1),
-         "wproj": rnd(E, E, scale=E**-0.5), "bproj": rnd(E, scale=0.1),
-         "w1": rnd(E, hidden, scale=E**-0.5), "w2": rnd(E, hidden, scale=E**-0.5),
-         "wmlp": rnd(hidden, E, scale=hidden**-0.5)}
-    eps = 1e-8
+    w = random_block_weights(g)
+    eps = EPS
     max_err = 0.0
     timing = {}
     for R in (3 * 128, 5):  # R = 3B rows at batch 128, and a ragged small R
-        x, c = rnd(R, T, E), rnd(R, E)
+        x = torch.randn(R, T, E, generator=g, device="cuda")
+        c = torch.randn(R, E, generator=g, device="cuda")
         got = fused_dit.dit_block(x, c, w, H, eps)
         torch.cuda.synchronize()
         want = fused_dit.dit_block_reference(x, c, w, H, eps)
@@ -176,6 +244,48 @@ def phase1b_decoder_tail(seed: int) -> tuple[dict, dict]:
          "plain_ms": timing[(part, N_GENES)][1]}
         for part in ("fwd", "bwd")
     )
+
+
+def phase1c_dit_block_bwd(seed: int) -> dict:
+    """dit_block_bwd vs dit_block_backward_reference (autograd through the
+    plain block) at the LDM training step's shape, R = 128 rows (one per
+    cell), and a ragged R. dx and dc at rtol = atol = 1e-4; each weight
+    gradient within 1e-4 of its tensor's largest magnitude: f32 both, the
+    weight gradients summed over R*T tokens in other orders."""
+    import torch
+
+    from scldm_torch.ops import fused_dit
+
+    E, H, T = DIT["n_embed"], DIT["n_head"], DIT["seq_len"]
+    g = torch.Generator(device="cuda").manual_seed(seed + 2)
+    w = random_block_weights(g)
+    worst, timing = 0.0, {}
+    for R in (128, 5):
+        x, dy = (torch.randn(R, T, E, generator=g, device="cuda") for _ in range(2))
+        c = torch.randn(R, E, generator=g, device="cuda")
+        dx, dc, dw = fused_dit.dit_block_bwd(x, c, w, dy, H, EPS)
+        torch.cuda.synchronize()
+        rx, rc, rw = fused_dit.dit_block_backward_reference(x, c, w, dy, H, EPS)
+        torch.testing.assert_close(dx, rx, **TOL)
+        torch.testing.assert_close(dc, rc, **TOL)
+        report = []
+        for name, got, want in [("dx", dx, rx), ("dc", dc, rc),
+                                *((k, dw[k], rw[k]) for k in fused_dit.WEIGHT_NAMES)]:
+            err, scale = (got - want).abs().max().item(), want.abs().max().item()
+            if name not in ("dx", "dc") and (scale == 0 or err > 1e-4 * scale):
+                raise AssertionError(f"dit_block_bwd {name} at R={R}: max abs err {err:.3e}, "
+                                     f"max |ref| {scale:.3e}")
+            worst = max(worst, err)
+            report.append(f"{name} {err:.2e} (max {scale:.2e})")
+        kernel = lambda: fused_dit.dit_block_bwd(x, c, w, dy, H, EPS)  # noqa: E731
+        plain = lambda: fused_dit.dit_block_backward_reference(x, c, w, dy, H, EPS)  # noqa: E731
+        for f in (kernel, plain):
+            cuda_ms(f, 3)  # warm-up
+        turns = [cuda_ms(f, 10) for f in (plain, kernel, kernel, plain)]
+        timing[R] = ((turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2)
+        log(f"phase1c dit_block_bwd R={R}: " + ", ".join(report))
+        log(f"phase1c dit_block_bwd R={R}: kernel {timing[R][0]:.4f} ms  plain {timing[R][1]:.4f} ms")
+    return {"max_abs_err": worst, "ms": timing[128][0], "plain_ms": timing[128][1]}
 
 
 def build_models(seed: int):
@@ -353,6 +463,112 @@ def phase3_training(seed: int, batch: int) -> tuple[int, int]:
     return fwd, bwd
 
 
+def ldm_batches(rng, batch: int, n: int) -> list:
+    """n lean wire batches on the card, each with `clusters` labels drawn
+    from 0..N_CLUSTERS-1: the LDM training step's input."""
+    import torch
+
+    return [{**{k: torch.from_numpy(v).to("cuda") for k, v in lean_batch(rng, batch).items()},
+             "clusters": torch.from_numpy(rng.integers(0, N_CLUSTERS, batch)).to("cuda")}
+            for _ in range(n)]
+
+
+def phase4_ldm_training(seed: int, batch: int) -> tuple[int, int, int]:
+    """LDM training steps through the DiT block kernels, then a generation
+    call from the trained state's EMA weights; returns the main path's
+    (dit_block launches in training, dit_block_bwd launches, dit_block
+    launches in generation)."""
+    import numpy as np
+    import torch
+
+    from scldm_torch.ops import fused_dit
+    from scldm_torch.ops.transforms import canonical_gene_ids
+    from scldm_torch.sampling.size_factors import SizeFactorSampler, constant_stats
+    from scldm_torch.training.ldm_task import LDMTask
+    from scldm_torch.training.metrics import global_norm
+    from scldm_torch.transport import create_transport
+
+    vae, dit = build_models(seed)
+    task = LDMTask(vae, dit, create_transport())
+    state = task.init_state(torch.Generator(device="cuda").manual_seed(seed))
+    rng = np.random.default_rng(seed)
+    batches = ldm_batches(rng, batch, TRAIN_STEPS + 1)
+
+    state, mets = task.train_step(state, batches[0])  # warm-up: allocator, cuBLAS
+    torch.cuda.synchronize()
+    fused_dit.DIT_BLOCK_LAUNCHES.reset()
+    fused_dit.DIT_BLOCK_BWD_LAUNCHES.reset()
+    losses = []
+    t0 = time.perf_counter()
+    for b in batches[1:]:
+        state, mets = task.train_step(state, b)
+        losses.append(mets["train_loss"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    fwd, bwd = fused_dit.DIT_BLOCK_LAUNCHES.count, fused_dit.DIT_BLOCK_BWD_LAUNCHES.count
+    losses = torch.stack(losses)
+    n, L = TRAIN_STEPS, dit.n_layer
+    if not torch.isfinite(losses).all():
+        raise AssertionError(f"non-finite LDM training loss: {losses.tolist()}")
+    if fwd != L * n or bwd != L * n:
+        raise AssertionError(f"{fwd} dit_block and {bwd} dit_block_bwd launches in {n} steps "
+                             f"of {L} blocks")
+    if state.ema.step != n + 1 or state.step != n + 1:
+        raise AssertionError(f"EMA step {state.ema.step}, train step {state.step} after {n + 1}")
+    log(f"phase4 LDM training B={batch}: {batch * n / dt:.1f} train cells/s, "
+        f"{dt / n * 1e3:.2f} ms/step over {n} steps; losses {losses[0].item():.4f} -> "
+        f"{losses[-1].item():.4f}, grad_norm {mets['grad_norm'].item():.4f}, lr_mult "
+        f"{mets['lr_mult'].item():.5f}; launches dit_block {fwd} dit_block_bwd {bwd}, EMA step "
+        f"{state.ema.step}")
+
+    # one step's loss and gradients, kernel path vs module path, same
+    # parameters, batch and draws; JAX's bounds between its two paths
+    # (tests/test_fused_dit.py)
+    g = torch.Generator(device="cuda").manual_seed(seed + 3)
+    noise = {"t": torch.rand(batch, generator=g, device="cuda"),
+             "x0": torch.randn(batch, DIT["seq_len"], DIT["n_embed_input"], generator=g,
+                               device="cuda"),
+             "drop_mask": torch.rand(batch, generator=g, device="cuda") < DIT["cfg_dropout_prob"]}
+    runs = []
+    for t in (task, LDMTask(vae, dit, create_transport(), fused_training=False)):
+        dit.zero_grad(set_to_none=True)
+        loss = t.loss(batches[-1], g, noise)
+        loss.backward()
+        grads = {k: p.grad.clone() for k, p in dit.named_parameters()}
+        runs.append((loss.item(), global_norm(grads.values()).item(), grads))
+    dit.zero_grad(set_to_none=True)
+    (lk, nk, gk), (lm, nm, gm) = runs
+    if abs(lk - lm) > 1e-4 * abs(lm) or abs(nk - nm) > 1e-3 * nm:
+        raise AssertionError(f"kernel path loss {lk}, grad norm {nk}; module path {lm}, {nm}")
+    worst = max(((gk[k] - w).abs().max().item() / (w.abs().max().item() + 1e-12), k)
+                for k, w in gm.items())
+    log(f"phase4 reference: one step, kernel path vs module path: loss {lk:.6f} vs {lm:.6f} "
+        f"({abs(lk - lm) / abs(lm):.2e} relative), grad norm {nk:.6f} vs {nm:.6f} "
+        f"({abs(nk - nm) / nm:.2e}), {len(gm)} gradients, largest gap {worst[0]:.3e} of its "
+        f"max ({worst[1]})")
+
+    # generation from the trained state's EMA weights
+    fn = task.make_sample_fn(SizeFactorSampler(constant_stats({"clusters": N_CLUSTERS}, mu=8.6,
+                                                              sd=0.3)),
+                             guidance_weight=GUIDANCE, sampling_method="dopri5", num_steps=50)
+    genes = canonical_gene_ids(N_GENES, device="cuda")
+    cond = {"clusters": batches[-1]["clusters"]}
+    fused_dit.DIT_BLOCK_LAUNCHES.reset()
+    counts, z = fn(g, genes, cond, state=state)
+    torch.cuda.synchronize()
+    gen = fused_dit.DIT_BLOCK_LAUNCHES.count
+    if counts.shape != (2 * batch, N_GENES) or not torch.isfinite(z).all():
+        raise AssertionError(f"EMA generation: counts {tuple(counts.shape)}, z finite "
+                             f"{bool(torch.isfinite(z).all())}")
+    if not ((counts >= 0).all() and (counts == counts.round()).all()):
+        raise AssertionError("EMA generation: counts are not non-negative integers")
+    if fn.drift_evals <= 0 or gen != L * fn.drift_evals:
+        raise AssertionError(f"{gen} dit_block launches for {fn.drift_evals} DiT evaluations")
+    log(f"phase4 generation from the EMA weights (dopri5): counts {tuple(counts.shape)} mean "
+        f"{counts.mean().item():.4f}, DiT evals {fn.drift_evals}, dit_block launches {gen}")
+    return fwd, bwd, gen
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -389,6 +605,7 @@ def main(argv=None) -> int:
     # -- phase 1: each kernel against its plain version -------------------------
     dit_block = phase1_dit_block(args.seed)
     tail_fwd, tail_bwd = phase1b_decoder_tail(args.seed)
+    dit_block_bwd = phase1c_dit_block_bwd(args.seed)
 
     # -- phase 2: the generation path -------------------------------------------
     launches = phase2_generation(args.seed, args.batch)
@@ -397,15 +614,30 @@ def main(argv=None) -> int:
     # -- phase 3: the VAE training path -------------------------------------------
     fwd_launches, bwd_launches = phase3_training(args.seed, args.batch)
 
+    # -- phase 4: the LDM training path -----------------------------------------
+    ldm_fwd, ldm_bwd, ldm_gen = phase4_ldm_training(args.seed, args.batch)
+
     tail_src = "scldm_torch/kernels/csrc/decoder_tail.cu"
+    # no single PyTorch call computes any of these functions: library_ms is null
     kernels = [
         {"name": "dit_block", "route": "cuda", "source": "scldm_torch/kernels/csrc/dit_block.cu",
-         "replaces": "scldm_tpu/ops/fused_dit.py:155", "launches": launches, **dit_block},
+         "replaces": "scldm_tpu/ops/fused_dit.py:155",
+         "launches": launches + ldm_fwd + ldm_gen, **dit_block,
+         **dit_block_bound(3 * args.batch, backward=False), "library_ms": None},
+        {"name": "dit_block_bwd", "route": "cuda",
+         "source": "scldm_torch/kernels/csrc/dit_block_bwd.cu",
+         "replaces": "scldm_tpu/ops/fused_dit.py:205", "launches": ldm_bwd, **dit_block_bwd,
+         **dit_block_bound(128, backward=True), "library_ms": None},
         {"name": "decoder_tail_fwd", "route": "cuda", "source": tail_src,
-         "replaces": "scldm_tpu/ops/fused_decoder.py:262", "launches": fwd_launches, **tail_fwd},
+         "replaces": "scldm_tpu/ops/fused_decoder.py:262", "launches": fwd_launches, **tail_fwd,
+         **decoder_tail_bound(128, N_GENES, backward=False), "library_ms": None},
         {"name": "decoder_tail_bwd", "route": "cuda", "source": tail_src,
-         "replaces": "scldm_tpu/ops/fused_decoder.py:294", "launches": bwd_launches, **tail_bwd},
+         "replaces": "scldm_tpu/ops/fused_decoder.py:294", "launches": bwd_launches, **tail_bwd,
+         **decoder_tail_bound(128, N_GENES, backward=True), "library_ms": None},
     ]
+    for k in kernels:
+        log(f"{k['name']}: {k['ms']:.4f} ms against a bound of {k['bound_ms']:.4f} ms "
+            f"({k['bound_by']}), plain {k['plain_ms']:.4f} ms")
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} was not launched on the main path")

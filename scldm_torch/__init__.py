@@ -5,7 +5,9 @@ functions in PyTorch, with the Pallas TPU kernels rewritten by hand for
 NVIDIA Hopper (`scldm_torch/kernels/csrc`). It imports neither jax nor flax.
 
 Ported so far: CFG generation (`training.ldm_task.LDMTask.make_sample_fn`)
-with the VAE decoder, the DiT and the flow-matching ODE samplers.
+with the VAE decoder, the DiT and the flow-matching ODE samplers; the VAE
+training step (`training.vae_task.VAETask`); LDM training
+(`training.ldm_task.LDMTask.train_step`) with the EMA.
 """
 
 __version__ = "0.1.0"

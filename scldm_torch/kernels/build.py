@@ -35,6 +35,15 @@ _SIGNATURES = {
         + [ctypes.c_float, ctypes.c_longlong, _P],  # eps, smem_bytes, stream
         ctypes.c_int,
     ),
+    # pointers: x, c, the nine (in, out) weights, the six (out, in) matrices,
+    # dy, dx, dc, dwada_t, dbada, dwqkv_t, dbqkv, dwproj_t, dbproj, dw12_t,
+    # dwmlp_t, workspace
+    "scldm_dit_block_backward": (
+        [_P] * 29
+        + [ctypes.c_int] * 5  # R, T, E, H, Hd
+        + [ctypes.c_float, ctypes.c_longlong, _P],  # eps, smem_bytes, stream
+        ctypes.c_int,
+    ),
     # pointers: qp, q, kfull, vproj, ln2g, ln2b, w12, wv, wmu, bmu, out
     "scldm_decoder_tail_forward": (
         [_P] * 11

@@ -1,6 +1,8 @@
 """Network cores: the set Encoder/Decoder and the DiT denoiser (counterpart
-of scldm_tpu/nn/nnets.py). Conditioning here is the sampling-time one: no
-CFG dropout and no random class selection, which belong to training."""
+of scldm_tpu/nn/nnets.py). The DiT's sampling-time conditioning sums the
+class tables without dropout; its training conditioning (`embed_condition`)
+adds CFG dropout and the random class selection of the mutually exclusive
+strategy, with every draw from a `torch.Generator` or injected."""
 
 from __future__ import annotations
 
@@ -218,27 +220,134 @@ class DiT(nn.Module):
             if name in condition:
                 vals = condition[name].long()
             else:
-                self._check_null_rows()
-                vals = torch.full((rows,), self.class_vocab_sizes[name],
-                                  dtype=torch.int64, device=self.pos_embed.device)
+                vals = self._null_tokens(name, rows)
             emb = emb + self.class_embeddings[name](vals)
         return emb
+
+    def _null_tokens(self, name: str, rows: int) -> torch.Tensor:
+        self._check_null_rows()
+        return torch.full((rows,), self.class_vocab_sizes[name], dtype=torch.int64,
+                          device=self.pos_embed.device)
+
+    def _drop_mask(self, rows: int, generator: Optional[torch.Generator]) -> torch.Tensor:
+        """Per-row CFG dropout: uniform < cfg_dropout_prob -> null token."""
+        if generator is None:
+            raise ValueError("training CFG dropout needs a generator (or an injected drop_mask)")
+        u = torch.rand(rows, generator=generator, device=generator.device)
+        return u.to(self.pos_embed.device) < self.cfg_dropout_prob
+
+    def _mutually_exclusive_embedding(self, condition, rows, force_drop, generator,
+                                      selected, drop_mask) -> torch.Tensor:
+        names = sorted(self.class_vocab_sizes)
+        available = [n for n in names if n in condition]
+        device = self.pos_embed.device
+        drawn = generator is not None or selected is not None or drop_mask is not None
+        if available and (force_drop or len(available) > 1) and drawn:
+            if selected is None:
+                if generator is None:
+                    raise ValueError("class selection needs a generator (or an injected selected)")
+                selected = torch.randint(0, len(available), (1,), generator=generator,
+                                         device=generator.device)
+            if not force_drop:
+                drop_mask = None
+            elif drop_mask is None:
+                drop_mask = self._drop_mask(rows, generator)
+        else:
+            # no generator: the first available class, no dropout (JAX's no-rng branch)
+            if force_drop:
+                raise ValueError("training CFG dropout needs a generator (or injected draws)")
+            selected, drop_mask = 0, None
+        selected = torch.as_tensor(selected, device=device)
+
+        emb = torch.zeros(rows, self.n_embed, device=device)
+        single = len(names) == 1 and drop_mask is None
+        for name in names:
+            if name in available:
+                vals = condition[name].long()
+                if single:
+                    # one class, no dropout: no null token is consumed
+                    emb = emb + self.class_embeddings[name](vals)
+                    continue
+                null = self._null_tokens(name, rows)
+                cond_or_null = vals if drop_mask is None else torch.where(drop_mask, null, vals)
+                vals = torch.where(selected == available.index(name), cond_or_null, null)
+            else:
+                vals = self._null_tokens(name, rows)
+            emb = emb + self.class_embeddings[name](vals)
+        return emb
+
+    def _joint_embedding(self, condition, rows, force_drop, generator, drop_mask) -> torch.Tensor:
+        names = sorted(self.class_vocab_sizes)
+        device = self.pos_embed.device
+        emb = torch.zeros(rows, self.n_embed, device=device)
+        if not any(n in condition for n in names):
+            return emb
+        if not force_drop:
+            drop_mask = torch.zeros(rows, dtype=torch.bool, device=device)
+        elif drop_mask is None:
+            drop_mask = self._drop_mask(rows, generator)
+        for name in names:
+            null = self._null_tokens(name, rows)
+            vals = torch.where(drop_mask, null, condition[name].long()) if name in condition else null
+            emb = emb + self.class_embeddings[name](vals)
+        return emb
+
+    def embed_condition(
+        self,
+        t: torch.Tensor,  # (B,)
+        condition: Optional[Dict[str, torch.Tensor]] = None,
+        generator: Optional[torch.Generator] = None,
+        train: bool = False,
+        *,
+        selected: Optional[torch.Tensor] = None,
+        drop_mask: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """Timestep plus class-condition embedding (B, n_embed), with the
+        JAX module's training conditioning: at `train`, CFG dropout (a row
+        whose uniform draw is below `cfg_dropout_prob` takes the null
+        tokens) and, for the mutually exclusive strategy, one class drawn
+        from those present; the others ride as null. `selected` (the index
+        into the present classes, sorted) and `drop_mask` (B,) bool replace
+        the draws from `generator`. Without a generator or injected draws
+        the first present class is used, with no dropout."""
+        c = self.t_embedder(t)
+        if not (self.class_vocab_sizes and condition):
+            return c
+        rows = t.shape[0]
+        if self.condition_strategy == "joint":
+            return c + self._joint_embedding(condition, rows, train, generator, drop_mask)
+        return c + self._mutually_exclusive_embedding(condition, rows, train, generator,
+                                                      selected, drop_mask)
+
+    def trunk(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+        """The blocks and the final layer under a (B, n_embed) conditioning."""
+        c = c[:, None, :]
+        x = self.input_proj(x) + self.pos_embed.to(x.dtype)
+        for block in self.blocks:
+            x = block(x, c)
+        return self.final_layer(x, c).float()
 
     def forward(
         self,
         x: torch.Tensor,  # (B, seq_len, n_embed_input)
         t: torch.Tensor,  # (B,)
         condition: Optional[Dict[str, torch.Tensor]] = None,
+        *,
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,
+        selected: Optional[torch.Tensor] = None,
+        drop_mask: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
-        """Sampling-time forward: class tables summed without dropout."""
-        c = self.t_embedder(t)
-        if self.class_vocab_sizes and condition:
-            c = c + self.condition_embedding(condition, x.shape[0])
-        c = c[:, None, :]
-        x = self.input_proj(x) + self.pos_embed.to(x.dtype)
-        for block in self.blocks:
-            x = block(x, c)
-        return self.final_layer(x, c).float()
+        """At `train`, the training conditioning of `embed_condition`;
+        otherwise the sampling-time one, class tables summed without dropout."""
+        if train:
+            c = self.embed_condition(t, condition, generator, train=True, selected=selected,
+                                     drop_mask=drop_mask)
+        else:
+            c = self.t_embedder(t)
+            if self.class_vocab_sizes and condition:
+                c = c + self.condition_embedding(condition, x.shape[0])
+        return self.trunk(x, c)
 
     def forward_with_cfg_batched(
         self,

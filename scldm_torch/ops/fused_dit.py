@@ -1,24 +1,31 @@
-"""The adaLN-zero DiT block as one hand-written CUDA kernel.
+"""The adaLN-zero DiT block, forward and backward, as hand-written CUDA kernels.
 
 Counterpart of scldm_tpu/ops/fused_dit.py: `dit_block` replaces the Pallas
-`fused_dit_block` and `fused_dit_forward` drives it through a whole DiT in
-the CFG sampler. The kernel is `scldm_torch/kernels/csrc/dit_block.cu`.
+`fused_dit_block` (kernel `scldm_torch/kernels/csrc/dit_block.cu`),
+`dit_block_bwd` its recompute backward `_bwd_pallas`
+(`scldm_torch/kernels/csrc/dit_block_bwd.cu`), and `dit_block_trainable`
+joins the two under autograd, as `fused_dit_block_trainable` does.
+`fused_dit_forward` drives the forward through a whole DiT in the CFG
+sampler, `fused_dit_train_apply` both through the DiT trunk in LDM training.
 
-`dit_block` launches the kernel on a CUDA tensor and runs the plain PyTorch
-version `dit_block_reference` on a CPU tensor; any other device raises.
-`DIT_BLOCK_LAUNCHES` counts kernel launches, so a run can show that its
-main path went through the kernel.
+`dit_block` and `dit_block_bwd` launch their kernels on CUDA tensors and run
+the plain PyTorch versions (`dit_block_reference`,
+`dit_block_backward_reference`) on CPU tensors; any other device raises.
+`DIT_BLOCK_LAUNCHES` and `DIT_BLOCK_BWD_LAUNCHES` count kernel launches, so a
+run can show that its main path went through the kernels.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 #: fused-kernel weight order; matrices are (in, out) row-major, biases (out,)
 WEIGHT_NAMES = ("wada", "bada", "wqkv", "bqkv", "wproj", "bproj", "w1", "w2", "wmlp")
+#: the matrices among them; the backward kernel also reads these as (out, in)
+MATRIX_NAMES = ("wada", "wqkv", "wproj", "w1", "w2", "wmlp")
 
 #: shared memory one CTA may use on Hopper (232,448 bytes)
 MAX_SMEM_BYTES = 227 * 1024
@@ -35,6 +42,7 @@ class LaunchCounter:
 
 
 DIT_BLOCK_LAUNCHES = LaunchCounter()
+DIT_BLOCK_BWD_LAUNCHES = LaunchCounter()
 
 
 def _ln(x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -70,13 +78,42 @@ def dit_block_reference(
     return x + gate_m * mlp
 
 
+def dit_block_backward_reference(
+    x: torch.Tensor, c: torch.Tensor, weights: Dict[str, torch.Tensor], dy: torch.Tensor,
+    n_head: int, eps: float,
+) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
+    """Plain version of the block's backward: autograd through
+    `dit_block_reference` (the in-kernel `jax.vjp` of the JAX package).
+    Returns (dx, dc, the nine weight gradients in `weights`' layout)."""
+    leaves = [t.detach().requires_grad_() for t in (x, c, *(weights[k] for k in WEIGHT_NAMES))]
+    with torch.enable_grad():
+        out = dit_block_reference(leaves[0], leaves[1], dict(zip(WEIGHT_NAMES, leaves[2:])),
+                                  n_head, eps)
+        grads = torch.autograd.grad(out, leaves, dy)
+    return grads[0], grads[1], dict(zip(WEIGHT_NAMES, grads[2:]))
+
+
 def dit_block_smem_bytes(T: int, E: int, n_head: int, hidden: int) -> int:
     """Dynamic shared memory of one CTA: x, h, qkv-or-hidden, silu(c), mod and
     the scores (the layout in dit_block.cu)."""
     return 4 * (2 * T * E + T * max(3 * E, hidden) + 7 * E + n_head * T * T)
 
 
-def _check_shapes(x, c, weights, n_head) -> int:
+def dit_block_bwd_smem_bytes(T: int, E: int, n_head: int, hidden: int) -> int:
+    """Dynamic shared memory of one CTA of the backward's row kernel: the
+    forward's, plus the score cotangents, dmod and the LayerNorm statistics
+    (the layout in dit_block_bwd.cu)."""
+    return 4 * (2 * T * E + T * max(3 * E, hidden) + 2 * n_head * T * T + 13 * E + 4 * T)
+
+
+def dit_block_bwd_workspace_floats(R: int, T: int, E: int, hidden: int) -> int:
+    """Device workspace of the backward, in floats: per token h, qkv, attn,
+    proj, h2, m (8E) and [a | b], g (3 hidden); per row silu(c) and dmod (7E)
+    (`carve` in dit_block_bwd.cu)."""
+    return R * T * (8 * E + 3 * hidden) + 7 * R * E
+
+
+def _check_shapes(x, c, weights, n_head, backward: bool = False) -> int:
     R, T, E = x.shape
     hidden = weights["w1"].shape[1]
     want = {
@@ -94,13 +131,19 @@ def _check_shapes(x, c, weights, n_head) -> int:
             "dit_block needs E % 4 == 0, hidden % 4 == 0 and E % n_head == 0 "
             f"(E={E}, hidden={hidden}, n_head={n_head})"
         )
-    smem = dit_block_smem_bytes(T, E, n_head, hidden)
+    smem = (dit_block_bwd_smem_bytes if backward else dit_block_smem_bytes)(T, E, n_head, hidden)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(
-            f"dit_block needs {smem} bytes of shared memory per row at T={T}, E={E}, "
-            f"hidden={hidden}; one CTA has at most {MAX_SMEM_BYTES}"
+            f"dit_block{'_bwd' if backward else ''} needs {smem} bytes of shared memory per "
+            f"row at T={T}, E={E}, hidden={hidden}; one CTA has at most {MAX_SMEM_BYTES}"
         )
     return smem
+
+
+def _check_tensors(tensors, what: str, device: torch.device) -> None:
+    for t in tensors:
+        if t.device != device or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{what} needs contiguous float32 tensors on one device")
 
 
 def dit_block(
@@ -115,9 +158,7 @@ def dit_block(
     if x.device.type != "cuda":
         raise ValueError(f"dit_block runs on cuda or cpu tensors, got {x.device}")
     tensors = [x, c, *(weights[k] for k in WEIGHT_NAMES)]
-    for t in tensors:
-        if t.device != x.device or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError("dit_block needs contiguous float32 tensors on one device")
+    _check_tensors(tensors, "dit_block", x.device)
     smem = _check_shapes(x, c, weights, n_head)
 
     from scldm_torch.kernels import build
@@ -137,24 +178,135 @@ def dit_block(
     return out
 
 
-def extract_block_params(block) -> Dict[str, torch.Tensor]:
-    """The kernel's weight dict from one adaLN `nn.layers.Block`: (in, out)
-    contiguous f32 matrices (torch Linear keeps (out, in))."""
-    def mat(lin):
-        return lin.weight.detach().float().t().contiguous()
+def dit_block_bwd(
+    x: torch.Tensor,
+    c: torch.Tensor,
+    weights: Dict[str, torch.Tensor],
+    dy: torch.Tensor,
+    n_head: int,
+    eps: float,
+    weights_t: Dict[str, torch.Tensor] | None = None,
+) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
+    """Recompute backward of one block: (dx (R, T, E), dc (R, E), the nine
+    weight gradients, summed over the rows, in `weights`' (in, out) layout).
 
+    CUDA tensors run the hand-written kernels on the current stream; CPU
+    tensors run `dit_block_backward_reference`. The kernels also read the
+    matrices in nn.Linear's (out, in) layout: `weights_t` (contiguous, keyed
+    by MATRIX_NAMES) or, if None, transposed copies made here. The matrix
+    gradients come back as transposed views of (out, in) tensors."""
+    if x.device.type == "cpu":
+        return dit_block_backward_reference(x, c, weights, dy, n_head, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"dit_block_bwd runs on cuda or cpu tensors, got {x.device}")
+    if weights_t is None:
+        weights_t = {k: weights[k].t().contiguous() for k in MATRIX_NAMES}
+    ws_in = [weights[k] for k in WEIGHT_NAMES]
+    ws_t = [weights_t[k] for k in MATRIX_NAMES]
+    _check_tensors([x, c, dy, *ws_in, *ws_t], "dit_block_bwd", x.device)
+    if dy.shape != x.shape:
+        raise ValueError(f"dy must be {tuple(x.shape)}, got {tuple(dy.shape)}")
+    for k in MATRIX_NAMES:
+        if weights_t[k].shape != weights[k].shape[::-1]:
+            raise ValueError(f"weights_t[{k!r}] must be {tuple(weights[k].shape[::-1])}")
+    smem = _check_shapes(x, c, weights, n_head, backward=True)
+
+    from scldm_torch.kernels import build
+
+    lib = build.load()
+    R, T, E = x.shape
+    hidden = weights["w1"].shape[1]
+    dx, dc = torch.empty_like(x), torch.empty_like(c)
+    dw_t = {k: torch.empty_like(weights_t[k]) for k in ("wada", "wqkv", "wproj", "wmlp")}
+    dw12_t = torch.empty((2 * hidden, E), dtype=x.dtype, device=x.device)
+    db = {k: torch.empty_like(weights[k]) for k in ("bada", "bqkv", "bproj")}
+    workspace = torch.empty(dit_block_bwd_workspace_floats(R, T, E, hidden),
+                            dtype=torch.float32, device=x.device)
+    outs = [dx, dc, dw_t["wada"], db["bada"], dw_t["wqkv"], db["bqkv"], dw_t["wproj"],
+            db["bproj"], dw12_t, dw_t["wmlp"], workspace]
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        code = lib.scldm_dit_block_backward(
+            x.data_ptr(), c.data_ptr(), *(t.data_ptr() for t in ws_in),
+            *(t.data_ptr() for t in ws_t), dy.data_ptr(), *(t.data_ptr() for t in outs),
+            R, T, E, n_head, hidden, eps, smem, stream,
+        )
+    build.check(lib, code, "dit_block_bwd launch")
+    DIT_BLOCK_BWD_LAUNCHES.count += 1
+    grads = {
+        "wada": dw_t["wada"].t(), "bada": db["bada"], "wqkv": dw_t["wqkv"].t(),
+        "bqkv": db["bqkv"], "wproj": dw_t["wproj"].t(), "bproj": db["bproj"],
+        "w1": dw12_t[:hidden].t(), "w2": dw12_t[hidden:].t(), "wmlp": dw_t["wmlp"].t(),
+    }
+    return dx, dc, grads
+
+
+class _DiTBlockTrainable(torch.autograd.Function):
+    """The block with a recompute VJP: it saves only its inputs (and, on
+    CUDA tensors, the matrices in both layouts the kernels read)."""
+
+    @staticmethod
+    def forward(ctx, x, c, n_head, eps, *ws):
+        weights = {k: w.contiguous() for k, w in zip(WEIGHT_NAMES, ws)}
+        # (out, in): free where `ws` are transposed views of nn.Linear weights
+        weights_t = ({k: w.t().contiguous() for k, w in zip(WEIGHT_NAMES, ws) if k in MATRIX_NAMES}
+                     if x.is_cuda else {})
+        ctx.save_for_backward(x, c, *weights.values(), *weights_t.values())
+        ctx.n_head, ctx.eps = n_head, eps
+        return dit_block(x, c, weights, n_head, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, c, *saved = ctx.saved_tensors
+        weights = dict(zip(WEIGHT_NAMES, saved))
+        weights_t = dict(zip(MATRIX_NAMES, saved[len(WEIGHT_NAMES):])) or None
+        dx, dc, grads = dit_block_bwd(x, c, weights, dy.contiguous(), ctx.n_head, ctx.eps,
+                                      weights_t)
+        return (dx, dc, None, None, *(grads[k] for k in WEIGHT_NAMES))
+
+
+def dit_block_trainable(
+    x: torch.Tensor, c: torch.Tensor, weights: Dict[str, torch.Tensor], n_head: int, eps: float
+) -> torch.Tensor:
+    """`dit_block`, differentiable in x, c and the weights: the forward kernel
+    on the way in and the backward kernels on the way back, which recompute
+    the forward (on CPU tensors, the plain versions both ways). The
+    counterpart of the JAX `fused_dit_block_trainable`."""
+    return _DiTBlockTrainable.apply(x.contiguous(), c.contiguous(), n_head, eps,
+                                    *(weights[k] for k in WEIGHT_NAMES))
+
+
+def block_weights(block) -> Dict[str, torch.Tensor]:
+    """The kernel's weight dict from one adaLN `nn.layers.Block`, as views of
+    its parameters that autograd differentiates through: the matrices are
+    transposes of the nn.Linear (out, in) weights, so (in, out)."""
     def vec(lin):
         if lin.bias is None:
             return torch.zeros(lin.weight.shape[0], device=lin.weight.device)
-        return lin.bias.detach().float().contiguous()
+        return lin.bias
 
     ada = block.adaln_modulation[1]
+    attn, mlp = block.attn, block.mlp
     return {
-        "wada": mat(ada), "bada": vec(ada),
-        "wqkv": mat(block.attn.c_attn), "bqkv": vec(block.attn.c_attn),
-        "wproj": mat(block.attn.c_proj), "bproj": vec(block.attn.c_proj),
-        "w1": mat(block.mlp.w1), "w2": mat(block.mlp.w2), "wmlp": mat(block.mlp.c_proj),
+        "wada": ada.weight.t(), "bada": vec(ada),
+        "wqkv": attn.c_attn.weight.t(), "bqkv": vec(attn.c_attn),
+        "wproj": attn.c_proj.weight.t(), "bproj": vec(attn.c_proj),
+        "w1": mlp.w1.weight.t(), "w2": mlp.w2.weight.t(), "wmlp": mlp.c_proj.weight.t(),
     }
+
+
+def extract_block_params(block) -> Dict[str, torch.Tensor]:
+    """`block_weights` detached, as contiguous f32 copies: the sampler's
+    weights, made once per sampling call."""
+    return {k: w.detach().float().contiguous() for k, w in block_weights(block).items()}
+
+
+def _final_layer(dit, h: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """adaLN shift/scale from c, non-affine LN, linear: plain PyTorch."""
+    fl = dit.final_layer
+    shift, scale = fl.adaln_modulation(c).chunk(2, dim=-1)
+    hf = _ln(h, dit.layernorm_eps) * (1.0 + scale[:, None, :]) + shift[:, None, :]
+    return fl.linear(hf).float()
 
 
 def fused_dit_forward(
@@ -182,9 +334,20 @@ def fused_dit_forward(
     c = t_emb.contiguous()
     for kp in block_params:
         h = dit_block(h, c, kp, dit.n_head, dit.layernorm_eps)
+    return _final_layer(dit, h, t_emb)
 
-    fl = dit.final_layer
-    shift, scale = fl.adaln_modulation(t_emb).chunk(2, dim=-1)
-    hf = _ln(h, dit.layernorm_eps) * (1.0 + scale[:, None, :]) + shift[:, None, :]
-    return fl.linear(hf).float()
 
+def fused_dit_train_apply(
+    dit,
+    x: torch.Tensor,  # (R, T, E_in)
+    t_emb: torch.Tensor,  # (R, E) from DiT.embed_condition
+) -> torch.Tensor:
+    """Differentiable DiT trunk with every block through `dit_block_trainable`
+    (forward and backward kernels); the input projection, the positional
+    table and the final layer are plain PyTorch, so autograd composes them
+    with the blocks. JAX: `fused_dit_train_apply`."""
+    c = t_emb.float()
+    h = dit.input_proj(x.float()).float() + dit.pos_embed.float()
+    for block in dit.blocks:
+        h = dit_block_trainable(h, c, block_weights(block), dit.n_head, dit.layernorm_eps)
+    return _final_layer(dit, h, c)

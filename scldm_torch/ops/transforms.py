@@ -6,6 +6,10 @@ import torch
 
 GENES_SUBSET, GENES = "genes_subset", "genes"
 COUNTS_SUBSET, COUNTS, LIBRARY_SIZE = "counts_subset", "counts", "library_size"
+#: batch keys that are not condition labels; every other key of a batch that
+#: names a class table is a conditioning column (the JAX package's
+#: constants.NON_CONDITION_KEYS)
+NON_CONDITION_KEYS = (COUNTS, GENES, LIBRARY_SIZE, GENES_SUBSET, COUNTS_SUBSET)
 
 
 def canonical_gene_ids(n_genes: int, device: torch.device | str = "cpu") -> torch.Tensor:

@@ -5,8 +5,11 @@ scldm_tpu/training/optim.py).
 - `AdamWLegacy` (the JAX package's `adamw_legacy`): timm-style AdamW with decoupled
   weight decay applied before the update, optional AMSGrad, and optional
   cautious masking (updates whose sign disagrees with the gradient are
-  zeroed, arXiv 2411.16085). The learning rate of step t (counted from 0) is
-  `learning_rate * schedule(t)`.
+  zeroed, arXiv 2411.16085), for the VAE.
+- `AdamW`: the stock `optax.adamw` of the LDM task.
+
+In both, the learning rate of step t (counted from 0) is
+`learning_rate * schedule(t)`.
 """
 
 from __future__ import annotations
@@ -119,3 +122,38 @@ class AdamWLegacy(torch.optim.Optimizer):
             update = torch._foreach_div(ms, denom)
             torch._foreach_mul_(params, 1 - lr * group["weight_decay"])
             torch._foreach_add_(params, update, alpha=-lr / bc1)
+
+
+class AdamW(torch.optim.AdamW):
+    """`optax.adamw`, the LDM task's optimizer, as `torch.optim.AdamW` with
+    the multi-tensor update: per parameter p with gradient g at step t (from
+    0), with lr = learning_rate * schedule(t) set before the step as optax
+    reads its schedule at the update count,
+
+        m = b1 m + (1-b1) g ;  v = b2 v + (1-b2) g^2
+        p -= lr * ((m / bc1) / (sqrt(v / bc2) + eps) + wd * p)
+
+    (torch applies the decay as p *= 1 - lr * wd before the Adam term, the
+    same update). Every parameter is decayed, as optax does without a mask."""
+
+    def __init__(
+        self,
+        params: Iterable[torch.nn.Parameter],
+        learning_rate: float = 1e-3,
+        schedule: Optional[Callable[[int], float]] = None,
+        betas: Tuple[float, float] = (0.9, 0.999),
+        eps: float = 1e-8,
+        weight_decay: float = 1e-4,
+    ):
+        super().__init__(params, lr=learning_rate, betas=betas, eps=eps,
+                         weight_decay=weight_decay, foreach=True)
+        self.learning_rate = learning_rate
+        self.schedule = schedule or (lambda step: 1.0)
+        self.step_count = 0
+
+    def step(self, closure=None):
+        lr = self.learning_rate * self.schedule(self.step_count)
+        for group in self.param_groups:
+            group["lr"] = lr
+        self.step_count += 1
+        return super().step(closure)

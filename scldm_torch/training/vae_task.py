@@ -221,6 +221,14 @@ class VAETask:
         state.optimizer.zero_grad(set_to_none=True)
         loss, aux = self.loss(batch)
         loss.backward()
+        return state, {"train_loss": loss.detach(), "train_llh": aux["llh"],
+                       "train_theta": aux["theta"], **self.apply_gradients(state)}
+
+    def apply_gradients(self, state: TrainState) -> Dict:
+        """The step after the backward: the global-norm clip of the module's
+        gradients and the optimizer step on the schedule. Updates `state` in
+        place and returns grad_norm, lr_mult and, with
+        `calculate_grad_norms`, the per-module norms."""
         named = [(n, p.grad) for n, p in state.module.named_parameters() if p.grad is not None]
         grads = [g for _, g in named]
         # one global-norm pass shared by the clip and the metric
@@ -230,16 +238,10 @@ class VAETask:
         lr_mult = self.schedule(state.step)
         state.optimizer.step()
         state.step += 1
-        mets = {
-            "train_loss": loss.detach(),
-            "train_llh": aux["llh"],
-            "grad_norm": gnorm.detach(),
-            "lr_mult": torch.tensor(lr_mult, device=loss.device),
-            "train_theta": aux["theta"],
-        }
+        mets = {"grad_norm": gnorm.detach(), "lr_mult": torch.tensor(lr_mult, device=gnorm.device)}
         if self.calculate_grad_norms:
             mets.update(M.grad_norms_by_module(named))
-        return state, mets
+        return mets
 
     def train_steps(self, state: TrainState, stacked: Dict) -> Tuple[TrainState, Dict]:
         """K steps, one per slice of the leading axis of `stacked`'s leaves

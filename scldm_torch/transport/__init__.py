@@ -1,6 +1,6 @@
 """Flow-matching transport and ODE samplers."""
 
 from scldm_torch.transport.factory import create_transport
-from scldm_torch.transport.transport import Sampler, Transport
+from scldm_torch.transport.transport import Sampler, Transport, mean_flat
 
-__all__ = ["Sampler", "Transport", "create_transport"]
+__all__ = ["Sampler", "Transport", "create_transport", "mean_flat"]

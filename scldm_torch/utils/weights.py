@@ -3,7 +3,9 @@
 `load_reference_state_dict` is the bridge from the JAX package: the port's
 modules carry the reference's PyTorch names, which is what
 `scldm_tpu.utils.torch_import.export_torch_state_dict` emits, so a flax tree
-loads with a transpose-free `load_state_dict`.
+loads with a transpose-free `load_state_dict`. `load_reference_ema_` carries
+an EMA tree (the JAX `EMAState.params`, or the reference checkpoint's
+`ema_model.ema_model.` weights) into a `training.ema.EMAState` the same way.
 
 `init_reference_` gives a module fresh weights from a `torch.Generator`,
 with the initialisers of the JAX package (xavier-uniform Linear, zero
@@ -25,10 +27,8 @@ import torch.nn as nn
 _LIGHTNING_PREFIXES = ("vae_model.", "diffusion_model.", "ema_model.ema_model.")
 
 
-def load_reference_state_dict(module: nn.Module, state_dict: Mapping, strict: bool = True):
-    """Load a reference-named state dict (numpy arrays or tensors) into
-    `module`, casting to each parameter's dtype and device. Lightning
-    prefixes are stripped. Returns `load_state_dict`'s result."""
+def _cleaned(state_dict: Mapping) -> Dict[str, torch.Tensor]:
+    """Tensors by reference name, Lightning prefixes stripped."""
     cleaned: Dict[str, torch.Tensor] = {}
     for k, v in state_dict.items():
         for prefix in _LIGHTNING_PREFIXES:
@@ -36,7 +36,29 @@ def load_reference_state_dict(module: nn.Module, state_dict: Mapping, strict: bo
                 k = k[len(prefix):]
                 break
         cleaned[k] = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.array(v))
-    return module.load_state_dict(cleaned, strict=strict)
+    return cleaned
+
+
+def load_reference_state_dict(module: nn.Module, state_dict: Mapping, strict: bool = True):
+    """Load a reference-named state dict (numpy arrays or tensors) into
+    `module`, casting to each parameter's dtype and device. Lightning
+    prefixes are stripped. Returns `load_state_dict`'s result."""
+    return module.load_state_dict(_cleaned(state_dict), strict=strict)
+
+
+@torch.no_grad()
+def load_reference_ema_(ema, state_dict: Mapping):
+    """Copy a reference-named state dict into the averaged parameters of
+    `ema` (a `training.ema.EMAState`), in place, casting to each tensor's
+    dtype and device. Every averaged parameter must be present and no other
+    key. Returns `ema`."""
+    cleaned = _cleaned(state_dict)
+    if set(cleaned) != set(ema.params):
+        raise KeyError(f"EMA keys differ: missing {sorted(set(ema.params) - set(cleaned))[:5]}, "
+                       f"unexpected {sorted(set(cleaned) - set(ema.params))[:5]}")
+    for name, t in ema.params.items():
+        t.copy_(cleaned[name].reshape(t.shape))
+    return ema
 
 
 def _zero_init(name: str) -> bool:

@@ -6,7 +6,9 @@ file imports no jax, so it also runs where only torch is installed:
     python -m pytest --noconftest -m cuda tests/torch_port/test_torch_port_cuda.py
 
 The DiT block: rtol = atol = 1e-4, both sides compute in f32 and differ in
-the order of their sums. The decoder tail: both sides round the same
+the order of their sums; its backward holds dx and dc at the same bound and
+each weight gradient within 1e-4 of its tensor's largest magnitude (sums
+over every token in other orders). The decoder tail: both sides round the same
 operands to bf16 and accumulate in f32, so a different summation order
 flips a bf16 rounding now and then, which moves an entry by up to about 1%
 of its tensor's largest magnitude: the logits and each gradient are held
@@ -78,6 +80,62 @@ def test_kernel_on_a_device_other_than_the_current():
     assert got.device == x.device and torch.cuda.current_device() == 0
     torch.testing.assert_close(got, port.dit_block_reference(x, c, w, H, EPS),
                                rtol=1e-4, atol=1e-4)
+
+
+def assert_bwd_close(got, want):
+    (dx, dc, dw), (rx, rc, rw) = got, want
+    torch.testing.assert_close(dx, rx, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(dc, rc, rtol=1e-4, atol=1e-4)
+    for k in port.WEIGHT_NAMES:
+        scale = rw[k].abs().max()
+        assert scale > 0, k
+        assert (dw[k] - rw[k]).abs().max() <= 1e-4 * scale, k
+
+
+@pytest.mark.parametrize("R", [128, 5])  # the LDM training step's rows at batch 128, a ragged R
+def test_backward_kernel_matches_reference_on_gpu(R):
+    x, c, w = _inputs(R, "cuda")
+    dy = torch.randn(x.shape, generator=torch.Generator("cuda").manual_seed(1), device="cuda")
+    before = port.DIT_BLOCK_BWD_LAUNCHES.count
+    got = port.dit_block_bwd(x, c, w, dy, H, EPS)
+    torch.cuda.synchronize()
+    assert port.DIT_BLOCK_BWD_LAUNCHES.count == before + 1
+    assert_bwd_close(got, port.dit_block_backward_reference(x, c, w, dy, H, EPS))
+
+
+def test_trainable_block_gradients_reach_the_module_on_gpu():
+    """dit_block_trainable over a Block's weight views: one launch each way,
+    and the module's gradients as autograd through the Block gives them."""
+    from scldm_torch.nn.layers import Block
+    from scldm_torch.utils.weights import init_reference_
+
+    block = Block(E, H, bias=True, use_adaln=True, elementwise_affine=False)
+    init_reference_(block, torch.Generator().manual_seed(0), zero_init=False)
+    block = block.cuda()
+    x, c, _ = _inputs(128, "cuda")
+    dy = torch.randn(x.shape, generator=torch.Generator("cuda").manual_seed(2), device="cuda")
+    fwd, bwd = port.DIT_BLOCK_LAUNCHES.count, port.DIT_BLOCK_BWD_LAUNCHES.count
+    port.dit_block_trainable(x, c, port.block_weights(block), H, EPS).backward(dy)
+    torch.cuda.synchronize()
+    assert (port.DIT_BLOCK_LAUNCHES.count, port.DIT_BLOCK_BWD_LAUNCHES.count) == (fwd + 1, bwd + 1)
+    got = {n: p.grad.clone() for n, p in block.named_parameters()}
+    block.zero_grad()
+    block(x, c[:, None, :]).backward(dy)
+    for n, p in block.named_parameters():
+        assert (got[n] - p.grad).abs().max() <= 1e-4 * p.grad.abs().max(), n
+
+
+@pytest.mark.skipif(torch.cuda.device_count() < 2, reason="needs two GPUs")
+def test_backward_kernel_on_a_device_other_than_the_current():
+    x0, c0, w0 = _inputs(3, "cuda:0")
+    port.dit_block_bwd(x0, c0, w0, x0, H, EPS)
+    torch.cuda.synchronize(0)
+    x, c, w = _inputs(128, "cuda:1", seed=1)
+    dy = torch.randn(x.shape, generator=torch.Generator("cuda:1").manual_seed(3), device="cuda:1")
+    got = port.dit_block_bwd(x, c, w, dy, H, EPS)
+    torch.cuda.synchronize(1)
+    assert got[0].device == x.device and torch.cuda.current_device() == 0
+    assert_bwd_close(got, port.dit_block_backward_reference(x, c, w, dy, H, EPS))
 
 
 TAIL_RAW = ("ln2g", "ln2b", "w1", "w2", "wmlp", "wmu", "bmu")

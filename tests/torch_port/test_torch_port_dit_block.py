@@ -1,9 +1,12 @@
-"""The port's DiT block (scldm_torch.ops.fused_dit) against the JAX Pallas
-kernel run in interpret mode, on the same numpy inputs.
+"""The port's DiT block (scldm_torch.ops.fused_dit), forward and backward,
+against the JAX Pallas kernels run in interpret mode, on the same numpy
+inputs.
 
-Tolerance rtol = atol = 1e-5: both sides compute in f32 and differ only in
-the order of their sums. The CUDA kernel itself is compared with the plain
-version on the card in test_torch_port_cuda.py."""
+The forward at rtol = atol = 1e-5; the backward's dx and dc at 1e-4, each
+weight gradient within 1e-5 of its tensor's largest magnitude: both sides
+compute in f32 and differ only in the order of their sums. The CUDA kernels
+themselves are compared with the plain versions on the card in
+test_torch_port_cuda.py."""
 
 import jax
 import jax.numpy as jnp
@@ -107,3 +110,101 @@ def test_other_devices_raise():
     w = {k: torch.from_numpy(v).to("meta") for k, v in weights.items()}
     with pytest.raises(ValueError, match="cuda or cpu"):
         port.dit_block(torch.from_numpy(x).to("meta"), torch.from_numpy(c).to("meta"), w, H, EPS)
+
+
+# -- the backward --------------------------------------------------------------------
+
+def _jax_grads(x, c, weights, dy):
+    """dx, dc and the weight gradients of the JAX fused block, its Pallas
+    backward kernel in interpret mode."""
+    from scldm_tpu.ops.fused_dit import fused_dit_block_trainable
+
+    kp = {k: jnp.asarray(v) for k, v in weights.items()}
+
+    def f(x, c, kp):
+        out = fused_dit_block_trainable(x, c, kp, H, EPS, None, None, True)
+        return (out * jnp.asarray(dy)).sum()
+
+    gx, gc, gp = jax.grad(f, argnums=(0, 1, 2))(jnp.asarray(x), jnp.asarray(c), kp)
+    return np.asarray(gx), np.asarray(gc), {k: np.asarray(v) for k, v in gp.items()}
+
+
+def _torch_trainable_grads(x, c, weights, dy):
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (x, c, *weights.values())]
+    w = dict(zip(weights, leaves[2:]))
+    out = port.dit_block_trainable(leaves[0], leaves[1], w, H, EPS)
+    out.backward(torch.from_numpy(dy))
+    return leaves[0].grad, leaves[1].grad, {k: t.grad for k, t in w.items()}
+
+
+def _torch_reference_grads(x, c, weights, dy):
+    w = {k: torch.from_numpy(v) for k, v in weights.items()}
+    return port.dit_block_backward_reference(torch.from_numpy(x), torch.from_numpy(c), w,
+                                             torch.from_numpy(dy), H, EPS)
+
+
+@pytest.mark.parametrize("R", [12, 5])
+@pytest.mark.parametrize("fn", ["trainable", "reference"])
+def test_block_gradients_match_pallas_interpret(R, fn):
+    """dx and dc within rtol = atol = 1e-4; each weight gradient within 1e-5
+    of its tensor's largest magnitude: f32 on both sides, the weight
+    gradients summed over R*T tokens in other orders."""
+    x, c, weights = _inputs(R)
+    dy = np.random.default_rng(7).normal(size=x.shape).astype(np.float32)
+    want_x, want_c, want_w = _jax_grads(x, c, weights, dy)
+    before = port.DIT_BLOCK_BWD_LAUNCHES.count
+    grads = {"trainable": _torch_trainable_grads, "reference": _torch_reference_grads}[fn]
+    got_x, got_c, got_w = grads(x, c, weights, dy)
+    assert port.DIT_BLOCK_BWD_LAUNCHES.count == before  # CPU: the plain version
+    np.testing.assert_allclose(got_x.numpy(), want_x, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got_c.numpy(), want_c, rtol=1e-4, atol=1e-4)
+    assert set(got_w) == set(port.WEIGHT_NAMES)
+    for name, want in want_w.items():
+        scale = np.abs(want).max()
+        assert scale > 1e-3, name  # non-zero adaLN weights: every gradient is live
+        assert np.abs(got_w[name].numpy() - want).max() <= 1e-5 * scale, name
+
+
+def test_block_weights_carry_gradients_to_the_module():
+    """block_weights are views of the Linear parameters: gradients through
+    dit_block_trainable land in each weight (out, in) and bias, and match
+    autograd through the module's Block."""
+    from scldm_torch.nn.layers import Block
+    from scldm_torch.utils.weights import init_reference_
+
+    block = Block(E, H, bias=True, use_adaln=True, elementwise_affine=False)
+    init_reference_(block, torch.Generator().manual_seed(1), zero_init=False)
+    x, c, _ = _inputs(4)
+    dy = torch.from_numpy(np.random.default_rng(3).normal(size=x.shape).astype(np.float32))
+    tx, tc = torch.from_numpy(x), torch.from_numpy(c)
+    port.dit_block_trainable(tx, tc, port.block_weights(block), H, EPS).backward(dy)
+    got = {n: p.grad.clone() for n, p in block.named_parameters()}
+    block.zero_grad()
+    block(tx, tc[:, None, :]).backward(dy)
+    assert len(got) == 9
+    for n, p in block.named_parameters():
+        torch.testing.assert_close(got[n], p.grad, rtol=1e-4, atol=1e-4 * p.grad.abs().max().item())
+    # sampling keeps detached copies
+    assert not any(t.requires_grad for t in port.extract_block_params(block).values())
+
+
+def test_backward_shapes_and_limits():
+    """The backward's shared memory fits one CTA at the training shape, and
+    its workspace is the per-token pairs plus the per-row ones."""
+    assert port.dit_block_bwd_smem_bytes(16, 256, 8, 684) <= port.MAX_SMEM_BYTES
+    assert port.dit_block_bwd_workspace_floats(128, 16, 256, 684) == 2048 * 4100 + 128 * 1792
+    x = torch.zeros(2, 64, 512)
+    weights = {
+        "wada": torch.zeros(512, 3072), "bada": torch.zeros(3072),
+        "wqkv": torch.zeros(512, 1536), "bqkv": torch.zeros(1536),
+        "wproj": torch.zeros(512, 512), "bproj": torch.zeros(512),
+        "w1": torch.zeros(512, 1368), "w2": torch.zeros(512, 1368),
+        "wmlp": torch.zeros(1368, 512),
+    }
+    with pytest.raises(ValueError, match="dit_block_bwd needs .* shared memory"):
+        port._check_shapes(x, torch.zeros(2, 512), weights, 8, backward=True)
+    xs, cs, ws = _inputs(2)
+    meta = {k: torch.from_numpy(v).to("meta") for k, v in ws.items()}
+    xm = torch.from_numpy(xs).to("meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        port.dit_block_bwd(xm, torch.from_numpy(cs).to("meta"), meta, xm, H, EPS)

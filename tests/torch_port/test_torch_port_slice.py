@@ -159,7 +159,10 @@ def test_import_without_jax():
         "import scldm_torch.training.ldm_task, scldm_torch.utils.weights, scldm_torch.kernels.build\n"
         "import scldm_torch.training.vae_task, scldm_torch.training.optim, scldm_torch.training.state\n"
         "import scldm_torch.training.metrics, scldm_torch.ops.fused_decoder\n"
-        "assert 'jax' not in [m for m in sys.modules if sys.modules[m] is not None]\n"
+        "import scldm_torch.training.ema, scldm_torch.ops.fused_dit, scldm_torch.transport.transport\n"
+        "loaded = [m for m in sys.modules if sys.modules[m] is not None]\n"
+        "assert 'jax' not in loaded\n"
+        "assert not [m for m in loaded if m.startswith('scldm_tpu')], 'the port imports scldm_tpu'\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
