@@ -3,16 +3,24 @@
 
     python3 benchmarks_torch/profile_training.py
 
-Builds the dentate-gyrus VAE of `chip_smoke.py` (random weights from seed 0)
-and its lean wire batches (B=128 cells, a window of 6,147 tokens), takes a
-warm-up step, times five unprofiled `VAETask.train_step` calls, times three
-steps' forward, backward and clip-plus-optimizer segments (each ending in a
-synchronize; the last is `VAETask.apply_gradients`), then traces PROFILED_STEPS more steps with `torch.profiler`.
-It prints the unprofiled step times, the segments, the profiled wall time,
-the device's busy time (the union of its kernels' spans), the idle share of
-the median unprofiled wall time, the time, launches and share of busy time
-of the two decoder-tail kernels, and the profiler's table of the operators
-that took the most device time.
+For each of two configurations, the dentate-gyrus VAE of `chip_smoke.py`
+(G=17,002 genes, lean batches over a window of 6,147 tokens: the module
+encoder and the decoder-tail kernels) and the parse1m / replogle VAE (G = S
+= 2,000: the dense encoder pool and the tail kernels), with random weights
+from seed 0 and B=128 cells: takes a warm-up step, times five unprofiled
+`VAETask.train_step` calls, times three steps' forward, backward and
+clip-plus-optimizer segments (each ending in a synchronize; the last is
+`VAETask.apply_gradients`), then traces PROFILED_STEPS more steps with
+`torch.profiler`. It prints the unprofiled step times, the segments, the
+profiled wall time, the device's busy time (the union of its kernels'
+spans), the idle share of the median unprofiled wall time, the time,
+launches and share of busy time of the tail and pool kernels, and the
+profiler's table of the operators that took the most device time.
+
+Then the dispatch gate: the encoder's front half (input embedding and MCAB
+pooling), forward and backward, through the dense pool
+(`fused_encoder_pooling`) and through the modules, in turns, at both
+configurations' ratios of genes to window.
 """
 
 from __future__ import annotations
@@ -25,33 +33,39 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 SEED, BATCH = 0, 128
 PROFILED_STEPS = 3
+KERNELS = ("decoder_tail_fwd_kernel", "decoder_tail_bwd_kernel", "pool_fwd_kernel",
+           "pool_bwd_kernel")
 
 
-def main() -> int:
+def configurations(cs) -> dict:
+    """name -> (genes, window, range of expressed genes per cell)."""
+    return {"dentate": (cs.N_GENES, cs.WINDOW, (1500, 4000)),
+            "parse1m": (cs.PARSE_GENES, cs.PARSE_GENES, (500, cs.PARSE_GENES))}
+
+
+def build_vae(G: int):
+    import torch
+
+    from scldm_torch.nn.vae import build_transformer_vae
+    from scldm_torch.utils.weights import init_reference_
+
+    return init_reference_(build_transformer_vae(n_genes=G),
+                           torch.Generator().manual_seed(SEED)).to("cuda")
+
+
+def profile_step(cs, busy_us, name: str, G: int, S: int, nnz: tuple) -> None:
     import numpy as np
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    if not torch.cuda.is_available():
-        print("profile_training: no CUDA device", file=sys.stderr)
-        return 1
-    sys.path.insert(0, str(ROOT))
-    sys.path.insert(0, str(ROOT / "benchmarks_torch"))
-    import chip_smoke as cs
-    from profile_generation import busy_us
-    from scldm_torch.nn.vae import build_transformer_vae
     from scldm_torch.training.vae_task import VAETask
-    from scldm_torch.utils.weights import init_reference_
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    vae = init_reference_(build_transformer_vae(n_genes=cs.N_GENES), torch.Generator().manual_seed(SEED))
-    task = VAETask(vae.to("cuda"), num_training_steps=10_000)
+    task = VAETask(build_vae(G), num_training_steps=10_000)
     state = task.init_state(torch.Generator(device="cuda").manual_seed(SEED))
     rng = np.random.default_rng(SEED)
-    batches = [{k: torch.from_numpy(v).to("cuda") for k, v in cs.lean_batch(rng, BATCH).items()}
-               for _ in range(2)]
+    batches = [{k: torch.from_numpy(v).to("cuda")
+                for k, v in cs.lean_batch(rng, BATCH, G, S, nnz).items()} for _ in range(2)]
 
     state, _ = task.train_step(state, batches[0])  # warm-up
     torch.cuda.synchronize()
@@ -77,7 +91,7 @@ def main() -> int:
         t3 = time.perf_counter()
         for k, dt in zip(seg, (t1 - t0, t2 - t1, t3 - t2)):
             seg[k].append(round(dt * 1e3, 2))
-    print(f"== segments ms (3 steps, each synchronised): {seg}", flush=True)
+    print(f"== {name}: segments ms (3 steps, each synchronised): {seg}", flush=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for i in range(PROFILED_STEPS):
@@ -93,20 +107,75 @@ def main() -> int:
         raise RuntimeError("the trace holds no device kernel")
     busy_ms = busy_us((e.time_range.start, e.time_range.end) for e in kernels) / 1e3 / PROFILED_STEPS
     median = statistics.median(walls)
-    print(f"== VAE train step B={BATCH} G={cs.N_GENES} S={cs.WINDOW}: unprofiled walls ms "
+    print(f"== {name} VAE train step B={BATCH} G={G} S={S}: unprofiled walls ms "
           f"{[round(w, 2) for w in walls]} (median {median:.2f}), profiled wall "
           f"{wall_ms / PROFILED_STEPS:.2f} ms per step, device busy {busy_ms:.2f} ms per step, idle "
           f"share of the unprofiled median {1 - busy_ms / median:.4f}", flush=True)
     kernel_ms = sum(e.time_range.end - e.time_range.start for e in kernels) / 1e3 / PROFILED_STEPS
     print(f"   device kernel time (sum) {kernel_ms:.2f} ms per step over "
           f"{len(kernels) / PROFILED_STEPS:.0f} kernels", flush=True)
-    for name in ("decoder_tail_fwd_kernel", "decoder_tail_bwd_kernel"):
-        evs = [e for e in kernels if name in e.name]
+    for kname in KERNELS:
+        evs = [e for e in kernels if kname in e.name]
         ms = sum(e.time_range.end - e.time_range.start for e in evs) / 1e3 / PROFILED_STEPS
-        print(f"   {name}: {ms:.3f} ms per step over {len(evs)} launches, share of busy "
+        print(f"   {kname}: {ms:.3f} ms per step over {len(evs)} launches, share of busy "
               f"{ms / busy_ms:.4f}", flush=True)
-    print(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=25,
+    print(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=15,
                                     max_name_column_width=60), flush=True)
+
+
+def gate(cs, name: str, G: int, S: int, nnz: tuple) -> None:
+    """The encoder's front half, forward and backward, at B=128: the dense
+    pool over all G genes against the modules over the S-token window."""
+    import numpy as np
+    import torch
+
+    from scldm_torch.ops.transforms import densify_expressed, widen_lean
+    from scldm_torch.training.vae_task import fused_encoder_pooling
+
+    vae = build_vae(G)
+    rng = np.random.default_rng(SEED)
+    lean = widen_lean({k: torch.from_numpy(v).to("cuda")
+                       for k, v in cs.lean_batch(rng, BATCH, G, S, nnz).items()})
+    c_sub, g_sub = lean["counts_subset"], lean["genes_subset"]
+    counts = densify_expressed(g_sub, c_sub, G)
+    ca = vae.encoder.ca_layer
+    cot = torch.randn(BATCH, ca.inducing_points.shape[0], ca.ln_1.n, device="cuda")
+
+    def dense():
+        vae.zero_grad(set_to_none=True)
+        (fused_encoder_pooling(vae, counts, S) * cot).sum().backward()
+
+    def module():
+        vae.zero_grad(set_to_none=True)
+        (ca(vae.input_layer(c_sub, g_sub)) * cot).sum().backward()
+
+    for f in (dense, module):
+        cs.cuda_ms(f, 2)  # warm-up
+    turns = [cs.cuda_ms(f, 10) for f in (module, dense, dense, module)]
+    d, m = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+    print(f"== gate at {name} (G={G}, S={S}, G/S {G / S:.2f}): encoder front half, forward and "
+          f"backward, B={BATCH}: dense pool {d:.4f} ms ({turns[1]:.4f}, {turns[2]:.4f}), module "
+          f"{m:.4f} ms ({turns[0]:.4f}, {turns[3]:.4f}), dense / module {d / m:.3f}", flush=True)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("profile_training: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(ROOT / "benchmarks_torch"))
+    import chip_smoke as cs
+    from profile_generation import busy_us
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    configs = configurations(cs)
+    for name, shape in configs.items():
+        profile_step(cs, busy_us, name, *shape)
+    for name, shape in configs.items():
+        gate(cs, name, *shape)
     return 0
 
 

@@ -58,6 +58,36 @@ _SIGNATURES = {
         + [ctypes.c_float, ctypes.c_float, _P],  # eps, scale, stream
         ctypes.c_int,
     ),
+    # pointers: counts, table, qfull, ln1g, ln1b, wk, wv, num, den, m
+    "scldm_encoder_pool_forward": (
+        [_P] * 10
+        + [ctypes.c_int] * 5  # B, G, E, H, Q
+        + [ctypes.c_float, ctypes.c_float, _P],  # eps, scale, stream
+        ctypes.c_int,
+    ),
+    # pointers: emb, qfull, ln1g, ln1b, wk, wv, num, den, m
+    "scldm_window_pool_forward": (
+        [_P] * 9
+        + [ctypes.c_int] * 5  # B, S, E, H, Q
+        + [ctypes.c_float, ctypes.c_float, _P],
+        ctypes.c_int,
+    ),
+    # pointers: counts, table, qfull, the four weights, m, dnum, dden, then
+    # dtable, dqfull, dln1g, dln1b, dwk, dwv
+    "scldm_encoder_pool_backward": (
+        [_P] * 16
+        + [ctypes.c_int] * 5  # B, G, E, H, Q
+        + [ctypes.c_float, ctypes.c_float, _P],
+        ctypes.c_int,
+    ),
+    # pointers: emb, qfull, the four weights, m, dnum, dden, then demb,
+    # dqfull, dln1g, dln1b, dwk, dwv
+    "scldm_window_pool_backward": (
+        [_P] * 15
+        + [ctypes.c_int] * 5  # B, S, E, H, Q
+        + [ctypes.c_float, ctypes.c_float, _P],
+        ctypes.c_int,
+    ),
     "scldm_cuda_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 

@@ -58,11 +58,17 @@ class Encoder(nn.Module):
             LayerNormFP32(n_embed_latent, layernorm_eps, affine=False),
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.ca_layer(x) + self.pos_embed.to(x.dtype)
+    def trunk(self, x: torch.Tensor) -> torch.Tensor:
+        """Everything after the MCAB pooling, from the pooled (B, M, E) tokens
+        (JAX `skip_pool=True`): the frozen positional table, the blocks, the
+        latent projection and LN. The input of the fused encoder pools."""
+        x = x + self.pos_embed.to(x.dtype)
         for block in self.encoder_layers:
             x = block(x)
         return self.encoder_latent_input(x)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.trunk(self.ca_layer(x))
 
 
 class Decoder(nn.Module):

@@ -43,6 +43,7 @@ from scldm_torch.training import metrics as M
 from scldm_torch.training.ema import ema_init, ema_update
 from scldm_torch.training.optim import AdamW, wsd_schedule
 from scldm_torch.training.state import TrainState, create_train_state
+from scldm_torch.training.vae_task import _fused_window_ok, fused_window_pooling
 from scldm_torch.transport import Sampler, Transport
 
 
@@ -61,7 +62,8 @@ class LDMTask:
     `fused_training=None` takes the kernel path on CUDA tensors (the JAX
     rule is "on a TPU, with DiT dropout 0"; the port's DiT has no dropout),
     True on any device (on CPU tensors through the kernels' plain versions),
-    False never."""
+    False never. `fused_encode=None` resolves to False, as in JAX; the port
+    keeps the VAE frozen (JAX `train_vae=False`), where JAX allows it."""
 
     def __init__(
         self,
@@ -83,6 +85,7 @@ class LDMTask:
         ema_update_after_step: int = 10_000,
         calculate_grad_norms: bool = False,
         fused_training: Optional[bool] = None,
+        fused_encode: Optional[bool] = None,
     ):
         self.vae = vae
         self.dit = dit
@@ -90,6 +93,7 @@ class LDMTask:
         self.transport_sampler = Sampler(transport)
         self.calculate_grad_norms = calculate_grad_norms
         self.fused_training = fused_training
+        self.fused_encode = bool(fused_encode)
         self.grad_clip = grad_clip
         self.ema_cfg = dict(beta=ema_decay, update_every=ema_update_every,
                             update_after_step=ema_update_after_step)
@@ -121,6 +125,9 @@ class LDMTask:
         batch = widen_lean(batch)
         counts = batch.get(COUNTS, batch.get(C_SUB))
         genes = batch.get(GENES, batch.get(G_SUB))
+        if self.fused_encode and _fused_window_ok(self.vae):
+            emb = self.vae.input_layer(batch.get(C_SUB, counts), batch.get(G_SUB, genes))
+            return self.vae.encoder.trunk(fused_window_pooling(self.vae, emb)).float()
         return self.vae.encode(counts, genes, batch.get(C_SUB), batch.get(G_SUB)).float()
 
     def _use_fused(self, z: torch.Tensor) -> bool:

@@ -6,7 +6,11 @@ On the lean wire batch (expressed genes and counts only, uint16) the step
 decodes every gene through the fused decoder tail
 (`ops/fused_decoder.decoder_tail`: hand-written CUDA kernels, forward and
 backward, on a GPU), as the JAX task does on a TPU; otherwise it runs the
-plain module path.
+plain module path. Where the gene axis is about as long as the token window
+(parse1m / replogle shapes, G = S = 2,000) that path also pools the encoder's
+input over the dense gene axis (`fused_encoder_pooling`: the dense encoder
+pool kernels), exactly where JAX does; `VAETask(fused_pool=True)` pools the
+packed window through the window pool kernels instead (`fused_window_pooling`).
 """
 
 from __future__ import annotations
@@ -18,7 +22,8 @@ import torch
 from scldm_torch.nn.heads import NegativeBinomialTransformerHead
 from scldm_torch.nn.vae import TransformerVAE
 from scldm_torch.ops.distributions import log_nb_positive, nb_sample
-from scldm_torch.ops.fused_decoder import build_attention_operands, decoder_tail, pack_weights
+from scldm_torch.ops.fused_decoder import _bf, build_attention_operands, decoder_tail, pack_weights
+from scldm_torch.ops.fused_encoder import build_query_operand, encoder_pool, head_rows, window_pool
 from scldm_torch.ops.transforms import (
     COUNTS,
     COUNTS_SUBSET as C_SUB,
@@ -50,15 +55,120 @@ def _fused_path_ok(vae: TransformerVAE) -> bool:
     )
 
 
+def _fused_encoder_ok(vae: TransformerVAE) -> bool:
+    """The JAX gate of the dense encoder pool: embeddings that vanish at count
+    0 (log1p, the port's only input layer), no dropout (the port has none),
+    no qkv bias (the kernels omit it) and E <= 128. A width the CUDA kernels
+    are not compiled for (`ops/fused_encoder.KERNEL_SHAPES`) passes this gate
+    and raises at launch."""
+    ca = vae.encoder.ca_layer
+    return ca.attn.c_attn.bias is None and ca.ln_1.n <= 128
+
+
+def _fused_window_ok(vae: TransformerVAE) -> bool:
+    """The JAX gate of the window pool: any input layer, no qkv bias, and E
+    at one of the JAX kernel's two validated tile geometries (E <= 128 or
+    E >= 256)."""
+    ca = vae.encoder.ca_layer
+    return ca.attn.c_attn.bias is None and (ca.ln_1.n <= 128 or ca.ln_1.n >= 256)
+
+
+def _dense_pool_worth_it(n_genes: int, window_len: int) -> bool:
+    """JAX's dispatch ratio, kept as it is so that the port pools densely
+    exactly where JAX does: the dense pool does (padded G / S) times the
+    window's token work; JAX takes it when its 1024-row padded gene axis is
+    at most 1.3 times the window (tuned on a TPU: parse1m / replogle, G = S =
+    2,000, pass; dentate, G = 17,002 over S = 6,147, does not)."""
+    g_padded = n_genes + ((-n_genes) % min(1024, n_genes))
+    return g_padded <= int(1.3 * window_len)
+
+
+def _mcab_prep(vae: TransformerVAE):
+    """The pools' shared operands from the encoder's MCAB: the raw inducing
+    points, the block-diagonal query operand and the weight tuple (ln1g,
+    ln1b, wk, wv), (in, out) views of the module's parameters."""
+    ca = vae.encoder.ca_layer
+    E = ca.ln_1.n
+    inducing = ca.inducing_points.float()  # (Q, E)
+    qfull = build_query_operand(ca.attn.c_attn_q(ca.ln_1q(inducing)), ca.attn.n_head)
+    wk, wv = ca.attn.c_attn.weight.t().chunk(2, dim=1)
+    weights = (ca.ln_1.weight.reshape(1, E), ca.ln_1.bias.reshape(1, E),
+               wk.contiguous(), wv.contiguous())
+    return inducing, qfull.contiguous(), weights
+
+
+def _mcab_finish(ca, inducing, qfull, weights, num, den, m, corr: int) -> torch.Tensor:
+    """The MCAB after the pool (JAX `_mcab_finish`): the closed-form
+    correction of `corr` zero-embedding rows, num / den, the output
+    projection, the residual on the raw inducing points, then ln_2 and the
+    SwiGLU. `num` holds the head-diagonal blocks, (B, Q, E)."""
+    n_head = ca.attn.n_head
+    E = num.shape[-1]
+    hd = E // n_head
+    if corr:
+        # a zero embedding: LN(0) = ln1b, then the kernels' rounding points
+        x0 = weights[1]
+        k0 = _bf(x0) @ _bf(weights[2])
+        v0 = _bf(x0) @ _bf(weights[3])
+        s0 = (_bf(k0) @ _bf(qfull).t()) * hd**-0.5  # (1, Q*H)
+        e0 = torch.exp(s0 - m)  # (B, Q*H)
+        den = den - corr * e0
+        num = num - corr * head_rows(e0, n_head, hd) * v0
+    y = ca.attn.c_proj(num / head_rows(den, n_head, hd))
+    out = inducing[None] + y
+    return out + ca.mlp(ca.ln_2(out))
+
+
+def fused_encoder_pooling(vae: TransformerVAE, counts_dense: torch.Tensor,
+                          window_len: int) -> torch.Tensor:
+    """The encoder's input embedding and MCAB pooling over the dense gene
+    axis (`ops/fused_encoder.encoder_pool`) -> the pooled (B, M, E) tokens,
+    as `vae.encoder.ca_layer(vae.input_layer(...))` over the packed window of
+    `window_len` tokens. The kernel streams all G genes: the window holds
+    S - nnz zero-embedding rows and the gene axis G - nnz, so G - S of them
+    are taken out in closed form (JAX: its padded gene axis minus S; the same
+    function). log1p input only."""
+    inducing, qfull, weights = _mcab_prep(vae)
+    ca = vae.encoder.ca_layer
+    table = vae.input_layer.gene_embedding.weight[1:]  # canonical genes 1..G
+    num, den, m = encoder_pool(counts_dense.float(), table, qfull, weights, ca.attn.n_head,
+                               ca.ln_1.eps)
+    return _mcab_finish(ca, inducing, qfull, weights, num, den, m,
+                        counts_dense.shape[1] - window_len)
+
+
+def fused_window_pooling(vae: TransformerVAE, emb: torch.Tensor) -> torch.Tensor:
+    """MCAB pooling of the packed (B, S, E) window (`vae.input_layer`'s
+    output) through `ops/fused_encoder.window_pool` -> (B, M, E). Padding
+    rows inside the window are real tokens, as in the module; the kernel
+    pads nothing, so nothing is corrected (JAX: its padded window minus S)."""
+    inducing, qfull, weights = _mcab_prep(vae)
+    ca = vae.encoder.ca_layer
+    num, den, m = window_pool(emb.float().contiguous(), qfull, weights, ca.attn.n_head,
+                              ca.ln_1.eps)
+    return _mcab_finish(ca, inducing, qfull, weights, num, den, m, 0)
+
+
 def fused_nb_apply(
     vae: TransformerVAE, batch: Dict, batch_chunk: Optional[int] = None
 ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """`TransformerVAE.forward` with the decoder's cross block and the NB
-    head's mu logit as the fused tail, over the canonical gene list 1..G:
-    the encoder and the decoder's trunk run as modules; no (B, G, E) tensor
+    head's mu logit as the fused tail, over the canonical gene list 1..G;
+    where JAX's gate holds (`_fused_encoder_ok`, `_dense_pool_worth_it`) the
+    encoder's input embedding and MCAB pooling are the dense pool. The
+    encoder's and the decoder's trunks run as modules; no (B, G, E) tensor
     is formed. `batch_chunk` splits the tail into launches over batch slices
     of that size. Differentiable end to end. Returns ({"mu", "theta"}, h_z)."""
-    h_z = vae.encoder(vae.input_layer(batch[C_SUB], batch[G_SUB]))
+    if (
+        _fused_encoder_ok(vae)
+        and COUNTS in batch
+        and G_SUB in batch
+        and _dense_pool_worth_it(batch[COUNTS].shape[1], batch[G_SUB].shape[1])
+    ):
+        pooled = fused_encoder_pooling(vae, batch[COUNTS], batch[G_SUB].shape[1])
+        h_z = vae.encoder.trunk(pooled)
+    else:
+        h_z = vae.encoder(vae.input_layer(batch[C_SUB], batch[G_SUB]))
     x = vae.decoder.trunk(h_z)  # (B, M, E) pre-cross latents
 
     ca = vae.decoder.decoder_cross_attention
@@ -119,7 +229,10 @@ class VAETask:
     True takes it on any device where the architecture qualifies (on CPU
     tensors through the plain version of the kernels), False never. `fused_batch_chunk` splits the tail into
     launches over batch slices of that size; the CUDA kernels have no batch
-    ceiling, so nothing splits them unless asked."""
+    ceiling, so nothing splits them unless asked. `fused_pool=True` (off
+    unless asked, as in JAX) pools the encoder's packed window through the
+    window pool kernels on the module path (`_apply`: with
+    `fused_decoder=False`, a dense batch, or in `eval_step`)."""
 
     def __init__(
         self,
@@ -139,8 +252,10 @@ class VAETask:
         calculate_grad_norms: bool = False,
         fused_decoder: Optional[bool] = None,
         fused_batch_chunk: Optional[int] = None,
+        fused_pool: Optional[bool] = None,
     ):
         self.vae = vae
+        self.fused_pool = bool(fused_pool) and _fused_window_ok(vae)
         self.calculate_grad_norms = calculate_grad_norms
         self.fused_decoder = fused_decoder if fused_decoder is None else bool(fused_decoder)
         self.fused_batch_chunk = fused_batch_chunk
@@ -184,7 +299,10 @@ class VAETask:
         return out
 
     def _apply(self, batch: Dict) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
-        """The module path: `TransformerVAE.forward`."""
+        """The module path: `TransformerVAE.forward`, its MCAB pooling the
+        window pool with `fused_pool`."""
+        if self.fused_pool:
+            return self._apply_fused_pool(batch)
         return self.vae(
             counts=batch[COUNTS],
             genes=batch[GENES],
@@ -192,6 +310,17 @@ class VAETask:
             counts_subset=batch.get(C_SUB, batch[COUNTS]),
             genes_subset=batch.get(G_SUB, batch[GENES]),
         )
+
+    def _apply_fused_pool(self, batch: Dict) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+        """`TransformerVAE.forward` with the MCAB pooling as the window pool
+        (JAX `_apply_fused_pool`); the trunks, the decoder and the head stay
+        modules."""
+        vae = self.vae
+        emb = vae.input_layer(batch.get(C_SUB, batch[COUNTS]), batch.get(G_SUB, batch[GENES]))
+        h_z = vae.encoder.trunk(fused_window_pooling(vae, emb))
+        genes = batch[GENES]
+        h_x = vae.decoder(h_z, vae.input_layer.embed_genes(genes))
+        return vae._head_params(h_x, genes, batch[LIB]), h_z
 
     def _use_fused(self, batch: Dict) -> bool:
         """The kernel path needs a lean batch (the canonical gene list) and an

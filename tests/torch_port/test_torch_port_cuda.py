@@ -13,7 +13,11 @@ operands to bf16 and accumulate in f32, so a different summation order
 flips a bf16 rounding now and then, which moves an entry by up to about 1%
 of its tensor's largest magnitude: the logits and each gradient are held
 within 1e-2 of that magnitude everywhere, and within 1e-4 of it on all but
-5% of the entries (chip_smoke.py's phase 1b holds the same bounds)."""
+5% of the entries (chip_smoke.py's phase 1b holds the same bounds). The
+encoder pools round the same operands as their plain versions and sum in
+another order too (the backward's with atomics): the tail's bounds for den,
+m and every gradient, and for num within 3e-4 rather than 1e-4 on all but 5%
+of the entries (see `assert_pool_close`; chip_smoke.py's phase 1d)."""
 
 import numpy as np
 import pytest
@@ -21,6 +25,7 @@ import torch
 
 from scldm_torch.ops import fused_decoder as tail
 from scldm_torch.ops import fused_dit as port
+from scldm_torch.ops import fused_encoder as fe
 
 pytestmark = [
     pytest.mark.cuda,
@@ -195,3 +200,97 @@ def test_decoder_tail_on_a_device_other_than_the_current():
     torch.cuda.synchronize(1)
     assert got[0].device == x["qp"].device and torch.cuda.current_device() == 0
     assert_tail_close(got, tail_outputs_and_grads(tail.decoder_tail_reference, x))
+
+
+POOL_E, POOL_H, POOL_Q = 32, 4, 16  # the reference encoder's MCAB
+
+
+def _pool_inputs(variant, B, N, device, seed=0):
+    """Counts and a table (dense) or an embedding window, the MCAB's query
+    and weights, and the cotangents of num and den."""
+    rng = np.random.default_rng(seed)
+    E, Q = POOL_E, POOL_Q
+
+    def f(*s, scale=1.0, shift=0.0):
+        return torch.from_numpy((rng.normal(size=s) * scale + shift).astype(np.float32)).to(device)
+
+    x = dict(src=f(N, E) if variant == "dense" else f(B, N, E), q=f(Q, E),
+             ln1g=f(1, E, scale=0.3, shift=1.0), ln1b=f(1, E, scale=0.3),
+             wk=f(E, E, scale=E**-0.5), wv=f(E, E, scale=E**-0.5))
+    counts = None
+    if variant == "dense":
+        counts = torch.from_numpy((rng.poisson(3.0, (B, N)) * (rng.random((B, N)) < 0.6))
+                                  .astype(np.float32)).to(device)
+    return counts, x, (f(B, Q, E), f(B, Q * POOL_H))
+
+
+def pool_outputs_and_grads(fn, counts, x, cot):
+    """(num, den, m) of `fn` (a pool or its plain version) and the gradients
+    of the source, the query and the weights for the cotangents `cot`."""
+    leaves = {k: t.detach().clone().requires_grad_() for k, t in x.items()}
+    qfull = fe.build_query_operand(leaves["q"], POOL_H)
+    args = (leaves["src"],) if counts is None else (counts, leaves["src"])
+    num, den, m = fn(*args, qfull, [leaves[k] for k in fe.WEIGHT_NAMES], POOL_H, 1e-8)
+    torch.autograd.backward((num, den), cot)
+    return {"num": num.detach(), "den": den.detach(), "m": m,
+            **{f"d{k}": t.grad for k, t in leaves.items()}}
+
+
+def assert_pool_close(got, want):
+    """The tail's bounds: the pools round the same operands to bf16 as their
+    plain versions and sum in another order (atomics in the backward). num
+    is held to 3e-4 where the rest is held to 1e-4: the forward rounds each
+    exponential against its tile's running max and the plain version
+    against the final max, and the dense pool's identical zero-count rows
+    move num together (chip_smoke.POOL_NUM_NEAR)."""
+    for k, w in want.items():
+        scale = w.abs().max()
+        d = (got[k] - w).abs()
+        assert scale > 0, k
+        assert d.max() <= 1e-2 * scale, k
+        assert (d > (3e-4 if k == "num" else 1e-4) * scale).float().mean() <= 5e-2, k
+
+
+# ragged: B not a multiple of the backward's 16 cells, N of its 128 tokens
+# or the forward's 256
+@pytest.mark.parametrize("variant,B,N", [("dense", 19, 300), ("window", 19, 250)])
+def test_encoder_pools_match_reference_on_gpu(variant, B, N):
+    counts, x, cot = _pool_inputs(variant, B, N, "cuda")
+    pool, reference = ((fe.encoder_pool, fe.encoder_pool_reference) if variant == "dense"
+                       else (fe.window_pool, fe.window_pool_reference))
+    counters = ((fe.ENCODER_POOL_FWD_LAUNCHES, fe.ENCODER_POOL_BWD_LAUNCHES) if variant == "dense"
+                else (fe.WINDOW_POOL_FWD_LAUNCHES, fe.WINDOW_POOL_BWD_LAUNCHES))
+    before = [c.count for c in counters]
+    got = pool_outputs_and_grads(pool, counts, x, cot)
+    torch.cuda.synchronize()
+    assert [c.count for c in counters] == [n + 1 for n in before]
+    assert_pool_close(got, pool_outputs_and_grads(reference, counts, x, cot))
+
+
+def test_encoder_pool_width_outside_kernel_shapes_raises_on_gpu():
+    """E=64 with 4 heads passes the JAX gate (E <= 128) but has no kernel:
+    on CUDA tensors it raises instead of taking the plain version."""
+    E, Q = 64, POOL_Q
+    emb = torch.randn(2, 10, E, device="cuda")
+    qfull = fe.build_query_operand(torch.randn(Q, E, device="cuda"), POOL_H)
+    weights = [torch.ones(1, E, device="cuda"), torch.zeros(1, E, device="cuda"),
+               torch.randn(E, E, device="cuda"), torch.randn(E, E, device="cuda")]
+    with pytest.raises(ValueError, match="built for"):
+        fe.window_pool(emb, qfull, weights, POOL_H)
+    with pytest.raises(ValueError, match="built for"):
+        fe.encoder_pool(torch.ones(2, 10, device="cuda"), emb[0].contiguous(), qfull, weights,
+                        POOL_H)
+
+
+@pytest.mark.skipif(torch.cuda.device_count() < 2, reason="needs two GPUs")
+@pytest.mark.parametrize("variant", ["dense", "window"])
+def test_encoder_pools_on_a_device_other_than_the_current(variant):
+    pool, reference = ((fe.encoder_pool, fe.encoder_pool_reference) if variant == "dense"
+                       else (fe.window_pool, fe.window_pool_reference))
+    pool_outputs_and_grads(pool, *_pool_inputs(variant, 3, 40, "cuda:0"))
+    torch.cuda.synchronize(0)
+    counts, x, cot = _pool_inputs(variant, 19, 300, "cuda:1", seed=1)
+    got = pool_outputs_and_grads(pool, counts, x, cot)
+    torch.cuda.synchronize(1)
+    assert got["num"].device == x["src"].device and torch.cuda.current_device() == 0
+    assert_pool_close(got, pool_outputs_and_grads(reference, counts, x, cot))

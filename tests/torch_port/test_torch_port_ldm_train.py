@@ -35,7 +35,7 @@ from scldm_tpu.transport.transport import mean_flat as jax_mean_flat
 from scldm_tpu.utils.torch_import import export_torch_state_dict
 from scldm_torch.nn.nnets import DiT
 from scldm_torch.nn.vae import build_transformer_vae
-from scldm_torch.ops import fused_dit
+from scldm_torch.ops import fused_dit, fused_encoder
 from scldm_torch.ops.transforms import canonical_gene_ids
 from scldm_torch.sampling.size_factors import SizeFactorSampler, constant_stats
 from scldm_torch.training.ema import current_decay, ema_init, ema_update
@@ -349,6 +349,33 @@ def test_grouped_grad_norms_match_jax(setup):
                                float(want["grad_norm/diffusion/t_embedder"]), rtol=1e-5)
     blocks = np.sqrt(sum(float(want[f"grad_norm/diffusion/block_{i}"]) ** 2 for i in range(2)))
     np.testing.assert_allclose(float(got["grad_norm/diffusion/blocks"]), blocks, rtol=1e-5)
+
+
+def test_fused_encode_matches_jax(setup):
+    """`LDMTask(fused_encode=True)`: the frozen encode pools the token window
+    through the window pool (its plain version on CPU tensors), as JAX's
+    does through its Pallas kernel in interpret mode. Both round the same
+    operands to bf16 in one tile: latents within 1e-4 of their largest
+    magnitude; against the module encode, JAX's own bound of 0.02."""
+    jtask, vae_params, state, batch = setup
+    jfused = JaxLDMTask(jtask.vae, vae_params, jtask.dit, jax_create_transport(),
+                        fused_encode=True, **TASK)
+    jfused.fused_encode_interpret = True
+    want = np.asarray(jfused._encode(batch))
+    task, _ = port_task(jtask, vae_params, state, fused_encode=True)
+    module, _ = port_task(jtask, vae_params, state)
+    assert task.fused_encode and not module.fused_encode
+    calls = []
+    real = fused_encoder._WindowPool.apply
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(fused_encoder._WindowPool, "apply", lambda *a: calls.append(1) or real(*a))
+        got = task._encode(to_torch(batch)).numpy()
+        plain = module._encode(to_torch(batch)).numpy()
+    assert len(calls) == 1
+    mag = np.abs(want).max()
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() < 1e-4 * mag
+    assert np.abs(got - plain).max() < 0.02 * np.abs(plain).max()
 
 
 @pytest.mark.parametrize("use_ema", [False, True])

@@ -28,7 +28,7 @@ from scldm_tpu.training.vae_task import fused_nb_apply as jax_fused_nb_apply
 from scldm_tpu.training.vae_task import vae_loss as jax_vae_loss
 from scldm_tpu.utils.torch_import import export_torch_state_dict
 from scldm_torch.nn.vae import build_transformer_vae
-from scldm_torch.ops import fused_decoder
+from scldm_torch.ops import fused_decoder, fused_encoder
 from scldm_torch.ops import transforms as ttr
 from scldm_torch.ops.distributions import log_nb_positive
 from scldm_torch.training import metrics as TM
@@ -51,14 +51,14 @@ def _exact_matmuls():
         yield
 
 
-def lean_batch(n_cells=B, seed=0, dtype=np.int32):
+def lean_batch(n_cells=B, seed=0, dtype=np.int32, window=S):
     """The bench's lean wire batch at a small size: expressed gene ids and
-    counts, zero-padded to S tokens."""
+    counts, zero-padded to a window of `window` tokens."""
     rng = np.random.default_rng(seed)
-    gs = np.zeros((n_cells, S), dtype)
-    cs = np.zeros((n_cells, S), dtype)
+    gs = np.zeros((n_cells, window), dtype)
+    cs = np.zeros((n_cells, window), dtype)
     for i in range(n_cells):
-        nnz = int(rng.integers(5, S))
+        nnz = int(rng.integers(5, window))
         idx = np.sort(rng.choice(G, nnz, replace=False))
         gs[i, :nnz] = idx + 1
         cs[i, :nnz] = rng.poisson(3.0, nnz) + 1
@@ -295,6 +295,43 @@ def test_train_step_matches_jax(setup, path):
         moved = np.abs(got[name] - before[name].numpy())
         assert np.abs(got[name] - w)[sure].max(initial=0.0) <= 0.1 * step, name
         assert np.all(moved <= 1.01 * step), name
+
+
+DENSE_S = 50  # a window that passes JAX's dense-pool gate: G = 60 <= 1.3 * 50
+
+
+@pytest.fixture(scope="module")
+def dense_setup():
+    with jax.default_matmul_precision("highest"):
+        jvae = jax_build_vae(n_genes=G)
+        jtask = JaxVAETask(jvae, **TASK)
+        state = jtask.init_state(jax.random.PRNGKey(1), to_jax(lean_batch(window=DENSE_S)))
+    return jvae, jtask, state
+
+
+def test_dense_pool_train_step_matches_jax(dense_setup):
+    """At parse1m-like proportions (G=60 genes, a window of S=50 tokens)
+    `fused_nb_apply` pools the encoder's input over the dense gene axis, as
+    JAX's does: one call of the dense pool per step (its plain version here,
+    no kernel launch). One train step's loss, grad norm and clipped gradients
+    match JAX's (its dense pool and tail in Pallas interpret mode) at the
+    kernel path's bounds."""
+    jvae, jtask, state = dense_setup
+    _, jgrad, want = _jax_kernel_path_step(jvae, jtask, state, to_jax(lean_batch(window=DENSE_S)))
+    task, tstate = port_task(state, fused_decoder=True)
+    calls = []
+    real = fused_encoder._EncoderPool.apply
+    launches = fused_encoder.ENCODER_POOL_FWD_LAUNCHES.count
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(fused_encoder._EncoderPool, "apply",
+                   lambda *a: calls.append(tuple(a[0].shape)) or real(*a))
+        tstate, mets = task.train_step(tstate, to_torch(lean_batch(window=DENSE_S, dtype=np.uint16)))
+        task.loss(to_torch(lean_batch()))  # a window of S=20: the gate is off
+    assert calls == [(B, G)]
+    assert fused_encoder.ENCODER_POOL_FWD_LAUNCHES.count == launches  # CPU: the plain version
+    for k in ("train_loss", "grad_norm", "train_theta"):
+        np.testing.assert_allclose(float(mets[k]), float(want[k]), rtol=1e-3)
+    assert_grads_close(tstate.module, jgrad, 2e-2, skip=("decoder_head.params.bias",))
 
 
 def test_train_steps_means_and_eval(setup):
