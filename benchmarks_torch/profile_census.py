@@ -1,0 +1,143 @@
+#!/usr/bin/env python3
+"""Where the time of one census-width VAE training step goes, on one NVIDIA GPU.
+
+    python3 benchmarks_torch/profile_census.py
+
+The census VAE of `chip_smoke.py` (configs/model/vae_census.yaml: E=512, 16
+layers, 64 inducing points, G=36,601 genes; f32, no remat) with random
+weights from seed 0, on B=16 lean batches over a 4,096-token window made like
+benchmarks/bench_census.py's, through the algebraic tail, twice: with the
+`swiglu_vec` kernels (`VAETask(algebraic_fused_gate=True)`) and with the
+plain algebraic path. For each: a warm-up step, five unprofiled
+`VAETask.train_step` calls (their median, and the peak device memory over
+them), three steps' forward, backward and clip-plus-optimizer segments
+(each ending in a synchronize; the last is `VAETask.apply_gradients`), then
+PROFILED_STEPS more steps traced with `torch.profiler`: the device's busy
+time (the union of its kernels' spans) and kernels per step, the idle share
+of the unprofiled median, the time and share of busy time of the swiglu_vec
+kernels, and the profiler's table of the operators that took the most device
+time.
+"""
+
+from __future__ import annotations
+
+import statistics
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+SEED = 0
+PROFILED_STEPS = 2
+UNPROFILED_STEPS = 5
+
+
+def short(kname: str) -> str:
+    """A kernel's name without its return type, namespace and arguments."""
+    return kname.replace("void ", "").replace("(anonymous namespace)::", "").split("(")[0]
+
+
+def profile_step(cs, busy_us, vae, fused_gate: bool) -> None:
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from scldm_torch.training.vae_task import VAETask
+
+    name = "fused gate" if fused_gate else "plain algebraic"
+    G, B, S = cs.CENSUS["n_genes"], cs.CENSUS_BATCH, cs.CENSUS_WINDOW
+    task = VAETask(vae, learning_rate=3e-4, betas=(0.9, 0.95), algebraic_fused_gate=fused_gate)
+    state = task.init_state(torch.Generator(device="cuda").manual_seed(SEED))
+    rng = np.random.default_rng(SEED)
+    batches = [{k: torch.from_numpy(v).to("cuda")
+                for k, v in cs.lean_batch(rng, B, G, S, (S // 2, S)).items()} for _ in range(2)]
+
+    state, _ = task.train_step(state, batches[0])  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for i in range(UNPROFILED_STEPS):
+        t0 = time.perf_counter()
+        state, _ = task.train_step(state, batches[i % 2])
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    seg = {"forward": [], "backward": [], "clip+optimizer": []}
+    for i in range(3):
+        state.optimizer.zero_grad(set_to_none=True)
+        t0 = time.perf_counter()
+        loss, _ = task.loss(batches[i % 2])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        task.apply_gradients(state)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for k, dt in zip(seg, (t1 - t0, t2 - t1, t3 - t2)):
+            seg[k].append(round(dt * 1e3, 2))
+    print(f"== census {name}: segments ms (3 steps, each synchronised): {seg}", flush=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(PROFILED_STEPS):
+            state, _ = task.train_step(state, batches[i % 2])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device kernels only: not the device-side spans of record_function ranges
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and not e.name.startswith(("cuda", "Command Buffer", "Optimizer."))]
+    if not kernels:
+        raise RuntimeError("the trace holds no device kernel")
+    spans = ((e.time_range.start, e.time_range.end) for e in kernels)
+    busy_ms = busy_us(spans) / 1e3 / PROFILED_STEPS
+    median = statistics.median(walls)
+    print(f"== census {name} VAE train step B={B} G={G} S={S}: unprofiled walls ms "
+          f"{[round(w, 2) for w in walls]} (median {median:.2f}, {B / median * 1e3:.1f} train "
+          f"cells/s), peak memory {peak / 2**30:.2f} GiB, profiled wall "
+          f"{wall_ms / PROFILED_STEPS:.2f} ms per step, device busy {busy_ms:.2f} ms per step over "
+          f"{len(kernels) / PROFILED_STEPS:.0f} kernels, idle share of the unprofiled median "
+          f"{1 - busy_ms / median:.4f}", flush=True)
+    ours = [e for e in kernels if "swiglu_vec_" in e.name]
+    for kname in sorted({short(e.name) for e in ours}):
+        evs = [e for e in ours if short(e.name) == kname]
+        ms = sum(e.time_range.end - e.time_range.start for e in evs) / 1e3 / PROFILED_STEPS
+        print(f"   {kname}: {ms:.3f} ms per step over {len(evs) / PROFILED_STEPS:.0f} launches, "
+              f"share of busy {ms / busy_ms:.4f}", flush=True)
+    ms = sum(e.time_range.end - e.time_range.start for e in ours) / 1e3 / PROFILED_STEPS
+    print(f"   all swiglu_vec kernels: {ms:.3f} ms per step, share of busy {ms / busy_ms:.4f}",
+          flush=True)
+    print(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=12,
+                                    max_name_column_width=60), flush=True)
+    del state
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("profile_census: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(ROOT / "benchmarks_torch"))
+    import chip_smoke as cs
+    from profile_generation import busy_us
+
+    from scldm_torch.nn.vae import build_transformer_vae
+    from scldm_torch.utils.weights import init_reference_
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    vae = init_reference_(build_transformer_vae(**cs.CENSUS, device="cuda"),
+                          torch.Generator(device="cuda").manual_seed(SEED))
+    for fused_gate in (True, False):
+        profile_step(cs, busy_us, vae, fused_gate)
+        torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

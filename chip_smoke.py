@@ -33,9 +33,17 @@ replogle VAE (G = S = 2,000) the same way, each step through the dense
 encoder pool and the tail kernels once each way, holds one step against the
 module path, then takes a few steps of `VAETask(fused_pool=True,
 fused_decoder=False)` through the window pool and holds one against the
-module path. The line before the last is a JSON summary of the kernels, each
-with its time beside the least time the card could take for the same work;
-the last is {"ok": true, "device": {...}}. Any failure raises, so the script
+module path. Phase 1e holds the swiglu_vec kernels (forward and backward)
+against their plain version at the census decoder's shape (R = 16 x 36,601
+rows, E = 512, Hd = 1,408) and two ragged ones, timing both, with TF32 off.
+Phase 6 trains the census VAE (configs/model/vae_census.yaml: E = 512, 16
+layers, 64 inducing points, G = 36,601 genes, a 4,096-token window, B = 16)
+through the algebraic tail with `VAETask(algebraic_fused_gate=True)`, checks
+that each step launched the swiglu_vec kernels once each way and that the
+loss falls, holds one step against the plain algebraic path and times both
+paths with their peak memory. The line before the last is a JSON summary of
+the kernels, each with its time beside the least time the card could take
+for the same work; the last is {"ok": true, "device": {...}}. Any failure raises, so the script
 exits non-zero and prints no result; so does a machine without CUDA, or a
 directory without the port's sources.
 """
@@ -64,6 +72,12 @@ TRAIN_STEPS = 10  # timed steps, after one warm-up step
 # parse1m / replogle (configs/datamodule/default.yaml:87-121): G = S = 2,000
 PARSE_GENES = 2_000
 POOL_STEPS = 3  # VAETask(fused_pool=True) steps, after one warm-up step
+# the census VAE (configs/model/vae_census.yaml; benchmarks/bench_census.py's
+# batch): f32 and no remat, the port's two cuts of the config
+CENSUS = dict(n_genes=36_601, n_embed=512, n_embed_latent=64, n_layer=16, n_inducing_points=64,
+              n_head=8, n_head_cross=8, multiple_of=64)
+CENSUS_BATCH, CENSUS_WINDOW, CENSUS_HIDDEN = 16, 4_096, 1_408
+CENSUS_STEPS = 10  # timed steps, after one warm-up step; 3 if the warm-up step takes over 2 s
 EPS = 1e-8  # the DiT's LayerNorm eps
 # the H100 SXM's published peaks (NVIDIA's data sheet, dense), at 700 W
 HBM_BYTES_PER_S = 3.35e12
@@ -428,8 +442,8 @@ def phase1d_encoder_pool(seed: int) -> dict:
     # the pooled tokens with G - S = 50 zero rows taken out, on MCAB weights
     # with non-zero LayerNorm biases, against the module on the window
     G, S, B = 300, 250, 19
-    vae = init_reference_(build_transformer_vae(n_genes=G, n_layer=1),
-                          torch.Generator().manual_seed(seed)).to("cuda")
+    vae = init_reference_(build_transformer_vae(n_genes=G, n_layer=1, device="cuda"),
+                          torch.Generator(device="cuda").manual_seed(seed))
     with torch.no_grad():
         for p in vae.encoder.ca_layer.parameters():
             p.add_(rnd(*p.shape, scale=0.2))
@@ -448,6 +462,80 @@ def phase1d_encoder_pool(seed: int) -> dict:
     return out
 
 
+def swiglu_vec_bound(R: int, E: int, Hd: int, backward: bool) -> dict:
+    """swiglu_vec over R rows, exact f32, so the f32 peak: the up projection
+    2*R*E*2Hd plus the wv contraction 2*R*Hd operations, three times that for
+    the backward; the gate is left out. Bytes: x, w12 and wv in and out (R)
+    out; the backward reads ds (R) too and writes dx (R, E), dw12 and dwv."""
+    flops = 2 * R * E * 2 * Hd + 2 * R * Hd
+    weights = E * 2 * Hd + Hd
+    if backward:
+        return bound(4 * (R * E + R + weights + R * E + weights), 3 * flops, F32_FLOPS)
+    return bound(4 * (R * E + weights + R), flops, F32_FLOPS)
+
+
+def check_f32_matmuls() -> None:
+    """The plain versions are the f32 yardstick: no TF32 in their products."""
+    import torch
+
+    if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("TF32 is on: the plain f32 versions would not be exact f32")
+
+
+def phase1e_swiglu_vec(seed: int) -> tuple[dict, dict]:
+    """swiglu_vec (forward and backward kernels) against its plain version
+    with autograd at the census decoder's rows (R = 16 x 36,601, E = 512, Hd =
+    1,408), a ragged R and a hidden width off the kernel's 64-column tile;
+    out, dx, dw12 and dwv each within 1e-4 of its tensor's largest magnitude
+    (f32 both, sums in another order); kernel and plain timed in turns."""
+    import torch
+
+    from scldm_torch.ops import fused_swiglu as fs
+
+    check_f32_matmuls()
+    g = torch.Generator(device="cuda").manual_seed(seed + 6)
+    census = (CENSUS_BATCH * CENSUS["n_genes"], CENSUS["n_embed"], CENSUS_HIDDEN)
+    errs, timing = {}, {}
+    for R, E, Hd in (census, (1_001, 512, 1_408), (1_001, 512, 1_400)):
+        x = torch.randn(R, E, generator=g, device="cuda")
+        w12 = torch.randn(E, 2 * Hd, generator=g, device="cuda") * E**-0.5
+        wv = torch.randn(Hd, 1, generator=g, device="cuda") * Hd**-0.5
+        ds = torch.randn(R, 1, generator=g, device="cuda")
+        got = {"out": fs.swiglu_vec_fwd(x, w12, wv),
+               **dict(zip(("dx", "dw12", "dwv"), fs.swiglu_vec_bwd(x, w12, wv, ds)))}
+        torch.cuda.synchronize()
+        want = {"out": fs.swiglu_vec_reference(x, w12, wv), **dict(zip(
+            ("dx", "dw12", "dwv"), fs.swiglu_vec_backward_reference(x, w12, wv, ds)))}
+        report = []
+        for k, w in want.items():
+            err, scale = (got[k] - w).abs().max().item(), w.abs().max().item()
+            if scale == 0 or err > 1e-4 * scale:
+                raise AssertionError(f"swiglu_vec {k} at R={R}, E={E}, Hd={Hd}: max abs err "
+                                     f"{err:.3e}, max |ref| {scale:.3e}")
+            part = "fwd" if k == "out" else "bwd"
+            errs[part] = max(errs.get(part, 0.0), err)
+            report.append(f"{k} {err:.2e} ({err / scale:.1e} of max)")
+        log(f"phase1e swiglu_vec R={R} E={E} Hd={Hd}: " + ", ".join(report))
+        del got, want
+        if (R, E, Hd) != census:
+            continue
+        fns = {"fwd": (lambda: fs.swiglu_vec_fwd(x, w12, wv),
+                       lambda: fs.swiglu_vec_reference(x, w12, wv)),
+               "bwd": (lambda: fs.swiglu_vec_bwd(x, w12, wv, ds),
+                       lambda: fs.swiglu_vec_backward_reference(x, w12, wv, ds))}
+        for part, (kernel, plain) in fns.items():
+            for f in (kernel, plain):
+                cuda_ms(f, 1)  # warm-up
+            turns = [cuda_ms(f, 2) for f in (plain, kernel, kernel, plain)]
+            timing[part] = ((turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2)
+            log(f"phase1e swiglu_vec_{part} R={R} E={E} Hd={Hd}: kernel {timing[part][0]:.4f} ms  "
+                f"plain {timing[part][1]:.4f} ms")
+        del x, w12, wv, ds, fns
+        torch.cuda.empty_cache()
+    return tuple({"max_abs_err": errs[part], "ms": timing[part][0], "plain_ms": timing[part][1]}
+                 for part in ("fwd", "bwd"))
+
+
 def build_models(seed: int):
     import torch
 
@@ -455,11 +543,11 @@ def build_models(seed: int):
     from scldm_torch.nn.vae import build_transformer_vae
     from scldm_torch.utils.weights import init_reference_
 
-    g = torch.Generator().manual_seed(seed)
-    vae = init_reference_(build_transformer_vae(n_genes=N_GENES), g)
+    vae = init_reference_(build_transformer_vae(n_genes=N_GENES, device="cuda"),
+                          torch.Generator(device="cuda").manual_seed(seed))
     # the zero-init layers (adaLN, final linear) drawn too: a zero DiT is the identity
-    dit = init_reference_(DiT(**DIT), g, zero_init=False)
-    return vae.to("cuda").eval(), dit.to("cuda").eval()
+    dit = init_reference_(DiT(**DIT), torch.Generator().manual_seed(seed), zero_init=False)
+    return vae.eval(), dit.to("cuda").eval()
 
 
 def phase2_generation(seed: int, batch: int) -> int:
@@ -565,8 +653,9 @@ def phase3_training(seed: int, batch: int) -> tuple[int, int]:
     from scldm_torch.training.vae_task import VAETask
     from scldm_torch.utils.weights import init_reference_
 
-    vae = init_reference_(build_transformer_vae(n_genes=N_GENES), torch.Generator().manual_seed(seed))
-    task = VAETask(vae.to("cuda"), num_training_steps=10_000)
+    vae = init_reference_(build_transformer_vae(n_genes=N_GENES, device="cuda"),
+                          torch.Generator(device="cuda").manual_seed(seed))
+    task = VAETask(vae, num_training_steps=10_000)
     state = task.init_state(torch.Generator(device="cuda").manual_seed(seed))
     rng = np.random.default_rng(seed)
     batches = [{k: torch.from_numpy(v).to("cuda") for k, v in lean_batch(rng, batch).items()}
@@ -649,8 +738,8 @@ def phase5_parse1m_training(seed: int, batch: int) -> dict:
     from scldm_torch.training.vae_task import VAETask
     from scldm_torch.utils.weights import init_reference_
 
-    vae = init_reference_(build_transformer_vae(n_genes=PARSE_GENES),
-                          torch.Generator().manual_seed(seed)).to("cuda")
+    vae = init_reference_(build_transformer_vae(n_genes=PARSE_GENES, device="cuda"),
+                          torch.Generator(device="cuda").manual_seed(seed))
     task = VAETask(vae, num_training_steps=10_000)
     state = task.init_state(torch.Generator(device="cuda").manual_seed(seed))
     rng = np.random.default_rng(seed)
@@ -720,6 +809,97 @@ def phase5_parse1m_training(seed: int, batch: int) -> dict:
         f"({abs(lp - lm) / abs(lm):.2e} relative), grad norm {norm_p:.4f} vs {norm_m:.4f} "
         f"({abs(norm_p - norm_m) / norm_m:.2e})")
     return launches
+
+
+def phase6_census_training(seed: int) -> tuple[int, int]:
+    """VAE training at census width through the algebraic tail and the
+    swiglu_vec kernels, then the plain algebraic path for comparison; returns
+    the main path's (forward, backward) swiglu_vec launches."""
+    import numpy as np
+    import torch
+
+    from scldm_torch.nn.vae import build_transformer_vae
+    from scldm_torch.ops import fused_swiglu as fs
+    from scldm_torch.training.vae_task import VAETask
+    from scldm_torch.utils.weights import init_reference_
+
+    check_f32_matmuls()
+    vae = init_reference_(build_transformer_vae(**CENSUS, device="cuda"),
+                          torch.Generator(device="cuda").manual_seed(seed))
+    opt = dict(learning_rate=3e-4, betas=(0.9, 0.95))  # vae_census.yaml's optimizer
+    task = VAETask(vae, **opt, algebraic_fused_gate=True)
+    rng = np.random.default_rng(seed)
+    G, B, S = CENSUS["n_genes"], CENSUS_BATCH, CENSUS_WINDOW
+    # benchmarks/bench_census.py's synth_batch: 2,048 to 4,095 expressed genes a cell
+    batches = [{k: torch.from_numpy(v).to("cuda") for k, v in
+                lean_batch(rng, B, G, S, (S // 2, S)).items()} for _ in range(CENSUS_STEPS + 1)]
+    if not (task._use_algebraic(batches[0]) and task.algebraic_fused_gate
+            and not task._use_fused(batches[0])):
+        raise AssertionError("the census batch did not select the algebraic tail with the gate")
+
+    def run(t, label: str) -> dict:
+        state = t.init_state(torch.Generator(device="cuda").manual_seed(seed))
+        t0 = time.perf_counter()
+        state, first = t.train_step(state, batches[0])  # warm-up: library load, allocator
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        n = CENSUS_STEPS if warm <= 2.0 else 3
+        fs.SWIGLU_VEC_FWD_LAUNCHES.reset()
+        fs.SWIGLU_VEC_BWD_LAUNCHES.reset()
+        torch.cuda.reset_peak_memory_stats()
+        losses = []
+        t0 = time.perf_counter()
+        for b in batches[1:1 + n]:
+            state, mets = t.train_step(state, b)
+            losses.append(mets["train_loss"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = (fs.SWIGLU_VEC_FWD_LAUNCHES.count, fs.SWIGLU_VEC_BWD_LAUNCHES.count)
+        losses = torch.stack(losses)
+        with torch.no_grad():
+            again = t.loss(batches[0])[0].item()  # the warm-up batch after the steps
+        if not torch.isfinite(losses).all() or not again < first["train_loss"].item():
+            raise AssertionError(f"{label}: losses {losses.tolist()}, warm-up batch "
+                                 f"{first['train_loss'].item()} -> {again}")
+        note = "" if n == CENSUS_STEPS else f" (warm-up step {warm:.2f} s > 2 s: {n} steps)"
+        log(f"phase6 census VAE {label} B={B} G={G} S={S}: {B * n / dt:.1f} train cells/s, "
+            f"{dt / n * 1e3:.2f} ms/step over {n} steps{note}; losses {losses[0].item():.2f} -> "
+            f"{losses[-1].item():.2f}, warm-up batch {first['train_loss'].item():.2f} -> "
+            f"{again:.2f}; peak memory {peak / 2**30:.2f} GiB; swiglu_vec launches fwd "
+            f"{launches[0]} bwd {launches[1]}")
+        del state
+        return {"n": n, "launches": launches}
+
+    fused = run(task, "fused gate")
+    if fused["launches"] != (fused["n"], fused["n"]):
+        raise AssertionError(f"swiglu_vec launches {fused['launches']} in {fused['n']} steps")
+    plain_task = VAETask(vae, **opt)
+    torch.cuda.empty_cache()
+    plain = run(plain_task, "plain algebraic")
+    if plain["launches"] != (0, 0):
+        raise AssertionError(f"the plain algebraic path launched swiglu_vec {plain['launches']}")
+
+    # one step, fused gate against the plain algebraic path: loss within 1e-5
+    # relative, each gradient within 1e-3 of its largest magnitude (f32 both;
+    # the head's bias is softmax-invariant, its true gradient 0, both noise)
+    (lk, gk), (lp, gp) = vae_loss_and_grads(task, batches[-1]), vae_loss_and_grads(plain_task,
+                                                                                  batches[-1])
+    if abs(lk - lp) > 1e-5 * abs(lp):
+        raise AssertionError(f"census loss: fused gate {lk} vs plain algebraic path {lp}")
+    worst = (0.0, "")
+    for name, want in gp.items():
+        if name == "decoder_head.params.bias":
+            continue
+        rel = (gk[name] - want).abs().max().item() / (want.abs().max().item() + 1e-30)
+        if rel > 1e-3:
+            raise AssertionError(f"census gradient {name}: fused gate vs plain path {rel:.3e} "
+                                 f"of its max")
+        worst = max(worst, (rel, name))
+    log(f"phase6 reference: one step, fused gate vs plain algebraic path: loss {lk:.4f} vs "
+        f"{lp:.4f} ({abs(lk - lp) / abs(lp):.2e} relative), {len(gp)} gradients, largest gap "
+        f"{worst[0]:.3e} of its max ({worst[1]})")
+    return fused["launches"]
 
 
 def ldm_batches(rng, batch: int, n: int) -> list:
@@ -871,6 +1051,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
 
     # -- phase 0: the card and the build ------------------------------------
     smi = subprocess.run(
@@ -891,6 +1072,7 @@ def main(argv=None) -> int:
     tail_fwd, tail_bwd = phase1b_decoder_tail(args.seed)
     dit_block_bwd = phase1c_dit_block_bwd(args.seed)
     pools = phase1d_encoder_pool(args.seed)
+    swiglu_fwd, swiglu_bwd = phase1e_swiglu_vec(args.seed)
 
     # -- phase 2: the generation path -------------------------------------------
     launches = phase2_generation(args.seed, args.batch)
@@ -904,6 +1086,9 @@ def main(argv=None) -> int:
 
     # -- phase 5: VAE training at parse1m / replogle width ----------------------
     parse = phase5_parse1m_training(args.seed, args.batch)
+
+    # -- phase 6: VAE training at census width --------------------------------
+    census_fwd, census_bwd = phase6_census_training(args.seed)
 
     tail_src = "scldm_torch/kernels/csrc/decoder_tail.cu"
     pool_src = "scldm_torch/kernels/csrc/encoder_pool.cu"
@@ -938,6 +1123,15 @@ def main(argv=None) -> int:
          **encoder_pool_bound(128, PARSE_GENES if v == "dense" else WINDOW, part == "bwd",
                               v == "dense"), "library_ms": None}
         for v in ("dense", "window") for part in ("fwd", "bwd")
+    ] + [
+        # the census decoder's rows: B=16 cells x G=36,601 genes
+        {"name": f"swiglu_vec_{part}", "route": "cuda",
+         "source": "scldm_torch/kernels/csrc/swiglu_vec.cu",
+         "replaces": f"scldm_tpu/ops/fused_swiglu.py:{line}", "launches": launches_, **timed,
+         **swiglu_vec_bound(CENSUS_BATCH * CENSUS["n_genes"], CENSUS["n_embed"], CENSUS_HIDDEN,
+                            part == "bwd"), "library_ms": None}
+        for part, line, launches_, timed in (("fwd", 256, census_fwd, swiglu_fwd),
+                                             ("bwd", 280, census_bwd, swiglu_bwd))
     ]
     for k in kernels:
         log(f"{k['name']}: {k['ms']:.4f} ms against a bound of {k['bound_ms']:.4f} ms "

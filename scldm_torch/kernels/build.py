@@ -88,6 +88,19 @@ _SIGNATURES = {
         + [ctypes.c_float, ctypes.c_float, _P],
         ctypes.c_int,
     ),
+    # pointers: x, w12, wv, out
+    "scldm_swiglu_vec_forward": (
+        [_P] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P],  # R, E, Hd, stream
+        ctypes.c_int,
+    ),
+    # pointers: x, w12, wv, ds, dx, dw12, dwv, workspace
+    "scldm_swiglu_vec_backward": (
+        [_P] * 8 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P],  # R, E, Hd, stream
+        ctypes.c_int,
+    ),
+    "scldm_swiglu_vec_workspace_floats": (
+        [ctypes.c_longlong, ctypes.c_int, ctypes.c_int], ctypes.c_longlong,  # R, E, Hd
+    ),
     "scldm_cuda_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 

@@ -1,0 +1,142 @@
+"""The SwiGLU up projection, gate and head-vector contraction of the
+decoder's algebraic tail, as hand-written CUDA kernels, forward and backward.
+
+Counterpart of scldm_tpu/ops/fused_swiglu.py: `swiglu_vec` replaces the
+Pallas `swiglu_vec` (`_vec_fwd_kernel`) with its custom VJP `_vec_fused_bwd`
+(`_vec_bwd_kernel`). It computes
+
+    s = (silu(x @ w1) * (x @ w2)) @ wv    -> (R, 1) f32
+
+for x (R, E), w12 = [w1 | w2] (E, 2Hd) and wv (Hd, 1), with no (R, Hd)
+tensor in memory on the way in; the backward recomputes u = x @ w12 and
+returns dx, dw12 and dwv. The kernels are in
+`scldm_torch/kernels/csrc/swiglu_vec.cu`: the forward keeps the up
+projection in registers and contracts it with wv in its epilogue; the
+backward stages du through a workspace of at most 32,768 rows at a time and
+sums the weight gradients in a fixed order, without atomics.
+
+On CUDA tensors `swiglu_vec` launches the kernels (or raises on operands they
+do not take: float32 only, as the port computes the VAE); on CPU tensors it
+runs the plain version, `swiglu_vec_reference`, both ways; any other device
+raises. Each direction counts its kernel launches.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from scldm_torch.ops.fused_dit import LaunchCounter
+
+SWIGLU_VEC_FWD_LAUNCHES = LaunchCounter()
+SWIGLU_VEC_BWD_LAUNCHES = LaunchCounter()
+
+
+def swiglu_vec_reference(x: torch.Tensor, w12: torch.Tensor, wv: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version (JAX `swiglu_vec_reference`): (R, 1) f32."""
+    u = (x @ w12).float()
+    hd = wv.shape[0]
+    g = F.silu(u[:, :hd]) * u[:, hd:]
+    return (g.to(x.dtype) @ wv).float()
+
+
+def swiglu_vec_backward_reference(x, w12, wv, ds):
+    """Plain PyTorch version of the backward (JAX `_vec_fused_bwd`): autograd
+    through `swiglu_vec_reference` -> (dx, dw12, dwv)."""
+    leaves = [t.detach().requires_grad_() for t in (x, w12, wv)]
+    with torch.enable_grad():
+        out = swiglu_vec_reference(*leaves)
+        return torch.autograd.grad(out, leaves, ds)
+
+
+def _check(x, w12, wv, ds=None) -> tuple:
+    """Validate the kernels' operands; returns (R, E, Hd)."""
+    R, E = x.shape
+    hd = wv.shape[0]
+    want = [("w12", w12, (E, 2 * hd)), ("wv", wv, (hd, 1))]
+    if ds is not None:
+        want.append(("ds", ds, (R, 1)))
+    for name, t, shape in want:
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape} for x {tuple(x.shape)}, got {tuple(t.shape)}")
+    if E == 0 or hd == 0:
+        raise ValueError(f"the swiglu_vec kernels need E >= 1 and Hd >= 1, got E={E}, Hd={hd}")
+    for t in (x, w12, wv) + ((ds,) if ds is not None else ()):
+        if t.device != x.device or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError("the swiglu_vec kernels need contiguous float32 tensors on one device")
+    return R, E, hd
+
+
+def _device_of(t: torch.Tensor) -> str:
+    if t.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"swiglu_vec runs on cuda or cpu tensors, got {t.device}")
+    return t.device.type
+
+
+def swiglu_vec_fwd(x, w12, wv) -> torch.Tensor:
+    """Forward: the CUDA kernel on CUDA tensors, the plain version on CPU
+    tensors. (R, 1) f32."""
+    if _device_of(x) == "cpu":
+        with torch.no_grad():
+            return swiglu_vec_reference(x, w12, wv)
+    R, E, hd = _check(x, w12, wv)
+    from scldm_torch.kernels import build
+
+    lib = build.load()
+    out = torch.empty((R, 1), dtype=torch.float32, device=x.device)
+    # the library's CUDA runtime launches on the current device: make it x's
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        code = lib.scldm_swiglu_vec_forward(x.data_ptr(), w12.data_ptr(), wv.data_ptr(),
+                                            out.data_ptr(), R, E, hd, stream)
+    build.check(lib, code, "scldm_swiglu_vec_forward launch")
+    SWIGLU_VEC_FWD_LAUNCHES.count += 1
+    return out
+
+
+def swiglu_vec_bwd(x, w12, wv, ds) -> tuple:
+    """Backward given the cotangent ds (R, 1): (dx, dw12, dwv), f32."""
+    if _device_of(x) == "cpu":
+        return swiglu_vec_backward_reference(x, w12, wv, ds)
+    ds = ds.float().contiguous()
+    R, E, hd = _check(x, w12, wv, ds)
+    if R == 0:
+        return torch.zeros_like(x), torch.zeros_like(w12), torch.zeros_like(wv)
+    from scldm_torch.kernels import build
+
+    lib = build.load()
+    dx, dw12, dwv = torch.empty_like(x), torch.empty_like(w12), torch.empty_like(wv)
+    workspace = torch.empty(lib.scldm_swiglu_vec_workspace_floats(R, E, hd), dtype=torch.float32,
+                            device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        code = lib.scldm_swiglu_vec_backward(
+            x.data_ptr(), w12.data_ptr(), wv.data_ptr(), ds.data_ptr(), dx.data_ptr(),
+            dw12.data_ptr(), dwv.data_ptr(), workspace.data_ptr(), R, E, hd, stream)
+    build.check(lib, code, "scldm_swiglu_vec_backward launch")
+    SWIGLU_VEC_BWD_LAUNCHES.count += 1
+    return dx, dw12, dwv
+
+
+class _SwigluVec(torch.autograd.Function):
+    """`swiglu_vec` with a recompute VJP: it saves only its inputs."""
+
+    @staticmethod
+    def forward(ctx, x, w12, wv):
+        ctx.save_for_backward(x, w12, wv)
+        return swiglu_vec_fwd(x, w12, wv)
+
+    @staticmethod
+    def backward(ctx, ds):
+        return swiglu_vec_bwd(*ctx.saved_tensors, ds)
+
+
+def swiglu_vec(
+    x: torch.Tensor,  # (R, E)
+    w12: torch.Tensor,  # (E, 2Hd): w1 | w2
+    wv: torch.Tensor,  # (Hd, 1): the folded down projection @ head vector
+) -> torch.Tensor:
+    """(silu(x @ w1) * (x @ w2)) @ wv -> (R, 1) f32, differentiable in x, w12
+    and wv: the forward kernel on the way in, the backward kernel on the way
+    back (on CPU tensors, the plain version both ways)."""
+    return _SwigluVec.apply(x, w12, wv)

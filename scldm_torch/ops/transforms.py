@@ -12,8 +12,9 @@ COUNTS_SUBSET, COUNTS, LIBRARY_SIZE = "counts_subset", "counts", "library_size"
 NON_CONDITION_KEYS = (COUNTS, GENES, LIBRARY_SIZE, GENES_SUBSET, COUNTS_SUBSET)
 
 
-def canonical_gene_ids(n_genes: int, device: torch.device | str = "cpu") -> torch.Tensor:
-    """(n_genes,) gene-token ids 1..n_genes: the batch-shared decoder queries.
+def canonical_gene_ids(n_genes: int, device: torch.device | str) -> torch.Tensor:
+    """(n_genes,) gene-token ids 1..n_genes on `device`: the batch-shared
+    decoder queries.
 
     1-D genes select the decoder's batch-free query path: the gene-embedding
     gather, query LayerNorm and q-projection run once, not per cell."""

@@ -49,10 +49,11 @@ class SizeFactorSampler:
         generator: torch.Generator,
         condition: Optional[Dict[str, torch.Tensor]],
         batch_size: int,
-        device: torch.device | str = "cpu",
+        device: torch.device | str,
     ) -> torch.Tensor:
-        """Log size factors (batch_size,) f32 from the first condition label
-        (in sorted order) that has statistics; zeros when none has."""
+        """Log size factors (batch_size,) f32 on `device` from the first
+        condition label (in sorted order) that has statistics; zeros when none
+        has."""
         for label in sorted(condition or {}):
             if label in self.tables:
                 mu_t, sd_t = (a.to(device) for a in self.tables[label])

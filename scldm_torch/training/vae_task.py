@@ -11,19 +11,29 @@ plain module path. Where the gene axis is about as long as the token window
 input over the dense gene axis (`fused_encoder_pooling`: the dense encoder
 pool kernels), exactly where JAX does; `VAETask(fused_pool=True)` pools the
 packed window through the window pool kernels instead (`fused_window_pooling`).
+At E > 128 (the census decoder, E = 512), where JAX leaves its tail, the step
+takes the algebraic tail (`algebraic_nb_apply`): the cross block and the NB
+head reassociated in plain PyTorch, with `VAETask(algebraic_fused_gate=True)`
+running the SwiGLU up projection, gate and head-vector contraction as the
+`ops/fused_swiglu.swiglu_vec` kernels.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from scldm_torch.nn.heads import NegativeBinomialTransformerHead
+from scldm_torch.nn.layers import LayerNormFP32
 from scldm_torch.nn.vae import TransformerVAE
+from scldm_torch.ops.attention import sdpa_shared_q
 from scldm_torch.ops.distributions import log_nb_positive, nb_sample
 from scldm_torch.ops.fused_decoder import _bf, build_attention_operands, decoder_tail, pack_weights
 from scldm_torch.ops.fused_encoder import build_query_operand, encoder_pool, head_rows, window_pool
+from scldm_torch.ops.fused_swiglu import swiglu_vec
 from scldm_torch.ops.transforms import (
     COUNTS,
     COUNTS_SUBSET as C_SUB,
@@ -198,6 +208,108 @@ def fused_nb_apply(
     return {"mu": mu, "theta": theta}, h_z
 
 
+def _ln_affine(x: torch.Tensor, ln: LayerNormFP32, eps: float) -> torch.Tensor:
+    """Affine LayerNorm written out (JAX `_ln_affine`), in x's dtype."""
+    m = x.mean(dim=-1, keepdim=True)
+    v = (x - m).square().mean(dim=-1, keepdim=True)
+    return (x - m) * torch.rsqrt(v + eps) * ln.weight + ln.bias
+
+
+def _algebraic_path_ok(vae: TransformerVAE) -> bool:
+    """The JAX gate of `algebraic_nb_apply`: `_fused_path_ok` without the
+    width limit. The ported decoder is always the shared-embedding,
+    shared-theta, adaLN-free, dropout-free one it asks for; the tail omits the
+    qkv biases and splits E over the cross heads."""
+    ca = vae.decoder.decoder_cross_attention
+    return (
+        isinstance(vae.decoder_head, NegativeBinomialTransformerHead)
+        and ca.attn.c_attn.bias is None
+        and vae.decoder.n_embed % ca.attn.n_head == 0
+    )
+
+
+def _algebraic_tail(
+    vae: TransformerVAE,
+    x: torch.Tensor,  # (B, M, E) pre-cross latents (the decoder trunk's output)
+    library_size: torch.Tensor,  # (B, 1)
+    fused_gate: bool = False,
+    vw_fold: bool = False,
+) -> Dict[str, torch.Tensor]:
+    """The decoder's cross block and NB head over the canonical gene list,
+    reassociated (JAX `_algebraic_tail`): the SwiGLU down projection's only
+    consumer is the head's mu vector, so `wv = c_proj @ wmu` replaces the
+    (B, G, E) down projection. `vw_fold` contracts the probabilities against
+    the values folded through the output projection, `probs @ (v @ wo)` with
+    K = H*M, instead of `sdpa_shared_q` then `@ wo`. `fused_gate` runs the
+    up projection, the gate and the wv contraction as `swiglu_vec` over
+    `w12 = [w1 | w2]`; otherwise two separate products (not `hn @ w12`).
+    Differentiable in every parameter. The casts to the decoder's dtype sit
+    where JAX's do (identities in f32)."""
+    ca = vae.decoder.decoder_cross_attention
+    head = vae.decoder_head
+    eps = ca.ln_1.eps
+    n_head = ca.attn.n_head
+    dt = ca.attn.c_attn.weight.dtype
+    E = vae.decoder.n_embed
+    hd = E // n_head
+
+    q32 = vae.input_layer.gene_embedding.weight[1:].float()  # canonical genes 1..G
+    qp = _ln_affine(q32, ca.ln_1q, eps).to(dt) @ ca.attn.c_attn_q.weight.t().to(dt)  # (G, E)
+    xn = _ln_affine(x.float(), ca.ln_1, eps).to(dt)
+    k, v = (xn @ ca.attn.c_attn.weight.t().to(dt)).chunk(2, dim=-1)  # (B, M, E) each
+    B, M = k.shape[0], k.shape[1]
+    G = qp.shape[0]
+    wo = ca.attn.c_proj.weight.t().to(dt)  # (E, E), (in, out)
+    if vw_fold:
+        # y @ wo = sum_h probs_h @ (v_h @ wo_h): one product with K = H*M
+        scores = torch.einsum("mhd,bshd->bhms", qp.reshape(G, n_head, hd).float(),
+                              k.reshape(B, M, n_head, hd).float())
+        probs = torch.softmax(scores * (1.0 / math.sqrt(hd)), dim=-1).to(dt)
+        vw = torch.einsum("bshd,hde->bhse", v.reshape(B, M, n_head, hd),
+                          wo.reshape(n_head, hd, E))  # (B, H, M, E)
+        y = torch.einsum("bhms,bhse->bme", probs, vw)  # (B, G, E)
+    else:
+        y = sdpa_shared_q(qp.reshape(G, n_head, hd), k.reshape(B, M, n_head, hd),
+                          v.reshape(B, M, n_head, hd)).reshape(B, G, E)
+        y = y @ wo
+
+    h = q32.to(dt)[None] + y  # the residual connects to the raw queries
+    hn = _ln_affine(h.float(), ca.ln_2, eps).to(dt)
+    mlp = ca.mlp
+    wmu = head.params.weight.t()  # (E, 1)
+    wv = (mlp.c_proj.weight.t() @ wmu).to(dt)  # (Hd, 1): the fusion
+    if fused_gate:
+        w12 = torch.cat([mlp.w1.weight.t(), mlp.w2.weight.t()], dim=1).to(dt)
+        mlp_term = swiglu_vec(hn.reshape(-1, E), w12, wv).reshape(B, G)
+    else:
+        # two separate products, not hn @ w12: no (B, G, 2Hd) up projection
+        a = hn @ mlp.w1.weight.t().to(dt)  # (B, G, Hd)
+        b = hn @ mlp.w2.weight.t().to(dt)
+        g3 = F.silu(a) * b  # the largest live tensor
+        mlp_term = torch.einsum("bgh,h->bg", g3, wv[:, 0]).float()
+    logits = (
+        torch.einsum("bge,e->bg", h, wmu[:, 0].to(dt)).float()
+        + mlp_term
+        + head.params.bias[0].float()
+    )
+    theta = torch.exp(head.theta.weight[1:, 0].float())
+    mu = torch.softmax(logits, dim=1) * library_size  # the port's head has temperature 1
+    return {"mu": mu, "theta": theta}
+
+
+def algebraic_nb_apply(
+    vae: TransformerVAE, batch: Dict, fused_gate: bool = False, vw_fold: bool = False
+) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+    """`TransformerVAE.forward` with the decoder's cross block and NB head
+    reassociated (`_algebraic_tail`), over the canonical gene list 1..G, from
+    a materialised lean batch. The encoder runs as modules (the dense pool is
+    gated to E <= 128), then `decoder.trunk`, then the tail. Returns
+    ({"mu", "theta"}, h_z)."""
+    h_z = vae.encoder(vae.input_layer(batch[C_SUB], batch[G_SUB]))
+    x = vae.decoder.trunk(h_z)  # (B, M, E) pre-cross latents
+    return _algebraic_tail(vae, x, batch[LIB], fused_gate=fused_gate, vw_fold=vw_fold), h_z
+
+
 def vae_loss(counts: torch.Tensor, params: Dict[str, torch.Tensor]) -> torch.Tensor:
     """NB reconstruction loss, summed over genes, averaged over the batch."""
     return (-log_nb_positive(counts, params["mu"], params["theta"])).sum(dim=1).mean()
@@ -232,7 +344,14 @@ class VAETask:
     ceiling, so nothing splits them unless asked. `fused_pool=True` (off
     unless asked, as in JAX) pools the encoder's packed window through the
     window pool kernels on the module path (`_apply`: with
-    `fused_decoder=False`, a dense batch, or in `eval_step`)."""
+    `fused_decoder=False`, a dense batch, or in `eval_step`).
+
+    `algebraic_tail=None` takes the algebraic tail (`algebraic_nb_apply`) on
+    lean batches at E > 128 where the architecture qualifies
+    (`_algebraic_path_ok`), as JAX does; `algebraic_vw_fold=None` folds the
+    output projection into the values wherever that tail runs;
+    `algebraic_fused_gate=True` (off unless asked, as in JAX) runs its
+    SwiGLU through the `swiglu_vec` kernels."""
 
     def __init__(
         self,
@@ -253,9 +372,19 @@ class VAETask:
         fused_decoder: Optional[bool] = None,
         fused_batch_chunk: Optional[int] = None,
         fused_pool: Optional[bool] = None,
+        algebraic_tail: Optional[bool] = None,
+        algebraic_vw_fold: Optional[bool] = None,
+        algebraic_fused_gate: bool = False,
     ):
         self.vae = vae
         self.fused_pool = bool(fused_pool) and _fused_window_ok(vae)
+        if algebraic_tail is None:
+            algebraic_tail = vae.decoder.n_embed > 128
+        self.algebraic_tail = bool(algebraic_tail) and _algebraic_path_ok(vae)
+        self.algebraic_fused_gate = bool(algebraic_fused_gate) and self.algebraic_tail
+        if algebraic_vw_fold is None:
+            algebraic_vw_fold = self.algebraic_tail
+        self.algebraic_vw_fold = bool(algebraic_vw_fold) and self.algebraic_tail
         self.calculate_grad_norms = calculate_grad_norms
         self.fused_decoder = fused_decoder if fused_decoder is None else bool(fused_decoder)
         self.fused_batch_chunk = fused_batch_chunk
@@ -331,14 +460,25 @@ class VAETask:
             return False
         return self.fused_decoder is True or batch[C_SUB].is_cuda
 
+    def _use_algebraic(self, batch: Dict) -> bool:
+        """The algebraic tail needs a lean batch (the canonical gene list)."""
+        return self.algebraic_tail and COUNTS not in batch and C_SUB in batch
+
+    def _algebraic(self, batch: Dict) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+        return algebraic_nb_apply(self.vae, batch, fused_gate=self.algebraic_fused_gate,
+                                  vw_fold=self.algebraic_vw_fold)
+
     # -- steps -----------------------------------------------------------------
     def loss(self, batch: Dict) -> Tuple[torch.Tensor, Dict]:
         """Reconstruction loss of a batch on the module's current parameters
         (differentiable), and its aux metrics."""
         use_fused = self._use_fused(batch)
+        use_algebraic = not use_fused and self._use_algebraic(batch)
         batch = self._materialize(batch)
         if use_fused:
             out, _ = fused_nb_apply(self.vae, batch, batch_chunk=self.fused_batch_chunk)
+        elif use_algebraic:
+            out, _ = self._algebraic(batch)
         else:
             out, _ = self._apply(batch)
         loss = vae_loss(batch[COUNTS], out)
@@ -384,10 +524,12 @@ class VAETask:
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch: Dict, generator: torch.Generator) -> Dict:
-        """Validation metrics on the module path; the NB draw comes from
-        `generator` (on the batch's device)."""
+        """Validation metrics on the module path, or on the algebraic tail
+        where JAX takes it; the NB draw comes from `generator` (on the batch's
+        device)."""
+        use_algebraic = self._use_algebraic(batch)
         batch = self._materialize(batch)
-        out, _ = self._apply(batch)
+        out, _ = self._algebraic(batch) if use_algebraic else self._apply(batch)
         return validation_metrics(batch[COUNTS], out, nb_sample(out["mu"], out["theta"], generator))
 
     @torch.no_grad()

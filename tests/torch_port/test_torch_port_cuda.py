@@ -17,7 +17,10 @@ within 1e-2 of that magnitude everywhere, and within 1e-4 of it on all but
 encoder pools round the same operands as their plain versions and sum in
 another order too (the backward's with atomics): the tail's bounds for den,
 m and every gradient, and for num within 3e-4 rather than 1e-4 on all but 5%
-of the entries (see `assert_pool_close`; chip_smoke.py's phase 1d)."""
+of the entries (see `assert_pool_close`; chip_smoke.py's phase 1d). The
+swiglu_vec kernels compute in f32 like their plain version (TF32 off) and sum
+in another, fixed order: out, dx, dw12 and dwv each within 1e-4 of its
+tensor's largest magnitude (chip_smoke.py's phase 1e)."""
 
 import numpy as np
 import pytest
@@ -26,6 +29,7 @@ import torch
 from scldm_torch.ops import fused_decoder as tail
 from scldm_torch.ops import fused_dit as port
 from scldm_torch.ops import fused_encoder as fe
+from scldm_torch.ops import fused_swiglu as fs
 
 pytestmark = [
     pytest.mark.cuda,
@@ -294,3 +298,62 @@ def test_encoder_pools_on_a_device_other_than_the_current(variant):
     torch.cuda.synchronize(1)
     assert got["num"].device == x["src"].device and torch.cuda.current_device() == 0
     assert_pool_close(got, pool_outputs_and_grads(reference, counts, x, cot))
+
+
+def _swiglu_inputs(R, E, Hd, device, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def f(*s, scale=1.0):
+        return torch.from_numpy((rng.normal(size=s) * scale).astype(np.float32)).to(device)
+
+    return f(R, E), f(E, 2 * Hd, scale=E**-0.5), f(Hd, 1, scale=Hd**-0.5), f(R, 1)
+
+
+def swiglu_outputs_and_grads(fn, x, w12, wv, ds):
+    leaves = [t.detach().clone().requires_grad_() for t in (x, w12, wv)]
+    out = fn(*leaves)
+    out.backward(ds)
+    return {"out": out.detach(), **{k: t.grad for k, t in zip(("dx", "dw12", "dwv"), leaves)}}
+
+
+def assert_swiglu_close(got, want):
+    for k, w in want.items():
+        scale = w.abs().max()
+        assert scale > 0, k
+        assert (got[k] - w).abs().max() <= 1e-4 * scale, k
+
+
+# ragged rows against the 128-row tile; E and Hd off the 16-deep slice and the
+# 64-column hidden tile; more rows than one backward workspace chunk (32,768)
+@pytest.mark.parametrize("R,E,Hd", [(1001, 512, 1408), (300, 200, 100), (40_000, 64, 100)])
+def test_swiglu_vec_matches_reference_on_gpu(R, E, Hd):
+    inputs = _swiglu_inputs(R, E, Hd, "cuda")
+    before = (fs.SWIGLU_VEC_FWD_LAUNCHES.count, fs.SWIGLU_VEC_BWD_LAUNCHES.count)
+    got = swiglu_outputs_and_grads(fs.swiglu_vec, *inputs)
+    torch.cuda.synchronize()
+    assert (fs.SWIGLU_VEC_FWD_LAUNCHES.count, fs.SWIGLU_VEC_BWD_LAUNCHES.count) == (
+        before[0] + 1, before[1] + 1)
+    assert_swiglu_close(got, swiglu_outputs_and_grads(fs.swiglu_vec_reference, *inputs))
+
+
+def test_swiglu_vec_operands_it_does_not_take_raise_on_gpu():
+    """bf16, a strided x or a CPU weight beside a CUDA x: the wrapper raises
+    and never takes the plain version."""
+    x, w12, wv, _ = _swiglu_inputs(64, 32, 48, "cuda")
+    for args in ((x.bfloat16(), w12.bfloat16(), wv.bfloat16()), (x.t().contiguous().t(), w12, wv),
+                 (x, w12.cpu(), wv)):
+        before = fs.SWIGLU_VEC_FWD_LAUNCHES.count
+        with pytest.raises(ValueError):
+            fs.swiglu_vec(*args)
+        assert fs.SWIGLU_VEC_FWD_LAUNCHES.count == before
+
+
+@pytest.mark.skipif(torch.cuda.device_count() < 2, reason="needs two GPUs")
+def test_swiglu_vec_on_a_device_other_than_the_current():
+    swiglu_outputs_and_grads(fs.swiglu_vec, *_swiglu_inputs(5, 32, 48, "cuda:0"))
+    torch.cuda.synchronize(0)
+    inputs = _swiglu_inputs(1001, 512, 1408, "cuda:1", seed=1)
+    got = swiglu_outputs_and_grads(fs.swiglu_vec, *inputs)
+    torch.cuda.synchronize(1)
+    assert got["out"].device == inputs[0].device and torch.cuda.current_device() == 0
+    assert_swiglu_close(got, swiglu_outputs_and_grads(fs.swiglu_vec_reference, *inputs))

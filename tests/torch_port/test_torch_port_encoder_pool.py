@@ -64,7 +64,7 @@ def make_case(B, G, S, seed=0):
                        jnp.asarray(dense.sum(1, keepdims=True)), jnp.asarray(cs), jnp.asarray(gs))
     params = jax.tree_util.tree_map(
         lambda p: p + jnp.asarray(0.3 * rng.normal(size=p.shape).astype(np.float32)), params)
-    tvae = build_transformer_vae(n_genes=G, n_layer=1)
+    tvae = build_transformer_vae(n_genes=G, n_layer=1, device="cpu")
     load_reference_state_dict(tvae, export_torch_state_dict(params))
     w = rng.normal(size=(B, Q, E)).astype(np.float32)  # a non-uniform cotangent
     return jvae, params, tvae, dict(genes_subset=gs, counts_subset=cs, counts=dense), w
@@ -170,10 +170,10 @@ def test_eligibility_matches_jax():
     for kw in (dict(), dict(bias=True), dict(n_embed=256, n_head=8),
                dict(n_embed=192, n_head=4)):
         jvae = jax_build_vae(n_genes=60, n_layer=1, **kw)
-        tvae = build_transformer_vae(n_genes=60, n_layer=1, **kw)
+        tvae = build_transformer_vae(n_genes=60, n_layer=1, device="cpu", **kw)
         assert tvt._fused_encoder_ok(tvae) == jvt._fused_encoder_ok(jvae), kw
         assert tvt._fused_window_ok(tvae) == jvt._fused_window_ok(jvae), kw
-    assert tvt._fused_encoder_ok(build_transformer_vae(n_genes=60, n_layer=1))
+    assert tvt._fused_encoder_ok(build_transformer_vae(n_genes=60, n_layer=1, device="cpu"))
     assert not jvt._fused_encoder_ok(jax_build_vae(n_genes=60, agg_func="scaled_log1p"))
 
 

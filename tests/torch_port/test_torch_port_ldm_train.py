@@ -289,7 +289,7 @@ def jax_draws(jtask, state, batch):
 
 def port_task(jtask, vae_params, state, **kw):
     """A port LDMTask whose modules and EMA hold the JAX state's weights."""
-    tvae = build_transformer_vae(**VAE_ARCH)
+    tvae = build_transformer_vae(**VAE_ARCH, device="cpu")
     load_reference_state_dict(tvae, export_torch_state_dict(vae_params))
     tdit = DiT(**DIT_ARCH)
     load_reference_state_dict(tdit, export_torch_state_dict(state.params))
@@ -419,7 +419,7 @@ def test_train_steps_and_sampling_from_ema(setup):
     other = LDMTask(task.vae, twin, create_transport())
     sfs = SizeFactorSampler(constant_stats({"clusters": 3}))
     cond = {"clusters": torch.tensor([0, 2])}
-    genes = canonical_gene_ids(N_GENES)
+    genes = canonical_gene_ids(N_GENES, device="cpu")
     kw = dict(guidance_weight={"clusters": 1.0}, sampling_method="euler", num_steps=4)
     from_state = task.make_sample_fn(sfs, **kw)(torch.Generator().manual_seed(1), genes, cond,
                                                 state=tstate)

@@ -59,7 +59,7 @@ def tasks():
             jdit, x, jnp.linspace(0.1, 0.9, B), {"clusters": jnp.arange(B) % 5})
     jtask = JaxLDMTask(jvae, vae_params, jdit, jax_create_transport(), num_training_steps=10)
 
-    tvae = build_transformer_vae(**VAE_ARCH).eval()
+    tvae = build_transformer_vae(**VAE_ARCH, device="cpu").eval()
     load_reference_state_dict(tvae, export_torch_state_dict(vae_params))
     tdit = DiT(**DIT_ARCH).eval()
     load_reference_state_dict(tdit, export_torch_state_dict(dit_params))
@@ -97,7 +97,7 @@ def test_generation_matches_jax(tasks, method, steps, tol):
                                  jnp.asarray(log_sf), jnp.asarray(genes),
                                  {k: jnp.asarray(v) for k, v in cond.items()}, method, steps)
     z, out, evals = ttask.generate_from_noise(
-        torch.from_numpy(z0), torch.from_numpy(log_sf), canonical_gene_ids(G),
+        torch.from_numpy(z0), torch.from_numpy(log_sf), canonical_gene_ids(G, device="cpu"),
         {"clusters": torch.from_numpy(cond["clusters"]).long()},
         guidance_weight=GUIDANCE, sampling_method=method, num_steps=steps)
     assert evals == {"euler": steps - 1, "heun": 2 * (steps - 1)}.get(method, evals)
@@ -114,13 +114,13 @@ def test_sample_fn_end_to_end_on_cpu(tasks):
                               guidance_weight=GUIDANCE, sampling_method="euler", num_steps=6)
     cond = {"clusters": torch.tensor([0, 1, 4])}
     before = fused_dit.DIT_BLOCK_LAUNCHES.count
-    counts, z = fn(torch.Generator().manual_seed(5), canonical_gene_ids(G), cond)
+    counts, z = fn(torch.Generator().manual_seed(5), canonical_gene_ids(G, device="cpu"), cond)
     assert fused_dit.DIT_BLOCK_LAUNCHES.count == before
     assert fn.drift_evals == 5
     assert counts.shape == (2 * B, G) and z.shape == (2 * B, M, E_LAT)
     assert torch.isfinite(z).all() and torch.isfinite(counts).all()
     assert (counts >= 0).all() and (counts == counts.round()).all()
-    again, z2 = fn(torch.Generator().manual_seed(5), canonical_gene_ids(G), cond)
+    again, z2 = fn(torch.Generator().manual_seed(5), canonical_gene_ids(G, device="cpu"), cond)
     assert torch.equal(counts, again) and torch.equal(z, z2)
 
 
@@ -141,9 +141,9 @@ def test_nb_sample_moments_and_determinism():
 def test_size_factor_sampler():
     sfs = SizeFactorSampler(constant_stats({"clusters": 4}, mu=8.6, sd=0.3))
     cond = {"clusters": torch.tensor([0, 1, 2, 3] * 5000)}
-    draws = sfs.sample(torch.Generator().manual_seed(0), cond, 20_000)
+    draws = sfs.sample(torch.Generator().manual_seed(0), cond, 20_000, "cpu")
     assert abs(draws.mean().item() - 8.6) < 0.02 and abs(draws.std().item() - 0.3) < 0.02
-    assert torch.equal(sfs.sample(torch.Generator(), None, 3), torch.zeros(3))
+    assert torch.equal(sfs.sample(torch.Generator(), None, 3, "cpu"), torch.zeros(3))
 
 
 def test_random_dit_is_not_identity():

@@ -35,7 +35,7 @@ def pair():
     jvae = jax_build_vae(**ARCH)
     with jax.default_matmul_precision("highest"):
         params = jvae.init(jax.random.PRNGKey(0), *map(jnp.asarray, (counts, genes, lib, c_sub, g_sub)))
-    tvae = build_transformer_vae(**ARCH).eval()
+    tvae = build_transformer_vae(**ARCH, device="cpu").eval()
     load_reference_state_dict(tvae, export_torch_state_dict(params), strict=True)
     return jvae, params, tvae, (counts, genes, lib, c_sub, g_sub)
 
@@ -59,7 +59,7 @@ def test_decode_matches_flax(pair, gene_layout):
     lib = rng.uniform(500, 2000, size=(B, 1)).astype(np.float32)
     if gene_layout == "shared_1d":
         genes = np.arange(1, G + 1, dtype=np.int32)
-        np.testing.assert_array_equal(canonical_gene_ids(G).numpy(), genes)
+        np.testing.assert_array_equal(canonical_gene_ids(G, device="cpu").numpy(), genes)
     else:
         genes = np.stack([rng.permutation(G)[:30] + 1 for _ in range(B)]).astype(np.int32)
     want = jvae.apply(params, jnp.asarray(z), jnp.asarray(genes), jnp.asarray(lib), method="decode")
@@ -72,8 +72,8 @@ def test_decode_matches_flax(pair, gene_layout):
 
 
 def test_init_reference_is_seeded_and_follows_reference_inits():
-    a = init_reference_(build_transformer_vae(**ARCH), torch.Generator().manual_seed(3))
-    b = init_reference_(build_transformer_vae(**ARCH), torch.Generator().manual_seed(3))
+    a = init_reference_(build_transformer_vae(**ARCH, device="cpu"), torch.Generator().manual_seed(3))
+    b = init_reference_(build_transformer_vae(**ARCH, device="cpu"), torch.Generator().manual_seed(3))
     for (na, pa), (nb, pb) in zip(a.state_dict().items(), b.state_dict().items()):
         assert na == nb
         torch.testing.assert_close(pa, pb, rtol=0, atol=0)

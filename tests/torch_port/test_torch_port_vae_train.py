@@ -85,7 +85,7 @@ def setup():
 
 def port_task(state, **kw):
     """A port VAETask whose module holds the JAX state's parameters."""
-    tvae = build_transformer_vae(n_genes=G)
+    tvae = build_transformer_vae(n_genes=G, device="cpu")
     load_reference_state_dict(tvae, export_torch_state_dict(state.params))
     task = VAETask(tvae, **TASK, **kw)
     return task, task.init_state(torch.Generator().manual_seed(0))
@@ -211,7 +211,7 @@ def test_batch_chunks_match_one_launch(setup):
 
 
 def test_dispatch():
-    task = VAETask(build_transformer_vae(n_genes=G), **TASK)
+    task = VAETask(build_transformer_vae(n_genes=G, device="cpu"), **TASK)
     lean = to_torch(lean_batch())
     assert not task._use_fused(lean)  # auto: CUDA tensors only
     assert VAETask(task.vae, fused_decoder=True, **TASK)._use_fused(lean)
@@ -220,11 +220,12 @@ def test_dispatch():
     assert not VAETask(task.vae, fused_decoder=False, **TASK)._use_fused(lean)
     # JAX's architecture gate: E <= 128 and no qkv biases, whatever the
     # kernels are compiled for
-    narrow = build_transformer_vae(n_genes=G, n_embed=16, n_head=4, n_head_cross=2)
+    narrow = build_transformer_vae(n_genes=G, n_embed=16, n_head=4, n_head_cross=2,
+                                   device="cpu")
     assert _fused_path_ok(narrow)
     assert VAETask(narrow, fused_decoder=True, **TASK)._use_fused(lean)
-    for other in (build_transformer_vae(n_genes=G, n_embed=256, n_layer=1),
-                  build_transformer_vae(n_genes=G, bias=True, n_layer=1)):
+    for other in (build_transformer_vae(n_genes=G, n_embed=256, n_layer=1, device="cpu"),
+                  build_transformer_vae(n_genes=G, bias=True, n_layer=1, device="cpu")):
         assert not _fused_path_ok(other)
         assert not VAETask(other, fused_decoder=True, **TASK)._use_fused(lean)
     # at a width the kernels are not built for, the CUDA launch raises before
