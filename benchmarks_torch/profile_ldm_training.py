@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Where the time of one LDM training step goes, on one NVIDIA GPU.
 
-    python3 benchmarks_torch/profile_ldm_training.py
+    python3 benchmarks_torch/profile_ldm_training.py [--census]
 
 Builds the dentate-gyrus VAE and DiT of `chip_smoke.py` (random weights from
 seed 0), the `LDMTask` defaults and lean wire batches with cluster labels
-(B=128 cells), takes a warm-up step, times five unprofiled
+(B=128 cells) or, with --census, the census VAE (frozen) and the census DiT
+(T = 64 latent tokens) of its phase 7 with census batches (B=16), takes a
+warm-up step, times five unprofiled
 `LDMTask.train_step` calls, times three steps' segments (each ending in a
 synchronize): the frozen encode alone, the loss (which encodes again), the
 backward, and the clip, optimizer and EMA (`LDMTask.apply_gradients`, the
@@ -13,24 +15,33 @@ step's own code). Then it traces PROFILED_STEPS
 more steps with `torch.profiler` and prints the unprofiled step times, the
 segments, the profiled wall time, the device's busy time (the union of its
 kernels' spans), the idle share of the median unprofiled wall time, kernels
-per step, the time, launches and share of busy time of the DiT block's
-forward kernel and its two backward kernels, and the profiler's table of the
-operators that took the most device time.
+per step, the time, launches and share of busy time of each of the DiT
+block's kernels (the row design's at the dentate T = 16, the split design's
+at the census T = 64), and the profiler's table of the operators that took
+the most device time.
 """
 
 from __future__ import annotations
 
+import argparse
+import re
 import statistics
 import sys
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-SEED, BATCH = 0, 128
+SEED = 0
 PROFILED_STEPS = 3
+# the DiT block's kernels, forward and backward, of both designs
+DIT_KERNELS = ("dit_block_kernel", "dit_block_bwd_rows", "rows_gemm", "ln_qkv", "attention",
+               "block_post", "mlp_bwd", "attention_bwd", "qkv_bwd", "dit_weight_grads")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--census", action="store_true", help="the census pair (T = 64, B = 16)")
+    args = p.parse_args(argv)
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -48,10 +59,15 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    vae, dit = cs.build_models(SEED)
+    rng = np.random.default_rng(SEED)
+    if args.census:
+        vae, dit = cs.build_census_ldm_models(SEED)
+        batches, batch = cs.census_ldm_batches(rng, 2), cs.CENSUS_LDM_BATCH
+    else:
+        vae, dit = cs.build_models(SEED)
+        batches, batch = cs.ldm_batches(rng, 128, 2), 128
     task = LDMTask(vae, dit, create_transport())
     state = task.init_state(torch.Generator(device="cuda").manual_seed(SEED))
-    batches = cs.ldm_batches(np.random.default_rng(SEED), BATCH, 2)
 
     state, _ = task.train_step(state, batches[0])  # warm-up
     torch.cuda.synchronize()
@@ -62,24 +78,7 @@ def main() -> int:
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     # the step's segments on the host clock, each ending in a synchronize
-    seg = {"encode": [], "loss": [], "backward": [], "clip+optimizer+ema": []}
-    for i in range(3):
-        state.optimizer.zero_grad(set_to_none=True)
-        t0 = time.perf_counter()
-        task._encode(batches[i % 2])
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        loss = task.loss(batches[i % 2], state.generator)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        loss.backward()
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        task.apply_gradients(state)
-        torch.cuda.synchronize()
-        t4 = time.perf_counter()
-        for k, dt in zip(seg, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
-            seg[k].append(round(dt * 1e3, 2))
+    seg = cs.ldm_step_segments(task, state, batches)
     print(f"== segments ms (3 steps, each synchronised; the loss encodes again): {seg}",
           flush=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -97,15 +96,17 @@ def main() -> int:
         raise RuntimeError("the trace holds no device kernel")
     busy_ms = busy_us((e.time_range.start, e.time_range.end) for e in kernels) / 1e3 / PROFILED_STEPS
     median = statistics.median(walls)
-    print(f"== LDM train step B={BATCH}: unprofiled walls ms {[round(w, 2) for w in walls]} "
-          f"(median {median:.2f}, {BATCH / median * 1e3:.1f} train cells/s), profiled wall "
+    print(f"== LDM train step B={batch}: unprofiled walls ms {[round(w, 2) for w in walls]} "
+          f"(median {median:.2f}, {batch / median * 1e3:.1f} train cells/s), profiled wall "
           f"{wall_ms / PROFILED_STEPS:.2f} ms per step, device busy {busy_ms:.2f} ms per step, idle "
           f"share of the unprofiled median {1 - busy_ms / median:.4f}", flush=True)
     kernel_ms = sum(e.time_range.end - e.time_range.start for e in kernels) / 1e3 / PROFILED_STEPS
     print(f"   device kernel time (sum) {kernel_ms:.2f} ms per step over "
           f"{len(kernels) / PROFILED_STEPS:.0f} kernels", flush=True)
-    for name in ("dit_block_kernel", "dit_block_bwd_rows", "dit_weight_grads"):
-        evs = [e for e in kernels if name in e.name]
+    for name in DIT_KERNELS:
+        evs = [e for e in kernels if re.search(rf"\b{name}\b", e.name)]
+        if not evs:
+            continue
         ms = sum(e.time_range.end - e.time_range.start for e in evs) / 1e3 / PROFILED_STEPS
         print(f"   {name}: {ms:.3f} ms per step over {len(evs)} launches, share of busy "
               f"{ms / busy_ms:.4f}", flush=True)

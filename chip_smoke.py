@@ -4,48 +4,60 @@
     python3 chip_smoke.py [--seed N] [--batch B]
 
 Phase 0 prints the card's name and power limit and builds the CUDA kernels
-from `scldm_torch/kernels/csrc`. Phase 1 holds the DiT block kernel against
-its plain PyTorch version on the card at the generation path's shapes, and
-phase 1b the decoder-tail kernels (forward and backward) against theirs at
-the VAE training step's shape and a ragged one, timing both. Phase 2 runs
-CFG generation (`LDMTask.make_sample_fn`) at the dentate-gyrus configuration
-with random weights made from the seed, with dopri5 and with euler-50,
-checks the outputs, checks that every DiT block went through the kernel, and
-holds one DiT evaluation of the sampler (the kernel path) against the plain
-module path (`DiT.forward_with_cfg_batched`) on the same inputs. Phase 1c
-holds the DiT block backward kernels against their plain version at the LDM
-training step's shape and a ragged one, timing both. Phase 1d holds the
+from `scldm_torch/kernels/csrc`. Phase 1 holds the DiT block kernels against
+their plain PyTorch version on the card at the dentate generation path's shape
+(T = 16 latent tokens, the row design), at the census sampler's and training
+step's (T = 64, the split design), at ragged ones and with the split design at
+the dentate shape, timing each beside its bound, and phase 1b the decoder-tail
+kernels (forward and backward) against theirs at the VAE training step's shape
+and a ragged one, timing both. Phase 2 runs CFG generation
+(`LDMTask.make_sample_fn`) at the dentate-gyrus configuration with random
+weights made from the seed, with dopri5 and with euler-50, checks the outputs,
+checks that every DiT block went through the kernel, and holds one DiT
+evaluation of the sampler (the kernel path) against the plain module path
+(`DiT.forward_with_cfg_batched`) on the same inputs. Phase 1c holds the DiT
+block backward kernels against their plain version at the dentate and census
+LDM training steps' shapes and ragged ones, timing both. Phase 1d holds the
 encoder-pool kernels (dense and window, forward and backward) against theirs
 at the VAE steps' shapes and ragged ones, timing both, and the dense pool's
-pooled tokens against the module MCAB where the zero-row correction is not
-0. Phase 3 trains the dentate-gyrus VAE (`VAETask.train_step`) on lean wire
+pooled tokens against the module MCAB where the zero-row correction is not 0.
+Phase 3 trains the dentate-gyrus VAE (`VAETask.train_step`) on lean wire
 batches made like bench.py's for a warm-up step and TRAIN_STEPS timed steps,
 checks the losses and that each tail kernel ran once per step, and holds one
-step's loss and gradients on the kernel path against the module path. Phase
-4 trains the dentate-gyrus DiT on the frozen VAE's latents
+step's loss and gradients on the kernel path against the module path. Phase 4
+trains the dentate-gyrus DiT on the frozen VAE's latents
 (`LDMTask.train_step`) the same way, checks that every block ran its forward
 and backward kernels once per step and that the EMA ticked once per step,
 holds one step's loss and gradients on the kernel path against the module
 path, holds one frozen encode through the window pool
 (`LDMTask(fused_encode=True)`) against the module encode, timing both, and
 generates from the trained state's EMA weights. Phase 5 trains the parse1m /
-replogle VAE (G = S = 2,000) the same way, each step through the dense
-encoder pool and the tail kernels once each way, holds one step against the
-module path, then takes a few steps of `VAETask(fused_pool=True,
-fused_decoder=False)` through the window pool and holds one against the
-module path. Phase 1e holds the swiglu_vec kernels (forward and backward)
-against their plain version at the census decoder's shape (R = 16 x 36,601
-rows, E = 512, Hd = 1,408) and two ragged ones, timing both, with TF32 off.
-Phase 6 trains the census VAE (configs/model/vae_census.yaml: E = 512, 16
-layers, 64 inducing points, G = 36,601 genes, a 4,096-token window, B = 16)
-through the algebraic tail with `VAETask(algebraic_fused_gate=True)`, checks
-that each step launched the swiglu_vec kernels once each way and that the
-loss falls, holds one step against the plain algebraic path and times both
-paths with their peak memory. The line before the last is a JSON summary of
-the kernels, each with its time beside the least time the card could take
-for the same work; the last is {"ok": true, "device": {...}}. Any failure raises, so the script
-exits non-zero and prints no result; so does a machine without CUDA, or a
-directory without the port's sources.
+replogle VAE (G = S = 2,000) the same way, each step through the dense encoder
+pool and the tail kernels once each way, holds one step against the module
+path, then takes a few steps of `VAETask(fused_pool=True,
+fused_decoder=False)` through the window pool and holds one against the module
+path. Phase 1e holds the swiglu_vec kernels (forward and backward) against
+their plain version at the census decoder's shape (R = 16 x 36,601 rows, E =
+512, Hd = 1,408) and two ragged ones, timing both, with TF32 off. Phase 6
+trains the census VAE (configs/model/vae_census.yaml: E = 512, 16 layers, 64
+inducing points, G = 36,601 genes, a 4,096-token window, B = 16) through the
+algebraic tail with `VAETask(algebraic_fused_gate=True)`, checks that each
+step launched the swiglu_vec kernels once each way and that the loss falls,
+holds one step against the plain algebraic path and times both paths with
+their peak memory. Phase 1f holds the flash cross-attention kernel against its
+plain version at the census sampler's cross block (2B = 32 cells, G = 36,601
+genes into 64 latent tokens) and a ragged shape, timing both and
+`scaled_dot_product_attention` as a yardstick. Phase 7 trains the census DiT
+(T = 64, E = 256, 8 layers) on the frozen census VAE's latents (B = 16)
+through the DiT kernels' split design, prints the step's segment split, holds
+one step against the module path, generates euler-50 at a generation batch of
+16 through the algebraic decode, holds the kernel denoiser against the module
+one on the same noise, and holds the module decode with the flash-cross gate
+(`SCLDM_FLASH_CROSS`) on against off. The line before the last is a JSON
+summary of the kernels, each with its time beside the least time the card
+could take for the same work; the last is {"ok": true, "device": {...}}. Any
+failure raises, so the script exits non-zero and prints no result; so does a
+machine without CUDA, or a directory without the port's sources.
 """
 
 from __future__ import annotations
@@ -78,6 +90,11 @@ CENSUS = dict(n_genes=36_601, n_embed=512, n_embed_latent=64, n_layer=16, n_indu
               n_head=8, n_head_cross=8, multiple_of=64)
 CENSUS_BATCH, CENSUS_WINDOW, CENSUS_HIDDEN = 16, 4_096, 1_408
 CENSUS_STEPS = 10  # timed steps, after one warm-up step; 3 if the warm-up step takes over 2 s
+# the census DiT under that VAE (benchmarks/bench_ldm.py:61-85: configs/model/ldm_base.yaml at
+# seq_len = the VAE's 64 inducing points and a 64-wide input); bench_ldm.py:64's batch, also
+# the generation batch (2B = 32 cells a call)
+CENSUS_DIT = dict(DIT, n_embed_input=64, seq_len=64)
+CENSUS_LDM_BATCH = 16
 EPS = 1e-8  # the DiT's LayerNorm eps
 # the H100 SXM's published peaks (NVIDIA's data sheet, dense), at 700 W
 HBM_BYTES_PER_S = 3.35e12
@@ -130,15 +147,15 @@ def bound(n_bytes: float, flops: float, peak: float) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def dit_block_bound(R: int, backward: bool) -> dict:
-    """One DiT block at R rows, f32. Operations: two per multiply-add of its
+def dit_block_bound(R: int, backward: bool, T: int = DIT["seq_len"]) -> dict:
+    """One DiT block at R rows of T tokens, f32. Operations: two per multiply-add of its
     products (per row the adaLN product 6E^2; per token qkv 3E^2, scores and
     probabilities times values 2TE, the projection E^2, the SwiGLU 3E*Hd),
     three times that for the backward, which recomputes the forward; the
     elementwise work is left out. Bytes: each input read once and each output
     written once (backward: x, c, dy and the weights in; dx, dc and the
     weight gradients out)."""
-    T, E = DIT["seq_len"], DIT["n_embed"]
+    E = DIT["n_embed"]
     weights = 10 * E * E + 10 * E + 3 * E * HIDDEN
     flops = 2 * R * (6 * E * E + T * (4 * E * E + 2 * T * E + 3 * E * HIDDEN))
     if backward:
@@ -164,38 +181,61 @@ def decoder_tail_bound(B: int, G: int, backward: bool) -> dict:
     return bound(4 * (inputs + B * G), flops, BF16_FLOPS)
 
 
+def time_in_turns(kernel, plain, reps: int) -> tuple:
+    """(kernel ms, plain ms), each the mean of two CUDA-event timings of
+    `reps` calls taken in turns (plain, kernel, kernel, plain) after a
+    warm-up."""
+    for f in (kernel, plain):
+        cuda_ms(f, 2)
+    turns = [cuda_ms(f, reps) for f in (plain, kernel, kernel, plain)]
+    return (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+
+
+# (T, R, design) of phases 1 and 1c: the dentate shapes first (T = 16, the
+# row design the wrapper picks there), then the split design at the same
+# shape for comparison, then the census DiT's (T = 64, the split design): the
+# sampler's 3B rows at a generation batch of 16, the training step's B = 16,
+# twice that, and a ragged R
+DIT_FWD_CASES = ((16, 384, None), (16, 5, None), (16, 384, "split"),
+                 (64, 3 * CENSUS_LDM_BATCH, None), (64, CENSUS_LDM_BATCH, None),
+                 (64, 2 * CENSUS_LDM_BATCH, None), (64, 5, None))
+DIT_BWD_CASES = ((16, 128, None), (16, 5, None), (16, 128, "split"),
+                 (64, CENSUS_LDM_BATCH, None), (64, 2 * CENSUS_LDM_BATCH, None), (64, 5, None))
+
+
 def phase1_dit_block(seed: int) -> dict:
-    """dit_block vs dit_block_reference at the sampler's shape and a ragged R."""
+    """dit_block vs dit_block_reference (rtol = atol = 1e-4, f32 both, sums
+    in other orders) at the dentate sampler's rows (R = 3B = 384 of T = 16,
+    the row design), the census sampler's (R = 48 of T = 64 at a generation
+    batch of 16) and training step's (R = 16, and 32), ragged Rs, and the
+    split design at the dentate shape; kernel and plain timed in turns. Returns
+    {(T, R, design): {max_abs_err, ms, plain_ms}}."""
     import torch
 
     from scldm_torch.ops import fused_dit
 
-    E, H, T = DIT["n_embed"], DIT["n_head"], DIT["seq_len"]
+    E, H = DIT["n_embed"], DIT["n_head"]
     g = torch.Generator(device="cuda").manual_seed(seed)
     w = random_block_weights(g)
-    eps = EPS
-    max_err = 0.0
-    timing = {}
-    for R in (3 * 128, 5):  # R = 3B rows at batch 128, and a ragged small R
+    out = {}
+    for T, R, design in DIT_FWD_CASES:
         x = torch.randn(R, T, E, generator=g, device="cuda")
         c = torch.randn(R, E, generator=g, device="cuda")
-        got = fused_dit.dit_block(x, c, w, H, eps)
+        got = fused_dit.dit_block(x, c, w, H, EPS, design=design)
         torch.cuda.synchronize()
-        want = fused_dit.dit_block_reference(x, c, w, H, eps)
+        want = fused_dit.dit_block_reference(x, c, w, H, EPS)
         err = (got - want).abs().max().item()
         torch.testing.assert_close(got, want, **TOL)
         if (got - x).abs().max().item() < 1e-2:
             raise AssertionError("dit_block returned its input: the check would prove nothing")
-        max_err = max(max_err, err)
-        kernel = lambda: fused_dit.dit_block(x, c, w, H, eps)  # noqa: E731
-        plain = lambda: fused_dit.dit_block_reference(x, c, w, H, eps)  # noqa: E731
-        for f in (kernel, plain):
-            cuda_ms(f, 3)  # warm-up
-        turns = [cuda_ms(f, 20) for f in (plain, kernel, kernel, plain)]
-        timing[R] = ((turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2)
-        log(f"phase1 dit_block R={R}: max_abs_err {err:.3e}  kernel {timing[R][0]:.4f} ms  "
-            f"plain {timing[R][1]:.4f} ms")
-    return {"max_abs_err": max_err, "ms": timing[384][0], "plain_ms": timing[384][1]}
+        used = design or fused_dit.pick_design(T, E, H, HIDDEN)
+        ms, plain_ms = time_in_turns(lambda: fused_dit.dit_block(x, c, w, H, EPS, design=design),
+                                     lambda: fused_dit.dit_block_reference(x, c, w, H, EPS), 20)
+        out[(T, R, design)] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        b = dit_block_bound(R, backward=False, T=T)
+        log(f"phase1 dit_block T={T} R={R} ({used} design): max_abs_err {err:.3e}  kernel "
+            f"{ms:.4f} ms  plain {plain_ms:.4f} ms  bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+    return out
 
 
 def encoder_pool_bound(B: int, N: int, backward: bool, dense: bool) -> dict:
@@ -311,44 +351,47 @@ def phase1b_decoder_tail(seed: int) -> tuple[dict, dict]:
 
 def phase1c_dit_block_bwd(seed: int) -> dict:
     """dit_block_bwd vs dit_block_backward_reference (autograd through the
-    plain block) at the LDM training step's shape, R = 128 rows (one per
-    cell), and a ragged R. dx and dc at rtol = atol = 1e-4; each weight
-    gradient within 1e-4 of its tensor's largest magnitude: f32 both, the
-    weight gradients summed over R*T tokens in other orders."""
+    plain block) at the dentate LDM step's shape (R = 128 rows of T = 16,
+    the row design), the census step's (R = 16 of T = 64, the split
+    design, and 32), ragged Rs, and the split design at the dentate shape. dx
+    and dc at rtol = atol = 1e-4; each weight gradient within 1e-4 of its
+    tensor's largest magnitude: f32 both, the weight gradients summed over
+    R*T tokens in other orders. Returns {(T, R, design): {max_abs_err, ms, plain_ms}}."""
     import torch
 
     from scldm_torch.ops import fused_dit
 
-    E, H, T = DIT["n_embed"], DIT["n_head"], DIT["seq_len"]
+    E, H = DIT["n_embed"], DIT["n_head"]
     g = torch.Generator(device="cuda").manual_seed(seed + 2)
     w = random_block_weights(g)
-    worst, timing = 0.0, {}
-    for R in (128, 5):
+    out = {}
+    for T, R, design in DIT_BWD_CASES:
         x, dy = (torch.randn(R, T, E, generator=g, device="cuda") for _ in range(2))
         c = torch.randn(R, E, generator=g, device="cuda")
-        dx, dc, dw = fused_dit.dit_block_bwd(x, c, w, dy, H, EPS)
+        dx, dc, dw = fused_dit.dit_block_bwd(x, c, w, dy, H, EPS, design=design)
         torch.cuda.synchronize()
         rx, rc, rw = fused_dit.dit_block_backward_reference(x, c, w, dy, H, EPS)
         torch.testing.assert_close(dx, rx, **TOL)
         torch.testing.assert_close(dc, rc, **TOL)
-        report = []
+        worst, report = 0.0, []
         for name, got, want in [("dx", dx, rx), ("dc", dc, rc),
                                 *((k, dw[k], rw[k]) for k in fused_dit.WEIGHT_NAMES)]:
             err, scale = (got - want).abs().max().item(), want.abs().max().item()
             if name not in ("dx", "dc") and (scale == 0 or err > 1e-4 * scale):
-                raise AssertionError(f"dit_block_bwd {name} at R={R}: max abs err {err:.3e}, "
-                                     f"max |ref| {scale:.3e}")
+                raise AssertionError(f"dit_block_bwd {name} at T={T}, R={R}: max abs err "
+                                     f"{err:.3e}, max |ref| {scale:.3e}")
             worst = max(worst, err)
             report.append(f"{name} {err:.2e} (max {scale:.2e})")
-        kernel = lambda: fused_dit.dit_block_bwd(x, c, w, dy, H, EPS)  # noqa: E731
-        plain = lambda: fused_dit.dit_block_backward_reference(x, c, w, dy, H, EPS)  # noqa: E731
-        for f in (kernel, plain):
-            cuda_ms(f, 3)  # warm-up
-        turns = [cuda_ms(f, 10) for f in (plain, kernel, kernel, plain)]
-        timing[R] = ((turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2)
-        log(f"phase1c dit_block_bwd R={R}: " + ", ".join(report))
-        log(f"phase1c dit_block_bwd R={R}: kernel {timing[R][0]:.4f} ms  plain {timing[R][1]:.4f} ms")
-    return {"max_abs_err": worst, "ms": timing[128][0], "plain_ms": timing[128][1]}
+        used = design or fused_dit.pick_design(T, E, H, HIDDEN, backward=True)
+        ms, plain_ms = time_in_turns(
+            lambda: fused_dit.dit_block_bwd(x, c, w, dy, H, EPS, design=design),
+            lambda: fused_dit.dit_block_backward_reference(x, c, w, dy, H, EPS), 10)
+        out[(T, R, design)] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+        b = dit_block_bound(R, backward=True, T=T)
+        log(f"phase1c dit_block_bwd T={T} R={R} ({used} design): " + ", ".join(report))
+        log(f"phase1c dit_block_bwd T={T} R={R} ({used} design): kernel {ms:.4f} ms  plain "
+            f"{plain_ms:.4f} ms  bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+    return out
 
 
 # The forward rounds each exponential to bf16 against its tile's running max,
@@ -534,6 +577,62 @@ def phase1e_swiglu_vec(seed: int) -> tuple[dict, dict]:
         torch.cuda.empty_cache()
     return tuple({"max_abs_err": errs[part], "ms": timing[part][0], "plain_ms": timing[part][1]}
                  for part in ("fwd", "bwd"))
+
+
+def flash_cross_bound(B: int, G: int, E: int = 512, M: int = 64) -> dict:
+    """Flash cross-attention of B batch elements over G genes into M keys, E
+    columns. Its products take bf16 operands, so the bf16 tensor-core peak:
+    the scores and the probabilities times the values, B*G*M*E multiply-adds
+    each, two operations per multiply-add. Bytes: qp (G, E), k and v (B, M,
+    E) in and y (B, G, E) out, f32."""
+    return bound(4 * (G * E + 2 * B * M * E + B * G * E), 4 * B * G * M * E, BF16_FLOPS)
+
+
+def phase1f_flash_cross(seed: int) -> dict:
+    """flash_cross_attention's forward kernel against flash_cross_reference
+    at the census sampler's cross block (2B = 32 cells, G = 36,601 genes, E =
+    512, 8 heads, M = 64 latent tokens) and a ragged shape (G = 300 off the
+    128-gene tile, B = 3 off the 8-element batch tile), held by `held_bf16`'s
+    rule (both round the same operands and the probabilities to bf16, and sum
+    in other orders); kernel and plain timed in turns, and, as the library
+    yardstick, `F.scaled_dot_product_attention` on the same operands in bf16
+    with the queries expanded over the batch (timed here; the port never
+    calls it)."""
+    import torch
+    import torch.nn.functional as F
+
+    from scldm_torch.ops import fused_cross as fc
+
+    E, H, M = CENSUS["n_embed"], CENSUS["n_head_cross"], CENSUS["n_inducing_points"]
+    hd = E // H
+    g = torch.Generator(device="cuda").manual_seed(seed + 8)
+    out = {}
+    for B, G in ((2 * CENSUS_LDM_BATCH, CENSUS["n_genes"]), (3, 300)):
+        qp = torch.randn(G, E, generator=g, device="cuda")
+        k, v = (torch.randn(B, M, E, generator=g, device="cuda") for _ in range(2))
+        got = fc.flash_cross_fwd(qp, k, v, H)
+        torch.cuda.synchronize()
+        want = fc.flash_cross_reference(qp, k, v, H)
+        worst = held_bf16(f"flash_cross at B={B}, G={G}", got, want)
+        log(f"phase1f flash_cross B={B} G={G} E={E} H={H} M={M}: " + report_bf16({"y": worst}))
+        del got, want
+        if G != CENSUS["n_genes"]:
+            continue
+        ms, plain_ms = time_in_turns(lambda: fc.flash_cross_fwd(qp, k, v, H),
+                                     lambda: fc.flash_cross_reference(qp, k, v, H), 5)
+        qb = qp.reshape(G, H, hd).transpose(0, 1).bfloat16()[None].expand(B, H, G, hd).contiguous()
+        kb, vb = (t.reshape(B, M, H, hd).transpose(1, 2).bfloat16().contiguous() for t in (k, v))
+        library = lambda: F.scaled_dot_product_attention(qb, kb, vb)  # noqa: E731
+        cuda_ms(library, 2)
+        library_ms = (cuda_ms(library, 5) + cuda_ms(library, 5)) / 2
+        b = flash_cross_bound(B, G, E, M)
+        out = {"max_abs_err": worst[0], "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms}
+        log(f"phase1f flash_cross B={B} G={G}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+            f"library (scaled_dot_product_attention, bf16) {library_ms:.4f} ms  bound "
+            f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+        del qb, kb, vb
+    torch.cuda.empty_cache()
+    return out
 
 
 def build_models(seed: int):
@@ -902,6 +1001,68 @@ def phase6_census_training(seed: int) -> tuple[int, int]:
     return fused["launches"]
 
 
+def compare_ldm_paths(phase: str, task, module_task, batch, g) -> None:
+    """One step's loss and gradients, kernel path vs module path, same
+    parameters, batch and draws (from `g`); JAX's bounds between its two
+    paths (tests/test_fused_dit.py): loss 1e-4 relative, grad norm 1e-3."""
+    import torch
+
+    from scldm_torch.training.metrics import global_norm
+
+    dit = task.dit
+    B, T, E_in = len(batch["clusters"]), dit.seq_len, dit.n_embed_input
+    noise = {"t": torch.rand(B, generator=g, device="cuda"),
+             "x0": torch.randn(B, T, E_in, generator=g, device="cuda"),
+             "drop_mask": torch.rand(B, generator=g, device="cuda") < dit.cfg_dropout_prob}
+    runs = []
+    for t in (task, module_task):
+        dit.zero_grad(set_to_none=True)
+        loss = t.loss(batch, g, noise)
+        loss.backward()
+        grads = {k: p.grad.clone() for k, p in dit.named_parameters()}
+        runs.append((loss.item(), global_norm(grads.values()).item(), grads))
+    dit.zero_grad(set_to_none=True)
+    (lk, nk, gk), (lm, nm, gm) = runs
+    if abs(lk - lm) > 1e-4 * abs(lm) or abs(nk - nm) > 1e-3 * nm:
+        raise AssertionError(f"{phase}: kernel path loss {lk}, grad norm {nk}; module path {lm}, "
+                             f"{nm}")
+    worst = max(((gk[k] - w).abs().max().item() / (w.abs().max().item() + 1e-12), k)
+                for k, w in gm.items())
+    log(f"{phase} reference: one step, kernel path vs module path: loss {lk:.6f} vs {lm:.6f} "
+        f"({abs(lk - lm) / abs(lm):.2e} relative), grad norm {nk:.6f} vs {nm:.6f} "
+        f"({abs(nk - nm) / nm:.2e}), {len(gm)} gradients, largest gap {worst[0]:.3e} of its "
+        f"max ({worst[1]})")
+
+
+def ldm_step_segments(task, state, batches, n: int = 3) -> dict:
+    """The segments of `n` LDM training steps on the host clock, each ending
+    in a synchronize: the frozen encode alone, the loss (which encodes
+    again), the backward, and the clip, optimizer and EMA
+    (`LDMTask.apply_gradients`, the step's own code); ms per step."""
+    import torch
+
+    seg = {"encode": [], "loss": [], "backward": [], "apply_gradients": []}
+    for i in range(n):
+        b = batches[i % len(batches)]
+        state.optimizer.zero_grad(set_to_none=True)
+        t0 = time.perf_counter()
+        task._encode(b)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss = task.loss(b, state.generator)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        task.apply_gradients(state)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        for k, dt in zip(seg, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            seg[k].append(round(dt * 1e3, 2))
+    return seg
+
+
 def ldm_batches(rng, batch: int, n: int) -> list:
     """n lean wire batches on the card, each with `clusters` labels drawn
     from 0..N_CLUSTERS-1: the LDM training step's input."""
@@ -925,7 +1086,6 @@ def phase4_ldm_training(seed: int, batch: int) -> tuple[int, int, int]:
     from scldm_torch.ops.transforms import canonical_gene_ids
     from scldm_torch.sampling.size_factors import SizeFactorSampler, constant_stats
     from scldm_torch.training.ldm_task import LDMTask
-    from scldm_torch.training.metrics import global_norm
     from scldm_torch.transport import create_transport
 
     vae, dit = build_models(seed)
@@ -961,31 +1121,9 @@ def phase4_ldm_training(seed: int, batch: int) -> tuple[int, int, int]:
         f"{mets['lr_mult'].item():.5f}; launches dit_block {fwd} dit_block_bwd {bwd}, EMA step "
         f"{state.ema.step}")
 
-    # one step's loss and gradients, kernel path vs module path, same
-    # parameters, batch and draws; JAX's bounds between its two paths
-    # (tests/test_fused_dit.py)
     g = torch.Generator(device="cuda").manual_seed(seed + 3)
-    noise = {"t": torch.rand(batch, generator=g, device="cuda"),
-             "x0": torch.randn(batch, DIT["seq_len"], DIT["n_embed_input"], generator=g,
-                               device="cuda"),
-             "drop_mask": torch.rand(batch, generator=g, device="cuda") < DIT["cfg_dropout_prob"]}
-    runs = []
-    for t in (task, LDMTask(vae, dit, create_transport(), fused_training=False)):
-        dit.zero_grad(set_to_none=True)
-        loss = t.loss(batches[-1], g, noise)
-        loss.backward()
-        grads = {k: p.grad.clone() for k, p in dit.named_parameters()}
-        runs.append((loss.item(), global_norm(grads.values()).item(), grads))
-    dit.zero_grad(set_to_none=True)
-    (lk, nk, gk), (lm, nm, gm) = runs
-    if abs(lk - lm) > 1e-4 * abs(lm) or abs(nk - nm) > 1e-3 * nm:
-        raise AssertionError(f"kernel path loss {lk}, grad norm {nk}; module path {lm}, {nm}")
-    worst = max(((gk[k] - w).abs().max().item() / (w.abs().max().item() + 1e-12), k)
-                for k, w in gm.items())
-    log(f"phase4 reference: one step, kernel path vs module path: loss {lk:.6f} vs {lm:.6f} "
-        f"({abs(lk - lm) / abs(lm):.2e} relative), grad norm {nk:.6f} vs {nm:.6f} "
-        f"({abs(nk - nm) / nm:.2e}), {len(gm)} gradients, largest gap {worst[0]:.3e} of its "
-        f"max ({worst[1]})")
+    compare_ldm_paths("phase4", task, LDMTask(vae, dit, create_transport(), fused_training=False),
+                      batches[-1], g)
 
     # the frozen encode through the window pool (LDMTask(fused_encode=True))
     # against the module encode on the same batch; JAX's bound between the two
@@ -1033,6 +1171,167 @@ def phase4_ldm_training(seed: int, batch: int) -> tuple[int, int, int]:
     return fwd, bwd, gen, encode_launches
 
 
+def build_census_ldm_models(seed: int):
+    """The census VAE (frozen, eval) and the census DiT on the card, random
+    weights from CUDA generators, the DiT's adaLN and final layers non-zero."""
+    import torch
+
+    from scldm_torch.nn.nnets import DiT
+    from scldm_torch.nn.vae import build_transformer_vae
+    from scldm_torch.utils.weights import init_reference_
+
+    vae = init_reference_(build_transformer_vae(**CENSUS, device="cuda"),
+                          torch.Generator(device="cuda").manual_seed(seed)).eval()
+    dit = init_reference_(DiT(**CENSUS_DIT).to("cuda"),
+                          torch.Generator(device="cuda").manual_seed(seed + 1), zero_init=False)
+    return vae, dit
+
+
+def census_ldm_batches(rng, n: int) -> list:
+    """n census LDM batches on the card: benchmarks/bench_census.py's
+    synth_batch cells (2,048 to 4,095 expressed genes over a 4,096-token
+    window) with `clusters` labels from 0..N_CLUSTERS-1."""
+    import torch
+
+    G, B, S = CENSUS["n_genes"], CENSUS_LDM_BATCH, CENSUS_WINDOW
+    return [{**{k: torch.from_numpy(v).to("cuda") for k, v in
+                lean_batch(rng, B, G, S, (S // 2, S)).items()},
+             "clusters": torch.from_numpy(rng.integers(0, N_CLUSTERS, B)).to("cuda")}
+            for _ in range(n)]
+
+
+def phase7_census_ldm(seed: int) -> dict:
+    """Census LDM training and generation: the census VAE, frozen, under the
+    census DiT (T = 64 latent tokens), random weights from CUDA generators
+    with non-zero adaLN. Trains CENSUS_STEPS steps of B = 16 through the DiT
+    block kernels (the split design) and prints the segment split of three
+    synchronised steps; holds one step against the module path; generates
+    euler-50 at a generation batch of 16 through the algebraic decode;
+    holds generate_from_noise with `fused_blocks` against the module
+    denoiser on the same noise (latents and mu within 1e-3); holds the module
+    decode with the flash-cross gate on against off (mu by `held_bf16`'s
+    rule). Returns the main path's launches of dit_block, dit_block_bwd and
+    flash_cross."""
+    import numpy as np
+    import torch
+
+    from scldm_torch.ops import attention
+    from scldm_torch.ops import fused_cross as fc
+    from scldm_torch.ops import fused_dit
+    from scldm_torch.ops.transforms import canonical_gene_ids
+    from scldm_torch.sampling.size_factors import SizeFactorSampler, constant_stats
+    from scldm_torch.training.ldm_task import LDMTask
+    from scldm_torch.transport import create_transport
+
+    vae, dit = build_census_ldm_models(seed)
+    task = LDMTask(vae, dit, create_transport())
+    if not (task.algebraic_decode and task.algebraic_vw_fold and not task.algebraic_fused_gate):
+        raise AssertionError("the census LDMTask did not take the algebraic decode with the fold")
+    G, B, S, L = CENSUS["n_genes"], CENSUS_LDM_BATCH, CENSUS_WINDOW, dit.n_layer
+    batches = census_ldm_batches(np.random.default_rng(seed), CENSUS_STEPS + 1)
+
+    # -- training
+    state = task.init_state(torch.Generator(device="cuda").manual_seed(seed))
+    state, mets = task.train_step(state, batches[0])  # warm-up
+    torch.cuda.synchronize()
+    fused_dit.DIT_BLOCK_LAUNCHES.reset()
+    fused_dit.DIT_BLOCK_BWD_LAUNCHES.reset()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    t0 = time.perf_counter()
+    for b in batches[1:]:
+        state, mets = task.train_step(state, b)
+        losses.append(mets["train_loss"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n = CENSUS_STEPS
+    launches = {"dit_block": fused_dit.DIT_BLOCK_LAUNCHES.count,
+                "dit_block_bwd": fused_dit.DIT_BLOCK_BWD_LAUNCHES.count}
+    peak = torch.cuda.max_memory_allocated()
+    losses = torch.stack(losses)
+    if not torch.isfinite(losses).all():
+        raise AssertionError(f"non-finite census LDM loss: {losses.tolist()}")
+    if launches != {"dit_block": L * n, "dit_block_bwd": L * n} or state.ema.step != n + 1:
+        raise AssertionError(f"{launches} in {n} steps of {L} blocks, EMA step {state.ema.step}")
+    log(f"phase7 census LDM training B={B} G={G} S={S} T={dit.seq_len}: {B * n / dt:.1f} train "
+        f"cells/s, {dt / n * 1e3:.2f} ms/step over {n} steps; losses {losses[0].item():.4f} -> "
+        f"{losses[-1].item():.4f}, grad_norm {mets['grad_norm'].item():.4f}; launches {launches}; "
+        f"peak memory {peak / 2**30:.2f} GiB")
+    seg = ldm_step_segments(task, state, batches[1:4])
+    log(f"phase7 segments ms (3 steps, each synchronised; the loss encodes again): {seg}")
+    g = torch.Generator(device="cuda").manual_seed(seed + 3)
+    compare_ldm_paths("phase7", task, LDMTask(vae, dit, create_transport(), fused_training=False),
+                      batches[-1], g)
+
+    # -- generation: euler-50 through the algebraic decode
+    sfs = SizeFactorSampler(constant_stats({"clusters": N_CLUSTERS}, mu=8.6, sd=0.3))
+    genes = canonical_gene_ids(G, device="cuda")
+    cond = {"clusters": batches[-1]["clusters"]}
+    fn = task.make_sample_fn(sfs, guidance_weight=GUIDANCE, sampling_method="euler", num_steps=50)
+    fn(g, genes, cond)  # warm-up
+    torch.cuda.synchronize()
+    fused_dit.DIT_BLOCK_LAUNCHES.reset()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    counts, z = fn(g, genes, cond)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    gen = fused_dit.DIT_BLOCK_LAUNCHES.count
+    peak = torch.cuda.max_memory_allocated()
+    if counts.shape != (2 * B, G) or z.shape != (2 * B, dit.seq_len, dit.n_embed_input):
+        raise AssertionError(f"census generation: counts {tuple(counts.shape)}, z {tuple(z.shape)}")
+    if not (torch.isfinite(z).all() and (counts >= 0).all() and (counts == counts.round()).all()):
+        raise AssertionError("census generation: non-finite latents or counts not integers")
+    if fn.drift_evals <= 0 or gen != L * fn.drift_evals:
+        raise AssertionError(f"{gen} dit_block launches for {fn.drift_evals} DiT evaluations")
+    launches["dit_block"] += gen
+    log(f"phase7 census generation euler-50 (algebraic decode, vw fold): {2 * B / dt:.1f} cells/s "
+        f"({dt:.3f} s for {2 * B} cells), DiT evals {fn.drift_evals}, dit_block launches {gen}, "
+        f"counts {tuple(counts.shape)} mean {counts.mean().item():.4f}; peak memory "
+        f"{peak / 2**30:.2f} GiB")
+
+    # -- the kernel denoiser against the module one, the same noise
+    z0 = torch.randn(B, dit.seq_len, dit.n_embed_input, generator=g, device="cuda")
+    log_sf = torch.full((B,), 8.6, device="cuda")
+    kw = dict(guidance_weight=GUIDANCE, sampling_method="euler", num_steps=50)
+    (zk, ok, _), (zm, om, _) = (task.generate_from_noise(z0, log_sf, genes, cond,
+                                                         fused_blocks=fused, **kw)
+                                for fused in (True, False))
+    z_err = (zk - zm).abs().max().item()
+    mu_err, mu_max = (ok["mu"] - om["mu"]).abs().max().item(), om["mu"].abs().max().item()
+    torch.testing.assert_close(zk, zm, rtol=1e-3, atol=1e-3)
+    if not mu_err <= 1e-3 * mu_max:
+        raise AssertionError(f"fused_blocks mu: max abs err {mu_err:.3e}, max |mu| {mu_max:.3e}")
+    log(f"phase7 reference: generate_from_noise euler-50, fused_blocks=True vs False: latents max "
+        f"abs err {z_err:.3e}, mu {mu_err:.3e} ({mu_err / mu_max:.1e} of max)")
+    del ok, om
+
+    # -- the module decode with the flash-cross gate on and off, the same noise
+    module_task = LDMTask(vae, dit, create_transport(), algebraic_decode=False)
+    kw["num_steps"] = 10
+    outs, walls = {}, {}
+    try:
+        for enabled in (True, False):
+            attention._FLASH_CROSS_ENABLED = enabled
+            fc.FLASH_CROSS_LAUNCHES.reset()
+            t0 = time.perf_counter()
+            outs[enabled] = module_task.generate_from_noise(z0, log_sf, genes, cond, **kw)[1]["mu"]
+            torch.cuda.synchronize()
+            walls[enabled] = time.perf_counter() - t0
+            if enabled:
+                launches["flash_cross"] = fc.FLASH_CROSS_LAUNCHES.count
+    finally:
+        attention._FLASH_CROSS_ENABLED = False
+    if launches["flash_cross"] != 1 or fc.FLASH_CROSS_LAUNCHES.count != 0:
+        raise AssertionError(f"flash_cross launches: {launches['flash_cross']} with the gate, "
+                             f"{fc.FLASH_CROSS_LAUNCHES.count} without")
+    worst = held_bf16("module decode mu, flash cross vs plain attention", outs[True], outs[False])
+    log(f"phase7 module decode (algebraic_decode=False), euler-10, SCLDM_FLASH_CROSS on vs off: "
+        f"{report_bf16({'mu': worst})}; flash_cross launches {launches['flash_cross']}; "
+        f"generation wall {walls[True]:.3f} s vs {walls[False]:.3f} s")
+    return launches
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -1073,6 +1372,7 @@ def main(argv=None) -> int:
     dit_block_bwd = phase1c_dit_block_bwd(args.seed)
     pools = phase1d_encoder_pool(args.seed)
     swiglu_fwd, swiglu_bwd = phase1e_swiglu_vec(args.seed)
+    flash_cross = phase1f_flash_cross(args.seed)
 
     # -- phase 2: the generation path -------------------------------------------
     launches = phase2_generation(args.seed, args.batch)
@@ -1090,22 +1390,39 @@ def main(argv=None) -> int:
     # -- phase 6: VAE training at census width --------------------------------
     census_fwd, census_bwd = phase6_census_training(args.seed)
 
+    # -- phase 7: census LDM training and generation ----------------------------
+    census_ldm = phase7_census_ldm(args.seed)
+
     tail_src = "scldm_torch/kernels/csrc/decoder_tail.cu"
     pool_src = "scldm_torch/kernels/csrc/encoder_pool.cu"
     pool_launches = {"dense_fwd": parse["encoder_pool_fwd"], "dense_bwd": parse["encoder_pool_bwd"],
                      "window_fwd": parse["window_pool_fwd"] + encode_launches,
                      "window_bwd": parse["window_pool_bwd"]}
     pool_replaces = {"dense_fwd": 217, "dense_bwd": 263, "window_fwd": 409, "window_bwd": 452}
-    # no single PyTorch call computes any of these functions: library_ms is null
+    # no single PyTorch call computes any of these functions but flash_cross
+    # (scaled_dot_product_attention): library_ms is null for the rest
+    dit_src = "scldm_torch/kernels/csrc/dit_block.cu"
+    dit_bwd_src = "scldm_torch/kernels/csrc/dit_block_bwd.cu"
+    census_rows = (3 * CENSUS_LDM_BATCH, CENSUS_LDM_BATCH)  # the census sampler's and step's rows
     kernels = [
-        {"name": "dit_block", "route": "cuda", "source": "scldm_torch/kernels/csrc/dit_block.cu",
+        # the row design at the dentate shapes (T = 16), the split design at
+        # the census ones (T = 64)
+        {"name": "dit_block", "route": "cuda", "source": dit_src,
          "replaces": "scldm_tpu/ops/fused_dit.py:155",
-         "launches": launches + ldm_fwd + ldm_gen, **dit_block,
+         "launches": launches + ldm_fwd + ldm_gen, **dit_block[(16, 384, None)],
          **dit_block_bound(3 * args.batch, backward=False), "library_ms": None},
-        {"name": "dit_block_bwd", "route": "cuda",
-         "source": "scldm_torch/kernels/csrc/dit_block_bwd.cu",
-         "replaces": "scldm_tpu/ops/fused_dit.py:205", "launches": ldm_bwd, **dit_block_bwd,
-         **dit_block_bound(128, backward=True), "library_ms": None},
+        {"name": "dit_block_bwd", "route": "cuda", "source": dit_bwd_src,
+         "replaces": "scldm_tpu/ops/fused_dit.py:205", "launches": ldm_bwd,
+         **dit_block_bwd[(16, 128, None)], **dit_block_bound(128, backward=True),
+         "library_ms": None},
+        {"name": "dit_block_split", "route": "cuda", "source": dit_src,
+         "replaces": "scldm_tpu/ops/fused_dit.py:155", "launches": census_ldm["dit_block"],
+         **dit_block[(64, census_rows[0], None)],
+         **dit_block_bound(census_rows[0], backward=False, T=64), "library_ms": None},
+        {"name": "dit_block_bwd_split", "route": "cuda", "source": dit_bwd_src,
+         "replaces": "scldm_tpu/ops/fused_dit.py:205", "launches": census_ldm["dit_block_bwd"],
+         **dit_block_bwd[(64, census_rows[1], None)],
+         **dit_block_bound(census_rows[1], backward=True, T=64), "library_ms": None},
         {"name": "decoder_tail_fwd", "route": "cuda", "source": tail_src,
          "replaces": "scldm_tpu/ops/fused_decoder.py:262",
          "launches": fwd_launches + parse["decoder_tail_fwd"], **tail_fwd,
@@ -1132,6 +1449,14 @@ def main(argv=None) -> int:
                             part == "bwd"), "library_ms": None}
         for part, line, launches_, timed in (("fwd", 256, census_fwd, swiglu_fwd),
                                              ("bwd", 280, census_bwd, swiglu_bwd))
+    ] + [
+        # the census sampler's cross block: 2B = 32 cells, G = 36,601 genes
+        {"name": "flash_cross", "route": "cuda",
+         "source": "scldm_torch/kernels/csrc/flash_cross.cu",
+         "replaces": "scldm_tpu/ops/fused_cross.py:133", "launches": census_ldm["flash_cross"],
+         **flash_cross,
+         **flash_cross_bound(2 * CENSUS_LDM_BATCH, CENSUS["n_genes"], CENSUS["n_embed"],
+                             CENSUS["n_inducing_points"])},
     ]
     for k in kernels:
         log(f"{k['name']}: {k['ms']:.4f} ms against a bound of {k['bound_ms']:.4f} ms "

@@ -28,11 +28,12 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
-    # pointers: x, c, wada, bada, wqkv, bqkv, wproj, bproj, w1, w2, wmlp, out
+    # pointers: x, c, wada, bada, wqkv, bqkv, wproj, bproj, w1, w2, wmlp, out,
+    # workspace
     "scldm_dit_block_forward": (
-        [_P] * 12
+        [_P] * 13
         + [ctypes.c_int] * 5  # R, T, E, H, Hd
-        + [ctypes.c_float, ctypes.c_longlong, _P],  # eps, smem_bytes, stream
+        + [ctypes.c_float, ctypes.c_int, _P],  # eps, row_design, stream
         ctypes.c_int,
     ),
     # pointers: x, c, the nine (in, out) weights, the six (out, in) matrices,
@@ -41,7 +42,7 @@ _SIGNATURES = {
     "scldm_dit_block_backward": (
         [_P] * 29
         + [ctypes.c_int] * 5  # R, T, E, H, Hd
-        + [ctypes.c_float, ctypes.c_longlong, _P],  # eps, smem_bytes, stream
+        + [ctypes.c_float, ctypes.c_int, _P],  # eps, row_design, stream
         ctypes.c_int,
     ),
     # pointers: qp, q, kfull, vproj, ln2g, ln2b, w12, wv, wmu, bmu, out
@@ -100,6 +101,11 @@ _SIGNATURES = {
     ),
     "scldm_swiglu_vec_workspace_floats": (
         [ctypes.c_longlong, ctypes.c_int, ctypes.c_int], ctypes.c_longlong,  # R, E, Hd
+    ),
+    # pointers: qp, k, v, y, workspace
+    "scldm_flash_cross_forward": (
+        [_P] * 5 + [ctypes.c_int] * 5 + [_P],  # G, B, M, E, H, stream
+        ctypes.c_int,
     ),
     "scldm_cuda_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }

@@ -8,11 +8,24 @@ joins the two under autograd, as `fused_dit_block_trainable` does.
 `fused_dit_forward` drives the forward through a whole DiT in the CFG
 sampler, `fused_dit_train_apply` both through the DiT trunk in LDM training.
 
+Each direction has two designs, both hand-written. The row design keeps a
+whole DiT row in one CTA's shared memory (`dit_block_row_smem_bytes`,
+`dit_block_bwd_row_smem_bytes`); the split design splits the block by what
+each stage needs (one CTA per row and token tile, per row and head, or per
+tile of rows) and hands intermediates on through a device workspace, so that
+its shared memory is bounded by a token tile and one head's scores rather
+than by the row (`dit_block_smem_bytes`, `dit_block_bwd_smem_bytes`). The
+wrappers take the row design wherever a row fits one CTA (the dentate DiT's
+T = 16 latent tokens, where it is the faster of the two) and the split
+design elsewhere (the census DiT's T = 64); `pick_design` says which, and
+the need is checked before launch.
+
 `dit_block` and `dit_block_bwd` launch their kernels on CUDA tensors and run
 the plain PyTorch versions (`dit_block_reference`,
 `dit_block_backward_reference`) on CPU tensors; any other device raises.
-`DIT_BLOCK_LAUNCHES` and `DIT_BLOCK_BWD_LAUNCHES` count kernel launches, so a
-run can show that its main path went through the kernels.
+`DIT_BLOCK_LAUNCHES` and `DIT_BLOCK_BWD_LAUNCHES` count the wrappers'
+launches (one each, whatever the number of kernels behind it), so a run can
+show that its main path went through the kernels.
 """
 
 from __future__ import annotations
@@ -29,6 +42,10 @@ MATRIX_NAMES = ("wada", "wqkv", "wproj", "w1", "w2", "wmlp")
 
 #: shared memory one CTA may use on Hopper (232,448 bytes)
 MAX_SMEM_BYTES = 227 * 1024
+#: tokens per CTA of the kernels' token-wise stages (kTok in dit_common.cuh)
+TOKEN_TILE = 16
+#: rows per CTA of their per-row products (kRowTile in dit_common.cuh)
+ROW_TILE = 8
 
 
 class LaunchCounter:
@@ -93,27 +110,90 @@ def dit_block_backward_reference(
     return grads[0], grads[1], dict(zip(WEIGHT_NAMES, grads[2:]))
 
 
-def dit_block_smem_bytes(T: int, E: int, n_head: int, hidden: int) -> int:
-    """Dynamic shared memory of one CTA: x, h, qkv-or-hidden, silu(c), mod and
-    the scores (the layout in dit_block.cu)."""
+def _rows_gemm_bytes(K: int) -> int:
+    """rows_gemm's CTA: ROW_TILE staged input rows of K and its eight warps'
+    partial sums (dit_common.cuh)."""
+    return 4 * (ROW_TILE * K + 8 * ROW_TILE * 32)
+
+
+def _attention_bytes(T: int, hd: int) -> int:
+    """The attention forward's CTA, one (row, head): q, k (padded), v and
+    the (T, T) scores."""
+    return 4 * (2 * T * hd + T * (hd + 1) + T * T)
+
+
+def dit_block_row_smem_bytes(T: int, E: int, n_head: int, hidden: int) -> int:
+    """Dynamic shared memory of the forward's row kernel, one CTA per row: x,
+    h, qkv-or-hidden, silu(c), mod and the scores (dit_block.cu)."""
     return 4 * (2 * T * E + T * max(3 * E, hidden) + 7 * E + n_head * T * T)
 
 
-def dit_block_bwd_smem_bytes(T: int, E: int, n_head: int, hidden: int) -> int:
-    """Dynamic shared memory of one CTA of the backward's row kernel: the
-    forward's, plus the score cotangents, dmod and the LayerNorm statistics
-    (the layout in dit_block_bwd.cu)."""
+def dit_block_bwd_row_smem_bytes(T: int, E: int, n_head: int, hidden: int) -> int:
+    """Dynamic shared memory of the backward's row kernel: the forward's,
+    plus the score cotangents, dmod and the LayerNorm statistics
+    (dit_block_bwd.cu)."""
     return 4 * (2 * T * E + T * max(3 * E, hidden) + 2 * n_head * T * T + 13 * E + 4 * T)
+
+
+def pick_design(T: int, E: int, n_head: int, hidden: int, backward: bool = False) -> str:
+    """The design the wrappers take: "row" where a row fits one CTA, "split"
+    elsewhere."""
+    row = (dit_block_bwd_row_smem_bytes if backward else dit_block_row_smem_bytes)(
+        T, E, n_head, hidden)
+    return "row" if row <= MAX_SMEM_BYTES else "split"
+
+
+def dit_block_smem_bytes(T: int, E: int, n_head: int, hidden: int) -> Dict[str, int]:
+    """Dynamic shared memory of one CTA of each kernel of the forward's split
+    design (the layouts in dit_block.cu and dit_common.cuh), by kernel:
+    bounded by a token tile and by one head's scores, not by the row."""
+    return {
+        "rows_gemm": _rows_gemm_bytes(E),
+        "ln_qkv": 4 * TOKEN_TILE * E,
+        "attention": _attention_bytes(T, E // n_head),
+        "block_post": 4 * TOKEN_TILE * (2 * E + hidden),
+    }
+
+
+def dit_block_bwd_smem_bytes(T: int, E: int, n_head: int, hidden: int) -> Dict[str, int]:
+    """Dynamic shared memory of one CTA of each kernel of the backward's split
+    design (the layouts in dit_block_bwd.cu): the forward's first three, then
+    the MLP branch's backward per token tile, the attention's per (row,
+    head), the qkv product's per token tile, and dc over ROW_TILE rows of
+    dmod (6E)."""
+    hd = E // n_head
+    fwd = dit_block_smem_bytes(T, E, n_head, hidden)
+    return {
+        "rows_gemm": fwd["rows_gemm"],
+        "ln_qkv": fwd["ln_qkv"],
+        "attention": fwd["attention"],
+        "mlp_bwd": 4 * (TOKEN_TILE * (2 * E + hidden) + 2 * TOKEN_TILE),
+        "attention_bwd": 4 * (2 * T * hd + 2 * T * (hd + 1) + 2 * T * T),
+        "qkv_bwd": 4 * (TOKEN_TILE * 5 * E + 2 * TOKEN_TILE),
+        "dc": _rows_gemm_bytes(6 * E),
+    }
+
+
+def dit_block_workspace_floats(R: int, T: int, E: int) -> int:
+    """Device workspace of the forward's split design, in floats: per row
+    mod (6E), per token qkv and the attention output (4E) (dit_block.cu)."""
+    return 6 * R * E + 4 * R * T * E
 
 
 def dit_block_bwd_workspace_floats(R: int, T: int, E: int, hidden: int) -> int:
     """Device workspace of the backward, in floats: per token h, qkv, attn,
-    proj, h2, m (8E) and [a | b], g (3 hidden); per row silu(c) and dmod (7E)
-    (`carve` in dit_block_bwd.cu)."""
-    return R * T * (8 * E + 3 * hidden) + 7 * R * E
+    proj, h2, dm, d(attention output) (9E) and [a | b], g (3 hidden); per
+    row silu(c) and mod (7E); per row and token tile a partial of dmod (6E)
+    (`carve` in dit_block_bwd.cu). Both designs take the same layout; the
+    row design leaves d(attention output) and the partials unused."""
+    tiles = -(-T // TOKEN_TILE)
+    return R * T * (9 * E + 3 * hidden) + 7 * R * E + 6 * R * tiles * E
 
 
-def _check_shapes(x, c, weights, n_head, backward: bool = False) -> int:
+def _check_shapes(x, c, weights, n_head, backward: bool = False,
+                  design: str | None = None) -> str:
+    """Validate the shapes and the shared memory of `design` (None: the one
+    `pick_design` takes); returns the design."""
     R, T, E = x.shape
     hidden = weights["w1"].shape[1]
     want = {
@@ -131,13 +211,23 @@ def _check_shapes(x, c, weights, n_head, backward: bool = False) -> int:
             "dit_block needs E % 4 == 0, hidden % 4 == 0 and E % n_head == 0 "
             f"(E={E}, hidden={hidden}, n_head={n_head})"
         )
-    smem = (dit_block_bwd_smem_bytes if backward else dit_block_smem_bytes)(T, E, n_head, hidden)
-    if smem > MAX_SMEM_BYTES:
+    design = design or pick_design(T, E, n_head, hidden, backward)
+    if design == "row":
+        need = {"row": (dit_block_bwd_row_smem_bytes if backward else dit_block_row_smem_bytes)(
+            T, E, n_head, hidden)}
+    elif design == "split":
+        split = dit_block_bwd_smem_bytes if backward else dit_block_smem_bytes
+        need = split(T, E, n_head, hidden)
+    else:
+        raise ValueError(f"design must be 'row', 'split' or None, got {design!r}")
+    kernel, most = max(need.items(), key=lambda kv: kv[1])
+    if most > MAX_SMEM_BYTES:
         raise ValueError(
-            f"dit_block{'_bwd' if backward else ''} needs {smem} bytes of shared memory per "
-            f"row at T={T}, E={E}, hidden={hidden}; one CTA has at most {MAX_SMEM_BYTES}"
+            f"dit_block{'_bwd' if backward else ''} needs {most} bytes of shared memory per CTA "
+            f"in its {kernel} kernel at T={T}, E={E}, n_head={n_head}, hidden={hidden}; one CTA "
+            f"has at most {MAX_SMEM_BYTES}"
         )
-    return smem
+    return design
 
 
 def _check_tensors(tensors, what: str, device: torch.device) -> None:
@@ -147,31 +237,35 @@ def _check_tensors(tensors, what: str, device: torch.device) -> None:
 
 
 def dit_block(
-    x: torch.Tensor, c: torch.Tensor, weights: Dict[str, torch.Tensor], n_head: int, eps: float
+    x: torch.Tensor, c: torch.Tensor, weights: Dict[str, torch.Tensor], n_head: int, eps: float,
+    design: str | None = None,
 ) -> torch.Tensor:
     """One adaLN-zero DiT block, x (R, T, E) f32, c (R, E) f32 -> (R, T, E) f32.
 
-    CUDA tensors run the hand-written kernel on the current stream; CPU
-    tensors run `dit_block_reference`."""
+    CUDA tensors run the hand-written kernels on the current stream, of
+    `design` ("row" or "split"; None: `pick_design`'s); CPU tensors run
+    `dit_block_reference`."""
     if x.device.type == "cpu":
         return dit_block_reference(x, c, weights, n_head, eps)
     if x.device.type != "cuda":
         raise ValueError(f"dit_block runs on cuda or cpu tensors, got {x.device}")
     tensors = [x, c, *(weights[k] for k in WEIGHT_NAMES)]
     _check_tensors(tensors, "dit_block", x.device)
-    smem = _check_shapes(x, c, weights, n_head)
+    design = _check_shapes(x, c, weights, n_head, design=design)
 
     from scldm_torch.kernels import build
 
     lib = build.load()
     R, T, E = x.shape
     out = torch.empty_like(x)
+    workspace = torch.empty(dit_block_workspace_floats(R, T, E) if design == "split" else 0,
+                            dtype=torch.float32, device=x.device)
     # the library's CUDA runtime launches on the current device: make it x's
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = lib.scldm_dit_block_forward(
-            *(t.data_ptr() for t in tensors), out.data_ptr(),
-            R, T, E, n_head, weights["w1"].shape[1], eps, smem, stream,
+            *(t.data_ptr() for t in tensors), out.data_ptr(), workspace.data_ptr(),
+            R, T, E, n_head, weights["w1"].shape[1], eps, int(design == "row"), stream,
         )
     build.check(lib, code, "dit_block launch")
     DIT_BLOCK_LAUNCHES.count += 1
@@ -186,12 +280,14 @@ def dit_block_bwd(
     n_head: int,
     eps: float,
     weights_t: Dict[str, torch.Tensor] | None = None,
+    design: str | None = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
     """Recompute backward of one block: (dx (R, T, E), dc (R, E), the nine
     weight gradients, summed over the rows, in `weights`' (in, out) layout).
 
-    CUDA tensors run the hand-written kernels on the current stream; CPU
-    tensors run `dit_block_backward_reference`. The kernels also read the
+    CUDA tensors run the hand-written kernels on the current stream, of
+    `design` as in `dit_block`; CPU tensors run
+    `dit_block_backward_reference`. The kernels also read the
     matrices in nn.Linear's (out, in) layout: `weights_t` (contiguous, keyed
     by MATRIX_NAMES) or, if None, transposed copies made here. The matrix
     gradients come back as transposed views of (out, in) tensors."""
@@ -209,7 +305,7 @@ def dit_block_bwd(
     for k in MATRIX_NAMES:
         if weights_t[k].shape != weights[k].shape[::-1]:
             raise ValueError(f"weights_t[{k!r}] must be {tuple(weights[k].shape[::-1])}")
-    smem = _check_shapes(x, c, weights, n_head, backward=True)
+    design = _check_shapes(x, c, weights, n_head, backward=True, design=design)
 
     from scldm_torch.kernels import build
 
@@ -229,7 +325,7 @@ def dit_block_bwd(
         code = lib.scldm_dit_block_backward(
             x.data_ptr(), c.data_ptr(), *(t.data_ptr() for t in ws_in),
             *(t.data_ptr() for t in ws_t), dy.data_ptr(), *(t.data_ptr() for t in outs),
-            R, T, E, n_head, hidden, eps, smem, stream,
+            R, T, E, n_head, hidden, eps, int(design == "row"), stream,
         )
     build.check(lib, code, "dit_block_bwd launch")
     DIT_BLOCK_BWD_LAUNCHES.count += 1

@@ -11,8 +11,11 @@ generation.
   task runs its Pallas kernels on a TPU; `fused_training=False` runs the
   module path.
 - Generation (`make_sample_fn`): log size factors and prior noise -> the
-  flow-matching ODE with the DiT under batched CFG -> VAE decode -> NB
-  counts, from the module's weights or a train state's EMA weights.
+  flow-matching ODE with the DiT under batched CFG (every block through the
+  forward kernel; `fused_blocks=False` runs the module path) -> VAE decode ->
+  NB counts, from the module's weights or a train state's EMA weights. At
+  E > 128 (the census decoder) the decode of the canonical gene row is the
+  algebraic one (`vae_task.algebraic_decode`), as in JAX.
 """
 
 from __future__ import annotations
@@ -43,7 +46,12 @@ from scldm_torch.training import metrics as M
 from scldm_torch.training.ema import ema_init, ema_update
 from scldm_torch.training.optim import AdamW, wsd_schedule
 from scldm_torch.training.state import TrainState, create_train_state
-from scldm_torch.training.vae_task import _fused_window_ok, fused_window_pooling
+from scldm_torch.training.vae_task import (
+    _algebraic_path_ok,
+    _fused_window_ok,
+    algebraic_decode,
+    fused_window_pooling,
+)
 from scldm_torch.transport import Sampler, Transport
 
 
@@ -63,7 +71,14 @@ class LDMTask:
     rule is "on a TPU, with DiT dropout 0"; the port's DiT has no dropout),
     True on any device (on CPU tensors through the kernels' plain versions),
     False never. `fused_encode=None` resolves to False, as in JAX; the port
-    keeps the VAE frozen (JAX `train_vae=False`), where JAX allows it."""
+    keeps the VAE frozen (JAX `train_vae=False`), where JAX allows it.
+
+    The generation decode, as JAX resolves it: `algebraic_decode=None` takes
+    `vae_task.algebraic_decode` at E > 128 where the architecture qualifies
+    (`_algebraic_path_ok`), for the canonical gene row only;
+    `algebraic_vw_fold=None` folds the output projection wherever that
+    decode runs; `algebraic_fused_gate=True` (off unless asked) runs its
+    SwiGLU through the `swiglu_vec` kernel."""
 
     def __init__(
         self,
@@ -86,6 +101,9 @@ class LDMTask:
         calculate_grad_norms: bool = False,
         fused_training: Optional[bool] = None,
         fused_encode: Optional[bool] = None,
+        algebraic_decode: Optional[bool] = None,
+        algebraic_vw_fold: Optional[bool] = None,
+        algebraic_fused_gate: bool = False,
     ):
         self.vae = vae
         self.dit = dit
@@ -94,6 +112,13 @@ class LDMTask:
         self.calculate_grad_norms = calculate_grad_norms
         self.fused_training = fused_training
         self.fused_encode = bool(fused_encode)
+        if algebraic_decode is None:
+            algebraic_decode = vae.decoder.n_embed > 128
+        self.algebraic_decode = bool(algebraic_decode) and _algebraic_path_ok(vae)
+        if algebraic_vw_fold is None:
+            algebraic_vw_fold = self.algebraic_decode
+        self.algebraic_vw_fold = bool(algebraic_vw_fold) and self.algebraic_decode
+        self.algebraic_fused_gate = bool(algebraic_fused_gate) and self.algebraic_decode
         self.grad_clip = grad_clip
         self.ema_cfg = dict(beta=ema_decay, update_every=ema_update_every,
                             update_after_step=ema_update_after_step)
@@ -239,6 +264,7 @@ class LDMTask:
         sampling_method: str = "dopri5",
         num_steps: int = 50,
         use_ema: bool = True,
+        fused_blocks: bool = True,
     ):
         """Returns fn(generator, genes, condition=None, batch_size=None,
         state=None) -> (counts (2B, G), z (2B, M, E_latent)): the first half
@@ -248,10 +274,11 @@ class LDMTask:
 
         `genes` is (G,) (shared by the batch; the canonical row takes the
         decoder's batch-free path) or (B, G). Every draw comes from
-        `generator`, which lives on the modules' device. Every DiT block runs
-        through `ops.fused_dit.dit_block` (the CUDA kernel on a GPU). After
-        each call `fn.drift_evals` holds the number of DiT evaluations it
-        made."""
+        `generator`, which lives on the modules' device. With `fused_blocks`
+        every DiT block runs through `ops.fused_dit.dit_block` (the CUDA
+        kernel on a GPU); otherwise the denoiser is the module path,
+        `DiT.forward_with_cfg_batched`. After each call `fn.drift_evals`
+        holds the number of DiT evaluations it made."""
         if guidance_weight and self.dit.cfg_dropout_prob <= 0:
             raise ValueError(
                 "CFG guidance needs null-token embedding rows, which only exist "
@@ -281,6 +308,7 @@ class LDMTask:
                 num_steps=num_steps,
                 dit=None if state is None else (
                     self.ema_module(state) if use_ema else state.module),
+                fused_blocks=fused_blocks,
             )
             return nb_sample(out["mu"], out["theta"], generator), samples
 
@@ -299,22 +327,28 @@ class LDMTask:
         sampling_method: str = "dopri5",
         num_steps: int = 50,
         dit: Optional[DiT] = None,
+        fused_blocks: bool = True,
     ):
         """The deterministic part of sampling, from given noise and size
         factors, with `dit` (default the task's): returns (samples (2B, M,
-        E_latent), {"mu", "theta"}, number of DiT evaluations)."""
+        E_latent), {"mu", "theta"}, number of DiT evaluations). The decode
+        takes `vae_task.algebraic_decode` where the task resolved it on and
+        `genes` is the canonical row 1..G (checked on the host, once per
+        call), the module decode otherwise."""
         sample_ode = self.transport_sampler.sample_ode(
             sampling_method=sampling_method, num_steps=num_steps
         )
         dit = self.dit if dit is None else dit
         z_cfg = torch.cat([z0, z0]).float()
         condition_cfg = {k: torch.cat([v, v]) for k, v in condition.items()} if condition else None
-        block_params = [extract_block_params(b) for b in dit.blocks]
+        block_params = [extract_block_params(b) for b in dit.blocks] if fused_blocks else None
         evals = 0
 
         def model_fn(x, t, condition=None):
             nonlocal evals
             evals += 1
+            if not fused_blocks:
+                return dit.forward_with_cfg_batched(x, t, condition, guidance_weight)
             seg_x, seg_t, seg_cond, scale_segments, b, h = build_cfg_segments(
                 x, t, condition, guidance_weight, dit.class_vocab_sizes, dit.condition_strategy
             )
@@ -328,5 +362,21 @@ class LDMTask:
         # 1-D genes: one canonical query row for the whole batch; 2-D doubles
         genes_cfg = genes if genes.ndim == 1 else torch.cat([genes, genes])
         sf = torch.exp(log_sf.float()).reshape(-1, 1)
-        out = self.vae.decode(samples, genes_cfg, torch.cat([sf, sf]))
+        sf_cfg = torch.cat([sf, sf])
+        if self._decode_is_algebraic(genes):
+            out = algebraic_decode(self.vae, samples, sf_cfg, fused_gate=self.algebraic_fused_gate,
+                                   vw_fold=self.algebraic_vw_fold)
+        else:
+            out = self.vae.decode(samples, genes_cfg, sf_cfg)
         return samples, out, evals
+
+    def _decode_is_algebraic(self, genes: torch.Tensor) -> bool:
+        """The algebraic decode reads the whole canonical gene table as its
+        queries: route to it only when `genes` is that row, 1..G."""
+        n_genes = self.vae.decoder.n_genes
+        return bool(
+            self.algebraic_decode
+            and genes.ndim == 1
+            and genes.shape[0] == n_genes
+            and torch.equal(genes.cpu(), torch.arange(1, n_genes + 1, dtype=genes.dtype))
+        )

@@ -310,6 +310,21 @@ def algebraic_nb_apply(
     return _algebraic_tail(vae, x, batch[LIB], fused_gate=fused_gate, vw_fold=vw_fold), h_z
 
 
+def algebraic_decode(
+    vae: TransformerVAE,
+    z: torch.Tensor,  # (B, M, E_latent) latents (generation samples)
+    library_size: torch.Tensor,  # (B, 1)
+    fused_gate: bool = False,
+    vw_fold: bool = False,
+) -> Dict[str, torch.Tensor]:
+    """`TransformerVAE.decode` over the canonical gene list 1..G with the
+    cross block and NB head reassociated (`_algebraic_tail`): the decoder
+    trunk, then the tail. The generation decode at E > 128 (JAX
+    `algebraic_decode`)."""
+    return _algebraic_tail(vae, vae.decoder.trunk(z), library_size, fused_gate=fused_gate,
+                           vw_fold=vw_fold)
+
+
 def vae_loss(counts: torch.Tensor, params: Dict[str, torch.Tensor]) -> torch.Tensor:
     """NB reconstruction loss, summed over genes, averaged over the batch."""
     return (-log_nb_positive(counts, params["mu"], params["theta"])).sum(dim=1).mean()

@@ -20,12 +20,19 @@ m and every gradient, and for num within 3e-4 rather than 1e-4 on all but 5%
 of the entries (see `assert_pool_close`; chip_smoke.py's phase 1d). The
 swiglu_vec kernels compute in f32 like their plain version (TF32 off) and sum
 in another, fixed order: out, dx, dw12 and dwv each within 1e-4 of its
-tensor's largest magnitude (chip_smoke.py's phase 1e)."""
+tensor's largest magnitude (chip_smoke.py's phase 1e). The flash
+cross-attention kernel rounds the same operands to bf16 as its plain version
+and sums in another order: the tail's bounds (chip_smoke.py's phase 1f). The
+census-like LDM step and generation: the kernel path against the module
+path, f32 both, at JAX's bounds between its two paths (loss 1e-4 relative,
+gradient norm 1e-3) and at 1e-3 for generation's latents and mu."""
 
 import numpy as np
 import pytest
 import torch
 
+from scldm_torch.ops import attention
+from scldm_torch.ops import fused_cross as fc
 from scldm_torch.ops import fused_decoder as tail
 from scldm_torch.ops import fused_dit as port
 from scldm_torch.ops import fused_encoder as fe
@@ -39,7 +46,7 @@ pytestmark = [
 T, E, H, HIDDEN, EPS = 16, 256, 8, 684, 1e-8  # one DiT block of the dentate-gyrus sampler
 
 
-def _inputs(R, device, seed=0):
+def _inputs(R, device, seed=0, T=T):
     rng = np.random.default_rng(seed)
     shapes = {
         "wada": (E, 6 * E), "bada": (6 * E,), "wqkv": (E, 3 * E), "bqkv": (3 * E,),
@@ -75,6 +82,59 @@ def test_kernel_matches_reference_on_gpu(R):
     assert (got - x).abs().max() > 1e-2
 
 
+# the census DiT's T = 64 latent tokens: the training step's R = 16 rows, the
+# sampler's 3B = 48 at a generation batch of 16, and a ragged R
+@pytest.mark.parametrize("R", [16, 48, 5])
+def test_kernel_at_t64_matches_reference_on_gpu(R):
+    x, c, w = _inputs(R, "cuda", T=64)
+    before = port.DIT_BLOCK_LAUNCHES.count
+    got = port.dit_block(x, c, w, H, EPS)
+    torch.cuda.synchronize()
+    assert port.DIT_BLOCK_LAUNCHES.count == before + 1
+    torch.testing.assert_close(got, port.dit_block_reference(x, c, w, H, EPS), rtol=1e-4, atol=1e-4)
+    assert (got - x).abs().max() > 1e-2
+
+
+@pytest.mark.parametrize("R", [384, 5])
+def test_split_design_at_t16_matches_reference_on_gpu(R):
+    """The split design where the row design runs by default (T = 16): the
+    same function, forward and backward."""
+    x, c, w = _inputs(R, "cuda", seed=2)
+    dy = torch.randn(x.shape, generator=torch.Generator("cuda").manual_seed(6), device="cuda")
+    assert port.pick_design(16, E, H, HIDDEN) == "row"
+    got = port.dit_block(x, c, w, H, EPS, design="split")
+    grads = port.dit_block_bwd(x, c, w, dy, H, EPS, design="split")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, port.dit_block_reference(x, c, w, H, EPS), rtol=1e-4, atol=1e-4)
+    assert_bwd_close(grads, port.dit_block_backward_reference(x, c, w, dy, H, EPS))
+
+
+# other widths: T = 20 leaves a ragged token tile (and, split, two tiles of
+# dmod partials per row); E = 64 with 4 heads of 16 and hidden 172
+@pytest.mark.parametrize("design", ["row", "split"])
+@pytest.mark.parametrize("T,E_,H_,Hd_", [(20, 256, 8, 684), (64, 64, 4, 172)])
+def test_both_designs_at_other_widths_on_gpu(design, T, E_, H_, Hd_):
+    rng = np.random.default_rng(T)
+
+    def f(*s, scale=1.0):
+        return torch.from_numpy((rng.normal(size=s) * scale).astype(np.float32)).cuda()
+
+    w = {"wada": f(E_, 6 * E_, scale=E_**-0.5), "bada": f(6 * E_, scale=0.1),
+         "wqkv": f(E_, 3 * E_, scale=E_**-0.5), "bqkv": f(3 * E_, scale=0.1),
+         "wproj": f(E_, E_, scale=E_**-0.5), "bproj": f(E_, scale=0.1),
+         "w1": f(E_, Hd_, scale=E_**-0.5), "w2": f(E_, Hd_, scale=E_**-0.5),
+         "wmlp": f(Hd_, E_, scale=Hd_**-0.5)}
+    x, dy, c = f(3, T, E_), f(3, T, E_), f(3, E_)
+    if design == "row" and port.pick_design(T, E_, H_, Hd_) != "row":
+        pytest.skip("a row does not fit one CTA at this width")
+    got = port.dit_block(x, c, w, H_, EPS, design=design)
+    grads = port.dit_block_bwd(x, c, w, dy, H_, EPS, design=design)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, port.dit_block_reference(x, c, w, H_, EPS), rtol=1e-4,
+                               atol=1e-4)
+    assert_bwd_close(grads, port.dit_block_backward_reference(x, c, w, dy, H_, EPS))
+
+
 @pytest.mark.skipif(torch.cuda.device_count() < 2, reason="needs two GPUs")
 def test_kernel_on_a_device_other_than_the_current():
     """A tensor on cuda:1 while cuda:0 is current: the launch and its shared
@@ -105,6 +165,17 @@ def assert_bwd_close(got, want):
 def test_backward_kernel_matches_reference_on_gpu(R):
     x, c, w = _inputs(R, "cuda")
     dy = torch.randn(x.shape, generator=torch.Generator("cuda").manual_seed(1), device="cuda")
+    before = port.DIT_BLOCK_BWD_LAUNCHES.count
+    got = port.dit_block_bwd(x, c, w, dy, H, EPS)
+    torch.cuda.synchronize()
+    assert port.DIT_BLOCK_BWD_LAUNCHES.count == before + 1
+    assert_bwd_close(got, port.dit_block_backward_reference(x, c, w, dy, H, EPS))
+
+
+@pytest.mark.parametrize("R", [16, 5])  # the census LDM step's rows, a ragged R
+def test_backward_kernel_at_t64_matches_reference_on_gpu(R):
+    x, c, w = _inputs(R, "cuda", T=64)
+    dy = torch.randn(x.shape, generator=torch.Generator("cuda").manual_seed(4), device="cuda")
     before = port.DIT_BLOCK_BWD_LAUNCHES.count
     got = port.dit_block_bwd(x, c, w, dy, H, EPS)
     torch.cuda.synchronize()
@@ -357,3 +428,154 @@ def test_swiglu_vec_on_a_device_other_than_the_current():
     torch.cuda.synchronize(1)
     assert got["out"].device == inputs[0].device and torch.cuda.current_device() == 0
     assert_swiglu_close(got, swiglu_outputs_and_grads(fs.swiglu_vec_reference, *inputs))
+
+
+CROSS_E, CROSS_H, CROSS_M = 512, 8, 64  # the census decoder's cross block
+
+
+def _cross_inputs(G, B, device, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def f(*s):
+        return torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(device)
+
+    return f(G, CROSS_E), f(B, CROSS_M, CROSS_E), f(B, CROSS_M, CROSS_E)
+
+
+def assert_bf16_close(got, want, what):
+    """The tail's bounds: within 1e-2 of the reference's largest magnitude
+    everywhere, within 1e-4 of it on all but 5% of the entries."""
+    scale = want.abs().max()
+    d = (got - want).abs()
+    assert scale > 0, what
+    assert d.max() <= 1e-2 * scale, what
+    assert (d > 1e-4 * scale).float().mean() <= 5e-2, what
+
+
+# ragged: G off the 128-gene tile and B off the 8-element batch tile (one
+# gene tile of 77 and a lone cell too); then the
+# census sampler's 2B = 32 over part of the gene axis, and the whole axis
+@pytest.mark.parametrize("G,B", [(300, 3), (77, 1), (5000, 32), (36_601, 2)])
+def test_flash_cross_matches_reference_on_gpu(G, B):
+    qp, k, v = _cross_inputs(G, B, "cuda")
+    before = fc.FLASH_CROSS_LAUNCHES.count
+    got = fc.flash_cross_attention(qp, k, v, CROSS_H)
+    torch.cuda.synchronize()
+    assert fc.FLASH_CROSS_LAUNCHES.count == before + 1
+    assert got.shape == (B, G, CROSS_E) and got.dtype == torch.float32
+    assert_bf16_close(got, fc.flash_cross_reference(qp, k, v, CROSS_H), f"y at G={G}, B={B}")
+
+
+def test_flash_cross_backward_replays_plain_attention_on_gpu():
+    """The backward is autograd through plain f32 attention (JAX `_flash_bwd`)."""
+    qp, k, v = _cross_inputs(300, 3, "cuda", seed=1)
+    dy = torch.randn(3, 300, CROSS_E, generator=torch.Generator("cuda").manual_seed(5),
+                     device="cuda")
+    leaves = [t.clone().requires_grad_() for t in (qp, k, v)]
+    fc.flash_cross_attention(*leaves, CROSS_H).backward(dy)
+    ref = [t.clone().requires_grad_() for t in (qp, k, v)]
+    fc._attn_reference(*ref, CROSS_H).backward(dy)
+    for a, b in zip(leaves, ref):
+        torch.testing.assert_close(a.grad, b.grad, rtol=1e-5, atol=1e-5)
+
+
+def test_sdpa_shared_q_takes_flash_cross_under_the_gate_on_gpu(monkeypatch):
+    """SCLDM_FLASH_CROSS on: the census-like shape launches the kernel; off,
+    or with fewer queries than the gate asks, the plain path runs."""
+    G, B, hd = 4096, 2, CROSS_E // CROSS_H
+    qp, k, v = _cross_inputs(G, B, "cuda", seed=2)
+    q4 = qp.reshape(G, CROSS_H, hd)
+    k4, v4 = (t.reshape(B, CROSS_M, CROSS_H, hd) for t in (k, v))
+    for enabled, rows, launches in ((True, G, 1), (False, G, 0), (True, G - 1, 0)):
+        monkeypatch.setattr(attention, "_FLASH_CROSS_ENABLED", enabled)
+        before = fc.FLASH_CROSS_LAUNCHES.count
+        got = attention.sdpa_shared_q(q4[:rows], k4, v4)
+        torch.cuda.synchronize()
+        assert fc.FLASH_CROSS_LAUNCHES.count == before + launches
+        want = (fc.flash_cross_reference(qp[:rows].contiguous(), k, v, CROSS_H) if launches
+                else fc._attn_reference(qp[:rows].contiguous(), k, v, CROSS_H))
+        assert_bf16_close(got.reshape(B, rows, CROSS_E), want, f"sdpa_shared_q {enabled} {rows}")
+
+
+def test_flash_cross_operands_it_does_not_take_raise_on_gpu():
+    qp, k, v = _cross_inputs(300, 3, "cuda")
+    for args in ((qp, k[:, :32].contiguous(), v[:, :32].contiguous()),  # M = 32: no kernel
+                 (qp.bfloat16(), k.bfloat16(), v.bfloat16()), (qp, k.transpose(0, 1).contiguous()
+                                                               .transpose(0, 1), v)):
+        before = fc.FLASH_CROSS_LAUNCHES.count
+        with pytest.raises(ValueError):
+            fc.flash_cross_attention(*args, CROSS_H)
+        assert fc.FLASH_CROSS_LAUNCHES.count == before
+
+
+def _census_like_ldm():
+    """A census-like pair cut to seconds: the VAE at E = 256 (so the
+    algebraic decode resolves on), 64 inducing points and a 64-wide latent;
+    the DiT at T = 64 with non-zero adaLN."""
+    from scldm_torch.nn.nnets import DiT
+    from scldm_torch.nn.vae import build_transformer_vae
+    from scldm_torch.training.ldm_task import LDMTask
+    from scldm_torch.transport import create_transport
+    from scldm_torch.utils.weights import init_reference_
+
+    vae = init_reference_(build_transformer_vae(n_genes=300, n_embed=256, n_embed_latent=64,
+                                                n_layer=1, n_inducing_points=64, n_head=8,
+                                                n_head_cross=8, multiple_of=64, device="cuda"),
+                          torch.Generator("cuda").manual_seed(0)).eval()
+    dit = init_reference_(DiT(n_embed=256, n_embed_input=64, n_layer=2, n_head=8, seq_len=64,
+                              class_vocab_sizes={"clusters": 3}, cfg_dropout_prob=0.8),
+                          torch.Generator().manual_seed(1), zero_init=False).cuda()
+    return vae, dit, LDMTask, create_transport
+
+
+def test_census_like_ldm_step_and_generation_on_gpu():
+    from scldm_torch.ops.transforms import canonical_gene_ids
+    from scldm_torch.training.metrics import global_norm
+
+    vae, dit, LDMTask, create_transport = _census_like_ldm()
+    task = LDMTask(vae, dit, create_transport())
+    assert task.algebraic_decode and task.algebraic_vw_fold
+    rng = np.random.default_rng(0)
+    B, S = 4, 64
+    genes = np.zeros((B, S), np.int64)
+    counts = np.zeros((B, S), np.float32)
+    for i in range(B):
+        genes[i] = np.sort(rng.choice(300, S, replace=False)) + 1
+        counts[i] = rng.poisson(3.0, S) + 1
+    batch = {"genes_subset": torch.from_numpy(genes).cuda(),
+             "counts_subset": torch.from_numpy(counts).cuda(),
+             "library_size": torch.from_numpy(counts.sum(1, keepdims=True)).cuda(),
+             "clusters": torch.tensor([0, 1, 2, 0], device="cuda")}
+    g = torch.Generator("cuda").manual_seed(3)
+    noise = {"t": torch.rand(B, generator=g, device="cuda"),
+             "x0": torch.randn(B, 64, 64, generator=g, device="cuda"),
+             "drop_mask": torch.tensor([False, True, False, False], device="cuda")}
+    runs = []
+    for t in (task, LDMTask(vae, dit, create_transport(), fused_training=False)):
+        before = (port.DIT_BLOCK_LAUNCHES.count, port.DIT_BLOCK_BWD_LAUNCHES.count)
+        dit.zero_grad(set_to_none=True)
+        loss = t.loss(batch, g, noise)
+        loss.backward()
+        torch.cuda.synchronize()
+        launched = (port.DIT_BLOCK_LAUNCHES.count - before[0],
+                    port.DIT_BLOCK_BWD_LAUNCHES.count - before[1])
+        runs.append((loss.item(), global_norm([p.grad for p in dit.parameters()]).item(), launched))
+    (lk, nk, launched_k), (lm, nm, launched_m) = runs
+    assert launched_k == (2, 2) and launched_m == (0, 0)
+    assert abs(lk - lm) <= 1e-4 * abs(lm) and abs(nk - nm) <= 1e-3 * nm
+
+    z0 = torch.randn(2, 64, 64, generator=g, device="cuda")
+    log_sf = torch.full((2,), 6.0, device="cuda")
+    cond = {"clusters": torch.tensor([1, 2], device="cuda")}
+    kw = dict(guidance_weight={"clusters": 1.0}, sampling_method="euler", num_steps=4)
+    outs = []
+    for fused in (True, False):
+        before = port.DIT_BLOCK_LAUNCHES.count
+        z, out, evals = task.generate_from_noise(z0, log_sf, canonical_gene_ids(300, device="cuda"),
+                                                 cond, fused_blocks=fused, **kw)
+        torch.cuda.synchronize()
+        assert port.DIT_BLOCK_LAUNCHES.count - before == (2 * evals if fused else 0)
+        outs.append((z, out["mu"]))
+    (zk, mk), (zm, mm) = outs
+    torch.testing.assert_close(zk, zm, rtol=1e-3, atol=1e-3)
+    assert (mk - mm).abs().max() <= 1e-3 * mm.abs().max()

@@ -1,12 +1,15 @@
 """The port's DiT block (scldm_torch.ops.fused_dit), forward and backward,
 against the JAX Pallas kernels run in interpret mode, on the same numpy
-inputs.
+inputs: at the dentate latent's T = 16 tokens (E = 64, 4 heads) and at the
+census latent's T = 64 (E = 32, 4 heads).
 
 The forward at rtol = atol = 1e-5; the backward's dx and dc at 1e-4, each
 weight gradient within 1e-5 of its tensor's largest magnitude: both sides
-compute in f32 and differ only in the order of their sums. The CUDA kernels
-themselves are compared with the plain versions on the card in
-test_torch_port_cuda.py."""
+compute in f32 and differ only in the order of their sums. At T = 64 every
+output is held at 1e-4 (forward, dx and dc at rtol = atol = 1e-4, each weight
+gradient within 1e-4 of its largest magnitude): sums over four times the
+tokens. The CUDA kernels themselves are compared with the plain versions on
+the card in test_torch_port_cuda.py."""
 
 import jax
 import jax.numpy as jnp
@@ -28,12 +31,18 @@ def _exact_matmuls():
         yield
 
 
-def _inputs(R, seed=0):
+# the census latent: T = 64 tokens, at a width the CPU takes in seconds;
+# MLP(32) hidden: int(2 * 128 / 3) rounded up to a multiple of 4
+T64 = dict(T=64, E=32, hidden=88)
+H64 = 4
+
+
+def _inputs(R, seed=0, T=T, E=E, hidden=HIDDEN):
     rng = np.random.default_rng(seed)
     shapes = {
         "wada": (E, 6 * E), "bada": (6 * E,), "wqkv": (E, 3 * E), "bqkv": (3 * E,),
-        "wproj": (E, E), "bproj": (E,), "w1": (E, HIDDEN), "w2": (E, HIDDEN),
-        "wmlp": (HIDDEN, E),
+        "wproj": (E, E), "bproj": (E,), "w1": (E, hidden), "w2": (E, hidden),
+        "wmlp": (hidden, E),
     }
     # non-zero adaLN weights: adaLN-zero init would make the block the identity
     weights = {
@@ -45,15 +54,15 @@ def _inputs(R, seed=0):
     return x, c, weights
 
 
-def _jax(x, c, weights):
+def _jax(x, c, weights, n_head=H):
     kp = {k: jnp.asarray(v) for k, v in weights.items()}
-    return np.asarray(fused_dit_block(jnp.asarray(x), jnp.asarray(c), kp, n_head=H, eps=EPS,
+    return np.asarray(fused_dit_block(jnp.asarray(x), jnp.asarray(c), kp, n_head=n_head, eps=EPS,
                                       interpret=True))
 
 
-def _torch(fn, x, c, weights):
+def _torch(fn, x, c, weights, n_head=H):
     w = {k: torch.from_numpy(v) for k, v in weights.items()}
-    return fn(torch.from_numpy(x), torch.from_numpy(c), w, H, EPS).numpy()
+    return fn(torch.from_numpy(x), torch.from_numpy(c), w, n_head, EPS).numpy()
 
 
 @pytest.mark.parametrize("R", [12, 5])
@@ -90,19 +99,38 @@ def test_block_params_from_module_match_pallas():
     np.testing.assert_allclose(mod, want, rtol=1e-5, atol=1e-5)
 
 
-def test_smem_need_and_limit():
-    # the sampler's shape fits one CTA; the census latent (T=64, E=512) does not
-    assert port.dit_block_smem_bytes(16, 256, 8, 684) <= port.MAX_SMEM_BYTES
-    x = torch.zeros(2, 64, 512)
-    weights = {
-        "wada": torch.zeros(512, 3072), "bada": torch.zeros(3072),
-        "wqkv": torch.zeros(512, 1536), "bqkv": torch.zeros(1536),
-        "wproj": torch.zeros(512, 512), "bproj": torch.zeros(512),
-        "w1": torch.zeros(512, 1368), "w2": torch.zeros(512, 1368),
-        "wmlp": torch.zeros(1368, 512),
+def _zero_weights(E, hidden):
+    return {
+        "wada": torch.zeros(E, 6 * E), "bada": torch.zeros(6 * E), "wqkv": torch.zeros(E, 3 * E),
+        "bqkv": torch.zeros(3 * E), "wproj": torch.zeros(E, E), "bproj": torch.zeros(E),
+        "w1": torch.zeros(E, hidden), "w2": torch.zeros(E, hidden), "wmlp": torch.zeros(hidden, E),
     }
-    with pytest.raises(ValueError, match="shared memory"):
-        port._check_shapes(x, torch.zeros(2, 512), weights, 8)
+
+
+def test_smem_need_and_limit():
+    """The dentate sampler's rows (T = 16, E = 256, Hd = 684) fit one CTA, so
+    the row design runs there; a census row (T = 64) does not, and every
+    kernel of the split design fits: its need is bounded by a token tile and
+    one head's (T, T) scores, not by the row. At T = 256 one head's scores
+    outgrow a CTA and the check raises with the byte count."""
+    assert port.dit_block_row_smem_bytes(16, 256, 8, 684) <= port.MAX_SMEM_BYTES
+    assert port.dit_block_row_smem_bytes(64, 256, 8, 684) == 465_920 > port.MAX_SMEM_BYTES
+    assert [port.pick_design(T, 256, 8, 684) for T in (16, 64)] == ["row", "split"]
+    with pytest.raises(ValueError, match="shared memory .* row kernel"):
+        port._check_shapes(torch.zeros(2, 64, 256), torch.zeros(2, 256), _zero_weights(256, 684), 8,
+                           design="row")
+    for T in (16, 64):
+        need = port.dit_block_smem_bytes(T, 256, 8, 684)
+        assert set(need) == {"rows_gemm", "ln_qkv", "attention", "block_post"}
+        assert max(need.values()) <= port.MAX_SMEM_BYTES
+        assert port._check_shapes(torch.zeros(2, T, 256), torch.zeros(2, 256),
+                                  _zero_weights(256, 684), 8, design="split") == "split"
+    # the split design's attention CTA holds q, k, v and one head's scores
+    attention = 4 * (2 * 64 * 32 + 64 * 33 + 64 * 64)
+    assert port.dit_block_smem_bytes(64, 256, 8, 684)["attention"] == attention
+    with pytest.raises(ValueError, match=r"dit_block needs \d+ bytes of shared memory .* attention"):
+        port._check_shapes(torch.zeros(2, 256, 256), torch.zeros(2, 256),
+                           _zero_weights(256, 684), 8)
 
 
 def test_other_devices_raise():
@@ -189,22 +217,77 @@ def test_block_weights_carry_gradients_to_the_module():
 
 
 def test_backward_shapes_and_limits():
-    """The backward's shared memory fits one CTA at the training shape, and
-    its workspace is the per-token pairs plus the per-row ones."""
-    assert port.dit_block_bwd_smem_bytes(16, 256, 8, 684) <= port.MAX_SMEM_BYTES
-    assert port.dit_block_bwd_workspace_floats(128, 16, 256, 684) == 2048 * 4100 + 128 * 1792
-    x = torch.zeros(2, 64, 512)
-    weights = {
-        "wada": torch.zeros(512, 3072), "bada": torch.zeros(3072),
-        "wqkv": torch.zeros(512, 1536), "bqkv": torch.zeros(1536),
-        "wproj": torch.zeros(512, 512), "bproj": torch.zeros(512),
-        "w1": torch.zeros(512, 1368), "w2": torch.zeros(512, 1368),
-        "wmlp": torch.zeros(1368, 512),
-    }
-    with pytest.raises(ValueError, match="dit_block_bwd needs .* shared memory"):
-        port._check_shapes(x, torch.zeros(2, 512), weights, 8, backward=True)
+    """The backward's row design fits one CTA at the dentate training shape
+    (T = 16) and its split design at the census one (T = 64); the workspace
+    is the per-token slots, the per-row ones and a partial of dmod per row
+    and token tile."""
+    assert port.dit_block_bwd_row_smem_bytes(16, 256, 8, 684) <= port.MAX_SMEM_BYTES
+    assert port.dit_block_bwd_row_smem_bytes(64, 256, 8, 684) == 604_160
+    assert [port.pick_design(T, 256, 8, 684, backward=True) for T in (16, 64)] == ["row", "split"]
+    for T in (16, 64):
+        assert max(port.dit_block_bwd_smem_bytes(T, 256, 8, 684).values()) <= port.MAX_SMEM_BYTES
+    assert port.dit_block_bwd_workspace_floats(128, 16, 256, 684) == (
+        2048 * (9 * 256 + 3 * 684) + 128 * 1792 + 128 * 1 * 1536)
+    assert port.dit_block_bwd_workspace_floats(16, 64, 256, 684) == (
+        1024 * (9 * 256 + 3 * 684) + 16 * 1792 + 16 * 4 * 1536)
+    assert port.dit_block_workspace_floats(48, 64, 256) == 48 * 1536 + 48 * 64 * 1024
+    # a census row in one CTA would need the scores and their cotangents,
+    # 262 KB; at T = 160 one head's pair alone outgrows a CTA
+    with pytest.raises(ValueError, match="dit_block_bwd needs .* shared memory .* attention_bwd"):
+        port._check_shapes(torch.zeros(2, 160, 256), torch.zeros(2, 256), _zero_weights(256, 684),
+                           8, backward=True)
     xs, cs, ws = _inputs(2)
     meta = {k: torch.from_numpy(v).to("meta") for k, v in ws.items()}
     xm = torch.from_numpy(xs).to("meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         port.dit_block_bwd(xm, torch.from_numpy(cs).to("meta"), meta, xm, H, EPS)
+
+
+# -- the census latent, T = 64 ---------------------------------------------------------
+
+@pytest.mark.parametrize("R", [3, 2])
+@pytest.mark.parametrize("fn", ["dit_block_reference", "dit_block"])
+def test_block_at_t64_matches_pallas_interpret(R, fn):
+    x, c, weights = _inputs(R, seed=R, **T64)
+    want = _jax(x, c, weights, H64)
+    before = port.DIT_BLOCK_LAUNCHES.count
+    got = _torch(getattr(port, fn), x, c, weights, H64)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    assert np.abs(got - x).max() > 1e-2
+    assert port.DIT_BLOCK_LAUNCHES.count == before  # CPU: the plain version
+
+
+@pytest.mark.parametrize("fn", ["trainable", "reference"])
+def test_block_gradients_at_t64_match_pallas_interpret(fn):
+    """dx and dc within rtol = atol = 1e-4, each weight gradient within 1e-4
+    of its largest magnitude, against JAX's Pallas backward in interpret
+    mode (its row block of 256 // T = 4 rows, so R = 3 is one ragged block)."""
+    x, c, weights = _inputs(3, seed=11, **T64)
+    dy = np.random.default_rng(12).normal(size=x.shape).astype(np.float32)
+    kp = {k: jnp.asarray(v) for k, v in weights.items()}
+
+    def f(x, c, kp):
+        from scldm_tpu.ops.fused_dit import fused_dit_block_trainable
+
+        out = fused_dit_block_trainable(x, c, kp, H64, EPS, None, None, True)
+        return (out * jnp.asarray(dy)).sum()
+
+    want_x, want_c, want_w = jax.grad(f, argnums=(0, 1, 2))(jnp.asarray(x), jnp.asarray(c), kp)
+    before = port.DIT_BLOCK_BWD_LAUNCHES.count
+    if fn == "trainable":
+        leaves = [torch.from_numpy(a).requires_grad_() for a in (x, c, *weights.values())]
+        w = dict(zip(weights, leaves[2:]))
+        port.dit_block_trainable(leaves[0], leaves[1], w, H64, EPS).backward(torch.from_numpy(dy))
+        got_x, got_c, got_w = leaves[0].grad, leaves[1].grad, {k: t.grad for k, t in w.items()}
+    else:
+        w = {k: torch.from_numpy(v) for k, v in weights.items()}
+        got_x, got_c, got_w = port.dit_block_backward_reference(
+            torch.from_numpy(x), torch.from_numpy(c), w, torch.from_numpy(dy), H64, EPS)
+    assert port.DIT_BLOCK_BWD_LAUNCHES.count == before
+    np.testing.assert_allclose(got_x.numpy(), np.asarray(want_x), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got_c.numpy(), np.asarray(want_c), rtol=1e-4, atol=1e-4)
+    for name, want in want_w.items():
+        want = np.asarray(want)
+        scale = np.abs(want).max()
+        assert scale > 1e-3, name
+        assert np.abs(got_w[name].numpy() - want).max() <= 1e-4 * scale, name

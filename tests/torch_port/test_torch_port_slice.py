@@ -159,6 +159,7 @@ def test_import_without_jax():
         "import scldm_torch.training.ldm_task, scldm_torch.utils.weights, scldm_torch.kernels.build\n"
         "import scldm_torch.training.vae_task, scldm_torch.training.optim, scldm_torch.training.state\n"
         "import scldm_torch.training.metrics, scldm_torch.ops.fused_decoder\n"
+        "import scldm_torch.ops.fused_cross, scldm_torch.ops.attention\n"
         "import scldm_torch.training.ema, scldm_torch.ops.fused_dit, scldm_torch.transport.transport\n"
         "loaded = [m for m in sys.modules if sys.modules[m] is not None]\n"
         "assert 'jax' not in loaded\n"
