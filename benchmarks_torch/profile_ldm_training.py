@@ -35,7 +35,7 @@ SEED = 0
 PROFILED_STEPS = 3
 # the DiT block's kernels, forward and backward, of both designs
 DIT_KERNELS = ("dit_block_kernel", "dit_block_bwd_rows", "rows_gemm", "ln_qkv", "attention",
-               "block_post", "mlp_bwd", "attention_bwd", "qkv_bwd", "dit_weight_grads")
+               "block_post", "mlp_bwd", "attention_bwd", "qkv_bwd", "weight_grads")
 
 
 def main(argv=None) -> int:

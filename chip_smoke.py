@@ -53,7 +53,17 @@ through the DiT kernels' split design, prints the step's segment split, holds
 one step against the module path, generates euler-50 at a generation batch of
 16 through the algebraic decode, holds the kernel denoiser against the module
 one on the same noise, and holds the module decode with the flash-cross gate
-(`SCLDM_FLASH_CROSS`) on against off. The line before the last is a JSON
+(`SCLDM_FLASH_CROSS`) on against off. Phase 1g holds the whole-trunk
+kernels (the forward, the saving forward and the backward of all eight
+blocks of a VAE trunk) against their plain versions at the VAE step's trunk
+(R = 128 rows of T = 16 tokens, E = 32) and a ragged R, timing each, and
+checks that the backward repeats its bits. Phase 8 trains the dentate and
+the parse1m VAEs through them (`VAETask(fused_trunk=True)`), checks that each
+step launched the saving forward and the backward twice (encoder and
+decoder), times the step with the trunk kernels and with the module trunks
+in turns, holds one step against the module trunks, and runs one no-grad
+`fused_nb_apply(use_trunk=True)`, which launches the forward that saves
+nothing. The line before the last is a JSON
 summary of the kernels, each with its time beside the least time the card
 could take for the same work; the last is {"ok": true, "device": {...}}. Any
 failure raises, so the script exits non-zero and prints no result; so does a
@@ -632,6 +642,123 @@ def phase1f_flash_cross(seed: int) -> dict:
             f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
         del qb, kb, vb
     torch.cuda.empty_cache()
+    return out
+
+
+# the VAE's trunks (configs/model/vae_base.yaml): E = 32, 8 heads, hidden 88,
+# 8 layers, over its T = 16 latent tokens; the step's B = 128 rows, and a ragged R
+TRUNK = dict(T=16, E=32, H=8, hidden=88, L=8)
+TRUNK_ROWS = (128, 5)
+
+
+def fused_trunk_bound(R: int, T: int, E: int, hidden: int, L: int, backward: bool,
+                      save: bool = False) -> dict:
+    """The whole trunk at R rows of T tokens, f32. Operations: two per
+    multiply-add of its products (per token and layer qkv 3E^2, the
+    projection E^2, scores and probabilities times values 2TE, the SwiGLU
+    3E*hidden), three times that for the backward, which recomputes the
+    forward; the elementwise work is left out. Bytes: each input read once
+    and each output written once (forward x, the weights and out, with
+    `save` also xs (L, R, T, E); backward xs, dy and the weights in, dx and
+    the weight gradients out)."""
+    weights = L * (4 * E + 4 * E * E + 3 * E * hidden)
+    flops = 2 * R * T * L * (4 * E * E + 2 * T * E + 3 * E * hidden)
+    act = R * T * E
+    if backward:
+        return bound(4 * (L * act + 2 * act + 2 * weights), 3 * flops, F32_FLOPS)
+    return bound(4 * (2 * act + weights + (L * act if save else 0)), flops, F32_FLOPS)
+
+
+def random_trunk_weights(g) -> dict:
+    """One trunk's kernel weights, drawn from `g` on the card: per name a
+    list of L tensors, matrices (out, in); LayerNorm affines near 1 and 0."""
+    import torch
+
+    E, Hd = TRUNK["E"], TRUNK["hidden"]
+
+    def rnd(*shape, scale, offset=0.0):
+        return torch.randn(*shape, generator=g, device="cuda") * scale + offset
+
+    shapes = {"wqkv": (3 * E, E), "wproj": (E, E), "w1": (Hd, E), "w2": (Hd, E), "wmlp": (E, Hd)}
+    w = {k: [rnd(*s, scale=s[1] ** -0.5) for _ in range(TRUNK["L"])] for k, s in shapes.items()}
+    for k in ("g1", "g2"):
+        w[k] = [rnd(E, scale=0.1, offset=1.0) for _ in range(TRUNK["L"])]
+    for k in ("b1", "b2"):
+        w[k] = [rnd(E, scale=0.1) for _ in range(TRUNK["L"])]
+    return w
+
+
+def held_f32(what: str, got, want, rel: float = 1e-4) -> float:
+    """The largest error of `got` as a share of `want`'s largest magnitude;
+    raises beyond `rel` of it (f32 both, sums in other orders)."""
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    if scale == 0 or err > rel * scale:
+        raise AssertionError(f"{what}: max abs err {err:.3e}, max |ref| {scale:.3e}")
+    return err
+
+
+def phase1g_fused_trunk(seed: int) -> dict:
+    """The whole-trunk kernels against their plain versions at the VAE
+    step's trunk (R = 128 rows of T = 16 tokens, E = 32, 8 heads, hidden 88,
+    L = 8) and a ragged R = 5: the forward (row 9) and the saving forward
+    (row 10, out and xs) against `fused_trunk_reference` and its layer
+    inputs, the backward (row 11: dx and the nine weight gradients of every
+    layer, from the kernel's xs) against autograd through the plain trunk;
+    each tensor within 1e-4 of its largest magnitude (f32 both, sums in
+    other orders), its error reported as a share of that. Kernel and plain
+    timed in turns at R = 128. Returns {"fwd" | "fwd_saving" | "bwd":
+    {max_abs_err, ms, plain_ms}}."""
+    import torch
+
+    from scldm_torch.ops import fused_trunk as ft
+
+    T, E, H, Hd, L = (TRUNK[k] for k in ("T", "E", "H", "hidden", "L"))
+    g = torch.Generator(device="cuda").manual_seed(seed + 9)
+    w = random_trunk_weights(g)
+    out = {}
+    for R in TRUNK_ROWS:
+        x, dy = (torch.randn(R, T, E, generator=g, device="cuda") for _ in range(2))
+        y9 = ft.fused_trunk_blocks(x, w, H, EPS)
+        y10, xs = ft.fused_trunk_fwd_saving(x, w, H, EPS)
+        dx, dw = ft.fused_trunk_bwd(xs, w, dy, H, EPS)
+        torch.cuda.synchronize()
+        want, want_xs = ft.fused_trunk_saving_reference(x, w, H, EPS)
+        rdx, rdw = ft.fused_trunk_backward_reference(x, w, dy, H, EPS)
+        if (want - x).abs().max().item() < 1e-2:
+            raise AssertionError("the trunk returned its input: the check would prove nothing")
+        checks = [("fwd", "out", y9, want), ("fwd_saving", "out", y10, want),
+                  ("fwd_saving", "xs", xs, want_xs), ("bwd", "dx", dx, rdx)]
+        checks += [("bwd", f"d{k}", dw[k][layer], rdw[k][layer])
+                   for k in ft.TRUNK_WEIGHT_NAMES for layer in range(L)]
+        errs, rel = {}, {}
+        for part, what, got, ref in checks:
+            e = held_f32(f"fused_trunk {part} {what} R={R}", got, ref)
+            errs[part] = max(errs.get(part, 0.0), e)
+            rel[what] = max(rel.get(what, 0.0), e / ref.abs().max().item())
+        log(f"phase1g fused_trunk R={R} T={T} E={E} H={H} hidden={Hd} L={L}: errors as a share "
+            "of each tensor's largest: " + ", ".join(f"{k} {v:.2e}" for k, v in rel.items()))
+        if R != TRUNK_ROWS[0]:
+            continue
+        timed = {
+            "fwd": (lambda: ft.fused_trunk_blocks(x, w, H, EPS),
+                    lambda: ft.fused_trunk_reference(x, w, H, EPS), 20),
+            "fwd_saving": (lambda: ft.fused_trunk_fwd_saving(x, w, H, EPS),
+                           lambda: ft.fused_trunk_saving_reference(x, w, H, EPS), 20),
+            "bwd": (lambda: ft.fused_trunk_bwd(xs, w, dy, H, EPS),
+                    lambda: ft.fused_trunk_backward_reference(x, w, dy, H, EPS), 10),
+        }
+        for part, (kernel, plain, reps) in timed.items():
+            ms, plain_ms = time_in_turns(kernel, plain, reps)
+            out[part] = {"max_abs_err": errs[part], "ms": ms, "plain_ms": plain_ms}
+            b = fused_trunk_bound(R, T, E, Hd, L, part == "bwd", part == "fwd_saving")
+            log(f"phase1g fused_trunk_{part} R={R}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+                f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+    # the backward sums its weight gradients in a fixed order: the same bits twice
+    again = ft.fused_trunk_bwd(xs, w, dy, H, EPS)
+    if not (torch.equal(again[0], dx) and all(torch.equal(a, b) for k in ft.TRUNK_WEIGHT_NAMES
+                                               for a, b in zip(again[1][k], dw[k]))):
+        raise AssertionError("fused_trunk_bwd gave other bits on the same inputs")
     return out
 
 
@@ -1332,6 +1459,136 @@ def phase7_census_ldm(seed: int) -> dict:
     return launches
 
 
+TRUNK_TURNS = 5  # steps a turn of phase 8's trunk on / off comparison
+
+
+def compare_trunk_paths(phase: str, task, plain_task, batch) -> None:
+    """One step's loss and gradients with the trunk kernels against the
+    module trunks, same parameters and batch. Both take the decoder tail,
+    which rounds operands made from the trunk's output to bf16, so a change
+    of 1e-6 in that output flips a rounding now and then (the CPU tests saw
+    gradients move by up to 3e-3 of their largest): the loss is held within
+    1e-5 relative, the gradient norm within 1e-4, each gradient within 1e-2
+    of its largest magnitude."""
+    from scldm_torch.training.metrics import global_norm
+
+    (lk, gk), (lm, gm) = vae_loss_and_grads(task, batch), vae_loss_and_grads(plain_task, batch)
+    nk, nm = global_norm(gk.values()).item(), global_norm(gm.values()).item()
+    if abs(lk - lm) > 1e-5 * abs(lm) or abs(nk - nm) > 1e-4 * nm:
+        raise AssertionError(f"{phase}: trunk kernels loss {lk}, grad norm {nk}; module trunks "
+                             f"{lm}, {nm}")
+    worst, beyond = (0.0, ""), 0.0
+    for name, want in gm.items():
+        if name == "decoder_head.params.bias":
+            continue  # softmax-invariant: its true gradient is 0, both are noise
+        scale = want.abs().max().item() + 1e-12
+        d = (gk[name] - want).abs()
+        if d.max().item() > 1e-2 * scale:
+            raise AssertionError(f"{phase}: gradient {name}, trunk kernels vs module trunks "
+                                 f"{d.max().item() / scale:.3e} of its max")
+        worst = max(worst, (d.max().item() / scale, name))
+        beyond = max(beyond, (d > 1e-4 * scale).float().mean().item())
+    log(f"{phase} reference: one step, trunk kernels vs module trunks: loss {lk:.6f} vs {lm:.6f} "
+        f"({abs(lk - lm) / abs(lm):.2e} relative), grad norm {nk:.6f} vs {nm:.6f} "
+        f"({abs(nk - nm) / nm:.2e}), {len(gm)} gradients, largest gap {worst[0]:.3e} of its max "
+        f"({worst[1]}), at most {beyond:.2e} of a tensor's entries beyond 1e-4 of its max")
+
+
+def phase8_trunk_training(seed: int, batch: int) -> dict:
+    """VAE training through the whole-trunk kernels (`VAETask(fused_trunk=
+    True)`) at dentate width (phase 3's batches) and at parse1m width (phase
+    5's): TRAIN_STEPS steps each, with two saving-forward (row 10) and two
+    backward (row 11) launches a step; the step with the trunk kernels and
+    with the module trunks (`fused_trunk=False`) timed in turns; one step
+    held against the module trunks on the same weights and batch; and one
+    `fused_nb_apply(..., use_trunk=True)` under `torch.no_grad()`, which
+    launches the forward that saves nothing (row 9) once per trunk, held
+    against the module trunks. Returns the main path's launches of the three
+    kernels."""
+    import numpy as np
+    import torch
+
+    from scldm_torch.nn.vae import build_transformer_vae
+    from scldm_torch.ops import fused_trunk as ft
+    from scldm_torch.training.vae_task import VAETask, fused_nb_apply
+    from scldm_torch.utils.weights import init_reference_
+
+    counters = {"fwd": ft.TRUNK_FWD_LAUNCHES, "fwd_saving": ft.TRUNK_FWD_SAVING_LAUNCHES,
+                "bwd": ft.TRUNK_BWD_LAUNCHES}
+    launches = dict.fromkeys(counters, 0)
+    n = TRAIN_STEPS
+    for name, G, S, nnz in (("dentate", N_GENES, WINDOW, (1500, 4000)),
+                            ("parse1m", PARSE_GENES, PARSE_GENES, (500, PARSE_GENES))):
+        vae = init_reference_(build_transformer_vae(n_genes=G, device="cuda"),
+                              torch.Generator(device="cuda").manual_seed(seed))
+        task = VAETask(vae, num_training_steps=10_000, fused_trunk=True)
+        plain = VAETask(vae, num_training_steps=10_000, fused_trunk=False)
+        if not task.fused_trunk:
+            raise AssertionError("VAETask(fused_trunk=True) did not take the trunk kernels")
+        state = task.init_state(torch.Generator(device="cuda").manual_seed(seed))
+        plain_state = plain.init_state(torch.Generator(device="cuda").manual_seed(seed))
+        rng = np.random.default_rng(seed)
+        batches = [{k: torch.from_numpy(v).to("cuda")
+                    for k, v in lean_batch(rng, batch, G, S, nnz).items()} for _ in range(n + 1)]
+        task.train_step(state, batches[0])  # warm-up
+        plain.train_step(plain_state, batches[0])
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.reset()
+        losses = []
+        t0 = time.perf_counter()
+        for b in batches[1:]:
+            state, mets = task.train_step(state, b)
+            losses.append(mets["train_loss"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = {k: c.count for k, c in counters.items()}
+        if got != {"fwd": 0, "fwd_saving": 2 * n, "bwd": 2 * n}:
+            raise AssertionError(f"trunk launches in {n} {name} steps: {got}")
+        for k in ("fwd_saving", "bwd"):
+            launches[k] += got[k]
+        losses = torch.stack(losses)
+        if not torch.isfinite(losses).all():
+            raise AssertionError(f"non-finite training loss: {losses.tolist()}")
+        log(f"phase8 VAE training with the trunk kernels, {name} B={batch} G={G} S={S}: "
+            f"{batch * n / dt:.1f} train cells/s, {dt / n * 1e3:.2f} ms/step over {n} steps; "
+            f"losses {losses[0].item():.2f} -> {losses[-1].item():.2f}; trunk launches {got}")
+
+        def steps_ms(t, st) -> float:
+            t0 = time.perf_counter()
+            for b in batches[1:1 + TRUNK_TURNS]:
+                t.train_step(st, b)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) / TRUNK_TURNS * 1e3
+
+        turns = [steps_ms(*arm) for arm in ((plain, plain_state), (task, state), (task, state),
+                                            (plain, plain_state))]
+        on, off = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+        log(f"phase8 {name} in turns (off, on, on, off; {TRUNK_TURNS} steps a turn): trunk kernels "
+            f"{on:.2f} ms/step ({batch * 1e3 / on:.1f} cells/s), module trunks {off:.2f} ms/step "
+            f"({batch * 1e3 / off:.1f} cells/s); turns {[round(t, 2) for t in turns]}")
+        compare_trunk_paths(f"phase8 {name}", task, plain, batches[-1])
+
+        mb = task._materialize(batches[-1])
+        with torch.no_grad():
+            for c in counters.values():
+                c.reset()
+            out_k, z_k = fused_nb_apply(vae, mb, use_trunk=True)
+            torch.cuda.synchronize()
+            got = {k: c.count for k, c in counters.items()}
+            out_m, z_m = fused_nb_apply(vae, mb)
+        if got != {"fwd": 2, "fwd_saving": 0, "bwd": 0}:
+            raise AssertionError(f"trunk launches of one no-grad fused_nb_apply: {got}")
+        launches["fwd"] += got["fwd"]
+        z_err = held_f32(f"phase8 {name} no-grad h_z", z_k, z_m) / z_m.abs().max().item()
+        mu = held_bf16(f"phase8 {name} no-grad mu", out_k["mu"], out_m["mu"])
+        log(f"phase8 {name}: no-grad fused_nb_apply, trunk kernels vs module trunks: h_z "
+            f"{z_err:.2e} of its max, " + report_bf16({"mu": mu}))
+        del vae, task, plain, state, plain_state, batches
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -1373,6 +1630,7 @@ def main(argv=None) -> int:
     pools = phase1d_encoder_pool(args.seed)
     swiglu_fwd, swiglu_bwd = phase1e_swiglu_vec(args.seed)
     flash_cross = phase1f_flash_cross(args.seed)
+    trunk_timing = phase1g_fused_trunk(args.seed)
 
     # -- phase 2: the generation path -------------------------------------------
     launches = phase2_generation(args.seed, args.batch)
@@ -1393,6 +1651,9 @@ def main(argv=None) -> int:
     # -- phase 7: census LDM training and generation ----------------------------
     census_ldm = phase7_census_ldm(args.seed)
 
+    # -- phase 8: VAE training through the whole-trunk kernels ------------------
+    trunk = phase8_trunk_training(args.seed, args.batch)
+
     tail_src = "scldm_torch/kernels/csrc/decoder_tail.cu"
     pool_src = "scldm_torch/kernels/csrc/encoder_pool.cu"
     pool_launches = {"dense_fwd": parse["encoder_pool_fwd"], "dense_bwd": parse["encoder_pool_bwd"],
@@ -1400,7 +1661,8 @@ def main(argv=None) -> int:
                      "window_bwd": parse["window_pool_bwd"]}
     pool_replaces = {"dense_fwd": 217, "dense_bwd": 263, "window_fwd": 409, "window_bwd": 452}
     # no single PyTorch call computes any of these functions but flash_cross
-    # (scaled_dot_product_attention): library_ms is null for the rest
+    # (scaled_dot_product_attention): library_ms is null for the rest, the
+    # whole trunk (L blocks) included
     dit_src = "scldm_torch/kernels/csrc/dit_block.cu"
     dit_bwd_src = "scldm_torch/kernels/csrc/dit_block_bwd.cu"
     census_rows = (3 * CENSUS_LDM_BATCH, CENSUS_LDM_BATCH)  # the census sampler's and step's rows
@@ -1457,6 +1719,15 @@ def main(argv=None) -> int:
          **flash_cross,
          **flash_cross_bound(2 * CENSUS_LDM_BATCH, CENSUS["n_genes"], CENSUS["n_embed"],
                              CENSUS["n_inducing_points"])},
+    ] + [
+        # the VAE's trunks: R = 128 rows of T = 16 tokens, E = 32, hidden 88, L = 8
+        {"name": f"fused_trunk_{part}", "route": "cuda",
+         "source": "scldm_torch/kernels/csrc/fused_trunk.cu",
+         "replaces": f"scldm_tpu/ops/fused_trunk.py:{line}", "launches": trunk[part],
+         **trunk_timing[part],
+         **fused_trunk_bound(TRUNK_ROWS[0], TRUNK["T"], TRUNK["E"], TRUNK["hidden"], TRUNK["L"],
+                             part == "bwd", part == "fwd_saving"), "library_ms": None}
+        for part, line in (("fwd", 181), ("fwd_saving", 215), ("bwd", 249))
     ]
     for k in kernels:
         log(f"{k['name']}: {k['ms']:.4f} ms against a bound of {k['bound_ms']:.4f} ms "

@@ -107,6 +107,16 @@ _SIGNATURES = {
         [_P] * 5 + [ctypes.c_int] * 5 + [_P],  # G, B, M, E, H, stream
         ctypes.c_int,
     ),
+    # pointers: x, the array of 9 * L weight pointers, out, xs (None: no save)
+    "scldm_fused_trunk_forward": (
+        [_P] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float, _P],  # R, T, E, H, Hd, L; eps, stream
+        ctypes.c_int,
+    ),
+    # pointers: xs, the array of 9 * L weight pointers, dy, dx, dw, workspace
+    "scldm_fused_trunk_backward": (
+        [_P] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float, _P],  # R, T, E, H, Hd, L; eps, stream
+        ctypes.c_int,
+    ),
     "scldm_cuda_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 

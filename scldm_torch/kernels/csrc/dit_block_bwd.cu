@@ -43,11 +43,11 @@
 //   6. qkv_bwd: per (row, token tile): dh = dqkv @ wqkv^T, the first
 //      modulation's and LayerNorm's backward (into dx and the partials);
 //   7. rows_gemm: dmod, the per-tile partials summed in order, and dc.
-// Then, for both, dit_weight_grads: every weight gradient in one launch, a
-// tiled U^T V over the token (or row) axis per gradient, 64x64 outputs per
-// CTA, 4x4 per thread, 16 tokens per shared-memory stage; the bias gradients
-// are the column sums of U, taken by the CTAs of the first column tile. The
-// gradients come out in nn.Linear's (out, in) layout.
+// Then, for both, dit_common.cuh's weight_grads: every weight gradient in one
+// launch, a tiled U^T V over the token (or row) axis per gradient, 64x64
+// outputs per CTA, 4x4 per thread, 16 tokens per shared-memory stage; the
+// bias gradients are the column sums of U, taken by the CTAs of the first
+// column tile. The gradients come out in nn.Linear's (out, in) layout.
 // No atomics: every sum is taken in a fixed order. Products against a
 // transposed weight read the weight in nn.Linear's (out, in) layout, so that
 // one thread per output column reads it with coalesced loads, as the forward
@@ -828,79 +828,6 @@ qkv_bwd(const float* __restrict__ x, const float* __restrict__ wqkv_t,
   layernorm_bwd(hs, xs, mean1, rstd1, tn, E, dx + tt.tok * E);
 }
 
-// out (P, Q) = sum_n u[n, p] * v[n, q]; bias (P) = sum_n u[n, p] when given.
-struct GradJob {
-  const float* u;
-  const float* v;
-  float* out;
-  float* bias;
-  int P, Q, N, tiles_q, tile0;
-};
-
-constexpr int kMaxJobs = 5;
-struct GradJobs {
-  GradJob job[kMaxJobs];
-  int n;
-};
-
-constexpr int kTileP = 64, kTileQ = 64, kTileN = 16;
-
-__global__ void __launch_bounds__(256) dit_weight_grads(const GradJobs jobs) {
-  __shared__ __align__(16) float us[kTileN][kTileP];
-  __shared__ __align__(16) float vs[kTileN][kTileQ];
-  int j = 0;
-  while (j + 1 < jobs.n && (int)blockIdx.x >= jobs.job[j + 1].tile0) ++j;
-  const GradJob jb = jobs.job[j];
-  const int tile = blockIdx.x - jb.tile0;
-  const int p0 = (tile / jb.tiles_q) * kTileP;
-  const int q0 = (tile % jb.tiles_q) * kTileQ;
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
-  const bool with_bias = jb.bias != nullptr && q0 == 0;
-
-  float acc[4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) acc[a][b] = 0.0f;
-  float bsum = 0.0f;
-
-  for (int n0 = 0; n0 < jb.N; n0 += kTileN) {
-    for (int i = tid; i < kTileN * kTileP; i += blockDim.x) {
-      const int r = i / kTileP, col = i % kTileP;
-      const int n = n0 + r;
-      us[r][col] = (n < jb.N && p0 + col < jb.P) ? jb.u[(size_t)n * jb.P + p0 + col] : 0.0f;
-      vs[r][col] = (n < jb.N && q0 + col < jb.Q) ? jb.v[(size_t)n * jb.Q + q0 + col] : 0.0f;
-    }
-    __syncthreads();
-    if (with_bias && tid < kTileP)
-      for (int r = 0; r < kTileN; ++r) bsum += us[r][tid];
-#pragma unroll
-    for (int r = 0; r < kTileN; ++r) {
-      const float4 a = *reinterpret_cast<const float4*>(&us[r][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&vs[r][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int k = 0; k < 4; ++k) acc[i][k] = fmaf(av[i], bv[k], acc[i][k]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int p = p0 + ty * 4 + i;
-    if (p >= jb.P) continue;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int q = q0 + tx * 4 + k;
-      if (q < jb.Q) jb.out[(size_t)p * jb.Q + q] = acc[i][k];
-    }
-  }
-  if (with_bias && tid < kTileP && p0 + tid < jb.P) jb.bias[p0 + tid] = bsum;
-}
-
 SmemAllowance g_row_smem, g_mod_smem, g_qkv_smem, g_attn_smem, g_mlp_smem, g_attn_bwd_smem,
     g_qkv_bwd_smem, g_dc_smem;
 
@@ -1013,23 +940,15 @@ int scldm_dit_block_backward(
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   const int N = R * T;
-  const GradJob list[kMaxJobs] = {
+  dit::GradJobs<5> jobs = {{
       {w.mod, w.cs, (float*)dwada_t, (float*)dbada, 6 * E, E, R, 0, 0},
       {w.qkv, w.h, (float*)dwqkv_t, (float*)dbqkv, 3 * E, E, N, 0, 0},
       {w.proj, w.attn, (float*)dwproj_t, (float*)dbproj, E, E, N, 0, 0},
       {w.ab, w.h2, (float*)dw12_t, nullptr, 2 * Hd, E, N, 0, 0},
       {w.m, w.g, (float*)dwmlp_t, nullptr, E, Hd, N, 0, 0},
-  };
-  GradJobs jobs;
-  jobs.n = kMaxJobs;
-  int tiles = 0;
-  for (int j = 0; j < kMaxJobs; ++j) {
-    jobs.job[j] = list[j];
-    jobs.job[j].tiles_q = (list[j].Q + kTileQ - 1) / kTileQ;
-    jobs.job[j].tile0 = tiles;
-    tiles += ((list[j].P + kTileP - 1) / kTileP) * jobs.job[j].tiles_q;
-  }
-  dit_weight_grads<<<tiles, 256, 0, s>>>(jobs);
+  }, 5};
+  const int tiles = dit::plan_grad_jobs(jobs);
+  dit::weight_grads<5><<<tiles, 256, 0, s>>>(jobs);
   return (int)cudaGetLastError();
 }
 

@@ -58,6 +58,12 @@ class Encoder(nn.Module):
             LayerNormFP32(n_embed_latent, layernorm_eps, affine=False),
         )
 
+    def pool(self, x: torch.Tensor) -> torch.Tensor:
+        """The MCAB pooling and the frozen positional table (JAX
+        `pool_only=True`): the (B, M, E) input of the blocks, for the
+        whole-trunk kernel (`training/vae_task._encoder_trunk_tail`)."""
+        return self.ca_layer(x) + self.pos_embed.to(x.dtype)
+
     def trunk(self, x: torch.Tensor) -> torch.Tensor:
         """Everything after the MCAB pooling, from the pooled (B, M, E) tokens
         (JAX `skip_pool=True`): the frozen positional table, the blocks, the

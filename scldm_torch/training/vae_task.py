@@ -15,7 +15,10 @@ At E > 128 (the census decoder, E = 512), where JAX leaves its tail, the step
 takes the algebraic tail (`algebraic_nb_apply`): the cross block and the NB
 head reassociated in plain PyTorch, with `VAETask(algebraic_fused_gate=True)`
 running the SwiGLU up projection, gate and head-vector contraction as the
-`ops/fused_swiglu.swiglu_vec` kernels.
+`ops/fused_swiglu.swiglu_vec` kernels. `VAETask(fused_trunk=True)` (off
+unless asked, as in JAX) runs both trunks of that kernel path, the encoder's
+and the decoder's blocks, as the whole-trunk kernels
+(`ops/fused_trunk.fused_trunk_blocks_trainable`).
 """
 
 from __future__ import annotations
@@ -34,6 +37,11 @@ from scldm_torch.ops.distributions import log_nb_positive, nb_sample
 from scldm_torch.ops.fused_decoder import _bf, build_attention_operands, decoder_tail, pack_weights
 from scldm_torch.ops.fused_encoder import build_query_operand, encoder_pool, head_rows, window_pool
 from scldm_torch.ops.fused_swiglu import swiglu_vec
+from scldm_torch.ops.fused_trunk import (
+    extract_trunk_params,
+    fused_trunk_blocks_trainable,
+    trunk_kernel_ok,
+)
 from scldm_torch.ops.transforms import (
     COUNTS,
     COUNTS_SUBSET as C_SUB,
@@ -81,6 +89,43 @@ def _fused_window_ok(vae: TransformerVAE) -> bool:
     E >= 256)."""
     ca = vae.encoder.ca_layer
     return ca.attn.c_attn.bias is None and (ca.ln_1.n <= 128 or ca.ln_1.n >= 256)
+
+
+def _fused_trunk_ok(vae: TransformerVAE) -> bool:
+    """The JAX gate of the whole-trunk kernel on both block stacks
+    (`trunk_kernel_ok`: no bias, no dropout, no adaLN, E <= 128, and no
+    remat). The port has no dropout or remat, so the check reads the modules'
+    bias, adaLN and affine LayerNorms. A width the CUDA kernels do not take
+    passes this gate and raises at launch."""
+    enc, dec = vae.encoder.encoder_layers, vae.decoder.decoder_layers
+    return len(enc) > 0 and len(dec) > 0 and all(
+        trunk_kernel_ok(b.ln_1.n, b.attn.c_attn.bias is not None, 0.0, b.use_adaln)
+        and b.ln_1.weight is not None
+        for b in (*enc, *dec)
+    )
+
+
+def _encoder_trunk_tail(vae: TransformerVAE, pooled: torch.Tensor) -> torch.Tensor:
+    """The encoder after its MCAB pooling (JAX `_encoder_trunk_tail`): the
+    blocks as the whole-trunk kernel, then the latent projection and the
+    non-affine LN. The frozen all-zeros `pos_embed` is not added, as JAX
+    leaves it out: adding zeros is exact either way."""
+    enc = vae.encoder
+    blocks = enc.encoder_layers
+    h = fused_trunk_blocks_trainable(pooled, extract_trunk_params(blocks),
+                                     blocks[0].attn.n_head, blocks[0].ln_1.eps)
+    return enc.encoder_latent_input(h)
+
+
+def _decoder_trunk(vae: TransformerVAE, h_z: torch.Tensor) -> torch.Tensor:
+    """The decoder before its cross block (JAX `_decoder_trunk`): the
+    non-affine LN and the latent projection, then the blocks as the
+    whole-trunk kernel."""
+    dec = vae.decoder
+    blocks = dec.decoder_layers
+    return fused_trunk_blocks_trainable(dec.decoder_latent_input(h_z),
+                                        extract_trunk_params(blocks), blocks[0].attn.n_head,
+                                        blocks[0].ln_1.eps)
 
 
 def _dense_pool_worth_it(n_genes: int, window_len: int) -> bool:
@@ -160,15 +205,18 @@ def fused_window_pooling(vae: TransformerVAE, emb: torch.Tensor) -> torch.Tensor
 
 
 def fused_nb_apply(
-    vae: TransformerVAE, batch: Dict, batch_chunk: Optional[int] = None
+    vae: TransformerVAE, batch: Dict, batch_chunk: Optional[int] = None, use_trunk: bool = False
 ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """`TransformerVAE.forward` with the decoder's cross block and the NB
     head's mu logit as the fused tail, over the canonical gene list 1..G;
     where JAX's gate holds (`_fused_encoder_ok`, `_dense_pool_worth_it`) the
     encoder's input embedding and MCAB pooling are the dense pool. The
-    encoder's and the decoder's trunks run as modules; no (B, G, E) tensor
-    is formed. `batch_chunk` splits the tail into launches over batch slices
-    of that size. Differentiable end to end. Returns ({"mu", "theta"}, h_z)."""
+    encoder's and the decoder's trunks run as modules, or, with `use_trunk`
+    where `_fused_trunk_ok` holds, as the whole-trunk kernel (JAX's opt-in,
+    on both branches of the encoder); no (B, G, E) tensor is formed.
+    `batch_chunk` splits the tail into launches over batch slices of that
+    size. Differentiable end to end. Returns ({"mu", "theta"}, h_z)."""
+    use_trunk = bool(use_trunk) and _fused_trunk_ok(vae)
     if (
         _fused_encoder_ok(vae)
         and COUNTS in batch
@@ -176,10 +224,12 @@ def fused_nb_apply(
         and _dense_pool_worth_it(batch[COUNTS].shape[1], batch[G_SUB].shape[1])
     ):
         pooled = fused_encoder_pooling(vae, batch[COUNTS], batch[G_SUB].shape[1])
-        h_z = vae.encoder.trunk(pooled)
+        h_z = _encoder_trunk_tail(vae, pooled) if use_trunk else vae.encoder.trunk(pooled)
     else:
-        h_z = vae.encoder(vae.input_layer(batch[C_SUB], batch[G_SUB]))
-    x = vae.decoder.trunk(h_z)  # (B, M, E) pre-cross latents
+        emb = vae.input_layer(batch[C_SUB], batch[G_SUB])
+        h_z = _encoder_trunk_tail(vae, vae.encoder.pool(emb)) if use_trunk else vae.encoder(emb)
+    # (B, M, E) pre-cross latents
+    x = _decoder_trunk(vae, h_z) if use_trunk else vae.decoder.trunk(h_z)
 
     ca = vae.decoder.decoder_cross_attention
     head = vae.decoder_head
@@ -366,7 +416,12 @@ class VAETask:
     (`_algebraic_path_ok`), as JAX does; `algebraic_vw_fold=None` folds the
     output projection into the values wherever that tail runs;
     `algebraic_fused_gate=True` (off unless asked, as in JAX) runs its
-    SwiGLU through the `swiglu_vec` kernels."""
+    SwiGLU through the `swiglu_vec` kernels.
+
+    `fused_trunk=True` (off unless asked, as in JAX) runs both trunks of the
+    kernel path (`_use_fused`) as the whole-trunk kernels where JAX's gate
+    holds (`_fused_trunk_ok`); `eval_step` and `encode` keep the modules, as
+    in JAX."""
 
     def __init__(
         self,
@@ -390,8 +445,10 @@ class VAETask:
         algebraic_tail: Optional[bool] = None,
         algebraic_vw_fold: Optional[bool] = None,
         algebraic_fused_gate: bool = False,
+        fused_trunk: Optional[bool] = None,
     ):
         self.vae = vae
+        self.fused_trunk = bool(fused_trunk) and _fused_trunk_ok(vae)
         self.fused_pool = bool(fused_pool) and _fused_window_ok(vae)
         if algebraic_tail is None:
             algebraic_tail = vae.decoder.n_embed > 128
@@ -491,7 +548,8 @@ class VAETask:
         use_algebraic = not use_fused and self._use_algebraic(batch)
         batch = self._materialize(batch)
         if use_fused:
-            out, _ = fused_nb_apply(self.vae, batch, batch_chunk=self.fused_batch_chunk)
+            out, _ = fused_nb_apply(self.vae, batch, batch_chunk=self.fused_batch_chunk,
+                                    use_trunk=self.fused_trunk)
         elif use_algebraic:
             out, _ = self._algebraic(batch)
         else:

@@ -25,7 +25,13 @@ cross-attention kernel rounds the same operands to bf16 as its plain version
 and sums in another order: the tail's bounds (chip_smoke.py's phase 1f). The
 census-like LDM step and generation: the kernel path against the module
 path, f32 both, at JAX's bounds between its two paths (loss 1e-4 relative,
-gradient norm 1e-3) and at 1e-3 for generation's latents and mu."""
+gradient norm 1e-3) and at 1e-3 for generation's latents and mu. The
+whole-trunk kernels compute in f32 like their plain versions and sum in
+other, fixed orders: out, xs, dx and every weight gradient within 1e-4 of
+its tensor's largest magnitude (chip_smoke.py's phase 1g); a small VAE's
+loss through them against the module trunks within 1e-5 relative and its
+gradient norm within 1e-4 (both sides take the decoder tail, whose bf16
+roundings of operands made from the trunk's output now and then flip)."""
 
 import numpy as np
 import pytest
@@ -37,6 +43,7 @@ from scldm_torch.ops import fused_decoder as tail
 from scldm_torch.ops import fused_dit as port
 from scldm_torch.ops import fused_encoder as fe
 from scldm_torch.ops import fused_swiglu as fs
+from scldm_torch.ops import fused_trunk as ft
 
 pytestmark = [
     pytest.mark.cuda,
@@ -579,3 +586,138 @@ def test_census_like_ldm_step_and_generation_on_gpu():
     (zk, mk), (zm, mm) = outs
     torch.testing.assert_close(zk, zm, rtol=1e-3, atol=1e-3)
     assert (mk - mm).abs().max() <= 1e-3 * mm.abs().max()
+
+
+# -- the whole trunk (rows 9-11) ---------------------------------------------------
+
+TRUNK_T = 16  # the VAE's latent tokens
+
+
+def _trunk_inputs(R, E, Hh, Hd, L, device, seed=0):
+    """x, dy and one trunk's weights (per name a list of L tensors, matrices
+    (out, in)), from numpy; LayerNorm affines near 1 and 0."""
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.from_numpy(a.astype(np.float32)).to(device)
+
+    shapes = {"wqkv": (3 * E, E), "wproj": (E, E), "w1": (Hd, E), "w2": (Hd, E), "wmlp": (E, Hd)}
+    w = {k: [t(rng.normal(size=s) / np.sqrt(s[1])) for _ in range(L)] for k, s in shapes.items()}
+    for k, base in (("g1", 1.0), ("b1", 0.0), ("g2", 1.0), ("b2", 0.0)):
+        w[k] = [t(base + 0.1 * rng.normal(size=E)) for _ in range(L)]
+    x, dy = (t(rng.normal(size=(R, TRUNK_T, E))) for _ in range(2))
+    return x, dy, w
+
+
+def assert_trunk_close(got, want, what=""):
+    """f32 both, sums in other orders: within 1e-4 of the reference's largest."""
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max(), what
+
+
+def check_trunk(R, E, Hh, Hd, L, device="cuda", seed=0):
+    """Rows 9, 10 and 11 against the plain versions; returns the launches of each."""
+    x, dy, w = _trunk_inputs(R, E, Hh, Hd, L, device, seed)
+    counters = (ft.TRUNK_FWD_LAUNCHES, ft.TRUNK_FWD_SAVING_LAUNCHES, ft.TRUNK_BWD_LAUNCHES)
+    before = [c.count for c in counters]
+    y = ft.fused_trunk_blocks(x, w, Hh, EPS)
+    y10, xs = ft.fused_trunk_fwd_saving(x, w, Hh, EPS)
+    dx, dw = ft.fused_trunk_bwd(xs, w, dy, Hh, EPS)
+    torch.cuda.synchronize()
+    assert [c.count - b for c, b in zip(counters, before)] == [1, 1, 1]
+    want, want_xs = ft.fused_trunk_saving_reference(x, w, Hh, EPS)
+    rdx, rdw = ft.fused_trunk_backward_reference(x, w, dy, Hh, EPS)
+    assert (want - x).abs().max() > 1e-2  # the trunk is not the identity
+    for what, got, ref in (("out", y, want), ("out saving", y10, want), ("xs", xs, want_xs),
+                           ("dx", dx, rdx)):
+        assert got.device == x.device
+        assert_trunk_close(got, ref, what)
+    for k in ft.TRUNK_WEIGHT_NAMES:
+        for layer in range(L):
+            assert dw[k][layer].shape == w[k][layer].shape
+            assert_trunk_close(dw[k][layer], rdw[k][layer], f"d{k}[{layer}]")
+    return xs, dy, w, dx, dw
+
+
+@pytest.mark.parametrize("R", [128, 5])  # the VAE step's rows, a ragged R
+def test_fused_trunk_matches_reference_on_gpu(R):
+    check_trunk(R, 32, 8, 88, 8)
+
+
+@pytest.mark.parametrize("E,Hh,Hd,L", [(64, 4, 172, 3), (128, 8, 344, 2), (32, 8, 88, 10)])
+def test_fused_trunk_at_other_widths_on_gpu(E, Hh, Hd, L):
+    """Other widths under the JAX gate (E <= 128), and L = 10: two launches
+    of eight and two layers each way."""
+    check_trunk(19, E, Hh, Hd, L)
+
+
+def test_fused_trunk_backward_repeats_its_bits_on_gpu():
+    """No atomics: the same inputs give the same dx and weight gradients."""
+    xs, dy, w, dx, dw = check_trunk(128, 32, 8, 88, 8)
+    dx2, dw2 = ft.fused_trunk_bwd(xs, w, dy, 8, EPS)
+    assert torch.equal(dx2, dx)
+    assert all(torch.equal(a, b) for k in ft.TRUNK_WEIGHT_NAMES for a, b in zip(dw2[k], dw[k]))
+
+
+def test_fused_trunk_widths_it_does_not_take_raise_on_gpu():
+    """E = 30 (hidden 80, 6 heads) passes the JAX gate (E <= 128) but the
+    kernels need E % 4 == 0, T = 400 needs more shared memory than a CTA
+    has, and the kernels take float32 only: on CUDA tensors each raises
+    instead of taking the plain version."""
+    x, dy, w = _trunk_inputs(3, 30, 6, 80, 2, "cuda")
+    with pytest.raises(ValueError, match="take E % 4 == 0"):
+        ft.fused_trunk_blocks(x, w, 6, EPS)
+    x, dy, w = _trunk_inputs(3, 32, 8, 88, 1, "cuda")
+    long = torch.randn(2, 400, 32, device="cuda")
+    with pytest.raises(ValueError, match="bytes of shared memory"):
+        ft.fused_trunk_blocks(long, w, 8, EPS)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ft.fused_trunk_blocks(x.double(), w, 8, EPS)
+
+
+def test_trainable_trunk_gradients_reach_the_module_on_gpu():
+    """`VAETask(fused_trunk=True)` on a small CUDA VAE: one loss through the
+    trunk kernels (one saving forward and one backward per trunk) against
+    the module trunks, the same decoder-tail kernels on both sides."""
+    from scldm_torch.nn.vae import build_transformer_vae
+    from scldm_torch.training.metrics import global_norm
+    from scldm_torch.training.vae_task import VAETask
+    from scldm_torch.utils.weights import init_reference_
+
+    G, B, S = 300, 6, 40
+    vae = init_reference_(build_transformer_vae(n_genes=G, n_layer=3, device="cuda"),
+                          torch.Generator(device="cuda").manual_seed(0))
+    rng = np.random.default_rng(0)
+    genes = np.zeros((B, S), np.int64)
+    counts = np.zeros((B, S), np.float32)
+    for i in range(B):
+        nnz = int(rng.integers(10, S))
+        genes[i, :nnz] = np.sort(rng.choice(G, nnz, replace=False)) + 1
+        counts[i, :nnz] = rng.poisson(3.0, nnz) + 1
+    batch = {"genes_subset": torch.from_numpy(genes).cuda(),
+             "counts_subset": torch.from_numpy(counts).cuda(),
+             "library_size": torch.from_numpy(counts.sum(1, keepdims=True)).cuda()}
+    runs = []
+    for on in (True, False):
+        task = VAETask(vae, fused_trunk=on)
+        before = (ft.TRUNK_FWD_SAVING_LAUNCHES.count, ft.TRUNK_BWD_LAUNCHES.count)
+        vae.zero_grad(set_to_none=True)
+        loss, _ = task.loss(batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        launched = (ft.TRUNK_FWD_SAVING_LAUNCHES.count - before[0],
+                    ft.TRUNK_BWD_LAUNCHES.count - before[1])
+        grads = [p.grad for p in vae.parameters() if p.grad is not None]
+        runs.append((loss.item(), global_norm(grads).item(), launched))
+    (lk, nk, launched_k), (lm, nm, launched_m) = runs
+    assert launched_k == (2, 2) and launched_m == (0, 0)
+    assert abs(lk - lm) <= 1e-5 * abs(lm) and abs(nk - nm) <= 1e-4 * nm
+
+
+@pytest.mark.skipif(torch.cuda.device_count() < 2, reason="needs two GPUs")
+def test_fused_trunk_on_a_device_other_than_the_current():
+    """Tensors on cuda:1 while cuda:0 is current, after a launch on cuda:0:
+    every launch and its shared memory attribute go to the tensors' device."""
+    check_trunk(3, 32, 8, 88, 2, "cuda:0")
+    torch.cuda.synchronize(0)
+    check_trunk(128, 128, 8, 344, 2, "cuda:1", seed=1)
+    assert torch.cuda.current_device() == 0
