@@ -1,26 +1,32 @@
 #!/usr/bin/env python3
 """Where the time of one census-width VAE training step goes, on one NVIDIA GPU.
 
-    python3 benchmarks_torch/profile_census.py
+    python3 benchmarks_torch/profile_census.py [--fused-pool]
 
 The census VAE of `chip_smoke.py` (configs/model/vae_census.yaml: E=512, 16
 layers, 64 inducing points, G=36,601 genes; f32, no remat) with random
 weights from seed 0, on B=16 lean batches over a 4,096-token window made like
 benchmarks/bench_census.py's, through the algebraic tail, twice: with the
 `swiglu_vec` kernels (`VAETask(algebraic_fused_gate=True)`) and with the
-plain algebraic path. For each: a warm-up step, five unprofiled
+plain algebraic path. With --fused-pool, on the module path instead
+(`algebraic_tail=False`, as bench_census.py pairs its --fused-pool with
+--no-algebraic-tail), twice: with the MCAB pooling as the wide window-pool
+kernels (`fused_pool=True`) and as the module MCAB; the two arms are first
+timed in turns (module, pool, pool, module; TURN_STEPS steps a turn, after a
+warm-up step each). For each arm: a warm-up step, five unprofiled
 `VAETask.train_step` calls (their median, and the peak device memory over
 them), three steps' forward, backward and clip-plus-optimizer segments
 (each ending in a synchronize; the last is `VAETask.apply_gradients`), then
 PROFILED_STEPS more steps traced with `torch.profiler`: the device's busy
 time (the union of its kernels' spans) and kernels per step, the idle share
 of the unprofiled median, the time and share of busy time of the swiglu_vec
-kernels, and the profiler's table of the operators that took the most device
-time.
+kernels (or the window pool's), and the profiler's table of the operators
+that took the most device time.
 """
 
 from __future__ import annotations
 
+import argparse
 import statistics
 import sys
 import time
@@ -30,6 +36,10 @@ ROOT = Path(__file__).resolve().parents[1]
 SEED = 0
 PROFILED_STEPS = 2
 UNPROFILED_STEPS = 5
+TURN_STEPS = 3
+# the wide window pool's kernels (kernels/csrc/window_pool_wide.cu)
+POOL_KERNELS = ("prep_weights", "ln_rows", "gemm_kernel", "attn_fwd", "attn_merge", "attn_bwd",
+                "sum_dq", "dx2_kernel", "ln_bwd", "sum_parts_kernel")
 
 
 def short(kname: str) -> str:
@@ -37,21 +47,51 @@ def short(kname: str) -> str:
     return kname.replace("void ", "").replace("(anonymous namespace)::", "").split("(")[0]
 
 
-def profile_step(cs, busy_us, vae, fused_gate: bool) -> None:
+def census_batches(cs, n: int) -> list:
     import numpy as np
+    import torch
+
+    G, B, S = cs.CENSUS["n_genes"], cs.CENSUS_BATCH, cs.CENSUS_WINDOW
+    rng = np.random.default_rng(SEED)
+    return [{k: torch.from_numpy(v).to("cuda")
+             for k, v in cs.lean_batch(rng, B, G, S, (S // 2, S)).items()} for _ in range(n)]
+
+
+def in_turns(cs, arms: dict) -> None:
+    """The arms' steps timed in turns (first, second, second, first), each
+    TURN_STEPS steps after a warm-up step, on the host clock ending in a
+    synchronize; with each turn's peak device memory."""
+    import torch
+
+    batches = census_batches(cs, 2)
+    states = {}
+    for name, task in arms.items():
+        states[name] = task.init_state(torch.Generator(device="cuda").manual_seed(SEED))
+        task.train_step(states[name], batches[0])  # warm-up
+    torch.cuda.synchronize()
+    a, b = arms
+    turns = []
+    for name in (a, b, b, a):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for i in range(TURN_STEPS):
+            arms[name].train_step(states[name], batches[i % 2])
+        torch.cuda.synchronize()
+        turns.append((name, round((time.perf_counter() - t0) / TURN_STEPS * 1e3, 2),
+                      round(torch.cuda.max_memory_allocated() / 2**30, 2)))
+    mean = {n: statistics.mean(ms for k, ms, _ in turns if k == n) for n in arms}
+    print(f"== census in turns ({TURN_STEPS} steps a turn; name, ms/step, peak GiB): {turns}; "
+          f"{b} / {a} {mean[b] / mean[a]:.4f}", flush=True)
+
+
+def profile_step(cs, busy_us, task, name: str, ours_names: tuple) -> None:
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from scldm_torch.training.vae_task import VAETask
-
-    name = "fused gate" if fused_gate else "plain algebraic"
     G, B, S = cs.CENSUS["n_genes"], cs.CENSUS_BATCH, cs.CENSUS_WINDOW
-    task = VAETask(vae, learning_rate=3e-4, betas=(0.9, 0.95), algebraic_fused_gate=fused_gate)
     state = task.init_state(torch.Generator(device="cuda").manual_seed(SEED))
-    rng = np.random.default_rng(SEED)
-    batches = [{k: torch.from_numpy(v).to("cuda")
-                for k, v in cs.lean_batch(rng, B, G, S, (S // 2, S)).items()} for _ in range(2)]
+    batches = census_batches(cs, 2)
 
     state, _ = task.train_step(state, batches[0])  # warm-up
     torch.cuda.synchronize()
@@ -100,21 +140,25 @@ def profile_step(cs, busy_us, vae, fused_gate: bool) -> None:
           f"{wall_ms / PROFILED_STEPS:.2f} ms per step, device busy {busy_ms:.2f} ms per step over "
           f"{len(kernels) / PROFILED_STEPS:.0f} kernels, idle share of the unprofiled median "
           f"{1 - busy_ms / median:.4f}", flush=True)
-    ours = [e for e in kernels if "swiglu_vec_" in e.name]
+    ours = [e for e in kernels if any(k in short(e.name) for k in ours_names)]
     for kname in sorted({short(e.name) for e in ours}):
         evs = [e for e in ours if short(e.name) == kname]
         ms = sum(e.time_range.end - e.time_range.start for e in evs) / 1e3 / PROFILED_STEPS
         print(f"   {kname}: {ms:.3f} ms per step over {len(evs) / PROFILED_STEPS:.0f} launches, "
               f"share of busy {ms / busy_ms:.4f}", flush=True)
     ms = sum(e.time_range.end - e.time_range.start for e in ours) / 1e3 / PROFILED_STEPS
-    print(f"   all swiglu_vec kernels: {ms:.3f} ms per step, share of busy {ms / busy_ms:.4f}",
+    print(f"   all these kernels: {ms:.3f} ms per step, share of busy {ms / busy_ms:.4f}",
           flush=True)
     print(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=12,
                                     max_name_column_width=60), flush=True)
     del state
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--fused-pool", action="store_true",
+                   help="the module path with the wide window pool against the module MCAB")
+    args = p.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -126,6 +170,7 @@ def main() -> int:
     from profile_generation import busy_us
 
     from scldm_torch.nn.vae import build_transformer_vae
+    from scldm_torch.training.vae_task import VAETask
     from scldm_torch.utils.weights import init_reference_
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -133,8 +178,19 @@ def main() -> int:
     torch.set_float32_matmul_precision("highest")
     vae = init_reference_(build_transformer_vae(**cs.CENSUS, device="cuda"),
                           torch.Generator(device="cuda").manual_seed(SEED))
-    for fused_gate in (True, False):
-        profile_step(cs, busy_us, vae, fused_gate)
+    opt = dict(learning_rate=3e-4, betas=(0.9, 0.95))  # vae_census.yaml's optimizer
+    if args.fused_pool:
+        arms = {"module MCAB": VAETask(vae, **opt, algebraic_tail=False),
+                "window pool": VAETask(vae, **opt, algebraic_tail=False, fused_pool=True)}
+        in_turns(cs, arms)
+        torch.cuda.empty_cache()
+        ours = {"module MCAB": POOL_KERNELS, "window pool": POOL_KERNELS}
+    else:
+        arms = {"fused gate": VAETask(vae, **opt, algebraic_fused_gate=True),
+                "plain algebraic": VAETask(vae, **opt)}
+        ours = {name: ("swiglu_vec_",) for name in arms}
+    for name, task in arms.items():
+        profile_step(cs, busy_us, task, name, ours[name])
         torch.cuda.empty_cache()
     return 0
 

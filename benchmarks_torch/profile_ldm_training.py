@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Where the time of one LDM training step goes, on one NVIDIA GPU.
 
-    python3 benchmarks_torch/profile_ldm_training.py [--census]
+    python3 benchmarks_torch/profile_ldm_training.py [--census] [--fused-encode]
 
 Builds the dentate-gyrus VAE and DiT of `chip_smoke.py` (random weights from
 seed 0), the `LDMTask` defaults and lean wire batches with cluster labels
 (B=128 cells) or, with --census, the census VAE (frozen) and the census DiT
-(T = 64 latent tokens) of its phase 7 with census batches (B=16), takes a
-warm-up step, times five unprofiled
+(T = 64 latent tokens) of its phase 7 with census batches (B=16); with
+--fused-encode the frozen encode pools through the window-pool kernels
+(`LDMTask(fused_encode=True)`; the wide design at census width), else
+through the module MCAB. It takes a warm-up step, times five unprofiled
 `LDMTask.train_step` calls, times three steps' segments (each ending in a
 synchronize): the frozen encode alone, the loss (which encodes again), the
 backward, and the clip, optimizer and EMA (`LDMTask.apply_gradients`, the
@@ -17,8 +19,8 @@ segments, the profiled wall time, the device's busy time (the union of its
 kernels' spans), the idle share of the median unprofiled wall time, kernels
 per step, the time, launches and share of busy time of each of the DiT
 block's kernels (the row design's at the dentate T = 16, the split design's
-at the census T = 64), and the profiler's table of the operators that took
-the most device time.
+at the census T = 64) and of the window pool's, and the profiler's table of
+the operators that took the most device time.
 """
 
 from __future__ import annotations
@@ -36,11 +38,16 @@ PROFILED_STEPS = 3
 # the DiT block's kernels, forward and backward, of both designs
 DIT_KERNELS = ("dit_block_kernel", "dit_block_bwd_rows", "rows_gemm", "ln_qkv", "attention",
                "block_post", "mlp_bwd", "attention_bwd", "qkv_bwd", "weight_grads")
+# the window pool's forward kernels (narrow: encoder_pool.cu; wide: window_pool_wide.cu)
+POOL_KERNELS = ("pool_fwd_kernel", "prep_weights", "ln_rows", "gemm_kernel", "attn_fwd",
+                "attn_merge")
 
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--census", action="store_true", help="the census pair (T = 64, B = 16)")
+    p.add_argument("--fused-encode", action="store_true",
+                   help="the frozen encode through the window pool (LDMTask(fused_encode=True))")
     args = p.parse_args(argv)
     import numpy as np
     import torch
@@ -66,7 +73,8 @@ def main(argv=None) -> int:
     else:
         vae, dit = cs.build_models(SEED)
         batches, batch = cs.ldm_batches(rng, 128, 2), 128
-    task = LDMTask(vae, dit, create_transport())
+    task = LDMTask(vae, dit, create_transport(), fused_encode=args.fused_encode)
+    print(f"== LDMTask(fused_encode={task.fused_encode})", flush=True)
     state = task.init_state(torch.Generator(device="cuda").manual_seed(SEED))
 
     state, _ = task.train_step(state, batches[0])  # warm-up
@@ -103,7 +111,7 @@ def main(argv=None) -> int:
     kernel_ms = sum(e.time_range.end - e.time_range.start for e in kernels) / 1e3 / PROFILED_STEPS
     print(f"   device kernel time (sum) {kernel_ms:.2f} ms per step over "
           f"{len(kernels) / PROFILED_STEPS:.0f} kernels", flush=True)
-    for name in DIT_KERNELS:
+    for name in DIT_KERNELS + POOL_KERNELS:
         evs = [e for e in kernels if re.search(rf"\b{name}\b", e.name)]
         if not evs:
             continue

@@ -3,12 +3,12 @@
 
     python3 chip_smoke.py [--seed N] [--batch B]
 
-Phase 0 prints the card's name and power limit and builds the CUDA kernels
-from `scldm_torch/kernels/csrc`. Phase 1 holds the DiT block kernels against
-their plain PyTorch version on the card at the dentate generation path's shape
-(T = 16 latent tokens, the row design), at the census sampler's and training
-step's (T = 64, the split design), at ragged ones and with the split design at
-the dentate shape, timing each beside its bound, and phase 1b the decoder-tail
+Phase 0 prints the card's name and power limit and builds the CUDA kernels from
+`scldm_torch/kernels/csrc`. Phase 1 holds the DiT block kernels against their
+plain PyTorch version on the card at the dentate generation path's shape (T =
+16 latent tokens, the row design), at the census sampler's and training step's
+(T = 64, the split design), at ragged ones and with the split design at the
+dentate shape, timing each beside its bound, and phase 1b the decoder-tail
 kernels (forward and backward) against theirs at the VAE training step's shape
 and a ragged one, timing both. Phase 2 runs CFG generation
 (`LDMTask.make_sample_fn`) at the dentate-gyrus configuration with random
@@ -18,56 +18,67 @@ evaluation of the sampler (the kernel path) against the plain module path
 (`DiT.forward_with_cfg_batched`) on the same inputs. Phase 1c holds the DiT
 block backward kernels against their plain version at the dentate and census
 LDM training steps' shapes and ragged ones, timing both. Phase 1d holds the
-encoder-pool kernels (dense and window, forward and backward) against theirs
-at the VAE steps' shapes and ragged ones, timing both, and the dense pool's
-pooled tokens against the module MCAB where the zero-row correction is not 0.
-Phase 3 trains the dentate-gyrus VAE (`VAETask.train_step`) on lean wire
-batches made like bench.py's for a warm-up step and TRAIN_STEPS timed steps,
-checks the losses and that each tail kernel ran once per step, and holds one
-step's loss and gradients on the kernel path against the module path. Phase 4
-trains the dentate-gyrus DiT on the frozen VAE's latents
-(`LDMTask.train_step`) the same way, checks that every block ran its forward
-and backward kernels once per step and that the EMA ticked once per step,
-holds one step's loss and gradients on the kernel path against the module
-path, holds one frozen encode through the window pool
-(`LDMTask(fused_encode=True)`) against the module encode, timing both, and
-generates from the trained state's EMA weights. Phase 5 trains the parse1m /
-replogle VAE (G = S = 2,000) the same way, each step through the dense encoder
-pool and the tail kernels once each way, holds one step against the module
-path, then takes a few steps of `VAETask(fused_pool=True,
+encoder-pool kernels (dense and window, forward and backward) against theirs at
+the VAE steps' shapes and ragged ones, timing both, and the dense pool's pooled
+tokens against the module MCAB where the zero-row correction is not 0; then the
+wide window-pool kernels (the census encoder's design) against their plain
+version at the census window (B = 16 cells of S = 4,096 tokens, E = 512, 8
+heads, 64 inducing points), a ragged one and at E = 256, timing both. Phase 3
+trains the dentate-gyrus VAE (`VAETask.train_step`) on lean wire batches made
+like bench.py's for a warm-up step and TRAIN_STEPS timed steps, checks the
+losses and that each tail kernel ran once per step, and holds one step's loss
+and gradients on the kernel path against the module path. Phase 4 trains the
+dentate-gyrus DiT on the frozen VAE's latents (`LDMTask.train_step`) the same
+way, checks that every block ran its forward and backward kernels once per step
+and that the EMA ticked once per step, holds one step's loss and gradients on
+the kernel path against the module path, holds one frozen encode through the
+window pool (`LDMTask(fused_encode=True)`) against the module encode, timing
+both, and generates from the trained state's EMA weights. Phase 5 trains the
+parse1m / replogle VAE (G = S = 2,000) the same way, each step through the
+dense encoder pool and the tail kernels once each way, holds one step against
+the module path, then takes a few steps of `VAETask(fused_pool=True,
 fused_decoder=False)` through the window pool and holds one against the module
 path. Phase 1e holds the swiglu_vec kernels (forward and backward) against
 their plain version at the census decoder's shape (R = 16 x 36,601 rows, E =
 512, Hd = 1,408) and two ragged ones, timing both, with TF32 off. Phase 6
 trains the census VAE (configs/model/vae_census.yaml: E = 512, 16 layers, 64
 inducing points, G = 36,601 genes, a 4,096-token window, B = 16) through the
-algebraic tail with `VAETask(algebraic_fused_gate=True)`, checks that each
-step launched the swiglu_vec kernels once each way and that the loss falls,
-holds one step against the plain algebraic path and times both paths with
-their peak memory. Phase 1f holds the flash cross-attention kernel against its
-plain version at the census sampler's cross block (2B = 32 cells, G = 36,601
-genes into 64 latent tokens) and a ragged shape, timing both and
-`scaled_dot_product_attention` as a yardstick. Phase 7 trains the census DiT
-(T = 64, E = 256, 8 layers) on the frozen census VAE's latents (B = 16)
-through the DiT kernels' split design, prints the step's segment split, holds
-one step against the module path, generates euler-50 at a generation batch of
-16 through the algebraic decode, holds the kernel denoiser against the module
-one on the same noise, and holds the module decode with the flash-cross gate
-(`SCLDM_FLASH_CROSS`) on against off. Phase 1g holds the whole-trunk
-kernels (the forward, the saving forward and the backward of all eight
-blocks of a VAE trunk) against their plain versions at the VAE step's trunk
-(R = 128 rows of T = 16 tokens, E = 32) and a ragged R, timing each, and
-checks that the backward repeats its bits. Phase 8 trains the dentate and
-the parse1m VAEs through them (`VAETask(fused_trunk=True)`), checks that each
-step launched the saving forward and the backward twice (encoder and
-decoder), times the step with the trunk kernels and with the module trunks
-in turns, holds one step against the module trunks, and runs one no-grad
-`fused_nb_apply(use_trunk=True)`, which launches the forward that saves
-nothing. The line before the last is a JSON
-summary of the kernels, each with its time beside the least time the card
-could take for the same work; the last is {"ok": true, "device": {...}}. Any
-failure raises, so the script exits non-zero and prints no result; so does a
-machine without CUDA, or a directory without the port's sources.
+algebraic tail with `VAETask(algebraic_fused_gate=True)`, checks that each step
+launched the swiglu_vec kernels once each way and that the loss falls, holds
+one step against the plain algebraic path and times both paths with their peak
+memory. Phase 6b trains the same census VAE on the module path with its MCAB
+pooling as the wide window pool (`VAETask(fused_pool=True,
+algebraic_tail=False)`), checks that each step launched the pool once each way,
+times it against the module MCAB in turns with each arm's peak memory, and
+holds one step against the module MCAB. Phase 1f holds the flash cross-
+attention kernel against its plain version at the census sampler's cross block
+(2B = 32 cells, G = 36,601 genes into 64 latent tokens) and a ragged shape,
+timing both and `scaled_dot_product_attention` as a yardstick. Phase 7 trains
+the census DiT (T = 64, E = 256, 8 layers) on the frozen census VAE's latents
+(B = 16) through the DiT kernels' split design, prints the step's segment
+split, holds one step against the module path, holds the frozen encode through
+the wide window pool (`LDMTask(fused_encode=True)`) against the module encode,
+timing both in turns, trains the same steps through it with their segment
+split, generates euler-50 at a generation batch of 16 through the algebraic
+decode, holds the kernel denoiser against the module one on the same noise, and
+holds the module decode with the flash-cross gate (`SCLDM_FLASH_CROSS`) on
+against off. Phase 1g holds the whole-trunk kernels (the forward, the saving
+forward and the backward of all eight blocks of a VAE trunk) against their
+plain versions at the VAE step's trunk (R = 128 rows of T = 16 tokens, E = 32)
+and a ragged R, timing each, and checks that the backward repeats its bits.
+Phase 8 trains the dentate and the parse1m VAEs through them
+(`VAETask(fused_trunk=True)`), checks that each step launched the saving
+forward and the backward twice (encoder and decoder), times the step with the
+trunk kernels and with the module trunks in turns, holds one step against the
+module trunks, and runs one no-grad `fused_nb_apply(use_trunk=True)`, which
+launches the forward that saves nothing. Phase 1h holds `fused_swiglu_gate`
+(its own entry point, forward and backward) against its plain version at the
+census cross block's MLP (R = 16 x 36,601 rows, E = 512, H = 1,408) and two
+ragged shapes, with TF32 off, timing both. The line before the last is a JSON
+summary of the kernels, each with its time beside the least time the card could
+take for the same work; the last is {"ok": true, "device": {...}}. Any failure
+raises, so the script exits non-zero and prints no result; so does a machine
+without CUDA, or a directory without the port's sources.
 """
 
 from __future__ import annotations
@@ -248,9 +259,11 @@ def phase1_dit_block(seed: int) -> dict:
     return out
 
 
-def encoder_pool_bound(B: int, N: int, backward: bool, dense: bool) -> dict:
-    """The encoder pool over B cells of N tokens (E=32, 4 heads, 16 inducing
-    queries). Its products take bf16 operands, so the bf16 tensor-core peak:
+def encoder_pool_bound(B: int, N: int, backward: bool, dense: bool, E: int = 32, H: int = 4,
+                       Q: int = 16) -> dict:
+    """The encoder pool over B cells of N tokens (by default the reference
+    encoder: E=32, 4 heads, 16 inducing queries; the census encoder: E=512, 8
+    heads, 64). Its products take bf16 operands, so the bf16 tensor-core peak:
     per token the k and v projections (2E^2) and, per head, the scores and
     the pooled values against that head's block (Q*E each), two operations
     per multiply-add, three times that for the backward, which recomputes the
@@ -259,7 +272,6 @@ def encoder_pool_bound(B: int, N: int, backward: bool, dense: bool) -> dict:
     (window), the query blocks and the weights in; num (B, Q, E), den and m
     (B, Q*H) out. The backward reads the same inputs with m, dnum and dden
     and writes a gradient of each input but the counts."""
-    E, H, Q = 32, 4, 16
     weights = Q * E + 2 * E + 2 * E * E
     table = N * E if dense else B * N * E
     src = table + (B * N if dense else 0)
@@ -411,6 +423,33 @@ def phase1c_dit_block_bwd(seed: int) -> dict:
 # it and 1.1% beyond 3e-4 at parse1m (chip run on an H100). So num is held
 # to 3e-4 where the other outputs are held to 1e-4.
 POOL_NUM_NEAR = 3e-4
+# The wide window pool's LayerNorm-gain gradient sums dx2 * xhat over every
+# token, terms of both signs that mostly cancel, so each bf16 rounding that
+# another summation order flips upstream (x2, k, the scores' cotangents, dk,
+# dv, dx2) weighs more in it than in any other output: its largest gap was
+# 1.8e-4 to 3.6e-4 of its largest magnitude, but 5% to 52% of its entries
+# were beyond 1e-4 of it, the more the fewer the tokens (chip run on an H100;
+# host emulation of the kernels: 7.4% beyond 1e-4, none beyond 1e-3). So it
+# is held to 1e-3 where the other gradients are held to 1e-4.
+POOL_LN_GAIN_NEAR = 1e-3
+
+
+def pool_outputs_and_grads(fn, counts, x, cot, H: int) -> dict:
+    """(num, den, m) of the pool `fn` (its kernels or its plain version;
+    dense with `counts`, else the window) and the gradients of the table or
+    embeddings, the raw queries and the weights for the cotangents `cot` of
+    num and den, through `build_query_operand` as the MCAB takes them."""
+    import torch
+
+    from scldm_torch.ops import fused_encoder as fe
+
+    leaves = {k: t.detach().clone().requires_grad_() for k, t in x.items()}
+    qfull = fe.build_query_operand(leaves["q"], H)
+    args = (leaves["src"],) if counts is None else (counts, leaves["src"])
+    num, den, m = fn(*args, qfull, [leaves[k] for k in fe.WEIGHT_NAMES], H, EPS)
+    torch.autograd.backward((num, den), cot)
+    return {"fwd": {"num": num.detach(), "den": den.detach(), "m": m},
+            "bwd": {f"d{k}": t.grad for k, t in leaves.items()}}
 
 
 def phase1d_encoder_pool(seed: int) -> dict:
@@ -437,15 +476,6 @@ def phase1d_encoder_pool(seed: int) -> dict:
     def rnd(*shape, scale=1.0, shift=0.0):
         return torch.randn(*shape, generator=g, device="cuda") * scale + shift
 
-    def run(fn, counts, x, cot):
-        leaves = {k: t.detach().clone().requires_grad_() for k, t in x.items()}
-        qfull = fe.build_query_operand(leaves["q"], H)
-        args = (leaves["src"],) if counts is None else (counts, leaves["src"])
-        num, den, m = fn(*args, qfull, [leaves[k] for k in fe.WEIGHT_NAMES], H, EPS)
-        torch.autograd.backward((num, den), cot)
-        return {"fwd": {"num": num.detach(), "den": den.detach(), "m": m},
-                "bwd": {f"d{k}": t.grad for k, t in leaves.items()}}
-
     out = {}
     for variant, B, N in (("dense", 128, PARSE_GENES), ("dense", 19, 300),
                           ("window", 128, WINDOW), ("window", 19, 250)):
@@ -459,7 +489,7 @@ def phase1d_encoder_pool(seed: int) -> dict:
         cot = (rnd(B, Q, E), rnd(B, Q * H))
         pool, reference = ((fe.encoder_pool, fe.encoder_pool_reference) if dense
                            else (fe.window_pool, fe.window_pool_reference))
-        got, want = run(pool, counts, x, cot), run(reference, counts, x, cot)
+        got, want = (pool_outputs_and_grads(fn, counts, x, cot, H) for fn in (pool, reference))
         torch.cuda.synchronize()
         worst = {part: {k: held_bf16(f"{variant} pool {k} at B={B}, N={N}", got[part][k], w,
                                      POOL_NUM_NEAR if k == "num" else 1e-4)
@@ -512,6 +542,67 @@ def phase1d_encoder_pool(seed: int) -> dict:
                              f"module, max |ref| {scale:.3e}")
     log(f"phase1d dense pooling G={G} S={S} B={B} ({G - S} zero rows taken out): kernel vs module "
         f"MCAB max abs err {err:.3e} ({err / scale:.1e} of max)")
+    return out
+
+
+# (B, S, E, H, Q) of phase 1d's wide window pool: the census encoder's window
+# (configs/model/vae_census.yaml, bench_census.py's batch), a ragged B and S at
+# that width, and the E = 256 encoder of tests/test_fused_encoder.py:227-254
+WIDE_POOL_CASES = ((CENSUS_BATCH, CENSUS_WINDOW, 512, 8, 64), (3, 1_030, 512, 8, 64),
+                   (4, 600, 256, 4, 16))
+
+
+def phase1d_wide_window_pool(seed: int) -> dict:
+    """The wide window-pool kernels (forward and backward,
+    `window_pool_wide.cu`) against their plain version with autograd at
+    WIDE_POOL_CASES, `held_bf16`'s bounds with `POOL_NUM_NEAR` for num, as
+    the narrow design, and `POOL_LN_GAIN_NEAR` for dln1g; kernel and plain
+    timed in turns at the census shape.
+    Returns {"fwd", "bwd"}: {max_abs_err, ms, plain_ms} at that shape."""
+    import torch
+
+    from scldm_torch.ops import fused_encoder as fe
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 8)
+
+    def rnd(*shape, scale=1.0, shift=0.0):
+        return torch.randn(*shape, generator=g, device="cuda") * scale + shift
+
+    out = {}
+    for B, N, E, H, Q in WIDE_POOL_CASES:
+        x = dict(src=rnd(B, N, E), q=rnd(Q, E), ln1g=rnd(1, E, scale=0.3, shift=1.0),
+                 ln1b=rnd(1, E, scale=0.3), wk=rnd(E, E, scale=E**-0.5),
+                 wv=rnd(E, E, scale=E**-0.5))
+        cot = (rnd(B, Q, E), rnd(B, Q * H))
+        got = pool_outputs_and_grads(fe.window_pool, None, x, cot, H)
+        torch.cuda.synchronize()
+        want = pool_outputs_and_grads(fe.window_pool_reference, None, x, cot, H)
+        near = {"num": POOL_NUM_NEAR, "dln1g": POOL_LN_GAIN_NEAR}
+        worst = {part: {k: held_bf16(f"wide window pool {k} at B={B}, S={N}, E={E}", got[part][k],
+                                     w, near.get(k, 1e-4))
+                        for k, w in want[part].items()} for part in want}
+        log(f"phase1d wide window_pool B={B} S={N} E={E} H={H} Q={Q}: "
+            + report_bf16({**worst["fwd"], **worst["bwd"]}))
+        del got, want
+        if (B, N) != (CENSUS_BATCH, CENSUS_WINDOW):
+            continue
+        qfull = fe.build_query_operand(x["q"], H)
+        w = [x[k] for k in fe.WEIGHT_NAMES]
+        m = fe.window_pool_reference(x["src"], qfull, w, H, EPS)[2]
+        fns = {"fwd": (lambda: fe.window_pool_fwd(x["src"], qfull, w, H, EPS),
+                       lambda: fe.window_pool_reference(x["src"], qfull, w, H, EPS)),
+               "bwd": (lambda: fe.window_pool_bwd(x["src"], qfull, w, m, *cot, H, EPS),
+                       lambda: fe.window_pool_backward_reference(x["src"], qfull, w, m, *cot, H,
+                                                                 EPS))}
+        for part, (kernel, plain) in fns.items():
+            ms, plain_ms = time_in_turns(kernel, plain, 10)
+            b = encoder_pool_bound(B, N, part == "bwd", False, E, H, Q)
+            out[part] = {"max_abs_err": max(e for e, *_ in worst[part].values()), "ms": ms,
+                         "plain_ms": plain_ms}
+            log(f"phase1d wide window_pool_{part} B={B} S={N} E={E}: kernel {ms:.4f} ms  plain "
+                f"{plain_ms:.4f} ms  bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+        del x, cot, fns
+        torch.cuda.empty_cache()
     return out
 
 
@@ -760,6 +851,87 @@ def phase1g_fused_trunk(seed: int) -> dict:
                                                for a, b in zip(again[1][k], dw[k]))):
         raise AssertionError("fused_trunk_bwd gave other bits on the same inputs")
     return out
+
+
+def swiglu_gate_bound(R: int, E: int, H: int, backward: bool) -> dict:
+    """fused_swiglu_gate over R rows, exact f32, so the f32 peak: the up
+    projection 2*R*E*2H operations, three times that for the backward; the
+    gate is left out. Bytes: x, w1 and w2 in and g (R, H) out; the backward
+    reads dg (R, H) too and writes dx (R, E), dw1 and dw2."""
+    flops = 2 * R * E * 2 * H
+    weights = 2 * E * H
+    if backward:
+        return bound(4 * (R * E + weights + R * H + R * E + weights), 3 * flops, F32_FLOPS)
+    return bound(4 * (R * E + weights + R * H), flops, F32_FLOPS)
+
+
+def phase1h_swiglu_gate(seed: int) -> tuple[dict, dict, tuple]:
+    """fused_swiglu_gate, its own public entry point (no task dispatches it,
+    in JAX or here), at the census cross block's MLP (JAX's
+    benchmarks/bench_swiglu.py: R = 16 x 36,601 rows, E = 512, H = 1,408) and
+    two ragged shapes: one differentiable call (the path, its launches
+    counted from 0), its output and gradients each within 1e-4 of its
+    tensor's largest magnitude from the plain version with autograd (f32
+    both, TF32 off, sums in another order); kernel and plain timed in turns
+    at the census shape. Returns (fwd, bwd, the path's launches)."""
+    import torch
+
+    from scldm_torch.ops import fused_swiglu as fs
+
+    check_f32_matmuls()
+    g = torch.Generator(device="cuda").manual_seed(seed + 9)
+    census = (CENSUS_BATCH * CENSUS["n_genes"], CENSUS["n_embed"], CENSUS_HIDDEN)
+    errs, timing, launches = {}, {}, None
+    for R, E, H in (census, (1_001, 512, 1_408), (1_001, 512, 1_400)):
+        x = torch.randn(R, E, generator=g, device="cuda")
+        w1 = torch.randn(E, H, generator=g, device="cuda") * E**-0.5
+        w2 = torch.randn(E, H, generator=g, device="cuda") * E**-0.5
+        dg = torch.randn(R, H, generator=g, device="cuda")
+        leaves = [t.clone().requires_grad_() for t in (x, w1, w2)]
+        if (R, E, H) == census:
+            fs.SWIGLU_GATE_FWD_LAUNCHES.reset()
+            fs.SWIGLU_GATE_BWD_LAUNCHES.reset()
+        out = fs.fused_swiglu_gate(*leaves)
+        out.backward(dg)
+        torch.cuda.synchronize()
+        if (R, E, H) == census:
+            launches = (fs.SWIGLU_GATE_FWD_LAUNCHES.count, fs.SWIGLU_GATE_BWD_LAUNCHES.count)
+            if launches != (1, 1):
+                raise AssertionError(f"fused_swiglu_gate launches {launches} in one call")
+        got = {"out": out.detach(), **dict(zip(("dx", "dw1", "dw2"), (t.grad for t in leaves)))}
+        del out, leaves
+        want = {"out": fs.swiglu_reference(x, w1, w2), **dict(zip(
+            ("dx", "dw1", "dw2"), fs.swiglu_gate_backward_reference(x, w1, w2, dg)))}
+        report = []
+        for k, w in want.items():
+            err, scale = (got[k] - w).abs().max().item(), w.abs().max().item()
+            if scale == 0 or err > 1e-4 * scale:
+                raise AssertionError(f"fused_swiglu_gate {k} at R={R}, E={E}, H={H}: max abs err "
+                                     f"{err:.3e}, max |ref| {scale:.3e}")
+            part = "fwd" if k == "out" else "bwd"
+            errs[part] = max(errs.get(part, 0.0), err)
+            report.append(f"{k} {err:.2e} ({err / scale:.1e} of max)")
+        log(f"phase1h fused_swiglu_gate R={R} E={E} H={H}: " + ", ".join(report))
+        del got, want
+        if (R, E, H) == census:
+            fns = {"fwd": (lambda: fs.swiglu_gate_fwd(x, w1, w2),
+                           lambda: fs.swiglu_reference(x, w1, w2)),
+                   "bwd": (lambda: fs.swiglu_gate_bwd(x, w1, w2, dg),
+                           lambda: fs.swiglu_gate_backward_reference(x, w1, w2, dg))}
+            for part, (kernel, plain) in fns.items():
+                for f in (kernel, plain):
+                    cuda_ms(f, 1)  # warm-up
+                turns = [cuda_ms(f, 2) for f in (plain, kernel, kernel, plain)]
+                timing[part] = ((turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2)
+                b = swiglu_gate_bound(R, E, H, part == "bwd")
+                log(f"phase1h fused_swiglu_gate_{part} R={R} E={E} H={H}: kernel "
+                    f"{timing[part][0]:.4f} ms  plain {timing[part][1]:.4f} ms  bound "
+                    f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+            del fns
+        del x, w1, w2, dg
+        torch.cuda.empty_cache()
+    return (*({"max_abs_err": errs[part], "ms": timing[part][0], "plain_ms": timing[part][1]}
+              for part in ("fwd", "bwd")), launches)
 
 
 def build_models(seed: int):
@@ -1128,6 +1300,110 @@ def phase6_census_training(seed: int) -> tuple[int, int]:
     return fused["launches"]
 
 
+CENSUS_POOL_STEPS = 3  # timed VAETask(fused_pool=True) census steps, after one warm-up step
+CENSUS_POOL_TURN = 2  # steps a turn of the fused pool / module MCAB comparison
+
+
+def phase6b_census_fused_pool(seed: int) -> tuple[int, int]:
+    """The census VAE on the module path with the MCAB pooling as the wide
+    window pool (`VAETask(fused_pool=True, algebraic_tail=False)`, JAX's
+    opt-in, which bench_census.py pairs with --no-algebraic-tail): a warm-up
+    step and CENSUS_POOL_STEPS timed steps, each launching the wide pool once
+    each way; the step against the module MCAB (`fused_pool=False`) in turns
+    with each arm's peak memory; one step's loss and gradients held against
+    the module MCAB. Returns the path's (forward, backward) launches."""
+    import numpy as np
+    import torch
+
+    from scldm_torch.nn.vae import build_transformer_vae
+    from scldm_torch.ops import fused_encoder as fe
+    from scldm_torch.training.metrics import global_norm
+    from scldm_torch.training.vae_task import VAETask
+    from scldm_torch.utils.weights import init_reference_
+
+    check_f32_matmuls()
+    vae = init_reference_(build_transformer_vae(**CENSUS, device="cuda"),
+                          torch.Generator(device="cuda").manual_seed(seed))
+    opt = dict(learning_rate=3e-4, betas=(0.9, 0.95))  # vae_census.yaml's optimizer
+    task = VAETask(vae, **opt, fused_pool=True, algebraic_tail=False)
+    module = VAETask(vae, **opt, algebraic_tail=False)
+    G, B, S = CENSUS["n_genes"], CENSUS_BATCH, CENSUS_WINDOW
+    rng = np.random.default_rng(seed + 1)
+    batches = [{k: torch.from_numpy(v).to("cuda") for k, v in
+                lean_batch(rng, B, G, S, (S // 2, S)).items()}
+               for _ in range(CENSUS_POOL_STEPS + 1)]
+    if not (task.fused_pool and not task._use_algebraic(batches[0])
+            and not task._use_fused(batches[0])):
+        raise AssertionError("VAETask(fused_pool=True, algebraic_tail=False) did not take the "
+                             "module path with the window pool")
+    state = task.init_state(torch.Generator(device="cuda").manual_seed(seed))
+    state, first = task.train_step(state, batches[0])  # warm-up
+    torch.cuda.synchronize()
+    fe.WINDOW_POOL_WIDE_FWD_LAUNCHES.reset()
+    fe.WINDOW_POOL_WIDE_BWD_LAUNCHES.reset()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    t0 = time.perf_counter()
+    for b in batches[1:]:
+        state, mets = task.train_step(state, b)
+        losses.append(mets["train_loss"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n = CENSUS_POOL_STEPS
+    launches = (fe.WINDOW_POOL_WIDE_FWD_LAUNCHES.count, fe.WINDOW_POOL_WIDE_BWD_LAUNCHES.count)
+    peak = torch.cuda.max_memory_allocated()
+    losses = torch.stack(losses)
+    if launches != (n, n):
+        raise AssertionError(f"wide window pool launches {launches} in {n} fused_pool steps")
+    if not torch.isfinite(losses).all():
+        raise AssertionError(f"non-finite census fused_pool loss: {losses.tolist()}")
+    log(f"phase6b census VAE VAETask(fused_pool=True, algebraic_tail=False) B={B} G={G} S={S}: "
+        f"{B * n / dt:.1f} train cells/s, {dt / n * 1e3:.2f} ms/step over {n} steps; losses "
+        f"{first['train_loss'].item():.2f} (warm-up) -> {losses[-1].item():.2f}; peak memory "
+        f"{peak / 2**30:.2f} GiB; wide window pool launches fwd {launches[0]} bwd {launches[1]}")
+
+    module_state = module.init_state(torch.Generator(device="cuda").manual_seed(seed))
+    module.train_step(module_state, batches[0])  # warm-up
+    torch.cuda.synchronize()
+
+    def turn(t, st) -> tuple:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for b in batches[1:1 + CENSUS_POOL_TURN]:
+            t.train_step(st, b)
+        torch.cuda.synchronize()
+        return ((time.perf_counter() - t0) / CENSUS_POOL_TURN * 1e3,
+                torch.cuda.max_memory_allocated() / 2**30)
+
+    turns = [turn(*arm) for arm in ((module, module_state), (task, state), (task, state),
+                                    (module, module_state))]
+    on, off = (turns[1][0] + turns[2][0]) / 2, (turns[0][0] + turns[3][0]) / 2
+    log(f"phase6b in turns (module MCAB, window pool, window pool, module MCAB; "
+        f"{CENSUS_POOL_TURN} steps a turn): window pool {on:.2f} ms/step ({B * 1e3 / on:.1f} "
+        f"cells/s, peak {turns[1][1]:.2f} GiB), module MCAB {off:.2f} ms/step "
+        f"({B * 1e3 / off:.1f} cells/s, peak {turns[0][1]:.2f} GiB), on / off {on / off:.3f}; "
+        f"turns ms {[round(t, 2) for t, _ in turns]}")
+    del state, module_state
+    torch.cuda.empty_cache()
+
+    # JAX's bounds between the window pool and the module path
+    # (tests/test_fused_encoder.py:227-254): loss 5e-3 relative, grad norm 2%
+    (lp, gp), (lm, gm) = (vae_loss_and_grads(t, batches[-1]) for t in (task, module))
+    norm_p, norm_m = global_norm(gp.values()).item(), global_norm(gm.values()).item()
+    if abs(lp - lm) > 5e-3 * abs(lm) or abs(norm_p - norm_m) > 0.02 * norm_m:
+        raise AssertionError(f"census fused_pool loss {lp}, grad norm {norm_p}; module MCAB {lm}, "
+                             f"{norm_m}")
+    worst = max(((gp[k] - w).abs().max().item() / (w.abs().max().item() + 1e-12), k)
+                for k, w in gm.items() if k != "decoder_head.params.bias")
+    log(f"phase6b reference: one step, window pool vs module MCAB: loss {lp:.6f} vs {lm:.6f} "
+        f"({abs(lp - lm) / abs(lm):.2e} relative), grad norm {norm_p:.4f} vs {norm_m:.4f} "
+        f"({abs(norm_p - norm_m) / norm_m:.2e}), {len(gm)} gradients, largest gap {worst[0]:.3e} "
+        f"of its max ({worst[1]})")
+    del vae, task, module, gp, gm
+    torch.cuda.empty_cache()
+    return launches
+
+
 def compare_ldm_paths(phase: str, task, module_task, batch, g) -> None:
     """One step's loss and gradients, kernel path vs module path, same
     parameters, batch and draws (from `g`); JAX's bounds between its two
@@ -1345,6 +1621,7 @@ def phase7_census_ldm(seed: int) -> dict:
     from scldm_torch.ops import attention
     from scldm_torch.ops import fused_cross as fc
     from scldm_torch.ops import fused_dit
+    from scldm_torch.ops import fused_encoder as fe
     from scldm_torch.ops.transforms import canonical_gene_ids
     from scldm_torch.sampling.size_factors import SizeFactorSampler, constant_stats
     from scldm_torch.training.ldm_task import LDMTask
@@ -1389,6 +1666,53 @@ def phase7_census_ldm(seed: int) -> dict:
     g = torch.Generator(device="cuda").manual_seed(seed + 3)
     compare_ldm_paths("phase7", task, LDMTask(vae, dit, create_transport(), fused_training=False),
                       batches[-1], g)
+
+    # -- the frozen encode through the wide window pool (LDMTask(fused_encode=True)),
+    #    held against the module encode (JAX's bound, tests/test_fused_encoder.py:279-308:
+    #    0.02 of the largest latent) and timed against it in turns; then the timed
+    #    steps and the segment split through it
+    fe_task = LDMTask(vae, dit, create_transport(), fused_encode=True)
+    fe.WINDOW_POOL_WIDE_FWD_LAUNCHES.reset()
+    z_k = fe_task._encode(batches[-1])
+    torch.cuda.synchronize()
+    encode_launches = fe.WINDOW_POOL_WIDE_FWD_LAUNCHES.count
+    z_m = task._encode(batches[-1])
+    err, scale = (z_k - z_m).abs().max().item(), z_m.abs().max().item()
+    if encode_launches != 1 or not err < 0.02 * scale:
+        raise AssertionError(f"census fused encode: {encode_launches} wide window pool launches, "
+                             f"max abs err {err:.3e} against the module encode, max |z| "
+                             f"{scale:.3e}")
+    walls = {}
+    for t in (task, fe_task, fe_task, task):  # in turns, each timed over 5 encodes
+        t0 = time.perf_counter()
+        for _ in range(5):
+            t._encode(batches[-1])
+        torch.cuda.synchronize()
+        walls.setdefault(t.fused_encode, []).append(round((time.perf_counter() - t0) / 5 * 1e3, 3))
+    log(f"phase7 fused_encode: latents vs the module encode max abs err {err:.3e} "
+        f"({err / scale:.1e} of max); encode ms in turns, window pool {walls[True]} vs module "
+        f"{walls[False]}")
+    fe.WINDOW_POOL_WIDE_FWD_LAUNCHES.reset()
+    fe.WINDOW_POOL_WIDE_BWD_LAUNCHES.reset()
+    t0 = time.perf_counter()
+    for b in batches[1:]:
+        state, mets = fe_task.train_step(state, b)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    step_launches = fe.WINDOW_POOL_WIDE_FWD_LAUNCHES.count
+    if step_launches != n or fe.WINDOW_POOL_WIDE_BWD_LAUNCHES.count != 0:
+        raise AssertionError(f"{step_launches} wide window pool launches in {n} fused_encode steps "
+                             f"({fe.WINDOW_POOL_WIDE_BWD_LAUNCHES.count} backward)")
+    if not torch.isfinite(mets["train_loss"]):
+        raise AssertionError(f"census fused_encode step: loss {mets['train_loss'].item()}")
+    log(f"phase7 census LDM training through fused_encode B={B}: {B * n / dt:.1f} train cells/s, "
+        f"{dt / n * 1e3:.2f} ms/step over {n} steps; loss {mets['train_loss'].item():.4f}; wide "
+        f"window pool launches {step_launches}")
+    seg = ldm_step_segments(fe_task, state, batches[1:4])
+    log(f"phase7 fused_encode segments ms (3 steps, each synchronised; the loss encodes again): "
+        f"{seg}")
+    launches["window_pool_wide_fwd"] = encode_launches + step_launches
+    del z_k, z_m
 
     # -- generation: euler-50 through the algebraic decode
     sfs = SizeFactorSampler(constant_stats({"clusters": N_CLUSTERS}, mu=8.6, sd=0.3))
@@ -1628,9 +1952,11 @@ def main(argv=None) -> int:
     tail_fwd, tail_bwd = phase1b_decoder_tail(args.seed)
     dit_block_bwd = phase1c_dit_block_bwd(args.seed)
     pools = phase1d_encoder_pool(args.seed)
+    wide_pool = phase1d_wide_window_pool(args.seed)
     swiglu_fwd, swiglu_bwd = phase1e_swiglu_vec(args.seed)
     flash_cross = phase1f_flash_cross(args.seed)
     trunk_timing = phase1g_fused_trunk(args.seed)
+    gate_fwd, gate_bwd, gate_launches = phase1h_swiglu_gate(args.seed)
 
     # -- phase 2: the generation path -------------------------------------------
     launches = phase2_generation(args.seed, args.batch)
@@ -1647,6 +1973,7 @@ def main(argv=None) -> int:
 
     # -- phase 6: VAE training at census width --------------------------------
     census_fwd, census_bwd = phase6_census_training(args.seed)
+    census_pool = phase6b_census_fused_pool(args.seed)
 
     # -- phase 7: census LDM training and generation ----------------------------
     census_ldm = phase7_census_ldm(args.seed)
@@ -1728,6 +2055,27 @@ def main(argv=None) -> int:
          **fused_trunk_bound(TRUNK_ROWS[0], TRUNK["T"], TRUNK["E"], TRUNK["hidden"], TRUNK["L"],
                              part == "bwd", part == "fwd_saving"), "library_ms": None}
         for part, line in (("fwd", 181), ("fwd_saving", 215), ("bwd", 249))
+    ] + [
+        # the census encoder's window: B=16 cells of S=4,096 tokens, E=512, 8 heads, 64 queries
+        {"name": f"window_pool_wide_{part}", "route": "cuda",
+         "source": "scldm_torch/kernels/csrc/window_pool_wide.cu",
+         "replaces": f"scldm_tpu/ops/fused_encoder.py:{line}", "launches": launches_,
+         **wide_pool[part],
+         **encoder_pool_bound(CENSUS_BATCH, CENSUS_WINDOW, part == "bwd", False, CENSUS["n_embed"],
+                              CENSUS["n_head_cross"], CENSUS["n_inducing_points"]),
+         "library_ms": None}
+        for part, line, launches_ in (
+            ("fwd", 409, census_pool[0] + census_ldm["window_pool_wide_fwd"]),
+            ("bwd", 452, census_pool[1]))
+    ] + [
+        # its own entry point at the census cross block's MLP: R = 16 x 36,601, E = 512, H = 1,408
+        {"name": f"swiglu_gate_{part}", "route": "cuda",
+         "source": "scldm_torch/kernels/csrc/swiglu_vec.cu",
+         "replaces": f"scldm_tpu/ops/fused_swiglu.py:{line}", "launches": launches_, **timed,
+         **swiglu_gate_bound(CENSUS_BATCH * CENSUS["n_genes"], CENSUS["n_embed"], CENSUS_HIDDEN,
+                             part == "bwd"), "library_ms": None}
+        for part, line, launches_, timed in (("fwd", 103, gate_launches[0], gate_fwd),
+                                             ("bwd", 131, gate_launches[1], gate_bwd))
     ]
     for k in kernels:
         log(f"{k['name']}: {k['ms']:.4f} ms against a bound of {k['bound_ms']:.4f} ms "

@@ -89,6 +89,24 @@ _SIGNATURES = {
         + [ctypes.c_float, ctypes.c_float, _P],
         ctypes.c_int,
     ),
+    # pointers: emb, qfull, ln1g, ln1b, wk, wv, num, den, m, workspace
+    "scldm_window_pool_wide_forward": (
+        [_P] * 10
+        + [ctypes.c_int] * 5  # B, S, E, H, Q
+        + [ctypes.c_float, ctypes.c_float, _P],  # eps, scale, stream
+        ctypes.c_int,
+    ),
+    # pointers: emb, qfull, the four weights, m, dnum, dden, then demb, dqfull,
+    # dln (2, E), dw (E, 2E), workspace
+    "scldm_window_pool_wide_backward": (
+        [_P] * 14
+        + [ctypes.c_int] * 5  # B, S, E, H, Q
+        + [ctypes.c_float, ctypes.c_float, _P],
+        ctypes.c_int,
+    ),
+    "scldm_window_pool_wide_workspace_floats": (
+        [ctypes.c_int] * 6, ctypes.c_longlong,  # B, S, E, H, Q, backward
+    ),
     # pointers: x, w12, wv, out
     "scldm_swiglu_vec_forward": (
         [_P] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P],  # R, E, Hd, stream
@@ -100,6 +118,19 @@ _SIGNATURES = {
         ctypes.c_int,
     ),
     "scldm_swiglu_vec_workspace_floats": (
+        [ctypes.c_longlong, ctypes.c_int, ctypes.c_int], ctypes.c_longlong,  # R, E, Hd
+    ),
+    # pointers: x, w12, out
+    "scldm_swiglu_gate_forward": (
+        [_P] * 3 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P],  # R, E, Hd, stream
+        ctypes.c_int,
+    ),
+    # pointers: x, w12, dg, dx, dw12, workspace
+    "scldm_swiglu_gate_backward": (
+        [_P] * 6 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P],  # R, E, Hd, stream
+        ctypes.c_int,
+    ),
+    "scldm_swiglu_gate_workspace_floats": (
         [ctypes.c_longlong, ctypes.c_int, ctypes.c_int], ctypes.c_longlong,  # R, E, Hd
     ),
     # pointers: qp, k, v, y, workspace

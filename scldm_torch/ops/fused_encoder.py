@@ -4,9 +4,17 @@ kernels, forward and backward, in two variants that share their math.
 
 Counterpart of scldm_tpu/ops/fused_encoder.py: `encoder_pool` replaces the
 Pallas `fused_encoder_pool` and `window_pool` the Pallas `fused_window_pool`,
-each with its custom VJP. The kernels are in
-`scldm_torch/kernels/csrc/encoder_pool.cu`, one source templated on where a
-token's embedding comes from:
+each with its custom VJP. The kernels come in two designs, chosen by width:
+
+- narrow (E = 32, 4 heads, 16 inducing points, the reference encoder):
+  `scldm_torch/kernels/csrc/encoder_pool.cu`, one CTA per cell, one source
+  templated on where a token's embedding comes from (both variants below);
+- wide (E = 256 with 4 heads or E = 512 with 8, head width 64, the census
+  encoder): `scldm_torch/kernels/csrc/window_pool_wide.cu`, the window
+  variant only (JAX gates the dense pool at E <= 128), split over tokens,
+  heads and cells with a device workspace.
+
+The two variants:
 
 - dense (`encoder_pool`): token g of cell b is `table[g] * log1p(counts[b, g])`
   over every gene, so no (B, S, E) tensor and no gather. With the log1p
@@ -48,7 +56,7 @@ backward recomputes the scores and exponentials given the saved `m` (JAX
 `_numden_given_m`, the flash decomposition). Counts are data and get no
 gradient. On CUDA tensors the wrappers launch the kernels (or raise); on CPU
 tensors they run the plain versions; any other device raises. Each counts
-its kernel launches.
+its kernel launches, the wide design on counters of its own.
 """
 
 from __future__ import annotations
@@ -63,14 +71,22 @@ from scldm_torch.ops.fused_dit import LaunchCounter
 #: weight order: ln1g (1, E), ln1b (1, E), wk (E, E), wv (E, E), (in, out)
 WEIGHT_NAMES = ("ln1g", "ln1b", "wk", "wv")
 
-#: (E, n_head, Q) the kernels are compiled for: the reference encoder, E=32
-#: with 4 cross heads over 16 inducing points
-KERNEL_SHAPES = ((32, 4, 16),)
+#: (E, n_head, Q) the narrow design is compiled for: the reference encoder,
+#: E=32 with 4 cross heads over 16 inducing points; the dense pool has only it
+NARROW_SHAPES = ((32, 4, 16),)
+#: (E, n_head, Q) the wide window-pool design takes (head width 64): the
+#: census encoder (configs/model/vae_census.yaml) and the E = 256 encoder of
+#: JAX's `tests/test_fused_encoder.py`
+WIDE_SHAPES = ((256, 4, 16), (512, 8, 64))
+#: every (E, n_head, Q) the window pool takes on CUDA tensors
+KERNEL_SHAPES = NARROW_SHAPES + WIDE_SHAPES
 
 ENCODER_POOL_FWD_LAUNCHES = LaunchCounter()
 ENCODER_POOL_BWD_LAUNCHES = LaunchCounter()
 WINDOW_POOL_FWD_LAUNCHES = LaunchCounter()
 WINDOW_POOL_BWD_LAUNCHES = LaunchCounter()
+WINDOW_POOL_WIDE_FWD_LAUNCHES = LaunchCounter()
+WINDOW_POOL_WIDE_BWD_LAUNCHES = LaunchCounter()
 
 
 def build_query_operand(q16: torch.Tensor, n_head: int) -> torch.Tensor:
@@ -154,9 +170,10 @@ def _check(variant: str, src, qfull, weights, n_head, counts=None, stats=()) -> 
     for name, t, shape in want:
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
-    if (E, n_head, Q) not in KERNEL_SHAPES or QH != n_head * Q:
-        raise ValueError(f"the encoder-pool kernels are built for (E, n_head, Q) in "
-                         f"{KERNEL_SHAPES}, got ({E}, {n_head}, {QH / n_head:g})")
+    shapes = KERNEL_SHAPES if variant == "window" else NARROW_SHAPES
+    if (E, n_head, Q) not in shapes or QH != n_head * Q:
+        raise ValueError(f"the {variant}-pool kernels are built for (E, n_head, Q) in "
+                         f"{shapes}, got ({E}, {n_head}, {QH / n_head:g})")
     tensors = [src, qfull, *weights, *stats] + ([counts] if counts is not None else [])
     for t in tensors:
         if t.device != src.device or t.dtype != torch.float32 or not t.is_contiguous():
@@ -173,8 +190,22 @@ def _device_of(t: torch.Tensor) -> str:
     return t.device.type
 
 
+def _wide(E: int) -> bool:
+    """The wide design takes the window pool at E >= 256."""
+    return E >= 256
+
+
+def _workspace(lib, B: int, N: int, E: int, n_head: int, Q: int, backward: bool, device):
+    """The wide kernels' device workspace, sized by the library. It is freed
+    on return; the caching allocator reuses it only after the launch, on the
+    same stream."""
+    floats = lib.scldm_window_pool_wide_workspace_floats(B, N, E, n_head, Q, int(backward))
+    return torch.empty(floats, dtype=torch.float32, device=device)
+
+
 def _launch(entry: str, src, qfull, weights, n_head: int, eps: float, counts=None):
-    """Forward launch of either variant: (num, den, m)."""
+    """Forward launch of either variant, in the design its width takes:
+    (num, den, m)."""
     variant = "dense" if counts is not None else "window"
     B, N, E, Q = _check(variant, src, qfull, weights, n_head, counts)
     from scldm_torch.kernels import build
@@ -184,12 +215,17 @@ def _launch(entry: str, src, qfull, weights, n_head: int, eps: float, counts=Non
     den = torch.empty((B, n_head * Q), dtype=torch.float32, device=src.device)
     m = torch.empty_like(den)
     pointers = ([counts.data_ptr()] if counts is not None else []) + [src.data_ptr()]
+    extra = []
+    if _wide(E):
+        entry = "scldm_window_pool_wide_forward"
+        workspace = _workspace(lib, B, N, E, n_head, Q, False, src.device)
+        extra = [workspace.data_ptr()]
     # the library's CUDA runtime launches on the current device: make it src's
     with torch.cuda.device(src.device):
         stream = torch.cuda.current_stream(src.device).cuda_stream
         code = getattr(lib, entry)(
             *pointers, qfull.data_ptr(), *(w.data_ptr() for w in weights),
-            num.data_ptr(), den.data_ptr(), m.data_ptr(),
+            num.data_ptr(), den.data_ptr(), m.data_ptr(), *extra,
             B, N, E, n_head, Q, eps, (E // n_head) ** -0.5, stream,
         )
     build.check(lib, code, f"{entry} launch")
@@ -198,31 +234,50 @@ def _launch(entry: str, src, qfull, weights, n_head: int, eps: float, counts=Non
 
 def _launch_bwd(entry: str, src, qfull, weights, m, dnum, dden, n_head: int, eps: float,
                 counts=None):
-    """Backward launch of either variant: (dsrc, dqfull, dweights). The
-    kernel adds into dqfull's head-diagonal blocks and the weight gradients
-    (and, dense, into dtable) with atomics; the window kernel writes demb."""
+    """Backward launch of either variant: (dsrc, dqfull, dweights). The narrow
+    kernels add into dqfull's head-diagonal blocks and the weight gradients
+    (and, dense, into dtable) with atomics, and the window kernel writes demb;
+    the wide kernels write demb, dqfull's head blocks and the weight
+    gradients, each summed in a fixed order."""
     variant = "dense" if counts is not None else "window"
     dnum, dden = dnum.float().contiguous(), dden.float().contiguous()
     B, N, E, Q = _check(variant, src, qfull, weights, n_head, counts, (m, dnum, dden))
     from scldm_torch.kernels import build
 
     lib = build.load()
-    dsrc = torch.zeros_like(src) if counts is not None else torch.empty_like(src)
-    grads = [torch.zeros_like(t) for t in (qfull, *weights)]
-    pointers = ([counts.data_ptr()] if counts is not None else []) + [src.data_ptr()]
-    with torch.cuda.device(src.device):
-        stream = torch.cuda.current_stream(src.device).cuda_stream
-        code = getattr(lib, entry)(
-            *pointers, qfull.data_ptr(), *(w.data_ptr() for w in weights),
-            m.data_ptr(), dnum.data_ptr(), dden.data_ptr(), dsrc.data_ptr(),
-            *(g.data_ptr() for g in grads),
-            B, N, E, n_head, Q, eps, (E // n_head) ** -0.5, stream,
-        )
-    build.check(lib, code, f"{entry} launch")
+    if _wide(E):
+        demb, dq = torch.empty_like(src), torch.zeros_like(qfull)
+        dln = torch.empty((2, E), dtype=torch.float32, device=src.device)
+        dw = torch.empty((E, 2 * E), dtype=torch.float32, device=src.device)
+        workspace = _workspace(lib, B, N, E, n_head, Q, True, src.device)
+        with torch.cuda.device(src.device):
+            stream = torch.cuda.current_stream(src.device).cuda_stream
+            code = lib.scldm_window_pool_wide_backward(
+                src.data_ptr(), qfull.data_ptr(), *(w.data_ptr() for w in weights),
+                m.data_ptr(), dnum.data_ptr(), dden.data_ptr(), demb.data_ptr(), dq.data_ptr(),
+                dln.data_ptr(), dw.data_ptr(), workspace.data_ptr(),
+                B, N, E, n_head, Q, eps, (E // n_head) ** -0.5, stream,
+            )
+        build.check(lib, code, "scldm_window_pool_wide_backward launch")
+        grads = (dq, dln[:1], dln[1:], dw[:, :E], dw[:, E:])
+    else:
+        dsrc = torch.zeros_like(src) if counts is not None else torch.empty_like(src)
+        grads = [torch.zeros_like(t) for t in (qfull, *weights)]
+        pointers = ([counts.data_ptr()] if counts is not None else []) + [src.data_ptr()]
+        with torch.cuda.device(src.device):
+            stream = torch.cuda.current_stream(src.device).cuda_stream
+            code = getattr(lib, entry)(
+                *pointers, qfull.data_ptr(), *(w.data_ptr() for w in weights),
+                m.data_ptr(), dnum.data_ptr(), dden.data_ptr(), dsrc.data_ptr(),
+                *(g.data_ptr() for g in grads),
+                B, N, E, n_head, Q, eps, (E // n_head) ** -0.5, stream,
+            )
+        build.check(lib, code, f"{entry} launch")
+        demb = dsrc
     dq, dln1g, dln1b, dwk, dwv = grads
     # qfull, wk and wv are rounded to bf16 before their products: their
     # gradients are rounded there too, after the whole sum
-    return dsrc, _bf(dq), (dln1g, dln1b, _bf(dwk), _bf(dwv))
+    return demb, _bf(dq), (dln1g, dln1b, _bf(dwk), _bf(dwv))
 
 
 def _plain_grads(emb_fn, leaves, qfull, weights, m, dnum, dden, n_head: int, eps: float):
@@ -286,7 +341,7 @@ def window_pool_fwd(emb, qfull, weights, n_head: int, eps: float):
         with torch.no_grad():
             return window_pool_reference(emb, qfull, weights, n_head, eps)
     out = _launch("scldm_window_pool_forward", emb, qfull, weights, n_head, eps)
-    WINDOW_POOL_FWD_LAUNCHES.count += 1
+    (WINDOW_POOL_WIDE_FWD_LAUNCHES if _wide(emb.shape[-1]) else WINDOW_POOL_FWD_LAUNCHES).count += 1
     return out
 
 
@@ -297,7 +352,7 @@ def window_pool_bwd(emb, qfull, weights, m, dnum, dden, n_head: int, eps: float)
         return window_pool_backward_reference(emb, qfull, weights, m, dnum, dden, n_head, eps)
     out = _launch_bwd("scldm_window_pool_backward", emb, qfull, weights, m, dnum, dden,
                       n_head, eps)
-    WINDOW_POOL_BWD_LAUNCHES.count += 1
+    (WINDOW_POOL_WIDE_BWD_LAUNCHES if _wide(emb.shape[-1]) else WINDOW_POOL_BWD_LAUNCHES).count += 1
     return out
 
 

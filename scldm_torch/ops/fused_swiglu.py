@@ -1,9 +1,11 @@
-"""The SwiGLU up projection, gate and head-vector contraction of the
-decoder's algebraic tail, as hand-written CUDA kernels, forward and backward.
+"""The SwiGLU up projection and gate, alone and contracted with the
+decoder's head vector, as hand-written CUDA kernels, forward and backward.
 
 Counterpart of scldm_tpu/ops/fused_swiglu.py: `swiglu_vec` replaces the
 Pallas `swiglu_vec` (`_vec_fwd_kernel`) with its custom VJP `_vec_fused_bwd`
-(`_vec_bwd_kernel`). It computes
+(`_vec_bwd_kernel`), and `fused_swiglu_gate` the Pallas `fused_swiglu_gate`
+(`_fwd_kernel`) with its custom VJP `_fused_bwd` (`_dx_kernel`,
+`_dw_kernel`). `swiglu_vec` computes
 
     s = (silu(x @ w1) * (x @ w2)) @ wv    -> (R, 1) f32
 
@@ -15,10 +17,20 @@ projection in registers and contracts it with wv in its epilogue; the
 backward stages du through a workspace of at most 32,768 rows at a time and
 sums the weight gradients in a fixed order, without atomics.
 
-On CUDA tensors `swiglu_vec` launches the kernels (or raises on operands they
-do not take: float32 only, as the port computes the VAE); on CPU tensors it
-runs the plain version, `swiglu_vec_reference`, both ways; any other device
-raises. Each direction counts its kernel launches.
+`fused_swiglu_gate` computes the (R, H) gate itself,
+
+    g = silu(x @ w1) * (x @ w2)    -> (R, H) in x's dtype (float32 here)
+
+for x (R, E) and w1, w2 (E, H): its forward writes each gated tile where
+`swiglu_vec`'s contracts it with wv, and its backward is `swiglu_vec`'s with
+the cotangent dg (R, H) in place of ds * wv and no dwv. No JAX task
+dispatches it (scldm_tpu/ops/fused_swiglu.py:17-19); nor does the port's.
+
+On CUDA tensors each function launches its kernels (or raises on operands
+they do not take: float32 only, as the port computes the VAE); on CPU
+tensors it runs its plain version (`swiglu_vec_reference`,
+`swiglu_reference`) both ways; any other device raises. Each direction
+counts its kernel launches.
 """
 
 from __future__ import annotations
@@ -30,6 +42,8 @@ from scldm_torch.ops.fused_dit import LaunchCounter
 
 SWIGLU_VEC_FWD_LAUNCHES = LaunchCounter()
 SWIGLU_VEC_BWD_LAUNCHES = LaunchCounter()
+SWIGLU_GATE_FWD_LAUNCHES = LaunchCounter()
+SWIGLU_GATE_BWD_LAUNCHES = LaunchCounter()
 
 
 def swiglu_vec_reference(x: torch.Tensor, w12: torch.Tensor, wv: torch.Tensor) -> torch.Tensor:
@@ -67,9 +81,9 @@ def _check(x, w12, wv, ds=None) -> tuple:
     return R, E, hd
 
 
-def _device_of(t: torch.Tensor) -> str:
+def _device_of(t: torch.Tensor, name: str = "swiglu_vec") -> str:
     if t.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"swiglu_vec runs on cuda or cpu tensors, got {t.device}")
+        raise ValueError(f"{name} runs on cuda or cpu tensors, got {t.device}")
     return t.device.type
 
 
@@ -140,3 +154,108 @@ def swiglu_vec(
     and wv: the forward kernel on the way in, the backward kernel on the way
     back (on CPU tensors, the plain version both ways)."""
     return _SwigluVec.apply(x, w12, wv)
+
+
+def swiglu_reference(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version (JAX `swiglu_reference`): silu(x @ w1) * (x @ w2)
+    in x's dtype."""
+    u1, u2 = (x @ w1).float(), (x @ w2).float()
+    return (F.silu(u1) * u2).to(x.dtype)
+
+
+def swiglu_gate_backward_reference(x, w1, w2, dg):
+    """Plain PyTorch version of the gate's backward (JAX `_fused_bwd`):
+    autograd through `swiglu_reference` -> (dx, dw1, dw2)."""
+    leaves = [t.detach().requires_grad_() for t in (x, w1, w2)]
+    with torch.enable_grad():
+        out = swiglu_reference(*leaves)
+        return torch.autograd.grad(out, leaves, dg)
+
+
+def _check_gate(x, w1, w2, dg=None) -> tuple:
+    """Validate the gate kernels' operands; returns (R, E, H)."""
+    R, E = x.shape
+    H = w1.shape[1]
+    want = [("w1", w1, (E, H)), ("w2", w2, (E, H))]
+    if dg is not None:
+        want.append(("dg", dg, (R, H)))
+    for name, t, shape in want:
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape} for x {tuple(x.shape)}, got {tuple(t.shape)}")
+    if E == 0 or H == 0:
+        raise ValueError(f"the fused_swiglu_gate kernels need E >= 1 and H >= 1, got E={E}, H={H}")
+    for t in (x, w1, w2) + ((dg,) if dg is not None else ()):
+        if t.device != x.device or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(
+                "the fused_swiglu_gate kernels need contiguous float32 tensors on one device")
+    return R, E, H
+
+
+def swiglu_gate_fwd(x, w1, w2) -> torch.Tensor:
+    """The gate's forward: the CUDA kernel on CUDA tensors, the plain version
+    on CPU tensors. (R, H)."""
+    if _device_of(x, "fused_swiglu_gate") == "cpu":
+        with torch.no_grad():
+            return swiglu_reference(x, w1, w2)
+    R, E, H = _check_gate(x, w1, w2)
+    from scldm_torch.kernels import build
+
+    lib = build.load()
+    w12 = torch.cat((w1, w2), dim=1)  # the kernels' operand: w1's and w2's columns side by side
+    out = torch.empty((R, H), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        code = lib.scldm_swiglu_gate_forward(x.data_ptr(), w12.data_ptr(), out.data_ptr(), R, E, H,
+                                             stream)
+    build.check(lib, code, "scldm_swiglu_gate_forward launch")
+    SWIGLU_GATE_FWD_LAUNCHES.count += 1
+    return out
+
+
+def swiglu_gate_bwd(x, w1, w2, dg) -> tuple:
+    """The gate's backward given its cotangent dg (R, H): (dx, dw1, dw2), f32."""
+    if _device_of(x, "fused_swiglu_gate") == "cpu":
+        return swiglu_gate_backward_reference(x, w1, w2, dg)
+    dg = dg.float().contiguous()
+    R, E, H = _check_gate(x, w1, w2, dg)
+    if R == 0:
+        return torch.zeros_like(x), torch.zeros_like(w1), torch.zeros_like(w2)
+    from scldm_torch.kernels import build
+
+    lib = build.load()
+    w12 = torch.cat((w1, w2), dim=1)
+    dx, dw12 = torch.empty_like(x), torch.empty_like(w12)
+    workspace = torch.empty(lib.scldm_swiglu_gate_workspace_floats(R, E, H), dtype=torch.float32,
+                            device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        code = lib.scldm_swiglu_gate_backward(x.data_ptr(), w12.data_ptr(), dg.data_ptr(),
+                                              dx.data_ptr(), dw12.data_ptr(),
+                                              workspace.data_ptr(), R, E, H, stream)
+    build.check(lib, code, "scldm_swiglu_gate_backward launch")
+    SWIGLU_GATE_BWD_LAUNCHES.count += 1
+    return dx, dw12[:, :H], dw12[:, H:]
+
+
+class _SwigluGate(torch.autograd.Function):
+    """`fused_swiglu_gate` with a recompute VJP: it saves only its inputs."""
+
+    @staticmethod
+    def forward(ctx, x, w1, w2):
+        ctx.save_for_backward(x, w1, w2)
+        return swiglu_gate_fwd(x, w1, w2)
+
+    @staticmethod
+    def backward(ctx, dg):
+        return swiglu_gate_bwd(*ctx.saved_tensors, dg)
+
+
+def fused_swiglu_gate(
+    x: torch.Tensor,  # (R, E)
+    w1: torch.Tensor,  # (E, H)
+    w2: torch.Tensor,  # (E, H)
+) -> torch.Tensor:
+    """silu(x @ w1) * (x @ w2) -> (R, H), differentiable in x, w1 and w2:
+    the forward kernel on the way in, the backward kernel on the way back (on
+    CPU tensors, the plain version both ways)."""
+    return _SwigluGate.apply(x, w1, w2)

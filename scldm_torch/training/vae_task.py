@@ -77,7 +77,7 @@ def _fused_encoder_ok(vae: TransformerVAE) -> bool:
     """The JAX gate of the dense encoder pool: embeddings that vanish at count
     0 (log1p, the port's only input layer), no dropout (the port has none),
     no qkv bias (the kernels omit it) and E <= 128. A width the CUDA kernels
-    are not compiled for (`ops/fused_encoder.KERNEL_SHAPES`) passes this gate
+    are not compiled for (`ops/fused_encoder.NARROW_SHAPES`) passes this gate
     and raises at launch."""
     ca = vae.encoder.ca_layer
     return ca.attn.c_attn.bias is None and ca.ln_1.n <= 128
@@ -86,7 +86,10 @@ def _fused_encoder_ok(vae: TransformerVAE) -> bool:
 def _fused_window_ok(vae: TransformerVAE) -> bool:
     """The JAX gate of the window pool: any input layer, no qkv bias, and E
     at one of the JAX kernel's two validated tile geometries (E <= 128 or
-    E >= 256)."""
+    E >= 256). The CUDA kernels take the widths in
+    `ops/fused_encoder.KERNEL_SHAPES` (the narrow design at E = 32, the wide
+    one at E = 256 and 512); another width passes this gate and raises at
+    launch."""
     ca = vae.encoder.ca_layer
     return ca.attn.c_attn.bias is None and (ca.ln_1.n <= 128 or ca.ln_1.n >= 256)
 

@@ -17,10 +17,12 @@ within 1e-2 of that magnitude everywhere, and within 1e-4 of it on all but
 encoder pools round the same operands as their plain versions and sum in
 another order too (the backward's with atomics): the tail's bounds for den,
 m and every gradient, and for num within 3e-4 rather than 1e-4 on all but 5%
-of the entries (see `assert_pool_close`; chip_smoke.py's phase 1d). The
-swiglu_vec kernels compute in f32 like their plain version (TF32 off) and sum
-in another, fixed order: out, dx, dw12 and dwv each within 1e-4 of its
-tensor's largest magnitude (chip_smoke.py's phase 1e). The flash
+of the entries (see `assert_pool_close`; chip_smoke.py's phase 1d); the wide
+window pool (E = 256 and 512) at the same bounds, and its backward, which
+sums in a fixed order, repeats its bits. The swiglu_vec and
+fused_swiglu_gate kernels compute in f32 like their plain versions (TF32
+off) and sum in another, fixed order: each output and gradient within 1e-4
+of its tensor's largest magnitude (chip_smoke.py's phases 1e and 1h). The flash
 cross-attention kernel rounds the same operands to bf16 as its plain version
 and sums in another order: the tail's bounds (chip_smoke.py's phase 1f). The
 census-like LDM step and generation: the kernel path against the module
@@ -306,31 +308,35 @@ def _pool_inputs(variant, B, N, device, seed=0):
     return counts, x, (f(B, Q, E), f(B, Q * POOL_H))
 
 
-def pool_outputs_and_grads(fn, counts, x, cot):
+def pool_outputs_and_grads(fn, counts, x, cot, n_head=POOL_H):
     """(num, den, m) of `fn` (a pool or its plain version) and the gradients
     of the source, the query and the weights for the cotangents `cot`."""
     leaves = {k: t.detach().clone().requires_grad_() for k, t in x.items()}
-    qfull = fe.build_query_operand(leaves["q"], POOL_H)
+    qfull = fe.build_query_operand(leaves["q"], n_head)
     args = (leaves["src"],) if counts is None else (counts, leaves["src"])
-    num, den, m = fn(*args, qfull, [leaves[k] for k in fe.WEIGHT_NAMES], POOL_H, 1e-8)
+    num, den, m = fn(*args, qfull, [leaves[k] for k in fe.WEIGHT_NAMES], n_head, 1e-8)
     torch.autograd.backward((num, den), cot)
     return {"num": num.detach(), "den": den.detach(), "m": m,
             **{f"d{k}": t.grad for k, t in leaves.items()}}
 
 
-def assert_pool_close(got, want):
+def assert_pool_close(got, want, ln_gain_near=1e-4):
     """The tail's bounds: the pools round the same operands to bf16 as their
     plain versions and sum in another order (atomics in the backward). num
     is held to 3e-4 where the rest is held to 1e-4: the forward rounds each
     exponential against its tile's running max and the plain version
     against the final max, and the dense pool's identical zero-count rows
-    move num together (chip_smoke.POOL_NUM_NEAR)."""
+    move num together (chip_smoke.POOL_NUM_NEAR). The wide design's dln1g
+    is held to `ln_gain_near` = 1e-3: a sum over every token of terms that
+    mostly cancel, it carries the upstream rounding flips most
+    (chip_smoke.POOL_LN_GAIN_NEAR)."""
+    near = {"num": 3e-4, "dln1g": ln_gain_near}
     for k, w in want.items():
         scale = w.abs().max()
         d = (got[k] - w).abs()
         assert scale > 0, k
         assert d.max() <= 1e-2 * scale, k
-        assert (d > (3e-4 if k == "num" else 1e-4) * scale).float().mean() <= 5e-2, k
+        assert (d > near.get(k, 1e-4) * scale).float().mean() <= 5e-2, k
 
 
 # ragged: B not a multiple of the backward's 16 cells, N of its 128 tokens
@@ -350,18 +356,109 @@ def test_encoder_pools_match_reference_on_gpu(variant, B, N):
 
 
 def test_encoder_pool_width_outside_kernel_shapes_raises_on_gpu():
-    """E=64 with 4 heads passes the JAX gate (E <= 128) but has no kernel:
-    on CUDA tensors it raises instead of taking the plain version."""
-    E, Q = 64, POOL_Q
-    emb = torch.randn(2, 10, E, device="cuda")
-    qfull = fe.build_query_operand(torch.randn(Q, E, device="cuda"), POOL_H)
-    weights = [torch.ones(1, E, device="cuda"), torch.zeros(1, E, device="cuda"),
-               torch.randn(E, E, device="cuda"), torch.randn(E, E, device="cuda")]
-    with pytest.raises(ValueError, match="built for"):
-        fe.window_pool(emb, qfull, weights, POOL_H)
-    with pytest.raises(ValueError, match="built for"):
-        fe.encoder_pool(torch.ones(2, 10, device="cuda"), emb[0].contiguous(), qfull, weights,
-                        POOL_H)
+    """E=64 with 4 heads passes the JAX gate (E <= 128) but has no kernel,
+    nor do E=512 with 4 heads (a head width of 128) or 256 with 64
+    queries; the dense pool has no wide design (JAX gates it at E <= 128).
+    On CUDA tensors each raises instead of taking the plain version."""
+    before = [c.count for c in (fe.WINDOW_POOL_FWD_LAUNCHES, fe.WINDOW_POOL_WIDE_FWD_LAUNCHES,
+                                fe.ENCODER_POOL_FWD_LAUNCHES)]
+    for E, H, Q, dense in ((64, POOL_H, POOL_Q, True), (512, 4, 16, False), (256, 4, 64, False),
+                           (512, 8, 64, True)):
+        emb = torch.randn(2, 10, E, device="cuda")
+        qfull = fe.build_query_operand(torch.randn(Q, E, device="cuda"), H)
+        weights = [torch.ones(1, E, device="cuda"), torch.zeros(1, E, device="cuda"),
+                   torch.randn(E, E, device="cuda"), torch.randn(E, E, device="cuda")]
+        if (E, H, Q) not in fe.KERNEL_SHAPES:
+            with pytest.raises(ValueError, match="built for"):
+                fe.window_pool(emb, qfull, weights, H)
+        if dense:
+            with pytest.raises(ValueError, match="built for"):
+                fe.encoder_pool(torch.ones(2, 10, device="cuda"), emb[0].contiguous(), qfull,
+                                weights, H)
+    assert [c.count for c in (fe.WINDOW_POOL_FWD_LAUNCHES, fe.WINDOW_POOL_WIDE_FWD_LAUNCHES,
+                              fe.ENCODER_POOL_FWD_LAUNCHES)] == before
+
+
+def _wide_pool_inputs(B, N, E, H, Q, device, seed=0):
+    """A (B, N, E) window, the MCAB's query and weights at a wide width, and
+    the cotangents of num and den."""
+    rng = np.random.default_rng(seed)
+
+    def f(*s, scale=1.0, shift=0.0):
+        return torch.from_numpy((rng.normal(size=s) * scale + shift).astype(np.float32)).to(device)
+
+    x = dict(src=f(B, N, E), q=f(Q, E), ln1g=f(1, E, scale=0.3, shift=1.0), ln1b=f(1, E, scale=0.3),
+             wk=f(E, E, scale=E**-0.5), wv=f(E, E, scale=E**-0.5))
+    return x, (f(B, Q, E), f(B, Q * H))
+
+
+# the census width at a ragged B and S (splits of 512 tokens, chunks of 256,
+# tiles of 64 and 128), E=256 with 16 queries, and a window of one tile; the
+# gradients are sums over every token, so each case has over a thousand (at
+# B=2, S=64 the 128 tokens' rounding flips put more than 5% of a gradient's
+# entries beyond its bound on an H100)
+@pytest.mark.parametrize("B,N,E,H,Q", [(3, 1030, 512, 8, 64), (4, 600, 256, 4, 16),
+                                       (19, 64, 512, 8, 64)])
+def test_wide_window_pool_matches_reference_on_gpu(B, N, E, H, Q):
+    x, cot = _wide_pool_inputs(B, N, E, H, Q, "cuda")
+    counters = (fe.WINDOW_POOL_WIDE_FWD_LAUNCHES, fe.WINDOW_POOL_WIDE_BWD_LAUNCHES,
+                fe.WINDOW_POOL_FWD_LAUNCHES, fe.WINDOW_POOL_BWD_LAUNCHES)
+    before = [c.count for c in counters]
+    got = pool_outputs_and_grads(fe.window_pool, None, x, cot, H)
+    torch.cuda.synchronize()
+    assert [c.count for c in counters] == [before[0] + 1, before[1] + 1, *before[2:]]
+    assert_pool_close(got, pool_outputs_and_grads(fe.window_pool_reference, None, x, cot, H),
+                      ln_gain_near=1e-3)
+
+
+def test_wide_window_pool_repeats_its_bits_on_gpu():
+    """The wide backward sums every gradient in a fixed order, without
+    atomics: the same inputs give the same bits."""
+    x, cot = _wide_pool_inputs(3, 700, 512, 8, 64, "cuda", seed=2)
+    a = pool_outputs_and_grads(fe.window_pool, None, x, cot, 8)
+    b = pool_outputs_and_grads(fe.window_pool, None, x, cot, 8)
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+
+
+def test_vae_task_fused_pool_step_on_gpu():
+    """`VAETask(fused_pool=True, algebraic_tail=False)` on a census-like VAE
+    (E=256, 4 cross heads, 16 inducing points): one step launches the wide
+    pool once each way, and its loss and gradient norm agree with the module
+    MCAB's at JAX's bounds (loss 5e-3 relative, grad norm 2%)."""
+    from scldm_torch.nn.vae import build_transformer_vae
+    from scldm_torch.training.metrics import global_norm
+    from scldm_torch.training.vae_task import VAETask
+    from scldm_torch.utils.weights import init_reference_
+
+    G, S, B = 300, 280, 4
+    vae = init_reference_(build_transformer_vae(n_genes=G, n_embed=256, n_embed_latent=32,
+                                                n_layer=1, n_inducing_points=16, n_head=8),
+                          torch.Generator(device="cuda").manual_seed(0))
+    rng = np.random.default_rng(0)
+    gs, cs = np.zeros((B, S), np.uint16), np.zeros((B, S), np.uint16)
+    for i in range(B):
+        nnz = int(rng.integers(5, S))
+        gs[i, :nnz] = np.sort(rng.choice(G, nnz, replace=False)) + 1
+        cs[i, :nnz] = rng.poisson(3.0, nnz) + 1
+    batch = {"genes_subset": torch.from_numpy(gs).cuda(),
+             "counts_subset": torch.from_numpy(cs).cuda(),
+             "library_size": torch.from_numpy(cs.astype(np.float32).sum(1, keepdims=True)).cuda()}
+    runs = []
+    for fused in (True, False):
+        task = VAETask(vae, num_training_steps=10, fused_pool=fused, algebraic_tail=False)
+        before = (fe.WINDOW_POOL_WIDE_FWD_LAUNCHES.count, fe.WINDOW_POOL_WIDE_BWD_LAUNCHES.count)
+        vae.zero_grad(set_to_none=True)
+        loss, _ = task.loss(batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        launches = (fe.WINDOW_POOL_WIDE_FWD_LAUNCHES.count - before[0],
+                    fe.WINDOW_POOL_WIDE_BWD_LAUNCHES.count - before[1])
+        assert launches == ((1, 1) if fused else (0, 0))
+        runs.append((loss.item(), global_norm([p.grad for p in vae.parameters()
+                                               if p.grad is not None]).item()))
+    (lp, gp), (lm, gm) = runs
+    assert abs(lp - lm) < 5e-3 * abs(lm) and abs(gp - gm) < 0.02 * gm, runs
 
 
 @pytest.mark.skipif(torch.cuda.device_count() < 2, reason="needs two GPUs")
@@ -427,6 +524,18 @@ def test_swiglu_vec_operands_it_does_not_take_raise_on_gpu():
 
 
 @pytest.mark.skipif(torch.cuda.device_count() < 2, reason="needs two GPUs")
+def test_wide_window_pool_on_a_device_other_than_the_current():
+    pool_outputs_and_grads(fe.window_pool, None, *_wide_pool_inputs(2, 64, 512, 8, 64, "cuda:0"), 8)
+    torch.cuda.synchronize(0)
+    x, cot = _wide_pool_inputs(3, 1030, 512, 8, 64, "cuda:1", seed=1)
+    got = pool_outputs_and_grads(fe.window_pool, None, x, cot, 8)
+    torch.cuda.synchronize(1)
+    assert got["num"].device == x["src"].device and torch.cuda.current_device() == 0
+    assert_pool_close(got, pool_outputs_and_grads(fe.window_pool_reference, None, x, cot, 8),
+                      ln_gain_near=1e-3)
+
+
+@pytest.mark.skipif(torch.cuda.device_count() < 2, reason="needs two GPUs")
 def test_swiglu_vec_on_a_device_other_than_the_current():
     swiglu_outputs_and_grads(fs.swiglu_vec, *_swiglu_inputs(5, 32, 48, "cuda:0"))
     torch.cuda.synchronize(0)
@@ -435,6 +544,58 @@ def test_swiglu_vec_on_a_device_other_than_the_current():
     torch.cuda.synchronize(1)
     assert got["out"].device == inputs[0].device and torch.cuda.current_device() == 0
     assert_swiglu_close(got, swiglu_outputs_and_grads(fs.swiglu_vec_reference, *inputs))
+
+
+def _gate_inputs(R, E, H, device, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def f(*s, scale=1.0):
+        return torch.from_numpy((rng.normal(size=s) * scale).astype(np.float32)).to(device)
+
+    return f(R, E), f(E, H, scale=E**-0.5), f(E, H, scale=E**-0.5), f(R, H)
+
+
+def gate_outputs_and_grads(fn, x, w1, w2, dg):
+    leaves = [t.detach().clone().requires_grad_() for t in (x, w1, w2)]
+    out = fn(*leaves)
+    out.backward(dg)
+    return {"out": out.detach(), **{k: t.grad for k, t in zip(("dx", "dw1", "dw2"), leaves)}}
+
+
+# ragged rows against the 128-row tile; E and H off the 16-deep slice and the
+# 64-column hidden tile; more rows than one backward workspace chunk (32,768)
+@pytest.mark.parametrize("R,E,H", [(1001, 512, 1408), (300, 200, 100), (40_000, 64, 100)])
+def test_swiglu_gate_matches_reference_on_gpu(R, E, H):
+    inputs = _gate_inputs(R, E, H, "cuda")
+    before = (fs.SWIGLU_GATE_FWD_LAUNCHES.count, fs.SWIGLU_GATE_BWD_LAUNCHES.count)
+    got = gate_outputs_and_grads(fs.fused_swiglu_gate, *inputs)
+    torch.cuda.synchronize()
+    assert (fs.SWIGLU_GATE_FWD_LAUNCHES.count, fs.SWIGLU_GATE_BWD_LAUNCHES.count) == (
+        before[0] + 1, before[1] + 1)
+    assert_swiglu_close(got, gate_outputs_and_grads(fs.swiglu_reference, *inputs))
+
+
+def test_swiglu_gate_operands_it_does_not_take_raise_on_gpu():
+    """bf16, a strided x or a CPU weight beside a CUDA x: the wrapper raises
+    and never takes the plain version."""
+    x, w1, w2, _ = _gate_inputs(64, 32, 48, "cuda")
+    for args in ((x.bfloat16(), w1.bfloat16(), w2.bfloat16()), (x.t().contiguous().t(), w1, w2),
+                 (x, w1.cpu(), w2)):
+        before = fs.SWIGLU_GATE_FWD_LAUNCHES.count
+        with pytest.raises(ValueError):
+            fs.fused_swiglu_gate(*args)
+        assert fs.SWIGLU_GATE_FWD_LAUNCHES.count == before
+
+
+@pytest.mark.skipif(torch.cuda.device_count() < 2, reason="needs two GPUs")
+def test_swiglu_gate_on_a_device_other_than_the_current():
+    gate_outputs_and_grads(fs.fused_swiglu_gate, *_gate_inputs(5, 32, 48, "cuda:0"))
+    torch.cuda.synchronize(0)
+    inputs = _gate_inputs(1001, 512, 1408, "cuda:1", seed=1)
+    got = gate_outputs_and_grads(fs.fused_swiglu_gate, *inputs)
+    torch.cuda.synchronize(1)
+    assert got["out"].device == inputs[0].device and torch.cuda.current_device() == 0
+    assert_swiglu_close(got, gate_outputs_and_grads(fs.swiglu_reference, *inputs))
 
 
 CROSS_E, CROSS_H, CROSS_M = 512, 8, 64  # the census decoder's cross block

@@ -1,0 +1,203 @@
+"""The census window pool (the wide design of scldm_torch.ops.fused_encoder's
+window pool) against the JAX package: the pooled tokens and their gradients
+at census width, one `VAETask(fused_pool=True, algebraic_tail=False)` step,
+and one `LDMTask(fused_encode=True)` frozen encode, on the same weights
+(`export_torch_state_dict` -> `load_reference_state_dict`) and numpy inputs.
+
+Shapes: the pool at E=512, 8 cross heads, 64 inducing points over a window
+of S=600 tokens, B=4 (tests/test_fused_encoder.py:163-225: JAX streams it in
+two 512-token tiles forward and three 256-token tiles backward, padding the
+window to 1,024 and taking 424 zero rows out in closed form; the port pads
+nothing). The train step at E=256, 4 cross heads, 16 inducing points, S=280,
+B=4 (tests/test_fused_encoder.py:227-254, with `algebraic_tail=False` on both
+sides: JAX leaves it on auto there, which at E=256 takes the algebraic path
+and never reaches the pool). The encode at E=512, S=600, B=4.
+
+Both sides round the same operands to bf16 and accumulate in f32 (the port's
+plain version on CPU tensors; JAX's Pallas kernels in interpret mode).
+Tolerances are the encoder pools' (test_torch_port_encoder_pool.py): the
+pooled tokens within 1e-3 of their largest magnitude, each gradient within
+1e-2 of its own largest. The step and the encode are held at JAX's own
+bounds between its window pool and its module path (loss 5e-3 relative and
+gradient norm 2%; 0.02 of the largest latent). The CUDA kernels themselves
+are held to the plain version on the card in test_torch_port_cuda.py."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from scldm_tpu.nn.nnets import DiT as JaxDiT
+from scldm_tpu.nn.vae import build_transformer_vae as jax_build_vae
+from scldm_tpu.training import vae_task as jvt
+from scldm_tpu.training.ldm_task import LDMTask as JaxLDMTask
+from scldm_tpu.training.vae_task import VAETask as JaxVAETask
+from scldm_tpu.transport import create_transport as jax_create_transport
+from scldm_tpu.utils.torch_import import export_torch_state_dict
+from scldm_torch.nn.nnets import DiT
+from scldm_torch.nn.vae import build_transformer_vae
+from scldm_torch.ops import fused_encoder as fe
+from scldm_torch.training import vae_task as tvt
+from scldm_torch.training.ldm_task import LDMTask
+from scldm_torch.training.vae_task import VAETask
+from scldm_torch.transport import create_transport
+from scldm_torch.utils.weights import load_reference_state_dict
+
+# the census encoder's MCAB (configs/model/vae_census.yaml), one layer
+CENSUS_ARCH = dict(n_genes=700, n_embed=512, n_embed_latent=64, n_layer=1, n_inducing_points=64,
+                   n_head=8, n_head_cross=8)
+# the E = 256 encoder of tests/test_fused_encoder.py:227-254 (4 cross heads by default)
+E256_ARCH = dict(n_genes=300, n_embed=256, n_embed_latent=32, n_layer=1, n_inducing_points=16,
+                 n_head=8)
+DIT_ARCH = dict(n_embed=32, n_embed_input=64, n_layer=1, n_head=4, seq_len=64,
+                class_vocab_sizes={}, cfg_dropout_prob=0.0)
+
+
+@pytest.fixture(autouse=True)
+def _exact_matmuls():
+    with jax.default_matmul_precision("highest"):
+        yield
+
+
+def lean(B, G, S, seed, dtype=np.int32):
+    """A lean wire batch: B cells of 5 to S - 1 expressed genes of G, counts
+    Poisson(3) + 1, zero-padded to the S-token window."""
+    rng = np.random.default_rng(seed)
+    gs = np.zeros((B, S), dtype)
+    cs = np.zeros((B, S), np.float32 if dtype == np.int32 else dtype)
+    for i in range(B):
+        nnz = int(rng.integers(5, S))
+        gs[i, :nnz] = np.sort(rng.choice(G, nnz, replace=False)) + 1
+        cs[i, :nnz] = rng.poisson(3.0, nnz) + 1
+    return {"genes_subset": gs, "counts_subset": cs,
+            "library_size": cs.astype(np.float32).sum(1, keepdims=True)}
+
+
+def jax_vae_and_params(arch, batch, seed, noise):
+    """A JAX VAE, its parameters with `noise` times a standard normal added
+    (non-zero LayerNorm biases, non-trivial attention), and the port's copy."""
+    rng = np.random.default_rng(seed)
+    jvae = jax_build_vae(**arch)
+    gs, cs = jnp.asarray(batch["genes_subset"]), jnp.asarray(batch["counts_subset"])
+    params = jvae.init(jax.random.PRNGKey(seed), cs, gs, jnp.asarray(batch["library_size"]), cs, gs)
+    params = jax.tree_util.tree_map(
+        lambda p: p + jnp.asarray(noise * rng.normal(size=p.shape).astype(np.float32)), params)
+    tvae = build_transformer_vae(**arch, device="cpu")
+    load_reference_state_dict(tvae, export_torch_state_dict(params))
+    return jvae, params, tvae
+
+
+@pytest.fixture(scope="module")
+def census_case():
+    batch = lean(4, CENSUS_ARCH["n_genes"], 600, seed=7)
+    with jax.default_matmul_precision("highest"):
+        jvae, params, tvae = jax_vae_and_params(CENSUS_ARCH, batch, seed=7, noise=0.05)
+    # a non-uniform cotangent of the pooled (B, M, E) tokens
+    w = np.random.default_rng(3).normal(size=(4, 64, 512)).astype(np.float32)
+    return jvae, params, tvae, batch, w
+
+
+def jax_pooled(jvae, params, batch):
+    emb = jvae.apply(params, jnp.asarray(batch["counts_subset"]),
+                     jnp.asarray(batch["genes_subset"]), method=lambda m, c, g: m.input_layer(c, g))
+    return jvt.fused_window_pooling(jvae, params, emb, interpret=True)
+
+
+def port_pooled(tvae, batch):
+    emb = tvae.input_layer(torch.from_numpy(batch["counts_subset"]),
+                           torch.from_numpy(batch["genes_subset"]).long())
+    return tvt.fused_window_pooling(tvae, emb)
+
+
+def test_census_width_takes_the_wide_design():
+    """The census MCAB's (E, heads, queries) is a wide kernel shape; the
+    dense pool keeps the narrow one only."""
+    assert (512, 8, 64) in fe.WIDE_SHAPES and (256, 4, 16) in fe.WIDE_SHAPES
+    assert set(fe.KERNEL_SHAPES) == set(fe.NARROW_SHAPES) | set(fe.WIDE_SHAPES)
+    assert fe._wide(512) and fe._wide(256) and not fe._wide(32)
+
+
+@pytest.mark.parametrize("part", ["forward", "gradients"])
+def test_census_pool_matches_pallas_interpret(census_case, part):
+    jvae, params, tvae, batch, w = census_case
+    counters = (fe.WINDOW_POOL_WIDE_FWD_LAUNCHES, fe.WINDOW_POOL_WIDE_BWD_LAUNCHES)
+    before = [c.count for c in counters]
+    if part == "forward":
+        want = np.asarray(jax_pooled(jvae, params, batch))
+        with torch.no_grad():
+            got = port_pooled(tvae, batch).numpy()
+        assert got.shape == want.shape == (4, 64, 512)
+        assert np.abs(got - want).max() < 1e-3 * np.abs(want).max()
+    else:
+        jgrads = export_torch_state_dict(jax.grad(
+            lambda p: jnp.sum(jax_pooled(jvae, p, batch) * w))(params))
+        tvae.zero_grad(set_to_none=True)
+        (port_pooled(tvae, batch) * torch.from_numpy(w)).sum().backward()
+        n = 0
+        for name, p in tvae.named_parameters():
+            if p.grad is None:
+                continue
+            want = jgrads[name]
+            scale = np.abs(want).max()
+            assert scale > 0, name
+            assert np.abs(p.grad.numpy() - want).max() < 1e-2 * scale, name
+            n += 1
+        # the MCAB's 13 parameters and the gene embedding
+        assert n == 14
+    # a CPU tensor takes the plain version: no kernel launch is counted
+    assert [c.count for c in counters] == before
+
+
+def test_fused_pool_step_matches_jax():
+    """One `VAETask(fused_pool=True, algebraic_tail=False)` step at E=256
+    against JAX's with the same flags (its window pool in interpret mode):
+    the step's MCAB pooling goes through the port's window pool once, and
+    the loss and gradient norm agree at JAX's bounds."""
+    G, S, B = E256_ARCH["n_genes"], 280, 4
+    jbatch = lean(B, G, S, seed=11)
+    jvae = jax_build_vae(**E256_ARCH)
+    jtask = JaxVAETask(jvae, num_training_steps=10, fused_pool=True, algebraic_tail=False)
+    assert jtask.fused_pool and not jtask.algebraic_tail
+    jtask._pool_interpret = True  # the CPU backend
+    jb = {k: jnp.asarray(v) for k, v in jbatch.items()}
+    with jax.default_matmul_precision("highest"):
+        state = jtask.init_state(jax.random.PRNGKey(0), jb)
+        # the jitted step donates its state: run the same program undonated
+        _, want = jax.jit(jtask._train_step_impl)(state, jb)
+
+    tvae = build_transformer_vae(**E256_ARCH, device="cpu")
+    load_reference_state_dict(tvae, export_torch_state_dict(state.params))
+    task = VAETask(tvae, num_training_steps=10, fused_pool=True, algebraic_tail=False)
+    assert task.fused_pool and not task.algebraic_tail
+    tbatch = {k: torch.from_numpy(v) for k, v in lean(B, G, S, seed=11, dtype=np.uint16).items()}
+    assert not task._use_fused(tbatch) and not task._use_algebraic(tbatch)
+    calls = []
+    real = fe._WindowPool.apply
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(fe._WindowPool, "apply", lambda *a: calls.append(tuple(a[0].shape)) or real(*a))
+        _, mets = task.train_step(task.init_state(torch.Generator().manual_seed(0)), tbatch)
+    assert calls == [(B, S, 256)]
+    lp, lj = float(mets["train_loss"]), float(want["train_loss"])
+    gp, gj = float(mets["grad_norm"]), float(want["grad_norm"])
+    assert np.isfinite(lp) and abs(lp - lj) < 5e-3 * abs(lj), (lp, lj)
+    assert abs(gp - gj) < 0.02 * abs(gj), (gp, gj)
+
+
+def test_fused_encode_matches_jax_module_encode(census_case):
+    """`LDMTask(fused_encode=True)._encode` at census width (the wide window
+    pool's plain version here) against JAX's module encode of the same frozen
+    VAE and batch."""
+    jvae, params, tvae, batch, _ = census_case
+    jtask = JaxLDMTask(jvae, params, JaxDiT(**DIT_ARCH), jax_create_transport(),
+                       num_training_steps=10)
+    want = np.asarray(jtask._encode({k: jnp.asarray(v) for k, v in batch.items()}))
+    task = LDMTask(tvae.eval(), DiT(**DIT_ARCH), create_transport(), fused_encode=True)
+    calls = []
+    real = fe._WindowPool.apply
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(fe._WindowPool, "apply", lambda *a: calls.append(tuple(a[0].shape)) or real(*a))
+        got = task._encode({k: torch.from_numpy(v) for k, v in batch.items()}).numpy()
+    assert calls == [(4, 600, 512)]
+    assert got.shape == want.shape == (4, 64, 64)
+    assert np.abs(got - want).max() < 0.02 * np.abs(want).max()
