@@ -74,7 +74,19 @@ module trunks, and runs one no-grad `fused_nb_apply(use_trunk=True)`, which
 launches the forward that saves nothing. Phase 1h holds `fused_swiglu_gate`
 (its own entry point, forward and backward) against its plain version at the
 census cross block's MLP (R = 16 x 36,601 rows, E = 512, H = 1,408) and two
-ragged shapes, with TF32 off, timing both. The line before the last is a JSON
+ragged shapes, with TF32 off, timing both. Phase 1i holds the long-axis flash
+attention kernel against its plain version (sdpa's plain path) at JAX's
+standalone shape, the long-latent MCAB (16 cells, 1,024 queries over 4,096
+tokens), its self-attention, the DiT's rows, ragged and short shapes and bf16
+operands, checks that it repeats its bits, and times it beside the plain
+version and `scaled_dot_product_attention`. Phase 9 runs the census pair at
+1,024 latent tokens (the VAE's inducing points and the DiT's seq_len), where
+every sdpa call without a gradient takes that kernel: the frozen encode (17
+launches, held against the plain gate and timed against it in turns with peak
+memory), LDM training with the module DiT under a gradient (17 launches a
+step, all from the encode), and euler-10 generation at a generation batch of 4
+(72 launches in the DiT, 16 in the decode), its NB means held against the
+plain gate. The line before the last is a JSON
 summary of the kernels, each with its time beside the least time the card could
 take for the same work; the last is {"ok": true, "device": {...}}. Any failure
 raises, so the script exits non-zero and prints no result; so does a machine
@@ -84,6 +96,7 @@ without CUDA, or a directory without the port's sources.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -932,6 +945,98 @@ def phase1h_swiglu_gate(seed: int) -> tuple[dict, dict, tuple]:
         torch.cuda.empty_cache()
     return (*({"max_abs_err": errs[part], "ms": timing[part][0], "plain_ms": timing[part][1]}
               for part in ("fwd", "bwd")), launches)
+
+
+def flash_attention_bound(B: int, M: int, S: int, H: int, D: int, elem: int = 4) -> dict:
+    """Flash attention of q (B, M, H, D) over k and v (B, S, H, D). The kernel
+    computes in f32 FMA, so the f32 peak: the scores and the probabilities
+    times the values, B*H*M*S*D multiply-adds each, two operations per
+    multiply-add. Bytes: q, k and v in and the output out, `elem` bytes an
+    element."""
+    return bound(elem * (2 * B * M * H * D + 2 * B * S * H * D), 4 * B * H * M * S * D,
+                 F32_FLOPS)
+
+
+# (B, M, S, H, D, dtype) of phase 1i: JAX's standalone shape
+# (benchmarks/check_flash_compiled.py), the long-latent MCAB (16 cells, 1,024
+# inducing points over the 4,096-token window, 8 heads of 64), its encoder
+# and decoder self-attention, the DiT's rows (a generation batch of 4: 12
+# rows, 8 heads of 32), a ragged shape, short keys with narrow heads, bf16
+FLASH_CASES = ((2, 2_048, 4_096, 4, 64, "float32"), (16, 1_024, 4_096, 8, 64, "float32"),
+               (16, 1_024, 1_024, 8, 64, "float32"), (12, 1_024, 1_024, 8, 32, "float32"),
+               (3, 1_030, 1_500, 2, 40, "float32"), (2, 70, 100, 3, 4, "float32"),
+               (3, 1_030, 1_500, 2, 64, "bfloat16"))
+FLASH_TIMED = FLASH_CASES[:4]
+FLASH_ROW = FLASH_CASES[1]  # the kernels line's shape: the main path's largest launch
+
+
+def sdpa_kernel_names(fn) -> str:
+    """The device kernels one call of `fn` launches, from the profiler: which
+    backend `scaled_dot_product_attention` picked."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = sorted({e.key for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA})
+    return ", ".join(names) or "none recorded"
+
+
+def phase1i_flash_attention(seed: int) -> dict:
+    """The flash attention kernel against flash_attention_reference (sdpa's
+    plain path) at FLASH_CASES: within 2e-4 of the output's largest magnitude
+    in f32 and 2e-2 with bf16 operands (JAX's tests/test_pallas.py; streaming
+    against materialized softmax, and the plain version rounds bf16
+    probabilities), and the same bits on a second run. At FLASH_TIMED the
+    kernel and the plain version timed in turns, and, as the library
+    yardstick, `F.scaled_dot_product_attention` on the same f32 operands
+    with TF32 off (timed here; the port never calls it), with the kernels it
+    launched. Returns FLASH_ROW's figures."""
+    import torch
+    import torch.nn.functional as F
+
+    from scldm_torch.ops import flash_attention as fa
+
+    check_f32_matmuls()
+    g = torch.Generator(device="cuda").manual_seed(seed + 10)
+    out = {}
+    for case in FLASH_CASES:
+        B, M, S, H, D, dtype = case
+        dt = getattr(torch, dtype)
+        q = torch.randn(B, M, H, D, generator=g, device="cuda").to(dt)
+        k, v = (torch.randn(B, S, H, D, generator=g, device="cuda").to(dt) for _ in range(2))
+        got = fa.flash_attention(q, k, v)
+        again = fa.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        want = fa.flash_attention_reference(q, k, v)
+        rel = 2e-4 if dt == torch.float32 else 2e-2
+        err = held_f32(f"flash_attention at {case}", got.float(), want.float(), rel)
+        if not torch.equal(got, again):
+            raise AssertionError(f"flash_attention at {case}: two runs gave different bits")
+        scale = want.float().abs().max().item()
+        log(f"phase1i flash_attention B={B} M={M} S={S} H={H} D={D} {dtype}: max abs err "
+            f"{err:.3e} ({err / scale:.1e} of max), the same bits twice")
+        del got, again, want
+        if case in FLASH_TIMED:
+            ms, plain_ms = time_in_turns(lambda: fa.flash_attention(q, k, v),
+                                         lambda: fa.flash_attention_reference(q, k, v), 3)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            library = lambda: F.scaled_dot_product_attention(qt, kt, vt)  # noqa: E731
+            cuda_ms(library, 2)
+            library_ms = (cuda_ms(library, 3) + cuda_ms(library, 3)) / 2
+            b = flash_attention_bound(B, M, S, H, D)
+            log(f"phase1i flash_attention B={B} M={M} S={S} H={H} D={D}: kernel {ms:.4f} ms  "
+                f"plain {plain_ms:.4f} ms  library (scaled_dot_product_attention, f32) "
+                f"{library_ms:.4f} ms [{sdpa_kernel_names(library)}]  bound {b['bound_ms']:.4f} "
+                f"ms ({b['bound_by']})")
+            if case == FLASH_ROW:
+                out = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                       "library_ms": library_ms}
+        del q, k, v
+        torch.cuda.empty_cache()
+    return out
 
 
 def build_models(seed: int):
@@ -1913,6 +2018,201 @@ def phase8_trunk_training(seed: int, batch: int) -> dict:
     return launches
 
 
+# phase 9: the census pair at 1,024 latent tokens, the smallest latent that
+# sdpa's gate (_FLASH_MIN_SEQ) sends through the flash attention kernel
+LONG_LATENT = 1_024  # the VAE's n_inducing_points and the DiT's seq_len
+LONG_LDM_STEPS = 5  # timed LDM steps, after one warm-up step
+LONG_GEN_BATCH = 4  # generation batch: 8 cells, 12 DiT rows under batched CFG
+LONG_EULER_STEPS = 10  # euler-10: 9 DiT evaluations
+
+
+@contextlib.contextmanager
+def plain_attention_gate():
+    """sdpa's length gate lifted past every axis, for a reference run of the
+    plain path; the package has no switch for it."""
+    from scldm_torch.ops import attention
+
+    saved = attention._FLASH_MIN_SEQ
+    attention._FLASH_MIN_SEQ = 1 << 62
+    try:
+        yield
+    finally:
+        attention._FLASH_MIN_SEQ = saved
+
+
+def phase9_long_latent(seed: int) -> int:
+    """The census pair at 1,024 latent tokens (the census VAE and DiT with
+    n_inducing_points = seq_len = 1,024; random weights from CUDA generators,
+    f32, the DiT kernels off: `LDMTask(fused_training=False)` and
+    `make_sample_fn(fused_blocks=False)`, since the DiT kernels' (T, T) score
+    tile does not fit one CTA at T = 1,024). Every sdpa call of the path where
+    no gradient flows takes the flash attention kernel: the frozen encode
+    (the MCAB, 1,024 queries over the 4,096-token window, and 16 encoder
+    blocks: 17 launches), held against the same encode through the plain
+    gate within 1e-4 of the largest latent and timed against it in turns
+    with each arm's peak memory; LDM_STEPS training steps, whose DiT runs
+    under a gradient on the plain path (17 launches a step, all from the
+    encode); one euler-10 generation call at a generation batch of 4 (9 DiT
+    evaluations of 8 blocks, 72 launches, and 16 from the decoder trunk of
+    the algebraic decode), with the NB means of the same noise through the
+    kernel and through the plain gate within 1e-3 of their largest. Returns
+    the kernel's launches in the counted runs."""
+    import numpy as np
+    import torch
+
+    from scldm_torch.nn.nnets import DiT
+    from scldm_torch.nn.vae import build_transformer_vae
+    from scldm_torch.ops import flash_attention as fa
+    from scldm_torch.ops import fused_dit
+    from scldm_torch.ops.transforms import canonical_gene_ids
+    from scldm_torch.sampling.size_factors import SizeFactorSampler, constant_stats
+    from scldm_torch.training.ldm_task import LDMTask
+    from scldm_torch.transport import create_transport
+    from scldm_torch.utils.weights import init_reference_
+
+    torch.cuda.empty_cache()
+    vae = init_reference_(build_transformer_vae(**{**CENSUS, "n_inducing_points": LONG_LATENT},
+                                                device="cuda"),
+                          torch.Generator(device="cuda").manual_seed(seed)).eval()
+    dit = init_reference_(DiT(**{**CENSUS_DIT, "seq_len": LONG_LATENT}).to("cuda"),
+                          torch.Generator(device="cuda").manual_seed(seed + 1), zero_init=False)
+    task = LDMTask(vae, dit, create_transport(), fused_training=False)
+    G, B, L = CENSUS["n_genes"], CENSUS_LDM_BATCH, CENSUS["n_layer"]
+    per_encode = 1 + L  # the MCAB and the encoder blocks
+    batches = census_ldm_batches(np.random.default_rng(seed + 9), LONG_LDM_STEPS + 1)
+    counter = fa.FLASH_ATTENTION_LAUNCHES
+
+    # -- the frozen encode, the kernel against the plain gate
+    counter.reset()
+    z = task._encode(batches[0])
+    torch.cuda.synchronize()
+    launches = counter.count
+    if launches != per_encode or z.shape != (B, LONG_LATENT, CENSUS["n_embed_latent"]):
+        raise AssertionError(f"phase9 encode: {launches} flash_attention launches (want "
+                             f"{per_encode}), latents {tuple(z.shape)}")
+    with plain_attention_gate():
+        z_plain = task._encode(batches[0])
+    torch.cuda.synchronize()
+    if counter.count != launches:
+        raise AssertionError("phase9: the plain gate launched the kernel")
+    err = held_f32("phase9 frozen encode, kernel vs plain gate", z, z_plain)
+    scale = z_plain.abs().max().item()
+    del z, z_plain
+    walls, peaks = {}, {}
+    for arm in ("plain", "kernel", "kernel", "plain"):  # in turns, 3 encodes each
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with plain_attention_gate() if arm == "plain" else contextlib.nullcontext():
+            for _ in range(3):
+                task._encode(batches[0])
+        torch.cuda.synchronize()
+        walls.setdefault(arm, []).append(round((time.perf_counter() - t0) / 3 * 1e3, 2))
+        peaks[arm] = max(peaks.get(arm, 0.0), torch.cuda.max_memory_allocated() / 2**30)
+    log(f"phase9 frozen encode B={B} S={CENSUS_WINDOW} at {LONG_LATENT} latent tokens: "
+        f"{launches} flash_attention launches; latents vs the plain gate max abs err {err:.3e} "
+        f"({err / scale:.1e} of max); ms per encode in turns, kernel {walls['kernel']} vs plain "
+        f"{walls['plain']}; peak memory kernel {peaks['kernel']:.2f} GiB, plain "
+        f"{peaks['plain']:.2f} GiB")
+
+    # -- LDM training: the DiT under a gradient takes the plain path
+    state = task.init_state(torch.Generator(device="cuda").manual_seed(seed))
+    state, mets = task.train_step(state, batches[0])  # warm-up
+    torch.cuda.synchronize()
+    counter.reset()
+    fused_dit.DIT_BLOCK_LAUNCHES.reset()
+    fused_dit.DIT_BLOCK_BWD_LAUNCHES.reset()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    t0 = time.perf_counter()
+    for b in batches[1:]:
+        state, mets = task.train_step(state, b)
+        losses.append(mets["train_loss"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n = LONG_LDM_STEPS
+    steps = counter.count
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = torch.stack(losses)
+    if steps != per_encode * n or fused_dit.DIT_BLOCK_LAUNCHES.count + \
+            fused_dit.DIT_BLOCK_BWD_LAUNCHES.count != 0:
+        raise AssertionError(f"phase9 training: {steps} flash_attention launches in {n} steps "
+                             f"(want {per_encode * n}, all from the encode)")
+    if not torch.isfinite(losses).all():
+        raise AssertionError(f"phase9: non-finite LDM loss {losses.tolist()}")
+    launches += steps
+    log(f"phase9 LDM training B={B} T={LONG_LATENT} (fused_training=False): {B * n / dt:.1f} "
+        f"train cells/s, {dt / n * 1e3:.2f} ms/step over {n} steps; losses "
+        f"{losses[0].item():.4f} -> {losses[-1].item():.4f}; flash_attention launches {steps} "
+        f"({steps // n} a step, none from the DiT); peak memory {peak:.2f} GiB")
+    del state, mets
+
+    # -- generation: euler-10 through the module DiT and the algebraic decode
+    sfs = SizeFactorSampler(constant_stats({"clusters": N_CLUSTERS}, mu=8.6, sd=0.3))
+    genes = canonical_gene_ids(G, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(seed + 3)
+    GB = LONG_GEN_BATCH
+    cond = {"clusters": batches[-1]["clusters"][:GB]}
+    fn = task.make_sample_fn(sfs, guidance_weight=GUIDANCE, sampling_method="euler",
+                             num_steps=LONG_EULER_STEPS, fused_blocks=False)
+    trunk, decoded = vae.decoder.trunk, []
+
+    def counted_trunk(x):  # the decoder trunk's launches, apart from the DiT's
+        before = counter.count
+        y = trunk(x)
+        decoded.append(counter.count - before)
+        return y
+
+    vae.decoder.trunk = counted_trunk
+    try:
+        fn(g, genes, cond)  # warm-up
+        torch.cuda.synchronize()
+        counter.reset()
+        decoded.clear()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        counts, z = fn(g, genes, cond)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        del vae.decoder.trunk
+    gen = counter.count
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    dit_launches = gen - sum(decoded)
+    if counts.shape != (2 * GB, G) or z.shape != (2 * GB, LONG_LATENT, CENSUS_DIT["n_embed_input"]):
+        raise AssertionError(f"phase9 generation: counts {tuple(counts.shape)}, z {tuple(z.shape)}")
+    if not (torch.isfinite(z).all() and (counts >= 0).all() and (counts == counts.round()).all()):
+        raise AssertionError("phase9 generation: non-finite latents or counts not integers")
+    if (fn.drift_evals != LONG_EULER_STEPS - 1 or dit_launches != dit.n_layer * fn.drift_evals
+            or decoded != [L]):
+        raise AssertionError(f"phase9 generation: {dit_launches} DiT launches for "
+                             f"{fn.drift_evals} evaluations of {dit.n_layer} blocks, decoder "
+                             f"launches {decoded}")
+    launches += gen
+    log(f"phase9 generation euler-{LONG_EULER_STEPS} (module DiT, algebraic decode), batch {GB}: "
+        f"{2 * GB / dt:.1f} cells/s ({dt:.3f} s for {2 * GB} cells), DiT evals "
+        f"{fn.drift_evals}, flash_attention launches {dit_launches} in the DiT and {decoded[0]} "
+        f"in the decode; counts {tuple(counts.shape)} mean {counts.mean().item():.4f}; peak "
+        f"memory {peak:.2f} GiB")
+    del counts, z
+
+    # -- the NB means of the same noise through the kernel and the plain gate
+    z0 = torch.randn(GB, LONG_LATENT, CENSUS_DIT["n_embed_input"], generator=g, device="cuda")
+    log_sf = torch.full((GB,), 8.6, device="cuda")
+    kw = dict(guidance_weight=GUIDANCE, sampling_method="euler", num_steps=LONG_EULER_STEPS,
+              fused_blocks=False)
+    mu = task.generate_from_noise(z0, log_sf, genes, cond, **kw)[1]["mu"]
+    with plain_attention_gate():
+        mu_plain = task.generate_from_noise(z0, log_sf, genes, cond, **kw)[1]["mu"]
+    err = held_f32("phase9 generation mu, kernel vs plain gate", mu, mu_plain, 1e-3)
+    scale = mu_plain.abs().max().item()
+    log(f"phase9 reference: generate_from_noise euler-{LONG_EULER_STEPS}, the kernel vs the "
+        f"plain gate: mu max abs err {err:.3e} ({err / scale:.1e} of max)")
+    del vae, dit, task
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -1957,6 +2257,7 @@ def main(argv=None) -> int:
     flash_cross = phase1f_flash_cross(args.seed)
     trunk_timing = phase1g_fused_trunk(args.seed)
     gate_fwd, gate_bwd, gate_launches = phase1h_swiglu_gate(args.seed)
+    flash = phase1i_flash_attention(args.seed)
 
     # -- phase 2: the generation path -------------------------------------------
     launches = phase2_generation(args.seed, args.batch)
@@ -1981,6 +2282,9 @@ def main(argv=None) -> int:
     # -- phase 8: VAE training through the whole-trunk kernels ------------------
     trunk = phase8_trunk_training(args.seed, args.batch)
 
+    # -- phase 9: the census pair at 1,024 latent tokens --------------------------
+    long_latent = phase9_long_latent(args.seed)
+
     tail_src = "scldm_torch/kernels/csrc/decoder_tail.cu"
     pool_src = "scldm_torch/kernels/csrc/encoder_pool.cu"
     pool_launches = {"dense_fwd": parse["encoder_pool_fwd"], "dense_bwd": parse["encoder_pool_bwd"],
@@ -1988,8 +2292,8 @@ def main(argv=None) -> int:
                      "window_bwd": parse["window_pool_bwd"]}
     pool_replaces = {"dense_fwd": 217, "dense_bwd": 263, "window_fwd": 409, "window_bwd": 452}
     # no single PyTorch call computes any of these functions but flash_cross
-    # (scaled_dot_product_attention): library_ms is null for the rest, the
-    # whole trunk (L blocks) included
+    # and flash_attention (scaled_dot_product_attention): library_ms is null
+    # for the rest, the whole trunk (L blocks) included
     dit_src = "scldm_torch/kernels/csrc/dit_block.cu"
     dit_bwd_src = "scldm_torch/kernels/csrc/dit_block_bwd.cu"
     census_rows = (3 * CENSUS_LDM_BATCH, CENSUS_LDM_BATCH)  # the census sampler's and step's rows
@@ -2076,6 +2380,12 @@ def main(argv=None) -> int:
                              part == "bwd"), "library_ms": None}
         for part, line, launches_, timed in (("fwd", 103, gate_launches[0], gate_fwd),
                                              ("bwd", 131, gate_launches[1], gate_bwd))
+    ] + [
+        # the long-latent MCAB: 16 cells, 1,024 queries over 4,096 tokens, 8 heads of 64
+        {"name": "flash_attention", "route": "cuda",
+         "source": "scldm_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "scldm_tpu/ops/flash_attention.py:74", "launches": long_latent, **flash,
+         **flash_attention_bound(*FLASH_ROW[:5])},
     ]
     for k in kernels:
         log(f"{k['name']}: {k['ms']:.4f} ms against a bound of {k['bound_ms']:.4f} ms "

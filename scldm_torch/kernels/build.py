@@ -148,6 +148,14 @@ _SIGNATURES = {
         [_P] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float, _P],  # R, T, E, H, Hd, L; eps, stream
         ctypes.c_int,
     ),
+    # pointers: q, k, v, out
+    "scldm_flash_attention_forward": (
+        [_P] * 4
+        + [ctypes.c_int] * 5  # B, M, S, H, D
+        + [ctypes.c_longlong] * 9  # the strides of q, k and v: cell, token, head
+        + [ctypes.c_int, _P],  # bf16, stream
+        ctypes.c_int,
+    ),
     "scldm_cuda_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 

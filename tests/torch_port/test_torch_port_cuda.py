@@ -33,13 +33,19 @@ other, fixed orders: out, xs, dx and every weight gradient within 1e-4 of
 its tensor's largest magnitude (chip_smoke.py's phase 1g); a small VAE's
 loss through them against the module trunks within 1e-5 relative and its
 gradient norm within 1e-4 (both sides take the decoder tail, whose bf16
-roundings of operands made from the trunk's output now and then flip)."""
+roundings of operands made from the trunk's output now and then flip). The
+flash attention kernel computes in f32 like its plain version (sdpa's plain
+path) and sums in another, fixed order: within 2e-4 of the output's largest
+magnitude with f32 operands and 2e-2 with bf16 (JAX's tests/test_pallas.py;
+the plain version rounds bf16 probabilities, the kernel does not), the same
+bits every run."""
 
 import numpy as np
 import pytest
 import torch
 
 from scldm_torch.ops import attention
+from scldm_torch.ops import flash_attention as fa
 from scldm_torch.ops import fused_cross as fc
 from scldm_torch.ops import fused_decoder as tail
 from scldm_torch.ops import fused_dit as port
@@ -882,3 +888,107 @@ def test_fused_trunk_on_a_device_other_than_the_current():
     torch.cuda.synchronize(0)
     check_trunk(128, 128, 8, 344, 2, "cuda:1", seed=1)
     assert torch.cuda.current_device() == 0
+
+
+def _flash_inputs(B, M, S, H, D, device, dtype=torch.float32, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return (torch.randn(B, M, H, D, generator=g, device=device).to(dtype),
+            *(torch.randn(B, S, H, D, generator=g, device=device).to(dtype) for _ in range(2)))
+
+
+def assert_flash_close(got, want, rel, what):
+    scale = want.float().abs().max()
+    assert scale > 0, what
+    assert (got.float() - want.float()).abs().max() <= rel * scale, what
+
+
+# ragged (M and S off the 64-row tiles, D off the compiled widths), keys
+# shorter than one tile with narrow heads, a lone query, the DiT's heads, a
+# head of 128, and bf16 operands
+@pytest.mark.parametrize("B,M,S,H,D,dtype", [
+    (3, 1030, 1500, 2, 40, torch.float32), (2, 70, 100, 3, 4, torch.float32),
+    (1, 1, 33, 1, 16, torch.float32), (4, 300, 1024, 8, 32, torch.float32),
+    (2, 200, 300, 2, 128, torch.float32), (3, 1030, 1500, 2, 64, torch.bfloat16),
+])
+def test_flash_attention_matches_reference_on_gpu(B, M, S, H, D, dtype):
+    q, k, v = _flash_inputs(B, M, S, H, D, "cuda", dtype)
+    before = fa.FLASH_ATTENTION_LAUNCHES.count
+    got = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.FLASH_ATTENTION_LAUNCHES.count == before + 1
+    assert got.shape == (B, M, H, D) and got.dtype == dtype
+    assert_flash_close(got, fa.flash_attention_reference(q, k, v),
+                       2e-4 if dtype == torch.float32 else 2e-2, f"out at {B, M, S, H, D}")
+
+
+def test_flash_attention_takes_strided_views_on_gpu():
+    """The fused qkv projection's chunk views (token stride 3E) need no copy."""
+    B, S, H, D = 2, 1100, 4, 32
+    qkv = torch.randn(B, S, 3 * H * D, generator=torch.Generator("cuda").manual_seed(1),
+                      device="cuda")
+    q, k, v = (t.reshape(B, S, H, D) for t in qkv.chunk(3, dim=-1))
+    assert q.stride(1) == 3 * H * D and not q.is_contiguous()
+    assert_flash_close(fa.flash_attention(q, k, v),
+                       fa.flash_attention_reference(q, k, v), 2e-4, "chunk views")
+
+
+def test_flash_attention_repeats_its_bits_on_gpu():
+    q, k, v = _flash_inputs(2, 1024, 2048, 4, 64, "cuda", seed=2)
+    first = fa.flash_attention(q, k, v)
+    assert torch.equal(first, fa.flash_attention(q, k, v))
+
+
+def test_sdpa_takes_flash_attention_only_without_a_gradient_on_gpu():
+    """Under no_grad (and inference_mode) sdpa launches the kernel at 1,024
+    tokens on both axes; under a gradient, or with an axis of 1,023, it takes
+    the plain path, and the gradient matches plain attention's."""
+    q, k, v = _flash_inputs(2, 1024, 1024, 4, 64, "cuda", seed=3)
+    want = attention.sdpa_plain(q, k, v)
+    for ctx in (torch.no_grad, torch.inference_mode):
+        before = fa.FLASH_ATTENTION_LAUNCHES.count
+        with ctx():
+            got = attention.sdpa(q, k, v)
+        torch.cuda.synchronize()
+        assert fa.FLASH_ATTENTION_LAUNCHES.count == before + 1
+        assert_flash_close(got, want, 2e-4, f"sdpa under {ctx.__name__}")
+    before = fa.FLASH_ATTENTION_LAUNCHES.count
+    with torch.no_grad():
+        attention.sdpa(q[:, :1023], k, v)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    got = attention.sdpa(*leaves)
+    dy = torch.randn_like(got)
+    got.backward(dy)
+    torch.cuda.synchronize()
+    assert fa.FLASH_ATTENTION_LAUNCHES.count == before
+    ref = [t.clone().requires_grad_() for t in (q, k, v)]
+    attention.sdpa_plain(*ref).backward(dy)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    for a, b in zip(leaves, ref):
+        torch.testing.assert_close(a.grad, b.grad, rtol=0, atol=0)
+
+
+def test_flash_attention_operands_it_does_not_take_raise_on_gpu():
+    q, k, v = _flash_inputs(1, 64, 64, 2, 129, "cuda")
+    for args, err in (((q, k, v), ValueError),  # D = 129 > 128
+                      ((q[..., :64].half(), k[..., :64].half(), v[..., :64].half()), ValueError),
+                      ((q[..., :64], k[..., :64].bfloat16(), v[..., :64]), ValueError),
+                      ((q[..., :64].transpose(1, 3).contiguous().transpose(1, 3), k[..., :64],
+                        v[..., :64]), ValueError),  # the head width strided
+                      ((q[..., :64].requires_grad_(), k[..., :64], v[..., :64]), RuntimeError)):
+        before = fa.FLASH_ATTENTION_LAUNCHES.count
+        with pytest.raises(err):
+            fa.flash_attention(*args)
+        assert fa.FLASH_ATTENTION_LAUNCHES.count == before
+
+
+@pytest.mark.skipif(torch.cuda.device_count() < 2, reason="needs two GPUs")
+def test_flash_attention_on_a_device_other_than_the_current():
+    """Tensors on cuda:1 while cuda:0 is current, after a launch on cuda:0:
+    the launch and its shared memory attribute go to the tensors' device."""
+    fa.flash_attention(*_flash_inputs(1, 70, 100, 2, 64, "cuda:0"))
+    torch.cuda.synchronize(0)
+    q, k, v = _flash_inputs(2, 1030, 1500, 2, 64, "cuda:1", seed=1)
+    got = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize(1)
+    assert got.device == q.device and torch.cuda.current_device() == 0
+    assert_flash_close(got, fa.flash_attention_reference(q, k, v), 2e-4, "cuda:1")
