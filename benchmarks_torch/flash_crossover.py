@@ -3,7 +3,7 @@
 one NVIDIA GPU: where the hand-written kernel beats the materialized path,
 and where the plain path stops fitting at all.
 
-    python3 benchmarks_torch/flash_crossover.py [--lens 512 1024 ...]
+    python3 benchmarks_torch/flash_crossover.py [--lens 64 128 ...]
 
 The H100 counterpart of benchmarks/bench_flash_crossover.py: self-attention
 (M = S) at its B = 2, H = 4, D = 64, in f32 (the port's compute type; JAX's
@@ -14,11 +14,15 @@ scores and probabilities), and `torch.nn.functional.scaled_dot_product_
 attention` with TF32 off (the library yardstick; the port never calls it).
 Each is timed with CUDA events over REPS calls, after a warm-up, twice in
 turns (plain, kernel, library, library, kernel, plain), and the two means
-averaged. A path that runs out of device memory records `null` and the
+averaged: the wall of a call, host work included. Beside it, each path's
+device time a call, the sum of its kernels' times from `torch.profiler`
+over three calls: at short lengths the wall is the host's launch path, not
+the device's work. A path that runs out of device memory records `null` and the
 error: this is a measurement, not a check. One JSON line per length, with
 the plain path's score bytes (one f32 (B, H, M, S) tensor) and the
 kernel's bound (the larger of its bytes over 3.35 TB/s and its 4*B*H*M*S*D
-operations over the f32 peak of 67 TFLOP/s), then the card's name and power
+operations, three TF32 passes of them, over the TF32 tensor-core peak of 495
+TFLOP/s: `chip_smoke.flash_attention_bound`), then the card's name and power
 limit.
 """
 
@@ -32,7 +36,21 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 B, H, D = 2, 4, 64
-LENS = (512, 1_024, 2_048, 4_096, 8_192, 16_384, 32_768)
+LENS = (64, 128, 256, 512, 1_024, 2_048, 4_096, 8_192, 16_384, 32_768)
+
+
+def device_ms(fn, reps: int = 3) -> float:
+    """The device time of one call of `fn`: its kernels' times summed, from
+    the profiler, over `reps` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / reps / 1e3
 
 
 def main(argv=None) -> int:
@@ -81,6 +99,8 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
         for name in ("kernel", "plain", "library"):
             row[f"{name}_ms"] = None if times[name] is None else sum(times[name]) / len(times[name])
+            row[f"{name}_device_ms"] = None if times[name] is None else device_ms(paths[name])
+            torch.cuda.empty_cache()
         print(json.dumps(row), flush=True)
         del q, k, v, qt, kt, vt, paths
         torch.cuda.empty_cache()

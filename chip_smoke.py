@@ -133,6 +133,7 @@ EPS = 1e-8  # the DiT's LayerNorm eps
 # the H100 SXM's published peaks (NVIDIA's data sheet, dense), at 700 W
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12  # f32 outside the tensor cores
+TF32_FLOPS = 495e12  # TF32 tensor cores
 BF16_FLOPS = 989e12  # bf16 tensor cores
 
 
@@ -706,7 +707,7 @@ def phase1f_flash_cross(seed: int) -> dict:
     """flash_cross_attention's forward kernel against flash_cross_reference
     at the census sampler's cross block (2B = 32 cells, G = 36,601 genes, E =
     512, 8 heads, M = 64 latent tokens) and a ragged shape (G = 300 off the
-    128-gene tile, B = 3 off the 8-element batch tile), held by `held_bf16`'s
+    256-gene tile, B = 3 off the 8-cell tile), held by `held_bf16`'s
     rule (both round the same operands and the probabilities to bf16, and sum
     in other orders); kernel and plain timed in turns, and, as the library
     yardstick, `F.scaled_dot_product_attention` on the same operands in bf16
@@ -948,13 +949,15 @@ def phase1h_swiglu_gate(seed: int) -> tuple[dict, dict, tuple]:
 
 
 def flash_attention_bound(B: int, M: int, S: int, H: int, D: int, elem: int = 4) -> dict:
-    """Flash attention of q (B, M, H, D) over k and v (B, S, H, D). The kernel
-    computes in f32 FMA, so the f32 peak: the scores and the probabilities
-    times the values, B*H*M*S*D multiply-adds each, two operations per
-    multiply-add. Bytes: q, k and v in and the output out, `elem` bytes an
-    element."""
-    return bound(elem * (2 * B * M * H * D + 2 * B * S * H * D), 4 * B * H * M * S * D,
-                 F32_FLOPS)
+    """Flash attention of q (B, M, H, D) over k and v (B, S, H, D), operands
+    of `elem` bytes. Operations: the scores and the probabilities times the
+    values, B*H*M*S*D multiply-adds each, two operations per multiply-add, as
+    the kernel runs them on the tensor cores: with f32 operands three TF32
+    passes a product at the TF32 peak, with bf16 operands one pass at the
+    bf16 peak. Bytes: q, k and v in and the output out."""
+    flops = 4 * B * H * M * S * D
+    ops, peak = (3 * flops, TF32_FLOPS) if elem == 4 else (flops, BF16_FLOPS)
+    return bound(elem * (2 * B * M * H * D + 2 * B * S * H * D), ops, peak)
 
 
 # (B, M, S, H, D, dtype) of phase 1i: JAX's standalone shape

@@ -5,7 +5,9 @@ the Pallas `flash_attention` (`_flash_kernel`), softmax(q k^T / sqrt(D)) v
 with a streaming softmax, no mask, not causal, for q (B, M, H, D) and k, v
 (B, S, H, D) -> (B, M, H, D) in q's dtype (float32 or bfloat16 operands;
 scores, softmax and accumulator in f32). The kernel
-(`scldm_torch/kernels/csrc/flash_attention.cu`) keeps the (B, H, M, S)
+(`scldm_torch/kernels/csrc/flash_attention.cu`) runs both products on the
+tensor cores, three TF32 passes a product with f32 operands (which keeps f32
+accuracy) and one bf16 pass with bf16 operands; it keeps the (B, H, M, S)
 scores out of device memory, takes any M and S, any head width up to 128
 (zero-padded on load to a compiled width, as JAX pads to 128 lanes; D > 128
 raises) and reads the operands through their strides, so the fused qkv and

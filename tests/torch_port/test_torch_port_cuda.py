@@ -34,11 +34,12 @@ its tensor's largest magnitude (chip_smoke.py's phase 1g); a small VAE's
 loss through them against the module trunks within 1e-5 relative and its
 gradient norm within 1e-4 (both sides take the decoder tail, whose bf16
 roundings of operands made from the trunk's output now and then flip). The
-flash attention kernel computes in f32 like its plain version (sdpa's plain
-path) and sums in another, fixed order: within 2e-4 of the output's largest
+flash attention kernel keeps f32 accuracy with f32 operands (three TF32
+tensor-core passes a product) and sums in another, fixed order than its
+plain version (sdpa's plain path): within 2e-4 of the output's largest
 magnitude with f32 operands and 2e-2 with bf16 (JAX's tests/test_pallas.py;
-the plain version rounds bf16 probabilities, the kernel does not), the same
-bits every run."""
+both round the probabilities to bf16, the kernel before normalising them),
+the same bits every run."""
 
 import numpy as np
 import pytest
@@ -626,10 +627,11 @@ def assert_bf16_close(got, want, what):
     assert (d > 1e-4 * scale).float().mean() <= 5e-2, what
 
 
-# ragged: G off the 128-gene tile and B off the 8-element batch tile (one
-# gene tile of 77 and a lone cell too); then the
-# census sampler's 2B = 32 over part of the gene axis, and the whole axis
-@pytest.mark.parametrize("G,B", [(300, 3), (77, 1), (5000, 32), (36_601, 2)])
+# ragged: G off the 256-gene tile and B off the 8-cell tile (one gene tile
+# of 77 and a lone cell too; one gene past a tile with a lone cell; an odd B
+# over two cell tiles); then the census sampler's 2B = 32 over part of the
+# gene axis, and the whole axis
+@pytest.mark.parametrize("G,B", [(300, 3), (77, 1), (257, 1), (700, 9), (5000, 32), (36_601, 2)])
 def test_flash_cross_matches_reference_on_gpu(G, B):
     qp, k, v = _cross_inputs(G, B, "cuda")
     before = fc.FLASH_CROSS_LAUNCHES.count
@@ -902,13 +904,21 @@ def assert_flash_close(got, want, rel, what):
     assert (got.float() - want.float()).abs().max() <= rel * scale, what
 
 
-# ragged (M and S off the 64-row tiles, D off the compiled widths), keys
-# shorter than one tile with narrow heads, a lone query, the DiT's heads, a
-# head of 128, and bf16 operands
+# ragged (M off the 64- and 128-query tiles, S off the 64-key tiles, D off
+# the compiled widths), keys shorter than one tile with narrow heads, a lone
+# query, the DiT's heads, heads of 8, 24, 96 and 128, a grid wide enough for
+# 128-query tiles with M and S off them, keys fewer than one tile of the
+# ring, bf16 operands, and a long key axis (each tile's p v summed apart:
+# summed into the running output on the tensor cores, the error grew with S
+# past the bound)
 @pytest.mark.parametrize("B,M,S,H,D,dtype", [
     (3, 1030, 1500, 2, 40, torch.float32), (2, 70, 100, 3, 4, torch.float32),
     (1, 1, 33, 1, 16, torch.float32), (4, 300, 1024, 8, 32, torch.float32),
     (2, 200, 300, 2, 128, torch.float32), (3, 1030, 1500, 2, 64, torch.bfloat16),
+    (2, 130, 200, 2, 8, torch.float32), (2, 130, 200, 2, 24, torch.float32),
+    (2, 200, 300, 2, 96, torch.float32), (16, 1030, 1100, 8, 64, torch.float32),
+    (3, 50, 5, 2, 64, torch.float32), (2, 70, 40, 3, 32, torch.bfloat16),
+    (1, 64, 32768, 1, 64, torch.float32),
 ])
 def test_flash_attention_matches_reference_on_gpu(B, M, S, H, D, dtype):
     q, k, v = _flash_inputs(B, M, S, H, D, "cuda", dtype)
@@ -930,6 +940,19 @@ def test_flash_attention_takes_strided_views_on_gpu():
     assert q.stride(1) == 3 * H * D and not q.is_contiguous()
     assert_flash_close(fa.flash_attention(q, k, v),
                        fa.flash_attention_reference(q, k, v), 2e-4, "chunk views")
+
+
+# token strides of 3*H*D bf16: 72 bytes (8-byte copies) and 90 bytes (2-byte
+# loads), neither a multiple of 16
+@pytest.mark.parametrize("H,D", [(3, 4), (3, 5)])
+def test_flash_attention_takes_bf16_chunk_views_on_gpu(H, D):
+    B, S = 2, 1100
+    qkv = torch.randn(B, S, 3 * H * D, generator=torch.Generator("cuda").manual_seed(4),
+                      device="cuda").bfloat16()
+    q, k, v = (t.reshape(B, S, H, D) for t in qkv.chunk(3, dim=-1))
+    assert (q.stride(1) * 2) % 16 and not q.is_contiguous()
+    assert_flash_close(fa.flash_attention(q, k, v),
+                       fa.flash_attention_reference(q, k, v), 2e-2, f"bf16 chunk views {H, D}")
 
 
 def test_flash_attention_repeats_its_bits_on_gpu():

@@ -14,9 +14,14 @@ gradient of `sdpa` at M = S = 1,024 against JAX's `jax.grad` of `sdpa` with
 its gate forced open, where JAX's kernel fails to trace and its `try` takes
 plain attention: each gradient within 1e-4 of its largest magnitude. The
 CUDA kernel itself is held to the plain version on the card in
-test_torch_port_cuda.py."""
+test_torch_port_cuda.py; here, the precision its f32 path rests on: an
+emulation of its arithmetic (both products as TF32 tensor-core passes with
+f32 sums, the streaming softmax over 64-key tiles in base 2) holds 2e-4 of
+the output's largest magnitude against `sdpa_plain` with three passes a
+product, and misses it with one."""
 
 import functools
+import math
 
 import jax
 import jax.numpy as jnp
@@ -166,3 +171,69 @@ def test_sdpa_gradient_matches_jax_fallback(monkeypatch):
         g = np.asarray(g)
         err = np.abs(leaf.grad.numpy() - g).max()
         assert err <= 1e-4 * np.abs(g).max(), (name, err, np.abs(g).max())
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """Round f32 to TF32 as `cvt.rna.tf32.f32` does: to the nearest value
+    with 10 mantissa bits, ties away from zero (the low 13 bits cleared)."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_product(eq: str, a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tensor:
+    """The kernel's tensor-core product: one pass hi_a.hi_b, or three,
+    lo_a.hi_b + hi_a.lo_b + hi_a.hi_b with hi = tf32(x), lo = tf32(x - hi).
+    Products of TF32 values are exact in f32; the sums are f32."""
+    ah, bh = _tf32(a), _tf32(b)
+    if passes == 1:
+        return torch.einsum(eq, ah, bh)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl) + torch.einsum(eq, ah, bh)
+
+
+def _kernel_arithmetic(q, k, v, passes: int, tile: int = 64) -> torch.Tensor:
+    """flash_attention.cu's f32 path in plain PyTorch: per tile of 64 keys the
+    scores as `passes` TF32 products, scaled by log2(e) / sqrt(D), the online
+    softmax in base 2, then p v as `passes` TF32 products. -> (B, M, H, D)."""
+    B, M, H, D = q.shape
+    scale = math.log2(math.e) / math.sqrt(D)
+    m = torch.full((B, H, M), -math.inf)
+    l = torch.zeros(B, H, M)
+    acc = torch.zeros(B, H, M, D)
+    for n0 in range(0, k.shape[1], tile):
+        s = _tf32_product("bmhd,bshd->bhms", q, k[:, n0:n0 + tile], passes) * scale
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + _tf32_product("bhms,bshd->bhmd", p, v[:, n0:n0 + tile],
+                                                     passes)
+        m = m_new
+    return (acc / l[..., None]).permute(0, 2, 1, 3)
+
+
+def test_tf32_rounding_matches_cvt_rna():
+    """The emulation's rounding: 10 mantissa bits kept, the nearest value
+    taken, a tie away from zero, whatever the sign."""
+    ulp = 2.0 ** -10
+    x = torch.tensor([1.0, 1 + ulp / 2, 1 + ulp / 4, 1 + 3 * ulp / 4, -(1 + ulp / 2), 3.0e-3])
+    got = _tf32(x)
+    torch.testing.assert_close(got[:5], torch.tensor([1.0, 1 + ulp, 1.0, 1 + ulp, -(1 + ulp)]),
+                               rtol=0, atol=0)
+    assert (got.view(torch.int32) & 0x1FFF).eq(0).all()
+    assert abs(got[5].item() - 3.0e-3) <= 3.0e-3 * 2.0 ** -11
+
+
+# (passes, holds): the shape on which the design was chosen; one pass rounds
+# each operand to 11 significant bits and lands 3x past the bound there
+@pytest.mark.parametrize("passes,holds", [(3, True), (1, False)])
+def test_kernel_f32_arithmetic_against_the_plain_path(passes, holds):
+    """Three TF32 passes a product keep the kernel within the 2e-4 of the
+    output's largest magnitude that phase 1i and the `cuda` tests hold it to;
+    one pass does not."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 512, 2048, 2, 64))
+    want = attention.sdpa_plain(q, k, v)
+    err = ((_kernel_arithmetic(q, k, v, passes) - want).abs().max() / want.abs().max()).item()
+    assert (err <= 2e-4) == holds, err
+    if holds:
+        assert err <= 2e-5, err  # a tenth of the bound: f32 accuracy, not a near miss
