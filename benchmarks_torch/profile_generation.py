@@ -10,8 +10,8 @@ for dopri5 and euler-50, times three calls of the sample function after a
 warm-up, then traces one more with `torch.profiler`. For each sampler it
 prints the unprofiled wall times, the profiled wall time, the device's busy
 time (the union of its kernels' spans), the idle share of the wall time, and
-the DiT block forward kernels' time (the row design's kernel at T = 16, the
-split design's four at T = 64), launches and share of the busy time,
+the DiT block forward kernels' time (the tiled design's nine: its GEMMs,
+LayerNorms, silu and attention, namespace `tiled`), launches and share of the busy time,
 followed by the profiler's table of the kernels that took the most device
 time.
 """
@@ -26,8 +26,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 SEED = 0
-# the DiT block forward's kernels: the row design's, the split design's
-DIT_FWD_KERNELS = ("dit_block_kernel", "rows_gemm", "ln_qkv", "attention", "block_post")
+# the DiT block forward's kernels: all of them in dit_block.cu's namespace `tiled`
+DIT_FWD_KERNELS = ("tiled",)
 
 
 def busy_us(spans) -> float:

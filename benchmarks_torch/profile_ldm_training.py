@@ -18,8 +18,9 @@ more steps with `torch.profiler` and prints the unprofiled step times, the
 segments, the profiled wall time, the device's busy time (the union of its
 kernels' spans), the idle share of the median unprofiled wall time, kernels
 per step, the time, launches and share of busy time of each of the DiT
-block's kernels (the row design's at the dentate T = 16, the split design's
-at the census T = 64) and of the window pool's, and the profiler's table of
+block's kernels (the forward's, namespace `tiled`; the backward's row design
+at the dentate T = 16, its split design at the census T = 64) and of the
+window pool's, and the profiler's table of
 the operators that took the most device time.
 """
 
@@ -35,9 +36,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 SEED = 0
 PROFILED_STEPS = 3
-# the DiT block's kernels, forward and backward, of both designs
-DIT_KERNELS = ("dit_block_kernel", "dit_block_bwd_rows", "rows_gemm", "ln_qkv", "attention",
-               "block_post", "mlp_bwd", "attention_bwd", "qkv_bwd", "weight_grads")
+# the DiT block's kernels: the forward's (namespace `tiled`), then the
+# backward's of both designs, with the forward recompute of its split design
+DIT_KERNELS = ("tiled", "dit_block_bwd_rows", "rows_gemm", "ln_qkv",
+               "dit::(anonymous namespace)::attention", "mlp_bwd", "attention_bwd", "qkv_bwd",
+               "weight_grads")
 # the window pool's forward kernels (narrow: encoder_pool.cu; wide: window_pool_wide.cu)
 POOL_KERNELS = ("pool_fwd_kernel", "prep_weights", "ln_rows", "gemm_kernel", "attn_fwd",
                 "attn_merge")
@@ -112,7 +115,7 @@ def main(argv=None) -> int:
     print(f"   device kernel time (sum) {kernel_ms:.2f} ms per step over "
           f"{len(kernels) / PROFILED_STEPS:.0f} kernels", flush=True)
     for name in DIT_KERNELS + POOL_KERNELS:
-        evs = [e for e in kernels if re.search(rf"\b{name}\b", e.name)]
+        evs = [e for e in kernels if re.search(rf"\b{re.escape(name)}\b", e.name)]
         if not evs:
             continue
         ms = sum(e.time_range.end - e.time_range.start for e in evs) / 1e3 / PROFILED_STEPS

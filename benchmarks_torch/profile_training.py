@@ -42,7 +42,7 @@ ROOT = Path(__file__).resolve().parents[1]
 SEED, BATCH = 0, 128
 PROFILED_STEPS = 3
 TURN_STEPS = 5
-KERNELS = ("decoder_tail_fwd_kernel", "decoder_tail_bwd_kernel", "pool_fwd_kernel",
+KERNELS = ("decoder_tail_fwd_kernel", "tail_bwd", "sum_partials", "pool_fwd_kernel",
            "pool_bwd_kernel", "trunk_forward", "trunk_backward_rows", "weight_grads")
 
 

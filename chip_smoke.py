@@ -4,13 +4,14 @@
     python3 chip_smoke.py [--seed N] [--batch B]
 
 Phase 0 prints the card's name and power limit and builds the CUDA kernels from
-`scldm_torch/kernels/csrc`. Phase 1 holds the DiT block kernels against their
-plain PyTorch version on the card at the dentate generation path's shape (T =
-16 latent tokens, the row design), at the census sampler's and training step's
-(T = 64, the split design), at ragged ones and with the split design at the
-dentate shape, timing each beside its bound, and phase 1b the decoder-tail
-kernels (forward and backward) against theirs at the VAE training step's shape
-and a ragged one, timing both. Phase 2 runs CFG generation
+`scldm_torch/kernels/csrc`. Phase 1 holds the DiT block forward kernels
+against their plain PyTorch version on the card at the dentate generation
+path's shape (T = 16 latent tokens), at the census sampler's and training
+step's (T = 64), at ragged ones and at the long-latent pair's (T = 1,024),
+with a bitwise repeat at the sampler shapes, timing each beside its bound, and
+phase 1b the decoder-tail kernels (forward and backward) against theirs at the
+VAE training step's shape and a ragged one, with a bitwise repeat of the
+backward, timing both. Phase 2 runs CFG generation
 (`LDMTask.make_sample_fn`) at the dentate-gyrus configuration with random
 weights made from the seed, with dopri5 and with euler-50, checks the outputs,
 checks that every DiT block went through the kernel, and holds one DiT
@@ -55,7 +56,7 @@ attention kernel against its plain version at the census sampler's cross block
 (2B = 32 cells, G = 36,601 genes into 64 latent tokens) and a ragged shape,
 timing both and `scaled_dot_product_attention` as a yardstick. Phase 7 trains
 the census DiT (T = 64, E = 256, 8 layers) on the frozen census VAE's latents
-(B = 16) through the DiT kernels' split design, prints the step's segment
+(B = 16) through the DiT kernels (the backward's split design), prints the step's segment
 split, holds one step against the module path, holds the frozen encode through
 the wide window pool (`LDMTask(fused_encode=True)`) against the module encode,
 timing both in turns, trains the same steps through it with their segment
@@ -85,8 +86,9 @@ every sdpa call without a gradient takes that kernel: the frozen encode (17
 launches, held against the plain gate and timed against it in turns with peak
 memory), LDM training with the module DiT under a gradient (17 launches a
 step, all from the encode), and euler-10 generation at a generation batch of 4
-(72 launches in the DiT, 16 in the decode), its NB means held against the
-plain gate. The line before the last is a JSON
+through the DiT block kernel (72 of its launches, none of row 12's counted in
+the DiT, 16 in the decode), its NB means held against the module DiT and,
+through it, against the plain gate. The line before the last is a JSON
 summary of the kernels, each with its time beside the least time the card could
 take for the same work; the last is {"ok": true, "device": {...}}. Any failure
 raises, so the script exits non-zero and prints no result; so does a machine
@@ -185,17 +187,23 @@ def bound(n_bytes: float, flops: float, peak: float) -> dict:
 def dit_block_bound(R: int, backward: bool, T: int = DIT["seq_len"]) -> dict:
     """One DiT block at R rows of T tokens, f32. Operations: two per multiply-add of its
     products (per row the adaLN product 6E^2; per token qkv 3E^2, scores and
-    probabilities times values 2TE, the projection E^2, the SwiGLU 3E*Hd),
-    three times that for the backward, which recomputes the forward; the
-    elementwise work is left out. Bytes: each input read once and each output
-    written once (backward: x, c, dy and the weights in; dx, dc and the
-    weight gradients out)."""
+    probabilities times values 2TE, the projection E^2, the SwiGLU 3E*Hd);
+    the forward runs each product as three TF32 tensor-core passes, so three
+    times its operations against the TF32 peak (`f32_bound_ms`: once against
+    the f32 FMA peak, the yardstick before the forward used the tensor
+    cores); the backward, which recomputes the forward in f32 FMA, three
+    times the forward's operations against the f32 peak. The elementwise work
+    is left out. Bytes: each input read once and each output written once
+    (backward: x, c, dy and the weights in; dx, dc and the weight gradients
+    out)."""
     E = DIT["n_embed"]
     weights = 10 * E * E + 10 * E + 3 * E * HIDDEN
     flops = 2 * R * (6 * E * E + T * (4 * E * E + 2 * T * E + 3 * E * HIDDEN))
     if backward:
         return bound(4 * (3 * R * T * E + 2 * R * E + 2 * weights), 3 * flops, F32_FLOPS)
-    return bound(4 * (2 * R * T * E + R * E + weights), flops, F32_FLOPS)
+    n_bytes = 4 * (2 * R * T * E + R * E + weights)
+    return {**bound(n_bytes, 3 * flops, TF32_FLOPS),
+            "f32_bound_ms": bound(n_bytes, flops, F32_FLOPS)["bound_ms"]}
 
 
 def decoder_tail_bound(B: int, G: int, backward: bool) -> dict:
@@ -203,16 +211,26 @@ def decoder_tail_bound(B: int, G: int, backward: bool) -> dict:
     tokens, hidden 88). Its products take bf16 operands, so the bf16 tensor-
     core peak: per (cell, gene) pair, scores over the head blocks M*E,
     probabilities times values H*M*E, the up projection 2E*Hd, and the wv and
-    wmu dots, two operations per multiply-add; three times that for the
-    backward. Bytes: qp, q (G, E), kfull, vproj (B, H*M, E) and the weights in,
-    the (B, G) logits out; the backward reads dy and writes a gradient of
-    each input."""
+    wmu dots, two operations per multiply-add (`function_bound_ms` for the
+    backward: three times that). The backward's bound counts its products as
+    its kernel runs them on the tensor cores: per pair the scores one k16
+    step a head block (H*M*2HD), y (H*M*E), the up projection (2E*Hd), and
+    in two bf16 passes (an f32 cotangent split hi + lo) d(hn) (2E*Hd), dp
+    (E*H*M), dqp (H*M*HD), dw12 (2E*Hd), dvproj (H*M*E) and dkfull's head
+    blocks (H*M*HD). Bytes: qp, q (G, E), kfull, vproj (B, H*M, E) and the
+    weights in, the (B, G) logits out; the backward reads dy and writes a
+    gradient of each input."""
     E, H, M, Hd = 32, 4, 16, 88
+    HM, HD = H * M, E // H
     weights = 3 * E + 2 * E * Hd + Hd + 1
     inputs = 2 * G * E + 2 * B * H * M * E + weights
     flops = 2 * B * G * (M * E + H * M * E + 2 * E * Hd + Hd + E)
     if backward:
-        return bound(4 * (2 * inputs + B * G), 3 * flops, BF16_FLOPS)
+        n_bytes = 4 * (2 * inputs + B * G)
+        as_run = 2 * B * G * (HM * 2 * HD + HM * E + 2 * E * Hd
+                              + 2 * (2 * E * Hd + E * HM + HM * HD + 2 * E * Hd + HM * E + HM * HD))
+        return {**bound(n_bytes, as_run, BF16_FLOPS),
+                "function_bound_ms": bound(n_bytes, 3 * flops, BF16_FLOPS)["bound_ms"]}
     return bound(4 * (inputs + B * G), flops, BF16_FLOPS)
 
 
@@ -226,25 +244,30 @@ def time_in_turns(kernel, plain, reps: int) -> tuple:
     return (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
 
 
-# (T, R, design) of phases 1 and 1c: the dentate shapes first (T = 16, the
-# row design the wrapper picks there), then the split design at the same
-# shape for comparison, then the census DiT's (T = 64, the split design): the
-# sampler's 3B rows at a generation batch of 16, the training step's B = 16,
-# twice that, and a ragged R
-DIT_FWD_CASES = ((16, 384, None), (16, 5, None), (16, 384, "split"),
-                 (64, 3 * CENSUS_LDM_BATCH, None), (64, CENSUS_LDM_BATCH, None),
-                 (64, 2 * CENSUS_LDM_BATCH, None), (64, 5, None))
+# (T, R) of phase 1: the dentate sampler's rows (T = 16, R = 3B = 384) and a
+# ragged R, the census DiT's (T = 64): the sampler's 3B rows at a generation
+# batch of 16, the training step's B = 16, twice that, and a ragged R; and
+# the long-latent pair's (T = 1,024: 3 x LONG_GEN_BATCH rows)
+DIT_FWD_CASES = ((16, 384), (16, 5), (64, 3 * CENSUS_LDM_BATCH), (64, CENSUS_LDM_BATCH),
+                 (64, 2 * CENSUS_LDM_BATCH), (64, 5), (1024, 12))
+# the shapes whose forward is run twice and held to the same bits
+DIT_FWD_REPEAT = ((16, 384), (64, 3 * CENSUS_LDM_BATCH))
+# (T, R, design) of phase 1c: the dentate shapes first (T = 16, the row
+# design the wrapper picks there), then the split design at the same shape
+# for comparison, then the census DiT's (T = 64, the split design)
 DIT_BWD_CASES = ((16, 128, None), (16, 5, None), (16, 128, "split"),
                  (64, CENSUS_LDM_BATCH, None), (64, 2 * CENSUS_LDM_BATCH, None), (64, 5, None))
 
 
 def phase1_dit_block(seed: int) -> dict:
     """dit_block vs dit_block_reference (rtol = atol = 1e-4, f32 both, sums
-    in other orders) at the dentate sampler's rows (R = 3B = 384 of T = 16,
-    the row design), the census sampler's (R = 48 of T = 64 at a generation
-    batch of 16) and training step's (R = 16, and 32), ragged Rs, and the
-    split design at the dentate shape; kernel and plain timed in turns. Returns
-    {(T, R, design): {max_abs_err, ms, plain_ms}}."""
+    in other orders; the kernel's three TF32 passes a product keep f32
+    accuracy) at DIT_FWD_CASES: the dentate sampler's rows (R = 3B = 384 of
+    T = 16), the census sampler's (R = 48 of T = 64 at a generation batch of
+    16) and training step's (R = 16, and 32), ragged Rs and the long-latent
+    pair's (R = 12 of T = 1,024); the same bits on a second run at
+    DIT_FWD_REPEAT; kernel and plain timed in turns. Returns {(T, R):
+    {max_abs_err, ms, plain_ms}}."""
     import torch
 
     from scldm_torch.ops import fused_dit
@@ -253,23 +276,27 @@ def phase1_dit_block(seed: int) -> dict:
     g = torch.Generator(device="cuda").manual_seed(seed)
     w = random_block_weights(g)
     out = {}
-    for T, R, design in DIT_FWD_CASES:
+    for T, R in DIT_FWD_CASES:
         x = torch.randn(R, T, E, generator=g, device="cuda")
         c = torch.randn(R, E, generator=g, device="cuda")
-        got = fused_dit.dit_block(x, c, w, H, EPS, design=design)
+        got = fused_dit.dit_block(x, c, w, H, EPS)
         torch.cuda.synchronize()
         want = fused_dit.dit_block_reference(x, c, w, H, EPS)
         err = (got - want).abs().max().item()
         torch.testing.assert_close(got, want, **TOL)
         if (got - x).abs().max().item() < 1e-2:
             raise AssertionError("dit_block returned its input: the check would prove nothing")
-        used = design or fused_dit.pick_design(T, E, H, HIDDEN)
-        ms, plain_ms = time_in_turns(lambda: fused_dit.dit_block(x, c, w, H, EPS, design=design),
+        if (T, R) in DIT_FWD_REPEAT and not torch.equal(got, fused_dit.dit_block(x, c, w, H, EPS)):
+            raise AssertionError(f"dit_block at T={T}, R={R}: a second run gave other bits")
+        ms, plain_ms = time_in_turns(lambda: fused_dit.dit_block(x, c, w, H, EPS),
                                      lambda: fused_dit.dit_block_reference(x, c, w, H, EPS), 20)
-        out[(T, R, design)] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        out[(T, R)] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
         b = dit_block_bound(R, backward=False, T=T)
-        log(f"phase1 dit_block T={T} R={R} ({used} design): max_abs_err {err:.3e}  kernel "
-            f"{ms:.4f} ms  plain {plain_ms:.4f} ms  bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+        share = err / want.abs().max().item()
+        log(f"phase1 dit_block T={T} R={R}: max_abs_err {err:.3e} ({share:.1e} of max)  kernel "
+            f"{ms:.4f} ms  plain {plain_ms:.4f} ms  bound {b['bound_ms']:.4f} ms "
+            f"({b['bound_by']}, three TF32 passes; {b['f32_bound_ms']:.4f} ms in f32 FMA)"
+            + ("  same bits twice" if (T, R) in DIT_FWD_REPEAT else ""))
     return out
 
 
@@ -326,7 +353,8 @@ def phase1b_decoder_tail(seed: int) -> tuple[dict, dict]:
     logit or a gradient entry by up to about 1% of its tensor's largest
     magnitude. Held: every entry within 1e-2 of its tensor's largest
     magnitude, and at most 5% of the entries beyond 1e-4 of it (up to 1% seen,
-    for the keys' gradient)."""
+    for the keys' gradient). The backward, which sums in a fixed order, is
+    run twice at the training step's shape and held to the same bits."""
     import torch
 
     from scldm_torch.ops import fused_decoder as fd
@@ -362,6 +390,14 @@ def phase1b_decoder_tail(seed: int) -> tuple[dict, dict]:
         w = [x[n] for n in fd.WEIGHT_NAMES]
         dy = rnd(B, G, scale=1.0)
         args = (x["qp"], x["q"], kf, vp, w)
+        if G == N_GENES:  # no atomics: the backward repeats its bits
+            runs = [fd.decoder_tail_bwd(*args, dy, H, 1e-8) for _ in range(2)]
+            flat = [[*r[:4], *r[4]] for r in runs]
+            if not all(torch.equal(a, b) for a, b in zip(*flat)):
+                raise AssertionError(f"decoder_tail_bwd at G={G}, B={B}: a second run gave "
+                                     "other bits")
+            log(f"phase1b decoder_tail_bwd G={G} B={B}: the same bits twice")
+            del runs, flat
         leaves = [t.detach().clone().requires_grad_() for t in (*args[:4], *w)]
         graph = fd.decoder_tail_reference(*leaves[:4], leaves[4:], H, 1e-8)
         fns = {
@@ -1715,7 +1751,7 @@ def phase7_census_ldm(seed: int) -> dict:
     """Census LDM training and generation: the census VAE, frozen, under the
     census DiT (T = 64 latent tokens), random weights from CUDA generators
     with non-zero adaLN. Trains CENSUS_STEPS steps of B = 16 through the DiT
-    block kernels (the split design) and prints the segment split of three
+    block kernels (the backward's split design) and prints the segment split of three
     synchronised steps; holds one step against the module path; generates
     euler-50 at a generation batch of 16 through the algebraic decode;
     holds generate_from_noise with `fused_blocks` against the module
@@ -2046,20 +2082,23 @@ def plain_attention_gate():
 def phase9_long_latent(seed: int) -> int:
     """The census pair at 1,024 latent tokens (the census VAE and DiT with
     n_inducing_points = seq_len = 1,024; random weights from CUDA generators,
-    f32, the DiT kernels off: `LDMTask(fused_training=False)` and
-    `make_sample_fn(fused_blocks=False)`, since the DiT kernels' (T, T) score
-    tile does not fit one CTA at T = 1,024). Every sdpa call of the path where
-    no gradient flows takes the flash attention kernel: the frozen encode
-    (the MCAB, 1,024 queries over the 4,096-token window, and 16 encoder
-    blocks: 17 launches), held against the same encode through the plain
-    gate within 1e-4 of the largest latent and timed against it in turns
-    with each arm's peak memory; LDM_STEPS training steps, whose DiT runs
-    under a gradient on the plain path (17 launches a step, all from the
-    encode); one euler-10 generation call at a generation batch of 4 (9 DiT
-    evaluations of 8 blocks, 72 launches, and 16 from the decoder trunk of
-    the algebraic decode), with the NB means of the same noise through the
-    kernel and through the plain gate within 1e-3 of their largest. Returns
-    the kernel's launches in the counted runs."""
+    f32). Every sdpa call of the path where no gradient flows takes the flash
+    attention kernel: the frozen encode (the MCAB, 1,024 queries over the
+    4,096-token window, and 16 encoder blocks: 17 launches), held against the
+    same encode through the plain gate within 1e-4 of the largest latent and
+    timed against it in turns with each arm's peak memory; LDM_STEPS training
+    steps with `LDMTask(fused_training=False)` (the DiT backward kernels
+    refuse T = 1,024: one head's scores and their cotangents outgrow a CTA),
+    whose DiT runs under a gradient on the plain path (17 launches a step,
+    all from the encode); one euler-10 generation call at a generation batch
+    of 4 through `make_sample_fn(fused_blocks=True)`: 9 DiT evaluations of 8
+    blocks, 72 DiT block kernel launches and none of the flash attention
+    kernel in the DiT, 16 of those from the decoder trunk of the algebraic
+    decode. The NB means of the same noise through `generate_from_noise`
+    with fused_blocks=True are held against fused_blocks=False, and those
+    (whose DiT takes sdpa, so the flash attention kernel) against the plain
+    gate, each within 1e-3 of their largest. Returns (the flash attention
+    kernel's launches, the DiT block kernel's) in the counted runs."""
     import numpy as np
     import torch
 
@@ -2157,7 +2196,7 @@ def phase9_long_latent(seed: int) -> int:
     GB = LONG_GEN_BATCH
     cond = {"clusters": batches[-1]["clusters"][:GB]}
     fn = task.make_sample_fn(sfs, guidance_weight=GUIDANCE, sampling_method="euler",
-                             num_steps=LONG_EULER_STEPS, fused_blocks=False)
+                             num_steps=LONG_EULER_STEPS, fused_blocks=True)
     trunk, decoded = vae.decoder.trunk, []
 
     def counted_trunk(x):  # the decoder trunk's launches, apart from the DiT's
@@ -2171,6 +2210,7 @@ def phase9_long_latent(seed: int) -> int:
         fn(g, genes, cond)  # warm-up
         torch.cuda.synchronize()
         counter.reset()
+        fused_dit.DIT_BLOCK_LAUNCHES.reset()
         decoded.clear()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -2180,40 +2220,49 @@ def phase9_long_latent(seed: int) -> int:
     finally:
         del vae.decoder.trunk
     gen = counter.count
+    dit_launches = fused_dit.DIT_BLOCK_LAUNCHES.count
     peak = torch.cuda.max_memory_allocated() / 2**30
-    dit_launches = gen - sum(decoded)
     if counts.shape != (2 * GB, G) or z.shape != (2 * GB, LONG_LATENT, CENSUS_DIT["n_embed_input"]):
         raise AssertionError(f"phase9 generation: counts {tuple(counts.shape)}, z {tuple(z.shape)}")
     if not (torch.isfinite(z).all() and (counts >= 0).all() and (counts == counts.round()).all()):
         raise AssertionError("phase9 generation: non-finite latents or counts not integers")
     if (fn.drift_evals != LONG_EULER_STEPS - 1 or dit_launches != dit.n_layer * fn.drift_evals
-            or decoded != [L]):
-        raise AssertionError(f"phase9 generation: {dit_launches} DiT launches for "
-                             f"{fn.drift_evals} evaluations of {dit.n_layer} blocks, decoder "
-                             f"launches {decoded}")
+            or decoded != [L] or gen != L):
+        raise AssertionError(f"phase9 generation: {dit_launches} DiT block launches for "
+                             f"{fn.drift_evals} evaluations of {dit.n_layer} blocks, flash "
+                             f"attention launches {gen - sum(decoded)} in the DiT (want 0) and "
+                             f"{decoded} in the decoder")
     launches += gen
-    log(f"phase9 generation euler-{LONG_EULER_STEPS} (module DiT, algebraic decode), batch {GB}: "
-        f"{2 * GB / dt:.1f} cells/s ({dt:.3f} s for {2 * GB} cells), DiT evals "
-        f"{fn.drift_evals}, flash_attention launches {dit_launches} in the DiT and {decoded[0]} "
-        f"in the decode; counts {tuple(counts.shape)} mean {counts.mean().item():.4f}; peak "
-        f"memory {peak:.2f} GiB")
+    log(f"phase9 generation euler-{LONG_EULER_STEPS} (fused_blocks=True, algebraic decode), batch "
+        f"{GB}: {2 * GB / dt:.1f} cells/s ({dt:.3f} s for {2 * GB} cells), DiT evals "
+        f"{fn.drift_evals}, dit_block launches {dit_launches} ({dit.n_layer} an evaluation), "
+        f"flash_attention launches {decoded[0]} in the decode and none in the DiT; counts "
+        f"{tuple(counts.shape)} mean {counts.mean().item():.4f}; peak memory {peak:.2f} GiB")
     del counts, z
 
-    # -- the NB means of the same noise through the kernel and the plain gate
+    # -- the NB means of the same noise: the DiT kernel against the module DiT,
+    # and the module DiT through the flash attention kernel against the plain gate
     z0 = torch.randn(GB, LONG_LATENT, CENSUS_DIT["n_embed_input"], generator=g, device="cuda")
     log_sf = torch.full((GB,), 8.6, device="cuda")
-    kw = dict(guidance_weight=GUIDANCE, sampling_method="euler", num_steps=LONG_EULER_STEPS,
-              fused_blocks=False)
-    mu = task.generate_from_noise(z0, log_sf, genes, cond, **kw)[1]["mu"]
+    kw = dict(guidance_weight=GUIDANCE, sampling_method="euler", num_steps=LONG_EULER_STEPS)
+    before = fused_dit.DIT_BLOCK_LAUNCHES.count
+    mu_fused = task.generate_from_noise(z0, log_sf, genes, cond, fused_blocks=True, **kw)[1]["mu"]
+    if fused_dit.DIT_BLOCK_LAUNCHES.count - before != dit.n_layer * (LONG_EULER_STEPS - 1):
+        raise AssertionError("phase9: generate_from_noise(fused_blocks=True) skipped the kernel")
+    mu = task.generate_from_noise(z0, log_sf, genes, cond, fused_blocks=False, **kw)[1]["mu"]
     with plain_attention_gate():
-        mu_plain = task.generate_from_noise(z0, log_sf, genes, cond, **kw)[1]["mu"]
-    err = held_f32("phase9 generation mu, kernel vs plain gate", mu, mu_plain, 1e-3)
+        mu_plain = task.generate_from_noise(z0, log_sf, genes, cond, fused_blocks=False,
+                                            **kw)[1]["mu"]
+    err_fused = held_f32("phase9 generation mu, fused_blocks True vs False", mu_fused, mu, 1e-3)
+    err = held_f32("phase9 generation mu, flash attention vs plain gate", mu, mu_plain, 1e-3)
     scale = mu_plain.abs().max().item()
-    log(f"phase9 reference: generate_from_noise euler-{LONG_EULER_STEPS}, the kernel vs the "
-        f"plain gate: mu max abs err {err:.3e} ({err / scale:.1e} of max)")
+    log(f"phase9 reference: generate_from_noise euler-{LONG_EULER_STEPS}: mu with the DiT "
+        f"kernel vs the module DiT max abs err {err_fused:.3e} ({err_fused / scale:.1e} of max); "
+        f"the module DiT through the flash attention kernel vs the plain gate {err:.3e} "
+        f"({err / scale:.1e} of max)")
     del vae, dit, task
     torch.cuda.empty_cache()
-    return launches
+    return launches, dit_launches
 
 
 def main(argv=None) -> int:
@@ -2286,7 +2335,7 @@ def main(argv=None) -> int:
     trunk = phase8_trunk_training(args.seed, args.batch)
 
     # -- phase 9: the census pair at 1,024 latent tokens --------------------------
-    long_latent = phase9_long_latent(args.seed)
+    long_latent, long_dit = phase9_long_latent(args.seed)
 
     tail_src = "scldm_torch/kernels/csrc/decoder_tail.cu"
     pool_src = "scldm_torch/kernels/csrc/encoder_pool.cu"
@@ -2301,24 +2350,28 @@ def main(argv=None) -> int:
     dit_bwd_src = "scldm_torch/kernels/csrc/dit_block_bwd.cu"
     census_rows = (3 * CENSUS_LDM_BATCH, CENSUS_LDM_BATCH)  # the census sampler's and step's rows
     kernels = [
-        # the row design at the dentate shapes (T = 16), the split design at
-        # the census ones (T = 64)
+        # the forward at each T it runs at: the dentate sampler's rows (T = 16),
+        # the census sampler's (T = 64) and the long-latent pair's (T = 1,024)
         {"name": "dit_block", "route": "cuda", "source": dit_src,
          "replaces": "scldm_tpu/ops/fused_dit.py:155",
-         "launches": launches + ldm_fwd + ldm_gen, **dit_block[(16, 384, None)],
+         "launches": launches + ldm_fwd + ldm_gen, **dit_block[(16, 384)],
          **dit_block_bound(3 * args.batch, backward=False), "library_ms": None},
         {"name": "dit_block_bwd", "route": "cuda", "source": dit_bwd_src,
          "replaces": "scldm_tpu/ops/fused_dit.py:205", "launches": ldm_bwd,
          **dit_block_bwd[(16, 128, None)], **dit_block_bound(128, backward=True),
          "library_ms": None},
-        {"name": "dit_block_split", "route": "cuda", "source": dit_src,
+        {"name": "dit_block_t64", "route": "cuda", "source": dit_src,
          "replaces": "scldm_tpu/ops/fused_dit.py:155", "launches": census_ldm["dit_block"],
-         **dit_block[(64, census_rows[0], None)],
+         **dit_block[(64, census_rows[0])],
          **dit_block_bound(census_rows[0], backward=False, T=64), "library_ms": None},
         {"name": "dit_block_bwd_split", "route": "cuda", "source": dit_bwd_src,
          "replaces": "scldm_tpu/ops/fused_dit.py:205", "launches": census_ldm["dit_block_bwd"],
          **dit_block_bwd[(64, census_rows[1], None)],
          **dit_block_bound(census_rows[1], backward=True, T=64), "library_ms": None},
+        {"name": "dit_block_t1024", "route": "cuda", "source": dit_src,
+         "replaces": "scldm_tpu/ops/fused_dit.py:155", "launches": long_dit,
+         **dit_block[(1024, 3 * LONG_GEN_BATCH)],
+         **dit_block_bound(3 * LONG_GEN_BATCH, backward=False, T=1024), "library_ms": None},
         {"name": "decoder_tail_fwd", "route": "cuda", "source": tail_src,
          "replaces": "scldm_tpu/ops/fused_decoder.py:262",
          "launches": fwd_launches + parse["decoder_tail_fwd"], **tail_fwd,

@@ -33,7 +33,7 @@ _SIGNATURES = {
     "scldm_dit_block_forward": (
         [_P] * 13
         + [ctypes.c_int] * 5  # R, T, E, H, Hd
-        + [ctypes.c_float, ctypes.c_int, _P],  # eps, row_design, stream
+        + [ctypes.c_float, _P],  # eps, stream
         ctypes.c_int,
     ),
     # pointers: x, c, the nine (in, out) weights, the six (out, in) matrices,
@@ -52,12 +52,16 @@ _SIGNATURES = {
         + [ctypes.c_float, ctypes.c_float, _P],  # eps, scale, stream
         ctypes.c_int,
     ),
-    # pointers: qp, q, kfull, vproj, the six weights, dy, then the ten gradients
+    # pointers: qp, q, kfull, vproj, ln2g, ln2b, w12, wv, wmu, dy, then qq (dqp | dq),
+    # dkfull, dvproj, wvec (dw12 | dln2g | dln2b | dwmu | dwv | dbmu), workspace
     "scldm_decoder_tail_backward": (
-        [_P] * 21
+        [_P] * 15
         + [ctypes.c_int] * 6  # B, G, E, H, M, Hd
         + [ctypes.c_float, ctypes.c_float, _P],  # eps, scale, stream
         ctypes.c_int,
+    ),
+    "scldm_decoder_tail_backward_workspace_floats": (
+        [ctypes.c_int] * 3, ctypes.c_longlong,  # B, G, Hd
     ),
     # pointers: counts, table, qfull, ln1g, ln1b, wk, wv, num, den, m
     "scldm_encoder_pool_forward": (

@@ -42,6 +42,13 @@ WEIGHT_NAMES = ("ln2g", "ln2b", "w12", "wv", "wmu", "bmu")
 #: E=32 with 4 cross heads over 16 latent tokens (the reference config)
 KERNEL_SHAPES = ((32, 4, 16),)
 
+#: SwiGLU hidden widths the backward kernel is compiled for: the dentate
+#: decoder's MLP(32)
+BWD_HIDDEN = (88,)
+#: genes and cells a CTA of the backward kernel takes (kGenes, kCells in
+#: decoder_tail.cu's namespace bwd)
+BWD_GENE_TILE, BWD_CELL_BLOCK = 64, 16
+
 DECODER_TAIL_FWD_LAUNCHES = LaunchCounter()
 DECODER_TAIL_BWD_LAUNCHES = LaunchCounter()
 
@@ -129,8 +136,10 @@ def decoder_tail_reference(
     return (h * wmu.float()[None]).sum(dim=-1) + mlp_logit + bmu[0, 0].float()
 
 
-def _check(qp, q, kfull, vproj, weights, n_head) -> Tuple[int, int, int, int, int]:
-    """Validate the kernels' operands; returns (B, G, E, M, Hd)."""
+def _check(qp, q, kfull, vproj, weights, n_head,
+           backward: bool = False) -> Tuple[int, int, int, int, int]:
+    """Validate the kernels' operands (with `backward`, the backward kernel's
+    hidden width too); returns (B, G, E, M, Hd)."""
     G, E = qp.shape
     B, HM, _ = kfull.shape
     M = HM // n_head
@@ -150,9 +159,32 @@ def _check(qp, q, kfull, vproj, weights, n_head) -> Tuple[int, int, int, int, in
     for t in (qp, q, kfull, vproj, *weights):
         if t.device != qp.device or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError("the decoder-tail kernels need contiguous float32 tensors on one device")
+    if backward and Hd not in BWD_HIDDEN:
+        raise ValueError(
+            f"the decoder-tail backward kernel is built for Hd in {BWD_HIDDEN}, got {Hd}")
     if qp.data_ptr() % 16 or q.data_ptr() % 16:
         raise ValueError("the decoder-tail kernels read qp and q rows as 16-byte vectors")
     return B, G, E, M, Hd
+
+
+def _wvec_floats(E: int, Hd: int) -> int:
+    """dw12 and the vector gradients in one buffer, padded to a multiple of 4
+    (`bwd::wlen` in decoder_tail.cu)."""
+    return -(-(2 * E * Hd + 3 * E + Hd + 1) // 4) * 4
+
+
+def decoder_tail_bwd_workspace_floats(B: int, G: int, Hd: int, E: int = 32, HM: int = 64,
+                                      HD: int = 8) -> int:
+    """Device workspace of the backward, in floats (`bwd::workspace_floats` in
+    decoder_tail.cu): the CTAs' partials, summed afterwards in a fixed order.
+    Per cell block, dqp and dq of every gene (2GE); per gene tile and cell,
+    dvproj (HM*E) and dkfull's head blocks (HM*HD); per CTA, dw12 and the
+    vector gradients (2E*Hd + 3E + Hd + 1, padded to a multiple of 4); and
+    those summed over the gene tiles, per cell block."""
+    n_gt = -(-G // BWD_GENE_TILE)
+    n_cb = -(-B // BWD_CELL_BLOCK)
+    nw = _wvec_floats(E, Hd)
+    return n_cb * 2 * G * E + n_gt * B * HM * (E + HD) + n_gt * n_cb * nw + n_cb * nw
 
 
 def _device_of(qp: torch.Tensor) -> str:
@@ -187,39 +219,48 @@ def decoder_tail_fwd(qp, q, kfull, vproj, weights, n_head: int, eps: float) -> t
 
 def decoder_tail_bwd(qp, q, kfull, vproj, weights, dy, n_head: int, eps: float):
     """Recompute-VJP of the tail: (dqp, dq, dkfull, dvproj, (dln2g, dln2b,
-    dw12, dwv, dwmu, dbmu)). The CUDA kernel on CUDA tensors (it writes the
-    head blocks of dkfull and leaves its off-block entries 0, which
-    `build_attention_operands` masks out anyway); on CPU tensors the plain
-    version's autograd."""
+    dw12, dwv, dwmu, dbmu)). The CUDA kernels on CUDA tensors (they write the
+    head blocks of dkfull and leave its off-block entries 0, which
+    `build_attention_operands` masks out anyway; the weight gradients come
+    back as views of one buffer); on CPU tensors the plain version's
+    autograd."""
     if _device_of(qp) == "cpu":
         inputs = [t.detach().requires_grad_() for t in (qp, q, kfull, vproj, *weights)]
         with torch.enable_grad():
             out = decoder_tail_reference(*inputs[:4], inputs[4:], n_head, eps)
             grads = torch.autograd.grad(out, inputs, dy)
         return (*grads[:4], tuple(grads[4:]))
-    B, G, E, M, Hd = _check(qp, q, kfull, vproj, weights, n_head)
+    B, G, E, M, Hd = _check(qp, q, kfull, vproj, weights, n_head, backward=True)
     dy = dy.float().contiguous()
     if tuple(dy.shape) != (B, G) or dy.device != qp.device:
         raise ValueError(f"dy must be ({B}, {G}) on {qp.device}, got {tuple(dy.shape)}")
     from scldm_torch.kernels import build
 
     lib = build.load()
-    # the kernel adds its partial sums into these with atomics
-    grads = [torch.zeros_like(t) for t in (qp, q, kfull, vproj, *weights)]
+    qq = torch.empty((2, G, E), dtype=torch.float32, device=qp.device)  # dqp, dq
+    dk = torch.zeros_like(kfull)  # the kernel writes the head blocks only
+    dv = torch.empty_like(vproj)
+    wvec = torch.empty(_wvec_floats(E, Hd), dtype=torch.float32, device=qp.device)
+    workspace = torch.empty(decoder_tail_bwd_workspace_floats(B, G, Hd), dtype=torch.float32,
+                            device=qp.device)
     with torch.cuda.device(qp.device):
         stream = torch.cuda.current_stream(qp.device).cuda_stream
         code = lib.scldm_decoder_tail_backward(
             qp.data_ptr(), q.data_ptr(), kfull.data_ptr(), vproj.data_ptr(),
-            *(w.data_ptr() for w in weights), dy.data_ptr(),
-            *(g.data_ptr() for g in grads),
+            *(w.data_ptr() for w in weights[:5]), dy.data_ptr(),
+            qq.data_ptr(), dk.data_ptr(), dv.data_ptr(), wvec.data_ptr(), workspace.data_ptr(),
             B, G, E, n_head, M, Hd, eps, 1.0 / (E // n_head) ** 0.5, stream,
         )
     build.check(lib, code, "decoder_tail backward launch")
     DECODER_TAIL_BWD_LAUNCHES.count += 1
-    dqp, dq, dk, dv, dln2g, dln2b, dw12, dwv, dwmu, dbmu = grads
+    n12 = E * 2 * Hd
+    dw12 = wvec[:n12].view(E, 2 * Hd)
+    dln2g, dln2b, dwmu = (wvec[n12 + i * E:n12 + (i + 1) * E].view(1, E) for i in range(3))
+    dwv = wvec[n12 + 3 * E:n12 + 3 * E + Hd].view(1, Hd)
+    dbmu = wvec[n12 + 3 * E + Hd:n12 + 3 * E + Hd + 1].view(1, 1)
     # the forward rounds qp, kfull, vproj and w12 to bf16 before their
     # products: their gradients are rounded there too, as the plain version's
-    return _bf(dqp), dq, _bf(dk), _bf(dv), (dln2g, dln2b, _bf(dw12), dwv, dwmu, dbmu)
+    return _bf(qq[0]), qq[1], _bf(dk), _bf(dv), (dln2g, dln2b, _bf(dw12), dwv, dwmu, dbmu)
 
 
 class _DecoderTail(torch.autograd.Function):

@@ -8,17 +8,25 @@ joins the two under autograd, as `fused_dit_block_trainable` does.
 `fused_dit_forward` drives the forward through a whole DiT in the CFG
 sampler, `fused_dit_train_apply` both through the DiT trunk in LDM training.
 
-Each direction has two designs, both hand-written. The row design keeps a
-whole DiT row in one CTA's shared memory (`dit_block_row_smem_bytes`,
-`dit_block_bwd_row_smem_bytes`); the split design splits the block by what
-each stage needs (one CTA per row and token tile, per row and head, or per
-tile of rows) and hands intermediates on through a device workspace, so that
-its shared memory is bounded by a token tile and one head's scores rather
-than by the row (`dit_block_smem_bytes`, `dit_block_bwd_smem_bytes`). The
-wrappers take the row design wherever a row fits one CTA (the dentate DiT's
-T = 16 latent tokens, where it is the faster of the two) and the split
-design elsewhere (the census DiT's T = 64); `pick_design` says which, and
-the need is checked before launch.
+The forward has one design, "tiled": tensor-core GEMMs over all R*T tokens
+(a 64-token tile feeds each staged weight tile), a LayerNorm kernel and an
+attention that streams the keys, with intermediates in a device workspace
+(`dit_block_smem_bytes`, `dit_block_workspace_floats`); no CTA holds a row,
+so every T runs. From T = TILED_FLASH_MIN_T its attention stage launches the
+long-axis flash attention kernel (`ops/flash_attention.py`'s) on views of the
+workspace, from the C side: `FLASH_ATTENTION_LAUNCHES` does not count those,
+`DIT_BLOCK_LAUNCHES` counts the block once.
+
+The backward has two designs. The row design keeps a whole DiT row in one
+CTA's shared memory (`dit_block_bwd_row_smem_bytes`); the split
+design splits the block by what each stage needs (one CTA per row and token
+tile, per row and head, or per tile of rows) and hands intermediates on
+through a device workspace, so that its shared memory is bounded by a token
+tile and one head's scores (`dit_block_bwd_smem_bytes`). The backward takes
+the row design wherever a row fits one CTA (the dentate DiT's T = 16) and
+the split design elsewhere (the census DiT's T = 64) up to the T where one
+head's scores outgrow a CTA; `pick_design` says which, and the need is
+checked before launch.
 
 `dit_block` and `dit_block_bwd` launch their kernels on CUDA tensors and run
 the plain PyTorch versions (`dit_block_reference`,
@@ -42,10 +50,19 @@ MATRIX_NAMES = ("wada", "wqkv", "wproj", "w1", "w2", "wmlp")
 
 #: shared memory one CTA may use on Hopper (232,448 bytes)
 MAX_SMEM_BYTES = 227 * 1024
-#: tokens per CTA of the kernels' token-wise stages (kTok in dit_common.cuh)
+#: tokens per CTA of the backward's token-wise stages (kTok in dit_common.cuh)
 TOKEN_TILE = 16
-#: rows per CTA of their per-row products (kRowTile in dit_common.cuh)
+#: rows per CTA of its per-row products (kRowTile in dit_common.cuh)
 ROW_TILE = 8
+#: tokens per CTA of the forward's products and attention (kBM, kQ in dit_block.cu)
+TILED_TOKENS = 64
+#: stages in the ring of its products (kStages in dit_block.cu)
+TILED_STAGES = 3
+#: the widest E its LayerNorm kernel keeps in registers (kMaxVec float4s a lane)
+TILED_MAX_E = 512
+#: the T from which its attention stage takes the long-axis flash attention
+#: kernel (kFlashMinT in dit_block.cu)
+TILED_FLASH_MIN_T = 128
 
 
 class LaunchCounter:
@@ -117,56 +134,57 @@ def _rows_gemm_bytes(K: int) -> int:
 
 
 def _attention_bytes(T: int, hd: int) -> int:
-    """The attention forward's CTA, one (row, head): q, k (padded), v and
-    the (T, T) scores."""
+    """The backward's attention forward CTA, one (row, head): q, k (padded),
+    v and the (T, T) scores (dit_common.cuh)."""
     return 4 * (2 * T * hd + T * (hd + 1) + T * T)
 
 
-def dit_block_row_smem_bytes(T: int, E: int, n_head: int, hidden: int) -> int:
-    """Dynamic shared memory of the forward's row kernel, one CTA per row: x,
-    h, qkv-or-hidden, silu(c), mod and the scores (dit_block.cu)."""
-    return 4 * (2 * T * E + T * max(3 * E, hidden) + 7 * E + n_head * T * T)
-
-
 def dit_block_bwd_row_smem_bytes(T: int, E: int, n_head: int, hidden: int) -> int:
-    """Dynamic shared memory of the backward's row kernel: the forward's,
-    plus the score cotangents, dmod and the LayerNorm statistics
-    (dit_block_bwd.cu)."""
+    """Dynamic shared memory of the backward's row kernel, one CTA per row: x,
+    h, qkv-or-hidden, silu(c), mod, the scores and their cotangents, dmod and
+    the LayerNorm statistics (dit_block_bwd.cu)."""
     return 4 * (2 * T * E + T * max(3 * E, hidden) + 2 * n_head * T * T + 13 * E + 4 * T)
 
 
 def pick_design(T: int, E: int, n_head: int, hidden: int, backward: bool = False) -> str:
-    """The design the wrappers take: "row" where a row fits one CTA, "split"
-    elsewhere."""
-    row = (dit_block_bwd_row_smem_bytes if backward else dit_block_row_smem_bytes)(
-        T, E, n_head, hidden)
+    """The design the wrappers take: the forward "tiled" at every T; the
+    backward "row" where a row fits one CTA, "split" elsewhere."""
+    if not backward:
+        return "tiled"
+    row = dit_block_bwd_row_smem_bytes(T, E, n_head, hidden)
     return "row" if row <= MAX_SMEM_BYTES else "split"
 
 
+def _head_pad(hd: int) -> int:
+    """The forward attention's compiled head width: hd zero-padded to 16, 32 or 64."""
+    return 16 if hd <= 16 else 32 if hd <= 32 else 64
+
+
 def dit_block_smem_bytes(T: int, E: int, n_head: int, hidden: int) -> Dict[str, int]:
-    """Dynamic shared memory of one CTA of each kernel of the forward's split
-    design (the layouts in dit_block.cu and dit_common.cuh), by kernel:
-    bounded by a token tile and by one head's scores, not by the row."""
+    """Dynamic shared memory of one CTA of each kernel of the forward
+    (dit_block.cu, namespace `tiled`), by kernel: the GEMM's ring of three
+    stages of 64 x 32 of A (pitch 36) and 32 x 64 of weights (pitch 72); the
+    attention's 64 queries and two stages of 64 keys and values (pitch DP +
+    4, DP the head width padded to 16, 32 or 64). The LayerNorm and silu
+    kernels take none. None grows with T."""
     return {
-        "rows_gemm": _rows_gemm_bytes(E),
-        "ln_qkv": 4 * TOKEN_TILE * E,
-        "attention": _attention_bytes(T, E // n_head),
-        "block_post": 4 * TOKEN_TILE * (2 * E + hidden),
+        "gemm": 4 * TILED_STAGES * (TILED_TOKENS * 36 + 32 * 72),
+        "attention": 4 * 5 * TILED_TOKENS * (_head_pad(E // n_head) + 4),
     }
 
 
 def dit_block_bwd_smem_bytes(T: int, E: int, n_head: int, hidden: int) -> Dict[str, int]:
     """Dynamic shared memory of one CTA of each kernel of the backward's split
-    design (the layouts in dit_block_bwd.cu): the forward's first three, then
-    the MLP branch's backward per token tile, the attention's per (row,
-    head), the qkv product's per token tile, and dc over ROW_TILE rows of
-    dmod (6E)."""
+    design (the layouts in dit_block_bwd.cu and dit_common.cuh): the forward
+    recompute's mod product over ROW_TILE rows, LayerNorm and qkv per token
+    tile, attention per (row, head); then the MLP branch's backward per token
+    tile, the attention's per (row, head), the qkv product's per token tile,
+    and dc over ROW_TILE rows of dmod (6E)."""
     hd = E // n_head
-    fwd = dit_block_smem_bytes(T, E, n_head, hidden)
     return {
-        "rows_gemm": fwd["rows_gemm"],
-        "ln_qkv": fwd["ln_qkv"],
-        "attention": fwd["attention"],
+        "rows_gemm": _rows_gemm_bytes(E),
+        "ln_qkv": 4 * TOKEN_TILE * E,
+        "attention": _attention_bytes(T, hd),
         "mlp_bwd": 4 * (TOKEN_TILE * (2 * E + hidden) + 2 * TOKEN_TILE),
         "attention_bwd": 4 * (2 * T * hd + 2 * T * (hd + 1) + 2 * T * T),
         "qkv_bwd": 4 * (TOKEN_TILE * 5 * E + 2 * TOKEN_TILE),
@@ -174,10 +192,12 @@ def dit_block_bwd_smem_bytes(T: int, E: int, n_head: int, hidden: int) -> Dict[s
     }
 
 
-def dit_block_workspace_floats(R: int, T: int, E: int) -> int:
-    """Device workspace of the forward's split design, in floats: per row
-    mod (6E), per token qkv and the attention output (4E) (dit_block.cu)."""
-    return 6 * R * E + 4 * R * T * E
+def dit_block_workspace_floats(R: int, T: int, E: int, hidden: int) -> int:
+    """Device workspace of the forward, in floats: per row mod (6E); per token
+    qkv (3E), h and then the attention output (E), the residual stream after
+    the attention branch (E) and the SwiGLU hidden (`launch_tiled` in
+    dit_block.cu; silu(c) and h2 reuse slots that are free by then)."""
+    return 6 * R * E + R * T * (5 * E + hidden)
 
 
 def dit_block_bwd_workspace_floats(R: int, T: int, E: int, hidden: int) -> int:
@@ -212,14 +232,22 @@ def _check_shapes(x, c, weights, n_head, backward: bool = False,
             f"(E={E}, hidden={hidden}, n_head={n_head})"
         )
     design = design or pick_design(T, E, n_head, hidden, backward)
-    if design == "row":
-        need = {"row": (dit_block_bwd_row_smem_bytes if backward else dit_block_row_smem_bytes)(
-            T, E, n_head, hidden)}
+    if not backward:
+        hd = E // n_head
+        if design != "tiled":
+            raise ValueError(f"the forward's design is 'tiled' (or None), got {design!r}")
+        if E > TILED_MAX_E or hd % 4 or hd > 64:
+            raise ValueError(
+                f"dit_block needs E <= {TILED_MAX_E} and a head width that is a multiple of 4 "
+                f"up to 64 (E={E}, n_head={n_head})"
+            )
+        need = dit_block_smem_bytes(T, E, n_head, hidden)
+    elif design == "row":
+        need = {"row": dit_block_bwd_row_smem_bytes(T, E, n_head, hidden)}
     elif design == "split":
-        split = dit_block_bwd_smem_bytes if backward else dit_block_smem_bytes
-        need = split(T, E, n_head, hidden)
+        need = dit_block_bwd_smem_bytes(T, E, n_head, hidden)
     else:
-        raise ValueError(f"design must be 'row', 'split' or None, got {design!r}")
+        raise ValueError(f"the backward's design is 'row', 'split' or None, got {design!r}")
     kernel, most = max(need.items(), key=lambda kv: kv[1])
     if most > MAX_SMEM_BYTES:
         raise ValueError(
@@ -242,8 +270,8 @@ def dit_block(
 ) -> torch.Tensor:
     """One adaLN-zero DiT block, x (R, T, E) f32, c (R, E) f32 -> (R, T, E) f32.
 
-    CUDA tensors run the hand-written kernels on the current stream, of
-    `design` ("row" or "split"; None: `pick_design`'s); CPU tensors run
+    CUDA tensors run the hand-written kernels on the current stream (`design`
+    "tiled" or None: the forward has one design); CPU tensors run
     `dit_block_reference`."""
     if x.device.type == "cpu":
         return dit_block_reference(x, c, weights, n_head, eps)
@@ -258,14 +286,15 @@ def dit_block(
     lib = build.load()
     R, T, E = x.shape
     out = torch.empty_like(x)
-    workspace = torch.empty(dit_block_workspace_floats(R, T, E) if design == "split" else 0,
-                            dtype=torch.float32, device=x.device)
+    hidden = weights["w1"].shape[1]
+    workspace = torch.empty(dit_block_workspace_floats(R, T, E, hidden), dtype=torch.float32,
+                            device=x.device)
     # the library's CUDA runtime launches on the current device: make it x's
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = lib.scldm_dit_block_forward(
             *(t.data_ptr() for t in tensors), out.data_ptr(), workspace.data_ptr(),
-            R, T, E, n_head, weights["w1"].shape[1], eps, int(design == "row"), stream,
+            R, T, E, n_head, hidden, eps, stream,
         )
     build.check(lib, code, "dit_block launch")
     DIT_BLOCK_LAUNCHES.count += 1
@@ -286,7 +315,7 @@ def dit_block_bwd(
     weight gradients, summed over the rows, in `weights`' (in, out) layout).
 
     CUDA tensors run the hand-written kernels on the current stream, of
-    `design` as in `dit_block`; CPU tensors run
+    `design` ("row" or "split"; None: `pick_design`'s); CPU tensors run
     `dit_block_backward_reference`. The kernels also read the
     matrices in nn.Linear's (out, in) layout: `weights_t` (contiguous, keyed
     by MATRIX_NAMES) or, if None, transposed copies made here. The matrix

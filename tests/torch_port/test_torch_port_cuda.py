@@ -5,15 +5,18 @@ file imports no jax, so it also runs where only torch is installed:
 
     python -m pytest --noconftest -m cuda tests/torch_port/test_torch_port_cuda.py
 
-The DiT block: rtol = atol = 1e-4, both sides compute in f32 and differ in
-the order of their sums; its backward holds dx and dc at the same bound and
+The DiT block: rtol = atol = 1e-4, both sides compute in f32 (the kernel's
+three TF32 tensor-core passes a product keep f32 accuracy) and differ in
+the order of their sums, which the kernel takes in a fixed order (the same
+bits every run); its backward holds dx and dc at the same bound and
 each weight gradient within 1e-4 of its tensor's largest magnitude (sums
 over every token in other orders). The decoder tail: both sides round the same
 operands to bf16 and accumulate in f32, so a different summation order
 flips a bf16 rounding now and then, which moves an entry by up to about 1%
 of its tensor's largest magnitude: the logits and each gradient are held
 within 1e-2 of that magnitude everywhere, and within 1e-4 of it on all but
-5% of the entries (chip_smoke.py's phase 1b holds the same bounds). The
+5% of the entries (chip_smoke.py's phase 1b holds the same bounds); its
+backward sums in a fixed order and repeats its bits. The
 encoder pools round the same operands as their plain versions and sum in
 another order too (the backward's with atomics): the tail's bounds for den,
 m and every gradient, and for num within 3e-4 rather than 1e-4 on all but 5%
@@ -111,14 +114,35 @@ def test_kernel_at_t64_matches_reference_on_gpu(R):
     assert (got - x).abs().max() > 1e-2
 
 
+# the long-latent pair's T = 1,024 (the 3 x 4 rows of a generation batch of
+# 4), where the earlier designs raised: the keys stream through the CTA
+@pytest.mark.parametrize("R", [12])
+def test_kernel_at_t1024_matches_reference_on_gpu(R):
+    x, c, w = _inputs(R, "cuda", seed=5, T=1024)
+    before = port.DIT_BLOCK_LAUNCHES.count
+    got = port.dit_block(x, c, w, H, EPS)
+    torch.cuda.synchronize()
+    assert port.DIT_BLOCK_LAUNCHES.count == before + 1
+    torch.testing.assert_close(got, port.dit_block_reference(x, c, w, H, EPS), rtol=1e-4, atol=1e-4)
+    assert (got - x).abs().max() > 1e-2
+
+
+# no atomics: every sum in a fixed order, the same bits every run
+@pytest.mark.parametrize("T,R", [(16, 384), (64, 48)])
+def test_kernel_repeats_its_bits_on_gpu(T, R):
+    x, c, w = _inputs(R, "cuda", seed=7, T=T)
+    assert torch.equal(port.dit_block(x, c, w, H, EPS), port.dit_block(x, c, w, H, EPS))
+
+
 @pytest.mark.parametrize("R", [384, 5])
 def test_split_design_at_t16_matches_reference_on_gpu(R):
-    """The split design where the row design runs by default (T = 16): the
-    same function, forward and backward."""
+    """The backward's split design where its row design runs by default (T =
+    16), after the forward's one design there: the same function both ways."""
     x, c, w = _inputs(R, "cuda", seed=2)
     dy = torch.randn(x.shape, generator=torch.Generator("cuda").manual_seed(6), device="cuda")
-    assert port.pick_design(16, E, H, HIDDEN) == "row"
-    got = port.dit_block(x, c, w, H, EPS, design="split")
+    assert port.pick_design(16, E, H, HIDDEN) == "tiled"
+    assert port.pick_design(16, E, H, HIDDEN, backward=True) == "row"
+    got = port.dit_block(x, c, w, H, EPS)
     grads = port.dit_block_bwd(x, c, w, dy, H, EPS, design="split")
     torch.cuda.synchronize()
     torch.testing.assert_close(got, port.dit_block_reference(x, c, w, H, EPS), rtol=1e-4, atol=1e-4)
@@ -126,7 +150,9 @@ def test_split_design_at_t16_matches_reference_on_gpu(R):
 
 
 # other widths: T = 20 leaves a ragged token tile (and, split, two tiles of
-# dmod partials per row); E = 64 with 4 heads of 16 and hidden 172
+# dmod partials per row) and, forward, token tiles across rows that T does
+# not divide; E = 64 with 4 heads of 16 and hidden 172. `design` is the
+# backward's; the forward has one.
 @pytest.mark.parametrize("design", ["row", "split"])
 @pytest.mark.parametrize("T,E_,H_,Hd_", [(20, 256, 8, 684), (64, 64, 4, 172)])
 def test_both_designs_at_other_widths_on_gpu(design, T, E_, H_, Hd_):
@@ -141,9 +167,9 @@ def test_both_designs_at_other_widths_on_gpu(design, T, E_, H_, Hd_):
          "w1": f(E_, Hd_, scale=E_**-0.5), "w2": f(E_, Hd_, scale=E_**-0.5),
          "wmlp": f(Hd_, E_, scale=Hd_**-0.5)}
     x, dy, c = f(3, T, E_), f(3, T, E_), f(3, E_)
-    if design == "row" and port.pick_design(T, E_, H_, Hd_) != "row":
+    if design == "row" and port.pick_design(T, E_, H_, Hd_, backward=True) != "row":
         pytest.skip("a row does not fit one CTA at this width")
-    got = port.dit_block(x, c, w, H_, EPS, design=design)
+    got = port.dit_block(x, c, w, H_, EPS)
     grads = port.dit_block_bwd(x, c, w, dy, H_, EPS, design=design)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, port.dit_block_reference(x, c, w, H_, EPS), rtol=1e-4,
@@ -280,6 +306,18 @@ def test_decoder_tail_matches_reference_on_gpu(G, B):
     assert tail.DECODER_TAIL_FWD_LAUNCHES.count == fwd + 1
     assert tail.DECODER_TAIL_BWD_LAUNCHES.count == bwd + 1
     assert_tail_close(got, tail_outputs_and_grads(tail.decoder_tail_reference, x))
+
+
+def test_decoder_tail_backward_repeats_its_bits_on_gpu():
+    """The backward writes per-CTA partials and sums them in a fixed order
+    (no atomics): the same bits on two runs at the training step's shape."""
+    x = _tail_inputs(17_002, 128, "cuda", seed=2)
+    w = [t.contiguous() for t in tail.pack_weights(*(x[n] for n in TAIL_RAW))]
+    kf, vp = tail.build_attention_operands(x["k"], x["v"], x["wproj"], TAIL_H)
+    dy = torch.randn(128, 17_002, generator=torch.Generator("cuda").manual_seed(5), device="cuda")
+    runs = [tail.decoder_tail_bwd(x["qp"], x["q"], kf, vp, w, dy, TAIL_H, 1e-8) for _ in range(2)]
+    flat = [[*r[:4], *r[4]] for r in runs]
+    assert all(torch.equal(a, b) for a, b in zip(*flat))
 
 
 @pytest.mark.skipif(torch.cuda.device_count() < 2, reason="needs two GPUs")
@@ -640,6 +678,19 @@ def test_flash_cross_matches_reference_on_gpu(G, B):
     assert fc.FLASH_CROSS_LAUNCHES.count == before + 1
     assert got.shape == (B, G, CROSS_E) and got.dtype == torch.float32
     assert_bf16_close(got, fc.flash_cross_reference(qp, k, v, CROSS_H), f"y at G={G}, B={B}")
+
+
+@pytest.mark.skipif(torch.cuda.device_count() < 2, reason="needs two GPUs")
+def test_flash_cross_on_a_device_other_than_the_current():
+    """Tensors on cuda:1 while cuda:0 is current, after a launch on cuda:0:
+    the launch and its shared memory attribute go to the tensors' device."""
+    fc.flash_cross_attention(*_cross_inputs(77, 1, "cuda:0"), CROSS_H)
+    torch.cuda.synchronize(0)
+    qp, k, v = _cross_inputs(5000, 32, "cuda:1", seed=1)
+    got = fc.flash_cross_attention(qp, k, v, CROSS_H)
+    torch.cuda.synchronize(1)
+    assert got.device == qp.device and torch.cuda.current_device() == 0
+    assert_bf16_close(got, fc.flash_cross_reference(qp, k, v, CROSS_H), "y on cuda:1")
 
 
 def test_flash_cross_backward_replays_plain_attention_on_gpu():

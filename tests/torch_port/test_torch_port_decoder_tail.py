@@ -122,3 +122,35 @@ def test_shape_checks_and_devices():
     with pytest.raises(ValueError, match="cuda or cpu"):
         port.decoder_tail_fwd(*meta, [t.to("meta") for t in w], H, 1e-8)
     assert port._check(x["qp"], x["q"], kf, vp, w, H) == (3, 20, E, M, HID)
+
+
+@pytest.mark.parametrize("B,G", [(128, 17_002), (19, 300), (1, 77)])
+def test_backward_workspace_floats(B, G):
+    """The backward's workspace holds every CTA's partials, which a second
+    kernel adds in a fixed order (no atomics): per block of 16 cells dqp and
+    dq of every gene; per tile of 64 genes and cell dvproj and dkfull's head
+    blocks; per CTA dw12 and the vector gradients (padded to a multiple of
+    4), and those summed over the gene tiles per cell block."""
+    n_gt, n_cb = -(-G // 64), -(-B // 16)
+    nw = 2 * E * HID + 3 * E + HID + 1
+    nw += -nw % 4
+    want = n_cb * 2 * G * E + n_gt * B * H * M * (E + E // H) + (n_gt + 1) * n_cb * nw
+    assert port.decoder_tail_bwd_workspace_floats(B, G, HID) == want
+    assert nw % 4 == 0 and nw >= 2 * E * HID + 3 * E + HID + 1
+    # the training step's: 108.3 M floats, 433 MB, most of it dvproj's partials
+    if (B, G) == (128, 17_002):
+        assert 4 * want == 433_197_696
+
+
+def test_backward_hidden_width_outside_the_kernel_raises():
+    """The backward kernel is compiled for the dentate decoder's hidden width
+    (88); the launch's check refuses another before any launch, while the
+    forward takes it."""
+    assert port.BWD_HIDDEN == (HID,)
+    x = {k: torch.from_numpy(v) for k, v in _make(20, 3, 4).items()}
+    w = list(port.pack_weights(*(x[n] for n in RAW)))
+    w[2], w[3] = torch.zeros(E, 2 * 96), torch.zeros(1, 96)
+    kf, vp = port.build_attention_operands(x["k"], x["v"], x["wproj"], H)
+    assert port._check(x["qp"], x["q"], kf, vp, w, H) == (3, 20, E, M, 96)
+    with pytest.raises(ValueError, match="backward kernel is built for Hd"):
+        port._check(x["qp"], x["q"], kf, vp, w, H, backward=True)

@@ -108,29 +108,33 @@ def _zero_weights(E, hidden):
 
 
 def test_smem_need_and_limit():
-    """The dentate sampler's rows (T = 16, E = 256, Hd = 684) fit one CTA, so
-    the row design runs there; a census row (T = 64) does not, and every
-    kernel of the split design fits: its need is bounded by a token tile and
-    one head's (T, T) scores, not by the row. At T = 256 one head's scores
-    outgrow a CTA and the check raises with the byte count."""
-    assert port.dit_block_row_smem_bytes(16, 256, 8, 684) <= port.MAX_SMEM_BYTES
-    assert port.dit_block_row_smem_bytes(64, 256, 8, 684) == 465_920 > port.MAX_SMEM_BYTES
-    assert [port.pick_design(T, 256, 8, 684) for T in (16, 64)] == ["row", "split"]
-    with pytest.raises(ValueError, match="shared memory .* row kernel"):
-        port._check_shapes(torch.zeros(2, 64, 256), torch.zeros(2, 256), _zero_weights(256, 684), 8,
-                           design="row")
-    for T in (16, 64):
-        need = port.dit_block_smem_bytes(T, 256, 8, 684)
-        assert set(need) == {"rows_gemm", "ln_qkv", "attention", "block_post"}
-        assert max(need.values()) <= port.MAX_SMEM_BYTES
-        assert port._check_shapes(torch.zeros(2, T, 256), torch.zeros(2, 256),
-                                  _zero_weights(256, 684), 8, design="split") == "split"
-    # the split design's attention CTA holds q, k, v and one head's scores
-    attention = 4 * (2 * 64 * 32 + 64 * 33 + 64 * 64)
-    assert port.dit_block_smem_bytes(64, 256, 8, 684)["attention"] == attention
-    with pytest.raises(ValueError, match=r"dit_block needs \d+ bytes of shared memory .* attention"):
-        port._check_shapes(torch.zeros(2, 256, 256), torch.zeros(2, 256),
-                           _zero_weights(256, 684), 8)
+    """The forward has one design at every T: its kernels' shared memory is
+    a token tile's, not a row's, so the dentate T = 16, the census T = 64 and
+    the long-latent T = 1,024 all fit one CTA with the same need; the design
+    names of the backward are refused for the forward. The backward still
+    raises at T = 1,024 with the byte count: one head's scores and their
+    cotangents outgrow a CTA."""
+    w = _zero_weights(256, 684)
+    need = {T: port.dit_block_smem_bytes(T, 256, 8, 684) for T in (16, 64, 1024)}
+    assert need[16] == need[64] == need[1024]
+    assert set(need[16]) == {"gemm", "attention"}
+    # three stages of 64 x 32 tokens (pitch 36) and 32 x 64 weights (pitch 72);
+    # the attention's queries and two k / v stages, 64 rows of hd + 4 each
+    assert need[16] == {"gemm": 4 * 3 * (64 * 36 + 32 * 72), "attention": 4 * 5 * 64 * 36}
+    assert max(need[16].values()) <= port.MAX_SMEM_BYTES
+    assert port.dit_block_smem_bytes(64, 64, 4, 172)["attention"] == 4 * 5 * 64 * 20  # hd 16
+    for T in (16, 64, 1024):
+        assert port.pick_design(T, 256, 8, 684) == "tiled"
+        assert port._check_shapes(torch.zeros(2, T, 256), torch.zeros(2, 256), w, 8) == "tiled"
+    for design in ("row", "split"):
+        with pytest.raises(ValueError, match="forward's design is 'tiled'"):
+            port._check_shapes(torch.zeros(2, 16, 256), torch.zeros(2, 256), w, 8, design=design)
+    with pytest.raises(ValueError, match=r"dit_block_bwd needs \d+ bytes of shared memory .* "
+                                         r"attention_bwd"):
+        port._check_shapes(torch.zeros(2, 1024, 256), torch.zeros(2, 256), w, 8, backward=True)
+    # the head width the attention takes: a multiple of 4 up to 64
+    with pytest.raises(ValueError, match="head width"):
+        port._check_shapes(torch.zeros(2, 16, 256), torch.zeros(2, 256), w, 2)
 
 
 def test_other_devices_raise():
@@ -230,7 +234,10 @@ def test_backward_shapes_and_limits():
         2048 * (9 * 256 + 3 * 684) + 128 * 1792 + 128 * 1 * 1536)
     assert port.dit_block_bwd_workspace_floats(16, 64, 256, 684) == (
         1024 * (9 * 256 + 3 * 684) + 16 * 1792 + 16 * 4 * 1536)
-    assert port.dit_block_workspace_floats(48, 64, 256) == 48 * 1536 + 48 * 64 * 1024
+    # the forward's: mod per row; qkv, h / the attention output, x1 and the hidden per token
+    assert port.dit_block_workspace_floats(48, 64, 256, 684) == (
+        48 * 1536 + 48 * 64 * (5 * 256 + 684))
+    assert port.dit_block_workspace_floats(12, 1024, 256, 684) == 12 * 1536 + 12288 * 1964
     # a census row in one CTA would need the scores and their cotangents,
     # 262 KB; at T = 160 one head's pair alone outgrows a CTA
     with pytest.raises(ValueError, match="dit_block_bwd needs .* shared memory .* attention_bwd"):
