@@ -18,8 +18,9 @@ more steps with `torch.profiler` and prints the unprofiled step times, the
 segments, the profiled wall time, the device's busy time (the union of its
 kernels' spans), the idle share of the median unprofiled wall time, kernels
 per step, the time, launches and share of busy time of each of the DiT
-block's kernels (the forward's, namespace `tiled`; the backward's row design
-at the dentate T = 16, its split design at the census T = 64) and of the
+block's kernels (the forward and the backward share the `tiled` stages: the
+GEMM, the attention, the LayerNorm and silu; the backward adds the attention
+backward, its LayerNorm backward and the weight-gradient GEMM) and of the
 window pool's, and the profiler's table of
 the operators that took the most device time.
 """
@@ -36,11 +37,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 SEED = 0
 PROFILED_STEPS = 3
-# the DiT block's kernels: the forward's (namespace `tiled`), then the
-# backward's of both designs, with the forward recompute of its split design
-DIT_KERNELS = ("tiled", "dit_block_bwd_rows", "rows_gemm", "ln_qkv",
-               "dit::(anonymous namespace)::attention", "mlp_bwd", "attention_bwd", "qkv_bwd",
-               "weight_grads")
+# the DiT block's kernels: the `tiled` stages of the forward and of the
+# backward's recompute and products, then the backward's own
+DIT_KERNELS = ("gemm", "attention", "ln_modulate_tokens", "silu_rows", "grad_gemm", "grad_reduce",
+               "attention_dq", "attention_dkv", "ln_bwd", "sum_parts", "dc_rows")
 # the window pool's forward kernels (narrow: encoder_pool.cu; wide: window_pool_wide.cu)
 POOL_KERNELS = ("pool_fwd_kernel", "prep_weights", "ln_rows", "gemm_kernel", "attn_fwd",
                 "attn_merge")

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Times one tree's DiT block kernels (forward and backward) and decoder-tail
-backward on one NVIDIA GPU.
+kernels (forward and backward) on one NVIDIA GPU.
 
     python3 benchmarks_torch/time_dit_block.py [--root DIR]
 
@@ -9,9 +9,10 @@ kernels and times, with CUDA events (three warm-up calls, then the mean of
 20), `fused_dit.dit_block` and `fused_dit.dit_block_bwd` at the dentate
 shapes (T = 16: the sampler's R = 384 rows, the training step's R = 128),
 the census ones (T = 64: R = 48 and R = 16) and the long-latent pair's (T =
-1,024, R = 12), E = 256, 8 heads, Hd = 684, random weights from seed 0; and
-`fused_decoder.decoder_tail_bwd` at the VAE training step's shape (B = 128
-cells, G = 17,002 genes, E = 32, 4 heads of 16 latent tokens, Hd = 88). A
+1,024: the sampler's R = 12, the training step's R = 16), E = 256, 8 heads,
+Hd = 684, random weights from seed 0; and `fused_decoder.decoder_tail_fwd`
+and `decoder_tail_bwd` at the VAE training step's shape (B = 128 cells, G =
+17,002 genes, E = 32, 4 heads of 16 latent tokens, Hd = 88). A
 shape the tree's kernels do not take prints the error instead of a time.
 The last line is a JSON object of the times. To compare two trees, run
 this once per tree in turns within one chip call (parent, change, change,
@@ -28,7 +29,8 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
 SHAPES = (("fwd", 384, 16), ("fwd", 128, 16), ("bwd", 128, 16), ("fwd", 48, 64), ("fwd", 16, 64),
-          ("bwd", 16, 64), ("fwd", 12, 1024), ("tail_bwd", 128, 17_002))
+          ("bwd", 16, 64), ("fwd", 12, 1024), ("bwd", 16, 1024), ("tail_fwd", 128, 17_002),
+          ("tail_bwd", 128, 17_002))
 TAIL_E, TAIL_H, TAIL_M, TAIL_HD = 32, 4, 16, 88
 E, H, HIDDEN, EPS = 256, 8, 684, 1e-8
 
@@ -59,7 +61,7 @@ def main(argv=None) -> int:
          "w1": rnd(E, HIDDEN, scale=E**-0.5), "w2": rnd(E, HIDDEN, scale=E**-0.5),
          "wmlp": rnd(HIDDEN, E, scale=HIDDEN**-0.5)}
 
-    def tail_bwd(B, G):
+    def tail_fn(B, G, backward):
         E_, H_, M_, Hd_ = TAIL_E, TAIL_H, TAIL_M, TAIL_HD
         raw = [rnd(E_, scale=0.3) + 1.0, rnd(E_, scale=0.3), rnd(E_, Hd_, scale=0.3),
                rnd(E_, Hd_, scale=0.3), rnd(Hd_, E_, scale=0.3), rnd(E_, 1, scale=0.3),
@@ -68,13 +70,15 @@ def main(argv=None) -> int:
         kf, vp = fused_decoder.build_attention_operands(
             rnd(B, M_, E_, scale=0.3), rnd(B, M_, E_, scale=0.3), rnd(E_, E_, scale=0.3), H_)
         qp, q, dy = rnd(G, E_, scale=0.3), rnd(G, E_, scale=0.3), rnd(B, G)
+        if not backward:
+            return lambda: fused_decoder.decoder_tail_fwd(qp, q, kf, vp, tw, H_, EPS)
         return lambda: fused_decoder.decoder_tail_bwd(qp, q, kf, vp, tw, dy, H_, EPS)
 
     times = {}
     for part, R, T in SHAPES:
-        if part == "tail_bwd":
-            fn = tail_bwd(R, T)
-            key = f"tail_bwd B={R} G={T}"
+        if part.startswith("tail"):
+            fn = tail_fn(R, T, part == "tail_bwd")
+            key = f"{part} B={R} G={T}"
         else:
             x, dy, c = rnd(R, T, E), rnd(R, T, E), rnd(R, E)
             fn = ((lambda: fused_dit.dit_block(x, c, w, H, EPS)) if part == "fwd" else

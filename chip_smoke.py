@@ -17,8 +17,9 @@ weights made from the seed, with dopri5 and with euler-50, checks the outputs,
 checks that every DiT block went through the kernel, and holds one DiT
 evaluation of the sampler (the kernel path) against the plain module path
 (`DiT.forward_with_cfg_batched`) on the same inputs. Phase 1c holds the DiT
-block backward kernels against their plain version at the dentate and census
-LDM training steps' shapes and ragged ones, timing both. Phase 1d holds the
+block backward kernels against their plain version at the dentate, census
+and long-latent LDM training steps' shapes (T = 16, 64 and 1,024) and ragged
+ones, with a bitwise repeat at the dentate and census shapes, timing both. Phase 1d holds the
 encoder-pool kernels (dense and window, forward and backward) against theirs at
 the VAE steps' shapes and ragged ones, timing both, and the dense pool's pooled
 tokens against the module MCAB where the zero-row correction is not 0; then the
@@ -56,7 +57,7 @@ attention kernel against its plain version at the census sampler's cross block
 (2B = 32 cells, G = 36,601 genes into 64 latent tokens) and a ragged shape,
 timing both and `scaled_dot_product_attention` as a yardstick. Phase 7 trains
 the census DiT (T = 64, E = 256, 8 layers) on the frozen census VAE's latents
-(B = 16) through the DiT kernels (the backward's split design), prints the step's segment
+(B = 16) through the DiT kernels, prints the step's segment
 split, holds one step against the module path, holds the frozen encode through
 the wide window pool (`LDMTask(fused_encode=True)`) against the module encode,
 timing both in turns, trains the same steps through it with their segment
@@ -84,8 +85,11 @@ version and `scaled_dot_product_attention`. Phase 9 runs the census pair at
 1,024 latent tokens (the VAE's inducing points and the DiT's seq_len), where
 every sdpa call without a gradient takes that kernel: the frozen encode (17
 launches, held against the plain gate and timed against it in turns with peak
-memory), LDM training with the module DiT under a gradient (17 launches a
-step, all from the encode), and euler-10 generation at a generation batch of 4
+memory), LDM training through the DiT block kernels
+(`LDMTask(fused_training=None)`: 17 flash attention launches a step, all from
+the encode, and 8 DiT block launches each way), held against and timed in
+turns with the module DiT (`fused_training=False`) with each arm's peak
+memory, and euler-10 generation at a generation batch of 4
 through the DiT block kernel (72 of its launches, none of row 12's counted in
 the DiT, 16 in the decode), its NB means held against the module DiT and,
 through it, against the plain gate. The line before the last is a JSON
@@ -187,20 +191,34 @@ def bound(n_bytes: float, flops: float, peak: float) -> dict:
 def dit_block_bound(R: int, backward: bool, T: int = DIT["seq_len"]) -> dict:
     """One DiT block at R rows of T tokens, f32. Operations: two per multiply-add of its
     products (per row the adaLN product 6E^2; per token qkv 3E^2, scores and
-    probabilities times values 2TE, the projection E^2, the SwiGLU 3E*Hd);
-    the forward runs each product as three TF32 tensor-core passes, so three
-    times its operations against the TF32 peak (`f32_bound_ms`: once against
-    the f32 FMA peak, the yardstick before the forward used the tensor
-    cores); the backward, which recomputes the forward in f32 FMA, three
-    times the forward's operations against the f32 peak. The elementwise work
-    is left out. Bytes: each input read once and each output written once
-    (backward: x, c, dy and the weights in; dx, dc and the weight gradients
-    out)."""
+    probabilities times values 2TE, the projection E^2, the SwiGLU 3E*Hd).
+    The backward needs the forward's products again, then the token products
+    and the adaLN product once more for the cotangents and once more for the
+    weight gradients, and the attention's four T x T products dp, dq, dk and
+    dv: 6TE a token with the forward's two. Both kernels run each product as
+    three TF32 tensor-core passes, the least that keeps f32 accuracy on the
+    tensor cores, so `bound_ms` is three times the function's operations
+    against the TF32 peak; `f32_bound_ms` is them once against the f32 FMA
+    peak, the yardstick before the kernels used the tensor cores. The
+    backward kernel recomputes the scores and dp in both its attention
+    kernels (over query tiles and over key tiles, which keeps it free of
+    atomics): 9TE a token where the function needs 6TE, its operations as
+    run in `as_run_bound_ms`. The elementwise work is left out. Bytes: each
+    input read once and each output written once (backward: x, c, dy and the
+    weights in; dx, dc and the weight gradients out)."""
     E = DIT["n_embed"]
     weights = 10 * E * E + 10 * E + 3 * E * HIDDEN
-    flops = 2 * R * (6 * E * E + T * (4 * E * E + 2 * T * E + 3 * E * HIDDEN))
     if backward:
-        return bound(4 * (3 * R * T * E + 2 * R * E + 2 * weights), 3 * flops, F32_FLOPS)
+        n_bytes = 4 * (3 * R * T * E + 2 * R * E + 2 * weights)
+
+        def flops(attention):
+            return 2 * R * (3 * 6 * E * E
+                            + T * (3 * (4 * E * E + 3 * E * HIDDEN) + attention * T * E))
+
+        return {**bound(n_bytes, 3 * flops(6), TF32_FLOPS),
+                "as_run_bound_ms": bound(n_bytes, 3 * flops(9), TF32_FLOPS)["bound_ms"],
+                "f32_bound_ms": bound(n_bytes, flops(6), F32_FLOPS)["bound_ms"]}
+    flops = 2 * R * (6 * E * E + T * (4 * E * E + 2 * T * E + 3 * E * HIDDEN))
     n_bytes = 4 * (2 * R * T * E + R * E + weights)
     return {**bound(n_bytes, 3 * flops, TF32_FLOPS),
             "f32_bound_ms": bound(n_bytes, flops, F32_FLOPS)["bound_ms"]}
@@ -211,12 +229,14 @@ def decoder_tail_bound(B: int, G: int, backward: bool) -> dict:
     tokens, hidden 88). Its products take bf16 operands, so the bf16 tensor-
     core peak: per (cell, gene) pair, scores over the head blocks M*E,
     probabilities times values H*M*E, the up projection 2E*Hd, and the wv and
-    wmu dots, two operations per multiply-add (`function_bound_ms` for the
-    backward: three times that). The backward's bound counts its products as
-    its kernel runs them on the tensor cores: per pair the scores one k16
-    step a head block (H*M*2HD), y (H*M*E), the up projection (2E*Hd), and
-    in two bf16 passes (an f32 cotangent split hi + lo) d(hn) (2E*Hd), dp
-    (E*H*M), dqp (H*M*HD), dw12 (2E*Hd), dvproj (H*M*E) and dkfull's head
+    wmu dots, two operations per multiply-add. The forward's bound counts
+    these; `as_run_bound_ms` counts the
+    scores as the kernel runs them, one k16 step a head block (H*M*2HD, the
+    head width 8 zero-padded to 16). The backward's bound counts its products
+    as the kernel runs them on the tensor cores (`function_bound_ms`: three
+    times the forward's operations): the forward's, with the padded scores,
+    and, in two bf16 passes (an f32 cotangent split hi + lo) d(hn) (2E*Hd),
+    dp (E*H*M), dqp (H*M*HD), dw12 (2E*Hd), dvproj (H*M*E) and dkfull's head
     blocks (H*M*HD). Bytes: qp, q (G, E), kfull, vproj (B, H*M, E) and the
     weights in, the (B, G) logits out; the backward reads dy and writes a
     gradient of each input."""
@@ -225,13 +245,16 @@ def decoder_tail_bound(B: int, G: int, backward: bool) -> dict:
     weights = 3 * E + 2 * E * Hd + Hd + 1
     inputs = 2 * G * E + 2 * B * H * M * E + weights
     flops = 2 * B * G * (M * E + H * M * E + 2 * E * Hd + Hd + E)
+    fwd_as_run = 2 * B * G * (HM * 2 * HD + HM * E + 2 * E * Hd + Hd + E)
     if backward:
         n_bytes = 4 * (2 * inputs + B * G)
         as_run = 2 * B * G * (HM * 2 * HD + HM * E + 2 * E * Hd
                               + 2 * (2 * E * Hd + E * HM + HM * HD + 2 * E * Hd + HM * E + HM * HD))
         return {**bound(n_bytes, as_run, BF16_FLOPS),
                 "function_bound_ms": bound(n_bytes, 3 * flops, BF16_FLOPS)["bound_ms"]}
-    return bound(4 * (inputs + B * G), flops, BF16_FLOPS)
+    n_bytes = 4 * (inputs + B * G)
+    return {**bound(n_bytes, flops, BF16_FLOPS),
+            "as_run_bound_ms": bound(n_bytes, fwd_as_run, BF16_FLOPS)["bound_ms"]}
 
 
 def time_in_turns(kernel, plain, reps: int) -> tuple:
@@ -252,11 +275,15 @@ DIT_FWD_CASES = ((16, 384), (16, 5), (64, 3 * CENSUS_LDM_BATCH), (64, CENSUS_LDM
                  (64, 2 * CENSUS_LDM_BATCH), (64, 5), (1024, 12))
 # the shapes whose forward is run twice and held to the same bits
 DIT_FWD_REPEAT = ((16, 384), (64, 3 * CENSUS_LDM_BATCH))
-# (T, R, design) of phase 1c: the dentate shapes first (T = 16, the row
-# design the wrapper picks there), then the split design at the same shape
-# for comparison, then the census DiT's (T = 64, the split design)
-DIT_BWD_CASES = ((16, 128, None), (16, 5, None), (16, 128, "split"),
-                 (64, CENSUS_LDM_BATCH, None), (64, 2 * CENSUS_LDM_BATCH, None), (64, 5, None))
+# (T, R) of phase 1c: the dentate LDM step's rows (T = 16, R = B = 128) and a
+# ragged R, the census step's (T = 64: B = 16, twice that, a ragged R) and
+# the long-latent pair's (T = 1,024: B = 16, and a ragged R = 3)
+DIT_BWD_CASES = ((16, 128), (16, 5), (64, CENSUS_LDM_BATCH), (64, 2 * CENSUS_LDM_BATCH), (64, 5),
+                 (1024, CENSUS_LDM_BATCH), (1024, 3))
+# the shapes whose backward is run twice and held to the same bits
+DIT_BWD_REPEAT = ((16, 128), (64, CENSUS_LDM_BATCH))
+# from this T on the kernel is held against the plain version on f64 inputs
+DIT_BWD_F64_MIN_T = 1024
 
 
 def phase1_dit_block(seed: int) -> dict:
@@ -423,12 +450,17 @@ def phase1b_decoder_tail(seed: int) -> tuple[dict, dict]:
 
 def phase1c_dit_block_bwd(seed: int) -> dict:
     """dit_block_bwd vs dit_block_backward_reference (autograd through the
-    plain block) at the dentate LDM step's shape (R = 128 rows of T = 16,
-    the row design), the census step's (R = 16 of T = 64, the split
-    design, and 32), ragged Rs, and the split design at the dentate shape. dx
-    and dc at rtol = atol = 1e-4; each weight gradient within 1e-4 of its
-    tensor's largest magnitude: f32 both, the weight gradients summed over
-    R*T tokens in other orders. Returns {(T, R, design): {max_abs_err, ms, plain_ms}}."""
+    plain block) at DIT_BWD_CASES: the dentate LDM step's shape (R = 128 rows
+    of T = 16), the census step's (R = 16 of T = 64, and 32), the long-latent
+    pair's (R = 16 of T = 1,024) and ragged Rs. dx and dc at rtol = atol =
+    1e-4; each weight gradient within 1e-4 of its tensor's largest magnitude:
+    f32 both, the weight gradients summed over R*T tokens in other orders.
+    At T = 1,024 the f32 plain version itself misses those bounds for dc
+    (sums over 1,024 tokens: |dc| reaches a few hundred), so there the
+    kernel is held against the plain version on the same inputs in f64 at
+    the same bounds, and the f32 plain version's distance to that and the
+    kernel's to the f32 plain version are printed. The same bits on a second
+    run at DIT_BWD_REPEAT. Returns {(T, R): {max_abs_err, ms, plain_ms}}."""
     import torch
 
     from scldm_torch.ops import fused_dit
@@ -437,32 +469,50 @@ def phase1c_dit_block_bwd(seed: int) -> dict:
     g = torch.Generator(device="cuda").manual_seed(seed + 2)
     w = random_block_weights(g)
     out = {}
-    for T, R, design in DIT_BWD_CASES:
+    for T, R in DIT_BWD_CASES:
         x, dy = (torch.randn(R, T, E, generator=g, device="cuda") for _ in range(2))
         c = torch.randn(R, E, generator=g, device="cuda")
-        dx, dc, dw = fused_dit.dit_block_bwd(x, c, w, dy, H, EPS, design=design)
+        dx, dc, dw = fused_dit.dit_block_bwd(x, c, w, dy, H, EPS)
         torch.cuda.synchronize()
-        rx, rc, rw = fused_dit.dit_block_backward_reference(x, c, w, dy, H, EPS)
-        torch.testing.assert_close(dx, rx, **TOL)
-        torch.testing.assert_close(dc, rc, **TOL)
+        plain = fused_dit.dit_block_backward_reference(x, c, w, dy, H, EPS)
+        f64 = T >= DIT_BWD_F64_MIN_T
+        rx, rc, rw = fused_dit.dit_block_backward_reference(
+            x.double(), c.double(), {k: v.double() for k, v in w.items()}, dy.double(), H,
+            EPS) if f64 else plain
         worst, report = 0.0, []
         for name, got, want in [("dx", dx, rx), ("dc", dc, rc),
                                 *((k, dw[k], rw[k]) for k in fused_dit.WEIGHT_NAMES)]:
+            got = got.to(want.dtype)
+            if name in ("dx", "dc"):
+                torch.testing.assert_close(got, want, **TOL)
             err, scale = (got - want).abs().max().item(), want.abs().max().item()
             if name not in ("dx", "dc") and (scale == 0 or err > 1e-4 * scale):
                 raise AssertionError(f"dit_block_bwd {name} at T={T}, R={R}: max abs err "
                                      f"{err:.3e}, max |ref| {scale:.3e}")
             worst = max(worst, err)
             report.append(f"{name} {err:.2e} (max {scale:.2e})")
-        used = design or fused_dit.pick_design(T, E, H, HIDDEN, backward=True)
+        if f64:  # printed: the f32 plain version's own distance, and the kernel's to it
+            report.append(f"held against the plain version in f64; the f32 one's dc is "
+                          f"{(plain[1].double() - rc).abs().max().item():.2e} off it; kernel to "
+                          f"the f32 plain version dx {(dx - plain[0]).abs().max().item():.2e}, dc "
+                          f"{(dc - plain[1]).abs().max().item():.2e}")
+        del plain, rx, rc, rw
+        if (T, R) in DIT_BWD_REPEAT:
+            ax, ac, aw = fused_dit.dit_block_bwd(x, c, w, dy, H, EPS)
+            if not (torch.equal(dx, ax) and torch.equal(dc, ac)
+                    and all(torch.equal(dw[k], aw[k]) for k in fused_dit.WEIGHT_NAMES)):
+                raise AssertionError(f"dit_block_bwd at T={T}, R={R}: a second run gave other "
+                                     "bits")
+            report.append("same bits twice")
         ms, plain_ms = time_in_turns(
-            lambda: fused_dit.dit_block_bwd(x, c, w, dy, H, EPS, design=design),
+            lambda: fused_dit.dit_block_bwd(x, c, w, dy, H, EPS),
             lambda: fused_dit.dit_block_backward_reference(x, c, w, dy, H, EPS), 10)
-        out[(T, R, design)] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+        out[(T, R)] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
         b = dit_block_bound(R, backward=True, T=T)
-        log(f"phase1c dit_block_bwd T={T} R={R} ({used} design): " + ", ".join(report))
-        log(f"phase1c dit_block_bwd T={T} R={R} ({used} design): kernel {ms:.4f} ms  plain "
-            f"{plain_ms:.4f} ms  bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+        log(f"phase1c dit_block_bwd T={T} R={R}: " + ", ".join(report))
+        log(f"phase1c dit_block_bwd T={T} R={R}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+            f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}, three TF32 passes; "
+            f"{b['as_run_bound_ms']:.4f} ms as run; {b['f32_bound_ms']:.4f} ms in f32 FMA)")
     return out
 
 
@@ -1751,7 +1801,7 @@ def phase7_census_ldm(seed: int) -> dict:
     """Census LDM training and generation: the census VAE, frozen, under the
     census DiT (T = 64 latent tokens), random weights from CUDA generators
     with non-zero adaLN. Trains CENSUS_STEPS steps of B = 16 through the DiT
-    block kernels (the backward's split design) and prints the segment split of three
+    block kernels and prints the segment split of three
     synchronised steps; holds one step against the module path; generates
     euler-50 at a generation batch of 16 through the algebraic decode;
     holds generate_from_noise with `fused_blocks` against the module
@@ -2086,11 +2136,14 @@ def phase9_long_latent(seed: int) -> int:
     attention kernel: the frozen encode (the MCAB, 1,024 queries over the
     4,096-token window, and 16 encoder blocks: 17 launches), held against the
     same encode through the plain gate within 1e-4 of the largest latent and
-    timed against it in turns with each arm's peak memory; LDM_STEPS training
-    steps with `LDMTask(fused_training=False)` (the DiT backward kernels
-    refuse T = 1,024: one head's scores and their cotangents outgrow a CTA),
-    whose DiT runs under a gradient on the plain path (17 launches a step,
-    all from the encode); one euler-10 generation call at a generation batch
+    timed against it in turns with each arm's peak memory; one step's loss and
+    gradients through the DiT block kernels (`LDMTask(fused_training=None)`)
+    held against the module DiT (`fused_training=False`, whose attention
+    under a gradient takes the plain path); LDM_STEPS training steps through
+    the kernels (17 flash attention launches a step, all from the encode,
+    and 8 DiT block launches each way: the forward launches row 12 from C,
+    uncounted), then the two paths timed in turns with each arm's peak
+    memory; one euler-10 generation call at a generation batch
     of 4 through `make_sample_fn(fused_blocks=True)`: 9 DiT evaluations of 8
     blocks, 72 DiT block kernel launches and none of the flash attention
     kernel in the DiT, 16 of those from the decoder trunk of the algebraic
@@ -2098,7 +2151,8 @@ def phase9_long_latent(seed: int) -> int:
     with fused_blocks=True are held against fused_blocks=False, and those
     (whose DiT takes sdpa, so the flash attention kernel) against the plain
     gate, each within 1e-3 of their largest. Returns (the flash attention
-    kernel's launches, the DiT block kernel's) in the counted runs."""
+    kernel's launches, the DiT block forward's, its backward's) in the
+    counted runs."""
     import numpy as np
     import torch
 
@@ -2118,7 +2172,8 @@ def phase9_long_latent(seed: int) -> int:
                           torch.Generator(device="cuda").manual_seed(seed)).eval()
     dit = init_reference_(DiT(**{**CENSUS_DIT, "seq_len": LONG_LATENT}).to("cuda"),
                           torch.Generator(device="cuda").manual_seed(seed + 1), zero_init=False)
-    task = LDMTask(vae, dit, create_transport(), fused_training=False)
+    task = LDMTask(vae, dit, create_transport())  # fused_training=None: the kernels on CUDA
+    module_task = LDMTask(vae, dit, create_transport(), fused_training=False)
     G, B, L = CENSUS["n_genes"], CENSUS_LDM_BATCH, CENSUS["n_layer"]
     per_encode = 1 + L  # the MCAB and the encoder blocks
     batches = census_ldm_batches(np.random.default_rng(seed + 9), LONG_LDM_STEPS + 1)
@@ -2157,7 +2212,9 @@ def phase9_long_latent(seed: int) -> int:
         f"{walls['plain']}; peak memory kernel {peaks['kernel']:.2f} GiB, plain "
         f"{peaks['plain']:.2f} GiB")
 
-    # -- LDM training: the DiT under a gradient takes the plain path
+    # -- LDM training through the DiT block kernels, held against the module DiT
+    compare_ldm_paths("phase9", task, module_task, batches[0],
+                      torch.Generator(device="cuda").manual_seed(seed + 5))
     state = task.init_state(torch.Generator(device="cuda").manual_seed(seed))
     state, mets = task.train_step(state, batches[0])  # warm-up
     torch.cuda.synchronize()
@@ -2174,19 +2231,37 @@ def phase9_long_latent(seed: int) -> int:
     dt = time.perf_counter() - t0
     n = LONG_LDM_STEPS
     steps = counter.count
+    bwd_launches = fused_dit.DIT_BLOCK_BWD_LAUNCHES.count
     peak = torch.cuda.max_memory_allocated() / 2**30
     losses = torch.stack(losses)
-    if steps != per_encode * n or fused_dit.DIT_BLOCK_LAUNCHES.count + \
-            fused_dit.DIT_BLOCK_BWD_LAUNCHES.count != 0:
+    if (steps != per_encode * n or fused_dit.DIT_BLOCK_LAUNCHES.count != dit.n_layer * n
+            or bwd_launches != dit.n_layer * n):
         raise AssertionError(f"phase9 training: {steps} flash_attention launches in {n} steps "
-                             f"(want {per_encode * n}, all from the encode)")
+                             f"(want {per_encode * n}, all from the encode), DiT block launches "
+                             f"{fused_dit.DIT_BLOCK_LAUNCHES.count} forward and {bwd_launches} "
+                             f"backward (want {dit.n_layer * n} each)")
     if not torch.isfinite(losses).all():
         raise AssertionError(f"phase9: non-finite LDM loss {losses.tolist()}")
     launches += steps
-    log(f"phase9 LDM training B={B} T={LONG_LATENT} (fused_training=False): {B * n / dt:.1f} "
-        f"train cells/s, {dt / n * 1e3:.2f} ms/step over {n} steps; losses "
-        f"{losses[0].item():.4f} -> {losses[-1].item():.4f}; flash_attention launches {steps} "
-        f"({steps // n} a step, none from the DiT); peak memory {peak:.2f} GiB")
+    log(f"phase9 LDM training B={B} T={LONG_LATENT} (fused_training=None, the DiT block "
+        f"kernels): {B * n / dt:.1f} train cells/s, {dt / n * 1e3:.2f} ms/step over {n} steps; "
+        f"losses {losses[0].item():.4f} -> {losses[-1].item():.4f}; flash_attention launches "
+        f"{steps} ({steps // n} a step, none from the DiT), dit_block_bwd launches "
+        f"{bwd_launches} ({bwd_launches // n} a step); peak memory {peak:.2f} GiB")
+    walls, peaks = {}, {}
+    for arm in ("module", "kernel", "kernel", "module"):  # in turns, 2 steps each
+        t = task if arm == "kernel" else module_task
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for b in batches[1:3]:
+            state, mets = t.train_step(state, b)
+        torch.cuda.synchronize()
+        walls.setdefault(arm, []).append(round((time.perf_counter() - t0) / 2 * 1e3, 2))
+        peaks[arm] = max(peaks.get(arm, 0.0), torch.cuda.max_memory_allocated() / 2**30)
+    log(f"phase9 LDM step in turns, ms per step: kernels {walls['kernel']} vs module DiT "
+        f"{walls['module']}; peak memory kernels {peaks['kernel']:.2f} GiB, module DiT "
+        f"{peaks['module']:.2f} GiB")
     del state, mets
 
     # -- generation: euler-10 through the module DiT and the algebraic decode
@@ -2260,9 +2335,9 @@ def phase9_long_latent(seed: int) -> int:
         f"kernel vs the module DiT max abs err {err_fused:.3e} ({err_fused / scale:.1e} of max); "
         f"the module DiT through the flash attention kernel vs the plain gate {err:.3e} "
         f"({err / scale:.1e} of max)")
-    del vae, dit, task
+    del vae, dit, task, module_task
     torch.cuda.empty_cache()
-    return launches, dit_launches
+    return launches, dit_launches, bwd_launches
 
 
 def main(argv=None) -> int:
@@ -2335,7 +2410,7 @@ def main(argv=None) -> int:
     trunk = phase8_trunk_training(args.seed, args.batch)
 
     # -- phase 9: the census pair at 1,024 latent tokens --------------------------
-    long_latent, long_dit = phase9_long_latent(args.seed)
+    long_latent, long_dit, long_dit_bwd = phase9_long_latent(args.seed)
 
     tail_src = "scldm_torch/kernels/csrc/decoder_tail.cu"
     pool_src = "scldm_torch/kernels/csrc/encoder_pool.cu"
@@ -2358,20 +2433,24 @@ def main(argv=None) -> int:
          **dit_block_bound(3 * args.batch, backward=False), "library_ms": None},
         {"name": "dit_block_bwd", "route": "cuda", "source": dit_bwd_src,
          "replaces": "scldm_tpu/ops/fused_dit.py:205", "launches": ldm_bwd,
-         **dit_block_bwd[(16, 128, None)], **dit_block_bound(128, backward=True),
+         **dit_block_bwd[(16, 128)], **dit_block_bound(128, backward=True),
          "library_ms": None},
         {"name": "dit_block_t64", "route": "cuda", "source": dit_src,
          "replaces": "scldm_tpu/ops/fused_dit.py:155", "launches": census_ldm["dit_block"],
          **dit_block[(64, census_rows[0])],
          **dit_block_bound(census_rows[0], backward=False, T=64), "library_ms": None},
-        {"name": "dit_block_bwd_split", "route": "cuda", "source": dit_bwd_src,
+        {"name": "dit_block_bwd_t64", "route": "cuda", "source": dit_bwd_src,
          "replaces": "scldm_tpu/ops/fused_dit.py:205", "launches": census_ldm["dit_block_bwd"],
-         **dit_block_bwd[(64, census_rows[1], None)],
+         **dit_block_bwd[(64, census_rows[1])],
          **dit_block_bound(census_rows[1], backward=True, T=64), "library_ms": None},
         {"name": "dit_block_t1024", "route": "cuda", "source": dit_src,
          "replaces": "scldm_tpu/ops/fused_dit.py:155", "launches": long_dit,
          **dit_block[(1024, 3 * LONG_GEN_BATCH)],
          **dit_block_bound(3 * LONG_GEN_BATCH, backward=False, T=1024), "library_ms": None},
+        {"name": "dit_block_bwd_t1024", "route": "cuda", "source": dit_bwd_src,
+         "replaces": "scldm_tpu/ops/fused_dit.py:205", "launches": long_dit_bwd,
+         **dit_block_bwd[(1024, CENSUS_LDM_BATCH)],
+         **dit_block_bound(CENSUS_LDM_BATCH, backward=True, T=1024), "library_ms": None},
         {"name": "decoder_tail_fwd", "route": "cuda", "source": tail_src,
          "replaces": "scldm_tpu/ops/fused_decoder.py:262",
          "launches": fwd_launches + parse["decoder_tail_fwd"], **tail_fwd,

@@ -42,8 +42,11 @@ _SIGNATURES = {
     "scldm_dit_block_backward": (
         [_P] * 29
         + [ctypes.c_int] * 5  # R, T, E, H, Hd
-        + [ctypes.c_float, ctypes.c_int, _P],  # eps, row_design, stream
+        + [ctypes.c_float, _P],  # eps, stream
         ctypes.c_int,
+    ),
+    "scldm_dit_block_backward_workspace_floats": (
+        [ctypes.c_int] * 5, ctypes.c_longlong,  # R, T, E, H, Hd
     ),
     # pointers: qp, q, kfull, vproj, ln2g, ln2b, w12, wv, wmu, bmu, out
     "scldm_decoder_tail_forward": (

@@ -1,5 +1,6 @@
 // The VAE decoder tail, forward and recompute backward: the NB-head mu
-// logit of every (cell, gene) pair, with bf16 operands and f32 accumulation.
+// logit of every (cell, gene) pair, with bf16 operands and f32 accumulation,
+// on the tensor cores (mma.sync bf16).
 //
 // Replaces the TPU kernels scldm_tpu/ops/fused_decoder.py::fused_decoder_tail
 // (Pallas body `_fwd_kernel`) and `_fused_bwd` (`_bwd_kernel`); the math is
@@ -14,28 +15,34 @@
 //   a|c    = bf(hn) @ bf(w12)                              (E -> 2 Hd)
 //   logit  = wmu . hh + sum_n silu(a[n]) c[n] wv[n] + bmu
 //
-// The forward. What bounds it on an H100: f32 FMA. At the VAE training
-// step's shapes (B=128 cells, G=17,002 genes, E=32, 4 heads of 16 latent
-// tokens, Hd=88) it is about 8.2k multiply-adds per pair, 18 G in all; the
-// inputs are a few MB. A CTA of 128 threads owns 128 genes (one each) and 16
-// batch rows; it stages bf(w12) once and, per row, that row's head blocks of
-// kfull (M x E) and vproj (H*M x E) in shared memory, so every thread reads
-// the same address (a broadcast) and each 16-byte load feeds four FMAs from
-// registers. Only the head blocks of kfull are read: the rest is zeros by
-// construction, so the products skip them. Ragged gene and batch edges are
-// bounds-checked, not padded.
+// What bounds it on an H100: operations. At the VAE training step's shapes
+// (B=128 cells, G=17,002 genes, E=32, 4 heads of 16 latent tokens, Hd=88)
+// the forward is about 8.2k multiply-adds a pair, 18 G in all (0.037 ms at
+// the bf16 tensor-core peak); the inputs are a few MB. Every product takes
+// bf16 operands in the reference, so one bf16 mma pass a product computes
+// what it computes, in another summation order. One gene a thread in f32
+// FMA, the forward took 1.87 ms.
 //
-// The backward (namespace `bwd` below) recomputes the forward per pair and
-// reduces, on the tensor cores (mma.sync bf16), with no atomics: about 41k
-// multiply-adds a pair as it runs them, 90 G at the training step's shape,
-// 0.18 ms at the bf16 peak. One gene a thread in f32 FMA, the same work ran
-// at 0.9% of the function's bound (12.8 ms), and atomic sums change the
-// gradients' bits from run to run.
-// The gradients of p and hn are rounded to bf16 where the forward rounded
-// them; dqp, dkfull, dvproj and dw12 are rounded by the caller after the sum.
+// Both kernels (namespace `tail` below) share one layout: a CTA of four
+// warps owns 64 genes (16 a warp, the mma M dimension) and a block of 16
+// cells, which it walks in order; it stages bf(w12) once, and per cell that
+// cell's head blocks of bf(kfull) and bf(vproj) in shared memory. The
+// forward (`tail_fwd`) computes, per cell, in mma fragments (lane = 4 gq + tq
+// holds genes gq and gq + 8): the scores bf(qp) kc^T (one k16 step a head,
+// kc being 0 off its blocks), the softmax, y = bf(p) bf(vproj), hh = q + y,
+// the LayerNorm, [a | c] = bf(hn) bf(w12) over 8 hidden columns at a time
+// and the logit epilogue; hidden widths that are not a multiple of 8 are
+// zero-padded in shared memory. The backward (`tail_bwd`) recomputes that
+// forward and reduces, with no atomics: about 41k multiply-adds a pair as it
+// runs them, 90 G at the training step's shape, 0.18 ms at the bf16 peak.
+// One gene a thread in f32 FMA, the same work ran at 0.9% of the function's
+// bound (12.8 ms), and atomic sums change the gradients' bits from run to
+// run. The gradients of p and hn are rounded to bf16 where the forward
+// rounded them; dqp, dkfull, dvproj and dw12 are rounded by the caller after
+// the sum.
 //
-// Compiled for E=32, 4 heads, M=16 (the reference decoder); the backward also
-// for Hd = 88 (its per-column sums are unrolled over Hd / 8 tiles).
+// Compiled for E=32, 4 heads, M=16 (the reference decoder); the backward
+// also for Hd = 88 (its per-column sums are unrolled over Hd / 8 tiles).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -48,205 +55,6 @@
 #include "tensor_core.cuh"
 
 namespace {
-
-constexpr int kGenes = 128;  // genes per CTA, one per thread
-constexpr int kRows = 16;    // batch rows per CTA
-
-__host__ __device__ constexpr int up4(int n) { return (n + 3) & ~3; }
-
-__device__ __forceinline__ float bf(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// sum_e x[e] * w[e], w 16-byte aligned in shared memory (a broadcast read)
-template <int E>
-__device__ __forceinline__ float dot(const float (&x)[E], const float* w) {
-  float a0 = 0.f, a1 = 0.f;
-#pragma unroll
-  for (int e = 0; e < E; e += 4) {
-    const float4 v = *reinterpret_cast<const float4*>(w + e);
-    a0 = fmaf(x[e], v.x, a0);
-    a1 = fmaf(x[e + 1], v.y, a1);
-    a0 = fmaf(x[e + 2], v.z, a0);
-    a1 = fmaf(x[e + 3], v.w, a1);
-  }
-  return a0 + a1;
-}
-
-// dst = src row of a contiguous (., E) f32 matrix, optionally rounded to bf16
-template <int E, bool kRound>
-__device__ __forceinline__ void load_row(const float* src, float (&dst)[E]) {
-#pragma unroll
-  for (int e = 0; e < E; e += 4) {
-    const float4 v = __ldg(reinterpret_cast<const float4*>(src + e));
-    dst[e] = kRound ? bf(v.x) : v.x;
-    dst[e + 1] = kRound ? bf(v.y) : v.y;
-    dst[e + 2] = kRound ? bf(v.z) : v.z;
-    dst[e + 3] = kRound ? bf(v.w) : v.w;
-  }
-}
-
-// Shared-memory layout shared by both kernels, in floats: bf(w12)^T (2Hd, E),
-// wv (Hd), ln2g, ln2b, wmu (E each), then one row's kc (M, E) and vb (HM, E).
-template <int E, int H, int M>
-struct Common {
-  float *w12t, *wv, *g, *b, *wmu, *kc, *vb;
-  __device__ Common(float* s, int Hd) {
-    w12t = s;
-    wv = w12t + 2 * Hd * E;
-    g = wv + up4(Hd);
-    b = g + E;
-    wmu = b + E;
-    kc = wmu + E;
-    vb = kc + M * E;
-  }
-  static __host__ __device__ int floats(int Hd) { return 2 * Hd * E + up4(Hd) + 3 * E + M * E + H * M * E; }
-
-  __device__ void stage_weights(const float* w12, const float* ln2g, const float* ln2b,
-                                const float* wv_in, const float* wmu_in, int Hd) {
-    const int n2 = 2 * Hd;
-    for (int i = threadIdx.x; i < n2 * E; i += blockDim.x) {
-      const int n = i / E, e = i % E;
-      w12t[i] = bf(w12[e * n2 + n]);
-    }
-    for (int i = threadIdx.x; i < Hd; i += blockDim.x) wv[i] = wv_in[i];
-    for (int i = threadIdx.x; i < E; i += blockDim.x) {
-      g[i] = ln2g[i];
-      b[i] = ln2b[i];
-      wmu[i] = wmu_in[i];
-    }
-  }
-
-  // kc[m][e] = bf(kfull[row, (e / HD) * M + m, e]) (the head blocks), vb = bf(vproj[row])
-  __device__ void stage_row(const float* kfull, const float* vproj, int row) {
-    constexpr int HD = E / H, HM = H * M;
-    const float* kr = kfull + (size_t)row * HM * E;
-    const float* vr = vproj + (size_t)row * HM * E;
-    for (int i = threadIdx.x; i < M * E; i += blockDim.x) {
-      const int m = i / E, e = i % E;
-      kc[i] = bf(kr[((e / HD) * M + m) * E + e]);
-    }
-    for (int i = threadIdx.x; i < HM * E; i += blockDim.x) vb[i] = bf(vr[i]);
-  }
-};
-
-// y = sum_hm bf(p[hm]) vb[hm, :] with p the per-head softmax of the scores;
-// p (f32) is written to prow[hm] when prow is given.
-template <int E, int H, int M>
-__device__ __forceinline__ void attend(const float* kc, const float* vb, const float (&qpb)[E],
-                                       float scale, float (&y)[E], float* prow) {
-  constexpr int HD = E / H;
-#pragma unroll
-  for (int e = 0; e < E; ++e) y[e] = 0.f;
-#pragma unroll
-  for (int h = 0; h < H; ++h) {
-    float s[M];
-    float mx = -INFINITY;
-#pragma unroll
-    for (int m = 0; m < M; ++m) {
-      const float* kr = kc + m * E + h * HD;
-      float acc = 0.f;
-#pragma unroll
-      for (int d = 0; d < HD; d += 4) {
-        const float4 k4 = *reinterpret_cast<const float4*>(kr + d);
-        acc = fmaf(k4.x, qpb[h * HD + d], acc);
-        acc = fmaf(k4.y, qpb[h * HD + d + 1], acc);
-        acc = fmaf(k4.z, qpb[h * HD + d + 2], acc);
-        acc = fmaf(k4.w, qpb[h * HD + d + 3], acc);
-      }
-      s[m] = acc * scale;
-      mx = fmaxf(mx, s[m]);
-    }
-    float sum = 0.f;
-#pragma unroll
-    for (int m = 0; m < M; ++m) {
-      s[m] = expf(s[m] - mx);
-      sum += s[m];
-    }
-#pragma unroll
-    for (int m = 0; m < M; ++m) {
-      const float p = s[m] / sum;
-      if (prow != nullptr) prow[h * M + m] = p;
-      const float pb = bf(p);
-      const float* vr = vb + (h * M + m) * E;
-#pragma unroll
-      for (int e = 0; e < E; e += 4) {
-        const float4 v = *reinterpret_cast<const float4*>(vr + e);
-        y[e] = fmaf(pb, v.x, y[e]);
-        y[e + 1] = fmaf(pb, v.y, y[e + 1]);
-        y[e + 2] = fmaf(pb, v.z, y[e + 2]);
-        y[e + 3] = fmaf(pb, v.w, y[e + 3]);
-      }
-    }
-  }
-}
-
-// x -> (x - mean) * rstd in place; returns rstd
-template <int E>
-__device__ __forceinline__ float normalize(float (&x)[E], float eps) {
-  float s = 0.f;
-#pragma unroll
-  for (int e = 0; e < E; ++e) s += x[e];
-  const float mean = s / E;
-  float v = 0.f;
-#pragma unroll
-  for (int e = 0; e < E; ++e) {
-    x[e] -= mean;
-    v = fmaf(x[e], x[e], v);
-  }
-  const float rstd = rsqrtf(v / E + eps);
-#pragma unroll
-  for (int e = 0; e < E; ++e) x[e] *= rstd;
-  return rstd;
-}
-
-template <int E, int H, int M>
-__global__ void __launch_bounds__(kGenes)
-decoder_tail_fwd_kernel(const float* __restrict__ qp, const float* __restrict__ q,
-                        const float* __restrict__ kfull, const float* __restrict__ vproj,
-                        const float* __restrict__ ln2g, const float* __restrict__ ln2b,
-                        const float* __restrict__ w12, const float* __restrict__ wv,
-                        const float* __restrict__ wmu, const float* __restrict__ bmu,
-                        float* __restrict__ out, int B, int G, int Hd, float eps, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  Common<E, H, M> sh(smem, Hd);
-  sh.stage_weights(w12, ln2g, ln2b, wv, wmu, Hd);
-
-  const int g = blockIdx.x * kGenes + threadIdx.x;
-  const bool valid = g < G;
-  const size_t gg = valid ? g : G - 1;
-  float qpb[E], qv[E];
-  load_row<E, true>(qp + gg * E, qpb);
-  load_row<E, false>(q + gg * E, qv);
-  const float bias = bmu[0];
-
-  const int b1 = min(B, (int)(blockIdx.y + 1) * kRows);
-  for (int row = blockIdx.y * kRows; row < b1; ++row) {
-    __syncthreads();  // the weights are staged; the last row's readers are done
-    sh.stage_row(kfull, vproj, row);
-    __syncthreads();
-
-    float x[E];
-    attend<E, H, M>(sh.kc, sh.vb, qpb, scale, x, nullptr);
-    float lin = 0.f;
-#pragma unroll
-    for (int e = 0; e < E; ++e) {
-      x[e] = qv[e] + x[e];
-      lin = fmaf(x[e], sh.wmu[e], lin);
-    }
-    normalize<E>(x, eps);
-#pragma unroll
-    for (int e = 0; e < E; ++e) x[e] = bf(__fadd_rn(__fmul_rn(x[e], sh.g[e]), sh.b[e]));
-
-    float mlp = 0.f;
-    for (int n = 0; n < Hd; ++n) {
-      const float a = dot<E>(x, sh.w12t + n * E);
-      const float c = dot<E>(x, sh.w12t + (Hd + n) * E);
-      mlp = fmaf(a / (1.f + expf(-a)) * c, sh.wv[n], mlp);
-    }
-    if (valid) out[(size_t)row * G + g] = lin + mlp + bias;
-  }
-}
 
 // -- the backward on the tensor cores -------------------------------------------
 //
@@ -282,7 +90,7 @@ decoder_tail_fwd_kernel(const float* __restrict__ qp, const float* __restrict__ 
 // in registers across the cells; dvproj and dkfull for each cell are written
 // per gene tile; each CTA writes its partials to a workspace, and
 // `sum_partials` adds them in a fixed order. The gradients repeat their bits.
-namespace bwd {
+namespace tail {
 
 constexpr int E = 32, H = 4, M = 16, HM = H * M, HD = E / H;
 constexpr int kWarps = 4, kThreads = 32 * kWarps;
@@ -328,6 +136,213 @@ __device__ __forceinline__ __nv_bfloat16 b16(float v) { return __float2bfloat16_
 __device__ __forceinline__ void store_t(__nv_bfloat16* dst, int ld, uint32_t pair, int gq, int tq) {
   *reinterpret_cast<uint32_t*>(dst + gq * ld + 2 * tq) = tc::transpose8x8(pair);
 }
+
+// -- the forward ------------------------------------------------------------------
+
+// bf16 elements of the forward's shared memory before its f32 arrays:
+// bf(w12)^T with the hidden width padded to 8 NH (a rows, then c rows; 2 * 8
+// NH x E), the cell's head blocks of bf(kfull) (HM, E) and bf(vproj)^T (E, HM)
+__host__ __device__ inline int fwd_bf16_elems(int NH) {
+  return 2 * 8 * NH * kLd32 + HM * kLd32 + E * kLd64;
+}
+
+// + ln2g, ln2b, wmu (E each) and wv (8 NH, zero-padded) in f32
+__host__ __device__ inline int fwd_smem_bytes(int Hd) {
+  const int NH = (Hd + 7) / 8;
+  return 2 * fwd_bf16_elems(NH) + 4 * (3 * E + 8 * NH);
+}
+
+// One CTA: 64 genes (16 a warp) and the cells [16 blockIdx.y, + 16), grid
+// (ceil(G / 64), ceil(B / 16)). Per cell each warp computes its 16 pairs'
+// logits in mma fragments:
+//   scores  bf(qp) kc^T      16 x 32 . 32 x 64, one k16 step a head's block
+//   y       bf(p) bf(vproj)  16 x 64 . 64 x 32
+//   [a | c] bf(hn) bf(w12)   16 x 32 . 32 x 2Hd, 8 hidden columns of each at a time
+// each one bf16 pass with f32 sums; then logit = wmu . hh + sum silu(a) c wv +
+// bmu, summed over the quad's columns.
+__global__ void __launch_bounds__(kThreads)
+tail_fwd(const float* __restrict__ qp, const float* __restrict__ q,
+         const float* __restrict__ kfull, const float* __restrict__ vproj,
+         const float* __restrict__ ln2g, const float* __restrict__ ln2b,
+         const float* __restrict__ w12, const float* __restrict__ wv,
+         const float* __restrict__ wmu, const float* __restrict__ bmu, float* __restrict__ out,
+         int B, int G, int Hd, float eps, float scale) {
+  const int NH = (Hd + 7) / 8, NP = 8 * NH;  // hidden tiles of 8; the padded width
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* w12t = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // (2 NP, E)
+  __nv_bfloat16* kc = w12t + 2 * NP * kLd32;                          // (HM, E)
+  __nv_bfloat16* vt = kc + HM * kLd32;                                // (E, HM)
+  float* fg = reinterpret_cast<float*>(w12t + fwd_bf16_elems(NH));    // ln2g (E)
+  float* fb = fg + E;                                                 // ln2b (E)
+  float* fmu = fb + E;                                                // wmu (E)
+  float* fwv = fmu + E;                                               // wv (NP)
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int g0 = blockIdx.x * kGenes;
+  const int b0 = blockIdx.y * kCells, b1 = min(B, b0 + kCells);
+
+  // -- the weights, once --------------------------------------------------------
+  for (int i = tid; i < E * NP; i += kThreads) {
+    const int e = i / NP, n = i % NP;
+    const bool in = n < Hd;
+    w12t[n * kLd32 + e] = b16(in ? w12[(size_t)e * 2 * Hd + n] : 0.0f);
+    w12t[(NP + n) * kLd32 + e] = b16(in ? w12[(size_t)e * 2 * Hd + Hd + n] : 0.0f);
+  }
+  for (int i = tid; i < 3 * E + NP; i += kThreads)
+    fg[i] = i < E ? ln2g[i] : i < 2 * E ? ln2b[i - E] : i < 3 * E ? wmu[i - 2 * E]
+          : i - 3 * E < Hd ? wv[i - 3 * E] : 0.0f;
+  const float bias = bmu[0];
+
+  // this lane's two genes (a gene past the edge reads the last one and is not written)
+  int gene[2];
+  bool valid[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    gene[r] = g0 + 16 * warp + gq + 8 * r;
+    valid[r] = gene[r] < G;
+    if (!valid[r]) gene[r] = G - 1;
+  }
+  uint32_t qpa[2][4];  // bf(qp) as the scores' A fragments, k16 steps 0 and 1
+  float qv[4][4];      // q in the accumulator layout: columns 8n + 2tq (+1), genes r
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const float2 v = *reinterpret_cast<const float2*>(qp + (size_t)gene[r] * E + 16 * kk +
+                                                          8 * hf + 2 * tq);
+        qpa[kk][r + 2 * hf] = tc::pack_bf16(v.x, v.y);
+      }
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float2 v = *reinterpret_cast<const float2*>(q + (size_t)gene[r] * E + 8 * n + 2 * tq);
+      qv[n][2 * r] = v.x;
+      qv[n][2 * r + 1] = v.y;
+    }
+
+  for (int b = b0; b < b1; ++b) {
+    __syncthreads();  // the weights are in; the last cell's readers of kc and vt are done
+    {
+      const float* kr = kfull + (size_t)b * HM * E;
+      const float* vr = vproj + (size_t)b * HM * E;
+      for (int i = tid; i < HM * E; i += kThreads) {
+        const int hm = i / E, e = i % E;
+        kc[hm * kLd32 + e] = b16(e / HD == hm / M ? kr[i] : 0.0f);  // the head blocks only
+        vt[e * kLd64 + hm] = b16(vr[i]);
+      }
+    }
+    __syncthreads();
+
+    // scores, softmax
+    float p[8][4];  // the probabilities, head h in tiles 2h and 2h + 1
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      p[j][0] = p[j][1] = p[j][2] = p[j][3] = 0.0f;
+      const int kk = j / 4;  // head j / 2's columns lie in k16 step j / 4
+      const __nv_bfloat16* bp = kc + (8 * j + gq) * kLd32 + 16 * kk + 2 * tq;
+      tc::mma_bf16(p[j], qpa[kk], tc::load_u32(bp), tc::load_u32(bp + 8));
+    }
+#pragma unroll
+    for (int h = 0; h < H; ++h)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float* s0 = &p[2 * h][2 * r];
+        float* s1 = &p[2 * h + 1][2 * r];
+        s0[0] *= scale; s0[1] *= scale; s1[0] *= scale; s1[1] *= scale;
+        float mx = fmaxf(fmaxf(s0[0], s0[1]), fmaxf(s1[0], s1[1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        s0[0] = expf(s0[0] - mx); s0[1] = expf(s0[1] - mx);
+        s1[0] = expf(s1[0] - mx); s1[1] = expf(s1[1] - mx);
+        float sum = (s0[0] + s0[1]) + (s1[0] + s1[1]);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        s0[0] /= sum; s0[1] /= sum; s1[0] /= sum; s1[1] /= sum;
+      }
+    // hh = q + bf(p) bf(vproj); lin = wmu . hh; then the LayerNorm
+    float x[4][4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      x[n][0] = x[n][1] = x[n][2] = x[n][3] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint32_t a[4] = {tc::pack_bf16(p[2 * kk][0], p[2 * kk][1]),
+                               tc::pack_bf16(p[2 * kk][2], p[2 * kk][3]),
+                               tc::pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
+                               tc::pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
+        const __nv_bfloat16* bp = vt + (8 * n + gq) * kLd64 + 16 * kk + 2 * tq;
+        tc::mma_bf16(x[n], a, tc::load_u32(bp), tc::load_u32(bp + 8));
+      }
+    }
+    float logit[2];
+    uint32_t hna[2][4];  // bf(hn) as the up product's A fragments
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float s = 0.0f, lin = 0.0f;
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          float& v = x[n][2 * r + c];
+          v += qv[n][2 * r + c];
+          s += v;
+          lin = fmaf(v, fmu[8 * n + 2 * tq + c], lin);
+        }
+      s += __shfl_xor_sync(0xffffffffu, s, 1);
+      s += __shfl_xor_sync(0xffffffffu, s, 2);
+      const float mean = s / E;
+      float var = 0.0f;
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          x[n][2 * r + c] -= mean;
+          var = fmaf(x[n][2 * r + c], x[n][2 * r + c], var);
+        }
+      var += __shfl_xor_sync(0xffffffffu, var, 1);
+      var += __shfl_xor_sync(0xffffffffu, var, 2);
+      const float rstd = rsqrtf(var / E + eps);
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const int col = 8 * n + 2 * tq;
+        hna[n / 2][r + 2 * (n % 2)] =
+            tc::pack_bf16(__fadd_rn(__fmul_rn(x[n][2 * r] * rstd, fg[col]), fb[col]),
+                          __fadd_rn(__fmul_rn(x[n][2 * r + 1] * rstd, fg[col + 1]), fb[col + 1]));
+      }
+      logit[r] = lin;
+    }
+    // [a | c] over 8 hidden columns at a time, and sum silu(a) c wv
+    float mlp[2] = {0.0f, 0.0f};
+    for (int j = 0; j < NH; ++j) {
+      float a[4] = {0.f, 0.f, 0.f, 0.f}, c[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        const __nv_bfloat16* pa = w12t + (8 * j + gq) * kLd32 + 16 * kk + 2 * tq;
+        const __nv_bfloat16* pc = pa + NP * kLd32;
+        tc::mma_bf16(a, hna[kk], tc::load_u32(pa), tc::load_u32(pa + 8));
+        tc::mma_bf16(c, hna[kk], tc::load_u32(pc), tc::load_u32(pc + 8));
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float sl = a[e] / (1.0f + expf(-a[e]));
+        mlp[e >> 1] = fmaf(sl * c[e], fwv[8 * j + 2 * tq + (e & 1)], mlp[e >> 1]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float v = logit[r] + mlp[r];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      if (tq == 0 && valid[r]) out[(size_t)b * G + gene[r]] = v + bias;
+    }
+  }
+}
+
+// -- the backward -----------------------------------------------------------------
 
 template <int NH>  // Hd = 8 NH
 __global__ void __launch_bounds__(kThreads, 2)
@@ -900,7 +915,7 @@ long long workspace_floats(int B, int G, int Hd) {
   return n_cb * 2 * G * E + n_gt * B * HM * (E + HD) + n_gt * n_cb * nw + n_cb * nw;
 }
 
-}  // namespace bwd
+}  // namespace tail
 
 // The dynamic shared memory each kernel is already allowed, per device: the
 // attribute is set only when a launch needs more than before.
@@ -936,12 +951,11 @@ int scldm_decoder_tail_forward(const void* qp, const void* q, const void* kfull,
                                int Hd, float eps, float scale, void* stream) {
   if (B == 0 || G == 0) return 0;
   if (!supported(E, H, M)) return (int)cudaErrorInvalidValue;
-  auto kernel = decoder_tail_fwd_kernel<32, 4, 16>;
-  const long long smem = 4LL * Common<32, 4, 16>::floats(Hd);
-  cudaError_t err = allow_smem(kernel, g_fwd_allowed, smem);
+  const long long smem = tail::fwd_smem_bytes(Hd);
+  cudaError_t err = allow_smem(tail::tail_fwd, g_fwd_allowed, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((G + kGenes - 1) / kGenes, (B + kRows - 1) / kRows);
-  kernel<<<grid, kGenes, (size_t)smem, (cudaStream_t)stream>>>(
+  const dim3 grid((G + tail::kGenes - 1) / tail::kGenes, (B + tail::kCells - 1) / tail::kCells);
+  tail::tail_fwd<<<grid, tail::kThreads, (size_t)smem, (cudaStream_t)stream>>>(
       (const float*)qp, (const float*)q, (const float*)kfull, (const float*)vproj,
       (const float*)ln2g, (const float*)ln2b, (const float*)w12, (const float*)wv,
       (const float*)wmu, (const float*)bmu, (float*)out, B, G, Hd, eps, scale);
@@ -963,23 +977,23 @@ int scldm_decoder_tail_backward(const void* qp, const void* q, const void* kfull
                                 int Hd, float eps, float scale, void* stream) {
   if (B == 0 || G == 0) return 0;
   if (!supported(E, H, M) || Hd != 88) return (int)cudaErrorInvalidValue;
-  using bwd::HD;
-  using bwd::HM;
-  using bwd::Sums;
+  using tail::HD;
+  using tail::HM;
+  using tail::Sums;
   cudaStream_t s = (cudaStream_t)stream;
-  auto kernel = bwd::tail_bwd<11>;
-  const long long smem = bwd::smem_bytes(Hd);
+  auto kernel = tail::tail_bwd<11>;
+  const long long smem = tail::smem_bytes(Hd);
   cudaError_t err = allow_smem(kernel, g_bwd_allowed, smem);
   if (err != cudaSuccess) return (int)err;
-  const int n_gt = (G + bwd::kGenes - 1) / bwd::kGenes;
-  const int n_cb = (B + bwd::kCells - 1) / bwd::kCells;
-  const long long nw = bwd::wlen(Hd);
+  const int n_gt = (G + tail::kGenes - 1) / tail::kGenes;
+  const int n_cb = (B + tail::kCells - 1) / tail::kCells;
+  const long long nw = tail::wlen(Hd);
   float* part_qq = (float*)workspace;
   float* part_dv = part_qq + (long long)n_cb * 2 * G * E;
   float* part_dk = part_dv + (long long)n_gt * B * HM * E;
   float* part_w = part_dk + (long long)n_gt * B * HM * HD;
   float* sum_w = part_w + (long long)n_gt * n_cb * nw;
-  kernel<<<dim3(n_gt, n_cb), bwd::kThreads, (size_t)smem, s>>>(
+  kernel<<<dim3(n_gt, n_cb), tail::kThreads, (size_t)smem, s>>>(
       (const float*)qp, (const float*)q, (const float*)kfull, (const float*)vproj,
       (const float*)ln2g, (const float*)ln2b, (const float*)w12, (const float*)wv,
       (const float*)wmu, (const float*)dy, part_qq, part_dv, part_dk, part_w, B, G, eps, scale);
@@ -990,15 +1004,15 @@ int scldm_decoder_tail_backward(const void* qp, const void* q, const void* kfull
   first.job[2] = {part_dk, (float*)dkfull, (long long)B * HM * HD, n_gt, 1, 1, 0};
   first.job[3] = {part_w, sum_w, nw, n_gt, n_cb, 0, 0};  // over gene tiles, per cell block
   first.n = 4;
-  if ((err = bwd::launch_sums(first, s)) != cudaSuccess) return (int)err;
+  if ((err = tail::launch_sums(first, s)) != cudaSuccess) return (int)err;
   Sums second{};
   second.job[0] = {sum_w, (float*)wvec, nw, n_cb, 1, 0, 0};
   second.n = 1;
-  return (int)bwd::launch_sums(second, s);
+  return (int)tail::launch_sums(second, s);
 }
 
 long long scldm_decoder_tail_backward_workspace_floats(int B, int G, int Hd) {
-  return bwd::workspace_floats(B, G, Hd);
+  return tail::workspace_floats(B, G, Hd);
 }
 
 }  // extern "C"

@@ -1,6 +1,8 @@
-// The recompute backward of one adaLN-zero DiT block, f32: a row kernel where
-// a row fits one CTA, seven kernels where it does not, then one for the
-// weight gradients.
+// The recompute backward of one adaLN-zero DiT block, f32: the forward's
+// tiled stages recomputed into a workspace, then the backward on the same
+// tensor-core GEMM, a streaming attention backward and per-token LayerNorm
+// kernels, and the weight gradients as tensor-core GEMMs over the token axis.
+// One design for every T.
 //
 // Replaces the TPU kernel scldm_tpu/ops/fused_dit.py::_bwd_pallas (Pallas body
 // `_block_bwd_kernel`, the in-kernel jax.vjp of `_block_math`): given x (R, T,
@@ -14,51 +16,50 @@
 //   h2  = LN(x1) * (1 + scale_m) + shift_m
 //   y   = x1 + gate_m * ((silu(h2 @ w1) * (h2 @ w2)) @ wmlp)
 //
-// What bounds it on an H100: f32 FMA. The recompute and the backward are
-// about three times the forward's operations (10 GFLOP per block at the
-// dentate LDM step's R=128 rows of T=16 tokens, E=256, Hd=684; 5 GFLOP at
-// the census step's R=16 rows of T=64), against 4.7 MB of weights read and
-// 4.7 MB of gradients written.
+// What bounds it on an H100: operations. The recompute, the backward's token
+// products and the weight gradients are each about the forward's operations
+// (10 GFLOP per block at the dentate LDM step's R = 128 rows of T = 16
+// tokens, E = 256, Hd = 684; 5 GFLOP at the census step's R = 16 rows of T =
+// 64; 99 GFLOP at the long-latent R = 16 rows of T = 1,024, where the
+// attention's T^2 terms dominate), every product run as three TF32
+// tensor-core passes: 3 x 3 x 3.3 GFLOP at 495 TFLOP/s, 0.06 ms at the
+// dentate shape.
 //
-// What the design does about it. Both designs keep every per-token
-// intermediate the weight gradients need in a device workspace (`carve`
-// below; dit_block_bwd_workspace_floats() in scldm_torch/ops/fused_dit.py),
-// so that the gradients, sums over all R*T tokens, are not summed by the
-// CTAs that own the rows. The wrapper picks the design by shared memory, as
-// for the forward. The row design (dit_block_bwd_rows), where a row fits one
-// CTA (the dentate T=16: 112 KB), recomputes the forward and runs the
-// backward for dx and dc with the whole row in shared memory; at T=16 it is
-// the faster of the two (PERF.md, section 6). A census row does not fit (its
-// scores and their cotangents alone take 262 KB), so the split design takes
-// the forward's split (dit_common.cuh):
-//   1. rows_gemm: mod (and silu(c)) for kRowTile rows per CTA;
-//   2. ln_qkv: per (row, token tile): h and qkv;
-//   3. attention: per (row, head): the attention output;
-//   4. mlp_bwd: per (row, token tile): the rest of the forward (proj, x1, h2,
-//      [a | b], g), then the backward from dy to d(attention output): dm,
-//      [da | db], dx1 (into dx), dproj; its share of dmod's sums over tokens
-//      goes to a per-tile partial;
-//   5. attention_bwd: per (row, head): the probabilities recomputed, then dq,
-//      dk and dv over q, k and v in the workspace;
-//   6. qkv_bwd: per (row, token tile): dh = dqkv @ wqkv^T, the first
-//      modulation's and LayerNorm's backward (into dx and the partials);
-//   7. rows_gemm: dmod, the per-tile partials summed in order, and dc.
-// Then, for both, dit_common.cuh's weight_grads: every weight gradient in one
-// launch, a tiled U^T V over the token (or row) axis per gradient, 64x64
-// outputs per CTA, 4x4 per thread, 16 tokens per shared-memory stage; the
-// bias gradients are the column sums of U, taken by the CTAs of the first
-// column tile. The gradients come out in nn.Linear's (out, in) layout.
-// No atomics: every sum is taken in a fixed order. Products against a
-// transposed weight read the weight in nn.Linear's (out, in) layout, so that
-// one thread per output column reads it with coalesced loads, as the forward
-// products read the (in, out) layout. The tensor cores are not used yet.
+// What the design does about it (dit_tiled.cuh holds the shared stages):
+// - The forward is recomputed with row 1's own stages (silu, the adaLN
+//   product, the LayerNorms, the qkv, projection, SwiGLU and down products
+//   on `tiled::gemm`, the streaming attention at every T, which here also
+//   writes each query's log-sum-exp), keeping what the backward reads in the
+//   workspace (`carve`): silu(c), mod, h, qkv, the attention output, proj,
+//   x1, h2, [a | b], silu(a) b and the MLP output m.
+// - The backward's token products run on the same GEMM, reading the weights
+//   in nn.Linear's (out, in) layout: dm -> d[a | b] through wmlp (the SwiGLU
+//   backward in the epilogue), d(h2) through [w1 | w2], d(attention output)
+//   through wproj and dh through wqkv.
+// - The attention backward streams 64-token tiles, its softmax statistics
+//   from the recompute: `attention_dq` per (query tile, head) takes dq and
+//   each query's delta = do . o; `attention_dkv` per (key tile, head) takes dk
+//   and dv over the query tiles of its keys' rows. No atomics; a key scores
+//   -inf outside its query's DiT row where one tile spans rows (T = 16).
+// - `ln_bwd` (one warp a token, one CTA per row and 16 tokens) takes the two
+//   LayerNorm-and-modulation backwards and the residual around the
+//   attention branch, and its CTA's share of dmod's sums over tokens to a
+//   partial; `sum_parts` adds the partials in order and `dc_rows` takes dc
+//   through wada, both in f64 (|dc| reaches a few hundred at T = 1,024).
+// - The weight gradients are U^T V over the token axis in one launch
+//   (`grad_gemm`): K = R*T (2,048, 1,024 and 16,384 tokens at the
+//   three shapes; R for the adaLN product) is cut into chunks where the
+//   output tiles are too few to fill the card, each chunk's partial summed by
+//   `grad_reduce` in order; each 32-deep stage is summed from zero and
+//   added in f32; the bias gradients are column sums of U.
+// No atomics: every sum is taken in a fixed order, the same bits every run.
 //
-// Shared memory per CTA, in floats: the row kernel 2*T*E + T*max(3E, Hd) +
-// 2*H*T*T + 13E + 4T; the split's rows_gemm kRowTile*K + 2048 (K = E, then
-// 6E); ln_qkv kTok*E; attention 2*T*hd + T*(hd + 1) + T*T; mlp_bwd
-// kTok*(2E + Hd) + 2*kTok; attention_bwd 2*T*hd + 2*T*(hd + 1) + 2*T*T;
-// qkv_bwd kTok*5E + 2*kTok. Requires E % 4 == 0, Hd % 4 == 0 and E % H == 0
-// (the wrapper checks).
+// Shared memory a CTA, in floats: the GEMMs 3 * (64 * 36 + 32 * 72), the
+// attention 5 * 64 * (DP + 4) and its backward 6 * 64 * (DP + 4) + 4 * 64 (DP
+// the head width padded to 16, 32 or 64), ln_bwd 8 * 4 * E; dc_rows 4 * 6E +
+// 2,048 doubles; none grows with T. Requires E <= 512, Hd % 4 == 0 and a
+// head width that is a multiple of 4 up to 64 (the wrapper checks;
+// cudaErrorInvalidValue otherwise).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -66,846 +67,930 @@
 
 #include <algorithm>
 
-#include "dit_common.cuh"
+#include "dit_tiled.cuh"
 
 namespace {
 
 using dit::allow_smem;
-using dit::dot_tile;
-using dit::kRowTile;
-using dit::kThreads;
-using dit::kTok;
-using dit::ln_modulate;
-using dit::sigmoid;
-using dit::silu;
 using dit::SmemAllowance;
 using dit::warp_sum;
+using tiled::kBK;
+using tiled::kBM;
+using tiled::kBN;
+using tiled::kQ;
+using tiled::kThreads;
+using tiled::kWM;
+
+constexpr int kTok = 16;          // tokens of one DiT row a CTA of ln_bwd takes
+constexpr int kLnBwdWarps = 8;    // its warps, two tokens each
+constexpr int kMaxVec = 4;        // float4s a lane of a token: E <= 512
+constexpr int kDcRows = 4;        // rows a CTA of dc_rows
+constexpr int kDcWarps = 16;      // its warps, each a sixteenth of the depth 6E
+constexpr int kGradSplits = 8;    // at most this many chunks of a weight gradient's tokens
+constexpr int kGradSlots = 3 * 132;  // CTAs that fill the card (three a SM)
 
 // The workspace's slots, each (tokens, width) row-major, or (rows, width).
 struct Workspace {
-  float* h;      // (N, E)   h, the input of wqkv
-  float* qkv;    // (N, 3E)  qkv, then dqkv
-  float* attn;   // (N, E)   attention output, the input of wproj
-  float* proj;   // (N, E)   attn @ wproj + bproj, then dproj
-  float* h2;     // (N, E)   h2, the input of w1 and w2
-  float* ab;     // (N, 2Hd) [a | b], then [da | db]
-  float* g;      // (N, Hd)  silu(a) * b, the input of wmlp
-  float* m;      // (N, E)   dm
-  float* dattn;  // (N, E)   d(attention output)
-  float* cs;     // (R, E)   silu(c), the input of wada
-  float* mod;    // (R, 6E)  mod, then dmod
-  float* parts;  // (R, nt, 6E) each token tile's share of dmod
+  float* cs;     // (R, E)    silu(c)
+  float* mod;    // (R, 6E)   mod
+  float* dmod;   // (R, 6E)   dmod
+  float* parts;  // (R, nt, 6E) each ln_bwd CTA's share of dmod
+  float* lse;    // (N, H)    each query's log-sum-exp, base 2
+  float* delta;  // (N, H)    each query's do . o
+  float* h;      // (N, E)    h, the input of wqkv
+  float* qkv;    // (N, 3E)
+  float* attn;   // (N, E)    the attention output, the input of wproj
+  float* proj;   // (N, E)    attn @ wproj + bproj
+  float* x1;     // (N, E)
+  float* h2;     // (N, E)    the input of w1 and w2
+  float* ab;     // (N, 2Hd)  [a | b], then [da | db]
+  float* g;      // (N, Hd)   silu(a) * b, the input of wmlp
+  float* m;      // (N, E)    g @ wmlp
+  float* dm;     // (N, E)    dy * gate_m
+  float* dh;     // (N, E)    d(h2), then dh
+  float* dproj;  // (N, E)
+  float* dattn;  // (N, E)    d(attention output)
+  float* dqkv;   // (N, 3E)
+  float* grads;  // (kGradSplits, the weight gradients' P * Q + P) chunk partials
 };
 
-__host__ __device__ inline Workspace carve(float* ws, int R, int T, int E, int Hd) {
-  const size_t N = (size_t)R * T;
+// P * Q + P of the five weight-gradient jobs: wada, wqkv, wproj, w1 | w2, wmlp
+__host__ __device__ inline size_t grad_floats(int E, int Hd) {
+  return (size_t)6 * E * E + 6 * E + 3 * E * E + 3 * E + E * E + E + 2 * Hd * E + 2 * Hd +
+         (size_t)E * Hd + E;
+}
+
+// Carves the slots out of `ws` in the order above, each rounded up to 4
+// floats (16-byte vectors); returns the floats they take before the weight
+// gradients' partials (`ws` may be null to count them).
+inline size_t carve(float* ws, int R, int T, int E, int H, int Hd, Workspace& w) {
+  const size_t N = (size_t)R * T, nt = (T + kTok - 1) / kTok;
+  size_t at = 0;
+  auto take = [&](size_t n) {
+    float* p = ws != nullptr ? ws + at : nullptr;
+    at += (n + 3) & ~(size_t)3;
+    return p;
+  };
+  w.cs = take((size_t)R * E);
+  w.mod = take((size_t)R * 6 * E);
+  w.dmod = take((size_t)R * 6 * E);
+  w.parts = take(R * nt * 6 * E);
+  w.lse = take(N * H);
+  w.delta = take(N * H);
+  w.h = take(N * E);
+  w.qkv = take(N * 3 * E);
+  w.attn = take(N * E);
+  w.proj = take(N * E);
+  w.x1 = take(N * E);
+  w.h2 = take(N * E);
+  w.ab = take(N * 2 * Hd);
+  w.g = take(N * Hd);
+  w.m = take(N * E);
+  w.dm = take(N * E);
+  w.dh = take(N * E);
+  w.dproj = take(N * E);
+  w.dattn = take(N * E);
+  w.dqkv = take(N * 3 * E);
+  w.grads = ws != nullptr ? ws + at : nullptr;
+  return at;
+}
+
+size_t workspace_floats(int R, int T, int E, int H, int Hd) {
   Workspace w;
-  w.h = ws;
-  w.qkv = w.h + N * E;
-  w.attn = w.qkv + N * 3 * E;
-  w.proj = w.attn + N * E;
-  w.h2 = w.proj + N * E;
-  w.ab = w.h2 + N * E;
-  w.g = w.ab + N * 2 * Hd;
-  w.m = w.g + N * Hd;
-  w.dattn = w.m + N * E;
-  w.cs = w.dattn + N * E;
-  w.mod = w.cs + (size_t)R * E;
-  w.parts = w.mod + (size_t)R * 6 * E;
-  return w;
+  return carve(nullptr, R, T, E, H, Hd, w) + kGradSplits * grad_floats(E, Hd);
 }
 
-// The (row, token tile) of a token-wise CTA, grid R * ceil(T / kTok).
-struct TokenTile {
-  int row, tile, t0, tn;
-  size_t tok;  // the tile's first token
-};
+// -- the attention backward ----------------------------------------------------------
+//
+// Both kernels take one head and 64 tokens of the flattened token axis a CTA
+// (one warp 16), stream the other side's 64-token tiles over the DiT rows
+// their tokens lie in through a cp.async ring, and run every product as
+// three TF32 passes; a pair scores -inf unless query and key lie in one row,
+// and 8-token blocks that share no row with a warp's tokens are skipped. The
+// head width is zero-padded to DP. Each tile's products are summed from zero
+// and added in f32. With s = q . k * scale (scale_log2 = log2(e) * scale), p
+// = exp2(s * log2(e) - lse) and delta = do . o:
+//   dq = scale * sum_k p (do . v - delta) k,   dk = scale * sum_q p (do . v - delta) q,
+//   dv = sum_q p do.
 
-__device__ inline TokenTile token_tile(int T) {
+__host__ __device__ constexpr int attn_bwd_smem_floats(int DP) {
+  return 6 * kQ * tiled::attn_ld(DP) + 4 * kQ;
+}
+
+// 64 rows of `width` floats at column `col` of src (row pitch ld) from token
+// tok0 into dst (pitch LD); rows at or past tok1 are zero-filled
+__device__ __forceinline__ void stage_rows(float* dst, int LD, const float* src, int ld, int col,
+                                           int tok0, int tok1, int width) {
+  const int per_row = width / 4;
+  for (int i = threadIdx.x; i < kQ * per_row; i += kThreads) {
+    const int r = i / per_row, c = (i % per_row) * 4;
+    const int tok = tok0 + r;
+    const bool in = tok < tok1;
+    tc::cp_async16(dst + r * LD + c, src + (in ? (size_t)tok * ld + col + c : 0), in);
+  }
+}
+
+// A of one k-step (8 columns at kk) of the warp's 16 rows at p (pitch LD), split
+template <int LD>
+__device__ __forceinline__ void frag_a(const float* p, int kk, uint32_t (&hi)[4],
+                                       uint32_t (&lo)[4]) {
+  const int lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
+  const float* a = p + gq * LD + 8 * kk + tq;
+  tc::split_tf32(a[0], hi[0], lo[0]);
+  tc::split_tf32(a[8 * LD], hi[1], lo[1]);
+  tc::split_tf32(a[4], hi[2], lo[2]);
+  tc::split_tf32(a[8 * LD + 4], hi[3], lo[3]);
+}
+
+// d += A B^T for one k-step, B's 8 rows at p (pitch LD): three passes
+template <int LD>
+__device__ __forceinline__ void mma_bt(float (&d)[4], const uint32_t (&ah)[4],
+                                       const uint32_t (&al)[4], const float* p, int kk) {
+  const int lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
+  const float* b = p + gq * LD + 8 * kk + tq;
+  uint32_t bh0, bl0, bh1, bl1;
+  tc::split_tf32(b[0], bh0, bl0);
+  tc::split_tf32(b[4], bh1, bl1);
+  tc::mma_tf32(d, al, bh0, bh1);
+  tc::mma_tf32(d, ah, bl0, bl1);
+  tc::mma_tf32(d, ah, bh0, bh1);
+}
+
+// part[n] += S B over the 64 tile columns: S (16 x 64) in accumulator layout,
+// its k-step jj taking column 8jj + 2tq in slot tq and 8jj + 2tq + 1 in slot
+// tq + 4; B's rows (the tile's tokens, pitch LD) follow that order
+template <int DP>
+__device__ __forceinline__ void mma_sv(float (&part)[DP / 8][4], const float (&s)[kQ / 8][4],
+                                       const bool (&live)[kQ / 8], const float* b0) {
+  constexpr int LD = tiled::attn_ld(DP);
+  const int lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int jj = 0; jj < kQ / 8; ++jj) {
+    if (!live[jj]) continue;
+    uint32_t ah[4], al[4];
+    tc::split_tf32(s[jj][0], ah[0], al[0]);
+    tc::split_tf32(s[jj][2], ah[1], al[1]);
+    tc::split_tf32(s[jj][1], ah[2], al[2]);
+    tc::split_tf32(s[jj][3], ah[3], al[3]);
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n) {
+      const float* b = b0 + (8 * jj + 2 * tq) * LD + 8 * n + gq;
+      uint32_t bh0, bl0, bh1, bl1;
+      tc::split_tf32(b[0], bh0, bl0);
+      tc::split_tf32(b[LD], bh1, bl1);
+      tc::mma_tf32(part[n], al, bh0, bh1);
+      tc::mma_tf32(part[n], ah, bl0, bl1);
+      tc::mma_tf32(part[n], ah, bh0, bh1);
+    }
+  }
+}
+
+// dq of one head and 64 queries (grid (ceil(N / 64), H)), and each query's
+// delta = do . o to `delta` for attention_dkv.
+template <int DP>
+__global__ void __launch_bounds__(kThreads)
+attention_dq(const float* __restrict__ qkv, const float* __restrict__ att,
+             const float* __restrict__ datt, const float* __restrict__ lse,
+             float* __restrict__ delta, float* __restrict__ dqkv, int Ntok, int T, int E, int hd,
+             float scale_log2, float scale) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int LD = tiled::attn_ld(DP);
+  float* qt = smem;               // [kQ][LD] q
+  float* dot = qt + kQ * LD;      // [kQ][LD] do
+  float* ring = dot + kQ * LD;    // [2][k, v][kQ][LD]
+  float* stat = ring + 4 * kQ * LD;  // [lse, delta][kQ]
+  const int h = blockIdx.y, H = gridDim.y;
+  const int q0 = blockIdx.x * kQ;
+  const int qn = min(kQ, Ntok - q0);
+  const int key0 = (q0 / T) * T;
+  const int key1 = min(Ntok, ((q0 + qn - 1) / T + 1) * T);
+  const int n_tiles = (key1 - key0 + kQ - 1) / kQ;
+  const int E3 = 3 * E;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+
+  for (int i = tid; i < attn_bwd_smem_floats(DP) / 4; i += kThreads)
+    reinterpret_cast<float4*>(smem)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncthreads();  // the pad columns stay zero: the copies write columns < hd only
+
+  auto stage_keys = [&](int t) {
+    float* st = ring + (t & 1) * 2 * kQ * LD;
+    const int k0 = key0 + t * kQ;
+    stage_rows(st, LD, qkv, E3, E + h * hd, k0, key1, hd);
+    stage_rows(st + kQ * LD, LD, qkv, E3, 2 * E + h * hd, k0, key1, hd);
+  };
+  stage_rows(qt, LD, qkv, E3, h * hd, q0, Ntok, hd);
+  stage_rows(dot, LD, datt, E, h * hd, q0, Ntok, hd);
+  stage_keys(0);
+  tc::cp_async_commit();
+  if (tid < kQ) {
+    const int tok = q0 + tid;
+    float d = 0.0f, l = 0.0f;
+    if (tok < Ntok) {
+      const float* o = att + (size_t)tok * E + h * hd;
+      const float* g = datt + (size_t)tok * E + h * hd;
+      for (int k = 0; k < hd; ++k) d = fmaf(g[k], o[k], d);
+      l = lse[(size_t)tok * H + h];
+      delta[(size_t)tok * H + h] = d;
+    }
+    stat[tid] = l;
+    stat[kQ + tid] = d;
+  }
+
+  const int wq0 = q0 + warp * 16;
+  const bool active = wq0 < Ntok;
+  const int wkey0 = (wq0 / T) * T, wkey1 = min(key1, (min(wq0 + 15, Ntok - 1) / T + 1) * T);
+  int qkey0[2], qkey1[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    qkey0[hh] = ((wq0 + gq + 8 * hh) / T) * T;
+    qkey1[hh] = min(key1, qkey0[hh] + T);
+  }
+  float acc[DP / 8][4];
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+  float L[2], D[2];
+  const float* qw = qt + warp * 16 * LD;
+  const float* dw = dot + warp * 16 * LD;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    tc::cp_async_wait<0>();
+    __syncthreads();  // tile t is in; every warp is done with tile t - 1's stage
+    if (t + 1 < n_tiles) stage_keys(t + 1);
+    tc::cp_async_commit();
+    if (!active) continue;
+    if (t == 0) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        L[hh] = stat[warp * 16 + gq + 8 * hh];
+        D[hh] = stat[kQ + warp * 16 + gq + 8 * hh];
+      }
+    }
+    const float* kt = ring + (t & 1) * 2 * kQ * LD;
+    const float* vt = kt + kQ * LD;
+    const int k0 = key0 + t * kQ;
+    bool live[kQ / 8];
+#pragma unroll
+    for (int j = 0; j < kQ / 8; ++j) {
+      const int kb = k0 + 8 * j;
+      live[j] = kb < wkey1 && kb + 8 > wkey0;
+    }
+    // s = q k^T and dp = do v^T
+    float s[kQ / 8][4], dp[kQ / 8][4];
+#pragma unroll
+    for (int j = 0; j < kQ / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < DP / 8; ++kk) {
+      uint32_t qh[4], ql[4], gh[4], gl[4];
+      frag_a<LD>(qw, kk, qh, ql);
+      frag_a<LD>(dw, kk, gh, gl);
+#pragma unroll
+      for (int j = 0; j < kQ / 8; ++j) {
+        if (!live[j]) continue;
+        mma_bt<LD>(s[j], qh, ql, kt + 8 * j * LD, kk);
+        mma_bt<LD>(dp[j], gh, gl, vt + 8 * j * LD, kk);
+      }
+    }
+    // ds = p (dp - delta), in s
+#pragma unroll
+    for (int j = 0; j < kQ / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + 8 * j + 2 * tq + (e & 1), r = e >> 1;
+        const bool in = live[j] && key >= qkey0[r] && key < qkey1[r];
+        const float p = in ? exp2f(s[j][e] * scale_log2 - L[r]) : 0.0f;
+        s[j][e] = p * (dp[j][e] - D[r]);
+      }
+    float part[DP / 8][4];
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n) part[n][0] = part[n][1] = part[n][2] = part[n][3] = 0.0f;
+    mma_sv<DP>(part, s, live, kt);
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] += part[n][e];
+  }
+  tc::cp_async_wait<0>();
+  if (!active) return;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int tok = wq0 + gq + 8 * hh;
+    if (tok >= Ntok) continue;
+    float* o = dqkv + (size_t)tok * E3 + h * hd;
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n) {
+      const int d = 8 * n + 2 * tq;
+      if (d < hd)
+        *reinterpret_cast<float2*>(o + d) =
+            make_float2(acc[n][2 * hh] * scale, acc[n][2 * hh + 1] * scale);
+    }
+  }
+}
+
+// dk and dv of one head and 64 keys (grid (ceil(N / 64), H)), over the query
+// tiles of the rows its keys lie in, with lse and delta of those queries.
+template <int DP>
+__global__ void __launch_bounds__(kThreads)
+attention_dkv(const float* __restrict__ qkv, const float* __restrict__ datt,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              float* __restrict__ dqkv, int Ntok, int T, int E, int hd, float scale_log2,
+              float scale) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int LD = tiled::attn_ld(DP);
+  float* kt = smem;                  // [kQ][LD] k
+  float* vt = kt + kQ * LD;          // [kQ][LD] v
+  float* ring = vt + kQ * LD;        // [2][q, do][kQ][LD]
+  float* sring = ring + 4 * kQ * LD;  // [2][lse, delta][kQ]
+  const int h = blockIdx.y, H = gridDim.y;
+  const int k0b = blockIdx.x * kQ;
+  const int kn = min(kQ, Ntok - k0b);
+  const int qry0 = (k0b / T) * T;
+  const int qry1 = min(Ntok, ((k0b + kn - 1) / T + 1) * T);
+  const int n_tiles = (qry1 - qry0 + kQ - 1) / kQ;
+  const int E3 = 3 * E;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+
+  for (int i = tid; i < attn_bwd_smem_floats(DP) / 4; i += kThreads)
+    reinterpret_cast<float4*>(smem)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncthreads();
+
+  // tile t's queries, do, lse and delta into ring slot t & 1 (the statistics
+  // by plain stores, which the next __syncthreads publishes)
+  auto stage_queries = [&](int t) {
+    float* st = ring + (t & 1) * 2 * kQ * LD;
+    const int q0 = qry0 + t * kQ;
+    stage_rows(st, LD, qkv, E3, h * hd, q0, qry1, hd);
+    stage_rows(st + kQ * LD, LD, datt, E, h * hd, q0, qry1, hd);
+    if (tid < kQ) {
+      const int tok = q0 + tid;
+      float* ss = sring + (t & 1) * 2 * kQ;
+      const bool in = tok < qry1;
+      ss[tid] = in ? lse[(size_t)tok * H + h] : 0.0f;
+      ss[kQ + tid] = in ? delta[(size_t)tok * H + h] : 0.0f;
+    }
+  };
+  stage_rows(kt, LD, qkv, E3, E + h * hd, k0b, Ntok, hd);
+  stage_rows(vt, LD, qkv, E3, 2 * E + h * hd, k0b, Ntok, hd);
+  stage_queries(0);
+  tc::cp_async_commit();
+
+  // the queries of the rows the warp's keys lie in, and of each of the
+  // thread's two keys' rows
+  const int kw0 = k0b + warp * 16;
+  const bool active = kw0 < Ntok;
+  const int wq0 = (kw0 / T) * T, wq1 = min(qry1, (min(kw0 + 15, Ntok - 1) / T + 1) * T);
+  int krow0[2], krow1[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    krow0[hh] = ((kw0 + gq + 8 * hh) / T) * T;
+    krow1[hh] = min(qry1, krow0[hh] + T);
+  }
+  float dk[DP / 8][4], dv[DP / 8][4];
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.0f;
+  const float* kw = kt + warp * 16 * LD;
+  const float* vw = vt + warp * 16 * LD;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    tc::cp_async_wait<0>();
+    __syncthreads();  // tile t is in; every warp is done with tile t - 1's stage
+    if (t + 1 < n_tiles) stage_queries(t + 1);
+    tc::cp_async_commit();
+    if (!active) continue;
+    const float* qtile = ring + (t & 1) * 2 * kQ * LD;
+    const float* gtile = qtile + kQ * LD;
+    const float* ls = sring + (t & 1) * 2 * kQ;
+    const int q0 = qry0 + t * kQ;
+    bool live[kQ / 8];
+#pragma unroll
+    for (int j = 0; j < kQ / 8; ++j) {
+      const int qb = q0 + 8 * j;
+      live[j] = qb < wq1 && qb + 8 > wq0;
+    }
+    // s^T = k q^T and dp^T = v do^T, keys as rows
+    float s[kQ / 8][4], dp[kQ / 8][4];
+#pragma unroll
+    for (int j = 0; j < kQ / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < DP / 8; ++kk) {
+      uint32_t kh[4], kl[4], vh[4], vl[4];
+      frag_a<LD>(kw, kk, kh, kl);
+      frag_a<LD>(vw, kk, vh, vl);
+#pragma unroll
+      for (int j = 0; j < kQ / 8; ++j) {
+        if (!live[j]) continue;
+        mma_bt<LD>(s[j], kh, kl, qtile + 8 * j * LD, kk);
+        mma_bt<LD>(dp[j], vh, vl, gtile + 8 * j * LD, kk);
+      }
+    }
+    // p^T in s, ds^T = p^T (dp^T - delta) in dp
+#pragma unroll
+    for (int j = 0; j < kQ / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * j + 2 * tq + (e & 1), r = e >> 1;
+        const int q = q0 + c;
+        const bool in = live[j] && q >= krow0[r] && q < krow1[r];
+        const float p = in ? exp2f(s[j][e] * scale_log2 - ls[c]) : 0.0f;
+        s[j][e] = p;
+        dp[j][e] = p * (dp[j][e] - ls[kQ + c]);
+      }
+    float pv[DP / 8][4], pk[DP / 8][4];
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pv[n][e] = pk[n][e] = 0.0f;
+    mma_sv<DP>(pv, s, live, gtile);
+    mma_sv<DP>(pk, dp, live, qtile);
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        dv[n][e] += pv[n][e];
+        dk[n][e] += pk[n][e];
+      }
+  }
+  tc::cp_async_wait<0>();
+  if (!active) return;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int tok = kw0 + gq + 8 * hh;
+    if (tok >= Ntok) continue;
+    float* o = dqkv + (size_t)tok * E3 + h * hd;
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n) {
+      const int d = 8 * n + 2 * tq;
+      if (d < hd) {
+        *reinterpret_cast<float2*>(o + E + d) =
+            make_float2(dk[n][2 * hh] * scale, dk[n][2 * hh + 1] * scale);
+        *reinterpret_cast<float2*>(o + 2 * E + d) = make_float2(dv[n][2 * hh], dv[n][2 * hh + 1]);
+      }
+    }
+  }
+}
+
+// -- the LayerNorm and modulation backwards -------------------------------------------
+//
+// One CTA per (DiT row, tile of kTok tokens), grid R * ceil(T / kTok), one
+// warp a token (two each); xhat is recomputed from the LayerNorm's input
+// `src` and its statistics. With kPost, the MLP branch's LayerNorm of x1 and
+// the gated residual around the attention branch (d = d(h2)):
+//   dx1 = dy + LN'(d (1 + scale_m)),  dproj = dx1 gate_a  -> dx, dproj;
+//   sums of d xhat, d, dx1 proj and dy m  -> dscale_m, dshift_m, dgate_a, dgate_m.
+// Otherwise the attention branch's LayerNorm of x (d = dh): dx += LN'(d (1 +
+// scale_a)); sums of d xhat and d -> dscale_a, dshift_a. The sums over the
+// CTA's tokens, the warps' added in order, go to its partial (R, nt, 6E).
+template <bool kPost>
+__global__ void __launch_bounds__(32 * kLnBwdWarps)
+ln_bwd(const float* __restrict__ src, const float* __restrict__ d_in,
+       const float* __restrict__ mod, const float* __restrict__ dy, const float* __restrict__ m,
+       const float* __restrict__ proj, float* __restrict__ dx, float* __restrict__ dproj,
+       float* __restrict__ parts, int T, int E, float eps) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int kSums = kPost ? 4 : 2;
+  float* red = smem;  // [kLnBwdWarps][kSums][E]
   const int nt = (T + kTok - 1) / kTok;
-  TokenTile tt;
-  tt.row = blockIdx.x / nt;
-  tt.tile = blockIdx.x % nt;
-  tt.t0 = tt.tile * kTok;
-  tt.tn = min(kTok, T - tt.t0);
-  tt.tok = (size_t)tt.row * T + tt.t0;
-  return tt;
-}
+  const int row = blockIdx.x / nt, tile = blockIdx.x % nt;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const float* mrow = mod + (size_t)row * 6 * E;
+  const float* scale = mrow + (kPost ? 3 * E : 0);
+  const float* gate_a = mrow + 2 * E;
+  float4 sum[kSums][kMaxVec];
+#pragma unroll
+  for (int k = 0; k < kSums; ++k)
+#pragma unroll
+    for (int i = 0; i < kMaxVec; ++i) sum[k][i] = make_float4(0.f, 0.f, 0.f, 0.f);
 
-// The mean and 1/sqrt(var + eps) of each of the T rows of src (T, E), one
-// warp per row, as ln_modulate takes them.
-__device__ void ln_stats(const float* src, int T, int E, float eps, float* mean,
-                         float* rstd) {
-  const int lane = threadIdx.x & 31;
-  for (int t = threadIdx.x >> 5; t < T; t += blockDim.x >> 5) {
-    const float* r = src + t * E;
+  for (int tt = warp; tt < kTok; tt += kLnBwdWarps) {
+    const int t = tile * kTok + tt;
+    if (t >= T) break;
+    const size_t tok = (size_t)row * T + t;
+    float4 xh[kMaxVec], d[kMaxVec];
     float s = 0.0f;
-    for (int e = lane; e < E; e += 32) s += r[e];
-    const float mu = warp_sum(s) / E;
-    float v = 0.0f;
-    for (int e = lane; e < E; e += 32) {
-      const float d = r[e] - mu;
-      v += d * d;
+#pragma unroll
+    for (int i = 0; i < kMaxVec; ++i) {
+      const int k = lane * 4 + i * 128;
+      if (k < E) {
+        xh[i] = *reinterpret_cast<const float4*>(src + tok * E + k);
+        s += (xh[i].x + xh[i].y) + (xh[i].z + xh[i].w);
+      }
     }
-    const float inv = 1.0f / sqrtf(warp_sum(v) / E + eps);
-    if (lane == 0) {
-      mean[t] = mu;
-      rstd[t] = inv;
+    const float mean = warp_sum(s) / E;
+    float var = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kMaxVec; ++i) {
+      if (lane * 4 + i * 128 < E) {
+        xh[i].x -= mean; xh[i].y -= mean; xh[i].z -= mean; xh[i].w -= mean;
+        var += (xh[i].x * xh[i].x + xh[i].y * xh[i].y) + (xh[i].z * xh[i].z + xh[i].w * xh[i].w);
+      }
     }
-  }
-}
-
-// dscale[e] = sum_t d[t, e] * xhat[t, e], dshift[e] = sum_t d[t, e], and d
-// becomes d * (1 + scale): the modulation's backward, one thread per column.
-// xhat[t, e] = (src[t, e] - mean[t]) * rstd[t].
-__device__ void modulate_bwd(float* d, const float* src, const float* mean,
-                             const float* rstd, const float* scale, int T, int E,
-                             float* dscale, float* dshift) {
-  for (int e = threadIdx.x; e < E; e += blockDim.x) {
-    float ds = 0.0f, dh = 0.0f;
-    for (int t = 0; t < T; ++t) {
-      const float xh = (src[t * E + e] - mean[t]) * rstd[t];
-      const float v = d[t * E + e];
-      ds = fmaf(v, xh, ds);
-      dh += v;
-      d[t * E + e] = v * (1.0f + scale[e]);
-    }
-    dscale[e] = ds;
-    dshift[e] = dh;
-  }
-}
-
-// acc[t, :] += rstd * (dxh - mean(dxh) - xhat * mean(dxh * xhat)): the
-// non-affine LayerNorm's backward, one warp per token. `acc` is in global memory.
-__device__ void layernorm_bwd(const float* dxh, const float* src, const float* mean,
-                              const float* rstd, int T, int E, float* acc) {
-  const int lane = threadIdx.x & 31;
-  const int n_warps = blockDim.x >> 5;
-  for (int t = threadIdx.x >> 5; t < T; t += n_warps) {
+    const float rstd = 1.0f / sqrtf(warp_sum(var) / E + eps);
     float s1 = 0.0f, s2 = 0.0f;
-    for (int e = lane; e < E; e += 32) {
-      const float xh = (src[t * E + e] - mean[t]) * rstd[t];
-      const float d = dxh[t * E + e];
-      s1 += d;
-      s2 = fmaf(d, xh, s2);
+#pragma unroll
+    for (int i = 0; i < kMaxVec; ++i) {
+      const int k = lane * 4 + i * 128;
+      if (k < E) {
+        xh[i].x *= rstd; xh[i].y *= rstd; xh[i].z *= rstd; xh[i].w *= rstd;
+        const float4 g = *reinterpret_cast<const float4*>(d_in + tok * E + k);
+        const float4 sc = *reinterpret_cast<const float4*>(scale + k);
+        sum[0][i].x = fmaf(g.x, xh[i].x, sum[0][i].x);
+        sum[0][i].y = fmaf(g.y, xh[i].y, sum[0][i].y);
+        sum[0][i].z = fmaf(g.z, xh[i].z, sum[0][i].z);
+        sum[0][i].w = fmaf(g.w, xh[i].w, sum[0][i].w);
+        sum[1][i].x += g.x; sum[1][i].y += g.y; sum[1][i].z += g.z; sum[1][i].w += g.w;
+        d[i] = make_float4(g.x * (1.0f + sc.x), g.y * (1.0f + sc.y), g.z * (1.0f + sc.z),
+                           g.w * (1.0f + sc.w));
+        s1 += (d[i].x + d[i].y) + (d[i].z + d[i].w);
+        s2 += (d[i].x * xh[i].x + d[i].y * xh[i].y) + (d[i].z * xh[i].z + d[i].w * xh[i].w);
+      }
     }
     s1 = warp_sum(s1) / E;
     s2 = warp_sum(s2) / E;
-    for (int e = lane; e < E; e += 32) {
-      const float xh = (src[t * E + e] - mean[t]) * rstd[t];
-      acc[t * E + e] += rstd[t] * (dxh[t * E + e] - s1 - xh * s2);
+#pragma unroll
+    for (int i = 0; i < kMaxVec; ++i) {
+      const int k = lane * 4 + i * 128;
+      if (k >= E) continue;
+      float4 g = make_float4(
+          rstd * (d[i].x - s1 - xh[i].x * s2), rstd * (d[i].y - s1 - xh[i].y * s2),
+          rstd * (d[i].z - s1 - xh[i].z * s2), rstd * (d[i].w - s1 - xh[i].w * s2));
+      float4* dxp = reinterpret_cast<float4*>(dx + tok * E + k);
+      if constexpr (kPost) {
+        const float4 y = *reinterpret_cast<const float4*>(dy + tok * E + k);
+        const float4 mv = *reinterpret_cast<const float4*>(m + tok * E + k);
+        const float4 pr = *reinterpret_cast<const float4*>(proj + tok * E + k);
+        const float4 ga = *reinterpret_cast<const float4*>(gate_a + k);
+        g.x += y.x; g.y += y.y; g.z += y.z; g.w += y.w;  // dx1
+        *dxp = g;
+        *reinterpret_cast<float4*>(dproj + tok * E + k) =
+            make_float4(g.x * ga.x, g.y * ga.y, g.z * ga.z, g.w * ga.w);
+        sum[2][i].x = fmaf(g.x, pr.x, sum[2][i].x);
+        sum[2][i].y = fmaf(g.y, pr.y, sum[2][i].y);
+        sum[2][i].z = fmaf(g.z, pr.z, sum[2][i].z);
+        sum[2][i].w = fmaf(g.w, pr.w, sum[2][i].w);
+        sum[3][i].x = fmaf(y.x, mv.x, sum[3][i].x);
+        sum[3][i].y = fmaf(y.y, mv.y, sum[3][i].y);
+        sum[3][i].z = fmaf(y.z, mv.z, sum[3][i].z);
+        sum[3][i].w = fmaf(y.w, mv.w, sum[3][i].w);
+      } else {
+        const float4 x0 = *dxp;
+        *dxp = make_float4(x0.x + g.x, x0.y + g.y, x0.z + g.z, x0.w + g.w);
+      }
     }
+  }
+#pragma unroll
+  for (int k = 0; k < kSums; ++k)
+#pragma unroll
+    for (int i = 0; i < kMaxVec; ++i) {
+      const int c = lane * 4 + i * 128;
+      if (c < E) *reinterpret_cast<float4*>(red + (warp * kSums + k) * E + c) = sum[k][i];
+    }
+  __syncthreads();
+  // the chunks of dmod these sums are: kPost scale_m, shift_m, gate_a and
+  // gate_m; else scale_a and shift_a
+  float* part = parts + ((size_t)row * nt + tile) * 6 * E;
+  for (int i = threadIdx.x; i < kSums * E; i += blockDim.x) {
+    float v = 0.0f;
+    for (int w = 0; w < kLnBwdWarps; ++w) v += red[w * kSums * E + i];
+    const int k = i / E;
+    const int chunk = kPost ? (k == 0 ? 3 : k == 1 ? 4 : k == 2 ? 2 : 5) : k;
+    part[chunk * E + i % E] = v;
   }
 }
 
-// The row design: one CTA per row recomputes the forward and runs the
-// backward for dx and dc with the row's whole working set in shared memory
-// (x then x1, a staging tile, a wide staging tile, the probabilities and the
-// score cotangents, silu(c), mod, dmod, the LayerNorm statistics), writing
-// the same workspace slots as the kernels below and dmod straight to w.mod.
-// Taken where a row fits one CTA (the dentate DiT's T = 16): there it is
-// faster than the split below.
-__global__ void __launch_bounds__(kThreads, 2)
-dit_block_bwd_rows(const float* __restrict__ x, const float* __restrict__ c,
-                   const float* __restrict__ wada, const float* __restrict__ bada,
-                   const float* __restrict__ wqkv, const float* __restrict__ bqkv,
-                   const float* __restrict__ wproj, const float* __restrict__ bproj,
-                   const float* __restrict__ w1, const float* __restrict__ w2,
-                   const float* __restrict__ wmlp, const float* __restrict__ wada_t,
-                   const float* __restrict__ wqkv_t, const float* __restrict__ wproj_t,
-                   const float* __restrict__ w1_t, const float* __restrict__ w2_t,
-                   const float* __restrict__ wmlp_t, const float* __restrict__ dy,
-                   float* __restrict__ dx, float* __restrict__ dc, float* ws, int R,
-                   int T, int E, int H, int Hd, float eps) {
-  extern __shared__ __align__(16) float smem[];
-  const int wide = max(3 * E, Hd);
-  const int E3 = 3 * E, E6 = 6 * E, Hd2 = 2 * Hd;
-  float* xs = smem;               // (T, E) x, then x1, then d(attention output)
-  float* hs = xs + T * E;         // (T, E) staging
-  float* big = hs + T * E;        // (T, wide) staging
-  float* P = big + T * wide;      // (H, T, T) attention probabilities
-  float* dS = P + H * T * T;      // (H, T, T) their cotangents, then the scores'
-  float* cs = dS + H * T * T;     // (E) silu(c)
-  float* mods = cs + E;           // (6E) modulation
-  float* dmods = mods + E6;       // (6E) its cotangent
-  float* mean1 = dmods + E6;      // (T) LayerNorm statistics
-  float* rstd1 = mean1 + T;
-  float* mean2 = rstd1 + T;
-  float* rstd2 = mean2 + T;
+// dmod[r, i] = the sum over the row's token tiles, in order, of parts[r, p,
+// i], in f64; one thread an entry.
+__global__ void __launch_bounds__(256)
+sum_parts(const float* __restrict__ parts, float* __restrict__ dmod, int R, int nt, int E6) {
+  const int idx = blockIdx.x * 256 + threadIdx.x;
+  if (idx >= R * E6) return;
+  const int r = idx / E6, i = idx % E6;
+  double v = 0.0;
+  for (int p = 0; p < nt; ++p) v += parts[((size_t)r * nt + p) * E6 + i];
+  dmod[idx] = (float)v;
+}
 
-  const int tid = threadIdx.x;
-  const int nthr = blockDim.x;
-  const size_t row = blockIdx.x;
-  const size_t tok = row * T;
-  const Workspace w = carve(ws, R, T, E, Hd);
-  float* Wh = w.h + tok * E;
-  float* Wqkv = w.qkv + tok * E3;
-  float* Wattn = w.attn + tok * E;
-  float* Wproj = w.proj + tok * E;
-  float* Wh2 = w.h2 + tok * E;
-  float* Wab = w.ab + tok * Hd2;
-  float* Wg = w.g + tok * Hd;
-  float* Wm = w.m + tok * E;
-  const float* xr = x + tok * E;
-  const float* dyr = dy + tok * E;
-  float* dxr = dx + tok * E;  // also the running cotangent of x1
-
-  // ===== the forward, recomputed; residuals to the workspace =================
-  for (int i = tid; i < T * E; i += nthr) xs[i] = xr[i];
-  for (int i = tid; i < E; i += nthr) {
-    const float s = silu(c[row * E + i]);
-    cs[i] = s;
-    w.cs[row * E + i] = s;
-  }
+// dc[r, e] = (dmod[r] . wada_t[:, e]) * silu'(c[r, e]), the dot in f64. A CTA
+// takes kDcRows rows (staged as f64) and 32 columns, grid (ceil(E / 32),
+// ceil(R / kDcRows)); warp w sums the w-th sixteenth of the depth 6E, one
+// weight load feeding kDcRows FMAs, and the sixteen warps' sums are added in
+// order. In f64 because at T = 1,024 |dc| reaches a few hundred while rtol =
+// atol = 1e-4 holds each entry: an f32 sum of the 6E terms would spend part
+// of that.
+__global__ void __launch_bounds__(32 * kDcWarps)
+dc_rows(const float* __restrict__ dmod, const float* __restrict__ wada_t,
+        const float* __restrict__ c, float* __restrict__ dc, int R, int E) {
+  extern __shared__ __align__(16) double dc_smem[];
+  const int E6 = 6 * E;
+  double* red = dc_smem;                          // [kDcWarps][kDcRows][32]
+  double* rows = red + kDcWarps * kDcRows * 32;   // [kDcRows][6E]
+  const int r0 = blockIdx.y * kDcRows, rn = min(kDcRows, R - r0);
+  for (int i = threadIdx.x; i < kDcRows * E6; i += blockDim.x)
+    rows[i] = i / E6 < rn ? (double)dmod[(size_t)r0 * E6 + i] : 0.0;
   __syncthreads();
-  for (int n = tid; n < E6; n += nthr) {
-    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int e = blockIdx.x * 32 + lane;
+  const int per = (E6 + kDcWarps - 1) / kDcWarps;
+  const int n0 = warp * per, n1 = min(E6, n0 + per);
+  double acc[kDcRows];
+#pragma unroll
+  for (int r = 0; r < kDcRows; ++r) acc[r] = 0.0;
+  if (e < E) {
 #pragma unroll 4
-    for (int k = 0; k < E; k += 4) {
+    for (int n = n0; n < n1; ++n) {
+      const double wv = wada_t[(size_t)n * E + e];
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        acc[j] = fmaf(cs[k + j], __ldg(wada + (size_t)(k + j) * E6 + n), acc[j]);
+      for (int r = 0; r < kDcRows; ++r) acc[r] = fma(rows[r * E6 + n], wv, acc[r]);
     }
-    mods[n] = ((acc[0] + acc[1]) + (acc[2] + acc[3])) + bada[n];
   }
-  __syncthreads();
-  const float* scale_a = mods;
-  const float* shift_a = mods + E;
-  const float* gate_a = mods + 2 * E;
-  const float* scale_m = mods + 3 * E;
-  const float* shift_m = mods + 4 * E;
-  const float* gate_m = mods + 5 * E;
-
-  ln_modulate(xs, hs, T, E, scale_a, shift_a, eps, mean1, rstd1);
-  __syncthreads();
-
-  for (int i = tid; i < T * E; i += nthr) Wh[i] = hs[i];
-  for (int n = tid; n < E3; n += nthr) {
-    for (int t0 = 0; t0 < T; t0 += kTok) {
-      const int tn = min(kTok, T - t0);
-      float acc[1][kTok];
-      dot_tile<1>(hs, E, t0, tn, wqkv, nullptr, E3, n, acc);
-      const float b = bqkv[n];
 #pragma unroll
-      for (int i = 0; i < kTok; ++i)
-        if (i < tn) {
-          big[(t0 + i) * E3 + n] = acc[0][i] + b;
-          Wqkv[(t0 + i) * E3 + n] = acc[0][i] + b;
-        }
-    }
-  }
+  for (int r = 0; r < kDcRows; ++r) red[(warp * kDcRows + r) * 32 + lane] = acc[r];
   __syncthreads();
-
-  const int hd = E / H;
-  const float qk_scale = 1.0f / sqrtf((float)hd);
-  for (int idx = tid; idx < H * T * T; idx += nthr) {
-    const int h = idx / (T * T);
-    const int i = (idx / T) % T;
-    const int j = idx % T;
-    const float* q = big + i * E3 + h * hd;
-    const float* k = big + j * E3 + E + h * hd;
-    float s = 0.0f;
-    for (int d = 0; d < hd; ++d) s = fmaf(q[d], k[d], s);
-    P[idx] = s * qk_scale;
-  }
-  __syncthreads();
-  for (int r = tid; r < H * T; r += nthr) {
-    float* p = P + r * T;
-    float m = p[0];
-    for (int j = 1; j < T; ++j) m = fmaxf(m, p[j]);
-    float sum = 0.0f;
-    for (int j = 0; j < T; ++j) {
-      p[j] = expf(p[j] - m);
-      sum += p[j];
-    }
-    for (int j = 0; j < T; ++j) p[j] /= sum;
-  }
-  __syncthreads();
-
-  for (int idx = tid; idx < T * E; idx += nthr) {
-    const int i = idx / E;
-    const int col = idx % E;
-    const float* p = P + ((col / hd) * T + i) * T;
-    const float* v = big + 2 * E + col;
-    float s = 0.0f;
-    for (int j = 0; j < T; ++j) s = fmaf(p[j], v[j * E3], s);
-    hs[idx] = s;
-    Wattn[idx] = s;
-  }
-  __syncthreads();
-
-  for (int n = tid; n < E; n += nthr) {
-    for (int t0 = 0; t0 < T; t0 += kTok) {
-      const int tn = min(kTok, T - t0);
-      float acc[1][kTok];
-      dot_tile<1>(hs, E, t0, tn, wproj, nullptr, E, n, acc);
-      const float b = bproj[n];
-      const float g = gate_a[n];
-#pragma unroll
-      for (int i = 0; i < kTok; ++i)
-        if (i < tn) {
-          const float pv = acc[0][i] + b;
-          Wproj[(t0 + i) * E + n] = pv;
-          xs[(t0 + i) * E + n] += g * pv;
-        }
-    }
-  }
-  __syncthreads();
-
-  ln_modulate(xs, hs, T, E, scale_m, shift_m, eps, mean2, rstd2);
-  __syncthreads();
-
-  for (int i = tid; i < T * E; i += nthr) Wh2[i] = hs[i];
-  for (int n = tid; n < Hd; n += nthr) {
-    for (int t0 = 0; t0 < T; t0 += kTok) {
-      const int tn = min(kTok, T - t0);
-      float acc[2][kTok];
-      dot_tile<2>(hs, E, t0, tn, w1, w2, Hd, n, acc);
-#pragma unroll
-      for (int i = 0; i < kTok; ++i)
-        if (i < tn) {
-          const int t = t0 + i;
-          Wab[t * Hd2 + n] = acc[0][i];
-          Wab[t * Hd2 + Hd + n] = acc[1][i];
-          const float gv = silu(acc[0][i]) * acc[1][i];
-          big[t * Hd + n] = gv;
-          Wg[t * Hd + n] = gv;
-        }
-    }
-  }
-  __syncthreads();
-
-  for (int n = tid; n < E; n += nthr) {
-    for (int t0 = 0; t0 < T; t0 += kTok) {
-      const int tn = min(kTok, T - t0);
-      float acc[1][kTok];
-      dot_tile<1>(big, Hd, t0, tn, wmlp, nullptr, E, n, acc);
-#pragma unroll
-      for (int i = 0; i < kTok; ++i)
-        if (i < tn) Wm[(t0 + i) * E + n] = acc[0][i];
-    }
-  }
-  __syncthreads();
-
-  // ===== the backward ============================================================
-  // y = x1 + gate_m * m: dx1 = dy, dgate_m = sum_t dy * m, dm = dy * gate_m
-  for (int e = tid; e < E; e += nthr) {
-    float dg = 0.0f;
-    for (int t = 0; t < T; ++t) {
-      const float d = dyr[t * E + e];
-      dg = fmaf(d, Wm[t * E + e], dg);
-      const float dm = d * gate_m[e];
-      Wm[t * E + e] = dm;
-      hs[t * E + e] = dm;
-      dxr[t * E + e] = d;
-    }
-    dmods[5 * E + e] = dg;
-  }
-  __syncthreads();
-
-  // dg = dm @ wmlp^T; da = dg * b * silu'(a), db = dg * silu(a)
-  for (int j = tid; j < Hd; j += nthr) {
-    for (int t0 = 0; t0 < T; t0 += kTok) {
-      const int tn = min(kTok, T - t0);
-      float acc[1][kTok];
-      dot_tile<1>(hs, E, t0, tn, wmlp_t, nullptr, Hd, j, acc);
-#pragma unroll
-      for (int i = 0; i < kTok; ++i)
-        if (i < tn) {
-          const int t = t0 + i;
-          const float a = Wab[t * Hd2 + j];
-          const float b = Wab[t * Hd2 + Hd + j];
-          const float sg = sigmoid(a);
-          const float da = acc[0][i] * b * sg * (1.0f + a * (1.0f - sg));
-          Wab[t * Hd2 + j] = da;
-          Wab[t * Hd2 + Hd + j] = acc[0][i] * a * sg;
-          big[t * Hd + j] = da;
-        }
-    }
-  }
-  __syncthreads();
-
-  // dh2 = da @ w1^T + db @ w2^T, one staged input at a time
-  for (int e = tid; e < E; e += nthr) {
-    for (int t0 = 0; t0 < T; t0 += kTok) {
-      const int tn = min(kTok, T - t0);
-      float acc[1][kTok];
-      dot_tile<1>(big, Hd, t0, tn, w1_t, nullptr, E, e, acc);
-#pragma unroll
-      for (int i = 0; i < kTok; ++i)
-        if (i < tn) hs[(t0 + i) * E + e] = acc[0][i];
-    }
-  }
-  __syncthreads();
-  for (int i = tid; i < T * Hd; i += nthr) big[i] = Wab[(i / Hd) * Hd2 + Hd + i % Hd];
-  __syncthreads();
-  for (int e = tid; e < E; e += nthr) {
-    for (int t0 = 0; t0 < T; t0 += kTok) {
-      const int tn = min(kTok, T - t0);
-      float acc[1][kTok];
-      dot_tile<1>(big, Hd, t0, tn, w2_t, nullptr, E, e, acc);
-#pragma unroll
-      for (int i = 0; i < kTok; ++i)
-        if (i < tn) hs[(t0 + i) * E + e] += acc[0][i];
-    }
-  }
-  __syncthreads();
-
-  // the second modulation and LayerNorm
-  modulate_bwd(hs, xs, mean2, rstd2, scale_m, T, E, dmods + 3 * E, dmods + 4 * E);
-  __syncthreads();
-  layernorm_bwd(hs, xs, mean2, rstd2, T, E, dxr);
-  __syncthreads();
-
-  // x1 = x + gate_a * proj: dgate_a = sum_t dx1 * proj, dproj = dx1 * gate_a;
-  // meanwhile qkv comes back into shared memory
-  for (int e = tid; e < E; e += nthr) {
-    float dg = 0.0f;
-    for (int t = 0; t < T; ++t) {
-      const float d = dxr[t * E + e];
-      dg = fmaf(d, Wproj[t * E + e], dg);
-      const float dp = d * gate_a[e];
-      Wproj[t * E + e] = dp;
-      hs[t * E + e] = dp;
-    }
-    dmods[2 * E + e] = dg;
-  }
-  for (int i = tid; i < T * E3; i += nthr) big[i] = Wqkv[i];
-  __syncthreads();
-
-  // d(attention output) = dproj @ wproj^T, into xs (x1 is no longer needed)
-  for (int e = tid; e < E; e += nthr) {
-    for (int t0 = 0; t0 < T; t0 += kTok) {
-      const int tn = min(kTok, T - t0);
-      float acc[1][kTok];
-      dot_tile<1>(hs, E, t0, tn, wproj_t, nullptr, E, e, acc);
-#pragma unroll
-      for (int i = 0; i < kTok; ++i)
-        if (i < tn) xs[(t0 + i) * E + e] = acc[0][i];
-    }
-  }
-  __syncthreads();
-
-  // attention: dP = do v^T, dS = P * (dP - rowsum(dP * P))
-  for (int idx = tid; idx < H * T * T; idx += nthr) {
-    const int h = idx / (T * T);
-    const int i = (idx / T) % T;
-    const int j = idx % T;
-    const float* o = xs + i * E + h * hd;
-    const float* v = big + j * E3 + 2 * E + h * hd;
-    float s = 0.0f;
-    for (int d = 0; d < hd; ++d) s = fmaf(o[d], v[d], s);
-    dS[idx] = s;
-  }
-  __syncthreads();
-  for (int r = tid; r < H * T; r += nthr) {
-    const float* p = P + r * T;
-    float* d = dS + r * T;
-    float dot = 0.0f;
-    for (int j = 0; j < T; ++j) dot = fmaf(p[j], d[j], dot);
-    for (int j = 0; j < T; ++j) d[j] = p[j] * (d[j] - dot);
-  }
-  __syncthreads();
-  // dq = scale dS k, dk = scale dS^T q, dv = P^T do, to the workspace
-  for (int idx = tid; idx < T * E; idx += nthr) {
-    const int t = idx / E;
-    const int col = idx % E;
-    const int h = col / hd;
-    const float* ds_row = dS + (h * T + t) * T;  // dS[h, t, :]
-    const float* ds_col = dS + h * T * T + t;    // dS[h, :, t], stride T
-    const float* p_col = P + h * T * T + t;
-    float dq = 0.0f, dk = 0.0f, dv = 0.0f;
-    for (int j = 0; j < T; ++j) {
-      dq = fmaf(ds_row[j], big[j * E3 + E + col], dq);
-      dk = fmaf(ds_col[j * T], big[j * E3 + col], dk);
-      dv = fmaf(p_col[j * T], xs[j * E + col], dv);
-    }
-    Wqkv[t * E3 + col] = dq * qk_scale;
-    Wqkv[t * E3 + E + col] = dk * qk_scale;
-    Wqkv[t * E3 + 2 * E + col] = dv;
-  }
-  __syncthreads();
-  for (int i = tid; i < T * E3; i += nthr) big[i] = Wqkv[i];
-  __syncthreads();
-
-  // dh = dqkv @ wqkv^T
-  for (int e = tid; e < E; e += nthr) {
-    for (int t0 = 0; t0 < T; t0 += kTok) {
-      const int tn = min(kTok, T - t0);
-      float acc[1][kTok];
-      dot_tile<1>(big, E3, t0, tn, wqkv_t, nullptr, E, e, acc);
-#pragma unroll
-      for (int i = 0; i < kTok; ++i)
-        if (i < tn) hs[(t0 + i) * E + e] = acc[0][i];
-    }
-  }
-  __syncthreads();
-
-  // the first modulation and LayerNorm (x is read again from the input)
-  modulate_bwd(hs, xr, mean1, rstd1, scale_a, T, E, dmods, dmods + E);
-  __syncthreads();
-  layernorm_bwd(hs, xr, mean1, rstd1, T, E, dxr);
-
-  // mod = silu(c) @ wada + bada: dc = (dmod @ wada^T) * silu'(c)
-  for (int n = tid; n < E6; n += nthr) w.mod[row * E6 + n] = dmods[n];
-  for (int e = tid; e < E; e += nthr) {
-    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    for (int n = 0; n < E6; n += 4) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        acc[j] = fmaf(dmods[n + j], __ldg(wada_t + (size_t)(n + j) * E + e), acc[j]);
-    }
-    const float cv = c[row * E + e];
-    const float sg = sigmoid(cv);
-    dc[row * E + e] = ((acc[0] + acc[1]) + (acc[2] + acc[3])) * sg * (1.0f + cv * (1.0f - sg));
-  }
+  if (warp >= rn || e >= E) return;  // warp r finishes row r
+  double v = 0.0;
+  for (int w = 0; w < kDcWarps; ++w) v += red[(w * kDcRows + warp) * 32 + lane];
+  const size_t o = (size_t)(r0 + warp) * E + e;
+  const float cv = c[o];
+  const float sg = dit::sigmoid(cv);
+  dc[o] = (float)v * sg * (1.0f + cv * (1.0f - sg));
 }
 
-// Per (row, token tile): the forward from the attention output on (its
-// residuals to the workspace), then the backward from dy down to
-// d(attention output). dx gets dx1 = dy + the second LayerNorm's backward;
-// this tile's sums over its tokens of dgate_a, dscale_m, dshift_m and
-// dgate_m go to its partial of dmod.
-__global__ void __launch_bounds__(kThreads, 2)
-mlp_bwd(const float* __restrict__ x, const float* __restrict__ dy,
-        const float* __restrict__ wproj, const float* __restrict__ bproj,
-        const float* __restrict__ w1, const float* __restrict__ w2,
-        const float* __restrict__ wmlp, const float* __restrict__ wproj_t,
-        const float* __restrict__ w1_t, const float* __restrict__ w2_t,
-        const float* __restrict__ wmlp_t, float* __restrict__ dx, const Workspace w, int T,
-        int E, int Hd, float eps) {
-  extern __shared__ __align__(16) float smem[];
-  float* xs = smem;                // (kTok, E) x, then x1
-  float* hs = xs + kTok * E;       // (kTok, E) staging
-  float* big = hs + kTok * E;      // (kTok, Hd) staging
-  float* mean2 = big + kTok * Hd;  // (kTok) the second LayerNorm's statistics
-  float* rstd2 = mean2 + kTok;
-
-  const int tid = threadIdx.x;
-  const TokenTile tt = token_tile(T);
-  const int tn = tt.tn;
-  const int Hd2 = 2 * Hd;
-  const int nt = (T + kTok - 1) / kTok;
-  const float* mrow = w.mod + (size_t)tt.row * 6 * E;
-  const float* gate_a = mrow + 2 * E;
-  const float* scale_m = mrow + 3 * E;
-  const float* shift_m = mrow + 4 * E;
-  const float* gate_m = mrow + 5 * E;
-  float* part = w.parts + ((size_t)tt.row * nt + tt.tile) * 6 * E;
-  const float* Wattn = w.attn + tt.tok * E;
-  float* Wproj = w.proj + tt.tok * E;
-  float* Wh2 = w.h2 + tt.tok * E;
-  float* Wab = w.ab + tt.tok * Hd2;
-  float* Wg = w.g + tt.tok * Hd;
-  float* Wm = w.m + tt.tok * E;
-  float* Wdattn = w.dattn + tt.tok * E;
-  const float* xr = x + tt.tok * E;
-  const float* dyr = dy + tt.tok * E;
-  float* dxr = dx + tt.tok * E;  // the running cotangent of x1, then of x
-
-  // ===== the forward, recomputed; residuals to the workspace =================
-  for (int i = tid; i < tn * E; i += kThreads) {
-    xs[i] = xr[i];
-    hs[i] = Wattn[i];
-  }
-  __syncthreads();
-  for (int n = tid; n < E; n += kThreads) {
-    float acc[1][kTok];
-    dot_tile<1>(hs, E, 0, tn, wproj, nullptr, E, n, acc);
-    const float b = bproj[n];
-    const float g = gate_a[n];
-#pragma unroll
-    for (int i = 0; i < kTok; ++i)
-      if (i < tn) {
-        const float pv = acc[0][i] + b;
-        Wproj[i * E + n] = pv;
-        xs[i * E + n] += g * pv;
-      }
-  }
-  __syncthreads();
-
-  ln_modulate(xs, hs, tn, E, scale_m, shift_m, eps, mean2, rstd2);
-  __syncthreads();
-
-  for (int i = tid; i < tn * E; i += kThreads) Wh2[i] = hs[i];
-  for (int n = tid; n < Hd; n += kThreads) {
-    float acc[2][kTok];
-    dot_tile<2>(hs, E, 0, tn, w1, w2, Hd, n, acc);
-#pragma unroll
-    for (int i = 0; i < kTok; ++i)
-      if (i < tn) {
-        Wab[i * Hd2 + n] = acc[0][i];
-        Wab[i * Hd2 + Hd + n] = acc[1][i];
-        const float gv = silu(acc[0][i]) * acc[1][i];
-        big[i * Hd + n] = gv;
-        Wg[i * Hd + n] = gv;
-      }
-  }
-  __syncthreads();
-
-  // ===== the backward ============================================================
-  // m = g @ wmlp and y = x1 + gate_m * m: dgate_m = sum_t dy * m, dm = dy *
-  // gate_m, and dx1 starts at dy
-  for (int n = tid; n < E; n += kThreads) {
-    float acc[1][kTok];
-    dot_tile<1>(big, Hd, 0, tn, wmlp, nullptr, E, n, acc);
-    float dg = 0.0f;
-#pragma unroll
-    for (int i = 0; i < kTok; ++i)
-      if (i < tn) {
-        const float d = dyr[i * E + n];
-        dg = fmaf(d, acc[0][i], dg);
-        const float dm = d * gate_m[n];
-        Wm[i * E + n] = dm;
-        hs[i * E + n] = dm;
-        dxr[i * E + n] = d;
-      }
-    part[5 * E + n] = dg;
-  }
-  __syncthreads();
-
-  // dg = dm @ wmlp^T; da = dg * b * silu'(a), db = dg * silu(a)
-  for (int j = tid; j < Hd; j += kThreads) {
-    float acc[1][kTok];
-    dot_tile<1>(hs, E, 0, tn, wmlp_t, nullptr, Hd, j, acc);
-#pragma unroll
-    for (int i = 0; i < kTok; ++i)
-      if (i < tn) {
-        const float a = Wab[i * Hd2 + j];
-        const float b = Wab[i * Hd2 + Hd + j];
-        const float sg = sigmoid(a);
-        const float da = acc[0][i] * b * sg * (1.0f + a * (1.0f - sg));
-        Wab[i * Hd2 + j] = da;
-        Wab[i * Hd2 + Hd + j] = acc[0][i] * a * sg;
-        big[i * Hd + j] = da;
-      }
-  }
-  __syncthreads();
-
-  // dh2 = da @ w1^T + db @ w2^T, one staged input at a time
-  for (int e = tid; e < E; e += kThreads) {
-    float acc[1][kTok];
-    dot_tile<1>(big, Hd, 0, tn, w1_t, nullptr, E, e, acc);
-#pragma unroll
-    for (int i = 0; i < kTok; ++i)
-      if (i < tn) hs[i * E + e] = acc[0][i];
-  }
-  __syncthreads();
-  for (int i = tid; i < tn * Hd; i += kThreads) big[i] = Wab[(i / Hd) * Hd2 + Hd + i % Hd];
-  __syncthreads();
-  for (int e = tid; e < E; e += kThreads) {
-    float acc[1][kTok];
-    dot_tile<1>(big, Hd, 0, tn, w2_t, nullptr, E, e, acc);
-#pragma unroll
-    for (int i = 0; i < kTok; ++i)
-      if (i < tn) hs[i * E + e] += acc[0][i];
-  }
-  __syncthreads();
-
-  // the second modulation and LayerNorm
-  modulate_bwd(hs, xs, mean2, rstd2, scale_m, tn, E, part + 3 * E, part + 4 * E);
-  __syncthreads();
-  layernorm_bwd(hs, xs, mean2, rstd2, tn, E, dxr);
-  __syncthreads();
-
-  // x1 = x + gate_a * proj: dgate_a = sum_t dx1 * proj, dproj = dx1 * gate_a
-  for (int e = tid; e < E; e += kThreads) {
-    float dg = 0.0f;
-    for (int i = 0; i < tn; ++i) {
-      const float d = dxr[i * E + e];
-      dg = fmaf(d, Wproj[i * E + e], dg);
-      const float dp = d * gate_a[e];
-      Wproj[i * E + e] = dp;
-      hs[i * E + e] = dp;
-    }
-    part[2 * E + e] = dg;
-  }
-  __syncthreads();
-
-  // d(attention output) = dproj @ wproj^T
-  for (int e = tid; e < E; e += kThreads) {
-    float acc[1][kTok];
-    dot_tile<1>(hs, E, 0, tn, wproj_t, nullptr, E, e, acc);
-#pragma unroll
-    for (int i = 0; i < kTok; ++i)
-      if (i < tn) Wdattn[i * E + e] = acc[0][i];
-  }
-}
-
-// Per (row, head), grid R * H: the attention's backward. The probabilities
-// are recomputed from q and k; dP = do v^T, dS = P * (dP - rowsum(dP * P)),
-// then dq = scale dS k, dk = scale dS^T q and dv = P^T do overwrite this
-// head's q, k and v in the workspace.
-__global__ void __launch_bounds__(kThreads)
-attention_bwd(const Workspace w, int T, int E, int H) {
-  extern __shared__ __align__(16) float smem[];
-  const int row = blockIdx.x / H, h = blockIdx.x % H;
-  const int hd = E / H, E3 = 3 * E, ldk = hd + 1;
-  float* qs = smem;            // (T, hd)
-  float* ks = qs + T * hd;     // (T, hd + 1)
-  float* vs = ks + T * ldk;    // (T, hd + 1)
-  float* dos = vs + T * ldk;   // (T, hd) d(attention output)
-  float* ps = dos + T * hd;    // (T, T) probabilities
-  float* dS = ps + T * T;      // (T, T) their cotangents, then the scores'
-  const float scale = 1.0f / sqrtf((float)hd);
-  float* base = w.qkv + (size_t)row * T * E3 + h * hd;
-  const float* dbase = w.dattn + (size_t)row * T * E + h * hd;
-  for (int i = threadIdx.x; i < T * hd; i += kThreads) {
-    const int t = i / hd, d = i % hd;
-    const float* s = base + (size_t)t * E3 + d;
-    qs[i] = s[0];
-    ks[t * ldk + d] = s[E];
-    vs[t * ldk + d] = s[2 * E];
-    dos[i] = dbase[(size_t)t * E + d];
-  }
-  __syncthreads();
-  dit::scores_softmax(qs, ks, ldk, ps, T, hd, scale);
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < T * T; idx += kThreads) {
-    const int i = idx / T, j = idx % T;
-    float s = 0.0f;
-    for (int d = 0; d < hd; ++d) s = fmaf(dos[i * hd + d], vs[j * ldk + d], s);
-    dS[idx] = s;
-  }
-  __syncthreads();
-  const int lane = threadIdx.x & 31;
-  for (int i = threadIdx.x >> 5; i < T; i += kThreads >> 5) {
-    const float* p = ps + i * T;
-    float* d = dS + i * T;
-    float dot = 0.0f;
-    for (int j = lane; j < T; j += 32) dot = fmaf(p[j], d[j], dot);
-    dot = warp_sum(dot);
-    for (int j = lane; j < T; j += 32) d[j] = p[j] * (d[j] - dot);
-  }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < T * hd; idx += kThreads) {
-    const int t = idx / hd, d = idx % hd;
-    float dq = 0.0f, dk = 0.0f, dv = 0.0f;
-    for (int j = 0; j < T; ++j) {
-      dq = fmaf(dS[t * T + j], ks[j * ldk + d], dq);
-      dk = fmaf(dS[j * T + t], qs[j * hd + d], dk);
-      dv = fmaf(ps[j * T + t], dos[j * hd + d], dv);
-    }
-    float* o = base + (size_t)t * E3 + d;
-    o[0] = dq * scale;
-    o[E] = dk * scale;
-    o[2 * E] = dv;
-  }
-}
-
-// Per (row, token tile): dh = dqkv @ wqkv^T, then the first modulation's
-// backward (this tile's dscale_a and dshift_a to its partial of dmod) and
-// the first LayerNorm's, added to dx.
-__global__ void __launch_bounds__(kThreads, 2)
-qkv_bwd(const float* __restrict__ x, const float* __restrict__ wqkv_t,
-        float* __restrict__ dx, const Workspace w, int T, int E, float eps) {
-  extern __shared__ __align__(16) float smem[];
-  const int E3 = 3 * E;
-  float* big = smem;               // (kTok, 3E) dqkv
-  float* hs = big + kTok * E3;     // (kTok, E) dh
-  float* xs = hs + kTok * E;       // (kTok, E) x
-  float* mean1 = xs + kTok * E;    // (kTok) the first LayerNorm's statistics
-  float* rstd1 = mean1 + kTok;
-  const TokenTile tt = token_tile(T);
-  const int tn = tt.tn;
-  const int nt = (T + kTok - 1) / kTok;
-  const float* scale_a = w.mod + (size_t)tt.row * 6 * E;
-  float* part = w.parts + ((size_t)tt.row * nt + tt.tile) * 6 * E;
-  for (int i = threadIdx.x; i < tn * E3; i += kThreads) big[i] = w.qkv[tt.tok * E3 + i];
-  for (int i = threadIdx.x; i < tn * E; i += kThreads) xs[i] = x[tt.tok * E + i];
-  __syncthreads();
-  ln_stats(xs, tn, E, eps, mean1, rstd1);
-  for (int e = threadIdx.x; e < E; e += kThreads) {
-    float acc[1][kTok];
-    dot_tile<1>(big, E3, 0, tn, wqkv_t, nullptr, E, e, acc);
-#pragma unroll
-    for (int i = 0; i < kTok; ++i)
-      if (i < tn) hs[i * E + e] = acc[0][i];
-  }
-  __syncthreads();
-  modulate_bwd(hs, xs, mean1, rstd1, scale_a, tn, E, part, part + E);
-  __syncthreads();
-  layernorm_bwd(hs, xs, mean1, rstd1, tn, E, dx + tt.tok * E);
-}
-
-SmemAllowance g_row_smem, g_mod_smem, g_qkv_smem, g_attn_smem, g_mlp_smem, g_attn_bwd_smem,
-    g_qkv_bwd_smem, g_dc_smem;
-
-// The split's first seven kernels (see the top of this file).
-cudaError_t split_backward(const void* x, const void* c, const void* wada, const void* bada,
-                           const void* wqkv, const void* bqkv, const void* wproj,
-                           const void* bproj, const void* w1, const void* w2, const void* wmlp,
-                           const void* wada_t, const void* wqkv_t, const void* wproj_t,
-                           const void* w1_t, const void* w2_t, const void* wmlp_t,
-                           const void* dy, void* dx, void* dc, const Workspace& w, int R, int T,
-                           int E, int H, int Hd, float eps, cudaStream_t s) {
-  using dit::RowsIn;
-  using dit::RowsOut;
-  const int nt = (T + kTok - 1) / kTok;
-  const int hd = E / H;
-  const float* fx = (const float*)x;
+template <int DP>
+cudaError_t launch_attention_bwd(const Workspace& w, int N, int T, int E, int H,
+                                 cudaStream_t s) {
+  static SmemAllowance allowed_dq, allowed_dkv;
+  const long long smem = 4LL * attn_bwd_smem_floats(DP);
   cudaError_t err;
-  const long long mod_smem = 4LL * dit::rows_gemm_floats(E);
-  const long long qkv_smem = 4LL * kTok * E;
-  const long long attn_smem = 4LL * dit::attention_floats(T, hd);
-  const long long mlp_smem = 4LL * (kTok * (2 * E + Hd) + 2 * kTok);
-  const long long attn_bwd_smem = 4LL * (2 * T * hd + 2 * T * (hd + 1) + 2 * T * T);
-  const long long qkv_bwd_smem = 4LL * (kTok * 5 * E + 2 * kTok);
-  const long long dc_smem = 4LL * dit::rows_gemm_floats(6 * E);
-  if ((err = allow_smem(dit::rows_gemm<RowsIn::kSilu, RowsOut::kBias>, mod_smem,
-                        g_mod_smem)) != cudaSuccess ||
-      (err = allow_smem(dit::ln_qkv, qkv_smem, g_qkv_smem)) != cudaSuccess ||
-      (err = allow_smem(dit::attention, attn_smem, g_attn_smem)) != cudaSuccess ||
-      (err = allow_smem(mlp_bwd, mlp_smem, g_mlp_smem)) != cudaSuccess ||
-      (err = allow_smem(attention_bwd, attn_bwd_smem, g_attn_bwd_smem)) != cudaSuccess ||
-      (err = allow_smem(qkv_bwd, qkv_bwd_smem, g_qkv_bwd_smem)) != cudaSuccess ||
-      (err = allow_smem(dit::rows_gemm<RowsIn::kSumParts, RowsOut::kSiluGrad>, dc_smem,
-                        g_dc_smem)) != cudaSuccess)
+  if ((err = allow_smem(attention_dq<DP>, smem, allowed_dq)) != cudaSuccess ||
+      (err = allow_smem(attention_dkv<DP>, smem, allowed_dkv)) != cudaSuccess)
     return err;
+  const int hd = E / H;
+  const float scale = 1.0f / sqrtf((float)hd), scale_log2 = 1.4426950408889634f * scale;
+  const dim3 grid((N + kQ - 1) / kQ, H);
+  attention_dq<DP><<<grid, kThreads, smem, s>>>(w.qkv, w.attn, w.dattn, w.lse, w.delta, w.dqkv,
+                                                 N, T, E, hd, scale_log2, scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  attention_dkv<DP><<<grid, kThreads, smem, s>>>(w.qkv, w.dattn, w.lse, w.delta, w.dqkv, N, T, E,
+                                                  hd, scale_log2, scale);
+  return cudaGetLastError();
+}
 
-  // ===== the forward, recomputed up to the attention output ====================
-  const dim3 mod_grid((6 * E + 31) / 32, (R + kRowTile - 1) / kRowTile);
-  dit::rows_gemm<RowsIn::kSilu, RowsOut::kBias><<<mod_grid, kThreads, mod_smem, s>>>(
-      (const float*)c, 1, (const float*)wada, (const float*)bada, w.mod, w.cs, R, E, 6 * E);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  dit::ln_qkv<<<R * nt, kThreads, qkv_smem, s>>>(fx, w.mod, (const float*)wqkv,
-                                                 (const float*)bqkv, w.qkv, w.h, T, E, eps);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  dit::attention<<<R * H, kThreads, attn_smem, s>>>(w.qkv, w.attn, T, E, H);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+template <bool kPost>
+cudaError_t launch_ln_bwd(const float* src, const float* d_in, const Workspace& w,
+                          const float* dy, float* dx, int R, int T, int E, float eps,
+                          cudaStream_t s) {
+  static SmemAllowance allowed;
+  const long long smem = 4LL * kLnBwdWarps * (kPost ? 4 : 2) * E;
+  cudaError_t err = allow_smem(ln_bwd<kPost>, smem, allowed);
+  if (err != cudaSuccess) return err;
+  const int nt = (T + kTok - 1) / kTok;
+  ln_bwd<kPost><<<R * nt, 32 * kLnBwdWarps, smem, s>>>(src, d_in, w.mod, dy, w.m, w.proj, dx,
+                                                        w.dproj, w.parts, T, E, eps);
+  return cudaGetLastError();
+}
 
-  // ===== the rest of the forward and the backward ==============================
-  mlp_bwd<<<R * nt, kThreads, mlp_smem, s>>>(
-      fx, (const float*)dy, (const float*)wproj, (const float*)bproj, (const float*)w1,
-      (const float*)w2, (const float*)wmlp, (const float*)wproj_t, (const float*)w1_t,
-      (const float*)w2_t, (const float*)wmlp_t, (float*)dx, w, T, E, Hd, eps);
+// One weight gradient: out (P, Q) = sum_n u[n, p] v[n, q] over the N tokens
+// (or rows), and bias (P) = sum_n u[n, p] when given. With splits > 1 the
+// token axis is cut into chunks of kchunk, each CTA writes its chunk's sums
+// to `part` (splits, P * Q + P), and grad_reduce adds them in order.
+struct GradJob {
+  const float* u;
+  const float* v;
+  float* out;
+  float* bias;
+  float* part;
+  int P, Q, N, splits, kchunk, tiles_q, tile0;
+};
+
+constexpr int kMaxGradJobs = 5;
+
+struct GradJobs {
+  GradJob job[kMaxGradJobs];
+  int n;
+};
+
+// Every job's gradient in one launch: a CTA per (64 x 64 output tile, K
+// chunk) of a job, numbered by `tile0`; the bias (a column sum of U) is taken
+// by the CTAs of the first column tile from U's staged tiles.
+__global__ void __launch_bounds__(kThreads) grad_gemm(const __grid_constant__ GradJobs jobs) {
+  int j = 0;
+  while (j + 1 < jobs.n && (int)blockIdx.x >= jobs.job[j + 1].tile0) ++j;
+  const GradJob jb = jobs.job[j];
+  const int tile = blockIdx.x - jb.tile0;
+  const int split = tile % jb.splits, rest = tile / jb.splits;
+  const int p0 = (rest / jb.tiles_q) * kBM, q0 = (rest % jb.tiles_q) * kBN;
+  const int k0 = split * jb.kchunk;
+  const tiled::Operands o{jb.u, (size_t)jb.P, jb.v, jb.v, jb.Q, jb.N,
+                          jb.P, jb.Q, k0, min(jb.N, k0 + jb.kchunk)};
+  const bool with_bias = jb.bias != nullptr && q0 == 0;
+  float acc[kWM][4][4];
+#pragma unroll
+  for (int mt = 0; mt < kWM; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
+  float csum = 0.0f;
+  tiled::tile_product<true, false, false>(o, p0, q0, acc, with_bias, csum);
+
+  const size_t len = (size_t)jb.P * jb.Q;
+  float* out = jb.splits == 1 ? jb.out : jb.part + split * (len + jb.P);
+  float* bias = jb.splits == 1 ? jb.bias : jb.part + split * (len + jb.P) + len;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int wm = warp >> 1, wn = warp & 1;
+#pragma unroll
+  for (int mt = 0; mt < kWM; ++mt)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int p = p0 + wm * 16 * kWM + mt * 16 + gq + 8 * hh;
+      if (p >= jb.P) continue;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int q = q0 + wn * 32 + nt * 8 + 2 * tq;
+        if (q < jb.Q)
+          *reinterpret_cast<float2*>(out + (size_t)p * jb.Q + q) =
+              make_float2(acc[mt][nt][2 * hh], acc[mt][nt][2 * hh + 1]);
+      }
+    }
+  if (with_bias && threadIdx.x < kBM && p0 + threadIdx.x < jb.P)
+    bias[p0 + threadIdx.x] = csum;
+}
+
+// For each job with splits > 1: out and bias = the sum of its chunks'
+// partials, in chunk order; one thread an entry of (P * Q + P).
+__global__ void __launch_bounds__(256) grad_reduce(const __grid_constant__ GradJobs jobs,
+                                                   long long total) {
+  long long idx = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (idx >= total) return;
+  for (int j = 0; j < jobs.n; ++j) {
+    const GradJob jb = jobs.job[j];
+    if (jb.splits == 1) continue;
+    const long long len = (long long)jb.P * jb.Q, n = len + jb.P;
+    if (idx >= n) {
+      idx -= n;
+      continue;
+    }
+    float s = 0.0f;
+    for (int p = 0; p < jb.splits; ++p) s += jb.part[p * n + idx];
+    if (idx < len) jb.out[idx] = s;
+    else if (jb.bias != nullptr) jb.bias[idx - len] = s;
+    return;
+  }
+}
+
+// The weight gradients in two launches: grad_gemm over every job's tiles and
+// K chunks, then grad_reduce over the chunked jobs' partials. The chunk depth
+// is the same for every token job: about kGradSlots * 2 CTAs of equal work
+// in all, at most kGradSplits chunks a job.
+cudaError_t launch_weight_grads(GradJobs jobs, float* part, cudaStream_t s) {
+  long long work = 0;
+  for (int j = 0; j < jobs.n; ++j) {
+    const GradJob& jb = jobs.job[j];
+    work += (long long)((jb.P + kBM - 1) / kBM) *
+            ((jb.Q + kBN - 1) / kBN) * jb.N;
+  }
+  long long chunk = (work + 2 * kGradSlots - 1) / (2 * kGradSlots);
+  chunk = std::max(256LL, (chunk + kBK - 1) / kBK * kBK);
+  int ctas = 0;
+  long long reduce = 0;
+  for (int j = 0; j < jobs.n; ++j) {
+    GradJob& jb = jobs.job[j];
+    jb.splits = (int)std::min<long long>(kGradSplits, (jb.N + chunk - 1) / chunk);
+    jb.splits = std::max(jb.splits, 1);
+    jb.kchunk = (jb.N + jb.splits - 1) / jb.splits;
+    jb.kchunk = (jb.kchunk + kBK - 1) / kBK * kBK;
+    jb.splits = (jb.N + jb.kchunk - 1) / jb.kchunk;
+    jb.tiles_q = (jb.Q + kBN - 1) / kBN;
+    jb.tile0 = ctas;
+    ctas += ((jb.P + kBM - 1) / kBM) * jb.tiles_q * jb.splits;
+    const long long len = (long long)jb.P * jb.Q + jb.P;
+    jb.part = part;
+    part += kGradSplits * len;
+    if (jb.splits > 1) reduce += len;
+  }
+  static SmemAllowance allowed;
+  const long long smem = 4LL * tiled::gemm_smem_floats();
+  cudaError_t err = allow_smem(grad_gemm, smem, allowed);
+  if (err != cudaSuccess) return err;
+  grad_gemm<<<ctas, kThreads, smem, s>>>(jobs);
+  if ((err = cudaGetLastError()) != cudaSuccess || reduce == 0) return err;
+  grad_reduce<<<(unsigned)((reduce + 255) / 256), 256, 0, s>>>(jobs, reduce);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_backward(const float* x, const float* c, const float* wada, const float* bada,
+                            const float* wqkv, const float* bqkv, const float* wproj,
+                            const float* bproj, const float* w1, const float* w2,
+                            const float* wmlp, const float* wada_t, const float* wqkv_t,
+                            const float* wproj_t, const float* w1_t, const float* w2_t,
+                            const float* wmlp_t, const float* dy, float* dx, float* dc,
+                            float* dwada_t, float* dbada, float* dwqkv_t, float* dbqkv,
+                            float* dwproj_t, float* dbproj, float* dw12_t, float* dwmlp_t,
+                            float* ws, int R, int T, int E, int H, int Hd, float eps,
+                            cudaStream_t s) {
+  using tiled::launch_gemm;
+  using tiled::Out;
+  const int N = R * T, hd = E / H, nt = (T + kTok - 1) / kTok;
+  if (E % 4 != 0 || E > 4 * 32 * kMaxVec || hd % 4 != 0 || hd > 64 || Hd % 4 != 0)
+    return cudaErrorInvalidValue;
+  Workspace w;
+  carve(ws, R, T, E, H, Hd, w);
+  cudaError_t err;
+  tiled::Gemm g{};
+  g.mod = w.mod;
+  g.mod_ld = 6 * E;
+
+  // ===== the forward, recomputed =================================================
+  if ((err = tiled::launch_silu(c, w.cs, R * E, s)) != cudaSuccess) return err;
+  g.a = w.cs; g.w0 = wada; g.bias = bada; g.out = w.mod; g.M = R; g.K = E; g.N = 6 * E; g.T = 1;
+  if ((err = launch_gemm<Out::kBias>(g, s)) != cudaSuccess) return err;
+  if ((err = tiled::launch_ln(x, w.mod, w.h, N, T, E, 0, E, eps, s)) != cudaSuccess) return err;
+  g.a = w.h; g.w0 = wqkv; g.bias = bqkv; g.out = w.qkv; g.M = N; g.N = 3 * E; g.T = T;
+  if ((err = launch_gemm<Out::kBias>(g, s)) != cudaSuccess) return err;
+  if ((err = tiled::launch_attention(w.qkv, w.attn, w.lse, N, T, E, H, s)) != cudaSuccess)
+    return err;
+  // proj = attn wproj + bproj, x1 = x + gate_a proj
+  g.a = w.attn; g.w0 = wproj; g.bias = bproj; g.resid = x; g.out = w.x1; g.aux = w.proj;
+  g.N = E; g.gate = 2 * E;
+  if ((err = launch_gemm<Out::kGatedBias>(g, s)) != cudaSuccess) return err;
+  if ((err = tiled::launch_ln(w.x1, w.mod, w.h2, N, T, E, 3 * E, 4 * E, eps, s)) != cudaSuccess)
+    return err;
+  // [a | b] = h2 [w1 | w2], g = silu(a) b
+  g.a = w.h2; g.w0 = w1; g.w1 = w2; g.out = w.g; g.aux = w.ab; g.N = Hd;
+  if ((err = launch_gemm<Out::kSwiGLU>(g, s)) != cudaSuccess) return err;
+  // m = g wmlp; dm = dy gate_m
+  g.a = w.g; g.w0 = wmlp; g.w1 = nullptr; g.resid = dy; g.out = w.dm; g.aux = w.m; g.K = Hd;
+  g.N = E; g.gate = 5 * E;
+  if ((err = launch_gemm<Out::kDm>(g, s)) != cudaSuccess) return err;
+
+  // ===== the backward ============================================================
+  // dg = dm wmlp^T; [a | b] -> [da | db]
+  g.a = w.dm; g.w0 = wmlp_t; g.out = w.ab; g.aux = nullptr; g.K = E; g.N = Hd;
+  if ((err = launch_gemm<Out::kSwiGLUBwd>(g, s)) != cudaSuccess) return err;
+  // d(h2) = da w1^T + db w2^T
+  g.a = w.ab; g.w0 = w1_t; g.w1 = w2_t; g.ksplit = Hd; g.out = w.dh; g.K = 2 * Hd; g.N = E;
+  if ((err = launch_gemm<Out::kPlain>(g, s)) != cudaSuccess) return err;
+  g.w1 = nullptr;
+  g.ksplit = 0;
+  // dx1 (into dx), dproj, and the sums of dscale_m, dshift_m, dgate_a, dgate_m
+  if ((err = launch_ln_bwd<true>(w.x1, w.dh, w, dy, dx, R, T, E, eps, s)) != cudaSuccess)
+    return err;
+  // d(attention output) = dproj wproj^T
+  g.a = w.dproj; g.w0 = wproj_t; g.out = w.dattn; g.K = E;
+  if ((err = launch_gemm<Out::kPlain>(g, s)) != cudaSuccess) return err;
+  if (hd <= 16) err = launch_attention_bwd<16>(w, N, T, E, H, s);
+  else if (hd <= 32) err = launch_attention_bwd<32>(w, N, T, E, H, s);
+  else err = launch_attention_bwd<64>(w, N, T, E, H, s);
+  if (err != cudaSuccess) return err;
+  // dh = dqkv wqkv^T; dx += the first LayerNorm's backward
+  g.a = w.dqkv; g.w0 = wqkv_t; g.out = w.dh; g.K = 3 * E;
+  if ((err = launch_gemm<Out::kPlain>(g, s)) != cudaSuccess) return err;
+  if ((err = launch_ln_bwd<false>(x, w.dh, w, dy, dx, R, T, E, eps, s)) != cudaSuccess)
+    return err;
+  // dmod, and dc = (dmod wada^T) silu'(c)
+  sum_parts<<<(R * 6 * E + 255) / 256, 256, 0, s>>>(w.parts, w.dmod, R, nt, 6 * E);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  attention_bwd<<<R * H, kThreads, attn_bwd_smem, s>>>(w, T, E, H);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  qkv_bwd<<<R * nt, kThreads, qkv_bwd_smem, s>>>(fx, (const float*)wqkv_t, (float*)dx, w, T, E,
-                                                 eps);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  // dmod (the tiles' partials summed in order, to w.mod) and dc = (dmod @ wada^T) * silu'(c)
-  const dim3 dc_grid((E + 31) / 32, (R + kRowTile - 1) / kRowTile);
-  dit::rows_gemm<RowsIn::kSumParts, RowsOut::kSiluGrad><<<dc_grid, kThreads, dc_smem, s>>>(
-      w.parts, nt, (const float*)wada_t, (const float*)c, (float*)dc, w.mod, R, 6 * E, E);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  return cudaSuccess;
+  {
+    static SmemAllowance allowed;
+    const long long smem = 8LL * (kDcWarps * kDcRows * 32 + kDcRows * 6 * E);
+    if ((err = allow_smem(dc_rows, smem, allowed)) != cudaSuccess) return err;
+    dc_rows<<<dim3((E + 31) / 32, (R + kDcRows - 1) / kDcRows), 32 * kDcWarps, smem, s>>>(
+        w.dmod, wada_t, c, dc, R, E);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+
+  // ===== the weight gradients, U^T V over the tokens (rows for wada) ============
+  GradJobs jobs{};
+  jobs.job[0] = {w.dmod, w.cs, dwada_t, dbada, nullptr, 6 * E, E, R, 1, 0, 0, 0};
+  jobs.job[1] = {w.dqkv, w.h, dwqkv_t, dbqkv, nullptr, 3 * E, E, N, 1, 0, 0, 0};
+  jobs.job[2] = {w.dproj, w.attn, dwproj_t, dbproj, nullptr, E, E, N, 1, 0, 0, 0};
+  jobs.job[3] = {w.ab, w.h2, dw12_t, nullptr, nullptr, 2 * Hd, E, N, 1, 0, 0, 0};
+  jobs.job[4] = {w.dm, w.g, dwmlp_t, nullptr, nullptr, E, Hd, N, 1, 0, 0, 0};
+  jobs.n = 5;
+  return launch_weight_grads(jobs, w.grads, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches one block backward on `stream`, on the current device, 256
-// threads a CTA: with `row_design` the row kernel (R CTAs), otherwise the
-// first seven kernels of the split; then the weight-gradient kernel. The
-// (in, out) weights feed the recomputed forward; the `_t` weights are the
-// same matrices in nn.Linear's (out, in) layout, as are the weight gradients
-// written (dw12_t holds dw1_t over dw2_t, (2Hd, E)). `workspace` holds
-// dit_block_bwd_workspace_floats() floats. Every output is written whole.
-// Returns the first CUDA error code (0 on success). Allocates nothing and
-// does not synchronise.
+// Launches one block backward on `stream`, on the current device: the
+// forward recomputed (eight launches), the backward (ten) and the weight
+// gradients (two). The (in, out) weights feed the recomputed forward; the `_t`
+// weights are the same matrices in nn.Linear's (out, in) layout, as are the
+// weight gradients written (dw12_t holds dw1_t over dw2_t, (2Hd, E)).
+// `workspace` holds scldm_dit_block_backward_workspace_floats() floats. Every
+// output is written whole. Returns the first CUDA error code (0 on success;
+// cudaErrorInvalidValue for E > 512, or a head width or Hd that is not a
+// multiple of 4, or a head width over 64). Allocates nothing and does not
+// synchronise.
 int scldm_dit_block_backward(
     const void* x, const void* c, const void* wada, const void* bada, const void* wqkv,
     const void* bqkv, const void* wproj, const void* bproj, const void* w1,
@@ -913,43 +998,21 @@ int scldm_dit_block_backward(
     const void* wproj_t, const void* w1_t, const void* w2_t, const void* wmlp_t,
     const void* dy, void* dx, void* dc, void* dwada_t, void* dbada, void* dwqkv_t,
     void* dbqkv, void* dwproj_t, void* dbproj, void* dw12_t, void* dwmlp_t,
-    void* workspace, int R, int T, int E, int H, int Hd, float eps, int row_design,
-    void* stream) {
+    void* workspace, int R, int T, int E, int H, int Hd, float eps, void* stream) {
   if (R == 0 || T == 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  const Workspace w = carve((float*)workspace, R, T, E, Hd);
-  cudaError_t err;
-  if (row_design) {
-    // x, two staging tiles, the probabilities and their cotangents, silu(c),
-    // mod, dmod, the LayerNorm statistics
-    const long long smem =
-        4LL * (2 * T * E + T * std::max(3 * E, Hd) + 2 * H * T * T + 13 * E + 4 * T);
-    if ((err = allow_smem(dit_block_bwd_rows, smem, g_row_smem)) != cudaSuccess) return (int)err;
-    dit_block_bwd_rows<<<R, kThreads, smem, s>>>(
-        (const float*)x, (const float*)c, (const float*)wada, (const float*)bada,
-        (const float*)wqkv, (const float*)bqkv, (const float*)wproj, (const float*)bproj,
-        (const float*)w1, (const float*)w2, (const float*)wmlp, (const float*)wada_t,
-        (const float*)wqkv_t, (const float*)wproj_t, (const float*)w1_t, (const float*)w2_t,
-        (const float*)wmlp_t, (const float*)dy, (float*)dx, (float*)dc, (float*)workspace, R, T,
-        E, H, Hd, eps);
-  } else if ((err = split_backward(x, c, wada, bada, wqkv, bqkv, wproj, bproj, w1, w2, wmlp,
-                                   wada_t, wqkv_t, wproj_t, w1_t, w2_t, wmlp_t, dy, dx, dc, w, R,
-                                   T, E, H, Hd, eps, s)) != cudaSuccess) {
-    return (int)err;
-  }
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  return (int)launch_backward(
+      (const float*)x, (const float*)c, (const float*)wada, (const float*)bada,
+      (const float*)wqkv, (const float*)bqkv, (const float*)wproj, (const float*)bproj,
+      (const float*)w1, (const float*)w2, (const float*)wmlp, (const float*)wada_t,
+      (const float*)wqkv_t, (const float*)wproj_t, (const float*)w1_t, (const float*)w2_t,
+      (const float*)wmlp_t, (const float*)dy, (float*)dx, (float*)dc, (float*)dwada_t,
+      (float*)dbada, (float*)dwqkv_t, (float*)dbqkv, (float*)dwproj_t, (float*)dbproj,
+      (float*)dw12_t, (float*)dwmlp_t, (float*)workspace, R, T, E, H, Hd, eps,
+      (cudaStream_t)stream);
+}
 
-  const int N = R * T;
-  dit::GradJobs<5> jobs = {{
-      {w.mod, w.cs, (float*)dwada_t, (float*)dbada, 6 * E, E, R, 0, 0},
-      {w.qkv, w.h, (float*)dwqkv_t, (float*)dbqkv, 3 * E, E, N, 0, 0},
-      {w.proj, w.attn, (float*)dwproj_t, (float*)dbproj, E, E, N, 0, 0},
-      {w.ab, w.h2, (float*)dw12_t, nullptr, 2 * Hd, E, N, 0, 0},
-      {w.m, w.g, (float*)dwmlp_t, nullptr, E, Hd, N, 0, 0},
-  }, 5};
-  const int tiles = dit::plan_grad_jobs(jobs);
-  dit::weight_grads<5><<<tiles, 256, 0, s>>>(jobs);
-  return (int)cudaGetLastError();
+long long scldm_dit_block_backward_workspace_floats(int R, int T, int E, int H, int Hd) {
+  return (long long)workspace_floats(R, T, E, H, Hd);
 }
 
 }  // extern "C"

@@ -1,6 +1,7 @@
 // Tensor-core and copy helpers shared by the kernels that run their products
-// on mma.sync: the DiT block forward (dit_block.cu, TF32 with three passes a
-// product) and the decoder-tail backward (decoder_tail.cu, bf16).
+// on mma.sync: the DiT block forward and backward (dit_tiled.cuh,
+// dit_block.cu, dit_block_bwd.cu: TF32 with three passes a product) and the
+// decoder tail, forward and backward (decoder_tail.cu, bf16).
 //
 // Fragment layouts (PTX ISA, mma.sync.m16n8k8 .tf32 and m16n8k16 .bf16), with
 // lane = 4 gq + tq:

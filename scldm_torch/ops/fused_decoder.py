@@ -46,7 +46,7 @@ KERNEL_SHAPES = ((32, 4, 16),)
 #: decoder's MLP(32)
 BWD_HIDDEN = (88,)
 #: genes and cells a CTA of the backward kernel takes (kGenes, kCells in
-#: decoder_tail.cu's namespace bwd)
+#: decoder_tail.cu's namespace tail)
 BWD_GENE_TILE, BWD_CELL_BLOCK = 64, 16
 
 DECODER_TAIL_FWD_LAUNCHES = LaunchCounter()
@@ -169,13 +169,13 @@ def _check(qp, q, kfull, vproj, weights, n_head,
 
 def _wvec_floats(E: int, Hd: int) -> int:
     """dw12 and the vector gradients in one buffer, padded to a multiple of 4
-    (`bwd::wlen` in decoder_tail.cu)."""
+    (`tail::wlen` in decoder_tail.cu)."""
     return -(-(2 * E * Hd + 3 * E + Hd + 1) // 4) * 4
 
 
 def decoder_tail_bwd_workspace_floats(B: int, G: int, Hd: int, E: int = 32, HM: int = 64,
                                       HD: int = 8) -> int:
-    """Device workspace of the backward, in floats (`bwd::workspace_floats` in
+    """Device workspace of the backward, in floats (`tail::workspace_floats` in
     decoder_tail.cu): the CTAs' partials, summed afterwards in a fixed order.
     Per cell block, dqp and dq of every gene (2GE); per gene tile and cell,
     dvproj (HM*E) and dkfull's head blocks (HM*HD); per CTA, dw12 and the

@@ -17,16 +17,13 @@ long-axis flash attention kernel (`ops/flash_attention.py`'s) on views of the
 workspace, from the C side: `FLASH_ATTENTION_LAUNCHES` does not count those,
 `DIT_BLOCK_LAUNCHES` counts the block once.
 
-The backward has two designs. The row design keeps a whole DiT row in one
-CTA's shared memory (`dit_block_bwd_row_smem_bytes`); the split
-design splits the block by what each stage needs (one CTA per row and token
-tile, per row and head, or per tile of rows) and hands intermediates on
-through a device workspace, so that its shared memory is bounded by a token
-tile and one head's scores (`dit_block_bwd_smem_bytes`). The backward takes
-the row design wherever a row fits one CTA (the dentate DiT's T = 16) and
-the split design elsewhere (the census DiT's T = 64) up to the T where one
-head's scores outgrow a CTA; `pick_design` says which, and the need is
-checked before launch.
+The backward has one design too, on the same stages: it recomputes the
+forward into its workspace, runs the backward's token products on the same
+GEMM, streams 64-token tiles through an attention backward, takes the
+LayerNorm backwards one warp a token, and the weight gradients as
+tensor-core GEMMs over the token axis (`dit_block_bwd_smem_bytes`; the C
+side sizes its workspace). Its shared memory does not grow with T either,
+so T = 16, 64 and 1,024 all run.
 
 `dit_block` and `dit_block_bwd` launch their kernels on CUDA tensors and run
 the plain PyTorch versions (`dit_block_reference`,
@@ -50,13 +47,9 @@ MATRIX_NAMES = ("wada", "wqkv", "wproj", "w1", "w2", "wmlp")
 
 #: shared memory one CTA may use on Hopper (232,448 bytes)
 MAX_SMEM_BYTES = 227 * 1024
-#: tokens per CTA of the backward's token-wise stages (kTok in dit_common.cuh)
-TOKEN_TILE = 16
-#: rows per CTA of its per-row products (kRowTile in dit_common.cuh)
-ROW_TILE = 8
-#: tokens per CTA of the forward's products and attention (kBM, kQ in dit_block.cu)
+#: tokens per CTA of the tiled products and attention (kBM, kQ in dit_tiled.cuh)
 TILED_TOKENS = 64
-#: stages in the ring of its products (kStages in dit_block.cu)
+#: stages in the ring of its products (kStages in dit_tiled.cuh)
 TILED_STAGES = 3
 #: the widest E its LayerNorm kernel keeps in registers (kMaxVec float4s a lane)
 TILED_MAX_E = 512
@@ -80,7 +73,7 @@ DIT_BLOCK_BWD_LAUNCHES = LaunchCounter()
 
 
 def _ln(x: torch.Tensor, eps: float) -> torch.Tensor:
-    """Non-affine LayerNorm over the last dim, f32."""
+    """Non-affine LayerNorm over the last dim."""
     mean = x.mean(dim=-1, keepdim=True)
     var = (x - mean).square().mean(dim=-1, keepdim=True)
     return (x - mean) * torch.rsqrt(var + eps)
@@ -89,13 +82,15 @@ def _ln(x: torch.Tensor, eps: float) -> torch.Tensor:
 def dit_block_reference(
     x: torch.Tensor, c: torch.Tensor, weights: Dict[str, torch.Tensor], n_head: int, eps: float
 ) -> torch.Tensor:
-    """Plain f32 PyTorch version of one block (`_block_math` in the JAX package).
+    """Plain PyTorch version of one block (`_block_math` in the JAX package),
+    in f32, or in f64 for f64 inputs.
 
-    x (R, T, E), c (R, E) -> (R, T, E) f32."""
-    w = {k: weights[k].float() for k in WEIGHT_NAMES}
+    x (R, T, E), c (R, E) -> (R, T, E)."""
+    dtype = torch.promote_types(x.dtype, torch.float32)
+    w = {k: weights[k].to(dtype) for k in WEIGHT_NAMES}
     R, T, E = x.shape
-    x = x.float()
-    mod = F.silu(c.float()) @ w["wada"] + w["bada"]
+    x = x.to(dtype)
+    mod = F.silu(c.to(dtype)) @ w["wada"] + w["bada"]
     # chunk 0 multiplies and chunk 1 shifts (the reference's swapped modulate)
     scale_a, shift_a, gate_a, scale_m, shift_m, gate_m = mod[:, None, :].chunk(6, dim=-1)
 
@@ -127,34 +122,6 @@ def dit_block_backward_reference(
     return grads[0], grads[1], dict(zip(WEIGHT_NAMES, grads[2:]))
 
 
-def _rows_gemm_bytes(K: int) -> int:
-    """rows_gemm's CTA: ROW_TILE staged input rows of K and its eight warps'
-    partial sums (dit_common.cuh)."""
-    return 4 * (ROW_TILE * K + 8 * ROW_TILE * 32)
-
-
-def _attention_bytes(T: int, hd: int) -> int:
-    """The backward's attention forward CTA, one (row, head): q, k (padded),
-    v and the (T, T) scores (dit_common.cuh)."""
-    return 4 * (2 * T * hd + T * (hd + 1) + T * T)
-
-
-def dit_block_bwd_row_smem_bytes(T: int, E: int, n_head: int, hidden: int) -> int:
-    """Dynamic shared memory of the backward's row kernel, one CTA per row: x,
-    h, qkv-or-hidden, silu(c), mod, the scores and their cotangents, dmod and
-    the LayerNorm statistics (dit_block_bwd.cu)."""
-    return 4 * (2 * T * E + T * max(3 * E, hidden) + 2 * n_head * T * T + 13 * E + 4 * T)
-
-
-def pick_design(T: int, E: int, n_head: int, hidden: int, backward: bool = False) -> str:
-    """The design the wrappers take: the forward "tiled" at every T; the
-    backward "row" where a row fits one CTA, "split" elsewhere."""
-    if not backward:
-        return "tiled"
-    row = dit_block_bwd_row_smem_bytes(T, E, n_head, hidden)
-    return "row" if row <= MAX_SMEM_BYTES else "split"
-
-
 def _head_pad(hd: int) -> int:
     """The forward attention's compiled head width: hd zero-padded to 16, 32 or 64."""
     return 16 if hd <= 16 else 32 if hd <= 32 else 64
@@ -162,7 +129,7 @@ def _head_pad(hd: int) -> int:
 
 def dit_block_smem_bytes(T: int, E: int, n_head: int, hidden: int) -> Dict[str, int]:
     """Dynamic shared memory of one CTA of each kernel of the forward
-    (dit_block.cu, namespace `tiled`), by kernel: the GEMM's ring of three
+    (namespace `tiled` in dit_tiled.cuh), by kernel: the GEMM's ring of three
     stages of 64 x 32 of A (pitch 36) and 32 x 64 of weights (pitch 72); the
     attention's 64 queries and two stages of 64 keys and values (pitch DP +
     4, DP the head width padded to 16, 32 or 64). The LayerNorm and silu
@@ -174,22 +141,19 @@ def dit_block_smem_bytes(T: int, E: int, n_head: int, hidden: int) -> Dict[str, 
 
 
 def dit_block_bwd_smem_bytes(T: int, E: int, n_head: int, hidden: int) -> Dict[str, int]:
-    """Dynamic shared memory of one CTA of each kernel of the backward's split
-    design (the layouts in dit_block_bwd.cu and dit_common.cuh): the forward
-    recompute's mod product over ROW_TILE rows, LayerNorm and qkv per token
-    tile, attention per (row, head); then the MLP branch's backward per token
-    tile, the attention's per (row, head), the qkv product's per token tile,
-    and dc over ROW_TILE rows of dmod (6E)."""
-    hd = E // n_head
-    return {
-        "rows_gemm": _rows_gemm_bytes(E),
-        "ln_qkv": 4 * TOKEN_TILE * E,
-        "attention": _attention_bytes(T, hd),
-        "mlp_bwd": 4 * (TOKEN_TILE * (2 * E + hidden) + 2 * TOKEN_TILE),
-        "attention_bwd": 4 * (2 * T * hd + 2 * T * (hd + 1) + 2 * T * T),
-        "qkv_bwd": 4 * (TOKEN_TILE * 5 * E + 2 * TOKEN_TILE),
-        "dc": _rows_gemm_bytes(6 * E),
-    }
+    """Dynamic shared memory of one CTA of each kernel of the backward
+    (dit_block_bwd.cu): the forward's GEMM and attention (`gemm` also runs the
+    backward's products and the weight gradients); the attention backward's
+    64 tokens of its side, two stages of 64 of the other (two rows of DP + 4
+    each) and their softmax statistics; the LayerNorm backward's sums, four
+    of E per warp of eight; dc's four rows of dmod (6E) and its sixteen
+    warps' sums of 4 x 32, all f64. None grows with T."""
+    fwd = dit_block_smem_bytes(T, E, n_head, hidden)
+    return {**fwd,
+            "attention_bwd": 4 * (6 * TILED_TOKENS * (_head_pad(E // n_head) + 4)
+                                  + 4 * TILED_TOKENS),
+            "ln_bwd": 4 * 8 * 4 * E,
+            "dc_rows": 8 * (4 * 6 * E + 16 * 4 * 32)}
 
 
 def dit_block_workspace_floats(R: int, T: int, E: int, hidden: int) -> int:
@@ -200,20 +164,8 @@ def dit_block_workspace_floats(R: int, T: int, E: int, hidden: int) -> int:
     return 6 * R * E + R * T * (5 * E + hidden)
 
 
-def dit_block_bwd_workspace_floats(R: int, T: int, E: int, hidden: int) -> int:
-    """Device workspace of the backward, in floats: per token h, qkv, attn,
-    proj, h2, dm, d(attention output) (9E) and [a | b], g (3 hidden); per
-    row silu(c) and mod (7E); per row and token tile a partial of dmod (6E)
-    (`carve` in dit_block_bwd.cu). Both designs take the same layout; the
-    row design leaves d(attention output) and the partials unused."""
-    tiles = -(-T // TOKEN_TILE)
-    return R * T * (9 * E + 3 * hidden) + 7 * R * E + 6 * R * tiles * E
-
-
-def _check_shapes(x, c, weights, n_head, backward: bool = False,
-                  design: str | None = None) -> str:
-    """Validate the shapes and the shared memory of `design` (None: the one
-    `pick_design` takes); returns the design."""
+def _check_shapes(x, c, weights, n_head, backward: bool = False) -> None:
+    """Validate the shapes, the widths the kernels take and their shared memory."""
     R, T, E = x.shape
     hidden = weights["w1"].shape[1]
     want = {
@@ -231,23 +183,13 @@ def _check_shapes(x, c, weights, n_head, backward: bool = False,
             "dit_block needs E % 4 == 0, hidden % 4 == 0 and E % n_head == 0 "
             f"(E={E}, hidden={hidden}, n_head={n_head})"
         )
-    design = design or pick_design(T, E, n_head, hidden, backward)
-    if not backward:
-        hd = E // n_head
-        if design != "tiled":
-            raise ValueError(f"the forward's design is 'tiled' (or None), got {design!r}")
-        if E > TILED_MAX_E or hd % 4 or hd > 64:
-            raise ValueError(
-                f"dit_block needs E <= {TILED_MAX_E} and a head width that is a multiple of 4 "
-                f"up to 64 (E={E}, n_head={n_head})"
-            )
-        need = dit_block_smem_bytes(T, E, n_head, hidden)
-    elif design == "row":
-        need = {"row": dit_block_bwd_row_smem_bytes(T, E, n_head, hidden)}
-    elif design == "split":
-        need = dit_block_bwd_smem_bytes(T, E, n_head, hidden)
-    else:
-        raise ValueError(f"the backward's design is 'row', 'split' or None, got {design!r}")
+    hd = E // n_head
+    if E > TILED_MAX_E or hd % 4 or hd > 64:
+        raise ValueError(
+            f"dit_block{'_bwd' if backward else ''} needs E <= {TILED_MAX_E} and a head width "
+            f"that is a multiple of 4 up to 64 (E={E}, n_head={n_head})"
+        )
+    need = (dit_block_bwd_smem_bytes if backward else dit_block_smem_bytes)(T, E, n_head, hidden)
     kernel, most = max(need.items(), key=lambda kv: kv[1])
     if most > MAX_SMEM_BYTES:
         raise ValueError(
@@ -255,7 +197,6 @@ def _check_shapes(x, c, weights, n_head, backward: bool = False,
             f"in its {kernel} kernel at T={T}, E={E}, n_head={n_head}, hidden={hidden}; one CTA "
             f"has at most {MAX_SMEM_BYTES}"
         )
-    return design
 
 
 def _check_tensors(tensors, what: str, device: torch.device) -> None:
@@ -265,21 +206,19 @@ def _check_tensors(tensors, what: str, device: torch.device) -> None:
 
 
 def dit_block(
-    x: torch.Tensor, c: torch.Tensor, weights: Dict[str, torch.Tensor], n_head: int, eps: float,
-    design: str | None = None,
+    x: torch.Tensor, c: torch.Tensor, weights: Dict[str, torch.Tensor], n_head: int, eps: float
 ) -> torch.Tensor:
     """One adaLN-zero DiT block, x (R, T, E) f32, c (R, E) f32 -> (R, T, E) f32.
 
-    CUDA tensors run the hand-written kernels on the current stream (`design`
-    "tiled" or None: the forward has one design); CPU tensors run
-    `dit_block_reference`."""
+    CUDA tensors run the hand-written kernels on the current stream; CPU
+    tensors run `dit_block_reference`."""
     if x.device.type == "cpu":
         return dit_block_reference(x, c, weights, n_head, eps)
     if x.device.type != "cuda":
         raise ValueError(f"dit_block runs on cuda or cpu tensors, got {x.device}")
     tensors = [x, c, *(weights[k] for k in WEIGHT_NAMES)]
     _check_tensors(tensors, "dit_block", x.device)
-    design = _check_shapes(x, c, weights, n_head, design=design)
+    _check_shapes(x, c, weights, n_head)
 
     from scldm_torch.kernels import build
 
@@ -309,14 +248,12 @@ def dit_block_bwd(
     n_head: int,
     eps: float,
     weights_t: Dict[str, torch.Tensor] | None = None,
-    design: str | None = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
     """Recompute backward of one block: (dx (R, T, E), dc (R, E), the nine
     weight gradients, summed over the rows, in `weights`' (in, out) layout).
 
-    CUDA tensors run the hand-written kernels on the current stream, of
-    `design` ("row" or "split"; None: `pick_design`'s); CPU tensors run
-    `dit_block_backward_reference`. The kernels also read the
+    CUDA tensors run the hand-written kernels on the current stream; CPU
+    tensors run `dit_block_backward_reference`. The kernels also read the
     matrices in nn.Linear's (out, in) layout: `weights_t` (contiguous, keyed
     by MATRIX_NAMES) or, if None, transposed copies made here. The matrix
     gradients come back as transposed views of (out, in) tensors."""
@@ -334,7 +271,7 @@ def dit_block_bwd(
     for k in MATRIX_NAMES:
         if weights_t[k].shape != weights[k].shape[::-1]:
             raise ValueError(f"weights_t[{k!r}] must be {tuple(weights[k].shape[::-1])}")
-    design = _check_shapes(x, c, weights, n_head, backward=True, design=design)
+    _check_shapes(x, c, weights, n_head, backward=True)
 
     from scldm_torch.kernels import build
 
@@ -345,7 +282,7 @@ def dit_block_bwd(
     dw_t = {k: torch.empty_like(weights_t[k]) for k in ("wada", "wqkv", "wproj", "wmlp")}
     dw12_t = torch.empty((2 * hidden, E), dtype=x.dtype, device=x.device)
     db = {k: torch.empty_like(weights[k]) for k in ("bada", "bqkv", "bproj")}
-    workspace = torch.empty(dit_block_bwd_workspace_floats(R, T, E, hidden),
+    workspace = torch.empty(lib.scldm_dit_block_backward_workspace_floats(R, T, E, n_head, hidden),
                             dtype=torch.float32, device=x.device)
     outs = [dx, dc, dw_t["wada"], db["bada"], dw_t["wqkv"], db["bqkv"], dw_t["wproj"],
             db["bproj"], dw12_t, dw_t["wmlp"], workspace]
@@ -354,7 +291,7 @@ def dit_block_bwd(
         code = lib.scldm_dit_block_backward(
             x.data_ptr(), c.data_ptr(), *(t.data_ptr() for t in ws_in),
             *(t.data_ptr() for t in ws_t), dy.data_ptr(), *(t.data_ptr() for t in outs),
-            R, T, E, n_head, hidden, eps, int(design == "row"), stream,
+            R, T, E, n_head, hidden, eps, stream,
         )
     build.check(lib, code, "dit_block_bwd launch")
     DIT_BLOCK_BWD_LAUNCHES.count += 1

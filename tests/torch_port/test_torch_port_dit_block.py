@@ -1,15 +1,16 @@
 """The port's DiT block (scldm_torch.ops.fused_dit), forward and backward,
 against the JAX Pallas kernels run in interpret mode, on the same numpy
-inputs: at the dentate latent's T = 16 tokens (E = 64, 4 heads) and at the
-census latent's T = 64 (E = 32, 4 heads).
+inputs: at the dentate latent's T = 16 tokens (E = 64, 4 heads), at the
+census latent's T = 64 (E = 32, 4 heads) and, for the backward, at the
+long latent's T = 1,024 (E = 32, 2 heads).
 
 The forward at rtol = atol = 1e-5; the backward's dx and dc at 1e-4, each
 weight gradient within 1e-5 of its tensor's largest magnitude: both sides
-compute in f32 and differ only in the order of their sums. At T = 64 every
-output is held at 1e-4 (forward, dx and dc at rtol = atol = 1e-4, each weight
-gradient within 1e-4 of its largest magnitude): sums over four times the
-tokens. The CUDA kernels themselves are compared with the plain versions on
-the card in test_torch_port_cuda.py."""
+compute in f32 and differ only in the order of their sums. At T = 64 and
+1,024 every output is held at 1e-4 (forward, dx and dc at rtol = atol =
+1e-4, each weight gradient within 1e-4 of its largest magnitude): sums over
+four and more times the tokens. The CUDA kernels themselves are compared
+with the plain versions on the card in test_torch_port_cuda.py."""
 
 import jax
 import jax.numpy as jnp
@@ -110,10 +111,9 @@ def _zero_weights(E, hidden):
 def test_smem_need_and_limit():
     """The forward has one design at every T: its kernels' shared memory is
     a token tile's, not a row's, so the dentate T = 16, the census T = 64 and
-    the long-latent T = 1,024 all fit one CTA with the same need; the design
-    names of the backward are refused for the forward. The backward still
-    raises at T = 1,024 with the byte count: one head's scores and their
-    cotangents outgrow a CTA."""
+    the long-latent T = 1,024 all fit one CTA with the same need. The
+    backward takes T = 1,024 too (its attention backward streams the keys
+    as the forward does)."""
     w = _zero_weights(256, 684)
     need = {T: port.dit_block_smem_bytes(T, 256, 8, 684) for T in (16, 64, 1024)}
     assert need[16] == need[64] == need[1024]
@@ -123,15 +123,9 @@ def test_smem_need_and_limit():
     assert need[16] == {"gemm": 4 * 3 * (64 * 36 + 32 * 72), "attention": 4 * 5 * 64 * 36}
     assert max(need[16].values()) <= port.MAX_SMEM_BYTES
     assert port.dit_block_smem_bytes(64, 64, 4, 172)["attention"] == 4 * 5 * 64 * 20  # hd 16
-    for T in (16, 64, 1024):
-        assert port.pick_design(T, 256, 8, 684) == "tiled"
-        assert port._check_shapes(torch.zeros(2, T, 256), torch.zeros(2, 256), w, 8) == "tiled"
-    for design in ("row", "split"):
-        with pytest.raises(ValueError, match="forward's design is 'tiled'"):
-            port._check_shapes(torch.zeros(2, 16, 256), torch.zeros(2, 256), w, 8, design=design)
-    with pytest.raises(ValueError, match=r"dit_block_bwd needs \d+ bytes of shared memory .* "
-                                         r"attention_bwd"):
-        port._check_shapes(torch.zeros(2, 1024, 256), torch.zeros(2, 256), w, 8, backward=True)
+    for T in (16, 64, 1024):  # no raise
+        port._check_shapes(torch.zeros(2, T, 256), torch.zeros(2, 256), w, 8)
+    port._check_shapes(torch.zeros(2, 1024, 256), torch.zeros(2, 256), w, 8, backward=True)
     # the head width the attention takes: a multiple of 4 up to 64
     with pytest.raises(ValueError, match="head width"):
         port._check_shapes(torch.zeros(2, 16, 256), torch.zeros(2, 256), w, 2)
@@ -220,29 +214,33 @@ def test_block_weights_carry_gradients_to_the_module():
     assert not any(t.requires_grad for t in port.extract_block_params(block).values())
 
 
-def test_backward_shapes_and_limits():
-    """The backward's row design fits one CTA at the dentate training shape
-    (T = 16) and its split design at the census one (T = 64); the workspace
-    is the per-token slots, the per-row ones and a partial of dmod per row
-    and token tile."""
-    assert port.dit_block_bwd_row_smem_bytes(16, 256, 8, 684) <= port.MAX_SMEM_BYTES
-    assert port.dit_block_bwd_row_smem_bytes(64, 256, 8, 684) == 604_160
-    assert [port.pick_design(T, 256, 8, 684, backward=True) for T in (16, 64)] == ["row", "split"]
-    for T in (16, 64):
-        assert max(port.dit_block_bwd_smem_bytes(T, 256, 8, 684).values()) <= port.MAX_SMEM_BYTES
-    assert port.dit_block_bwd_workspace_floats(128, 16, 256, 684) == (
-        2048 * (9 * 256 + 3 * 684) + 128 * 1792 + 128 * 1 * 1536)
-    assert port.dit_block_bwd_workspace_floats(16, 64, 256, 684) == (
-        1024 * (9 * 256 + 3 * 684) + 16 * 1792 + 16 * 4 * 1536)
+def test_backward_smem_and_limits():
+    """The backward's one design at the dentate (T = 16), census (T = 64) and
+    long-latent (T = 1,024) training shapes: its kernels' shared memory does
+    not grow with T (the forward's GEMM and attention, the attention
+    backward's two tiles and two stages of the other side's, the LayerNorm
+    backward's sums, dc's rows of dmod and f64 sums), and the shape check
+    takes all three. The forward's workspace, which the backward's
+    recomputation holds too, at the census and long-latent shapes. A width
+    the kernels do not take raises."""
+    w = _zero_weights(256, 684)
+    need = {T: port.dit_block_bwd_smem_bytes(T, 256, 8, 684) for T in (16, 64, 1024)}
+    assert need[16] == need[64] == need[1024] == {
+        "gemm": 4 * 3 * (64 * 36 + 32 * 72), "attention": 4 * 5 * 64 * 36,
+        "attention_bwd": 4 * (6 * 64 * 36 + 4 * 64), "ln_bwd": 4 * 8 * 4 * 256,
+        "dc_rows": 8 * (4 * 6 * 256 + 16 * 4 * 32)}
+    assert max(need[16].values()) <= port.MAX_SMEM_BYTES
+    for T, R in ((16, 128), (64, 16), (1024, 16)):  # no raise
+        port._check_shapes(torch.zeros(R, T, 256), torch.zeros(R, 256), w, 8, backward=True)
     # the forward's: mod per row; qkv, h / the attention output, x1 and the hidden per token
     assert port.dit_block_workspace_floats(48, 64, 256, 684) == (
         48 * 1536 + 48 * 64 * (5 * 256 + 684))
     assert port.dit_block_workspace_floats(12, 1024, 256, 684) == 12 * 1536 + 12288 * 1964
-    # a census row in one CTA would need the scores and their cotangents,
-    # 262 KB; at T = 160 one head's pair alone outgrows a CTA
-    with pytest.raises(ValueError, match="dit_block_bwd needs .* shared memory .* attention_bwd"):
-        port._check_shapes(torch.zeros(2, 160, 256), torch.zeros(2, 256), _zero_weights(256, 684),
-                           8, backward=True)
+    # widths the kernels do not take: E over 512, a head width over 64
+    for E, H in ((1024, 16), (256, 2)):
+        with pytest.raises(ValueError, match=r"dit_block_bwd needs E <= 512 and a head width"):
+            port._check_shapes(torch.zeros(2, 16, E), torch.zeros(2, E), _zero_weights(E, 684), H,
+                               backward=True)
     xs, cs, ws = _inputs(2)
     meta = {k: torch.from_numpy(v).to("meta") for k, v in ws.items()}
     xm = torch.from_numpy(xs).to("meta")
@@ -298,3 +296,90 @@ def test_block_gradients_at_t64_match_pallas_interpret(fn):
         scale = np.abs(want).max()
         assert scale > 1e-3, name
         assert np.abs(got_w[name].numpy() - want).max() <= 1e-4 * scale, name
+
+
+# -- the long latent, T = 1,024 ----------------------------------------------------------
+
+# at a width the CPU takes in seconds: E = 32, 2 heads of 16, hidden 88
+T1024 = dict(T=1024, E=32, hidden=88)
+H1024 = 2
+
+
+@pytest.mark.parametrize("fn", ["trainable", "reference"])
+def test_block_gradients_at_t1024_match_pallas_interpret(fn):
+    """The backward at T = 1,024 (R = 2): dx and dc within rtol = atol =
+    1e-4, each weight gradient within 1e-4 of its largest magnitude, against
+    JAX's Pallas backward in interpret mode (one row a block there)."""
+    from scldm_tpu.ops.fused_dit import fused_dit_block_trainable
+
+    x, c, weights = _inputs(2, seed=21, **T1024)
+    dy = np.random.default_rng(22).normal(size=x.shape).astype(np.float32)
+    kp = {k: jnp.asarray(v) for k, v in weights.items()}
+
+    def f(x, c, kp):
+        out = fused_dit_block_trainable(x, c, kp, H1024, EPS, None, None, True)
+        return (out * jnp.asarray(dy)).sum()
+
+    want_x, want_c, want_w = jax.grad(f, argnums=(0, 1, 2))(jnp.asarray(x), jnp.asarray(c), kp)
+    before = port.DIT_BLOCK_BWD_LAUNCHES.count
+    if fn == "trainable":
+        leaves = [torch.from_numpy(a).requires_grad_() for a in (x, c, *weights.values())]
+        w = dict(zip(weights, leaves[2:]))
+        port.dit_block_trainable(leaves[0], leaves[1], w, H1024, EPS).backward(torch.from_numpy(dy))
+        got_x, got_c, got_w = leaves[0].grad, leaves[1].grad, {k: t.grad for k, t in w.items()}
+    else:
+        w = {k: torch.from_numpy(v) for k, v in weights.items()}
+        got_x, got_c, got_w = port.dit_block_backward_reference(
+            torch.from_numpy(x), torch.from_numpy(c), w, torch.from_numpy(dy), H1024, EPS)
+    assert port.DIT_BLOCK_BWD_LAUNCHES.count == before
+    np.testing.assert_allclose(got_x.numpy(), np.asarray(want_x), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got_c.numpy(), np.asarray(want_c), rtol=1e-4, atol=1e-4)
+    for name, want in want_w.items():
+        want = np.asarray(want)
+        scale = np.abs(want).max()
+        assert scale > 1e-3, name
+        assert np.abs(got_w[name].numpy() - want).max() <= 1e-4 * scale, name
+
+
+def test_ldm_task_takes_the_kernels_at_t1024():
+    """`LDMTask(fused_training=None)` takes the kernel path on CUDA tensors,
+    and the kernels' shape check now takes the long-latent DiT's blocks (T =
+    1,024, E = 256, 8 heads, hidden 684) both ways; on CPU tensors a
+    `fused_training=True` step runs them through their plain versions and
+    gives the module path's loss and gradients."""
+    from types import SimpleNamespace
+
+    from scldm_torch.nn.nnets import DiT
+    from scldm_torch.training.ldm_task import LDMTask
+    from scldm_torch.transport import create_transport
+    from scldm_torch.utils.weights import init_reference_
+
+    w = _zero_weights(256, 684)
+    x, c = torch.zeros(16, 1024, 256, device="meta"), torch.zeros(16, 256, device="meta")
+    port._check_shapes(x, c, w, 8)  # no raise, either way
+    port._check_shapes(x, c, w, 8, backward=True)
+
+    dit = DiT(n_embed=32, n_embed_input=4, n_layer=2, n_head=2, seq_len=1024,
+              class_vocab_sizes={"clusters": 3}, cfg_dropout_prob=0.0)
+    init_reference_(dit, torch.Generator().manual_seed(4), zero_init=False)
+    task = LDMTask(None, dit, create_transport(), algebraic_decode=False)  # no VAE needed here
+    assert task.fused_training is None
+    assert task._use_fused(SimpleNamespace(is_cuda=True))
+    assert not task._use_fused(torch.zeros(1))
+
+    rng = np.random.default_rng(5)
+    xt = torch.from_numpy(rng.normal(size=(2, 1024, 4)).astype(np.float32))
+    t_emb = torch.from_numpy(rng.normal(size=(2, 32)).astype(np.float32))
+    dy = torch.from_numpy(rng.normal(size=(2, 1024, 4)).astype(np.float32))
+    grads = {}
+    for fused in (True, False):
+        dit.zero_grad()
+        before = port.DIT_BLOCK_BWD_LAUNCHES.count
+        out = (port.fused_dit_train_apply(dit, xt, t_emb) if fused else
+               dit.trunk(xt, t_emb))
+        (out * dy).sum().backward()
+        assert port.DIT_BLOCK_BWD_LAUNCHES.count == before  # CPU: the plain versions
+        grads[fused] = {n: p.grad.clone() for n, p in dit.named_parameters() if p.grad is not None}
+    assert grads[True].keys() == grads[False].keys()
+    for n, g in grads[False].items():
+        torch.testing.assert_close(grads[True][n], g, rtol=1e-4, atol=1e-4 * g.abs().max().item())
