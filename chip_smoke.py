@@ -67,7 +67,8 @@ holds the module decode with the flash-cross gate (`SCLDM_FLASH_CROSS`) on
 against off. Phase 1g holds the whole-trunk kernels (the forward, the saving
 forward and the backward of all eight blocks of a VAE trunk) against their
 plain versions at the VAE step's trunk (R = 128 rows of T = 16 tokens, E = 32)
-and a ragged R, timing each, and checks that the backward repeats its bits.
+and a ragged R, timing each, and checks that the forward, the saving forward
+and the backward repeat their bits.
 Phase 8 trains the dentate and the parse1m VAEs through them
 (`VAETask(fused_trunk=True)`), checks that each step launched the saving
 forward and the backward twice (encoder and decoder), times the step with the
@@ -848,16 +849,23 @@ def fused_trunk_bound(R: int, T: int, E: int, hidden: int, L: int, backward: boo
     multiply-add of its products (per token and layer qkv 3E^2, the
     projection E^2, scores and probabilities times values 2TE, the SwiGLU
     3E*hidden), three times that for the backward, which recomputes the
-    forward; the elementwise work is left out. Bytes: each input read once
-    and each output written once (forward x, the weights and out, with
-    `save` also xs (L, R, T, E); backward xs, dy and the weights in, dx and
-    the weight gradients out)."""
+    forward; the elementwise work is left out. The kernels run every product
+    as three TF32 tensor-core passes, the least that keeps f32 accuracy on
+    the tensor cores, so `bound_ms` is three times the function's operations
+    against the TF32 peak; `f32_bound_ms` is them once against the f32 FMA
+    peak, the yardstick of the scalar kernels they replaced. Bytes: each
+    input read once and each output written once (forward x, the weights and
+    out, with `save` also xs (L, R, T, E); backward xs, dy and the weights in,
+    dx and the weight gradients out)."""
     weights = L * (4 * E + 4 * E * E + 3 * E * hidden)
-    flops = 2 * R * T * L * (4 * E * E + 2 * T * E + 3 * E * hidden)
+    flops = 2 * R * T * L * (4 * E * E + 2 * T * E + 3 * E * hidden) * (3 if backward else 1)
     act = R * T * E
     if backward:
-        return bound(4 * (L * act + 2 * act + 2 * weights), 3 * flops, F32_FLOPS)
-    return bound(4 * (2 * act + weights + (L * act if save else 0)), flops, F32_FLOPS)
+        n_bytes = 4 * (L * act + 2 * act + 2 * weights)
+    else:
+        n_bytes = 4 * (2 * act + weights + (L * act if save else 0))
+    return {**bound(n_bytes, 3 * flops, TF32_FLOPS),
+            "f32_bound_ms": bound(n_bytes, flops, F32_FLOPS)["bound_ms"]}
 
 
 def random_trunk_weights(g) -> dict:
@@ -879,6 +887,30 @@ def random_trunk_weights(g) -> dict:
     return w
 
 
+def device_ms(fn, reps: int, names: tuple) -> float:
+    """The device time of one call of `fn`: the time of the kernels whose
+    names hold one of `names`, summed over `reps` calls under the profiler
+    after a warm-up call, over `reps`."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.device_time_total for e in prof.key_averages()
+                   if any(n in e.key for n in names))
+    if total_us == 0:
+        raise AssertionError(f"the profiler saw no kernel named {names}")
+    return total_us / reps / 1e3
+
+
+# the kernels behind each whole-trunk entry point
+TRUNK_KERNELS = {"fwd": ("trunk_forward_mma",), "fwd_saving": ("trunk_forward_mma",),
+                 "bwd": ("trunk_backward_mma", "grad_gemm", "grad_reduce")}
+
+
 def held_f32(what: str, got, want, rel: float = 1e-4) -> float:
     """The largest error of `got` as a share of `want`'s largest magnitude;
     raises beyond `rel` of it (f32 both, sums in other orders)."""
@@ -897,9 +929,15 @@ def phase1g_fused_trunk(seed: int) -> dict:
     inputs, the backward (row 11: dx and the nine weight gradients of every
     layer, from the kernel's xs) against autograd through the plain trunk;
     each tensor within 1e-4 of its largest magnitude (f32 both, sums in
-    other orders), its error reported as a share of that. Kernel and plain
-    timed in turns at R = 128. Returns {"fwd" | "fwd_saving" | "bwd":
-    {max_abs_err, ms, plain_ms}}."""
+    other orders), its error reported as a share of that. At R = 128 kernel
+    and plain are timed in turns, each a call through its entry point (the
+    kernel's `ms`, as every row's), and the kernels' own device time a call
+    is taken under the profiler beside it (`device_ms`: the wrappers' host
+    time, checking L x 9 weights and handing over their pointers, can exceed
+    it). At R = 128 the forward and the saving forward run twice and the
+    backward twice, each held to the same bits (no atomics, no race in the
+    kernels' shared memory). Returns {"fwd" | "fwd_saving" | "bwd":
+    {max_abs_err, ms, plain_ms, device_ms}}."""
     import torch
 
     from scldm_torch.ops import fused_trunk as ft
@@ -941,15 +979,24 @@ def phase1g_fused_trunk(seed: int) -> dict:
         }
         for part, (kernel, plain, reps) in timed.items():
             ms, plain_ms = time_in_turns(kernel, plain, reps)
-            out[part] = {"max_abs_err": errs[part], "ms": ms, "plain_ms": plain_ms}
+            dev_ms = device_ms(kernel, reps, TRUNK_KERNELS[part])
+            out[part] = {"max_abs_err": errs[part], "ms": ms, "plain_ms": plain_ms,
+                         "device_ms": dev_ms}
             b = fused_trunk_bound(R, T, E, Hd, L, part == "bwd", part == "fwd_saving")
-            log(f"phase1g fused_trunk_{part} R={R}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-                f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
-    # the backward sums its weight gradients in a fixed order: the same bits twice
-    again = ft.fused_trunk_bwd(xs, w, dy, H, EPS)
-    if not (torch.equal(again[0], dx) and all(torch.equal(a, b) for k in ft.TRUNK_WEIGHT_NAMES
-                                               for a, b in zip(again[1][k], dw[k]))):
-        raise AssertionError("fused_trunk_bwd gave other bits on the same inputs")
+            log(f"phase1g fused_trunk_{part} R={R}: kernel {ms:.4f} ms a call ({dev_ms:.4f} ms "
+                f"on the device)  plain {plain_ms:.4f} ms  bound {b['bound_ms']:.4f} ms "
+                f"({b['bound_by']}, TF32 x3; f32 {b['f32_bound_ms']:.4f} ms)")
+        # no atomics and no race in shared memory: the same bits twice, each kernel
+        y9b = ft.fused_trunk_blocks(x, w, H, EPS)
+        y10b, xsb = ft.fused_trunk_fwd_saving(x, w, H, EPS)
+        if not (torch.equal(y9b, y9) and torch.equal(y10b, y10) and torch.equal(xsb, xs)):
+            raise AssertionError("the trunk forward gave other bits on the same inputs")
+        again = ft.fused_trunk_bwd(xs, w, dy, H, EPS)
+        if not (torch.equal(again[0], dx) and all(torch.equal(a, b)
+                                                   for k in ft.TRUNK_WEIGHT_NAMES
+                                                   for a, b in zip(again[1][k], dw[k]))):
+            raise AssertionError("fused_trunk_bwd gave other bits on the same inputs")
+        log(f"phase1g fused_trunk R={R}: forward, saving forward and backward repeat their bits")
     return out
 
 

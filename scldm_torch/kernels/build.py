@@ -155,6 +155,12 @@ _SIGNATURES = {
         [_P] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float, _P],  # R, T, E, H, Hd, L; eps, stream
         ctypes.c_int,
     ),
+    "scldm_fused_trunk_smem_bytes": (  # T, E, H, Hd, backward
+        [ctypes.c_int] * 5, ctypes.c_longlong,
+    ),
+    "scldm_fused_trunk_workspace_floats": (  # R, T, E, Hd, L
+        [ctypes.c_int] * 5, ctypes.c_longlong,
+    ),
     # pointers: q, k, v, out
     "scldm_flash_attention_forward": (
         [_P] * 4

@@ -47,11 +47,12 @@
 //   partial; `sum_parts` adds the partials in order and `dc_rows` takes dc
 //   through wada, both in f64 (|dc| reaches a few hundred at T = 1,024).
 // - The weight gradients are U^T V over the token axis in one launch
-//   (`grad_gemm`): K = R*T (2,048, 1,024 and 16,384 tokens at the
-//   three shapes; R for the adaLN product) is cut into chunks where the
-//   output tiles are too few to fill the card, each chunk's partial summed by
-//   `grad_reduce` in order; each 32-deep stage is summed from zero and
-//   added in f32; the bias gradients are column sums of U.
+//   (`tiled::grad_gemm`, dit_tiled.cuh, shared with the trunk backward): K =
+//   R*T (2,048, 1,024 and 16,384 tokens at the three shapes; R for the adaLN
+//   product) is cut into chunks where the output tiles are too few to fill
+//   the card, each chunk's partial summed by `grad_reduce` in order; each
+//   32-deep stage is summed from zero and added in f32; the bias gradients
+//   are column sums of U.
 // No atomics: every sum is taken in a fixed order, the same bits every run.
 //
 // Shared memory a CTA, in floats: the GEMMs 3 * (64 * 36 + 32 * 72), the
@@ -65,8 +66,6 @@
 #include <math.h>
 #include <stddef.h>
 
-#include <algorithm>
-
 #include "dit_tiled.cuh"
 
 namespace {
@@ -74,20 +73,15 @@ namespace {
 using dit::allow_smem;
 using dit::SmemAllowance;
 using dit::warp_sum;
-using tiled::kBK;
-using tiled::kBM;
-using tiled::kBN;
+using tiled::kGradSplits;
 using tiled::kQ;
 using tiled::kThreads;
-using tiled::kWM;
 
 constexpr int kTok = 16;          // tokens of one DiT row a CTA of ln_bwd takes
 constexpr int kLnBwdWarps = 8;    // its warps, two tokens each
 constexpr int kMaxVec = 4;        // float4s a lane of a token: E <= 512
 constexpr int kDcRows = 4;        // rows a CTA of dc_rows
 constexpr int kDcWarps = 16;      // its warps, each a sixteenth of the depth 6E
-constexpr int kGradSplits = 8;    // at most this many chunks of a weight gradient's tokens
-constexpr int kGradSlots = 3 * 132;  // CTAs that fill the card (three a SM)
 
 // The workspace's slots, each (tokens, width) row-major, or (rows, width).
 struct Workspace {
@@ -755,136 +749,6 @@ cudaError_t launch_ln_bwd(const float* src, const float* d_in, const Workspace& 
   return cudaGetLastError();
 }
 
-// One weight gradient: out (P, Q) = sum_n u[n, p] v[n, q] over the N tokens
-// (or rows), and bias (P) = sum_n u[n, p] when given. With splits > 1 the
-// token axis is cut into chunks of kchunk, each CTA writes its chunk's sums
-// to `part` (splits, P * Q + P), and grad_reduce adds them in order.
-struct GradJob {
-  const float* u;
-  const float* v;
-  float* out;
-  float* bias;
-  float* part;
-  int P, Q, N, splits, kchunk, tiles_q, tile0;
-};
-
-constexpr int kMaxGradJobs = 5;
-
-struct GradJobs {
-  GradJob job[kMaxGradJobs];
-  int n;
-};
-
-// Every job's gradient in one launch: a CTA per (64 x 64 output tile, K
-// chunk) of a job, numbered by `tile0`; the bias (a column sum of U) is taken
-// by the CTAs of the first column tile from U's staged tiles.
-__global__ void __launch_bounds__(kThreads) grad_gemm(const __grid_constant__ GradJobs jobs) {
-  int j = 0;
-  while (j + 1 < jobs.n && (int)blockIdx.x >= jobs.job[j + 1].tile0) ++j;
-  const GradJob jb = jobs.job[j];
-  const int tile = blockIdx.x - jb.tile0;
-  const int split = tile % jb.splits, rest = tile / jb.splits;
-  const int p0 = (rest / jb.tiles_q) * kBM, q0 = (rest % jb.tiles_q) * kBN;
-  const int k0 = split * jb.kchunk;
-  const tiled::Operands o{jb.u, (size_t)jb.P, jb.v, jb.v, jb.Q, jb.N,
-                          jb.P, jb.Q, k0, min(jb.N, k0 + jb.kchunk)};
-  const bool with_bias = jb.bias != nullptr && q0 == 0;
-  float acc[kWM][4][4];
-#pragma unroll
-  for (int mt = 0; mt < kWM; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
-  float csum = 0.0f;
-  tiled::tile_product<true, false, false>(o, p0, q0, acc, with_bias, csum);
-
-  const size_t len = (size_t)jb.P * jb.Q;
-  float* out = jb.splits == 1 ? jb.out : jb.part + split * (len + jb.P);
-  float* bias = jb.splits == 1 ? jb.bias : jb.part + split * (len + jb.P) + len;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gq = lane >> 2, tq = lane & 3;
-  const int wm = warp >> 1, wn = warp & 1;
-#pragma unroll
-  for (int mt = 0; mt < kWM; ++mt)
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int p = p0 + wm * 16 * kWM + mt * 16 + gq + 8 * hh;
-      if (p >= jb.P) continue;
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int q = q0 + wn * 32 + nt * 8 + 2 * tq;
-        if (q < jb.Q)
-          *reinterpret_cast<float2*>(out + (size_t)p * jb.Q + q) =
-              make_float2(acc[mt][nt][2 * hh], acc[mt][nt][2 * hh + 1]);
-      }
-    }
-  if (with_bias && threadIdx.x < kBM && p0 + threadIdx.x < jb.P)
-    bias[p0 + threadIdx.x] = csum;
-}
-
-// For each job with splits > 1: out and bias = the sum of its chunks'
-// partials, in chunk order; one thread an entry of (P * Q + P).
-__global__ void __launch_bounds__(256) grad_reduce(const __grid_constant__ GradJobs jobs,
-                                                   long long total) {
-  long long idx = (long long)blockIdx.x * 256 + threadIdx.x;
-  if (idx >= total) return;
-  for (int j = 0; j < jobs.n; ++j) {
-    const GradJob jb = jobs.job[j];
-    if (jb.splits == 1) continue;
-    const long long len = (long long)jb.P * jb.Q, n = len + jb.P;
-    if (idx >= n) {
-      idx -= n;
-      continue;
-    }
-    float s = 0.0f;
-    for (int p = 0; p < jb.splits; ++p) s += jb.part[p * n + idx];
-    if (idx < len) jb.out[idx] = s;
-    else if (jb.bias != nullptr) jb.bias[idx - len] = s;
-    return;
-  }
-}
-
-// The weight gradients in two launches: grad_gemm over every job's tiles and
-// K chunks, then grad_reduce over the chunked jobs' partials. The chunk depth
-// is the same for every token job: about kGradSlots * 2 CTAs of equal work
-// in all, at most kGradSplits chunks a job.
-cudaError_t launch_weight_grads(GradJobs jobs, float* part, cudaStream_t s) {
-  long long work = 0;
-  for (int j = 0; j < jobs.n; ++j) {
-    const GradJob& jb = jobs.job[j];
-    work += (long long)((jb.P + kBM - 1) / kBM) *
-            ((jb.Q + kBN - 1) / kBN) * jb.N;
-  }
-  long long chunk = (work + 2 * kGradSlots - 1) / (2 * kGradSlots);
-  chunk = std::max(256LL, (chunk + kBK - 1) / kBK * kBK);
-  int ctas = 0;
-  long long reduce = 0;
-  for (int j = 0; j < jobs.n; ++j) {
-    GradJob& jb = jobs.job[j];
-    jb.splits = (int)std::min<long long>(kGradSplits, (jb.N + chunk - 1) / chunk);
-    jb.splits = std::max(jb.splits, 1);
-    jb.kchunk = (jb.N + jb.splits - 1) / jb.splits;
-    jb.kchunk = (jb.kchunk + kBK - 1) / kBK * kBK;
-    jb.splits = (jb.N + jb.kchunk - 1) / jb.kchunk;
-    jb.tiles_q = (jb.Q + kBN - 1) / kBN;
-    jb.tile0 = ctas;
-    ctas += ((jb.P + kBM - 1) / kBM) * jb.tiles_q * jb.splits;
-    const long long len = (long long)jb.P * jb.Q + jb.P;
-    jb.part = part;
-    part += kGradSplits * len;
-    if (jb.splits > 1) reduce += len;
-  }
-  static SmemAllowance allowed;
-  const long long smem = 4LL * tiled::gemm_smem_floats();
-  cudaError_t err = allow_smem(grad_gemm, smem, allowed);
-  if (err != cudaSuccess) return err;
-  grad_gemm<<<ctas, kThreads, smem, s>>>(jobs);
-  if ((err = cudaGetLastError()) != cudaSuccess || reduce == 0) return err;
-  grad_reduce<<<(unsigned)((reduce + 255) / 256), 256, 0, s>>>(jobs, reduce);
-  return cudaGetLastError();
-}
-
 cudaError_t launch_backward(const float* x, const float* c, const float* wada, const float* bada,
                             const float* wqkv, const float* bqkv, const float* wproj,
                             const float* bproj, const float* w1, const float* w2,
@@ -967,14 +831,14 @@ cudaError_t launch_backward(const float* x, const float* c, const float* wada, c
   }
 
   // ===== the weight gradients, U^T V over the tokens (rows for wada) ============
-  GradJobs jobs{};
+  tiled::GradJobs<5> jobs{};
   jobs.job[0] = {w.dmod, w.cs, dwada_t, dbada, nullptr, 6 * E, E, R, 1, 0, 0, 0};
   jobs.job[1] = {w.dqkv, w.h, dwqkv_t, dbqkv, nullptr, 3 * E, E, N, 1, 0, 0, 0};
   jobs.job[2] = {w.dproj, w.attn, dwproj_t, dbproj, nullptr, E, E, N, 1, 0, 0, 0};
   jobs.job[3] = {w.ab, w.h2, dw12_t, nullptr, nullptr, 2 * Hd, E, N, 1, 0, 0, 0};
   jobs.job[4] = {w.dm, w.g, dwmlp_t, nullptr, nullptr, E, Hd, N, 1, 0, 0, 0};
   jobs.n = 5;
-  return launch_weight_grads(jobs, w.grads, s);
+  return tiled::launch_weight_grads(jobs, w.grads, s);
 }
 
 }  // namespace

@@ -1,9 +1,10 @@
 // The tiled stages of the DiT block, shared by its forward (dit_block.cu) and
 // its recompute backward (dit_block_bwd.cu): a tensor-core GEMM over all R*T
-// tokens with the block's epilogues (its main loop, `tile_product`, also
-// runs the backward's weight gradients U^T V over the token axis), a
-// LayerNorm-and-modulate kernel, silu, and an attention that streams the
-// keys. f32 throughout.
+// tokens with the block's epilogues, a LayerNorm-and-modulate kernel, silu,
+// and an attention that streams the keys; and the weight gradients U^T V over
+// the token axis (`grad_gemm` and `grad_reduce` on the GEMM's main loop,
+// `tile_product`), which the DiT backward and the whole-trunk backward
+// (fused_trunk.cu) share. f32 throughout.
 //
 // Products run on mma.sync m16n8k8 with three TF32 passes a product, x = hi +
 // lo (tc::split_tf32): f32 accuracy. A CTA of four warps takes 64 rows by 64
@@ -562,6 +563,154 @@ attention(const float* __restrict__ qkv, float* __restrict__ att, float* __restr
     }
     if (lse != nullptr && tq == 0) lse[(size_t)tok * gridDim.y + h] = m_i[hh] + log2f(l);
   }
+}
+
+// -- the weight gradients -----------------------------------------------------------
+
+constexpr int kGradSplits = 8;       // at most this many chunks of a weight gradient's tokens
+constexpr int kGradSlots = 3 * 132;  // CTAs that fill the card (three a SM)
+
+// One weight gradient: out (P, Q) = sum_n u[n, p] v[n, q] over the N tokens
+// (or rows), and bias (P) = sum_n u[n, p] when given; with v == nullptr (and
+// Q = 0) only the column sums into bias. With splits > 1 the token axis is
+// cut into chunks of kchunk, each CTA writes its chunk's sums to `part`
+// (splits, P * Q + P), and grad_reduce adds them in order.
+struct GradJob {
+  const float* u;
+  const float* v;
+  float* out;
+  float* bias;
+  float* part;
+  int P, Q, N, splits, kchunk, tiles_q, tile0;
+};
+
+template <int kMax>
+struct GradJobs {
+  GradJob job[kMax];
+  int n;
+};
+
+// Every job's gradient in one launch: a CTA per (64 x 64 output tile, K
+// chunk) of a job, numbered by `tile0`; the bias (a column sum of U) is taken
+// by the CTAs of the first column tile from U's staged tiles, or, for a job
+// without V, by one thread a column over its chunk's rows, in order.
+template <int kMax>
+__global__ void __launch_bounds__(kThreads)
+grad_gemm(const __grid_constant__ GradJobs<kMax> jobs) {
+  int j = 0;
+  while (j + 1 < jobs.n && (int)blockIdx.x >= jobs.job[j + 1].tile0) ++j;
+  const GradJob jb = jobs.job[j];
+  const int tile = blockIdx.x - jb.tile0;
+  const int split = tile % jb.splits, rest = tile / jb.splits;
+  const int p0 = (rest / jb.tiles_q) * kBM, q0 = (rest % jb.tiles_q) * kBN;
+  const int k0 = split * jb.kchunk, k1 = min(jb.N, k0 + jb.kchunk);
+  const size_t len = (size_t)jb.P * jb.Q;
+  float* out = jb.splits == 1 ? jb.out : jb.part + split * (len + jb.P);
+  float* bias = jb.splits == 1 ? jb.bias : jb.part + split * (len + jb.P) + len;
+  if (jb.v == nullptr) {
+    const int p = p0 + threadIdx.x;
+    if (threadIdx.x < kBM && p < jb.P) {
+      float s = 0.0f;
+      for (int n = k0; n < k1; ++n) s += jb.u[(size_t)n * jb.P + p];
+      bias[p] = s;
+    }
+    return;
+  }
+  const Operands o{jb.u, (size_t)jb.P, jb.v, jb.v, jb.Q, jb.N, jb.P, jb.Q, k0, k1};
+  const bool with_bias = jb.bias != nullptr && q0 == 0;
+  float acc[kWM][4][4];
+#pragma unroll
+  for (int mt = 0; mt < kWM; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
+  float csum = 0.0f;
+  tile_product<true, false, false>(o, p0, q0, acc, with_bias, csum);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int wm = warp >> 1, wn = warp & 1;
+#pragma unroll
+  for (int mt = 0; mt < kWM; ++mt)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int p = p0 + wm * 16 * kWM + mt * 16 + gq + 8 * hh;
+      if (p >= jb.P) continue;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int q = q0 + wn * 32 + nt * 8 + 2 * tq;
+        if (q < jb.Q)
+          *reinterpret_cast<float2*>(out + (size_t)p * jb.Q + q) =
+              make_float2(acc[mt][nt][2 * hh], acc[mt][nt][2 * hh + 1]);
+      }
+    }
+  if (with_bias && threadIdx.x < kBM && p0 + threadIdx.x < jb.P)
+    bias[p0 + threadIdx.x] = csum;
+}
+
+// For each job with splits > 1: out and bias = the sum of its chunks'
+// partials, in chunk order; one thread an entry of (P * Q + P).
+template <int kMax>
+__global__ void __launch_bounds__(256) grad_reduce(const __grid_constant__ GradJobs<kMax> jobs,
+                                                   long long total) {
+  long long idx = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (idx >= total) return;
+  for (int j = 0; j < jobs.n; ++j) {
+    const GradJob jb = jobs.job[j];
+    if (jb.splits == 1) continue;
+    const long long len = (long long)jb.P * jb.Q, n = len + jb.P;
+    if (idx >= n) {
+      idx -= n;
+      continue;
+    }
+    float s = 0.0f;
+    for (int p = 0; p < jb.splits; ++p) s += jb.part[p * n + idx];
+    if (idx < len) jb.out[idx] = s;
+    else if (jb.bias != nullptr) jb.bias[idx - len] = s;
+    return;
+  }
+}
+
+// The weight gradients in two launches: grad_gemm over every job's tiles and
+// K chunks, then grad_reduce over the chunked jobs' partials. The chunk depth
+// is the same for every job: about kGradSlots * 2 CTAs of equal work in all,
+// at most kGradSplits chunks a job. `part` holds kGradSplits * (P * Q + P)
+// floats for each job, in job order.
+template <int kMax>
+cudaError_t launch_weight_grads(GradJobs<kMax> jobs, float* part, cudaStream_t s) {
+  long long work = 0;
+  for (int j = 0; j < jobs.n; ++j) {
+    GradJob& jb = jobs.job[j];
+    jb.tiles_q = jb.v != nullptr ? (jb.Q + kBN - 1) / kBN : 1;
+    work += (long long)((jb.P + kBM - 1) / kBM) * jb.tiles_q * jb.N;
+  }
+  long long chunk = (work + 2 * kGradSlots - 1) / (2 * kGradSlots);
+  chunk = chunk < 256 ? 256 : (chunk + kBK - 1) / kBK * kBK;
+  int ctas = 0;
+  long long reduce = 0;
+  for (int j = 0; j < jobs.n; ++j) {
+    GradJob& jb = jobs.job[j];
+    jb.splits = (int)((jb.N + chunk - 1) / chunk);
+    jb.splits = jb.splits < 1 ? 1 : jb.splits > kGradSplits ? kGradSplits : jb.splits;
+    jb.kchunk = (jb.N + jb.splits - 1) / jb.splits;
+    jb.kchunk = (jb.kchunk + kBK - 1) / kBK * kBK;
+    jb.splits = (jb.N + jb.kchunk - 1) / jb.kchunk;
+    jb.tile0 = ctas;
+    ctas += ((jb.P + kBM - 1) / kBM) * jb.tiles_q * jb.splits;
+    const long long len = (long long)jb.P * jb.Q + jb.P;
+    jb.part = part;
+    part += kGradSplits * len;
+    if (jb.splits > 1) reduce += len;
+  }
+  static dit::SmemAllowance allowed;  // one an instantiation
+  const long long smem = 4LL * gemm_smem_floats();
+  cudaError_t err = dit::allow_smem(grad_gemm<kMax>, smem, allowed);
+  if (err != cudaSuccess) return err;
+  grad_gemm<kMax><<<ctas, kThreads, smem, s>>>(jobs);
+  if ((err = cudaGetLastError()) != cudaSuccess || reduce == 0) return err;
+  grad_reduce<kMax><<<(unsigned)((reduce + 255) / 256), 256, 0, s>>>(jobs, reduce);
+  return cudaGetLastError();
 }
 
 // -- launches -------------------------------------------------------------------

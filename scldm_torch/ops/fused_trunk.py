@@ -1,5 +1,5 @@
 """The whole trunk of the VAE's encoder or decoder (all L plain Blocks) as
-hand-written CUDA kernels: one launch forward, two backward.
+hand-written CUDA kernels: one launch forward, three backward.
 
 Counterpart of scldm_tpu/ops/fused_trunk.py. `fused_trunk_blocks` replaces
 the Pallas `fused_trunk_blocks` (the forward, no saving),
@@ -34,7 +34,7 @@ through the kernels.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -133,33 +133,59 @@ def fused_trunk_backward_reference(
     return grads[0], _unflat(grads[1:])
 
 
+def _r8(v: int) -> int:
+    return (v + 7) // 8 * 8
+
+
 def trunk_smem_bytes(T: int, E: int, n_head: int, hidden: int, backward: bool) -> int:
     """Dynamic shared memory of one CTA (one row) of the forward or of the
-    backward's row kernel (fused_trunk.cu): forward x, h, qkv (rows padded
-    to 3E + 1) or the hidden, the probabilities (H, T, T + 1); backward x,
-    x1, dx, a staging tile, qkv, [a | b] or dqkv, the probabilities and their
-    cotangents, the LayerNorm statistics."""
-    scores = n_head * T * (T + 1)
+    backward's row kernel (`act_floats` in fused_trunk.cu, which
+    `scldm_fused_trunk_smem_bytes` there reports): T tokens of each buffer,
+    widths padded to 8 with pitches 4 past that (forward x, h, and qkv or the
+    SwiGLU hidden; backward x, x1, dx, a staging tile, qkv, and [a | b] or
+    dqkv, then the softmax statistics and delta (T, n_head each) and the
+    LayerNorm statistics), and the LayerNorm affines of two layers. The
+    weights are read from global memory, not staged."""
+    ldE, ldQ = _r8(E) + 4, _r8(3 * E) + 4
     if backward:
-        return 4 * (4 * T * E + T * (3 * E + 1) + T * max(2 * hidden, 3 * E) + 2 * scores
-                    + 4 * T)
-    return 4 * (2 * T * E + T * max(3 * E + 1, hidden) + scores)
+        ldB = max(ldQ, 2 * _r8(hidden) + 4)
+        floats = T * (4 * ldE + ldQ + ldB + 2 * n_head + 4) + 8 * E
+    else:
+        floats = T * (2 * ldE + max(ldQ, _r8(hidden) + 4)) + 8 * E
+    return 4 * floats
 
 
 def trunk_workspace_floats(R: int, T: int, E: int, hidden: int, n_layer: int) -> int:
-    """Device workspace of the backward, in floats: per layer of a launch
-    (LAYERS_PER_LAUNCH at most) and per token h, dqkv, attn, dproj, h2, m
-    (8E), [da | db] and g (3 hidden), and per row the LayerNorm affine
-    partials (4E) (`slots` in fused_trunk.cu). 8.65M floats, 35 MB, at the
-    VAE's R = 128 rows of T = 16 tokens, E = 32, hidden 88, L = 8."""
-    per_layer = R * T * (8 * E + 3 * hidden) + 4 * R * E
-    return min(n_layer, LAYERS_PER_LAUNCH) * per_layer
+    """Device workspace of the backward, in floats, per layer of a launch
+    (LAYERS_PER_LAUNCH at most): per token h, dqkv, attn, dproj, h2, m (8E),
+    [da | db] and g (3 hidden), per row and each of eight token groups the
+    LayerNorm affine partials (32E) (`slots` in fused_trunk.cu), and the
+    weight gradients' chunk partials, eight a gradient (`grad_part_floats`).
+    10.4M floats, 42 MB, at the VAE's R = 128 rows of T = 16 tokens, E = 32,
+    hidden 88, L = 8. The wrapper allocates what the kernels' own count,
+    `scldm_fused_trunk_workspace_floats`, says; a GPU test holds the two
+    equal."""
+    per_layer = R * T * (8 * E + 3 * hidden) + 32 * R * E
+    partials = 8 * (4 * E * E + 3 * E * hidden + 9 * E + 2 * hidden)
+    return min(n_layer, LAYERS_PER_LAUNCH) * (per_layer + partials)
 
 
 def _grad_floats(E: int, hidden: int) -> int:
     """One layer's gradients in the backward's output buffer: the four
     LayerNorm vectors, then dwqkv, dwproj, dw1, dw2, dwmlp (fused_trunk.cu)."""
     return 4 * E + 4 * E * E + 3 * hidden * E
+
+
+def _shape_error(T: int, E: int, n_head: int, hidden: int) -> Optional[str]:
+    """Why the trunk kernels do not take rows of T tokens at these widths, or
+    None where they do: E % 4 == 0, hidden % 4 == 0, E % n_head == 0 and the
+    shared memory of `trunk_smem_bytes` within one CTA's."""
+    need = max(trunk_smem_bytes(T, E, n_head, hidden, b) for b in (False, True))
+    if E % 4 or hidden % 4 or E % n_head or need > MAX_SMEM_BYTES:
+        return ("the trunk kernels take E % 4 == 0, hidden % 4 == 0, E % n_head == 0 and at "
+                f"most {MAX_SMEM_BYTES} bytes of shared memory per row; got E={E}, "
+                f"hidden={hidden}, n_head={n_head}, T={T} ({need} bytes)")
+    return None
 
 
 def _check(x: torch.Tensor, weights: TrunkWeights, n_head: int) -> Tuple[int, int]:
@@ -185,12 +211,9 @@ def _check(x: torch.Tensor, weights: TrunkWeights, n_head: int) -> Tuple[int, in
                 or t.data_ptr() % 16):
             raise ValueError("the trunk kernels need contiguous, 16-byte aligned float32 "
                              "tensors on one device")
-    need = max(trunk_smem_bytes(T, E, n_head, hidden, b) for b in (False, True))
-    if E % 4 or hidden % 4 or E % n_head or need > MAX_SMEM_BYTES:
-        raise ValueError(
-            "the trunk kernels take E % 4 == 0, hidden % 4 == 0, E % n_head == 0 and at most "
-            f"{MAX_SMEM_BYTES} bytes of shared memory per row; got E={E}, hidden={hidden}, "
-            f"n_head={n_head}, T={T} ({need} bytes)")
+    error = _shape_error(T, E, n_head, hidden)
+    if error is not None:
+        raise ValueError(error)
     return L, hidden
 
 
@@ -252,7 +275,8 @@ def fused_trunk_bwd(
     `weights`' layout: per name a list of L tensors).
 
     CUDA tensors run the hand-written kernels on the current stream: the row
-    kernel, then the weight-gradient kernel, per LAYERS_PER_LAUNCH layers;
+    kernel, then the weight-gradient GEMM and its ordered sum of chunk
+    partials, per LAYERS_PER_LAUNCH layers;
     the gradients are views of one buffer. CPU tensors run
     `fused_trunk_backward_reference` from xs[0]."""
     if xs.device.type == "cpu":
@@ -271,8 +295,8 @@ def fused_trunk_bwd(
     dx = torch.empty_like(dy)
     per_layer = _grad_floats(E, hidden)
     dw = torch.empty((L, per_layer), dtype=torch.float32, device=xs.device)
-    workspace = torch.empty(trunk_workspace_floats(R, T, E, hidden, L), dtype=torch.float32,
-                            device=xs.device)
+    workspace = torch.empty(lib.scldm_fused_trunk_workspace_floats(R, T, E, hidden, L),
+                            dtype=torch.float32, device=xs.device)
     with torch.cuda.device(xs.device):
         stream = torch.cuda.current_stream(xs.device).cuda_stream
         code = lib.scldm_fused_trunk_backward(
@@ -283,11 +307,14 @@ def fused_trunk_bwd(
     sizes = {"g1": E, "b1": E, "g2": E, "b2": E, "wqkv": 3 * E * E, "wproj": E * E,
              "w1": hidden * E, "w2": hidden * E, "wmlp": E * hidden}
     order = ("g1", "b1", "g2", "b2", "wqkv", "wproj", "w1", "w2", "wmlp")  # the buffer's
-    grads: Dict[str, List[torch.Tensor]] = {k: [] for k in TRUNK_WEIGHT_NAMES}
-    for layer in range(L):
-        for k, part in zip(order, dw[layer].split([sizes[k] for k in order])):
-            grads[k].append(part.view(weights[k][layer].shape))
-    return dx, grads
+    # per name one strided view over the L layers, split by unbind: nine views
+    # instead of 9 * L, which cost the host more than the kernels take
+    by_name, at = {}, 0
+    for k in order:
+        shape = tuple(weights[k][0].shape)
+        by_name[k] = list(dw[:, at:at + sizes[k]].view(L, *shape).unbind(0))
+        at += sizes[k]
+    return dx, {k: by_name[k] for k in TRUNK_WEIGHT_NAMES}
 
 
 class _FusedTrunk(torch.autograd.Function):

@@ -825,7 +825,7 @@ def test_census_like_ldm_step_and_generation_on_gpu():
 TRUNK_T = 16  # the VAE's latent tokens
 
 
-def _trunk_inputs(R, E, Hh, Hd, L, device, seed=0):
+def _trunk_inputs(R, E, Hh, Hd, L, device, seed=0, T=TRUNK_T):
     """x, dy and one trunk's weights (per name a list of L tensors, matrices
     (out, in)), from numpy; LayerNorm affines near 1 and 0."""
     rng = np.random.default_rng(seed)
@@ -837,7 +837,7 @@ def _trunk_inputs(R, E, Hh, Hd, L, device, seed=0):
     w = {k: [t(rng.normal(size=s) / np.sqrt(s[1])) for _ in range(L)] for k, s in shapes.items()}
     for k, base in (("g1", 1.0), ("b1", 0.0), ("g2", 1.0), ("b2", 0.0)):
         w[k] = [t(base + 0.1 * rng.normal(size=E)) for _ in range(L)]
-    x, dy = (t(rng.normal(size=(R, TRUNK_T, E))) for _ in range(2))
+    x, dy = (t(rng.normal(size=(R, T, E))) for _ in range(2))
     return x, dy, w
 
 
@@ -846,9 +846,10 @@ def assert_trunk_close(got, want, what=""):
     assert (got - want).abs().max() <= 1e-4 * want.abs().max(), what
 
 
-def check_trunk(R, E, Hh, Hd, L, device="cuda", seed=0):
-    """Rows 9, 10 and 11 against the plain versions; returns the launches of each."""
-    x, dy, w = _trunk_inputs(R, E, Hh, Hd, L, device, seed)
+def check_trunk(R, E, Hh, Hd, L, device="cuda", seed=0, T=TRUNK_T):
+    """Rows 9, 10 and 11 against the plain versions; returns the backward's
+    operands and results."""
+    x, dy, w = _trunk_inputs(R, E, Hh, Hd, L, device, seed, T)
     counters = (ft.TRUNK_FWD_LAUNCHES, ft.TRUNK_FWD_SAVING_LAUNCHES, ft.TRUNK_BWD_LAUNCHES)
     before = [c.count for c in counters]
     y = ft.fused_trunk_blocks(x, w, Hh, EPS)
@@ -880,6 +881,53 @@ def test_fused_trunk_at_other_widths_on_gpu(E, Hh, Hd, L):
     """Other widths under the JAX gate (E <= 128), and L = 10: two launches
     of eight and two layers each way."""
     check_trunk(19, E, Hh, Hd, L)
+
+
+@pytest.mark.parametrize("T", [10, 40])
+def test_fused_trunk_at_token_counts_off_the_tile_on_gpu(T):
+    """Rows of T = 10 (one m16 tile, six rows of it past the last token) and
+    T = 40 (three tiles, the last half empty; three key blocks of 16) at the
+    VAE's widths: the padded tiles read zeros and the padded keys score -inf."""
+    check_trunk(19, 32, 8, 88, 8, T=T)
+
+
+def test_fused_trunk_forward_repeats_its_bits_on_gpu():
+    """The forward and the saving forward give the same bits on the same
+    inputs, twice each, and the same output as each other."""
+    x, dy, w = _trunk_inputs(128, 32, 8, 88, 8, "cuda")
+    y = ft.fused_trunk_blocks(x, w, 8, EPS)
+    y10, xs = ft.fused_trunk_fwd_saving(x, w, 8, EPS)
+    assert torch.equal(ft.fused_trunk_blocks(x, w, 8, EPS), y)
+    again, xs2 = ft.fused_trunk_fwd_saving(x, w, 8, EPS)
+    assert torch.equal(again, y10) and torch.equal(xs2, xs) and torch.equal(y10, y)
+
+
+def test_fused_trunk_shared_memory_is_the_kernels_on_gpu():
+    """`trunk_smem_bytes`, which the wrapper checks, is the kernels' own
+    count (`scldm_fused_trunk_smem_bytes`), and the kernels refuse what the
+    wrapper refuses."""
+    from scldm_torch.kernels import build
+
+    lib = build.load()
+    for T, E, Hh, Hd in [(16, 32, 8, 88), (10, 32, 8, 88), (40, 32, 8, 88), (19, 64, 4, 172),
+                         (16, 128, 8, 344), (5, 12, 3, 4), (16, 256, 1, 4), (400, 32, 8, 88)]:
+        for b in (False, True):
+            want = ft.trunk_smem_bytes(T, E, Hh, Hd, b)
+            got = lib.scldm_fused_trunk_smem_bytes(T, E, Hh, Hd, int(b))
+            assert got == (want if want <= ft.MAX_SMEM_BYTES else -1), (T, E, Hh, Hd, b)
+
+
+def test_fused_trunk_workspace_is_the_kernels_on_gpu():
+    """`trunk_workspace_floats`, the layout the module documents, is the
+    kernels' own count (`scldm_fused_trunk_workspace_floats`), from which
+    the wrapper allocates, for trunks within one launch and deeper."""
+    from scldm_torch.kernels import build
+
+    lib = build.load()
+    for R, T, E, Hd, L in [(128, 16, 32, 88, 8), (5, 10, 32, 88, 3), (19, 40, 64, 172, 12),
+                           (128, 16, 128, 344, 2), (1, 1, 4, 4, 1)]:
+        assert (lib.scldm_fused_trunk_workspace_floats(R, T, E, Hd, L)
+                == ft.trunk_workspace_floats(R, T, E, Hd, L)), (R, T, E, Hd, L)
 
 
 def test_fused_trunk_backward_repeats_its_bits_on_gpu():

@@ -293,3 +293,96 @@ def test_trunk_backward_from_saved_inputs_matches_autograd():
         for got, want, w in zip(grads[k], rgrads[k], weights[k]):
             assert got.shape == w.shape
             torch.testing.assert_close(got, want)
+
+
+# -- the kernels' layout (no card needed) -----------------------------------------
+
+# (E, n_head, hidden) of the trunks the kernels run: the shipped VAE's
+# (configs/model/vae_base.yaml: E = 32, 8 heads, hidden 88, over its 16 latent
+# tokens; parse1m and replogle train the same VAE) and the other widths of the
+# GPU tests (test_torch_port_cuda.py)
+TRUNK_WIDTHS = [(32, 8, 88), (64, 4, 172), (128, 8, 344)]
+MAX_SMEM = 227 * 1024  # one CTA's dynamic shared memory on an H100
+
+
+def parent_smem_bytes(T, E, n_head, hidden, backward):
+    """The shared memory of the scalar trunk kernels this layout replaced
+    (scores of every head in shared memory): the widths they took."""
+    scores = n_head * T * (T + 1)
+    if backward:
+        return 4 * (4 * T * E + T * (3 * E + 1) + T * max(2 * hidden, 3 * E) + 2 * scores
+                    + 4 * T)
+    return 4 * (2 * T * E + T * max(3 * E + 1, hidden) + scores)
+
+
+@pytest.mark.parametrize(
+    "T,E,n_head,hidden",
+    [(T, *w) for T in (16, 10) for w in TRUNK_WIDTHS] + [(40, *w) for w in TRUNK_WIDTHS[:2]])
+def test_trunk_layout_fits_a_cta(T, E, n_head, hidden):
+    """At the shipped and tested widths and token counts (T = 16, and T = 10
+    and 40, which do not fill whole m16 tiles; at E = 128 a row of 40 takes
+    more shared memory than a CTA has, as it did before), both kernels'
+    shared memory fits one CTA, the wrapper takes the shape, and the
+    backward's workspace is the per-token pairs, the LayerNorm group
+    partials and the weight gradients' chunk partials of up to eight
+    layers."""
+    for backward in (False, True):
+        assert 0 < ft.trunk_smem_bytes(T, E, n_head, hidden, backward) <= MAX_SMEM
+    assert ft._shape_error(T, E, n_head, hidden) is None
+    R = 128
+    per_layer = R * T * (8 * E + 3 * hidden) + 32 * R * E
+    partials = 8 * (4 * E * E + 3 * E * hidden + 9 * E + 2 * hidden)
+    assert ft.trunk_workspace_floats(R, T, E, hidden, 10) == 8 * (per_layer + partials)
+    assert ft.trunk_workspace_floats(R, T, E, hidden, 3) == 3 * (per_layer + partials)
+
+
+@pytest.mark.parametrize("E,n_head,hidden", TRUNK_WIDTHS)
+def test_trunk_takes_every_row_length_the_scalar_kernels_took(E, n_head, hidden):
+    """No shape the replaced kernels took now raises at these widths: every
+    T whose scalar layout fitted a CTA fits (and longer rows too)."""
+    took = [T for T in range(1, 257)
+            if max(parent_smem_bytes(T, E, n_head, hidden, b) for b in (False, True)) <= MAX_SMEM]
+    assert took and all(ft._shape_error(T, E, n_head, hidden) is None for T in took)
+    assert ft._shape_error(max(took) + 1, E, n_head, hidden) is None
+
+
+def test_trunk_accepted_set_is_divisibility_and_shared_memory():
+    """The kernels refuse a shape only for E % 4, hidden % 4, E % n_head or
+    shared memory, and at the VAE's T = 16 every E <= 128 (JAX's gate) with
+    hidden up to 1,024 fits: there the accepted set is the divisibility rule."""
+    for E in range(2, 132, 2):
+        for n_head in (1, 2, 3, 4, 6, 8, 16):
+            for hidden in (4, 6, 88, 172, 344, 1024):
+                divides = E % 4 == 0 and hidden % 4 == 0 and E % n_head == 0
+                takes = ft._shape_error(16, E, n_head, hidden) is None
+                assert takes == divides, (E, n_head, hidden)
+    assert ft._shape_error(400, 32, 8, 88) is not None  # shared memory
+
+
+def test_trunk_refuses_only_a_thin_band_the_scalar_kernels_took():
+    """Where the new layout is larger than the scalar one (short rows: the
+    LayerNorm affines of two layers and the pitches padded to 8 outweigh the
+    scores the scalar kernels kept), the shapes it refuses and they took
+    are the widest hidden layers only: for every E <= 128 (JAX's gate), n_head
+    dividing it and T <= 64, the largest hidden taken falls short of the
+    scalar kernels' largest by at most 3.3%, never below 328, and not at all
+    past T = 36 (ROADMAP.md queue 3 lists the band)."""
+
+    def largest_hidden(smem, T, E, n_head):
+        def fits(hidden):
+            return max(smem(T, E, n_head, hidden, b) for b in (False, True)) <= MAX_SMEM
+
+        lo, hi = 0, 1 << 17  # fits(lo) or lo == 0; not fits(hi); multiples of 4
+        while hi - lo > 4:
+            mid = (lo + hi) // 8 * 4
+            lo, hi = (mid, hi) if fits(mid) else (lo, mid)
+        return lo
+
+    for E in range(4, 132, 4):
+        for n_head in (h for h in range(1, E + 1) if E % h == 0):
+            for T in range(1, 65):
+                took = largest_hidden(parent_smem_bytes, T, E, n_head)
+                takes = largest_hidden(ft.trunk_smem_bytes, T, E, n_head)
+                if takes < took:
+                    assert T <= 36 and takes >= 328 and took - takes <= 0.033 * took, (
+                        T, E, n_head, took, takes)
