@@ -4,7 +4,11 @@
     python3 benchmarks_torch/ab_swiglu_vec.py OTHER.cu
 
 Builds the repo's kernels (`scldm_torch/kernels/csrc`) and OTHER.cu, another
-version of `swiglu_vec.cu` with the same C entry points, into two libraries;
+version of `swiglu_vec.cu`, into two libraries (OTHER.cu with `-I
+scldm_torch/kernels/csrc` and CUTLASS's headers, so that a copy of an earlier
+version, put anywhere, finds the headers it includes); OTHER.cu's C entries
+take x and w12 as the repo's do (with their row pitches, in the kernels'
+layout) or, where its source says so, as bare pointers (earlier versions);
 holds both against the plain version (`ops/fused_swiglu.swiglu_vec_reference`
 and its autograd backward) at ragged shapes and at the census decoder's rows
 (R = 16 x 36,601, E = 512, Hd = 1,408), printing each output's largest error
@@ -47,19 +51,33 @@ def main(argv=None) -> int:
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     repo = build.load()
     other_so = build.BUILD_DIR / "ab_other_swiglu_vec.so"
-    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-shared", "-o", str(other_so), args[0]],
+    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-shared", "-I", str(build.CSRC), "-I",
+                    "/usr/local/cutlass/include", "-o", str(other_so), args[0]],
                    check=True, capture_output=True)
     other = ctypes.CDLL(str(other_so))
+    pitched = {repo: True, other: "int ldx" in Path(args[0]).read_text()}
+    _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for name, (argtypes, restype) in build._SIGNATURES.items():
         if name.startswith("scldm_swiglu_vec"):
+            if not pitched[other] and name != "scldm_swiglu_vec_workspace_floats":
+                n_ptr = 4 if name.endswith("forward") else 8
+                argtypes = [_P] * n_ptr + [_L, _I, _I, _P]
             getattr(other, name).argtypes, getattr(other, name).restype = argtypes, restype
+
+    def operands(lib, x, w12, hd):
+        """x and w12 as the library takes them: pointers, with their pitches
+        where it takes those."""
+        if not pitched[lib]:
+            return (x.data_ptr(), w12.data_ptr()), (x, w12)
+        (xk, ldx), (wk, ldw) = fs._tma_operand(x), fs._vec_weights(w12, hd)
+        return (xk.data_ptr(), ldx, wk.data_ptr(), ldw), (xk, wk)
 
     def forward(lib, x, w12, wv, ds):
         R, E = x.shape
         out = torch.empty(R, 1, device="cuda")
-        code = lib.scldm_swiglu_vec_forward(x.data_ptr(), w12.data_ptr(), wv.data_ptr(),
-                                            out.data_ptr(), R, E, wv.shape[0],
-                                            torch.cuda.current_stream().cuda_stream)
+        ptrs, _keep = operands(lib, x, w12, wv.shape[0])
+        code = lib.scldm_swiglu_vec_forward(*ptrs, wv.data_ptr(), out.data_ptr(), R, E,
+                                            wv.shape[0], torch.cuda.current_stream().cuda_stream)
         if code:
             raise RuntimeError(f"forward launch: CUDA error {code}")
         return out
@@ -68,10 +86,10 @@ def main(argv=None) -> int:
         (R, E), hd = x.shape, wv.shape[0]
         dx, dw12, dwv = torch.empty_like(x), torch.empty_like(w12), torch.empty_like(wv)
         ws = torch.empty(lib.scldm_swiglu_vec_workspace_floats(R, E, hd), device="cuda")
+        ptrs, _keep = operands(lib, x, w12, hd)
         code = lib.scldm_swiglu_vec_backward(
-            x.data_ptr(), w12.data_ptr(), wv.data_ptr(), ds.data_ptr(), dx.data_ptr(),
-            dw12.data_ptr(), dwv.data_ptr(), ws.data_ptr(), R, E, hd,
-            torch.cuda.current_stream().cuda_stream)
+            *ptrs, wv.data_ptr(), ds.data_ptr(), dx.data_ptr(), dw12.data_ptr(), dwv.data_ptr(),
+            ws.data_ptr(), R, E, hd, torch.cuda.current_stream().cuda_stream)
         if code:
             raise RuntimeError(f"backward launch: CUDA error {code}")
         return dx, dw12, dwv

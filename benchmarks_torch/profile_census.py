@@ -188,7 +188,7 @@ def main(argv=None) -> int:
     else:
         arms = {"fused gate": VAETask(vae, **opt, algebraic_fused_gate=True),
                 "plain algebraic": VAETask(vae, **opt)}
-        ours = {name: ("swiglu_vec_",) for name in arms}
+        ours = {name: cs.SWIGLU_KERNELS for name in arms}
     for name, task in arms.items():
         profile_step(cs, busy_us, task, name, ours[name])
         torch.cuda.empty_cache()

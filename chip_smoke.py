@@ -42,7 +42,9 @@ the module path, then takes a few steps of `VAETask(fused_pool=True,
 fused_decoder=False)` through the window pool and holds one against the module
 path. Phase 1e holds the swiglu_vec kernels (forward and backward) against
 their plain version at the census decoder's shape (R = 16 x 36,601 rows, E =
-512, Hd = 1,408) and two ragged ones, timing both, with TF32 off. Phase 6
+512, Hd = 1,408) and three ragged ones, checks that each repeats its bits, and
+times both (a call through the entry point, and the kernels' device time),
+with TF32 off. Phase 6
 trains the census VAE (configs/model/vae_census.yaml: E = 512, 16 layers, 64
 inducing points, G = 36,601 genes, a 4,096-token window, B = 16) through the
 algebraic tail with `VAETask(algebraic_fused_gate=True)`, checks that each step
@@ -77,7 +79,8 @@ module trunks, and runs one no-grad `fused_nb_apply(use_trunk=True)`, which
 launches the forward that saves nothing. Phase 1h holds `fused_swiglu_gate`
 (its own entry point, forward and backward) against its plain version at the
 census cross block's MLP (R = 16 x 36,601 rows, E = 512, H = 1,408) and two
-ragged shapes, with TF32 off, timing both. Phase 1i holds the long-axis flash
+ragged shapes, with TF32 off, checks that it repeats its bits, and times
+both. Phase 1i holds the long-axis flash
 attention kernel against its plain version (sdpa's plain path) at JAX's
 standalone shape, the long-latent MCAB (16 cells, 1,024 queries over 4,096
 tokens), its self-attention, the DiT's rows, ragged and short shapes and bf16
@@ -708,15 +711,26 @@ def phase1d_wide_window_pool(seed: int) -> dict:
 
 
 def swiglu_vec_bound(R: int, E: int, Hd: int, backward: bool) -> dict:
-    """swiglu_vec over R rows, exact f32, so the f32 peak: the up projection
-    2*R*E*2Hd plus the wv contraction 2*R*Hd operations, three times that for
-    the backward; the gate is left out. Bytes: x, w12 and wv in and out (R)
+    """swiglu_vec over R rows, f32. Operations: the up projection 2*R*E*2Hd
+    plus the wv contraction 2*R*Hd, three times that for the backward; the
+    gate is left out. The kernels run every product as three TF32
+    tensor-core passes, the least that keeps f32 accuracy on the tensor
+    cores, so `bound_ms` is three times the operations against the TF32
+    peak; `f32_bound_ms` is them once against the f32 FMA peak, the yardstick
+    of the scalar kernels they replaced. Bytes: x, w12 and wv in and out (R)
     out; the backward reads ds (R) too and writes dx (R, E), dw12 and dwv."""
-    flops = 2 * R * E * 2 * Hd + 2 * R * Hd
+    flops = (2 * R * E * 2 * Hd + 2 * R * Hd) * (3 if backward else 1)
     weights = E * 2 * Hd + Hd
     if backward:
-        return bound(4 * (R * E + R + weights + R * E + weights), 3 * flops, F32_FLOPS)
-    return bound(4 * (R * E + weights + R), flops, F32_FLOPS)
+        n_bytes = 4 * (R * E + R + weights + R * E + weights)
+    else:
+        n_bytes = 4 * (R * E + weights + R)
+    return {**bound(n_bytes, 3 * flops, TF32_FLOPS),
+            "f32_bound_ms": bound(n_bytes, flops, F32_FLOPS)["bound_ms"]}
+
+
+# the kernels behind the swiglu_vec and fused_swiglu_gate entry points
+SWIGLU_KERNELS = ("swiglu_tc", "swiglu_sum_parts")
 
 
 def check_f32_matmuls() -> None:
@@ -730,9 +744,14 @@ def check_f32_matmuls() -> None:
 def phase1e_swiglu_vec(seed: int) -> tuple[dict, dict]:
     """swiglu_vec (forward and backward kernels) against its plain version
     with autograd at the census decoder's rows (R = 16 x 36,601, E = 512, Hd =
-    1,408), a ragged R and a hidden width off the kernel's 64-column tile;
+    1,408), a ragged R, a hidden width off the kernels' 128-column tile and a
+    shape whose row pitches are not multiples of 16 bytes (E = 30, Hd = 70);
     out, dx, dw12 and dwv each within 1e-4 of its tensor's largest magnitude
-    (f32 both, sums in another order); kernel and plain timed in turns."""
+    (f32 both, sums in another order). Every shape runs twice and repeats its
+    bits (no atomics, no race in the kernels' rings). At the census shape
+    kernel and plain are timed in turns, each a call through its entry point
+    (`ms`), and the kernels' own device time a call under the profiler
+    (`device_ms`)."""
     import torch
 
     from scldm_torch.ops import fused_swiglu as fs
@@ -741,27 +760,34 @@ def phase1e_swiglu_vec(seed: int) -> tuple[dict, dict]:
     g = torch.Generator(device="cuda").manual_seed(seed + 6)
     census = (CENSUS_BATCH * CENSUS["n_genes"], CENSUS["n_embed"], CENSUS_HIDDEN)
     errs, timing = {}, {}
-    for R, E, Hd in (census, (1_001, 512, 1_408), (1_001, 512, 1_400)):
+    for R, E, Hd in (census, (1_001, 512, 1_408), (1_001, 512, 1_400), (777, 30, 70)):
         x = torch.randn(R, E, generator=g, device="cuda")
         w12 = torch.randn(E, 2 * Hd, generator=g, device="cuda") * E**-0.5
         wv = torch.randn(Hd, 1, generator=g, device="cuda") * Hd**-0.5
         ds = torch.randn(R, 1, generator=g, device="cuda")
-        got = {"out": fs.swiglu_vec_fwd(x, w12, wv),
-               **dict(zip(("dx", "dw12", "dwv"), fs.swiglu_vec_bwd(x, w12, wv, ds)))}
+
+        def run():
+            return {"out": fs.swiglu_vec_fwd(x, w12, wv),
+                    **dict(zip(("dx", "dw12", "dwv"), fs.swiglu_vec_bwd(x, w12, wv, ds)))}
+
+        got = run()
         torch.cuda.synchronize()
         want = {"out": fs.swiglu_vec_reference(x, w12, wv), **dict(zip(
             ("dx", "dw12", "dwv"), fs.swiglu_vec_backward_reference(x, w12, wv, ds)))}
         report = []
         for k, w in want.items():
-            err, scale = (got[k] - w).abs().max().item(), w.abs().max().item()
-            if scale == 0 or err > 1e-4 * scale:
-                raise AssertionError(f"swiglu_vec {k} at R={R}, E={E}, Hd={Hd}: max abs err "
-                                     f"{err:.3e}, max |ref| {scale:.3e}")
+            err = held_f32(f"swiglu_vec {k} at R={R}, E={E}, Hd={Hd}", got[k], w)
             part = "fwd" if k == "out" else "bwd"
             errs[part] = max(errs.get(part, 0.0), err)
-            report.append(f"{k} {err:.2e} ({err / scale:.1e} of max)")
-        log(f"phase1e swiglu_vec R={R} E={E} Hd={Hd}: " + ", ".join(report))
-        del got, want
+            report.append(f"{k} {err:.2e} ({err / w.abs().max().item():.1e} of max)")
+        del want
+        again = run()
+        if not all(torch.equal(again[k], got[k]) for k in got):
+            raise AssertionError(f"swiglu_vec gave other bits on the same inputs at R={R}, E={E}, "
+                                 f"Hd={Hd}")
+        log(f"phase1e swiglu_vec R={R} E={E} Hd={Hd}: " + ", ".join(report) +
+            "; forward and backward repeat their bits")
+        del got, again
         if (R, E, Hd) != census:
             continue
         fns = {"fwd": (lambda: fs.swiglu_vec_fwd(x, w12, wv),
@@ -772,13 +798,17 @@ def phase1e_swiglu_vec(seed: int) -> tuple[dict, dict]:
             for f in (kernel, plain):
                 cuda_ms(f, 1)  # warm-up
             turns = [cuda_ms(f, 2) for f in (plain, kernel, kernel, plain)]
-            timing[part] = ((turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2)
-            log(f"phase1e swiglu_vec_{part} R={R} E={E} Hd={Hd}: kernel {timing[part][0]:.4f} ms  "
-                f"plain {timing[part][1]:.4f} ms")
+            dev = device_ms(kernel, 2, SWIGLU_KERNELS)
+            timing[part] = ((turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2, dev)
+            b = swiglu_vec_bound(R, E, Hd, part == "bwd")
+            log(f"phase1e swiglu_vec_{part} R={R} E={E} Hd={Hd}: kernel {timing[part][0]:.4f} ms "
+                f"a call ({dev:.4f} ms on the device)  plain {timing[part][1]:.4f} ms  bound "
+                f"{b['bound_ms']:.4f} ms ({b['bound_by']}, TF32 x3; f32 "
+                f"{b['f32_bound_ms']:.4f} ms)")
         del x, w12, wv, ds, fns
         torch.cuda.empty_cache()
-    return tuple({"max_abs_err": errs[part], "ms": timing[part][0], "plain_ms": timing[part][1]}
-                 for part in ("fwd", "bwd"))
+    return tuple({"max_abs_err": errs[part], "ms": timing[part][0], "plain_ms": timing[part][1],
+                  "device_ms": timing[part][2]} for part in ("fwd", "bwd"))
 
 
 def flash_cross_bound(B: int, G: int, E: int = 512, M: int = 64) -> dict:
@@ -1001,15 +1031,20 @@ def phase1g_fused_trunk(seed: int) -> dict:
 
 
 def swiglu_gate_bound(R: int, E: int, H: int, backward: bool) -> dict:
-    """fused_swiglu_gate over R rows, exact f32, so the f32 peak: the up
-    projection 2*R*E*2H operations, three times that for the backward; the
-    gate is left out. Bytes: x, w1 and w2 in and g (R, H) out; the backward
-    reads dg (R, H) too and writes dx (R, E), dw1 and dw2."""
-    flops = 2 * R * E * 2 * H
+    """fused_swiglu_gate over R rows, f32: the up projection 2*R*E*2H
+    operations, three times that for the backward; the gate is left out.
+    `bound_ms` is three times them against the TF32 peak (the kernels' three
+    TF32 passes a product), `f32_bound_ms` them once against the f32 FMA
+    peak. Bytes: x, w1 and w2 in and g (R, H) out; the backward reads dg (R,
+    H) too and writes dx (R, E), dw1 and dw2."""
+    flops = 2 * R * E * 2 * H * (3 if backward else 1)
     weights = 2 * E * H
     if backward:
-        return bound(4 * (R * E + weights + R * H + R * E + weights), 3 * flops, F32_FLOPS)
-    return bound(4 * (R * E + weights + R * H), flops, F32_FLOPS)
+        n_bytes = 4 * (R * E + weights + R * H + R * E + weights)
+    else:
+        n_bytes = 4 * (R * E + weights + R * H)
+    return {**bound(n_bytes, 3 * flops, TF32_FLOPS),
+            "f32_bound_ms": bound(n_bytes, flops, F32_FLOPS)["bound_ms"]}
 
 
 def phase1h_swiglu_gate(seed: int) -> tuple[dict, dict, tuple]:
@@ -1047,6 +1082,13 @@ def phase1h_swiglu_gate(seed: int) -> tuple[dict, dict, tuple]:
                 raise AssertionError(f"fused_swiglu_gate launches {launches} in one call")
         got = {"out": out.detach(), **dict(zip(("dx", "dw1", "dw2"), (t.grad for t in leaves)))}
         del out, leaves
+        # no atomics, no race in the kernels' rings: the same bits again
+        again = {"out": fs.swiglu_gate_fwd(x, w1, w2),
+                 **dict(zip(("dx", "dw1", "dw2"), fs.swiglu_gate_bwd(x, w1, w2, dg)))}
+        if not all(torch.equal(again[k], got[k]) for k in got):
+            raise AssertionError(f"fused_swiglu_gate gave other bits on the same inputs at R={R}, "
+                                 f"E={E}, H={H}")
+        del again
         want = {"out": fs.swiglu_reference(x, w1, w2), **dict(zip(
             ("dx", "dw1", "dw2"), fs.swiglu_gate_backward_reference(x, w1, w2, dg)))}
         report = []
@@ -1058,7 +1100,8 @@ def phase1h_swiglu_gate(seed: int) -> tuple[dict, dict, tuple]:
             part = "fwd" if k == "out" else "bwd"
             errs[part] = max(errs.get(part, 0.0), err)
             report.append(f"{k} {err:.2e} ({err / scale:.1e} of max)")
-        log(f"phase1h fused_swiglu_gate R={R} E={E} H={H}: " + ", ".join(report))
+        log(f"phase1h fused_swiglu_gate R={R} E={E} H={H}: " + ", ".join(report) +
+            "; forward and backward repeat their bits")
         del got, want
         if (R, E, H) == census:
             fns = {"fwd": (lambda: fs.swiglu_gate_fwd(x, w1, w2),
@@ -1069,16 +1112,18 @@ def phase1h_swiglu_gate(seed: int) -> tuple[dict, dict, tuple]:
                 for f in (kernel, plain):
                     cuda_ms(f, 1)  # warm-up
                 turns = [cuda_ms(f, 2) for f in (plain, kernel, kernel, plain)]
-                timing[part] = ((turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2)
+                dev = device_ms(kernel, 2, SWIGLU_KERNELS)
+                timing[part] = ((turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2, dev)
                 b = swiglu_gate_bound(R, E, H, part == "bwd")
                 log(f"phase1h fused_swiglu_gate_{part} R={R} E={E} H={H}: kernel "
-                    f"{timing[part][0]:.4f} ms  plain {timing[part][1]:.4f} ms  bound "
-                    f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+                    f"{timing[part][0]:.4f} ms a call ({dev:.4f} ms on the device)  plain "
+                    f"{timing[part][1]:.4f} ms  bound {b['bound_ms']:.4f} ms ({b['bound_by']}, "
+                    f"TF32 x3; f32 {b['f32_bound_ms']:.4f} ms)")
             del fns
         del x, w1, w2, dg
         torch.cuda.empty_cache()
-    return (*({"max_abs_err": errs[part], "ms": timing[part][0], "plain_ms": timing[part][1]}
-              for part in ("fwd", "bwd")), launches)
+    return (*({"max_abs_err": errs[part], "ms": timing[part][0], "plain_ms": timing[part][1],
+               "device_ms": timing[part][2]} for part in ("fwd", "bwd")), launches)
 
 
 def flash_attention_bound(B: int, M: int, S: int, H: int, D: int, elem: int = 4) -> dict:

@@ -114,27 +114,32 @@ _SIGNATURES = {
     "scldm_window_pool_wide_workspace_floats": (
         [ctypes.c_int] * 6, ctypes.c_longlong,  # B, S, E, H, Q, backward
     ),
-    # pointers: x, w12, wv, out
+    # x and w12 with their row pitches (multiples of 4 floats): x, ldx, w12,
+    # ldw, then the pointers wv, out
     "scldm_swiglu_vec_forward": (
-        [_P] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P],  # R, E, Hd, stream
+        [_P, ctypes.c_int, _P, ctypes.c_int] + [_P] * 2
+        + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P],  # R, E, Hd, stream
         ctypes.c_int,
     ),
-    # pointers: x, w12, wv, ds, dx, dw12, dwv, workspace
+    # x, ldx, w12, ldw, then the pointers wv, ds, dx, dw12, dwv, workspace
     "scldm_swiglu_vec_backward": (
-        [_P] * 8 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P],  # R, E, Hd, stream
+        [_P, ctypes.c_int, _P, ctypes.c_int] + [_P] * 6
+        + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P],  # R, E, Hd, stream
         ctypes.c_int,
     ),
     "scldm_swiglu_vec_workspace_floats": (
         [ctypes.c_longlong, ctypes.c_int, ctypes.c_int], ctypes.c_longlong,  # R, E, Hd
     ),
-    # pointers: x, w12, out
+    # x, ldx, w12, ldw, out
     "scldm_swiglu_gate_forward": (
-        [_P] * 3 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P],  # R, E, Hd, stream
+        [_P, ctypes.c_int, _P, ctypes.c_int, _P]
+        + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P],  # R, E, Hd, stream
         ctypes.c_int,
     ),
-    # pointers: x, w12, dg, dx, dw12, workspace
+    # x, ldx, w12, ldw, then the pointers dg, dx, dw12, workspace
     "scldm_swiglu_gate_backward": (
-        [_P] * 6 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P],  # R, E, Hd, stream
+        [_P, ctypes.c_int, _P, ctypes.c_int] + [_P] * 4
+        + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P],  # R, E, Hd, stream
         ctypes.c_int,
     ),
     "scldm_swiglu_gate_workspace_floats": (

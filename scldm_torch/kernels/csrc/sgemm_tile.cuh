@@ -1,6 +1,6 @@
-// The register-tiled f32 SGEMM main loop that swiglu_vec.cu (the SwiGLU
-// kernels) and window_pool_wide.cu (the wide window pool) share, with a
-// split-K product kernel over it and a fixed-order sum of partials.
+// The register-tiled f32 SGEMM main loop of window_pool_wide.cu (the wide
+// window pool), with a split-K product kernel over it and a fixed-order sum
+// of partials.
 //
 // A CTA of 256 threads owns a 128 x 128 output tile, stages 16-deep slices of
 // both operands in shared memory and gives each thread an 8 x 8 micro-tile

@@ -12,10 +12,13 @@ Pallas `swiglu_vec` (`_vec_fwd_kernel`) with its custom VJP `_vec_fused_bwd`
 for x (R, E), w12 = [w1 | w2] (E, 2Hd) and wv (Hd, 1), with no (R, Hd)
 tensor in memory on the way in; the backward recomputes u = x @ w12 and
 returns dx, dw12 and dwv. The kernels are in
-`scldm_torch/kernels/csrc/swiglu_vec.cu`: the forward keeps the up
+`scldm_torch/kernels/csrc/swiglu_vec.cu`, on the tensor cores (wgmma with
+three TF32 passes a product, f32-accurate): the forward keeps the up
 projection in registers and contracts it with wv in its epilogue; the
-backward stages du through a workspace of at most 32,768 rows at a time and
-sums the weight gradients in a fixed order, without atomics.
+backward stages du through a workspace of at most `SWIGLU_CHUNK` rows at a
+time and sums the weight gradients in a fixed order, without atomics. The
+kernels read x and w12 through TMA, which needs row pitches of a multiple of
+4 floats: the wrappers hand over a padded copy where the caller's are not.
 
 `fused_swiglu_gate` computes the (R, H) gate itself,
 
@@ -44,6 +47,61 @@ SWIGLU_VEC_FWD_LAUNCHES = LaunchCounter()
 SWIGLU_VEC_BWD_LAUNCHES = LaunchCounter()
 SWIGLU_GATE_FWD_LAUNCHES = LaunchCounter()
 SWIGLU_GATE_BWD_LAUNCHES = LaunchCounter()
+
+# the backward's workspace (swiglu_vec.cu: kChunk, kSplit, kBM): du of one
+# chunk of rows at a row pitch of a multiple of 4 floats, dw12's partials over
+# SWIGLU_SPLIT slices of the rows, and swiglu_vec's dwv partials, one a
+# 64-row tile of the chunk
+SWIGLU_CHUNK = 32768
+SWIGLU_SPLIT = 3
+SWIGLU_ROW_TILE = 64
+
+
+def _pitch4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def swiglu_gate_workspace_floats(R: int, E: int, H: int) -> int:
+    """Floats of the backward workspace of `fused_swiglu_gate` over R rows
+    (the C entry `scldm_swiglu_gate_workspace_floats` states the same): du of
+    one chunk and dw12's partials, both in the kernels' layout of w12 (2 H4
+    columns, H4 = H rounded up to a multiple of 4)."""
+    rows, h2 = min(R, SWIGLU_CHUNK), 2 * _pitch4(H)
+    return rows * h2 + SWIGLU_SPLIT * E * h2
+
+
+def swiglu_vec_workspace_floats(R: int, E: int, Hd: int) -> int:
+    """Floats of the backward workspace of `swiglu_vec` over R rows: the
+    gate's and dwv's partials (`scldm_swiglu_vec_workspace_floats`)."""
+    rows = min(R, SWIGLU_CHUNK)
+    return swiglu_gate_workspace_floats(R, E, Hd) + -(-rows // SWIGLU_ROW_TILE) * Hd
+
+
+def _tma_operand(t: torch.Tensor) -> tuple:
+    """(t, its row pitch) where its rows start 16 bytes apart, else a copy
+    padded with zero columns to a pitch of a multiple of 4 floats."""
+    width = t.shape[1]
+    if width % 4 == 0 and t.data_ptr() % 16 == 0:
+        return t, width
+    return F.pad(t, (0, -width % 4)), _pitch4(width)
+
+
+def _tma_weights(w1: torch.Tensor, w2: torch.Tensor) -> tuple:
+    """(w12, its row pitch) in the kernels' layout: w1 in columns [0, H), w2
+    from column H4 = H rounded up to a multiple of 4 (zero columns between),
+    so that every block starts 16 bytes into a row."""
+    H = w1.shape[1]
+    h4 = _pitch4(H)
+    if h4 == H:
+        return _tma_operand(torch.cat((w1, w2), dim=1))
+    w12 = w1.new_zeros((w1.shape[0], 2 * h4))
+    w12[:, :H] = w1
+    w12[:, h4:h4 + H] = w2
+    return w12, 2 * h4
+
+
+def _vec_weights(w12: torch.Tensor, hd: int) -> tuple:
+    return _tma_operand(w12) if hd % 4 == 0 else _tma_weights(w12[:, :hd], w12[:, hd:])
 
 
 def swiglu_vec_reference(x: torch.Tensor, w12: torch.Tensor, wv: torch.Tensor) -> torch.Tensor:
@@ -98,10 +156,11 @@ def swiglu_vec_fwd(x, w12, wv) -> torch.Tensor:
 
     lib = build.load()
     out = torch.empty((R, 1), dtype=torch.float32, device=x.device)
+    (xk, ldx), (wk, ldw) = _tma_operand(x), _vec_weights(w12, hd)
     # the library's CUDA runtime launches on the current device: make it x's
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = lib.scldm_swiglu_vec_forward(x.data_ptr(), w12.data_ptr(), wv.data_ptr(),
+        code = lib.scldm_swiglu_vec_forward(xk.data_ptr(), ldx, wk.data_ptr(), ldw, wv.data_ptr(),
                                             out.data_ptr(), R, E, hd, stream)
     build.check(lib, code, "scldm_swiglu_vec_forward launch")
     SWIGLU_VEC_FWD_LAUNCHES.count += 1
@@ -122,10 +181,11 @@ def swiglu_vec_bwd(x, w12, wv, ds) -> tuple:
     dx, dw12, dwv = torch.empty_like(x), torch.empty_like(w12), torch.empty_like(wv)
     workspace = torch.empty(lib.scldm_swiglu_vec_workspace_floats(R, E, hd), dtype=torch.float32,
                             device=x.device)
+    (xk, ldx), (wk, ldw) = _tma_operand(x), _vec_weights(w12, hd)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = lib.scldm_swiglu_vec_backward(
-            x.data_ptr(), w12.data_ptr(), wv.data_ptr(), ds.data_ptr(), dx.data_ptr(),
+            xk.data_ptr(), ldx, wk.data_ptr(), ldw, wv.data_ptr(), ds.data_ptr(), dx.data_ptr(),
             dw12.data_ptr(), dwv.data_ptr(), workspace.data_ptr(), R, E, hd, stream)
     build.check(lib, code, "scldm_swiglu_vec_backward launch")
     SWIGLU_VEC_BWD_LAUNCHES.count += 1
@@ -201,12 +261,13 @@ def swiglu_gate_fwd(x, w1, w2) -> torch.Tensor:
     from scldm_torch.kernels import build
 
     lib = build.load()
-    w12 = torch.cat((w1, w2), dim=1)  # the kernels' operand: w1's and w2's columns side by side
     out = torch.empty((R, H), dtype=torch.float32, device=x.device)
+    # the kernels' operand: w1's and w2's columns side by side
+    (xk, ldx), (wk, ldw) = _tma_operand(x), _tma_weights(w1, w2)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = lib.scldm_swiglu_gate_forward(x.data_ptr(), w12.data_ptr(), out.data_ptr(), R, E, H,
-                                             stream)
+        code = lib.scldm_swiglu_gate_forward(xk.data_ptr(), ldx, wk.data_ptr(), ldw,
+                                             out.data_ptr(), R, E, H, stream)
     build.check(lib, code, "scldm_swiglu_gate_forward launch")
     SWIGLU_GATE_FWD_LAUNCHES.count += 1
     return out
@@ -223,14 +284,14 @@ def swiglu_gate_bwd(x, w1, w2, dg) -> tuple:
     from scldm_torch.kernels import build
 
     lib = build.load()
-    w12 = torch.cat((w1, w2), dim=1)
-    dx, dw12 = torch.empty_like(x), torch.empty_like(w12)
+    dx, dw12 = torch.empty_like(x), torch.empty((E, 2 * H), dtype=torch.float32, device=x.device)
     workspace = torch.empty(lib.scldm_swiglu_gate_workspace_floats(R, E, H), dtype=torch.float32,
                             device=x.device)
+    (xk, ldx), (wk, ldw) = _tma_operand(x), _tma_weights(w1, w2)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = lib.scldm_swiglu_gate_backward(x.data_ptr(), w12.data_ptr(), dg.data_ptr(),
-                                              dx.data_ptr(), dw12.data_ptr(),
+        code = lib.scldm_swiglu_gate_backward(xk.data_ptr(), ldx, wk.data_ptr(), ldw,
+                                              dg.data_ptr(), dx.data_ptr(), dw12.data_ptr(),
                                               workspace.data_ptr(), R, E, H, stream)
     build.check(lib, code, "scldm_swiglu_gate_backward launch")
     SWIGLU_GATE_BWD_LAUNCHES.count += 1

@@ -136,11 +136,18 @@ def test_swiglu_vec_matches_jax(R):
     ("ds shape", "ds must be"),
     ("bf16", "float32"),
     ("strided", "contiguous"),
+    ("pitches off 16 bytes", None),
 ])
 def test_swiglu_vec_check_raises(case, match):
     """The kernels' operand check (device-free, so it runs here): shapes,
     float32 only, contiguous. On CUDA tensors the wrapper raises with it and
-    never takes the plain version."""
+    never takes the plain version. Widths whose rows are not 16 bytes apart
+    (E = 30, Hd = 70) pass it: the wrappers pad them for TMA."""
+    if match is None:
+        R, E, hd = 777, 30, 70
+        assert fs._check(torch.zeros(R, E), torch.zeros(E, 2 * hd), torch.zeros(hd, 1),
+                         torch.zeros(R, 1)) == (R, E, hd)
+        return
     R, E, hd = 10, 8, 6
     x, w12 = torch.zeros(R, E), torch.zeros(E, 2 * hd)
     wv, ds = torch.zeros(hd, 1), torch.zeros(R, 1)
@@ -156,6 +163,51 @@ def test_swiglu_vec_check_raises(case, match):
         x = torch.zeros(E, R).t()
     with pytest.raises(ValueError, match=match):
         fs._check(x, w12, wv, ds)
+
+
+def _parents_workspace_floats(R, E, Hd, vec):
+    """The workspace of the SIMT kernels these replaced: du of a 32,768-row
+    chunk, dw12's 8 partials, and swiglu_vec's dwv partials a 128-row tile."""
+    rows = min(R, 32_768)
+    return rows * 2 * Hd + 8 * E * 2 * Hd + (-(-rows // 128) * Hd if vec else 0)
+
+
+# below the 32,768-row chunk (the GPU tests' shapes, one with pitches off 16
+# bytes), at it, and above it (the GPU test across a chunk, the census decoder)
+@pytest.mark.parametrize("R,E,Hd", [(300, 200, 100), (777, 30, 70), (1001, 512, 1408),
+                                    (32_768, 512, 1408), (40_000, 64, 100),
+                                    (16 * 36_601, 512, 1408)])
+def test_swiglu_workspace_within_the_parents(R, E, Hd):
+    """The backward's workspace (the wrappers allocate what the C entries
+    state; the cuda tests hold the two equal) stays within the one it
+    replaced: the census step's peak memory is what the fused gate is for."""
+    vec, gate = fs.swiglu_vec_workspace_floats(R, E, Hd), fs.swiglu_gate_workspace_floats(R, E, Hd)
+    assert 0 < gate < vec <= _parents_workspace_floats(R, E, Hd, True)
+    assert gate <= _parents_workspace_floats(R, E, Hd, False)
+    # bounded by the chunk, not by R
+    assert fs.swiglu_vec_workspace_floats(2 * R, E, Hd) == vec or R < fs.SWIGLU_CHUNK
+
+
+def test_swiglu_tma_operands():
+    """What the wrappers hand the kernels: x and w12 as they are where their
+    rows start 16 bytes apart; else copies padded with zero columns, w12's w2
+    block moved to a column that is a multiple of 4."""
+    x = torch.randn(5, 32)
+    assert fs._tma_operand(x) == (x, 32)
+    x30 = torch.randn(5, 30)
+    xk, ldx = fs._tma_operand(x30)
+    assert ldx == 32 and xk.shape == (5, 32)
+    assert torch.equal(xk[:, :30], x30) and not xk[:, 30:].any()
+    w1, w2 = torch.randn(3, 64), torch.randn(3, 64)
+    w12, ldw = fs._tma_weights(w1, w2)
+    assert ldw == 128 and torch.equal(w12, torch.cat((w1, w2), dim=1))
+    w1, w2 = torch.randn(3, 70), torch.randn(3, 70)
+    w12, ldw = fs._tma_weights(w1, w2)
+    assert ldw == 144 and w12.shape == (3, 144)
+    assert torch.equal(w12[:, :70], w1) and torch.equal(w12[:, 72:142], w2)
+    assert not w12[:, 70:72].any() and not w12[:, 142:].any()
+    vec, ldv = fs._vec_weights(torch.cat((w1, w2), dim=1), 70)
+    assert ldv == 144 and torch.equal(vec, w12)
 
 
 # -- the algebraic tail ------------------------------------------------------------

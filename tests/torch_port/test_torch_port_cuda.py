@@ -555,9 +555,12 @@ def assert_swiglu_close(got, want):
         assert (got[k] - w).abs().max() <= 1e-4 * scale, k
 
 
-# ragged rows against the 128-row tile; E and Hd off the 16-deep slice and the
-# 64-column hidden tile; more rows than one backward workspace chunk (32,768)
-@pytest.mark.parametrize("R,E,Hd", [(1001, 512, 1408), (300, 200, 100), (40_000, 64, 100)])
+# ragged rows against the 64-row tile; E and Hd off the 32-deep stage and the
+# 128-column hidden tile; more rows than one backward workspace chunk
+# (32,768); row pitches of x (E = 30) and w12's w2 block (Hd = 70) off 16
+# bytes, which the wrappers pad for TMA
+@pytest.mark.parametrize("R,E,Hd", [(1001, 512, 1408), (300, 200, 100), (40_000, 64, 100),
+                                    (777, 30, 70)])
 def test_swiglu_vec_matches_reference_on_gpu(R, E, Hd):
     inputs = _swiglu_inputs(R, E, Hd, "cuda")
     before = (fs.SWIGLU_VEC_FWD_LAUNCHES.count, fs.SWIGLU_VEC_BWD_LAUNCHES.count)
@@ -566,6 +569,29 @@ def test_swiglu_vec_matches_reference_on_gpu(R, E, Hd):
     assert (fs.SWIGLU_VEC_FWD_LAUNCHES.count, fs.SWIGLU_VEC_BWD_LAUNCHES.count) == (
         before[0] + 1, before[1] + 1)
     assert_swiglu_close(got, swiglu_outputs_and_grads(fs.swiglu_vec_reference, *inputs))
+
+
+# across a workspace chunk, and the census width: no atomics, no race in the
+# kernels' rings
+@pytest.mark.parametrize("R,E,Hd", [(40_000, 64, 100), (1001, 512, 1408)])
+def test_swiglu_vec_repeats_its_bits_on_gpu(R, E, Hd):
+    x, w12, wv, ds = _swiglu_inputs(R, E, Hd, "cuda")
+    first = (fs.swiglu_vec_fwd(x, w12, wv), *fs.swiglu_vec_bwd(x, w12, wv, ds))
+    again = (fs.swiglu_vec_fwd(x, w12, wv), *fs.swiglu_vec_bwd(x, w12, wv, ds))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("R,E,Hd", [(1, 1, 1), (777, 30, 70), (32_768, 512, 1408),
+                                    (40_000, 64, 100), (16 * 36_601, 512, 1408)])
+def test_swiglu_workspace_floats_match_the_c_entries(R, E, Hd):
+    from scldm_torch.kernels import build
+
+    lib = build.load()
+    assert lib.scldm_swiglu_vec_workspace_floats(R, E, Hd) == fs.swiglu_vec_workspace_floats(
+        R, E, Hd)
+    assert lib.scldm_swiglu_gate_workspace_floats(R, E, Hd) == fs.swiglu_gate_workspace_floats(
+        R, E, Hd)
 
 
 def test_swiglu_vec_operands_it_does_not_take_raise_on_gpu():
@@ -630,6 +656,15 @@ def test_swiglu_gate_matches_reference_on_gpu(R, E, H):
     assert (fs.SWIGLU_GATE_FWD_LAUNCHES.count, fs.SWIGLU_GATE_BWD_LAUNCHES.count) == (
         before[0] + 1, before[1] + 1)
     assert_swiglu_close(got, gate_outputs_and_grads(fs.swiglu_reference, *inputs))
+
+
+@pytest.mark.parametrize("R,E,H", [(40_000, 64, 100), (777, 30, 70)])
+def test_swiglu_gate_repeats_its_bits_on_gpu(R, E, H):
+    x, w1, w2, dg = _gate_inputs(R, E, H, "cuda")
+    first = (fs.swiglu_gate_fwd(x, w1, w2), *fs.swiglu_gate_bwd(x, w1, w2, dg))
+    again = (fs.swiglu_gate_fwd(x, w1, w2), *fs.swiglu_gate_bwd(x, w1, w2, dg))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 def test_swiglu_gate_operands_it_does_not_take_raise_on_gpu():
