@@ -38,8 +38,9 @@ PROFILED_STEPS = 2
 UNPROFILED_STEPS = 5
 TURN_STEPS = 3
 # the wide window pool's kernels (kernels/csrc/window_pool_wide.cu)
-POOL_KERNELS = ("prep_weights", "ln_rows", "gemm_kernel", "attn_fwd", "attn_merge", "attn_bwd",
-                "sum_dq", "dx2_kernel", "ln_bwd", "sum_parts_kernel")
+POOL_KERNELS = ("prep_weights", "prep_q", "prep_cotangents", "ln_rows", "gemm_bf16", "attn_fwd",
+                "attn_merge", "exact_max", "attn_dkdv", "attn_dq", "sum_dq", "ln_bwd",
+                "sum_parts_kernel")
 
 
 def short(kname: str) -> str:

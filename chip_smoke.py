@@ -25,7 +25,11 @@ the VAE steps' shapes and ragged ones, timing both, and the dense pool's pooled
 tokens against the module MCAB where the zero-row correction is not 0; then the
 wide window-pool kernels (the census encoder's design) against their plain
 version at the census window (B = 16 cells of S = 4,096 tokens, E = 512, 8
-heads, 64 inducing points), a ragged one and at E = 256, timing both. Phase 3
+heads, 64 inducing points), a ragged one, at E = 256, at the long-latent
+encoder's 1,024 inducing points, at a ragged 40 and at E = 768 (against the
+plain version evaluated in f64), with a bitwise repeat of both at the census
+window and at 1,024 queries, timing both at the census window (a call and on
+the device). Phase 3
 trains the dentate-gyrus VAE (`VAETask.train_step`) on lean wire batches made
 like bench.py's for a warm-up step and TRAIN_STEPS timed steps, checks the
 losses and that each tail kernel ran once per step, and holds one step's loss
@@ -354,6 +358,14 @@ def encoder_pool_bound(B: int, N: int, backward: bool, dense: bool, E: int = 32,
     return bound(4 * (src + weights + stats), flops, BF16_FLOPS)
 
 
+def bf16_distance(got, want, near: float = 1e-4) -> tuple:
+    """(max abs error, the reference's largest magnitude, share of entries
+    beyond `near` of it) of `got` against `want`."""
+    scale = want.abs().max().item()
+    d = (got - want).abs()
+    return d.max().item(), scale, (d > near * scale).float().mean().item()
+
+
 def held_bf16(what: str, got, want, near: float = 1e-4) -> tuple:
     """(max abs error, its share of the reference's largest magnitude, share
     of entries beyond `near` of it, `near`) of a kernel that rounds the same
@@ -361,9 +373,7 @@ def held_bf16(what: str, got, want, near: float = 1e-4) -> tuple:
     order flips a bf16 rounding now and then, which moves an entry by up to
     about 1% of its tensor's largest magnitude. Raises beyond 1e-2 of that
     magnitude, or with more than 5% of the entries beyond `near` of it."""
-    scale = want.abs().max().item()
-    d = (got - want).abs()
-    err, beyond = d.max().item(), (d > near * scale).float().mean().item()
+    err, scale, beyond = bf16_distance(got, want, near)
     if scale == 0 or err > 1e-2 * scale or beyond > 5e-2:
         raise AssertionError(f"{what}: max abs err {err:.3e}, max |ref| {scale:.3e}, share beyond "
                              f"{near:g} of it {beyond:.2e}")
@@ -651,18 +661,62 @@ def phase1d_encoder_pool(seed: int) -> dict:
 
 # (B, S, E, H, Q) of phase 1d's wide window pool: the census encoder's window
 # (configs/model/vae_census.yaml, bench_census.py's batch), a ragged B and S at
-# that width, and the E = 256 encoder of tests/test_fused_encoder.py:227-254
+# that width, the E = 256 encoder of tests/test_fused_encoder.py:227-254, the
+# long-latent encoder's 1,024 inducing points (ragged S), a ragged query count
+# and E = 768 (12 heads)
 WIDE_POOL_CASES = ((CENSUS_BATCH, CENSUS_WINDOW, 512, 8, 64), (3, 1_030, 512, 8, 64),
-                   (4, 600, 256, 4, 16))
+                   (4, 600, 256, 4, 16), (2, 1_030, 512, 8, 1_024), (3, 700, 512, 8, 40),
+                   (2, 300, 768, 12, 64))
+
+
+# the shapes whose forward and backward run twice and repeat their bits: the
+# census window and the long-latent encoder's 1,024 inducing points
+WIDE_POOL_REPEAT = (WIDE_POOL_CASES[0], WIDE_POOL_CASES[3])
+# the kernels behind the wide window pool's entry points
+WIDE_POOL_KERNELS = ("gemm_bf16", "attn_fwd", "attn_merge", "exact_max", "attn_dkdv", "attn_dq",
+                     "prep_", "ln_rows", "ln_bwd", "sum_dq", "sum_parts_kernel")
+# The wide kernels are held against the plain version evaluated in f64 on
+# the same inputs (as row 2 from DIT_BWD_F64_MIN_T): they compute the
+# LayerNorm and each row max in f64, and two f32 summation orders of the
+# LayerNorm and of k alone flip enough bf16 roundings at row maxima, each
+# moving a row's m and with it the row's gradients, to bring demb's share
+# beyond 1e-4 of its largest to `held_bf16`'s 5% (at 1,024 queries; at E =
+# 768 too)
+
+
+def wide_pool_bound(B: int, N: int, backward: bool, E: int, H: int, Q: int) -> dict:
+    """The wide window pool over B cells of N tokens: `encoder_pool_bound`'s
+    bound of the function (bf16 operands, the bf16 peak), and
+    `as_run_bound_ms`, the products as the kernels run them: the queries
+    padded to tiles of 64 (Qp); the backward recomputes the projection (2E^2
+    multiply-adds a token) and the scores, runs dv, de and dk in its dk / dv
+    kernel and de and dq in its dq kernel with the f32 operand (dnum or ds) in
+    three bf16 passes, and recomputes the scores there too (17 Qp*E a token
+    where the function's backward has 6 Q*E), then dx2 and dW (4E^2)."""
+    qp = -(-Q // 64) * 64
+    macs = (6 * E * E + 17 * qp * E) if backward else (2 * E * E + 2 * qp * E)
+    table, weights = B * N * E, Q * E + 2 * E + 2 * E * E
+    inputs = table + weights + B * Q * E + 2 * B * Q * H
+    n_bytes = 4 * (inputs + table + weights if backward else inputs)
+    return {**encoder_pool_bound(B, N, backward, False, E, H, Q),
+            "as_run_bound_ms": bound(n_bytes, 2 * B * N * macs, BF16_FLOPS)["bound_ms"]}
 
 
 def phase1d_wide_window_pool(seed: int) -> dict:
     """The wide window-pool kernels (forward and backward,
     `window_pool_wide.cu`) against their plain version with autograd at
-    WIDE_POOL_CASES, `held_bf16`'s bounds with `POOL_NUM_NEAR` for num, as
-    the narrow design, and `POOL_LN_GAIN_NEAR` for dln1g; kernel and plain
-    timed in turns at the census shape.
-    Returns {"fwd", "bwd"}: {max_abs_err, ms, plain_ms} at that shape."""
+    WIDE_POOL_CASES (the census window, ragged B and S, E = 256, the
+    long-latent encoder's 1,024 inducing points, a ragged query count and E =
+    768), `held_bf16`'s bounds with `POOL_NUM_NEAR` for num, as the narrow
+    design, and `POOL_LN_GAIN_NEAR` for dln1g, against the plain version
+    evaluated in f64 on the same inputs, printing the f32 plain version's
+    share beyond the bounds to it and the kernel's to the f32 one; at
+    WIDE_POOL_REPEAT both run
+    twice and repeat their bits (no atomics, no race in the rings); kernel and
+    plain timed in turns at the census shape, each a call through its entry
+    point (`ms`), and the kernels' own device time a call under the profiler
+    (`device_ms`). Returns {"fwd", "bwd"}: {max_abs_err, ms, plain_ms,
+    device_ms} at that shape."""
     import torch
 
     from scldm_torch.ops import fused_encoder as fe
@@ -680,18 +734,42 @@ def phase1d_wide_window_pool(seed: int) -> dict:
         cot = (rnd(B, Q, E), rnd(B, Q * H))
         got = pool_outputs_and_grads(fe.window_pool, None, x, cot, H)
         torch.cuda.synchronize()
-        want = pool_outputs_and_grads(fe.window_pool_reference, None, x, cot, H)
+        plain = pool_outputs_and_grads(fe.window_pool_reference, None, x, cot, H)
+        want = pool_outputs_and_grads(
+            fe.window_pool_reference, None, {k: t.double() for k, t in x.items()},
+            tuple(t.double() for t in cot), H)
         near = {"num": POOL_NUM_NEAR, "dln1g": POOL_LN_GAIN_NEAR}
-        worst = {part: {k: held_bf16(f"wide window pool {k} at B={B}, S={N}, E={E}", got[part][k],
-                                     w, near.get(k, 1e-4))
+        worst = {part: {k: held_bf16(f"wide window pool {k} at B={B}, S={N}, E={E}, Q={Q}",
+                                     got[part][k], w, near.get(k, 1e-4))
                         for k, w in want[part].items()} for part in want}
         log(f"phase1d wide window_pool B={B} S={N} E={E} H={H} Q={Q}: "
             + report_bf16({**worst["fwd"], **worst["bwd"]}))
-        del got, want
-        if (B, N) != (CENSUS_BATCH, CENSUS_WINDOW):
-            continue
+        # printed: the shares beyond `near` of the f32 plain version to the f64
+        # one, and of the kernel to the f32 one
+        shares = {who: {k: bf16_distance(a[part][k], want[part][k] if who == "f32 plain"
+                                         else plain[part][k], near.get(k, 1e-4))[2]
+                        for part in want for k in want[part]}
+                  for who, a in (("f32 plain", plain), ("kernel", got))}
+        log(f"phase1d wide window_pool B={B} S={N} E={E} H={H} Q={Q}: share beyond of the f32 "
+            "plain version to the f64 one " + ", ".join(
+                f"{k} {v:.1e}" for k, v in shares["f32 plain"].items())
+            + "; of the kernel to the f32 one "
+            + ", ".join(f"{k} {v:.1e}" for k, v in shares["kernel"].items()))
+        del got, want, plain
         qfull = fe.build_query_operand(x["q"], H)
         w = [x[k] for k in fe.WEIGHT_NAMES]
+        if (B, N, E, H, Q) in WIDE_POOL_REPEAT:
+            f1, f2 = (fe.window_pool_fwd(x["src"], qfull, w, H, EPS) for _ in range(2))
+            b1, b2 = ((lambda r: [r[0], r[1], *r[2]])(
+                fe.window_pool_bwd(x["src"], qfull, w, f1[2], *cot, H, EPS)) for _ in range(2))
+            if not all(torch.equal(a, c) for a, c in (*zip(f1, f2), *zip(b1, b2))):
+                raise AssertionError(f"wide window pool at B={B}, S={N}, E={E}, Q={Q}: a second "
+                                     "run gave other bits")
+            log(f"phase1d wide window_pool B={B} S={N} E={E} H={H} Q={Q}: forward and backward "
+                "repeat their bits")
+            del f1, f2, b1, b2
+        if (B, N) != (CENSUS_BATCH, CENSUS_WINDOW):
+            continue
         m = fe.window_pool_reference(x["src"], qfull, w, H, EPS)[2]
         fns = {"fwd": (lambda: fe.window_pool_fwd(x["src"], qfull, w, H, EPS),
                        lambda: fe.window_pool_reference(x["src"], qfull, w, H, EPS)),
@@ -700,11 +778,13 @@ def phase1d_wide_window_pool(seed: int) -> dict:
                                                                  EPS))}
         for part, (kernel, plain) in fns.items():
             ms, plain_ms = time_in_turns(kernel, plain, 10)
-            b = encoder_pool_bound(B, N, part == "bwd", False, E, H, Q)
+            dev = device_ms(kernel, 3, WIDE_POOL_KERNELS)
+            b = wide_pool_bound(B, N, part == "bwd", E, H, Q)
             out[part] = {"max_abs_err": max(e for e, *_ in worst[part].values()), "ms": ms,
-                         "plain_ms": plain_ms}
-            log(f"phase1d wide window_pool_{part} B={B} S={N} E={E}: kernel {ms:.4f} ms  plain "
-                f"{plain_ms:.4f} ms  bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+                         "plain_ms": plain_ms, "device_ms": dev}
+            log(f"phase1d wide window_pool_{part} B={B} S={N} E={E}: kernel {ms:.4f} ms a call "
+                f"({dev:.4f} ms on the device)  plain {plain_ms:.4f} ms  bound "
+                f"{b['bound_ms']:.4f} ms ({b['bound_by']}; as run {b['as_run_bound_ms']:.4f})")
         del x, cot, fns
         torch.cuda.empty_cache()
     return out
@@ -2592,8 +2672,8 @@ def main(argv=None) -> int:
          "source": "scldm_torch/kernels/csrc/window_pool_wide.cu",
          "replaces": f"scldm_tpu/ops/fused_encoder.py:{line}", "launches": launches_,
          **wide_pool[part],
-         **encoder_pool_bound(CENSUS_BATCH, CENSUS_WINDOW, part == "bwd", False, CENSUS["n_embed"],
-                              CENSUS["n_head_cross"], CENSUS["n_inducing_points"]),
+         **wide_pool_bound(CENSUS_BATCH, CENSUS_WINDOW, part == "bwd", CENSUS["n_embed"],
+                           CENSUS["n_head_cross"], CENSUS["n_inducing_points"]),
          "library_ms": None}
         for part, line, launches_ in (
             ("fwd", 409, census_pool[0] + census_ldm["window_pool_wide_fwd"]),

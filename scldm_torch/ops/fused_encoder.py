@@ -9,10 +9,12 @@ each with its custom VJP. The kernels come in two designs, chosen by width:
 - narrow (E = 32, 4 heads, 16 inducing points, the reference encoder):
   `scldm_torch/kernels/csrc/encoder_pool.cu`, one CTA per cell, one source
   templated on where a token's embedding comes from (both variants below);
-- wide (E = 256 with 4 heads or E = 512 with 8, head width 64, the census
-  encoder): `scldm_torch/kernels/csrc/window_pool_wide.cu`, the window
-  variant only (JAX gates the dense pool at E <= 128), split over tokens,
-  heads and cells with a device workspace.
+- wide (E a multiple of 64 from 256 to 1,024, head width 64, 1 to 1,024
+  inducing points: the census encoder, E = 512 with 8 heads over 64, and the
+  long-latent one over 1,024): `scldm_torch/kernels/csrc/window_pool_wide.cu`,
+  the window variant only (JAX gates the dense pool at E <= 128), on the
+  tensor cores, split over tokens, heads, queries and cells with a device
+  workspace (`wide_kernel_takes` says which widths).
 
 The two variants:
 
@@ -74,12 +76,18 @@ WEIGHT_NAMES = ("ln1g", "ln1b", "wk", "wv")
 #: (E, n_head, Q) the narrow design is compiled for: the reference encoder,
 #: E=32 with 4 cross heads over 16 inducing points; the dense pool has only it
 NARROW_SHAPES = ((32, 4, 16),)
-#: (E, n_head, Q) the wide window-pool design takes (head width 64): the
-#: census encoder (configs/model/vae_census.yaml) and the E = 256 encoder of
-#: JAX's `tests/test_fused_encoder.py`
-WIDE_SHAPES = ((256, 4, 16), (512, 8, 64))
-#: every (E, n_head, Q) the window pool takes on CUDA tensors
-KERNEL_SHAPES = NARROW_SHAPES + WIDE_SHAPES
+
+
+def wide_kernel_takes(E: int, n_head: int, Q: int) -> bool:
+    """Whether the wide window-pool kernels take (E, n_head, Q): E a multiple
+    of 64 from 256 to 1,024 with heads of 64 (n_head = E / 64) and 1 to 1,024
+    inducing points. That covers the census encoder
+    (configs/model/vae_census.yaml: (512, 8, 64)), the E = 256 encoder of
+    JAX's `tests/test_fused_encoder.py` and the long-latent encoder (Q =
+    1,024); JAX's gate also lets through other head widths at E >= 256,
+    which raise here."""
+    return 256 <= E <= 1024 and n_head * 64 == E and 1 <= Q <= 1024
+
 
 ENCODER_POOL_FWD_LAUNCHES = LaunchCounter()
 ENCODER_POOL_BWD_LAUNCHES = LaunchCounter()
@@ -106,6 +114,13 @@ def head_rows(x: torch.Tensor, n_head: int, hd: int) -> torch.Tensor:
     return x.reshape(B, n_head, -1).transpose(1, 2).repeat_interleave(hd, dim=-1)
 
 
+def _bf_keep(t: torch.Tensor) -> torch.Tensor:
+    """`_bf` that keeps f64: round to bf16 and back to f32, or to f64 where
+    the plain version is evaluated in f64 (the wide kernels' yardstick). The
+    same bits as `_bf` on f32 tensors."""
+    return t.to(torch.bfloat16).to(torch.promote_types(t.dtype, torch.float32))
+
+
 def _ln_kv_scores(x, qfull, weights, eps: float, scale: float):
     """LayerNorm, k/v projections and scaled per-head scores of (B, T, E)
     tokens (JAX `_ln_kv_scores`): -> s (B, T, Q*H), v (B, T, E)."""
@@ -113,9 +128,9 @@ def _ln_kv_scores(x, qfull, weights, eps: float, scale: float):
     mean = x.mean(dim=-1, keepdim=True)
     var = (x - mean).square().mean(dim=-1, keepdim=True)
     x2 = (x - mean) * torch.rsqrt(var + eps) * ln1g + ln1b
-    k = _bf(x2) @ _bf(wk)
-    v = _bf(x2) @ _bf(wv)
-    return (_bf(k) @ _bf(qfull).t()) * scale, v
+    k = _bf_keep(x2) @ _bf_keep(wk)
+    v = _bf_keep(x2) @ _bf_keep(wv)
+    return (_bf_keep(k) @ _bf_keep(qfull).t()) * scale, v
 
 
 def _numden_given_m(s, v, m, n_head: int):
@@ -124,7 +139,7 @@ def _numden_given_m(s, v, m, n_head: int):
     e = torch.exp(s - m[:, None, :])
     B, QH, E = s.shape[0], s.shape[2], v.shape[2]
     hd = E // n_head
-    full = _bf(e).transpose(1, 2) @ _bf(v)  # (B, QH, E)
+    full = _bf_keep(e).transpose(1, 2) @ _bf_keep(v)  # (B, QH, E)
     num = torch.diagonal(full.reshape(B, n_head, QH // n_head, n_head, hd), dim1=1, dim2=3)
     return num.permute(0, 1, 3, 2).reshape(B, QH // n_head, E), e.sum(dim=1)
 
@@ -148,8 +163,10 @@ def encoder_pool_reference(counts, table, qfull, weights, n_head: int = 4, eps: 
 
 
 def window_pool_reference(emb, qfull, weights, n_head: int = 4, eps: float = 1e-8):
-    """Plain PyTorch version of the window pool over the (B, S, E) tokens."""
-    return _pool(emb.float(), qfull, weights, n_head, eps)
+    """Plain PyTorch version of the window pool over the (B, S, E) tokens,
+    in f32 (in f64 for f64 inputs)."""
+    return _pool(emb.to(torch.promote_types(emb.dtype, torch.float32)), qfull, weights, n_head,
+                 eps)
 
 
 def _check(variant: str, src, qfull, weights, n_head, counts=None, stats=()) -> Tuple[int, ...]:
@@ -170,10 +187,14 @@ def _check(variant: str, src, qfull, weights, n_head, counts=None, stats=()) -> 
     for name, t, shape in want:
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
-    shapes = KERNEL_SHAPES if variant == "window" else NARROW_SHAPES
-    if (E, n_head, Q) not in shapes or QH != n_head * Q:
-        raise ValueError(f"the {variant}-pool kernels are built for (E, n_head, Q) in "
-                         f"{shapes}, got ({E}, {n_head}, {QH / n_head:g})")
+    if variant == "window" and _wide(E):
+        takes = wide_kernel_takes(E, n_head, Q)
+        widths = "E a multiple of 64 in [256, 1024] with heads of 64 and 1 to 1,024 queries"
+    else:
+        takes, widths = (E, n_head, Q) in NARROW_SHAPES, f"(E, n_head, Q) in {NARROW_SHAPES}"
+    if not takes or QH != n_head * Q:
+        raise ValueError(f"the {variant}-pool kernels are built for {widths}, got "
+                         f"({E}, {n_head}, {QH / n_head:g})")
     tensors = [src, qfull, *weights, *stats] + ([counts] if counts is not None else [])
     for t in tensors:
         if t.device != src.device or t.dtype != torch.float32 or not t.is_contiguous():
@@ -306,8 +327,10 @@ def encoder_pool_backward_reference(counts, table, qfull, weights, m, dnum, dden
 def window_pool_backward_reference(emb, qfull, weights, m, dnum, dden,
                                    n_head: int = 4, eps: float = 1e-8):
     """Plain PyTorch version of the window pool's backward (JAX
-    `_wfused_bwd`) -> (demb, dqfull, (dln1g, dln1b, dwk, dwv))."""
-    return _plain_grads(lambda x: x.float(), (emb,), qfull, weights, m, dnum, dden, n_head, eps)
+    `_wfused_bwd`) -> (demb, dqfull, (dln1g, dln1b, dwk, dwv)), in f32 (in
+    f64 for f64 inputs)."""
+    return _plain_grads(lambda x: x.to(torch.promote_types(x.dtype, torch.float32)), (emb,),
+                        qfull, weights, m, dnum, dden, n_head, eps)
 
 
 def encoder_pool_fwd(counts, table, qfull, weights, n_head: int, eps: float):

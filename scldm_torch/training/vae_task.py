@@ -86,10 +86,11 @@ def _fused_encoder_ok(vae: TransformerVAE) -> bool:
 def _fused_window_ok(vae: TransformerVAE) -> bool:
     """The JAX gate of the window pool: any input layer, no qkv bias, and E
     at one of the JAX kernel's two validated tile geometries (E <= 128 or
-    E >= 256). The CUDA kernels take the widths in
-    `ops/fused_encoder.KERNEL_SHAPES` (the narrow design at E = 32, the wide
-    one at E = 256 and 512); another width passes this gate and raises at
-    launch."""
+    E >= 256). The CUDA kernels take the narrow design's width
+    (`ops/fused_encoder.NARROW_SHAPES`, E = 32) and the wide one's
+    (`ops/fused_encoder.wide_kernel_takes`: heads of 64 at E from 256 to
+    1,024, up to 1,024 inducing points); another width passes this gate and
+    raises at launch."""
     ca = vae.encoder.ca_layer
     return ca.attn.c_attn.bias is None and (ca.ln_1.n <= 128 or ca.ln_1.n >= 256)
 
