@@ -1,0 +1,196 @@
+#!/usr/bin/env python3
+"""Two versions of the narrow encoder-pool backwards side by side, on one NVIDIA GPU.
+
+    python3 benchmarks_torch/ab_encoder_pool.py OTHER.cu
+
+Builds the repo's kernels (`scldm_torch/kernels/csrc`) and OTHER.cu, another
+version of `encoder_pool.cu`, into two libraries (OTHER.cu with `-I` its own
+directory, then the repo's csrc directory; for the parent commit, `git show
+HEAD~1:scldm_torch/kernels/csrc/encoder_pool.cu` into a gitignored directory
+such as `chip_checkout/`). It adapts to each library's C entries: a library
+with `scldm_encoder_pool_workspace_floats` writes every gradient and takes a
+workspace of that size; one without it adds into zeroed gradients (the
+zeroing then counts as part of its call). Holds both backwards against the
+plain version (`ops/fused_encoder.encoder_pool_backward_reference` and
+`window_pool_backward_reference`, f32, given the plain forward's m) at
+chip_smoke.py's phase-1d shapes with phase 1d's bounds (`held_bf16`: every
+gradient within 1e-2 of its largest magnitude, at most 5% of the entries
+beyond 1e-4 of it), and runs each twice to see whether it repeats its bits;
+then times both backwards at the dense pool's parse1m shape (B = 128 cells
+of G = 2,000 genes) and the window pool's dentate window (B = 128 cells of
+S = 6,147 tokens) with CUDA events, in turns (other, repo, repo, other), ten
+calls each, and prints the repo version's device time there by kernel (the
+profiler, three calls). Compare two versions only within one run: cards
+differ between runs.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+EPS = 1e-8
+E, H, Q = 32, 4, 16
+SCALE = (E // H) ** -0.5
+
+
+def by_kernel(fn, reps: int = 3) -> list:
+    """(ms a call, launches a call, name) of the device kernels of `fn`, the
+    largest first, from the profiler over `reps` calls after a warm-up."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sorted(((e.device_time_total / reps / 1e3, e.count / reps, e.key)
+                   for e in prof.key_averages() if e.device_time_total > 0), reverse=True)
+
+
+def bind(lib: ctypes.CDLL) -> bool:
+    """Type the library's backward entries; whether it takes a workspace."""
+    from scldm_torch.kernels import build
+
+    try:
+        lib.scldm_encoder_pool_workspace_floats
+    except AttributeError:
+        has_ws = False
+    else:
+        has_ws = True
+    names = ["scldm_encoder_pool_backward", "scldm_window_pool_backward"]
+    names += ["scldm_encoder_pool_workspace_floats"] if has_ws else []
+    for name in names:
+        argtypes, restype = build._SIGNATURES[name]
+        if not has_ws:
+            argtypes = argtypes[:argtypes.index(ctypes.c_int) - 1] + argtypes[
+                argtypes.index(ctypes.c_int):]  # no workspace pointer
+        getattr(lib, name).argtypes, getattr(lib, name).restype = argtypes, restype
+    return has_ws
+
+
+def backward(lib, has_ws: bool, counts, src, qfull, w, m, dnum, dden) -> dict:
+    """One backward launch of `lib`: the gradients, with the wrapper's bf16
+    rounding of the reduced qfull, wk and wv gradients."""
+    import torch
+
+    from scldm_torch.ops.fused_decoder import _bf
+
+    dense = counts is not None
+    B, N = (counts.shape if dense else src.shape[:2])
+    new = torch.empty_like if has_ws else torch.zeros_like
+    dsrc = new(src)
+    grads = [new(t) for t in (qfull, *w)]
+    extra = []
+    if has_ws:
+        ws = torch.empty(lib.scldm_encoder_pool_workspace_floats(B, N, int(dense)), device="cuda")
+        extra = [ws.data_ptr()]
+    pre = [counts.data_ptr()] if dense else []
+    entry = lib.scldm_encoder_pool_backward if dense else lib.scldm_window_pool_backward
+    code = entry(*pre, src.data_ptr(), qfull.data_ptr(), *(t.data_ptr() for t in w), m.data_ptr(),
+                 dnum.data_ptr(), dden.data_ptr(), dsrc.data_ptr(), *(g.data_ptr() for g in grads),
+                 *extra, B, N, E, H, Q, EPS, SCALE, torch.cuda.current_stream().cuda_stream)
+    if code:
+        raise RuntimeError(f"backward launch: CUDA error {code}")
+    dq, dln1g, dln1b, dwk, dwv = grads
+    return {"dsrc": dsrc, "dqfull": _bf(dq), "dln1g": dln1g, "dln1b": dln1b, "dwk": _bf(dwk),
+            "dwv": _bf(dwv)}
+
+
+def main(argv=None) -> int:
+    import torch
+
+    args = sys.argv[1:] if argv is None else argv
+    if len(args) != 1:
+        print(__doc__, file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("ab_encoder_pool: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    from scldm_torch.kernels import build
+    from scldm_torch.ops import fused_encoder as fe
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    repo = build.load()
+    other_src = Path(args[0]).resolve()
+    other_so = build.BUILD_DIR / "ab_other_encoder_pool.so"
+    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-shared", "-I", str(other_src.parent),
+                    "-I", str(build.CSRC), "-o", str(other_so), str(other_src)],
+                   check=True, capture_output=True)
+    other = ctypes.CDLL(str(other_so))
+    libs = {"repo": (repo, bind(repo)), "other": (other, bind(other))}
+    blocks = fe.build_query_operand(torch.ones(Q, E, device="cuda"), H) != 0
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    failed = False
+    for variant, B, N in (("dense", 128, cs.PARSE_GENES), ("dense", 19, 300),
+                          ("window", 128, cs.WINDOW), ("window", 19, 250)):
+        dense = variant == "dense"
+        src = torch.randn(*((N, E) if dense else (B, N, E)), generator=g, device="cuda")
+        qfull = fe.build_query_operand(torch.randn(Q, E, generator=g, device="cuda"), H)
+        w = [torch.randn(1, E, generator=g, device="cuda") * 0.3 + 1.0,
+             torch.randn(1, E, generator=g, device="cuda") * 0.3,
+             *(torch.randn(E, E, generator=g, device="cuda") * E**-0.5 for _ in range(2))]
+        counts = (torch.poisson(torch.full((B, N), 3.0, device="cuda"), generator=g)
+                  * (torch.rand(B, N, generator=g, device="cuda") < 0.6)) if dense else None
+        dnum = torch.randn(B, Q, E, generator=g, device="cuda")
+        dden = torch.randn(B, Q * H, generator=g, device="cuda")
+        pre = (counts,) if dense else ()
+        reference = fe.encoder_pool_reference if dense else fe.window_pool_reference
+        reference_bwd = (fe.encoder_pool_backward_reference if dense
+                         else fe.window_pool_backward_reference)
+        m = reference(*pre, src, qfull, w, H, EPS)[2]
+        dsrc, dq, (dln1g, dln1b, dwk, dwv) = reference_bwd(*pre, src, qfull, w, m, dnum, dden, H,
+                                                           EPS)
+        want = {"dsrc": dsrc, "dqfull": dq * blocks, "dln1g": dln1g, "dln1b": dln1b, "dwk": dwk,
+                "dwv": dwv}
+        for tag, (lib, has_ws) in libs.items():
+            got, again = (backward(lib, has_ws, counts, src, qfull, w, m, dnum, dden)
+                          for _ in range(2))
+            torch.cuda.synchronize()
+            report = []
+            for k, v in want.items():
+                try:
+                    worst = cs.held_bf16(f"{tag} {k}", got[k], v)
+                    report.append(f"{k} {worst[1]:.1e} of max, {worst[2]:.1e} beyond")
+                except AssertionError as e:
+                    failed = True
+                    report.append(f"FAILED {e}")
+            same = all(torch.equal(got[k], again[k]) for k in got)
+            print(f"{tag} {variant} B={B} N={N}: " + "; ".join(report)
+                  + ("; repeats its bits" if same else "; other bits on a second run"),
+                  flush=True)
+            if tag == "repo" and not same:
+                failed = True
+            del got, again
+        if B == 128:
+            call = {tag: (lambda lib=lib, has_ws=has_ws: backward(lib, has_ws, counts, src, qfull,
+                                                                  w, m, dnum, dden))
+                    for tag, (lib, has_ws) in libs.items()}
+            for fn in call.values():
+                cs.cuda_ms(fn, 2)  # warm-up
+            t = [cs.cuda_ms(call[tag], 10) for tag in ("other", "repo", "repo", "other")]
+            print(f"{variant} backward at B={B} N={N}: other {(t[0] + t[3]) / 2:.4f} ms, "
+                  f"repo {(t[1] + t[2]) / 2:.4f} ms (turns {[round(v, 4) for v in t]})",
+                  flush=True)
+            for tag in ("repo", "other"):
+                for ms, n, name in by_kernel(call[tag]):
+                    print(f"  {tag} {variant} backward: {ms:.4f} ms a call, {n:g} launches, "
+                          f"{name[:90]}", flush=True)
+        del src, want, dnum, counts
+        torch.cuda.empty_cache()
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -43,8 +43,8 @@ SEED, BATCH = 0, 128
 PROFILED_STEPS = 3
 TURN_STEPS = 5
 KERNELS = ("tail_fwd", "tail_bwd", "sum_partials", "pool_fwd_kernel",
-           "pool_bwd_kernel", "trunk_forward_mma", "trunk_backward_mma", "grad_gemm",
-           "grad_reduce")
+           "pool_bwd_kernel", "pool_bwd_sum", "trunk_forward_mma", "trunk_backward_mma",
+           "grad_gemm", "grad_reduce")
 
 
 def configurations(cs) -> dict:

@@ -358,6 +358,27 @@ def encoder_pool_bound(B: int, N: int, backward: bool, dense: bool, E: int = 32,
     return bound(4 * (src + weights + stats), flops, BF16_FLOPS)
 
 
+def narrow_pool_bwd_bound(B: int, N: int, dense: bool) -> dict:
+    """`encoder_pool_bound`'s bound of the narrow backward (the function), and
+    `as_run_bound_ms`, the backward as `encoder_pool.cu` runs it: per token
+    the k/v recompute, dx2 and the weight gradients (6E^2 multiply-adds) and
+    the scores (Q*E) in one bf16 pass each, v . dnum, dv, dk and dqfull (Q*E
+    each) in three, over the bf16 peak; its bytes add the workspace of
+    partial sums, written once and read once (the library's
+    `scldm_encoder_pool_workspace_floats`)."""
+    from scldm_torch.kernels import build
+
+    E, H, Q = 32, 4, 16
+    f = encoder_pool_bound(B, N, True, dense)
+    weights = Q * E + 2 * E + 2 * E * E
+    table = N * E if dense else B * N * E
+    inputs = table + (B * N if dense else 0) + weights + B * Q * E + 2 * B * Q * H
+    ws = build.load().scldm_encoder_pool_workspace_floats(B, N, int(dense))
+    as_run = bound(4 * (inputs + table + weights + 2 * ws),
+                   2 * B * N * (6 * E * E + 13 * Q * E), BF16_FLOPS)
+    return {**f, "as_run_bound_ms": as_run["bound_ms"], "as_run_bound_by": as_run["bound_by"]}
+
+
 def bf16_distance(got, want, near: float = 1e-4) -> tuple:
     """(max abs error, the reference's largest magnitude, share of entries
     beyond `near` of it) of `got` against `want`."""
@@ -566,6 +587,10 @@ def pool_outputs_and_grads(fn, counts, x, cot, H: int) -> dict:
             "bwd": {f"d{k}": t.grad for k, t in leaves.items()}}
 
 
+# the kernels behind the narrow pools' entry points
+NARROW_POOL_KERNELS = {"fwd": ("pool_fwd_kernel",), "bwd": ("pool_bwd_kernel", "pool_bwd_sum")}
+
+
 def phase1d_encoder_pool(seed: int) -> dict:
     """The encoder-pool kernels, dense and window, forward and backward,
     against their plain versions with autograd, at the VAE steps' shapes
@@ -574,7 +599,10 @@ def phase1d_encoder_pool(seed: int) -> dict:
     then the dense pool's pooled tokens against the module MCAB at a ragged
     shape where the zero-row correction is not 0 (G=300 genes, an S=250
     window). The kernels and the plain versions round the same operands to
-    bf16: `held_bf16`'s bounds, with `POOL_NUM_NEAR` for num."""
+    bf16: `held_bf16`'s bounds, with `POOL_NUM_NEAR` for num. The backwards
+    sum in a fixed order: at every shape each runs twice and repeats its
+    bits. At B=128 each is timed a call through its entry point (`ms`) and
+    on the device (`device_ms`: the profiler, every kernel of the call)."""
     import numpy as np
     import torch
 
@@ -625,16 +653,30 @@ def phase1d_encoder_pool(seed: int) -> dict:
             "bwd": (lambda: bwd(*pre, x["src"], qfull, w, *stats, H, EPS),
                     lambda: bwd_ref(*pre, x["src"], qfull, w, *stats, H, EPS)),
         }
+        first, second = (fns["bwd"][0]() for _ in range(2))
+        if not all(torch.equal(a, c) for a, c in zip((first[0], first[1], *first[2]),
+                                                     (second[0], second[1], *second[2]))):
+            raise AssertionError(f"{variant} pool backward at B={B}, N={N}: a second run gave "
+                                 "other bits")
+        log(f"phase1d {variant}_pool_bwd B={B} N={N}: repeats its bits")
+        del first, second
         for part, (kernel, plain) in fns.items():
             for f in (kernel, plain):
                 cuda_ms(f, 2)  # warm-up
             turns = [cuda_ms(f, 10) for f in (plain, kernel, kernel, plain)]
             ms = ((turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2)
-            log(f"phase1d {variant}_pool_{part} B={B} N={N}: kernel {ms[0]:.4f} ms  "
-                f"plain {ms[1]:.4f} ms")
+            dev = device_ms(kernel, 3, NARROW_POOL_KERNELS[part]) if B == 128 else None
+            log(f"phase1d {variant}_pool_{part} B={B} N={N}: kernel {ms[0]:.4f} ms"
+                + (f" ({dev:.4f} ms on the device)" if dev is not None else "")
+                + f"  plain {ms[1]:.4f} ms")
             if B == 128:
                 out[f"{variant}_{part}"] = {"max_abs_err": max(e for e, *_ in worst[part].values()),
-                                            "ms": ms[0], "plain_ms": ms[1]}
+                                            "ms": ms[0], "plain_ms": ms[1], "device_ms": dev}
+                if part == "bwd":
+                    b = narrow_pool_bwd_bound(B, N, dense)
+                    log(f"phase1d {variant}_pool_bwd B={B} N={N}: bound {b['bound_ms']:.4f} ms "
+                        f"({b['bound_by']}; as run {b['as_run_bound_ms']:.4f}, "
+                        f"{b['as_run_bound_by']})")
 
     # the pooled tokens with G - S = 50 zero rows taken out, on MCAB weights
     # with non-zero LayerNorm biases, against the module on the window
@@ -1490,8 +1532,8 @@ def compare_vae_paths(phase: str, task, module_task, batch) -> None:
 def phase5_parse1m_training(seed: int, batch: int) -> dict:
     """VAE training at parse1m / replogle width through the dense encoder
     pool and the tail kernels, then through the window pool
-    (`VAETask(fused_pool=True)`); returns the main path's launches of each
-    pool and tail kernel."""
+    (`VAETask(fused_pool=True)`), each with its steps' peak device memory;
+    returns the main path's launches of each pool and tail kernel."""
     import numpy as np
     import torch
 
@@ -1521,6 +1563,7 @@ def phase5_parse1m_training(seed: int, batch: int) -> dict:
     for c in counters.values():
         c.reset()
     losses = []
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     for b in batches[1:]:
         state, mets = task.train_step(state, b)
@@ -1537,7 +1580,8 @@ def phase5_parse1m_training(seed: int, batch: int) -> dict:
     log(f"phase5 VAE training B={batch} G={PARSE_GENES} S={PARSE_GENES}: {batch * n / dt:.1f} "
         f"train cells/s, {dt / n * 1e3:.2f} ms/step over {n} steps; losses "
         f"{losses[0].item():.2f} -> {losses[-1].item():.2f}, grad_norm "
-        f"{mets['grad_norm'].item():.3f}; launches {launches}")
+        f"{mets['grad_norm'].item():.3f}; launches {launches}; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     compare_vae_paths("phase5", task, VAETask(vae, fused_decoder=False), batches[-1])
 
     # the window pool: VAETask(fused_pool=True) on the module path
@@ -1547,6 +1591,7 @@ def phase5_parse1m_training(seed: int, batch: int) -> dict:
     torch.cuda.synchronize()
     fe.WINDOW_POOL_FWD_LAUNCHES.reset()
     fe.WINDOW_POOL_BWD_LAUNCHES.reset()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     for b in batches[1:1 + POOL_STEPS]:
         pool_state, mets = pool_task.train_step(pool_state, b)
@@ -1560,7 +1605,8 @@ def phase5_parse1m_training(seed: int, batch: int) -> dict:
         raise AssertionError(f"fused_pool step: loss {mets['train_loss'].item()}")
     log(f"phase5 VAETask(fused_pool=True, fused_decoder=False): {dt / POOL_STEPS * 1e3:.2f} "
         f"ms/step over {POOL_STEPS} steps, loss {mets['train_loss'].item():.2f}, window pool "
-        f"launches fwd {launches['window_pool_fwd']} bwd {launches['window_pool_bwd']}")
+        f"launches fwd {launches['window_pool_fwd']} bwd {launches['window_pool_bwd']}, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     # JAX's bounds between the window pool and the module path
     # (tests/test_fused_encoder.py:227-254): loss 5e-3 relative, grad norm 2%
     (lp, gp), (lm, gm) = (vae_loss_and_grads(t, batches[-1])
@@ -2637,8 +2683,10 @@ def main(argv=None) -> int:
          "source": pool_src,
          "replaces": f"scldm_tpu/ops/fused_encoder.py:{pool_replaces[f'{v}_{part}']}",
          "launches": pool_launches[f"{v}_{part}"], **pools[f"{v}_{part}"],
-         **encoder_pool_bound(128, PARSE_GENES if v == "dense" else WINDOW, part == "bwd",
-                              v == "dense"), "library_ms": None}
+         **(narrow_pool_bwd_bound(128, PARSE_GENES if v == "dense" else WINDOW, v == "dense")
+            if part == "bwd" else
+            encoder_pool_bound(128, PARSE_GENES if v == "dense" else WINDOW, False,
+                               v == "dense")), "library_ms": None}
         for v in ("dense", "window") for part in ("fwd", "bwd")
     ] + [
         # the census decoder's rows: B=16 cells x G=36,601 genes

@@ -81,20 +81,23 @@ _SIGNATURES = {
         ctypes.c_int,
     ),
     # pointers: counts, table, qfull, the four weights, m, dnum, dden, then
-    # dtable, dqfull, dln1g, dln1b, dwk, dwv
+    # dtable, dqfull, dln1g, dln1b, dwk, dwv, workspace
     "scldm_encoder_pool_backward": (
-        [_P] * 16
+        [_P] * 17
         + [ctypes.c_int] * 5  # B, G, E, H, Q
         + [ctypes.c_float, ctypes.c_float, _P],
         ctypes.c_int,
     ),
     # pointers: emb, qfull, the four weights, m, dnum, dden, then demb,
-    # dqfull, dln1g, dln1b, dwk, dwv
+    # dqfull, dln1g, dln1b, dwk, dwv, workspace
     "scldm_window_pool_backward": (
-        [_P] * 15
+        [_P] * 16
         + [ctypes.c_int] * 5  # B, S, E, H, Q
         + [ctypes.c_float, ctypes.c_float, _P],
         ctypes.c_int,
+    ),
+    "scldm_encoder_pool_workspace_floats": (
+        [ctypes.c_int] * 3, ctypes.c_longlong,  # B, N, dense
     ),
     # pointers: emb, qfull, ln1g, ln1b, wk, wv, num, den, m, workspace
     "scldm_window_pool_wide_forward": (

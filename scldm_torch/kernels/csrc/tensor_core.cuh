@@ -1,7 +1,8 @@
 // Tensor-core and copy helpers shared by the kernels that run their products
 // on mma.sync: the DiT block forward and backward (dit_tiled.cuh,
-// dit_block.cu, dit_block_bwd.cu: TF32 with three passes a product) and the
-// decoder tail, forward and backward (decoder_tail.cu, bf16).
+// dit_block.cu, dit_block_bwd.cu: TF32 with three passes a product), the
+// decoder tail, forward and backward (decoder_tail.cu, bf16), and the narrow
+// encoder-pool backward (encoder_pool.cu, bf16).
 //
 // Fragment layouts (PTX ISA, mma.sync.m16n8k8 .tf32 and m16n8k16 .bf16), with
 // lane = 4 gq + tq:
@@ -12,6 +13,12 @@
 //   A bf16 (16 x 16), two values a register, the lower k in the low half:
 //     a0 (gq, 2tq..), a1 (gq + 8, 2tq..), a2 (gq, 2tq + 8..), a3 (gq + 8,
 //     2tq + 8..). B bf16 (16 x 8): b0 (k 2tq.., n gq), b1 (k 2tq + 8.., n gq).
+//   m16n8k8 bf16: A (16 x 8) a0 (gq, 2tq..), a1 (gq + 8, 2tq..); B (8 x 8)
+//     b0 (k 2tq.., n gq).
+//   ldmatrix .trans: lanes 8j..8j + 7 give the row addresses of 8 x 8 matrix
+//     j (16 bytes each); lane 4 gq + tq receives its rows 2tq and 2tq + 1 at
+//     column gq, so a matrix stored [k][n] (or [k][m]) loads as a B (or A)
+//     fragment.
 // So two C tiles side by side (columns 8j and 8j + 8) are, packed to bf16,
 // the A fragment of one k16 step over those 16 columns.
 #pragma once
@@ -71,6 +78,29 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a (16 x 8, row-major bf16) * b (8 x 8, column-major bf16), f32
+__device__ __forceinline__ void mma_bf16_k8(float (&d)[4], const uint32_t (&a)[2], uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b));
+}
+
+// four (or two: lanes 0-15 give the addresses) 8 x 8 b16 matrices from
+// shared memory, transposed
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(row)));
+}
+
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(row)));
 }
 
 // two floats rounded to bf16, `lo` in the low half

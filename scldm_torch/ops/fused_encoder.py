@@ -7,8 +7,10 @@ Pallas `fused_encoder_pool` and `window_pool` the Pallas `fused_window_pool`,
 each with its custom VJP. The kernels come in two designs, chosen by width:
 
 - narrow (E = 32, 4 heads, 16 inducing points, the reference encoder):
-  `scldm_torch/kernels/csrc/encoder_pool.cu`, one CTA per cell, one source
-  templated on where a token's embedding comes from (both variants below);
+  `scldm_torch/kernels/csrc/encoder_pool.cu`, one source templated on where
+  a token's embedding comes from (both variants below): the forward a CTA
+  per cell, the backward on the tensor cores over tiles of tokens and cells
+  with a device workspace;
 - wide (E a multiple of 64 from 256 to 1,024, head width 64, 1 to 1,024
   inducing points: the census encoder, E = 512 with 8 heads over 64, and the
   long-latent one over 1,024): `scldm_torch/kernels/csrc/window_pool_wide.cu`,
@@ -255,11 +257,11 @@ def _launch(entry: str, src, qfull, weights, n_head: int, eps: float, counts=Non
 
 def _launch_bwd(entry: str, src, qfull, weights, m, dnum, dden, n_head: int, eps: float,
                 counts=None):
-    """Backward launch of either variant: (dsrc, dqfull, dweights). The narrow
-    kernels add into dqfull's head-diagonal blocks and the weight gradients
-    (and, dense, into dtable) with atomics, and the window kernel writes demb;
-    the wide kernels write demb, dqfull's head blocks and the weight
-    gradients, each summed in a fixed order."""
+    """Backward launch of either variant: (dsrc, dqfull, dweights). Both
+    designs write every gradient whole (dqfull's head-diagonal blocks, 0
+    elsewhere), each summed in a fixed order through a device workspace that
+    the library sizes: the narrow kernels add their CTAs' partial sums (and,
+    dense, the cell groups' dtable rows) in a second launch."""
     variant = "dense" if counts is not None else "window"
     dnum, dden = dnum.float().contiguous(), dden.float().contiguous()
     B, N, E, Q = _check(variant, src, qfull, weights, n_head, counts, (m, dnum, dden))
@@ -282,15 +284,18 @@ def _launch_bwd(entry: str, src, qfull, weights, m, dnum, dden, n_head: int, eps
         build.check(lib, code, "scldm_window_pool_wide_backward launch")
         grads = (dq, dln[:1], dln[1:], dw[:, :E], dw[:, E:])
     else:
-        dsrc = torch.zeros_like(src) if counts is not None else torch.empty_like(src)
-        grads = [torch.zeros_like(t) for t in (qfull, *weights)]
+        dsrc = torch.empty_like(src)
+        grads = [torch.empty_like(t) for t in (qfull, *weights)]
+        workspace = torch.empty(
+            lib.scldm_encoder_pool_workspace_floats(B, N, int(counts is not None)),
+            dtype=torch.float32, device=src.device)
         pointers = ([counts.data_ptr()] if counts is not None else []) + [src.data_ptr()]
         with torch.cuda.device(src.device):
             stream = torch.cuda.current_stream(src.device).cuda_stream
             code = getattr(lib, entry)(
                 *pointers, qfull.data_ptr(), *(w.data_ptr() for w in weights),
                 m.data_ptr(), dnum.data_ptr(), dden.data_ptr(), dsrc.data_ptr(),
-                *(g.data_ptr() for g in grads),
+                *(g.data_ptr() for g in grads), workspace.data_ptr(),
                 B, N, E, n_head, Q, eps, (E // n_head) ** -0.5, stream,
             )
         build.check(lib, code, f"{entry} launch")

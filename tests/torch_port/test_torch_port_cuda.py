@@ -20,9 +20,10 @@ within 1e-2 of that magnitude everywhere, and within 1e-4 of it on all but
 5% of the entries (chip_smoke.py's phase 1b holds the same bounds); its
 backward sums in a fixed order and repeats its bits. The
 encoder pools round the same operands as their plain versions and sum in
-another order too (the backward's with atomics): the tail's bounds for den,
-m and every gradient, and for num within 3e-4 rather than 1e-4 on all but 5%
-of the entries (see `assert_pool_close`; chip_smoke.py's phase 1d); the wide
+another order too: the tail's bounds for den, m and every gradient, and for
+num within 3e-4 rather than 1e-4 on all but 5% of the entries (see
+`assert_pool_close`; chip_smoke.py's phase 1d); their backwards sum in a
+fixed order and repeat their bits; the wide
 window pool (E = 256 to 1,024, up to 1,024 queries) at the same bounds
 against the plain version evaluated in f64, and both its kernels, which sum
 in a fixed order, repeat their bits. The swiglu_vec and
@@ -380,7 +381,7 @@ def pool_outputs_and_grads(fn, counts, x, cot, n_head=POOL_H):
 
 def assert_pool_close(got, want, ln_gain_near=1e-4):
     """The tail's bounds: the pools round the same operands to bf16 as their
-    plain versions and sum in another order (atomics in the backward). num
+    plain versions and sum in another (fixed) order. num
     is held to 3e-4 where the rest is held to 1e-4: the forward rounds each
     exponential against its tile's running max and the plain version
     against the final max, and the dense pool's identical zero-count rows
@@ -412,6 +413,42 @@ def test_encoder_pools_match_reference_on_gpu(variant, B, N):
     torch.cuda.synchronize()
     assert [c.count for c in counters] == [n + 1 for n in before]
     assert_pool_close(got, pool_outputs_and_grads(reference, counts, x, cot))
+
+
+# ragged (B not a multiple of the dense backward's 4 cells a CTA, N of its 64
+# genes or of the window's 512 tokens a CTA), and the training steps' shapes
+@pytest.mark.parametrize("variant,B,N", [("dense", 19, 300), ("window", 19, 1_100),
+                                         ("dense", 128, 2_000), ("window", 128, 6_147)])
+def test_encoder_pool_backwards_repeat_their_bits_on_gpu(variant, B, N):
+    """The narrow backwards sum every gradient in a fixed order, without
+    atomics (each CTA's partial sums added in index order by a second
+    kernel): the same inputs give the same bits, and one launch is counted a
+    call."""
+    counts, x, cot = _pool_inputs(variant, B, N, "cuda", seed=3)
+    counter = fe.ENCODER_POOL_BWD_LAUNCHES if variant == "dense" else fe.WINDOW_POOL_BWD_LAUNCHES
+    before = counter.count
+    a = pool_outputs_and_grads(fe.encoder_pool if variant == "dense" else fe.window_pool,
+                               counts, x, cot)
+    b = pool_outputs_and_grads(fe.encoder_pool if variant == "dense" else fe.window_pool,
+                               counts, x, cot)
+    assert counter.count == before + 2
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+
+
+def test_encoder_pool_workspace_grows_with_the_grid_on_gpu():
+    """The backwards' workspace, sized by the library alone: 0 without
+    tokens, the CTAs' partial sums (and, dense, the cell groups' dtable rows)
+    otherwise, under 32 MB at both training shapes."""
+    from scldm_torch.kernels import build
+
+    lib = build.load()
+    assert lib.scldm_encoder_pool_workspace_floats(0, 300, 1) == 0
+    assert lib.scldm_encoder_pool_workspace_floats(19, 0, 0) == 0
+    small = lib.scldm_encoder_pool_workspace_floats(19, 300, 1)
+    assert 0 < small < lib.scldm_encoder_pool_workspace_floats(19, 3_000, 1)
+    for dense, N in ((1, 2_000), (0, 6_147)):
+        assert 0 < 4 * lib.scldm_encoder_pool_workspace_floats(128, N, dense) < 32 * 2**20
 
 
 def test_encoder_pool_width_outside_kernel_shapes_raises_on_gpu():

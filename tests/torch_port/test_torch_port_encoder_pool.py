@@ -193,3 +193,64 @@ def test_shape_checks_and_devices():
     with pytest.raises(ValueError, match="cuda or cpu"):
         fe.window_pool_fwd(emb.to("meta"), qfull.to("meta"), [w.to("meta") for w in weights],
                            H, 1e-8)
+
+
+@pytest.mark.parametrize("variant", ["dense", "window"])
+def test_backward_reference_in_f64_matches_pallas_interpret(variant):
+    """The f64 yardstick of the narrow backwards is JAX's function:
+    `encoder_pool_backward_reference` and `window_pool_backward_reference`
+    on f64 inputs (they keep f64 and round to bf16 where the kernels do)
+    against JAX's custom-VJP backward of the Pallas pool (`_fused_bwd`,
+    `_wfused_bwd`) in interpret mode, at a ragged B = 5 cells over N = 130
+    tokens (one Pallas tile, so no padded rows), given the same saved m (JAX's
+    forward) and cotangents (dnum in the head-diagonal blocks JAX's num
+    has). Both round the same operands to bf16; JAX sums in f32, so a bf16
+    rounding flips now and then: each gradient within 1e-2 of its largest
+    magnitude everywhere and within 1e-4 of it on all but 5% of its entries
+    (chip_smoke.held_bf16's bounds)."""
+    from scldm_tpu.ops import fused_encoder as jfe
+
+    rng = np.random.default_rng(7)
+    B, N, hd, eps, scale = 5, 130, E // H, 1e-8, (E // H) ** -0.5
+
+    def f(*s, scale=1.0, shift=0.0):
+        return (rng.normal(size=s) * scale + shift).astype(np.float32)
+
+    src = f(N, E) if variant == "dense" else f(B, N, E)
+    q, ln1g, ln1b = f(Q, E), f(1, E, scale=0.3, shift=1.0), f(1, E, scale=0.3)
+    wk, wv = f(E, E, scale=E**-0.5), f(E, E, scale=E**-0.5)
+    counts = (rng.poisson(3.0, (B, N)) * (rng.random((B, N)) < 0.6)).astype(np.float32)
+    dnum, dden = f(B, Q, E), f(B, Q * H)
+
+    qfull = jfe.build_query_operand(jnp.asarray(q), H)
+    weights = tuple(jnp.asarray(a) for a in (ln1g, ln1b, wk, wv))
+    dnum_full = np.zeros((B, Q * H, E), np.float32)  # JAX's num: (B, Q*H, E)
+    for h in range(H):
+        dnum_full[:, h * Q:(h + 1) * Q, h * hd:(h + 1) * hd] = dnum[:, :, h * hd:(h + 1) * hd]
+    cts = (jnp.asarray(dnum_full), jnp.asarray(dden), None)
+    if variant == "dense":
+        m = jfe.fused_encoder_pool(jnp.asarray(counts), jnp.asarray(src), qfull, weights, scale,
+                                   eps, interpret=True)[2]
+        res = (jnp.asarray(counts), jnp.asarray(src), qfull, weights, m)
+        _, dsrc, dq, dws = jfe._fused_bwd(scale, eps, 1024, 8, True, res, cts)
+    else:
+        m = jfe.fused_window_pool(jnp.asarray(src), qfull, weights, scale, eps, interpret=True)[2]
+        res = (jnp.asarray(src), qfull, weights, m)
+        dsrc, dq, dws = jfe._wfused_bwd(scale, eps, 1024, 8, 0, True, res, cts)
+    want = [np.asarray(g) for g in (dsrc, dq, *dws)]
+
+    t = [torch.from_numpy(a).double() for a in (src, q, ln1g, ln1b, wk, wv, dnum, dden)]
+    stats = (torch.from_numpy(np.array(m)).double(), t[6], t[7])
+    qfull64 = fe.build_query_operand(t[1], H)
+    if variant == "dense":
+        got = fe.encoder_pool_backward_reference(torch.from_numpy(counts), t[0], qfull64, t[2:6],
+                                                 *stats, H, eps)
+    else:
+        got = fe.window_pool_backward_reference(t[0], qfull64, t[2:6], *stats, H, eps)
+    got = [got[0], got[1], *got[2]]
+    for name, g, w in zip(("dsrc", "dqfull", "dln1g", "dln1b", "dwk", "dwv"), got, want):
+        assert g.dtype == torch.float64, name
+        d = np.abs(g.numpy() - w)
+        top = np.abs(w).max()
+        assert top > 0 and d.max() <= 1e-2 * top, (name, d.max() / top)
+        assert (d > 1e-4 * top).mean() <= 0.05, (name, (d > 1e-4 * top).mean())
