@@ -1,27 +1,30 @@
 #!/usr/bin/env python3
-"""Two versions of the narrow encoder-pool backwards side by side, on one NVIDIA GPU.
+"""Versions of the narrow encoder-pool kernels side by side, on one NVIDIA GPU.
 
-    python3 benchmarks_torch/ab_encoder_pool.py OTHER.cu
+    python3 benchmarks_torch/ab_encoder_pool.py OTHER.cu [OTHER2.cu ...]
 
-Builds the repo's kernels (`scldm_torch/kernels/csrc`) and OTHER.cu, another
-version of `encoder_pool.cu`, into two libraries (OTHER.cu with `-I` its own
-directory, then the repo's csrc directory; for the parent commit, `git show
+Builds the repo's kernels (`scldm_torch/kernels/csrc`) and each OTHER.cu,
+another version of `encoder_pool.cu`, into a library of its own (OTHER.cu
+with `-I` its own directory, then the repo's csrc directory) and prints its
+ptxas lines; for the parent commit, `git show
 HEAD~1:scldm_torch/kernels/csrc/encoder_pool.cu` into a gitignored directory
-such as `chip_checkout/`). It adapts to each library's C entries: a library
+such as `chip_checkout/`. It adapts to each library's C entries: a library
 with `scldm_encoder_pool_workspace_floats` writes every gradient and takes a
 workspace of that size; one without it adds into zeroed gradients (the
-zeroing then counts as part of its call). Holds both backwards against the
-plain version (`ops/fused_encoder.encoder_pool_backward_reference` and
-`window_pool_backward_reference`, f32, given the plain forward's m) at
-chip_smoke.py's phase-1d shapes with phase 1d's bounds (`held_bf16`: every
-gradient within 1e-2 of its largest magnitude, at most 5% of the entries
-beyond 1e-4 of it), and runs each twice to see whether it repeats its bits;
-then times both backwards at the dense pool's parse1m shape (B = 128 cells
-of G = 2,000 genes) and the window pool's dentate window (B = 128 cells of
-S = 6,147 tokens) with CUDA events, in turns (other, repo, repo, other), ten
-calls each, and prints the repo version's device time there by kernel (the
-profiler, three calls). Compare two versions only within one run: cards
-differ between runs.
+zeroing then counts as part of its call). Holds both forwards and both
+backwards against the plain versions
+(`ops/fused_encoder.encoder_pool_reference`, `window_pool_reference` and
+their `*_backward_reference`, f32, the backwards given the plain forward's
+m) at chip_smoke.py's phase-1d shapes with phase 1d's bounds (`held_bf16`:
+every output within 1e-2 of its largest magnitude, at most 5% of the
+entries beyond 1e-4 of it, 3e-4 for num), and runs each twice to see
+whether it repeats its bits; then times both forwards and both backwards at
+the dense pool's parse1m shape (B = 128 cells of G = 2,000 genes) and the
+window pool's dentate window (B = 128 cells of S = 6,147 tokens) with CUDA
+events, in turns (other, repo, repo, other) for each other version, ten
+calls each, and prints each version's device time there by kernel (the
+profiler, three calls). Compare versions only within one run: cards differ
+between runs.
 """
 
 from __future__ import annotations
@@ -63,15 +66,34 @@ def bind(lib: ctypes.CDLL) -> bool:
         has_ws = False
     else:
         has_ws = True
-    names = ["scldm_encoder_pool_backward", "scldm_window_pool_backward"]
+    names = ["scldm_encoder_pool_forward", "scldm_window_pool_forward",
+             "scldm_encoder_pool_backward", "scldm_window_pool_backward"]
     names += ["scldm_encoder_pool_workspace_floats"] if has_ws else []
     for name in names:
         argtypes, restype = build._SIGNATURES[name]
-        if not has_ws:
+        if not has_ws and "backward" in name:
             argtypes = argtypes[:argtypes.index(ctypes.c_int) - 1] + argtypes[
                 argtypes.index(ctypes.c_int):]  # no workspace pointer
         getattr(lib, name).argtypes, getattr(lib, name).restype = argtypes, restype
     return has_ws
+
+
+def forward(lib, counts, src, qfull, w) -> dict:
+    """One forward launch of `lib`: (num, den, m)."""
+    import torch
+
+    dense = counts is not None
+    B, N = (counts.shape if dense else src.shape[:2])
+    num = torch.empty(B, Q, E, device="cuda")
+    den, m = torch.empty(B, Q * H, device="cuda"), torch.empty(B, Q * H, device="cuda")
+    pre = [counts.data_ptr()] if dense else []
+    entry = lib.scldm_encoder_pool_forward if dense else lib.scldm_window_pool_forward
+    code = entry(*pre, src.data_ptr(), qfull.data_ptr(), *(t.data_ptr() for t in w), num.data_ptr(),
+                 den.data_ptr(), m.data_ptr(), B, N, E, H, Q, EPS, SCALE,
+                 torch.cuda.current_stream().cuda_stream)
+    if code:
+        raise RuntimeError(f"forward launch: CUDA error {code}")
+    return {"num": num, "den": den, "m": m}
 
 
 def backward(lib, has_ws: bool, counts, src, qfull, w, m, dnum, dden) -> dict:
@@ -106,7 +128,7 @@ def main(argv=None) -> int:
     import torch
 
     args = sys.argv[1:] if argv is None else argv
-    if len(args) != 1:
+    if not args:
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -122,13 +144,25 @@ def main(argv=None) -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     repo = build.load()
-    other_src = Path(args[0]).resolve()
-    other_so = build.BUILD_DIR / "ab_other_encoder_pool.so"
-    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-shared", "-I", str(other_src.parent),
-                    "-I", str(build.CSRC), "-o", str(other_so), str(other_src)],
-                   check=True, capture_output=True)
-    other = ctypes.CDLL(str(other_so))
-    libs = {"repo": (repo, bind(repo)), "other": (other, bind(other))}
+    libs = {"repo": (repo, bind(repo))}
+    srcs = {Path(a).stem: Path(a).resolve() for a in args}
+    builds = {tag: subprocess.Popen(
+        [build._nvcc(), *build.NVCC_FLAGS, "-shared", "-I", str(src.parent), "-I",
+         str(build.CSRC), "-o", str(build.BUILD_DIR / f"ab_{tag}.so"), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for tag, src in srcs.items()}
+    for tag, proc in builds.items():
+        out = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {srcs[tag]}:\n{out}")
+        lines = out.splitlines()
+        for i, line in enumerate(lines):  # registers and spills of the forward and backward
+            if "Compiling entry function" in line and "pool_" in line and "sum" not in line:
+                name = line.split("'")[1]
+                print(f"{tag}: {name[-40:]}: " + " ".join(x.strip() for x in lines[i + 2:i + 4]),
+                      flush=True)
+        lib = ctypes.CDLL(str(build.BUILD_DIR / f"ab_{tag}.so"))
+        libs[tag] = (lib, bind(lib))
+    others = [tag for tag in libs if tag != "repo"]
     blocks = fe.build_query_operand(torch.ones(Q, E, device="cuda"), H) != 0
 
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -149,45 +183,52 @@ def main(argv=None) -> int:
         reference = fe.encoder_pool_reference if dense else fe.window_pool_reference
         reference_bwd = (fe.encoder_pool_backward_reference if dense
                          else fe.window_pool_backward_reference)
-        m = reference(*pre, src, qfull, w, H, EPS)[2]
+        num, den, m = reference(*pre, src, qfull, w, H, EPS)
         dsrc, dq, (dln1g, dln1b, dwk, dwv) = reference_bwd(*pre, src, qfull, w, m, dnum, dden, H,
                                                            EPS)
-        want = {"dsrc": dsrc, "dqfull": dq * blocks, "dln1g": dln1g, "dln1b": dln1b, "dwk": dwk,
-                "dwv": dwv}
-        for tag, (lib, has_ws) in libs.items():
-            got, again = (backward(lib, has_ws, counts, src, qfull, w, m, dnum, dden)
-                          for _ in range(2))
-            torch.cuda.synchronize()
-            report = []
-            for k, v in want.items():
-                try:
-                    worst = cs.held_bf16(f"{tag} {k}", got[k], v)
-                    report.append(f"{k} {worst[1]:.1e} of max, {worst[2]:.1e} beyond")
-                except AssertionError as e:
+        want = {"forward": {"num": num, "den": den, "m": m},
+                "backward": {"dsrc": dsrc, "dqfull": dq * blocks, "dln1g": dln1g,
+                             "dln1b": dln1b, "dwk": dwk, "dwv": dwv}}
+        calls = {
+            "forward": {tag: (lambda lib=lib: forward(lib, counts, src, qfull, w))
+                        for tag, (lib, _) in libs.items()},
+            "backward": {tag: (lambda lib=lib, has_ws=has_ws: backward(
+                lib, has_ws, counts, src, qfull, w, m, dnum, dden))
+                for tag, (lib, has_ws) in libs.items()},
+        }
+        for part, call in calls.items():
+            for tag in libs:
+                got, again = call[tag](), call[tag]()
+                torch.cuda.synchronize()
+                report = []
+                for k, v in want[part].items():
+                    try:
+                        worst = cs.held_bf16(f"{tag} {k}", got[k], v,
+                                             cs.POOL_NUM_NEAR if k == "num" else 1e-4)
+                        report.append(f"{k} {worst[1]:.1e} of max, {worst[2]:.1e} beyond")
+                    except AssertionError as e:
+                        failed = True
+                        report.append(f"FAILED {e}")
+                same = all(torch.equal(got[k], again[k]) for k in got)
+                print(f"{tag} {variant} {part} B={B} N={N}: " + "; ".join(report)
+                      + ("; repeats its bits" if same else "; other bits on a second run"),
+                      flush=True)
+                if tag == "repo" and not same:
                     failed = True
-                    report.append(f"FAILED {e}")
-            same = all(torch.equal(got[k], again[k]) for k in got)
-            print(f"{tag} {variant} B={B} N={N}: " + "; ".join(report)
-                  + ("; repeats its bits" if same else "; other bits on a second run"),
-                  flush=True)
-            if tag == "repo" and not same:
-                failed = True
-            del got, again
-        if B == 128:
-            call = {tag: (lambda lib=lib, has_ws=has_ws: backward(lib, has_ws, counts, src, qfull,
-                                                                  w, m, dnum, dden))
-                    for tag, (lib, has_ws) in libs.items()}
-            for fn in call.values():
-                cs.cuda_ms(fn, 2)  # warm-up
-            t = [cs.cuda_ms(call[tag], 10) for tag in ("other", "repo", "repo", "other")]
-            print(f"{variant} backward at B={B} N={N}: other {(t[0] + t[3]) / 2:.4f} ms, "
-                  f"repo {(t[1] + t[2]) / 2:.4f} ms (turns {[round(v, 4) for v in t]})",
-                  flush=True)
-            for tag in ("repo", "other"):
-                for ms, n, name in by_kernel(call[tag]):
-                    print(f"  {tag} {variant} backward: {ms:.4f} ms a call, {n:g} launches, "
-                          f"{name[:90]}", flush=True)
-        del src, want, dnum, counts
+                del got, again
+            if B == 128:
+                for fn in call.values():
+                    cs.cuda_ms(fn, 2)  # warm-up
+                for other in others:
+                    t = [cs.cuda_ms(call[tag], 10) for tag in (other, "repo", "repo", other)]
+                    print(f"{variant} {part} at B={B} N={N}: {other} {(t[0] + t[3]) / 2:.4f} ms, "
+                          f"repo {(t[1] + t[2]) / 2:.4f} ms (turns {[round(v, 4) for v in t]})",
+                          flush=True)
+                for tag in libs:
+                    for ms, n, name in by_kernel(call[tag]):
+                        print(f"  {tag} {variant} {part}: {ms:.4f} ms a call, {n:g} launches, "
+                              f"{name[:90]}", flush=True)
+        del src, want, dnum, counts, calls
         torch.cuda.empty_cache()
     return 1 if failed else 0
 

@@ -42,7 +42,7 @@ PROFILED_STEPS = 3
 DIT_KERNELS = ("gemm", "attention", "ln_modulate_tokens", "silu_rows", "grad_gemm", "grad_reduce",
                "attention_dq", "attention_dkv", "ln_bwd", "sum_parts", "dc_rows")
 # the window pool's forward kernels (narrow: encoder_pool.cu; wide: window_pool_wide.cu)
-POOL_KERNELS = ("pool_fwd_kernel", "prep_weights", "prep_q", "ln_rows", "gemm_bf16", "attn_fwd",
+POOL_KERNELS = ("pool_fwd_mma", "prep_weights", "prep_q", "ln_rows", "gemm_bf16", "attn_fwd",
                 "attn_merge", "exact_max")
 
 

@@ -42,7 +42,7 @@ ROOT = Path(__file__).resolve().parents[1]
 SEED, BATCH = 0, 128
 PROFILED_STEPS = 3
 TURN_STEPS = 5
-KERNELS = ("tail_fwd", "tail_bwd", "sum_partials", "pool_fwd_kernel",
+KERNELS = ("tail_fwd", "tail_bwd", "sum_partials", "pool_fwd_mma",
            "pool_bwd_kernel", "pool_bwd_sum", "trunk_forward_mma", "trunk_backward_mma",
            "grad_gemm", "grad_reduce")
 

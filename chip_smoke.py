@@ -21,8 +21,9 @@ block backward kernels against their plain version at the dentate, census
 and long-latent LDM training steps' shapes (T = 16, 64 and 1,024) and ragged
 ones, with a bitwise repeat at the dentate and census shapes, timing both. Phase 1d holds the
 encoder-pool kernels (dense and window, forward and backward) against theirs at
-the VAE steps' shapes and ragged ones, timing both, and the dense pool's pooled
-tokens against the module MCAB where the zero-row correction is not 0; then the
+the VAE steps' shapes and ragged ones, each repeating its bits, timing both,
+and the dense pool's pooled tokens against the module MCAB where the zero-row
+correction is not 0; then the
 wide window-pool kernels (the census encoder's design) against their plain
 version at the census window (B = 16 cells of S = 4,096 tokens, E = 512, 8
 heads, 64 inducing points), a ragged one, at E = 256, at the long-latent
@@ -379,6 +380,27 @@ def narrow_pool_bwd_bound(B: int, N: int, dense: bool) -> dict:
     return {**f, "as_run_bound_ms": as_run["bound_ms"], "as_run_bound_by": as_run["bound_by"]}
 
 
+def narrow_pool_fwd_bound(B: int, N: int, dense: bool) -> dict:
+    """`encoder_pool_bound`'s bound of the narrow forward (the function), and
+    `as_run_bound_ms`, the forward as `encoder_pool.cu` runs it: two passes
+    over each cell's tokens, pass 1 k and the scores, pass 2 k, v, the scores
+    and the pooled values (3E^2 + 3Q*E multiply-adds a token, one bf16 pass
+    each) over the bf16 peak; its bytes add the rows it reads again (the
+    library's `scldm_encoder_pool_forward_rows`: the candidates of each row's
+    max, and in pass 2 the rows past the warps' bf(x2) caches), with their
+    counts (dense)."""
+    from scldm_torch.kernels import build
+
+    E, H, Q = 32, 4, 16
+    f = encoder_pool_bound(B, N, False, dense)
+    weights = Q * E + 2 * E + 2 * E * E
+    src = N * E + B * N if dense else B * N * E
+    again = B * (build.load().scldm_encoder_pool_forward_rows(N) - N) * (E + (1 if dense else 0))
+    as_run = bound(4 * (src + again + weights + B * Q * E + 2 * B * Q * H),
+                   2 * B * N * (3 * E * E + 3 * Q * E), BF16_FLOPS)
+    return {**f, "as_run_bound_ms": as_run["bound_ms"], "as_run_bound_by": as_run["bound_by"]}
+
+
 def bf16_distance(got, want, near: float = 1e-4) -> tuple:
     """(max abs error, the reference's largest magnitude, share of entries
     beyond `near` of it) of `got` against `want`."""
@@ -588,7 +610,7 @@ def pool_outputs_and_grads(fn, counts, x, cot, H: int) -> dict:
 
 
 # the kernels behind the narrow pools' entry points
-NARROW_POOL_KERNELS = {"fwd": ("pool_fwd_kernel",), "bwd": ("pool_bwd_kernel", "pool_bwd_sum")}
+NARROW_POOL_KERNELS = {"fwd": ("pool_fwd_mma",), "bwd": ("pool_bwd_kernel", "pool_bwd_sum")}
 
 
 def phase1d_encoder_pool(seed: int) -> dict:
@@ -599,10 +621,11 @@ def phase1d_encoder_pool(seed: int) -> dict:
     then the dense pool's pooled tokens against the module MCAB at a ragged
     shape where the zero-row correction is not 0 (G=300 genes, an S=250
     window). The kernels and the plain versions round the same operands to
-    bf16: `held_bf16`'s bounds, with `POOL_NUM_NEAR` for num. The backwards
-    sum in a fixed order: at every shape each runs twice and repeats its
-    bits. At B=128 each is timed a call through its entry point (`ms`) and
-    on the device (`device_ms`: the profiler, every kernel of the call)."""
+    bf16: `held_bf16`'s bounds, with `POOL_NUM_NEAR` for num. All four sum
+    in a fixed order: at every shape each runs twice and repeats its bits.
+    At B=128 each is timed in turns with its plain version a call through
+    its entry point (`ms`) and on the device (`device_ms`: the profiler,
+    every kernel of the call), beside its bound as run."""
     import numpy as np
     import torch
 
@@ -653,12 +676,12 @@ def phase1d_encoder_pool(seed: int) -> dict:
             "bwd": (lambda: bwd(*pre, x["src"], qfull, w, *stats, H, EPS),
                     lambda: bwd_ref(*pre, x["src"], qfull, w, *stats, H, EPS)),
         }
-        first, second = (fns["bwd"][0]() for _ in range(2))
-        if not all(torch.equal(a, c) for a, c in zip((first[0], first[1], *first[2]),
-                                                     (second[0], second[1], *second[2]))):
-            raise AssertionError(f"{variant} pool backward at B={B}, N={N}: a second run gave "
-                                 "other bits")
-        log(f"phase1d {variant}_pool_bwd B={B} N={N}: repeats its bits")
+        for part, flat in (("fwd", lambda r: r), ("bwd", lambda r: (r[0], r[1], *r[2]))):
+            first, second = (flat(fns[part][0]()) for _ in range(2))
+            if not all(torch.equal(a, c) for a, c in zip(first, second)):
+                raise AssertionError(f"{variant} pool {part} at B={B}, N={N}: a second run gave "
+                                     "other bits")
+            log(f"phase1d {variant}_pool_{part} B={B} N={N}: repeats its bits")
         del first, second
         for part, (kernel, plain) in fns.items():
             for f in (kernel, plain):
@@ -672,11 +695,11 @@ def phase1d_encoder_pool(seed: int) -> dict:
             if B == 128:
                 out[f"{variant}_{part}"] = {"max_abs_err": max(e for e, *_ in worst[part].values()),
                                             "ms": ms[0], "plain_ms": ms[1], "device_ms": dev}
-                if part == "bwd":
-                    b = narrow_pool_bwd_bound(B, N, dense)
-                    log(f"phase1d {variant}_pool_bwd B={B} N={N}: bound {b['bound_ms']:.4f} ms "
-                        f"({b['bound_by']}; as run {b['as_run_bound_ms']:.4f}, "
-                        f"{b['as_run_bound_by']})")
+                b = (narrow_pool_bwd_bound if part == "bwd" else narrow_pool_fwd_bound)(B, N,
+                                                                                        dense)
+                log(f"phase1d {variant}_pool_{part} B={B} N={N}: bound {b['bound_ms']:.4f} ms "
+                    f"({b['bound_by']}; as run {b['as_run_bound_ms']:.4f}, "
+                    f"{b['as_run_bound_by']})")
 
     # the pooled tokens with G - S = 50 zero rows taken out, on MCAB weights
     # with non-zero LayerNorm biases, against the module on the window
@@ -2683,10 +2706,8 @@ def main(argv=None) -> int:
          "source": pool_src,
          "replaces": f"scldm_tpu/ops/fused_encoder.py:{pool_replaces[f'{v}_{part}']}",
          "launches": pool_launches[f"{v}_{part}"], **pools[f"{v}_{part}"],
-         **(narrow_pool_bwd_bound(128, PARSE_GENES if v == "dense" else WINDOW, v == "dense")
-            if part == "bwd" else
-            encoder_pool_bound(128, PARSE_GENES if v == "dense" else WINDOW, False,
-                               v == "dense")), "library_ms": None}
+         **(narrow_pool_bwd_bound if part == "bwd" else narrow_pool_fwd_bound)(
+             128, PARSE_GENES if v == "dense" else WINDOW, v == "dense"), "library_ms": None}
         for v in ("dense", "window") for part in ("fwd", "bwd")
     ] + [
         # the census decoder's rows: B=16 cells x G=36,601 genes

@@ -99,6 +99,7 @@ _SIGNATURES = {
     "scldm_encoder_pool_workspace_floats": (
         [ctypes.c_int] * 3, ctypes.c_longlong,  # B, N, dense
     ),
+    "scldm_encoder_pool_forward_rows": ([ctypes.c_int], ctypes.c_longlong),  # N
     # pointers: emb, qfull, ln1g, ln1b, wk, wv, num, den, m, workspace
     "scldm_window_pool_wide_forward": (
         [_P] * 10

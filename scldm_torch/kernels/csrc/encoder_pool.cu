@@ -32,46 +32,68 @@
 // head blocks ds^T bf(k), dln1g, dln1b. The caller rounds dqfull, dwk and dwv
 // to bf16 after the whole sum.
 //
-// What bounds it on an H100. Forward: operations, about 3.1k multiply-adds a
-// token (2 E^2 for k and v, Q*E each for the scores and the pooled values),
-// or one read of the (B, S, E) window (window: 100.7 MB at B=128, S=6,147).
-// Backward: about 9.2k multiply-adds a token, which the bf16 tensor cores
-// would run in 5 us at parse1m (B=128, G=2,000) and 15 us at the dentate
-// window; the window's bytes (the window read and demb written, 201 MB) take
-// 60 us. As built, latency bounds it: each warp's 16-token tile is a chain of
-// about 1,100 dependent instructions (products, exponentials, bf16 splits,
-// the LayerNorm and its backward) and 16 warps an SM (128 registers a
-// thread) hide only part of it.
+// What bounds it on an H100. Forward: about 3.1k multiply-adds a token (2 E^2
+// for k and v, Q*E each for the scores and the pooled values), which the bf16
+// tensor cores would run in 1.6 us at parse1m (B=128, G=2,000), and the 64
+// exponentials a token; the window's one read of the (B, S, E) embeddings
+// (100.7 MB at B=128, S=6,147) takes 30 us. Backward: about 9.2k
+// multiply-adds a token, which the bf16 tensor cores would run in 5 us at
+// parse1m and 15 us at the dentate window; the window's bytes (the window read
+// and demb written, 201 MB) take 60 us. As built, the forward's first pass
+// over the window streams at the memory's rate and its second pass, like
+// the dense forward and the backward, is bound by its instructions: each
+// warp's 16-token tile is a chain of dependent instructions (products,
+// exponentials, the LayerNorm, bf16 packing; about 1,100 in the backward) and
+// 16 warps an SM (128 registers a thread) hide only part of it.
 //
-// What the design does about it. Forward: one CTA per cell, 256 threads; a
-// tile of 256 tokens, one per thread, computes LayerNorm, k, v and the 64
-// scores in registers against bf(wk), bf(wv) and bf(q) staged once in shared
-// memory (broadcast reads, 16-byte vectors), and stages the scores and bf(v);
-// then each thread owns one (query, head) and a quarter of the tile's tokens
-// for the online softmax: the four parts agree on the tile max through shared
-// memory, keep their own partial sums under that common max, and add them at
-// the end.
-// Backward: every product on mma.sync bf16 (m16n8k16, m16n8k8 where a head's
-// 8 columns are the depth). A CTA of 4 warps and 32 KB of shared memory, four
-// on an SM (16 warps), takes 64 genes of 4 cells (dense: 32 x 32 CTAs at
-// parse1m, two waves) or 512 window tokens of one cell, a stage of 64 tokens
-// of one cell at a time. Each warp runs 16 tokens in registers: 16-byte loads
-// of the rows, the LayerNorm on the thread's own 8 columns (a quad of lanes
-// a row), the k/v recompute, then per head the scores, e, v . dnum, dv, dk
-// and the head's block of dqfull, each C fragment repacked (or transposed
-// across the warp by movmatrix) as the next product's A or B fragment, then
-// dx2 and the LayerNorm backward; it writes demb once (16-byte stores), keeps
-// dqfull's blocks and the LayerNorm sums in registers, and stages bf(x2),
-// bf(dk) and bf(dv). The CTA then adds the stage's dwk and dwv over its 64
-// tokens (token-axis products read by ldmatrix.trans), a warp per output
-// block, the stage summed from zero on the tensor cores and added in f32.
-// Where an operand is an f32 cotangent (dnum in v . dnum and dv, ds in dk and
-// dqfull) it runs as three bf16 passes (hi, mid, lo: the products are rounded
-// to bf16 next, so f32 accuracy keeps those roundings where f32 sums put
-// them). No atomics: each CTA writes its partial sums (and, dense, its cell
-// group's dtable rows) to a workspace, and a second kernel adds them in index
-// order, so every gradient is written whole and repeats its bits. The
-// workspace is sized by scldm_encoder_pool_workspace_floats.
+// What the design does about it. Both directions run every product on
+// mma.sync bf16, one pass where both operands are bf16 roundings, 16 warps an
+// SM. A warp runs 16 tokens of one cell in registers, rows gq and gq + 8 a
+// thread (lane = 4 gq + tq; tensor_core.cuh): the LayerNorm on the thread's
+// own 8 columns (a quad of lanes a row), bf(x2) as the A fragments of k =
+// bf(x2) @ W with the k index permuted, k and v (`layer_norm_row`,
+// `head_proj`: the same code, so the same bits, both ways).
+// Forward: one CTA of 16 warps a cell, one CTA an SM (at B = 128 one wave;
+// the bits depend on the shapes alone). The exponentials are rounded to bf16
+// against the cell's final max, as the plain version rounds them, so the
+// forward takes two passes over the cell's tokens: pass 1 the scores' row
+// maxima, pass 2 e, den and num. (Rounding against a running max, as the TPU
+// kernel does tile by tile, moves num away from the plain version by a bf16
+// rounding of every exponential; at 16-token tiles that broke the plain
+// version's bounds on num.) Per head the scores run transposed, s^T = bf(q)
+// bf(k)^T on m16n8k8 with the queries on the rows (k's C fragment is the B
+// operand as it stands; the products and their order over d are the
+// backward's). Those sums truncate, so now and then they flip a bf16
+// rounding of k that an f32 sum would not, and the backward scales a row's
+// gradients with m: so m is the largest of the 4 scores, taken again exactly
+// (k summed in f64, as `exact_max` does for the wide pool), of the tile and
+// thread that first reach the row's max on the tensor cores; e =
+// 2^(s scale log2(e) - m log2(e)) takes the backward's formula;
+// num += bf(e) bf(v) on m16n8k16, bf(e) repacked from the C fragments as the
+// A operand, bf(v)'s fragments transposed across the warp by movmatrix, each
+// tile summed from zero and added in f32. A warp streams its tiles of rows
+// (and dense, counts) through a 3-stage cp.async ring, two tiles in flight
+// while it computes one, and keeps bf(x2) of its first kCacheTiles tiles in
+// shared memory: pass 2 reads those and streams the rest again, last read
+// first. The warps' (den, num) are added in warp order through shared
+// memory. One launch, no workspace.
+// Backward: a CTA takes 64 genes of 4 cells (dense: 32 x 32 CTAs at parse1m,
+// two waves) or 512 window tokens of one cell, a stage of 64 tokens of one
+// cell at a time. Per head the scores, e, v . dnum, dv, dk and the head's
+// block of dqfull, each C fragment repacked (or transposed across the warp by
+// movmatrix) as the next product's A or B fragment, then dx2 and the LayerNorm
+// backward; it writes demb once (16-byte stores), keeps dqfull's blocks and
+// the LayerNorm sums in registers, and stages bf(x2), bf(dk) and bf(dv). The
+// CTA then adds the stage's dwk and dwv over its 64 tokens (token-axis
+// products read by ldmatrix.trans), a warp per output block, the stage summed
+// from zero on the tensor cores and added in f32. Where an operand is an f32
+// cotangent (dnum in v . dnum and dv, ds in dk and dqfull) it runs as three
+// bf16 passes (hi, mid, lo: the products are rounded to bf16 next, so f32
+// accuracy keeps those roundings where f32 sums put them). No atomics: each
+// CTA writes its partial sums (and, dense, its cell group's dtable rows) to a
+// workspace, and a second kernel adds them in index order, so every gradient
+// is written whole and repeats its bits. The workspace is sized by
+// scldm_encoder_pool_workspace_floats.
 //
 // Compiled for E=32, 4 heads, Q=16 (the reference encoder); the thread-to-
 // output maps assume E == 32 and Q*H == 64.
@@ -89,293 +111,13 @@ namespace {
 
 constexpr int kE = 32, kH = 4, kQ = 16;
 constexpr int kHD = kE / kH, kQH = kQ * kH;
-constexpr int kFwdT = 256;             // forward: tokens per tile, one per thread
-constexpr int kParts = kFwdT / kQH;    // forward: threads per (query, head) in the softmax pass
-constexpr int kRS = kE + 4;            // row stride of a staged (token, E) tile: 16-byte rows
-constexpr int kSS = kQH + 1;           // row stride of a staged (token, Q*H) tile: odd
-static_assert(kE == 32 && kQH == 64 && kParts == 4, "the thread maps assume E=32, Q*H=64");
-
-__host__ __device__ constexpr int up4(int n) { return (n + 3) & ~3; }
+constexpr int kWarps = 4;  // the backward's CTA (and `stage_frags`'s thread maps)
+constexpr int kThreads = 32 * kWarps;
+constexpr float kLog2e = 1.4426950408889634f;
+static_assert(kHD == 8 && kQ == 16 && kE == 32, "the fragment maps assume heads of 8, 16 queries");
 
 __device__ __forceinline__ float bf(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-__device__ __forceinline__ void store_row(float* dst, const float (&x)[kE]) {
-#pragma unroll
-  for (int e = 0; e < kE; e += 4)
-    *reinterpret_cast<float4*>(dst + e) = make_float4(x[e], x[e + 1], x[e + 2], x[e + 3]);
-}
-
-template <int N>
-__device__ __forceinline__ void load_vec(const float* src, float (&x)[N]) {
-#pragma unroll
-  for (int e = 0; e < N; e += 4) {
-    const float4 v = *reinterpret_cast<const float4*>(src + e);
-    x[e] = v.x;
-    x[e + 1] = v.y;
-    x[e + 2] = v.z;
-    x[e + 3] = v.w;
-  }
-}
-
-// The weights the forward stages once per CTA, in floats: bf(wk), bf(wv)
-// (in, out), bf(q) (Q, E) (column block h of row i: head h of query i, the
-// head blocks of qfull), ln1g, ln1b.
-struct Weights {
-  static constexpr int kFloats = 2 * kE * kE + kQ * kE + 2 * kE;
-  float *wk, *wv, *q, *g, *b;
-  __device__ explicit Weights(float* s) {
-    wk = s;
-    wv = wk + kE * kE;
-    q = wv + kE * kE;
-    g = q + kQ * kE;
-    b = g + kE;
-  }
-  __device__ void stage(const float* wk_in, const float* wv_in, const float* qfull,
-                        const float* g_in, const float* b_in) {
-    for (int i = threadIdx.x; i < kE * kE; i += blockDim.x) {
-      wk[i] = bf(wk_in[i]);
-      wv[i] = bf(wv_in[i]);
-    }
-    for (int i = threadIdx.x; i < kQ * kE; i += blockDim.x) {
-      const int qi = i / kE, c = i % kE;
-      q[i] = bf(qfull[(size_t)((c / kHD) * kQ + qi) * kE + c]);
-    }
-    for (int i = threadIdx.x; i < kE; i += blockDim.x) {
-      g[i] = g_in[i];
-      b[i] = b_in[i];
-    }
-  }
-};
-
-// x = the embedding of token t of cell b; returns the dense variant's
-// log1p(count), the factor of dtable (1 for the window)
-template <bool kDense>
-__device__ __forceinline__ float load_token(const float* counts, const float* src, int b, int t,
-                                            int N, float (&x)[kE]) {
-  const float* row = kDense ? src + (size_t)t * kE : src + ((size_t)b * N + t) * kE;
-  const float lc = kDense ? log1pf(__ldg(counts + (size_t)b * N + t)) : 1.f;
-#pragma unroll
-  for (int e = 0; e < kE; e += 4) {
-    const float4 v = __ldg(reinterpret_cast<const float4*>(row + e));
-    x[e] = kDense ? v.x * lc : v.x;
-    x[e + 1] = kDense ? v.y * lc : v.y;
-    x[e + 2] = kDense ? v.z * lc : v.z;
-    x[e + 3] = kDense ? v.w * lc : v.w;
-  }
-  return lc;
-}
-
-// x -> (x - mean) * rstd in place; returns rstd
-__device__ __forceinline__ float normalize(float (&x)[kE], float eps) {
-  float s = 0.f;
-#pragma unroll
-  for (int e = 0; e < kE; ++e) s += x[e];
-  const float mean = s / kE;
-  float v = 0.f;
-#pragma unroll
-  for (int e = 0; e < kE; ++e) {
-    x[e] -= mean;
-    v = fmaf(x[e], x[e], v);
-  }
-  const float rstd = rsqrtf(v / kE + eps);
-#pragma unroll
-  for (int e = 0; e < kE; ++e) x[e] *= rstd;
-  return rstd;
-}
-
-// xb = bf(xhat * g + b), then k = xb @ wk and v = xb @ wv
-__device__ __forceinline__ void ln_project(const float (&xhat)[kE], const Weights& w,
-                                           float (&xb)[kE], float (&k)[kE], float (&v)[kE]) {
-#pragma unroll
-  for (int e = 0; e < kE; ++e) {
-    xb[e] = bf(__fadd_rn(__fmul_rn(xhat[e], w.g[e]), w.b[e]));
-    k[e] = 0.f;
-    v[e] = 0.f;
-  }
-#pragma unroll
-  for (int e = 0; e < kE; ++e) {
-    const float xe = xb[e];
-#pragma unroll
-    for (int o = 0; o < kE; o += 4) {
-      const float4 a = *reinterpret_cast<const float4*>(w.wk + e * kE + o);
-      const float4 c = *reinterpret_cast<const float4*>(w.wv + e * kE + o);
-      k[o] = fmaf(xe, a.x, k[o]);
-      k[o + 1] = fmaf(xe, a.y, k[o + 1]);
-      k[o + 2] = fmaf(xe, a.z, k[o + 2]);
-      k[o + 3] = fmaf(xe, a.w, k[o + 3]);
-      v[o] = fmaf(xe, c.x, v[o]);
-      v[o + 1] = fmaf(xe, c.y, v[o + 1]);
-      v[o + 2] = fmaf(xe, c.z, v[o + 2]);
-      v[o + 3] = fmaf(xe, c.w, v[o + 3]);
-    }
-  }
-}
-
-// sum_d kb[d] * q[d] over one head's HD columns
-__device__ __forceinline__ float head_dot(const float* kb, const float* q) {
-  float acc = 0.f;
-#pragma unroll
-  for (int d = 0; d < kHD; ++d) acc = fmaf(kb[d], q[d], acc);
-  return acc;
-}
-
-struct FwdSmem {
-  // Weights, the parts' tile maxima (kParts, QH), scores (T, kSS), bf(v) (T, kRS)
-  static constexpr int kFloats = Weights::kFloats + kParts * kQH + up4(kFwdT * kSS) + kFwdT * kRS;
-};
-
-template <bool kDense>
-__global__ void __launch_bounds__(kFwdT)
-pool_fwd_kernel(const float* __restrict__ counts, const float* __restrict__ src,
-                const float* __restrict__ qfull, const float* __restrict__ ln1g,
-                const float* __restrict__ ln1b, const float* __restrict__ wk,
-                const float* __restrict__ wv, float* __restrict__ num, float* __restrict__ den,
-                float* __restrict__ mout, int N, float eps, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  Weights w(smem);
-  w.stage(wk, wv, qfull, ln1g, ln1b);
-  float* PM = smem + Weights::kFloats;
-  float* S = PM + kParts * kQH;
-  float* V = S + up4(kFwdT * kSS);
-
-  const int b = blockIdx.x, tid = threadIdx.x;
-  // softmax pass: thread -> (query-head hq, part); a warp shares its part, so
-  // its 32 threads read 32 consecutive scores of one token
-  const int part = tid / kQH, hq = tid % kQH, h = hq / kQ;
-  float m = -INFINITY, dsum = 0.f, acc[kHD];
-#pragma unroll
-  for (int d = 0; d < kHD; ++d) acc[d] = 0.f;
-
-  for (int t0 = 0; t0 < N; t0 += kFwdT) {
-    __syncthreads();  // the weights are staged; the last tile's readers are done
-    const int t = t0 + tid;
-    if (t < N) {
-      float x[kE], xb[kE], k[kE], v[kE];
-      load_token<kDense>(counts, src, b, t, N, x);
-      normalize(x, eps);
-      ln_project(x, w, xb, k, v);
-#pragma unroll
-      for (int e = 0; e < kE; ++e) {
-        k[e] = bf(k[e]);
-        v[e] = bf(v[e]);
-      }
-      store_row(V + tid * kRS, v);
-      float* srow = S + tid * kSS;
-#pragma unroll
-      for (int hh = 0; hh < kH; ++hh)
-#pragma unroll
-        for (int i = 0; i < kQ; ++i)
-          srow[hh * kQ + i] = head_dot(k + hh * kHD, w.q + i * kE + hh * kHD) * scale;
-    }
-    __syncthreads();
-
-    const int nt = min(kFwdT, N - t0);
-    float tmax = -INFINITY;
-    for (int j = part; j < nt; j += kParts) tmax = fmaxf(tmax, S[j * kSS + hq]);
-    PM[part * kQH + hq] = tmax;
-    __syncthreads();
-#pragma unroll
-    for (int p = 0; p < kParts; ++p) tmax = fmaxf(tmax, PM[p * kQH + hq]);
-    const float mnew = fmaxf(m, tmax);
-    const float alpha = expf(m - mnew);  // 0 on the first tile, where m = -inf
-    dsum *= alpha;
-#pragma unroll
-    for (int d = 0; d < kHD; ++d) acc[d] *= alpha;
-    for (int j = part; j < nt; j += kParts) {
-      const float e = expf(S[j * kSS + hq] - mnew);
-      dsum += e;
-      const float eb = bf(e);
-      float vb[kHD];
-      load_vec(V + j * kRS + h * kHD, vb);
-#pragma unroll
-      for (int d = 0; d < kHD; ++d) acc[d] = fmaf(eb, vb[d], acc[d]);
-    }
-    m = mnew;
-  }
-
-  // the parts share m: add their partial sums
-  __syncthreads();
-  float* P = S;  // (kParts, QH, 1 + HD)
-  P[(part * kQH + hq) * (kHD + 1)] = dsum;
-#pragma unroll
-  for (int d = 0; d < kHD; ++d) P[(part * kQH + hq) * (kHD + 1) + 1 + d] = acc[d];
-  __syncthreads();
-  if (part == 0) {
-    for (int p = 1; p < kParts; ++p) {
-      const float* pp = P + (p * kQH + hq) * (kHD + 1);
-      dsum += pp[0];
-#pragma unroll
-      for (int d = 0; d < kHD; ++d) acc[d] += pp[1 + d];
-    }
-    mout[(size_t)b * kQH + hq] = m;
-    den[(size_t)b * kQH + hq] = dsum;
-    float* nrow = num + ((size_t)b * kQ + hq % kQ) * kE + h * kHD;
-#pragma unroll
-    for (int d = 0; d < kHD; ++d) nrow[d] = acc[d];
-  }
-}
-
-
-// ---------------------------------------------------------------------------
-// backward: tensor cores, fixed-order sums
-// ---------------------------------------------------------------------------
-//
-// A warp owns a tile of 16 tokens of one cell, rows gq and gq + 8 a thread
-// (lane = 4 gq + tq; tensor_core.cuh). A thread holds its rows' embedding
-// columns 4tq..4tq+3 and 16+4tq..16+4tq+3 (value u = 0..7 at `own_col`), read
-// and written as 16-byte vectors. Those are the columns its A fragments of
-// bf(x2) hold once the k index of x2 @ W is permuted (k = 16j + 8h + 2t + l
-// is column 16j + 4t + 2h + l: the B fragments of W are staged in that
-// order), and the columns its C fragments of dx2 = dk @ W^T hold once the n
-// index is permuted alike (`dx_col`), so the LayerNorm and its backward run
-// on the thread's own values. Per head the scores, exponentials and
-// cotangents stay in C fragments, which repack as the next product's A
-// fragments.
-
-constexpr int kBwdWarps = 4;
-constexpr int kBwdThreads = 32 * kBwdWarps;
-constexpr int kStageT = 16 * kBwdWarps;  // tokens a stage: a 16-token tile a warp
-constexpr int kDenseCells = 4;           // dense: cells a CTA, a stage each
-constexpr int kWindowChunk = 512;        // window: tokens a CTA
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kBP = kE + 8;              // bf16 row pitch of a staged (token, E) tile: 80 bytes
-// a CTA's partial sums: dwk, dwv (E, E) each, dqfull's head blocks (Q*H, HD),
-// dln1g, dln1b (E each)
-constexpr int kPartDq = 2 * kE * kE, kPartLn = kPartDq + kQH * kHD;
-constexpr int kPartFloats = kPartLn + 2 * kE;
-// the ordered sum's outputs: dqfull (Q*H, E) whole, dwk, dwv, dln1g, dln1b
-constexpr int kSumOuts = kQH * kE + 2 * kE * kE + 2 * kE;
-constexpr int kSumWBlocks = kSumOuts / 32;
-static_assert(kHD == 8 && kQ == 16, "the fragment maps assume heads of 8 and 16 queries");
-static_assert(kSumOuts % 32 == 0 && kWindowChunk % kStageT == 0, "tiling");
-
-// the embedding column of a thread's value u (quad lane tq)
-__device__ __forceinline__ int own_col(int tq, int u) { return 4 * tq + (u & 3) + 16 * (u >> 2); }
-// the embedding column of column n of n tile c of dx2's C fragments
-__device__ __forceinline__ int dx_col(int c, int n) {
-  return 4 * (n >> 1) + 2 * (c & 1) + (n & 1) + 16 * (c >> 1);
-}
-
-// The backward CTA's shared memory: B fragments staged per CTA (the weights
-// and the queries, bf16) and per cell (dnum in three bf16 passes, m, dden);
-// the stage of kStageT tokens that the CTA's weight gradients read (bf(x2),
-// bf(dk), bf(dv), bf16).
-struct BwdSmem {
-  uint32_t kv[2][8][32][2];     // x2 @ [wk | wv]: k step, n tile (4 of k, 4 of v), lane
-  uint32_t dx[2][2][4][32][2];  // dk @ wk^T, dv @ wv^T: matrix, k step, n tile, lane
-  uint32_t q8[kH][2][32];       // the scores (m16n8k8, k = d): head, n tile of queries, lane
-  uint32_t q16[kH][32][2];      // dk = ds @ q (k = queries): head, lane
-  float g[kE], b[kE];
-  uint32_t dn8[kH][2][3][32];   // v . dnum (k = d): head, n tile, pass (hi, mid, lo), lane
-  uint32_t dn16[kH][3][32][2];  // dv = bf(e) @ dnum (k = queries): head, pass, lane
-  float m[kQH], dd[kQH];  // m in base 2: m log2(e)
-  uint16_t xb[kStageT][kBP], dk[kStageT][kBP], dv[kStageT][kBP];
-};
-
-__device__ __forceinline__ void store_pair(uint16_t* dst, uint32_t v) {
-  *reinterpret_cast<uint32_t*>(dst) = v;
 }
 
 // 2^x; ftz: a result below 2^-126 is 0
@@ -390,21 +132,544 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// the per-CTA fragments: bf(wk), bf(wv) both ways, bf(q); ln1g, ln1b. The
-// loops have fixed trip counts, so each thread's loads issue together.
-__device__ void stage_weights(BwdSmem& S, const float* wk, const float* wv, const float* qfull,
-                              const float* ln1g, const float* ln1b) {
-  static_assert(2 * 8 * 32 == 4 * kBwdThreads && kH * 2 * 32 == 2 * kBwdThreads &&
-                    kH * 32 == kBwdThreads && 2 * kQH == kBwdThreads, "the staging maps");
+// A warp owns a tile of 16 tokens of one cell, rows gq and gq + 8 a thread. A
+// thread holds its rows' embedding columns 4tq..4tq+3 and 16+4tq..16+4tq+3
+// (value u = 0..7 at `own_col`), read and written as 16-byte vectors. Those
+// are the columns its A fragments of bf(x2) hold once the k index of x2 @ W is
+// permuted (k = 16j + 8h + 2t + l is column 16j + 4t + 2h + l: the B
+// fragments of W are staged in that order), and the columns its C fragments
+// of dx2 = dk @ W^T hold once the n index is permuted alike (`dx_col`), so the
+// LayerNorm and its backward run on the thread's own values.
+__device__ __forceinline__ int own_col(int tq, int u) { return 4 * tq + (u & 3) + 16 * (u >> 2); }
+
+// The fragments both directions stage once per CTA (bf16): x2 @ [wk | wv]'s
+// B fragments in the permuted k order (k step, n tile: 4 of k then 4 of v,
+// lane), bf(q) per head (two 8-query halves, lane: the backward's B fragments
+// of the scores, the forward's A fragments), ln1g and ln1b.
+struct WeightFrags {
+  uint32_t kv[2][8][32][2];
+  uint32_t q8[kH][2][32];
+  float g[kE], b[kE];
+};
+
+// The loops have fixed trip counts, so each thread's loads issue together.
+__device__ void stage_frags(WeightFrags& W, const float* wk, const float* wv, const float* qfull,
+                            const float* ln1g, const float* ln1b) {
+  static_assert(2 * 8 * 32 == 4 * kThreads && kH * 2 * 32 == 2 * kThreads, "the staging maps");
   const int lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3, w4 = threadIdx.x >> 5;
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     const int c = ((w4 + 4 * k) & 7), j = k >> 1;  // entry threadIdx.x + 128 k: [j][c][lane]
     const float* w = (c < 4 ? wk : wv) + 8 * (c & 3) + gq;  // column n of n tile c
     const int r = 16 * j + 4 * tq;  // the rows of k 2tq.. (b0) and 2tq + 8.. (b1)
-    S.kv[j][c][lane][0] = tc::pack_bf16(w[r * kE], w[(r + 1) * kE]);
-    S.kv[j][c][lane][1] = tc::pack_bf16(w[(r + 2) * kE], w[(r + 3) * kE]);
+    W.kv[j][c][lane][0] = tc::pack_bf16(w[r * kE], w[(r + 1) * kE]);
+    W.kv[j][c][lane][1] = tc::pack_bf16(w[(r + 2) * kE], w[(r + 3) * kE]);
   }
+  // q(i, col) = qfull[(head of col) * Q + i, col]
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const int u = w4 & 1, h = (w4 >> 1) + 2 * k;
+    const float* q = qfull + (size_t)(h * kQ + 8 * u + gq) * kE + h * kHD + 2 * tq;
+    W.q8[h][u][lane] = tc::pack_bf16(q[0], q[1]);
+  }
+  if (threadIdx.x < kE) W.g[threadIdx.x] = ln1g[threadIdx.x];
+  else if (threadIdx.x < 2 * kE) W.b[threadIdx.x - kE] = ln1b[threadIdx.x - kE];
+}
+
+// Row r (token gq + 8r of the warp's 16): x holds the thread's 8 values of x,
+// at `own_col`. In place x -> xhat; writes bf(x2 = xhat ln1g + ln1b) as the
+// row's entries of the A fragments of k steps 0 and 1; returns rstd.
+__device__ __forceinline__ float layer_norm_row(const WeightFrags& W, float (&x)[8], float eps,
+                                                int r, uint32_t (&ax)[2][4]) {
+  const int tq = threadIdx.x & 3;
+  float s = 0.f;
+#pragma unroll
+  for (int u = 0; u < 8; ++u) s += x[u];
+  const float mean = quad_sum(s) / kE;
+  float var = 0.f;
+#pragma unroll
+  for (int u = 0; u < 8; ++u) {
+    x[u] -= mean;
+    var = fmaf(x[u], x[u], var);
+  }
+  const float rstd = rsqrtf(quad_sum(var) / kE + eps);
+  float x2[8];
+#pragma unroll
+  for (int u = 0; u < 8; ++u) {
+    x[u] *= rstd;  // xhat
+    const int c = own_col(tq, u);
+    x2[u] = __fadd_rn(__fmul_rn(x[u], W.g[c]), W.b[c]);
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    ax[j][r] = tc::pack_bf16(x2[4 * j], x2[4 * j + 1]);
+    ax[j][2 + r] = tc::pack_bf16(x2[4 * j + 2], x2[4 * j + 3]);
+  }
+  return rstd;
+}
+
+// Head h's k (c = h) or v (c = 4 + h) over the warp's 16 tokens, rounded to
+// bf16 and packed as the A fragments of an 8-deep step: rows the tokens gq
+// ([0]) and gq + 8 ([1]), columns the head's 2tq, 2tq + 1.
+__device__ __forceinline__ void head_proj(const WeightFrags& W, const uint32_t (&ax)[2][4], int c,
+                                          uint32_t (&out)[2]) {
+  const int lane = threadIdx.x & 31;
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < 2; ++j) tc::mma_bf16(acc, ax[j], W.kv[j][c][lane][0], W.kv[j][c][lane][1]);
+  out[0] = tc::pack_bf16(acc[0], acc[1]);
+  out[1] = tc::pack_bf16(acc[2], acc[3]);
+}
+
+// ---------------------------------------------------------------------------
+// forward: tensor cores, a CTA a cell, sums in a fixed order
+// ---------------------------------------------------------------------------
+
+constexpr int kFwdWarps = 16, kFwdThreads = 32 * kFwdWarps;  // one CTA an SM
+constexpr int kFwdStages = 3;   // a warp's cp.async ring of 16-token tiles
+constexpr int kCacheTiles = 7;  // a warp's first tiles, whose bf(x2) pass 2 reads again
+// a partial of the pooled sums: den (Q*H), then num's 8 columns a (query, head)
+constexpr int kPd = 0, kPn = kQH, kPartF = kPn + kQH * kHD;
+
+struct FwdSmem {
+  WeightFrags w;
+  union {
+    struct {
+      float rows[kFwdStages][16][kE];  // 16-byte chunk c of row r at c ^ 4 (r & 1)
+      float counts[kFwdStages][16];
+    } ring[kFwdWarps];
+    float part[kFwdWarps][kPartF];  // the warps' (den, num) after their tiles
+  };
+  uint4 x2[kFwdWarps][kCacheTiles][2][32];  // bf(x2)'s A fragments: tile, k step, lane
+  float wmax[kFwdWarps / 2][kQH];           // pairs of warps' raw score maxima,
+  int wbase[kFwdWarps / 2][kQH];            // and where each is first reached (`mbase`)
+  int base[kQH];                            // the cell's
+  float exact[kQH][4];                      // its 4 candidates' exact scores
+  uint32_t wkb[kE][kE / 2];                 // bf(wk), for those
+  float m[kQH];                             // the cell's m, as written
+};
+static_assert(sizeof(FwdSmem) <= 227 * 1024, "one CTA an SM");
+
+// cp.async of rows [t, t + 16) of the cell (and dense, their counts) into a
+// ring slot: lane l copies 16-byte chunk l & 7 of rows l / 8 + 4k; `row` is
+// that chunk of its first row at token 0 (dense: in the table; window: in the
+// cell's embeddings), `count` the cell's counts (dense); a row at or past N
+// takes token N - 1 again
+template <bool kDense>
+__device__ __forceinline__ void issue_tile(float (*rows)[kE], float* cnt, const float* row,
+                                           const float* count, int t, int N) {
+  const int lane = threadIdx.x & 31, r0 = lane >> 3, chunk = lane & 7;
+  float* dst = &rows[r0][4 * (chunk ^ ((r0 & 1) << 2))];  // rows r0 + 4k: the same swizzle
+  if (t + 16 <= N) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      tc::cp_async16(dst + 4 * k * kE, row + (size_t)(t + 4 * k) * kE, true);
+    if (kDense && lane < 16) tc::cp_async4(cnt + lane, count + t + lane, true);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      tc::cp_async16(dst + 4 * k * kE,
+                     row + (ptrdiff_t)(min(t + 4 * k + r0, N - 1) - r0) * kE, true);
+    if (kDense && lane < 16) tc::cp_async4(cnt + lane, count + min(t + lane, N - 1), true);
+  }
+}
+
+// A ring slot's 16 tokens: LayerNorm and bf(x2)'s A fragments
+template <bool kDense>
+__device__ __forceinline__ void slot_x2(const WeightFrags& W, const float (*rows)[kE],
+                                        const float* cnt, float eps, uint32_t (&ax)[2][4]) {
+  const int gq = (threadIdx.x & 31) >> 2, tq = threadIdx.x & 3, swz = (gq & 1) << 2;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float* row = rows[gq + 8 * r];
+    const float4 lo = *reinterpret_cast<const float4*>(row + 4 * (tq ^ swz));
+    const float4 hi = *reinterpret_cast<const float4*>(row + 4 * ((4 + tq) ^ swz));
+    float x[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+    if (kDense) {
+      const float lc = log1pf(cnt[gq + 8 * r]);
+#pragma unroll
+      for (int u = 0; u < 8; ++u) x[u] *= lc;
+    }
+    layer_norm_row(W, x, eps, r, ax);
+  }
+}
+
+// s^T = bf(q) bf(k)^T of head h (m16n8k8, rows the queries gq and gq + 8, k
+// over d: the backward's products in its order): s[n][2rr + l] is query gq +
+// 8rr, token 8n + 2tq + l of the tile
+__device__ __forceinline__ void head_scores(const WeightFrags& W, const uint32_t (&ka)[2], int h,
+                                            float (&s)[2][4]) {
+  const int lane = threadIdx.x & 31;
+  const uint32_t qa[2] = {W.q8[h][0][lane], W.q8[h][1][lane]};
+#pragma unroll
+  for (int n = 0; n < 2; ++n) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) s[n][c] = 0.f;
+    tc::mma_bf16_k8(s[n], qa, ka[n]);
+  }
+}
+
+// (score, token) replaced by (s, t) if s is larger, or as large with the
+// smaller token: in any order, the first token that reaches the max
+__device__ __forceinline__ void take_max(float& v, int& i, float s, int t) {
+  if (s > v || (s == v && t < i)) {
+    v = s;
+    i = t;
+  }
+}
+
+// The scores of query i of head h against tokens t and t + 1 of cell b (N - 1
+// past N), taken exactly: x2 by `layer_norm_row` (the bits the tensor-core
+// path rounds), k's head block summed in f64 and rounded through f32 to
+// bf16, as PyTorch rounds the exact k, and the 8 products (exact in f32)
+// summed in f64. `wkb` is bf(wk) (in, out), a pair of columns a word. A quad
+// of lanes the two tokens, as rows 0 and 1 of `layer_norm_row`'s layout;
+// every lane of the quad returns them.
+template <bool kDense>
+__device__ float2 exact_scores(const WeightFrags& W, const uint32_t (*wkb)[kE / 2],
+                               const float* counts, const float* src, const float* qfull, int b,
+                               int t, int h, int i, int N, float eps) {
+  const int tq = threadIdx.x & 3;
+  float x[2][8];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int tok = min(t + r, N - 1);
+    const float* row = src + ((kDense ? 0 : (size_t)b * N) + tok) * kE;
+    const float lc = kDense ? log1pf(__ldg(counts + (size_t)b * N + tok)) : 1.f;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(row + 16 * half + 4 * tq));
+      x[r][4 * half] = kDense ? v.x * lc : v.x;
+      x[r][4 * half + 1] = kDense ? v.y * lc : v.y;
+      x[r][4 * half + 2] = kDense ? v.z * lc : v.z;
+      x[r][4 * half + 3] = kDense ? v.w * lc : v.w;
+    }
+  }
+  uint32_t ax[2][4];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) layer_norm_row(W, x[r], eps, r, ax);
+  double k[2][kHD];
+#pragma unroll
+  for (int d = 0; d < kHD; ++d) k[0][d] = k[1][d] = 0.0;
+#pragma unroll
+  for (int u = 0; u < 8; ++u) {  // the thread's x2 values, at `own_col`
+    const uint4 wq = *reinterpret_cast<const uint4*>(&wkb[own_col(tq, u)][h * kHD / 2]);
+    const uint32_t wp[4] = {wq.x, wq.y, wq.z, wq.w};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const uint32_t pair = ax[u >> 2][(u & 2) ? 2 + r : r];
+      const double x2 = __uint_as_float((u & 1) ? pair & 0xffff0000u : pair << 16);
+#pragma unroll
+      for (int d = 0; d < kHD; ++d)
+        k[r][d] = fma(x2, (double)__uint_as_float((d & 1) ? wp[d >> 1] & 0xffff0000u
+                                                          : wp[d >> 1] << 16), k[r][d]);
+    }
+  }
+  const float* q = qfull + (size_t)(h * kQ + i) * kE + h * kHD;
+  double sx[2] = {0.0, 0.0};
+#pragma unroll
+  for (int d = 0; d < kHD; ++d) {
+    const float qd = bf(__ldg(q + d));
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      k[r][d] += __shfl_xor_sync(0xffffffffu, k[r][d], 1);
+      k[r][d] += __shfl_xor_sync(0xffffffffu, k[r][d], 2);
+      sx[r] += (double)(bf(__double2float_rn(k[r][d])) * qd);
+    }
+  }
+  return make_float2(__double2float_rn(sx[0]), __double2float_rn(sx[1]));
+}
+
+// A CTA a cell, warp w its tiles w, w + 16, ... (past N the last token
+// again, which leaves the max as it is). Pass 1 takes each (query, head)
+// row's score max over the cell, where a thread first reaches it (its 4
+// token columns of one tile), and keeps each warp's first kCacheTiles tiles
+// of bf(x2); m is then the largest of those 4 tokens' scores taken again
+// exactly (`exact_score`: the tensor cores' sums truncate, so k's bf16
+// roundings flip now and then, and the backward, given m, scales a row's
+// gradients with it). Pass 2 takes the tiles again in reverse order,
+// those past the cache streamed and normalised again first, for e against
+// that max (0 past N), den and num; the warps' sums are added in warp order.
+template <bool kDense>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+pool_fwd_mma(const float* __restrict__ counts, const float* __restrict__ src,
+             const float* __restrict__ qfull, const float* __restrict__ ln1g,
+             const float* __restrict__ ln1b, const float* __restrict__ wk,
+             const float* __restrict__ wv, float* __restrict__ num, float* __restrict__ den,
+             float* __restrict__ mout, int N, float eps, float scale) {
+  extern __shared__ __align__(16) float smem[];
+  FwdSmem& S = *reinterpret_cast<FwdSmem*>(smem);
+  const int b = blockIdx.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
+  const int ntiles = (N + 15) >> 4;
+  const int mine = ntiles > warp ? (ntiles - warp + kFwdWarps - 1) / kFwdWarps : 0;
+  // load steps: pass 1's tiles, then pass 2's past the cache
+  const int loads = mine + max(0, mine - kCacheTiles);
+  auto& ring = S.ring[warp];
+  const float* row = src + ((kDense ? 0 : (size_t)b * N) + (lane >> 3)) * kE + 4 * (lane & 7);
+  const float* count = kDense ? counts + (size_t)b * N : nullptr;
+  auto tile_t0 = [&](int i) { return 16 * (warp + kFwdWarps * i); };
+  // load step j: pass 1's tile j, then pass 2's from the last tile down
+  auto step_t0 = [&](int j) { return tile_t0(j < mine ? j : 2 * mine - 1 - j); };
+  int issued = 0, slot_in = 0, slot_out = 0;  // load steps issued; the ring's next slots
+  auto issue = [&]() {
+    if (issued < loads)
+      issue_tile<kDense>(ring.rows[slot_in], ring.counts[slot_in], row, count, step_t0(issued), N);
+    tc::cp_async_commit();
+    ++issued;
+    slot_in = slot_in == kFwdStages - 1 ? 0 : slot_in + 1;
+  };
+  // wait for the next step's rows, put one more in flight; returns its slot
+  auto advance = [&]() {
+    tc::cp_async_wait<kFwdStages - 2>();
+    __syncwarp();  // the rows are in for every lane, and the last slot is read
+    issue();
+    const int slot = slot_out;
+    slot_out = slot_out == kFwdStages - 1 ? 0 : slot_out + 1;
+    return slot;
+  };
+
+#pragma unroll
+  for (int j = 0; j < kFwdStages - 1; ++j) issue();
+  if (threadIdx.x < kThreads) stage_frags(S.w, wk, wv, qfull, ln1g, ln1b);
+  for (int e = threadIdx.x; e < kE * kE / 2; e += kFwdThreads)
+    S.wkb[e / (kE / 2)][e % (kE / 2)] = tc::pack_bf16(wk[2 * e], wk[2 * e + 1]);
+  __syncthreads();  // the fragments are staged
+
+  // -- pass 1: the raw score maxima of rows h, gq (+ 8) over the thread's tokens --
+  float mraw[kH][2];
+  int mbase[kH][2];  // the first token column of the tile where mraw was reached
+#pragma unroll
+  for (int h = 0; h < kH; ++h) {
+    mraw[h][0] = mraw[h][1] = -INFINITY;
+    mbase[h][0] = mbase[h][1] = 0;
+  }
+  for (int j = 0; j < mine; ++j) {
+    const int slot = advance();
+    uint32_t ax[2][4];
+    slot_x2<kDense>(S.w, ring.rows[slot], ring.counts[slot], eps, ax);
+    if (j < kCacheTiles) {
+#pragma unroll
+      for (int k = 0; k < 2; ++k)
+        S.x2[warp][j][k][lane] = make_uint4(ax[k][0], ax[k][1], ax[k][2], ax[k][3]);
+    }
+    const int t0 = tile_t0(j) + 2 * tq;  // the thread's token columns: t0 + l (+ 8)
+#pragma unroll
+    for (int h = 0; h < kH; ++h) {
+      uint32_t ka[2];
+      head_proj(S.w, ax, h, ka);
+      float s[2][4];
+      head_scores(S.w, ka, h, s);
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const float tmax = fmaxf(fmaxf(s[0][2 * rr], s[0][2 * rr + 1]),
+                                 fmaxf(s[1][2 * rr], s[1][2 * rr + 1]));
+        mbase[h][rr] = tmax > mraw[h][rr] ? t0 : mbase[h][rr];
+        mraw[h][rr] = fmaxf(mraw[h][rr], tmax);
+      }
+    }
+  }
+  // each row's max and where it is first reached: the quad, warps w + 8
+  // into w, then those 8 warps
+  const int pair = warp % (kFwdWarps / 2);
+#pragma unroll
+  for (int h = 0; h < kH; ++h)
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+      for (int o = 1; o < 4; o <<= 1)
+        take_max(mraw[h][rr], mbase[h][rr], __shfl_xor_sync(0xffffffffu, mraw[h][rr], o),
+                 __shfl_xor_sync(0xffffffffu, mbase[h][rr], o));
+  for (int half = 1; half >= 0; --half) {
+    if (warp / (kFwdWarps / 2) == half && tq == 0) {
+#pragma unroll
+      for (int h = 0; h < kH; ++h)
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int hq = h * kQ + gq + 8 * rr;
+          if (half == 0) take_max(mraw[h][rr], mbase[h][rr], S.wmax[pair][hq], S.wbase[pair][hq]);
+          S.wmax[pair][hq] = mraw[h][rr];
+          S.wbase[pair][hq] = mbase[h][rr];
+        }
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x < kQH) {
+    float M = S.wmax[0][threadIdx.x];
+    int base = S.wbase[0][threadIdx.x];
+#pragma unroll
+    for (int w = 1; w < kFwdWarps / 2; ++w)
+      take_max(M, base, S.wmax[w][threadIdx.x], S.wbase[w][threadIdx.x]);
+    S.m[threadIdx.x] = M * scale;  // -inf without a token
+    S.base[threadIdx.x] = base;
+  }
+  __syncthreads();
+  // m = the largest exact score of a row's 4 candidates, tokens base + {0,
+  // 1, 8, 9}: quad q of the CTA takes row q / 2's (+ 8 if q is odd)
+  if (N > 0) {
+    static_assert(kFwdThreads / 4 == 2 * kQH, "two candidates a quad");
+    const int qd = 8 * warp + gq, hq = qd >> 1;
+    const float2 sx = exact_scores<kDense>(S.w, S.wkb, counts, src, qfull, b,
+                                           S.base[hq] + 8 * (qd & 1), hq / kQ, hq % kQ, N, eps);
+    if (tq == 0) {
+      S.exact[hq][2 * (qd & 1)] = sx.x;
+      S.exact[hq][2 * (qd & 1) + 1] = sx.y;
+    }
+    __syncthreads();
+    if (threadIdx.x < kQH) {
+      const float* x = S.exact[threadIdx.x];
+      S.m[threadIdx.x] = fmaxf(fmaxf(x[0], x[1]), fmaxf(x[2], x[3])) * scale;
+    }
+  }
+  __syncthreads();
+
+  // -- pass 2: e against m as the backward takes it, den, num ------------------------
+  // e = 2^(s scale log2(e) - m log2(e)); rows h, gq (+ 8): den's partial over
+  // the thread's tokens, num's C fragments (columns d = 2tq, 2tq + 1)
+  const float c2 = scale * kLog2e;
+  float m2[kH][2], dsum[kH][2], acc[kH][4];
+#pragma unroll
+  for (int h = 0; h < kH; ++h) {
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      m2[h][rr] = S.m[h * kQ + gq + 8 * rr] * kLog2e;
+      dsum[h][rr] = 0.f;
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[h][c] = 0.f;
+  }
+  for (int k = 0; k < mine; ++k) {
+    const int j = mine - 1 - k, lim = N - tile_t0(j);
+    uint32_t ax[2][4];
+    if (j >= kCacheTiles) {  // past the cache: its rows again
+      const int slot = advance();
+      slot_x2<kDense>(S.w, ring.rows[slot], ring.counts[slot], eps, ax);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const uint4 a = S.x2[warp][j][i][lane];
+        ax[i][0] = a.x;
+        ax[i][1] = a.y;
+        ax[i][2] = a.z;
+        ax[i][3] = a.w;
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < kH; ++h) {
+      uint32_t ka[2], va[2];
+      head_proj(S.w, ax, h, ka);
+      head_proj(S.w, ax, 4 + h, va);
+      float s[2][4], e[2][4];
+      head_scores(S.w, ka, h, s);
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) e[n][c] = ex2(fmaf(s[n][c], c2, -m2[h][c >> 1]));
+      if (lim < 16) {  // the cell's last tile: 0 for the tokens past N
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) e[n][c] = 8 * n + 2 * tq + (c & 1) < lim ? e[n][c] : 0.f;
+      }
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr)
+        dsum[h][rr] += (e[0][2 * rr] + e[0][2 * rr + 1]) + (e[1][2 * rr] + e[1][2 * rr + 1]);
+      // num += bf(e) (rows queries, k the 16 tokens) @ bf(v) (k tokens, n d,
+      // v's fragments transposed across the warp): the tile summed from zero,
+      // added in f32
+      const uint32_t ae[4] = {tc::pack_bf16(e[0][0], e[0][1]), tc::pack_bf16(e[0][2], e[0][3]),
+                              tc::pack_bf16(e[1][0], e[1][1]), tc::pack_bf16(e[1][2], e[1][3])};
+      float t[4] = {0.f, 0.f, 0.f, 0.f};
+      tc::mma_bf16(t, ae, tc::transpose8x8(va[0]), tc::transpose8x8(va[1]));
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[h][c] += t[c];
+    }
+  }
+
+  // -- the warps' sums, added in warp order --------------------------------------------
+  tc::cp_async_wait<0>();
+  __syncthreads();  // every warp is done with its ring, which `part` overlays
+  float* P = S.part[warp];
+#pragma unroll
+  for (int h = 0; h < kH; ++h)
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int hq = h * kQ + gq + 8 * rr;
+      const float d = quad_sum(dsum[h][rr]);
+      *reinterpret_cast<float2*>(P + kPn + hq * kHD + 2 * tq) =
+          make_float2(acc[h][2 * rr], acc[h][2 * rr + 1]);
+      if (tq == 0) P[kPd + hq] = d;
+    }
+  __syncthreads();
+  {
+    static_assert(kQH * kHD == kFwdThreads, "a thread a (query, head) row's column");
+    const int hq = threadIdx.x / kHD, d = threadIdx.x % kHD;
+    float a = 0.f, dd = 0.f;
+#pragma unroll
+    for (int w = 0; w < kFwdWarps; ++w) {
+      a += S.part[w][kPn + hq * kHD + d];
+      if (d == 0) dd += S.part[w][kPd + hq];
+    }
+    num[((size_t)b * kQ + hq % kQ) * kE + (hq / kQ) * kHD + d] = a;
+    if (d == 0) {
+      den[(size_t)b * kQH + hq] = dd;
+      mout[(size_t)b * kQH + hq] = S.m[hq];
+    }
+  }
+}
+
+
+// ---------------------------------------------------------------------------
+// backward: tensor cores, fixed-order sums
+// ---------------------------------------------------------------------------
+//
+// The warp tile is `own_col`'s. Per head the scores, exponentials and
+// cotangents stay in C fragments, which repack as the next product's A
+// fragments.
+
+constexpr int kStageT = 16 * kWarps;     // tokens a stage: a 16-token tile a warp
+constexpr int kDenseCells = 4;           // dense: cells a CTA, a stage each
+constexpr int kWindowChunk = 512;        // window: tokens a CTA
+constexpr int kBP = kE + 8;              // bf16 row pitch of a staged (token, E) tile: 80 bytes
+// a CTA's partial sums: dwk, dwv (E, E) each, dqfull's head blocks (Q*H, HD),
+// dln1g, dln1b (E each)
+constexpr int kPartDq = 2 * kE * kE, kPartLn = kPartDq + kQH * kHD;
+constexpr int kPartFloats = kPartLn + 2 * kE;
+// the ordered sum's outputs: dqfull (Q*H, E) whole, dwk, dwv, dln1g, dln1b
+constexpr int kSumOuts = kQH * kE + 2 * kE * kE + 2 * kE;
+constexpr int kSumWBlocks = kSumOuts / 32;
+static_assert(kSumOuts % 32 == 0 && kWindowChunk % kStageT == 0, "tiling");
+
+// the embedding column of column n of n tile c of dx2's C fragments
+__device__ __forceinline__ int dx_col(int c, int n) {
+  return 4 * (n >> 1) + 2 * (c & 1) + (n & 1) + 16 * (c >> 1);
+}
+
+// The backward CTA's shared memory: B fragments staged per CTA (the weights
+// and the queries, bf16) and per cell (dnum in three bf16 passes, m, dden);
+// the stage of kStageT tokens that the CTA's weight gradients read (bf(x2),
+// bf(dk), bf(dv), bf16).
+struct BwdSmem {
+  WeightFrags w;                // x2 @ [wk | wv], the scores' bf(q) (k = d), ln1g, ln1b
+  uint32_t dx[2][2][4][32][2];  // dk @ wk^T, dv @ wv^T: matrix, k step, n tile, lane
+  uint32_t q16[kH][32][2];      // dk = ds @ q (k = queries): head, lane
+  uint32_t dn8[kH][2][3][32];   // v . dnum (k = d): head, n tile, pass (hi, mid, lo), lane
+  uint32_t dn16[kH][3][32][2];  // dv = bf(e) @ dnum (k = queries): head, pass, lane
+  float m[kQH], dd[kQH];  // m in base 2: m log2(e)
+  uint16_t xb[kStageT][kBP], dk[kStageT][kBP], dv[kStageT][kBP];
+};
+
+__device__ __forceinline__ void store_pair(uint16_t* dst, uint32_t v) {
+  *reinterpret_cast<uint32_t*>(dst) = v;
+}
+
+// the per-CTA fragments: `stage_frags`, then bf(wk), bf(wv) transposed and
+// bf(q) with the queries on k
+__device__ void stage_weights(BwdSmem& S, const float* wk, const float* wv, const float* qfull,
+                              const float* ln1g, const float* ln1b) {
+  static_assert(kH * 32 == kThreads && 2 * kQH == kThreads, "the staging maps");
+  const int lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3, w4 = threadIdx.x >> 5;
+  stage_frags(S.w, wk, wv, qfull, ln1g, ln1b);
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     const int c = w4, j = k & 1, mat = k >> 1;  // entry threadIdx.x + 128 k: [mat][j][c][lane]
@@ -412,21 +677,12 @@ __device__ void stage_weights(BwdSmem& S, const float* wk, const float* wv, cons
     S.dx[mat][j][c][lane][0] = tc::pack_bf16(row[0], row[1]);
     S.dx[mat][j][c][lane][1] = tc::pack_bf16(row[8], row[9]);
   }
-  // q(i, col) = qfull[(head of col) * Q + i, col]
-#pragma unroll
-  for (int k = 0; k < 2; ++k) {
-    const int u = w4 & 1, h = (w4 >> 1) + 2 * k;
-    const float* q = qfull + (size_t)(h * kQ + 8 * u + gq) * kE + h * kHD + 2 * tq;
-    S.q8[h][u][lane] = tc::pack_bf16(q[0], q[1]);
-  }
   {
     const int h = w4;
     const float* q = qfull + (size_t)(h * kQ + 2 * tq) * kE + h * kHD + gq;
     S.q16[h][lane][0] = tc::pack_bf16(q[0], q[kE]);
     S.q16[h][lane][1] = tc::pack_bf16(q[8 * kE], q[9 * kE]);
   }
-  if (threadIdx.x < kE) S.g[threadIdx.x] = ln1g[threadIdx.x];
-  else if (threadIdx.x < 2 * kE) S.b[threadIdx.x - kE] = ln1b[threadIdx.x - kE];
 }
 
 // the per-cell fragments of cell b: dnum (Q, E) in three bf16 passes; m, dden
@@ -487,29 +743,7 @@ __device__ __forceinline__ void token_tile(BwdSmem& S, const float* __restrict__
       x[r][4 * half + 2] = kDense ? v.z * lc[r] : v.z;
       x[r][4 * half + 3] = kDense ? v.w * lc[r] : v.w;
     }
-    float s = 0.f;
-#pragma unroll
-    for (int u = 0; u < 8; ++u) s += x[r][u];
-    const float mean = quad_sum(s) / kE;
-    float var = 0.f;
-#pragma unroll
-    for (int u = 0; u < 8; ++u) {
-      x[r][u] -= mean;
-      var = fmaf(x[r][u], x[r][u], var);
-    }
-    rstd[r] = rsqrtf(quad_sum(var) / kE + eps);
-    float x2[8];
-#pragma unroll
-    for (int u = 0; u < 8; ++u) {
-      x[r][u] *= rstd[r];  // xhat
-      const int c = own_col(tq, u);
-      x2[u] = __fadd_rn(__fmul_rn(x[r][u], S.g[c]), S.b[c]);
-    }
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      ax[j][r] = tc::pack_bf16(x2[4 * j], x2[4 * j + 1]);
-      ax[j][2 + r] = tc::pack_bf16(x2[4 * j + 2], x2[4 * j + 3]);
-    }
+    rstd[r] = layer_norm_row(S.w, x[r], eps, r, ax);  // x -> xhat
     uint16_t* xs = S.xb[row0 + gq + 8 * r];
     *reinterpret_cast<uint2*>(xs + 4 * tq) = make_uint2(ax[0][r], ax[0][2 + r]);
     *reinterpret_cast<uint2*>(xs + 16 + 4 * tq) = make_uint2(ax[1][r], ax[1][2 + r]);
@@ -519,14 +753,9 @@ __device__ __forceinline__ void token_tile(BwdSmem& S, const float* __restrict__
   uint32_t dkp[kH][2], dvp[kH][2];  // bf(dk), bf(dv): rows gq, gq + 8, columns 2tq..
 #pragma unroll
   for (int h = 0; h < kH; ++h) {
-    float ck[4] = {0.f, 0.f, 0.f, 0.f}, cv[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      tc::mma_bf16(ck, ax[j], S.kv[j][h][lane][0], S.kv[j][h][lane][1]);
-      tc::mma_bf16(cv, ax[j], S.kv[j][4 + h][lane][0], S.kv[j][4 + h][lane][1]);
-    }
-    const uint32_t ka[2] = {tc::pack_bf16(ck[0], ck[1]), tc::pack_bf16(ck[2], ck[3])};
-    const uint32_t va[2] = {tc::pack_bf16(cv[0], cv[1]), tc::pack_bf16(cv[2], cv[3])};
+    uint32_t ka[2], va[2];
+    head_proj(S.w, ax, h, ka);
+    head_proj(S.w, ax, 4 + h, va);
     // n tile u of the scores and of v . dnum: queries 8u + 2tq (+ 1), rows gq
     // (entries 0, 1) and gq + 8 (2, 3)
     float sc[2][4], dn[2][4];
@@ -534,7 +763,7 @@ __device__ __forceinline__ void token_tile(BwdSmem& S, const float* __restrict__
     for (int u = 0; u < 2; ++u) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) sc[u][c] = dn[u][c] = 0.f;
-      tc::mma_bf16_k8(sc[u], ka, S.q8[h][u][lane]);
+      tc::mma_bf16_k8(sc[u], ka, S.w.q8[h][u][lane]);
 #pragma unroll
       for (int p = 2; p >= 0; --p) tc::mma_bf16_k8(dn[u], va, S.dn8[h][u][p][lane]);
     }
@@ -614,7 +843,7 @@ __device__ __forceinline__ void token_tile(BwdSmem& S, const float* __restrict__
       const float dx2 = bf(dxk[c][i]) + bf(dxv[c][i]);
       dlg[u] = fmaf(dx2, x[r][u], dlg[u]);
       dlb[u] += dx2;
-      d[u] = dx2 * S.g[own_col(tq, u)];  // d(xhat)
+      d[u] = dx2 * S.w.g[own_col(tq, u)];  // d(xhat)
       m1 += d[u];
       m2 = fmaf(d[u], x[r][u], m2);
     }
@@ -671,7 +900,7 @@ __device__ __forceinline__ void stage_products(const BwdSmem& S, float (&acc)[4]
 // kPartFloats and, dense, its genes' dtable rows summed over its cells to
 // the cell group's rows after every CTA's partials.
 template <bool kDense>
-__global__ void __launch_bounds__(kBwdThreads, 4)
+__global__ void __launch_bounds__(kThreads, 4)
 pool_bwd_kernel(const float* __restrict__ counts, const float* __restrict__ src,
                 const float* __restrict__ qfull, const float* __restrict__ ln1g,
                 const float* __restrict__ ln1b, const float* __restrict__ wk,
@@ -726,7 +955,7 @@ pool_bwd_kernel(const float* __restrict__ counts, const float* __restrict__ src,
       dlb[u] += __shfl_xor_sync(0xffffffffu, dlb[u], o);
     }
   constexpr int kRed = kPartFloats - kPartDq;  // a warp's dqfull blocks and LayerNorm sums
-  static_assert(kBwdWarps * kRed * 4 <= 3 * sizeof(BwdSmem::xb), "the reduction fits the stage");
+  static_assert(kWarps * kRed * 4 <= 3 * sizeof(BwdSmem::xb), "the reduction fits the stage");
   float* red = reinterpret_cast<float*>(&S.xb[0][0]) + warp * kRed;  // free since the last barrier
 #pragma unroll
   for (int h = 0; h < kH; ++h) {
@@ -743,10 +972,10 @@ pool_bwd_kernel(const float* __restrict__ counts, const float* __restrict__ src,
   }
   __syncthreads();
   red = reinterpret_cast<float*>(&S.xb[0][0]);
-  for (int i = threadIdx.x; i < kRed; i += kBwdThreads) {
+  for (int i = threadIdx.x; i < kRed; i += kThreads) {
     float s = 0.f;
 #pragma unroll
-    for (int w = 0; w < kBwdWarps; ++w) s += red[w * kRed + i];
+    for (int w = 0; w < kWarps; ++w) s += red[w * kRed + i];
     part[kPartDq + i] = s;
   }
   if (kDense) {
@@ -855,11 +1084,11 @@ int launch_fwd(const void* counts, const void* src, const void* qfull, const voi
                int B, int N, int E, int H, int Q, float eps, float scale, void* stream) {
   if (B == 0) return 0;
   if (!supported(E, H, Q)) return (int)cudaErrorInvalidValue;
-  auto kernel = pool_fwd_kernel<kDense>;
-  const long long smem = 4LL * FwdSmem::kFloats;
-  cudaError_t err = allow_smem(kernel, g_allowed[kDense ? 0 : 1], smem);
+  auto kernel = pool_fwd_mma<kDense>;
+  cudaError_t err =
+      allow_smem(kernel, g_allowed[kDense ? 0 : 1], (long long)sizeof(FwdSmem), true);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<B, kFwdT, (size_t)smem, (cudaStream_t)stream>>>(
+  kernel<<<B, kFwdThreads, sizeof(FwdSmem), (cudaStream_t)stream>>>(
       (const float*)counts, (const float*)src, (const float*)qfull, (const float*)ln1g,
       (const float*)ln1b, (const float*)wk, (const float*)wv, (float*)num, (float*)den,
       (float*)m, N, eps, scale);
@@ -879,7 +1108,7 @@ int launch_bwd(const void* counts, const void* src, const void* qfull, const voi
     cudaError_t err =
         allow_smem(kernel, g_allowed[kDense ? 2 : 3], (long long)sizeof(BwdSmem), true);
     if (err != cudaSuccess) return (int)err;
-    kernel<<<grid, kBwdThreads, sizeof(BwdSmem), (cudaStream_t)stream>>>(
+    kernel<<<grid, kThreads, sizeof(BwdSmem), (cudaStream_t)stream>>>(
         (const float*)counts, (const float*)src, (const float*)qfull, (const float*)ln1g,
         (const float*)ln1b, (const float*)wk, (const float*)wv, (const float*)m,
         (const float*)dnum, (const float*)dden, (float*)dsrc, (float*)ws, B, N, eps, scale);
@@ -917,6 +1146,13 @@ int scldm_window_pool_forward(const void* emb, const void* qfull, const void* ln
                               float scale, void* stream) {
   return launch_fwd<false>(nullptr, emb, qfull, ln1g, ln1b, wk, wv, num, den, m, B, N, E, H, Q,
                            eps, scale, stream);
+}
+
+// The token rows a cell of N tokens has the forwards read: every row in
+// pass 1, the 4 candidates of each (query, head) row's max, and again in
+// pass 2 the rows past the warps' bf(x2) caches.
+long long scldm_encoder_pool_forward_rows(int N) {
+  return N > 0 ? (long long)N + 4 * kQH + max(0, N - 16 * kFwdWarps * kCacheTiles) : 0;
 }
 
 // The floats of the backwards' device workspace at B cells of N tokens

@@ -2,7 +2,7 @@
 // on mma.sync: the DiT block forward and backward (dit_tiled.cuh,
 // dit_block.cu, dit_block_bwd.cu: TF32 with three passes a product), the
 // decoder tail, forward and backward (decoder_tail.cu, bf16), and the narrow
-// encoder-pool backward (encoder_pool.cu, bf16).
+// encoder pools, forward and backward (encoder_pool.cu, bf16).
 //
 // Fragment layouts (PTX ISA, mma.sync.m16n8k8 .tf32 and m16n8k16 .bf16), with
 // lane = 4 gq + tq:
@@ -38,6 +38,14 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
                "r"(in ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes from `src` into shared `dst` (through the L1), or 4 zero bytes where
+// !in (src is then not read)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(in ? 4 : 0)
                : "memory");
 }
 

@@ -8,9 +8,10 @@ each with its custom VJP. The kernels come in two designs, chosen by width:
 
 - narrow (E = 32, 4 heads, 16 inducing points, the reference encoder):
   `scldm_torch/kernels/csrc/encoder_pool.cu`, one source templated on where
-  a token's embedding comes from (both variants below): the forward a CTA
-  per cell, the backward on the tensor cores over tiles of tokens and cells
-  with a device workspace;
+  a token's embedding comes from (both variants below), both ways on the
+  tensor cores: the forward a CTA of 16 warps per cell in two passes (the
+  scores' row max, then the pooled sums against it), the backward over
+  tiles of tokens and cells with a device workspace;
 - wide (E a multiple of 64 from 256 to 1,024, head width 64, 1 to 1,024
   inducing points: the census encoder, E = 512 with 8 heads over 64, and the
   long-latent one over 1,024): `scldm_torch/kernels/csrc/window_pool_wide.cu`,

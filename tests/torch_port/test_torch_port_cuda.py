@@ -348,9 +348,10 @@ def test_decoder_tail_on_a_device_other_than_the_current():
 POOL_E, POOL_H, POOL_Q = 32, 4, 16  # the reference encoder's MCAB
 
 
-def _pool_inputs(variant, B, N, device, seed=0):
+def _pool_inputs(variant, B, N, device, seed=0, zero_cell=False):
     """Counts and a table (dense) or an embedding window, the MCAB's query
-    and weights, and the cotangents of num and den."""
+    and weights, and the cotangents of num and den; with `zero_cell`, cell 0
+    has every count 0 (every token's x2 is ln1b, every score equal)."""
     rng = np.random.default_rng(seed)
     E, Q = POOL_E, POOL_Q
 
@@ -364,6 +365,8 @@ def _pool_inputs(variant, B, N, device, seed=0):
     if variant == "dense":
         counts = torch.from_numpy((rng.poisson(3.0, (B, N)) * (rng.random((B, N)) < 0.6))
                                   .astype(np.float32)).to(device)
+        if zero_cell:
+            counts[0] = 0
     return counts, x, (f(B, Q, E), f(B, Q * POOL_H))
 
 
@@ -399,11 +402,16 @@ def assert_pool_close(got, want, ln_gain_near=1e-4):
         assert beyond <= 5e-2, (k, beyond.item())
 
 
-# ragged: B not a multiple of the backward's 16 cells, N of its 128 tokens
-# or the forward's 256
-@pytest.mark.parametrize("variant,B,N", [("dense", 19, 300), ("window", 19, 250)])
-def test_encoder_pools_match_reference_on_gpu(variant, B, N):
-    counts, x, cot = _pool_inputs(variant, B, N, "cuda")
+# ragged: B not a multiple of the dense backward's 4 cells a CTA, N of the
+# 16-token tiles; N = 1 and 5, under one tile (the forward's warps but the
+# first take no token); one cell at the training shapes; a dense batch whose
+# cell 0 has every count 0
+@pytest.mark.parametrize("variant,B,N,zero_cell", [
+    ("dense", 19, 300, False), ("window", 19, 250, False), ("window", 3, 1, False),
+    ("dense", 3, 5, False), ("dense", 1, 2_000, False), ("window", 1, 6_147, False),
+    ("dense", 5, 300, True)])
+def test_encoder_pools_match_reference_on_gpu(variant, B, N, zero_cell):
+    counts, x, cot = _pool_inputs(variant, B, N, "cuda", zero_cell=zero_cell)
     pool, reference = ((fe.encoder_pool, fe.encoder_pool_reference) if variant == "dense"
                        else (fe.window_pool, fe.window_pool_reference))
     counters = ((fe.ENCODER_POOL_FWD_LAUNCHES, fe.ENCODER_POOL_BWD_LAUNCHES) if variant == "dense"
@@ -419,20 +427,22 @@ def test_encoder_pools_match_reference_on_gpu(variant, B, N):
 # genes or of the window's 512 tokens a CTA), and the training steps' shapes
 @pytest.mark.parametrize("variant,B,N", [("dense", 19, 300), ("window", 19, 1_100),
                                          ("dense", 128, 2_000), ("window", 128, 6_147)])
-def test_encoder_pool_backwards_repeat_their_bits_on_gpu(variant, B, N):
-    """The narrow backwards sum every gradient in a fixed order, without
-    atomics (each CTA's partial sums added in index order by a second
-    kernel): the same inputs give the same bits, and one launch is counted a
-    call."""
+def test_encoder_pools_repeat_their_bits_on_gpu(variant, B, N):
+    """The narrow pools sum in a fixed order both ways, without atomics: the
+    forward adds its warps' sums in warp order, the backward each CTA's
+    partial sums in index order by a second kernel. The same inputs give the
+    same bits, (num, den, m) and every gradient, and one launch each way is
+    counted a call."""
     counts, x, cot = _pool_inputs(variant, B, N, "cuda", seed=3)
-    counter = fe.ENCODER_POOL_BWD_LAUNCHES if variant == "dense" else fe.WINDOW_POOL_BWD_LAUNCHES
-    before = counter.count
+    counters = ((fe.ENCODER_POOL_FWD_LAUNCHES, fe.ENCODER_POOL_BWD_LAUNCHES) if variant == "dense"
+                else (fe.WINDOW_POOL_FWD_LAUNCHES, fe.WINDOW_POOL_BWD_LAUNCHES))
+    before = [c.count for c in counters]
     a = pool_outputs_and_grads(fe.encoder_pool if variant == "dense" else fe.window_pool,
                                counts, x, cot)
     b = pool_outputs_and_grads(fe.encoder_pool if variant == "dense" else fe.window_pool,
                                counts, x, cot)
-    assert counter.count == before + 2
-    for k in a:
+    assert [c.count for c in counters] == [n + 2 for n in before]
+    for k in ("num", "den", "m", *(f"d{n}" for n in x)):
         assert torch.equal(a[k], b[k]), k
 
 

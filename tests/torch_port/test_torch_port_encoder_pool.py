@@ -254,3 +254,94 @@ def test_backward_reference_in_f64_matches_pallas_interpret(variant):
         top = np.abs(w).max()
         assert top > 0 and d.max() <= 1e-2 * top, (name, d.max() / top)
         assert (d > 1e-4 * top).mean() <= 0.05, (name, (d > 1e-4 * top).mean())
+
+
+# encoder_pool.cu's narrow forward: a CTA of 16 warps a cell, warp w taking the
+# cell's 16-token tiles w, w + 16, ...
+KERNEL_WARPS, KERNEL_TILE = 16, 16
+
+
+def kernel_order_pool(emb, qfull, weights, n_head=H, eps=1e-8):
+    """The narrow forward over (B, N, E) tokens in the kernel's order, plain
+    PyTorch: pass 1 each (query, head) row's max over every token; pass 2,
+    per warp, its tiles last to first, each tile's den and num (bf(e) against
+    that max, times bf(v)) summed from zero and added in f32; then the
+    warps' sums added in warp order. -> (num (B, Q, E), den, m)."""
+    B, N, E_ = emb.shape
+    s, v = fe._ln_kv_scores(emb, qfull, weights, eps, (E_ // n_head) ** -0.5)
+    m = s.amax(dim=1)
+    e = torch.exp(s - m[:, None, :])
+    eb, vb = fe._bf_keep(e).transpose(1, 2), fe._bf_keep(v)
+    ntiles = -(-N // KERNEL_TILE)
+    full = torch.zeros(B, s.shape[2], E_)
+    den = torch.zeros(B, s.shape[2])
+    for w in range(KERNEL_WARPS):
+        wn, wd = torch.zeros_like(full), torch.zeros_like(den)
+        for i in reversed(range(w, ntiles, KERNEL_WARPS)):
+            t = slice(KERNEL_TILE * i, KERNEL_TILE * (i + 1))
+            wn += eb[:, :, t] @ vb[:, t]
+            wd += e[:, t].sum(dim=1)
+        full += wn
+        den += wd
+    hd = E_ // n_head
+    num = torch.diagonal(full.reshape(B, n_head, -1, n_head, hd), dim1=1, dim2=3)
+    return num.permute(0, 1, 3, 2).reshape(B, -1, E_), den, m
+
+
+def kernel_order_encoder_pool(counts, table, qfull, weights, n_head=H, eps=1e-8):
+    return kernel_order_pool(fe._dense_emb(counts.float(), table), qfull, weights, n_head, eps)
+
+
+@pytest.mark.parametrize("variant,N", [("dense", 2_000), ("window", 6_147)])
+def test_kernel_order_forward_matches_plain_at_kernel_shapes(variant, N):
+    """The forward's splits, at the shapes the kernel takes on the training
+    path (the parse1m genes, the dentate window), keep the plain version's
+    numbers: (num, den, m) and the pooled values num / den within 1e-3 of
+    their largest magnitudes, the file's bound on the pooled tokens, and
+    within the share bounds chip_smoke.py's phase 1d holds the kernel to (at
+    most 5% of the entries beyond 3e-4 of the largest for num, 1e-4 for den
+    and m). The kernel's sums differ from the plain version's only in their
+    f32 order: every exponential is rounded to bf16 against the final max,
+    as the plain version rounds it."""
+    rng = np.random.default_rng(11)
+    B, hd = 2, E // H
+
+    def f(*s, scale=1.0, shift=0.0):
+        return torch.from_numpy((rng.normal(size=s) * scale + shift).astype(np.float32))
+
+    src = f(N, E) if variant == "dense" else f(B, N, E)
+    qfull = fe.build_query_operand(f(Q, E), H)
+    weights = (f(1, E, scale=0.3, shift=1.0), f(1, E, scale=0.3), f(E, E, scale=E**-0.5),
+               f(E, E, scale=E**-0.5))
+    counts = torch.from_numpy((rng.poisson(3.0, (B, N)) * (rng.random((B, N)) < 0.6))
+                              .astype(np.float32))
+    with torch.no_grad():
+        if variant == "dense":
+            got = kernel_order_encoder_pool(counts, src, qfull, weights)
+            want = fe.encoder_pool_reference(counts, src, qfull, weights, H)
+        else:
+            got = kernel_order_pool(src, qfull, weights)
+            want = fe.window_pool_reference(src, qfull, weights, H)
+    pooled = [o[0] / fe.head_rows(o[1], H, hd) for o in (got, want)]
+    for name, g, w in (*zip(("num", "den", "m"), got, want), ("pooled", *pooled)):
+        assert g.shape == w.shape, name
+        d, top = (g - w).abs(), w.abs().max()
+        assert d.max() <= 1e-3 * top, name
+        assert (d > (3e-4 if name == "num" else 1e-4) * top).float().mean() <= 0.05, name
+
+
+@pytest.mark.parametrize("variant,B,G,S", CASES)
+def test_kernel_order_forward_matches_pallas_interpret(variant, B, G, S, monkeypatch):
+    """The pooled tokens through the forward in the kernel's order (in place
+    of the pools `fused_encoder_pooling` and `fused_window_pooling` call)
+    against JAX's Pallas forward in interpret mode, within 1e-3 of their
+    largest magnitude, the bound `test_pool_matches_pallas_interpret` holds
+    the plain version to."""
+    jvae, params, tvae, x, _ = make_case(B, G, S)
+    want = np.asarray(jax_pooled(variant, jvae, params, x))
+    monkeypatch.setattr(tvt, "encoder_pool", kernel_order_encoder_pool)
+    monkeypatch.setattr(tvt, "window_pool", kernel_order_pool)
+    with torch.no_grad():
+        got = port_pooled(variant, tvae, x).numpy()
+    assert got.shape == want.shape == (B, Q, E)
+    assert np.abs(got - want).max() < 1e-3 * np.abs(want).max()
