@@ -101,7 +101,23 @@ turns with the module DiT (`fused_training=False`) with each arm's peak
 memory, and euler-10 generation at a generation batch of 4
 through the DiT block kernel (72 of its launches, none of row 12's counted in
 the DiT, 16 in the decode), its NB means held against the module DiT and,
-through it, against the plain gate. The line before the last is a JSON
+through it, against the plain gate. Phase 10 runs the joint pair
+(parse1m's {cell_type 18, cytokine 91} and replogle's {cell_line 4, gene
+2,024}, condition_strategy joint) through the port's host data layer: a
+`VocabularyEncoder` from the dataset's metadata JSON with synthetic joint
+size-factor statistics (a JSON file in the reference's format covering about
+85% of the label pairs), 4,096 synthetic CSR cells packed into B = 128
+batches by `expressed_batch_from_csr` (lean, and one dense batch held
+against the lean one densified on the card) with their label columns from
+`encode_metadata`; it trains the joint DiT over the frozen parse1m VAE
+through the DiT block kernels (8 launches each way a step), holds one step
+against the module DiT, holds a `fused_encode` encode against the module
+encode, checks on the card that label pairs without statistics sample
+exactly 0, and generates dopri5 through `SizeFactorSampler(encoder,
+"joint")` with guidance on both labels, where the log of each conditional
+cell's library must correlate with its pair's mu at 0.7 or more; the
+requested label columns must decode back to their categories (the
+encoder's round trip). It loads neither h5py nor pandas. The line before the last is a JSON
 summary of the kernels, each with its time beside the least time the card could
 take for the same work; the last is {"ok": true, "device": {...}}. Any failure
 raises, so the script exits non-zero and prints no result; so does a machine
@@ -1848,7 +1864,7 @@ def compare_ldm_paths(phase: str, task, module_task, batch, g) -> None:
     from scldm_torch.training.metrics import global_norm
 
     dit = task.dit
-    B, T, E_in = len(batch["clusters"]), dit.seq_len, dit.n_embed_input
+    B, T, E_in = batch["library_size"].shape[0], dit.seq_len, dit.n_embed_input
     noise = {"t": torch.rand(B, generator=g, device="cuda"),
              "x0": torch.randn(B, T, E_in, generator=g, device="cuda"),
              "drop_mask": torch.rand(B, generator=g, device="cuda") < dit.cfg_dropout_prob}
@@ -2581,6 +2597,242 @@ def phase9_long_latent(seed: int) -> int:
     return launches, dit_launches, bwd_launches
 
 
+# phase 10: the joint pair (configs/datamodule/default.yaml:87-121: parse1m and
+# replogle, condition_strategy joint) on their real label vocabularies, with
+# synthetic joint size-factor statistics (the reference's .pkl files are not in
+# the repository)
+JOINT = {"parse1m": ("metadata/parse1m_train.json", {"cell_type": 18, "cytokine": 91}),
+         "replogle": ("metadata/replogle_train.json", {"cell_line": 4, "gene": 2_024})}
+JOINT_CELLS = 4_096  # synthetic cells a dataset, as CSR arrays
+JOINT_COVER = 0.85  # share of label pairs with statistics; the rest sample 0
+JOINT_SD = 0.05
+
+
+def joint_statistics(rng, labels: dict, vocab: dict, directory: Path) -> tuple:
+    """mu / sd JSON files in the reference's joint format ({"c1_c2":
+    {"<cat1>_<cat2>": value}}) for about JOINT_COVER of the pairs, mu spread
+    uniformly over [6, 9]; returns their paths."""
+    c1, c2 = vocab
+    mu, sd = {}, {}
+    for a in labels[c1]:
+        for b in labels[c2]:
+            if rng.random() < JOINT_COVER:
+                mu[f"{a}_{b}"] = float(rng.uniform(6.0, 9.0))
+                sd[f"{a}_{b}"] = JOINT_SD
+    paths = directory / "mu.json", directory / "sd.json"
+    for path, table in zip(paths, (mu, sd)):
+        path.write_text(json.dumps({f"{c1}_{c2}": table}))
+    return tuple(str(p) for p in paths)
+
+
+def joint_cells(rng, n_cells: int, n_genes: int) -> tuple:
+    """CSR arrays (data f32, indices i32 sorted within each row, indptr i64)
+    of `n_cells` cells with 500 to 1,999 expressed genes each
+    (benchmarks/bench_batch_scaling.py:25), counts 1 + Poisson(3)."""
+    import numpy as np
+
+    nnz = rng.integers(500, n_genes, n_cells)
+    indptr = np.concatenate([[0], np.cumsum(nnz)]).astype(np.int64)
+    indices = np.concatenate([np.sort(rng.choice(n_genes, k, replace=False)) for k in nnz])
+    data = (rng.poisson(3.0, int(indptr[-1])) + 1).astype(np.float32)
+    return data, indices.astype(np.int32), indptr
+
+
+def phase10_joint(seed: int, batch: int, smi: str) -> dict:
+    """LDM training and dopri5 generation under joint conditioning at
+    parse1m's and replogle's label vocabularies, fed by the port's host data
+    layer (`data.encoder.VocabularyEncoder`, `data.fastpath.
+    expressed_batch_from_csr`) and sampled through the joint size-factor
+    table (`SizeFactorSampler(encoder, "joint")`); returns the main path's
+    dit_block, dit_block_bwd and window pool forward launches."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from scldm_torch.data.encoder import VocabularyEncoder
+    from scldm_torch.data.fastpath import expressed_batch_from_csr
+    from scldm_torch.nn.nnets import DiT
+    from scldm_torch.nn.vae import build_transformer_vae
+    from scldm_torch.ops import fused_dit
+    from scldm_torch.ops import fused_encoder as fe
+    from scldm_torch.ops.transforms import canonical_gene_ids, densify_expressed
+    from scldm_torch.sampling.size_factors import SizeFactorSampler
+    from scldm_torch.training.ldm_task import LDMTask
+    from scldm_torch.transport import create_transport
+    from scldm_torch.utils.weights import init_reference_
+
+    host_modules = set(sys.modules)
+    phase_t0 = time.perf_counter()
+    total = {"dit_block": 0, "dit_block_bwd": 0, "window_pool_fwd": 0}
+    # the parse1m VAE of phase 5 (frozen), the same for both datasets (G = 2,000)
+    vae = init_reference_(build_transformer_vae(n_genes=PARSE_GENES, device="cuda"),
+                          torch.Generator(device="cuda").manual_seed(seed)).eval()
+    for name, (meta, vocab) in JOINT.items():
+        rng = np.random.default_rng(seed)
+        labels = json.loads((ROOT / meta).read_text())["labels"]
+        with tempfile.TemporaryDirectory() as tmp:
+            mu_path, sd_path = joint_statistics(rng, labels, vocab, Path(tmp))
+            enc = VocabularyEncoder(metadata_json=str(ROOT / meta), class_vocab_sizes=vocab,
+                                    condition_strategy="joint", mu_size_factor=mu_path,
+                                    sd_size_factor=sd_path)
+        c1, c2 = vocab
+        sizes = {c: len(enc.labels[c]) for c in vocab}
+        if enc.n_genes != PARSE_GENES or sizes != vocab:
+            raise AssertionError(f"{name}: {enc.n_genes} genes, labels {sizes}")
+        sfs = SizeFactorSampler(enc, "joint")
+        mu_t, sd_t = sfs.joint_table
+        if tuple(mu_t.shape) != (vocab[c1], vocab[c2]) or sfs.joint_components != [c1, c2]:
+            raise AssertionError(f"{name}: joint table {tuple(mu_t.shape)}, components "
+                                 f"{sfs.joint_components}")
+
+        # -- the host data layer: CSR cells -> batches with label columns
+        data, indices, indptr = joint_cells(rng, JOINT_CELLS, PARSE_GENES)
+        cats = {c: np.asarray(enc.labels[c])[rng.integers(0, vocab[c], JOINT_CELLS)]
+                for c in vocab}
+        t0 = time.perf_counter()
+        gene_row = enc.encode_genes(enc.genes)
+        n_steps = TRAIN_STEPS
+        batches = []
+        for lo in range(0, (n_steps + 1) * batch, batch):
+            hi = lo + batch
+            span = slice(int(indptr[lo]), int(indptr[hi]))
+            b = expressed_batch_from_csr(data[span], indices[span], indptr[lo:hi + 1] - indptr[lo],
+                                         gene_row, PARSE_GENES, build_dense=False)
+            b.update({c: enc.encode_metadata(cats[c][lo:hi], c) for c in vocab})
+            batches.append({k: torch.from_numpy(v).to("cuda") for k, v in b.items()})
+        host_s = time.perf_counter() - t0
+        dense = expressed_batch_from_csr(data[:indptr[batch]], indices[:indptr[batch]],
+                                         indptr[:batch + 1], gene_row, PARSE_GENES)
+        lean = batches[0]
+        if not (torch.equal(densify_expressed(lean["genes_subset"], lean["counts_subset"],
+                                              PARSE_GENES).cpu(), torch.from_numpy(dense["counts"]))
+                and np.array_equal(dense["library_size"], lean["library_size"].cpu().numpy())):
+            raise AssertionError(f"{name}: the dense batch is not the lean batch densified")
+
+        # -- LDM training through the DiT block kernels
+        dit = init_reference_(DiT(**dict(DIT, class_vocab_sizes=enc.class_vocab_sizes,
+                                         condition_strategy="joint")),
+                              torch.Generator().manual_seed(seed), zero_init=False)
+        dit = dit.to("cuda")
+        task = LDMTask(vae, dit, create_transport())
+        state = task.init_state(torch.Generator(device="cuda").manual_seed(seed))
+        state, _ = task.train_step(state, batches[0])  # warm-up
+        torch.cuda.synchronize()
+        fused_dit.DIT_BLOCK_LAUNCHES.reset()
+        fused_dit.DIT_BLOCK_BWD_LAUNCHES.reset()
+        losses = []
+        t0 = time.perf_counter()
+        for b in batches[1:]:
+            state, mets = task.train_step(state, b)
+            losses.append(mets["train_loss"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        fwd, bwd = fused_dit.DIT_BLOCK_LAUNCHES.count, fused_dit.DIT_BLOCK_BWD_LAUNCHES.count
+        losses = torch.stack(losses)
+        L = dit.n_layer
+        if not torch.isfinite(losses).all():
+            raise AssertionError(f"{name}: non-finite LDM training loss {losses.tolist()}")
+        if fwd != L * n_steps or bwd != L * n_steps:
+            raise AssertionError(f"{name}: {fwd} dit_block and {bwd} dit_block_bwd launches in "
+                                 f"{n_steps} steps of {L} blocks")
+        log(f"phase10 {name} joint {vocab}: host data layer {host_s:.3f} s for "
+            f"{(n_steps + 1) * batch} of {JOINT_CELLS} CSR cells ({int(indptr[-1])} nonzeros)")
+        log(f"phase10 {name} LDM training B={batch}: {batch * n_steps / dt:.1f} train cells/s, "
+            f"{dt / n_steps * 1e3:.2f} ms/step over {n_steps} steps ({smi}); losses "
+            f"{losses[0].item():.4f} -> {losses[-1].item():.4f}; launches dit_block {fwd} "
+            f"dit_block_bwd {bwd}")
+        total["dit_block"] += fwd
+        total["dit_block_bwd"] += bwd
+        seg = ldm_step_segments(task, state, batches[1:4])
+        log(f"phase10 {name} segments ms (3 steps, each synchronised; the loss encodes again): "
+            f"{seg}")
+        g = torch.Generator(device="cuda").manual_seed(seed + 3)
+        compare_ldm_paths(f"phase10 {name}", task,
+                          LDMTask(vae, dit, create_transport(), fused_training=False),
+                          batches[-1], g)
+
+        # -- the frozen encode through the narrow window pool (fused_encode)
+        fe.WINDOW_POOL_FWD_LAUNCHES.reset()
+        z_k = LDMTask(vae, dit, create_transport(), fused_encode=True)._encode(batches[-1])
+        torch.cuda.synchronize()
+        encodes = fe.WINDOW_POOL_FWD_LAUNCHES.count
+        z_m = task._encode(batches[-1])
+        err, scale = (z_k - z_m).abs().max().item(), z_m.abs().max().item()
+        # JAX's bound between the two (tests/test_fused_encoder.py:279-308)
+        if encodes != 1 or not err < 0.02 * scale:
+            raise AssertionError(f"{name} fused encode: {encodes} window pool launches, max abs "
+                                 f"err {err:.3e} against the module encode, max |z| {scale:.3e}")
+        total["window_pool_fwd"] += encodes
+
+        # -- the joint table on the card: pairs without statistics sample exactly 0
+        have = (mu_t > 0).numpy()
+        miss1, miss2 = np.nonzero(~have)
+        covered1, covered2 = np.nonzero(have)
+        if not (0 < len(miss1) < have.size):
+            raise AssertionError(f"{name}: {len(miss1)} of {have.size} pairs without statistics")
+        probe = {c1: torch.from_numpy(miss1).to("cuda"), c2: torch.from_numpy(miss2).to("cuda")}
+        zeros = sfs.sample(g, probe, len(miss1), "cuda")
+        if zeros.device.type != "cuda" or not torch.equal(zeros, torch.zeros_like(zeros)):
+            raise AssertionError(f"{name}: pairs without statistics sampled "
+                                 f"{zeros.abs().max().item()}")
+
+        # -- dopri5 generation under joint CFG, the condition pairs among those with statistics
+        pick = rng.integers(0, len(covered1), batch)
+        want_cats = {c1: np.asarray(enc.labels[c1])[covered1[pick]],
+                     c2: np.asarray(enc.labels[c2])[covered2[pick]]}
+        cond = {c: torch.from_numpy(enc.encode_metadata(v, c)).to("cuda")
+                for c, v in want_cats.items()}
+        fn = task.make_sample_fn(sfs, guidance_weight={c1: 1.0, c2: 1.0},
+                                 sampling_method="dopri5", num_steps=50)
+        genes = canonical_gene_ids(PARSE_GENES, device="cuda")
+        fn(g, genes, cond)  # warm-up: the joint embedding tables' first use
+        torch.cuda.synchronize()
+        fused_dit.DIT_BLOCK_LAUNCHES.reset()
+        t0 = time.perf_counter()
+        counts, z = fn(g, genes, cond, state=state)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        gen = fused_dit.DIT_BLOCK_LAUNCHES.count
+        if counts.shape != (2 * batch, PARSE_GENES) or z.shape != (2 * batch, DIT["seq_len"], 16):
+            raise AssertionError(f"{name}: counts {tuple(counts.shape)} z {tuple(z.shape)}")
+        if not (torch.isfinite(counts).all() and torch.isfinite(z).all()):
+            raise AssertionError(f"{name}: non-finite generation output")
+        if not ((counts >= 0).all() and (counts == counts.round()).all()):
+            raise AssertionError(f"{name}: counts are not non-negative integers")
+        if fn.drift_evals <= 0 or gen != L * fn.drift_evals:
+            raise AssertionError(f"{name}: {gen} dit_block launches for {fn.drift_evals} DiT "
+                                 f"evaluations")
+        # JAX's criterion (tests/test_joint_conditioning.py:84-87): the conditional
+        # libraries track the table's mu for their pairs
+        lib = torch.log(counts[batch:].sum(1) + 1e-6).cpu().numpy()
+        want_mu = mu_t.numpy()[covered1[pick], covered2[pick]]
+        corr = float(np.corrcoef(lib, want_mu)[0, 1])
+        if not corr >= 0.7:
+            raise AssertionError(f"{name}: conditional log library vs the table's mu: corr {corr}")
+        # the encoder's round trip of the requested labels (encode_metadata, then
+        # decode_metadata of the condition the generation call was given)
+        for c, v in want_cats.items():
+            back = enc.decode_metadata(cond[c].cpu().numpy(), c)
+            if list(back) != list(v):
+                raise AssertionError(f"{name}: {c} labels do not decode to the requested ones")
+        total["dit_block"] += gen
+        log(f"phase10 {name} generation dopri5 (fused_blocks=True, guidance {{{c1}: 1.0, "
+            f"{c2}: 1.0}}) from the EMA weights: {2 * batch / dt:.1f} cells/s ({dt:.3f} s for "
+            f"{2 * batch} cells; {smi}), DiT evals {fn.drift_evals}, dit_block launches {gen}; "
+            f"conditional log library vs the joint table's mu: corr {corr:.4f}; "
+            f"{len(miss1)} of {have.size} pairs without statistics sample 0; the encoder "
+            f"round-trips the requested labels; "
+            f"fused encode {encodes} window pool launch, max abs err {err:.3e} ({err / scale:.1e} "
+            f"of max)")
+    loaded = sorted(m for m in set(sys.modules) - host_modules if m.split(".")[0] in
+                    ("h5py", "pandas"))
+    if loaded:
+        raise AssertionError(f"phase10 loaded {loaded}")
+    log(f"phase10 took {time.perf_counter() - phase_t0:.1f} s; launches {total}")
+    return total
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -2653,10 +2905,14 @@ def main(argv=None) -> int:
     # -- phase 9: the census pair at 1,024 latent tokens --------------------------
     long_latent, long_dit, long_dit_bwd = phase9_long_latent(args.seed)
 
+    # -- phase 10: joint conditioning at parse1m / replogle -----------------------
+    joint = phase10_joint(args.seed, args.batch, smi)
+
     tail_src = "scldm_torch/kernels/csrc/decoder_tail.cu"
     pool_src = "scldm_torch/kernels/csrc/encoder_pool.cu"
     pool_launches = {"dense_fwd": parse["encoder_pool_fwd"], "dense_bwd": parse["encoder_pool_bwd"],
-                     "window_fwd": parse["window_pool_fwd"] + encode_launches,
+                     "window_fwd": parse["window_pool_fwd"] + encode_launches
+                     + joint["window_pool_fwd"],
                      "window_bwd": parse["window_pool_bwd"]}
     pool_replaces = {"dense_fwd": 217, "dense_bwd": 263, "window_fwd": 409, "window_bwd": 452}
     # no single PyTorch call computes any of these functions but flash_cross
@@ -2670,10 +2926,12 @@ def main(argv=None) -> int:
         # the census sampler's (T = 64) and the long-latent pair's (T = 1,024)
         {"name": "dit_block", "route": "cuda", "source": dit_src,
          "replaces": "scldm_tpu/ops/fused_dit.py:155",
-         "launches": launches + ldm_fwd + ldm_gen, **dit_block[(16, 384)],
+         "launches": launches + ldm_fwd + ldm_gen + joint["dit_block"],
+         **dit_block[(16, 384)],
          **dit_block_bound(3 * args.batch, backward=False), "library_ms": None},
         {"name": "dit_block_bwd", "route": "cuda", "source": dit_bwd_src,
-         "replaces": "scldm_tpu/ops/fused_dit.py:205", "launches": ldm_bwd,
+         "replaces": "scldm_tpu/ops/fused_dit.py:205",
+         "launches": ldm_bwd + joint["dit_block_bwd"],
          **dit_block_bwd[(16, 128)], **dit_block_bound(128, backward=True),
          "library_ms": None},
         {"name": "dit_block_t64", "route": "cuda", "source": dit_src,

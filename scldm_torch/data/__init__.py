@@ -1,0 +1,4 @@
+"""The host data layer: the gene / label vocabulary encoder, tokenization of
+count matrices, CSR batch packing and the h5ad reader and writer. numpy (and
+h5py / pandas inside the functions that read files) only; tensors are made
+by the caller, on its device."""

@@ -161,6 +161,11 @@ def test_import_without_jax():
         "import scldm_torch.training.metrics, scldm_torch.ops.fused_decoder\n"
         "import scldm_torch.ops.fused_cross, scldm_torch.ops.attention\n"
         "import scldm_torch.training.ema, scldm_torch.ops.fused_dit, scldm_torch.transport.transport\n"
+        "import scldm_torch.data.encoder, scldm_torch.data.tokenize, scldm_torch.data.fastpath\n"
+        "import scldm_torch.sampling.size_factors\n"
+        "host = [m for m in ('h5py', 'pandas') if m in sys.modules]\n"
+        "assert not host, f'the chip path loads {host}'\n"
+        "import scldm_torch.data.h5ad, scldm_torch.cli.extract_metadata, scldm_torch.utils.output\n"
         "loaded = [m for m in sys.modules if sys.modules[m] is not None]\n"
         "assert 'jax' not in loaded\n"
         "assert not [m for m in loaded if m.startswith('scldm_tpu')], 'the port imports scldm_tpu'\n"
