@@ -117,7 +117,30 @@ exactly 0, and generates dopri5 through `SizeFactorSampler(encoder,
 "joint")` with guidance on both labels, where the log of each conditional
 cell's library must correlate with its pair's mu at 0.7 or more; the
 requested label columns must decode back to their categories (the
-encoder's round trip). It loads neither h5py nor pandas. The line before the last is a JSON
+encoder's round trip). It loads neither h5py nor pandas. Phase 11 runs the
+user entry points as a user would, `main(argv)` of `scldm_torch.cli.train`,
+`train_ldm` and `inference` with `--config` on the repo's YAML files and
+`model.compute_dtype=float32`, at full dentate width (G = 17,002, a window of
+6,147, B = 128) on 2,560 synthetic CSR cells (1,500 to 3,999 expressed genes,
+a `clusters` column; 18 train steps an epoch) and a 256-cell test file, with
+JSON size-factor statistics; the port's DataModule, native CSR packer,
+prefetch thread, fit loop and checkpoints all run as shipped, with two
+stand-ins for the card machine's missing h5py, named in the log: an
+in-memory CSR shard for `H5ADFile` and a capturing writer for the h5ad
+writer. `train` takes SIGTERM after its first dispatch (the guard's handler
+checked first), checkpoints at step 8 and returns; the same command resumes
+at step 8 and ends at 24, and must train the same steps, learning rates and
+batches as an uninterrupted run, with weights within CLI_RESUME_ATOL (the
+largest difference printed); each VAE step launches the tail once each way.
+`train_ldm` then trains 24 steps on that checkpoint (eight DiT block
+launches each way a step) and checkpoints the EMA; `inference` generates
+dopri5 from configs/generation.yaml (both halves, the labels decoding to the
+test cells' categories), encodes and reconstructs from configs/
+inference.yaml, and runs `vae_only`; `train` at `datamodule.dataset=parse1m`
+takes 8 steps through the dense pool and the tail. Every batch must be
+packed by the native packer, each CLI's wall time, the train cells/s of
+`metrics.csv` and each checkpoint's size and save time are printed, and the
+phase fails if yaml, h5py, pandas or jax was loaded. The line before the last is a JSON
 summary of the kernels, each with its time beside the least time the card could
 take for the same work; the last is {"ok": true, "device": {...}}. Any failure
 raises, so the script exits non-zero and prints no result; so does a machine
@@ -128,7 +151,9 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import csv
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -2833,6 +2858,350 @@ def phase10_joint(seed: int, batch: int, smi: str) -> dict:
     return total
 
 
+# phase 11: the user entry points (scldm_torch.cli.train / train_ldm / inference)
+# on the repo's YAML configs at full dentate width, fed by the port's DataModule
+CLI_CELLS = 2_560  # the train file: the 10% validation split leaves 2,304 cells, 18 steps
+CLI_TEST_CELLS = 256  # the test file, which the predict stream reads
+CLI_PARSE_CELLS = 1_280  # parse1m's train file: 1,152 train cells, 9 steps of 128
+CLI_STEPS = 24
+CLI_PARSE_STEPS = 8
+# resumed against uninterrupted: the embedding backward and the index adds sum
+# with atomics on the card, so the weights may part in the last bits, which the
+# optimizer carries on; each parameter is held to this absolute difference
+CLI_RESUME_ATOL = 1e-2
+
+
+class InMemoryShard:
+    """Stands in for `data.h5ad.H5ADFile`: one CSR shard in host memory with
+    the methods the DataModule calls (the card's machine has no h5py)."""
+
+    def __init__(self, data, indices, indptr, var_names, obs: dict):
+        self.data, self.indices, self.indptr = data, indices, indptr
+        self.var_names = list(var_names)
+        self.n_vars = len(self.var_names)
+        self.obs = obs  # label -> (codes int32, categories)
+
+    def shape(self, attr: str = "X", key=None) -> tuple:
+        return (len(self.indptr) - 1, self.n_vars)
+
+    def is_csr(self, attr: str = "X", key=None) -> bool:
+        return True
+
+    def csr_block(self, lo: int, hi: int, attr: str = "X", key=None):
+        span = slice(int(self.indptr[lo]), int(self.indptr[hi]))
+        return self.data[span], self.indices[span], self.indptr[lo:hi + 1] - self.indptr[lo]
+
+    def obs_columns(self) -> list:
+        return list(self.obs)
+
+    def obs_codes(self, name: str):
+        return self.obs[name]
+
+    def obs_column(self, name: str):
+        import numpy as np
+
+        codes, cats = self.obs[name]
+        return np.asarray(cats, dtype=object)[codes]
+
+    def rows(self, *args, **kwargs):
+        raise AssertionError("the smoke's shards are read as CSR blocks only")
+
+
+def cli_shard(rng, n_cells: int, genes: list, labels: dict):
+    """`n_cells` synthetic CSR cells over `genes` with 1,500 to 3,999 expressed
+    genes each (up to all of them), counts 1 + Poisson(3), and each label
+    column drawn uniformly over its categories."""
+    import numpy as np
+
+    g = len(genes)
+    nnz = rng.integers(min(1_500, g - 1), min(4_000, g), n_cells)
+    indptr = np.concatenate([[0], np.cumsum(nnz)]).astype(np.int64)
+    indices = np.concatenate([np.sort(rng.choice(g, k, replace=False)) for k in nnz])
+    data = (rng.poisson(3.0, int(indptr[-1])) + 1).astype(np.float32)
+    obs = {c: (rng.integers(0, len(cats), n_cells).astype(np.int32), list(cats))
+           for c, cats in labels.items()}
+    return InMemoryShard(data, indices.astype(np.int32), indptr, genes, obs)
+
+
+def phase11_cli(seed: int, smi: str) -> dict:
+    """The three CLIs at full dentate width from the repo's YAML files: `train`
+    preempted by SIGTERM after its first dispatch and resumed, against an
+    uninterrupted run; `train_ldm` on its checkpoint; `inference` for
+    generation, for latents and reconstruction and with `vae_only`; then
+    `train` at parse1m. Two stand-ins, for the card machine's missing h5py:
+    the in-memory shard for `H5ADFile` and a capturing writer for the h5ad
+    writer. Returns the launches of rows 1-6."""
+    import hashlib
+    import os
+    import signal
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from scldm_torch.cli._common import parse_config
+    from scldm_torch.cli import inference as cli_inference
+    from scldm_torch.cli import train as cli_train
+    from scldm_torch.cli import train_ldm as cli_train_ldm
+    from scldm_torch.data import datamodule as dm_module
+    from scldm_torch.config.build import build_datamodule
+    from scldm_torch.data import fastpath
+    from scldm_torch.ops import fused_decoder as fd
+    from scldm_torch.ops import fused_dit
+    from scldm_torch.ops import fused_encoder as fe
+    from scldm_torch.training import checkpoint as ckpt_module
+    from scldm_torch.training.preemption import PreemptionGuard
+    from scldm_torch.training.vae_task import VAETask
+    from scldm_torch.utils import output as output_module
+
+    phase_t0 = time.perf_counter()
+    counters = {"dit_block": fused_dit.DIT_BLOCK_LAUNCHES,
+                "dit_block_bwd": fused_dit.DIT_BLOCK_BWD_LAUNCHES,
+                "decoder_tail_fwd": fd.DECODER_TAIL_FWD_LAUNCHES,
+                "decoder_tail_bwd": fd.DECODER_TAIL_BWD_LAUNCHES,
+                "encoder_pool_fwd": fe.ENCODER_POOL_FWD_LAUNCHES,
+                "encoder_pool_bwd": fe.ENCODER_POOL_BWD_LAUNCHES}
+    total = {k: 0 for k in counters}
+    packs = {"native": fastpath.NATIVE_PACKS, "numpy": fastpath.NUMPY_PACKS}
+
+    def run(name: str, fn, argv: list) -> dict:
+        """One CLI call, its counts set to 0 just before and read just after."""
+        for c in (*counters.values(), *packs.values()):
+            c.reset()
+        t0 = time.perf_counter()
+        rc = fn(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k: c.count for k, c in counters.items()}
+        packed = {k: c.count for k, c in packs.items()}
+        if rc != 0:
+            raise AssertionError(f"phase11 {name} returned {rc}")
+        if packed["numpy"] or not packed["native"]:
+            raise AssertionError(f"phase11 {name}: batches packed {packed}; every batch must go "
+                                 "through the native packer")
+        for k in total:
+            total[k] += got[k]
+        log(f"phase11 {name}: {wall:.2f} s wall ({smi}); launches "
+            f"{ {k: v for k, v in got.items() if v} }; batches packed natively {packed['native']}")
+        return got
+
+    # -- the data: synthetic shards on the real vocabularies, statistics as JSON
+    rng = np.random.default_rng(seed)
+    dentate = json.loads((ROOT / "metadata/dentategyrus_train.json").read_text())
+    parse = json.loads((ROOT / "metadata/parse1m_train.json").read_text())
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="scldm_phase11_"))
+    shards = {
+        str(tmp / "train.h5ad"): cli_shard(rng, CLI_CELLS, dentate["genes"], dentate["labels"]),
+        str(tmp / "test.h5ad"): cli_shard(rng, CLI_TEST_CELLS, dentate["genes"],
+                                          dentate["labels"]),
+        str(tmp / "parse_train.h5ad"): cli_shard(
+            rng, CLI_PARSE_CELLS, parse["genes"],
+            {c: parse["labels"][c] for c in ("cell_type", "cytokine")}),
+    }
+    mu = {"clusters": {c: float(rng.uniform(6.0, 9.0)) for c in dentate["labels"]["clusters"]}}
+    sd = {"clusters": {c: 0.05 for c in dentate["labels"]["clusters"]}}
+    (tmp / "mu.json").write_text(json.dumps(mu))
+    (tmp / "sd.json").write_text(json.dumps(sd))
+    nnz = int(shards[str(tmp / "train.h5ad")].indptr[-1])
+    log(f"phase11 data: {CLI_CELLS} + {CLI_TEST_CELLS} dentate cells ({nnz} nonzeros in the "
+        f"train file), {CLI_PARSE_CELLS} parse1m cells, made in {time.perf_counter() - t0:.2f} s")
+
+    # -- the two stand-ins, named in the log
+    written = []
+
+    def capture_h5ad(path, X, obs=None, var_names=None, obsm=None, **kwargs):
+        written.append({"path": Path(path).name, "X": np.asarray(X), "obs": dict(obs or {}),
+                        "var_names": list(var_names), "obsm": dict(obsm or {})})
+
+    saves = []
+    real_save = ckpt_module.CheckpointManager.save
+
+    def timed_save(self, step, state, metrics=None):
+        t = time.perf_counter()
+        done = real_save(self, step, state, metrics)
+        if done:
+            self.wait_until_finished()
+            saves.append((f"{self.directory.parent.parent.name}/{self.directory.name}", step,
+                          time.perf_counter() - t,
+                          (self.directory / str(step) / ckpt_module.STATE_FILE).stat().st_size))
+        return done
+
+    real_h5ad, real_writer = dm_module.H5ADFile, output_module.write_h5ad
+    dm_module.H5ADFile = lambda path: shards[str(path)]
+    output_module.write_h5ad = capture_h5ad
+    ckpt_module.CheckpointManager.save = timed_save
+    log("phase11 stand-ins: data.datamodule.H5ADFile -> an in-memory CSR shard, "
+        "utils.output.write_h5ad -> a capturing writer; everything between them runs as "
+        "shipped")
+
+    # what each optimizer step trained on: its step, learning rate and batch
+    # (VAETask.train_steps takes its steps through train_step)
+    trained = []
+    real_step, real_steps = VAETask.train_step, VAETask.train_steps
+
+    def digest(batch):
+        parts = [batch[k].cpu().numpy().tobytes() for k in ("genes_subset", "counts_subset")]
+        return hashlib.sha1(b"".join(parts)).hexdigest()[:16]
+
+    def record_step(self, state, batch):
+        trained.append((state.step, self.schedule(state.step), digest(batch)))
+        return real_step(self, state, batch)
+
+    preempt = {"armed": False, "seen": None}
+
+    def record_steps(self, state, stacked):  # its steps are recorded by train_step
+        out = real_steps(self, state, stacked)
+        if preempt["armed"]:
+            preempt["armed"] = False
+            handler = signal.getsignal(signal.SIGTERM)
+            preempt["seen"] = type(getattr(handler, "__self__", None)).__name__
+            if not isinstance(getattr(handler, "__self__", None), PreemptionGuard):
+                raise AssertionError(f"phase11: SIGTERM's handler is {handler!r}, not the guard's")
+            os.kill(os.getpid(), signal.SIGTERM)
+        return out
+
+    VAETask.train_step, VAETask.train_steps = record_step, record_steps
+    dentate_args = [
+        f"datamodule.datamodule.train_adata_path={tmp / 'train.h5ad'}",
+        f"datamodule.datamodule.test_adata_path={tmp / 'test.h5ad'}",
+        f"datamodule.dataset_params.dentate_gyrus.mu_size_factor={tmp / 'mu.json'}",
+        f"datamodule.dataset_params.dentate_gyrus.sd_size_factor={tmp / 'sd.json'}",
+        "model.compute_dtype=float32", f"training.max_steps={CLI_STEPS}", "epochs=2",
+        "training.log_every_steps=8",
+    ]
+
+    def outputs(name):
+        return [f"paths.output_path={tmp / name}", f"paths.inference_path={tmp / name / 'inference'}"]
+
+    config = lambda name: ["--config", str(ROOT / "configs" / name)]  # noqa: E731
+    try:
+        # -- the host pipeline alone: the DataModule's read, pack and uint16 wire
+        dm = build_datamodule(parse_config(config("vae_training.yaml") + dentate_args
+                                           + ["datamodule.datamodule.prefetch=0"], None, ""))
+        dm.setup("fit")
+        batches = dm.train_batches(0)
+        next(batches)  # the packer's first use builds it
+        t0 = time.perf_counter()
+        n = sum(1 for _ in batches)
+        log(f"phase11 host pipeline: {(time.perf_counter() - t0) / n * 1e3:.2f} ms a packed lean "
+            f"batch of 128 cells (prefetch off, {n} batches: the CSR block read, the native "
+            "pack, the uint16 wire)")
+
+        # -- train: preempted after its first dispatch, resumed, and uninterrupted
+        argv = config("vae_training.yaml") + dentate_args + outputs("run")
+        preempt["armed"] = True
+        cut = run("train (SIGTERM after the first dispatch)", cli_train.main, argv)
+        ck = tmp / "run" / "checkpoints" / "vae_dentate_gyrus"
+        steps = sorted(int(p.name) for p in ck.iterdir() if p.name.isdigit())
+        if preempt["seen"] != "PreemptionGuard" or steps != [8] or len(trained) != 8:
+            raise AssertionError(f"phase11: the preempted run saved {steps} after {len(trained)} "
+                                 f"steps (handler {preempt['seen']})")
+        resumed = run("train (resumed)", cli_train.main, argv)
+        cut_and_resumed, trained[:] = list(trained), []
+        full = run("train (uninterrupted)", cli_train.main,
+                   config("vae_training.yaml") + dentate_args + outputs("full"))
+        if cut_and_resumed != trained or [t[0] for t in trained] != list(range(CLI_STEPS)):
+            raise AssertionError("phase11: the resumed run trained other steps, learning rates or "
+                                 "batches than the uninterrupted one")
+        for name, got in (("preempted + resumed", {k: cut[k] + resumed[k] for k in cut}),
+                          ("uninterrupted", full)):
+            if got["decoder_tail_fwd"] != CLI_STEPS or got["decoder_tail_bwd"] != CLI_STEPS:
+                raise AssertionError(f"phase11 train {name}: {got} launches in {CLI_STEPS} steps")
+        a = ckpt_module.read_payload(ck / str(CLI_STEPS))
+        b = ckpt_module.read_payload(tmp / "full" / "checkpoints" / "vae_dentate_gyrus"
+                                     / str(CLI_STEPS))
+        diff = max((a["module"][k] - b["module"][k]).abs().max().item() for k in a["module"])
+        if a["step"] != b["step"] or not diff <= CLI_RESUME_ATOL:
+            raise AssertionError(f"phase11: resumed vs uninterrupted weights differ by {diff:.3e}")
+        rows = [r for r in csv.DictReader((tmp / "full" / "checkpoints" / "vae_dentate_gyrus"
+                                            / "metrics.csv").open()) if r.get("cells_per_sec")]
+        log(f"phase11 train: resumed at step 8 (skipping 8 batches of epoch 0) and ended at "
+            f"{CLI_STEPS}; the same steps, learning rates and batches as the uninterrupted run; "
+            f"weights {'bitwise equal' if diff == 0 else f'max abs diff {diff:.3e}'} (held to "
+            f"{CLI_RESUME_ATOL}); train cells/s from metrics.csv (uninterrupted, {smi}): "
+            + ", ".join(f"step {int(float(r['step']))}: {float(r['cells_per_sec']):.1f}"
+                        for r in rows))
+
+        # -- train_ldm on that checkpoint, then the three inference modes
+        ldm_args = dentate_args + outputs("run")
+        got = run("train_ldm", cli_train_ldm.main, config("ldm_training.yaml") + ldm_args)
+        L = 8
+        if got["dit_block"] != L * CLI_STEPS or got["dit_block_bwd"] != L * CLI_STEPS:
+            raise AssertionError(f"phase11 train_ldm: {got} launches in {CLI_STEPS} steps")
+        payload = ckpt_module.read_payload(tmp / "run" / "checkpoints" / "ldm_dentate_gyrus"
+                                           / str(CLI_STEPS))
+        if payload["ema"] is None or payload["ema"]["step"] != CLI_STEPS:
+            raise AssertionError("phase11 train_ldm: no EMA in the final checkpoint")
+        rows = [r for r in csv.DictReader((tmp / "run" / "checkpoints" / "ldm_dentate_gyrus"
+                                            / "metrics.csv").open()) if r.get("cells_per_sec")]
+        log("phase11 train_ldm train cells/s from metrics.csv: " + ", ".join(
+            f"step {int(float(r['step']))}: {float(r['cells_per_sec']):.1f}" for r in rows))
+
+        written.clear()
+        got = run("inference (configs/generation.yaml, dopri5)", cli_inference.main,
+                  config("generation.yaml") + ldm_args + ["generation_args.n_batches=1"])
+        (gen,) = written
+        batch = 128
+        X = gen["X"]
+        test = shards[str(tmp / "test.h5ad")]
+        want = list(test.obs_column("clusters")[:batch])
+        if X.shape != (2 * batch, N_GENES) or not (np.isfinite(X).all() and (X >= 0).all()):
+            raise AssertionError(f"phase11 generation: counts {X.shape}")
+        if list(gen["obs"]["generation_type"]) != ["unconditional"] * batch + ["conditional"] * batch:
+            raise AssertionError("phase11 generation: the halves are not in order")
+        if list(gen["obs"]["clusters"]) != want + want:
+            raise AssertionError("phase11 generation: the condition labels do not decode to the "
+                                 "test cells' categories")
+        if gen["obsm"]["z"].shape != (2 * batch, 16 * 16) or got["dit_block"] <= 0 \
+                or got["dit_block"] % L:
+            raise AssertionError(f"phase11 generation: z {gen['obsm']['z'].shape}, launches {got}")
+        log(f"phase11 generation: counts {X.shape}, mean {X.mean():.3f}, "
+            f"both halves, labels decode to the test cells' categories, "
+            f"{got['dit_block'] // L} DiT evaluations")
+
+        written.clear()
+        run("inference (configs/inference.yaml)", cli_inference.main,
+            config("inference.yaml") + ldm_args)
+        written_vae = list(written)
+        written.clear()
+        run("inference (vae_only=true)", cli_inference.main,
+            config("inference.yaml") + ldm_args + ["vae_only=true"])
+        for name, files in (("inference", written_vae), ("vae_only", written)):
+            shapes = [(f["X"].shape, f["obsm"]["z"].shape) for f in files]
+            if shapes != [((batch, N_GENES), (batch, 16 * 16))] * 2 or not all(
+                    np.isfinite(f["X"]).all() and np.isfinite(f["obsm"]["z"]).all()
+                    for f in files):
+                raise AssertionError(f"phase11 {name}: outputs {shapes}")
+        log(f"phase11 inference and vae_only: {len(written_vae)} + {len(written)} files of "
+            f"{batch} cells, reconstructions and latents finite")
+
+        # -- train at parse1m: the dense pool and the tail, once each way a step
+        got = run("train (datamodule.dataset=parse1m)", cli_train.main,
+                  config("vae_training.yaml") + outputs("run") + [
+                      "datamodule.dataset=parse1m",
+                      f"datamodule.datamodule.train_adata_path={tmp / 'parse_train.h5ad'}",
+                      "model.compute_dtype=float32", f"training.max_steps={CLI_PARSE_STEPS}",
+                      "epochs=1"])
+        if any(got[k] != CLI_PARSE_STEPS for k in ("encoder_pool_fwd", "encoder_pool_bwd",
+                                                   "decoder_tail_fwd", "decoder_tail_bwd")):
+            raise AssertionError(f"phase11 parse1m: {got} launches in {CLI_PARSE_STEPS} steps")
+    finally:
+        dm_module.H5ADFile, output_module.write_h5ad = real_h5ad, real_writer
+        ckpt_module.CheckpointManager.save = real_save
+        VAETask.train_step, VAETask.train_steps = real_step, real_steps
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    for name, step, seconds, size in saves:
+        log(f"phase11 checkpoint {name} step {step}: {size / 2**20:.1f} MiB written in "
+            f"{seconds * 1e3:.1f} ms")
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("yaml", "h5py", "pandas", "jax"))
+    if loaded:
+        raise AssertionError(f"phase11: {loaded} loaded")
+    log(f"phase11 took {time.perf_counter() - phase_t0:.1f} s; launches {total}")
+    return total
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -2908,9 +3277,13 @@ def main(argv=None) -> int:
     # -- phase 10: joint conditioning at parse1m / replogle -----------------------
     joint = phase10_joint(args.seed, args.batch, smi)
 
+    # -- phase 11: the CLIs from the repo's YAML configs ---------------------------
+    cli = phase11_cli(args.seed, smi)
+
     tail_src = "scldm_torch/kernels/csrc/decoder_tail.cu"
     pool_src = "scldm_torch/kernels/csrc/encoder_pool.cu"
-    pool_launches = {"dense_fwd": parse["encoder_pool_fwd"], "dense_bwd": parse["encoder_pool_bwd"],
+    pool_launches = {"dense_fwd": parse["encoder_pool_fwd"] + cli["encoder_pool_fwd"],
+                     "dense_bwd": parse["encoder_pool_bwd"] + cli["encoder_pool_bwd"],
                      "window_fwd": parse["window_pool_fwd"] + encode_launches
                      + joint["window_pool_fwd"],
                      "window_bwd": parse["window_pool_bwd"]}
@@ -2926,12 +3299,12 @@ def main(argv=None) -> int:
         # the census sampler's (T = 64) and the long-latent pair's (T = 1,024)
         {"name": "dit_block", "route": "cuda", "source": dit_src,
          "replaces": "scldm_tpu/ops/fused_dit.py:155",
-         "launches": launches + ldm_fwd + ldm_gen + joint["dit_block"],
+         "launches": launches + ldm_fwd + ldm_gen + joint["dit_block"] + cli["dit_block"],
          **dit_block[(16, 384)],
          **dit_block_bound(3 * args.batch, backward=False), "library_ms": None},
         {"name": "dit_block_bwd", "route": "cuda", "source": dit_bwd_src,
          "replaces": "scldm_tpu/ops/fused_dit.py:205",
-         "launches": ldm_bwd + joint["dit_block_bwd"],
+         "launches": ldm_bwd + joint["dit_block_bwd"] + cli["dit_block_bwd"],
          **dit_block_bwd[(16, 128)], **dit_block_bound(128, backward=True),
          "library_ms": None},
         {"name": "dit_block_t64", "route": "cuda", "source": dit_src,
@@ -2952,11 +3325,13 @@ def main(argv=None) -> int:
          **dit_block_bound(CENSUS_LDM_BATCH, backward=True, T=1024), "library_ms": None},
         {"name": "decoder_tail_fwd", "route": "cuda", "source": tail_src,
          "replaces": "scldm_tpu/ops/fused_decoder.py:262",
-         "launches": fwd_launches + parse["decoder_tail_fwd"], **tail_fwd,
+         "launches": fwd_launches + parse["decoder_tail_fwd"] + cli["decoder_tail_fwd"],
+         **tail_fwd,
          **decoder_tail_bound(128, N_GENES, backward=False), "library_ms": None},
         {"name": "decoder_tail_bwd", "route": "cuda", "source": tail_src,
          "replaces": "scldm_tpu/ops/fused_decoder.py:294",
-         "launches": bwd_launches + parse["decoder_tail_bwd"], **tail_bwd,
+         "launches": bwd_launches + parse["decoder_tail_bwd"] + cli["decoder_tail_bwd"],
+         **tail_bwd,
          **decoder_tail_bound(128, N_GENES, backward=True), "library_ms": None},
     ] + [
         # dense at parse1m (B=128, G=2,000), window at the dentate window (B=128, S=6,147)

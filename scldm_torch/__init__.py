@@ -10,7 +10,11 @@ training step (`training.vae_task.VAETask`); LDM training
 (`training.ldm_task.LDMTask.train_step`) with the EMA; joint conditioning
 with its size-factor table (`sampling.size_factors`); the host data layer
 (`data`: the vocabulary encoder, tokenization, CSR packing, h5ad files),
-`cli.extract_metadata` and the generation output files (`utils.output`).
+`cli.extract_metadata` and the generation output files (`utils.output`); the
+user entry points `cli.train`, `cli.train_ldm` and `cli.inference` with the
+config loader and builders (`config`), the DataModule and its native CSR
+packer, checkpoints with step-exact resume, the preemption guard and the fit
+loop (`training.checkpoint`, `training.preemption`, `training.loop`).
 """
 
 __version__ = "0.1.0"

@@ -1,0 +1,56 @@
+"""Shared CLI wiring (counterpart of scldm_tpu/cli/_common.py): the
+checkpoint manager, the preemption guard and the wandb logger from the
+`training:` config group (the reference's training/default.yaml:26-52,
+a rank-0 WandbLogger and ModelCheckpoint monitor / save_top_k / save_last)."""
+
+from __future__ import annotations
+
+import argparse
+import sys
+from typing import Dict, Optional
+
+from scldm_torch.config.loader import load_config, merge_overrides, resolve
+from scldm_torch.training.checkpoint import CheckpointManager
+from scldm_torch.training.preemption import PreemptionGuard
+from scldm_torch.utils.wandb_logger import WandbLogger
+
+
+def parse_config(argv, default_config, description: str) -> Dict:
+    """`--config FILE` and dotted `key=value` overrides -> the resolved config."""
+    p = argparse.ArgumentParser(description=description)
+    p.add_argument("--config", default=str(default_config))
+    p.add_argument("overrides", nargs="*", help="dotted key=value overrides")
+    args = p.parse_args(argv if argv is not None else sys.argv[1:])
+    return resolve(merge_overrides(load_config(args.config), args.overrides))
+
+
+def make_checkpoint_manager(cfg: Dict, ckpt_dir) -> CheckpointManager:
+    ck = cfg["training"]["checkpoint"]
+    return CheckpointManager(
+        ckpt_dir,
+        max_to_keep=int(ck.get("max_to_keep", 3)),
+        monitor=ck.get("monitor"),
+        save_top_k=int(ck.get("save_top_k", 1) or 0),
+        mode=ck.get("mode", "min"),
+        async_save=bool(ck.get("async_save", False)),
+    )
+
+
+def make_preemption_guard(cfg: Dict) -> Optional[PreemptionGuard]:
+    """Install the SIGTERM checkpoint-and-exit guard unless the config opts
+    out (`training.handle_preemption: false`). Returns the installed guard
+    (the caller passes it to fit and uninstalls it after) or None."""
+    if not bool(cfg["training"].get("handle_preemption", True)):
+        return None
+    return PreemptionGuard().install()
+
+
+def make_wandb_logger(cfg: Dict) -> Optional[WandbLogger]:
+    wb = cfg["training"].get("wandb") or {}
+    if not wb.get("enabled"):
+        return None
+    return WandbLogger(
+        project=wb.get("project") or "scldm-torch",
+        name=wb.get("name") or cfg.get("experiment_name"),
+        config=cfg,
+    )

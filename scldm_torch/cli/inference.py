@@ -1,0 +1,181 @@
+"""Generation and latent-inference entry point (counterpart of
+scldm_tpu/cli/inference.py; the reference's experiments/scripts/inference.py).
+
+Three modes, chosen by the config:
+- `generation_args` set (configs/generation.yaml): sample cells with CFG
+  from the trained LDM and write {dataset}_generated_0.h5ad, the
+  unconditional half first;
+- `inference_args` set (configs/inference.yaml): encode (and reconstruct)
+  the test set or an external AnnData (`adata_inference`, gene-filtered to
+  the vocabulary) and write {dataset}_inference_{i}.h5ad with z in obsm;
+- `vae_only=true`: encode and reconstruct with the VAE alone (no LDM
+  checkpoint needed).
+
+One process on one card (`device`, default cuda); JAX's mesh branches have no
+counterpart, and `n_model > 1` raises.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from scldm_torch.cli._common import parse_config
+from scldm_torch.cli.train_ldm import load_vae_from_checkpoint
+from scldm_torch.config.build import (
+    MULTI_CARD,
+    build_datamodule,
+    build_dit,
+    build_ldm_task,
+    build_vocabulary_encoder,
+    refuse,
+    resolve_device,
+)
+from scldm_torch.ops.distributions import nb_sample
+from scldm_torch.ops.transforms import COUNTS, NON_CONDITION_KEYS
+from scldm_torch.sampling.size_factors import SizeFactorSampler
+from scldm_torch.training.checkpoint import CheckpointManager
+from scldm_torch.training.loop import to_device
+from scldm_torch.utils.logger import logger
+from scldm_torch.utils.output import (
+    create_anndata_from_inference_output,
+    process_generation_output,
+)
+
+DEFAULT_CONFIG = Path(__file__).resolve().parents[2] / "configs" / "generation.yaml"
+
+
+def gene_row(genes: np.ndarray) -> np.ndarray:
+    """(B, G) genes as one (G,) row where every cell carries the same row
+    (as the DataModule's CSR batches do), which takes the decoder's
+    batch-free query path, the same function; else unchanged."""
+    if genes.ndim == 2 and len(genes) and (genes == genes[:1]).all():
+        return genes[0]
+    return genes
+
+
+def device_batch(batch: dict, device) -> dict:
+    """The batch as tensors on `device`; where the encoder reads the
+    expressed subsets, the genes as `gene_row` gives them."""
+    if "genes_subset" in batch:
+        batch = {**batch, "genes": gene_row(batch["genes"])}
+    return to_device(batch, device)
+
+
+def main(argv=None) -> int:
+    cfg = parse_config(argv, DEFAULT_CONFIG, __doc__)
+    n_model = int(cfg.get("n_model") or 1)
+    if n_model > 1:
+        refuse(f"n_model={n_model}", MULTI_CARD)
+    device = resolve_device(cfg)
+
+    vocab = build_vocabulary_encoder(cfg)
+    datamodule = build_datamodule(cfg, vocab)
+    if cfg.get("adata_inference"):
+        datamodule.allow_missing_train = True
+        datamodule.adata_inference = cfg["adata_inference"]
+    datamodule.setup("predict")
+
+    # the frozen VAE, and (unless vae_only) the LDM state: DiT and EMA
+    vae = load_vae_from_checkpoint(cfg)
+    out_dir = Path(cfg["paths"]["inference_path"])
+    out_dir.mkdir(parents=True, exist_ok=True)
+    dataset = cfg["datamodule"]["dataset"]
+    if cfg.get("vae_only"):
+        return _vae_inference(vae, datamodule, vocab, out_dir, dataset, device)
+
+    dit = build_dit(cfg)
+    task = build_ldm_task(cfg, vae, dit, max_steps=1)
+    mgr = CheckpointManager(cfg["checkpoint_dir"])
+    state = mgr.restore(task.init_state(torch.Generator(device).manual_seed(0)))
+    mgr.close()
+
+    gen_args = cfg.get("generation_args")
+    if gen_args:
+        sfs = SizeFactorSampler(vocab)
+        gw = gen_args.get("guidance_weight")
+        if isinstance(gw, (int, float)):  # a scalar override -> every class
+            gw = {name: float(gw) for name in (dit.class_vocab_sizes or {})}
+        sample_fn = task.make_sample_fn(
+            sfs,
+            guidance_weight=gw,
+            sampling_method=gen_args.get("sampling_method", "dopri5"),
+            num_steps=int(gen_args.get("timesteps", 50)),
+            use_ema=bool(gen_args.get("use_ema", True)),
+        )
+        batches = []
+        n_batches = int(gen_args.get("n_batches", 4))
+        for i, batch in enumerate(datamodule.predict_batches()):
+            if i >= n_batches:
+                break
+            condition = to_device({
+                k: v for k, v in batch.items()
+                if k not in NON_CONDITION_KEYS and k in vocab.class_vocab_sizes
+            }, device)
+            genes = to_device({"genes": gene_row(batch["genes"])}, device)["genes"]
+            half = len(batch["library_size"])
+            counts, z = sample_fn(torch.Generator(device).manual_seed(1000 + i), genes,
+                                  condition, batch_size=half, state=state)
+            counts, z = counts.cpu().numpy(), z.cpu().numpy()
+            out = dict(batch)
+            out[f"{COUNTS}_generated_unconditional"] = counts[:half]
+            out[f"{COUNTS}_generated_conditional"] = counts[half:]
+            out["z_generated_unconditional"] = z[:half].reshape(half, -1)
+            out["z_generated_conditional"] = z[half:].reshape(half, -1)
+            batches.append(out)
+            logger.info(f"generated batch {i + 1}/{n_batches}")
+        path = process_generation_output(batches, vocab, out_dir, dataset=dataset)
+        logger.info(f"wrote {path}")
+        return 0
+
+    inf_args = cfg.get("inference_args") or {}
+    for i, batch in enumerate(datamodule.predict_batches()):
+        dev = device_batch(batch, device)
+        z = task._encode(dev)
+        outputs = {"z": z.cpu().numpy()}
+        if inf_args.get("reconstruct", True):
+            with torch.no_grad():
+                out = vae.decode(z, dev["genes"], dev["library_size"])
+            outputs["reconstructed_counts"] = nb_sample(
+                out["mu"], out["theta"], torch.Generator(device).manual_seed(i)).cpu().numpy()
+        else:
+            outputs["reconstructed_counts"] = np.asarray(batch[COUNTS])
+        for k, v in batch.items():
+            if k not in NON_CONDITION_KEYS:
+                outputs[k] = np.asarray(v)
+        path = create_anndata_from_inference_output(
+            outputs, vocab, out_dir, dataset=dataset, index=i
+        )
+        logger.info(f"wrote {path}")
+    return 0
+
+
+@torch.no_grad()
+def _vae_inference(vae, datamodule, vocab, out_dir: Path, dataset: str, device) -> int:
+    """Encode and reconstruct every predict batch with the VAE alone (the
+    reference's models.VAE.inference, models.py:352-381)."""
+    for i, batch in enumerate(datamodule.predict_batches()):
+        dev = device_batch(batch, device)
+        out, z = vae(
+            counts=dev[COUNTS],
+            genes=dev["genes"],
+            library_size=dev["library_size"],
+            counts_subset=dev.get("counts_subset", dev[COUNTS]),
+            genes_subset=dev.get("genes_subset", dev["genes"]),
+        )
+        counts_pred = nb_sample(out["mu"], out["theta"], torch.Generator(device).manual_seed(i))
+        outputs = {"reconstructed_counts": counts_pred.cpu().numpy(), "z": z.cpu().numpy()}
+        for k, v in batch.items():
+            if k not in NON_CONDITION_KEYS:
+                outputs[k] = np.asarray(v)
+        path = create_anndata_from_inference_output(
+            outputs, vocab, out_dir, dataset=dataset, index=i
+        )
+        logger.info(f"wrote {path}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,266 @@
+"""Builders: resolved config dict -> framework objects (counterpart of
+scldm_tpu/config/build.py, the typed replacement for Hydra `_target_`
+instantiation). Each builder reads the config group the loader produces,
+with the reference tree's group names and keys.
+
+The port's modules hold their weights, so `build_vae` and `build_dit` also
+draw them (`utils.weights.init_reference_`, JAX's initialisers) from a
+generator seeded with the config's `seed`, on the config's `device`
+(default "cuda"; without a card that raises).
+
+A config value the port cannot honour raises NotImplementedError naming the
+ROADMAP item that would bring it; none is ignored: `compute_dtype:
+bfloat16` (queue 1, item 3), `fsdp`, `gene_sp` and `pipeline_microbatches`
+(item 11), `vae_as_tokenizer.train: true` (item 10), `eval_generation.
+enabled: true` (item 7), a transport other than Linear / velocity (item 9),
+and VAE / DiT options outside the shipped architecture (item 8).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from scldm_torch.data.datamodule import DataModule
+from scldm_torch.data.encoder import VocabularyEncoder
+from scldm_torch.nn.nnets import DiT
+from scldm_torch.nn.vae import TransformerVAE, build_transformer_vae
+from scldm_torch.training.ldm_task import LDMTask
+from scldm_torch.training.vae_task import VAETask
+from scldm_torch.transport import create_transport
+from scldm_torch.utils.weights import init_reference_
+
+# what each config value the port refuses waits for (ROADMAP.md)
+BF16 = "ROADMAP queue 1, item 3 (bf16 compute)"
+MULTI_CARD = "ROADMAP queue 1, item 11 (more than one card)"
+TRAIN_VAE = "ROADMAP queue 1, item 10 (training the VAE inside the LDM)"
+EVALS = "ROADMAP queue 1, item 7 (the evals)"
+TRANSPORT = "ROADMAP queue 1, item 9 (other transports)"
+ARCH = "ROADMAP queue 1, item 8 (the remaining model variants)"
+
+
+def refuse(what: str, item: str):
+    raise NotImplementedError(f"{what} is not ported: {item}")
+
+
+def resolve_device(cfg: Dict) -> torch.device:
+    """The config's `device` (default "cuda"). A card that is not there
+    raises: nothing falls back to the CPU."""
+    device = torch.device(cfg.get("device") or "cuda")
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device=cuda but no CUDA device is available; pass device=cpu to "
+                           "run on the CPU")
+    return device
+
+
+def _check_dtype(cfg: Dict) -> None:
+    dtype = cfg["model"].get("compute_dtype", "float32")
+    if dtype != "float32":
+        refuse(f"model.compute_dtype={dtype} (pass model.compute_dtype=float32)", BF16)
+
+
+def _check_parallel(tr: Dict) -> None:
+    for key in ("fsdp", "gene_sp"):
+        if tr.get(key):
+            refuse(f"training.{key}=true", MULTI_CARD)
+
+
+def _generator(cfg: Dict, device: torch.device) -> torch.Generator:
+    return torch.Generator(device).manual_seed(int(cfg.get("seed", 42)))
+
+
+def build_vocabulary_encoder(cfg: Dict) -> VocabularyEncoder:
+    ve = cfg["datamodule"]["vocabulary_encoder"]
+    return VocabularyEncoder(
+        adata_path=ve.get("adata_path"),
+        class_vocab_sizes=ve.get("class_vocab_sizes") or {},
+        mask_token=ve.get("mask_token", "<MASK>"),
+        mask_token_idx=ve.get("mask_token_idx", 0),
+        n_genes=ve.get("n_genes"),
+        guidance_weight=ve.get("guidance_weight"),
+        mu_size_factor=ve.get("mu_size_factor"),
+        sd_size_factor=ve.get("sd_size_factor"),
+        condition_strategy=ve.get("condition_strategy", "mutually_exclusive"),
+        metadata_genes=ve.get("metadata_genes"),
+        metadata_json=ve.get("metadata_json"),
+    )
+
+
+def build_datamodule(
+    cfg: Dict,
+    vocab: Optional[VocabularyEncoder] = None,
+    num_hosts: int = 1,
+    host_index: int = 0,
+) -> DataModule:
+    dm = cfg["datamodule"]["datamodule"]
+    vocab = vocab if vocab is not None else build_vocabulary_encoder(cfg)
+    return DataModule(
+        vocabulary_encoder=vocab,
+        train_adata_path=dm.get("train_adata_path"),
+        test_adata_path=dm.get("test_adata_path"),
+        adata_attr=dm.get("adata_attr", "X"),
+        adata_key=dm.get("adata_key"),
+        batch_size=dm.get("batch_size", 128),
+        test_batch_size=dm.get("test_batch_size", 256),
+        seed=dm.get("seed", 42),
+        sample_genes=dm.get("sample_genes", "expressed"),
+        genes_seq_len=dm.get("genes_seq_len", 2048),
+        val_as_test=dm.get("val_as_test", False),
+        drop_incomplete_batch=dm.get("drop_incomplete_batch", True),
+        max_cache_size=dm.get("max_cache_size", 10),
+        prefetch=dm.get("prefetch", 4),
+        workers=int(dm.get("workers", 1)),
+        num_hosts=num_hosts,
+        host_index=host_index,
+        allow_missing_train=dm.get("allow_missing_train", False),
+        dense_transfer=dm.get("dense_transfer", True),
+    )
+
+
+def build_vae(cfg: Dict) -> TransformerVAE:
+    """The VAE of `model.vae` on the config's device, its weights drawn from
+    a generator seeded with the config's `seed`."""
+    m = cfg["model"]["vae"]
+    _check_dtype(cfg)
+    shipped = {"dropout": 0.0, "positional_encoding": True, "shared_embedding": True,
+               "agg_func": "log1p"}
+    for key, value in shipped.items():
+        if m.get(key, value) != value:
+            refuse(f"model.vae.{key}={m[key]}", ARCH)
+    decoder = cfg["model"].get("decoder_name", "negative_binomial_shared_theta")
+    if decoder != "negative_binomial_shared_theta":
+        refuse(f"model.decoder_name={decoder}", ARCH)
+    for key, value in (("remat", False), ("remat_cross", False), ("cross_chunks", 1)):
+        if cfg["model"].get(key, value) != value:
+            refuse(f"model.{key}={cfg['model'][key]}", ARCH)
+    device = resolve_device(cfg)
+    vae = build_transformer_vae(
+        n_genes=m["n_genes"],
+        n_embed=m.get("n_embed", 32),
+        n_embed_latent=m.get("n_embed_latent", 16),
+        n_layer=m.get("n_layer", 8),
+        n_inducing_points=m.get("n_inducing_points", 16),
+        n_head=m.get("n_head", 8),
+        n_head_cross=m.get("n_head_cross", 4),
+        bias=m.get("bias", False),
+        multiple_of=m.get("multiple_of", 4),
+        layernorm_eps=float(m.get("layernorm_eps", 1e-8)),
+        device=device,
+    )
+    return init_reference_(vae, _generator(cfg, device))
+
+
+def build_vae_task(cfg: Dict, vae: TransformerVAE, max_steps: int) -> VAETask:
+    opt = cfg["model"]["optimizer"]
+    sch = cfg["model"]["scheduler"]
+    tr = cfg["training"]
+    _check_parallel(tr)
+    return VAETask(
+        vae,
+        learning_rate=float(opt.get("lr", 1e-3)),
+        betas=tuple(opt.get("betas", (0.9, 0.95))),
+        weight_decay=float(opt.get("weight_decay", 0.0)),
+        caution=opt.get("caution", False),
+        grad_clip=float(tr.get("grad_clip", 10.0)),
+        num_training_steps=max_steps,
+        num_warmup_steps=sch.get("num_warmup_steps"),
+        final_lr_factor=float(sch.get("final_lr_factor", 0.1)),
+        init_div_factor=float(sch.get("init_div_factor", 100)),
+        fract_decay=float(sch.get("fract_decay", 0.1)),
+        decay_type=sch.get("decay_type", "sqrt"),
+        calculate_grad_norms=tr.get("calculate_grad_norms", False),
+        # None = on at E > 128, as in JAX; configs may pin true / false
+        algebraic_tail=tr.get("algebraic_tail"),
+    )
+
+
+def build_dit(cfg: Dict) -> DiT:
+    """The DiT of `model.diffusion_model` on the config's device, its weights
+    drawn from a generator seeded with the config's `seed`, with the
+    adaLN-zero initialisation."""
+    d = cfg["model"]["diffusion_model"]
+    _check_dtype(cfg)
+    if d.get("dropout", 0.0) != 0.0:
+        refuse(f"model.diffusion_model.dropout={d['dropout']}", ARCH)
+    if cfg["model"].get("remat", False):
+        refuse("model.remat=true", ARCH)
+    device = resolve_device(cfg)
+    dit = DiT(
+        n_embed=d.get("n_embed", 256),
+        n_embed_input=d["n_embed_input"],
+        n_layer=d.get("n_layer", 8),
+        n_head=d.get("n_head", 8),
+        seq_len=d["seq_len"],
+        bias=d.get("bias", True),
+        multiple_of=d.get("multiple_of", 4),
+        layernorm_eps=float(d.get("layernorm_eps", 1e-8)),
+        class_vocab_sizes=d.get("class_vocab_sizes") or {},
+        cfg_dropout_prob=d.get("cfg_dropout_prob", 0.1),
+        condition_strategy=d.get("condition_strategy", "mutually_exclusive"),
+    ).to(device)  # its sin-cos table is a buffer made from numpy, on the host
+    return init_reference_(dit, _generator(cfg, device))
+
+
+def build_transport_from_cfg(cfg: Dict):
+    t = cfg["model"]["transport"]
+    path_type, prediction = t.get("path_type", "Linear"), t.get("prediction", "velocity")
+    if path_type != "Linear" or prediction != "velocity":
+        refuse(f"transport {path_type}/{prediction}", TRANSPORT)
+    return create_transport(
+        path_type=path_type,
+        prediction=prediction,
+        loss_weight=t.get("loss_weight"),
+        train_eps=_maybe_float(t.get("train_eps")),
+        sample_eps=_maybe_float(t.get("sample_eps")),
+    )
+
+
+def _maybe_float(v):
+    return float(v) if v is not None else None
+
+
+def build_ldm_task(cfg: Dict, vae: TransformerVAE, dit: DiT, max_steps: int) -> LDMTask:
+    """The LDM task over the frozen `vae` (the port's task holds the VAE
+    module with its weights, so JAX's separate `vae_params` has no
+    counterpart here)."""
+    opt = cfg["model"]["optimizer"]
+    sch = cfg["model"]["scheduler"]
+    ema = cfg["model"].get("ema", {})
+    tr = cfg["training"]
+    _check_parallel(tr)
+    if tr.get("pipeline_microbatches"):
+        refuse(f"training.pipeline_microbatches={tr['pipeline_microbatches']}", MULTI_CARD)
+    if (cfg["model"].get("vae_as_tokenizer") or {}).get("train", False):
+        refuse("model.vae_as_tokenizer.train=true", TRAIN_VAE)
+    if (cfg["model"].get("eval_generation") or {}).get("enabled"):
+        refuse("model.eval_generation.enabled=true", EVALS)
+    return LDMTask(
+        vae,
+        dit,
+        build_transport_from_cfg(cfg),
+        learning_rate=float(opt.get("lr", 5e-4)),
+        betas=tuple(opt.get("betas", (0.9, 0.999))),
+        weight_decay=float(opt.get("weight_decay", 0.0)),
+        grad_clip=float(tr.get("grad_clip", 10.0)),
+        num_training_steps=max_steps,
+        num_warmup_steps=sch.get("num_warmup_steps"),
+        final_lr_factor=float(sch.get("final_lr_factor", 0.1)),
+        fract_decay=float(sch.get("fract_decay", 1.0)),
+        decay_type=sch.get("decay_type", "cosine"),
+        ema_decay=float(ema.get("decay", 0.9999)),
+        ema_update_every=int(ema.get("update_every", 10)),
+        ema_update_after_step=int(ema.get("update_after_step", 10_000)),
+        calculate_grad_norms=tr.get("calculate_grad_norms", False),
+        algebraic_decode=bool(tr.get("algebraic_decode", False)),
+    )
+
+
+def compute_max_steps(cfg: Dict, n_cells: int, world_size: int = 1) -> int:
+    """max_steps = epochs * n_cells // (batch * world) (the reference's
+    _utils.py:62-108)."""
+    if cfg["training"].get("max_steps"):
+        return int(cfg["training"]["max_steps"])
+    batch = cfg["model"]["batch_size"]
+    epochs = cfg.get("epochs", 100)
+    return max(1, epochs * (n_cells // (batch * world_size)))

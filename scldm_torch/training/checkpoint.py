@@ -1,0 +1,236 @@
+"""Checkpoints with auto-resume (counterpart of scldm_tpu/training/checkpoint.py,
+which writes orbax checkpoints; orbax would import jax, so the port has a
+format of its own).
+
+Each step is a directory `<directory>/<step>/` holding one `torch.save` file,
+`state.pt`, with
+
+- `module`: the module's state dict, under the reference's parameter names
+  (the names `utils.weights.load_reference_state_dict` reads);
+- `optimizer`: the optimizer's state dict (its step count included);
+- `step`: the number of optimizer steps taken;
+- `generator`: the state of the train state's random generator, so a
+  resumed run draws what an uninterrupted one would;
+- `ema`: the averaged parameters and the EMA's update count, or None;
+- `metrics`: the metrics the step was saved with.
+
+The file is written under a temporary name and renamed, so a killed write
+never leaves a checkpoint that looks whole; a step directory without
+`state.pt` is not a checkpoint. A JSON config snapshot (`config.json`) sits
+beside the steps. Checkpoints load with `torch.load(weights_only=True)`:
+tensors, numbers and strings only.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+from typing import Any, Dict, List, Optional
+
+import torch
+
+STATE_FILE = "state.pt"
+METRICS_FILE = "metrics.json"
+
+
+def _to_host(obj):
+    """A copy of `obj` with every tensor copied to host memory."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return {k: _to_host(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_host(v) for v in obj)
+    return obj
+
+
+def snapshot(state, metrics: Optional[dict] = None) -> Dict[str, Any]:
+    """The checkpoint payload of a `training.state.TrainState`, in host memory."""
+    return {
+        "module": _to_host(state.module.state_dict()),
+        "optimizer": _to_host(state.optimizer.state_dict()),
+        "step": int(state.step),
+        "generator": state.generator.get_state().clone(),
+        "ema": None if state.ema is None else {
+            "params": _to_host(state.ema.params), "step": int(state.ema.step)},
+        "metrics": dict(metrics or {}),
+    }
+
+
+@torch.no_grad()
+def load_into(template, payload: Dict[str, Any]):
+    """Copy a payload into the train state `template`, in place, on the
+    template's device; returns it."""
+    template.module.load_state_dict(payload["module"])
+    template.optimizer.load_state_dict(payload["optimizer"])
+    template.step = int(payload["step"])
+    template.generator.set_state(payload["generator"])
+    if (payload["ema"] is None) != (template.ema is None):
+        raise ValueError("the checkpoint and the template disagree on having an EMA")
+    if template.ema is not None:
+        params = payload["ema"]["params"]
+        if set(params) != set(template.ema.params):
+            raise KeyError("the checkpoint's EMA parameters are not the template's")
+        for name, t in template.ema.params.items():
+            t.copy_(params[name])
+        template.ema.step = int(payload["ema"]["step"])
+    return template
+
+
+def read_payload(step_dir: str | Path) -> Dict[str, Any]:
+    """The payload of one step directory, on the host."""
+    return torch.load(Path(step_dir) / STATE_FILE, map_location="cpu", weights_only=True)
+
+
+class _StepDirs:
+    """The step directories under one directory, with a retention rule:
+    the newest `max_to_keep`, or with `monitor` the `max_to_keep` best by
+    that metric (`mode` min or max, the older step first on ties)."""
+
+    def __init__(self, directory: Path, max_to_keep: Optional[int],
+                 monitor: Optional[str] = None, mode: str = "min"):
+        if mode not in ("min", "max"):
+            raise ValueError(f"mode must be min or max, not {mode!r}")
+        self.directory = directory
+        self.max_to_keep = max_to_keep
+        self.monitor = monitor
+        self.mode = mode
+        directory.mkdir(parents=True, exist_ok=True)
+
+    def steps(self) -> List[int]:
+        return sorted(int(p.name) for p in self.directory.iterdir()
+                      if p.name.isdigit() and (p / STATE_FILE).exists())
+
+    def metrics(self, step: int) -> dict:
+        p = self.directory / str(step) / METRICS_FILE
+        return json.loads(p.read_text()) if p.exists() else {}
+
+    def ranked(self) -> List[int]:
+        """Steps best first by the monitored metric."""
+        sign = 1.0 if self.mode == "min" else -1.0
+        return sorted(self.steps(), key=lambda s: (sign * self.metrics(s)[self.monitor], s))
+
+    def write(self, step: int, payload: Dict[str, Any]) -> None:
+        d = self.directory / str(step)
+        d.mkdir(parents=True, exist_ok=True)
+        (d / METRICS_FILE).write_text(json.dumps(payload["metrics"]))
+        tmp = d / f"{STATE_FILE}.tmp"
+        torch.save(payload, tmp)
+        os.replace(tmp, d / STATE_FILE)
+        self._retain()
+
+    def _retain(self) -> None:
+        if not self.max_to_keep:
+            return
+        keep = self.ranked() if self.monitor else self.steps()[::-1]
+        for step in keep[self.max_to_keep:]:
+            shutil.rmtree(self.directory / str(step), ignore_errors=True)
+
+
+class CheckpointManager:
+    """Save-last retention for resume, plus optional best-k retention by a
+    monitored metric in `best/` (Lightning's ModelCheckpoint(save_last=True,
+    save_top_k=k, monitor="val_loss"), the reference's training/default.yaml:
+    42-52). Auto-resume sees the true latest step while `best/` keeps the k
+    best validation snapshots. A step at or before the latest saved one is
+    not saved again (orbax's rule).
+
+    `async_save=True` copies the state to host memory in the caller, then
+    writes on one background thread, so the write overlaps training;
+    `close()` and every reader wait for the writes in flight."""
+
+    def __init__(
+        self,
+        directory: str | Path,
+        max_to_keep: int = 3,
+        monitor: Optional[str] = None,
+        save_top_k: int = 1,
+        mode: str = "min",
+        async_save: bool = False,
+    ):
+        self.directory = Path(directory).absolute()
+        self._steps = _StepDirs(self.directory, max_to_keep)
+        self.monitor = monitor
+        self._best = (_StepDirs(self.directory / "best", save_top_k, monitor, mode)
+                      if monitor and save_top_k else None)
+        self.async_save = async_save
+        self._writer = ThreadPoolExecutor(max_workers=1) if async_save else None
+        self._pending: list = []
+
+    def _write(self, step: int, payload: Dict[str, Any]) -> None:
+        self._steps.write(step, payload)
+        if self._best is not None and self.monitor in payload["metrics"]:
+            self._best.write(step, payload)
+
+    def save(self, step: int, state: Any, metrics: Optional[dict] = None) -> bool:
+        """Checkpoint `state` at `step`; returns False (and writes nothing)
+        if a checkpoint at `step` or later exists."""
+        latest = self.latest_step()
+        if latest is not None and step <= latest:
+            return False
+        metrics = {k: float(v) for k, v in (metrics or {}).items()}
+        payload = snapshot(state, metrics)
+        if self._writer is None:
+            self._write(step, payload)
+        else:
+            self._pending.append(self._writer.submit(self._write, step, payload))
+        return True
+
+    def wait_until_finished(self) -> None:
+        """Wait for the writes in flight (none with synchronous saves);
+        re-raises a write's error."""
+        pending, self._pending = self._pending, []
+        for f in pending:
+            f.result()
+
+    def latest_step(self) -> Optional[int]:
+        self.wait_until_finished()
+        steps = self._steps.steps()
+        return steps[-1] if steps else None
+
+    def best_step(self) -> Optional[int]:
+        """The step of the best checkpoint by the monitored metric (None
+        without monitored saves)."""
+        if self._best is None:
+            return None
+        self.wait_until_finished()
+        ranked = self._best.ranked()
+        return ranked[0] if ranked else None
+
+    def restore(self, template: Any, step: Optional[int] = None) -> Any:
+        """Load the checkpoint at `step` (default the latest) into the train
+        state `template`, on its device."""
+        step = step if step is not None else self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint in {self.directory}")
+        self.wait_until_finished()
+        return load_into(template, read_payload(self.directory / str(step)))
+
+    def restore_best(self, template: Any) -> Any:
+        step = self.best_step()
+        if step is None:
+            raise FileNotFoundError(f"no best checkpoint in {self.directory / 'best'}")
+        return load_into(template, read_payload(self.directory / "best" / str(step)))
+
+    def maybe_restore(self, template: Any) -> tuple[Any, int]:
+        """Auto-resume: the latest checkpoint loaded into `template` if one
+        exists (the reference's train.py:81-88), else the template as it is."""
+        step = self.latest_step()
+        if step is None:
+            return template, 0
+        return self.restore(template, step), step
+
+    def save_config(self, config: dict, name: str = "config.json") -> None:
+        (self.directory / name).write_text(json.dumps(config, indent=2, default=str))
+
+    def load_config(self, name: str = "config.json") -> Optional[dict]:
+        p = self.directory / name
+        return json.loads(p.read_text()) if p.exists() else None
+
+    def close(self) -> None:
+        self.wait_until_finished()
+        if self._writer is not None:
+            self._writer.shutdown(wait=True)

@@ -53,7 +53,23 @@ def wsd_schedule(
     return schedule
 
 
-class AdamWLegacy(torch.optim.Optimizer):
+class _StepCount:
+    """Keeps `step_count`, the schedule's position and the bias-correction
+    count, in the optimizer's state dict, so a restored optimizer resumes
+    where it stopped."""
+
+    def state_dict(self):
+        out = super().state_dict()
+        out["step_count"] = self.step_count
+        return out
+
+    def load_state_dict(self, state_dict):
+        state_dict = dict(state_dict)
+        self.step_count = int(state_dict.pop("step_count", 0))
+        super().load_state_dict(state_dict)
+
+
+class AdamWLegacy(_StepCount, torch.optim.Optimizer):
     """The reference AdamWLegacy. Per parameter p with gradient g, at step t
     (from 0) with lr = learning_rate * schedule(t):
 
@@ -124,7 +140,7 @@ class AdamWLegacy(torch.optim.Optimizer):
             torch._foreach_add_(params, update, alpha=-lr / bc1)
 
 
-class AdamW(torch.optim.AdamW):
+class AdamW(_StepCount, torch.optim.AdamW):
     """`optax.adamw`, the LDM task's optimizer, as `torch.optim.AdamW` with
     the multi-tensor update: per parameter p with gradient g at step t (from
     0), with lr = learning_rate * schedule(t) set before the step as optax

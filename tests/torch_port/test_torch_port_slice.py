@@ -163,7 +163,12 @@ def test_import_without_jax():
         "import scldm_torch.training.ema, scldm_torch.ops.fused_dit, scldm_torch.transport.transport\n"
         "import scldm_torch.data.encoder, scldm_torch.data.tokenize, scldm_torch.data.fastpath\n"
         "import scldm_torch.sampling.size_factors\n"
-        "host = [m for m in ('h5py', 'pandas') if m in sys.modules]\n"
+        "import scldm_torch.config.loader, scldm_torch.config.build, scldm_torch.data.datamodule\n"
+        "import scldm_torch.training.checkpoint, scldm_torch.training.preemption\n"
+        "import scldm_torch.training.loop, scldm_torch.utils.profiling, scldm_torch.utils.logger\n"
+        "import scldm_torch.utils.wandb_logger, scldm_torch.cli._common, scldm_torch.cli.train\n"
+        "import scldm_torch.cli.train_ldm, scldm_torch.cli.inference\n"
+        "host = [m for m in ('h5py', 'pandas', 'yaml', 'orbax', 'wandb') if m in sys.modules]\n"
         "assert not host, f'the chip path loads {host}'\n"
         "import scldm_torch.data.h5ad, scldm_torch.cli.extract_metadata, scldm_torch.utils.output\n"
         "loaded = [m for m in sys.modules if sys.modules[m] is not None]\n"
