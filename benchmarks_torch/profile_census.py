@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Where the time of one census-width VAE training step goes, on one NVIDIA GPU.
 
-    python3 benchmarks_torch/profile_census.py [--fused-pool]
+    python3 benchmarks_torch/profile_census.py [--fused-pool] [--dtype bfloat16] [--remat]
+                                               [--reduction]
 
 The census VAE of `chip_smoke.py` (configs/model/vae_census.yaml: E=512, 16
-layers, 64 inducing points, G=36,601 genes; f32, no remat) with random
+layers, 64 inducing points, G=36,601 genes; f32 and no remat unless asked:
+`--dtype bfloat16 --remat` is the config as shipped) with random
 weights from seed 0, on B=16 lean batches over a 4,096-token window made like
 benchmarks/bench_census.py's, through the algebraic tail, twice: with the
 `swiglu_vec` kernels (`VAETask(algebraic_fused_gate=True)`) and with the
@@ -21,7 +23,13 @@ PROFILED_STEPS more steps traced with `torch.profiler`: the device's busy
 time (the union of its kernels' spans) and kernels per step, the idle share
 of the unprofiled median, the time and share of busy time of the swiglu_vec
 kernels (or the window pool's), and the profiler's table of the operators
-that took the most device time.
+that took the most device time. With --remat the algebraic tail's fused gate
+is first timed in turns with remat and without it on the same weights (the
+cost of recomputing the blocks). With --reduction (and bfloat16) the fused
+gate's step is first timed in turns with cuBLAS's reduction of bf16 split-K
+partials in bf16 off (as the CLIs and chip_smoke.py pin it) and on (PyTorch's
+default), off, on, on, off, and one step's loss and gradients under each are
+compared.
 """
 
 from __future__ import annotations
@@ -83,6 +91,44 @@ def in_turns(cs, arms: dict) -> None:
     mean = {n: statistics.mean(ms for k, ms, _ in turns if k == n) for n in arms}
     print(f"== census in turns ({TURN_STEPS} steps a turn; name, ms/step, peak GiB): {turns}; "
           f"{b} / {a} {mean[b] / mean[a]:.4f}", flush=True)
+
+
+def reduction_in_turns(cs, task) -> None:
+    """The step timed in turns with allow_bf16_reduced_precision_reduction
+    off and on (TURN_STEPS steps a turn after a warm-up step under each),
+    then one step's loss and gradients under each on the same batch, and
+    their largest gap. Leaves the flag off."""
+    import torch
+
+    matmul = torch.backends.cuda.matmul
+    batches = census_batches(cs, 2)
+    state = task.init_state(torch.Generator(device="cuda").manual_seed(SEED))
+    turns = []
+    for flag in (False, True):
+        matmul.allow_bf16_reduced_precision_reduction = flag
+        task.train_step(state, batches[0])  # warm-up under this setting
+    for flag in (False, True, True, False):
+        matmul.allow_bf16_reduced_precision_reduction = flag
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(TURN_STEPS):
+            task.train_step(state, batches[i % 2])
+        torch.cuda.synchronize()
+        turns.append(("on" if flag else "off", round((time.perf_counter() - t0) / TURN_STEPS * 1e3,
+                                                     2)))
+    runs = {}
+    for flag in (False, True):
+        matmul.allow_bf16_reduced_precision_reduction = flag
+        runs[flag] = cs.vae_loss_and_grads(task, batches[1])
+    matmul.allow_bf16_reduced_precision_reduction = False
+    (l0, g0), (l1, g1) = runs[False], runs[True]
+    worst = max(((g1[k] - w).abs().max().item() / (w.abs().max().item() + 1e-30), k)
+                for k, w in g0.items() if k != "decoder_head.params.bias")
+    equal = sum(torch.equal(g1[k], w) for k, w in g0.items())
+    print(f"== census bf16 reduction of split-K partials in turns ({TURN_STEPS} steps a turn; "
+          f"name, ms/step): {turns}; one step, on vs off: loss {l1:.4f} vs {l0:.4f} "
+          f"({abs(l1 - l0) / abs(l0):.2e} relative), largest gradient gap {worst[0]:.3e} of its "
+          f"max ({worst[1]}), {equal} of {len(g0)} gradients bit for bit equal", flush=True)
 
 
 def profile_step(cs, busy_us, task, name: str, ours_names: tuple) -> None:
@@ -159,6 +205,12 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--fused-pool", action="store_true",
                    help="the module path with the wide window pool against the module MCAB")
+    p.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
+                   help="the compute dtype (vae_census.yaml ships bfloat16)")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute each trunk block in the backward (vae_census.yaml's remat)")
+    p.add_argument("--reduction", action="store_true",
+                   help="time the bf16 step with cuBLAS's bf16 split-K reduction off and on")
     args = p.parse_args(argv)
     import torch
 
@@ -177,9 +229,23 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
-    vae = init_reference_(build_transformer_vae(**cs.CENSUS, device="cuda"),
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    dtype = getattr(torch, args.dtype)
+    vae = init_reference_(build_transformer_vae(**cs.CENSUS, dtype=dtype, remat=args.remat,
+                                                device="cuda"),
                           torch.Generator(device="cuda").manual_seed(SEED))
     opt = dict(learning_rate=3e-4, betas=(0.9, 0.95))  # vae_census.yaml's optimizer
+    print(f"== census VAE: {args.dtype}, remat {args.remat}", flush=True)
+    if args.reduction and args.dtype == "bfloat16":
+        reduction_in_turns(cs, VAETask(vae, **opt, algebraic_fused_gate=True))
+        torch.cuda.empty_cache()
+    if args.remat and not args.fused_pool:
+        no_remat = build_transformer_vae(**cs.CENSUS, dtype=dtype, device="cuda")
+        no_remat.load_state_dict(vae.state_dict())
+        in_turns(cs, {"remat": VAETask(vae, **opt, algebraic_fused_gate=True),
+                      "no remat": VAETask(no_remat, **opt, algebraic_fused_gate=True)})
+        del no_remat
+        torch.cuda.empty_cache()
     if args.fused_pool:
         arms = {"module MCAB": VAETask(vae, **opt, algebraic_tail=False),
                 "window pool": VAETask(vae, **opt, algebraic_tail=False, fused_pool=True)}

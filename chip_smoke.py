@@ -47,15 +47,22 @@ the module path, then takes a few steps of `VAETask(fused_pool=True,
 fused_decoder=False)` through the window pool and holds one against the module
 path. Phase 1e holds the swiglu_vec kernels (forward and backward) against
 their plain version at the census decoder's shape (R = 16 x 36,601 rows, E =
-512, Hd = 1,408) and three ragged ones, checks that each repeats its bits, and
-times both (a call through the entry point, and the kernels' device time),
-with TF32 off. Phase 6
-trains the census VAE (configs/model/vae_census.yaml: E = 512, 16 layers, 64
-inducing points, G = 36,601 genes, a 4,096-token window, B = 16) through the
-algebraic tail with `VAETask(algebraic_fused_gate=True)`, checks that each step
-launched the swiglu_vec kernels once each way and that the loss falls, holds
-one step against the plain algebraic path and times both paths with their peak
-memory. Phase 6b trains the same census VAE on the module path with its MCAB
+512, Hd = 1,408) and ragged ones, in f32 (three TF32 passes) and in bf16 (one
+bf16 wgmma pass, against the bf16 plain version with JAX's rounding points,
+by `held_bf16`'s bounds), checks that each repeats its bits, and times both
+(a call through the entry point, and the kernels' device time), with TF32
+off. Phase 6
+trains the census VAE as configs/model/vae_census.yaml ships it (bf16 compute
+over f32 weights, remat; E = 512, 16 layers, 64 inducing points, G = 36,601
+genes, a 4,096-token window, B = 16) through the algebraic tail with
+`VAETask(algebraic_fused_gate=True)` (the bf16 swiglu_vec kernels) and through
+the plain algebraic path in turns, checks that each fused step launched the
+kernels once each way and that the loss falls, prints each path's cells/s and
+peak memory beside the f32 cut's (no remat; the f32 kernels), holds one
+bf16 step against the plain path and against the f32 step
+(`CENSUS_BF16_BOUNDS`), and one f32 step of the fused gate against the f32
+plain path (loss 1e-5, each gradient 1e-3 of its largest). Phase 6b trains
+the census VAE (f32) on the module path with its MCAB
 pooling as the wide window pool (`VAETask(fused_pool=True,
 algebraic_tail=False)`), checks that each step launched the pool once each way,
 times it against the module MCAB in turns with each arm's peak memory, and
@@ -64,14 +71,20 @@ attention kernel against its plain version at the census sampler's cross block
 (2B = 32 cells, G = 36,601 genes into 64 latent tokens) and a ragged shape,
 timing both and `scaled_dot_product_attention` as a yardstick. Phase 7 trains
 the census DiT (T = 64, E = 256, 8 layers) on the frozen census VAE's latents
-(B = 16) through the DiT kernels, prints the step's segment
-split, holds one step against the module path, holds the frozen encode through
-the wide window pool (`LDMTask(fused_encode=True)`) against the module encode,
-timing both in turns, trains the same steps through it with their segment
-split, generates euler-50 at a generation batch of 16 through the algebraic
-decode, holds the kernel denoiser against the module one on the same noise, and
-holds the module decode with the flash-cross gate (`SCLDM_FLASH_CROSS`) on
-against off. Phase 1g holds the whole-trunk kernels (the forward, the saving
+(B = 16) at ldm_base.yaml's bf16 compute through the DiT kernels (f32 inside,
+as JAX's kernel path), prints the step's segment split, holds one step of the
+kernels against the module path on the DiT's f32 twin at JAX's bounds, and the
+timed bf16 task's loss and gradients against its function on modules (the
+twin's trunk on the bf16 conditioning) at JAX's bounds, holds the frozen encode through
+the wide window pool (`LDMTask(fused_encode=True)`) against the f32 twin VAE's
+module encode at JAX's bound, timing it against the bf16 module encode in
+turns, trains the same steps through it with their segment split, generates
+euler-50 at a generation batch of 16 through the algebraic decode, holds the
+kernel denoiser against the f32 twin's module one on the same noise (mu
+through the f32 twin's decode; prints the bf16 module denoiser's and the
+bf16 decode's distances), and holds the module decode with the flash-cross
+gate (`SCLDM_FLASH_CROSS`) on against off (the kernel takes the bf16 decoder's
+operands). Phase 1g holds the whole-trunk kernels (the forward, the saving
 forward and the backward of all eight blocks of a VAE trunk) against their
 plain versions at the VAE step's trunk (R = 128 rows of T = 16 tokens, E = 32)
 and a ragged R, timing each, and checks that the forward, the saving forward
@@ -119,8 +132,8 @@ cell's library must correlate with its pair's mu at 0.7 or more; the
 requested label columns must decode back to their categories (the
 encoder's round trip). It loads neither h5py nor pandas. Phase 11 runs the
 user entry points as a user would, `main(argv)` of `scldm_torch.cli.train`,
-`train_ldm` and `inference` with `--config` on the repo's YAML files and
-`model.compute_dtype=float32`, at full dentate width (G = 17,002, a window of
+`train_ldm` and `inference` with `--config` on the repo's YAML files as
+shipped (bf16 compute), at full dentate width (G = 17,002, a window of
 6,147, B = 128) on 2,560 synthetic CSR cells (1,500 to 3,999 expressed genes,
 a `clusters` column; 18 train steps an epoch) and a 256-cell test file, with
 JSON size-factor statistics; the port's DataModule, native CSR packer,
@@ -137,7 +150,10 @@ launches each way a step) and checkpoints the EMA; `inference` generates
 dopri5 from configs/generation.yaml (both halves, the labels decoding to the
 test cells' categories), encodes and reconstructs from configs/
 inference.yaml, and runs `vae_only`; `train` at `datamodule.dataset=parse1m`
-takes 8 steps through the dense pool and the tail. Every batch must be
+takes 8 steps through the dense pool and the tail; `train` with
+`model=vae_census` (composed into vae_training.yaml's defaults, bf16 and
+remat as shipped) takes 4 steps of 16 cells on metadata/census_genes.json's
+36,130 genes (`datamodule.dataset=homo_sapiens`). Every batch must be
 packed by the native packer, each CLI's wall time, the train cells/s of
 `metrics.csv` and each checkpoint's size and save time are printed, and the
 phase fails if yaml, h5py, pandas or jax was loaded. The line before the last is a JSON
@@ -175,7 +191,8 @@ TRAIN_STEPS = 10  # timed steps, after one warm-up step
 PARSE_GENES = 2_000
 POOL_STEPS = 3  # VAETask(fused_pool=True) steps, after one warm-up step
 # the census VAE (configs/model/vae_census.yaml; benchmarks/bench_census.py's
-# batch): f32 and no remat, the port's two cuts of the config
+# batch); phase 6 builds it as shipped (bf16, remat) and, beside it, the f32 cut
+# without remat that phases 1e, 6b and 9 and the earlier PRs use
 CENSUS = dict(n_genes=36_601, n_embed=512, n_embed_latent=64, n_layer=16, n_inducing_points=64,
               n_head=8, n_head_cross=8, multiple_of=64)
 CENSUS_BATCH, CENSUS_WINDOW, CENSUS_HIDDEN = 16, 4_096, 1_408
@@ -915,6 +932,17 @@ def swiglu_vec_bound(R: int, E: int, Hd: int, backward: bool) -> dict:
             "f32_bound_ms": bound(n_bytes, flops, F32_FLOPS)["bound_ms"]}
 
 
+def swiglu_vec_bf16_bound(R: int, E: int, Hd: int, backward: bool) -> dict:
+    """swiglu_vec over R rows of bf16 operands: the same operations as the
+    f32 bound, once over the bf16 peak (one tensor-core pass a product);
+    bytes: x, w12 and wv in bf16 and s out in f32, the backward's ds in and
+    dx out as its operands (bf16) and dw12 and dwv."""
+    flops = (2 * R * E * 2 * Hd + 2 * R * Hd) * (3 if backward else 1)
+    weights = 2 * (E * 2 * Hd + Hd)
+    n_bytes = (2 * R * E + weights + 4 * R) + ((4 * R + 2 * R * E + weights) if backward else 0)
+    return bound(n_bytes, flops, BF16_FLOPS)
+
+
 # the kernels behind the swiglu_vec and fused_swiglu_gate entry points
 SWIGLU_KERNELS = ("swiglu_tc", "swiglu_sum_parts")
 
@@ -927,17 +955,22 @@ def check_f32_matmuls() -> None:
         raise AssertionError("TF32 is on: the plain f32 versions would not be exact f32")
 
 
-def phase1e_swiglu_vec(seed: int) -> tuple[dict, dict]:
+def phase1e_swiglu_vec(seed: int) -> dict:
     """swiglu_vec (forward and backward kernels) against its plain version
-    with autograd at the census decoder's rows (R = 16 x 36,601, E = 512, Hd =
-    1,408), a ragged R, a hidden width off the kernels' 128-column tile and a
-    shape whose row pitches are not multiples of 16 bytes (E = 30, Hd = 70);
-    out, dx, dw12 and dwv each within 1e-4 of its tensor's largest magnitude
-    (f32 both, sums in another order). Every shape runs twice and repeats its
-    bits (no atomics, no race in the kernels' rings). At the census shape
-    kernel and plain are timed in turns, each a call through its entry point
-    (`ms`), and the kernels' own device time a call under the profiler
-    (`device_ms`)."""
+    at the census decoder's rows (R = 16 x 36,601, E = 512, Hd = 1,408) and
+    ragged shapes, in both of the kernels' dtypes. f32: three ragged shapes
+    (a ragged R, a hidden width off the 128-column tile, and E = 30, Hd = 70,
+    whose row pitches are not multiples of 16 bytes), out, dx, dw12 and dwv
+    each within 1e-4 of its tensor's largest magnitude (f32 both, sums in
+    another order). bf16 (the census decoder under the configs' bf16
+    compute): a ragged R and E = 30, Hd = 70, against the bf16 plain version
+    (the same roundings: g to bf16 before `@ wv`, du to bf16) by
+    `held_bf16`'s bounds, dx in bf16, dw12 and dwv rounded to bf16 after
+    their f32 sums. Every shape runs twice and repeats its bits, backward
+    included (no atomics, no race in the kernels' rings). At the census
+    shape kernel and plain are timed in turns, each a call through its entry
+    point (`ms`), and the kernels' own device time a call under the profiler
+    (`device_ms`). Returns the timings by (dtype, part)."""
     import torch
 
     from scldm_torch.ops import fused_swiglu as fs
@@ -945,56 +978,75 @@ def phase1e_swiglu_vec(seed: int) -> tuple[dict, dict]:
     check_f32_matmuls()
     g = torch.Generator(device="cuda").manual_seed(seed + 6)
     census = (CENSUS_BATCH * CENSUS["n_genes"], CENSUS["n_embed"], CENSUS_HIDDEN)
-    errs, timing = {}, {}
-    for R, E, Hd in (census, (1_001, 512, 1_408), (1_001, 512, 1_400), (777, 30, 70)):
-        x = torch.randn(R, E, generator=g, device="cuda")
-        w12 = torch.randn(E, 2 * Hd, generator=g, device="cuda") * E**-0.5
-        wv = torch.randn(Hd, 1, generator=g, device="cuda") * Hd**-0.5
-        ds = torch.randn(R, 1, generator=g, device="cuda")
+    shapes = {"f32": (census, (1_001, 512, 1_408), (1_001, 512, 1_400), (777, 30, 70)),
+              "bf16": (census, (1_001, 512, 1_408), (777, 30, 70))}
+    out = {}
+    for tag, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        errs, timing = {}, {}
+        for R, E, Hd in shapes[tag]:
+            x = torch.randn(R, E, generator=g, device="cuda").to(dtype)
+            w12 = (torch.randn(E, 2 * Hd, generator=g, device="cuda") * E**-0.5).to(dtype)
+            wv = (torch.randn(Hd, 1, generator=g, device="cuda") * Hd**-0.5).to(dtype)
+            ds = torch.randn(R, 1, generator=g, device="cuda")
 
-        def run():
-            return {"out": fs.swiglu_vec_fwd(x, w12, wv),
-                    **dict(zip(("dx", "dw12", "dwv"), fs.swiglu_vec_bwd(x, w12, wv, ds)))}
+            def run():
+                return {"out": fs.swiglu_vec_fwd(x, w12, wv),
+                        **dict(zip(("dx", "dw12", "dwv"), fs.swiglu_vec_bwd(x, w12, wv, ds)))}
 
-        got = run()
-        torch.cuda.synchronize()
-        want = {"out": fs.swiglu_vec_reference(x, w12, wv), **dict(zip(
-            ("dx", "dw12", "dwv"), fs.swiglu_vec_backward_reference(x, w12, wv, ds)))}
-        report = []
-        for k, w in want.items():
-            err = held_f32(f"swiglu_vec {k} at R={R}, E={E}, Hd={Hd}", got[k], w)
-            part = "fwd" if k == "out" else "bwd"
-            errs[part] = max(errs.get(part, 0.0), err)
-            report.append(f"{k} {err:.2e} ({err / w.abs().max().item():.1e} of max)")
-        del want
-        again = run()
-        if not all(torch.equal(again[k], got[k]) for k in got):
-            raise AssertionError(f"swiglu_vec gave other bits on the same inputs at R={R}, E={E}, "
-                                 f"Hd={Hd}")
-        log(f"phase1e swiglu_vec R={R} E={E} Hd={Hd}: " + ", ".join(report) +
-            "; forward and backward repeat their bits")
-        del got, again
-        if (R, E, Hd) != census:
-            continue
-        fns = {"fwd": (lambda: fs.swiglu_vec_fwd(x, w12, wv),
-                       lambda: fs.swiglu_vec_reference(x, w12, wv)),
-               "bwd": (lambda: fs.swiglu_vec_bwd(x, w12, wv, ds),
-                       lambda: fs.swiglu_vec_backward_reference(x, w12, wv, ds))}
-        for part, (kernel, plain) in fns.items():
-            for f in (kernel, plain):
-                cuda_ms(f, 1)  # warm-up
-            turns = [cuda_ms(f, 2) for f in (plain, kernel, kernel, plain)]
-            dev = device_ms(kernel, 2, SWIGLU_KERNELS)
-            timing[part] = ((turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2, dev)
-            b = swiglu_vec_bound(R, E, Hd, part == "bwd")
-            log(f"phase1e swiglu_vec_{part} R={R} E={E} Hd={Hd}: kernel {timing[part][0]:.4f} ms "
-                f"a call ({dev:.4f} ms on the device)  plain {timing[part][1]:.4f} ms  bound "
-                f"{b['bound_ms']:.4f} ms ({b['bound_by']}, TF32 x3; f32 "
-                f"{b['f32_bound_ms']:.4f} ms)")
-        del x, w12, wv, ds, fns
-        torch.cuda.empty_cache()
-    return tuple({"max_abs_err": errs[part], "ms": timing[part][0], "plain_ms": timing[part][1],
-                  "device_ms": timing[part][2]} for part in ("fwd", "bwd"))
+            got = run()
+            torch.cuda.synchronize()
+            want = {"out": fs.swiglu_vec_reference(x, w12, wv), **dict(zip(
+                ("dx", "dw12", "dwv"), fs.swiglu_vec_backward_reference(x, w12, wv, ds)))}
+            report = []
+            for k, w in want.items():
+                what = f"swiglu_vec {tag} {k} at R={R}, E={E}, Hd={Hd}"
+                if got[k].dtype != w.dtype:
+                    raise AssertionError(f"{what}: {got[k].dtype}, the plain version {w.dtype}")
+                part = "fwd" if k == "out" else "bwd"
+                if tag == "f32":
+                    err = held_f32(what, got[k], w)
+                    report.append(f"{k} {err:.2e} ({err / w.abs().max().item():.1e} of max)")
+                else:
+                    e, r, b, n = held_bf16(what, got[k].float(), w.float())
+                    err = e
+                    report.append(f"{k} {e:.2e} ({r:.1e} of max, {b:.1e} beyond {n:g})")
+                errs[part] = max(errs.get(part, 0.0), err)
+            del want
+            again = run()
+            if not all(torch.equal(again[k], got[k]) for k in got):
+                raise AssertionError(f"swiglu_vec {tag} gave other bits on the same inputs at "
+                                     f"R={R}, E={E}, Hd={Hd}")
+            log(f"phase1e swiglu_vec {tag} R={R} E={E} Hd={Hd}: " + ", ".join(report) +
+                "; forward and backward repeat their bits")
+            del got, again
+            if (R, E, Hd) != census:
+                continue
+            fns = {"fwd": (lambda: fs.swiglu_vec_fwd(x, w12, wv),
+                           lambda: fs.swiglu_vec_reference(x, w12, wv)),
+                   "bwd": (lambda: fs.swiglu_vec_bwd(x, w12, wv, ds),
+                           lambda: fs.swiglu_vec_backward_reference(x, w12, wv, ds))}
+            for part, (kernel, plain) in fns.items():
+                for f in (kernel, plain):
+                    cuda_ms(f, 1)  # warm-up
+                turns = [cuda_ms(f, 2) for f in (plain, kernel, kernel, plain)]
+                dev = device_ms(kernel, 2, SWIGLU_KERNELS)
+                timing[part] = ((turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2, dev)
+                if tag == "f32":
+                    b = swiglu_vec_bound(R, E, Hd, part == "bwd")
+                    yardstick = f"TF32 x3; f32 {b['f32_bound_ms']:.4f} ms"
+                else:
+                    b = swiglu_vec_bf16_bound(R, E, Hd, part == "bwd")
+                    yardstick = "one bf16 pass"
+                log(f"phase1e swiglu_vec {tag}_{part} R={R} E={E} Hd={Hd}: kernel "
+                    f"{timing[part][0]:.4f} ms a call ({dev:.4f} ms on the device)  plain "
+                    f"{timing[part][1]:.4f} ms  bound {b['bound_ms']:.4f} ms ({b['bound_by']}, "
+                    f"{yardstick})")
+            del x, w12, wv, ds, fns
+            torch.cuda.empty_cache()
+        for part in ("fwd", "bwd"):
+            out[(tag, part)] = {"max_abs_err": errs[part], "ms": timing[part][0],
+                                "plain_ms": timing[part][1], "device_ms": timing[part][2]}
+    return out
 
 
 def flash_cross_bound(B: int, G: int, E: int = 512, M: int = 64) -> dict:
@@ -1685,39 +1737,92 @@ def phase5_parse1m_training(seed: int, batch: int) -> dict:
     return launches
 
 
-def phase6_census_training(seed: int) -> tuple[int, int]:
-    """VAE training at census width through the algebraic tail and the
-    swiglu_vec kernels, then the plain algebraic path for comparison; returns
-    the main path's (forward, backward) swiglu_vec launches."""
+# phase 6's bounds on one bf16 step of the census VAE through the fused gate, by
+# reference: (the loss's gap relative to the reference's, each gradient's largest
+# gap relative to the reference gradient's largest magnitude). About twice the
+# largest readings; benchmarks_torch/census_bounds_faults.py shows what they catch
+CENSUS_BF16_BOUNDS = {"bf16 plain": (1e-4, 1.5e-2), "f32": (1e-4, 5e-2)}
+
+
+def census_training_setup(seed: int) -> tuple:
+    """Phase 6's census VAE as vae_census.yaml ships it (bf16 compute, remat,
+    random weights from seed), its f32 twin (no remat, the same weights), the
+    config's optimizer settings and CENSUS_STEPS + 1 lean batches of B = 16
+    (benchmarks/bench_census.py's synth_batch: 2,048 to 4,095 expressed genes
+    a cell)."""
     import numpy as np
     import torch
 
     from scldm_torch.nn.vae import build_transformer_vae
-    from scldm_torch.ops import fused_swiglu as fs
-    from scldm_torch.training.vae_task import VAETask
     from scldm_torch.utils.weights import init_reference_
 
-    check_f32_matmuls()
-    vae = init_reference_(build_transformer_vae(**CENSUS, device="cuda"),
+    vae = init_reference_(build_transformer_vae(**CENSUS, dtype=torch.bfloat16, remat=True,
+                                                device="cuda"),
                           torch.Generator(device="cuda").manual_seed(seed))
+    vae32 = build_transformer_vae(**CENSUS, device="cuda")
+    vae32.load_state_dict(vae.state_dict())
     opt = dict(learning_rate=3e-4, betas=(0.9, 0.95))  # vae_census.yaml's optimizer
-    task = VAETask(vae, **opt, algebraic_fused_gate=True)
     rng = np.random.default_rng(seed)
     G, B, S = CENSUS["n_genes"], CENSUS_BATCH, CENSUS_WINDOW
-    # benchmarks/bench_census.py's synth_batch: 2,048 to 4,095 expressed genes a cell
     batches = [{k: torch.from_numpy(v).to("cuda") for k, v in
                 lean_batch(rng, B, G, S, (S // 2, S)).items()} for _ in range(CENSUS_STEPS + 1)]
-    if not (task._use_algebraic(batches[0]) and task.algebraic_fused_gate
-            and not task._use_fused(batches[0])):
-        raise AssertionError("the census batch did not select the algebraic tail with the gate")
+    return vae, vae32, opt, batches
 
-    def run(t, label: str) -> dict:
+
+def census_step_gaps(lk: float, gk: dict, refs: dict) -> dict:
+    """One step's gaps from each reference (name -> (loss, gradients)):
+    name -> (the loss's gap relative to the reference's, (each gradient's
+    largest gap over the reference gradient's largest magnitude, at its
+    largest, the gradient's name)). The head's bias is left out: it is
+    softmax-invariant, its true gradient 0, every path's noise."""
+    out = {}
+    for ref, (lr, grads) in refs.items():
+        worst = (0.0, "")
+        for name, want in grads.items():
+            if name == "decoder_head.params.bias":
+                continue
+            rel = (gk[name] - want).abs().max().item() / (want.abs().max().item() + 1e-30)
+            worst = max(worst, (rel, name))
+        out[ref] = (abs(lk - lr) / abs(lr), worst)
+    return out
+
+
+def phase6_census_training(seed: int) -> dict:
+    """VAE training at census width as configs/model/vae_census.yaml ships
+    it (bf16 compute over f32 weights, remat), B = 16, through the algebraic
+    tail with the fused gate (the bf16 swiglu_vec kernels) and through the
+    plain algebraic path, in turns (gate, plain, plain, gate), each with its
+    peak memory; then the f32 cut of earlier PRs (f32, no remat, the same
+    weights) through the fused gate (the f32 kernels) beside them. Holds one
+    step of the bf16 fused gate against the bf16 plain path and against the
+    f32 step, and one f32 step of the fused gate against the f32 plain path.
+    Returns the swiglu_vec launches by (dtype, part) of the main path's runs."""
+    import torch
+
+    from scldm_torch.ops import fused_swiglu as fs
+    from scldm_torch.training.vae_task import VAETask
+
+    check_f32_matmuls()
+    vae, vae32, opt, batches = census_training_setup(seed)
+    task = VAETask(vae, **opt, algebraic_fused_gate=True)
+    plain_task = VAETask(vae, **opt)
+    task32 = VAETask(vae32, **opt, algebraic_fused_gate=True)
+    G, B, S = CENSUS["n_genes"], CENSUS_BATCH, CENSUS_WINDOW
+    for t in (task, task32):
+        if not (t._use_algebraic(batches[0]) and t.algebraic_fused_gate
+                and not t._use_fused(batches[0])):
+            raise AssertionError("the census batch did not select the algebraic tail with the gate")
+
+    def run(t, label: str, steps: int) -> dict:
+        """A warm-up step, then `steps` timed ones from a fresh optimizer state
+        on the same weights (the state's module is shared: it is restored after)."""
+        saved = {k: v.clone() for k, v in t.vae.state_dict().items()}
         state = t.init_state(torch.Generator(device="cuda").manual_seed(seed))
         t0 = time.perf_counter()
         state, first = t.train_step(state, batches[0])  # warm-up: library load, allocator
         torch.cuda.synchronize()
         warm = time.perf_counter() - t0
-        n = CENSUS_STEPS if warm <= 2.0 else 3
+        n = steps if warm <= 2.0 else min(steps, 3)
         fs.SWIGLU_VEC_FWD_LAUNCHES.reset()
         fs.SWIGLU_VEC_BWD_LAUNCHES.reset()
         torch.cuda.reset_peak_memory_stats()
@@ -1736,44 +1841,79 @@ def phase6_census_training(seed: int) -> tuple[int, int]:
         if not torch.isfinite(losses).all() or not again < first["train_loss"].item():
             raise AssertionError(f"{label}: losses {losses.tolist()}, warm-up batch "
                                  f"{first['train_loss'].item()} -> {again}")
-        note = "" if n == CENSUS_STEPS else f" (warm-up step {warm:.2f} s > 2 s: {n} steps)"
+        note = "" if n == steps else f" (warm-up step {warm:.2f} s > 2 s: {n} steps)"
         log(f"phase6 census VAE {label} B={B} G={G} S={S}: {B * n / dt:.1f} train cells/s, "
             f"{dt / n * 1e3:.2f} ms/step over {n} steps{note}; losses {losses[0].item():.2f} -> "
             f"{losses[-1].item():.2f}, warm-up batch {first['train_loss'].item():.2f} -> "
             f"{again:.2f}; peak memory {peak / 2**30:.2f} GiB; swiglu_vec launches fwd "
             f"{launches[0]} bwd {launches[1]}")
         del state
-        return {"n": n, "launches": launches}
+        with torch.no_grad():
+            t.vae.load_state_dict(saved)
+        return {"n": n, "launches": launches, "cells_per_s": B * n / dt, "peak": peak}
 
-    fused = run(task, "fused gate")
-    if fused["launches"] != (fused["n"], fused["n"]):
-        raise AssertionError(f"swiglu_vec launches {fused['launches']} in {fused['n']} steps")
-    plain_task = VAETask(vae, **opt)
-    torch.cuda.empty_cache()
-    plain = run(plain_task, "plain algebraic")
-    if plain["launches"] != (0, 0):
-        raise AssertionError(f"the plain algebraic path launched swiglu_vec {plain['launches']}")
+    turn = CENSUS_STEPS // 2
+    runs = []
+    for t, label in ((task, "bf16 remat fused gate"), (plain_task, "bf16 remat plain algebraic"),
+                     (plain_task, "bf16 remat plain algebraic"), (task, "bf16 remat fused gate")):
+        runs.append((label, run(t, label, turn)))
+        torch.cuda.empty_cache()
+    f32 = run(task32, "f32 fused gate (the earlier cut)", turn)
+    for label, r in runs:
+        want = (r["n"], r["n"]) if "fused" in label else (0, 0)
+        if r["launches"] != want:
+            raise AssertionError(f"{label}: swiglu_vec launches {r['launches']} in {r['n']} steps")
+    if f32["launches"] != (f32["n"], f32["n"]):
+        raise AssertionError(f"f32 fused gate: swiglu_vec launches {f32['launches']}")
+    gate = [r for label, r in runs if "fused" in label]
+    plain = [r for label, r in runs if "plain" in label]
+    log(f"phase6 census VAE as shipped (bf16, remat) in turns: fused gate "
+        f"{[round(r['cells_per_s'], 1) for r in gate]} train cells/s at "
+        f"{max(r['peak'] for r in gate) / 2**30:.2f} GiB, plain algebraic "
+        f"{[round(r['cells_per_s'], 1) for r in plain]} at "
+        f"{max(r['peak'] for r in plain) / 2**30:.2f}"
+        f" GiB; beside them f32 without remat (the fused gate) {f32['cells_per_s']:.1f} at "
+        f"{f32['peak'] / 2**30:.2f} GiB")
 
-    # one step, fused gate against the plain algebraic path: loss within 1e-5
-    # relative, each gradient within 1e-3 of its largest magnitude (f32 both;
-    # the head's bias is softmax-invariant, its true gradient 0, both noise)
-    (lk, gk), (lp, gp) = vae_loss_and_grads(task, batches[-1]), vae_loss_and_grads(plain_task,
-                                                                                  batches[-1])
-    if abs(lk - lp) > 1e-5 * abs(lp):
-        raise AssertionError(f"census loss: fused gate {lk} vs plain algebraic path {lp}")
-    worst = (0.0, "")
-    for name, want in gp.items():
-        if name == "decoder_head.params.bias":
-            continue
-        rel = (gk[name] - want).abs().max().item() / (want.abs().max().item() + 1e-30)
-        if rel > 1e-3:
-            raise AssertionError(f"census gradient {name}: fused gate vs plain path {rel:.3e} "
-                                 f"of its max")
-        worst = max(worst, (rel, name))
-    log(f"phase6 reference: one step, fused gate vs plain algebraic path: loss {lk:.4f} vs "
-        f"{lp:.4f} ({abs(lk - lp) / abs(lp):.2e} relative), {len(gp)} gradients, largest gap "
-        f"{worst[0]:.3e} of its max ({worst[1]})")
-    return fused["launches"]
+    # one step of the f32 cut, fused gate against the f32 plain algebraic path:
+    # loss within 1e-5 relative, each gradient within 1e-3 of its largest
+    # magnitude (f32 both; the head's bias is softmax-invariant, its true
+    # gradient 0, both noise)
+    plain32 = VAETask(vae32, **opt)
+    l32, g32 = vae_loss_and_grads(task32, batches[-1])
+    gap32 = census_step_gaps(l32, g32, {"f32 plain": vae_loss_and_grads(plain32, batches[-1])})
+    loss_gap, (rel, name) = gap32["f32 plain"]
+    if loss_gap > 1e-5 or rel > 1e-3:
+        raise AssertionError(f"census f32 step: fused gate vs plain algebraic path: loss "
+                             f"{loss_gap:.3e} relative, gradient {name} {rel:.3e} of its max")
+    log(f"phase6 reference: one step, f32 fused gate vs f32 plain algebraic path: loss "
+        f"{l32:.4f} ({loss_gap:.2e} relative), {len(g32)} gradients, largest gap {rel:.3e} of its "
+        f"max ({name})")
+    del plain32
+
+    # one step of the shipped config, bf16 fused gate against the bf16 plain
+    # path and against the f32 step on the same weights, by CENSUS_BF16_BOUNDS.
+    # The two bf16 paths round at other points (the gate rounds g from f32
+    # products, the plain path a and b before the gate): two bf16 evaluations
+    # of one function, as the f32 step is a third
+    lk, gk = vae_loss_and_grads(task, batches[-1])
+    bad = [name for name, g in gk.items() if g.dtype != torch.float32]
+    if bad:
+        raise AssertionError(f"census gradients not f32: {bad}")
+    gaps = census_step_gaps(lk, gk, {"bf16 plain": vae_loss_and_grads(plain_task, batches[-1]),
+                                     "f32": (l32, g32)})
+    for ref, (loss_gap, (rel, name)) in gaps.items():
+        loss_bound, grad_bound = CENSUS_BF16_BOUNDS[ref]
+        if loss_gap > loss_bound or rel > grad_bound:
+            raise AssertionError(f"census bf16 step: fused gate vs {ref}: loss {loss_gap:.3e} "
+                                 f"relative, gradient {name} {rel:.3e} of its max")
+    log(f"phase6 reference: one step, bf16 fused gate (loss {lk:.4f}) vs " + "; vs ".join(
+        f"{ref}: loss {lg:.2e} relative (bound {CENSUS_BF16_BOUNDS[ref][0]:g}), largest gradient "
+        f"gap {rel:.3e} of its max ({name}; bound {CENSUS_BF16_BOUNDS[ref][1]:g})"
+        for ref, (lg, (rel, name)) in gaps.items()) + f"; {len(gk)} gradients, all f32")
+    return {("bf16", "fwd"): sum(r["launches"][0] for r in gate),
+            ("bf16", "bwd"): sum(r["launches"][1] for r in gate),
+            ("f32", "fwd"): f32["launches"][0], ("f32", "bwd"): f32["launches"][1]}
 
 
 CENSUS_POOL_STEPS = 3  # timed VAETask(fused_pool=True) census steps, after one warm-up step
@@ -1880,6 +2020,17 @@ def phase6b_census_fused_pool(seed: int) -> tuple[int, int]:
     return launches
 
 
+def ldm_loss_and_grads(task, batch, g, noise: dict) -> tuple:
+    """One step's loss and its DiT's gradients (by name; the parameters the
+    step reached) on the given draws."""
+    task.dit.zero_grad(set_to_none=True)
+    loss = task.loss(batch, g, noise)
+    loss.backward()
+    grads = {k: p.grad.clone() for k, p in task.dit.named_parameters() if p.grad is not None}
+    task.dit.zero_grad(set_to_none=True)
+    return loss.item(), grads
+
+
 def compare_ldm_paths(phase: str, task, module_task, batch, g) -> None:
     """One step's loss and gradients, kernel path vs module path, same
     parameters, batch and draws (from `g`); JAX's bounds between its two
@@ -1894,13 +2045,9 @@ def compare_ldm_paths(phase: str, task, module_task, batch, g) -> None:
              "x0": torch.randn(B, T, E_in, generator=g, device="cuda"),
              "drop_mask": torch.rand(B, generator=g, device="cuda") < dit.cfg_dropout_prob}
     runs = []
-    for t in (task, module_task):
-        dit.zero_grad(set_to_none=True)
-        loss = t.loss(batch, g, noise)
-        loss.backward()
-        grads = {k: p.grad.clone() for k, p in dit.named_parameters()}
-        runs.append((loss.item(), global_norm(grads.values()).item(), grads))
-    dit.zero_grad(set_to_none=True)
+    for t in (task, module_task):  # each its own DiT's gradients (one module, or its f32 twin)
+        loss, grads = ldm_loss_and_grads(t, batch, g, noise)
+        runs.append((loss, global_norm(grads.values()).item(), grads))
     (lk, nk, gk), (lm, nm, gm) = runs
     if abs(lk - lm) > 1e-4 * abs(lm) or abs(nk - nm) > 1e-3 * nm:
         raise AssertionError(f"{phase}: kernel path loss {lk}, grad norm {nk}; module path {lm}, "
@@ -2050,18 +2197,20 @@ def phase4_ldm_training(seed: int, batch: int) -> tuple[int, int, int]:
     return fwd, bwd, gen, encode_launches
 
 
-def build_census_ldm_models(seed: int):
+def build_census_ldm_models(seed: int, dtype=None):
     """The census VAE (frozen, eval) and the census DiT on the card, random
-    weights from CUDA generators, the DiT's adaLN and final layers non-zero."""
+    weights from CUDA generators, the DiT's adaLN and final layers non-zero,
+    both computing in `dtype` (default f32)."""
     import torch
 
     from scldm_torch.nn.nnets import DiT
     from scldm_torch.nn.vae import build_transformer_vae
     from scldm_torch.utils.weights import init_reference_
 
-    vae = init_reference_(build_transformer_vae(**CENSUS, device="cuda"),
+    dtype = dtype or torch.float32
+    vae = init_reference_(build_transformer_vae(**CENSUS, dtype=dtype, device="cuda"),
                           torch.Generator(device="cuda").manual_seed(seed)).eval()
-    dit = init_reference_(DiT(**CENSUS_DIT).to("cuda"),
+    dit = init_reference_(DiT(**CENSUS_DIT, dtype=dtype).to("cuda"),
                           torch.Generator(device="cuda").manual_seed(seed + 1), zero_init=False)
     return vae, dit
 
@@ -2080,17 +2229,26 @@ def census_ldm_batches(rng, n: int) -> list:
 
 
 def phase7_census_ldm(seed: int) -> dict:
-    """Census LDM training and generation: the census VAE, frozen, under the
-    census DiT (T = 64 latent tokens), random weights from CUDA generators
-    with non-zero adaLN. Trains CENSUS_STEPS steps of B = 16 through the DiT
-    block kernels and prints the segment split of three
-    synchronised steps; holds one step against the module path; generates
-    euler-50 at a generation batch of 16 through the algebraic decode;
-    holds generate_from_noise with `fused_blocks` against the module
-    denoiser on the same noise (latents and mu within 1e-3); holds the module
-    decode with the flash-cross gate on against off (mu by `held_bf16`'s
-    rule). Returns the main path's launches of dit_block, dit_block_bwd and
-    flash_cross."""
+    """Census LDM training and generation at ldm_base.yaml's bf16 compute:
+    the census VAE, frozen, under the census DiT (T = 64 latent tokens), both
+    bf16 over f32 weights, random weights from CUDA generators with non-zero
+    adaLN. Trains CENSUS_STEPS steps of B = 16 through the DiT block kernels
+    (f32 whatever the DiT's dtype, as JAX's kernel path) and prints the
+    segment split of three synchronised steps; holds one step of the kernel
+    path against the module path on the DiT's f32 twin (the same weights)
+    at JAX's bounds, and one step of the timed bf16 task (loss and every
+    gradient) against its function on modules (the twin's trunk on the bf16
+    module's conditioning) at JAX's bounds, the conditioning's gradients at
+    `held_bf16`'s 1e-2; holds the fused encode against
+    the f32 twin VAE's module encode at JAX's bound; generates euler-50 at a
+    generation batch of 16 through the algebraic decode; holds
+    generate_from_noise with `fused_blocks` against the f32 twin's module
+    denoiser on the same noise (latents within 1e-3, and mu within 1e-3
+    through the f32 twin's decode), and prints the bf16 module denoiser's
+    and the bf16 decode's distances; holds the module decode with the
+    flash-cross gate on against off (mu by `held_bf16`'s rule; the kernel
+    takes the bf16 decoder's q, k and v). Returns the main path's launches
+    of dit_block, dit_block_bwd and flash_cross."""
     import numpy as np
     import torch
 
@@ -2100,10 +2258,17 @@ def phase7_census_ldm(seed: int) -> dict:
     from scldm_torch.ops import fused_encoder as fe
     from scldm_torch.ops.transforms import canonical_gene_ids
     from scldm_torch.sampling.size_factors import SizeFactorSampler, constant_stats
+    from scldm_torch.training import ldm_task
     from scldm_torch.training.ldm_task import LDMTask
+    from scldm_torch.training.metrics import global_norm
     from scldm_torch.transport import create_transport
 
-    vae, dit = build_census_ldm_models(seed)
+    from scldm_torch.nn.nnets import DiT
+    from scldm_torch.nn.vae import build_transformer_vae
+
+    vae, dit = build_census_ldm_models(seed, torch.bfloat16)
+    dit32 = DiT(**CENSUS_DIT).to("cuda")  # the f32 twin: the kernel path's function as modules
+    dit32.load_state_dict(dit.state_dict())
     task = LDMTask(vae, dit, create_transport())
     if not (task.algebraic_decode and task.algebraic_vw_fold and not task.algebraic_fused_gate):
         raise AssertionError("the census LDMTask did not take the algebraic decode with the fold")
@@ -2140,24 +2305,90 @@ def phase7_census_ldm(seed: int) -> dict:
     seg = ldm_step_segments(task, state, batches[1:4])
     log(f"phase7 segments ms (3 steps, each synchronised; the loss encodes again): {seg}")
     g = torch.Generator(device="cuda").manual_seed(seed + 3)
-    compare_ldm_paths("phase7", task, LDMTask(vae, dit, create_transport(), fused_training=False),
+    # the kernels against the modules on the f32 twin: the same function at JAX's bounds (the
+    # bf16 DiT's kernel path differs from it only in its conditioning, rounded to bf16)
+    dit32.load_state_dict(dit.state_dict())
+    compare_ldm_paths("phase7", LDMTask(vae, dit32, create_transport()),
+                      LDMTask(vae, dit32, create_transport(), fused_training=False),
                       batches[-1], g)
+    # the timed task itself: one step of the bf16 DiT through the f32 kernels (its conditioning
+    # computed by the bf16 module, as JAX's) against the same function on modules, the f32
+    # twin's trunk on that conditioning, the same draws: JAX's bounds (loss 1e-4 relative, grad
+    # norm 1e-3), each trunk gradient within 1e-3 of its largest magnitude, and each gradient
+    # of the conditioning within 1e-2 of its: the trunk's f32 cotangent of the conditioning is
+    # rounded to bf16 on its way back into the bf16 module, and two sum orders flip a rounding
+    # now and then (`held_bf16`'s bound)
+    bs = batches[-1]["library_size"].shape[0]
+    noise = {"t": torch.rand(bs, generator=g, device="cuda"),
+             "x0": torch.randn(bs, dit.seq_len, dit.n_embed_input, generator=g, device="cuda"),
+             "drop_mask": torch.rand(bs, generator=g, device="cuda") < dit.cfg_dropout_prob}
+    lk, gk = ldm_loss_and_grads(task, batches[-1], g, noise)
+    kernel_fn = ldm_task.fused_dit_train_apply
+    ldm_task.fused_dit_train_apply = lambda d, xt, t_emb: dit32.trunk(xt.float(), t_emb.float())
+    try:
+        dit32.zero_grad(set_to_none=True)
+        lm, gm = ldm_loss_and_grads(task, batches[-1], g, noise)  # the conditioning's gradients
+        gm.update({k: p.grad.clone() for k, p in dit32.named_parameters() if p.grad is not None})
+        dit32.zero_grad(set_to_none=True)
+    finally:
+        ldm_task.fused_dit_train_apply = kernel_fn
+    if set(gk) != set(gm) or any(v.dtype != torch.float32 for v in gk.values()):
+        raise AssertionError(f"phase7: the kernel path's gradients {sorted(gk)} (dtypes "
+                             f"{sorted({str(v.dtype) for v in gk.values()})}), the modules' "
+                             f"{sorted(gm)}")
+    nk, nm = global_norm(gk.values()).item(), global_norm(gm.values()).item()
+    worst = {"trunk": (0.0, ""), "conditioning": (0.0, "")}
+    for k, w in gm.items():
+        part = "conditioning" if k.startswith(("t_embedder.", "class_embeddings.")) else "trunk"
+        worst[part] = max(worst[part], ((gk[k] - w).abs().max().item() / (w.abs().max().item()
+                                                                         + 1e-30), k))
+    if (abs(lk - lm) > 1e-4 * abs(lm) or abs(nk - nm) > 1e-3 * nm
+            or worst["trunk"][0] > 1e-3 or worst["conditioning"][0] > 1e-2):
+        raise AssertionError(f"phase7: the timed bf16 kernel path loss {lk}, grad norm {nk}; on "
+                             f"modules {lm}, {nm}; largest gradient gaps of their max {worst}")
+    bf16_task = LDMTask(vae, dit, create_transport(), fused_training=False)
+    with torch.no_grad():
+        lb = bf16_task.loss(batches[-1], g, noise).item()
+    log(f"phase7 reference: one step of the timed bf16 task, kernel path vs its function on "
+        f"modules (the f32 twin's trunk on the bf16 conditioning): loss {lk:.6f} vs {lm:.6f} "
+        f"({abs(lk - lm) / abs(lm):.2e} relative), grad norm {nk:.6f} vs {nm:.6f} "
+        f"({abs(nk - nm) / nm:.2e}), {len(gm)} gradients, all f32, largest gap of its max in the "
+        f"trunk {worst['trunk'][0]:.3e} ({worst['trunk'][1]}), in the conditioning "
+        f"{worst['conditioning'][0]:.3e} ({worst['conditioning'][1]}); the bf16 module DiT's loss "
+        f"on the same draws {lb:.6f}")
+    del gk, gm
 
     # -- the frozen encode through the wide window pool (LDMTask(fused_encode=True)),
-    #    held against the module encode (JAX's bound, tests/test_fused_encoder.py:279-308:
-    #    0.02 of the largest latent) and timed against it in turns; then the timed
-    #    steps and the segment split through it
+    #    held against the module encode of the f32 twin VAE (the same weights) at JAX's
+    #    bound (tests/test_fused_encoder.py:279-308: 0.02 of the largest latent) and timed
+    #    against the bf16 module encode in turns; then the timed steps and the segment split
+    #    through it. The bf16 module encode is not the reference: it rounds at other points
+    #    (the pool's MCAB runs in f32, the module's in bf16); its distances are printed
     fe_task = LDMTask(vae, dit, create_transport(), fused_encode=True)
     fe.WINDOW_POOL_WIDE_FWD_LAUNCHES.reset()
     z_k = fe_task._encode(batches[-1])
     torch.cuda.synchronize()
     encode_launches = fe.WINDOW_POOL_WIDE_FWD_LAUNCHES.count
     z_m = task._encode(batches[-1])
-    err, scale = (z_k - z_m).abs().max().item(), z_m.abs().max().item()
-    if encode_launches != 1 or not err < 0.02 * scale:
+
+    def f32_twin():
+        """An LDMTask of the f32 twins of the VAE and the DiT (the same weights)."""
+        vae32 = build_transformer_vae(**CENSUS, device="cuda").eval()
+        vae32.load_state_dict(vae.state_dict())
+        return LDMTask(vae32, dit32, create_transport())
+
+    task32 = f32_twin()
+    z_32 = task32._encode(batches[-1])
+    del task32  # not held through the timed runs below
+    err, scale = (z_k.float() - z_32).abs().max().item(), z_32.abs().max().item()
+    if encode_launches != 1 or not err <= 0.02 * scale:
         raise AssertionError(f"census fused encode: {encode_launches} wide window pool launches, "
-                             f"max abs err {err:.3e} against the module encode, max |z| "
-                             f"{scale:.3e}")
+                             f"max abs err {err:.3e} against the f32 twin's module encode, max "
+                             f"|z| {scale:.3e}")
+    log(f"phase7 fused_encode at bf16: latents vs the f32 twin's module encode {err:.3e} "
+        f"({err / scale:.1e} of max |z| {scale:.3e}; held to 0.02); the bf16 module encode vs "
+        f"the f32 twin's {(z_m.float() - z_32).abs().max().item():.3e}, vs the fused encode "
+        f"{(z_k - z_m).abs().max().item():.3e}")
     walls = {}
     for t in (task, fe_task, fe_task, task):  # in turns, each timed over 5 encodes
         t0 = time.perf_counter()
@@ -2165,8 +2396,7 @@ def phase7_census_ldm(seed: int) -> dict:
             t._encode(batches[-1])
         torch.cuda.synchronize()
         walls.setdefault(t.fused_encode, []).append(round((time.perf_counter() - t0) / 5 * 1e3, 3))
-    log(f"phase7 fused_encode: latents vs the module encode max abs err {err:.3e} "
-        f"({err / scale:.1e} of max); encode ms in turns, window pool {walls[True]} vs module "
+    log(f"phase7 fused_encode: encode ms in turns, window pool {walls[True]} vs module "
         f"{walls[False]}")
     fe.WINDOW_POOL_WIDE_FWD_LAUNCHES.reset()
     fe.WINDOW_POOL_WIDE_BWD_LAUNCHES.reset()
@@ -2188,7 +2418,7 @@ def phase7_census_ldm(seed: int) -> dict:
     log(f"phase7 fused_encode segments ms (3 steps, each synchronised; the loss encodes again): "
         f"{seg}")
     launches["window_pool_wide_fwd"] = encode_launches + step_launches
-    del z_k, z_m
+    del z_k, z_m, z_32
 
     # -- generation: euler-50 through the algebraic decode
     sfs = SizeFactorSampler(constant_stats({"clusters": N_CLUSTERS}, mu=8.6, sd=0.3))
@@ -2217,21 +2447,40 @@ def phase7_census_ldm(seed: int) -> dict:
         f"counts {tuple(counts.shape)} mean {counts.mean().item():.4f}; peak memory "
         f"{peak / 2**30:.2f} GiB")
 
-    # -- the kernel denoiser against the module one, the same noise
+    # -- the kernel denoiser against the f32 twin's module one, the same noise: the latents
+    #    within 1e-3 (f32 denoisers, sums in other orders), and mu within 1e-3 of its largest
+    #    through the f32 twin's decode of each; the bf16 decode's distance from it is printed
     z0 = torch.randn(B, dit.seq_len, dit.n_embed_input, generator=g, device="cuda")
     log_sf = torch.full((B,), 8.6, device="cuda")
     kw = dict(guidance_weight=GUIDANCE, sampling_method="euler", num_steps=50)
-    (zk, ok, _), (zm, om, _) = (task.generate_from_noise(z0, log_sf, genes, cond,
-                                                         fused_blocks=fused, **kw)
-                                for fused in (True, False))
+    dit32.load_state_dict(dit.state_dict())  # the twin of the trained DiT
+    task32 = f32_twin()
+    zk, ok, _ = task.generate_from_noise(z0, log_sf, genes, cond, fused_blocks=True, **kw)
+    (zk32, ok32, _), (zm, om, _) = (task32.generate_from_noise(z0, log_sf, genes, cond,
+                                                               fused_blocks=fused, dit=d, **kw)
+                                    for fused, d in ((True, dit), (False, dit32)))
+    zb, ob, _ = task.generate_from_noise(z0, log_sf, genes, cond, fused_blocks=False, **kw)
+    if not (torch.isfinite(zb).all() and torch.isfinite(ob["mu"]).all()):
+        raise AssertionError("phase7: the bf16 module denoiser's latents or mu are not finite")
+    log(f"phase7 generate_from_noise euler-50, the bf16 module denoiser against the kernel one: "
+        f"latents max abs diff {(zb - zk).abs().max().item():.3e} (max |z| "
+        f"{zk.abs().max().item():.3e}), mu {(ob['mu'] - ok['mu']).abs().max().item():.3e}")
+    del zb, ob
     z_err = (zk - zm).abs().max().item()
-    mu_err, mu_max = (ok["mu"] - om["mu"]).abs().max().item(), om["mu"].abs().max().item()
+    mu_err, mu_max = (ok32["mu"] - om["mu"]).abs().max().item(), om["mu"].abs().max().item()
     torch.testing.assert_close(zk, zm, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(zk32, zm, rtol=1e-3, atol=1e-3)
     if not mu_err <= 1e-3 * mu_max:
-        raise AssertionError(f"fused_blocks mu: max abs err {mu_err:.3e}, max |mu| {mu_max:.3e}")
-    log(f"phase7 reference: generate_from_noise euler-50, fused_blocks=True vs False: latents max "
-        f"abs err {z_err:.3e}, mu {mu_err:.3e} ({mu_err / mu_max:.1e} of max)")
-    del ok, om
+        raise AssertionError(f"fused_blocks mu (f32 decode): max abs err {mu_err:.3e}, max |mu| "
+                             f"{mu_max:.3e}")
+    bf16_err, bf16_scale, bf16_beyond = bf16_distance(ok["mu"], ok32["mu"])
+    log(f"phase7 reference: generate_from_noise euler-50, fused_blocks=True vs the f32 twin's "
+        f"module denoiser: latents max abs err {z_err:.3e}, mu through the f32 decode "
+        f"{mu_err:.3e} ({mu_err / mu_max:.1e} of max); the bf16 decode of the kernel latents vs "
+        f"its f32 decode {bf16_err:.3e} ({bf16_err / bf16_scale:.1e} of max, {bf16_beyond:.1e} "
+        f"of the entries beyond 1e-4 of it)")
+    del ok, om, ok32, zk32, task32
+    torch.cuda.empty_cache()
 
     # -- the module decode with the flash-cross gate on and off, the same noise
     module_task = LDMTask(vae, dit, create_transport(), algebraic_decode=False)
@@ -2865,6 +3114,10 @@ CLI_TEST_CELLS = 256  # the test file, which the predict stream reads
 CLI_PARSE_CELLS = 1_280  # parse1m's train file: 1,152 train cells, 9 steps of 128
 CLI_STEPS = 24
 CLI_PARSE_STEPS = 8
+# the census VAE's train file (metadata/census_genes.json: 36,130 genes): B = 16,
+# 144 train cells after the validation split, of which CLI_CENSUS_STEPS steps run
+CLI_CENSUS_CELLS = 160
+CLI_CENSUS_STEPS = 4
 # resumed against uninterrupted: the embedding backward and the index adds sum
 # with atomics on the card, so the weights may part in the last bits, which the
 # optimizer carries on; each parameter is held to this absolute difference
@@ -2924,11 +3177,13 @@ def cli_shard(rng, n_cells: int, genes: list, labels: dict):
 
 
 def phase11_cli(seed: int, smi: str) -> dict:
-    """The three CLIs at full dentate width from the repo's YAML files: `train`
-    preempted by SIGTERM after its first dispatch and resumed, against an
-    uninterrupted run; `train_ldm` on its checkpoint; `inference` for
-    generation, for latents and reconstruction and with `vae_only`; then
-    `train` at parse1m. Two stand-ins, for the card machine's missing h5py:
+    """The three CLIs at full dentate width from the repo's YAML files as
+    shipped (bf16 compute): `train` preempted by SIGTERM after its first
+    dispatch and resumed, against an uninterrupted run; `train_ldm` on its
+    checkpoint; `inference` for generation, for latents and reconstruction
+    and with `vae_only`; then `train` at parse1m, and `train` with
+    `model=vae_census` (bf16, remat) on the homo_sapiens vocabulary. Two
+    stand-ins, for the card machine's missing h5py:
     the in-memory shard for `H5ADFile` and a capturing writer for the h5ad
     writer. Returns the launches of rows 1-6."""
     import hashlib
@@ -2989,6 +3244,7 @@ def phase11_cli(seed: int, smi: str) -> dict:
     rng = np.random.default_rng(seed)
     dentate = json.loads((ROOT / "metadata/dentategyrus_train.json").read_text())
     parse = json.loads((ROOT / "metadata/parse1m_train.json").read_text())
+    census = json.loads((ROOT / "metadata/census_genes.json").read_text())
     t0 = time.perf_counter()
     tmp = Path(tempfile.mkdtemp(prefix="scldm_phase11_"))
     shards = {
@@ -2998,6 +3254,7 @@ def phase11_cli(seed: int, smi: str) -> dict:
         str(tmp / "parse_train.h5ad"): cli_shard(
             rng, CLI_PARSE_CELLS, parse["genes"],
             {c: parse["labels"][c] for c in ("cell_type", "cytokine")}),
+        str(tmp / "census_train.h5ad"): cli_shard(rng, CLI_CENSUS_CELLS, census["genes"], {}),
     }
     mu = {"clusters": {c: float(rng.uniform(6.0, 9.0)) for c in dentate["labels"]["clusters"]}}
     sd = {"clusters": {c: 0.05 for c in dentate["labels"]["clusters"]}}
@@ -3005,7 +3262,8 @@ def phase11_cli(seed: int, smi: str) -> dict:
     (tmp / "sd.json").write_text(json.dumps(sd))
     nnz = int(shards[str(tmp / "train.h5ad")].indptr[-1])
     log(f"phase11 data: {CLI_CELLS} + {CLI_TEST_CELLS} dentate cells ({nnz} nonzeros in the "
-        f"train file), {CLI_PARSE_CELLS} parse1m cells, made in {time.perf_counter() - t0:.2f} s")
+        f"train file), {CLI_PARSE_CELLS} parse1m cells, {CLI_CENSUS_CELLS} census cells, made "
+        f"in {time.perf_counter() - t0:.2f} s")
 
     # -- the two stand-ins, named in the log
     written = []
@@ -3067,8 +3325,7 @@ def phase11_cli(seed: int, smi: str) -> dict:
         f"datamodule.datamodule.test_adata_path={tmp / 'test.h5ad'}",
         f"datamodule.dataset_params.dentate_gyrus.mu_size_factor={tmp / 'mu.json'}",
         f"datamodule.dataset_params.dentate_gyrus.sd_size_factor={tmp / 'sd.json'}",
-        "model.compute_dtype=float32", f"training.max_steps={CLI_STEPS}", "epochs=2",
-        "training.log_every_steps=8",
+        f"training.max_steps={CLI_STEPS}", "epochs=2", "training.log_every_steps=8",
     ]
 
     def outputs(name):
@@ -3181,11 +3438,46 @@ def phase11_cli(seed: int, smi: str) -> dict:
                   config("vae_training.yaml") + outputs("run") + [
                       "datamodule.dataset=parse1m",
                       f"datamodule.datamodule.train_adata_path={tmp / 'parse_train.h5ad'}",
-                      "model.compute_dtype=float32", f"training.max_steps={CLI_PARSE_STEPS}",
-                      "epochs=1"])
+                      f"training.max_steps={CLI_PARSE_STEPS}", "epochs=1"])
         if any(got[k] != CLI_PARSE_STEPS for k in ("encoder_pool_fwd", "encoder_pool_bwd",
                                                    "decoder_tail_fwd", "decoder_tail_bwd")):
             raise AssertionError(f"phase11 parse1m: {got} launches in {CLI_PARSE_STEPS} steps")
+
+        # -- train the census VAE as configs/model/vae_census.yaml ships it (bf16, remat) on the
+        #    homo_sapiens vocabulary (metadata/census_genes.json): `model=vae_census` composed
+        #    into vae_training.yaml's defaults as Hydra would, its groups linked from configs/
+        census_cfg = tmp / "census_cfg"
+        census_cfg.mkdir()
+        for group in ("paths", "model", "training", "datamodule"):
+            (census_cfg / group).symlink_to(ROOT / "configs" / group, target_is_directory=True)
+        training_yaml = (ROOT / "configs" / "vae_training.yaml").read_text()
+        if "model: vae_base" not in training_yaml:
+            raise AssertionError("phase11: vae_training.yaml no longer composes model: vae_base")
+        (census_cfg / "vae_census_training.yaml").write_text(
+            training_yaml.replace("model: vae_base", "model: vae_census"))
+        run("train (model=vae_census, datamodule.dataset=homo_sapiens)", cli_train.main,
+            ["--config", str(census_cfg / "vae_census_training.yaml")] + outputs("run") + [
+                "datamodule.dataset=homo_sapiens",
+                f"datamodule.datamodule.train_adata_path={tmp / 'census_train.h5ad'}",
+                f"training.max_steps={CLI_CENSUS_STEPS}", "epochs=1",
+                "training.log_every_steps=2"])
+        ck = tmp / "run" / "checkpoints" / "vae_homo_sapiens"
+        snap = json.loads((ck / "config.json").read_text())
+        payload = ckpt_module.read_payload(ck / str(CLI_CENSUS_STEPS))
+        m = snap["model"]
+        if (m["compute_dtype"], m["remat"], m["vae"]["n_embed"], m["vae"]["n_genes"]) != (
+                "bfloat16", True, 512, len(census["genes"])) or payload["step"] != CLI_CENSUS_STEPS:
+            raise AssertionError(f"phase11 census: config {m['compute_dtype']}, remat {m['remat']}, "
+                                 f"E {m['vae']['n_embed']}, G {m['vae']['n_genes']}; step "
+                                 f"{payload['step']}")
+        rows = [r for r in csv.DictReader((ck / "metrics.csv").open()) if r.get("train_loss")]
+        if not rows or not all(np.isfinite(float(r["train_loss"])) for r in rows):
+            raise AssertionError(f"phase11 census: train losses {[r['train_loss'] for r in rows]}")
+        log(f"phase11 census train (bf16, remat, G = {m['vae']['n_genes']}, a window of "
+            f"{snap['datamodule']['datamodule']['genes_seq_len']}, B = {m['batch_size']}): "
+            f"{CLI_CENSUS_STEPS} steps, train loss "
+            + ", ".join(f"{float(r['train_loss']):.2f}" for r in rows) + "; cells/s "
+            + ", ".join(f"{float(r['cells_per_sec']):.1f}" for r in rows if r.get("cells_per_sec")))
     finally:
         dm_module.H5ADFile, output_module.write_h5ad = real_h5ad, real_writer
         ckpt_module.CheckpointManager.save = real_save
@@ -3221,6 +3513,8 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+    # JAX's bf16 products sum in f32: no bf16 reduction of cuBLAS's split-K partials
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
     # -- phase 0: the card and the build ------------------------------------
     smi = subprocess.run(
@@ -3242,7 +3536,7 @@ def main(argv=None) -> int:
     dit_block_bwd = phase1c_dit_block_bwd(args.seed)
     pools = phase1d_encoder_pool(args.seed)
     wide_pool = phase1d_wide_window_pool(args.seed)
-    swiglu_fwd, swiglu_bwd = phase1e_swiglu_vec(args.seed)
+    swiglu = phase1e_swiglu_vec(args.seed)
     flash_cross = phase1f_flash_cross(args.seed)
     trunk_timing = phase1g_fused_trunk(args.seed)
     gate_fwd, gate_bwd, gate_launches = phase1h_swiglu_gate(args.seed)
@@ -3262,7 +3556,7 @@ def main(argv=None) -> int:
     parse = phase5_parse1m_training(args.seed, args.batch)
 
     # -- phase 6: VAE training at census width --------------------------------
-    census_fwd, census_bwd = phase6_census_training(args.seed)
+    census_swiglu = phase6_census_training(args.seed)
     census_pool = phase6b_census_fused_pool(args.seed)
 
     # -- phase 7: census LDM training and generation ----------------------------
@@ -3343,14 +3637,16 @@ def main(argv=None) -> int:
              128, PARSE_GENES if v == "dense" else WINDOW, v == "dense"), "library_ms": None}
         for v in ("dense", "window") for part in ("fwd", "bwd")
     ] + [
-        # the census decoder's rows: B=16 cells x G=36,601 genes
-        {"name": f"swiglu_vec_{part}", "route": "cuda",
+        # the census decoder's rows: B=16 cells x G=36,601 genes, f32 and the
+        # configs' bf16 (one bf16 wgmma pass)
+        {"name": f"swiglu_vec_{part}{'' if tag == 'f32' else '_bf16'}", "route": "cuda",
          "source": "scldm_torch/kernels/csrc/swiglu_vec.cu",
-         "replaces": f"scldm_tpu/ops/fused_swiglu.py:{line}", "launches": launches_, **timed,
-         **swiglu_vec_bound(CENSUS_BATCH * CENSUS["n_genes"], CENSUS["n_embed"], CENSUS_HIDDEN,
-                            part == "bwd"), "library_ms": None}
-        for part, line, launches_, timed in (("fwd", 256, census_fwd, swiglu_fwd),
-                                             ("bwd", 280, census_bwd, swiglu_bwd))
+         "replaces": f"scldm_tpu/ops/fused_swiglu.py:{line}",
+         "launches": census_swiglu[(tag, part)], **swiglu[(tag, part)],
+         **(swiglu_vec_bound if tag == "f32" else swiglu_vec_bf16_bound)(
+             CENSUS_BATCH * CENSUS["n_genes"], CENSUS["n_embed"], CENSUS_HIDDEN, part == "bwd"),
+         "library_ms": None}
+        for tag in ("f32", "bf16") for part, line in (("fwd", 256), ("bwd", 280))
     ] + [
         # the census sampler's cross block: 2B = 32 cells, G = 36,601 genes
         {"name": "flash_cross", "route": "cuda",

@@ -1,5 +1,5 @@
-"""Shared CLI wiring (counterpart of scldm_tpu/cli/_common.py): the
-checkpoint manager, the preemption guard and the wandb logger from the
+"""Shared CLI wiring (counterpart of scldm_tpu/cli/_common.py): the device,
+the checkpoint manager, the preemption guard and the wandb logger from the
 `training:` config group (the reference's training/default.yaml:26-52,
 a rank-0 WandbLogger and ModelCheckpoint monitor / save_top_k / save_last)."""
 
@@ -9,6 +9,9 @@ import argparse
 import sys
 from typing import Dict, Optional
 
+import torch
+
+from scldm_torch.config.build import resolve_device
 from scldm_torch.config.loader import load_config, merge_overrides, resolve
 from scldm_torch.training.checkpoint import CheckpointManager
 from scldm_torch.training.preemption import PreemptionGuard
@@ -22,6 +25,16 @@ def parse_config(argv, default_config, description: str) -> Dict:
     p.add_argument("overrides", nargs="*", help="dotted key=value overrides")
     args = p.parse_args(argv if argv is not None else sys.argv[1:])
     return resolve(merge_overrides(load_config(args.config), args.overrides))
+
+
+def setup_device(cfg: Dict) -> torch.device:
+    """The config's device (`config.build.resolve_device`). On the card,
+    cuBLAS is kept from reducing the split-K partial sums of bf16 products
+    in bf16, for the rest of the process: JAX's bf16 products sum in f32."""
+    device = resolve_device(cfg)
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    return device
 
 
 def make_checkpoint_manager(cfg: Dict, ckpt_dir) -> CheckpointManager:

@@ -22,7 +22,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from scldm_torch.cli._common import parse_config
+from scldm_torch.cli._common import parse_config, setup_device
 from scldm_torch.cli.train_ldm import load_vae_from_checkpoint
 from scldm_torch.config.build import (
     MULTI_CARD,
@@ -31,7 +31,6 @@ from scldm_torch.config.build import (
     build_ldm_task,
     build_vocabulary_encoder,
     refuse,
-    resolve_device,
 )
 from scldm_torch.ops.distributions import nb_sample
 from scldm_torch.ops.transforms import COUNTS, NON_CONDITION_KEYS
@@ -69,7 +68,7 @@ def main(argv=None) -> int:
     n_model = int(cfg.get("n_model") or 1)
     if n_model > 1:
         refuse(f"n_model={n_model}", MULTI_CARD)
-    device = resolve_device(cfg)
+    device = setup_device(cfg)
 
     vocab = build_vocabulary_encoder(cfg)
     datamodule = build_datamodule(cfg, vocab)
@@ -134,7 +133,7 @@ def main(argv=None) -> int:
     for i, batch in enumerate(datamodule.predict_batches()):
         dev = device_batch(batch, device)
         z = task._encode(dev)
-        outputs = {"z": z.cpu().numpy()}
+        outputs = {"z": z.float().cpu().numpy()}  # in the VAE's dtype: numpy has no bf16
         if inf_args.get("reconstruct", True):
             with torch.no_grad():
                 out = vae.decode(z, dev["genes"], dev["library_size"])
@@ -166,7 +165,8 @@ def _vae_inference(vae, datamodule, vocab, out_dir: Path, dataset: str, device) 
             genes_subset=dev.get("genes_subset", dev["genes"]),
         )
         counts_pred = nb_sample(out["mu"], out["theta"], torch.Generator(device).manual_seed(i))
-        outputs = {"reconstructed_counts": counts_pred.cpu().numpy(), "z": z.cpu().numpy()}
+        outputs = {"reconstructed_counts": counts_pred.cpu().numpy(),
+                   "z": z.float().cpu().numpy()}
         for k, v in batch.items():
             if k not in NON_CONDITION_KEYS:
                 outputs[k] = np.asarray(v)

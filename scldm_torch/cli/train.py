@@ -3,7 +3,6 @@ reference's experiments/scripts/train.py).
 
 Usage:
     python -m scldm_torch.cli.train --config configs/vae_training.yaml \
-        model.compute_dtype=float32 \
         datamodule.datamodule.train_adata_path=data/dentate_gyrus_train.h5ad
 
 One process on one card (`device`, default cuda; `device=cpu` for the CPU):
@@ -23,6 +22,7 @@ from scldm_torch.cli._common import (
     make_preemption_guard,
     make_wandb_logger,
     parse_config,
+    setup_device,
 )
 from scldm_torch.config.build import (
     build_datamodule,
@@ -30,7 +30,6 @@ from scldm_torch.config.build import (
     build_vae_task,
     build_vocabulary_encoder,
     compute_max_steps,
-    resolve_device,
 )
 from scldm_torch.training.loop import CSVLogger, fit
 from scldm_torch.utils.logger import logger
@@ -42,7 +41,7 @@ def main(argv=None) -> int:
     cfg = parse_config(argv, DEFAULT_CONFIG, __doc__)
     seed = int(cfg.get("seed", 42))
     np.random.seed(seed)
-    device = resolve_device(cfg)
+    device = setup_device(cfg)
     logger.info(f"device: {device}")
 
     vocab = build_vocabulary_encoder(cfg)

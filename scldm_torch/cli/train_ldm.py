@@ -8,7 +8,7 @@ tokenizer, and trains the DiT with the SiT flow-matching loss.
 
 Usage:
     python -m scldm_torch.cli.train_ldm --config configs/ldm_training.yaml \
-        model.compute_dtype=float32 datamodule.datamodule.train_adata_path=...
+        datamodule.datamodule.train_adata_path=...
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ from scldm_torch.cli._common import (
     make_preemption_guard,
     make_wandb_logger,
     parse_config,
+    setup_device,
 )
 from scldm_torch.config.build import (
     build_datamodule,
@@ -31,7 +32,6 @@ from scldm_torch.config.build import (
     build_vae,
     build_vocabulary_encoder,
     compute_max_steps,
-    resolve_device,
 )
 from scldm_torch.training.checkpoint import CheckpointManager, read_payload
 from scldm_torch.training.loop import CSVLogger, fit
@@ -88,7 +88,7 @@ def main(argv=None) -> int:
     cfg = parse_config(argv, DEFAULT_CONFIG, __doc__)
     seed = int(cfg.get("seed", 42))
     np.random.seed(seed)
-    device = resolve_device(cfg)
+    device = setup_device(cfg)
 
     vocab = build_vocabulary_encoder(cfg)
     datamodule = build_datamodule(cfg, vocab)

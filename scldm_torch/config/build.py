@@ -6,14 +6,17 @@ with the reference tree's group names and keys.
 The port's modules hold their weights, so `build_vae` and `build_dit` also
 draw them (`utils.weights.init_reference_`, JAX's initialisers) from a
 generator seeded with the config's `seed`, on the config's `device`
-(default "cuda"; without a card that raises).
+(default "cuda"; without a card that raises). `model.compute_dtype`
+(float32 or bfloat16, JAX's `_DTYPES`) is the modules' compute dtype over
+f32 weights, and `model.remat` recomputes each trunk block in the backward,
+both as in JAX.
 
 A config value the port cannot honour raises NotImplementedError naming the
-ROADMAP item that would bring it; none is ignored: `compute_dtype:
-bfloat16` (queue 1, item 3), `fsdp`, `gene_sp` and `pipeline_microbatches`
-(item 11), `vae_as_tokenizer.train: true` (item 10), `eval_generation.
-enabled: true` (item 7), a transport other than Linear / velocity (item 9),
-and VAE / DiT options outside the shipped architecture (item 8).
+ROADMAP item that would bring it; none is ignored: `fsdp`, `gene_sp` and
+`pipeline_microbatches` (queue 1, item 11), `vae_as_tokenizer.train: true`
+(item 10), `eval_generation.enabled: true` (item 7), a transport other than
+Linear / velocity (item 9), and VAE / DiT options outside the shipped
+architecture, `remat_cross` and `cross_chunks` among them (item 8).
 """
 
 from __future__ import annotations
@@ -31,8 +34,10 @@ from scldm_torch.training.vae_task import VAETask
 from scldm_torch.transport import create_transport
 from scldm_torch.utils.weights import init_reference_
 
+# JAX's `_DTYPES`: the compute dtypes a config may name
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
 # what each config value the port refuses waits for (ROADMAP.md)
-BF16 = "ROADMAP queue 1, item 3 (bf16 compute)"
 MULTI_CARD = "ROADMAP queue 1, item 11 (more than one card)"
 TRAIN_VAE = "ROADMAP queue 1, item 10 (training the VAE inside the LDM)"
 EVALS = "ROADMAP queue 1, item 7 (the evals)"
@@ -54,10 +59,13 @@ def resolve_device(cfg: Dict) -> torch.device:
     return device
 
 
-def _check_dtype(cfg: Dict) -> None:
-    dtype = cfg["model"].get("compute_dtype", "float32")
-    if dtype != "float32":
-        refuse(f"model.compute_dtype={dtype} (pass model.compute_dtype=float32)", BF16)
+def compute_dtype(cfg: Dict) -> torch.dtype:
+    """`model.compute_dtype` (default float32) as a torch dtype; a name JAX's
+    `_DTYPES` does not hold raises, as its lookup does."""
+    name = cfg["model"].get("compute_dtype", "float32")
+    if name not in DTYPES:
+        raise ValueError(f"model.compute_dtype={name}: expected one of {sorted(DTYPES)}")
+    return DTYPES[name]
 
 
 def _check_parallel(tr: Dict) -> None:
@@ -122,7 +130,6 @@ def build_vae(cfg: Dict) -> TransformerVAE:
     """The VAE of `model.vae` on the config's device, its weights drawn from
     a generator seeded with the config's `seed`."""
     m = cfg["model"]["vae"]
-    _check_dtype(cfg)
     shipped = {"dropout": 0.0, "positional_encoding": True, "shared_embedding": True,
                "agg_func": "log1p"}
     for key, value in shipped.items():
@@ -131,7 +138,7 @@ def build_vae(cfg: Dict) -> TransformerVAE:
     decoder = cfg["model"].get("decoder_name", "negative_binomial_shared_theta")
     if decoder != "negative_binomial_shared_theta":
         refuse(f"model.decoder_name={decoder}", ARCH)
-    for key, value in (("remat", False), ("remat_cross", False), ("cross_chunks", 1)):
+    for key, value in (("remat_cross", False), ("cross_chunks", 1)):
         if cfg["model"].get(key, value) != value:
             refuse(f"model.{key}={cfg['model'][key]}", ARCH)
     device = resolve_device(cfg)
@@ -146,6 +153,8 @@ def build_vae(cfg: Dict) -> TransformerVAE:
         bias=m.get("bias", False),
         multiple_of=m.get("multiple_of", 4),
         layernorm_eps=float(m.get("layernorm_eps", 1e-8)),
+        remat=bool(cfg["model"].get("remat", False)),
+        dtype=compute_dtype(cfg),
         device=device,
     )
     return init_reference_(vae, _generator(cfg, device))
@@ -180,11 +189,8 @@ def build_dit(cfg: Dict) -> DiT:
     drawn from a generator seeded with the config's `seed`, with the
     adaLN-zero initialisation."""
     d = cfg["model"]["diffusion_model"]
-    _check_dtype(cfg)
     if d.get("dropout", 0.0) != 0.0:
         refuse(f"model.diffusion_model.dropout={d['dropout']}", ARCH)
-    if cfg["model"].get("remat", False):
-        refuse("model.remat=true", ARCH)
     device = resolve_device(cfg)
     dit = DiT(
         n_embed=d.get("n_embed", 256),
@@ -198,6 +204,8 @@ def build_dit(cfg: Dict) -> DiT:
         class_vocab_sizes=d.get("class_vocab_sizes") or {},
         cfg_dropout_prob=d.get("cfg_dropout_prob", 0.1),
         condition_strategy=d.get("condition_strategy", "mutually_exclusive"),
+        remat=bool(cfg["model"].get("remat", False)),
+        dtype=compute_dtype(cfg),
     ).to(device)  # its sin-cos table is a buffer made from numpy, on the host
     return init_reference_(dit, _generator(cfg, device))
 

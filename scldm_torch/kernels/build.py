@@ -134,6 +134,21 @@ _SIGNATURES = {
     "scldm_swiglu_vec_workspace_floats": (
         [ctypes.c_longlong, ctypes.c_int, ctypes.c_int], ctypes.c_longlong,  # R, E, Hd
     ),
+    # the bf16 entries: x, w12 and wv bf16, pitches multiples of 8 values;
+    # out, ds, dw12, dwv and the workspace f32, dx bf16
+    "scldm_swiglu_vec_bf16_forward": (
+        [_P, ctypes.c_int, _P, ctypes.c_int] + [_P] * 2
+        + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P],  # R, E, Hd, stream
+        ctypes.c_int,
+    ),
+    "scldm_swiglu_vec_bf16_backward": (
+        [_P, ctypes.c_int, _P, ctypes.c_int] + [_P] * 6
+        + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P],  # R, E, Hd, stream
+        ctypes.c_int,
+    ),
+    "scldm_swiglu_vec_bf16_workspace_floats": (
+        [ctypes.c_longlong, ctypes.c_int, ctypes.c_int], ctypes.c_longlong,  # R, E, Hd
+    ),
     # x, ldx, w12, ldw, out
     "scldm_swiglu_gate_forward": (
         [_P, ctypes.c_int, _P, ctypes.c_int, _P]

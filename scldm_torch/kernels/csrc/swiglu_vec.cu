@@ -76,23 +76,41 @@
 
 #include <cuda.h>
 #include <cudaTypedefs.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper_wgmma.cuh"
 #include "tensor_core.cuh"
 
 namespace {
 
+typedef __nv_bfloat16 bf16;
+
+// (hopper_wgmma.cuh)
+using hopper::fence_async_shared;
+using hopper::fence_regs;
+using hopper::k_desc;
+using hopper::mbar_arrive;
+using hopper::mbar_expect_tx;
+using hopper::mbar_init;
+using hopper::mbar_wait;
+using hopper::mn_desc;
+using hopper::named_sync;
+using hopper::tma_load;
+using hopper::wgmma_bf16;
+
 constexpr int kThreads = 384;  // warpgroup 0 produces, 1 and 2 consume
 constexpr int kBM = 64;        // rows (M) a CTA: each consumer's wgmma takes all 64
 constexpr int kWN = 128;       // output columns a consumer
-constexpr int kBK = 32;        // depth of a stage: one 128-byte swizzle row of f32
+constexpr int kBK = 32;        // depth of an f32 stage: one 128-byte swizzle row of f32
+constexpr int kBK16 = 64;      // depth of a bf16 stage: the same 128 bytes, twice the k
 constexpr int kStages = 3;
 constexpr int kAFloats = kBM * kBK;                   // 8 KB
 constexpr int kBFloats = kWN * kBK;                   // 16 KB
 constexpr int kStageBytes = 4 * (kAFloats + 2 * kBFloats);
-constexpr int kSplitOff = kStages * kStageBytes;      // each consumer's hi and lo tiles
+constexpr int kSplitOff = kStages * kStageBytes;      // each consumer's hi and lo tiles (f32)
 constexpr int kBarOff = kSplitOff + 2 * 2 * 4 * kBFloats;
 constexpr int kRedOff = kBarOff + 64;                 // 2 x kStages mbarriers
 constexpr int kRedFloats = 2 * 4 * 64;
@@ -111,68 +129,39 @@ struct Params {
   int E, Hd;
   int nk;           // stages of a tile (kDw: of a whole slice)
   int ntiles;       // kFwdVec: 128-column hidden tiles the CTA walks
-  int kper;         // kDw: rows of a slice, a multiple of kBK
+  int kper;         // kDw: rows of a slice, a multiple of the stage depth
   int accumulate;   // kDw: add to the partials of the chunks before
   int ldu;          // du's row pitch, 2 H4
-  int h4;           // the column of w2's (and du2's) block: Hd rounded up to a multiple of 4
-  const float* wv;  // (Hd)
+  int h4;           // the column of w2's (and du2's) block: Hd rounded up to 16 bytes
+  const void* wv;   // (Hd), the operands' type
   const float* ds;  // kBwdVec: ds (rows); kBwdGate: dg (rows, Hd)
-  float* out;       // kFwdVec: s (rows); kFwdGate: g (rows, Hd); kBwd*: du (rows, ldu);
-                    // kDx: dx (rows, E); kDw: kSplit partials (E, 2 H4)
+  void* out;        // kFwdVec: s (rows, f32); kFwdGate: g (rows, Hd); kBwd*: du (rows, ldu);
+                    // kDx: dx (rows, E); kDw: kSplit partials (E, 2 H4), f32; the others
+                    // in the operands' type
   float* part_v;    // kBwdVec: dwv's partials (row tiles, Hd)
 };
 
 __device__ __forceinline__ float sigmoid(float v) { return 1.0f / (1.0f + expf(-v)); }
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+// round to bf16 and back: where the bf16 function rounds
+__device__ __forceinline__ float bfr(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
+
+template <bool kBf16>
+__device__ __forceinline__ float load_op(const void* p, long long i) {
+  if constexpr (kBf16) {
+    return __bfloat162float(static_cast<const bf16*>(p)[i]);
+  } else {
+    return __ldg(static_cast<const float*>(p) + i);
+  }
 }
 
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// the box of `map` at (c0 inner, c1 outer) into shared `dst`, completing on `bar`
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1,
-                                         uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void named_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-// this thread's shared-memory writes, visible to the wgmma (the async proxy)
-__device__ __forceinline__ void fence_async_shared() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// A K-major operand tile in the 128-byte swizzle (rows of 32 f32, 8-row
-// groups 1,024 bytes apart), from its 1,024-byte-aligned shared address
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+template <bool kBf16>
+__device__ __forceinline__ void store_op(void* p, long long i, float v) {
+  if constexpr (kBf16) {
+    static_cast<bf16*>(p)[i] = __float2bfloat16_rn(v);
+  } else {
+    static_cast<float*>(p)[i] = v;
+  }
 }
 
 // d (64 x 128, f32; scale_d 0: d = a b) += a (64 x 8 tf32, registers) * b (8 x 128 tf32,
@@ -201,13 +190,8 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[64], const uint32_t (&a)[4
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
-// keeps the compiler from moving reads or writes of d across the wgmma
-__device__ __forceinline__ void fence_regs(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// the same for A's fragments: computed before the wgmma fence, not between the wgmma
+// keeps the compiler from moving reads or writes of A's fragments across the
+// wgmma: computed before the wgmma fence, not between the wgmma
 __device__ __forceinline__ void fence_regs(uint32_t (&a)[4][4]) {
 #pragma unroll
   for (int i = 0; i < 16; ++i) asm volatile("" : "+r"(a[i >> 2][i & 3])::"memory");
@@ -271,12 +255,16 @@ __device__ __forceinline__ float a_elem(const float* a, int m, int k) {
 // kFwdGate, kBwdVec, kBwdGate (row tiles, 128-column hidden tiles); kDx
 // (256-column tiles of E, row tiles); kDw (256-column tiles of E, 64-column
 // tiles of 2Hd, kSplit). `ma` and `mb` map A and B for the producer.
-template <int kMode>
+// kBf16: bf16 operands, one wgmma.m64n128k16 pass straight from the swizzled
+// TMA tiles (A K-major, or MN-major as kDw's du; B MN-major as w12 and x lie,
+// or K-major as kDx's w12), 64-deep stages of the same bytes, no split.
+template <int kMode, bool kBf16>
 __global__ void __launch_bounds__(kThreads, 1)
     swiglu_tc(const __grid_constant__ CUtensorMap ma, const __grid_constant__ CUtensorMap mb,
               const Params p) {
   constexpr bool kUp = kMode == kFwdVec || kMode == kFwdGate || kMode == kBwdVec ||
                        kMode == kBwdGate;
+  constexpr int kK = kBf16 ? kBK16 : kBK;  // the depth of a stage
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw_addr = tc::smem_u32(smem_raw);
   uint8_t* smem = smem_raw + (((raw_addr + 1023) & ~1023u) - raw_addr);
@@ -290,7 +278,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (kMode == kDw) {
     const long long len = min(p.rows, (long long)(blockIdx.z + 1) * p.kper) -
                           (long long)blockIdx.z * p.kper;
-    nk = len > 0 ? (int)((len + kBK - 1) / kBK) : 0;
+    nk = len > 0 ? (int)((len + kK - 1) / kK) : 0;
   }
 
   if (threadIdx.x == 0) {
@@ -315,24 +303,24 @@ __global__ void __launch_bounds__(kThreads, 1)
         const uint32_t b0 = st + 4 * kAFloats;
         mbar_expect_tx(bar, kStageBytes);
         if constexpr (kMode == kDw) {
-          const int k0 = blockIdx.z * p.kper + kt * kBK, c0 = blockIdx.y * kBM;
+          const int k0 = blockIdx.z * p.kper + kt * kK, c0 = blockIdx.y * kBM;
           tma_load(st, &ma, c0, k0, bar);
-          tma_load(st + 4 * kBK * 32, &ma, c0 + 32, k0, bar);
+          if constexpr (!kBf16) tma_load(st + 4 * kBK * 32, &ma, c0 + 32, k0, bar);
           for (int g = 0; g < 2; ++g) {
             const int e = blockIdx.x * 2 * kWN + g * kWN;
             tma_load(b0 + g * 4 * kBFloats, &mb, e, k0, bar);
             tma_load(b0 + g * 4 * kBFloats + 4 * kBK * 64, &mb, e + 64, k0, bar);
           }
         } else if constexpr (kMode == kDx) {
-          tma_load(st, &ma, kt * kBK, blockIdx.y * kBM, bar);
+          tma_load(st, &ma, kt * kK, blockIdx.y * kBM, bar);
           for (int g = 0; g < 2; ++g)
-            tma_load(b0 + g * 4 * kBFloats, &mb, kt * kBK, blockIdx.x * 2 * kWN + g * kWN, bar);
+            tma_load(b0 + g * 4 * kBFloats, &mb, kt * kK, blockIdx.x * 2 * kWN + g * kWN, bar);
         } else {
-          tma_load(st, &ma, kt * kBK, blockIdx.x * kBM, bar);
+          tma_load(st, &ma, kt * kK, blockIdx.x * kBM, bar);
           const int jt = (kMode == kFwdVec ? tile : (int)blockIdx.y) * kWN;
           for (int g = 0; g < 2; ++g) {
-            tma_load(b0 + g * 4 * kBFloats, &mb, jt + g * 64, kt * kBK, bar);
-            tma_load(b0 + g * 4 * kBFloats + 4 * kBK * 64, &mb, p.h4 + jt + g * 64, kt * kBK,
+            tma_load(b0 + g * 4 * kBFloats, &mb, jt + g * 64, kt * kK, bar);
+            tma_load(b0 + g * 4 * kBFloats + 4 * kBK * 64, &mb, p.h4 + jt + g * 64, kt * kK,
                      bar);
           }
         }
@@ -361,33 +349,55 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
       for (int kt = 0; kt < nk; ++kt) {
         mbar_wait(full0 + 8 * s, ph);
-        const float* stage = reinterpret_cast<const float*>(smem + s * kStageBytes);
-        split_b<kMode == kDx>(stage + kAFloats + g * kBFloats, hi, lo, t);
-        uint32_t ah[4][4], al[4][4];
+        if constexpr (kBf16) {
+          // the stage's four k16 steps summed from zero, then added in f32
+          const uint32_t a0 = sbase + s * kStageBytes;
+          const uint32_t b0 = a0 + 4 * kAFloats + g * 4 * kBFloats;
+          fence_regs(part);
+          asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          const int m = warp * 16 + gq, k = kk * 8 + tq;
-          tc::split_tf32(a_elem<kMode == kDw>(stage, m, k), ah[kk][0], al[kk][0]);
-          tc::split_tf32(a_elem<kMode == kDw>(stage, m + 8, k), ah[kk][1], al[kk][1]);
-          tc::split_tf32(a_elem<kMode == kDw>(stage, m, k + 4), ah[kk][2], al[kk][2]);
-          tc::split_tf32(a_elem<kMode == kDw>(stage, m + 8, k + 4), ah[kk][3], al[kk][3]);
-        }
-        fence_async_shared();
-        named_sync(1 + g, 128);  // the warpgroup's hi and lo are written; stage s is read
-        if (t == 0) mbar_arrive(empty0 + 8 * s);
-        fence_regs(ah);
-        fence_regs(al);
-        fence_regs(part);
-        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+          for (int kk = 0; kk < 4; ++kk) {
+            if constexpr (kMode == kDw)
+              wgmma_bf16<1, 1>(part, mn_desc(a0 + kk * 2048), mn_desc(b0 + kk * 2048), kk > 0);
+            else if constexpr (kMode == kDx)
+              wgmma_bf16<0, 0>(part, k_desc(a0 + kk * 32), k_desc(b0 + kk * 32), kk > 0);
+            else
+              wgmma_bf16<0, 1>(part, k_desc(a0 + kk * 32), mn_desc(b0 + kk * 2048), kk > 0);
+          }
+          asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+          asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+          fence_regs(part);
+          named_sync(1 + g, 128);  // the warpgroup's wgmma have read stage s
+          if (t == 0) mbar_arrive(empty0 + 8 * s);
+        } else {
+          const float* stage = reinterpret_cast<const float*>(smem + s * kStageBytes);
+          split_b<kMode == kDx>(stage + kAFloats + g * kBFloats, hi, lo, t);
+          uint32_t ah[4][4], al[4][4];
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          wgmma_tf32(part, ah[kk], sw128_desc(hi_addr + kk * 32), kk > 0);
-          wgmma_tf32(part, ah[kk], sw128_desc(lo_addr + kk * 32), 1);
-          wgmma_tf32(part, al[kk], sw128_desc(hi_addr + kk * 32), 1);
+          for (int kk = 0; kk < 4; ++kk) {
+            const int m = warp * 16 + gq, k = kk * 8 + tq;
+            tc::split_tf32(a_elem<kMode == kDw>(stage, m, k), ah[kk][0], al[kk][0]);
+            tc::split_tf32(a_elem<kMode == kDw>(stage, m + 8, k), ah[kk][1], al[kk][1]);
+            tc::split_tf32(a_elem<kMode == kDw>(stage, m, k + 4), ah[kk][2], al[kk][2]);
+            tc::split_tf32(a_elem<kMode == kDw>(stage, m + 8, k + 4), ah[kk][3], al[kk][3]);
+          }
+          fence_async_shared();
+          named_sync(1 + g, 128);  // the warpgroup's hi and lo are written; stage s is read
+          if (t == 0) mbar_arrive(empty0 + 8 * s);
+          fence_regs(ah);
+          fence_regs(al);
+          fence_regs(part);
+          asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            wgmma_tf32(part, ah[kk], k_desc(hi_addr + kk * 32), kk > 0);
+            wgmma_tf32(part, ah[kk], k_desc(lo_addr + kk * 32), 1);
+            wgmma_tf32(part, al[kk], k_desc(hi_addr + kk * 32), 1);
+          }
+          asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+          asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+          fence_regs(part);
         }
-        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-        asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-        fence_regs(part);
 #pragma unroll
         for (int i = 0; i < 64; ++i) acc[i] += part[i];
         if (++s == kStages) {
@@ -415,30 +425,35 @@ __global__ void __launch_bounds__(kThreads, 1)
             const float u1 = acc[4 * i + q], u2 = acc[4 * (i + 8) + q];
             if constexpr (kMode == kBwdVec || kMode == kBwdGate) {
               if (j >= p.Hd && j < p.h4 && r < p.rows) {  // du's pad columns
-                p.out[r * p.ldu + j] = 0.0f;
-                p.out[r * p.ldu + p.h4 + j] = 0.0f;
+                store_op<kBf16>(p.out, r * p.ldu + j, 0.0f);
+                store_op<kBf16>(p.out, r * p.ldu + p.h4 + j, 0.0f);
               }
             }
             if (j >= p.Hd) continue;
             if constexpr (kMode == kFwdVec) {
-              s_row[q >> 1] = fmaf(u1 * sigmoid(u1) * u2, __ldg(p.wv + j), s_row[q >> 1]);
+              // bf16: g rounded before its product with wv, as the function rounds it
+              const float gj = u1 * sigmoid(u1) * u2;
+              s_row[q >> 1] = fmaf(kBf16 ? bfr(gj) : gj, load_op<kBf16>(p.wv, j), s_row[q >> 1]);
             } else {
               if (r >= p.rows) continue;
               const float sg = sigmoid(u1), sl = u1 * sg;
               if constexpr (kMode == kFwdGate) {
-                p.out[r * p.Hd + j] = sl * u2;
+                static_cast<float*>(p.out)[r * p.Hd + j] = sl * u2;
               } else {
                 float dg;
                 if constexpr (kMode == kBwdVec) {
                   const float d = __ldg(p.ds + r);
-                  dg = d * __ldg(p.wv + j);
-                  colsum[2 * i + (q & 1)] = fmaf(sl * u2, d, colsum[2 * i + (q & 1)]);
+                  dg = d * load_op<kBf16>(p.wv, j);
+                  // bf16: dwv = bf(g)^T bf(ds), summed in f32
+                  colsum[2 * i + (q & 1)] = kBf16
+                      ? fmaf(bfr(sl * u2), bfr(d), colsum[2 * i + (q & 1)])
+                      : fmaf(sl * u2, d, colsum[2 * i + (q & 1)]);
                 } else {
                   dg = __ldg(p.ds + r * p.Hd + j);
                 }
-                float* dur = p.out + r * p.ldu;
-                dur[j] = dg * u2 * (sg + sl * (1.0f - sg));
-                dur[p.h4 + j] = dg * sl;
+                // bf16: du rounded where it is stored, as the function rounds it
+                store_op<kBf16>(p.out, r * p.ldu + j, dg * u2 * (sg + sl * (1.0f - sg)));
+                store_op<kBf16>(p.out, r * p.ldu + p.h4 + j, dg * sl);
               }
             }
           }
@@ -471,13 +486,13 @@ __global__ void __launch_bounds__(kThreads, 1)
           for (int q = 0; q < 4; ++q) {
             const long long r = r0 + m0 + (q >> 1) * 8;
             const int e = e0 + 8 * i + 2 * tq + (q & 1);
-            if (r < p.rows && e < p.E) p.out[r * p.E + e] = acc[4 * i + q];
+            if (r < p.rows && e < p.E) store_op<kBf16>(p.out, r * p.E + e, acc[4 * i + q]);
           }
         }
       } else {  // kDw: partial z of dw12 in w12's padded layout (E, 2 H4), column c = 64 blockIdx.y + m
         const int c0 = blockIdx.y * kBM, e0 = blockIdx.x * 2 * kWN + g * kWN;
         const long long H2 = 2LL * p.h4;
-        float* P = p.out + (long long)blockIdx.z * p.E * H2;
+        float* P = static_cast<float*>(p.out) + (long long)blockIdx.z * p.E * H2;
 #pragma unroll
         for (int i = 0; i < 16; ++i) {
 #pragma unroll
@@ -505,7 +520,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       named_sync(3, 256);
       const long long r = (long long)blockIdx.x * kBM + t;
-      if (g == 0 && t < kBM && r < p.rows) p.out[r] = red[t] + red[64 + t];
+      if (g == 0 && t < kBM && r < p.rows) static_cast<float*>(p.out)[r] = red[t] + red[64 + t];
     }
   }
 }
@@ -559,20 +574,21 @@ PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
   return fn;
 }
 
-// A map of the f32 matrix at `base`: `outer` rows of `inner` floats, `pitch`
-// floats apart (a multiple of 4, base 16-byte aligned), read in boxes of
-// box_inner x box_outer, with the 128-byte swizzle or none; reads past the
-// edges fill zeros.
-bool make_map(CUtensorMap* map, const float* base, long long inner, long long outer,
+// A map of the matrix at `base` (f32, or bf16 with kBf16): `outer` rows of
+// `inner` values, `pitch` values apart (16 bytes' worth, base 16-byte
+// aligned), read in boxes of box_inner x box_outer, with the 128-byte swizzle
+// or none; reads past the edges fill zeros.
+template <bool kBf16>
+bool make_map(CUtensorMap* map, const void* base, long long inner, long long outer,
               long long pitch, int box_inner, int box_outer, bool swizzle) {
   const PFN_cuTensorMapEncodeTiled_v12000 fn = encode_fn();
   if (fn == nullptr || inner < 1 || outer < 1) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
-  const cuuint64_t strides[1] = {(cuuint64_t)pitch * 4};
+  const cuuint64_t strides[1] = {(cuuint64_t)pitch * (kBf16 ? 2 : 4)};
   const cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer};
   const cuuint32_t estr[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(base), dims, strides, box,
-            estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+  return fn(map, kBf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+            const_cast<void*>(base), dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
             swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -580,83 +596,105 @@ bool make_map(CUtensorMap* map, const float* base, long long inner, long long ou
 // A's and B's maps by role: x or du along its rows (A, swizzled), du down its
 // columns (A of kDw), w12 read (E, 2Hd) in 64-column boxes (B of the up
 // projection), w12 K-major (B of kDx), x's rows in 64-column boxes (B of kDw).
-bool map_rows_a(CUtensorMap* m, const float* a, long long rows, int width, int pitch) {
-  return make_map(m, a, width, rows, pitch, kBK, kBM, true);
+// Every box is a stage's depth of 128 bytes; f32 MN-major boxes are read raw
+// (the consumers split and transpose them), bf16 ones swizzled for wgmma.
+template <bool kBf16>
+constexpr int stage_k() { return kBf16 ? kBK16 : kBK; }
+template <bool kBf16>
+bool map_rows_a(CUtensorMap* m, const void* a, long long rows, int width, int pitch) {
+  return make_map<kBf16>(m, a, width, rows, pitch, stage_k<kBf16>(), kBM, true);
 }
-bool map_cols_a(CUtensorMap* m, const float* a, long long rows, int width, int pitch) {
-  return make_map(m, a, width, rows, pitch, 32, kBK, true);
+template <bool kBf16>
+bool map_cols_a(CUtensorMap* m, const void* a, long long rows, int width, int pitch) {
+  return make_map<kBf16>(m, a, width, rows, pitch, kBf16 ? 64 : 32, stage_k<kBf16>(), true);
 }
-bool map_mn_b(CUtensorMap* m, const float* b, long long rows, int width, int pitch) {
-  return make_map(m, b, width, rows, pitch, 64, kBK, false);
+template <bool kBf16>
+bool map_mn_b(CUtensorMap* m, const void* b, long long rows, int width, int pitch) {
+  return make_map<kBf16>(m, b, width, rows, pitch, 64, stage_k<kBf16>(), kBf16);
 }
-bool map_k_b(CUtensorMap* m, const float* b, long long rows, int width, int pitch) {
-  return make_map(m, b, width, rows, pitch, kBK, kWN, true);
+template <bool kBf16>
+bool map_k_b(CUtensorMap* m, const void* b, long long rows, int width, int pitch) {
+  return make_map<kBf16>(m, b, width, rows, pitch, stage_k<kBf16>(), kWN, true);
 }
 
-template <int kMode>
+template <int kMode, bool kBf16>
 cudaError_t launch(dim3 grid, const CUtensorMap& ma, const CUtensorMap& mb, const Params& p,
                    cudaStream_t s) {
-  cudaError_t e = cudaFuncSetAttribute(swiglu_tc<kMode>,
+  cudaError_t e = cudaFuncSetAttribute(swiglu_tc<kMode, kBf16>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (e != cudaSuccess) return e;
-  swiglu_tc<kMode><<<grid, kThreads, kSmemBytes, s>>>(ma, mb, p);
+  swiglu_tc<kMode, kBf16><<<grid, kThreads, kSmemBytes, s>>>(ma, mb, p);
   return cudaGetLastError();
 }
 
-int h4_of(int Hd) { return (Hd + 3) / 4 * 4; }
+// The column of w2's block: Hd rounded up to 16 bytes (4 f32, 8 bf16).
+template <bool kBf16>
+int h4_of(int Hd) {
+  constexpr int a = kBf16 ? 8 : 4;
+  return (Hd + a - 1) / a * a;
+}
 
-// The backward's workspace: du of one chunk (pitch 2 H4), dw12's kSplit
-// partials (E, 2 H4) and (vec) dwv's per-row-tile partials of one chunk.
+// The backward's workspace in floats: du of one chunk (pitch 2 H4, in the
+// operands' type), dw12's kSplit partials (E, 2 H4) and (vec) dwv's
+// per-row-tile partials of one chunk, f32.
+template <bool kBf16>
 long long workspace_floats(long long R, int E, int Hd, bool vec) {
-  const long long rows = R < kChunk ? R : kChunk, H2 = 2LL * h4_of(Hd);
-  return rows * H2 + kSplit * E * H2 + (vec ? cdiv(rows, kBM) * Hd : 0);
+  const long long rows = R < kChunk ? R : kChunk, H2 = 2LL * h4_of<kBf16>(Hd);
+  return (kBf16 ? rows * H2 / 2 : rows * H2) + kSplit * E * H2 +
+         (vec ? cdiv(rows, kBM) * Hd : 0);
 }
 
 // The up projection with the kFwdVec or kFwdGate epilogue over all R rows.
-template <int kMode>
-int forward(const float* x, int ldx, const float* w12, int ldw, const float* wv, float* out,
+template <int kMode, bool kBf16>
+int forward(const void* x, int ldx, const void* w12, int ldw, const void* wv, float* out,
             long long R, int E, int Hd, cudaStream_t s) {
   if (R == 0) return 0;
   CUtensorMap ma, mb;
-  if (!map_rows_a(&ma, x, R, E, ldx) || !map_mn_b(&mb, w12, E, 2 * h4_of(Hd), ldw))
+  const int h4 = h4_of<kBf16>(Hd);
+  if (!map_rows_a<kBf16>(&ma, x, R, E, ldx) || !map_mn_b<kBf16>(&mb, w12, E, 2 * h4, ldw))
     return (int)cudaErrorInvalidValue;
   Params p{};
   p.rows = R;
   p.E = E;
   p.Hd = Hd;
-  p.h4 = h4_of(Hd);
-  p.nk = (int)cdiv(E, kBK);
+  p.h4 = h4;
+  p.nk = (int)cdiv(E, stage_k<kBf16>());
   p.ntiles = (int)cdiv(Hd, kWN);
   p.wv = wv;
   p.out = out;
   const dim3 grid = kMode == kFwdVec ? dim3((unsigned)cdiv(R, kBM))
                                      : dim3((unsigned)cdiv(R, kBM), (unsigned)cdiv(Hd, kWN));
-  return (int)launch<kMode>(grid, ma, mb, p, s);
+  return (int)launch<kMode, kBf16>(grid, ma, mb, p, s);
 }
 
 // Both backwards, chunk after chunk: (1) du (and, kVec, dwv's partials), (2)
 // dx = du w12^T, (3) dw12's partials x^T du, each added to the chunks'
-// before; then their fixed-order sums.
-template <bool kVec>
-int backward(const float* x, int ldx, const float* w12, int ldw, const float* wv, const float* ds,
-             float* dx, float* dw12, float* dwv, float* workspace, long long R, int E, int Hd,
+// before; then their fixed-order sums. kBf16: x, w12, wv, du and dx bf16;
+// ds, dw12, dwv and the partials f32.
+template <bool kVec, bool kBf16>
+int backward(const void* x, int ldx, const void* w12, int ldw, const void* wv, const float* ds,
+             void* dx, float* dw12, float* dwv, float* workspace, long long R, int E, int Hd,
              cudaStream_t s) {
   if (R == 0) return (int)cudaErrorInvalidValue;
-  const int h4 = h4_of(Hd), ldu = 2 * h4;  // du's layout: w12's, padded
+  constexpr int kK = stage_k<kBf16>();
+  constexpr int kSize = kBf16 ? 2 : 4;  // bytes of an operand
+  const int h4 = h4_of<kBf16>(Hd), ldu = 2 * h4;  // du's layout: w12's, padded
   const long long H2 = ldu;
-  float* du = workspace;
-  float* part_w = du + (R < kChunk ? R : kChunk) * ldu;
+  const long long chunk_rows = R < kChunk ? R : kChunk;
+  void* du = workspace;
+  float* part_w = workspace + (kBf16 ? chunk_rows * ldu / 2 : chunk_rows * ldu);
   float* part_v = part_w + (long long)kSplit * E * H2;
   CUtensorMap w_mn, w_k;
-  if (!map_mn_b(&w_mn, w12, E, ldu, ldw) || !map_k_b(&w_k, w12, E, ldu, ldw))
+  if (!map_mn_b<kBf16>(&w_mn, w12, E, ldu, ldw) || !map_k_b<kBf16>(&w_k, w12, E, ldu, ldw))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSuccess;
   for (long long c0 = 0; c0 < R && err == cudaSuccess; c0 += kChunk) {
     const long long rows = R - c0 < kChunk ? R - c0 : kChunk;
-    const float* xc = x + c0 * ldx;
+    const void* xc = static_cast<const uint8_t*>(x) + c0 * ldx * kSize;
     CUtensorMap x_a, x_b, du_a, du_c;
-    if (!map_rows_a(&x_a, xc, rows, E, ldx) || !map_mn_b(&x_b, xc, rows, E, ldx) ||
-        !map_rows_a(&du_a, du, rows, ldu, ldu) || !map_cols_a(&du_c, du, rows, ldu, ldu))
+    if (!map_rows_a<kBf16>(&x_a, xc, rows, E, ldx) || !map_mn_b<kBf16>(&x_b, xc, rows, E, ldx) ||
+        !map_rows_a<kBf16>(&du_a, du, rows, ldu, ldu) ||
+        !map_cols_a<kBf16>(&du_c, du, rows, ldu, ldu))
       return (int)cudaErrorInvalidValue;
     const unsigned row_tiles = (unsigned)cdiv(rows, kBM);
     Params p{};
@@ -667,26 +705,26 @@ int backward(const float* x, int ldx, const float* w12, int ldw, const float* wv
     p.h4 = h4;
     p.ntiles = 1;
     // (1) du of the chunk
-    p.nk = (int)cdiv(E, kBK);
+    p.nk = (int)cdiv(E, kK);
     p.wv = wv;
     p.ds = kVec ? ds + c0 : ds + c0 * Hd;
     p.out = du;
     p.part_v = part_v;
-    err = launch<kVec ? kBwdVec : kBwdGate>(dim3(row_tiles, (unsigned)cdiv(Hd, kWN)), x_a, w_mn,
-                                            p, s);
+    err = launch<kVec ? kBwdVec : kBwdGate, kBf16>(dim3(row_tiles, (unsigned)cdiv(Hd, kWN)), x_a,
+                                                   w_mn, p, s);
     if (err != cudaSuccess) break;
     // (2) dx rows of the chunk: (rows, E) = du (rows, 2Hd) @ w12^T
-    p.nk = (int)cdiv(H2, kBK);
-    p.out = dx + c0 * E;
-    err = launch<kDx>(dim3((unsigned)cdiv(E, 2 * kWN), row_tiles), du_a, w_k, p, s);
+    p.nk = (int)cdiv(H2, kK);
+    p.out = static_cast<uint8_t*>(dx) + c0 * E * kSize;
+    err = launch<kDx, kBf16>(dim3((unsigned)cdiv(E, 2 * kWN), row_tiles), du_a, w_k, p, s);
     if (err != cudaSuccess) break;
     // (3) dw12's partials over kSplit slices of the chunk's rows
-    p.kper = (int)(cdiv(cdiv(rows, kSplit), kBK) * kBK);
+    p.kper = (int)(cdiv(cdiv(rows, kSplit), kK) * kK);
     p.nk = 0;  // per slice, in the kernel
     p.accumulate = c0 > 0;
     p.out = part_w;
-    err = launch<kDw>(dim3((unsigned)cdiv(E, 2 * kWN), (unsigned)cdiv(H2, kBM), kSplit), du_c, x_b,
-                      p, s);
+    err = launch<kDw, kBf16>(dim3((unsigned)cdiv(E, 2 * kWN), (unsigned)cdiv(H2, kBM), kSplit),
+                             du_c, x_b, p, s);
     if (err != cudaSuccess) break;
     if (kVec) err = sum_parts(part_v, (int)row_tiles, Hd, Hd, Hd, 0, dwv, c0 > 0, s);
   }
@@ -701,7 +739,7 @@ extern "C" {
 
 // Floats of swiglu_vec's backward workspace for R rows.
 long long scldm_swiglu_vec_workspace_floats(long long R, int E, int Hd) {
-  return workspace_floats(R, E, Hd, true);
+  return workspace_floats<false>(R, E, Hd, true);
 }
 
 // Forward: out (R) f32 from x (R, E; row pitch ldx), w12 (E, 2 H4; pitch ldw:
@@ -712,8 +750,8 @@ long long scldm_swiglu_vec_workspace_floats(long long R, int E, int Hd) {
 // the launch (0 on success). Allocates nothing and does not synchronise.
 int scldm_swiglu_vec_forward(const void* x, int ldx, const void* w12, int ldw, const void* wv,
                              void* out, long long R, int E, int Hd, void* stream) {
-  return forward<kFwdVec>((const float*)x, ldx, (const float*)w12, ldw, (const float*)wv,
-                          (float*)out, R, E, Hd, (cudaStream_t)stream);
+  return forward<kFwdVec, false>(x, ldx, w12, ldw, wv, (float*)out, R, E, Hd,
+                                 (cudaStream_t)stream);
 }
 
 // Backward: given ds (R), writes dx (R, E), dw12 (E, 2Hd: [dw1 | dw2], not
@@ -722,14 +760,41 @@ int scldm_swiglu_vec_forward(const void* x, int ldx, const void* w12, int ldw, c
 int scldm_swiglu_vec_backward(const void* x, int ldx, const void* w12, int ldw, const void* wv,
                               const void* ds, void* dx, void* dw12, void* dwv, void* workspace,
                               long long R, int E, int Hd, void* stream) {
-  return backward<true>((const float*)x, ldx, (const float*)w12, ldw, (const float*)wv,
-                        (const float*)ds, (float*)dx, (float*)dw12, (float*)dwv,
-                        (float*)workspace, R, E, Hd, (cudaStream_t)stream);
+  return backward<true, false>(x, ldx, w12, ldw, wv, (const float*)ds, dx, (float*)dw12,
+                               (float*)dwv, (float*)workspace, R, E, Hd, (cudaStream_t)stream);
+}
+
+// Floats of the bf16 swiglu_vec backward's workspace for R rows.
+long long scldm_swiglu_vec_bf16_workspace_floats(long long R, int E, int Hd) {
+  return workspace_floats<true>(R, E, Hd, true);
+}
+
+// The bf16 forward: out (R) f32 from bf16 x, w12 and wv laid out as the f32
+// forward's, with pitches of multiples of 8 values and H4 = Hd rounded up to
+// a multiple of 8. The products are bf16 x bf16 summed in f32; g is rounded
+// to bf16 before its product with wv.
+int scldm_swiglu_vec_bf16_forward(const void* x, int ldx, const void* w12, int ldw,
+                                  const void* wv, void* out, long long R, int E, int Hd,
+                                  void* stream) {
+  return forward<kFwdVec, true>(x, ldx, w12, ldw, wv, (float*)out, R, E, Hd,
+                                (cudaStream_t)stream);
+}
+
+// The bf16 backward: given ds (R) f32, writes dx (R, E) bf16 and dw12 (E, 2Hd)
+// and dwv (Hd) f32 (the caller rounds them to bf16), using `workspace`
+// (scldm_swiglu_vec_bf16_workspace_floats floats). du is rounded to bf16 where
+// it is stored. R >= 1.
+int scldm_swiglu_vec_bf16_backward(const void* x, int ldx, const void* w12, int ldw,
+                                   const void* wv, const void* ds, void* dx, void* dw12,
+                                   void* dwv, void* workspace, long long R, int E, int Hd,
+                                   void* stream) {
+  return backward<true, true>(x, ldx, w12, ldw, wv, (const float*)ds, dx, (float*)dw12,
+                              (float*)dwv, (float*)workspace, R, E, Hd, (cudaStream_t)stream);
 }
 
 // Floats of fused_swiglu_gate's backward workspace for R rows.
 long long scldm_swiglu_gate_workspace_floats(long long R, int E, int Hd) {
-  return workspace_floats(R, E, Hd, false);
+  return workspace_floats<false>(R, E, Hd, false);
 }
 
 // fused_swiglu_gate's forward: out (R, Hd) = silu(x @ w1) * (x @ w2) from x
@@ -737,8 +802,8 @@ long long scldm_swiglu_gate_workspace_floats(long long R, int E, int Hd) {
 // swiglu_vec's forward.
 int scldm_swiglu_gate_forward(const void* x, int ldx, const void* w12, int ldw, void* out,
                               long long R, int E, int Hd, void* stream) {
-  return forward<kFwdGate>((const float*)x, ldx, (const float*)w12, ldw, nullptr, (float*)out, R,
-                           E, Hd, (cudaStream_t)stream);
+  return forward<kFwdGate, false>(x, ldx, w12, ldw, nullptr, (float*)out, R, E, Hd,
+                                  (cudaStream_t)stream);
 }
 
 // fused_swiglu_gate's backward: given the cotangent dg (R, Hd), writes dx (R,
@@ -747,9 +812,8 @@ int scldm_swiglu_gate_forward(const void* x, int ldx, const void* w12, int ldw, 
 int scldm_swiglu_gate_backward(const void* x, int ldx, const void* w12, int ldw, const void* dg,
                                void* dx, void* dw12, void* workspace, long long R, int E, int Hd,
                                void* stream) {
-  return backward<false>((const float*)x, ldx, (const float*)w12, ldw, nullptr, (const float*)dg,
-                         (float*)dx, (float*)dw12, nullptr, (float*)workspace, R, E, Hd,
-                         (cudaStream_t)stream);
+  return backward<false, false>(x, ldx, w12, ldw, nullptr, (const float*)dg, dx, (float*)dw12,
+                                nullptr, (float*)workspace, R, E, Hd, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -3,7 +3,14 @@
 Module and parameter names follow the reference's PyTorch modules, which is
 what `scldm_tpu.utils.torch_import.export_torch_state_dict` emits, so
 weights move between the two packages with a plain `load_state_dict`.
-Matmuls run in the parameters' dtype; LayerNorm and softmax run in f32.
+
+Compute dtype (JAX's `dtype`, flax semantics): the parameters are f32; each
+dense layer casts its input, kernel and bias to the module's `dtype` and
+multiplies in it (`linear`), so under bfloat16 the products and the residual
+stream are bf16 while the gradients reaching the weights are f32. LayerNorm
+runs in f32 and returns its input's dtype; attention scores and softmax run
+in f32. Nothing here uses `torch.autocast`, whose policy would keep
+LayerNorm outputs and residual sums in f32.
 """
 
 from __future__ import annotations
@@ -15,8 +22,54 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from scldm_torch.ops.attention import sdpa, sdpa_shared_q
+
+
+def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
+    """flax `Dense(dtype=dtype)` on an f32 `layer`: input, kernel and bias
+    cast to `dtype`, the product in it (no-op casts in f32)."""
+    w, b = layer.weight, layer.bias
+    if w.dtype != dtype:
+        w, b = w.to(dtype), None if b is None else b.to(dtype)
+    return F.linear(x if x.dtype == dtype else x.to(dtype), w, b)
+
+
+def linear_f32(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
+    """`linear` whose sum stays in f32: where JAX casts a dense layer's
+    output to f32 at once (the NB head's logit, the DiT's output), XLA keeps
+    the f32 sum of the `dtype` products rather than rounding it to `dtype`
+    and back. The same as `linear` in f32."""
+    bias = None if layer.bias is None else layer.bias.to(dtype).float()
+    return F.linear(x.to(dtype).float(), layer.weight.to(dtype).float(), bias)
+
+
+class Linear(nn.Linear):
+    """An f32 `nn.Linear` that computes in `compute_dtype` (`linear`); a call
+    may name another dtype, as the kernel paths' f32 operands do."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features, bias=bias)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        return linear(x, self, self.compute_dtype if dtype is None else dtype)
+
+
+def embed(table: nn.Embedding, ids: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """flax `Embed(dtype=dtype)` on an f32 table: the table cast to `dtype`,
+    then the lookup."""
+    return F.embedding(ids, table.weight.to(dtype))
+
+
+def checkpointed(block: nn.Module, *args: torch.Tensor) -> torch.Tensor:
+    """`block(*args)` recomputed in the backward (JAX `nn.remat`) where
+    autograd records; the same numbers, less memory."""
+    if torch.is_grad_enabled():
+        return checkpoint(block, *args, use_reentrant=False)
+    return block(*args)
 
 
 def modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -46,26 +99,29 @@ class InputTransformerVAE(nn.Module):
     """Gene-embedding table (row 0 is <MASK>) scaled by log1p(count): the
     `agg_func: log1p` input layer every shipped config uses."""
 
-    def __init__(self, n_genes: int, n_embed: int):
+    def __init__(self, n_genes: int, n_embed: int, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.gene_embedding = nn.Embedding(n_genes + 1, n_embed)
 
     def forward(self, counts: torch.Tensor, genes: torch.Tensor) -> torch.Tensor:
-        emb = self.gene_embedding(genes)
+        emb = self.embed_genes(genes)
+        # the counts cast to the embedding's dtype before log1p, as in JAX
         return emb * torch.log1p(counts[..., None].to(emb.dtype))
 
     def embed_genes(self, genes: torch.Tensor) -> torch.Tensor:
-        return self.gene_embedding(genes)
+        return embed(self.gene_embedding, genes, self.dtype)
 
 
 class SelfAttention(nn.Module):
     """Fused-qkv multi-head self-attention."""
 
-    def __init__(self, n_embed: int, n_head: int, bias: bool = False):
+    def __init__(self, n_embed: int, n_head: int, bias: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.n_head = n_head
-        self.c_attn = nn.Linear(n_embed, 3 * n_embed, bias=bias)
-        self.c_proj = nn.Linear(n_embed, n_embed, bias=bias)
+        self.c_attn = Linear(n_embed, 3 * n_embed, bias, dtype)
+        self.c_proj = Linear(n_embed, n_embed, bias, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, S, D = x.shape
@@ -78,12 +134,13 @@ class CrossAttention(nn.Module):
     """Cross-attention: k/v from x, queries projected separately. 2-D queries
     (M, E) are shared by the whole batch; 3-D queries (B, M, E) are not."""
 
-    def __init__(self, n_embed: int, n_head: int, bias: bool = False):
+    def __init__(self, n_embed: int, n_head: int, bias: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.n_head = n_head
-        self.c_attn = nn.Linear(n_embed, 2 * n_embed, bias=bias)
-        self.c_attn_q = nn.Linear(n_embed, n_embed, bias=bias)
-        self.c_proj = nn.Linear(n_embed, n_embed, bias=bias)
+        self.c_attn = Linear(n_embed, 2 * n_embed, bias, dtype)
+        self.c_attn_q = Linear(n_embed, n_embed, bias, dtype)
+        self.c_proj = Linear(n_embed, n_embed, bias, dtype)
 
     def forward(self, x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
         B, S, _ = x.shape
@@ -101,16 +158,17 @@ class CrossAttention(nn.Module):
 class MLP(nn.Module):
     """SwiGLU MLP, hidden = 2/3 * 4E rounded up to a multiple of `multiple_of`."""
 
-    def __init__(self, n_embed: int, multiple_of: int = 4):
+    def __init__(self, n_embed: int, multiple_of: int = 4, dtype: torch.dtype = torch.float32):
         super().__init__()
         hidden = int(2 * (n_embed * 4) / 3)
         hidden = multiple_of * ((hidden + multiple_of - 1) // multiple_of)
-        self.w1 = nn.Linear(n_embed, hidden, bias=False)
-        self.w2 = nn.Linear(n_embed, hidden, bias=False)
-        self.c_proj = nn.Linear(hidden, n_embed, bias=False)
+        self.w1 = Linear(n_embed, hidden, False, dtype)
+        self.w2 = Linear(n_embed, hidden, False, dtype)
+        self.c_proj = Linear(hidden, n_embed, False, dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.c_proj(F.silu(self.w1(x)) * self.w2(x))
+    def forward(self, x: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """In the module's dtype, or in `dtype` where a call names one."""
+        return self.c_proj(F.silu(self.w1(x, dtype)) * self.w2(x, dtype), dtype)
 
 
 class Block(nn.Module):
@@ -125,15 +183,17 @@ class Block(nn.Module):
         layernorm_eps: float = 1e-8,
         use_adaln: bool = False,
         elementwise_affine: bool = True,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.use_adaln = use_adaln
         self.ln_1 = LayerNormFP32(n_embed, layernorm_eps, elementwise_affine)
         self.ln_2 = LayerNormFP32(n_embed, layernorm_eps, elementwise_affine)
-        self.attn = SelfAttention(n_embed, n_head, bias)
-        self.mlp = MLP(n_embed, multiple_of)
+        self.attn = SelfAttention(n_embed, n_head, bias, dtype)
+        self.mlp = MLP(n_embed, multiple_of, dtype)
         if use_adaln:
-            self.adaln_modulation = nn.Sequential(nn.SiLU(), nn.Linear(n_embed, 6 * n_embed))
+            self.adaln_modulation = nn.Sequential(
+                nn.SiLU(), Linear(n_embed, 6 * n_embed, compute_dtype=dtype))
 
     def forward(self, x: torch.Tensor, condition: Optional[torch.Tensor] = None) -> torch.Tensor:
         if not self.use_adaln:
@@ -161,19 +221,21 @@ class CrossAttentionBlock(nn.Module):
         bias: bool = False,
         multiple_of: int = 4,
         layernorm_eps: float = 1e-8,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
+        self.dtype = dtype
         if n_inducing_points > 0:
             self.inducing_points = nn.Parameter(torch.zeros(n_inducing_points, n_embed))
         self.ln_1 = LayerNormFP32(n_embed, layernorm_eps)
         self.ln_1q = LayerNormFP32(n_embed, layernorm_eps)
         self.ln_2 = LayerNormFP32(n_embed, layernorm_eps)
-        self.attn = CrossAttention(n_embed, n_head, bias)
-        self.mlp = MLP(n_embed, multiple_of)
+        self.attn = CrossAttention(n_embed, n_head, bias, dtype)
+        self.mlp = MLP(n_embed, multiple_of, dtype)
 
     def forward(self, x: torch.Tensor, q: Optional[torch.Tensor] = None) -> torch.Tensor:
         if q is None:
-            q = self.inducing_points.to(x.dtype).expand(x.shape[0], -1, -1)
+            q = self.inducing_points.to(self.dtype).expand(x.shape[0], -1, -1)
         out = self.attn(self.ln_1(x), self.ln_1q(q)) + (q[None] if q.ndim == 2 else q)
         return out + self.mlp(self.ln_2(out))
 
@@ -181,13 +243,15 @@ class CrossAttentionBlock(nn.Module):
 class TimestepEmbedder(nn.Module):
     """Sinusoidal timestep embedding -> 2-layer MLP."""
 
-    def __init__(self, hidden_size: int, frequency_embedding_size: int = 256):
+    def __init__(self, hidden_size: int, frequency_embedding_size: int = 256,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.frequency_embedding_size = frequency_embedding_size
+        self.dtype = dtype
         self.mlp = nn.Sequential(
-            nn.Linear(frequency_embedding_size, hidden_size),
+            Linear(frequency_embedding_size, hidden_size, compute_dtype=dtype),
             nn.SiLU(),
-            nn.Linear(hidden_size, hidden_size),
+            Linear(hidden_size, hidden_size, compute_dtype=dtype),
         )
 
     @staticmethod
@@ -202,9 +266,11 @@ class TimestepEmbedder(nn.Module):
             emb = torch.cat([emb, torch.zeros_like(emb[:, :1])], dim=-1)
         return emb
 
-    def forward(self, t: torch.Tensor) -> torch.Tensor:
+    def forward(self, t: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """In the module's dtype, or in `dtype` where a call names one."""
+        dtype = self.dtype if dtype is None else dtype
         t_freq = self.timestep_embedding(t, self.frequency_embedding_size)
-        return self.mlp(t_freq.to(self.mlp[0].weight.dtype))
+        return self.mlp[2](F.silu(self.mlp[0](t_freq, dtype)), dtype)
 
 
 def get_1d_sincos_pos_embed(embed_dim: int, seq_len: int) -> np.ndarray:
@@ -222,13 +288,17 @@ class FinalLayerDiT(nn.Module):
     """adaLN-modulated output projection (zero-initialised in the reference)."""
 
     def __init__(
-        self, n_embed: int, n_embed_input: int, bias: bool = True, layernorm_eps: float = 1e-8
+        self, n_embed: int, n_embed_input: int, bias: bool = True, layernorm_eps: float = 1e-8,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
-        self.adaln_modulation = nn.Sequential(nn.SiLU(), nn.Linear(n_embed, 2 * n_embed, bias=bias))
+        self.adaln_modulation = nn.Sequential(
+            nn.SiLU(), Linear(n_embed, 2 * n_embed, bias, dtype))
         self.norm_final = LayerNormFP32(n_embed, layernorm_eps, affine=False)
-        self.linear = nn.Linear(n_embed, n_embed_input, bias=bias)
+        self.linear = Linear(n_embed, n_embed_input, bias, dtype)
 
     def forward(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+        """-> f32 (JAX casts the DiT's output to f32: `linear_f32`)."""
         shift, scale = self.adaln_modulation(c).chunk(2, dim=-1)
-        return self.linear(modulate(self.norm_final(x), shift, scale))
+        h = modulate(self.norm_final(x), shift, scale)
+        return linear_f32(h, self.linear, self.linear.compute_dtype)

@@ -2,7 +2,11 @@
 of scldm_tpu/nn/nnets.py). The DiT's sampling-time conditioning sums the
 class tables without dropout; its training conditioning (`embed_condition`)
 adds CFG dropout and the random class selection of the mutually exclusive
-strategy, with every draw from a `torch.Generator` or injected."""
+strategy, with every draw from a `torch.Generator` or injected.
+
+`dtype` is JAX's compute dtype (`nn/layers.py`); `remat` recomputes each
+trunk block in the backward (JAX `nn.remat` around `Block`), which changes
+memory, not numbers."""
 
 from __future__ import annotations
 
@@ -16,7 +20,10 @@ from scldm_torch.nn.layers import (
     CrossAttentionBlock,
     FinalLayerDiT,
     LayerNormFP32,
+    Linear,
     TimestepEmbedder,
+    checkpointed,
+    embed,
     get_1d_sincos_pos_embed,
 )
 
@@ -40,21 +47,25 @@ class Encoder(nn.Module):
         bias: bool = False,
         multiple_of: int = 4,
         layernorm_eps: float = 1e-8,
+        remat: bool = False,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.n_inducing_points = n_inducing_points
         self.n_embed_latent = n_embed_latent
+        self.remat, self.dtype = remat, dtype
         self.ca_layer = CrossAttentionBlock(
-            n_embed, n_inducing_points, n_head_cross, bias, multiple_of, layernorm_eps
+            n_embed, n_inducing_points, n_head_cross, bias, multiple_of, layernorm_eps, dtype
         )
         self.pos_embed = nn.Parameter(
             torch.zeros(1, n_inducing_points, n_embed), requires_grad=False
         )
         self.encoder_layers = nn.ModuleList(
-            Block(n_embed, n_head, bias, multiple_of, layernorm_eps) for _ in range(n_layer)
+            Block(n_embed, n_head, bias, multiple_of, layernorm_eps, dtype=dtype)
+            for _ in range(n_layer)
         )
         self.encoder_latent_input = nn.Sequential(
-            nn.Linear(n_embed, n_embed_latent, bias=bias),
+            Linear(n_embed, n_embed_latent, bias, dtype),
             LayerNormFP32(n_embed_latent, layernorm_eps, affine=False),
         )
 
@@ -70,7 +81,7 @@ class Encoder(nn.Module):
         latent projection and LN. The input of the fused encoder pools."""
         x = x + self.pos_embed.to(x.dtype)
         for block in self.encoder_layers:
-            x = block(x)
+            x = checkpointed(block, x) if self.remat else block(x)
         return self.encoder_latent_input(x)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -92,19 +103,23 @@ class Decoder(nn.Module):
         bias: bool = False,
         multiple_of: int = 4,
         layernorm_eps: float = 1e-8,
+        remat: bool = False,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.n_genes = n_genes
         self.n_embed = n_embed
+        self.remat, self.dtype = remat, dtype
         self.decoder_latent_input = nn.Sequential(
             LayerNormFP32(n_embed_latent, layernorm_eps, affine=False),
-            nn.Linear(n_embed_latent, n_embed, bias=bias),
+            Linear(n_embed_latent, n_embed, bias, dtype),
         )
         self.decoder_layers = nn.ModuleList(
-            Block(n_embed, n_head, bias, multiple_of, layernorm_eps) for _ in range(n_layer)
+            Block(n_embed, n_head, bias, multiple_of, layernorm_eps, dtype=dtype)
+            for _ in range(n_layer)
         )
         self.decoder_cross_attention = CrossAttentionBlock(
-            n_embed, 0, n_head_cross, bias, multiple_of, layernorm_eps
+            n_embed, 0, n_head_cross, bias, multiple_of, layernorm_eps, dtype
         )
 
     def trunk(self, x: torch.Tensor) -> torch.Tensor:
@@ -112,7 +127,7 @@ class Decoder(nn.Module):
         pre-cross latents (JAX `trunk_only=True`), the input of the fused tail."""
         x = self.decoder_latent_input(x)
         for block in self.decoder_layers:
-            x = block(x)
+            x = checkpointed(block, x) if self.remat else block(x)
         return x
 
     def forward(self, x: torch.Tensor, gene_queries: torch.Tensor) -> torch.Tensor:
@@ -195,8 +210,11 @@ class DiT(nn.Module):
         class_vocab_sizes: Optional[Dict[str, int]] = None,
         cfg_dropout_prob: float = 0.1,
         condition_strategy: str = "mutually_exclusive",
+        remat: bool = False,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
+        self.remat, self.dtype = remat, dtype
         self.n_embed, self.n_embed_input = n_embed, n_embed_input
         self.n_layer, self.n_head, self.seq_len = n_layer, n_head, seq_len
         self.layernorm_eps = layernorm_eps
@@ -207,14 +225,14 @@ class DiT(nn.Module):
         self.class_embeddings = nn.ModuleDict(
             {n: nn.Embedding(v + extra, n_embed) for n, v in sorted(self.class_vocab_sizes.items())}
         )
-        self.t_embedder = TimestepEmbedder(n_embed)
+        self.t_embedder = TimestepEmbedder(n_embed, dtype=dtype)
         self.blocks = nn.ModuleList(
             Block(n_embed, n_head, bias, multiple_of, layernorm_eps,
-                  use_adaln=True, elementwise_affine=False)
+                  use_adaln=True, elementwise_affine=False, dtype=dtype)
             for _ in range(n_layer)
         )
-        self.input_proj = nn.Linear(n_embed_input, n_embed, bias=bias)
-        self.final_layer = FinalLayerDiT(n_embed, n_embed_input, bias, layernorm_eps)
+        self.input_proj = Linear(n_embed_input, n_embed, bias, dtype)
+        self.final_layer = FinalLayerDiT(n_embed, n_embed_input, bias, layernorm_eps, dtype)
         pos = torch.from_numpy(get_1d_sincos_pos_embed(n_embed, seq_len))[None]
         self.register_buffer("pos_embed", pos, persistent=False)
 
@@ -227,14 +245,17 @@ class DiT(nn.Module):
 
     def condition_embedding(self, condition: Dict[str, torch.Tensor], rows: int) -> torch.Tensor:
         """No-dropout sum over every class table; absent classes ride as null."""
-        emb = torch.zeros((), device=self.pos_embed.device)
+        emb = torch.zeros((), dtype=self.dtype, device=self.pos_embed.device)
         for name in sorted(self.class_vocab_sizes):
             if name in condition:
                 vals = condition[name].long()
             else:
                 vals = self._null_tokens(name, rows)
-            emb = emb + self.class_embeddings[name](vals)
+            emb = emb + self._class_embedding(name, vals)
         return emb
+
+    def _class_embedding(self, name: str, vals: torch.Tensor) -> torch.Tensor:
+        return embed(self.class_embeddings[name], vals, self.dtype)
 
     def _null_tokens(self, name: str, rows: int) -> torch.Tensor:
         self._check_null_rows()
@@ -271,27 +292,27 @@ class DiT(nn.Module):
             selected, drop_mask = 0, None
         selected = torch.as_tensor(selected, device=device)
 
-        emb = torch.zeros(rows, self.n_embed, device=device)
+        emb = torch.zeros(rows, self.n_embed, dtype=self.dtype, device=device)
         single = len(names) == 1 and drop_mask is None
         for name in names:
             if name in available:
                 vals = condition[name].long()
                 if single:
                     # one class, no dropout: no null token is consumed
-                    emb = emb + self.class_embeddings[name](vals)
+                    emb = emb + self._class_embedding(name, vals)
                     continue
                 null = self._null_tokens(name, rows)
                 cond_or_null = vals if drop_mask is None else torch.where(drop_mask, null, vals)
                 vals = torch.where(selected == available.index(name), cond_or_null, null)
             else:
                 vals = self._null_tokens(name, rows)
-            emb = emb + self.class_embeddings[name](vals)
+            emb = emb + self._class_embedding(name, vals)
         return emb
 
     def _joint_embedding(self, condition, rows, force_drop, generator, drop_mask) -> torch.Tensor:
         names = sorted(self.class_vocab_sizes)
         device = self.pos_embed.device
-        emb = torch.zeros(rows, self.n_embed, device=device)
+        emb = torch.zeros(rows, self.n_embed, dtype=self.dtype, device=device)
         if not any(n in condition for n in names):
             return emb
         if not force_drop:
@@ -301,7 +322,7 @@ class DiT(nn.Module):
         for name in names:
             null = self._null_tokens(name, rows)
             vals = torch.where(drop_mask, null, condition[name].long()) if name in condition else null
-            emb = emb + self.class_embeddings[name](vals)
+            emb = emb + self._class_embedding(name, vals)
         return emb
 
     def embed_condition(
@@ -334,9 +355,10 @@ class DiT(nn.Module):
     def trunk(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
         """The blocks and the final layer under a (B, n_embed) conditioning."""
         c = c[:, None, :]
-        x = self.input_proj(x) + self.pos_embed.to(x.dtype)
+        x = self.input_proj(x)  # in the compute dtype, as the frozen table added to it
+        x = x + self.pos_embed.to(x.dtype)
         for block in self.blocks:
-            x = block(x, c)
+            x = checkpointed(block, x, c) if self.remat else block(x, c)
         return self.final_layer(x, c).float()
 
     def forward(

@@ -88,19 +88,24 @@ def build_transformer_vae(
     bias: bool = False,
     multiple_of: int = 4,
     layernorm_eps: float = 1e-8,
+    remat: bool = False,
+    dtype: torch.dtype = torch.float32,
     device: torch.device | str = "cuda",
 ) -> TransformerVAE:
     """A TransformerVAE with the reference default architecture
-    (configs/model/vae_base.yaml), its parameters built on `device` (the card
-    unless the caller asks for the CPU; without a card "cuda" raises)."""
+    (configs/model/vae_base.yaml), its f32 parameters built on `device` (the
+    card unless the caller asks for the CPU; without a card "cuda" raises),
+    computing in `dtype` (JAX `build_transformer_vae(dtype=)`), each trunk
+    block recomputed in the backward with `remat`."""
     with torch.device(device):
         encoder = Encoder(
             n_layer, n_inducing_points, n_embed, n_embed_latent, n_head, n_head_cross,
-            bias, multiple_of, layernorm_eps,
+            bias, multiple_of, layernorm_eps, remat, dtype,
         )
         decoder = Decoder(
             n_genes, n_embed, n_embed_latent, n_head, n_head_cross, n_layer,
-            bias, multiple_of, layernorm_eps,
+            bias, multiple_of, layernorm_eps, remat, dtype,
         )
-        head = NegativeBinomialTransformerHead(n_genes, n_embed)
-        return TransformerVAE(encoder, decoder, head, InputTransformerVAE(n_genes, n_embed))
+        head = NegativeBinomialTransformerHead(n_genes, n_embed, dtype)
+        return TransformerVAE(encoder, decoder, head,
+                              InputTransformerVAE(n_genes, n_embed, dtype))

@@ -100,12 +100,18 @@ def _check(qp, k, v, n_head) -> tuple:
 def flash_cross_fwd(qp: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     n_head: int) -> torch.Tensor:
     """The forward: the CUDA kernel on CUDA tensors, the plain version on
-    CPU tensors. (B, G, E)."""
+    CPU tensors. (B, G, E) in v's dtype. bf16 qp, k and v (all three) are
+    upcast for the kernel, which rounds them to bf16 again, so it computes
+    what it computes on their f32 values; y is rounded to bf16 as JAX's
+    kernel stores it in v's dtype."""
     if qp.device.type == "cpu":
         with torch.no_grad():
             return flash_cross_reference(qp, k, v, n_head)
     if qp.device.type != "cuda":
         raise ValueError(f"flash_cross runs on cuda or cpu tensors, got {qp.device}")
+    out_dtype = v.dtype
+    if all(t.dtype == torch.bfloat16 for t in (qp, k, v)):
+        qp, k, v = (t.float().contiguous() for t in (qp, k, v))
     G, B, M, E = _check(qp, k, v, n_head)
     from scldm_torch.kernels import build
 
@@ -120,7 +126,7 @@ def flash_cross_fwd(qp: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                              n_head, stream)
     build.check(lib, code, "scldm_flash_cross_forward launch")
     FLASH_CROSS_LAUNCHES.count += 1
-    return y
+    return y.to(out_dtype)
 
 
 class _FlashCross(torch.autograd.Function):

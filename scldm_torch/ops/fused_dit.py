@@ -364,11 +364,12 @@ def extract_block_params(block) -> Dict[str, torch.Tensor]:
 
 
 def _final_layer(dit, h: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """adaLN shift/scale from c, non-affine LN, linear: plain PyTorch."""
+    """adaLN shift/scale from c, non-affine LN, linear: plain PyTorch in f32."""
     fl = dit.final_layer
-    shift, scale = fl.adaln_modulation(c).chunk(2, dim=-1)
+    f32 = torch.float32
+    shift, scale = fl.adaln_modulation[1](F.silu(c), f32).chunk(2, dim=-1)
     hf = _ln(h, dit.layernorm_eps) * (1.0 + scale[:, None, :]) + shift[:, None, :]
-    return fl.linear(hf).float()
+    return fl.linear(hf, f32)
 
 
 def fused_dit_forward(
@@ -383,14 +384,15 @@ def fused_dit_forward(
     The condition embedding is the no-dropout sum over the class tables (the
     sampling semantics of `DiT.forward_with_cfg_batched`). `block_params`
     (from `extract_block_params`, one per block) can be made once per
-    sampling call instead of once per drift evaluation."""
+    sampling call instead of once per drift evaluation. Everything is f32
+    whatever the DiT's compute dtype, as JAX's kernel path computes."""
     if block_params is None:
         block_params = [extract_block_params(b) for b in dit.blocks]
-    t_emb = dit.t_embedder(t).float()
+    t_emb = dit.t_embedder(t, torch.float32)
     for name, vals in cond_vals.items():
         t_emb = t_emb + dit.class_embeddings[name].weight.float()[vals.long()]
 
-    h = dit.input_proj(x.float()).float()
+    h = dit.input_proj(x.float(), torch.float32)
     h = h + dit.pos_embed.to(h.dtype)
     h = h.contiguous()
     c = t_emb.contiguous()
@@ -407,9 +409,11 @@ def fused_dit_train_apply(
     """Differentiable DiT trunk with every block through `dit_block_trainable`
     (forward and backward kernels); the input projection, the positional
     table and the final layer are plain PyTorch, so autograd composes them
-    with the blocks. JAX: `fused_dit_train_apply`."""
+    with the blocks. f32 throughout whatever the DiT's compute dtype: `t_emb`
+    (the module's, in that dtype) is upcast, as JAX's
+    `fused_dit_train_apply` does."""
     c = t_emb.float()
-    h = dit.input_proj(x.float()).float() + dit.pos_embed.float()
+    h = dit.input_proj(x.float(), torch.float32) + dit.pos_embed.float()
     for block in dit.blocks:
         h = dit_block_trainable(h, c, block_weights(block), dit.n_head, dit.layernorm_eps)
     return _final_layer(dit, h, c)

@@ -448,5 +448,10 @@ def window_pool(
     eps: float = 1e-8,
 ):
     """Pooling over the packed (B, S, E) window -> (num, den, m) as
-    `encoder_pool`, differentiable in emb, qfull and the weights."""
-    return _WindowPool.apply(emb, qfull, *weights, n_head, eps)
+    `encoder_pool`, differentiable in emb, qfull and the weights. A bf16 emb
+    (the input layer's under a bf16 compute dtype) is upcast here and its
+    gradient returned in bf16, as JAX's kernel upcasts on load and casts
+    demb back to emb's dtype; the kernels themselves take f32."""
+    if emb.dtype == torch.bfloat16:
+        emb = emb.float()
+    return _WindowPool.apply(emb.contiguous(), qfull, *weights, n_head, eps)

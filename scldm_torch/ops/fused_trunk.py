@@ -344,12 +344,15 @@ def fused_trunk_blocks_trainable(
     kernel, then the backward kernels. Elsewhere: the forward kernel that
     saves nothing, as JAX's primal call outside `jax.grad`. On CPU tensors
     the plain versions both ways. The counterpart of the JAX
-    `fused_trunk_blocks_trainable`."""
+    `fused_trunk_blocks_trainable`: the kernels compute in f32 whatever x's
+    dtype; a bf16 x is upcast here, the output returned in x's dtype and
+    dx, through the casts, in x's dtype too."""
+    dtype = x.dtype
     x = x.float().contiguous()
     flat = _flat(weights)
     if torch.is_grad_enabled() and (x.requires_grad or any(w.requires_grad for w in flat)):
-        return _FusedTrunk.apply(x, n_head, eps, *flat)
-    return fused_trunk_blocks(x, weights, n_head, eps)
+        return _FusedTrunk.apply(x, n_head, eps, *flat).to(dtype)
+    return fused_trunk_blocks(x, weights, n_head, eps).to(dtype)
 
 
 def extract_trunk_params(blocks) -> Dict[str, List[torch.Tensor]]:

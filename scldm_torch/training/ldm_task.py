@@ -16,6 +16,20 @@ generation.
   NB counts, from the module's weights or a train state's EMA weights. At
   E > 128 (the census decoder) the decode of the canonical gene row is the
   algebraic one (`vae_task.algebraic_decode`), as in JAX.
+
+Compute dtype. The VAE and the DiT compute in their modules' `dtype` (the
+configs' bfloat16: f32 weights, bf16 products; `nn/layers.py`). The frozen
+encode and the decode run in the VAE's dtype; the latents stay in it, the
+transport draws its noise in it (the interpolant and the target velocity
+are f32), and the DiT's output is f32.
+The DiT kernels (rows 1-2: `fused_dit_train_apply`, `fused_dit_forward`)
+compute in f32 whatever the DiT's dtype, as JAX's kernel path does on a
+TPU: the port takes them on CUDA tensors, where JAX takes them on a TPU,
+so on the card a bf16 config trains and samples its DiT in f32 through the
+kernels (the conditioning embedding, computed by the module, is rounded to
+bf16 first, as in JAX). CPU tensors, `fused_training=False` and
+`make_sample_fn(fused_blocks=False)` run the module DiT in its dtype, as
+JAX does off the TPU.
 """
 
 from __future__ import annotations
@@ -146,14 +160,16 @@ class LDMTask:
     @torch.no_grad()
     def _encode(self, batch: Dict) -> torch.Tensor:
         """Latents (B, M, E_latent) of the frozen VAE from the expressed
-        subsets (lean batches) or the full counts; no gradient."""
+        subsets (lean batches) or the full counts, in the VAE's compute
+        dtype (the transport draws its noise in it, as JAX's); no
+        gradient."""
         batch = widen_lean(batch)
         counts = batch.get(COUNTS, batch.get(C_SUB))
         genes = batch.get(GENES, batch.get(G_SUB))
         if self.fused_encode and _fused_window_ok(self.vae):
             emb = self.vae.input_layer(batch.get(C_SUB, counts), batch.get(G_SUB, genes))
-            return self.vae.encoder.trunk(fused_window_pooling(self.vae, emb)).float()
-        return self.vae.encode(counts, genes, batch.get(C_SUB), batch.get(G_SUB)).float()
+            return self.vae.encoder.trunk(fused_window_pooling(self.vae, emb))
+        return self.vae.encode(counts, genes, batch.get(C_SUB), batch.get(G_SUB))
 
     def _use_fused(self, z: torch.Tensor) -> bool:
         return z.is_cuda if self.fused_training is None else self.fused_training

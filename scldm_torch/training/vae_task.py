@@ -19,6 +19,14 @@ running the SwiGLU up projection, gate and head-vector contraction as the
 unless asked, as in JAX) runs both trunks of that kernel path, the encoder's
 and the decoder's blocks, as the whole-trunk kernels
 (`ops/fused_trunk.fused_trunk_blocks_trainable`).
+
+Under a bf16 compute dtype (`vae.decoder.dtype`) the paths keep JAX's
+boundaries: the modules compute in bf16; the dense pool's operands and its
+MCAB finish, the decoder tail's operands (rows 3-6) stay f32; the window
+pool and the whole trunk take the bf16 embedding or activations and compute
+in f32 inside, returning their outputs and input gradients in bf16; the
+algebraic tail casts to bf16 where JAX's does, and its `swiglu_vec` takes
+bf16 operands.
 """
 
 from __future__ import annotations
@@ -98,10 +106,12 @@ def _fused_window_ok(vae: TransformerVAE) -> bool:
 def _fused_trunk_ok(vae: TransformerVAE) -> bool:
     """The JAX gate of the whole-trunk kernel on both block stacks
     (`trunk_kernel_ok`: no bias, no dropout, no adaLN, E <= 128, and no
-    remat). The port has no dropout or remat, so the check reads the modules'
+    remat). The port has no dropout, so the check reads the modules' remat,
     bias, adaLN and affine LayerNorms. A width the CUDA kernels do not take
     passes this gate and raises at launch."""
     enc, dec = vae.encoder.encoder_layers, vae.decoder.decoder_layers
+    if vae.encoder.remat or vae.decoder.remat:
+        return False
     return len(enc) > 0 and len(dec) > 0 and all(
         trunk_kernel_ok(b.ln_1.n, b.attn.c_attn.bias is not None, 0.0, b.use_adaln)
         and b.ln_1.weight is not None
@@ -113,10 +123,11 @@ def _encoder_trunk_tail(vae: TransformerVAE, pooled: torch.Tensor) -> torch.Tens
     """The encoder after its MCAB pooling (JAX `_encoder_trunk_tail`): the
     blocks as the whole-trunk kernel, then the latent projection and the
     non-affine LN. The frozen all-zeros `pos_embed` is not added, as JAX
-    leaves it out: adding zeros is exact either way."""
+    leaves it out: adding zeros is exact either way. The pooled tokens enter
+    in the compute dtype, as JAX's `pooled.astype(dt)`."""
     enc = vae.encoder
     blocks = enc.encoder_layers
-    h = fused_trunk_blocks_trainable(pooled, extract_trunk_params(blocks),
+    h = fused_trunk_blocks_trainable(pooled.to(enc.dtype), extract_trunk_params(blocks),
                                      blocks[0].attn.n_head, blocks[0].ln_1.eps)
     return enc.encoder_latent_input(h)
 
@@ -149,7 +160,9 @@ def _mcab_prep(vae: TransformerVAE):
     ca = vae.encoder.ca_layer
     E = ca.ln_1.n
     inducing = ca.inducing_points.float()  # (Q, E)
-    qfull = build_query_operand(ca.attn.c_attn_q(ca.ln_1q(inducing)), ca.attn.n_head)
+    # f32 whatever the compute dtype, as JAX's raw-parameter prep
+    qfull = build_query_operand(ca.attn.c_attn_q(ca.ln_1q(inducing), torch.float32),
+                                ca.attn.n_head)
     wk, wv = ca.attn.c_attn.weight.t().chunk(2, dim=1)
     weights = (ca.ln_1.weight.reshape(1, E), ca.ln_1.bias.reshape(1, E),
                wk.contiguous(), wv.contiguous())
@@ -160,7 +173,8 @@ def _mcab_finish(ca, inducing, qfull, weights, num, den, m, corr: int) -> torch.
     """The MCAB after the pool (JAX `_mcab_finish`): the closed-form
     correction of `corr` zero-embedding rows, num / den, the output
     projection, the residual on the raw inducing points, then ln_2 and the
-    SwiGLU. `num` holds the head-diagonal blocks, (B, Q, E)."""
+    SwiGLU, in f32 whatever the compute dtype (JAX's raw-parameter math).
+    `num` holds the head-diagonal blocks, (B, Q, E)."""
     n_head = ca.attn.n_head
     E = num.shape[-1]
     hd = E // n_head
@@ -173,9 +187,10 @@ def _mcab_finish(ca, inducing, qfull, weights, num, den, m, corr: int) -> torch.
         e0 = torch.exp(s0 - m)  # (B, Q*H)
         den = den - corr * e0
         num = num - corr * head_rows(e0, n_head, hd) * v0
-    y = ca.attn.c_proj(num / head_rows(den, n_head, hd))
+    f32 = torch.float32
+    y = ca.attn.c_proj(num / head_rows(den, n_head, hd), f32)
     out = inducing[None] + y
-    return out + ca.mlp(ca.ln_2(out))
+    return out + ca.mlp(ca.ln_2(out), f32)
 
 
 def fused_encoder_pooling(vae: TransformerVAE, counts_dense: torch.Tensor,
@@ -203,8 +218,7 @@ def fused_window_pooling(vae: TransformerVAE, emb: torch.Tensor) -> torch.Tensor
     pads nothing, so nothing is corrected (JAX: its padded window minus S)."""
     inducing, qfull, weights = _mcab_prep(vae)
     ca = vae.encoder.ca_layer
-    num, den, m = window_pool(emb.float().contiguous(), qfull, weights, ca.attn.n_head,
-                              ca.ln_1.eps)
+    num, den, m = window_pool(emb, qfull, weights, ca.attn.n_head, ca.ln_1.eps)
     return _mcab_finish(ca, inducing, qfull, weights, num, den, m, 0)
 
 
@@ -238,9 +252,11 @@ def fused_nb_apply(
     ca = vae.decoder.decoder_cross_attention
     head = vae.decoder_head
     n_head = ca.attn.n_head
+    # the tail's operands in f32 whatever the compute dtype, as JAX builds them
+    f32 = torch.float32
     q = vae.input_layer.gene_embedding.weight[1:].float()  # canonical genes 1..G
-    qp = ca.attn.c_attn_q(ca.ln_1q(q)).contiguous()
-    k, v = ca.attn.c_attn(ca.ln_1(x.float())).chunk(2, dim=-1)
+    qp = ca.attn.c_attn_q(ca.ln_1q(q), f32).contiguous()
+    k, v = ca.attn.c_attn(ca.ln_1(x.float()), f32).chunk(2, dim=-1)
     kfull, vproj = build_attention_operands(k, v, ca.attn.c_proj.weight.t().float(), n_head)
     weights = pack_weights(
         ca.ln_2.weight, ca.ln_2.bias, ca.mlp.w1.weight.t(), ca.mlp.w2.weight.t(),
@@ -297,13 +313,15 @@ def _algebraic_tail(
     K = H*M, instead of `sdpa_shared_q` then `@ wo`. `fused_gate` runs the
     up projection, the gate and the wv contraction as `swiglu_vec` over
     `w12 = [w1 | w2]`; otherwise two separate products (not `hn @ w12`).
-    Differentiable in every parameter. The casts to the decoder's dtype sit
-    where JAX's do (identities in f32)."""
+    Differentiable in every parameter. The casts to the decoder's compute
+    dtype sit where JAX's do (identities in f32), and the contractions JAX
+    sums in f32 (`preferred_element_type`) take f32 copies of their bf16
+    operands."""
     ca = vae.decoder.decoder_cross_attention
     head = vae.decoder_head
     eps = ca.ln_1.eps
     n_head = ca.attn.n_head
-    dt = ca.attn.c_attn.weight.dtype
+    dt = vae.decoder.dtype
     E = vae.decoder.n_embed
     hd = E // n_head
 
@@ -340,9 +358,9 @@ def _algebraic_tail(
         a = hn @ mlp.w1.weight.t().to(dt)  # (B, G, Hd)
         b = hn @ mlp.w2.weight.t().to(dt)
         g3 = F.silu(a) * b  # the largest live tensor
-        mlp_term = torch.einsum("bgh,h->bg", g3, wv[:, 0]).float()
+        mlp_term = torch.einsum("bgh,h->bg", g3.float(), wv[:, 0].float())
     logits = (
-        torch.einsum("bge,e->bg", h, wmu[:, 0].to(dt)).float()
+        torch.einsum("bge,e->bg", h.float(), wmu[:, 0].to(dt).float())
         + mlp_term
         + head.params.bias[0].float()
     )

@@ -1,6 +1,7 @@
 """The port's command-line entry points end to end on the CPU (device=cpu),
 modelled on tests/test_e2e.py: `python -m scldm_torch.cli.train` on a
-synthetic h5ad file, then `train_ldm` on its checkpoint, then `inference`
+synthetic h5ad file (the configs as shipped: bf16 compute), then
+`train_ldm` on its checkpoint, then `inference`
 for generation (configs/generation.yaml), for latents and reconstruction
 (configs/inference.yaml) and with `vae_only=true`. The VAE's dims differ from
 ldm_training.yaml's fallback `model.vae` block, so `train_ldm` must graft
@@ -68,7 +69,7 @@ def overrides(tmp, out="outputs"):
         f"{d}.metadata_json={tmp / 'meta.json'}", f"{d}.n_genes={G}", f"{d}.genes_seq_len={G}",
         f"{d}.mu_size_factor={tmp / 'mu.json'}", f"{d}.sd_size_factor={tmp / 'sd.json'}",
         f"paths.output_path={tmp / out}", f"paths.inference_path={tmp / out / 'inference'}",
-        "model.batch_size=16", "model.test_batch_size=8", "model.compute_dtype=float32",
+        "model.batch_size=16", "model.test_batch_size=8",
         "epochs=2", "datamodule.datamodule.prefetch=0", "training.log_every_steps=5",
         "training.steps_per_dispatch=2",
         # a VAE whose dims differ from ldm_training.yaml's fallback block

@@ -4,8 +4,9 @@ override strings (types held equal, not only values), the composed and
 resolved trees of the top-level configs and of every dataset switch against
 JAX's `resolve`, `${repo_root:}` from another working directory, each
 builder's parameter names and shapes against JAX's builder's (through the
-weight bridge's names), `compute_max_steps`, and every config value the port
-refuses. Everything here is exact."""
+weight bridge's names), `compute_max_steps`, the compute dtypes and remat the
+builders take, and every config value the port refuses. Everything here is
+exact."""
 
 import math
 from pathlib import Path
@@ -217,8 +218,6 @@ def _ldm_task(cfg):
 
 
 @pytest.mark.parametrize("config,overrides,call,item", [
-    ("vae_training.yaml", ["model.compute_dtype=bfloat16"], build.build_vae, "item 3"),
-    ("ldm_training.yaml", ["model.compute_dtype=bfloat16"], build.build_dit, "item 3"),
     ("vae_training.yaml", ["training.fsdp=true"], _vae_task, "item 11"),
     ("vae_training.yaml", ["training.gene_sp=true"], _vae_task, "item 11"),
     ("ldm_training.yaml", ["training.fsdp=true"], _ldm_task, "item 11"),
@@ -231,13 +230,41 @@ def _ldm_task(cfg):
     ("vae_training.yaml", ["model.vae.dropout=0.1"], build.build_vae, "item 8"),
     ("vae_training.yaml", ["model.vae.agg_func=none"], build.build_vae, "item 8"),
     ("vae_training.yaml", ["model.decoder_name=gaussian"], build.build_vae, "item 8"),
-    ("vae_training.yaml", ["model.remat=true"], build.build_vae, "item 8"),
+    ("vae_training.yaml", ["model.remat_cross=true"], build.build_vae, "item 8"),
+    ("vae_training.yaml", ["model.cross_chunks=2"], build.build_vae, "item 8"),
     ("ldm_training.yaml", ["model.diffusion_model.dropout=0.1"], build.build_dit, "item 8"),
 ])
 def test_unsupported_values_raise(config, overrides, call, item):
     cfg = small_cfg(config, SMALL_DIT + overrides)
     with pytest.raises(NotImplementedError, match=item):
         call(cfg)
+
+
+@pytest.mark.parametrize("config,overrides,call,dtype,remat", [
+    ("vae_training.yaml", ["model.compute_dtype=bfloat16"], build.build_vae, torch.bfloat16, False),
+    ("vae_training.yaml", ["model.compute_dtype=float32"], build.build_vae, torch.float32, False),
+    ("vae_training.yaml", ["model.remat=true"], build.build_vae, torch.float32, True),
+    ("ldm_training.yaml", ["model.compute_dtype=bfloat16"], build.build_dit, torch.bfloat16, False),
+    ("ldm_training.yaml", ["model.compute_dtype=float32"], build.build_dit, torch.float32, False),
+    ("ldm_training.yaml", ["model.remat=true"], build.build_dit, torch.float32, True),
+])
+def test_compute_dtype_and_remat_build(config, overrides, call, dtype, remat):
+    """`model.compute_dtype` (JAX's `_DTYPES`) and `model.remat` build: f32
+    weights whatever the compute dtype, which every dense layer carries, the
+    same parameter names and shapes, and remat on every trunk."""
+    cfg = small_cfg(config, SMALL_DIT + overrides)
+    module = call(cfg)
+    assert all(p.dtype == torch.float32 for p in module.parameters())
+    linears = [m for m in module.modules() if isinstance(m, torch.nn.Linear)]
+    assert linears and all(m.compute_dtype == dtype for m in linears)
+    trunks = [module] if call is build.build_dit else [module.encoder, module.decoder]
+    assert all(t.dtype == dtype and t.remat == remat for t in trunks)
+    assert port_shapes(module) == port_shapes(call(small_cfg(config, SMALL_DIT)))
+
+
+def test_unknown_compute_dtype_raises():
+    with pytest.raises(ValueError, match="compute_dtype=float16"):
+        build.build_vae(small_cfg(extra=["model.compute_dtype=float16"]))
 
 
 def test_inference_refuses_n_model():

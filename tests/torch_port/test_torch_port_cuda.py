@@ -675,15 +675,83 @@ def test_swiglu_workspace_floats_match_the_c_entries(R, E, Hd):
 
 
 def test_swiglu_vec_operands_it_does_not_take_raise_on_gpu():
-    """bf16, a strided x or a CPU weight beside a CUDA x: the wrapper raises
-    and never takes the plain version."""
+    """A bf16 x beside f32 weights (one dtype or the other, not both), a
+    strided x or a CPU weight beside a CUDA x: the wrapper raises and never
+    takes the plain version."""
     x, w12, wv, _ = _swiglu_inputs(64, 32, 48, "cuda")
-    for args in ((x.bfloat16(), w12.bfloat16(), wv.bfloat16()), (x.t().contiguous().t(), w12, wv),
+    for args in ((x.bfloat16(), w12, wv), (x.t().contiguous().t(), w12, wv),
                  (x, w12.cpu(), wv)):
         before = fs.SWIGLU_VEC_FWD_LAUNCHES.count
         with pytest.raises(ValueError):
             fs.swiglu_vec(*args)
         assert fs.SWIGLU_VEC_FWD_LAUNCHES.count == before
+
+
+def assert_swiglu_bf16_close(got, want):
+    """The bf16 kernels against the bf16 plain version: `assert_bf16_close`
+    on each output (the same roundings, sums in another order)."""
+    for k, w in want.items():
+        assert got[k].dtype == w.dtype, k
+        assert_bf16_close(got[k].float(), w.float(), k)
+
+
+# the bf16 kernels (a bf16 compute dtype's swiglu_vec): ragged rows, E and Hd
+# off the 64-deep stage and the 128-column tile, two workspace chunks, and
+# pitches off 16 bytes (E = 30, Hd = 70: bf16 pads to 8 values)
+@pytest.mark.parametrize("R,E,Hd", [(1001, 512, 1408), (300, 200, 100), (40_000, 64, 100),
+                                    (777, 30, 70)])
+def test_swiglu_vec_bf16_matches_reference_on_gpu(R, E, Hd):
+    x, w12, wv, ds = (t.bfloat16() if i < 3 else t
+                      for i, t in enumerate(_swiglu_inputs(R, E, Hd, "cuda")))
+    before = (fs.SWIGLU_VEC_FWD_LAUNCHES.count, fs.SWIGLU_VEC_BWD_LAUNCHES.count)
+    got = {"out": fs.swiglu_vec_fwd(x, w12, wv),
+           **dict(zip(("dx", "dw12", "dwv"), fs.swiglu_vec_bwd(x, w12, wv, ds)))}
+    torch.cuda.synchronize()
+    assert (fs.SWIGLU_VEC_FWD_LAUNCHES.count, fs.SWIGLU_VEC_BWD_LAUNCHES.count) == (
+        before[0] + 1, before[1] + 1)
+    want = {"out": fs.swiglu_vec_reference(x, w12, wv),
+            **dict(zip(("dx", "dw12", "dwv"), fs.swiglu_vec_backward_reference(x, w12, wv, ds)))}
+    assert_swiglu_bf16_close(got, want)
+    again = (fs.swiglu_vec_fwd(x, w12, wv), *fs.swiglu_vec_bwd(x, w12, wv, ds))
+    assert all(torch.equal(a, got[k]) for a, k in zip(again, got))
+
+
+@pytest.mark.parametrize("R,E,Hd", [(1, 1, 1), (777, 30, 70), (40_000, 64, 100),
+                                    (16 * 36_601, 512, 1408)])
+def test_swiglu_vec_bf16_workspace_floats_match_the_c_entry(R, E, Hd):
+    from scldm_torch.kernels import build
+
+    lib = build.load()
+    assert lib.scldm_swiglu_vec_bf16_workspace_floats(R, E, Hd) == fs.swiglu_vec_workspace_floats(
+        R, E, Hd, torch.bfloat16)
+
+
+def test_bf16_boundaries_on_gpu():
+    """The kernels a bf16 compute dtype hands bf16 operands: the wide window
+    pool takes a bf16 emb and returns demb in bf16, the whole trunk returns
+    its output and dx in x's dtype, flash cross takes bf16 q, k and v and
+    returns y in v's dtype; each computes what it computes on the f32 values."""
+    x, cot = _wide_pool_inputs(2, 300, 256, 4, 64, "cuda")
+    emb = x["src"].bfloat16()
+    got = pool_outputs_and_grads(fe.window_pool, None, {**x, "src": emb}, cot, 4)
+    want = pool_outputs_and_grads(fe.window_pool, None, {**x, "src": emb.float()}, cot, 4)
+    assert got["dsrc"].dtype == torch.bfloat16
+    assert torch.equal(got["num"], want["num"])
+    assert torch.equal(got["dsrc"], want["dsrc"].bfloat16())
+
+    xt, _, w = _trunk_inputs(3, 32, 8, 88, 2, "cuda")
+    xb = xt.bfloat16().requires_grad_()
+    out = ft.fused_trunk_blocks_trainable(xb, w, 8, EPS)
+    out.float().square().sum().backward()
+    assert out.dtype == torch.bfloat16 and xb.grad.dtype == torch.bfloat16
+    xf = xt.bfloat16().float().requires_grad_()
+    assert torch.equal(out, ft.fused_trunk_blocks_trainable(xf, w, 8, EPS).bfloat16())
+
+    qp, k, v = (t.bfloat16() for t in _cross_inputs(300, 3, "cuda"))
+    y = fc.flash_cross_attention(qp, k, v, CROSS_H)
+    assert y.dtype == torch.bfloat16
+    assert torch.equal(y, fc.flash_cross_attention(qp.float(), k.float(), v.float(), CROSS_H)
+                       .bfloat16())
 
 
 @pytest.mark.skipif(torch.cuda.device_count() < 2, reason="needs two GPUs")
@@ -854,8 +922,8 @@ def test_sdpa_shared_q_takes_flash_cross_under_the_gate_on_gpu(monkeypatch):
 def test_flash_cross_operands_it_does_not_take_raise_on_gpu():
     qp, k, v = _cross_inputs(300, 3, "cuda")
     for args in ((qp, k[:, :32].contiguous(), v[:, :32].contiguous()),  # M = 32: no kernel
-                 (qp.bfloat16(), k.bfloat16(), v.bfloat16()), (qp, k.transpose(0, 1).contiguous()
-                                                               .transpose(0, 1), v)):
+                 (qp.bfloat16(), k, v),  # one dtype or the other, not both
+                 (qp, k.transpose(0, 1).contiguous().transpose(0, 1), v)):
         before = fc.FLASH_CROSS_LAUNCHES.count
         with pytest.raises(ValueError):
             fc.flash_cross_attention(*args, CROSS_H)
