@@ -156,7 +156,19 @@ remat as shipped) takes 4 steps of 16 cells on metadata/census_genes.json's
 36,130 genes (`datamodule.dataset=homo_sapiens`). Every batch must be
 packed by the native packer, each CLI's wall time, the train cells/s of
 `metrics.csv` and each checkpoint's size and save time are printed, and the
-phase fails if yaml, h5py, pandas or jax was loaded. The line before the last is a JSON
+phase fails if yaml, h5py, pandas or jax was loaded. Phase 12 runs
+`scldm_torch.cli.train_scvi` from configs/vae_scvi_training.yaml as shipped
+at dentate width on 2,560 synthetic CSR cells: a run sent SIGTERM in its
+first dispatch, resumed, and held bit for bit to an uninterrupted one
+(parameters, BatchNorm buffers, optimizer state, generator), and one step on
+the card held to the same step on the CPU at 1e-4; then `train` for a VAE
+checkpoint and `train_ldm` with `model.eval_generation` on (freq 1, no
+warmup, sample_size 1,024, dopri5 at 50 steps) over 1,024 validation cells
+(`val_as_test`): generation_eval.csv must hold finite metrics, the card's
+metrics are held to the CPU's on the first 128 cells of the same two
+matrices (MMD 1e-4, Sinkhorn 1e-3 relative, the same iteration count), a
+real-versus-real split must read near zero, and the eval's seconds and peak
+memory are printed. The line before the last is a JSON
 summary of the kernels, each with its time beside the least time the card could
 take for the same work; the last is {"ok": true, "device": {...}}. Any failure
 raises, so the script exits non-zero and prints no result; so does a machine
@@ -3494,6 +3506,283 @@ def phase11_cli(seed: int, smi: str) -> dict:
     return total
 
 
+# phase 12: the scVI baseline (scldm_torch.cli.train_scvi) and the generation evals
+# inside train_ldm, at full dentate width on synthetic CSR cells
+SCVI_CELLS = 2_560  # 2,304 train cells after the validation split: 18 steps of 128
+SCVI_STEPS = 24
+# the LDM's train file and its test file (val_as_test): 8 batches of 128 each, so
+# the eval generates and compares eval_generation.sample_size = 1,024 cells
+EVAL_CELLS = 1_024
+EVAL_STEPS = 16  # 8 steps an epoch: the eval runs after epoch 1's validation
+# the rows of each eval matrix that the CPU recomputes the metrics on: at 256 the
+# CPU took 77.7 s (Sinkhorn's 10,000 iterations and the pairwise kernels)
+EVAL_CPU_CELLS = 128
+# the biases of the scVI dense layers that feed a BatchNorm: their gradient is
+# zero but for rounding (the batch mean is subtracted)
+SCVI_BN_INVARIANT = ("encoder.dense_0.bias", "decoder.dense_0.bias")
+
+
+def phase12_scvi_and_evals(seed: int, smi: str) -> dict:
+    """(a) `train_scvi.main` on configs/vae_scvi_training.yaml as shipped
+    (17,002 genes, B = 128, 128 hidden, 10 latent, dropout 0.1): a run sent
+    SIGTERM in its first dispatch (the guard checkpoints at the dispatch's
+    end) and resumed, held bit for bit to an uninterrupted run (parameters,
+    BatchNorm buffers, optimizer state, generator); one step on the card
+    held to the same step on the CPU (the same weights, batch and draws) at
+    1e-4; train cells/s from metrics.csv. (b) `train` for a VAE checkpoint,
+    then `train_ldm` with `model.eval_generation` on (freq 1, no warmup, the
+    shipped sample_size 1,024, dopri5 at 50 steps) on 1,024 validation cells:
+    generation_eval.csv must hold finite metrics; the card's metrics are held
+    to the CPU's on the first EVAL_CPU_CELLS rows of the same two count
+    matrices (MMD 1e-4 relative, Sinkhorn 1e-3 with the same iteration
+    count), a real-versus-real split must read near zero, and the eval's
+    seconds (MMD, Sinkhorn iterations and time) and peak memory are printed.
+    Returns the DiT block launches of (b)."""
+    import os
+    import signal
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from scldm_torch.cli import train as cli_train
+    from scldm_torch.cli import train_ldm as cli_train_ldm
+    from scldm_torch.cli import train_scvi as cli_train_scvi
+    from scldm_torch.cli._common import parse_config
+    from scldm_torch.config.build import build_datamodule, build_scvi_task
+    from scldm_torch.data import datamodule as dm_module
+    from scldm_torch.evals import generation_eval as ge
+    from scldm_torch.evals.mmd import MMD_METRICS
+    from scldm_torch.ops import fused_dit
+    from scldm_torch.training import checkpoint as ckpt_module
+    from scldm_torch.training.loop import to_device
+    from scldm_torch.training.scvi_task import ScviTask
+
+    phase_t0 = time.perf_counter()
+    rng = np.random.default_rng(seed + 12)
+    dentate = json.loads((ROOT / "metadata/dentategyrus_train.json").read_text())
+    tmp = Path(tempfile.mkdtemp(prefix="scldm_phase12_"))
+    names = {"scvi": SCVI_CELLS, "ldm_train": EVAL_CELLS, "ldm_test": EVAL_CELLS}
+    shards = {str(tmp / f"{k}.h5ad"): cli_shard(rng, n, dentate["genes"], dentate["labels"])
+              for k, n in names.items()}
+    mu = {"clusters": {c: float(rng.uniform(6.0, 9.0)) for c in dentate["labels"]["clusters"]}}
+    (tmp / "mu.json").write_text(json.dumps(mu))
+    (tmp / "sd.json").write_text(json.dumps(
+        {"clusters": {c: 0.05 for c in dentate["labels"]["clusters"]}}))
+    counters = {"dit_block": fused_dit.DIT_BLOCK_LAUNCHES,
+                "dit_block_bwd": fused_dit.DIT_BLOCK_BWD_LAUNCHES}
+    config = lambda name: ["--config", str(ROOT / "configs" / name)]  # noqa: E731
+    outputs = lambda name: [f"paths.output_path={tmp / name}"]  # noqa: E731
+    d = "datamodule.dataset_params.dentate_gyrus"
+    stats = [f"{d}.mu_size_factor={tmp / 'mu.json'}", f"{d}.sd_size_factor={tmp / 'sd.json'}"]
+
+    def run(name: str, fn, argv: list) -> float:
+        t0 = time.perf_counter()
+        rc = fn(argv)
+        torch.cuda.synchronize()
+        if rc != 0:
+            raise AssertionError(f"phase12 {name} returned {rc}")
+        wall = time.perf_counter() - t0
+        log(f"phase12 {name}: {wall:.2f} s wall ({smi})")
+        return wall
+
+    real_h5ad, real_step = dm_module.H5ADFile, ScviTask.train_step
+    real_metrics = ge.distribution_metrics
+    dm_module.H5ADFile = lambda path: shards[str(path)]
+    try:
+        # -- (a) the scVI baseline: preempted and resumed, against uninterrupted
+        args = config("vae_scvi_training.yaml") + [
+            f"datamodule.datamodule.train_adata_path={tmp / 'scvi.h5ad'}",
+            f"training.max_steps={SCVI_STEPS}", "epochs=2", "training.log_every_steps=8"]
+        sent = {"at": None}
+
+        def preempting(self, state, batch, noise=None):
+            out = real_step(self, state, batch, noise)
+            if sent["at"] is None and state.step == 3:
+                sent["at"] = state.step
+                os.kill(os.getpid(), signal.SIGTERM)
+            return out
+
+        ScviTask.train_step = preempting
+        run("train_scvi (SIGTERM at step 3)", cli_train_scvi.main, args + outputs("cut"))
+        ScviTask.train_step = real_step
+        ck = tmp / "cut" / "checkpoints" / "scvi_dentate_gyrus"
+        cut_at = max(int(p.name) for p in ck.iterdir() if p.name.isdigit())
+        if sent["at"] != 3 or not 3 <= cut_at < SCVI_STEPS:
+            raise AssertionError(f"phase12: the preempted scVI run saved step {cut_at}")
+        run(f"train_scvi (resumed at step {cut_at})", cli_train_scvi.main, args + outputs("cut"))
+        run("train_scvi (uninterrupted)", cli_train_scvi.main, args + outputs("full"))
+        full = tmp / "full" / "checkpoints" / "scvi_dentate_gyrus"
+        a = ckpt_module.read_payload(ck / str(SCVI_STEPS))
+        b = ckpt_module.read_payload(full / str(SCVI_STEPS))
+        sa, sb = a["optimizer"]["state"], b["optimizer"]["state"]
+        same = (a["step"] == b["step"] == SCVI_STEPS
+                and a["module"].keys() == b["module"].keys()
+                and all(torch.equal(a["module"][k], b["module"][k]) for k in a["module"])
+                and torch.equal(a["generator"], b["generator"]) and sa.keys() == sb.keys()
+                and all(torch.equal(sa[i][k], sb[i][k]) for i in sa for k in sa[i]
+                        if torch.is_tensor(sa[i][k])))
+        n_buffers = sum("running_" in k for k in a["module"])
+        if not same or n_buffers != 4:
+            raise AssertionError("phase12: the resumed scVI run is not bitwise the uninterrupted one")
+        rows = [r for r in csv.DictReader((full / "metrics.csv").open()) if r.get("cells_per_sec")]
+        val = [r for r in csv.DictReader((full / "metrics.csv").open()) if r.get("val_loss")]
+        if not val or not all(np.isfinite(float(r[k])) for r in rows + val for k in r if r[k]):
+            raise AssertionError("phase12: non-finite scVI metrics")
+        log(f"phase12 scVI: cut at step {cut_at}, resumed to {SCVI_STEPS}: parameters, "
+            f"{n_buffers} BatchNorm buffers, optimizer state and generator bitwise equal to "
+            f"the uninterrupted run; train cells/s from metrics.csv ({smi}): "
+            + ", ".join(f"step {int(float(r['step']))}: {float(r['cells_per_sec']):.1f}"
+                        for r in rows)
+            + f"; val_loss {float(val[-1]['val_loss']):.2f}, val_pcc "
+            f"{float(val[-1]['val_pcc']):.4f}")
+
+        # -- one step on the card against the same step on the CPU
+        cfg = parse_config(args + outputs("step"), None, "")
+        task = build_scvi_task(cfg, SCVI_STEPS)
+        cpu_task = build_scvi_task(parse_config(args + outputs("step") + ["device=cpu"], None, ""),
+                                   SCVI_STEPS)
+        cpu_task.vae.load_state_dict({k: v.cpu() for k, v in task.vae.state_dict().items()})
+        dm = build_datamodule(cfg)
+        dm.setup("fit")
+        batch = next(iter(dm.train_batches(0)))
+        g = torch.Generator().manual_seed(seed)
+        hidden, latent = cfg["model"]["scvi"]["n_hidden"], cfg["model"]["scvi"]["n_latent"]
+        rows_b = batch["library_size"].shape[0]
+        noise = {"eps": torch.randn((rows_b, latent), generator=g),
+                 "keep": {k: [torch.rand((rows_b, hidden), generator=g) < 0.9]
+                          for k in ("encoder", "decoder")}}
+        cuda_noise = {"eps": noise["eps"].cuda(),
+                      "keep": {k: [m.cuda() for m in v] for k, v in noise["keep"].items()}}
+        gstate = task.init_state(torch.Generator("cuda").manual_seed(0))
+        cstate = cpu_task.init_state(torch.Generator().manual_seed(0))
+        gstate, gm = task.train_step(gstate, to_device(batch, torch.device("cuda")), cuda_noise)
+        cstate, cm = cpu_task.train_step(cstate, to_device(batch, torch.device("cpu")), noise)
+        for k in cm:
+            if not abs(float(gm[k]) - float(cm[k])) <= 1e-4 * max(abs(float(cm[k])), 1.0):
+                raise AssertionError(f"phase12 scVI step {k}: card {float(gm[k])} vs CPU "
+                                     f"{float(cm[k])}")
+        worst = {}
+        cparams = dict(cstate.module.named_parameters())
+        gscale = max(float(p.grad.abs().max()) for p in cparams.values())
+        for name, p in gstate.module.named_parameters():
+            c = cparams[name]
+            dg = float((p.grad.cpu() - c.grad).abs().max())
+            bound = 1e-4 * (gscale if name in SCVI_BN_INVARIANT else float(c.grad.abs().max()))
+            dp = float((p.detach().cpu() - c.detach()).abs().max())
+            worst[name] = (dg, dp)
+            if not dg <= bound or (name not in SCVI_BN_INVARIANT and not dp <= 1e-4):
+                raise AssertionError(f"phase12 scVI step {name}: gradient {dg:.3e} (bound "
+                                     f"{bound:.3e}), parameter {dp:.3e}")
+        for name, buf in gstate.module.named_buffers():
+            db = float((buf.cpu() - dict(cstate.module.named_buffers())[name]).abs().max())
+            if not db <= 1e-4 * max(1.0, float(buf.abs().max())):
+                raise AssertionError(f"phase12 scVI step buffer {name}: {db:.3e}")
+        log(f"phase12 scVI step, card vs CPU (same weights, batch and draws): loss "
+            f"{float(gm['train_loss']):.4f} vs {float(cm['train_loss']):.4f}; largest gradient "
+            f"difference {max(v[0] for v in worst.values()):.3e}, parameter "
+            f"{max(v[1] for v in worst.values()):.3e}, buffers within 1e-4")
+
+        # -- (b) the generation eval inside train_ldm, on a VAE `train` writes
+        eval_args = [f"datamodule.datamodule.train_adata_path={tmp / 'ldm_train.h5ad'}",
+                     f"datamodule.datamodule.test_adata_path={tmp / 'ldm_test.h5ad'}",
+                     "datamodule.datamodule.val_as_test=true", "epochs=2",
+                     "training.log_every_steps=8"] + stats + outputs("eval")
+        run("train (the VAE for train_ldm)", cli_train.main,
+            config("vae_training.yaml") + eval_args + ["training.max_steps=8"])
+        captured = {}
+
+        def capturing(counts_real, counts_gen, library, timings=None):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            timings = {} if timings is None else timings
+            out = real_metrics(counts_real, counts_gen, library, timings)
+            captured.update(real=counts_real, gen=counts_gen, lib=library, timings=timings,
+                            peak=torch.cuda.max_memory_allocated() - base)
+            return out
+
+        ge.distribution_metrics = capturing
+        for c in counters.values():
+            c.reset()
+        torch.cuda.reset_peak_memory_stats()
+        wall = run("train_ldm (model.eval_generation.enabled=true)", cli_train_ldm.main,
+                   config("ldm_training.yaml") + eval_args + [
+                       f"training.max_steps={EVAL_STEPS}", "model.eval_generation.enabled=true",
+                       "model.eval_generation.freq=1", "model.eval_generation.warmup_epochs=0"])
+        launches = {k: c.count for k, c in counters.items()}
+        peak = torch.cuda.max_memory_allocated()
+        ge.distribution_metrics = real_metrics
+        L = 8
+        if launches["dit_block_bwd"] != L * EVAL_STEPS or launches["dit_block"] <= L * EVAL_STEPS:
+            raise AssertionError(f"phase12 train_ldm: launches {launches} in {EVAL_STEPS} steps")
+        ck = tmp / "eval" / "checkpoints" / "ldm_dentate_gyrus"
+        gen_rows = list(csv.DictReader((ck / "generation_eval.csv").open()))
+        metric_names = [k for k in gen_rows[0] if k.startswith("generation_eval/")] if gen_rows else []
+        if (len(gen_rows) != 1 or float(gen_rows[0]["epoch"]) != 1.0 or len(metric_names) != 9
+                or not all(np.isfinite(float(gen_rows[0][k])) for k in metric_names)
+                or float(gen_rows[0]["generation_eval/total_samples"]) != EVAL_CELLS):
+            raise AssertionError(f"phase12: generation_eval.csv holds {gen_rows}")
+        real, gen, lib = captured["real"], captured["gen"], captured["lib"]
+        if real.shape != (EVAL_CELLS, N_GENES) or gen.shape != real.shape or not real.is_cuda:
+            raise AssertionError(f"phase12: the eval's matrices {real.shape}, {gen.shape}")
+        tm = captured["timings"]
+        log(f"phase12 generation eval (epoch 1; {smi}): "
+            + ", ".join(f"{k.split('/')[-1]} {float(gen_rows[0][k]):.6g}" for k in metric_names)
+            + f"; MMD (four kernels, {EVAL_CELLS} x {EVAL_CELLS} cells of {N_GENES} genes) "
+            f"{tm['mmd_s']:.2f} s, Sinkhorn W1 and W2 {tm['sinkhorn_s']:.2f} s "
+            f"({tm['sinkhorn_iters'][1]} and {tm['sinkhorn_iters'][2]} iterations); the "
+            f"metrics' peak memory {captured['peak'] / 2**30:.2f} GiB above the "
+            f"{(peak - captured['peak']) / 2**30:.2f} GiB around them; train_ldm {wall:.1f} s "
+            f"wall, its peak {peak / 2**30:.2f} GiB; DiT block launches {launches}")
+
+        # -- the card's metrics against the CPU's on the same rows of the same matrices
+        n = EVAL_CPU_CELLS
+        card_t, cpu_t = {}, {}
+        t0 = time.perf_counter()
+        card = real_metrics(real[:n], gen[:n], lib[:n], card_t)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        cpu = real_metrics(real[:n].cpu(), gen[:n].cpu(), lib[:n].cpu(), cpu_t)
+        t2 = time.perf_counter()
+        for k, v in cpu.items():
+            tol = 1e-3 if "sinkhorn" in k else 1e-4
+            if not abs(card[k] - v) <= tol * max(abs(v), 1e-6):
+                raise AssertionError(f"phase12 {k}: card {card[k]:.8g} vs CPU {v:.8g}")
+        if card_t["sinkhorn_iters"] != cpu_t["sinkhorn_iters"]:
+            raise AssertionError(f"phase12 Sinkhorn iterations: card {card_t['sinkhorn_iters']}, "
+                                 f"CPU {cpu_t['sinkhorn_iters']}")
+        log(f"phase12 eval metrics on the first {n} cells of both matrices, card vs CPU (MMD "
+            f"1e-4, Sinkhorn 1e-3 relative): "
+            + ", ".join(f"{k.split('/')[-1]} {card[k]:.6g} / {cpu[k]:.6g}" for k in cpu
+                        if k != "generation_eval/total_samples")
+            + f"; Sinkhorn iterations {card_t['sinkhorn_iters']} on both; card {t1 - t0:.2f} s, "
+            f"CPU {t2 - t1:.2f} s")
+
+        # -- a real-versus-real split reads near zero
+        half = EVAL_CELLS // 2
+        scaled = torch.log1p(real / lib * 10_000.0)
+        rr = {name: float(fn(scaled[:half], scaled[half:]) if "counts" in name
+                          else fn(real[:half], real[half:]))
+              for name, fn in MMD_METRICS.items()}
+        gen_mmd = {name: float(gen_rows[0][f"generation_eval/{name}"]) for name in MMD_METRICS}
+        if not all(abs(v) <= 0.05 and abs(v) < 0.25 * abs(gen_mmd[k]) for k, v in rr.items()):
+            raise AssertionError(f"phase12 real vs real: {rr} against generated {gen_mmd}")
+        log("phase12 real vs real (two halves of the validation cells): "
+            + ", ".join(f"{k} {v:.3e} (generated {gen_mmd[k]:.3e})" for k, v in rr.items()))
+    finally:
+        dm_module.H5ADFile = real_h5ad
+        ScviTask.train_step = real_step
+        ge.distribution_metrics = real_metrics
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("yaml", "h5py", "pandas", "jax"))
+    if loaded:
+        raise AssertionError(f"phase12: {loaded} loaded")
+    log(f"phase12 took {time.perf_counter() - phase_t0:.1f} s; launches {launches}")
+    return launches
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -3574,6 +3863,9 @@ def main(argv=None) -> int:
     # -- phase 11: the CLIs from the repo's YAML configs ---------------------------
     cli = phase11_cli(args.seed, smi)
 
+    # -- phase 12: the scVI baseline and the generation evals -----------------------
+    evals = phase12_scvi_and_evals(args.seed, smi)
+
     tail_src = "scldm_torch/kernels/csrc/decoder_tail.cu"
     pool_src = "scldm_torch/kernels/csrc/encoder_pool.cu"
     pool_launches = {"dense_fwd": parse["encoder_pool_fwd"] + cli["encoder_pool_fwd"],
@@ -3593,12 +3885,14 @@ def main(argv=None) -> int:
         # the census sampler's (T = 64) and the long-latent pair's (T = 1,024)
         {"name": "dit_block", "route": "cuda", "source": dit_src,
          "replaces": "scldm_tpu/ops/fused_dit.py:155",
-         "launches": launches + ldm_fwd + ldm_gen + joint["dit_block"] + cli["dit_block"],
+         "launches": launches + ldm_fwd + ldm_gen + joint["dit_block"] + cli["dit_block"]
+         + evals["dit_block"],
          **dit_block[(16, 384)],
          **dit_block_bound(3 * args.batch, backward=False), "library_ms": None},
         {"name": "dit_block_bwd", "route": "cuda", "source": dit_bwd_src,
          "replaces": "scldm_tpu/ops/fused_dit.py:205",
-         "launches": ldm_bwd + joint["dit_block_bwd"] + cli["dit_block_bwd"],
+         "launches": ldm_bwd + joint["dit_block_bwd"] + cli["dit_block_bwd"]
+         + evals["dit_block_bwd"],
          **dit_block_bwd[(16, 128)], **dit_block_bound(128, backward=True),
          "library_ms": None},
         {"name": "dit_block_t64", "route": "cuda", "source": dit_src,

@@ -1,20 +1,24 @@
 """Shared CLI wiring (counterpart of scldm_tpu/cli/_common.py): the device,
 the checkpoint manager, the preemption guard and the wandb logger from the
-`training:` config group (the reference's training/default.yaml:26-52,
-a rank-0 WandbLogger and ModelCheckpoint monitor / save_top_k / save_last)."""
+`training:` config group (the reference's training/default.yaml:26-52, a
+rank-0 WandbLogger and ModelCheckpoint monitor / save_top_k / save_last),
+and the fit that the training CLIs share."""
 
 from __future__ import annotations
 
 import argparse
 import sys
-from typing import Dict, Optional
+from pathlib import Path
+from typing import Callable, Dict, Optional
 
 import torch
 
 from scldm_torch.config.build import resolve_device
 from scldm_torch.config.loader import load_config, merge_overrides, resolve
 from scldm_torch.training.checkpoint import CheckpointManager
+from scldm_torch.training.loop import CSVLogger, fit
 from scldm_torch.training.preemption import PreemptionGuard
+from scldm_torch.utils.logger import logger
 from scldm_torch.utils.wandb_logger import WandbLogger
 
 
@@ -67,3 +71,44 @@ def make_wandb_logger(cfg: Dict) -> Optional[WandbLogger]:
         name=wb.get("name") or cfg.get("experiment_name"),
         config=cfg,
     )
+
+
+def run_fit(cfg: Dict, task, datamodule, state, max_steps: int, ckpt_dir,
+            on_validation_end: Optional[Callable] = None):
+    """The training CLIs' common tail: the checkpoint manager with the config
+    snapshot (one process: the per-host learning rate is the run's), the
+    wandb logger and the preemption guard, then `fit` with `metrics.csv`
+    beside the checkpoints. Returns the final state."""
+    tr = cfg["training"]
+    mgr = make_checkpoint_manager(cfg, ckpt_dir)
+    mgr.save_config(cfg)
+    wandb_logger = make_wandb_logger(cfg)
+    preemption = make_preemption_guard(cfg)
+    try:
+        state = fit(
+            task,
+            datamodule,
+            state,
+            max_steps=max_steps,
+            epochs=int(cfg.get("epochs", 100)),
+            ckpt_manager=mgr,
+            csv_logger=CSVLogger(Path(ckpt_dir) / "metrics.csv"),
+            log_every_steps=int(tr.get("log_every_steps", 50)),
+            val_every_epochs=int(tr.get("val_every_epochs", 1)),
+            save_every_epochs=int(tr["checkpoint"].get("save_every_epochs", 1)),
+            eval_rng_seed=int(cfg.get("seed", 42)),
+            steps_per_dispatch=int(tr.get("steps_per_dispatch", 1)),
+            profile_dir=tr.get("profile_dir") or None,
+            profile_steps=int(tr.get("profile_steps", 3)),
+            on_validation_end=on_validation_end,
+            wandb_logger=wandb_logger,
+            preemption=preemption,
+        )
+    finally:
+        if preemption is not None:
+            preemption.uninstall()
+        mgr.close()  # drain the writes in flight before exit
+    if wandb_logger is not None:
+        wandb_logger.finish()
+    logger.info(f"done at step {int(state.step)}")
+    return state

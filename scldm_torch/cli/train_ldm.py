@@ -18,13 +18,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from scldm_torch.cli._common import (
-    make_checkpoint_manager,
-    make_preemption_guard,
-    make_wandb_logger,
-    parse_config,
-    setup_device,
-)
+from scldm_torch.cli._common import parse_config, run_fit, setup_device
 from scldm_torch.config.build import (
     build_datamodule,
     build_dit,
@@ -34,7 +28,7 @@ from scldm_torch.config.build import (
     compute_max_steps,
 )
 from scldm_torch.training.checkpoint import CheckpointManager, read_payload
-from scldm_torch.training.loop import CSVLogger, fit
+from scldm_torch.training.loop import CSVLogger
 from scldm_torch.utils.logger import logger
 
 DEFAULT_CONFIG = Path(__file__).resolve().parents[2] / "configs" / "ldm_training.yaml"
@@ -84,6 +78,39 @@ def load_vae_from_checkpoint(cfg: dict):
     return vae.requires_grad_(False).eval()
 
 
+def generation_eval_hook(cfg: dict, task, vocab, datamodule, ckpt_dir, seed: int):
+    """`model.eval_generation` as JAX's train_ldm wires it (the reference's
+    models.py:849-939): where enabled, a hook for `fit`'s
+    `on_validation_end` that, on the epochs `should_run` picks, generates
+    from the EMA weights without guidance and writes the metrics of
+    `evals.generation_eval.run_generation_eval` to `generation_eval.csv`
+    beside `metrics.csv`. None where disabled."""
+    gen_cfg = cfg["model"].get("eval_generation") or {}
+    if not gen_cfg.get("enabled"):
+        return None
+    from scldm_torch.evals.generation_eval import run_generation_eval, should_run
+    from scldm_torch.sampling.size_factors import SizeFactorSampler
+
+    sample_fn = task.make_sample_fn(
+        SizeFactorSampler(vocab),
+        guidance_weight=None,
+        sampling_method=gen_cfg.get("sampling_method", "dopri5"),
+        num_steps=int(gen_cfg.get("timesteps", 50)),
+        use_ema=True,
+    )
+    csv_logger = CSVLogger(Path(ckpt_dir) / "generation_eval.csv")
+
+    def on_validation_end(epoch, val_metrics, state):
+        if not should_run(epoch, gen_cfg):
+            return
+        mets = run_generation_eval(sample_fn, state, datamodule.val_batches(),
+                                   sample_size=int(gen_cfg.get("sample_size", 1024)),
+                                   rng_seed=seed + epoch)
+        csv_logger.log({"epoch": epoch, **mets})
+
+    return on_validation_end
+
+
 def main(argv=None) -> int:
     cfg = parse_config(argv, DEFAULT_CONFIG, __doc__)
     seed = int(cfg.get("seed", 42))
@@ -103,37 +130,8 @@ def main(argv=None) -> int:
     logger.info(f"DiT params: {n_params:,}; max_steps={max_steps}")
 
     ckpt_dir = cfg.get("checkpoint_dir", "outputs/checkpoints/ldm")
-    mgr = make_checkpoint_manager(cfg, ckpt_dir)
-    mgr.save_config(cfg)
-    wandb_logger = make_wandb_logger(cfg)
-    preemption = make_preemption_guard(cfg)
-
-    try:
-        state = fit(
-            task,
-            datamodule,
-            state,
-            max_steps=max_steps,
-            epochs=int(cfg.get("epochs", 100)),
-            ckpt_manager=mgr,
-            csv_logger=CSVLogger(Path(ckpt_dir) / "metrics.csv"),
-            log_every_steps=int(cfg["training"].get("log_every_steps", 50)),
-            val_every_epochs=int(cfg["training"].get("val_every_epochs", 1)),
-            save_every_epochs=int(cfg["training"]["checkpoint"].get("save_every_epochs", 1)),
-            eval_rng_seed=seed,
-            steps_per_dispatch=int(cfg["training"].get("steps_per_dispatch", 1)),
-            profile_dir=cfg["training"].get("profile_dir") or None,
-            profile_steps=int(cfg["training"].get("profile_steps", 3)),
-            wandb_logger=wandb_logger,
-            preemption=preemption,
-        )
-    finally:
-        if preemption is not None:
-            preemption.uninstall()
-        mgr.close()
-    if wandb_logger is not None:
-        wandb_logger.finish()
-    logger.info(f"done at step {int(state.step)}")
+    on_validation_end = generation_eval_hook(cfg, task, vocab, datamodule, ckpt_dir, seed)
+    run_fit(cfg, task, datamodule, state, max_steps, ckpt_dir, on_validation_end)
     return 0
 
 

@@ -3,10 +3,10 @@ scldm_tpu/config/build.py, the typed replacement for Hydra `_target_`
 instantiation). Each builder reads the config group the loader produces,
 with the reference tree's group names and keys.
 
-The port's modules hold their weights, so `build_vae` and `build_dit` also
-draw them (`utils.weights.init_reference_`, JAX's initialisers) from a
-generator seeded with the config's `seed`, on the config's `device`
-(default "cuda"; without a card that raises). `model.compute_dtype`
+The port's modules hold their weights, so `build_vae`, `build_dit` and
+`build_scvi_vae` also draw them (`utils.weights.init_reference_`, JAX's
+initialisers) from a generator seeded with the config's `seed`, on the
+config's `device` (default "cuda"; without a card that raises). `model.compute_dtype`
 (float32 or bfloat16, JAX's `_DTYPES`) is the modules' compute dtype over
 f32 weights, and `model.remat` recomputes each trunk block in the backward,
 both as in JAX.
@@ -14,9 +14,9 @@ both as in JAX.
 A config value the port cannot honour raises NotImplementedError naming the
 ROADMAP item that would bring it; none is ignored: `fsdp`, `gene_sp` and
 `pipeline_microbatches` (queue 1, item 11), `vae_as_tokenizer.train: true`
-(item 10), `eval_generation.enabled: true` (item 7), a transport other than
-Linear / velocity (item 9), and VAE / DiT options outside the shipped
-architecture, `remat_cross` and `cross_chunks` among them (item 8).
+(item 10), a transport other than Linear / velocity (item 9), and
+transformer-VAE / DiT options outside the shipped architecture,
+`remat_cross`, `cross_chunks` and VAE dropout among them (item 8).
 """
 
 from __future__ import annotations
@@ -28,8 +28,10 @@ import torch
 from scldm_torch.data.datamodule import DataModule
 from scldm_torch.data.encoder import VocabularyEncoder
 from scldm_torch.nn.nnets import DiT
-from scldm_torch.nn.vae import TransformerVAE, build_transformer_vae
+from scldm_torch.nn.vae import ScviVAE, TransformerVAE, build_transformer_vae
+from scldm_torch.nn.vae import build_scvi_vae as scvi_vae_module
 from scldm_torch.training.ldm_task import LDMTask
+from scldm_torch.training.scvi_task import ScviTask
 from scldm_torch.training.vae_task import VAETask
 from scldm_torch.transport import create_transport
 from scldm_torch.utils.weights import init_reference_
@@ -40,7 +42,6 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # what each config value the port refuses waits for (ROADMAP.md)
 MULTI_CARD = "ROADMAP queue 1, item 11 (more than one card)"
 TRAIN_VAE = "ROADMAP queue 1, item 10 (training the VAE inside the LDM)"
-EVALS = "ROADMAP queue 1, item 7 (the evals)"
 TRANSPORT = "ROADMAP queue 1, item 9 (other transports)"
 ARCH = "ROADMAP queue 1, item 8 (the remaining model variants)"
 
@@ -160,6 +161,45 @@ def build_vae(cfg: Dict) -> TransformerVAE:
     return init_reference_(vae, _generator(cfg, device))
 
 
+def build_scvi_vae(cfg: Dict) -> ScviVAE:
+    """The scVI baseline of `model.scvi` (configs/model/vae_scvi.yaml) on the
+    config's device, in f32 as JAX builds it, its weights drawn from a
+    generator seeded with the config's `seed`."""
+    m = cfg["model"]["scvi"]
+    device = resolve_device(cfg)
+    vae = scvi_vae_module(
+        n_genes=m["n_genes"],
+        n_hidden=m.get("n_hidden", 128),
+        n_latent=m.get("n_latent", 10),
+        n_layers=m.get("n_layers", 1),
+        dropout=float(m.get("dropout", 0.1)),
+        shared_theta=m.get("shared_theta", True),
+        device=device,
+    )
+    return init_reference_(vae, _generator(cfg, device))
+
+
+def build_scvi_task(cfg: Dict, max_steps: int) -> ScviTask:
+    m = cfg["model"]["scvi"]
+    opt = cfg["model"]["optimizer"]
+    sch = cfg["model"]["scheduler"]
+    tr = cfg["training"]
+    _check_parallel(tr)
+    return ScviTask(
+        build_scvi_vae(cfg),
+        n_latent=m.get("n_latent", 10),
+        kl_weight=float(m.get("kl_weight", 1.0)),
+        learning_rate=float(opt.get("lr", 1e-3)),
+        betas=tuple(opt.get("betas", (0.9, 0.95))),
+        weight_decay=float(opt.get("weight_decay", 0.0)),
+        grad_clip=float(tr.get("grad_clip", 10.0)),
+        num_training_steps=max_steps,
+        num_warmup_steps=sch.get("num_warmup_steps"),
+        decay_type=sch.get("decay_type", "sqrt"),
+        fract_decay=float(sch.get("fract_decay", 0.1)),
+    )
+
+
 def build_vae_task(cfg: Dict, vae: TransformerVAE, max_steps: int) -> VAETask:
     opt = cfg["model"]["optimizer"]
     sch = cfg["model"]["scheduler"]
@@ -241,8 +281,6 @@ def build_ldm_task(cfg: Dict, vae: TransformerVAE, dit: DiT, max_steps: int) -> 
         refuse(f"training.pipeline_microbatches={tr['pipeline_microbatches']}", MULTI_CARD)
     if (cfg["model"].get("vae_as_tokenizer") or {}).get("train", False):
         refuse("model.vae_as_tokenizer.train=true", TRAIN_VAE)
-    if (cfg["model"].get("eval_generation") or {}).get("enabled"):
-        refuse("model.eval_generation.enabled=true", EVALS)
     return LDMTask(
         vae,
         dit,

@@ -1,4 +1,5 @@
-"""Likelihood head over decoder hidden states (counterpart of scldm_tpu/nn/heads.py)."""
+"""Likelihood heads over decoder hidden states, and the scVI baseline's
+posterior and NB heads (counterpart of scldm_tpu/nn/heads.py)."""
 
 from __future__ import annotations
 
@@ -6,6 +7,7 @@ from typing import Tuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from scldm_torch.nn.layers import Linear, linear_f32
 
@@ -32,4 +34,43 @@ class NegativeBinomialTransformerHead(nn.Module):
         mu = linear_f32(h, self.params, self.params.compute_dtype).squeeze(-1)
         theta = torch.exp(self.theta(genes.long()).float()).squeeze(-1)
         mu = torch.softmax(mu.float(), dim=1) * library_size
+        return mu, theta
+
+
+class GaussianLinearHead(nn.Module):
+    """Gaussian posterior head of the scVI baseline: (loc, scale) from two
+    dense layers, the log-scale clipped to [-7, 5] and exponentiated in f32."""
+
+    def __init__(self, n_hidden: int, n_latent: int):
+        super().__init__()
+        self.loc = Linear(n_hidden, n_latent)
+        self.scale = Linear(n_hidden, n_latent)
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        log_scale = torch.clamp(self.scale(x), -7.0, 5.0)
+        return self.loc(x), torch.exp(log_scale.float())
+
+
+class NegativeBinomialLinearHead(nn.Module):
+    """Dense NB head of the scVI baseline: mu = softmax(Linear(h), over genes)
+    in f32 times the library; theta = softplus of a per-gene vector (shared,
+    initialised to ones) or of a second dense layer (per cell), in f32."""
+
+    def __init__(self, n_genes: int, n_hidden: int, shared_theta: bool = False):
+        super().__init__()
+        self.n_genes = n_genes
+        self.mu = Linear(n_hidden, n_genes)
+        if shared_theta:
+            self.theta = nn.Parameter(torch.ones(n_genes))
+        else:
+            self.theta = Linear(n_hidden, n_genes)
+
+    def forward(
+        self,
+        h: torch.Tensor,  # (B, n_hidden)
+        library_size: torch.Tensor,  # (B, 1)
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        theta_raw = self.theta if isinstance(self.theta, nn.Parameter) else self.theta(h)
+        theta = F.softplus(theta_raw.float())
+        mu = torch.softmax(self.mu(h).float(), dim=1) * library_size
         return mu, theta

@@ -72,6 +72,47 @@ def checkpointed(block: nn.Module, *args: torch.Tensor) -> torch.Tensor:
     return block(*args)
 
 
+class _SiLULowPrecision(torch.autograd.Function):
+    """`jax.nn.silu` in a low-precision dtype as XLA on the CPU computes it:
+    y = 1 / (1 + exp(-x)) and x * y with each op rounded to the dtype, and
+    its derivative as JAX's autodiff rounds it, g y + (1 - y) y (g x). Saves
+    x alone, as `F.silu` does, and recomputes y in the backward."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return _logistic(x).mul_(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        y = _logistic(x)
+        gy = g * x
+        out = (1.0 - y).mul_(y).mul_(gy)
+        del gy  # three census-sized temporaries at most
+        return out.add_(y.mul_(g))
+
+
+def _logistic(x: torch.Tensor) -> torch.Tensor:
+    return torch.neg(x).exp_().add_(1.0).reciprocal_()  # in place: census-sized x
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """`jax.nn.silu`, x * sigmoid(x): `F.silu` in f32. In bf16 the JAX
+    package's program rounds after each op of the sigmoid and after the
+    product, where `F.silu` rounds once; the port rounds where it does."""
+    if x.dtype == torch.float32:
+        return F.silu(x)
+    return _SiLULowPrecision.apply(x)
+
+
+class SiLU(nn.Module):
+    """`silu` as a module (in place of `nn.SiLU`, no parameters)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return silu(x)
+
+
 def modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """Adaptive LayerNorm modulation."""
     return x * (1.0 + scale) + shift
@@ -168,7 +209,7 @@ class MLP(nn.Module):
 
     def forward(self, x: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         """In the module's dtype, or in `dtype` where a call names one."""
-        return self.c_proj(F.silu(self.w1(x, dtype)) * self.w2(x, dtype), dtype)
+        return self.c_proj(silu(self.w1(x, dtype)) * self.w2(x, dtype), dtype)
 
 
 class Block(nn.Module):
@@ -193,7 +234,7 @@ class Block(nn.Module):
         self.mlp = MLP(n_embed, multiple_of, dtype)
         if use_adaln:
             self.adaln_modulation = nn.Sequential(
-                nn.SiLU(), Linear(n_embed, 6 * n_embed, compute_dtype=dtype))
+                SiLU(), Linear(n_embed, 6 * n_embed, compute_dtype=dtype))
 
     def forward(self, x: torch.Tensor, condition: Optional[torch.Tensor] = None) -> torch.Tensor:
         if not self.use_adaln:
@@ -250,7 +291,7 @@ class TimestepEmbedder(nn.Module):
         self.dtype = dtype
         self.mlp = nn.Sequential(
             Linear(frequency_embedding_size, hidden_size, compute_dtype=dtype),
-            nn.SiLU(),
+            SiLU(),
             Linear(hidden_size, hidden_size, compute_dtype=dtype),
         )
 
@@ -270,7 +311,7 @@ class TimestepEmbedder(nn.Module):
         """In the module's dtype, or in `dtype` where a call names one."""
         dtype = self.dtype if dtype is None else dtype
         t_freq = self.timestep_embedding(t, self.frequency_embedding_size)
-        return self.mlp[2](F.silu(self.mlp[0](t_freq, dtype)), dtype)
+        return self.mlp[2](silu(self.mlp[0](t_freq, dtype)), dtype)
 
 
 def get_1d_sincos_pos_embed(embed_dim: int, seq_len: int) -> np.ndarray:
@@ -293,7 +334,7 @@ class FinalLayerDiT(nn.Module):
     ):
         super().__init__()
         self.adaln_modulation = nn.Sequential(
-            nn.SiLU(), Linear(n_embed, 2 * n_embed, bias, dtype))
+            SiLU(), Linear(n_embed, 2 * n_embed, bias, dtype))
         self.norm_final = LayerNormFP32(n_embed, layernorm_eps, affine=False)
         self.linear = Linear(n_embed, n_embed_input, bias, dtype)
 

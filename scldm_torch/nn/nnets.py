@@ -1,8 +1,9 @@
-"""Network cores: the set Encoder/Decoder and the DiT denoiser (counterpart
-of scldm_tpu/nn/nnets.py). The DiT's sampling-time conditioning sums the
-class tables without dropout; its training conditioning (`embed_condition`)
-adds CFG dropout and the random class selection of the mutually exclusive
-strategy, with every draw from a `torch.Generator` or injected.
+"""Network cores: the scVI baseline's MLPs, the set Encoder/Decoder and the
+DiT denoiser (counterpart of scldm_tpu/nn/nnets.py). The DiT's
+sampling-time conditioning sums the class tables without dropout; its
+training conditioning (`embed_condition`) adds CFG dropout and the random
+class selection of the mutually exclusive strategy, with every draw from a
+`torch.Generator` or injected.
 
 `dtype` is JAX's compute dtype (`nn/layers.py`); `remat` recomputes each
 trunk block in the backward (JAX `nn.remat` around `Block`), which changes
@@ -10,10 +11,11 @@ memory, not numbers."""
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from scldm_torch.nn.layers import (
     Block,
@@ -26,6 +28,86 @@ from scldm_torch.nn.layers import (
     embed,
     get_1d_sincos_pos_embed,
 )
+
+
+class BatchNorm(nn.Module):
+    """flax's `nn.BatchNorm` over the last axis, which `nn.BatchNorm1d` with
+    its defaults is not: running averages with momentum 0.99 (torch's 0.01),
+    updated with the biased batch variance E[x^2] - E[x]^2 (clipped at 0,
+    the variance it normalises by), eps 1e-5. With `train` the batch's
+    statistics normalise and the buffers move; otherwise the running
+    averages normalise. The buffers are JAX's `batch_stats` (`mean`, `var`)."""
+
+    def __init__(self, n: int, momentum: float = 0.99, eps: float = 1e-5):
+        super().__init__()
+        self.momentum, self.eps = momentum, eps
+        self.weight = nn.Parameter(torch.ones(n))
+        self.bias = nn.Parameter(torch.zeros(n))
+        self.register_buffer("running_mean", torch.zeros(n))
+        self.register_buffer("running_var", torch.ones(n))
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if train:
+            dims = tuple(range(x.ndim - 1))
+            mean = x.mean(dims)
+            var = torch.clamp_min(x.square().mean(dims) - mean.square(), 0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+
+
+def dropout(x: torch.Tensor, rate: float, keep: Optional[torch.Tensor] = None,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """flax's `nn.Dropout` at train time: entries kept where `keep` (drawn as
+    uniform < 1 - rate from `generator` unless given) scaled by 1 / (1 -
+    rate), the rest zero."""
+    if keep is None:
+        keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class _ScviMLP(nn.Module):
+    """`n_layers` of Dense, BatchNorm, SiLU and (at train time, where
+    `dropout` > 0) Dropout, the scVI baseline's encoder and decoder body.
+    `keep` injects one dropout mask a layer in place of draws from
+    `generator`."""
+
+    def __init__(self, n_in: int, n_hidden: int, n_layers: int, dropout: float):
+        super().__init__()
+        self.n_layers, self.dropout = n_layers, dropout
+        for i in range(n_layers):
+            self.add_module(f"dense_{i}", Linear(n_in if i == 0 else n_hidden, n_hidden))
+            self.add_module(f"bn_{i}", BatchNorm(n_hidden))
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None,
+                keep: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+        for i in range(self.n_layers):
+            x = F.silu(getattr(self, f"bn_{i}")(getattr(self, f"dense_{i}")(x), train))
+            if train and self.dropout > 0:
+                x = dropout(x, self.dropout, None if keep is None else keep[i], generator)
+        return x
+
+
+class EncoderScvi(_ScviMLP):
+    """log1p(counts), then the MLP body: (B, n_genes) -> (B, n_hidden)."""
+
+    def __init__(self, n_genes: int, n_hidden: int, n_layers: int, dropout: float = 0.0):
+        super().__init__(n_genes, n_hidden, n_layers, dropout)
+
+    def forward(self, x, train=False, generator=None, keep=None):
+        return super().forward(torch.log1p(x), train, generator, keep)
+
+
+class DecoderScvi(_ScviMLP):
+    """The MLP body over the latent: (B, n_latent) -> (B, n_hidden)."""
+
+    def __init__(self, n_latent: int, n_hidden: int, n_layers: int, dropout: float = 0.0):
+        super().__init__(n_latent, n_hidden, n_layers, dropout)
 
 
 class Encoder(nn.Module):

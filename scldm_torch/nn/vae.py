@@ -1,9 +1,11 @@
-"""The transformer set-VAE (counterpart of scldm_tpu/nn/vae.py).
+"""The transformer set-VAE and the scVI baseline (counterpart of
+scldm_tpu/nn/vae.py).
 
-Deterministic in the LDM pipeline: the latent is the LayerNorm'd linear
-output of the encoder. Only the configuration of the shipped configs is
-ported so far: log1p input, shared gene embedding, shared-theta NB head
-at temperature 1."""
+The transformer VAE is deterministic in the LDM pipeline: the latent is the
+LayerNorm'd linear output of the encoder. Only the configuration of the
+shipped configs is ported so far: log1p input, shared gene embedding,
+shared-theta NB head at temperature 1. `ScviVAE` is the stochastic MLP
+baseline with an explicit Gaussian posterior."""
 
 from __future__ import annotations
 
@@ -12,9 +14,13 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn as nn
 
-from scldm_torch.nn.heads import NegativeBinomialTransformerHead
+from scldm_torch.nn.heads import (
+    GaussianLinearHead,
+    NegativeBinomialLinearHead,
+    NegativeBinomialTransformerHead,
+)
 from scldm_torch.nn.layers import InputTransformerVAE
-from scldm_torch.nn.nnets import Decoder, Encoder
+from scldm_torch.nn.nnets import Decoder, DecoderScvi, Encoder, EncoderScvi
 
 
 class TransformerVAE(nn.Module):
@@ -109,3 +115,67 @@ def build_transformer_vae(
         head = NegativeBinomialTransformerHead(n_genes, n_embed, dtype)
         return TransformerVAE(encoder, decoder, head,
                               InputTransformerVAE(n_genes, n_embed, dtype))
+
+
+class ScviVAE(nn.Module):
+    """The scVI baseline: an MLP VAE with a Gaussian posterior and the
+    reparameterised latent z = loc + eps * scale (counterpart of JAX's
+    `ScviVAE`). Every draw (eps, the dropout masks) comes from `generator`
+    unless `noise` gives it: {"eps": (B, n_latent), "keep": {"encoder":
+    [mask a layer], "decoder": [...]}}, either key optional."""
+
+    def __init__(self, encoder: EncoderScvi, encoder_head: GaussianLinearHead,
+                 decoder: DecoderScvi, decoder_head: NegativeBinomialLinearHead):
+        super().__init__()
+        self.encoder = encoder
+        self.encoder_head = encoder_head
+        self.decoder = decoder
+        self.decoder_head = decoder_head
+
+    def forward(
+        self,
+        counts: torch.Tensor,  # (B, n_genes)
+        library_size: torch.Tensor,  # (B, 1)
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,
+        noise: Optional[Dict] = None,
+    ) -> Tuple[Dict[str, torch.Tensor], Tuple[torch.Tensor, torch.Tensor], torch.Tensor]:
+        """Returns ({"mu", "theta"}, (loc, scale), z)."""
+        noise = noise or {}
+        keep = noise.get("keep") or {}
+        h = self.encoder(counts, train, generator, keep.get("encoder"))
+        loc, scale = self.encoder_head(h)
+        eps = noise.get("eps")
+        if eps is None:
+            eps = torch.randn(loc.shape, generator=generator, device=loc.device)
+        z = loc + eps * scale
+        h_x = self.decoder(z, train, generator, keep.get("decoder"))
+        mu, theta = self.decoder_head(h_x, library_size)
+        return {"mu": mu, "theta": theta}, (loc, scale), z
+
+    def decode(self, z: torch.Tensor, library_size: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The decoder and NB head in evaluation mode (running averages, no
+        dropout)."""
+        mu, theta = self.decoder_head(self.decoder(z), library_size)
+        return {"mu": mu, "theta": theta}
+
+
+def build_scvi_vae(
+    *,
+    n_genes: int,
+    n_hidden: int = 128,
+    n_latent: int = 10,
+    n_layers: int = 1,
+    dropout: float = 0.1,
+    shared_theta: bool = True,
+    device: torch.device | str = "cuda",
+) -> ScviVAE:
+    """An ScviVAE (configs/model/vae_scvi.yaml's defaults) in f32 on
+    `device` (the card unless the caller asks for the CPU)."""
+    with torch.device(device):
+        return ScviVAE(
+            EncoderScvi(n_genes, n_hidden, n_layers, dropout),
+            GaussianLinearHead(n_hidden, n_latent),
+            DecoderScvi(n_latent, n_hidden, n_layers, dropout),
+            NegativeBinomialLinearHead(n_genes, n_hidden, shared_theta),
+        )

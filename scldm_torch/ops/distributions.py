@@ -1,5 +1,5 @@
-"""Negative-binomial log-pmf and sampling (counterpart of
-scldm_tpu/ops/distributions.py).
+"""Negative-binomial log-pmf and sampling, and the Gaussian terms of the
+scVI baseline (counterpart of scldm_tpu/ops/distributions.py).
 
 Every draw comes from an explicit `torch.Generator` on the tensors' device.
 `torch._standard_gamma` takes no generator, so the gamma draws are written
@@ -7,6 +7,8 @@ out (Marsaglia and Tsang, 2000) over generator-driven normals and uniforms.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -76,3 +78,20 @@ def log_nb_positive(
         - torch.lgamma(theta)
         - torch.lgamma(x + 1.0)
     )
+
+
+def log_gaussian(
+    x: torch.Tensor, mu: torch.Tensor, sigma: torch.Tensor | None = None, eps: float = 1e-8
+) -> torch.Tensor:
+    """Gaussian reconstruction term: with `sigma=None` the elementwise L2
+    loss (x - mu)^2, otherwise a Gaussian NLL up to an additive constant."""
+    if sigma is None:
+        return (x - mu) ** 2
+    sigma = sigma + eps
+    return 0.5 * torch.square((x - mu) / sigma) + torch.log(sigma)
+
+
+def normal_log_prob(x: torch.Tensor, loc: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Elementwise Normal log-density (the scVI baseline's ELBO)."""
+    var = scale * scale
+    return -0.5 * (torch.log(2.0 * math.pi * var) + torch.square(x - loc) / var)

@@ -21,6 +21,16 @@ def pearson_corrcoef(preds: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return cov / torch.sqrt(pc.square().mean(0) * tc.square().mean(0))
 
 
+def r2_score(preds: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Scalar R^2 of the flattened predictions (the generation eval's
+    per-gene mean and variance vectors; the reference's models.py:52-55)."""
+    preds = preds.reshape(-1).float()
+    target = target.reshape(-1).float()
+    ss_res = torch.sum(torch.square(target - preds))
+    ss_tot = torch.sum(torch.square(target - target.mean()))
+    return 1.0 - ss_res / ss_tot
+
+
 def zeros_accuracy(preds: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     """Fraction of entries that agree on zero / non-zero."""
     return ((preds == 0) == (target == 0)).float().mean()

@@ -35,10 +35,9 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from scldm_torch.nn.heads import NegativeBinomialTransformerHead
-from scldm_torch.nn.layers import LayerNormFP32
+from scldm_torch.nn.layers import LayerNormFP32, silu
 from scldm_torch.nn.vae import TransformerVAE
 from scldm_torch.ops.attention import sdpa_shared_q
 from scldm_torch.ops.distributions import log_nb_positive, nb_sample
@@ -357,7 +356,7 @@ def _algebraic_tail(
         # two separate products, not hn @ w12: no (B, G, 2Hd) up projection
         a = hn @ mlp.w1.weight.t().to(dt)  # (B, G, Hd)
         b = hn @ mlp.w2.weight.t().to(dt)
-        g3 = F.silu(a) * b  # the largest live tensor
+        g3 = silu(a) * b  # the largest live tensor
         mlp_term = torch.einsum("bgh,h->bg", g3.float(), wv[:, 0].float())
     logits = (
         torch.einsum("bge,e->bg", h.float(), wmu[:, 0].to(dt).float())

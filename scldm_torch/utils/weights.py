@@ -3,14 +3,16 @@
 `load_reference_state_dict` is the bridge from the JAX package: the port's
 modules carry the reference's PyTorch names, which is what
 `scldm_tpu.utils.torch_import.export_torch_state_dict` emits, so a flax tree
-loads with a transpose-free `load_state_dict`. `load_reference_ema_` carries
+loads with a transpose-free `load_state_dict`; `batch_stats_state_dict`
+names a flax `batch_stats` collection the same way. `load_reference_ema_` carries
 an EMA tree (the JAX `EMAState.params`, or the reference checkpoint's
 `ema_model.ema_model.` weights) into a `training.ema.EMAState` the same way.
 
 `init_reference_` gives a module fresh weights from a `torch.Generator`,
 with the initialisers of the JAX package (xavier-uniform Linear, zero
-biases, N(0, 1) gene embeddings and inducing points, N(0, 0.02) class and
-timestep tables, adaLN-zero). `zero_init=False` draws the adaLN and final
+biases, unit LayerNorm and BatchNorm scales and shared-theta tables or
+vectors, N(0, 1) gene embeddings and inducing points, N(0, 0.02) class
+and timestep tables, adaLN-zero). `zero_init=False` draws the adaLN and final
 layers like any other Linear, so a randomly initialised DiT is not the
 identity.
 """
@@ -37,6 +39,20 @@ def _cleaned(state_dict: Mapping) -> Dict[str, torch.Tensor]:
                 break
         cleaned[k] = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.array(v))
     return cleaned
+
+
+def batch_stats_state_dict(batch_stats: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    """A flax `batch_stats` collection (nested dicts of arrays, as JAX's
+    ScviTask keeps in `TrainState.extra`) as the port's BatchNorm buffers:
+    `<path>.mean` -> `<path>.running_mean`, `<path>.var` -> `<path>.running_var`
+    (`export_torch_state_dict` maps only `params`)."""
+    out: Dict[str, np.ndarray] = {}
+    for k, v in batch_stats.items():
+        if isinstance(v, Mapping):
+            out.update(batch_stats_state_dict(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}running_{k}"] = np.asarray(v)
+    return out
 
 
 def load_reference_state_dict(module: nn.Module, state_dict: Mapping, strict: bool = True):
@@ -91,8 +107,8 @@ def init_reference_(
                 p.zero_()
             elif name.startswith("class_embeddings."):
                 normal_(p, 0.02)
-            elif name.endswith("theta.weight") or (p_name == "weight" and p.ndim == 1):
-                p.fill_(1.0)  # shared-theta table, LayerNorm scales
+            elif name.endswith(("theta.weight", "theta")) or (p_name == "weight" and p.ndim == 1):
+                p.fill_(1.0)  # shared-theta table or vector, LayerNorm and BatchNorm scales
             elif p_name == "pos_embed":
                 p.zero_()  # the reference's frozen all-zeros encoder table
             else:

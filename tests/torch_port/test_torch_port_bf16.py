@@ -1,7 +1,7 @@
 """The port at the configs' compute dtype, `model.compute_dtype: bfloat16`
 (f32 weights, bf16 products), against the JAX package's modules and tasks
 built with `dtype=jnp.bfloat16`, on the same weights (the bridge) and the
-same numpy inputs: the input layer, one block, the encoder with its MCAB,
+same numpy inputs: silu (bit for bit), the input layer, one block, the encoder with its MCAB,
 the decoder and the NB head; the whole VAE forward and one
 `VAETask.train_step`; the module DiT and one module-path `LDMTask` step;
 euler steps of generation through the module denoiser; the algebraic tail
@@ -15,18 +15,23 @@ for bit), and an f32 config's step bit for bit against the plain
 dtype.
 
 Bound (`assert_bf16_near`): over each tensor, the port's largest distance
-from JAX's bf16 result is at most K = 4 times JAX's own largest
+from JAX's bf16 result is at most K = 2.25 times JAX's own largest
 bf16-versus-f32 distance (the same function built with `dtype=jnp.float32`
 on the same weights and inputs) plus a floor of FLOOR = 4e-3 of the f32
 result's largest magnitude. Both sides round to bf16 at the program's
-points, but XLA keeps chains of elementwise ops (and a dot's sum where its
-bf16 result is cast to f32 at once) in f32 between them, where the port
-rounds after every op; so the port's own bf16 error runs larger than JAX's
-in places (up to 3.7 times it among the VAE's gradients here), and the two
-errors add. Since an f32 port would pass that bound too, the dtypes are
-checked beside it. The DiT kernel path, f32 on both sides, is held to 1e-4
-as the f32 tests hold it."""
+points, and the port rounds where XLA on the CPU does after each
+elementwise op, each of `jax.nn.silu`'s four sigmoid ops included
+(`nn.layers.silu`). Where a LayerNorm reads a residual sum, XLA hands its
+f32 upcast the sum's unrounded value and the port the rounded one, and the
+two sum their cotangents in other orders; so the port's distance runs up to
+2.2 times JAX's own among the VAE's gradients here, and the bound needs K =
+1.90 (`python -m tests.torch_port.bf16_ratios` prints each tensor's). Since
+an f32 port would pass that bound too, the dtypes are checked beside it.
+The DiT kernel path, f32 on both sides, is held to 1e-4 as the f32 tests
+hold it."""
 
+import json
+import os
 import types
 
 import jax
@@ -60,7 +65,7 @@ from scldm_torch.utils.weights import load_reference_state_dict
 from tests.test_training import make_batch
 from tests.torch_port.test_torch_port_dit import randomized_dit_params
 
-K, FLOOR = 4.0, 4e-3
+K, FLOOR = 2.25, 4e-3
 BF = {"bf16": (jnp.bfloat16, torch.bfloat16), "f32": (jnp.float32, torch.float32)}
 G, B, S = 40, 6, 20
 VAE_ARCH = dict(n_genes=G, n_embed=16, n_embed_latent=8, n_layer=2, n_inducing_points=4,
@@ -81,12 +86,31 @@ def _exact_matmuls():
         yield
 
 
+def record_ratio(what, err, noise, scale):
+    """With SCLDM_BF16_RATIOS set to a file, append one JSON line per tensor
+    held: its test, its name, the ratio err / noise (the port's distance from
+    JAX's bf16 result over JAX's own bf16-versus-f32 distance) and the K the
+    bound needs beside its floor, max(0, err - FLOOR scale) / noise.
+    `python -m tests.torch_port.bf16_ratios` runs this file so and tabulates
+    the lines."""
+    path = os.environ.get("SCLDM_BF16_RATIOS")
+    if not path:
+        return
+    test = os.environ.get("PYTEST_CURRENT_TEST", "").split(" ")[0].split("::")[-1]
+    row = {"test": test, "what": what, "err": err, "noise": noise, "scale": scale,
+           "ratio": err / noise if noise > 0 else None,
+           "needed_k": max(0.0, err - FLOOR * scale) / noise if noise > 0 else None}
+    with open(path, "a") as f:
+        f.write(json.dumps(row) + "\n")
+
+
 def assert_bf16_near(got, want, want_f32, what):
     """max |got - want| <= K max |want - want_f32| + FLOOR max |want_f32|."""
     got, want, ref = (np.asarray(np.asarray(a, np.float32), np.float64)
                       for a in (got, want, want_f32))
     assert got.shape == want.shape == ref.shape, what
     err, noise, scale = np.abs(got - want).max(), np.abs(want - ref).max(), np.abs(ref).max()
+    record_ratio(what, float(err), float(noise), float(scale))
     assert err <= K * noise + FLOOR * scale, (
         f"{what}: {err:.3e} > {K} x {noise:.3e} + {FLOOR} x {scale:.3e}")
 
@@ -205,6 +229,31 @@ def test_vae_modules_match_jax_bf16(vae_setup, part, out_dtype):
 def _global_norm(tree):
     return float(jnp.sqrt(sum(jnp.sum(jnp.square(x.astype(jnp.float32)))
                               for x in jax.tree_util.tree_leaves(tree))))
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+def test_silu_matches_jax(dtype):
+    """`layers.silu` against `jax.nn.silu`, forward and gradient, on the same
+    inputs: in bf16 bit for bit (each op of the sigmoid rounded as XLA
+    rounds it, where `F.silu` rounds once), in f32 `F.silu` itself."""
+    jdt, tdt = BF[dtype]
+    rng = np.random.default_rng(5)
+    x = (rng.standard_normal((257, 67)) * 4).astype(np.float32)
+    g = rng.standard_normal((257, 67)).astype(np.float32)
+    y, vjp = jax.vjp(jax.nn.silu, jnp.asarray(x, jdt))
+    (gx,) = vjp(jnp.asarray(g, jdt))
+    xt = torch.from_numpy(x).to(tdt).requires_grad_()
+    out = layers.silu(xt)
+    out.backward(torch.from_numpy(g).to(tdt))
+    assert out.dtype == xt.grad.dtype == tdt
+    if dtype == "bf16":
+        np.testing.assert_array_equal(out.detach().float().numpy(), np.asarray(y, np.float32))
+        np.testing.assert_array_equal(xt.grad.float().numpy(), np.asarray(gx, np.float32))
+    else:
+        x32 = torch.from_numpy(x).requires_grad_()
+        F.silu(x32).backward(torch.from_numpy(g))
+        assert torch.equal(out, F.silu(torch.from_numpy(x))) and torch.equal(xt.grad, x32.grad)
+        np.testing.assert_allclose(out.detach().numpy(), np.asarray(y), rtol=1e-6, atol=1e-6)
 
 
 def test_vae_forward_and_train_step_match_jax_bf16(vae_setup):

@@ -224,7 +224,6 @@ def _ldm_task(cfg):
     ("ldm_training.yaml", ["training.gene_sp=true"], _ldm_task, "item 11"),
     ("ldm_training.yaml", ["training.pipeline_microbatches=4"], _ldm_task, "item 11"),
     ("ldm_training.yaml", ["model.vae_as_tokenizer.train=true"], _ldm_task, "item 10"),
-    ("ldm_training.yaml", ["model.eval_generation.enabled=true"], _ldm_task, "item 7"),
     ("ldm_training.yaml", ["model.transport.path_type=GVP"], _ldm_task, "item 9"),
     ("ldm_training.yaml", ["model.transport.prediction=noise"], _ldm_task, "item 9"),
     ("vae_training.yaml", ["model.vae.dropout=0.1"], build.build_vae, "item 8"),
@@ -238,6 +237,24 @@ def test_unsupported_values_raise(config, overrides, call, item):
     cfg = small_cfg(config, SMALL_DIT + overrides)
     with pytest.raises(NotImplementedError, match=item):
         call(cfg)
+
+
+def test_eval_generation_builds(tmp_path):
+    """`model.eval_generation.enabled=true` builds (it raised before the
+    evals were ported): the LDM task, and `train_ldm`'s hook, which runs
+    only on the epochs `should_run` picks."""
+    from scldm_torch.cli import train_ldm
+    from scldm_torch.sampling.size_factors import constant_stats
+
+    cfg = small_cfg("ldm_training.yaml", SMALL_DIT + ["model.eval_generation.enabled=true"])
+    ldm = build.build_ldm_task(cfg, build.build_vae(cfg), build.build_dit(cfg), max_steps=10)
+    vocab = constant_stats(cfg["model"]["diffusion_model"]["class_vocab_sizes"])
+    hook = train_ldm.generation_eval_hook(cfg, ldm, vocab, None, tmp_path, seed=0)
+    assert callable(hook)
+    hook(0, {}, None)  # epoch 0: not run (it would need the datamodule and a state)
+    assert not (tmp_path / "generation_eval.csv").exists()
+    cfg["model"]["eval_generation"]["enabled"] = False
+    assert train_ldm.generation_eval_hook(cfg, ldm, vocab, None, tmp_path, seed=0) is None
 
 
 @pytest.mark.parametrize("config,overrides,call,dtype,remat", [

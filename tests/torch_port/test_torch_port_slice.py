@@ -167,7 +167,9 @@ def test_import_without_jax():
         "import scldm_torch.training.checkpoint, scldm_torch.training.preemption\n"
         "import scldm_torch.training.loop, scldm_torch.utils.profiling, scldm_torch.utils.logger\n"
         "import scldm_torch.utils.wandb_logger, scldm_torch.cli._common, scldm_torch.cli.train\n"
-        "import scldm_torch.cli.train_ldm, scldm_torch.cli.inference\n"
+        "import scldm_torch.cli.train_ldm, scldm_torch.cli.inference, scldm_torch.cli.train_scvi\n"
+        "import scldm_torch.training.scvi_task, scldm_torch.nn.priors, scldm_torch.evals.mmd\n"
+        "import scldm_torch.evals.wasserstein, scldm_torch.evals.generation_eval\n"
         "host = [m for m in ('h5py', 'pandas', 'yaml', 'orbax', 'wandb') if m in sys.modules]\n"
         "assert not host, f'the chip path loads {host}'\n"
         "import scldm_torch.data.h5ad, scldm_torch.cli.extract_metadata, scldm_torch.utils.output\n"
