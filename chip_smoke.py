@@ -168,7 +168,26 @@ warmup, sample_size 1,024, dopri5 at 50 steps) over 1,024 validation cells
 metrics are held to the CPU's on the first 128 cells of the same two
 matrices (MMD 1e-4, Sinkhorn 1e-3 relative, the same iteration count), a
 real-versus-real split must read near zero, and the eval's seconds and peak
-memory are printed. The line before the last is a JSON
+memory are printed. Phases 1b and 1d also hold the any-width designs
+(decoder_tail_gen.cu, encoder_pool_gen.cu) at the corners of the widths the
+JAX gate sends them (E 16 and 128, head widths 8 to 64, 1 and 64 latent
+tokens or inducing points, the MLP rule's smallest and largest hidden
+widths) and at phase 13's two shapes against their plain versions, by
+`held_bf16`'s bounds with the plain version's own distance in another
+summation order as a floor, each backward (and each pool forward) run twice
+to the same bits, and time both directions at phase 13's shapes beside
+their bounds. Phase 13 runs `scldm_torch.cli.train` on
+configs/vae_training.yaml as shipped (bf16) at two other widths through the
+in-memory shard: dentate (G = 17,002, its window) with model.vae.n_embed=64,
+n_head_cross=4, n_inducing_points=32 (the module encoder and the tail), and
+parse1m (G = 2,000) with n_embed=128, n_head_cross=8, n_inducing_points=64
+(the dense pool and the tail), 8 steps of B = 128 each with one launch of
+each kernel a step, printing train cells/s and peak memory; it holds one
+kernel-path step of an f32 VAE at each width against the module path at
+phase 3's bounds and times the two paths in turns with their peak memory,
+and at the dentate width takes three
+`VAETask(fused_pool=True)` steps through the window pool at E = 64, one held
+against the module MCAB at phase 5's bounds. The line before the last is a JSON
 summary of the kernels, each with its time beside the least time the card could
 take for the same work; the last is {"ok": true, "device": {...}}. Any failure
 raises, so the script exits non-zero and prints no result; so does a machine
@@ -791,6 +810,318 @@ def phase1d_encoder_pool(seed: int) -> dict:
                              f"module, max |ref| {scale:.3e}")
     log(f"phase1d dense pooling G={G} S={S} B={B} ({G - S} zero rows taken out): kernel vs module "
         f"MCAB max abs err {err:.3e} ({err / scale:.1e} of max)")
+    return out
+
+
+# -- phases 1b and 1d at the other widths, and phase 13 ----------------------------
+
+# phase 13's two widths: configs/model/vae_base.yaml with model.vae.n_embed,
+# n_head_cross and n_inducing_points overridden; Hd is the MLP rule's hidden width
+# at the shipped multiple_of 4
+WIDTHS = {"dentate": dict(E=64, H=4, M=32, Hd=172), "parse1m": dict(E=128, H=8, M=64, Hd=344)}
+# (E, n_head, M, Hd, B, G) of phase 1b's grid: its corners (E 16 and 128; head
+# widths 8 and 16 at E = 16, 8 and 64 at E = 128; 1 and 64 latent tokens; the MLP
+# rule's hidden widths at multiple_of 1 and 64) and phase 13's two training shapes
+TAIL_GRID = ((16, 2, 1, 42, 32, 2_000), (16, 1, 64, 64, 32, 2_000),
+             (128, 16, 64, 341, 16, 2_000), (128, 2, 1, 384, 32, 2_000),
+             (128, 16, 1, 384, 32, 2_000), (128, 2, 64, 341, 16, 2_000),
+             (64, 4, 32, 172, 128, N_GENES), (128, 8, 64, 344, 128, PARSE_GENES))
+# (variant, E, n_head, Q, B, N) of phase 1d's grid: the same corners, each variant,
+# and phase 13's two shapes: the window pool at the dentate window (VAETask(
+# fused_pool=True) at E = 64), the dense pool at parse1m (E = 128)
+POOL_GRID = (("window", 16, 2, 1, 16, 2_000), ("dense", 16, 2, 64, 16, 2_000),
+             ("dense", 16, 1, 1, 16, 2_000), ("window", 16, 1, 64, 16, 2_000),
+             ("window", 128, 16, 64, 16, 2_000), ("dense", 128, 16, 1, 16, 2_000),
+             ("dense", 128, 2, 64, 16, 2_000), ("window", 128, 2, 1, 16, 2_000),
+             ("window", 64, 4, 32, 128, WINDOW), ("dense", 128, 8, 64, 128, PARSE_GENES))
+# the kernels behind the any-width designs' entry points (the packers and the
+# fixed-order sum included)
+GEN_TAIL_KERNELS = {"fwd": ("tail_fwd_gen", "pack_a", "pack_b"),
+                    "bwd": ("tail_bwd_", "pack_a", "pack_b", "sum_parts")}
+GEN_POOL_KERNELS = {"fwd": ("pool_fwd_gen", "pack_a", "pack_b"),
+                    "bwd": ("pool_bwd_", "pack_a", "pack_b", "sum_parts")}
+
+
+def held_bf16_or_order(what: str, got, want, again, near: float = 1e-4) -> tuple:
+    """`held_bf16`, with the plain version's own sensitivity to its summation
+    order as a floor: `again` is the plain version evaluated in another
+    order of every sum (`order_flips`). Where the operands' bf16 roundings
+    cascade over long sums (a thousand keys a cell, a sum over every token
+    of terms that cancel), two f32 orders of the plain version alone flip
+    enough of them to pass `held_bf16`'s 5%: there the kernel is held to
+    twice the plain version's own distance. Returns held_bf16's tuple and
+    the plain version's own share beyond `near`."""
+    err, scale, beyond = bf16_distance(got, want, near)
+    own_err, _, own_beyond = bf16_distance(again, want, near)
+    if scale == 0 or err > max(1e-2 * scale, 2 * own_err) or beyond > max(5e-2, 2 * own_beyond):
+        raise AssertionError(f"{what}: max abs err {err:.3e}, max |ref| {scale:.3e}, share beyond "
+                             f"{near:g} of it {beyond:.2e}; the plain version in another order: "
+                             f"{own_err:.3e}, {own_beyond:.2e}")
+    return (err, err / scale, beyond, near), own_beyond
+
+
+def order_flips(n: int):
+    """A permutation of n indices that reverses them: another summation order."""
+    import torch
+
+    return torch.arange(n - 1, -1, -1, device="cuda")
+
+
+def tail_plain_reordered(qp, q, kf, vp, w, dy, H: int, M: int):
+    """The plain tail's logits and gradients (as `decoder_tail_bwd` returns
+    them, dkfull in full) with every sum taken in another order: the genes,
+    each head's columns of E and keys, and the hidden columns reversed, then
+    put back in place."""
+    import torch
+
+    from scldm_torch.ops import fused_decoder as fd
+
+    G, E = qp.shape
+    Hd, hd = w[2].shape[1] // 2, E // H
+    pe = torch.cat([h * hd + order_flips(hd) for h in range(H)])
+    pm = torch.cat([h * M + order_flips(M) for h in range(H)])
+    ph, pg = order_flips(Hd), order_flips(G)
+    ln2g, ln2b, w12, wv, wmu, bmu = w
+    w12p = torch.cat([w12[:, :Hd][pe][:, ph], w12[:, Hd:][pe][:, ph]], 1)
+    ins = [qp[pg][:, pe], q[pg][:, pe], kf[:, pm][:, :, pe], vp[:, pm][:, :, pe],
+           ln2g[:, pe], ln2b[:, pe], w12p, wv[:, ph], wmu[:, pe], bmu]
+    leaves = [t.contiguous().requires_grad_() for t in ins]
+    ref = fd.decoder_tail_reference(*leaves[:4], leaves[4:], H, EPS)
+    g = torch.autograd.grad(ref, leaves, dy[:, pg].contiguous())
+    ie, im, ih, ig = (torch.argsort(p) for p in (pe, pm, ph, pg))
+    dw = g[6]
+    return [ref.detach()[:, ig], g[0][ig][:, ie], g[1][ig][:, ie], g[2][:, im][:, :, ie],
+            g[3][:, im][:, :, ie], g[4][:, ie], g[5][:, ie],
+            torch.cat([dw[:, :Hd][ie][:, ih], dw[:, Hd:][ie][:, ih]], 1), g[7][:, ih],
+            g[8][:, ie], g[9]]
+
+
+def pool_plain_reordered(reference, counts, x, cot, H: int) -> dict:
+    """`pool_outputs_and_grads` of the plain pool with every sum taken in
+    another order: the tokens and each head's columns of E reversed, then put
+    back in place."""
+    import torch
+
+    E = x["wk"].shape[0]
+    hd = E // H
+    pe = torch.cat([h * hd + order_flips(hd) for h in range(H)])
+    dense = counts is not None
+    N = x["src"].shape[0] if dense else x["src"].shape[1]
+    pn = order_flips(N)
+    src = x["src"][pn][:, pe] if dense else x["src"][:, pn][:, :, pe]
+    xp = dict(src=src.contiguous(), q=x["q"][:, pe].contiguous(), ln1g=x["ln1g"][:, pe],
+              ln1b=x["ln1b"][:, pe], wk=x["wk"][pe][:, pe].contiguous(),
+              wv=x["wv"][pe][:, pe].contiguous())
+    cp = counts[:, pn].contiguous() if dense else None
+    r = pool_outputs_and_grads(reference, cp, xp, (cot[0][:, :, pe].contiguous(), cot[1]), H)
+    ie, iN = torch.argsort(pe), torch.argsort(pn)
+    fwd, bwd = r["fwd"], r["bwd"]
+    return {"fwd": {"num": fwd["num"][:, :, ie], "den": fwd["den"], "m": fwd["m"]},
+            "bwd": {"dsrc": bwd["dsrc"][iN][:, ie] if dense else bwd["dsrc"][:, iN][:, :, ie],
+                    "dq": bwd["dq"][:, ie], "dln1g": bwd["dln1g"][:, ie],
+                    "dln1b": bwd["dln1b"][:, ie], "dwk": bwd["dwk"][ie][:, ie],
+                    "dwv": bwd["dwv"][ie][:, ie]}}
+
+
+def tail_function_bound(B: int, G: int, E: int, H: int, M: int, Hd: int,
+                        backward: bool) -> dict:
+    """The decoder tail's function at any width: per pair the scores over the
+    head blocks (M*E), the probabilities times values (H*M*E), the up
+    projection (2E*Hd) and the wv and wmu dots, two operations per
+    multiply-add at the bf16 tensor-core peak; the backward three times the
+    forward's operations (the least a recompute VJP takes). Bytes: qp, q,
+    kfull, vproj and the weights in, the logits out; backward also dy in and
+    a gradient of each input out."""
+    weights = 3 * E + 2 * E * Hd + Hd + 1
+    inputs = 2 * G * E + 2 * B * H * M * E + weights
+    flops = 2 * B * G * (M * E + H * M * E + 2 * E * Hd + Hd + E)
+    if backward:
+        return bound(4 * (2 * inputs + B * G), 3 * flops, BF16_FLOPS)
+    return bound(4 * (inputs + B * G), flops, BF16_FLOPS)
+
+
+def phase1b_decoder_tail_grid(seed: int) -> dict:
+    """The decoder-tail kernels at the other widths the JAX gate sends them
+    (TAIL_GRID: the any-width design, decoder_tail_gen.cu), forward and
+    backward, against the plain version on the same operands: the logits,
+    and the backward's gradients for one fixed cotangent (the plain
+    version's autograd, its dkfull on the head blocks the kernels write), by
+    `held_bf16`'s bounds with the plain version's own distance in another
+    summation order as a floor (`held_bf16_or_order`,
+    `tail_plain_reordered`). Each backward runs twice and repeats its bits; one
+    launch each way is counted a call. At phase 13's two shapes each
+    direction is timed in turns with its plain version (a call through the
+    entry point and on the device) beside the function's bound. Returns
+    {(part, E): row of the kernels line}."""
+    import torch
+
+    from scldm_torch.ops import fused_decoder as fd
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 13)
+
+    def rnd(*shape, scale=0.3, shift=0.0):
+        return torch.randn(*shape, generator=g, device="cuda") * scale + shift
+
+    out = {}
+    for E, H, M, Hd, B, G in TAIL_GRID:
+        raw = [rnd(E, shift=1.0), rnd(E), rnd(E, Hd), rnd(E, Hd), rnd(Hd, E), rnd(E, 1), rnd(1)]
+        w = [t.contiguous() for t in fd.pack_weights(*raw)]
+        kf, vp = fd.build_attention_operands(rnd(B, M, E), rnd(B, M, E), rnd(E, E), H)
+        qp, q, dy = rnd(G, E), rnd(G, E), rnd(B, G, scale=1.0)
+        args = (qp, q, kf, vp, w)
+        counts = (fd.DECODER_TAIL_FWD_LAUNCHES.count, fd.DECODER_TAIL_BWD_LAUNCHES.count)
+        logits = fd.decoder_tail_fwd(*args, H, EPS)
+        grads = fd.decoder_tail_bwd(*args, dy, H, EPS)
+        again = fd.decoder_tail_bwd(*args, dy, H, EPS)
+        torch.cuda.synchronize()
+        if (fd.DECODER_TAIL_FWD_LAUNCHES.count - counts[0],
+                fd.DECODER_TAIL_BWD_LAUNCHES.count - counts[1]) != (1, 2):
+            raise AssertionError(f"decoder_tail at {(E, H, M, Hd)}: launches not counted")
+        if fd.specialised(E, H, M, Hd, True):
+            raise AssertionError(f"{(E, H, M, Hd)} is the specialised design's shape")
+        flat = lambda r: [*r[:4], *r[4]]  # noqa: E731
+        if not all(torch.equal(a, b) for a, b in zip(flat(grads), flat(again))):
+            raise AssertionError(f"decoder_tail_bwd at {(E, H, M, Hd, B, G)}: a second run "
+                                 "gave other bits")
+        del again
+        leaves = [t.detach().clone().requires_grad_() for t in (*args[:4], *w)]
+        ref = fd.decoder_tail_reference(*leaves[:4], leaves[4:], H, EPS)
+        want = torch.autograd.grad(ref, leaves, dy)
+        hd = E // H
+        block = torch.zeros(H * M, E, device="cuda")
+        for h in range(H):
+            block[h * M:(h + 1) * M, h * hd:(h + 1) * hd] = 1
+        names = ("dqp", "dq", "dkfull", "dvproj", *(f"d{n}" for n in fd.WEIGHT_NAMES))
+        wants = [ref.detach(), *want[:2], want[2] * block, *want[3:]]
+        again = tail_plain_reordered(qp, q, kf, vp, w, dy, H, M)
+        again[3] = again[3] * block
+        worst, own = {}, {}
+        for name, got, w_, a_ in zip(("logits", *names), [logits, *flat(grads)], wants, again):
+            if M == 1 and name in ("dqp", "dkfull"):
+                # one key: p = 1 whatever the scores, so these are exactly 0 both ways
+                if w_.abs().max() != 0 or got.abs().max() != 0:
+                    raise AssertionError(f"decoder_tail_bwd at {(E, H, M, Hd)} {name}: not 0")
+                worst[name], own[name] = (0.0, 0.0, 0.0, 1e-4), 0.0
+                continue
+            worst[name], own[name] = held_bf16_or_order(
+                f"decoder_tail at {(E, H, M, Hd)} {name}", got, w_.reshape(got.shape),
+                a_.reshape(got.shape))
+        log(f"phase1b grid decoder_tail E={E} H={H} M={M} Hd={Hd} B={B} G={G}: "
+            + report_bf16(worst) + "; the plain version in another order, share beyond: "
+            + ", ".join(f"{k} {v:.1e}" for k, v in own.items() if v)
+            + "; the backward repeats its bits")
+        del again
+        del ref, want, grads
+        if B != 128:
+            continue
+        graph = fd.decoder_tail_reference(*leaves[:4], leaves[4:], H, EPS)
+        fns = {"fwd": (lambda: fd.decoder_tail_fwd(*args, H, EPS),
+                       lambda: fd.decoder_tail_reference(*args, H, EPS)),
+               "bwd": (lambda: fd.decoder_tail_bwd(*args, dy, H, EPS),
+                       lambda: torch.autograd.grad(graph, leaves, dy, retain_graph=True))}
+        for part, (kernel, plain) in fns.items():
+            ms, plain_ms = time_in_turns(kernel, plain, 5 if part == "fwd" else 3)
+            dev = device_ms(kernel, 2, GEN_TAIL_KERNELS[part])
+            b = tail_function_bound(B, G, E, H, M, Hd, part == "bwd")
+            err = max(e for k, (e, *_) in worst.items() if (k == "logits") == (part == "fwd"))
+            out[(part, E)] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                              "device_ms": dev, **b}
+            log(f"phase1b grid decoder_tail_{part} E={E} H={H} M={M} Hd={Hd} B={B} G={G}: "
+                f"kernel {ms:.4f} ms ({dev:.4f} ms on the device), plain {plain_ms:.4f} ms, "
+                f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}); workspace "
+                + (f"{4 * fd.decoder_tail_bwd_workspace_floats(B, G, Hd, E, H, M) / 1e6:.1f} MB"
+                   if part == "bwd" else
+                   f"{4 * fd.decoder_tail_fwd_workspace_floats(B, G, Hd, E, H, M) / 1e6:.1f} MB"))
+        del graph
+    return out
+
+
+def phase1d_encoder_pool_grid(seed: int) -> dict:
+    """The narrow encoder pools at the other widths the JAX gates send them
+    (POOL_GRID: the any-width design, encoder_pool_gen.cu), dense and window,
+    forward and backward, against their plain versions with autograd as
+    phase 1d holds them (`pool_outputs_and_grads`: each its own m), by
+    `held_bf16`'s bounds (num at POOL_NUM_NEAR) with the plain version's own
+    distance in another summation order as a floor (`held_bf16_or_order`,
+    `pool_plain_reordered`). Each direction runs twice and
+    repeats its bits. At phase 13's two shapes each direction is timed in
+    turns with its plain version (a call and on the device) beside its
+    bound. Returns {(variant, part): row of the kernels line}."""
+    import torch
+
+    from scldm_torch.kernels import build
+    from scldm_torch.ops import fused_encoder as fe
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 14)
+
+    def rnd(*shape, scale=1.0, shift=0.0):
+        return torch.randn(*shape, generator=g, device="cuda") * scale + shift
+
+    lib = build.load()
+    out = {}
+    for variant, E, H, Q, B, N in POOL_GRID:
+        dense = variant == "dense"
+        x = dict(src=rnd(N, E) if dense else rnd(B, N, E), q=rnd(Q, E),
+                 ln1g=rnd(1, E, scale=0.3, shift=1.0), ln1b=rnd(1, E, scale=0.3),
+                 wk=rnd(E, E, scale=E**-0.5), wv=rnd(E, E, scale=E**-0.5))
+        counts = (torch.poisson(torch.full((B, N), 3.0, device="cuda"), generator=g)
+                  * (torch.rand(B, N, generator=g, device="cuda") < 0.6)) if dense else None
+        cot = (rnd(B, Q, E), rnd(B, Q * H))
+        pool, reference = ((fe.encoder_pool, fe.encoder_pool_reference) if dense
+                           else (fe.window_pool, fe.window_pool_reference))
+        counters = ((fe.ENCODER_POOL_FWD_LAUNCHES, fe.ENCODER_POOL_BWD_LAUNCHES) if dense
+                    else (fe.WINDOW_POOL_FWD_LAUNCHES, fe.WINDOW_POOL_BWD_LAUNCHES))
+        before = [c.count for c in counters]
+        got = pool_outputs_and_grads(pool, counts, x, cot, H)
+        again = pool_outputs_and_grads(pool, counts, x, cot, H)
+        torch.cuda.synchronize()
+        if [c.count - n for c, n in zip(counters, before)] != [2, 2]:
+            raise AssertionError(f"{variant} pool at {(E, H, Q)}: launches not counted")
+        if not all(torch.equal(got[p][k], again[p][k]) for p in got for k in got[p]):
+            raise AssertionError(f"{variant} pool at {(E, H, Q, B, N)}: a second run gave other "
+                                 "bits")
+        del again
+        want = pool_outputs_and_grads(reference, counts, x, cot, H)
+        again = pool_plain_reordered(reference, counts, x, cot, H)
+        worst, own = {}, {}
+        for p in want:
+            worst[p] = {}
+            for k, w in want[p].items():
+                worst[p][k], own[k] = held_bf16_or_order(
+                    f"{variant} pool at {(E, H, Q)} {k}", got[p][k], w, again[p][k],
+                    POOL_NUM_NEAR if k == "num" else 1e-4)
+        log(f"phase1d grid {variant}_pool E={E} H={H} Q={Q} B={B} N={N}: "
+            + report_bf16({**worst["fwd"], **worst["bwd"]})
+            + "; the plain version in another order, share beyond: "
+            + ", ".join(f"{k} {v:.1e}" for k, v in own.items() if v)
+            + "; both ways repeat their bits")
+        del again
+        if B != 128:
+            continue
+        pre = (counts,) if dense else ()
+        qfull = fe.build_query_operand(x["q"], H)
+        w = [x[k] for k in fe.WEIGHT_NAMES]
+        fwd, bwd, fwd_ref, bwd_ref = (
+            (fe.encoder_pool_fwd, fe.encoder_pool_bwd, fe.encoder_pool_reference,
+             fe.encoder_pool_backward_reference) if dense else
+            (fe.window_pool_fwd, fe.window_pool_bwd, fe.window_pool_reference,
+             fe.window_pool_backward_reference))
+        stats = (want["fwd"]["m"], *cot)
+        fns = {"fwd": (lambda: fwd(*pre, x["src"], qfull, w, H, EPS),
+                       lambda: fwd_ref(*pre, x["src"], qfull, w, H, EPS)),
+               "bwd": (lambda: bwd(*pre, x["src"], qfull, w, *stats, H, EPS),
+                       lambda: bwd_ref(*pre, x["src"], qfull, w, *stats, H, EPS))}
+        for part, (kernel, plain) in fns.items():
+            ms, plain_ms = time_in_turns(kernel, plain, 5)
+            dev = device_ms(kernel, 3, GEN_POOL_KERNELS[part])
+            b = encoder_pool_bound(B, N, part == "bwd", dense, E, H, Q)
+            ws = lib.scldm_encoder_pool_gen_workspace_floats(B, N, E, H, Q, int(dense),
+                                                             int(part == "bwd"))
+            out[(variant, part)] = {"max_abs_err": max(e for e, *_ in worst[part].values()),
+                                    "ms": ms, "plain_ms": plain_ms, "device_ms": dev, **b}
+            log(f"phase1d grid {variant}_pool_{part} E={E} H={H} Q={Q} B={B} N={N}: kernel "
+                f"{ms:.4f} ms ({dev:.4f} ms on the device), plain {plain_ms:.4f} ms, bound "
+                f"{b['bound_ms']:.4f} ms ({b['bound_by']}); workspace {4 * ws / 1e6:.1f} MB")
     return out
 
 
@@ -3783,6 +4114,213 @@ def phase12_scvi_and_evals(seed: int, smi: str) -> dict:
     return launches
 
 
+# phase 13: the default VAE step (`cli.train`, vae_training.yaml as shipped, bf16) at
+# two widths off the dentate decoder's, through the any-width kernels
+WIDTH_CELLS = 1_280  # the train file: 1,152 train cells after the 10% validation split, 9 steps
+WIDTH_STEPS = 8
+WIDTH_POOL_STEPS = 3  # VAETask(fused_pool=True) steps at the dentate width, after a warm-up step
+WIDTH_TURN = 3  # steps a turn of the kernel path against the module path
+
+
+def phase13_widths(seed: int, smi: str) -> dict:
+    """`scldm_torch.cli.train`'s `main(argv)` on configs/vae_training.yaml as
+    shipped (bf16) at two widths the JAX gate sends the fused path but the
+    dentate decoder's kernels are not tuned for, each on synthetic CSR cells
+    through the in-memory shard phase 11 uses: (a) dentate (G = 17,002, the
+    6,147-token window, so the module encoder and the tail) with
+    `model.vae.n_embed=64 n_head_cross=4 n_inducing_points=32` (head width 16,
+    hidden 172); (b) `datamodule.dataset=parse1m` (G = S = 2,000: the dense
+    pool and the tail) with `n_embed=128 n_head_cross=8 n_inducing_points=64`
+    (head width 16, hidden 344). Each trains WIDTH_STEPS steps of B = 128 and
+    must launch each tail kernel (and at (b) each dense pool kernel) once a
+    step; its train cells/s (metrics.csv) and peak memory are printed. Then,
+    on an f32 VAE of the same width and G, one kernel-path step is held
+    against the module path (`VAETask(fused_decoder=False)`) at phase 3's
+    bounds and the two paths' steps are timed in turns with each arm's peak
+    memory, and at (a) three `VAETask(fused_pool=True)` steps run the narrow
+    window pool at E = 64 and one is held against the module MCAB at phase
+    5's bounds. Returns the launches of each kernel in the CLI runs and the
+    fused_pool steps: {"dentate": ..., "parse1m": ..., "fused_pool": ...}."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from scldm_torch.cli import train as cli_train
+    from scldm_torch.data import datamodule as dm_module
+    from scldm_torch.nn.vae import build_transformer_vae
+    from scldm_torch.ops import fused_decoder as fd
+    from scldm_torch.ops import fused_encoder as fe
+    from scldm_torch.training.metrics import global_norm
+    from scldm_torch.training.vae_task import VAETask
+    from scldm_torch.utils.weights import init_reference_
+
+    phase_t0 = time.perf_counter()
+    counters = {"decoder_tail_fwd": fd.DECODER_TAIL_FWD_LAUNCHES,
+                "decoder_tail_bwd": fd.DECODER_TAIL_BWD_LAUNCHES,
+                "encoder_pool_fwd": fe.ENCODER_POOL_FWD_LAUNCHES,
+                "encoder_pool_bwd": fe.ENCODER_POOL_BWD_LAUNCHES,
+                "window_pool_fwd": fe.WINDOW_POOL_FWD_LAUNCHES,
+                "window_pool_bwd": fe.WINDOW_POOL_BWD_LAUNCHES}
+    total = {k: 0 for k in counters}
+    launches = {}  # per width, and the fused_pool steps'
+    rng = np.random.default_rng(seed + 13)
+    dentate = json.loads((ROOT / "metadata/dentategyrus_train.json").read_text())
+    parse = json.loads((ROOT / "metadata/parse1m_train.json").read_text())
+    tmp = Path(tempfile.mkdtemp(prefix="scldm_phase13_"))
+    shards = {
+        str(tmp / "train.h5ad"): cli_shard(rng, WIDTH_CELLS, dentate["genes"], dentate["labels"]),
+        str(tmp / "test.h5ad"): cli_shard(rng, 256, dentate["genes"], dentate["labels"]),
+        str(tmp / "parse_train.h5ad"): cli_shard(
+            rng, WIDTH_CELLS, parse["genes"],
+            {c: parse["labels"][c] for c in ("cell_type", "cytokine")}),
+    }
+    mu = {"clusters": {c: float(rng.uniform(6.0, 9.0)) for c in dentate["labels"]["clusters"]}}
+    sd = {"clusters": {c: 0.05 for c in dentate["labels"]["clusters"]}}
+    (tmp / "mu.json").write_text(json.dumps(mu))
+    (tmp / "sd.json").write_text(json.dumps(sd))
+    config = ["--config", str(ROOT / "configs" / "vae_training.yaml")]
+    runs = {
+        "dentate": [f"datamodule.datamodule.train_adata_path={tmp / 'train.h5ad'}",
+                    f"datamodule.datamodule.test_adata_path={tmp / 'test.h5ad'}",
+                    f"datamodule.dataset_params.dentate_gyrus.mu_size_factor={tmp / 'mu.json'}",
+                    f"datamodule.dataset_params.dentate_gyrus.sd_size_factor={tmp / 'sd.json'}"],
+        "parse1m": ["datamodule.dataset=parse1m",
+                    f"datamodule.datamodule.train_adata_path={tmp / 'parse_train.h5ad'}"],
+    }
+    genes = {"dentate": N_GENES, "parse1m": PARSE_GENES}
+    real_h5ad = dm_module.H5ADFile
+    dm_module.H5ADFile = lambda path: shards[str(path)]
+    log("phase13 stand-in: data.datamodule.H5ADFile -> an in-memory CSR shard (phase 11's)")
+    try:
+        for name, args in runs.items():
+            w = WIDTHS[name]
+            widths = [f"model.vae.n_embed={w['E']}", f"model.vae.n_head_cross={w['H']}",
+                      f"model.vae.n_inducing_points={w['M']}"]
+            argv = config + args + widths + [
+                f"paths.output_path={tmp / name}", f"paths.inference_path={tmp / name / 'inf'}",
+                f"training.max_steps={WIDTH_STEPS}", "epochs=1", "training.log_every_steps=4"]
+            for c in counters.values():
+                c.reset()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            if cli_train.main(argv) != 0:
+                raise AssertionError(f"phase13 train at {name}: non-zero return")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = {k: c.count for k, c in counters.items()}
+            for k in total:
+                total[k] += got[k]
+            launches[name] = got
+            want = ["decoder_tail_fwd", "decoder_tail_bwd"] + (
+                ["encoder_pool_fwd", "encoder_pool_bwd"] if name == "parse1m" else [])
+            if any(got[k] != WIDTH_STEPS for k in want):
+                raise AssertionError(f"phase13 train at {name}: {got} launches in {WIDTH_STEPS} "
+                                     "steps")
+            ck = next((tmp / name / "checkpoints").iterdir())
+            snap = json.loads((ck / "config.json").read_text())
+            v = snap["model"]["vae"]
+            if (v["n_embed"], v["n_head_cross"], v["n_inducing_points"],
+                    snap["model"]["compute_dtype"]) != (w["E"], w["H"], w["M"], "bfloat16"):
+                raise AssertionError(f"phase13 {name}: the run's config is {v}")
+            rows = [r for r in csv.DictReader((ck / "metrics.csv").open())
+                    if r.get("cells_per_sec")]
+            losses = [float(r["train_loss"]) for r in rows if r.get("train_loss")]
+            if not losses or not all(np.isfinite(losses)):
+                raise AssertionError(f"phase13 {name}: train losses {losses}")
+            log(f"phase13 train at {name} (E={w['E']}, n_head_cross={w['H']}, "
+                f"n_inducing_points={w['M']}, hidden {w['Hd']}; bf16 as shipped): "
+                f"{WIDTH_STEPS} steps of B=128 in {wall:.2f} s wall; launches "
+                f"{ {k: v_ for k, v_ in got.items() if v_} } (one a step each); train cells/s "
+                f"from metrics.csv ({smi}): "
+                + ", ".join(f"step {int(float(r['step']))}: {float(r['cells_per_sec']):.1f}"
+                            for r in rows)
+                + f"; peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; train loss "
+                + ", ".join(f"{x:.2f}" for x in losses))
+    finally:
+        dm_module.H5ADFile = real_h5ad
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # one step of each path on an f32 VAE of each width: kernel vs module
+    for name in runs:
+        w, G = WIDTHS[name], genes[name]
+        vae = init_reference_(build_transformer_vae(n_genes=G, n_embed=w["E"],
+                                                    n_head_cross=w["H"],
+                                                    n_inducing_points=w["M"], device="cuda"),
+                              torch.Generator(device="cuda").manual_seed(seed + 13))
+        window = WINDOW if name == "dentate" else PARSE_GENES
+        nnz = (1500, 4000) if name == "dentate" else (500, PARSE_GENES)
+        batches = [{k: torch.from_numpy(a).to("cuda") for k, a in
+                    lean_batch(rng, 128, G, window, nnz).items()} for _ in range(2)]
+        task = VAETask(vae, num_training_steps=10_000)
+        if not task._use_fused(batches[0]):
+            raise AssertionError(f"phase13 {name}: the lean CUDA batch did not take the kernels")
+        module_task = VAETask(vae, num_training_steps=10_000, fused_decoder=False)
+        compare_vae_paths(f"phase13 {name}", task, module_task, batches[-1])
+        # the step through the kernels against the module path, in turns, each arm's peak
+        arms = {"kernels": task, "modules": module_task}
+        states = {k: t.init_state(torch.Generator(device="cuda").manual_seed(seed))
+                  for k, t in arms.items()}
+        times = {k: [] for k in arms}
+        peaks = {k: 0.0 for k in arms}
+        for k in ("modules", "kernels", "kernels", "modules"):
+            states[k], _ = arms[k].train_step(states[k], batches[0])  # its warm-up / turn start
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            for _ in range(WIDTH_TURN):
+                states[k], _ = arms[k].train_step(states[k], batches[1])
+            torch.cuda.synchronize()
+            times[k].append((time.perf_counter() - t0) / WIDTH_TURN * 1e3)
+            peaks[k] = max(peaks[k], torch.cuda.max_memory_allocated() / 2**30)
+        log(f"phase13 {name} f32 step in turns (modules, kernels, kernels, modules; "
+            f"{WIDTH_TURN} steps a turn, {smi}): kernel path "
+            + ", ".join(f"{t:.2f}" for t in times["kernels"]) + " ms, module path "
+            + ", ".join(f"{t:.2f}" for t in times["modules"]) + f" ms; peak "
+            f"{peaks['kernels']:.3f} against {peaks['modules']:.3f} GiB")
+        del states
+        if name != "dentate":
+            continue
+        # the narrow window pool at E = 64: VAETask(fused_pool=True) on the module path
+        pool_task = VAETask(vae, num_training_steps=10_000, fused_pool=True, fused_decoder=False)
+        state = pool_task.init_state(torch.Generator(device="cuda").manual_seed(seed + 14))
+        state, _ = pool_task.train_step(state, batches[0])  # warm-up
+        torch.cuda.synchronize()
+        fe.WINDOW_POOL_FWD_LAUNCHES.reset()
+        fe.WINDOW_POOL_BWD_LAUNCHES.reset()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(WIDTH_POOL_STEPS):
+            state, mets = pool_task.train_step(state, batches[1])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        pool = (fe.WINDOW_POOL_FWD_LAUNCHES.count, fe.WINDOW_POOL_BWD_LAUNCHES.count)
+        if pool != (WIDTH_POOL_STEPS, WIDTH_POOL_STEPS) or not torch.isfinite(mets["train_loss"]):
+            raise AssertionError(f"phase13 fused_pool at E=64: launches {pool}, loss "
+                                 f"{mets['train_loss'].item()}")
+        total["window_pool_fwd"] += pool[0]
+        total["window_pool_bwd"] += pool[1]
+        launches["fused_pool"] = {"window_pool_fwd": pool[0], "window_pool_bwd": pool[1]}
+        (lp, gp), (lm, gm) = (vae_loss_and_grads(t, batches[-1])
+                              for t in (pool_task, VAETask(vae, fused_decoder=False)))
+        norm_p, norm_m = global_norm(gp.values()).item(), global_norm(gm.values()).item()
+        if abs(lp - lm) > 5e-3 * abs(lm) or abs(norm_p - norm_m) > 0.02 * norm_m:
+            raise AssertionError(f"phase13 fused_pool loss {lp}, grad norm {norm_p}; module "
+                                 f"path {lm}, {norm_m}")
+        log(f"phase13 VAETask(fused_pool=True, fused_decoder=False) at E=64: "
+            f"{dt / WIDTH_POOL_STEPS * 1e3:.2f} ms/step over {WIDTH_POOL_STEPS} steps, window "
+            f"pool launches {pool}, peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
+            f"one step against the module path: loss {lp:.4f} vs {lm:.4f} "
+            f"({abs(lp - lm) / abs(lm):.2e} relative), grad norm {norm_p:.4f} vs {norm_m:.4f} "
+            f"({abs(norm_p - norm_m) / norm_m:.2e})")
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("yaml", "h5py", "pandas", "jax"))
+    if loaded:
+        raise AssertionError(f"phase13: {loaded} loaded")
+    log(f"phase13 took {time.perf_counter() - phase_t0:.1f} s; launches {total}")
+    return launches
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -3830,6 +4368,8 @@ def main(argv=None) -> int:
     trunk_timing = phase1g_fused_trunk(args.seed)
     gate_fwd, gate_bwd, gate_launches = phase1h_swiglu_gate(args.seed)
     flash = phase1i_flash_attention(args.seed)
+    tail_grid = phase1b_decoder_tail_grid(args.seed)
+    pool_grid = phase1d_encoder_pool_grid(args.seed)
 
     # -- phase 2: the generation path -------------------------------------------
     launches = phase2_generation(args.seed, args.batch)
@@ -3865,6 +4405,9 @@ def main(argv=None) -> int:
 
     # -- phase 12: the scVI baseline and the generation evals -----------------------
     evals = phase12_scvi_and_evals(args.seed, smi)
+
+    # -- phase 13: the default VAE step at two other widths -------------------------
+    widths = phase13_widths(args.seed, smi)
 
     tail_src = "scldm_torch/kernels/csrc/decoder_tail.cu"
     pool_src = "scldm_torch/kernels/csrc/encoder_pool.cu"
@@ -3985,6 +4528,27 @@ def main(argv=None) -> int:
          "source": "scldm_torch/kernels/csrc/flash_attention.cu",
          "replaces": "scldm_tpu/ops/flash_attention.py:74", "launches": long_latent, **flash,
          **flash_attention_bound(*FLASH_ROW[:5])},
+    ]
+    # the any-width designs at phase 13's two shapes: the tail at the dentate
+    # (B=128, G=17,002, E=64) and parse1m (G=2,000, E=128) steps, the dense pool at
+    # parse1m (E=128), the window pool at the dentate window (E=64)
+    gen_tail = "scldm_torch/kernels/csrc/decoder_tail_gen.cu"
+    gen_pool = "scldm_torch/kernels/csrc/encoder_pool_gen.cu"
+    kernels += [
+        {"name": f"decoder_tail_gen_{part}_e{E}", "route": "cuda", "source": gen_tail,
+         "replaces": f"scldm_tpu/ops/fused_decoder.py:{262 if part == 'fwd' else 294}",
+         "launches": widths["dentate" if E == 64 else "parse1m"][f"decoder_tail_{part}"],
+         **tail_grid[(part, E)],
+         "library_ms": None}
+        for E in (64, 128) for part in ("fwd", "bwd")
+    ] + [
+        {"name": f"{'encoder' if v == 'dense' else 'window'}_pool_gen_{part}", "route": "cuda",
+         "source": gen_pool,
+         "replaces": f"scldm_tpu/ops/fused_encoder.py:{pool_replaces[f'{v}_{part}']}",
+         "launches": (widths["parse1m"][f"encoder_pool_{part}"] if v == "dense" else
+                      widths["fused_pool"][f"window_pool_{part}"]),
+         **pool_grid[(v, part)], "library_ms": None}
+        for v in ("dense", "window") for part in ("fwd", "bwd")
     ]
     for k in kernels:
         log(f"{k['name']}: {k['ms']:.4f} ms against a bound of {k['bound_ms']:.4f} ms "

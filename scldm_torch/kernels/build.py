@@ -66,6 +66,24 @@ _SIGNATURES = {
     "scldm_decoder_tail_backward_workspace_floats": (
         [ctypes.c_int] * 3, ctypes.c_longlong,  # B, G, Hd
     ),
+    "scldm_decoder_tail_gen_takes": ([ctypes.c_int] * 4, ctypes.c_int),  # E, H, M, Hd
+    "scldm_decoder_tail_gen_workspace_floats": (  # B, G, E, H, M, Hd, backward
+        [ctypes.c_int] * 7, ctypes.c_longlong,
+    ),
+    # scldm_decoder_tail_forward's pointers, then the workspace
+    "scldm_decoder_tail_gen_forward": (
+        [_P] * 12
+        + [ctypes.c_int] * 6  # B, G, E, H, M, Hd
+        + [ctypes.c_float, ctypes.c_float, _P],  # eps, scale, stream
+        ctypes.c_int,
+    ),
+    # scldm_decoder_tail_backward's pointers (the workspace last)
+    "scldm_decoder_tail_gen_backward": (
+        [_P] * 15
+        + [ctypes.c_int] * 6  # B, G, E, H, M, Hd
+        + [ctypes.c_float, ctypes.c_float, _P],  # eps, scale, stream
+        ctypes.c_int,
+    ),
     # pointers: counts, table, qfull, ln1g, ln1b, wk, wv, num, den, m
     "scldm_encoder_pool_forward": (
         [_P] * 10
@@ -100,6 +118,24 @@ _SIGNATURES = {
         [ctypes.c_int] * 3, ctypes.c_longlong,  # B, N, dense
     ),
     "scldm_encoder_pool_forward_rows": ([ctypes.c_int], ctypes.c_longlong),  # N
+    "scldm_encoder_pool_gen_takes": ([ctypes.c_int] * 3, ctypes.c_int),  # E, H, Q
+    "scldm_encoder_pool_gen_workspace_floats": (  # B, N, E, H, Q, dense, backward
+        [ctypes.c_int] * 7, ctypes.c_longlong,
+    ),
+    # the forwards' pointers as the narrow entries', then the workspace
+    "scldm_encoder_pool_gen_forward": (
+        [_P] * 11 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_float, _P], ctypes.c_int,
+    ),
+    "scldm_window_pool_gen_forward": (
+        [_P] * 10 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_float, _P], ctypes.c_int,
+    ),
+    # the backwards' pointers as the narrow entries' (the workspace last)
+    "scldm_encoder_pool_gen_backward": (
+        [_P] * 17 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_float, _P], ctypes.c_int,
+    ),
+    "scldm_window_pool_gen_backward": (
+        [_P] * 16 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_float, _P], ctypes.c_int,
+    ),
     # pointers: emb, qfull, ln1g, ln1b, wk, wv, num, den, m, workspace
     "scldm_window_pool_wide_forward": (
         [_P] * 10

@@ -1,10 +1,9 @@
 """The VAE decoder tail (gene-query cross-attention, residual, LayerNorm,
-SwiGLU and the NB head's mu logit) as two hand-written CUDA kernels, forward
-and backward.
+SwiGLU and the NB head's mu logit) as hand-written CUDA kernels, forward and
+backward.
 
 Counterpart of scldm_tpu/ops/fused_decoder.py: `decoder_tail` replaces the
-Pallas `fused_decoder_tail` with its custom VJP. The kernels are in
-`scldm_torch/kernels/csrc/decoder_tail.cu`. The operands are the JAX
+Pallas `fused_decoder_tail` with its custom VJP. The operands are the JAX
 package's: batch-shared gene queries `qp` (normalised and projected) and `q`
 (raw, the residual base), the block-diagonal per-head keys `kfull` and the
 output-projected values `vproj` (`build_attention_operands`), and the packed
@@ -20,10 +19,25 @@ JAX kernel. `decoder_tail_reference` is the plain PyTorch version, line for
 line the JAX `_tail_math`; its autograd also rounds the gradients of those
 six tensors to bf16, as JAX's does.
 
-`decoder_tail_fwd` and `decoder_tail_bwd` launch the kernels on CUDA tensors
-and run the plain version on CPU tensors; any other device raises. Each
-counts its kernel launches, so a run can show that its main path went
-through the kernels.
+The kernels take every shape the JAX gate sends them (`kernel_takes`: E up
+to 128, any head count dividing E, 1 to 64 latent tokens, any SwiGLU hidden
+width), in two designs on the same math:
+
+- the dentate decoder's (`SPECIALISED`: E = 32, 4 heads over 16 latent
+  tokens; the backward at hidden width 88),
+  `scldm_torch/kernels/csrc/decoder_tail.cu`, tuned for that shape;
+- every other shape, `scldm_torch/kernels/csrc/decoder_tail_gen.cu`: the
+  operands packed into mma fragment order and zero-padded (E to 32, 64 or
+  128, M to a multiple of 16, the hidden width to a multiple of 8), the
+  backward in three kernels over a workspace (`decoder_tail_bwd_workspace_
+  floats`) with its partials added in a fixed order.
+
+More than 64 latent tokens (or E past 128, which the gate never sends) raise
+`ValueError` before any launch; no shape quietly takes the plain version on
+the card. `decoder_tail_fwd` and `decoder_tail_bwd` launch the kernels on
+CUDA tensors and run the plain version on CPU tensors; any other device
+raises. Each counts its kernel launches, so a run can show that its main
+path went through the kernels.
 """
 
 from __future__ import annotations
@@ -38,16 +52,32 @@ from scldm_torch.ops.fused_dit import LaunchCounter
 #: wmu (1, E), bmu (1, 1)
 WEIGHT_NAMES = ("ln2g", "ln2b", "w12", "wv", "wmu", "bmu")
 
-#: (E, n_head, M) the kernels are compiled for: the dentate-gyrus decoder,
-#: E=32 with 4 cross heads over 16 latent tokens (the reference config)
-KERNEL_SHAPES = ((32, 4, 16),)
-
-#: SwiGLU hidden widths the backward kernel is compiled for: the dentate
-#: decoder's MLP(32)
-BWD_HIDDEN = (88,)
-#: genes and cells a CTA of the backward kernel takes (kGenes, kCells in
+#: (E, n_head, M) of the specialised design (decoder_tail.cu): the dentate-
+#: gyrus decoder, E=32 with 4 cross heads over 16 latent tokens (the
+#: reference config); its backward is built for the hidden width
+#: `SPECIALISED_HIDDEN`, the dentate decoder's MLP(32)
+SPECIALISED = (32, 4, 16)
+SPECIALISED_HIDDEN = 88
+#: the widest E and the most latent tokens the kernels take
+MAX_WIDTH, MAX_LATENT = 128, 64
+#: genes and cells a CTA of the specialised backward takes (kGenes, kCells in
 #: decoder_tail.cu's namespace tail)
 BWD_GENE_TILE, BWD_CELL_BLOCK = 64, 16
+
+
+def kernel_takes(E: int, n_head: int, M: int, Hd: int) -> bool:
+    """Whether the kernels take (E, n_head, M) with hidden width Hd, both
+    ways: E from 1 to 128 with n_head dividing it, 1 to 64 latent tokens,
+    any hidden width (`scldm_decoder_tail_gen_takes` says the same)."""
+    return (1 <= E <= MAX_WIDTH and n_head >= 1 and E % n_head == 0 and 1 <= M <= MAX_LATENT
+            and Hd >= 1)
+
+
+def specialised(E: int, n_head: int, M: int, Hd: int, backward: bool) -> bool:
+    """Whether the shape runs on decoder_tail.cu's kernels (the forward at
+    any hidden width, the backward at 88) rather than decoder_tail_gen.cu's."""
+    return (E, n_head, M) == SPECIALISED and (not backward or Hd == SPECIALISED_HIDDEN)
+
 
 DECODER_TAIL_FWD_LAUNCHES = LaunchCounter()
 DECODER_TAIL_BWD_LAUNCHES = LaunchCounter()
@@ -136,10 +166,8 @@ def decoder_tail_reference(
     return (h * wmu.float()[None]).sum(dim=-1) + mlp_logit + bmu[0, 0].float()
 
 
-def _check(qp, q, kfull, vproj, weights, n_head,
-           backward: bool = False) -> Tuple[int, int, int, int, int]:
-    """Validate the kernels' operands (with `backward`, the backward kernel's
-    hidden width too); returns (B, G, E, M, Hd)."""
+def _check(qp, q, kfull, vproj, weights, n_head) -> Tuple[int, int, int, int, int]:
+    """Validate the kernels' operands; returns (B, G, E, M, Hd)."""
     G, E = qp.shape
     B, HM, _ = kfull.shape
     M = HM // n_head
@@ -151,17 +179,15 @@ def _check(qp, q, kfull, vproj, weights, n_head,
     for name, t, shape in want:
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
-    if (E, n_head, M) not in KERNEL_SHAPES or HM != n_head * M:
+    if not kernel_takes(E, n_head, M, Hd) or HM != n_head * M:
         raise ValueError(
-            f"the decoder-tail kernels are built for (E, n_head, M) in {KERNEL_SHAPES}, "
-            f"got ({E}, {n_head}, {HM / n_head:g})"
+            f"the decoder-tail kernels are built for E <= {MAX_WIDTH} with n_head dividing it "
+            f"and 1 to {MAX_LATENT} latent tokens, got (E, n_head, M) = ({E}, {n_head}, "
+            f"{HM / n_head:g})"
         )
     for t in (qp, q, kfull, vproj, *weights):
         if t.device != qp.device or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError("the decoder-tail kernels need contiguous float32 tensors on one device")
-    if backward and Hd not in BWD_HIDDEN:
-        raise ValueError(
-            f"the decoder-tail backward kernel is built for Hd in {BWD_HIDDEN}, got {Hd}")
     if qp.data_ptr() % 16 or q.data_ptr() % 16:
         raise ValueError("the decoder-tail kernels read qp and q rows as 16-byte vectors")
     return B, G, E, M, Hd
@@ -169,18 +195,73 @@ def _check(qp, q, kfull, vproj, weights, n_head,
 
 def _wvec_floats(E: int, Hd: int) -> int:
     """dw12 and the vector gradients in one buffer, padded to a multiple of 4
-    (`tail::wlen` in decoder_tail.cu)."""
+    (`tail::wlen` in decoder_tail.cu; decoder_tail_gen.cu writes the first
+    2E*Hd + 3E + Hd + 1)."""
     return -(-(2 * E * Hd + 3 * E + Hd + 1) // 4) * 4
 
 
-def decoder_tail_bwd_workspace_floats(B: int, G: int, Hd: int, E: int = 32, HM: int = 64,
-                                      HD: int = 8) -> int:
-    """Device workspace of the backward, in floats (`tail::workspace_floats` in
-    decoder_tail.cu): the CTAs' partials, summed afterwards in a fixed order.
-    Per cell block, dqp and dq of every gene (2GE); per gene tile and cell,
-    dvproj (HM*E) and dkfull's head blocks (HM*HD); per CTA, dw12 and the
-    vector gradients (2E*Hd + 3E + Hd + 1, padded to a multiple of 4); and
-    those summed over the gene tiles, per cell block."""
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _clamp(v: int, lo: int, hi: int) -> int:
+    return lo if v < lo else hi if v > hi else v
+
+
+def _gen_workspace_bytes(B: int, G: int, E: int, n_head: int, M: int, Hd: int,
+                         backward: bool) -> int:
+    """decoder_tail_gen.cu's workspace in bytes (`carve` there; each piece
+    256-byte aligned): the packed bf16 fragments (per cell and head the key
+    blocks and the values, E x M padded, once forward and three times more
+    backward; w12 once forward, four times backward), then, backward, d(hh)
+    (f32) and bf(hn) (bf16) of every pair, E padded, and the partials: per
+    block of cells dqp and dq of every gene, per 16-gene unit the vector
+    sums and those summed per cell block, per gene chunk dvproj and dkfull's
+    head blocks, per pair chunk dw12 and dwv."""
+    EP = 32 if E <= 32 else 64 if E <= 64 else 128
+    KE, NE = EP // 16, EP // 8
+    KM = _cdiv(M, 16)
+    NM = 2 * KM
+    NHT, HT16 = _cdiv(Hd, 8), _cdiv(Hd, 16)
+    n_gt = _cdiv(G, 16)
+    Bc = _cdiv(B, _clamp(_cdiv(8192, n_gt), 1, B))
+    n_cb = _cdiv(B, Bc)
+    n_ch2 = _clamp(_cdiv(8192, B * n_head * (EP // 32)), 1, n_gt)
+    n_ch3 = _clamp(_cdiv(2048, HT16), 1, _cdiv(B * G, 16))
+    BH, P, hd = B * n_head, B * G, E // n_head
+    pieces = [8 * BH * KE * NM * 32, 8 * BH * KM * NE * 32, 8 * KE * NHT * 32, 8 * KE * NHT * 32]
+    if backward:
+        pieces += [8 * BH * KM * NE * 32, 8 * BH * KE * NM * 32, 16 * BH * KM * KE * 32,
+                   16 * BH * KM * KE * 32, 8 * NHT * NE * 32, 16 * HT16 * KE * 32,
+                   16 * HT16 * KE * 32, 4 * P * EP, 2 * P * EP, 4 * n_cb * 2 * G * E,
+                   4 * n_gt * n_cb * (3 * E + 1), 4 * n_cb * (3 * E + 1),
+                   4 * n_ch2 * B * n_head * M * E,
+                   4 * n_ch2 * B * n_head * M * hd, 4 * n_ch3 * E * 2 * Hd, 4 * n_ch3 * Hd]
+    return sum(-(-p // 256) * 256 for p in pieces)
+
+
+def decoder_tail_fwd_workspace_floats(B: int, G: int, Hd: int, E: int = 32, n_head: int = 4,
+                                      M: int = 16) -> int:
+    """Device workspace of the forward, in floats: 0 for the specialised
+    design, the packed operands for the other (the C entry
+    `scldm_decoder_tail_gen_workspace_floats` says the same)."""
+    if specialised(E, n_head, M, Hd, False) or B <= 0 or G <= 0:
+        return 0
+    return _gen_workspace_bytes(B, G, E, n_head, M, Hd, False) // 4
+
+
+def decoder_tail_bwd_workspace_floats(B: int, G: int, Hd: int, E: int = 32, n_head: int = 4,
+                                      M: int = 16) -> int:
+    """Device workspace of the backward, in floats. The specialised design
+    (`tail::workspace_floats` in decoder_tail.cu): the CTAs' partials, summed
+    afterwards in a fixed order. Per cell block, dqp and dq of every gene
+    (2GE); per gene tile and cell, dvproj (HM*E) and dkfull's head blocks
+    (HM*HD); per CTA, dw12 and the vector gradients (2E*Hd + 3E + Hd + 1,
+    padded to a multiple of 4); and those summed over the gene tiles, per
+    cell block. The other design: `_gen_workspace_bytes`."""
+    if not specialised(E, n_head, M, Hd, True):
+        return _gen_workspace_bytes(B, G, E, n_head, M, Hd, True) // 4 if B > 0 and G > 0 else 0
+    HM, HD = n_head * M, E // n_head
     n_gt = -(-G // BWD_GENE_TILE)
     n_cb = -(-B // BWD_CELL_BLOCK)
     nw = _wvec_floats(E, Hd)
@@ -204,14 +285,18 @@ def decoder_tail_fwd(qp, q, kfull, vproj, weights, n_head: int, eps: float) -> t
 
     lib = build.load()
     out = torch.empty((B, G), dtype=torch.float32, device=qp.device)
+    pointers = [qp.data_ptr(), q.data_ptr(), kfull.data_ptr(), vproj.data_ptr(),
+                *(w.data_ptr() for w in weights), out.data_ptr()]
+    shape = (B, G, E, n_head, M, Hd, eps, 1.0 / (E // n_head) ** 0.5)
     # the library's CUDA runtime launches on the current device: make it qp's
     with torch.cuda.device(qp.device):
         stream = torch.cuda.current_stream(qp.device).cuda_stream
-        code = lib.scldm_decoder_tail_forward(
-            qp.data_ptr(), q.data_ptr(), kfull.data_ptr(), vproj.data_ptr(),
-            *(w.data_ptr() for w in weights), out.data_ptr(),
-            B, G, E, n_head, M, Hd, eps, 1.0 / (E // n_head) ** 0.5, stream,
-        )
+        if specialised(E, n_head, M, Hd, False):
+            code = lib.scldm_decoder_tail_forward(*pointers, *shape, stream)
+        else:
+            ws = torch.empty(lib.scldm_decoder_tail_gen_workspace_floats(B, G, E, n_head, M, Hd, 0),
+                             dtype=torch.float32, device=qp.device)
+            code = lib.scldm_decoder_tail_gen_forward(*pointers, ws.data_ptr(), *shape, stream)
     build.check(lib, code, "decoder_tail forward launch")
     DECODER_TAIL_FWD_LAUNCHES.count += 1
     return out
@@ -230,7 +315,7 @@ def decoder_tail_bwd(qp, q, kfull, vproj, weights, dy, n_head: int, eps: float):
             out = decoder_tail_reference(*inputs[:4], inputs[4:], n_head, eps)
             grads = torch.autograd.grad(out, inputs, dy)
         return (*grads[:4], tuple(grads[4:]))
-    B, G, E, M, Hd = _check(qp, q, kfull, vproj, weights, n_head, backward=True)
+    B, G, E, M, Hd = _check(qp, q, kfull, vproj, weights, n_head)
     dy = dy.float().contiguous()
     if tuple(dy.shape) != (B, G) or dy.device != qp.device:
         raise ValueError(f"dy must be ({B}, {G}) on {qp.device}, got {tuple(dy.shape)}")
@@ -238,14 +323,17 @@ def decoder_tail_bwd(qp, q, kfull, vproj, weights, dy, n_head: int, eps: float):
 
     lib = build.load()
     qq = torch.empty((2, G, E), dtype=torch.float32, device=qp.device)  # dqp, dq
-    dk = torch.zeros_like(kfull)  # the kernel writes the head blocks only
+    dk = torch.zeros_like(kfull)  # the kernels write the head blocks only
     dv = torch.empty_like(vproj)
     wvec = torch.empty(_wvec_floats(E, Hd), dtype=torch.float32, device=qp.device)
-    workspace = torch.empty(decoder_tail_bwd_workspace_floats(B, G, Hd), dtype=torch.float32,
-                            device=qp.device)
+    spec = specialised(E, n_head, M, Hd, True)
+    floats = (decoder_tail_bwd_workspace_floats(B, G, Hd) if spec else
+              lib.scldm_decoder_tail_gen_workspace_floats(B, G, E, n_head, M, Hd, 1))
+    workspace = torch.empty(floats, dtype=torch.float32, device=qp.device)
+    entry = lib.scldm_decoder_tail_backward if spec else lib.scldm_decoder_tail_gen_backward
     with torch.cuda.device(qp.device):
         stream = torch.cuda.current_stream(qp.device).cuda_stream
-        code = lib.scldm_decoder_tail_backward(
+        code = entry(
             qp.data_ptr(), q.data_ptr(), kfull.data_ptr(), vproj.data_ptr(),
             *(w.data_ptr() for w in weights[:5]), dy.data_ptr(),
             qq.data_ptr(), dk.data_ptr(), dv.data_ptr(), wvec.data_ptr(), workspace.data_ptr(),

@@ -4,20 +4,32 @@ kernels, forward and backward, in two variants that share their math.
 
 Counterpart of scldm_tpu/ops/fused_encoder.py: `encoder_pool` replaces the
 Pallas `fused_encoder_pool` and `window_pool` the Pallas `fused_window_pool`,
-each with its custom VJP. The kernels come in two designs, chosen by width:
+each with its custom VJP. The kernels come in three designs, chosen by width:
 
-- narrow (E = 32, 4 heads, 16 inducing points, the reference encoder):
-  `scldm_torch/kernels/csrc/encoder_pool.cu`, one source templated on where
-  a token's embedding comes from (both variants below), both ways on the
-  tensor cores: the forward a CTA of 16 warps per cell in two passes (the
-  scores' row max, then the pooled sums against it), the backward over
+- the reference encoder's (`SPECIALISED`: E = 32, 4 heads, 16 inducing
+  points): `scldm_torch/kernels/csrc/encoder_pool.cu`, one source templated
+  on where a token's embedding comes from (both variants below), both ways
+  on the tensor cores: the forward a CTA of 16 warps per cell in two passes
+  (the scores' row max, then the pooled sums against it), the backward over
   tiles of tokens and cells with a device workspace;
+- every other narrow width (`narrow_kernel_takes`: E up to 128, any head
+  count dividing E, 1 to 64 inducing points; both variants):
+  `scldm_torch/kernels/csrc/encoder_pool_gen.cu`, the weights, queries and
+  dnum packed into mma fragment order and zero-padded (E to 32, 64 or 128,
+  heads and queries to 16), the forward a CTA per (cell, head) in the same
+  two passes, the backward in three kernels (the attention per head, the
+  LayerNorm backward per token, the weight gradients) over a workspace that
+  the library sizes, every sum in a fixed order;
 - wide (E a multiple of 64 from 256 to 1,024, head width 64, 1 to 1,024
   inducing points: the census encoder, E = 512 with 8 heads over 64, and the
   long-latent one over 1,024): `scldm_torch/kernels/csrc/window_pool_wide.cu`,
   the window variant only (JAX gates the dense pool at E <= 128), on the
   tensor cores, split over tokens, heads, queries and cells with a device
   workspace (`wide_kernel_takes` says which widths).
+
+A shape none of them takes (more than 64 inducing points at E <= 128, a
+window E between 128 and 256, a wide E off `wide_kernel_takes`) raises
+`ValueError` before any launch, never taking the plain version on the card.
 
 The two variants:
 
@@ -76,9 +88,19 @@ from scldm_torch.ops.fused_dit import LaunchCounter
 #: weight order: ln1g (1, E), ln1b (1, E), wk (E, E), wv (E, E), (in, out)
 WEIGHT_NAMES = ("ln1g", "ln1b", "wk", "wv")
 
-#: (E, n_head, Q) the narrow design is compiled for: the reference encoder,
-#: E=32 with 4 cross heads over 16 inducing points; the dense pool has only it
-NARROW_SHAPES = ((32, 4, 16),)
+#: (E, n_head, Q) of the specialised narrow design (encoder_pool.cu): the
+#: reference encoder, E=32 with 4 cross heads over 16 inducing points
+SPECIALISED = (32, 4, 16)
+#: the widest E and the most inducing points the other narrow design takes
+MAX_NARROW_WIDTH, MAX_QUERIES = 128, 64
+
+
+def narrow_kernel_takes(E: int, n_head: int, Q: int) -> bool:
+    """Whether the narrow kernels (both variants, both ways) take (E, n_head,
+    Q): E from 1 to 128 with n_head dividing it and 1 to 64 inducing points
+    (`scldm_encoder_pool_gen_takes` says the same). The JAX gates send every
+    E <= 128 here; more queries than 64 raise."""
+    return 1 <= E <= MAX_NARROW_WIDTH and n_head >= 1 and E % n_head == 0 and 1 <= Q <= MAX_QUERIES
 
 
 def wide_kernel_takes(E: int, n_head: int, Q: int) -> bool:
@@ -194,7 +216,9 @@ def _check(variant: str, src, qfull, weights, n_head, counts=None, stats=()) -> 
         takes = wide_kernel_takes(E, n_head, Q)
         widths = "E a multiple of 64 in [256, 1024] with heads of 64 and 1 to 1,024 queries"
     else:
-        takes, widths = (E, n_head, Q) in NARROW_SHAPES, f"(E, n_head, Q) in {NARROW_SHAPES}"
+        takes = narrow_kernel_takes(E, n_head, Q)
+        widths = (f"E <= {MAX_NARROW_WIDTH} with n_head dividing it and 1 to {MAX_QUERIES} "
+                  "queries")
     if not takes or QH != n_head * Q:
         raise ValueError(f"the {variant}-pool kernels are built for {widths}, got "
                          f"({E}, {n_head}, {QH / n_head:g})")
@@ -227,6 +251,16 @@ def _workspace(lib, B: int, N: int, E: int, n_head: int, Q: int, backward: bool,
     return torch.empty(floats, dtype=torch.float32, device=device)
 
 
+def _gen_workspace(lib, B: int, N: int, E: int, n_head: int, Q: int, dense: bool,
+                   backward: bool, device):
+    """The any-width narrow kernels' device workspace, sized by the library:
+    the packed operands and, backward, bf(x2), bf(dk) and bf(dv) of every
+    token and the partial sums."""
+    floats = lib.scldm_encoder_pool_gen_workspace_floats(B, N, E, n_head, Q, int(dense),
+                                                         int(backward))
+    return torch.empty(floats, dtype=torch.float32, device=device)
+
+
 def _launch(entry: str, src, qfull, weights, n_head: int, eps: float, counts=None):
     """Forward launch of either variant, in the design its width takes:
     (num, den, m)."""
@@ -244,6 +278,10 @@ def _launch(entry: str, src, qfull, weights, n_head: int, eps: float, counts=Non
         entry = "scldm_window_pool_wide_forward"
         workspace = _workspace(lib, B, N, E, n_head, Q, False, src.device)
         extra = [workspace.data_ptr()]
+    elif (E, n_head, Q) != SPECIALISED:
+        entry = entry.replace("_pool_forward", "_pool_gen_forward")
+        workspace = _gen_workspace(lib, B, N, E, n_head, Q, counts is not None, False, src.device)
+        extra = [workspace.data_ptr()]
     # the library's CUDA runtime launches on the current device: make it src's
     with torch.cuda.device(src.device):
         stream = torch.cuda.current_stream(src.device).cuda_stream
@@ -258,11 +296,12 @@ def _launch(entry: str, src, qfull, weights, n_head: int, eps: float, counts=Non
 
 def _launch_bwd(entry: str, src, qfull, weights, m, dnum, dden, n_head: int, eps: float,
                 counts=None):
-    """Backward launch of either variant: (dsrc, dqfull, dweights). Both
-    designs write every gradient whole (dqfull's head-diagonal blocks, 0
+    """Backward launch of either variant: (dsrc, dqfull, dweights). Every
+    design writes every gradient whole (dqfull's head-diagonal blocks, 0
     elsewhere), each summed in a fixed order through a device workspace that
-    the library sizes: the narrow kernels add their CTAs' partial sums (and,
-    dense, the cell groups' dtable rows) in a second launch."""
+    the library sizes: the narrow kernels add their CTAs' (or warps')
+    partial sums (and, dense, the cell groups' dtable rows) in a last
+    launch."""
     variant = "dense" if counts is not None else "window"
     dnum, dden = dnum.float().contiguous(), dden.float().contiguous()
     B, N, E, Q = _check(variant, src, qfull, weights, n_head, counts, (m, dnum, dden))
@@ -287,9 +326,14 @@ def _launch_bwd(entry: str, src, qfull, weights, m, dnum, dden, n_head: int, eps
     else:
         dsrc = torch.empty_like(src)
         grads = [torch.empty_like(t) for t in (qfull, *weights)]
-        workspace = torch.empty(
-            lib.scldm_encoder_pool_workspace_floats(B, N, int(counts is not None)),
-            dtype=torch.float32, device=src.device)
+        if (E, n_head, Q) == SPECIALISED:
+            workspace = torch.empty(
+                lib.scldm_encoder_pool_workspace_floats(B, N, int(counts is not None)),
+                dtype=torch.float32, device=src.device)
+        else:
+            entry = entry.replace("_pool_backward", "_pool_gen_backward")
+            workspace = _gen_workspace(lib, B, N, E, n_head, Q, counts is not None, True,
+                                       src.device)
         pointers = ([counts.data_ptr()] if counts is not None else []) + [src.data_ptr()]
         with torch.cuda.device(src.device):
             stream = torch.cuda.current_stream(src.device).cuda_stream

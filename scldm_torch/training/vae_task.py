@@ -69,10 +69,10 @@ def _fused_path_ok(vae: TransformerVAE) -> bool:
     """Whether `fused_nb_apply` computes what the module path computes: the
     JAX gate. The ported VAE is always the shared-embedding, shared-theta,
     dropout-free decoder it asks for; the tail omits the qkv biases, and at
-    E > 128 the JAX task leaves the tail for its algebraic path. A width the
-    CUDA kernels are not compiled for (`ops/fused_decoder.KERNEL_SHAPES`)
-    passes this gate and raises at launch: it never quietly takes the module
-    path instead."""
+    E > 128 the JAX task leaves the tail for its algebraic path. The CUDA
+    kernels take every width this gate passes with at most 64 latent tokens
+    (`ops/fused_decoder.kernel_takes`); more tokens pass the gate and raise
+    at launch: such a shape never quietly takes the module path instead."""
     return (
         isinstance(vae.decoder_head, NegativeBinomialTransformerHead)
         and vae.decoder.decoder_cross_attention.attn.c_attn.bias is None
@@ -83,9 +83,10 @@ def _fused_path_ok(vae: TransformerVAE) -> bool:
 def _fused_encoder_ok(vae: TransformerVAE) -> bool:
     """The JAX gate of the dense encoder pool: embeddings that vanish at count
     0 (log1p, the port's only input layer), no dropout (the port has none),
-    no qkv bias (the kernels omit it) and E <= 128. A width the CUDA kernels
-    are not compiled for (`ops/fused_encoder.NARROW_SHAPES`) passes this gate
-    and raises at launch."""
+    no qkv bias (the kernels omit it) and E <= 128. The CUDA kernels take
+    every such width with at most 64 inducing points
+    (`ops/fused_encoder.narrow_kernel_takes`); more pass this gate and raise
+    at launch."""
     ca = vae.encoder.ca_layer
     return ca.attn.c_attn.bias is None and ca.ln_1.n <= 128
 
@@ -93,11 +94,11 @@ def _fused_encoder_ok(vae: TransformerVAE) -> bool:
 def _fused_window_ok(vae: TransformerVAE) -> bool:
     """The JAX gate of the window pool: any input layer, no qkv bias, and E
     at one of the JAX kernel's two validated tile geometries (E <= 128 or
-    E >= 256). The CUDA kernels take the narrow design's width
-    (`ops/fused_encoder.NARROW_SHAPES`, E = 32) and the wide one's
-    (`ops/fused_encoder.wide_kernel_takes`: heads of 64 at E from 256 to
-    1,024, up to 1,024 inducing points); another width passes this gate and
-    raises at launch."""
+    E >= 256). The CUDA kernels take every narrow width with at most 64
+    inducing points (`ops/fused_encoder.narrow_kernel_takes`) and the wide
+    design's (`ops/fused_encoder.wide_kernel_takes`: heads of 64 at E from
+    256 to 1,024, up to 1,024 inducing points); another shape passes this
+    gate and raises at launch."""
     ca = vae.encoder.ca_layer
     return ca.attn.c_attn.bias is None and (ca.ln_1.n <= 128 or ca.ln_1.n >= 256)
 

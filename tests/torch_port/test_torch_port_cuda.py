@@ -462,28 +462,148 @@ def test_encoder_pool_workspace_grows_with_the_grid_on_gpu():
 
 
 def test_encoder_pool_width_outside_kernel_shapes_raises_on_gpu():
-    """E=64 with 4 heads passes the JAX gate (E <= 128) but has no kernel,
-    nor do E=512 with 4 heads (a head width of 128), 256 with 8 (32) or 512
-    with 1,025 queries; the dense pool has no wide design (JAX gates it at E
-    <= 128). On CUDA tensors each raises instead of taking the plain
-    version."""
-    before = [c.count for c in (fe.WINDOW_POOL_FWD_LAUNCHES, fe.WINDOW_POOL_WIDE_FWD_LAUNCHES,
-                                fe.ENCODER_POOL_FWD_LAUNCHES)]
+    """E=64 with 4 heads passes the JAX gate (E <= 128) and takes the
+    any-width narrow kernels, both variants; E=64 with 65 inducing points
+    passes it too but is past their band, and E=512 with 4 heads (a head
+    width of 128), 256 with 8 (32), 512 with 1,025 queries and the dense
+    pool at E=512 (JAX gates it at E <= 128) have no kernel. On CUDA tensors
+    each of those raises instead of taking the plain version."""
+    counters = (fe.WINDOW_POOL_FWD_LAUNCHES, fe.WINDOW_POOL_WIDE_FWD_LAUNCHES,
+                fe.ENCODER_POOL_FWD_LAUNCHES)
+    before = [c.count for c in counters]
     for E, H, Q, dense in ((64, POOL_H, POOL_Q, True), (512, 4, 16, False), (256, 8, 16, False),
-                           (512, 8, 1025, False), (512, 8, 64, True)):
+                           (512, 8, 1025, False), (512, 8, 64, True), (64, 4, 65, True)):
         emb = torch.randn(2, 10, E, device="cuda")
         qfull = fe.build_query_operand(torch.randn(Q, E, device="cuda"), H)
         weights = [torch.ones(1, E, device="cuda"), torch.zeros(1, E, device="cuda"),
                    torch.randn(E, E, device="cuda"), torch.randn(E, E, device="cuda")]
-        if (E, H, Q) not in fe.NARROW_SHAPES and not fe.wide_kernel_takes(E, H, Q):
+        if fe.narrow_kernel_takes(E, H, Q):
+            fe.window_pool(emb, qfull, weights, H)
+        elif not (E >= 256 and fe.wide_kernel_takes(E, H, Q)):
             with pytest.raises(ValueError, match="built for"):
                 fe.window_pool(emb, qfull, weights, H)
-        if dense:
+        if dense and fe.narrow_kernel_takes(E, H, Q):
+            fe.encoder_pool(torch.ones(2, 10, device="cuda"), emb[0].contiguous(), qfull,
+                            weights, H)
+        elif dense:
             with pytest.raises(ValueError, match="built for"):
                 fe.encoder_pool(torch.ones(2, 10, device="cuda"), emb[0].contiguous(), qfull,
                                 weights, H)
-    assert [c.count for c in (fe.WINDOW_POOL_FWD_LAUNCHES, fe.WINDOW_POOL_WIDE_FWD_LAUNCHES,
-                              fe.ENCODER_POOL_FWD_LAUNCHES)] == before
+    # one launch each of (64, 4, 16), the only shape taken
+    assert [c.count for c in counters] == [before[0] + 1, before[1], before[2] + 1]
+
+
+# (E, n_head, M, Hd, B, G) of the any-width tail design: E 16, 64 and 128 with
+# MLP(E)'s hidden width, a ragged M, E off the multiples of 16 and the
+# dentate shape at a hidden width off 88 (its backward is the any-width one)
+@pytest.mark.parametrize("E_,H_,M_,Hd_,B,G", [(16, 2, 8, 44, 16, 700), (64, 4, 32, 172, 16, 700),
+                                             (128, 8, 64, 344, 8, 600), (48, 3, 20, 128, 16, 700),
+                                             (40, 10, 17, 108, 16, 700), (32, 4, 16, 96, 8, 300)])
+def test_decoder_tail_at_other_widths_matches_reference_on_gpu(E_, H_, M_, Hd_, B, G):
+    """The kernels against the plain version on the same operands, the
+    backward for one fixed cotangent, by chip_smoke.py's bounds
+    (`held_bf16_or_order`: the tail's bounds with the plain version's own
+    distance in another summation order as a floor); the backward repeats
+    its bits."""
+    import chip_smoke as cs
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+
+    def rnd(*s, scale=0.3, shift=0.0):
+        return torch.randn(*s, generator=g, device="cuda") * scale + shift
+
+    raw = [rnd(E_, shift=1.0), rnd(E_), rnd(E_, Hd_), rnd(E_, Hd_), rnd(Hd_, E_), rnd(E_, 1),
+           rnd(1)]
+    w = [t.contiguous() for t in tail.pack_weights(*raw)]
+    kf, vp = tail.build_attention_operands(rnd(B, M_, E_), rnd(B, M_, E_), rnd(E_, E_), H_)
+    qp, q, dy = rnd(G, E_), rnd(G, E_), rnd(B, G, scale=1.0)
+    counts = (tail.DECODER_TAIL_FWD_LAUNCHES.count, tail.DECODER_TAIL_BWD_LAUNCHES.count)
+    logits = tail.decoder_tail_fwd(qp, q, kf, vp, w, H_, 1e-8)
+    runs = [tail.decoder_tail_bwd(qp, q, kf, vp, w, dy, H_, 1e-8) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert (tail.DECODER_TAIL_FWD_LAUNCHES.count, tail.DECODER_TAIL_BWD_LAUNCHES.count) == (
+        counts[0] + 1, counts[1] + 2)
+    flat = [[*r[:4], *r[4]] for r in runs]
+    assert all(torch.equal(a, b) for a, b in zip(*flat))
+    leaves = [t.detach().clone().requires_grad_() for t in (qp, q, kf, vp, *w)]
+    ref = tail.decoder_tail_reference(*leaves[:4], leaves[4:], H_, 1e-8)
+    want = torch.autograd.grad(ref, leaves, dy)
+    hd = E_ // H_
+    block = torch.zeros(H_ * M_, E_, device="cuda")
+    for h in range(H_):
+        block[h * M_:(h + 1) * M_, h * hd:(h + 1) * hd] = 1
+    again = cs.tail_plain_reordered(qp, q, kf, vp, w, dy, H_, M_)
+    again[3] = again[3] * block
+    wants = [ref.detach(), *want[:2], want[2] * block, *want[3:]]
+    for i, (got, w_, a_) in enumerate(zip([logits, *flat[0]], wants, again)):
+        cs.held_bf16_or_order(f"tail output {i}", got, w_.reshape(got.shape),
+                              a_.reshape(got.shape))
+
+
+# (variant, E, n_head, Q, B, N) of the any-width narrow pools: E 16, 64 and
+# 128, a ragged Q, E off the multiples of 16 with heads of 8 and of 4
+@pytest.mark.parametrize("variant,E_,H_,Q_,B,N", [
+    ("dense", 16, 2, 8, 16, 700), ("window", 64, 4, 32, 16, 700), ("dense", 128, 8, 64, 8, 600),
+    ("window", 48, 3, 20, 7, 333), ("window", 24, 3, 10, 5, 1000), ("dense", 40, 10, 17, 6, 500)])
+def test_encoder_pools_at_other_widths_match_reference_on_gpu(variant, E_, H_, Q_, B, N):
+    """Both directions against the plain version as chip_smoke.py's phase 1d
+    holds them (`held_bf16_or_order`, num within 3e-4); each repeats its
+    bits, one launch each way a call."""
+    import chip_smoke as cs
+
+    g = torch.Generator(device="cuda").manual_seed(8)
+
+    def rnd(*s, scale=1.0, shift=0.0):
+        return torch.randn(*s, generator=g, device="cuda") * scale + shift
+
+    dense = variant == "dense"
+    x = dict(src=rnd(N, E_) if dense else rnd(B, N, E_), q=rnd(Q_, E_),
+             ln1g=rnd(1, E_, scale=0.3, shift=1.0), ln1b=rnd(1, E_, scale=0.3),
+             wk=rnd(E_, E_, scale=E_**-0.5), wv=rnd(E_, E_, scale=E_**-0.5))
+    counts = (torch.poisson(torch.full((B, N), 3.0, device="cuda"), generator=g)
+              * (torch.rand(B, N, generator=g, device="cuda") < 0.6)) if dense else None
+    cot = (rnd(B, Q_, E_), rnd(B, Q_ * H_))
+    pool, reference = ((fe.encoder_pool, fe.encoder_pool_reference) if dense
+                       else (fe.window_pool, fe.window_pool_reference))
+    counters = ((fe.ENCODER_POOL_FWD_LAUNCHES, fe.ENCODER_POOL_BWD_LAUNCHES) if dense
+                else (fe.WINDOW_POOL_FWD_LAUNCHES, fe.WINDOW_POOL_BWD_LAUNCHES))
+    before = [c.count for c in counters]
+    got = cs.pool_outputs_and_grads(pool, counts, x, cot, H_)
+    again = cs.pool_outputs_and_grads(pool, counts, x, cot, H_)
+    torch.cuda.synchronize()
+    assert [c.count for c in counters] == [n + 2 for n in before]
+    want = cs.pool_outputs_and_grads(reference, counts, x, cot, H_)
+    other = cs.pool_plain_reordered(reference, counts, x, cot, H_)
+    for part in want:
+        for k, w_ in want[part].items():
+            assert torch.equal(got[part][k], again[part][k]), k
+            cs.held_bf16_or_order(f"{variant} {k}", got[part][k], w_, other[part][k],
+                                  cs.POOL_NUM_NEAR if k == "num" else 1e-4)
+
+
+def test_any_width_designs_agree_with_the_library_on_gpu():
+    """What the wrappers take (`kernel_takes`, `narrow_kernel_takes`) is what
+    the library takes, and the tail's workspace as the module documents it
+    (`decoder_tail_*_workspace_floats`) is the library's own count."""
+    from scldm_torch.kernels import build
+
+    lib = build.load()
+    for E_ in (1, 16, 24, 64, 127, 128, 129, 160):
+        for H_ in (1, 2, 3, 4, 8, 16):
+            for M_ in (0, 1, 13, 64, 65):
+                assert bool(lib.scldm_encoder_pool_gen_takes(E_, H_, M_)) == \
+                    fe.narrow_kernel_takes(E_, H_, M_), (E_, H_, M_)
+                for Hd_ in (0, 44, 344):
+                    assert bool(lib.scldm_decoder_tail_gen_takes(E_, H_, M_, Hd_)) == \
+                        tail.kernel_takes(E_, H_, M_, Hd_), (E_, H_, M_, Hd_)
+    for B, G, E_, H_, M_, Hd_ in ((128, 17_002, 64, 4, 32, 172), (128, 2_000, 128, 8, 64, 344),
+                                  (3, 40, 16, 2, 8, 44), (19, 300, 32, 4, 16, 96),
+                                  (1, 1, 40, 10, 17, 108)):
+        assert lib.scldm_decoder_tail_gen_workspace_floats(B, G, E_, H_, M_, Hd_, 1) == \
+            tail.decoder_tail_bwd_workspace_floats(B, G, Hd_, E_, H_, M_), (B, G, E_)
+        if not tail.specialised(E_, H_, M_, Hd_, False):  # else decoder_tail.cu's forward, none
+            assert lib.scldm_decoder_tail_gen_workspace_floats(B, G, E_, H_, M_, Hd_, 0) == \
+                tail.decoder_tail_fwd_workspace_floats(B, G, Hd_, E_, H_, M_), (B, G, E_)
 
 
 def _wide_pool_inputs(B, N, E, H, Q, device, seed=0):

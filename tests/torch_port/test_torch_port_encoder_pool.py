@@ -18,7 +18,9 @@ max; 7e-07 in one tile); each gradient within 1e-2 of its own largest
 (largest gap seen 6.4e-03: JAX also rounds its reduced gradients to bf16 per
 tile, the port after the whole sum). The CUDA kernels
 themselves are held to the plain version on the card in
-test_torch_port_cuda.py."""
+test_torch_port_cuda.py. The same holds at the other widths the JAX gates
+send the narrow kernels (`WIDTHS`: E = 16, 64 and 128, head widths 8 and 16,
+a ragged query count)."""
 
 import jax
 import jax.numpy as jnp
@@ -43,10 +45,12 @@ def _exact_matmuls():
         yield
 
 
-def make_case(B, G, S, seed=0):
+def make_case(B, G, S, seed=0, e=E, h=H, q=Q, jit=False):
     """A JAX VAE with randomised weights (non-zero LayerNorm biases, so the
     zero-row correction is not trivial), the port's copy of it, a lean batch
-    of B cells over an S-token window and its dense counts."""
+    of B cells over an S-token window and its dense counts; the MCAB at
+    width e with h heads over q inducing points (`jit`: JAX's init compiled,
+    seconds instead of tens of seconds)."""
     rng = np.random.default_rng(seed)
     gs = np.zeros((B, S), np.int32)
     cs = np.zeros((B, S), np.float32)
@@ -58,15 +62,16 @@ def make_case(B, G, S, seed=0):
     for i in range(B):
         nz = gs[i] > 0
         dense[i, gs[i, nz] - 1] = cs[i, nz]
-    jvae = jax_build_vae(n_genes=G, n_layer=1)
-    params = jvae.init(jax.random.PRNGKey(seed), jnp.asarray(dense),
-                       jnp.tile(jnp.arange(1, G + 1), (B, 1)),
-                       jnp.asarray(dense.sum(1, keepdims=True)), jnp.asarray(cs), jnp.asarray(gs))
+    kw = dict(n_embed=e, n_head_cross=h, n_inducing_points=q, n_head=max(1, e // 16))
+    jvae = jax_build_vae(n_genes=G, n_layer=1, **kw)
+    params = (jax.jit(jvae.init) if jit else jvae.init)(
+        jax.random.PRNGKey(seed), jnp.asarray(dense), jnp.tile(jnp.arange(1, G + 1), (B, 1)),
+        jnp.asarray(dense.sum(1, keepdims=True)), jnp.asarray(cs), jnp.asarray(gs))
     params = jax.tree_util.tree_map(
         lambda p: p + jnp.asarray(0.3 * rng.normal(size=p.shape).astype(np.float32)), params)
-    tvae = build_transformer_vae(n_genes=G, n_layer=1, device="cpu")
+    tvae = build_transformer_vae(n_genes=G, n_layer=1, device="cpu", **kw)
     load_reference_state_dict(tvae, export_torch_state_dict(params))
-    w = rng.normal(size=(B, Q, E)).astype(np.float32)  # a non-uniform cotangent
+    w = rng.normal(size=(B, q, e)).astype(np.float32)  # a non-uniform cotangent
     return jvae, params, tvae, dict(genes_subset=gs, counts_subset=cs, counts=dense), w
 
 
@@ -122,6 +127,56 @@ def test_pool_matches_pallas_interpret(variant, B, G, S, part):
         assert n == 14
     # a CPU tensor takes the plain version: no kernel launch is counted
     assert [c.count for c in counters] == before
+
+
+# (variant, e, h, q, B, G, S) at the other widths the JAX gates send the
+# narrow kernels: E = 16 (head width 8), 64 (16) and 128 (16, both variants:
+# the two share `_pool` but for the embedding) and a ragged query count
+WIDTHS = [("window", 16, 2, 8, 3, 60, 50), ("window", 64, 4, 32, 2, 60, 50),
+          ("dense", 128, 8, 64, 2, 40, 30), ("window", 128, 8, 64, 2, 40, 30),
+          ("window", 48, 3, 20, 2, 60, 50)]
+
+
+@pytest.mark.parametrize("variant,e,h,q,B,G,S", WIDTHS)
+def test_pool_matches_pallas_interpret_at_other_widths(variant, e, h, q, B, G, S):
+    """The plain pools' pooled tokens and the MCAB's gradients against JAX's
+    Pallas pools in interpret mode, at the tolerances of the dentate width."""
+    jvae, params, tvae, x, w = make_case(B, G, S, 7, e, h, q, jit=True)
+    want = np.asarray(jax.jit(lambda p: jax_pooled(variant, jvae, p, x))(params))
+    out = port_pooled(variant, tvae, x)
+    assert out.shape == want.shape == (B, q, e)
+    assert np.abs(out.detach().numpy() - want).max() < 1e-3 * np.abs(want).max()
+    jgrads = export_torch_state_dict(jax.jit(jax.grad(
+        lambda p: jnp.sum(jax_pooled(variant, jvae, p, x) * w)))(params))
+    (out * torch.from_numpy(w)).sum().backward()
+    n = 0
+    for name, p in tvae.named_parameters():
+        if p.grad is None:
+            continue
+        want_g = jgrads[name]
+        scale = np.abs(want_g).max()
+        assert scale > 0, name
+        assert np.abs(p.grad.numpy() - want_g).max() < 1e-2 * scale, name
+        n += 1
+    assert n == 14
+
+
+def test_narrow_kernels_take_every_width_the_gate_sends():
+    """Every E from 16 to 128 in steps of 16 with head widths 8, 16, 32 and
+    64 and 1 to 64 inducing points takes the narrow kernels; so do E off the
+    multiples of 16 and head widths 4 and 128. More than 64 inducing points,
+    or E past 128, do not."""
+    for e in range(16, 129, 16):
+        for hd in (8, 16, 32, 64):
+            if e % hd == 0:
+                for q in (1, 20, 64):
+                    assert fe.narrow_kernel_takes(e, e // hd, q), (e, hd, q)
+    for e, h, q in ((24, 3, 10), (40, 10, 17), (16, 4, 64), (128, 1, 5)):
+        assert fe.narrow_kernel_takes(e, h, q)
+    for e, h, q in ((32, 4, 65), (64, 4, 128), (160, 4, 16), (256, 4, 16), (48, 5, 16),
+                    (32, 4, 0)):
+        assert not fe.narrow_kernel_takes(e, h, q), (e, h, q)
+    assert fe.SPECIALISED == (E, H, Q) and fe.narrow_kernel_takes(*fe.SPECIALISED)
 
 
 @pytest.mark.parametrize("variant", ["dense", "window"])
@@ -185,11 +240,17 @@ def test_shape_checks_and_devices():
     assert fe._check("dense", emb[0], qfull, weights, H, torch.zeros(3, 5)) == (3, 5, E, Q)
     with pytest.raises(ValueError, match="counts must be"):
         fe._check("dense", emb[0], qfull, weights, H, torch.zeros(3, 4))
-    with pytest.raises(ValueError, match="built for"):
-        fe._check("window", emb, qfull, weights, 2)  # another head count
+    # another head count (32 queries of 2 heads) and E = 16: the any-width design's
+    assert fe._check("window", emb, qfull, weights, 2) == (2, 5, E, 2 * Q)
     narrow = (torch.zeros(1, 16), torch.zeros(1, 16), torch.zeros(16, 16), torch.zeros(16, 16))
-    with pytest.raises(ValueError, match="built for"):
-        fe._check("window", emb[..., :16], fe.build_query_operand(torch.zeros(Q, 16), 2), narrow, 2)
+    assert fe._check("window", emb[..., :16].contiguous(),
+                     fe.build_query_operand(torch.zeros(Q, 16), 2), narrow, 2) == (2, 5, 16, Q)
+    with pytest.raises(ValueError, match="built for"):  # 65 inducing points
+        fe._check("window", emb, fe.build_query_operand(torch.zeros(65, E), H), weights, H)
+    wide = (torch.zeros(1, 160), torch.zeros(1, 160), torch.zeros(160, 160), torch.zeros(160, 160))
+    with pytest.raises(ValueError, match="built for"):  # between the narrow and wide designs
+        fe._check("window", torch.zeros(2, 5, 160), fe.build_query_operand(torch.zeros(Q, 160), 4),
+                  wide, 4)
     with pytest.raises(ValueError, match="cuda or cpu"):
         fe.window_pool_fwd(emb.to("meta"), qfull.to("meta"), [w.to("meta") for w in weights],
                            H, 1e-8)

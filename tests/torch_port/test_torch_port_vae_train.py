@@ -228,13 +228,16 @@ def test_dispatch():
                   build_transformer_vae(n_genes=G, bias=True, n_layer=1, device="cpu")):
         assert not _fused_path_ok(other)
         assert not VAETask(other, fused_decoder=True, **TASK)._use_fused(lean)
-    # at a width the kernels are not built for, the CUDA launch raises before
-    # it reaches the library (the check is device-free)
+    # the narrow architecture's widths take the kernels; outside their band
+    # (more than 64 latent tokens) the CUDA launch raises before it reaches
+    # the library (the check is device-free)
     E, H, M, Hd = 16, 2, 16, 44
     qp = torch.zeros(G, E)
     kf = torch.zeros(B, H * M, E)
     weights = (torch.zeros(1, E), torch.zeros(1, E), torch.zeros(E, 2 * Hd),
                torch.zeros(1, Hd), torch.zeros(1, E), torch.zeros(1, 1))
+    assert fused_decoder._check(qp, qp, kf, kf, weights, H) == (B, G, E, M, Hd)
+    kf = torch.zeros(B, H * 65, E)
     with pytest.raises(ValueError, match="built for"):
         fused_decoder._check(qp, qp, kf, kf, weights, H)
 
@@ -296,6 +299,42 @@ def test_train_step_matches_jax(setup, path):
         moved = np.abs(got[name] - before[name].numpy())
         assert np.abs(got[name] - w)[sure].max(initial=0.0) <= 0.1 * step, name
         assert np.all(moved <= 1.01 * step), name
+
+
+# vae_base.yaml with model.vae.n_embed=64, n_head_cross=4, n_inducing_points=32:
+# head width 16, hidden 172, the width chip_smoke.py's phase 13 trains at
+WIDE = dict(n_embed=64, n_head_cross=4, n_inducing_points=32)
+
+
+@pytest.fixture(scope="module")
+def wide_setup():
+    with jax.default_matmul_precision("highest"):
+        jvae = jax_build_vae(n_genes=G, **WIDE)
+        jtask = JaxVAETask(jvae, **TASK)
+        state = jtask.init_state(jax.random.PRNGKey(2), to_jax(lean_batch()))
+    return jvae, jtask, state
+
+
+def test_train_step_matches_jax_at_e64(wide_setup):
+    """One kernel-path train step at E = 64 (4 cross heads of 16 over 32
+    latent tokens, hidden 172) against JAX's with its Pallas tail in
+    interpret mode: loss, grad norm and theta within 1e-3, the clipped
+    gradients within 2e-2 of each tensor's largest, as at E = 32."""
+    jvae, jtask, state = wide_setup
+    # compiled: the interpret-mode tail's gradients take seconds instead of tens of seconds
+    step = jax.jit(lambda st, b: _jax_kernel_path_step(jvae, jtask, st, b))
+    _, jgrad, want = step(state, to_jax(lean_batch()))
+    tvae = build_transformer_vae(n_genes=G, device="cpu", **WIDE)
+    load_reference_state_dict(tvae, export_torch_state_dict(state.params))
+    task = VAETask(tvae, **TASK, fused_decoder=True)
+    assert _fused_path_ok(tvae) and fused_decoder.kernel_takes(64, 4, 32, 172)
+    tstate = task.init_state(torch.Generator().manual_seed(0))
+    launches = fused_decoder.DECODER_TAIL_FWD_LAUNCHES.count
+    tstate, mets = task.train_step(tstate, to_torch(lean_batch(dtype=np.uint16)))
+    assert fused_decoder.DECODER_TAIL_FWD_LAUNCHES.count == launches  # CPU: the plain version
+    for k in ("train_loss", "grad_norm", "train_theta"):
+        np.testing.assert_allclose(float(mets[k]), float(want[k]), rtol=1e-3)
+    assert_grads_close(tstate.module, jgrad, 2e-2, skip=("decoder_head.params.bias",))
 
 
 DENSE_S = 50  # a window that passes JAX's dense-pool gate: G = 60 <= 1.3 * 50

@@ -112,9 +112,10 @@ def port_pooled(tvae, batch):
 
 def test_census_width_takes_the_wide_design():
     """The census MCAB's (E, heads, queries) is a wide kernel shape; the
-    dense pool keeps the narrow one only."""
+    dense pool keeps the narrow designs only, which take E <= 128."""
     assert fe.wide_kernel_takes(512, 8, 64) and fe.wide_kernel_takes(256, 4, 16)
-    assert fe.NARROW_SHAPES == ((32, 4, 16),) and not fe.wide_kernel_takes(32, 4, 16)
+    assert fe.SPECIALISED == (32, 4, 16) and not fe.wide_kernel_takes(32, 4, 16)
+    assert fe.narrow_kernel_takes(32, 4, 16) and not fe.narrow_kernel_takes(256, 4, 16)
     assert fe._wide(512) and fe._wide(256) and not fe._wide(32)
 
 
