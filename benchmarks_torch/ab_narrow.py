@@ -17,7 +17,11 @@ beside each, the device time a call (the profiler, every kernel of 20 more
 calls). Where the tree has the any-width designs (decoder_tail_gen.cu,
 encoder_pool_gen.cu), it also times them at the same shapes (`*_gen`), the
 wrappers' dispatch by shape turned off for those calls: the shape the
-dentate designs are tuned for, where the two are compared. The last line is
+dentate designs are tuned for, where the two are compared. Then the tail
+both ways at chip_smoke.py's phase 13 shapes (`decoder_tail_*_e64`: B = 128,
+G = 17,002, E = 64, 4 heads, 32 latent tokens, hidden 172; `*_e128`: G =
+2,000, E = 128, 8 heads, 64 tokens, hidden 344), which only the any-width
+design takes. The last line is
 a JSON object, {"ms": {name: ms}, "device_ms": {name: ms}}. To compare two
 trees, run this once per tree in turns within one chip call (parent,
 change, change, parent): cards differ between calls.
@@ -95,6 +99,19 @@ def main(argv=None) -> int:
             return call
 
         fns.update({f"{k}_gen": gen(f) for k, f in list(fns.items())})
+    # the tail at chip_smoke.py's phase 13 shapes, which only the any-width design takes
+    for e, h, m, hid, genes in ((64, 4, 32, 172, N_GENES), (128, 8, 64, 344, PARSE_GENES)):
+        raw = [rnd(e, scale=0.3, shift=1.0), rnd(e, scale=0.3), rnd(e, hid, scale=0.3),
+               rnd(e, hid, scale=0.3), rnd(hid, e, scale=0.3), rnd(e, 1, scale=0.3),
+               rnd(1, scale=0.3)]
+        w_ = [t.contiguous() for t in fd.pack_weights(*raw)]
+        k_, v_ = fd.build_attention_operands(rnd(B, m, e, scale=0.3), rnd(B, m, e, scale=0.3),
+                                             rnd(e, e, scale=0.3), h)
+        qp_, q_, dy_ = rnd(genes, e, scale=0.3), rnd(genes, e, scale=0.3), rnd(B, genes)
+        fns[f"decoder_tail_fwd_e{e}"] = (
+            lambda a=(qp_, q_, k_, v_, w_), h=h: fd.decoder_tail_fwd(*a, h, EPS))
+        fns[f"decoder_tail_bwd_e{e}"] = (
+            lambda a=(qp_, q_, k_, v_, w_, dy_), h=h: fd.decoder_tail_bwd(*a, h, EPS))
     ms, dev = {}, {}
     for name, fn in fns.items():
         for _ in range(3):

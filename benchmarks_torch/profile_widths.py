@@ -13,7 +13,8 @@ hidden 172) and the parse1m step (G = 2,000, E = 128, 8 heads of 64, hidden
 heads, 32 inducing points) and the dense pool at parse1m (B = 128, G = 2,000,
 E = 128, 8 heads, 64), random inputs from seed 0. Prints one line a call:
 each kernel's name and ms a call, largest first; then the ptxas report's
-registers and spills of each any-width kernel.
+registers and spills of each any-width kernel (the tail's `tailw_*`: pack,
+rows <EP, backward>, qside, kside <EP, 0 dvproj / 1 dkfull>, w12, sums).
 """
 
 from __future__ import annotations
@@ -86,12 +87,14 @@ def main() -> int:
         profile(f"{variant}_pool_bwd E={E}", lambda: bwd(*pre, src, qfull, w, m, *cot, H, 1e-8))
     report = build.report_path(build.library_path()).read_text().splitlines()
     for i, line in enumerate(report):
-        name = re.search(r"\d((?:tail|pool)_[a-z0-9_]+?)ILi(\d+)", line)
-        if "Compiling entry" in line and ("tailg" in line or "poolg" in line) and name:
+        name = re.search(r"\d((?:tailw|pool)_[a-z0-9_]+?)I(?:Li|Lb)(\d+)E(?:L[ib](\d+)E)?", line)
+        if "Compiling entry" in line and ("tailw" in line or "poolg" in line) and name:
             info = [k.split(":", 1)[-1].strip() for k in report[i + 1:i + 4]
                     if "Compiling" not in k and ("Used" in k or "spill" in k)]
-            print(f"{name.group(1)}<{name.group(2)}{', dense' if 'Lb1' in line else ''}>: "
-                  + "; ".join(info))
+            args = name.group(2) + (f", {name.group(3)}" if name.group(3) else "")
+            if "poolg" in line:
+                args = name.group(2) + (", dense" if "Lb1" in line else "")
+            print(f"{name.group(1)}<{args}>: " + "; ".join(info))
     return 0
 
 

@@ -172,7 +172,8 @@ memory are printed. Phases 1b and 1d also hold the any-width designs
 (decoder_tail_gen.cu, encoder_pool_gen.cu) at the corners of the widths the
 JAX gate sends them (E 16 and 128, head widths 8 to 64, 1 and 64 latent
 tokens or inducing points, the MLP rule's smallest and largest hidden
-widths) and at phase 13's two shapes against their plain versions, by
+widths; the tail also at 65, 128 and 256 latent tokens) and at phase 13's
+two shapes against their plain versions, by
 `held_bf16`'s bounds with the plain version's own distance in another
 summation order as a floor, each backward (and each pool forward) run twice
 to the same bits, and time both directions at phase 13's shapes beside
@@ -181,8 +182,10 @@ configs/vae_training.yaml as shipped (bf16) at two other widths through the
 in-memory shard: dentate (G = 17,002, its window) with model.vae.n_embed=64,
 n_head_cross=4, n_inducing_points=32 (the module encoder and the tail), and
 parse1m (G = 2,000) with n_embed=128, n_head_cross=8, n_inducing_points=64
-(the dense pool and the tail), 8 steps of B = 128 each with one launch of
-each kernel a step, printing train cells/s and peak memory; it holds one
+(the dense pool and the tail), and dentate again with 128 inducing points
+(the tail over two 64-key tiles, its loss falling over a row a step), 8
+steps of B = 128 each with one launch of each kernel a step, printing train
+cells/s and peak memory; it holds one
 kernel-path step of an f32 VAE at each width against the module path at
 phase 3's bounds and times the two paths in turns with their peak memory,
 and at the dentate width takes three
@@ -815,16 +818,21 @@ def phase1d_encoder_pool(seed: int) -> dict:
 
 # -- phases 1b and 1d at the other widths, and phase 13 ----------------------------
 
-# phase 13's two widths: configs/model/vae_base.yaml with model.vae.n_embed,
+# phase 13's widths: configs/model/vae_base.yaml with model.vae.n_embed,
 # n_head_cross and n_inducing_points overridden; Hd is the MLP rule's hidden width
-# at the shipped multiple_of 4
-WIDTHS = {"dentate": dict(E=64, H=4, M=32, Hd=172), "parse1m": dict(E=128, H=8, M=64, Hd=344)}
+# at the shipped multiple_of 4. The third trains at dentate genes over 128 latent
+# tokens (two 64-key tiles of the tail)
+WIDTHS = {"dentate": dict(E=64, H=4, M=32, Hd=172), "parse1m": dict(E=128, H=8, M=64, Hd=344),
+          "dentate_m128": dict(E=64, H=4, M=128, Hd=172)}
 # (E, n_head, M, Hd, B, G) of phase 1b's grid: its corners (E 16 and 128; head
 # widths 8 and 16 at E = 16, 8 and 64 at E = 128; 1 and 64 latent tokens; the MLP
-# rule's hidden widths at multiple_of 1 and 64) and phase 13's two training shapes
+# rule's hidden widths at multiple_of 1 and 64), more latent tokens than one
+# 64-key tile (65, 128 and 256) and phase 13's two training shapes
 TAIL_GRID = ((16, 2, 1, 42, 32, 2_000), (16, 1, 64, 64, 32, 2_000),
              (128, 16, 64, 341, 16, 2_000), (128, 2, 1, 384, 32, 2_000),
              (128, 16, 1, 384, 32, 2_000), (128, 2, 64, 341, 16, 2_000),
+             (32, 4, 65, 88, 16, 2_000), (64, 4, 128, 172, 16, 2_000),
+             (128, 8, 256, 344, 16, 2_000),
              (64, 4, 32, 172, 128, N_GENES), (128, 8, 64, 344, 128, PARSE_GENES))
 # (variant, E, n_head, Q, B, N) of phase 1d's grid: the same corners, each variant,
 # and phase 13's two shapes: the window pool at the dentate window (VAETask(
@@ -836,8 +844,7 @@ POOL_GRID = (("window", 16, 2, 1, 16, 2_000), ("dense", 16, 2, 64, 16, 2_000),
              ("window", 64, 4, 32, 128, WINDOW), ("dense", 128, 8, 64, 128, PARSE_GENES))
 # the kernels behind the any-width designs' entry points (the packers and the
 # fixed-order sum included)
-GEN_TAIL_KERNELS = {"fwd": ("tail_fwd_gen", "pack_a", "pack_b"),
-                    "bwd": ("tail_bwd_", "pack_a", "pack_b", "sum_parts")}
+GEN_TAIL_KERNELS = {"fwd": ("tailw_",), "bwd": ("tailw_",)}
 GEN_POOL_KERNELS = {"fwd": ("pool_fwd_gen", "pack_a", "pack_b"),
                     "bwd": ("pool_bwd_", "pack_a", "pack_b", "sum_parts")}
 
@@ -4131,16 +4138,20 @@ def phase13_widths(seed: int, smi: str) -> dict:
     `model.vae.n_embed=64 n_head_cross=4 n_inducing_points=32` (head width 16,
     hidden 172); (b) `datamodule.dataset=parse1m` (G = S = 2,000: the dense
     pool and the tail) with `n_embed=128 n_head_cross=8 n_inducing_points=64`
-    (head width 16, hidden 344). Each trains WIDTH_STEPS steps of B = 128 and
-    must launch each tail kernel (and at (b) each dense pool kernel) once a
-    step; its train cells/s (metrics.csv) and peak memory are printed. Then,
+    (head width 16, hidden 344); (c) dentate as (a) with
+    `n_inducing_points=128` (the tail's keys in two 64-key tiles), one step a
+    dispatch and a metrics.csv row a step, whose train loss must fall. Each
+    trains WIDTH_STEPS steps of B = 128 and must launch each tail kernel (and
+    at (b) each dense pool kernel) once a step; its train cells/s
+    (metrics.csv) and peak memory are printed. Then,
     on an f32 VAE of the same width and G, one kernel-path step is held
     against the module path (`VAETask(fused_decoder=False)`) at phase 3's
     bounds and the two paths' steps are timed in turns with each arm's peak
     memory, and at (a) three `VAETask(fused_pool=True)` steps run the narrow
     window pool at E = 64 and one is held against the module MCAB at phase
     5's bounds. Returns the launches of each kernel in the CLI runs and the
-    fused_pool steps: {"dentate": ..., "parse1m": ..., "fused_pool": ...}."""
+    fused_pool steps: {"dentate": ..., "parse1m": ..., "dentate_m128": ...,
+    "fused_pool": ...}."""
     import tempfile
 
     import numpy as np
@@ -4188,6 +4199,7 @@ def phase13_widths(seed: int, smi: str) -> dict:
         "parse1m": ["datamodule.dataset=parse1m",
                     f"datamodule.datamodule.train_adata_path={tmp / 'parse_train.h5ad'}"],
     }
+    runs["dentate_m128"] = runs["dentate"]
     genes = {"dentate": N_GENES, "parse1m": PARSE_GENES}
     real_h5ad = dm_module.H5ADFile
     dm_module.H5ADFile = lambda path: shards[str(path)]
@@ -4200,6 +4212,8 @@ def phase13_widths(seed: int, smi: str) -> dict:
             argv = config + args + widths + [
                 f"paths.output_path={tmp / name}", f"paths.inference_path={tmp / name / 'inf'}",
                 f"training.max_steps={WIDTH_STEPS}", "epochs=1", "training.log_every_steps=4"]
+            if name == "dentate_m128":  # a row a step in metrics.csv, to show the loss falls
+                argv += ["training.steps_per_dispatch=1", "training.log_every_steps=1"]
             for c in counters.values():
                 c.reset()
             torch.cuda.synchronize()
@@ -4229,6 +4243,8 @@ def phase13_widths(seed: int, smi: str) -> dict:
             losses = [float(r["train_loss"]) for r in rows if r.get("train_loss")]
             if not losses or not all(np.isfinite(losses)):
                 raise AssertionError(f"phase13 {name}: train losses {losses}")
+            if name == "dentate_m128" and not (len(losses) >= 2 and losses[-1] < losses[0]):
+                raise AssertionError(f"phase13 {name}: the train loss did not fall: {losses}")
             log(f"phase13 train at {name} (E={w['E']}, n_head_cross={w['H']}, "
                 f"n_inducing_points={w['M']}, hidden {w['Hd']}; bf16 as shipped): "
                 f"{WIDTH_STEPS} steps of B=128 in {wall:.2f} s wall; launches "
@@ -4243,7 +4259,7 @@ def phase13_widths(seed: int, smi: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
     # one step of each path on an f32 VAE of each width: kernel vs module
-    for name in runs:
+    for name in ("dentate", "parse1m"):
         w, G = WIDTHS[name], genes[name]
         vae = init_reference_(build_transformer_vae(n_genes=G, n_embed=w["E"],
                                                     n_head_cross=w["H"],

@@ -1,5 +1,5 @@
-// Helpers of the any-width decoder-tail and narrow-pool kernels
-// (decoder_tail_gen.cu, encoder_pool_gen.cu): operands packed once into the
+// Helpers of the any-width narrow-pool kernels (encoder_pool_gen.cu):
+// operands packed once into the
 // fragment order of mma.sync m16n8k16 bf16 (tensor_core.cuh gives the
 // layouts), so that a warp loads each fragment it needs as one 8- or 16-byte
 // read per lane from a buffer the L1 and L2 hold, and a fixed-order sum of
@@ -24,31 +24,20 @@ namespace {  // each source that includes this keeps its own copies
 
 // A matrix of f32 values read in place, as a packer sees it: batch = b * H +
 // h; element (r, c) at p[b * sb + h * sh + r * ld + c], 0 at r >= rows or c
-// >= cols, and with band_w > 0 0 outside columns [h * band_h, + band_w).
-// `trans` swaps the fragment's (row or k, column or n) into the matrix's (c,
-// r). `pass` 0, 1 or 2 gives the hi, mid or lo bf16 part of the value
-// (tc::split3_bf16), -1 the value. `inter` > 0 reads the k index of a B
-// operand as the decoder tail's [da | dc] steps: k = 16 j + kk is hidden
-// column 8 j + (kk & 7) of the first half (kk < 8) or the second (columns
-// `inter` on), 0 past `inter`.
+// >= cols. `trans` swaps the fragment's (row or k, column or n) into the
+// matrix's (c, r). `pass` 0, 1 or 2 gives the hi, mid or lo bf16 part of the
+// value (tc::split3_bf16), -1 the value.
 struct Mat {
   const float* p;
   int H;
   long long sb, sh;
   int ld, rows, cols;
-  int band_h, band_w;
-  int trans, pass, inter;
+  int trans, pass;
 
   __device__ float operator()(int batch, int i, int j) const {
-    if (inter > 0) {
-      const int jj = i >> 4, kk = i & 15, hid = 8 * jj + (kk & 7);
-      if (hid >= inter) return 0.f;
-      i = hid + (kk >= 8 ? inter : 0);
-    }
     const int r = trans ? j : i, c = trans ? i : j;
     const int b = batch / H, h = batch % H;
     if (r >= rows || c >= cols) return 0.f;
-    if (band_w > 0 && (c < h * band_h || c >= h * band_h + band_w)) return 0.f;
     const float x = p[b * sb + h * sh + (long long)r * ld + c];
     if (pass < 0) return x;
     const float hi = __bfloat162float(__float2bfloat16_rn(x));
@@ -60,7 +49,7 @@ struct Mat {
 
 __host__ __device__ inline Mat mat(const float* p, int H, long long sb, long long sh, int ld,
                                    int rows, int cols, bool trans = false, int pass = -1) {
-  return Mat{p, H, sb, sh, ld, rows, cols, 0, 0, trans ? 1 : 0, pass, 0};
+  return Mat{p, H, sb, sh, ld, rows, cols, trans ? 1 : 0, pass};
 }
 
 // one thread an entry: nbatch x KS x NT tiles of B fragments
@@ -173,20 +162,11 @@ __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
 // over the 8 lanes of one tq (xor 4, 8, 16)
 __device__ __forceinline__ float col_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 4);
   v += __shfl_xor_sync(0xffffffffu, v, 8);
   return v + __shfl_xor_sync(0xffffffffu, v, 16);
-}
-__device__ __forceinline__ float col_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 4));
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 8));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 16));
 }
 
 __device__ __forceinline__ float bfr(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
@@ -262,22 +242,6 @@ struct Carve {
     return p;
   }
 };
-
-// CTAs for `units` warp-sized units of a kernel whose warps take their units
-// one after another (unit += gridDim.x * warps): as many as the device holds
-// at once, or fewer where the units are fewer. Which warp takes a unit does
-// not change what it writes, so the bits do not depend on the grid.
-inline int resident_blocks(const void* kernel, int threads, long long smem, long long units) {
-  int dev = 0, sms = 1, per = 1;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kernel, threads, (size_t)smem) !=
-          cudaSuccess)
-    sms = per = 1;
-  const long long want = (units + threads / 32 - 1) / (threads / 32);
-  const long long most = (long long)(sms > 0 ? sms : 1) * (per > 0 ? per : 1);
-  return (int)(want < most ? (want > 0 ? want : 1) : most);
-}
 
 inline cudaError_t allow_smem(const void* kernel, long long bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;

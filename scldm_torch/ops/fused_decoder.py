@@ -20,24 +20,24 @@ line the JAX `_tail_math`; its autograd also rounds the gradients of those
 six tensors to bf16, as JAX's does.
 
 The kernels take every shape the JAX gate sends them (`kernel_takes`: E up
-to 128, any head count dividing E, 1 to 64 latent tokens, any SwiGLU hidden
-width), in two designs on the same math:
+to 128, any head count dividing E, any number of latent tokens, any SwiGLU
+hidden width), in two designs on the same math:
 
 - the dentate decoder's (`SPECIALISED`: E = 32, 4 heads over 16 latent
   tokens; the backward at hidden width 88),
   `scldm_torch/kernels/csrc/decoder_tail.cu`, tuned for that shape;
-- every other shape, `scldm_torch/kernels/csrc/decoder_tail_gen.cu`: the
-  operands packed into mma fragment order and zero-padded (E to 32, 64 or
-  128, M to a multiple of 16, the hidden width to a multiple of 8), the
-  backward in three kernels over a workspace (`decoder_tail_bwd_workspace_
-  floats`) with its partials added in a fixed order.
+- every other shape, `scldm_torch/kernels/csrc/decoder_tail_gen.cu`: wgmma
+  with TMA-fed shared memory, the operands packed to bf16 once a launch (E
+  padded to 64 or 128), the keys in tiles of 64, the backward in four
+  kernels over a workspace (`decoder_tail_bwd_workspace_floats`) whose
+  partials a fifth adds in a fixed order.
 
-More than 64 latent tokens (or E past 128, which the gate never sends) raise
-`ValueError` before any launch; no shape quietly takes the plain version on
-the card. `decoder_tail_fwd` and `decoder_tail_bwd` launch the kernels on
-CUDA tensors and run the plain version on CPU tensors; any other device
-raises. Each counts its kernel launches, so a run can show that its main
-path went through the kernels.
+E past 128 (which the gate never sends) or a head count that does not
+divide E raise `ValueError` before any launch; no shape quietly takes the
+plain version on the card. `decoder_tail_fwd` and `decoder_tail_bwd` launch
+the kernels on CUDA tensors and run the plain version on CPU tensors; any
+other device raises. Each counts its kernel launches, so a run can show that
+its main path went through the kernels.
 """
 
 from __future__ import annotations
@@ -58,8 +58,8 @@ WEIGHT_NAMES = ("ln2g", "ln2b", "w12", "wv", "wmu", "bmu")
 #: `SPECIALISED_HIDDEN`, the dentate decoder's MLP(32)
 SPECIALISED = (32, 4, 16)
 SPECIALISED_HIDDEN = 88
-#: the widest E and the most latent tokens the kernels take
-MAX_WIDTH, MAX_LATENT = 128, 64
+#: the widest E the kernels take
+MAX_WIDTH = 128
 #: genes and cells a CTA of the specialised backward takes (kGenes, kCells in
 #: decoder_tail.cu's namespace tail)
 BWD_GENE_TILE, BWD_CELL_BLOCK = 64, 16
@@ -67,10 +67,9 @@ BWD_GENE_TILE, BWD_CELL_BLOCK = 64, 16
 
 def kernel_takes(E: int, n_head: int, M: int, Hd: int) -> bool:
     """Whether the kernels take (E, n_head, M) with hidden width Hd, both
-    ways: E from 1 to 128 with n_head dividing it, 1 to 64 latent tokens,
-    any hidden width (`scldm_decoder_tail_gen_takes` says the same)."""
-    return (1 <= E <= MAX_WIDTH and n_head >= 1 and E % n_head == 0 and 1 <= M <= MAX_LATENT
-            and Hd >= 1)
+    ways: E from 1 to 128 with n_head dividing it, any number of latent
+    tokens, any hidden width (`scldm_decoder_tail_gen_takes` says the same)."""
+    return 1 <= E <= MAX_WIDTH and n_head >= 1 and E % n_head == 0 and M >= 1 and Hd >= 1
 
 
 def specialised(E: int, n_head: int, M: int, Hd: int, backward: bool) -> bool:
@@ -182,7 +181,7 @@ def _check(qp, q, kfull, vproj, weights, n_head) -> Tuple[int, int, int, int, in
     if not kernel_takes(E, n_head, M, Hd) or HM != n_head * M:
         raise ValueError(
             f"the decoder-tail kernels are built for E <= {MAX_WIDTH} with n_head dividing it "
-            f"and 1 to {MAX_LATENT} latent tokens, got (E, n_head, M) = ({E}, {n_head}, "
+            f"and at least one latent token, got (E, n_head, M) = ({E}, {n_head}, "
             f"{HM / n_head:g})"
         )
     for t in (qp, q, kfull, vproj, *weights):
@@ -210,33 +209,32 @@ def _clamp(v: int, lo: int, hi: int) -> int:
 
 def _gen_workspace_bytes(B: int, G: int, E: int, n_head: int, M: int, Hd: int,
                          backward: bool) -> int:
-    """decoder_tail_gen.cu's workspace in bytes (`carve` there; each piece
-    256-byte aligned): the packed bf16 fragments (per cell and head the key
-    blocks and the values, E x M padded, once forward and three times more
-    backward; w12 once forward, four times backward), then, backward, d(hh)
-    (f32) and bf(hn) (bf16) of every pair, E padded, and the partials: per
-    block of cells dqp and dq of every gene, per 16-gene unit the vector
-    sums and those summed per cell block, per gene chunk dvproj and dkfull's
-    head blocks, per pair chunk dw12 and dwv."""
-    EP = 32 if E <= 32 else 64 if E <= 64 else 128
-    KE, NE = EP // 16, EP // 8
-    KM = _cdiv(M, 16)
-    NM = 2 * KM
-    NHT, HT16 = _cdiv(Hd, 8), _cdiv(Hd, 16)
-    n_gt = _cdiv(G, 16)
-    Bc = _cdiv(B, _clamp(_cdiv(8192, n_gt), 1, B))
-    n_cb = _cdiv(B, Bc)
-    n_ch2 = _clamp(_cdiv(8192, B * n_head * (EP // 32)), 1, n_gt)
-    n_ch3 = _clamp(_cdiv(2048, HT16), 1, _cdiv(B * G, 16))
-    BH, P, hd = B * n_head, B * G, E // n_head
-    pieces = [8 * BH * KE * NM * 32, 8 * BH * KM * NE * 32, 8 * KE * NHT * 32, 8 * KE * NHT * 32]
+    """decoder_tail_gen.cu's workspace in bytes (`make_dims` and `carve` there;
+    each piece 256-byte aligned): the packed bf16 operands (qp; kfull and
+    vproj in head tiles, several heads to a 64-key tile where each has at most
+    32 keys; E padded to 64 or 128; w12^T, its hidden rows padded to 32), then,
+    backward, d(hh) (f32) and bf(hn) (bf16) of every pair, the softmax's row
+    max, sum and D per (cell, head, gene) past 64 latent tokens, and the
+    partials: per block of cells dqp of every gene, per rows CTA the vector
+    sums, per gene chunk dvproj and dkfull's head blocks, per pair chunk dw12
+    and dwv."""
+    EP = 64 if E <= 64 else 128
+    nkt, HdP, m16 = _cdiv(M, 64), 32 * _cdiv(Hd, 32), 16 * _cdiv(M, 16)
+    hpt = 64 // m16 if nkt == 1 and m16 <= 32 else 1  # heads a 64-key tile
+    HT, R = _cdiv(n_head, hpt), hpt * m16 if hpt > 1 else M
+    nch, hd, P, BHM = HdP // 32, E // n_head, B * G, B * n_head * M
+    n_gtr, n_gtq = _cdiv(G, 128), _cdiv(G, 64 * (3 if EP == 64 else 2))
+    n_cb = _cdiv(B, _cdiv(B, _clamp(_cdiv(2112, n_gtr), 1, B)))
+    n_cbq = _cdiv(B, _cdiv(B, _clamp(_cdiv(1056, n_gtq), 1, B)))
+    n_gt = _cdiv(G, 64)
+    n_gch = _cdiv(n_gt, _cdiv(n_gt, _clamp(_cdiv(1056, B * HT * nkt), 1, n_gt)))
+    n_pt = _cdiv(P, 64)
+    n_pc = _cdiv(n_pt, _cdiv(n_pt, _clamp(_cdiv(2112, nch), 1, n_pt)))
+    pieces = [2 * G * EP, 2 * B * HT * R * EP, 2 * B * HT * R * EP, 2 * 2 * HdP * EP]
     if backward:
-        pieces += [8 * BH * KM * NE * 32, 8 * BH * KE * NM * 32, 16 * BH * KM * KE * 32,
-                   16 * BH * KM * KE * 32, 8 * NHT * NE * 32, 16 * HT16 * KE * 32,
-                   16 * HT16 * KE * 32, 4 * P * EP, 2 * P * EP, 4 * n_cb * 2 * G * E,
-                   4 * n_gt * n_cb * (3 * E + 1), 4 * n_cb * (3 * E + 1),
-                   4 * n_ch2 * B * n_head * M * E,
-                   4 * n_ch2 * B * n_head * M * hd, 4 * n_ch3 * E * 2 * Hd, 4 * n_ch3 * Hd]
+        pieces += [4 * P * EP, 2 * P * EP, 4 * 3 * B * n_head * G if nkt > 1 else 0,
+                   4 * n_cbq * G * E, 4 * n_gtr * n_cb * (3 * E + 1), 4 * n_gch * BHM * E,
+                   4 * n_gch * BHM * hd, 4 * n_pc * E * 2 * Hd, 4 * n_pc * Hd]
     return sum(-(-p // 256) * 256 for p in pieces)
 
 

@@ -70,9 +70,9 @@ def _fused_path_ok(vae: TransformerVAE) -> bool:
     JAX gate. The ported VAE is always the shared-embedding, shared-theta,
     dropout-free decoder it asks for; the tail omits the qkv biases, and at
     E > 128 the JAX task leaves the tail for its algebraic path. The CUDA
-    kernels take every width this gate passes with at most 64 latent tokens
-    (`ops/fused_decoder.kernel_takes`); more tokens pass the gate and raise
-    at launch: such a shape never quietly takes the module path instead."""
+    kernels take every width this gate passes, at any number of latent
+    tokens (`ops/fused_decoder.kernel_takes`); a shape they did not take
+    would raise at launch, never quietly take the module path instead."""
     return (
         isinstance(vae.decoder_head, NegativeBinomialTransformerHead)
         and vae.decoder.decoder_cross_attention.attn.c_attn.bias is None

@@ -494,11 +494,13 @@ def test_encoder_pool_width_outside_kernel_shapes_raises_on_gpu():
 
 
 # (E, n_head, M, Hd, B, G) of the any-width tail design: E 16, 64 and 128 with
-# MLP(E)'s hidden width, a ragged M, E off the multiples of 16 and the
-# dentate shape at a hidden width off 88 (its backward is the any-width one)
+# MLP(E)'s hidden width, a ragged M, E off the multiples of 16, the dentate
+# shape at a hidden width off 88 (its backward is the any-width one), and more
+# latent tokens than one 64-key tile holds
 @pytest.mark.parametrize("E_,H_,M_,Hd_,B,G", [(16, 2, 8, 44, 16, 700), (64, 4, 32, 172, 16, 700),
                                              (128, 8, 64, 344, 8, 600), (48, 3, 20, 128, 16, 700),
-                                             (40, 10, 17, 108, 16, 700), (32, 4, 16, 96, 8, 300)])
+                                             (40, 10, 17, 108, 16, 700), (32, 4, 16, 96, 8, 300),
+                                             (16, 2, 72, 44, 16, 700), (64, 4, 130, 172, 8, 600)])
 def test_decoder_tail_at_other_widths_matches_reference_on_gpu(E_, H_, M_, Hd_, B, G):
     """The kernels against the plain version on the same operands, the
     backward for one fixed cotangent, by chip_smoke.py's bounds

@@ -149,9 +149,10 @@ def test_backward_workspace_floats(B, G):
 
 # (E, n_head, M, Hd, B, G) at the widths the JAX gate sends the kernels: E =
 # 16, 64 and 128 with MLP(E)'s hidden width (multiple_of 4), a ragged M, head
-# widths 8 and 16, and a hidden width off the multiples of 8
+# widths 8 and 16, a hidden width off the multiples of 8, and more latent
+# tokens than one 64-key tile holds (72 and 130: two and three tiles)
 WIDTHS = [(16, 2, 8, 44, 3, 40), (64, 4, 32, 172, 3, 37), (128, 8, 64, 344, 2, 21),
-          (32, 4, 13, 90, 3, 30)]
+          (32, 4, 13, 90, 3, 30), (16, 2, 72, 44, 3, 40), (32, 4, 130, 88, 2, 24)]
 
 
 @pytest.mark.parametrize("e,h,m,hid,B,G", WIDTHS)
@@ -188,8 +189,9 @@ def _hidden(e, multiple_of):
 
 def test_backward_hidden_width_outside_the_kernel_raises():
     """A hidden width off the specialised backward's 88 takes the any-width
-    backward (both ways), and only a shape outside the kernels' band raises
-    before any launch: here 65 latent tokens."""
+    backward (both ways), so does any number of latent tokens (65 here), and
+    only a shape outside the kernels' band raises before any launch: here 3
+    heads, which do not divide E = 32."""
     assert port.SPECIALISED_HIDDEN == HID
     x = {k: torch.from_numpy(v) for k, v in _make(20, 3, 4).items()}
     w = list(port.pack_weights(*(x[n] for n in RAW)))
@@ -198,23 +200,26 @@ def test_backward_hidden_width_outside_the_kernel_raises():
     assert port._check(x["qp"], x["q"], kf, vp, w, H) == (3, 20, E, M, 96)
     assert port.kernel_takes(E, H, M, 96) and not port.specialised(E, H, M, 96, True)
     big = torch.zeros(3, H * 65, E)
+    assert port._check(x["qp"], x["q"], big, big, w, H) == (3, 20, E, 65, 96)
+    three = torch.zeros(3, 3 * M, E)
     with pytest.raises(ValueError, match="built for"):
-        port._check(x["qp"], x["q"], big, big, w, H)
+        port._check(x["qp"], x["q"], three, three, w, 3)
 
 
 def test_kernels_take_every_width_the_gate_sends():
     """Every E from 16 to 128 in steps of 16, each head count giving a head
-    width of 8, 16, 32 or 64, 1 to 64 latent tokens and every hidden width
-    of the MLP rule at multiple_of 1 to 64 take the kernels, both ways; the
-    dentate decoder's shape takes the specialised design (its backward only
-    at hidden 88). Outside the grid the kernels also take E off the
-    multiples of 16 and head widths 4 and 128."""
+    width of 8, 16, 32 or 64, 1 to 1,000 latent tokens (one 64-key tile and
+    more) and every hidden width of the MLP rule at multiple_of 1 to 64 take
+    the kernels, both ways; the dentate decoder's shape takes the
+    specialised design (its backward only at hidden 88). Outside the grid
+    the kernels also take E off the multiples of 16 and head widths 4 and
+    128, and 65 or 128 latent tokens at the dentate and parse1m widths."""
     hidden = set()
     for e in range(16, 129, 16):
         for hd in (8, 16, 32, 64):
             if e % hd:
                 continue
-            for m in (1, 13, 16, 32, 64):
+            for m in (1, 13, 16, 32, 64, 65, 128, 130, 1000):
                 for mo in (1, 2, 4, 8, 16, 32, 64):
                     hid = _hidden(e, mo)
                     hidden.add(hid)
@@ -224,11 +229,13 @@ def test_kernels_take_every_width_the_gate_sends():
     assert not port.specialised(32, 4, 16, 96, True) and not port.specialised(64, 4, 32, 172, False)
     for e, h, m in ((24, 3, 16), (40, 10, 17), (16, 4, 8), (128, 1, 5)):
         assert port.kernel_takes(e, h, m, 64), (e, h, m)
+    for e, h, m, hid in ((32, 4, 65, 88), (128, 8, 128, 344), (64, 4, 128, 172)):
+        assert port.kernel_takes(e, h, m, hid) and not port.specialised(e, h, m, hid, False)
 
 
-# the refused band: more than 64 latent tokens, E past 128 (which the gate
-# sends to the algebraic tail), a head count that does not divide E
-@pytest.mark.parametrize("e,h,m,hid", [(32, 4, 65, 88), (128, 8, 128, 344), (160, 4, 16, 428),
+# the refused band: E past 128 (which the gate sends to the algebraic tail),
+# a head count that does not divide E, no latent token
+@pytest.mark.parametrize("e,h,m,hid", [(192, 8, 64, 512), (48, 5, 72, 128), (160, 4, 16, 428),
                                        (64, 5, 16, 172), (32, 4, 0, 88)])
 def test_shapes_outside_the_kernels_raise(e, h, m, hid):
     """Outside the band the kernels take, the launch's check raises before
@@ -247,12 +254,18 @@ def test_shapes_outside_the_kernels_raise(e, h, m, hid):
 @pytest.mark.parametrize("e,h,m,hid", [(64, 4, 32, 172), (128, 8, 64, 344), (16, 2, 8, 44)])
 def test_any_width_workspace(e, h, m, hid):
     """The any-width design's workspace at the training step's B = 128: the
-    packed operands, d(hh) (f32) and bf(hn) (bf16) of every pair, E padded
-    to 32, 64 or 128, and the partials; the forward's is the packed
-    operands alone."""
+    packed bf16 operands, d(hh) (f32) and bf(hn) (bf16) of every pair, E
+    padded to 64 or 128, and the partials, under the earlier design's 983.2
+    MB (E = 64) and 550.0 MB (E = 128); past one 64-key tile the softmax's
+    row max, sum and D of every (cell, head, gene) join it. The forward's is
+    the packed operands alone."""
     B, G = 128, 17_002 if e <= 64 else 2_000
-    ep = 32 if e <= 32 else 64 if e <= 64 else 128
+    ep = 64 if e <= 64 else 128
     got = port.decoder_tail_bwd_workspace_floats(B, G, hid, e, h, m)
-    assert got > (4 + 2) * B * G * ep // 4
-    assert 0 < port.decoder_tail_fwd_workspace_floats(B, G, hid, e, h, m) < got // 4
+    assert (4 + 2) * B * G * ep // 4 < got < (983.2e6 if e <= 64 else 550.0e6) / 4
+    fwd = port.decoder_tail_fwd_workspace_floats(B, G, hid, e, h, m)
+    assert 0 < fwd < got // 4
+    assert fwd * 4 >= 2 * (G * ep + 2 * B * h * m * ep + 2 * 32 * -(-hid // 32) * ep)
+    more = port.decoder_tail_bwd_workspace_floats(B, G, hid, e, h, 2 * m + 65)
+    assert more - got >= 3 * B * h * G
     assert port.decoder_tail_fwd_workspace_floats(B, G, HID) == 0

@@ -228,9 +228,10 @@ def test_dispatch():
                   build_transformer_vae(n_genes=G, bias=True, n_layer=1, device="cpu")):
         assert not _fused_path_ok(other)
         assert not VAETask(other, fused_decoder=True, **TASK)._use_fused(lean)
-    # the narrow architecture's widths take the kernels; outside their band
-    # (more than 64 latent tokens) the CUDA launch raises before it reaches
-    # the library (the check is device-free)
+    # the narrow architecture's widths take the kernels, at any number of
+    # latent tokens; outside their band (here a head count that does not
+    # divide E) the CUDA launch raises before it reaches the library (the
+    # check is device-free)
     E, H, M, Hd = 16, 2, 16, 44
     qp = torch.zeros(G, E)
     kf = torch.zeros(B, H * M, E)
@@ -238,8 +239,10 @@ def test_dispatch():
                torch.zeros(1, Hd), torch.zeros(1, E), torch.zeros(1, 1))
     assert fused_decoder._check(qp, qp, kf, kf, weights, H) == (B, G, E, M, Hd)
     kf = torch.zeros(B, H * 65, E)
+    assert fused_decoder._check(qp, qp, kf, kf, weights, H) == (B, G, E, 65, Hd)
+    kf = torch.zeros(B, 3 * M, E)
     with pytest.raises(ValueError, match="built for"):
-        fused_decoder._check(qp, qp, kf, kf, weights, H)
+        fused_decoder._check(qp, qp, kf, kf, weights, 3)
 
 
 def _jax_kernel_path_step(jvae, jtask, state, batch):
