@@ -21,7 +21,11 @@ dentate designs are tuned for, where the two are compared. Then the tail
 both ways at chip_smoke.py's phase 13 shapes (`decoder_tail_*_e64`: B = 128,
 G = 17,002, E = 64, 4 heads, 32 latent tokens, hidden 172; `*_e128`: G =
 2,000, E = 128, 8 heads, 64 tokens, hidden 344), which only the any-width
-design takes. The last line is
+design takes, and the pools both ways at phase 13's shapes
+(`window_pool_*_e64`: B = 128, S = 6,147, E = 64, 4 heads, 32 inducing
+points; `encoder_pool_*_e128`: B = 128, G = 2,000, E = 128, 8 heads, 64),
+and the dense pool there at 128 inducing points (`encoder_pool_*_e128_q128`)
+where the tree's kernels take it. The last line is
 a JSON object, {"ms": {name: ms}, "device_ms": {name: ms}}. To compare two
 trees, run this once per tree in turns within one chip call (parent,
 change, change, parent): cards differ between calls.
@@ -112,6 +116,25 @@ def main(argv=None) -> int:
             lambda a=(qp_, q_, k_, v_, w_), h=h: fd.decoder_tail_fwd(*a, h, EPS))
         fns[f"decoder_tail_bwd_e{e}"] = (
             lambda a=(qp_, q_, k_, v_, w_, dy_), h=h: fd.decoder_tail_bwd(*a, h, EPS))
+    # the pools at chip_smoke.py's phase 13 shapes (and the dense one past 64 queries)
+    for variant, e, h, nq, n in (("window", 64, 4, 32, WINDOW), ("encoder", 128, 8, 64, PARSE_GENES),
+                                 ("encoder", 128, 8, 128, PARSE_GENES)):
+        if not fe.narrow_kernel_takes(e, h, nq):
+            continue
+        qf_ = fe.build_query_operand(rnd(nq, e), h)
+        pw_ = [rnd(1, e, scale=0.3, shift=1.0), rnd(1, e, scale=0.3), rnd(e, e, scale=e**-0.5),
+               rnd(e, e, scale=e**-0.5)]
+        pre = (counts,) if variant == "encoder" else ()
+        src_ = rnd(n, e) if variant == "encoder" else rnd(B, n, e)
+        fwd, bwd = ((fe.encoder_pool_fwd, fe.encoder_pool_bwd) if variant == "encoder"
+                    else (fe.window_pool_fwd, fe.window_pool_bwd))
+        m_ = fwd(*pre, src_, qf_, pw_, h, EPS)[2]
+        cot_ = (rnd(B, nq, e), rnd(B, nq * h))
+        tag = f"e{e}" + ("_q128" if nq == 128 else "")
+        fns[f"{variant}_pool_fwd_{tag}"] = (
+            lambda a=(*pre, src_, qf_, pw_, h, EPS), f=fwd: f(*a))
+        fns[f"{variant}_pool_bwd_{tag}"] = (
+            lambda a=(*pre, src_, qf_, pw_, m_, *cot_, h, EPS), f=bwd: f(*a))
     ms, dev = {}, {}
     for name, fn in fns.items():
         for _ in range(3):

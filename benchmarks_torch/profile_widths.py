@@ -14,7 +14,9 @@ heads, 32 inducing points) and the dense pool at parse1m (B = 128, G = 2,000,
 E = 128, 8 heads, 64), random inputs from seed 0. Prints one line a call:
 each kernel's name and ms a call, largest first; then the ptxas report's
 registers and spills of each any-width kernel (the tail's `tailw_*`: pack,
-rows <EP, backward>, qside, kside <EP, 0 dvproj / 1 dkfull>, w12, sums).
+rows <EP, backward>, qside, kside <EP, 0 dvproj / 1 dkfull>, w12, sums; the
+pools' `poolw_*`: q <EP, dense, 0 max / 1 forward / 2 dq>, t, tok <EP, dense>,
+w <EP>, exact, pack, sums), and any line where ptxas serialises wgmma.
 """
 
 from __future__ import annotations
@@ -87,14 +89,14 @@ def main() -> int:
         profile(f"{variant}_pool_bwd E={E}", lambda: bwd(*pre, src, qfull, w, m, *cot, H, 1e-8))
     report = build.report_path(build.library_path()).read_text().splitlines()
     for i, line in enumerate(report):
-        name = re.search(r"\d((?:tailw|pool)_[a-z0-9_]+?)I(?:Li|Lb)(\d+)E(?:L[ib](\d+)E)?", line)
-        if "Compiling entry" in line and ("tailw" in line or "poolg" in line) and name:
+        name = re.search(r"\d((?:tailw|poolw)_[a-z0-9_]+?)I(L[ib]\d+E)+", line)
+        if "Compiling entry" in line and name:
+            args = ", ".join(re.findall(r"L[ib](\d+)E", name.group(0)))
             info = [k.split(":", 1)[-1].strip() for k in report[i + 1:i + 4]
                     if "Compiling" not in k and ("Used" in k or "spill" in k)]
-            args = name.group(2) + (f", {name.group(3)}" if name.group(3) else "")
-            if "poolg" in line:
-                args = name.group(2) + (", dense" if "Lb1" in line else "")
             print(f"{name.group(1)}<{args}>: " + "; ".join(info))
+        if "serializ" in line or "Performance Loss" in line:
+            print(line.strip())
     return 0
 
 

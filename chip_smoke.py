@@ -821,9 +821,11 @@ def phase1d_encoder_pool(seed: int) -> dict:
 # phase 13's widths: configs/model/vae_base.yaml with model.vae.n_embed,
 # n_head_cross and n_inducing_points overridden; Hd is the MLP rule's hidden width
 # at the shipped multiple_of 4. The third trains at dentate genes over 128 latent
-# tokens (two 64-key tiles of the tail)
+# tokens (two 64-key tiles of the tail); the fourth at parse1m genes over 128
+# inducing points (the dense pool's two 64-query tiles, and the tail's two key tiles)
 WIDTHS = {"dentate": dict(E=64, H=4, M=32, Hd=172), "parse1m": dict(E=128, H=8, M=64, Hd=344),
-          "dentate_m128": dict(E=64, H=4, M=128, Hd=172)}
+          "dentate_m128": dict(E=64, H=4, M=128, Hd=172),
+          "parse1m_q128": dict(E=128, H=8, M=128, Hd=344)}
 # (E, n_head, M, Hd, B, G) of phase 1b's grid: its corners (E 16 and 128; head
 # widths 8 and 16 at E = 16, 8 and 64 at E = 128; 1 and 64 latent tokens; the MLP
 # rule's hidden widths at multiple_of 1 and 64), more latent tokens than one
@@ -835,18 +837,21 @@ TAIL_GRID = ((16, 2, 1, 42, 32, 2_000), (16, 1, 64, 64, 32, 2_000),
              (128, 8, 256, 344, 16, 2_000),
              (64, 4, 32, 172, 128, N_GENES), (128, 8, 64, 344, 128, PARSE_GENES))
 # (variant, E, n_head, Q, B, N) of phase 1d's grid: the same corners, each variant,
-# and phase 13's two shapes: the window pool at the dentate window (VAETask(
-# fused_pool=True) at E = 64), the dense pool at parse1m (E = 128)
+# more inducing points than one 64-query tile (65, 128 and 256, at E = 64 and 128,
+# both variants), and phase 13's two shapes: the window pool at the dentate window
+# (VAETask(fused_pool=True) at E = 64), the dense pool at parse1m (E = 128)
 POOL_GRID = (("window", 16, 2, 1, 16, 2_000), ("dense", 16, 2, 64, 16, 2_000),
              ("dense", 16, 1, 1, 16, 2_000), ("window", 16, 1, 64, 16, 2_000),
              ("window", 128, 16, 64, 16, 2_000), ("dense", 128, 16, 1, 16, 2_000),
              ("dense", 128, 2, 64, 16, 2_000), ("window", 128, 2, 1, 16, 2_000),
+             ("window", 64, 4, 65, 16, 2_000), ("dense", 64, 4, 65, 16, 2_000),
+             ("window", 128, 8, 128, 16, 2_000), ("dense", 128, 8, 128, 16, 2_000),
+             ("dense", 64, 4, 256, 16, 2_000), ("window", 128, 8, 256, 16, 2_000),
              ("window", 64, 4, 32, 128, WINDOW), ("dense", 128, 8, 64, 128, PARSE_GENES))
 # the kernels behind the any-width designs' entry points (the packers and the
 # fixed-order sum included)
 GEN_TAIL_KERNELS = {"fwd": ("tailw_",), "bwd": ("tailw_",)}
-GEN_POOL_KERNELS = {"fwd": ("pool_fwd_gen", "pack_a", "pack_b"),
-                    "bwd": ("pool_bwd_", "pack_a", "pack_b", "sum_parts")}
+GEN_POOL_KERNELS = {"fwd": ("poolw_",), "bwd": ("poolw_",)}
 
 
 def held_bf16_or_order(what: str, got, want, again, near: float = 1e-4) -> tuple:
@@ -4139,10 +4144,12 @@ def phase13_widths(seed: int, smi: str) -> dict:
     hidden 172); (b) `datamodule.dataset=parse1m` (G = S = 2,000: the dense
     pool and the tail) with `n_embed=128 n_head_cross=8 n_inducing_points=64`
     (head width 16, hidden 344); (c) dentate as (a) with
-    `n_inducing_points=128` (the tail's keys in two 64-key tiles), one step a
-    dispatch and a metrics.csv row a step, whose train loss must fall. Each
-    trains WIDTH_STEPS steps of B = 128 and must launch each tail kernel (and
-    at (b) each dense pool kernel) once a step; its train cells/s
+    `n_inducing_points=128` (the tail's keys in two 64-key tiles) and (d)
+    parse1m as (b) with `n_inducing_points=128` (the dense pool past one
+    64-query tile), each one step a dispatch and a metrics.csv row a step,
+    whose train loss must fall. Each trains WIDTH_STEPS steps of B = 128 and
+    must launch each tail kernel (and at (b) and (d) each dense pool kernel)
+    once a step; its train cells/s
     (metrics.csv) and peak memory are printed. Then,
     on an f32 VAE of the same width and G, one kernel-path step is held
     against the module path (`VAETask(fused_decoder=False)`) at phase 3's
@@ -4151,7 +4158,7 @@ def phase13_widths(seed: int, smi: str) -> dict:
     window pool at E = 64 and one is held against the module MCAB at phase
     5's bounds. Returns the launches of each kernel in the CLI runs and the
     fused_pool steps: {"dentate": ..., "parse1m": ..., "dentate_m128": ...,
-    "fused_pool": ...}."""
+    "parse1m_q128": ..., "fused_pool": ...}."""
     import tempfile
 
     import numpy as np
@@ -4200,6 +4207,7 @@ def phase13_widths(seed: int, smi: str) -> dict:
                     f"datamodule.datamodule.train_adata_path={tmp / 'parse_train.h5ad'}"],
     }
     runs["dentate_m128"] = runs["dentate"]
+    runs["parse1m_q128"] = runs["parse1m"]
     genes = {"dentate": N_GENES, "parse1m": PARSE_GENES}
     real_h5ad = dm_module.H5ADFile
     dm_module.H5ADFile = lambda path: shards[str(path)]
@@ -4212,7 +4220,7 @@ def phase13_widths(seed: int, smi: str) -> dict:
             argv = config + args + widths + [
                 f"paths.output_path={tmp / name}", f"paths.inference_path={tmp / name / 'inf'}",
                 f"training.max_steps={WIDTH_STEPS}", "epochs=1", "training.log_every_steps=4"]
-            if name == "dentate_m128":  # a row a step in metrics.csv, to show the loss falls
+            if name in ("dentate_m128", "parse1m_q128"):  # a row a step: the loss falls
                 argv += ["training.steps_per_dispatch=1", "training.log_every_steps=1"]
             for c in counters.values():
                 c.reset()
@@ -4228,7 +4236,7 @@ def phase13_widths(seed: int, smi: str) -> dict:
                 total[k] += got[k]
             launches[name] = got
             want = ["decoder_tail_fwd", "decoder_tail_bwd"] + (
-                ["encoder_pool_fwd", "encoder_pool_bwd"] if name == "parse1m" else [])
+                ["encoder_pool_fwd", "encoder_pool_bwd"] if name.startswith("parse1m") else [])
             if any(got[k] != WIDTH_STEPS for k in want):
                 raise AssertionError(f"phase13 train at {name}: {got} launches in {WIDTH_STEPS} "
                                      "steps")
@@ -4243,7 +4251,8 @@ def phase13_widths(seed: int, smi: str) -> dict:
             losses = [float(r["train_loss"]) for r in rows if r.get("train_loss")]
             if not losses or not all(np.isfinite(losses)):
                 raise AssertionError(f"phase13 {name}: train losses {losses}")
-            if name == "dentate_m128" and not (len(losses) >= 2 and losses[-1] < losses[0]):
+            if name in ("dentate_m128", "parse1m_q128") and not (
+                    len(losses) >= 2 and losses[-1] < losses[0]):
                 raise AssertionError(f"phase13 {name}: the train loss did not fall: {losses}")
             log(f"phase13 train at {name} (E={w['E']}, n_head_cross={w['H']}, "
                 f"n_inducing_points={w['M']}, hidden {w['Hd']}; bf16 as shipped): "

@@ -13,13 +13,18 @@ each with its custom VJP. The kernels come in three designs, chosen by width:
   (the scores' row max, then the pooled sums against it), the backward over
   tiles of tokens and cells with a device workspace;
 - every other narrow width (`narrow_kernel_takes`: E up to 128, any head
-  count dividing E, 1 to 64 inducing points; both variants):
-  `scldm_torch/kernels/csrc/encoder_pool_gen.cu`, the weights, queries and
-  dnum packed into mma fragment order and zero-padded (E to 32, 64 or 128,
-  heads and queries to 16), the forward a CTA per (cell, head) in the same
-  two passes, the backward in three kernels (the attention per head, the
-  LayerNorm backward per token, the weight gradients) over a workspace that
-  the library sizes, every sum in a fixed order;
+  count dividing E, any number of inducing points; both variants):
+  `scldm_torch/kernels/csrc/encoder_pool_gen.cu`, on wgmma with TMA-fed
+  shared memory: a warpgroup takes 64 tokens at a time, their LayerNorm and
+  the k | v projection once for every head, the queries in tiles of 64 on
+  the rows of the score and pooled-value products (any head width: each
+  head's k16 steps and 8-column tiles), a cell's tokens split in chunks
+  whose partials are added in order; the forward in two passes (the
+  scores' max of each chunk, then e against the cell's max), the backward
+  over a workspace that the library sizes (dq with the queries on the
+  rows, dk and dv with the tokens on the rows, then per token the
+  LayerNorm backward, then the weight gradients), every sum in a fixed
+  order;
 - wide (E a multiple of 64 from 256 to 1,024, head width 64, 1 to 1,024
   inducing points: the census encoder, E = 512 with 8 heads over 64, and the
   long-latent one over 1,024): `scldm_torch/kernels/csrc/window_pool_wide.cu`,
@@ -27,9 +32,9 @@ each with its custom VJP. The kernels come in three designs, chosen by width:
   tensor cores, split over tokens, heads, queries and cells with a device
   workspace (`wide_kernel_takes` says which widths).
 
-A shape none of them takes (more than 64 inducing points at E <= 128, a
-window E between 128 and 256, a wide E off `wide_kernel_takes`) raises
-`ValueError` before any launch, never taking the plain version on the card.
+A shape none of them takes (a window E between 128 and 256, a wide E off
+`wide_kernel_takes`) raises `ValueError` before any launch, never taking the
+plain version on the card.
 
 The two variants:
 
@@ -91,16 +96,16 @@ WEIGHT_NAMES = ("ln1g", "ln1b", "wk", "wv")
 #: (E, n_head, Q) of the specialised narrow design (encoder_pool.cu): the
 #: reference encoder, E=32 with 4 cross heads over 16 inducing points
 SPECIALISED = (32, 4, 16)
-#: the widest E and the most inducing points the other narrow design takes
-MAX_NARROW_WIDTH, MAX_QUERIES = 128, 64
+#: the widest E the other narrow design takes
+MAX_NARROW_WIDTH = 128
 
 
 def narrow_kernel_takes(E: int, n_head: int, Q: int) -> bool:
     """Whether the narrow kernels (both variants, both ways) take (E, n_head,
-    Q): E from 1 to 128 with n_head dividing it and 1 to 64 inducing points
-    (`scldm_encoder_pool_gen_takes` says the same). The JAX gates send every
-    E <= 128 here; more queries than 64 raise."""
-    return 1 <= E <= MAX_NARROW_WIDTH and n_head >= 1 and E % n_head == 0 and 1 <= Q <= MAX_QUERIES
+    Q): E from 1 to 128 with n_head dividing it and any number of inducing
+    points (`scldm_encoder_pool_gen_takes` says the same). The JAX gates send
+    every E <= 128 here."""
+    return 1 <= E <= MAX_NARROW_WIDTH and n_head >= 1 and E % n_head == 0 and Q >= 1
 
 
 def wide_kernel_takes(E: int, n_head: int, Q: int) -> bool:
@@ -217,8 +222,7 @@ def _check(variant: str, src, qfull, weights, n_head, counts=None, stats=()) -> 
         widths = "E a multiple of 64 in [256, 1024] with heads of 64 and 1 to 1,024 queries"
     else:
         takes = narrow_kernel_takes(E, n_head, Q)
-        widths = (f"E <= {MAX_NARROW_WIDTH} with n_head dividing it and 1 to {MAX_QUERIES} "
-                  "queries")
+        widths = f"E <= {MAX_NARROW_WIDTH} with n_head dividing it"
     if not takes or QH != n_head * Q:
         raise ValueError(f"the {variant}-pool kernels are built for {widths}, got "
                          f"({E}, {n_head}, {QH / n_head:g})")
@@ -254,8 +258,9 @@ def _workspace(lib, B: int, N: int, E: int, n_head: int, Q: int, backward: bool,
 def _gen_workspace(lib, B: int, N: int, E: int, n_head: int, Q: int, dense: bool,
                    backward: bool, device):
     """The any-width narrow kernels' device workspace, sized by the library:
-    the packed operands and, backward, bf(x2), bf(dk) and bf(dv) of every
-    token and the partial sums."""
+    the bf16 operands (the weights, the queries and, backward, dnum's three
+    bf16 parts) and the partial sums; backward also dk and dv of every token
+    per 64-query tile in f32, and bf(x2), bf(dk) and bf(dv)."""
     floats = lib.scldm_encoder_pool_gen_workspace_floats(B, N, E, n_head, Q, int(dense),
                                                          int(backward))
     return torch.empty(floats, dtype=torch.float32, device=device)

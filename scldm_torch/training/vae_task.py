@@ -84,9 +84,8 @@ def _fused_encoder_ok(vae: TransformerVAE) -> bool:
     """The JAX gate of the dense encoder pool: embeddings that vanish at count
     0 (log1p, the port's only input layer), no dropout (the port has none),
     no qkv bias (the kernels omit it) and E <= 128. The CUDA kernels take
-    every such width with at most 64 inducing points
-    (`ops/fused_encoder.narrow_kernel_takes`); more pass this gate and raise
-    at launch."""
+    every such width, at any number of inducing points
+    (`ops/fused_encoder.narrow_kernel_takes`)."""
     ca = vae.encoder.ca_layer
     return ca.attn.c_attn.bias is None and ca.ln_1.n <= 128
 
@@ -94,11 +93,11 @@ def _fused_encoder_ok(vae: TransformerVAE) -> bool:
 def _fused_window_ok(vae: TransformerVAE) -> bool:
     """The JAX gate of the window pool: any input layer, no qkv bias, and E
     at one of the JAX kernel's two validated tile geometries (E <= 128 or
-    E >= 256). The CUDA kernels take every narrow width with at most 64
+    E >= 256). The CUDA kernels take every narrow width at any number of
     inducing points (`ops/fused_encoder.narrow_kernel_takes`) and the wide
     design's (`ops/fused_encoder.wide_kernel_takes`: heads of 64 at E from
-    256 to 1,024, up to 1,024 inducing points); another shape passes this
-    gate and raises at launch."""
+    256 to 1,024, up to 1,024 inducing points); another wide shape passes
+    this gate and raises at launch."""
     ca = vae.encoder.ca_layer
     return ca.attn.c_attn.bias is None and (ca.ln_1.n <= 128 or ca.ln_1.n >= 256)
 

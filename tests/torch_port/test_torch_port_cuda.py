@@ -348,12 +348,12 @@ def test_decoder_tail_on_a_device_other_than_the_current():
 POOL_E, POOL_H, POOL_Q = 32, 4, 16  # the reference encoder's MCAB
 
 
-def _pool_inputs(variant, B, N, device, seed=0, zero_cell=False):
+def _pool_inputs(variant, B, N, device, seed=0, zero_cell=False, E=POOL_E, H=POOL_H, Q=POOL_Q):
     """Counts and a table (dense) or an embedding window, the MCAB's query
-    and weights, and the cotangents of num and den; with `zero_cell`, cell 0
-    has every count 0 (every token's x2 is ln1b, every score equal)."""
+    and weights, and the cotangents of num and den (at the reference
+    encoder's width unless E, H, Q say another); with `zero_cell`, cell 0 has
+    every count 0 (every token's x2 is ln1b, every score equal)."""
     rng = np.random.default_rng(seed)
-    E, Q = POOL_E, POOL_Q
 
     def f(*s, scale=1.0, shift=0.0):
         return torch.from_numpy((rng.normal(size=s) * scale + shift).astype(np.float32)).to(device)
@@ -367,7 +367,7 @@ def _pool_inputs(variant, B, N, device, seed=0, zero_cell=False):
                                   .astype(np.float32)).to(device)
         if zero_cell:
             counts[0] = 0
-    return counts, x, (f(B, Q, E), f(B, Q * POOL_H))
+    return counts, x, (f(B, Q, E), f(B, Q * H))
 
 
 def pool_outputs_and_grads(fn, counts, x, cot, n_head=POOL_H):
@@ -463,11 +463,11 @@ def test_encoder_pool_workspace_grows_with_the_grid_on_gpu():
 
 def test_encoder_pool_width_outside_kernel_shapes_raises_on_gpu():
     """E=64 with 4 heads passes the JAX gate (E <= 128) and takes the
-    any-width narrow kernels, both variants; E=64 with 65 inducing points
-    passes it too but is past their band, and E=512 with 4 heads (a head
-    width of 128), 256 with 8 (32), 512 with 1,025 queries and the dense
-    pool at E=512 (JAX gates it at E <= 128) have no kernel. On CUDA tensors
-    each of those raises instead of taking the plain version."""
+    any-width narrow kernels, both variants, at 16 inducing points and at 65
+    (two 64-query tiles); E=512 with 4 heads (a head width of 128), 256 with
+    8 (32), 512 with 1,025 queries and the dense pool at E=512 (JAX gates it
+    at E <= 128) have no kernel. On CUDA tensors each of those raises instead
+    of taking the plain version."""
     counters = (fe.WINDOW_POOL_FWD_LAUNCHES, fe.WINDOW_POOL_WIDE_FWD_LAUNCHES,
                 fe.ENCODER_POOL_FWD_LAUNCHES)
     before = [c.count for c in counters]
@@ -489,8 +489,8 @@ def test_encoder_pool_width_outside_kernel_shapes_raises_on_gpu():
             with pytest.raises(ValueError, match="built for"):
                 fe.encoder_pool(torch.ones(2, 10, device="cuda"), emb[0].contiguous(), qfull,
                                 weights, H)
-    # one launch each of (64, 4, 16), the only shape taken
-    assert [c.count for c in counters] == [before[0] + 1, before[1], before[2] + 1]
+    # one launch each of (64, 4, 16) and (64, 4, 65), the shapes taken
+    assert [c.count for c in counters] == [before[0] + 2, before[1], before[2] + 2]
 
 
 # (E, n_head, M, Hd, B, G) of the any-width tail design: E 16, 64 and 128 with
@@ -540,6 +540,29 @@ def test_decoder_tail_at_other_widths_matches_reference_on_gpu(E_, H_, M_, Hd_, 
     for i, (got, w_, a_) in enumerate(zip([logits, *flat[0]], wants, again)):
         cs.held_bf16_or_order(f"tail output {i}", got, w_.reshape(got.shape),
                               a_.reshape(got.shape))
+
+
+# (variant, E, n_head, Q, B, N) past one 64-query tile of the narrow kernels
+@pytest.mark.parametrize("variant,E_,H_,Q_,B,N", [
+    ("dense", 64, 4, 65, 6, 700), ("window", 64, 4, 65, 6, 700), ("dense", 128, 8, 128, 4, 500),
+    ("window", 128, 8, 128, 4, 500), ("window", 64, 4, 256, 3, 300), ("dense", 128, 16, 200, 3, 300)])
+def test_encoder_pools_past_one_query_tile_match_reference_on_gpu(variant, E_, H_, Q_, B, N):
+    """More inducing points than one 64-query tile: both directions launch the
+    kernels (one a call each way) and hold `assert_pool_close` against the
+    plain version, and each repeats its bits."""
+    counts, x, cot = _pool_inputs(variant, B, N, "cuda", E=E_, H=H_, Q=Q_)
+    pool, reference = ((fe.encoder_pool, fe.encoder_pool_reference) if variant == "dense"
+                       else (fe.window_pool, fe.window_pool_reference))
+    counters = ((fe.ENCODER_POOL_FWD_LAUNCHES, fe.ENCODER_POOL_BWD_LAUNCHES)
+                if variant == "dense" else (fe.WINDOW_POOL_FWD_LAUNCHES, fe.WINDOW_POOL_BWD_LAUNCHES))
+    before = [c.count for c in counters]
+    got = pool_outputs_and_grads(pool, counts, x, cot, H_)
+    again = pool_outputs_and_grads(pool, counts, x, cot, H_)
+    torch.cuda.synchronize()
+    assert [c.count for c in counters] == [n + 2 for n in before]
+    for k in got:
+        assert torch.equal(got[k], again[k]), k
+    assert_pool_close(got, pool_outputs_and_grads(reference, counts, x, cot, H_))
 
 
 # (variant, E, n_head, Q, B, N) of the any-width narrow pools: E 16, 64 and

@@ -132,9 +132,14 @@ def test_pool_matches_pallas_interpret(variant, B, G, S, part):
 # (variant, e, h, q, B, G, S) at the other widths the JAX gates send the
 # narrow kernels: E = 16 (head width 8), 64 (16) and 128 (16, both variants:
 # the two share `_pool` but for the embedding) and a ragged query count
+# the last eight: more inducing points than one 64-query tile of the kernels
 WIDTHS = [("window", 16, 2, 8, 3, 60, 50), ("window", 64, 4, 32, 2, 60, 50),
           ("dense", 128, 8, 64, 2, 40, 30), ("window", 128, 8, 64, 2, 40, 30),
-          ("window", 48, 3, 20, 2, 60, 50)]
+          ("window", 48, 3, 20, 2, 60, 50),
+          ("window", 64, 4, 65, 2, 40, 30), ("dense", 64, 4, 65, 2, 40, 30),
+          ("window", 128, 8, 65, 2, 40, 30), ("dense", 128, 8, 65, 2, 40, 30),
+          ("window", 64, 4, 128, 2, 40, 30), ("dense", 64, 4, 128, 2, 40, 30),
+          ("window", 128, 8, 128, 2, 40, 30), ("dense", 128, 8, 128, 2, 40, 30)]
 
 
 @pytest.mark.parametrize("variant,e,h,q,B,G,S", WIDTHS)
@@ -163,18 +168,19 @@ def test_pool_matches_pallas_interpret_at_other_widths(variant, e, h, q, B, G, S
 
 def test_narrow_kernels_take_every_width_the_gate_sends():
     """Every E from 16 to 128 in steps of 16 with head widths 8, 16, 32 and
-    64 and 1 to 64 inducing points takes the narrow kernels; so do E off the
-    multiples of 16 and head widths 4 and 128. More than 64 inducing points,
-    or E past 128, do not."""
+    64 and any number of inducing points (1 up to past several 64-query
+    tiles) takes the narrow kernels; so do E off the multiples of 16 and head
+    widths 1, 4 and 128. E past 128, a head count not dividing E, and no
+    inducing point do not."""
     for e in range(16, 129, 16):
         for hd in (8, 16, 32, 64):
             if e % hd == 0:
-                for q in (1, 20, 64):
+                for q in (1, 20, 64, 65, 128, 129, 256, 1_000):
                     assert fe.narrow_kernel_takes(e, e // hd, q), (e, hd, q)
-    for e, h, q in ((24, 3, 10), (40, 10, 17), (16, 4, 64), (128, 1, 5)):
+    for e, h, q in ((24, 3, 10), (40, 10, 17), (16, 4, 64), (128, 1, 5), (32, 4, 65),
+                    (64, 4, 128), (128, 128, 300), (1, 1, 2_000)):
         assert fe.narrow_kernel_takes(e, h, q)
-    for e, h, q in ((32, 4, 65), (64, 4, 128), (160, 4, 16), (256, 4, 16), (48, 5, 16),
-                    (32, 4, 0)):
+    for e, h, q in ((160, 4, 16), (256, 4, 16), (48, 5, 16), (32, 4, 0), (129, 1, 8)):
         assert not fe.narrow_kernel_takes(e, h, q), (e, h, q)
     assert fe.SPECIALISED == (E, H, Q) and fe.narrow_kernel_takes(*fe.SPECIALISED)
 
@@ -245,8 +251,11 @@ def test_shape_checks_and_devices():
     narrow = (torch.zeros(1, 16), torch.zeros(1, 16), torch.zeros(16, 16), torch.zeros(16, 16))
     assert fe._check("window", emb[..., :16].contiguous(),
                      fe.build_query_operand(torch.zeros(Q, 16), 2), narrow, 2) == (2, 5, 16, Q)
-    with pytest.raises(ValueError, match="built for"):  # 65 inducing points
-        fe._check("window", emb, fe.build_query_operand(torch.zeros(65, E), H), weights, H)
+    # 65 inducing points: two 64-query tiles of the any-width design
+    assert fe._check("window", emb, fe.build_query_operand(torch.zeros(65, E), H), weights,
+                     H) == (2, 5, E, 65)
+    with pytest.raises(ValueError, match="built for"):  # 65 rows are not 4 heads' blocks
+        fe._check("window", emb, torch.zeros(65, E), weights, H)
     wide = (torch.zeros(1, 160), torch.zeros(1, 160), torch.zeros(160, 160), torch.zeros(160, 160))
     with pytest.raises(ValueError, match="built for"):  # between the narrow and wide designs
         fe._check("window", torch.zeros(2, 5, 160), fe.build_query_operand(torch.zeros(Q, 160), 4),
