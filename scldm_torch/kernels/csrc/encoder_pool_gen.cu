@@ -65,6 +65,12 @@
 //                 (both operands MN-major from a TMA ring).
 //   poolw_sums    every partial added in index order.
 // The caller rounds the reduced gradients of qfull, wk and wv to bf16.
+//
+// Tried and slower on an H100 80GB HBM3 at 700 W (device time by kernel): a
+// head's whole 8-column tiles in one commit group (its pooled-value step 1.4k
+// -> 2.2k cycles a head at E = 128, with more spills); two tiles paired into
+// one m64n16k16 chain (the dq kernel 0.73 -> 0.99 ms at E = 128: ptxas
+// serialises more of its wgmma for registers).
 
 #include <cuda.h>
 #include <cudaTypedefs.h>
