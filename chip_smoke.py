@@ -190,7 +190,18 @@ kernel-path step of an f32 VAE at each width against the module path at
 phase 3's bounds and times the two paths in turns with their peak memory,
 and at the dentate width takes three
 `VAETask(fused_pool=True)` steps through the window pool at E = 64, one held
-against the module MCAB at phase 5's bounds. The line before the last is a JSON
+against the module MCAB at phase 5's bounds. Phase 14 runs the model variants
+JAX's builders take through `cli.train` as shipped (bf16), a metrics.csv row a
+step whose loss must fall: dentate under `agg_func=softbin` (the tail a step
+each way), parse1m under `agg_func=sqrt` (the tail, no dense pool: JAX's gate
+needs log1p; then three `VAETask(fused_pool=True)` steps through the window
+pool, one held against the module MCAB; then `VAETask(fused_trunk=True)` at
+dentate under softbin through the trunk kernels), dentate with dropout, no positional
+table, its own decoder embedding and per-token theta, and dentate under the
+Gaussian head (no kernel at all: JAX's gates close), the census VAE at B = 32
+on the module decoder with and without `remat_cross` + `cross_chunks=8` (step
+times and peak memory), and `train_ldm` over the softbin VAE with a dopri5
+generation at DiT dropout 0.1 (no DiT kernel) and 0 (the DiT kernels). The line before the last is a JSON
 summary of the kernels, each with its time beside the least time the card could
 take for the same work; the last is {"ok": true, "device": {...}}. Any failure
 raises, so the script exits non-zero and prints no result; so does a machine
@@ -4346,6 +4357,355 @@ def phase13_widths(seed: int, smi: str) -> dict:
     return launches
 
 
+# phase 14: the model variants JAX's builders take (`cli.train` on vae_training.yaml as
+# shipped, bf16, over phase 11's synthetic CSR shards; a metrics.csv row a step)
+VARIANT_CELLS = 1_280  # each train file: 1,152 train cells after the 10% validation split
+VARIANT_STEPS = 8
+# VAETask(fused_pool=True) steps at parse1m under sqrt, and VAETask(fused_trunk=True) steps at
+# dentate under softbin, each after a warm-up step
+VARIANT_POOL_STEPS = 3
+VARIANTS = {  # arm: (dataset, overrides)
+    "a_softbin": ("dentate", ["model.vae.agg_func=softbin"]),
+    "b_sqrt": ("parse1m", ["model.vae.agg_func=sqrt"]),
+    "c_modules": ("dentate", ["model.vae.dropout=0.1", "model.vae.positional_encoding=false",
+                              "model.vae.shared_embedding=false",
+                              "model.decoder_name=negative_binomial_unshared_theta"]),
+    "d_gaussian": ("dentate", ["model.decoder_name=gaussian"]),
+}
+# the tail kernels a step each way under (a) and (b), as JAX's gate reads only the
+# decoder and the head; nothing else (the dense pool needs log1p; (c) and (d) close
+# every gate)
+VARIANT_TAIL = ("decoder_tail_fwd", "decoder_tail_bwd")
+# (e): vae_census.yaml's B = 32 against its comment's remat_cross + cross_chunks = 8, on
+# the module decoder (training.algebraic_tail=false)
+KNOB_BATCH, KNOB_STEPS, KNOB_CELLS = 32, 3, 160
+KNOBS = ["model.remat_cross=true", "model.cross_chunks=8"]
+LDM_VARIANT_STEPS = 8
+
+
+def variant_counters() -> dict:
+    """Every kernel's launch counter, by its kernels-line name."""
+    from scldm_torch.ops import flash_attention, fused_cross, fused_dit, fused_swiglu, fused_trunk
+    from scldm_torch.ops import fused_decoder as fd
+    from scldm_torch.ops import fused_encoder as fe
+
+    return {"dit_block": fused_dit.DIT_BLOCK_LAUNCHES,
+            "dit_block_bwd": fused_dit.DIT_BLOCK_BWD_LAUNCHES,
+            "decoder_tail_fwd": fd.DECODER_TAIL_FWD_LAUNCHES,
+            "decoder_tail_bwd": fd.DECODER_TAIL_BWD_LAUNCHES,
+            "encoder_pool_fwd": fe.ENCODER_POOL_FWD_LAUNCHES,
+            "encoder_pool_bwd": fe.ENCODER_POOL_BWD_LAUNCHES,
+            "window_pool_fwd": fe.WINDOW_POOL_FWD_LAUNCHES,
+            "window_pool_bwd": fe.WINDOW_POOL_BWD_LAUNCHES,
+            "window_pool_wide_fwd": fe.WINDOW_POOL_WIDE_FWD_LAUNCHES,
+            "window_pool_wide_bwd": fe.WINDOW_POOL_WIDE_BWD_LAUNCHES,
+            "swiglu_vec_fwd": fused_swiglu.SWIGLU_VEC_FWD_LAUNCHES,
+            "swiglu_vec_bwd": fused_swiglu.SWIGLU_VEC_BWD_LAUNCHES,
+            "swiglu_gate_fwd": fused_swiglu.SWIGLU_GATE_FWD_LAUNCHES,
+            "swiglu_gate_bwd": fused_swiglu.SWIGLU_GATE_BWD_LAUNCHES,
+            "flash_cross": fused_cross.FLASH_CROSS_LAUNCHES,
+            "flash_attention": flash_attention.FLASH_ATTENTION_LAUNCHES,
+            "fused_trunk_fwd": fused_trunk.TRUNK_FWD_LAUNCHES,
+            "fused_trunk_fwd_saving": fused_trunk.TRUNK_FWD_SAVING_LAUNCHES,
+            "fused_trunk_bwd": fused_trunk.TRUNK_BWD_LAUNCHES}
+
+
+def phase14_variants(seed: int, smi: str) -> dict:
+    """The transformer-VAE and DiT variants JAX's builders take, each through
+    `scldm_torch.cli.train`'s `main(argv)` on configs/vae_training.yaml as
+    shipped (bf16) over phase 11's in-memory CSR shards, VARIANT_STEPS steps of
+    B = 128, a metrics.csv row a step, whose train loss must fall: (a)
+    dentate under `agg_func=softbin`, the tail kernels once a step each way;
+    (b) parse1m under `agg_func=sqrt`, the tail a step each way and the dense
+    pool not at all (JAX's gate needs log1p), then three
+    `VAETask(fused_pool=True)` steps on an f32 VAE of that shape through the
+    window pool, one held against the module MCAB at phase 5's bounds, and
+    three `VAETask(fused_trunk=True)` steps on an f32 softbin VAE at dentate
+    width through the trunk kernels and the tail, one held against the
+    module trunks at phase 8's bounds; (c)
+    dentate with dropout 0.1, no positional table, the decoder's own gene
+    embedding and the per-token theta head, and (d) dentate under the
+    Gaussian head, both with every kernel counter at 0 (JAX's gates close);
+    (e) `model=vae_census training.algebraic_tail=false` at B = 32 for three
+    steps, with and then without `remat_cross` + `cross_chunks=8`, each arm's
+    step times (metrics.csv) and peak memory, or its out-of-memory error;
+    (f) `train_ldm` over (a)'s VAE at DiT dropout 0.1 for LDM_VARIANT_STEPS
+    steps and a dopri5 generation call (`inference`, generation.yaml), every
+    DiT counter at 0, then the same at dropout 0, where the DiT kernels
+    launch as in phase 11. Each run's counts are set to 0 just before it and
+    read just after. Returns the launches of the kernels that ran."""
+    import gc
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from scldm_torch.cli import inference as cli_inference
+    from scldm_torch.cli import train as cli_train
+    from scldm_torch.cli import train_ldm as cli_train_ldm
+    from scldm_torch.data import datamodule as dm_module
+    from scldm_torch.nn.vae import build_transformer_vae
+    from scldm_torch.training.metrics import global_norm
+    from scldm_torch.training.vae_task import VAETask
+    from scldm_torch.utils import output as output_module
+    from scldm_torch.utils.weights import init_reference_
+
+    phase_t0 = time.perf_counter()
+    counters = variant_counters()
+    total = {k: 0 for k in counters}
+    rng = np.random.default_rng(seed + 14)
+    dentate = json.loads((ROOT / "metadata/dentategyrus_train.json").read_text())
+    parse = json.loads((ROOT / "metadata/parse1m_train.json").read_text())
+    census = json.loads((ROOT / "metadata/census_genes.json").read_text())
+    tmp = Path(tempfile.mkdtemp(prefix="scldm_phase14_"))
+    shards = {
+        str(tmp / "train.h5ad"): cli_shard(rng, VARIANT_CELLS, dentate["genes"],
+                                           dentate["labels"]),
+        str(tmp / "test.h5ad"): cli_shard(rng, 256, dentate["genes"], dentate["labels"]),
+        str(tmp / "parse_train.h5ad"): cli_shard(
+            rng, VARIANT_CELLS, parse["genes"],
+            {c: parse["labels"][c] for c in ("cell_type", "cytokine")}),
+        str(tmp / "census_train.h5ad"): cli_shard(rng, KNOB_CELLS, census["genes"], {}),
+    }
+    mu = {"clusters": {c: float(rng.uniform(6.0, 9.0)) for c in dentate["labels"]["clusters"]}}
+    sd = {"clusters": {c: 0.05 for c in dentate["labels"]["clusters"]}}
+    (tmp / "mu.json").write_text(json.dumps(mu))
+    (tmp / "sd.json").write_text(json.dumps(sd))
+    data = {
+        "dentate": [f"datamodule.datamodule.train_adata_path={tmp / 'train.h5ad'}",
+                    f"datamodule.datamodule.test_adata_path={tmp / 'test.h5ad'}",
+                    f"datamodule.dataset_params.dentate_gyrus.mu_size_factor={tmp / 'mu.json'}",
+                    f"datamodule.dataset_params.dentate_gyrus.sd_size_factor={tmp / 'sd.json'}"],
+        "parse1m": ["datamodule.dataset=parse1m",
+                    f"datamodule.datamodule.train_adata_path={tmp / 'parse_train.h5ad'}"],
+    }
+    per_step = ["epochs=1", "training.steps_per_dispatch=1", "training.log_every_steps=1"]
+
+    def outputs(name):
+        return [f"paths.output_path={tmp / name}", f"paths.inference_path={tmp / name / 'inf'}"]
+
+    def config(name):
+        return ["--config", str(ROOT / "configs" / name)]
+
+    def run(name: str, fn, argv: list) -> tuple:
+        """One CLI call, every count set to 0 just before it and read just
+        after: (launches, wall seconds, peak GiB)."""
+        for c in counters.values():
+            c.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if fn(argv) != 0:
+            raise AssertionError(f"phase14 {name}: non-zero return")
+        torch.cuda.synchronize()
+        got = {k: c.count for k, c in counters.items()}
+        for k in total:
+            total[k] += got[k]
+        return got, time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30
+
+    def metrics(ck: Path) -> tuple:
+        rows = [r for r in csv.DictReader((ck / "metrics.csv").open()) if r.get("cells_per_sec")]
+        losses = [float(r["train_loss"]) for r in rows if r.get("train_loss")]
+        if not losses or not all(np.isfinite(losses)):
+            raise AssertionError(f"phase14 {ck}: train losses {losses}")
+        return rows, losses
+
+    def cells_per_s(rows) -> str:
+        return ", ".join(f"step {int(float(r['step']))}: {float(r['cells_per_sec']):.1f}"
+                         for r in rows)
+
+    written = []
+
+    def capture_h5ad(path, X, obs=None, var_names=None, obsm=None, **kwargs):
+        written.append({"path": Path(path).name, "X": np.asarray(X)})
+
+    real_h5ad, real_writer = dm_module.H5ADFile, output_module.write_h5ad
+    dm_module.H5ADFile = lambda path: shards[str(path)]
+    output_module.write_h5ad = capture_h5ad
+    log("phase14 stand-ins: data.datamodule.H5ADFile -> an in-memory CSR shard (phase 11's), "
+        "utils.output.write_h5ad -> a capturing writer")
+    try:
+        # -- (a) to (d): the VAE variants through cli.train
+        for arm, (dataset, variant) in VARIANTS.items():
+            argv = (config("vae_training.yaml") + data[dataset] + outputs(arm) + variant
+                    + per_step + [f"training.max_steps={VARIANT_STEPS}"])
+            got, wall, peak = run(f"train {arm}", cli_train.main, argv)
+            want = {k: VARIANT_STEPS if k in VARIANT_TAIL and arm in ("a_softbin", "b_sqrt")
+                    else 0 for k in counters}
+            if got != want:
+                raise AssertionError(f"phase14 train {arm}: launches "
+                                     f"{ {k: v for k, v in got.items() if v} }, expected "
+                                     f"{ {k: v for k, v in want.items() if v} }")
+            ck = next((tmp / arm / "checkpoints").iterdir())
+            snap = json.loads((ck / "config.json").read_text())
+            if snap["model"]["compute_dtype"] != "bfloat16":
+                raise AssertionError(f"phase14 {arm}: the run's config is {snap['model']}")
+            rows, losses = metrics(ck)
+            if not (len(losses) >= 2 and losses[-1] < losses[0]):
+                raise AssertionError(f"phase14 {arm}: the train loss did not fall: {losses}")
+            log(f"phase14 train {arm} ({dataset}, {' '.join(variant)}; bf16 as shipped): "
+                f"{VARIANT_STEPS} steps of B=128 in {wall:.2f} s wall; launches "
+                f"{ {k: v for k, v in got.items() if v} }; train cells/s from metrics.csv "
+                f"({smi}): {cells_per_s(rows)}; peak {peak:.3f} GiB; train loss "
+                + ", ".join(f"{x:.2f}" for x in losses))
+
+        # -- (b) continued: the window pool under sqrt, VAETask(fused_pool=True), f32
+        vae = init_reference_(build_transformer_vae(n_genes=PARSE_GENES, agg_func="sqrt",
+                                                    device="cuda"),
+                              torch.Generator(device="cuda").manual_seed(seed + 14))
+        batches = [{k: torch.from_numpy(a).to("cuda") for k, a in
+                    lean_batch(rng, 128, PARSE_GENES, PARSE_GENES, (500, PARSE_GENES)).items()}
+                   for _ in range(2)]
+        pool_task = VAETask(vae, num_training_steps=10_000, fused_pool=True, fused_decoder=False)
+        state = pool_task.init_state(torch.Generator(device="cuda").manual_seed(seed))
+        state, _ = pool_task.train_step(state, batches[0])  # warm-up
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.reset()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(VARIANT_POOL_STEPS):
+            state, mets = pool_task.train_step(state, batches[1])
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / VARIANT_POOL_STEPS
+        pool = {k: c.count for k, c in counters.items() if c.count}
+        want = {"window_pool_fwd": VARIANT_POOL_STEPS, "window_pool_bwd": VARIANT_POOL_STEPS}
+        if pool != want or not torch.isfinite(mets["train_loss"]):
+            raise AssertionError(f"phase14 fused_pool under sqrt: launches {pool}, loss "
+                                 f"{mets['train_loss'].item()}")
+        for k, v in pool.items():
+            total[k] += v
+        (lp, gp), (lm, gm) = (vae_loss_and_grads(t, batches[-1])
+                              for t in (pool_task, VAETask(vae, fused_decoder=False)))
+        norm_p, norm_m = global_norm(gp.values()).item(), global_norm(gm.values()).item()
+        if abs(lp - lm) > 5e-3 * abs(lm) or abs(norm_p - norm_m) > 0.02 * norm_m:
+            raise AssertionError(f"phase14 fused_pool under sqrt: loss {lp}, grad norm {norm_p}; "
+                                 f"module path {lm}, {norm_m}")
+        log(f"phase14 VAETask(fused_pool=True, fused_decoder=False) at parse1m under "
+            f"agg_func=sqrt (f32): {dt * 1e3:.2f} ms/step over {VARIANT_POOL_STEPS} steps "
+            f"({smi}), window pool launches {pool}, peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; one step against the module "
+            f"MCAB: loss {lp:.4f} vs {lm:.4f} ({abs(lp - lm) / abs(lm):.2e} relative), grad norm "
+            f"{norm_p:.4f} vs {norm_m:.4f} ({abs(norm_p - norm_m) / norm_m:.2e})")
+        del vae, pool_task, state, batches
+
+        # -- (a) continued: the whole trunk under softbin, VAETask(fused_trunk=True), f32: two
+        #    saving forwards and two backwards a step (rows 10-11), the tail once each way
+        vae = init_reference_(build_transformer_vae(n_genes=N_GENES, agg_func="softbin",
+                                                    device="cuda"),
+                              torch.Generator(device="cuda").manual_seed(seed + 15))
+        batches = [{k: torch.from_numpy(a).to("cuda") for k, a in lean_batch(rng, 128).items()}
+                   for _ in range(2)]
+        trunk_task = VAETask(vae, num_training_steps=10_000, fused_trunk=True)
+        state = trunk_task.init_state(torch.Generator(device="cuda").manual_seed(seed))
+        state, _ = trunk_task.train_step(state, batches[0])  # warm-up
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.reset()
+        t0 = time.perf_counter()
+        for _ in range(VARIANT_POOL_STEPS):
+            state, mets = trunk_task.train_step(state, batches[1])
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / VARIANT_POOL_STEPS
+        trunk = {k: c.count for k, c in counters.items() if c.count}
+        n = VARIANT_POOL_STEPS
+        want = {"fused_trunk_fwd_saving": 2 * n, "fused_trunk_bwd": 2 * n,
+                "decoder_tail_fwd": n, "decoder_tail_bwd": n}
+        if trunk != want or not torch.isfinite(mets["train_loss"]):
+            raise AssertionError(f"phase14 fused_trunk under softbin: launches {trunk}, loss "
+                                 f"{mets['train_loss'].item()}")
+        for k, v in trunk.items():
+            total[k] += v
+        compare_trunk_paths("phase14 fused_trunk under softbin", trunk_task,
+                            VAETask(vae, num_training_steps=10_000), batches[-1])
+        log(f"phase14 VAETask(fused_trunk=True) at dentate under agg_func=softbin (f32): "
+            f"{dt * 1e3:.2f} ms/step over {n} steps ({smi}), launches {trunk}")
+        del vae, trunk_task, state, batches
+
+        # -- (e) the census VAE at B = 32 on the module decoder, with and without the knobs
+        census_cfg = tmp / "census_cfg"
+        census_cfg.mkdir()
+        for group in ("paths", "model", "training", "datamodule"):
+            (census_cfg / group).symlink_to(ROOT / "configs" / group, target_is_directory=True)
+        training_yaml = (ROOT / "configs" / "vae_training.yaml").read_text()
+        (census_cfg / "vae_census_training.yaml").write_text(
+            training_yaml.replace("model: vae_base", "model: vae_census"))
+        for arm, knobs in (("e_knobs", KNOBS), ("e_plain", [])):
+            argv = (["--config", str(census_cfg / "vae_census_training.yaml")] + outputs(arm)
+                    + ["datamodule.dataset=homo_sapiens",
+                       f"datamodule.datamodule.train_adata_path={tmp / 'census_train.h5ad'}",
+                       f"model.batch_size={KNOB_BATCH}", "training.algebraic_tail=false",
+                       f"training.max_steps={KNOB_STEPS}"] + per_step + knobs)
+            gc.collect()
+            torch.cuda.empty_cache()
+            try:
+                got, wall, peak = run(f"train {arm}", cli_train.main, argv)
+            except torch.OutOfMemoryError as e:
+                torch.cuda.synchronize()
+                log(f"phase14 census B={KNOB_BATCH} {arm} ({' '.join(knobs) or 'no knobs'}): does "
+                    f"not fit on the card ({smi}): {str(e).splitlines()[0]}; peak "
+                    f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB when it failed")
+                continue
+            ck = next((tmp / arm / "checkpoints").iterdir())
+            snap = json.loads((ck / "config.json").read_text())
+            m = snap["model"]
+            if (m["batch_size"], m.get("remat_cross", False), m.get("cross_chunks", 1),
+                    snap["training"]["algebraic_tail"]) != (
+                    KNOB_BATCH, bool(knobs), 8 if knobs else 1, False):
+                raise AssertionError(f"phase14 {arm}: the run's config is {m}")
+            if any(got.values()):
+                raise AssertionError(f"phase14 {arm}: launches {got} on the module decoder")
+            rows, losses = metrics(ck)
+            log(f"phase14 census B={KNOB_BATCH} {arm} ({' '.join(knobs) or 'no knobs'}; bf16, "
+                f"remat, G = {m['vae']['n_genes']}, the module decoder): {KNOB_STEPS} steps in "
+                f"{wall:.2f} s wall; step time from metrics.csv ({smi}): "
+                + ", ".join(f"step {int(float(r['step']))}: "
+                            f"{KNOB_BATCH / float(r['cells_per_sec']) * 1e3:.1f} ms" for r in rows)
+                + f"; peak {peak:.3f} GiB; train loss " + ", ".join(f"{x:.2f}" for x in losses))
+
+        # -- (f) train_ldm over (a)'s VAE at DiT dropout 0.1, then 0; a dopri5 generation each
+        vae_dir = tmp / "a_softbin" / "checkpoints" / "vae_dentate_gyrus"
+        for arm, dropout in (("f_dropout", 0.1), ("f_plain", 0.0)):
+            args = (data["dentate"] + outputs(arm)
+                    + [f"vae_checkpoint_dir={vae_dir}", f"model.diffusion_model.dropout={dropout}"])
+            got, wall, peak = run(f"train_ldm {arm}", cli_train_ldm.main,
+                                  config("ldm_training.yaml") + args + per_step
+                                  + [f"training.max_steps={LDM_VARIANT_STEPS}"])
+            L = 8
+            want = 0 if dropout else L * LDM_VARIANT_STEPS
+            dit = {k: got[k] for k in ("dit_block", "dit_block_bwd")}
+            if dit != {"dit_block": want, "dit_block_bwd": want} or any(
+                    v for k, v in got.items() if k not in dit):
+                raise AssertionError(f"phase14 train_ldm {arm}: launches {got}")
+            rows, losses = metrics(tmp / arm / "checkpoints" / "ldm_dentate_gyrus")
+            written.clear()
+            gen, gen_wall, _ = run(f"generation {arm}", cli_inference.main,
+                                   config("generation.yaml") + args
+                                   + ["generation_args.n_batches=1"])
+            (out,) = written
+            if not np.isfinite(out["X"]).all() or out["X"].shape[1] != N_GENES:
+                raise AssertionError(f"phase14 generation {arm}: counts {out['X'].shape}")
+            if bool(gen["dit_block"]) == bool(dropout) or gen["dit_block_bwd"] or any(
+                    v for k, v in gen.items() if k not in dit):
+                raise AssertionError(f"phase14 generation {arm}: launches {gen}")
+            log(f"phase14 train_ldm {arm} over (a)'s softbin VAE (DiT dropout {dropout}): "
+                f"{LDM_VARIANT_STEPS} steps in {wall:.2f} s wall, launches "
+                f"{ {k: v for k, v in got.items() if v} }; train cells/s from metrics.csv "
+                f"({smi}): {cells_per_s(rows)}; peak {peak:.3f} GiB; train loss "
+                + ", ".join(f"{x:.4f}" for x in losses)
+                + f"; dopri5 generation of {out['X'].shape[0]} cells in {gen_wall:.2f} s, DiT "
+                f"block launches {gen['dit_block']}")
+    finally:
+        dm_module.H5ADFile, output_module.write_h5ad = real_h5ad, real_writer
+        shutil.rmtree(tmp, ignore_errors=True)
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("yaml", "h5py", "pandas", "jax"))
+    if loaded:
+        raise AssertionError(f"phase14: {loaded} loaded")
+    log(f"phase14 took {time.perf_counter() - phase_t0:.1f} s; launches "
+        f"{ {k: v for k, v in total.items() if v} }")
+    return total
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -4434,13 +4794,16 @@ def main(argv=None) -> int:
     # -- phase 13: the default VAE step at two other widths -------------------------
     widths = phase13_widths(args.seed, smi)
 
+    # -- phase 14: the model variants JAX's builders take ------------------------------
+    variants = phase14_variants(args.seed, smi)
+
     tail_src = "scldm_torch/kernels/csrc/decoder_tail.cu"
     pool_src = "scldm_torch/kernels/csrc/encoder_pool.cu"
     pool_launches = {"dense_fwd": parse["encoder_pool_fwd"] + cli["encoder_pool_fwd"],
                      "dense_bwd": parse["encoder_pool_bwd"] + cli["encoder_pool_bwd"],
                      "window_fwd": parse["window_pool_fwd"] + encode_launches
-                     + joint["window_pool_fwd"],
-                     "window_bwd": parse["window_pool_bwd"]}
+                     + joint["window_pool_fwd"] + variants["window_pool_fwd"],
+                     "window_bwd": parse["window_pool_bwd"] + variants["window_pool_bwd"]}
     pool_replaces = {"dense_fwd": 217, "dense_bwd": 263, "window_fwd": 409, "window_bwd": 452}
     # no single PyTorch call computes any of these functions but flash_cross
     # and flash_attention (scaled_dot_product_attention): library_ms is null
@@ -4454,13 +4817,13 @@ def main(argv=None) -> int:
         {"name": "dit_block", "route": "cuda", "source": dit_src,
          "replaces": "scldm_tpu/ops/fused_dit.py:155",
          "launches": launches + ldm_fwd + ldm_gen + joint["dit_block"] + cli["dit_block"]
-         + evals["dit_block"],
+         + evals["dit_block"] + variants["dit_block"],
          **dit_block[(16, 384)],
          **dit_block_bound(3 * args.batch, backward=False), "library_ms": None},
         {"name": "dit_block_bwd", "route": "cuda", "source": dit_bwd_src,
          "replaces": "scldm_tpu/ops/fused_dit.py:205",
          "launches": ldm_bwd + joint["dit_block_bwd"] + cli["dit_block_bwd"]
-         + evals["dit_block_bwd"],
+         + evals["dit_block_bwd"] + variants["dit_block_bwd"],
          **dit_block_bwd[(16, 128)], **dit_block_bound(128, backward=True),
          "library_ms": None},
         {"name": "dit_block_t64", "route": "cuda", "source": dit_src,
@@ -4481,12 +4844,14 @@ def main(argv=None) -> int:
          **dit_block_bound(CENSUS_LDM_BATCH, backward=True, T=1024), "library_ms": None},
         {"name": "decoder_tail_fwd", "route": "cuda", "source": tail_src,
          "replaces": "scldm_tpu/ops/fused_decoder.py:262",
-         "launches": fwd_launches + parse["decoder_tail_fwd"] + cli["decoder_tail_fwd"],
+         "launches": fwd_launches + parse["decoder_tail_fwd"] + cli["decoder_tail_fwd"]
+         + variants["decoder_tail_fwd"],
          **tail_fwd,
          **decoder_tail_bound(128, N_GENES, backward=False), "library_ms": None},
         {"name": "decoder_tail_bwd", "route": "cuda", "source": tail_src,
          "replaces": "scldm_tpu/ops/fused_decoder.py:294",
-         "launches": bwd_launches + parse["decoder_tail_bwd"] + cli["decoder_tail_bwd"],
+         "launches": bwd_launches + parse["decoder_tail_bwd"] + cli["decoder_tail_bwd"]
+         + variants["decoder_tail_bwd"],
          **tail_bwd,
          **decoder_tail_bound(128, N_GENES, backward=True), "library_ms": None},
     ] + [
@@ -4521,7 +4886,8 @@ def main(argv=None) -> int:
         # the VAE's trunks: R = 128 rows of T = 16 tokens, E = 32, hidden 88, L = 8
         {"name": f"fused_trunk_{part}", "route": "cuda",
          "source": "scldm_torch/kernels/csrc/fused_trunk.cu",
-         "replaces": f"scldm_tpu/ops/fused_trunk.py:{line}", "launches": trunk[part],
+         "replaces": f"scldm_tpu/ops/fused_trunk.py:{line}",
+         "launches": trunk[part] + variants[f"fused_trunk_{part}"],
          **trunk_timing[part],
          **fused_trunk_bound(TRUNK_ROWS[0], TRUNK["T"], TRUNK["E"], TRUNK["hidden"], TRUNK["L"],
                              part == "bwd", part == "fwd_saving"), "library_ms": None}

@@ -137,6 +137,9 @@ def main(argv=None) -> int:
         if inf_args.get("reconstruct", True):
             with torch.no_grad():
                 out = vae.decode(z, dev["genes"], dev["library_size"])
+            if "theta" not in out:  # JAX's reconstruct draws NB counts
+                raise ValueError("the LDM path reconstructs NB counts, and this VAE's Gaussian "
+                                 "head has no theta; set inference_args.reconstruct=false")
             outputs["reconstructed_counts"] = nb_sample(
                 out["mu"], out["theta"], torch.Generator(device).manual_seed(i)).cpu().numpy()
         else:
@@ -154,7 +157,8 @@ def main(argv=None) -> int:
 @torch.no_grad()
 def _vae_inference(vae, datamodule, vocab, out_dir: Path, dataset: str, device) -> int:
     """Encode and reconstruct every predict batch with the VAE alone (the
-    reference's models.VAE.inference, models.py:352-381)."""
+    reference's models.VAE.inference, models.py:352-381): NB counts drawn
+    from the head, or the Gaussian head's mean, which has no theta."""
     for i, batch in enumerate(datamodule.predict_batches()):
         dev = device_batch(batch, device)
         out, z = vae(
@@ -164,7 +168,11 @@ def _vae_inference(vae, datamodule, vocab, out_dir: Path, dataset: str, device) 
             counts_subset=dev.get("counts_subset", dev[COUNTS]),
             genes_subset=dev.get("genes_subset", dev["genes"]),
         )
-        counts_pred = nb_sample(out["mu"], out["theta"], torch.Generator(device).manual_seed(i))
+        if "theta" in out:
+            counts_pred = nb_sample(out["mu"], out["theta"],
+                                    torch.Generator(device).manual_seed(i))
+        else:
+            counts_pred = out["mu"].float()
         outputs = {"reconstructed_counts": counts_pred.cpu().numpy(),
                    "z": z.float().cpu().numpy()}
         for k, v in batch.items():

@@ -11,12 +11,14 @@ config's `device` (default "cuda"; without a card that raises). `model.compute_d
 f32 weights, and `model.remat` recomputes each trunk block in the backward,
 both as in JAX.
 
-A config value the port cannot honour raises NotImplementedError naming the
-ROADMAP item that would bring it; none is ignored: `fsdp`, `gene_sp` and
+Every model value JAX's builders take is passed on: the VAE's dropout,
+`positional_encoding`, `shared_embedding`, `agg_func`, `decoder_name`,
+`remat_cross` and `cross_chunks`, and the DiT's dropout; an unknown
+`agg_func` or `decoder_name` raises a ValueError, as in JAX. A config value
+the port cannot honour raises NotImplementedError naming the ROADMAP item
+that would bring it; none is ignored: `fsdp`, `gene_sp` and
 `pipeline_microbatches` (queue 1, item 11), `vae_as_tokenizer.train: true`
-(item 10), a transport other than Linear / velocity (item 9), and
-transformer-VAE / DiT options outside the shipped architecture,
-`remat_cross`, `cross_chunks` and VAE dropout among them (item 8).
+(item 10) and a transport other than Linear / velocity (item 9).
 """
 
 from __future__ import annotations
@@ -43,7 +45,6 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 MULTI_CARD = "ROADMAP queue 1, item 11 (more than one card)"
 TRAIN_VAE = "ROADMAP queue 1, item 10 (training the VAE inside the LDM)"
 TRANSPORT = "ROADMAP queue 1, item 9 (other transports)"
-ARCH = "ROADMAP queue 1, item 8 (the remaining model variants)"
 
 
 def refuse(what: str, item: str):
@@ -131,17 +132,6 @@ def build_vae(cfg: Dict) -> TransformerVAE:
     """The VAE of `model.vae` on the config's device, its weights drawn from
     a generator seeded with the config's `seed`."""
     m = cfg["model"]["vae"]
-    shipped = {"dropout": 0.0, "positional_encoding": True, "shared_embedding": True,
-               "agg_func": "log1p"}
-    for key, value in shipped.items():
-        if m.get(key, value) != value:
-            refuse(f"model.vae.{key}={m[key]}", ARCH)
-    decoder = cfg["model"].get("decoder_name", "negative_binomial_shared_theta")
-    if decoder != "negative_binomial_shared_theta":
-        refuse(f"model.decoder_name={decoder}", ARCH)
-    for key, value in (("remat_cross", False), ("cross_chunks", 1)):
-        if cfg["model"].get(key, value) != value:
-            refuse(f"model.{key}={cfg['model'][key]}", ARCH)
     device = resolve_device(cfg)
     vae = build_transformer_vae(
         n_genes=m["n_genes"],
@@ -151,10 +141,17 @@ def build_vae(cfg: Dict) -> TransformerVAE:
         n_inducing_points=m.get("n_inducing_points", 16),
         n_head=m.get("n_head", 8),
         n_head_cross=m.get("n_head_cross", 4),
+        dropout=float(m.get("dropout", 0.0)),
         bias=m.get("bias", False),
         multiple_of=m.get("multiple_of", 4),
         layernorm_eps=float(m.get("layernorm_eps", 1e-8)),
+        positional_encoding=bool(m.get("positional_encoding", True)),
+        shared_embedding=bool(m.get("shared_embedding", True)),
+        agg_func=m.get("agg_func", "log1p"),
+        decoder_head=cfg["model"].get("decoder_name", "negative_binomial_shared_theta"),
         remat=bool(cfg["model"].get("remat", False)),
+        remat_cross=bool(cfg["model"].get("remat_cross", False)),
+        cross_chunks=int(cfg["model"].get("cross_chunks", 1)),
         dtype=compute_dtype(cfg),
         device=device,
     )
@@ -229,8 +226,6 @@ def build_dit(cfg: Dict) -> DiT:
     drawn from a generator seeded with the config's `seed`, with the
     adaLN-zero initialisation."""
     d = cfg["model"]["diffusion_model"]
-    if d.get("dropout", 0.0) != 0.0:
-        refuse(f"model.diffusion_model.dropout={d['dropout']}", ARCH)
     device = resolve_device(cfg)
     dit = DiT(
         n_embed=d.get("n_embed", 256),
@@ -246,6 +241,7 @@ def build_dit(cfg: Dict) -> DiT:
         condition_strategy=d.get("condition_strategy", "mutually_exclusive"),
         remat=bool(cfg["model"].get("remat", False)),
         dtype=compute_dtype(cfg),
+        dropout=float(d.get("dropout", 0.0)),
     ).to(device)  # its sin-cos table is a buffer made from numpy, on the host
     return init_reference_(dit, _generator(cfg, device))
 

@@ -9,21 +9,26 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from scldm_torch.nn.layers import Linear, linear_f32
+from scldm_torch.nn.layers import LayerNormFP32, Linear, linear_f32
 
 
 class NegativeBinomialTransformerHead(nn.Module):
-    """Per-gene NB head with shared theta.
+    """Per-gene NB head.
 
-    mu = softmax(Linear(E -> 1)(h), over genes) * library_size, the logit of
+    mu = softmax(logit / t, over genes) * library_size, the logit of
     compute-dtype products summed in f32 (`linear_f32`) and the softmax in
-    f32; theta = exp(theta_table[genes]) from an (n_genes + 1, 1) f32 table,
-    in f32."""
+    f32. With `shared_theta` the logit is Linear(E -> 1)(h) and theta =
+    exp(theta_table[genes]) from an (n_genes + 1, 1) f32 table; without it
+    `params` is Linear(E -> 2)(h), the logit and log-theta of each gene token.
+    theta is exponentiated in f32."""
 
-    def __init__(self, n_genes: int, n_embed: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, n_genes: int, n_embed: int, dtype: torch.dtype = torch.float32,
+                 shared_theta: bool = True, t: float = 1.0):
         super().__init__()
-        self.params = Linear(n_embed, 1, compute_dtype=dtype)
-        self.theta = nn.Embedding(n_genes + 1, 1)
+        self.shared_theta, self.t = shared_theta, t
+        self.params = Linear(n_embed, 1 if shared_theta else 2, compute_dtype=dtype)
+        if shared_theta:
+            self.theta = nn.Embedding(n_genes + 1, 1)
 
     def forward(
         self,
@@ -31,10 +36,28 @@ class NegativeBinomialTransformerHead(nn.Module):
         genes: torch.Tensor,  # (G,) or (B, G) gene ids
         library_size: torch.Tensor,  # (B, 1)
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        mu = linear_f32(h, self.params, self.params.compute_dtype).squeeze(-1)
-        theta = torch.exp(self.theta(genes.long()).float()).squeeze(-1)
-        mu = torch.softmax(mu.float(), dim=1) * library_size
+        out = linear_f32(h, self.params, self.params.compute_dtype)
+        if self.shared_theta:
+            mu, log_theta = out.squeeze(-1), self.theta(genes.long()).squeeze(-1)
+        else:
+            mu, log_theta = out[..., 0], out[..., 1]
+        theta = torch.exp(log_theta.float())
+        mu = torch.softmax(mu.float() / self.t, dim=1) * library_size
         return mu, theta
+
+
+class GaussianTransformerHead(nn.Module):
+    """The Gaussian head's mean: LayerNorm then Linear(E -> 1) per gene
+    token, in the compute dtype (no theta)."""
+
+    def __init__(self, n_embed: int, layernorm_eps: float = 1e-8,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.ln = LayerNormFP32(n_embed, layernorm_eps)
+        self.params = Linear(n_embed, 1, compute_dtype=dtype)
+
+    def forward(self, h: torch.Tensor) -> torch.Tensor:
+        return self.params(self.ln(h)).squeeze(-1)
 
 
 class GaussianLinearHead(nn.Module):

@@ -11,12 +11,19 @@ stream are bf16 while the gradients reaching the weights are f32. LayerNorm
 runs in f32 and returns its input's dtype; attention scores and softmax run
 in f32. Nothing here uses `torch.autocast`, whose policy would keep
 LayerNorm outputs and residual sums in f32.
+
+Dropout (JAX's `nn.Dropout` after each attention's output projection) is
+drawn only where a forward is given a `Drops`, the draws of one training
+pass; without one every module is deterministic, as JAX's at
+`deterministic=True`.
 """
 
 from __future__ import annotations
 
+import copy
 import math
-from typing import Optional
+import zlib
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -25,6 +32,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from scldm_torch.ops.attention import sdpa, sdpa_shared_q
+from scldm_torch.ops.transforms import COUNT_TRANSFORMS, LEARNED_TRANSFORMS
 
 
 def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
@@ -70,6 +78,56 @@ def checkpointed(block: nn.Module, *args: torch.Tensor) -> torch.Tensor:
     if torch.is_grad_enabled():
         return checkpoint(block, *args, use_reentrant=False)
     return block(*args)
+
+
+def dropout(x: torch.Tensor, rate: float, keep: Optional[torch.Tensor] = None,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """flax's `nn.Dropout` at train time: entries kept where `keep` (drawn as
+    uniform < 1 - rate from `generator` unless given) scaled by 1 / (1 -
+    rate), the rest zero."""
+    if keep is None:
+        keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class Drops:
+    """The dropout draws of one training forward of `root` (JAX's
+    `deterministic=False` under a "dropout" rng). A site is a module that
+    drops, named by its path in `root`; `call` tells apart the calls of one
+    module over slices (the decoder's `cross_chunks`). Each site and call
+    draws its keep mask from a generator seeded with `seed` and a checksum of
+    its name and call, so that a forward recomputed in the backward
+    (`checkpointed`) drops what the first one dropped. `keep` injects the
+    masks instead: {site name: [mask of call 0, mask of call 1, ...]}."""
+
+    def __init__(self, root: nn.Module, seed: int = 0,
+                 keep: Optional[Dict[str, Sequence[torch.Tensor]]] = None, call: int = 0):
+        self.names = {id(m): name for name, m in root.named_modules()}
+        self.seed, self.keep, self.call = int(seed), dict(keep or {}), call
+
+    @classmethod
+    def draw(cls, root: nn.Module, generator: torch.Generator) -> "Drops":
+        """The pass's seed drawn from `generator` (one draw a step)."""
+        seed = torch.randint(0, 2**62, (1,), generator=generator, device=generator.device)
+        return cls(root, int(seed))
+
+    def at_call(self, call: int) -> "Drops":
+        out = copy.copy(self)
+        out.call = call
+        return out
+
+    def __call__(self, x: torch.Tensor, rate: float, site: nn.Module) -> torch.Tensor:
+        name = self.names[id(site)]
+        if name in self.keep:
+            return dropout(x, rate, self.keep[name][self.call].to(x.device))
+        key = zlib.crc32(f"{name}/{self.call}".encode())
+        generator = torch.Generator(x.device).manual_seed((self.seed + key) % 2**63)
+        return dropout(x, rate, generator=generator)
+
+
+def drop(x: torch.Tensor, rate: float, site: nn.Module, drops: Optional[Drops]) -> torch.Tensor:
+    """`x` through `site`'s dropout at `rate` where the pass has draws."""
+    return x if drops is None or rate <= 0.0 else drops(x, rate, site)
 
 
 class _SiLULowPrecision(torch.autograd.Function):
@@ -136,54 +194,114 @@ class LayerNormFP32(nn.Module):
         return F.layer_norm(x.float(), (self.n,), w, b, self.eps).to(x.dtype)
 
 
-class InputTransformerVAE(nn.Module):
-    """Gene-embedding table (row 0 is <MASK>) scaled by log1p(count): the
-    `agg_func: log1p` input layer every shipped config uses."""
+class Projection(nn.Module):
+    """`agg_func: proj`: a learned projection of the count added to the gene
+    embedding."""
 
-    def __init__(self, n_genes: int, n_embed: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, n_embed: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.count_embedding = Linear(1, n_embed, True, dtype)
+
+    def forward(self, genes: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+        return genes + self.count_embedding(counts)
+
+
+class ProjectionConcat(nn.Module):
+    """`agg_func: projconcat`: [gene embedding, log1p(count)] mixed by a
+    learned (2E -> E) projection."""
+
+    def __init__(self, n_embed: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.mix = Linear(2 * n_embed, n_embed, True, dtype)
+
+    def forward(self, genes: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+        log_counts = torch.log1p(counts).expand(genes.shape)
+        return self.mix(torch.cat([genes, log_counts], dim=-1))
+
+
+class SoftBinProjection(nn.Module):
+    """`agg_func: softbin`: the count soft-assigned to `n_bins` learned bin
+    embeddings by a small MLP, the mixture added to the gene embedding."""
+
+    def __init__(self, n_embed: int, n_bins: int = 10, hidden_dim: int = 64,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
+        self.mlp_count_0 = Linear(1, hidden_dim, True, dtype)
+        self.mlp_count_1 = Linear(hidden_dim, n_bins, True, dtype)
+        self.bin_embeddings = nn.Parameter(torch.zeros(n_bins, n_embed))
+
+    def forward(self, genes: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+        weights = torch.softmax(self.mlp_count_1(silu(self.mlp_count_0(counts))), dim=-1)
+        return genes + weights @ self.bin_embeddings.to(self.dtype)
+
+
+_PROJECTIONS = dict(zip(LEARNED_TRANSFORMS, (Projection, ProjectionConcat, SoftBinProjection)))
+
+
+class InputTransformerVAE(nn.Module):
+    """Gene-embedding table (row 0 is <MASK>) with the count injected by
+    `agg_func`: one of the stateless `ops.transforms.COUNT_TRANSFORMS`
+    (log1p, every shipped config's, log1pzero, anscombe, sqrt) or a learned
+    projection (proj, projconcat, softbin). Another name raises, as in JAX."""
+
+    def __init__(self, n_genes: int, n_embed: int, agg_func: str = "log1p",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype, self.agg_func = dtype, agg_func
         self.gene_embedding = nn.Embedding(n_genes + 1, n_embed)
+        if agg_func in _PROJECTIONS:
+            self.projection = _PROJECTIONS[agg_func](n_embed, dtype=dtype)
+        elif agg_func in COUNT_TRANSFORMS:
+            self.transform = COUNT_TRANSFORMS[agg_func]
+        else:
+            raise ValueError(f"Unknown agg_func: {agg_func}")
 
     def forward(self, counts: torch.Tensor, genes: torch.Tensor) -> torch.Tensor:
         emb = self.embed_genes(genes)
-        # the counts cast to the embedding's dtype before log1p, as in JAX
-        return emb * torch.log1p(counts[..., None].to(emb.dtype))
+        # the counts cast to the embedding's dtype first, as in JAX
+        counts = counts[..., None].to(emb.dtype)
+        if self.agg_func in _PROJECTIONS:
+            return self.projection(emb, counts)
+        return self.transform(emb, counts)
 
     def embed_genes(self, genes: torch.Tensor) -> torch.Tensor:
         return embed(self.gene_embedding, genes, self.dtype)
 
 
 class SelfAttention(nn.Module):
-    """Fused-qkv multi-head self-attention."""
+    """Fused-qkv multi-head self-attention, dropout after the output
+    projection."""
 
     def __init__(self, n_embed: int, n_head: int, bias: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
-        self.n_head = n_head
+        self.n_head, self.dropout = n_head, dropout
         self.c_attn = Linear(n_embed, 3 * n_embed, bias, dtype)
         self.c_proj = Linear(n_embed, n_embed, bias, dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, drops: Optional[Drops] = None) -> torch.Tensor:
         B, S, D = x.shape
         q, k, v = (a.reshape(B, S, self.n_head, D // self.n_head)
                    for a in self.c_attn(x).chunk(3, dim=-1))
-        return self.c_proj(sdpa(q, k, v).reshape(B, S, D))
+        return drop(self.c_proj(sdpa(q, k, v).reshape(B, S, D)), self.dropout, self, drops)
 
 
 class CrossAttention(nn.Module):
-    """Cross-attention: k/v from x, queries projected separately. 2-D queries
-    (M, E) are shared by the whole batch; 3-D queries (B, M, E) are not."""
+    """Cross-attention: k/v from x, queries projected separately, dropout
+    after the output projection. 2-D queries (M, E) are shared by the whole
+    batch; 3-D queries (B, M, E) are not."""
 
     def __init__(self, n_embed: int, n_head: int, bias: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
-        self.n_head = n_head
+        self.n_head, self.dropout = n_head, dropout
         self.c_attn = Linear(n_embed, 2 * n_embed, bias, dtype)
         self.c_attn_q = Linear(n_embed, n_embed, bias, dtype)
         self.c_proj = Linear(n_embed, n_embed, bias, dtype)
 
-    def forward(self, x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, q: torch.Tensor,
+                drops: Optional[Drops] = None) -> torch.Tensor:
         B, S, _ = x.shape
         M, D = q.shape[-2], q.shape[-1]
         hd = D // self.n_head
@@ -193,7 +311,7 @@ class CrossAttention(nn.Module):
             y = sdpa_shared_q(q.reshape(M, self.n_head, hd), k, v)
         else:
             y = sdpa(q.reshape(B, M, self.n_head, hd), k, v)
-        return self.c_proj(y.reshape(B, M, D))
+        return drop(self.c_proj(y.reshape(B, M, D)), self.dropout, self, drops)
 
 
 class MLP(nn.Module):
@@ -212,8 +330,14 @@ class MLP(nn.Module):
         return self.c_proj(silu(self.w1(x, dtype)) * self.w2(x, dtype), dtype)
 
 
+def _adaln(n_embed: int, chunks: int, dtype: torch.dtype) -> nn.Sequential:
+    """SiLU then Linear(E -> chunks * E): an adaLN modulation of the condition."""
+    return nn.Sequential(SiLU(), Linear(n_embed, chunks * n_embed, compute_dtype=dtype))
+
+
 class Block(nn.Module):
-    """Pre-LN transformer block, optionally adaLN-zero conditioned."""
+    """Pre-LN transformer block, optionally adaLN-zero conditioned; dropout
+    inside the attention."""
 
     def __init__(
         self,
@@ -225,34 +349,38 @@ class Block(nn.Module):
         use_adaln: bool = False,
         elementwise_affine: bool = True,
         dtype: torch.dtype = torch.float32,
+        dropout: float = 0.0,
     ):
         super().__init__()
         self.use_adaln = use_adaln
         self.ln_1 = LayerNormFP32(n_embed, layernorm_eps, elementwise_affine)
         self.ln_2 = LayerNormFP32(n_embed, layernorm_eps, elementwise_affine)
-        self.attn = SelfAttention(n_embed, n_head, bias, dtype)
+        self.attn = SelfAttention(n_embed, n_head, bias, dtype, dropout)
         self.mlp = MLP(n_embed, multiple_of, dtype)
         if use_adaln:
-            self.adaln_modulation = nn.Sequential(
-                SiLU(), Linear(n_embed, 6 * n_embed, compute_dtype=dtype))
+            self.adaln_modulation = _adaln(n_embed, 6, dtype)
 
-    def forward(self, x: torch.Tensor, condition: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, condition: Optional[torch.Tensor] = None,
+                drops: Optional[Drops] = None) -> torch.Tensor:
         if not self.use_adaln:
-            x = x + self.attn(self.ln_1(x))
+            x = x + self.attn(self.ln_1(x), drops)
             return x + self.mlp(self.ln_2(x))
         shift_a, scale_a, gate_a, shift_m, scale_m, gate_m = (
             self.adaln_modulation(condition).chunk(6, dim=-1)
         )
         # the reference calls modulate() with swapped arguments: the chunk
         # named shift multiplies and the one named scale shifts
-        x = x + gate_a * self.attn(modulate(self.ln_1(x), scale_a, shift_a))
+        x = x + gate_a * self.attn(modulate(self.ln_1(x), scale_a, shift_a), drops)
         return x + gate_m * self.mlp(modulate(self.ln_2(x), scale_m, shift_m))
 
 
 class CrossAttentionBlock(nn.Module):
     """The MCAB. With `n_inducing_points > 0` learned queries pool the token
     axis; with 0 the caller's queries unpool it. out = q + attn(ln(x), ln(q)),
-    then a SwiGLU residual."""
+    then a SwiGLU residual. `use_adaln` modulates both LayerNorm'd inputs
+    and gates both residuals from the condition (adaLN-zero, the queries'
+    own `adaln_modulation_q`), with the reference's swapped modulate
+    arguments, as `Block`."""
 
     def __init__(
         self,
@@ -263,22 +391,40 @@ class CrossAttentionBlock(nn.Module):
         multiple_of: int = 4,
         layernorm_eps: float = 1e-8,
         dtype: torch.dtype = torch.float32,
+        dropout: float = 0.0,
+        use_adaln: bool = False,
     ):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.use_adaln = dtype, use_adaln
         if n_inducing_points > 0:
             self.inducing_points = nn.Parameter(torch.zeros(n_inducing_points, n_embed))
         self.ln_1 = LayerNormFP32(n_embed, layernorm_eps)
         self.ln_1q = LayerNormFP32(n_embed, layernorm_eps)
         self.ln_2 = LayerNormFP32(n_embed, layernorm_eps)
-        self.attn = CrossAttention(n_embed, n_head, bias, dtype)
+        self.attn = CrossAttention(n_embed, n_head, bias, dtype, dropout)
         self.mlp = MLP(n_embed, multiple_of, dtype)
+        if use_adaln:
+            self.adaln_modulation = _adaln(n_embed, 6, dtype)
+            self.adaln_modulation_q = _adaln(n_embed, 2, dtype)
 
-    def forward(self, x: torch.Tensor, q: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, q: Optional[torch.Tensor] = None,
+                condition: Optional[torch.Tensor] = None,
+                drops: Optional[Drops] = None) -> torch.Tensor:
         if q is None:
             q = self.inducing_points.to(self.dtype).expand(x.shape[0], -1, -1)
-        out = self.attn(self.ln_1(x), self.ln_1q(q)) + (q[None] if q.ndim == 2 else q)
-        return out + self.mlp(self.ln_2(out))
+        if not self.use_adaln:
+            out = self.attn(self.ln_1(x), self.ln_1q(q), drops) + (q[None] if q.ndim == 2 else q)
+            return out + self.mlp(self.ln_2(out))
+        if q.ndim == 2:  # per-cell modulation of the queries: the batched layout
+            q = q.expand(x.shape[0], -1, -1)
+        shift_a, scale_a, gate_a, shift_m, scale_m, gate_m = (
+            self.adaln_modulation(condition).chunk(6, dim=-1)
+        )
+        shift_q, scale_q = self.adaln_modulation_q(condition).chunk(2, dim=-1)
+        h_x = modulate(self.ln_1(x), scale_a, shift_a)
+        h_q = modulate(self.ln_1q(q), scale_q, shift_q)
+        out = q + gate_a * self.attn(h_x, h_q, drops)
+        return out + gate_m * self.mlp(modulate(self.ln_2(out), scale_m, shift_m))
 
 
 class TimestepEmbedder(nn.Module):

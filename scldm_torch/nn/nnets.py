@@ -7,7 +7,8 @@ class selection of the mutually exclusive strategy, with every draw from a
 
 `dtype` is JAX's compute dtype (`nn/layers.py`); `remat` recomputes each
 trunk block in the backward (JAX `nn.remat` around `Block`), which changes
-memory, not numbers."""
+memory, not numbers. `dropout` acts in every attention of the trunks and
+the cross blocks where a forward is given `drops` (`layers.Drops`)."""
 
 from __future__ import annotations
 
@@ -20,11 +21,13 @@ import torch.nn.functional as F
 from scldm_torch.nn.layers import (
     Block,
     CrossAttentionBlock,
+    Drops,
     FinalLayerDiT,
     LayerNormFP32,
     Linear,
     TimestepEmbedder,
     checkpointed,
+    dropout,
     embed,
     get_1d_sincos_pos_embed,
 )
@@ -58,16 +61,6 @@ class BatchNorm(nn.Module):
         else:
             mean, var = self.running_mean, self.running_var
         return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
-
-
-def dropout(x: torch.Tensor, rate: float, keep: Optional[torch.Tensor] = None,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """flax's `nn.Dropout` at train time: entries kept where `keep` (drawn as
-    uniform < 1 - rate from `generator` unless given) scaled by 1 / (1 -
-    rate), the rest zero."""
-    if keep is None:
-        keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
-    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class _ScviMLP(nn.Module):
@@ -114,9 +107,9 @@ class Encoder(nn.Module):
     """MCAB pooling of the gene tokens into `n_inducing_points` latent tokens,
     `n_layer` self-attention blocks, then Linear(E -> E_latent) + non-affine LN.
 
-    `pos_embed` is the reference's all-zeros, never-trained positional table
-    (`positional_encoding: true` in every shipped config), kept so that its
-    checkpoints load."""
+    With `positional_encoding` (every shipped config) `pos_embed` is the
+    reference's all-zeros, never-trained positional table, kept so that its
+    checkpoints load; without it there is no such parameter."""
 
     def __init__(
         self,
@@ -131,19 +124,25 @@ class Encoder(nn.Module):
         layernorm_eps: float = 1e-8,
         remat: bool = False,
         dtype: torch.dtype = torch.float32,
+        dropout: float = 0.0,
+        positional_encoding: bool = True,
     ):
         super().__init__()
         self.n_inducing_points = n_inducing_points
-        self.n_embed_latent = n_embed_latent
-        self.remat, self.dtype = remat, dtype
+        self.n_embed, self.n_embed_latent = n_embed, n_embed_latent
+        self.remat, self.dtype, self.dropout = remat, dtype, dropout
         self.ca_layer = CrossAttentionBlock(
-            n_embed, n_inducing_points, n_head_cross, bias, multiple_of, layernorm_eps, dtype
+            n_embed, n_inducing_points, n_head_cross, bias, multiple_of, layernorm_eps, dtype,
+            dropout,
         )
-        self.pos_embed = nn.Parameter(
-            torch.zeros(1, n_inducing_points, n_embed), requires_grad=False
-        )
+        if positional_encoding:
+            self.pos_embed = nn.Parameter(
+                torch.zeros(1, n_inducing_points, n_embed), requires_grad=False
+            )
+        else:
+            self.pos_embed = None
         self.encoder_layers = nn.ModuleList(
-            Block(n_embed, n_head, bias, multiple_of, layernorm_eps, dtype=dtype)
+            Block(n_embed, n_head, bias, multiple_of, layernorm_eps, dtype=dtype, dropout=dropout)
             for _ in range(n_layer)
         )
         self.encoder_latent_input = nn.Sequential(
@@ -151,28 +150,40 @@ class Encoder(nn.Module):
             LayerNormFP32(n_embed_latent, layernorm_eps, affine=False),
         )
 
+    def _positions(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.pos_embed is None else x + self.pos_embed.to(x.dtype)
+
     def pool(self, x: torch.Tensor) -> torch.Tensor:
         """The MCAB pooling and the frozen positional table (JAX
         `pool_only=True`): the (B, M, E) input of the blocks, for the
         whole-trunk kernel (`training/vae_task._encoder_trunk_tail`)."""
-        return self.ca_layer(x) + self.pos_embed.to(x.dtype)
+        return self._positions(self.ca_layer(x))
 
-    def trunk(self, x: torch.Tensor) -> torch.Tensor:
+    def trunk(self, x: torch.Tensor, drops: Optional[Drops] = None) -> torch.Tensor:
         """Everything after the MCAB pooling, from the pooled (B, M, E) tokens
         (JAX `skip_pool=True`): the frozen positional table, the blocks, the
         latent projection and LN. The input of the fused encoder pools."""
-        x = x + self.pos_embed.to(x.dtype)
+        x = self._positions(x)
         for block in self.encoder_layers:
-            x = checkpointed(block, x) if self.remat else block(x)
+            x = checkpointed(block, x, None, drops) if self.remat else block(x, None, drops)
         return self.encoder_latent_input(x)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.trunk(self.ca_layer(x))
+    def forward(self, x: torch.Tensor, drops: Optional[Drops] = None) -> torch.Tensor:
+        return self.trunk(self.ca_layer(x, drops=drops), drops)
 
 
 class Decoder(nn.Module):
-    """Latent tokens -> per-gene hidden states through gene-embedding queries:
-    (G, E) queries shared by the batch, or (B, G, E) per cell."""
+    """Latent tokens -> per-gene hidden states through gene queries. With
+    `shared_embedding` (every shipped config) the caller gives the queries
+    pre-embedded from the input layer's table, (G, E) shared by the batch or
+    (B, G, E) per cell; without it the decoder embeds gene ids, (G,) or
+    (B, G), in a table of its own.
+
+    `remat_cross` recomputes the gene-axis cross block in the backward, and
+    `cross_chunks` runs it over that many slices of the gene axis (padded to
+    a multiple, cut back after), which is exact: genes attend only to the
+    latents. Together they bound the cross block's live memory by one
+    slice's."""
 
     def __init__(
         self,
@@ -187,35 +198,69 @@ class Decoder(nn.Module):
         layernorm_eps: float = 1e-8,
         remat: bool = False,
         dtype: torch.dtype = torch.float32,
+        dropout: float = 0.0,
+        shared_embedding: bool = True,
+        remat_cross: bool = False,
+        cross_chunks: int = 1,
     ):
         super().__init__()
         self.n_genes = n_genes
         self.n_embed = n_embed
-        self.remat, self.dtype = remat, dtype
+        self.remat, self.dtype, self.dropout = remat, dtype, dropout
+        self.shared_embedding = shared_embedding
+        self.remat_cross, self.cross_chunks = remat_cross, cross_chunks
         self.decoder_latent_input = nn.Sequential(
             LayerNormFP32(n_embed_latent, layernorm_eps, affine=False),
             Linear(n_embed_latent, n_embed, bias, dtype),
         )
         self.decoder_layers = nn.ModuleList(
-            Block(n_embed, n_head, bias, multiple_of, layernorm_eps, dtype=dtype)
+            Block(n_embed, n_head, bias, multiple_of, layernorm_eps, dtype=dtype, dropout=dropout)
             for _ in range(n_layer)
         )
+        if not shared_embedding:
+            self.gene_embedding = nn.Embedding(n_genes + 1, n_embed)
         self.decoder_cross_attention = CrossAttentionBlock(
-            n_embed, 0, n_head_cross, bias, multiple_of, layernorm_eps, dtype
+            n_embed, 0, n_head_cross, bias, multiple_of, layernorm_eps, dtype, dropout
         )
 
-    def trunk(self, x: torch.Tensor) -> torch.Tensor:
+    def trunk(self, x: torch.Tensor, drops: Optional[Drops] = None) -> torch.Tensor:
         """Latent LN + projection + the self-attention blocks: the (B, M, E)
         pre-cross latents (JAX `trunk_only=True`), the input of the fused tail."""
         x = self.decoder_latent_input(x)
         for block in self.decoder_layers:
-            x = checkpointed(block, x) if self.remat else block(x)
+            x = checkpointed(block, x, None, drops) if self.remat else block(x, None, drops)
         return x
 
-    def forward(self, x: torch.Tensor, gene_queries: torch.Tensor) -> torch.Tensor:
-        if gene_queries.ndim not in (2, 3) or not gene_queries.is_floating_point():
-            raise ValueError("the decoder expects pre-embedded gene queries (G, E) or (B, G, E)")
-        return self.decoder_cross_attention(self.trunk(x), gene_queries)
+    def _cross(self, x: torch.Tensor, q: torch.Tensor, drops: Optional[Drops]) -> torch.Tensor:
+        cross = self.decoder_cross_attention
+        if self.remat_cross:
+            return checkpointed(cross, x, q, None, drops)
+        return cross(x, q, None, drops)
+
+    def forward(self, x: torch.Tensor, genes: torch.Tensor,
+                drops: Optional[Drops] = None) -> torch.Tensor:
+        if self.shared_embedding:
+            if genes.ndim not in (2, 3) or not genes.is_floating_point():
+                raise ValueError("the decoder expects pre-embedded gene queries (G, E) or "
+                                 "(B, G, E)")
+            q = genes
+        else:
+            q = embed(self.gene_embedding, genes, self.dtype)
+        x = self.trunk(x, drops)
+        if self.cross_chunks <= 1:
+            return self._cross(x, q, drops)
+        # the same module over slices of the gene axis, each call its own dropout draws
+        G = q.shape[-2]
+        cs = -(-G // self.cross_chunks)
+        pad = cs * self.cross_chunks - G
+        if pad:
+            q = torch.cat([q, q.new_zeros(q.shape[:-2] + (pad, q.shape[-1]))], dim=-2)
+        outs = [
+            self._cross(x, q[..., i * cs : (i + 1) * cs, :],
+                        None if drops is None else drops.at_call(i))
+            for i in range(self.cross_chunks)
+        ]
+        return torch.cat(outs, dim=-2)[..., :G, :]
 
 
 def build_cfg_segments(x, t, condition, cfg_scale, class_vocab_sizes, strategy):
@@ -277,7 +322,9 @@ class DiT(nn.Module):
     """Diffusion Transformer over latent tokens with adaLN-zero conditioning.
 
     Each class table holds one extra null row at index `vocab_size` (when
-    `cfg_dropout_prob > 0`), the unconditional token of guidance."""
+    `cfg_dropout_prob > 0`), the unconditional token of guidance. `dropout`
+    acts in each block's attention where a training forward is given
+    `drops`."""
 
     def __init__(
         self,
@@ -294,9 +341,10 @@ class DiT(nn.Module):
         condition_strategy: str = "mutually_exclusive",
         remat: bool = False,
         dtype: torch.dtype = torch.float32,
+        dropout: float = 0.0,
     ):
         super().__init__()
-        self.remat, self.dtype = remat, dtype
+        self.remat, self.dtype, self.dropout = remat, dtype, dropout
         self.n_embed, self.n_embed_input = n_embed, n_embed_input
         self.n_layer, self.n_head, self.seq_len = n_layer, n_head, seq_len
         self.layernorm_eps = layernorm_eps
@@ -310,7 +358,7 @@ class DiT(nn.Module):
         self.t_embedder = TimestepEmbedder(n_embed, dtype=dtype)
         self.blocks = nn.ModuleList(
             Block(n_embed, n_head, bias, multiple_of, layernorm_eps,
-                  use_adaln=True, elementwise_affine=False, dtype=dtype)
+                  use_adaln=True, elementwise_affine=False, dtype=dtype, dropout=dropout)
             for _ in range(n_layer)
         )
         self.input_proj = Linear(n_embed_input, n_embed, bias, dtype)
@@ -434,13 +482,15 @@ class DiT(nn.Module):
         return c + self._mutually_exclusive_embedding(condition, rows, train, generator,
                                                       selected, drop_mask)
 
-    def trunk(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-        """The blocks and the final layer under a (B, n_embed) conditioning."""
+    def trunk(self, x: torch.Tensor, c: torch.Tensor,
+              drops: Optional[Drops] = None) -> torch.Tensor:
+        """The blocks and the final layer under a (B, n_embed) conditioning,
+        with the dropout draws of `drops` where given."""
         c = c[:, None, :]
         x = self.input_proj(x)  # in the compute dtype, as the frozen table added to it
         x = x + self.pos_embed.to(x.dtype)
         for block in self.blocks:
-            x = checkpointed(block, x, c) if self.remat else block(x, c)
+            x = checkpointed(block, x, c, drops) if self.remat else block(x, c, drops)
         return self.final_layer(x, c).float()
 
     def forward(
@@ -453,16 +503,23 @@ class DiT(nn.Module):
         generator: Optional[torch.Generator] = None,
         selected: Optional[torch.Tensor] = None,
         drop_mask: Optional[torch.Tensor] = None,
+        drops: Optional[Drops] = None,
     ) -> torch.Tensor:
-        """At `train`, the training conditioning of `embed_condition`;
-        otherwise the sampling-time one, class tables summed without dropout."""
+        """At `train`, the training conditioning of `embed_condition` and the
+        blocks' dropout (`drops`, drawn from `generator` unless given, where
+        `dropout` > 0); otherwise the sampling-time conditioning, class
+        tables summed without dropout, and no dropout."""
         if train:
             c = self.embed_condition(t, condition, generator, train=True, selected=selected,
                                      drop_mask=drop_mask)
-        else:
-            c = self.t_embedder(t)
-            if self.class_vocab_sizes and condition:
-                c = c + self.condition_embedding(condition, x.shape[0])
+            if drops is None and self.dropout > 0:
+                if generator is None:
+                    raise ValueError("training dropout needs a generator (or injected drops)")
+                drops = Drops.draw(self, generator)
+            return self.trunk(x, c, drops)
+        c = self.t_embedder(t)
+        if self.class_vocab_sizes and condition:
+            c = c + self.condition_embedding(condition, x.shape[0])
         return self.trunk(x, c)
 
     def forward_with_cfg_batched(

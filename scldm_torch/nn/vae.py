@@ -2,10 +2,12 @@
 scldm_tpu/nn/vae.py).
 
 The transformer VAE is deterministic in the LDM pipeline: the latent is the
-LayerNorm'd linear output of the encoder. Only the configuration of the
-shipped configs is ported so far: log1p input, shared gene embedding,
-shared-theta NB head at temperature 1. `ScviVAE` is the stochastic MLP
-baseline with an explicit Gaussian posterior."""
+LayerNorm'd linear output of the encoder. Every variant JAX's builder takes
+is built: the seven input layers (`agg_func`), dropout, the encoder without
+its positional table, the decoder with its own gene embedding, the NB head
+with shared or per-token theta at any temperature or the Gaussian head, and
+the decoder's `remat_cross` / `cross_chunks`. `ScviVAE` is the stochastic
+MLP baseline with an explicit Gaussian posterior."""
 
 from __future__ import annotations
 
@@ -16,21 +18,24 @@ import torch.nn as nn
 
 from scldm_torch.nn.heads import (
     GaussianLinearHead,
+    GaussianTransformerHead,
     NegativeBinomialLinearHead,
     NegativeBinomialTransformerHead,
 )
-from scldm_torch.nn.layers import InputTransformerVAE
+from scldm_torch.nn.layers import Drops, InputTransformerVAE
 from scldm_torch.nn.nnets import Decoder, DecoderScvi, Encoder, EncoderScvi
 
 
 class TransformerVAE(nn.Module):
-    """input_layer -> MCAB encoder -> equivariant decoder -> NB head."""
+    """input_layer -> MCAB encoder -> equivariant decoder -> likelihood head.
+    The head's parameters are {"mu", "theta"} (NB) or {"mu"} (Gaussian).
+    `drops` (`layers.Drops`) gives a training forward its dropout draws."""
 
     def __init__(
         self,
         encoder: Encoder,
         decoder: Decoder,
-        decoder_head: NegativeBinomialTransformerHead,
+        decoder_head: nn.Module,
         input_layer: InputTransformerVAE,
     ):
         super().__init__()
@@ -39,9 +44,18 @@ class TransformerVAE(nn.Module):
         self.decoder = decoder
         self.decoder_head = decoder_head
 
+    def _decoder_queries(self, genes: torch.Tensor) -> torch.Tensor:
+        """The decoder's queries: the input layer's embeddings of `genes`
+        under the shared embedding, else the ids (the decoder embeds them)."""
+        if self.decoder.shared_embedding:
+            return self.input_layer.embed_genes(genes)
+        return genes
+
     def _head_params(
         self, h_x: torch.Tensor, genes: torch.Tensor, library_size: torch.Tensor
     ) -> Dict[str, torch.Tensor]:
+        if isinstance(self.decoder_head, GaussianTransformerHead):
+            return {"mu": self.decoder_head(h_x)}
         mu, theta = self.decoder_head(h_x, genes, library_size)
         return {"mu": mu, "theta": theta}
 
@@ -52,11 +66,12 @@ class TransformerVAE(nn.Module):
         library_size: torch.Tensor,
         counts_subset: torch.Tensor,
         genes_subset: torch.Tensor,
+        drops: Optional[Drops] = None,
     ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
         """The full call: encode the token window, decode every gene of
-        `genes`. Returns ({"mu", "theta"}, h_z)."""
-        h_z = self.encoder(self.input_layer(counts_subset, genes_subset))
-        h_x = self.decoder(h_z, self.input_layer.embed_genes(genes))
+        `genes`. Returns (the head's parameters, h_z)."""
+        h_z = self.encoder(self.input_layer(counts_subset, genes_subset), drops)
+        h_x = self.decoder(h_z, self._decoder_queries(genes), drops)
         return self._head_params(h_x, genes, library_size), h_z
 
     def encode(
@@ -76,10 +91,14 @@ class TransformerVAE(nn.Module):
         self, z: torch.Tensor, genes: torch.Tensor, library_size: torch.Tensor
     ) -> Dict[str, torch.Tensor]:
         """z (B, M, E_latent); genes (G,) shared by the batch or (B, G);
-        library_size (B, 1) -> {"mu": (B, G), "theta": (G,) or (B, G)}."""
+        library_size (B, 1) -> {"mu": (B, G), "theta": (G,) or (B, G)} (NB)
+        or {"mu": (B, G)} (Gaussian)."""
         return self._head_params(
-            self.decoder(z, self.input_layer.embed_genes(genes)), genes, library_size
+            self.decoder(z, self._decoder_queries(genes)), genes, library_size
         )
+
+
+DECODER_HEADS = ("negative_binomial_shared_theta", "negative_binomial_unshared_theta", "gaussian")
 
 
 def build_transformer_vae(
@@ -91,30 +110,48 @@ def build_transformer_vae(
     n_inducing_points: int = 16,
     n_head: int = 8,
     n_head_cross: int = 4,
+    dropout: float = 0.0,
     bias: bool = False,
     multiple_of: int = 4,
     layernorm_eps: float = 1e-8,
+    positional_encoding: bool = True,
+    shared_embedding: bool = True,
+    agg_func: str = "log1p",
+    decoder_head: str = "negative_binomial_shared_theta",
+    head_temperature: float = 1.0,
     remat: bool = False,
+    remat_cross: bool = False,
+    cross_chunks: int = 1,
     dtype: torch.dtype = torch.float32,
     device: torch.device | str = "cuda",
 ) -> TransformerVAE:
     """A TransformerVAE with the reference default architecture
-    (configs/model/vae_base.yaml), its f32 parameters built on `device` (the
-    card unless the caller asks for the CPU; without a card "cuda" raises),
-    computing in `dtype` (JAX `build_transformer_vae(dtype=)`), each trunk
-    block recomputed in the backward with `remat`."""
+    (configs/model/vae_base.yaml) unless told otherwise, with JAX's
+    `build_transformer_vae` arguments, its f32 parameters built on `device`
+    (the card unless the caller asks for the CPU; without a card "cuda"
+    raises), computing in `dtype`, each trunk block recomputed in the
+    backward with `remat`. An unknown `decoder_head` or `agg_func` raises a
+    ValueError, as in JAX."""
+    if decoder_head not in DECODER_HEADS:
+        raise ValueError(f"Unknown decoder_head: {decoder_head}")
     with torch.device(device):
         encoder = Encoder(
             n_layer, n_inducing_points, n_embed, n_embed_latent, n_head, n_head_cross,
-            bias, multiple_of, layernorm_eps, remat, dtype,
+            bias, multiple_of, layernorm_eps, remat, dtype, dropout, positional_encoding,
         )
         decoder = Decoder(
             n_genes, n_embed, n_embed_latent, n_head, n_head_cross, n_layer,
-            bias, multiple_of, layernorm_eps, remat, dtype,
+            bias, multiple_of, layernorm_eps, remat, dtype, dropout, shared_embedding,
+            remat_cross, cross_chunks,
         )
-        head = NegativeBinomialTransformerHead(n_genes, n_embed, dtype)
+        if decoder_head == "gaussian":
+            head = GaussianTransformerHead(n_embed, layernorm_eps, dtype)
+        else:
+            head = NegativeBinomialTransformerHead(
+                n_genes, n_embed, dtype, shared_theta=decoder_head.endswith("_shared_theta"),
+                t=head_temperature)
         return TransformerVAE(encoder, decoder, head,
-                              InputTransformerVAE(n_genes, n_embed, dtype))
+                              InputTransformerVAE(n_genes, n_embed, agg_func, dtype))
 
 
 class ScviVAE(nn.Module):

@@ -12,6 +12,40 @@ COUNTS_SUBSET, COUNTS, LIBRARY_SIZE = "counts_subset", "counts", "library_size"
 NON_CONDITION_KEYS = (COUNTS, GENES, LIBRARY_SIZE, GENES_SUBSET, COUNTS_SUBSET)
 
 
+# The stateless count injections of the input embedding (`agg_func`): each
+# takes the gene embeddings (..., S, E) and the counts (..., S, 1), in the
+# embeddings' dtype, and returns (..., S, E).
+def log1p_transform(genes: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+    """genes * log1p(counts)."""
+    return genes * torch.log1p(counts)
+
+
+def log1p_zero_transform(genes: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+    """log1p with a zero count encoded as -1."""
+    return genes * torch.where(counts == 0, -1.0, torch.log1p(counts))
+
+
+def anscombe_transform(genes: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+    """genes * asinh(sqrt(counts + 1))."""
+    return genes * torch.asinh(torch.sqrt(counts + 1.0))
+
+
+def sqrt_transform(genes: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+    """genes * sqrt(counts + 1)."""
+    return genes * torch.sqrt(counts + 1.0)
+
+
+COUNT_TRANSFORMS = {
+    "log1p": log1p_transform,
+    "log1pzero": log1p_zero_transform,
+    "anscombe": anscombe_transform,
+    "sqrt": sqrt_transform,
+}
+
+#: the `agg_func` names with learned parameters (`nn.layers`' projections)
+LEARNED_TRANSFORMS = ("proj", "projconcat", "softbin")
+
+
 def canonical_gene_ids(n_genes: int, device: torch.device | str) -> torch.Tensor:
     """(n_genes,) gene-token ids 1..n_genes on `device`: the batch-shared
     decoder queries.

@@ -29,7 +29,8 @@ so on the card a bf16 config trains and samples its DiT in f32 through the
 kernels (the conditioning embedding, computed by the module, is rounded to
 bf16 first, as in JAX). CPU tensors, `fused_training=False` and
 `make_sample_fn(fused_blocks=False)` run the module DiT in its dtype, as
-JAX does off the TPU.
+JAX does off the TPU; so does a DiT with dropout, in training and in
+sampling, as JAX's gates close there.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from scldm_torch.nn.heads import GaussianTransformerHead
 from scldm_torch.nn.nnets import DiT, build_cfg_segments, combine_cfg_segments
 from scldm_torch.nn.vae import TransformerVAE
 from scldm_torch.ops.distributions import nb_sample
@@ -81,11 +83,14 @@ class LDMTask:
     decay, clip 10, the cosine wsd schedule decaying over the whole run, EMA
     0.9999 every 10 steps after step 10,000).
 
-    `fused_training=None` takes the kernel path on CUDA tensors (the JAX
-    rule is "on a TPU, with DiT dropout 0"; the port's DiT has no dropout),
-    True on any device (on CPU tensors through the kernels' plain versions),
-    False never. `fused_encode=None` resolves to False, as in JAX; the port
-    keeps the VAE frozen (JAX `train_vae=False`), where JAX allows it.
+    `fused_training=None` takes the kernel path on CUDA tensors where the
+    DiT has no dropout (the JAX rule is "on a TPU, with DiT dropout 0"; the
+    kernels do not drop), True on any device (on CPU tensors through the
+    kernels' plain versions; a DiT with dropout raises), False never. With
+    dropout the module path draws the blocks' masks from the step's
+    generator (`layers.Drops.draw`), after the conditioning's draws.
+    `fused_encode=None` resolves to False, as in JAX; the port keeps the VAE
+    frozen (JAX `train_vae=False`), where JAX allows it.
 
     The generation decode, as JAX resolves it: `algebraic_decode=None` takes
     `vae_task.algebraic_decode` at E > 128 where the architecture qualifies
@@ -124,6 +129,9 @@ class LDMTask:
         self.transport = transport
         self.transport_sampler = Sampler(transport)
         self.calculate_grad_norms = calculate_grad_norms
+        if fused_training and dit.dropout > 0:
+            raise ValueError(f"fused_training=True: the DiT kernels have no dropout, and this "
+                             f"DiT's is {dit.dropout}")
         self.fused_training = fused_training
         self.fused_encode = bool(fused_encode)
         if algebraic_decode is None:
@@ -172,24 +180,29 @@ class LDMTask:
         return self.vae.encode(counts, genes, batch.get(C_SUB), batch.get(G_SUB))
 
     def _use_fused(self, z: torch.Tensor) -> bool:
-        return z.is_cuda if self.fused_training is None else self.fused_training
+        if self.fused_training is None:
+            return z.is_cuda and self.dit.dropout == 0.0
+        return self.fused_training
 
     def loss(self, batch: Dict, generator: torch.Generator,
              noise: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
         """Flow-matching loss of a batch on the DiT's current parameters
         (differentiable). The draws come from `generator`: the transport's
         noise x0 and times t, then the conditioning's class choice and CFG
-        drop mask. `noise` may inject any of them ({"t", "x0"} together,
-        "selected", "drop_mask")."""
+        drop mask, then (with DiT dropout) the blocks' dropout seed. `noise`
+        may inject any of them ({"t", "x0"} together, "selected",
+        "drop_mask", "drops": a `layers.Drops`)."""
         noise = noise or {}
         z = self._encode(batch)
         condition = split_condition(batch, self.dit.class_vocab_sizes)
-        draws = {k: noise[k] for k in ("selected", "drop_mask") if k in noise}
+        draws = {k: noise[k] for k in ("selected", "drop_mask", "drops") if k in noise}
         fused = self._use_fused(z)
 
         def model_fn(xt, t, condition):
             if fused:
-                t_emb = self.dit.embed_condition(t, condition, generator, train=True, **draws)
+                t_emb = self.dit.embed_condition(t, condition, generator, train=True,
+                                                 selected=draws.get("selected"),
+                                                 drop_mask=draws.get("drop_mask"))
                 return fused_dit_train_apply(self.dit, xt, t_emb)
             return self.dit(xt, t, condition, train=True, generator=generator, **draws)
 
@@ -291,10 +304,12 @@ class LDMTask:
         `genes` is (G,) (shared by the batch; the canonical row takes the
         decoder's batch-free path) or (B, G). Every draw comes from
         `generator`, which lives on the modules' device. With `fused_blocks`
-        every DiT block runs through `ops.fused_dit.dit_block` (the CUDA
-        kernel on a GPU); otherwise the denoiser is the module path,
+        every DiT block of a dropout-free DiT runs through
+        `ops.fused_dit.dit_block` (the CUDA kernel on a GPU); otherwise (JAX's
+        gate closes at any DiT dropout) the denoiser is the module path,
         `DiT.forward_with_cfg_batched`. After each call `fn.drift_evals`
-        holds the number of DiT evaluations it made."""
+        holds the number of DiT evaluations it made. The counts are NB
+        draws: a Gaussian-head VAE, which has no theta, raises at the call."""
         if guidance_weight and self.dit.cfg_dropout_prob <= 0:
             raise ValueError(
                 "CFG guidance needs null-token embedding rows, which only exist "
@@ -315,6 +330,9 @@ class LDMTask:
                     batch_size = next(iter(condition.values())).shape[0]
                 else:
                     raise ValueError("batch_size required when genes is 1-D and no condition given")
+            if isinstance(self.vae.decoder_head, GaussianTransformerHead):
+                raise ValueError("generation draws negative-binomial counts, and this VAE's "
+                                 "Gaussian head has no theta")
             device = generator.device
             log_sf = size_factor_sampler.sample(generator, condition, batch_size, device)
             z0 = torch.randn((batch_size, seq_len, latent), generator=generator, device=device)
@@ -355,6 +373,7 @@ class LDMTask:
             sampling_method=sampling_method, num_steps=num_steps
         )
         dit = self.dit if dit is None else dit
+        fused_blocks = self._fused_sampler(dit, fused_blocks)
         z_cfg = torch.cat([z0, z0]).float()
         condition_cfg = {k: torch.cat([v, v]) for k, v in condition.items()} if condition else None
         block_params = [extract_block_params(b) for b in dit.blocks] if fused_blocks else None
@@ -385,6 +404,12 @@ class LDMTask:
         else:
             out = self.vae.decode(samples, genes_cfg, sf_cfg)
         return samples, out, evals
+
+    @staticmethod
+    def _fused_sampler(dit: DiT, fused_blocks: bool) -> bool:
+        """JAX's sampler gate: the block kernels, where asked, for a DiT
+        without dropout (the kernels do not drop)."""
+        return bool(fused_blocks) and dit.dropout == 0.0
 
     def _decode_is_algebraic(self, genes: torch.Tensor) -> bool:
         """The algebraic decode reads the whole canonical gene table as its

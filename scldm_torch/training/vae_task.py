@@ -1,5 +1,5 @@
 """VAE training task (counterpart of scldm_tpu/training/vae_task.py): the NB
-reconstruction loss, the training step (loss, backward, global-norm clip,
+(or Gaussian) reconstruction loss, the training step (loss, backward, global-norm clip,
 AdamWLegacy on the wsd schedule) and the validation metrics.
 
 On the lean wire batch (expressed genes and counts only, uint16) the step
@@ -20,6 +20,12 @@ unless asked, as in JAX) runs both trunks of that kernel path, the encoder's
 and the decoder's blocks, as the whole-trunk kernels
 (`ops/fused_trunk.fused_trunk_blocks_trainable`).
 
+The kernel paths are taken where JAX's gates hold, read from the modules:
+any input layer (`agg_func`) reaches the tail, the window pool and the
+trunk, the dense pool only under log1p; dropout, the decoder's own gene
+embedding and a head other than the shared-theta NB close the tail (and
+dropout every gate), so those variants train on the module path, as in JAX.
+
 Under a bf16 compute dtype (`vae.decoder.dtype`) the paths keep JAX's
 boundaries: the modules compute in bf16; the dense pool's operands and its
 MCAB finish, the decoder tail's operands (rows 3-6) stay f32; the window
@@ -36,11 +42,11 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from scldm_torch.nn.heads import NegativeBinomialTransformerHead
-from scldm_torch.nn.layers import LayerNormFP32, silu
+from scldm_torch.nn.heads import GaussianTransformerHead, NegativeBinomialTransformerHead
+from scldm_torch.nn.layers import Drops, LayerNormFP32, silu
 from scldm_torch.nn.vae import TransformerVAE
 from scldm_torch.ops.attention import sdpa_shared_q
-from scldm_torch.ops.distributions import log_nb_positive, nb_sample
+from scldm_torch.ops.distributions import log_gaussian, log_nb_positive, nb_sample
 from scldm_torch.ops.fused_decoder import _bf, build_attention_operands, decoder_tail, pack_weights
 from scldm_torch.ops.fused_encoder import build_query_operand, encoder_pool, head_rows, window_pool
 from scldm_torch.ops.fused_swiglu import swiglu_vec
@@ -65,54 +71,72 @@ from scldm_torch.training.optim import AdamWLegacy, wsd_schedule
 from scldm_torch.training.state import TrainState, create_train_state
 
 
+def _nb_tail_ok(vae: TransformerVAE) -> bool:
+    """What the tails (`fused_nb_apply`, `algebraic_nb_apply`) assume of the
+    decoder, as JAX's gates: the shared-theta NB head, the shared gene
+    embedding (the tails read the input layer's table as their queries), no
+    adaLN, no dropout and no qkv bias (the tails omit it)."""
+    head, dec = vae.decoder_head, vae.decoder
+    ca = dec.decoder_cross_attention
+    return (
+        isinstance(head, NegativeBinomialTransformerHead)
+        and head.shared_theta
+        and dec.shared_embedding
+        and not ca.use_adaln
+        and dec.dropout == 0.0
+        and ca.attn.c_attn.bias is None
+    )
+
+
 def _fused_path_ok(vae: TransformerVAE) -> bool:
     """Whether `fused_nb_apply` computes what the module path computes: the
-    JAX gate. The ported VAE is always the shared-embedding, shared-theta,
-    dropout-free decoder it asks for; the tail omits the qkv biases, and at
-    E > 128 the JAX task leaves the tail for its algebraic path. The CUDA
-    kernels take every width this gate passes, at any number of latent
-    tokens (`ops/fused_decoder.kernel_takes`); a shape they did not take
-    would raise at launch, never quietly take the module path instead."""
-    return (
-        isinstance(vae.decoder_head, NegativeBinomialTransformerHead)
-        and vae.decoder.decoder_cross_attention.attn.c_attn.bias is None
-        and vae.decoder.n_embed <= 128
-    )
+    JAX gate, `_nb_tail_ok` at E <= 128 (at E > 128 the JAX task leaves the
+    tail for its algebraic path). Any input layer, with or without the
+    encoder's positional table: the tail reads only the decoder and the head.
+    The CUDA kernels take every width this gate passes, at any number of
+    latent tokens (`ops/fused_decoder.kernel_takes`); a shape they did not
+    take would raise at launch, never quietly take the module path instead."""
+    return _nb_tail_ok(vae) and vae.decoder.n_embed <= 128
 
 
 def _fused_encoder_ok(vae: TransformerVAE) -> bool:
     """The JAX gate of the dense encoder pool: embeddings that vanish at count
-    0 (log1p, the port's only input layer), no dropout (the port has none),
-    no qkv bias (the kernels omit it) and E <= 128. The CUDA kernels take
-    every such width, at any number of inducing points
-    (`ops/fused_encoder.narrow_kernel_takes`)."""
-    ca = vae.encoder.ca_layer
-    return ca.attn.c_attn.bias is None and ca.ln_1.n <= 128
+    0 (`agg_func: log1p` alone; the pool's closed form takes the G - S
+    zero-count rows out as zero embeddings), no dropout, no qkv bias (the
+    kernels omit it) and E <= 128. The CUDA kernels take every such width, at
+    any number of inducing points (`ops/fused_encoder.narrow_kernel_takes`)."""
+    enc = vae.encoder
+    ca = enc.ca_layer
+    return (vae.input_layer.agg_func == "log1p" and enc.dropout == 0.0
+            and ca.attn.c_attn.bias is None and enc.n_embed <= 128)
 
 
 def _fused_window_ok(vae: TransformerVAE) -> bool:
-    """The JAX gate of the window pool: any input layer, no qkv bias, and E
-    at one of the JAX kernel's two validated tile geometries (E <= 128 or
-    E >= 256). The CUDA kernels take every narrow width at any number of
-    inducing points (`ops/fused_encoder.narrow_kernel_takes`) and the wide
-    design's (`ops/fused_encoder.wide_kernel_takes`: heads of 64 at E from
-    256 to 1,024, up to 1,024 inducing points); another wide shape passes
-    this gate and raises at launch."""
-    ca = vae.encoder.ca_layer
-    return ca.attn.c_attn.bias is None and (ca.ln_1.n <= 128 or ca.ln_1.n >= 256)
+    """The JAX gate of the window pool: any input layer (the kernels take
+    the embedded window), no dropout, no qkv bias, and E at one of the JAX
+    kernel's two validated tile geometries (E <= 128 or E >= 256). The CUDA
+    kernels take every narrow width at any number of inducing points
+    (`ops/fused_encoder.narrow_kernel_takes`) and the wide design's
+    (`ops/fused_encoder.wide_kernel_takes`: heads of 64 at E from 256 to
+    1,024, up to 1,024 inducing points); another wide shape passes this gate
+    and raises at launch."""
+    enc = vae.encoder
+    E = enc.n_embed
+    return (enc.dropout == 0.0 and enc.ca_layer.attn.c_attn.bias is None
+            and (E <= 128 or E >= 256))
 
 
 def _fused_trunk_ok(vae: TransformerVAE) -> bool:
     """The JAX gate of the whole-trunk kernel on both block stacks
     (`trunk_kernel_ok`: no bias, no dropout, no adaLN, E <= 128, and no
-    remat). The port has no dropout, so the check reads the modules' remat,
-    bias, adaLN and affine LayerNorms. A width the CUDA kernels do not take
-    passes this gate and raises at launch."""
+    remat), read from the blocks, which also must have affine LayerNorms.
+    Any input layer: the kernel takes the pooled tokens. A width the CUDA
+    kernels do not take passes this gate and raises at launch."""
     enc, dec = vae.encoder.encoder_layers, vae.decoder.decoder_layers
     if vae.encoder.remat or vae.decoder.remat:
         return False
     return len(enc) > 0 and len(dec) > 0 and all(
-        trunk_kernel_ok(b.ln_1.n, b.attn.c_attn.bias is not None, 0.0, b.use_adaln)
+        trunk_kernel_ok(b.ln_1.n, b.attn.c_attn.bias is not None, b.attn.dropout, b.use_adaln)
         and b.ln_1.weight is not None
         for b in (*enc, *dec)
     )
@@ -273,7 +297,7 @@ def fused_nb_apply(
         logits = decoder_tail(qp, q, kfull, vproj, weights, n_head, eps)  # (B, G) f32
 
     theta = torch.exp(head.theta.weight[1:, 0].float())  # (G,)
-    mu = torch.softmax(logits, dim=1) * batch[LIB]
+    mu = torch.softmax(logits / head.t, dim=1) * batch[LIB]
     return {"mu": mu, "theta": theta}, h_z
 
 
@@ -285,16 +309,10 @@ def _ln_affine(x: torch.Tensor, ln: LayerNormFP32, eps: float) -> torch.Tensor:
 
 
 def _algebraic_path_ok(vae: TransformerVAE) -> bool:
-    """The JAX gate of `algebraic_nb_apply`: `_fused_path_ok` without the
-    width limit. The ported decoder is always the shared-embedding,
-    shared-theta, adaLN-free, dropout-free one it asks for; the tail omits the
-    qkv biases and splits E over the cross heads."""
-    ca = vae.decoder.decoder_cross_attention
-    return (
-        isinstance(vae.decoder_head, NegativeBinomialTransformerHead)
-        and ca.attn.c_attn.bias is None
-        and vae.decoder.n_embed % ca.attn.n_head == 0
-    )
+    """The JAX gate of `algebraic_nb_apply`: `_nb_tail_ok` without the width
+    limit, with E split evenly over the cross heads."""
+    dec = vae.decoder
+    return _nb_tail_ok(vae) and dec.n_embed % dec.decoder_cross_attention.attn.n_head == 0
 
 
 def _algebraic_tail(
@@ -364,7 +382,7 @@ def _algebraic_tail(
         + head.params.bias[0].float()
     )
     theta = torch.exp(head.theta.weight[1:, 0].float())
-    mu = torch.softmax(logits, dim=1) * library_size  # the port's head has temperature 1
+    mu = torch.softmax(logits / head.t, dim=1) * library_size
     return {"mu": mu, "theta": theta}
 
 
@@ -396,26 +414,36 @@ def algebraic_decode(
                            vw_fold=vw_fold)
 
 
-def vae_loss(counts: torch.Tensor, params: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """NB reconstruction loss, summed over genes, averaged over the batch."""
-    return (-log_nb_positive(counts, params["mu"], params["theta"])).sum(dim=1).mean()
+def vae_loss(counts: torch.Tensor, params: Dict[str, torch.Tensor],
+             gaussian_head: bool = False) -> torch.Tensor:
+    """Reconstruction loss, summed over genes, averaged over the batch: the
+    NB negative log-likelihood, or under the Gaussian head the squared error
+    of its mean against log1p-CPM of the counts."""
+    if gaussian_head:
+        recon = log_gaussian(log1p_cpm(counts), params["mu"])
+    else:
+        recon = -log_nb_positive(counts, params["mu"], params["theta"])
+    return recon.sum(dim=1).mean()
 
 
 def validation_metrics(
     counts: torch.Tensor, out: Dict[str, torch.Tensor], counts_pred: torch.Tensor
 ) -> Dict[str, torch.Tensor]:
     """The reference's validation metrics from the true counts, the head's
-    parameters and counts drawn from them."""
-    loss = vae_loss(counts, out)
-    pred_scaled, true_scaled = log1p_cpm(counts_pred), log1p_cpm(counts)
-    return {
-        "val_loss": loss,
-        "val_llh": loss,
-        "val_theta": out["theta"].mean(),
-        "val_zeros_accuracy": M.zeros_accuracy(counts_pred, counts),
-        "val_mse": M.mse(pred_scaled, true_scaled),
-        "val_pcc": M.nanmean(M.pearson_corrcoef(pred_scaled, true_scaled)),
-    }
+    parameters and the prediction: under the NB head, counts drawn from it,
+    log1p-CPM scaled for the MSE and PCC; under the Gaussian head (no
+    theta), its mean, already on that scale."""
+    gaussian = "theta" not in out
+    loss = vae_loss(counts, out, gaussian)
+    mets = {"val_loss": loss, "val_llh": loss}
+    if not gaussian:
+        mets["val_theta"] = out["theta"].mean()
+    pred_scaled = counts_pred if gaussian else log1p_cpm(counts_pred)
+    true_scaled = log1p_cpm(counts)
+    mets["val_zeros_accuracy"] = M.zeros_accuracy(counts_pred, counts)
+    mets["val_mse"] = M.mse(pred_scaled, true_scaled)
+    mets["val_pcc"] = M.nanmean(M.pearson_corrcoef(pred_scaled, true_scaled))
+    return mets
 
 
 class VAETask:
@@ -442,7 +470,13 @@ class VAETask:
     `fused_trunk=True` (off unless asked, as in JAX) runs both trunks of the
     kernel path (`_use_fused`) as the whole-trunk kernels where JAX's gate
     holds (`_fused_trunk_ok`); `eval_step` and `encode` keep the modules, as
-    in JAX."""
+    in JAX.
+
+    A VAE with dropout closes every kernel gate, as in JAX: its training
+    steps take the module path, with the dropout draws seeded from the
+    state's generator (`layers.Drops.draw`); evaluation does not drop. Under
+    the Gaussian head (`gaussian_head`) the loss is the squared error of its
+    mean against log1p-CPM and there is no theta metric."""
 
     def __init__(
         self,
@@ -469,6 +503,7 @@ class VAETask:
         fused_trunk: Optional[bool] = None,
     ):
         self.vae = vae
+        self.gaussian_head = isinstance(vae.decoder_head, GaussianTransformerHead)
         self.fused_trunk = bool(fused_trunk) and _fused_trunk_ok(vae)
         self.fused_pool = bool(fused_pool) and _fused_window_ok(vae)
         if algebraic_tail is None:
@@ -520,9 +555,11 @@ class VAETask:
             out[LIB] = counts.sum(1, keepdim=True)
         return out
 
-    def _apply(self, batch: Dict) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
-        """The module path: `TransformerVAE.forward`, its MCAB pooling the
-        window pool with `fused_pool`."""
+    def _apply(self, batch: Dict, drops: Optional[Drops] = None
+               ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+        """The module path: `TransformerVAE.forward` (with the dropout draws
+        `drops` where given), its MCAB pooling the window pool with
+        `fused_pool` (whose gate excludes dropout)."""
         if self.fused_pool:
             return self._apply_fused_pool(batch)
         return self.vae(
@@ -531,6 +568,7 @@ class VAETask:
             library_size=batch[LIB],
             counts_subset=batch.get(C_SUB, batch[COUNTS]),
             genes_subset=batch.get(G_SUB, batch[GENES]),
+            drops=drops,
         )
 
     def _apply_fused_pool(self, batch: Dict) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
@@ -541,7 +579,7 @@ class VAETask:
         emb = vae.input_layer(batch.get(C_SUB, batch[COUNTS]), batch.get(G_SUB, batch[GENES]))
         h_z = vae.encoder.trunk(fused_window_pooling(vae, emb))
         genes = batch[GENES]
-        h_x = vae.decoder(h_z, vae.input_layer.embed_genes(genes))
+        h_x = vae.decoder(h_z, vae._decoder_queries(genes))
         return vae._head_params(h_x, genes, batch[LIB]), h_z
 
     def _use_fused(self, batch: Dict) -> bool:
@@ -561,10 +599,14 @@ class VAETask:
         return algebraic_nb_apply(self.vae, batch, fused_gate=self.algebraic_fused_gate,
                                   vw_fold=self.algebraic_vw_fold)
 
+    def _has_dropout(self) -> bool:
+        return self.vae.encoder.dropout > 0 or self.vae.decoder.dropout > 0
+
     # -- steps -----------------------------------------------------------------
-    def loss(self, batch: Dict) -> Tuple[torch.Tensor, Dict]:
+    def loss(self, batch: Dict, drops: Optional[Drops] = None) -> Tuple[torch.Tensor, Dict]:
         """Reconstruction loss of a batch on the module's current parameters
-        (differentiable), and its aux metrics."""
+        (differentiable), and its aux metrics; a training forward's dropout
+        draws are `drops` (without them the modules do not drop)."""
         use_fused = self._use_fused(batch)
         use_algebraic = not use_fused and self._use_algebraic(batch)
         batch = self._materialize(batch)
@@ -574,18 +616,25 @@ class VAETask:
         elif use_algebraic:
             out, _ = self._algebraic(batch)
         else:
-            out, _ = self._apply(batch)
-        loss = vae_loss(batch[COUNTS], out)
-        return loss, {"llh": loss.detach(), "theta": out["theta"].detach().mean()}
+            out, _ = self._apply(batch, drops)
+        loss = vae_loss(batch[COUNTS], out, self.gaussian_head)
+        aux = {"llh": loss.detach()}
+        if "theta" in out:
+            aux["theta"] = out["theta"].detach().mean()
+        return loss, aux
 
     def train_step(self, state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
         """One optimizer step; updates `state` in place and returns it with the
-        step's metrics (0-d tensors on the batch's device)."""
+        step's metrics (0-d tensors on the batch's device). A VAE with
+        dropout draws the step's masks from the state's generator."""
         state.optimizer.zero_grad(set_to_none=True)
-        loss, aux = self.loss(batch)
+        drops = Drops.draw(self.vae, state.generator) if self._has_dropout() else None
+        loss, aux = self.loss(batch, drops)
         loss.backward()
-        return state, {"train_loss": loss.detach(), "train_llh": aux["llh"],
-                       "train_theta": aux["theta"], **self.apply_gradients(state)}
+        mets = {"train_loss": loss.detach(), "train_llh": aux["llh"]}
+        if "theta" in aux:
+            mets["train_theta"] = aux["theta"]
+        return state, {**mets, **self.apply_gradients(state)}
 
     def apply_gradients(self, state: TrainState) -> Dict:
         """The step after the backward: the global-norm clip of the module's
@@ -620,11 +669,12 @@ class VAETask:
     def eval_step(self, state: TrainState, batch: Dict, generator: torch.Generator) -> Dict:
         """Validation metrics on the module path, or on the algebraic tail
         where JAX takes it; the NB draw comes from `generator` (on the batch's
-        device)."""
+        device). Under the Gaussian head the prediction is its mean."""
         use_algebraic = self._use_algebraic(batch)
         batch = self._materialize(batch)
         out, _ = self._algebraic(batch) if use_algebraic else self._apply(batch)
-        return validation_metrics(batch[COUNTS], out, nb_sample(out["mu"], out["theta"], generator))
+        pred = out["mu"] if self.gaussian_head else nb_sample(out["mu"], out["theta"], generator)
+        return validation_metrics(batch[COUNTS], out, pred)
 
     @torch.no_grad()
     def encode(self, batch: Dict) -> torch.Tensor:

@@ -11,8 +11,9 @@ an EMA tree (the JAX `EMAState.params`, or the reference checkpoint's
 `init_reference_` gives a module fresh weights from a `torch.Generator`,
 with the initialisers of the JAX package (xavier-uniform Linear, zero
 biases, unit LayerNorm and BatchNorm scales and shared-theta tables or
-vectors, N(0, 1) gene embeddings and inducing points, N(0, 0.02) class
-and timestep tables, adaLN-zero). `zero_init=False` draws the adaLN and final
+vectors, N(0, 1) gene embeddings, the decoder's own included, inducing
+points and softbin bin embeddings, N(0, 0.02) class and timestep tables,
+adaLN-zero, the MCAB's query modulation too). `zero_init=False` draws the adaLN and final
 layers like any other Linear, so a randomly initialised DiT is not the
 identity.
 """
@@ -112,5 +113,5 @@ def init_reference_(
             elif p_name == "pos_embed":
                 p.zero_()  # the reference's frozen all-zeros encoder table
             else:
-                normal_(p, 1.0)  # gene embedding, inducing points
+                normal_(p, 1.0)  # gene embeddings, inducing points, bin embeddings
     return module

@@ -226,12 +226,6 @@ def _ldm_task(cfg):
     ("ldm_training.yaml", ["model.vae_as_tokenizer.train=true"], _ldm_task, "item 10"),
     ("ldm_training.yaml", ["model.transport.path_type=GVP"], _ldm_task, "item 9"),
     ("ldm_training.yaml", ["model.transport.prediction=noise"], _ldm_task, "item 9"),
-    ("vae_training.yaml", ["model.vae.dropout=0.1"], build.build_vae, "item 8"),
-    ("vae_training.yaml", ["model.vae.agg_func=none"], build.build_vae, "item 8"),
-    ("vae_training.yaml", ["model.decoder_name=gaussian"], build.build_vae, "item 8"),
-    ("vae_training.yaml", ["model.remat_cross=true"], build.build_vae, "item 8"),
-    ("vae_training.yaml", ["model.cross_chunks=2"], build.build_vae, "item 8"),
-    ("ldm_training.yaml", ["model.diffusion_model.dropout=0.1"], build.build_dit, "item 8"),
 ])
 def test_unsupported_values_raise(config, overrides, call, item):
     cfg = small_cfg(config, SMALL_DIT + overrides)

@@ -2,7 +2,9 @@
 NB likelihood and loss, `fused_nb_apply` (the port's kernel path on CPU
 tensors runs the kernels' plain version; JAX runs the Pallas kernel in
 interpret mode), one whole training step on the kernel path and on the module
-path, and the validation metrics. Small sizes (G=60 genes, B=8 cells, a
+path, and the validation metrics (the steps at E = 64 and through the dense
+pool are in `test_torch_port_vae_train_widths.py`; JAX's kernel-path step is
+computed once, for the forward and the step tests). Small sizes (G=60 genes, B=8 cells, a
 window of S=20 tokens, as tests/test_fused_decoder.py), weights carried
 across by `export_torch_state_dict`, inputs from numpy.
 
@@ -28,7 +30,7 @@ from scldm_tpu.training.vae_task import fused_nb_apply as jax_fused_nb_apply
 from scldm_tpu.training.vae_task import vae_loss as jax_vae_loss
 from scldm_tpu.utils.torch_import import export_torch_state_dict
 from scldm_torch.nn.vae import build_transformer_vae
-from scldm_torch.ops import fused_decoder, fused_encoder
+from scldm_torch.ops import fused_decoder
 from scldm_torch.ops import transforms as ttr
 from scldm_torch.ops.distributions import log_nb_positive
 from scldm_torch.training import metrics as TM
@@ -160,18 +162,23 @@ def test_module_forward_matches_jax(setup):
         np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), rtol=1e-4, atol=1e-4)
 
 
-def test_fused_nb_apply_matches_jax(setup):
+@pytest.fixture(scope="module")
+def kernel_reference(setup):
+    """JAX's kernel path on `setup`'s state and the lean batch (its Pallas
+    tail in interpret mode), computed once for the tests that hold the port
+    to it: ((loss, out, h_z), gradients), then the step's (parameters,
+    clipped gradients, metrics)."""
+    jvae, jtask, state = setup
+    forward, grads = _jax_kernel_path_grads(jvae, jtask, state, to_jax(lean_batch()))
+    return (forward, grads), _jax_kernel_path_apply(jtask, state, forward, grads)
+
+
+def test_fused_nb_apply_matches_jax(setup, kernel_reference):
     jvae, jtask, state = setup
     task, _ = port_task(state)
     assert _fused_path_ok(task.vae)
-    jb = jtask._materialize(to_jax(lean_batch()))
     tb = task._materialize(to_torch(lean_batch()))
-
-    def jloss(params):
-        out, z = jax_fused_nb_apply(jvae, params, jb, train=True, interpret=True)
-        return jax_vae_loss(jb["counts"], out, False), (out, z)
-
-    (want_loss, (want, want_z)), jgrads = jax.value_and_grad(jloss, has_aux=True)(state.params)
+    ((want_loss, want, want_z), jgrads), _ = kernel_reference
     fwd = fused_decoder.DECODER_TAIL_FWD_LAUNCHES.count
     got, got_z = fused_nb_apply(task.vae, tb)
     loss = vae_loss(tb["counts"], got)
@@ -245,27 +252,41 @@ def test_dispatch():
         fused_decoder._check(qp, qp, kf, kf, weights, 3)
 
 
-def _jax_kernel_path_step(jvae, jtask, state, batch):
-    """`VAETask._train_step_impl` as it composes the fused path (JAX
-    vae_task.py:1088-1119), with the Pallas tail in interpret mode."""
+def _jax_kernel_path_grads(jvae, jtask, state, batch):
+    """The loss, outputs and gradients of `VAETask._train_step_impl` as it
+    composes the fused path (JAX vae_task.py:1088-1119), with the Pallas tail
+    in interpret mode: ((loss, out, h_z), gradients)."""
     batch = jtask._materialize(batch)
 
     def loss_fn(params):
-        out, _ = jax_fused_nb_apply(jvae, params, batch, train=True, interpret=True)
-        loss = jax_vae_loss(batch["counts"], out, False)
-        return loss, {"llh": loss, "theta": out["theta"].mean()}
+        out, h_z = jax_fused_nb_apply(jvae, params, batch, train=True, interpret=True)
+        return jax_vae_loss(batch["counts"], out, False), (out, h_z)
 
-    (loss, aux), grads = jax.value_and_grad(loss_fn, has_aux=True)(state.params)
+    (loss, (out, h_z)), grads = jax.value_and_grad(loss_fn, has_aux=True)(state.params)
+    return (loss, out, h_z), grads
+
+
+def _jax_kernel_path_apply(jtask, state, forward, grads):
+    """The rest of that step: the global-norm clip and the optimizer update
+    -> (parameters, clipped gradients, metrics)."""
+    loss, out, _ = forward
     gnorm = optax.global_norm(grads)
     scale = jnp.minimum(1.0, jtask.grad_clip / (gnorm + 1e-12))
     grads = jax.tree_util.tree_map(lambda g: g * scale, grads)
     updates, _ = jtask.tx.update(grads, state.opt_state, state.params)
     params = optax.apply_updates(state.params, updates)
-    return params, grads, {"train_loss": loss, "grad_norm": gnorm, "train_theta": aux["theta"]}
+    return params, grads, {"train_loss": loss, "grad_norm": gnorm,
+                           "train_theta": out["theta"].mean()}
+
+
+def _jax_kernel_path_step(jvae, jtask, state, batch):
+    """The whole step: (parameters, clipped gradients, metrics)."""
+    forward, grads = _jax_kernel_path_grads(jvae, jtask, state, batch)
+    return _jax_kernel_path_apply(jtask, state, forward, grads)
 
 
 @pytest.mark.parametrize("path", ["kernel", "module"])
-def test_train_step_matches_jax(setup, path):
+def test_train_step_matches_jax(setup, kernel_reference, path):
     """One optimizer step from the same parameters and batch. The first
     AdamW step moves each parameter by about lr_mult * lr * sign(grad)
     (1e-5 here), so the parameters are held to a tenth of that, except where
@@ -273,7 +294,7 @@ def test_train_step_matches_jax(setup, path):
     flip its sign (2e-2 of it on the kernel path, 1e-6 on the module path)."""
     jvae, jtask, state = setup
     if path == "kernel":
-        want_params, jgrad, want = _jax_kernel_path_step(jvae, jtask, state, to_jax(lean_batch()))
+        _, (want_params, jgrad, want) = kernel_reference
         task, tstate = port_task(state, fused_decoder=True)
         small, loss_rtol = 2e-2, 1e-3
     else:
@@ -304,42 +325,6 @@ def test_train_step_matches_jax(setup, path):
         assert np.all(moved <= 1.01 * step), name
 
 
-# vae_base.yaml with model.vae.n_embed=64, n_head_cross=4, n_inducing_points=32:
-# head width 16, hidden 172, the width chip_smoke.py's phase 13 trains at
-WIDE = dict(n_embed=64, n_head_cross=4, n_inducing_points=32)
-
-
-@pytest.fixture(scope="module")
-def wide_setup():
-    with jax.default_matmul_precision("highest"):
-        jvae = jax_build_vae(n_genes=G, **WIDE)
-        jtask = JaxVAETask(jvae, **TASK)
-        state = jtask.init_state(jax.random.PRNGKey(2), to_jax(lean_batch()))
-    return jvae, jtask, state
-
-
-def test_train_step_matches_jax_at_e64(wide_setup):
-    """One kernel-path train step at E = 64 (4 cross heads of 16 over 32
-    latent tokens, hidden 172) against JAX's with its Pallas tail in
-    interpret mode: loss, grad norm and theta within 1e-3, the clipped
-    gradients within 2e-2 of each tensor's largest, as at E = 32."""
-    jvae, jtask, state = wide_setup
-    # compiled: the interpret-mode tail's gradients take seconds instead of tens of seconds
-    step = jax.jit(lambda st, b: _jax_kernel_path_step(jvae, jtask, st, b))
-    _, jgrad, want = step(state, to_jax(lean_batch()))
-    tvae = build_transformer_vae(n_genes=G, device="cpu", **WIDE)
-    load_reference_state_dict(tvae, export_torch_state_dict(state.params))
-    task = VAETask(tvae, **TASK, fused_decoder=True)
-    assert _fused_path_ok(tvae) and fused_decoder.kernel_takes(64, 4, 32, 172)
-    tstate = task.init_state(torch.Generator().manual_seed(0))
-    launches = fused_decoder.DECODER_TAIL_FWD_LAUNCHES.count
-    tstate, mets = task.train_step(tstate, to_torch(lean_batch(dtype=np.uint16)))
-    assert fused_decoder.DECODER_TAIL_FWD_LAUNCHES.count == launches  # CPU: the plain version
-    for k in ("train_loss", "grad_norm", "train_theta"):
-        np.testing.assert_allclose(float(mets[k]), float(want[k]), rtol=1e-3)
-    assert_grads_close(tstate.module, jgrad, 2e-2, skip=("decoder_head.params.bias",))
-
-
 DENSE_S = 50  # a window that passes JAX's dense-pool gate: G = 60 <= 1.3 * 50
 
 
@@ -350,31 +335,6 @@ def dense_setup():
         jtask = JaxVAETask(jvae, **TASK)
         state = jtask.init_state(jax.random.PRNGKey(1), to_jax(lean_batch(window=DENSE_S)))
     return jvae, jtask, state
-
-
-def test_dense_pool_train_step_matches_jax(dense_setup):
-    """At parse1m-like proportions (G=60 genes, a window of S=50 tokens)
-    `fused_nb_apply` pools the encoder's input over the dense gene axis, as
-    JAX's does: one call of the dense pool per step (its plain version here,
-    no kernel launch). One train step's loss, grad norm and clipped gradients
-    match JAX's (its dense pool and tail in Pallas interpret mode) at the
-    kernel path's bounds."""
-    jvae, jtask, state = dense_setup
-    _, jgrad, want = _jax_kernel_path_step(jvae, jtask, state, to_jax(lean_batch(window=DENSE_S)))
-    task, tstate = port_task(state, fused_decoder=True)
-    calls = []
-    real = fused_encoder._EncoderPool.apply
-    launches = fused_encoder.ENCODER_POOL_FWD_LAUNCHES.count
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(fused_encoder._EncoderPool, "apply",
-                   lambda *a: calls.append(tuple(a[0].shape)) or real(*a))
-        tstate, mets = task.train_step(tstate, to_torch(lean_batch(window=DENSE_S, dtype=np.uint16)))
-        task.loss(to_torch(lean_batch()))  # a window of S=20: the gate is off
-    assert calls == [(B, G)]
-    assert fused_encoder.ENCODER_POOL_FWD_LAUNCHES.count == launches  # CPU: the plain version
-    for k in ("train_loss", "grad_norm", "train_theta"):
-        np.testing.assert_allclose(float(mets[k]), float(want[k]), rtol=1e-3)
-    assert_grads_close(tstate.module, jgrad, 2e-2, skip=("decoder_head.params.bias",))
 
 
 def test_train_steps_means_and_eval(setup):
