@@ -201,9 +201,22 @@ table, its own decoder embedding and per-token theta, and dentate under the
 Gaussian head (no kernel at all: JAX's gates close), the census VAE at B = 32
 on the module decoder with and without `remat_cross` + `cross_chunks=8` (step
 times and peak memory), and `train_ldm` over the softbin VAE with a dopri5
-generation at DiT dropout 0.1 (no DiT kernel) and 0 (the DiT kernels). The line before the last is a JSON
-summary of the kernels, each with its time beside the least time the card could
-take for the same work; the last is {"ok": true, "device": {...}}. Any failure
+generation at DiT dropout 0.1 (no DiT kernel) and 0 (the DiT kernels). Phase 15
+runs the rest of the transport family, joint finetuning and the lean loss at
+full dentate width: four LDM steps under GVP/velocity, VP/noise/likelihood
+and Linear/score/velocity through the DiT block kernels (the first step held
+to the module DiT), dopri5 CFG generation of the score-trained DiT through
+the forward kernel, `sample_sde` Euler (250 steps, Mean) and Heun (100,
+Tweedie) through `fused_dit_forward` held to the module DiT on the same
+normals, the likelihood ODE (euler, 50 steps) on the module DiT, `train_ldm`
+with `model.vae_as_tokenizer.train=true` (no DiT kernel launch, JAX's gates;
+the checkpoint's encoder moved, its decoder did not) and `inference`
+generation that decodes with the finetuned VAE, and `VAETask(lean_loss=True)`
+against the dense loss at dentate (the tail kernels) and at census as shipped
+(the bf16 `swiglu_vec`), each with ms per step and peak memory in turns. The
+line before the last is a JSON summary of the kernels, each with its time
+beside the least time the card could take for the same work; the last is
+{"ok": true, "device": {...}}. Any failure
 raises, so the script exits non-zero and prints no result; so does a machine
 without CUDA, or a directory without the port's sources.
 """
@@ -4706,6 +4719,412 @@ def phase14_variants(seed: int, smi: str) -> dict:
     return total
 
 
+P15_STEPS = 4  # LDM steps a transport, on one batch and one set of draws
+P15_TRANSPORTS = (("GVP", "velocity", None), ("VP", "noise", "likelihood"),
+                  ("Linear", "score", "velocity"))
+P15_SDE = (("Euler", 250, "Mean"), ("Heun", 100, "Tweedie"))  # method, steps, last step
+P15_SDE_BATCH = 16
+P15_SDE_NEAR = 1e-3  # SDE states, kernel vs module DiT, as a share of the largest |x|
+P15_LIKELIHOOD_BATCH = 16
+P15_LIKELIHOOD_STEPS = 50
+P15_CLI_VAE_STEPS = 2
+P15_CLI_LDM_STEPS = 4
+P15_LEAN_TURN = 2  # steps a turn of the lean / dense loss comparison
+P15_CLI_EXTRA: list = []  # overrides a rehearsal at small shapes adds to the CLI calls
+
+
+def phase15_transports_joint_lean(seed: int, batch: int, smi: str) -> dict:
+    """The transports, joint finetuning and the lean loss at
+    full dentate width (B = 128, G = 17,002, the VAE at E = 32 with 16 latent
+    tokens of 16, the DiT at E = 256, 8 layers, 8 heads):
+
+    (a) P15_STEPS LDM steps under GVP/velocity, VP/noise/likelihood and
+    Linear/score/velocity through the DiT block kernels (8 launches each way
+    a step), on one batch and one set of the transport's draws so that the
+    loss must fall; the first step's loss and gradient norm held to the
+    module DiT's at JAX's bounds between its two paths (1e-4, 1e-3).
+    (b) dopri5 CFG generation of the score-trained DiT through the forward
+    kernel, then `Sampler.sample_sde` Euler (250 steps, last step Mean) and
+    Heun (100 steps, Tweedie) with `fused_dit_forward` as the model, held
+    against the module DiT on the same Brownian normals within
+    P15_SDE_NEAR of the largest |x|.
+    (c) `sample_ode_likelihood` (euler, 50 steps) on the module DiT of the
+    GVP/velocity task at a batch of 16: finite log-likelihoods.
+    (d) `cli.train` (P15_CLI_VAE_STEPS steps), then `cli.train_ldm` from
+    ldm_training.yaml as shipped with `model.vae_as_tokenizer.train=true`
+    (P15_CLI_LDM_STEPS steps: no DiT kernel launch, JAX's gates), whose
+    checkpoint must carry a VAE whose encoder moved and whose decoder did
+    not; then `cli.inference` generation from it through the forward kernel,
+    decoding with that finetuned VAE (checked weight for weight). Phase 11's
+    stand-ins for h5py.
+    (e) `VAETask(lean_loss=True)` against the dense loss at dentate (the
+    tail kernels, f32) and at census as vae_census.yaml ships it (bf16,
+    remat, the fused gate's `swiglu_vec`): one step's loss within 1e-6
+    relative, its gradients by `held_bf16` at dentate (the tail rounds to
+    bf16, and the two losses' d(mu) differ in last bits) and by
+    `CENSUS_BF16_BOUNDS`' bound between two bf16 evaluations of one function
+    at census, the lean gradients twice to the same bits, then P15_LEAN_TURN
+    steps a turn in turns (lean, dense, dense, lean) with each arm's ms per
+    step and peak memory.
+
+    Each counted run's counts are set to 0 just before it and read just
+    after. Returns the launches by kernels-line name."""
+    import copy
+    import gc
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from scldm_torch.cli import inference as cli_inference
+    from scldm_torch.cli import train as cli_train
+    from scldm_torch.cli import train_ldm as cli_train_ldm
+    from scldm_torch.data import datamodule as dm_module
+    from scldm_torch.nn.nnets import build_cfg_segments
+    from scldm_torch.nn.vae import build_transformer_vae
+    from scldm_torch.ops.fused_dit import extract_block_params, fused_dit_forward
+    from scldm_torch.ops.transforms import canonical_gene_ids
+    from scldm_torch.sampling.size_factors import SizeFactorSampler, constant_stats
+    from scldm_torch.training.checkpoint import read_payload
+    from scldm_torch.training.ldm_task import LDMTask
+    from scldm_torch.training.metrics import global_norm
+    from scldm_torch.training.vae_task import VAETask
+    from scldm_torch.transport import Sampler, create_transport
+    from scldm_torch.utils import output as output_module
+    from scldm_torch.utils.weights import init_reference_
+
+    phase_t0 = time.perf_counter()
+    counters = variant_counters()
+    total = {k: 0 for k in counters}
+
+    def reset():
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.reset()
+
+    def read(add: bool = True) -> dict:
+        torch.cuda.synchronize()
+        got = {k: c.count for k, c in counters.items() if c.count}
+        if add:
+            for k, v in got.items():
+                total[k] += v
+        return got
+
+    rng = np.random.default_rng(seed + 150)
+    vae, dit0 = build_models(seed)
+    L = dit0.n_layer
+    (b,) = ldm_batches(rng, batch, 1)
+
+    # -- (a) training under each transport
+    trained = {}
+    for path, pred, weight in P15_TRANSPORTS:
+        name = f"{path}/{pred}/{weight or 'none'}"
+        transport = create_transport(path, pred, weight)
+        dit = copy.deepcopy(dit0)
+        task = LDMTask(vae, dit, transport, num_training_steps=10_000, num_warmup_steps=1)
+        module_task = LDMTask(vae, dit, transport, fused_training=False)
+        g = torch.Generator(device="cuda").manual_seed(seed + 151)
+        z = task._encode(b)
+        t, x0, _ = transport.sample(g, z)
+        noise = {"t": t, "x0": x0,
+                 "drop_mask": torch.rand(batch, generator=g, device="cuda") < dit.cfg_dropout_prob}
+        runs = []
+        for tk in (task, module_task):
+            loss, grads = ldm_loss_and_grads(tk, b, g, noise)
+            runs.append((loss, global_norm(grads.values()).item()))
+        (lk, nk), (lm, nm) = runs
+        if not (abs(lk - lm) <= 1e-4 * abs(lm) and abs(nk - nm) <= 1e-3 * nm):
+            raise AssertionError(f"phase15 {name}: kernel path loss {lk}, grad norm {nk}; module "
+                                 f"path {lm}, {nm}")
+        state = task.init_state(torch.Generator(device="cuda").manual_seed(seed))
+        reset()
+        t0 = time.perf_counter()
+        losses = []
+        for _ in range(P15_STEPS):
+            state, mets = task.train_step(state, b, noise)
+            losses.append(mets["train_loss"])
+        got = read()
+        dt = (time.perf_counter() - t0) / P15_STEPS
+        losses = torch.stack(losses).tolist()
+        if got != {"dit_block": L * P15_STEPS, "dit_block_bwd": L * P15_STEPS}:
+            raise AssertionError(f"phase15 {name}: launches {got} in {P15_STEPS} steps")
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise AssertionError(f"phase15 {name}: losses {losses}")
+        log(f"phase15 (a) LDM training under {name} (t on {transport.check_interval()}), "
+            f"B={batch}: one step kernel vs module path loss {lk:.6f} vs {lm:.6f} "
+            f"({abs(lk - lm) / abs(lm):.2e}), grad norm {nk:.5f} vs {nm:.5f} "
+            f"({abs(nk - nm) / nm:.2e}); {P15_STEPS} steps on one batch and one set of draws, "
+            f"{dt * 1e3:.2f} ms/step ({smi}), losses " + ", ".join(f"{x:.5f}" for x in losses)
+            + f"; launches {got}")
+        trained[pred] = (task, state)
+
+    # -- (b) generation of the score-trained DiT: dopri5 with CFG, then the SDE samplers
+    task, state = trained["score"]
+    dit = task.dit
+    fn = task.make_sample_fn(SizeFactorSampler(constant_stats({"clusters": N_CLUSTERS}, mu=8.6,
+                                                              sd=0.3)),
+                             guidance_weight=GUIDANCE, sampling_method="dopri5", num_steps=50,
+                             use_ema=False)
+    genes = canonical_gene_ids(N_GENES, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(seed + 152)
+    reset()
+    t0 = time.perf_counter()
+    counts, zs = fn(g, genes, {"clusters": b["clusters"]}, state=state)
+    gen = read()
+    dt = time.perf_counter() - t0
+    if counts.shape != (2 * batch, N_GENES) or not torch.isfinite(zs).all():
+        raise AssertionError(f"phase15 score generation: counts {tuple(counts.shape)}")
+    if fn.drift_evals <= 0 or gen != {"dit_block": L * fn.drift_evals}:
+        raise AssertionError(f"phase15 score generation: {gen} for {fn.drift_evals} evaluations")
+    log(f"phase15 (b) dopri5 CFG generation of the Linear/score DiT ({2 * batch} cells, t on "
+        f"{task.transport.check_interval(eval=True)}): {dt:.3f} s ({smi}), DiT evals "
+        f"{fn.drift_evals}, launches {gen}; z max |z| {zs.abs().max().item():.3f}")
+
+    cond = {"clusters": b["clusters"][:P15_SDE_BATCH]}
+    block_params = [extract_block_params(blk) for blk in dit.blocks]
+
+    def kernel_model(x, t):
+        return fused_dit_forward(dit, x, t, cond, block_params)
+
+    def module_model(x, t):
+        return dit(x, t, cond)
+
+    sampler = Sampler(task.transport)
+    x_init = torch.randn(P15_SDE_BATCH, dit.seq_len, dit.n_embed_input, generator=g,
+                         device="cuda")
+    for method, steps, last in P15_SDE:
+        normals = torch.randn((steps - 1, *x_init.shape), generator=g, device="cuda")
+        sde = sampler.sample_sde(sampling_method=method, num_steps=steps, last_step=last)
+        with torch.inference_mode():
+            reset()
+            t0 = time.perf_counter()
+            xk = sde(normals, x_init, kernel_model)
+            got = read()
+            dt = time.perf_counter() - t0
+            xm = sde(normals, x_init, module_model)
+            torch.cuda.synchronize()
+        per_step = 2 if method == "Euler" else 4  # model calls a step: drift and score
+        evals = per_step * (steps - 1) + (2 if last == "Mean" else 1)
+        if got != {"dit_block": L * evals}:
+            raise AssertionError(f"phase15 SDE {method}: launches {got}, expected {L * evals}")
+        err, scale = (xk - xm).abs().max().item(), xm.abs().max().item()
+        if not (torch.isfinite(xk).all() and err <= P15_SDE_NEAR * scale):
+            raise AssertionError(f"phase15 SDE {method}: kernel vs module max abs err {err:.3e}, "
+                                 f"max |x| {scale:.3e}")
+        log(f"phase15 (b) sample_sde {method} {steps} steps, last step {last}, "
+            f"{P15_SDE_BATCH} cells through fused_dit_forward: {dt:.3f} s ({smi}), launches "
+            f"{got}; against the module DiT at the same normals: max abs err {err:.3e} "
+            f"({err / scale:.2e} of max |x| {scale:.3f})")
+
+    # -- (c) the likelihood ODE on the module DiT of the GVP/velocity task (VP under noise
+    #    prediction divides by sigma_t = 0 at the reverse interval's start, in JAX as here)
+    task, _ = trained["velocity"]
+    lk_cond = {"clusters": b["clusters"][:P15_LIKELIHOOD_BATCH]}
+    x_data = task._encode({k: v[:P15_LIKELIHOOD_BATCH] for k, v in b.items()}).float()
+    like = Sampler(task.transport).sample_ode_likelihood(sampling_method="euler",
+                                                         num_steps=P15_LIKELIHOOD_STEPS)
+    reset()
+    t0 = time.perf_counter()
+    logp, z0 = like(g, x_data, lambda x, t: task.dit(x, t, lk_cond))
+    got = read(add=False)
+    dt = time.perf_counter() - t0
+    if got or logp.shape != (P15_LIKELIHOOD_BATCH,) or not (
+            torch.isfinite(logp).all() and torch.isfinite(z0).all()):
+        raise AssertionError(f"phase15 likelihood: launches {got}, logp {logp.tolist()}")
+    log(f"phase15 (c) sample_ode_likelihood (euler, {P15_LIKELIHOOD_STEPS} steps, Hutchinson by "
+        f"one vector-Jacobian product a step) on the GVP/velocity module DiT, "
+        f"{P15_LIKELIHOOD_BATCH} cells: {dt:.3f} s ({smi}); logp mean {logp.mean().item():.2f}, range "
+        f"[{logp.min().item():.2f}, {logp.max().item():.2f}] nats per cell")
+    del trained, task, state, dit, fn, counts, zs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (d) joint finetuning through the CLIs
+    dentate = json.loads((ROOT / "metadata/dentategyrus_train.json").read_text())
+    tmp = Path(tempfile.mkdtemp(prefix="scldm_phase15_"))
+    shards = {str(tmp / "train.h5ad"): cli_shard(rng, VARIANT_CELLS, dentate["genes"],
+                                                 dentate["labels"]),
+              str(tmp / "test.h5ad"): cli_shard(rng, 256, dentate["genes"], dentate["labels"])}
+    mu = {"clusters": {c: float(rng.uniform(6.0, 9.0)) for c in dentate["labels"]["clusters"]}}
+    sd = {"clusters": {c: 0.05 for c in dentate["labels"]["clusters"]}}
+    (tmp / "mu.json").write_text(json.dumps(mu))
+    (tmp / "sd.json").write_text(json.dumps(sd))
+    args = [f"datamodule.datamodule.train_adata_path={tmp / 'train.h5ad'}",
+            f"datamodule.datamodule.test_adata_path={tmp / 'test.h5ad'}",
+            f"datamodule.dataset_params.dentate_gyrus.mu_size_factor={tmp / 'mu.json'}",
+            f"datamodule.dataset_params.dentate_gyrus.sd_size_factor={tmp / 'sd.json'}",
+            f"paths.output_path={tmp / 'out'}", f"paths.inference_path={tmp / 'out' / 'inf'}",
+            "epochs=1", "training.steps_per_dispatch=1", "training.log_every_steps=1",
+            *P15_CLI_EXTRA]
+    joint = ["model.vae_as_tokenizer.train=true"]
+
+    def config(name):
+        return ["--config", str(ROOT / "configs" / name)]
+
+    written, seen = [], {}
+
+    def capture_h5ad(path, X, obs=None, var_names=None, obsm=None, **kwargs):
+        written.append(np.asarray(X))
+
+    real_gen = LDMTask.generate_from_noise
+
+    def generate_from_noise(self, *a, **kw):
+        seen["vae"] = {k: v.detach().clone() for k, v in self.vae.state_dict().items()}
+        return real_gen(self, *a, **kw)
+
+    real_h5ad, real_writer = dm_module.H5ADFile, output_module.write_h5ad
+    dm_module.H5ADFile = lambda path: shards[str(path)]
+    output_module.write_h5ad = capture_h5ad
+    LDMTask.generate_from_noise = generate_from_noise
+    log("phase15 stand-ins: data.datamodule.H5ADFile -> an in-memory CSR shard (phase 11's), "
+        "utils.output.write_h5ad -> a capturing writer")
+    try:
+        if cli_train.main(config("vae_training.yaml") + args
+                          + [f"training.max_steps={P15_CLI_VAE_STEPS}"]) != 0:
+            raise AssertionError("phase15 train: non-zero return")
+        reset()
+        t0 = time.perf_counter()
+        if cli_train_ldm.main(config("ldm_training.yaml") + args + joint
+                              + [f"training.max_steps={P15_CLI_LDM_STEPS}"]) != 0:
+            raise AssertionError("phase15 train_ldm: non-zero return")
+        got = read()
+        wall = time.perf_counter() - t0
+        if got:
+            raise AssertionError(f"phase15 train_ldm with train_vae: launches {got} (JAX's gates "
+                                 "are closed under train_vae)")
+        ckpts = tmp / "out" / "checkpoints"
+
+        def latest(d):
+            return read_payload(max((ckpts / d).glob("[0-9]*"), key=lambda p: int(p.name)))
+
+        vae_ck = latest("vae_dentate_gyrus")["module"]
+        ldm = latest("ldm_dentate_gyrus")
+        tuned = {k[4:]: v for k, v in ldm["module"].items() if k.startswith("vae.")}
+        enc = [k for k in tuned if k.startswith("encoder.") and k != "encoder.pos_embed"]
+        dec = [k for k in tuned if k.startswith("decoder")]
+        moved = sum(not torch.equal(tuned[k], vae_ck[k]) for k in enc)
+        if set(tuned) != set(vae_ck) or not moved or any(
+                not torch.equal(tuned[k], vae_ck[k]) for k in dec):
+            raise AssertionError(f"phase15 train_vae checkpoint: {moved} of {len(enc)} encoder "
+                                 f"tensors moved; decoder unchanged "
+                                 f"{all(torch.equal(tuned[k], vae_ck[k]) for k in dec)}")
+        if ldm["step"] != P15_CLI_LDM_STEPS:
+            raise AssertionError(f"phase15 train_ldm: checkpoint at step {ldm['step']}")
+        log(f"phase15 (d) train_ldm with model.vae_as_tokenizer.train=true (bf16 as shipped, "
+            f"B=128): {P15_CLI_LDM_STEPS} steps in {wall:.2f} s wall ({smi}), no kernel launch "
+            f"(JAX's gates under train_vae); the checkpoint's VAE: {moved} of {len(enc)} encoder "
+            f"tensors moved, {len(dec)} decoder and head tensors unchanged (weight decay 0)")
+        reset()
+        t0 = time.perf_counter()
+        if cli_inference.main(config("generation.yaml") + args + joint
+                              + ["generation_args.n_batches=1"]) != 0:
+            raise AssertionError("phase15 inference: non-zero return")
+        gen = read()
+        wall = time.perf_counter() - t0
+        (counts,) = written
+        if not gen.get("dit_block") or set(gen) != {"dit_block"}:
+            raise AssertionError(f"phase15 inference: launches {gen}")
+        if not np.isfinite(counts).all() or counts.shape[1] != len(dentate["genes"]):
+            raise AssertionError(f"phase15 inference: counts {counts.shape}")
+        if set(seen["vae"]) != set(tuned) or any(
+                not torch.equal(seen["vae"][k].cpu(), tuned[k]) for k in tuned):
+            raise AssertionError("phase15 inference: generation did not decode with the "
+                                 "finetuned VAE")
+        log(f"phase15 (d) inference generation (dopri5, generation.yaml) from that checkpoint: "
+            f"{counts.shape[0]} cells in {wall:.2f} s ({smi}), launches {gen}; decoded with the "
+            f"checkpoint's finetuned VAE, weight for weight")
+    finally:
+        dm_module.H5ADFile, output_module.write_h5ad = real_h5ad, real_writer
+        LDMTask.generate_from_noise = real_gen
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # -- (e) the lean loss against the dense loss
+    def lean_arm(name, make_task, batches, expect, bf16: bool):
+        """One step's loss and gradients of both tasks on batches[0], the
+        lean one twice, then the steps in turns. The gradients of the f32
+        VAE are held by `held_bf16` (the tail kernels round to bf16); those
+        of the bf16 VAE by `CENSUS_BF16_BOUNDS`' two bf16 evaluations of one
+        function (a last-bit change of d(mu) moves bf16 roundings of every
+        cotangent upstream)."""
+        lean, dense = make_task(True), make_task(False)
+        reset()
+        runs = [vae_loss_and_grads(t, batches[0]) for t in (lean, lean, dense)]
+        read()
+        (l1, g1), (l2, g2), (ld, gd) = runs
+        if not abs(l1 - ld) <= 1e-6 * abs(ld):
+            raise AssertionError(f"phase15 lean {name}: loss {l1} vs dense {ld}")
+        if l1 != l2 or any(not torch.equal(g1[k], g2[k]) for k in g1):
+            raise AssertionError(f"phase15 lean {name}: two runs differ")
+        if bf16:
+            (_, (gap, worst_name)), = census_step_gaps(l1, g1, {"dense": (ld, gd)}).values()
+            if gap > CENSUS_BF16_BOUNDS["bf16 plain"][1]:
+                raise AssertionError(f"phase15 lean {name}: gradient {worst_name} {gap:.3e} of "
+                                     "its max from the dense loss's")
+            held = (f"{len(gd)} gradients by CENSUS_BF16_BOUNDS' bf16 bound "
+                    f"({CENSUS_BF16_BOUNDS['bf16 plain'][1]:g}), the largest gap {gap:.2e} of its "
+                    f"max ({worst_name})")
+        else:
+            worst = {}
+            for k, want in gd.items():
+                if k != "decoder_head.params.bias":  # softmax-invariant: its gradient is noise
+                    worst[k] = held_bf16(f"phase15 lean {name} {k}", g1[k], want)
+            top = max(worst.items(), key=lambda kv: kv[1][1])
+            held = (f"{len(worst)} gradients by held_bf16, the largest gap {top[1][1]:.2e} of its "
+                    f"max ({top[0]})")
+        states = {arm: t.init_state(torch.Generator(device="cuda").manual_seed(seed))
+                  for arm, t in (("lean", lean), ("dense", dense))}
+        for arm, t in (("lean", lean), ("dense", dense)):  # warm-up
+            states[arm], _ = t.train_step(states[arm], batches[1])
+        ms, peak = {"lean": [], "dense": []}, {}
+        for arm in ("lean", "dense", "dense", "lean"):
+            t = lean if arm == "lean" else dense
+            torch.cuda.reset_peak_memory_stats()
+            reset()
+            t0 = time.perf_counter()
+            for i in range(P15_LEAN_TURN):
+                states[arm], mets = t.train_step(states[arm], batches[1 + i % (len(batches) - 1)])
+            got = read()
+            ms[arm].append(round((time.perf_counter() - t0) / P15_LEAN_TURN * 1e3, 2))
+            peak[arm] = max(peak.get(arm, 0.0), torch.cuda.max_memory_allocated() / 2**30)
+            if got != {k: P15_LEAN_TURN for k in expect} or not torch.isfinite(mets["train_loss"]):
+                raise AssertionError(f"phase15 lean {name} {arm}: launches {got}")
+        log(f"phase15 (e) lean loss at {name}: one step against the dense loss, loss {l1:.4f} vs "
+            f"{ld:.4f} ({abs(l1 - ld) / abs(ld):.2e} relative), {held}; the lean "
+            f"gradients repeat their bits; ms/step in turns ({smi}): lean {ms['lean']}, dense "
+            f"{ms['dense']}; peak GiB lean {peak['lean']:.3f}, dense {peak['dense']:.3f}")
+
+    dentate_vae = init_reference_(build_transformer_vae(n_genes=N_GENES, device="cuda"),
+                                  torch.Generator(device="cuda").manual_seed(seed + 153))
+    batches = [{k: torch.from_numpy(v).to("cuda") for k, v in lean_batch(rng, batch).items()}
+               for _ in range(3)]
+    lean_arm(f"dentate (B={batch}, f32, the tail kernels)",
+             lambda on: VAETask(dentate_vae, num_training_steps=10_000, lean_loss=on), batches,
+             ("decoder_tail_fwd", "decoder_tail_bwd"), bf16=False)
+    del dentate_vae, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    census = init_reference_(build_transformer_vae(**CENSUS, dtype=torch.bfloat16, remat=True,
+                                                   device="cuda"),
+                             torch.Generator(device="cuda").manual_seed(seed + 154))
+    G, S = CENSUS["n_genes"], CENSUS_WINDOW
+    batches = [{k: torch.from_numpy(v).to("cuda") for k, v in
+                lean_batch(rng, CENSUS_BATCH, G, S, (S // 2, S)).items()} for _ in range(3)]
+    lean_arm(f"census (B={CENSUS_BATCH}, bf16 and remat as shipped, the fused gate)",
+             lambda on: VAETask(census, num_training_steps=10_000, learning_rate=3e-4,
+                                betas=(0.9, 0.95), algebraic_fused_gate=True, lean_loss=on),
+             batches, ("swiglu_vec_fwd", "swiglu_vec_bwd"), bf16=True)
+    del census, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("yaml", "h5py", "pandas", "jax"))
+    if loaded:
+        raise AssertionError(f"phase15: {loaded} loaded")
+    log(f"phase15 took {time.perf_counter() - phase_t0:.1f} s; launches "
+        f"{ {k: v for k, v in total.items() if v} }")
+    return total
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -4797,6 +5216,9 @@ def main(argv=None) -> int:
     # -- phase 14: the model variants JAX's builders take ------------------------------
     variants = phase14_variants(args.seed, smi)
 
+    # -- phase 15: the transports, joint finetuning and the lean loss -------------------
+    p15 = phase15_transports_joint_lean(args.seed, args.batch, smi)
+
     tail_src = "scldm_torch/kernels/csrc/decoder_tail.cu"
     pool_src = "scldm_torch/kernels/csrc/encoder_pool.cu"
     pool_launches = {"dense_fwd": parse["encoder_pool_fwd"] + cli["encoder_pool_fwd"],
@@ -4817,13 +5239,13 @@ def main(argv=None) -> int:
         {"name": "dit_block", "route": "cuda", "source": dit_src,
          "replaces": "scldm_tpu/ops/fused_dit.py:155",
          "launches": launches + ldm_fwd + ldm_gen + joint["dit_block"] + cli["dit_block"]
-         + evals["dit_block"] + variants["dit_block"],
+         + evals["dit_block"] + variants["dit_block"] + p15["dit_block"],
          **dit_block[(16, 384)],
          **dit_block_bound(3 * args.batch, backward=False), "library_ms": None},
         {"name": "dit_block_bwd", "route": "cuda", "source": dit_bwd_src,
          "replaces": "scldm_tpu/ops/fused_dit.py:205",
          "launches": ldm_bwd + joint["dit_block_bwd"] + cli["dit_block_bwd"]
-         + evals["dit_block_bwd"] + variants["dit_block_bwd"],
+         + evals["dit_block_bwd"] + variants["dit_block_bwd"] + p15["dit_block_bwd"],
          **dit_block_bwd[(16, 128)], **dit_block_bound(128, backward=True),
          "library_ms": None},
         {"name": "dit_block_t64", "route": "cuda", "source": dit_src,
@@ -4845,13 +5267,13 @@ def main(argv=None) -> int:
         {"name": "decoder_tail_fwd", "route": "cuda", "source": tail_src,
          "replaces": "scldm_tpu/ops/fused_decoder.py:262",
          "launches": fwd_launches + parse["decoder_tail_fwd"] + cli["decoder_tail_fwd"]
-         + variants["decoder_tail_fwd"],
+         + variants["decoder_tail_fwd"] + p15["decoder_tail_fwd"],
          **tail_fwd,
          **decoder_tail_bound(128, N_GENES, backward=False), "library_ms": None},
         {"name": "decoder_tail_bwd", "route": "cuda", "source": tail_src,
          "replaces": "scldm_tpu/ops/fused_decoder.py:294",
          "launches": bwd_launches + parse["decoder_tail_bwd"] + cli["decoder_tail_bwd"]
-         + variants["decoder_tail_bwd"],
+         + variants["decoder_tail_bwd"] + p15["decoder_tail_bwd"],
          **tail_bwd,
          **decoder_tail_bound(128, N_GENES, backward=True), "library_ms": None},
     ] + [
@@ -4869,7 +5291,8 @@ def main(argv=None) -> int:
         {"name": f"swiglu_vec_{part}{'' if tag == 'f32' else '_bf16'}", "route": "cuda",
          "source": "scldm_torch/kernels/csrc/swiglu_vec.cu",
          "replaces": f"scldm_tpu/ops/fused_swiglu.py:{line}",
-         "launches": census_swiglu[(tag, part)], **swiglu[(tag, part)],
+         "launches": census_swiglu[(tag, part)]
+         + (p15[f"swiglu_vec_{part}"] if tag == "bf16" else 0), **swiglu[(tag, part)],
          **(swiglu_vec_bound if tag == "f32" else swiglu_vec_bf16_bound)(
              CENSUS_BATCH * CENSUS["n_genes"], CENSUS["n_embed"], CENSUS_HIDDEN, part == "bwd"),
          "library_ms": None}

@@ -4,7 +4,8 @@ scldm_tpu/cli/inference.py; the reference's experiments/scripts/inference.py).
 Three modes, chosen by the config:
 - `generation_args` set (configs/generation.yaml): sample cells with CFG
   from the trained LDM and write {dataset}_generated_0.h5ad, the
-  unconditional half first;
+  unconditional half first (an LDM trained with `vae_as_tokenizer.train`
+  decodes with the finetuned VAE its checkpoint carries);
 - `inference_args` set (configs/inference.yaml): encode (and reconstruct)
   the test set or an external AnnData (`adata_inference`, gene-filtered to
   the vocabulary) and write {dataset}_inference_{i}.h5ad with z in obsm;
@@ -17,6 +18,7 @@ counterpart, and `n_model > 1` raises.
 
 from __future__ import annotations
 
+import copy
 from pathlib import Path
 
 import numpy as np
@@ -87,6 +89,10 @@ def main(argv=None) -> int:
 
     dit = build_dit(cfg)
     task = build_ldm_task(cfg, vae, dit, max_steps=1)
+    # under vae_as_tokenizer.train the LDM checkpoint carries the finetuned
+    # VAE, which the restore loads into `vae` for generation; the encode
+    # path keeps the VAE checkpoint's weights, as JAX's (`task.vae_params`)
+    frozen_vae = copy.deepcopy(vae) if task.train_vae else vae
     mgr = CheckpointManager(cfg["checkpoint_dir"])
     state = mgr.restore(task.init_state(torch.Generator(device).manual_seed(0)))
     mgr.close()
@@ -132,11 +138,11 @@ def main(argv=None) -> int:
     inf_args = cfg.get("inference_args") or {}
     for i, batch in enumerate(datamodule.predict_batches()):
         dev = device_batch(batch, device)
-        z = task._encode(dev)
+        z = task._encode(dev, frozen_vae)
         outputs = {"z": z.float().cpu().numpy()}  # in the VAE's dtype: numpy has no bf16
         if inf_args.get("reconstruct", True):
             with torch.no_grad():
-                out = vae.decode(z, dev["genes"], dev["library_size"])
+                out = frozen_vae.decode(z, dev["genes"], dev["library_size"])
             if "theta" not in out:  # JAX's reconstruct draws NB counts
                 raise ValueError("the LDM path reconstructs NB counts, and this VAE's Gaussian "
                                  "head has no theta; set inference_args.reconstruct=false")

@@ -4,7 +4,9 @@ reference's experiments/scripts/train_ldm.py).
 Loads the trained VAE from its checkpoint directory, grafts the VAE
 architecture from the checkpoint's config snapshot into this run's config
 (the reference's _utils.py:336-370 checkpoint surgery), freezes it as the
-tokenizer, and trains the DiT with the SiT flow-matching loss.
+tokenizer, and trains the DiT with the SiT flow-matching loss; under
+`model.vae_as_tokenizer.train=true` the VAE is finetuned with the DiT and
+the LDM checkpoints carry it (`LDMTask(train_vae=True)`).
 
 Usage:
     python -m scldm_torch.cli.train_ldm --config configs/ldm_training.yaml \

@@ -17,8 +17,9 @@ Every model value JAX's builders take is passed on: the VAE's dropout,
 `agg_func` or `decoder_name` raises a ValueError, as in JAX. A config value
 the port cannot honour raises NotImplementedError naming the ROADMAP item
 that would bring it; none is ignored: `fsdp`, `gene_sp` and
-`pipeline_microbatches` (queue 1, item 11), `vae_as_tokenizer.train: true`
-(item 10) and a transport other than Linear / velocity (item 9).
+`pipeline_microbatches` (queue 1, item 11). Every transport JAX's factory
+takes is built, and `vae_as_tokenizer.train: true` finetunes the VAE inside
+the LDM (`LDMTask(train_vae=True)`), as in JAX.
 """
 
 from __future__ import annotations
@@ -43,8 +44,6 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 # what each config value the port refuses waits for (ROADMAP.md)
 MULTI_CARD = "ROADMAP queue 1, item 11 (more than one card)"
-TRAIN_VAE = "ROADMAP queue 1, item 10 (training the VAE inside the LDM)"
-TRANSPORT = "ROADMAP queue 1, item 9 (other transports)"
 
 
 def refuse(what: str, item: str):
@@ -248,12 +247,9 @@ def build_dit(cfg: Dict) -> DiT:
 
 def build_transport_from_cfg(cfg: Dict):
     t = cfg["model"]["transport"]
-    path_type, prediction = t.get("path_type", "Linear"), t.get("prediction", "velocity")
-    if path_type != "Linear" or prediction != "velocity":
-        refuse(f"transport {path_type}/{prediction}", TRANSPORT)
     return create_transport(
-        path_type=path_type,
-        prediction=prediction,
+        path_type=t.get("path_type", "Linear"),
+        prediction=t.get("prediction", "velocity"),
         loss_weight=t.get("loss_weight"),
         train_eps=_maybe_float(t.get("train_eps")),
         sample_eps=_maybe_float(t.get("sample_eps")),
@@ -265,9 +261,9 @@ def _maybe_float(v):
 
 
 def build_ldm_task(cfg: Dict, vae: TransformerVAE, dit: DiT, max_steps: int) -> LDMTask:
-    """The LDM task over the frozen `vae` (the port's task holds the VAE
-    module with its weights, so JAX's separate `vae_params` has no
-    counterpart here)."""
+    """The LDM task over `vae` (the port's task holds the VAE module with
+    its weights, so JAX's separate `vae_params` has no counterpart here),
+    frozen, or finetuned with the DiT under `vae_as_tokenizer.train`."""
     opt = cfg["model"]["optimizer"]
     sch = cfg["model"]["scheduler"]
     ema = cfg["model"].get("ema", {})
@@ -275,8 +271,6 @@ def build_ldm_task(cfg: Dict, vae: TransformerVAE, dit: DiT, max_steps: int) -> 
     _check_parallel(tr)
     if tr.get("pipeline_microbatches"):
         refuse(f"training.pipeline_microbatches={tr['pipeline_microbatches']}", MULTI_CARD)
-    if (cfg["model"].get("vae_as_tokenizer") or {}).get("train", False):
-        refuse("model.vae_as_tokenizer.train=true", TRAIN_VAE)
     return LDMTask(
         vae,
         dit,
@@ -293,6 +287,7 @@ def build_ldm_task(cfg: Dict, vae: TransformerVAE, dit: DiT, max_steps: int) -> 
         ema_decay=float(ema.get("decay", 0.9999)),
         ema_update_every=int(ema.get("update_every", 10)),
         ema_update_after_step=int(ema.get("update_after_step", 10_000)),
+        train_vae=bool((cfg["model"].get("vae_as_tokenizer") or {}).get("train", False)),
         calculate_grad_norms=tr.get("calculate_grad_norms", False),
         algebraic_decode=bool(tr.get("algebraic_decode", False)),
     )

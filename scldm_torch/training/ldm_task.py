@@ -3,17 +3,24 @@ the DiT's flow-matching training on the latents of a frozen VAE, and CFG
 generation.
 
 - Training (`train_step`): the frozen VAE encodes the batch without
-  gradients; the DiT takes the Linear/velocity flow-matching loss under the
-  training conditioning (CFG dropout, random class selection); then the
-  global-norm clip, `optax.adamw` (`optim.AdamW`) on the wsd schedule, and
-  the EMA tick. On CUDA tensors every DiT block runs through the forward
-  and backward kernels (`ops.fused_dit.fused_dit_train_apply`), as the JAX
-  task runs its Pallas kernels on a TPU; `fused_training=False` runs the
-  module path.
+  gradients; the DiT takes the transport's flow-matching loss (any path,
+  prediction and loss weight) under the training conditioning (CFG
+  dropout, random class selection); then the global-norm clip,
+  `optax.adamw` (`optim.AdamW`) on the wsd schedule, and the EMA tick. On
+  CUDA tensors every DiT block runs through the forward and backward
+  kernels (`ops.fused_dit.fused_dit_train_apply`), as the JAX task runs its
+  Pallas kernels on a TPU; `fused_training=False` runs the module path.
+- Joint finetuning (`train_vae=True`, the config's
+  `vae_as_tokenizer.train`): the train state's module carries the DiT and
+  the VAE (`JointLDM`), optimised and clipped together; the encode runs
+  inside the loss under gradient (without dropout, as JAX's `encode`), the
+  EMA covers the DiT alone, and the kernel paths (`fused_training`,
+  `fused_encode`) are off, as in JAX.
 - Generation (`make_sample_fn`): log size factors and prior noise -> the
-  flow-matching ODE with the DiT under batched CFG (every block through the
-  forward kernel; `fused_blocks=False` runs the module path) -> VAE decode ->
-  NB counts, from the module's weights or a train state's EMA weights. At
+  probability-flow ODE with the DiT under batched CFG (every block through
+  the forward kernel; `fused_blocks=False` runs the module path), the
+  transport's drift taken from the guided model output -> VAE decode -> NB
+  counts, from the module's weights or a train state's EMA weights. At
   E > 128 (the census decoder) the decode of the canonical gene row is the
   algebraic one (`vae_task.algebraic_decode`), as in JAX.
 
@@ -77,8 +84,18 @@ def split_condition(batch: Dict, class_vocab_sizes: Dict[str, int]) -> Dict:
             if k not in NON_CONDITION_KEYS and k in class_vocab_sizes}
 
 
+class JointLDM(torch.nn.Module):
+    """The train state's module under joint finetuning: the DiT and the VAE,
+    whose parameters are named `dit.*` and `vae.*` in its state dict."""
+
+    def __init__(self, dit: DiT, vae: TransformerVAE):
+        super().__init__()
+        self.dit = dit
+        self.vae = vae
+
+
 class LDMTask:
-    """Holds the frozen VAE, the DiT, the transport and the training
+    """Holds the VAE, the DiT, the transport and the training
     settings (the JAX defaults: AdamW at 5e-4, betas (0.9, 0.999), no weight
     decay, clip 10, the cosine wsd schedule decaying over the whole run, EMA
     0.9999 every 10 steps after step 10,000).
@@ -89,8 +106,15 @@ class LDMTask:
     kernels' plain versions; a DiT with dropout raises), False never. With
     dropout the module path draws the blocks' masks from the step's
     generator (`layers.Drops.draw`), after the conditioning's draws.
-    `fused_encode=None` resolves to False, as in JAX; the port keeps the VAE
-    frozen (JAX `train_vae=False`), where JAX allows it.
+    `fused_encode=None` resolves to False, as in JAX.
+
+    `train_vae=True` finetunes the VAE jointly (JAX's `train_vae`): the
+    VAE module the task holds is trained in place beside the DiT, both
+    under one optimizer and one global-norm clip; `fused_training` and
+    `fused_encode` resolve to False whatever was asked, as in JAX. The
+    optimizer updates every parameter, as optax does: those the loss does
+    not reach (the VAE's decoder and head) take a zero gradient, so the
+    weight decay still moves them.
 
     The generation decode, as JAX resolves it: `algebraic_decode=None` takes
     `vae_task.algebraic_decode` at E > 128 where the architecture qualifies
@@ -123,8 +147,10 @@ class LDMTask:
         algebraic_decode: Optional[bool] = None,
         algebraic_vw_fold: Optional[bool] = None,
         algebraic_fused_gate: bool = False,
+        train_vae: bool = False,
     ):
         self.vae = vae
+        self.train_vae = bool(train_vae)
         self.dit = dit
         self.transport = transport
         self.transport_sampler = Sampler(transport)
@@ -132,8 +158,8 @@ class LDMTask:
         if fused_training and dit.dropout > 0:
             raise ValueError(f"fused_training=True: the DiT kernels have no dropout, and this "
                              f"DiT's is {dit.dropout}")
-        self.fused_training = fused_training
-        self.fused_encode = bool(fused_encode)
+        self.fused_training = False if self.train_vae else fused_training
+        self.fused_encode = bool(fused_encode) and not self.train_vae
         if algebraic_decode is None:
             algebraic_decode = vae.decoder.n_embed > 128
         self.algebraic_decode = bool(algebraic_decode) and _algebraic_path_ok(vae)
@@ -159,27 +185,49 @@ class LDMTask:
 
     # -- training ----------------------------------------------------------------
     def init_state(self, generator: torch.Generator) -> TrainState:
-        """A fresh optimizer and EMA over `self.dit`, whose module keeps the
-        weights it holds; `generator` is the source of the steps' draws."""
-        params = [p for p in self.dit.parameters() if p.requires_grad]
-        return create_train_state(self.dit, AdamW(params, **self._opt_kwargs), generator,
+        """A fresh optimizer and EMA over `self.dit` (and with `train_vae` an
+        optimizer over `self.vae` too, the state's module a `JointLDM`),
+        whose modules keep the weights they hold; `generator` is the source
+        of the steps' draws. The EMA covers the DiT alone."""
+        module = self.dit
+        if self.train_vae:
+            module = JointLDM(self.dit, self.vae.requires_grad_(True))
+            if self.vae.encoder.pos_embed is not None:
+                # the all-zeros positional table stays frozen (JAX stops its gradient)
+                self.vae.encoder.pos_embed.requires_grad_(False)
+        params = [p for p in module.parameters() if p.requires_grad]
+        return create_train_state(module, AdamW(params, **self._opt_kwargs), generator,
                                   ema=ema_init(self.dit.named_parameters()))
 
+    @staticmethod
+    def state_dit(state: TrainState) -> DiT:
+        """The DiT of a train state (the module, or a `JointLDM`'s DiT)."""
+        return state.module.dit if isinstance(state.module, JointLDM) else state.module
+
     @torch.no_grad()
-    def _encode(self, batch: Dict) -> torch.Tensor:
-        """Latents (B, M, E_latent) of the frozen VAE from the expressed
-        subsets (lean batches) or the full counts, in the VAE's compute
-        dtype (the transport draws its noise in it, as JAX's); no
-        gradient."""
+    def _encode(self, batch: Dict, vae: Optional[TransformerVAE] = None) -> torch.Tensor:
+        """Latents (B, M, E_latent) of the task's VAE (or of `vae`, JAX's
+        `_encode_with`) from the expressed subsets (lean batches) or the full
+        counts, in the VAE's compute dtype (the transport draws its noise in
+        it, as JAX's); no gradient."""
+        return self._encode_with_grad(batch, vae)
+
+    def _encode_with_grad(self, batch: Dict, vae: Optional[TransformerVAE] = None
+                          ) -> torch.Tensor:
+        """`_encode` under the caller's gradient mode: the joint finetuning's
+        encode, which the loss differentiates (no dropout, as JAX's)."""
+        vae = self.vae if vae is None else vae
         batch = widen_lean(batch)
         counts = batch.get(COUNTS, batch.get(C_SUB))
         genes = batch.get(GENES, batch.get(G_SUB))
-        if self.fused_encode and _fused_window_ok(self.vae):
-            emb = self.vae.input_layer(batch.get(C_SUB, counts), batch.get(G_SUB, genes))
-            return self.vae.encoder.trunk(fused_window_pooling(self.vae, emb))
-        return self.vae.encode(counts, genes, batch.get(C_SUB), batch.get(G_SUB))
+        if self.fused_encode and _fused_window_ok(vae):
+            emb = vae.input_layer(batch.get(C_SUB, counts), batch.get(G_SUB, genes))
+            return vae.encoder.trunk(fused_window_pooling(vae, emb))
+        return vae.encode(counts, genes, batch.get(C_SUB), batch.get(G_SUB))
 
     def _use_fused(self, z: torch.Tensor) -> bool:
+        if self.train_vae:
+            return False
         if self.fused_training is None:
             return z.is_cuda and self.dit.dropout == 0.0
         return self.fused_training
@@ -193,7 +241,7 @@ class LDMTask:
         may inject any of them ({"t", "x0"} together, "selected",
         "drop_mask", "drops": a `layers.Drops`)."""
         noise = noise or {}
-        z = self._encode(batch)
+        z = self._encode_with_grad(batch) if self.train_vae else self._encode(batch)
         condition = split_condition(batch, self.dit.class_vocab_sizes)
         draws = {k: noise[k] for k in ("selected", "drop_mask", "drops") if k in noise}
         fused = self._use_fused(z)
@@ -227,7 +275,13 @@ class LDMTask:
         """The step after the backward: the global-norm clip of the module's
         gradients, the optimizer step on the schedule and the EMA tick.
         Updates `state` in place and returns grad_norm, lr_mult and, with
-        `calculate_grad_norms`, the per-module norms."""
+        `calculate_grad_norms`, the per-module norms. Under `train_vae` a
+        parameter the loss did not reach takes a zero gradient, so the
+        optimizer updates it as optax updates every leaf."""
+        if self.train_vae:
+            for p in state.module.parameters():
+                if p.requires_grad and p.grad is None:
+                    p.grad = torch.zeros_like(p)
         named = [(n, p.grad) for n, p in state.module.named_parameters() if p.grad is not None]
         grads = [g for _, g in named]
         gnorm = M.global_norm(grads)
@@ -235,7 +289,8 @@ class LDMTask:
         lr_mult = self.schedule(state.step)
         state.optimizer.step()
         state.step += 1
-        state.ema = ema_update(state.ema, state.module.named_parameters(), **self.ema_cfg)
+        state.ema = ema_update(state.ema, self.state_dit(state).named_parameters(),
+                               **self.ema_cfg)
         mets = {"grad_norm": gnorm.detach(), "lr_mult": torch.tensor(lr_mult, device=gnorm.device)}
         if self.calculate_grad_norms:
             mets.update(M.grad_norms_by_module(named, prefix="grad_norm/diffusion"))
@@ -256,11 +311,12 @@ class LDMTask:
                   use_ema: bool = False,
                   noise: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
         """Validation loss on the module path, with the online or the EMA
-        weights, without CFG dropout; draws and `noise` as in `loss`."""
+        weights, without CFG dropout (the encode under `train_vae` with the
+        finetuned VAE); draws and `noise` as in `loss`."""
         noise = noise or {}
         z = self._encode(batch)
         condition = split_condition(batch, self.dit.class_vocab_sizes)
-        dit = self.ema_module(state) if use_ema else state.module
+        dit = self.ema_module(state) if use_ema else self.state_dit(state)
 
         def model_fn(xt, t, condition):
             return dit.trunk(xt, dit.embed_condition(t, condition, generator,
@@ -299,7 +355,9 @@ class LDMTask:
         state=None) -> (counts (2B, G), z (2B, M, E_latent)): the first half
         unconditional, the second half guided (the reference's doubled-batch
         convention). Without `state` the DiT module's weights sample; with a
-        train state, its EMA weights (or, with `use_ema=False`, its module's).
+        train state, its EMA weights (or, with `use_ema=False`, its DiT's).
+        The decode runs on the task's VAE, which under `train_vae` is the
+        finetuned one.
 
         `genes` is (G,) (shared by the batch; the canonical row takes the
         decoder's batch-free path) or (B, G). Every draw comes from
@@ -341,7 +399,7 @@ class LDMTask:
                 guidance_weight=guidance_weight, sampling_method=sampling_method,
                 num_steps=num_steps,
                 dit=None if state is None else (
-                    self.ema_module(state) if use_ema else state.module),
+                    self.ema_module(state) if use_ema else self.state_dit(state)),
                 fused_blocks=fused_blocks,
             )
             return nb_sample(out["mu"], out["theta"], generator), samples

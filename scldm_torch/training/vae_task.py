@@ -426,6 +426,41 @@ def vae_loss(counts: torch.Tensor, params: Dict[str, torch.Tensor],
     return recon.sum(dim=1).mean()
 
 
+def vae_loss_lean(
+    genes_subset: torch.Tensor,  # (B, S) gene-token ids, 0 = <MASK> padding
+    counts_subset: torch.Tensor,  # (B, S)
+    params: Dict[str, torch.Tensor],  # mu (B, G), theta (G,) or (B, G)
+    eps: float = 1e-8,
+) -> torch.Tensor:
+    """The NB reconstruction loss without the dense (B, G) counts (JAX
+    `vae_loss_lean`). At a zero count the Gamma terms of the NB log-pmf
+    cancel, so the gene sum splits into the zero-count term over every gene
+    and a correction at the expressed (gene, count) pairs:
+
+        -sum_g log_nb(c_g) = -sum_g log_nb(0 | mu_g)
+                             -sum_{c_g>0} [log_nb(c_g) - log_nb(0 | mu_g)]
+
+    the same terms as `vae_loss`, with `log_nb_positive`'s eps placement.
+    Padding ids (0) gather column 0 and are masked out. The gather's
+    backward is a scatter-add into mu's gradient: the expressed genes of a
+    cell are distinct, so each entry takes at most one term and padding adds
+    zeros."""
+    mu = params["mu"].float()
+    theta = params["theta"].float()
+    zero_term = theta * (torch.log(theta + eps) - torch.log(theta + mu + eps))
+    base = -zero_term.sum(dim=1)  # (B,)
+    g_ids = genes_subset.long()
+    cols = torch.clamp(g_ids - 1, 0, mu.shape[1] - 1)
+    mu_s = torch.gather(mu, 1, cols)  # (B, S)
+    theta_s = theta[cols] if theta.ndim == 1 else torch.gather(theta, 1, cols)
+    c = counts_subset.float()
+    corr = log_nb_positive(c, mu_s, theta_s, eps) - theta_s * (
+        torch.log(theta_s + eps) - torch.log(theta_s + mu_s + eps)
+    )
+    corr = torch.where(g_ids > 0, corr, torch.zeros_like(corr))
+    return (base - corr.sum(dim=1)).mean()
+
+
 def validation_metrics(
     counts: torch.Tensor, out: Dict[str, torch.Tensor], counts_pred: torch.Tensor
 ) -> Dict[str, torch.Tensor]:
@@ -472,6 +507,11 @@ class VAETask:
     holds (`_fused_trunk_ok`); `eval_step` and `encode` keep the modules, as
     in JAX.
 
+    `lean_loss=True` (off unless asked, as in JAX) takes the NB loss
+    without densifying the counts (`vae_loss_lean`) where `_use_lean_loss`
+    holds: a lean batch on the kernel path or the algebraic tail under the
+    NB head.
+
     A VAE with dropout closes every kernel gate, as in JAX: its training
     steps take the module path, with the dropout draws seeded from the
     state's generator (`layers.Drops.draw`); evaluation does not drop. Under
@@ -501,9 +541,11 @@ class VAETask:
         algebraic_vw_fold: Optional[bool] = None,
         algebraic_fused_gate: bool = False,
         fused_trunk: Optional[bool] = None,
+        lean_loss: bool = False,
     ):
         self.vae = vae
         self.gaussian_head = isinstance(vae.decoder_head, GaussianTransformerHead)
+        self.lean_loss = bool(lean_loss)
         self.fused_trunk = bool(fused_trunk) and _fused_trunk_ok(vae)
         self.fused_pool = bool(fused_pool) and _fused_window_ok(vae)
         if algebraic_tail is None:
@@ -599,6 +641,13 @@ class VAETask:
         return algebraic_nb_apply(self.vae, batch, fused_gate=self.algebraic_fused_gate,
                                   vw_fold=self.algebraic_vw_fold)
 
+    def _use_lean_loss(self, batch: Dict, on_reassoc_path: bool) -> bool:
+        """JAX's gate of the densify-free NB loss: opted in, on the kernel
+        path or the algebraic tail, the NB head, and a lean batch (no dense
+        counts, the expressed subsets)."""
+        return (self.lean_loss and on_reassoc_path and not self.gaussian_head
+                and COUNTS not in batch and C_SUB in batch)
+
     def _has_dropout(self) -> bool:
         return self.vae.encoder.dropout > 0 or self.vae.decoder.dropout > 0
 
@@ -609,7 +658,9 @@ class VAETask:
         draws are `drops` (without them the modules do not drop)."""
         use_fused = self._use_fused(batch)
         use_algebraic = not use_fused and self._use_algebraic(batch)
-        batch = self._materialize(batch)
+        use_lean = self._use_lean_loss(batch, use_fused or use_algebraic)
+        # the lean loss reads the wire-format subsets: no dense counts are built
+        batch = widen_lean(batch) if use_lean else self._materialize(batch)
         if use_fused:
             out, _ = fused_nb_apply(self.vae, batch, batch_chunk=self.fused_batch_chunk,
                                     use_trunk=self.fused_trunk)
@@ -617,7 +668,10 @@ class VAETask:
             out, _ = self._algebraic(batch)
         else:
             out, _ = self._apply(batch, drops)
-        loss = vae_loss(batch[COUNTS], out, self.gaussian_head)
+        if use_lean:
+            loss = vae_loss_lean(batch[G_SUB], batch[C_SUB], out)
+        else:
+            loss = vae_loss(batch[COUNTS], out, self.gaussian_head)
         aux = {"llh": loss.detach()}
         if "theta" in out:
             aux["theta"] = out["theta"].detach().mean()

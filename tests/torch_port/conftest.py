@@ -9,15 +9,15 @@ with one). Each test's thread count
 is set to 1 and restored after it, so the JAX package's tests in the same
 worker keep the default.
 
-`DEFAULT_THREADS` names the modules that keep torch's default: one optimizer
-step of `test_torch_port_algebraic.py` holds the parameters' directions
-where a gradient is down to 1e-6 of its tensor's largest, which the
-summation order sets, and it was written against the default's order."""
+`DEFAULT_THREADS` names the modules that keep torch's default (none now:
+the algebraic step test, which holds parameter directions where a gradient
+is down to 1e-6 of its tensor's largest, takes the signs it holds from an
+f64 gradient, which no summation order sets)."""
 
 import pytest
 import torch
 
-DEFAULT_THREADS = {"test_torch_port_algebraic"}
+DEFAULT_THREADS: set = set()
 
 
 @pytest.fixture(autouse=True)

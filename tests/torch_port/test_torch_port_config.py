@@ -223,14 +223,35 @@ def _ldm_task(cfg):
     ("ldm_training.yaml", ["training.fsdp=true"], _ldm_task, "item 11"),
     ("ldm_training.yaml", ["training.gene_sp=true"], _ldm_task, "item 11"),
     ("ldm_training.yaml", ["training.pipeline_microbatches=4"], _ldm_task, "item 11"),
-    ("ldm_training.yaml", ["model.vae_as_tokenizer.train=true"], _ldm_task, "item 10"),
-    ("ldm_training.yaml", ["model.transport.path_type=GVP"], _ldm_task, "item 9"),
-    ("ldm_training.yaml", ["model.transport.prediction=noise"], _ldm_task, "item 9"),
 ])
 def test_unsupported_values_raise(config, overrides, call, item):
     cfg = small_cfg(config, SMALL_DIT + overrides)
     with pytest.raises(NotImplementedError, match=item):
         call(cfg)
+
+
+@pytest.mark.parametrize("overrides", [
+    ["model.vae_as_tokenizer.train=true"],
+    ["model.transport.path_type=GVP"],
+    ["model.transport.prediction=noise"],
+])
+def test_lifted_values_build(overrides):
+    """The values the port refused before it had joint finetuning and the
+    whole transport family now build the task JAX's `build_ldm_task`
+    builds: the same transport (path, prediction, loss weight, epsilons)
+    and the same `train_vae`, with the kernel paths off under it."""
+    cfg = small_cfg("ldm_training.yaml", SMALL_DIT + overrides)
+    task = build.build_ldm_task(cfg, build.build_vae(cfg), build.build_dit(cfg), 10)
+    want = jax_build.build_ldm_task(cfg, jax_build.build_vae(cfg), None, jax_build.build_dit(cfg),
+                                    10)
+    got_t, want_t = task.transport, want.transport
+    assert ((got_t.model_type.name, got_t.path_type.name, got_t.loss_type.name)
+            == (want_t.model_type.name, want_t.path_type.name, want_t.loss_type.name))
+    assert (got_t.train_eps, got_t.sample_eps) == (want_t.train_eps, want_t.sample_eps)
+    assert task.train_vae == want.train_vae
+    if task.train_vae:
+        assert not task.fused_training and not task.fused_encode
+        assert not want.fused_training and not want.fused_encode
 
 
 def test_eval_generation_builds(tmp_path):

@@ -105,11 +105,17 @@ def test_check_interval_matches_jax(flags):
 
 
 def test_create_transport_keys():
-    t = create_transport(loss_weight="velocity")
-    assert (t.loss_weight, t.train_eps, t.sample_eps) == ("velocity", 0.0, 0.0)
-    for path, pred in (("GVP", "velocity"), ("Linear", "noise")):
-        with pytest.raises(NotImplementedError):
-            create_transport(path, pred)
+    """Every path and prediction: the enums and the per-path default
+    epsilons of JAX's factory, and explicit epsilons passed through."""
+    for path in ("Linear", "GVP", "VP"):
+        for pred in ("velocity", "score", "noise"):
+            for weight in (None, "velocity", "likelihood"):
+                t, jt = create_transport(path, pred, weight), jax_create_transport(path, pred, weight)
+                assert ((t.model_type.name, t.path_type.name, t.loss_type.name)
+                        == (jt.model_type.name, jt.path_type.name, jt.loss_type.name))
+                assert (t.train_eps, t.sample_eps) == (jt.train_eps, jt.sample_eps)
+            t = create_transport(path, pred, train_eps=0.25, sample_eps=0.5)
+            assert (t.train_eps, t.sample_eps) == (0.25, 0.5)
 
 
 # -- conditioning --------------------------------------------------------------------

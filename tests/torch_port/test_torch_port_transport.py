@@ -98,9 +98,17 @@ def test_linear_plan_matches_jax():
 
 
 def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError):
-        create_transport(path_type="VP")
-    with pytest.raises(NotImplementedError):
-        create_transport(prediction="noise")
+    """What JAX refuses, the port refuses: an unknown solver, an unknown
+    diffusion form, an unknown path."""
     with pytest.raises(NotImplementedError):
         Sampler(create_transport()).sample_ode(sampling_method="rk4")
+    with pytest.raises(NotImplementedError):
+        jax_create_transport().path_sampler.compute_diffusion(
+            jnp.ones((2, 3)), jnp.full((2,), 0.5), form="quadratic")
+    with pytest.raises(NotImplementedError):
+        create_transport().path_sampler.compute_diffusion(
+            torch.ones(2, 3), torch.full((2,), 0.5), form="quadratic")
+    with pytest.raises(KeyError):
+        jax_create_transport(path_type="Cosine")
+    with pytest.raises(KeyError):
+        create_transport(path_type="Cosine")
