@@ -213,7 +213,24 @@ with `model.vae_as_tokenizer.train=true` (no DiT kernel launch, JAX's gates;
 the checkpoint's encoder moved, its decoder did not) and `inference`
 generation that decodes with the finetuned VAE, and `VAETask(lean_loss=True)`
 against the dense loss at dentate (the tail kernels) and at census as shipped
-(the bf16 `swiglu_vec`), each with ms per step and peak memory in turns. The
+(the bf16 `swiglu_vec`), each with ms per step and peak memory in turns.
+Phase 16 runs the parallel layouts on the one card in child processes of
+this script under torchrun's environment, the kernels already built: (a) one
+rank over NCCL, where the dentate VAE step (rows 3-4) and LDM step (rows
+1-2) through the data-parallel all-reduce of a one-rank mesh repeat the
+steps without a process group bit for bit, timed against them in turns,
+then `cli.train` with `training.fsdp=true` at world 1; (b) two ranks sharing
+the card over gloo, after a probe of the collectives gloo takes on CUDA
+tensors (an arm whose collective it refuses is left out and named): data
+parallelism at B / 2 a rank against one process at B on the dentate VAE
+(rows 3-4 on both ranks: the loss at 1e-4, each gradient within 1e-2 of its
+largest, within 1e-6 of the mean of one process's gradients at each half)
+and LDM (rows 1-2: loss and gradients at 1e-4), FSDP on the census VAE as
+shipped through the fused gate (rows 16-17 in bf16 on the gathered weights,
+once each way a step; 8 cells a rank against 16 in one process at phase 6's
+bf16 bound, each rank's parameter, AdamW and peak bytes), and gene-SP census generation
+at n_model=2 (batch 16, euler-50, the draws injected) against one process
+at `held_bf16`'s bound with each rank's peak memory. The
 line before the last is a JSON summary of the kernels, each with its time
 beside the least time the card could take for the same work; the last is
 {"ok": true, "device": {...}}. Any failure
@@ -227,9 +244,11 @@ import argparse
 import contextlib
 import csv
 import json
+import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1534,23 +1553,30 @@ def random_trunk_weights(g) -> dict:
     return w
 
 
+DEVICE_MS_TRACES = 3  # profiler sessions before a trace without the kernels fails
+
+
 def device_ms(fn, reps: int, names: tuple) -> float:
     """The device time of one call of `fn`: the time of the kernels whose
     names hold one of `names`, summed over `reps` calls under the profiler
-    after a warm-up call, over `reps`."""
+    after a warm-up call, over `reps`. The CUPTI trace now and then comes
+    back without the device's events; such a trace is taken again, up to
+    DEVICE_MS_TRACES sessions in all, and each retake is logged."""
     import torch
 
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.device_time_total for e in prof.key_averages()
-                   if any(n in e.key for n in names))
-    if total_us == 0:
-        raise AssertionError(f"the profiler saw no kernel named {names}")
-    return total_us / reps / 1e3
+    for trace in range(DEVICE_MS_TRACES):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(e.device_time_total for e in prof.key_averages()
+                       if any(n in e.key for n in names))
+        if total_us > 0:
+            return total_us / reps / 1e3
+        log(f"device_ms: trace {trace + 1} of {DEVICE_MS_TRACES} held no kernel named {names}")
+    raise AssertionError(f"the profiler saw no kernel named {names} in {DEVICE_MS_TRACES} traces")
 
 
 # the kernels behind each whole-trunk entry point
@@ -5125,11 +5151,578 @@ def phase15_transports_joint_lean(seed: int, batch: int, smi: str) -> dict:
     return total
 
 
+P16_STEPS = 3  # DP steps a turn in arm (a), after a warm-up pair
+P16_TURNS = 3  # turns of the DP step against the step without a process group
+P16_CLI_STEPS = 2  # cli.train steps at world 1 with training.fsdp=true
+P16_TIMEOUT = 300  # seconds a child may take
+P16_NEAR = 1e-4  # arm (b)'s DP losses and gradients, as a share of each tensor's largest
+P16_GEN_STEPS = 50  # euler steps of the gene-SP census generation
+
+
+def p16_result(**out) -> None:
+    """A child's result, as the last line of its output."""
+    print("P16 " + json.dumps(out), flush=True)
+
+
+def p16_children(arm: str, world: int, seed: int, batch: int) -> list:
+    """Run `world` children of this script for phase 16's `arm`, each under
+    torchrun's environment; returns each rank's result. A failing or late
+    child stops them all."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for r in range(world):
+        # the gloo ranks share the one card (both bind LOCAL_RANK 0); NCCL's each its own
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
+                   LOCAL_RANK=str(r) if arm == "nccl2" else "0",
+                   LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        procs.append(subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--phase16", arm, "--seed", str(seed),
+             "--batch", str(batch)], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=P16_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = []
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        lines = out.rstrip().splitlines()
+        found = [line[4:] for line in lines if line.startswith("P16 ")]
+        for line in lines:
+            if not line.startswith("P16 "):
+                log(f"phase16 [{arm} rank {r}] {line}")
+        if p.returncode != 0 or len(found) != 1:
+            raise AssertionError(f"phase16 {arm} rank {r}: exit {p.returncode}, "
+                                 f"{len(found)} results")
+        results.append(json.loads(found[0]))
+    return results
+
+
+def p16_twins(build, n: int) -> list:
+    """n modules from `build()`, each holding the first one's weights."""
+    mods = [build() for _ in range(n)]
+    for m in mods[1:]:
+        m.load_state_dict(mods[0].state_dict())
+    return mods
+
+
+def p16_nccl_world1(seed: int, batch: int) -> None:
+    """Arm (a), one rank over NCCL: the dentate VAE step (rows 3-4) and the
+    dentate LDM step (rows 1-2) through the data-parallel all-reduce against
+    the same steps without a process group, bit for bit, timed in turns;
+    then `cli.train` with `training.fsdp=true` at world 1."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from scldm_torch.nn.vae import build_transformer_vae
+    from scldm_torch.ops import fused_decoder as fd
+    from scldm_torch.ops import fused_dit
+    from scldm_torch.parallel import make_mesh
+    from scldm_torch.training.ldm_task import LDMTask
+    from scldm_torch.training.vae_task import VAETask
+    from scldm_torch.transport import create_transport
+    from scldm_torch.utils.weights import init_reference_
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method="env://", world_size=1, rank=0)
+    mesh = make_mesh(n_data=1)
+    rng = np.random.default_rng(seed)
+    out = {}
+
+    def same_bits(a, b) -> bool:
+        return all(torch.equal(x, y) for x, y in zip(a.state_dict().values(),
+                                                     b.state_dict().values()))
+
+    def turns(steps: dict, counters) -> dict:
+        """Each arm's ms a step over P16_TURNS turns of P16_STEPS steps, and
+        the mesh arm's launches (the counters reset before each of its turns)."""
+        ms, launches = {k: [] for k in steps}, [0] * len(counters)
+        for _ in range(P16_TURNS):
+            for k, step in steps.items():
+                for c in counters:
+                    c.reset()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(P16_STEPS):
+                    step()
+                torch.cuda.synchronize()
+                ms[k].append(round((time.perf_counter() - t0) / P16_STEPS * 1e3, 3))
+                if k == "mesh":
+                    launches = [n + c.count for n, c in zip(launches, counters)]
+        return {"ms": ms, "launches": launches}
+
+    # -- the dentate VAE step through rows 3-4
+    def vae():
+        return init_reference_(build_transformer_vae(n_genes=N_GENES, device="cuda"),
+                               torch.Generator(device="cuda").manual_seed(seed))
+
+    vae_mesh, vae_one = p16_twins(vae, 2)
+    tasks = {"mesh": VAETask(vae_mesh, num_training_steps=10_000, mesh=mesh),
+             "one": VAETask(vae_one, num_training_steps=10_000)}
+    states = {k: t.init_state(torch.Generator(device="cuda").manual_seed(seed))
+              for k, t in tasks.items()}
+    b = {k: torch.from_numpy(v).to("cuda") for k, v in lean_batch(rng, batch).items()}
+    mets = {k: {n: v.item() for n, v in tasks[k].train_step(states[k], b)[1].items()}
+            for k in tasks}
+    out["vae_first_step_metrics_equal"] = mets["mesh"] == mets["one"]
+    out["vae_first_step_bits"] = same_bits(vae_mesh, vae_one)
+    run = turns({k: (lambda k=k: tasks[k].train_step(states[k], b)) for k in tasks},
+                (fd.DECODER_TAIL_FWD_LAUNCHES, fd.DECODER_TAIL_BWD_LAUNCHES))
+    out["vae"] = {**run, "bits": same_bits(vae_mesh, vae_one), "loss": mets["mesh"]["train_loss"]}
+    del tasks, states, vae_mesh, vae_one
+
+    # -- the dentate LDM step through rows 1-2, the draws from one seed each
+    vae_f, _ = build_models(seed)
+    dit_mesh, dit_one = p16_twins(lambda: build_models(seed)[1], 2)
+    tasks = {"mesh": LDMTask(vae_f, dit_mesh, create_transport(), mesh=mesh),
+             "one": LDMTask(vae_f, dit_one, create_transport())}
+    states = {k: t.init_state(torch.Generator(device="cuda").manual_seed(seed))
+              for k, t in tasks.items()}
+    lb = ldm_batches(rng, batch, 1)[0]
+    for k in tasks:
+        tasks[k].train_step(states[k], lb)
+    out["ldm_first_step_bits"] = same_bits(dit_mesh, dit_one)
+    run = turns({k: (lambda k=k: tasks[k].train_step(states[k], lb)) for k in tasks},
+                (fused_dit.DIT_BLOCK_LAUNCHES, fused_dit.DIT_BLOCK_BWD_LAUNCHES))
+    out["ldm"] = {**run, "bits": same_bits(dit_mesh, dit_one)
+                  and all(torch.equal(states["mesh"].ema.params[n], states["one"].ema.params[n])
+                          for n in states["one"].ema.params)}
+    del tasks, states, dit_mesh, dit_one, vae_f
+    torch.cuda.empty_cache()
+
+    # -- cli.train with training.fsdp=true at world 1: no mesh, nothing sharded (JAX's meaning)
+    from scldm_torch.cli import train as cli_train
+    from scldm_torch.data import datamodule as dm_module
+
+    dentate = json.loads((ROOT / "metadata/dentategyrus_train.json").read_text())
+    tmp = Path(tempfile.mkdtemp(prefix="scldm_phase16_"))
+    shards = {str(tmp / "train.h5ad"): cli_shard(rng, VARIANT_CELLS, dentate["genes"],
+                                                 dentate["labels"])}
+    real_h5ad = dm_module.H5ADFile
+    dm_module.H5ADFile = lambda path: shards[str(path)]
+    try:
+        t0 = time.perf_counter()
+        rc = cli_train.main(["--config", str(ROOT / "configs/vae_training.yaml"),
+                             f"datamodule.datamodule.train_adata_path={tmp / 'train.h5ad'}",
+                             f"paths.output_path={tmp / 'out'}", "epochs=1",
+                             f"training.max_steps={P16_CLI_STEPS}", "training.fsdp=true",
+                             "training.steps_per_dispatch=1", "training.log_every_steps=1",
+                             *P15_CLI_EXTRA])
+        wall = time.perf_counter() - t0
+    finally:
+        dm_module.H5ADFile = real_h5ad
+    ckpt = tmp / "out" / "checkpoints" / "vae_dentate_gyrus"
+    steps = sorted(int(p.name) for p in ckpt.iterdir() if p.name.isdigit())
+    out["cli_fsdp_world1"] = {"rc": rc, "steps": steps, "wall_s": round(wall, 3)}
+    shutil.rmtree(tmp, ignore_errors=True)
+    dist.destroy_process_group()
+    p16_result(**out)
+
+
+def p16_probe(device) -> dict:
+    """Which collectives the installed gloo takes on CUDA tensors: each op
+    once on a small tensor; an op gloo refuses raises on every rank alike."""
+    import torch
+    import torch.distributed as dist
+
+    x = torch.arange(8, dtype=torch.float32, device=device) + dist.get_rank()
+    ops = {
+        "all_reduce": lambda: dist.all_reduce(x.clone()),
+        "all_reduce_max": lambda: dist.all_reduce(x.clone(), op=dist.ReduceOp.MAX),
+        "broadcast": lambda: dist.broadcast(x.clone(), 0),
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+            x.new_empty(8 * dist.get_world_size()), x),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+            x.new_empty(8 // dist.get_world_size()), x),
+    }
+    out = {}
+    for name, op in ops.items():
+        try:
+            op()
+            torch.cuda.synchronize()
+            out[name] = "ok"
+        except Exception as e:  # noqa: BLE001 (the probe's answer)
+            out[name] = f"{type(e).__name__}: {str(e)[:160]}"
+    return out
+
+
+def p16_rel_gap(got: dict, want: dict) -> tuple:
+    """The largest gap of any gradient over its reference's largest
+    magnitude, and its name; the NB head's bias left out (softmax-invariant:
+    its true gradient is 0, every path's noise)."""
+    worst = (0.0, "")
+    for name, w in want.items():
+        if name == "decoder_head.params.bias" or w is None:
+            continue
+        worst = max(worst, ((got[name] - w).abs().max().item()
+                            / (w.abs().max().item() + 1e-30), name))
+    return worst
+
+
+def p16_two_ranks(seed: int, batch: int, backend: str) -> None:
+    """Arm (b), two ranks sharing the card over gloo (or, where the machine
+    has two cards, arm (c): two ranks over NCCL, a card each): the probe,
+    then data parallelism on the dentate VAE (rows 3-4) and LDM (rows 1-2)
+    at B / 2 a rank against one process at B, with the VAE step's ms in
+    turns, FSDP on the census VAE as shipped through the fused gate (rows
+    16-17) at 8 cells a rank against 16 in one process with each rank's
+    parameter, AdamW and peak bytes, and
+    gene-SP census generation at n_model=2 against one process. An arm
+    whose collective the backend does not take is left out."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from scldm_torch.nn.vae import build_transformer_vae
+    from scldm_torch.ops import fused_decoder as fd
+    from scldm_torch.ops import fused_dit
+    from scldm_torch.ops.transforms import canonical_gene_ids
+    from scldm_torch.parallel import make_mesh, rank, shard_batch
+    from scldm_torch.training.ldm_task import LDMTask
+    from scldm_torch.training.vae_task import VAETask
+    from scldm_torch.transport import create_transport
+    from scldm_torch.utils.weights import init_reference_
+
+    # the launch environment's group over `backend` (gloo may share one card; the
+    # program's own start, `maybe_initialize_distributed`, takes NCCL on the card)
+    torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+    dist.init_process_group(backend, init_method="env://")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    probe = p16_probe(dev)
+    out = {"probe": probe, "rank": rank(), "left_out": []}
+    took = {k for k, v in probe.items() if v == "ok"}
+    dp_ok = {"all_reduce", "broadcast"} <= took
+    mesh = make_mesh(n_data=2) if dp_ok else None
+    rng = np.random.default_rng(seed)
+    g32 = torch.Generator(device="cuda")
+
+    # -- DP on the dentate VAE: B / 2 a rank against B in one process. The gradients
+    #    before the clip: each rank's loss and backward, then the step's reduction
+    #    (`Layout.sync`, the averaging all-reduce), against one process's at B and at
+    #    each half of B (the same shapes as the ranks')
+    if dp_ok:
+        def vae():
+            return init_reference_(build_transformer_vae(n_genes=N_GENES, device="cuda"),
+                                   torch.Generator(device="cuda").manual_seed(seed))
+
+        def synced(task, state, loss):
+            loss.backward()
+            task.layout.sync(state, {})
+            return {n: p.grad.clone() for n, p in state.module.named_parameters()
+                    if p.grad is not None}
+
+        vae_dp, vae_one = p16_twins(vae, 2)
+        b = {k: torch.from_numpy(v).to("cuda") for k, v in lean_batch(rng, batch).items()}
+        one = VAETask(vae_one, num_training_steps=10_000)
+        l_one, g_one = vae_loss_and_grads(one, b)
+        halves = [vae_loss_and_grads(one, {k: v[i * batch // 2:(i + 1) * batch // 2]
+                                           for k, v in b.items()})[1] for i in range(2)]
+        dp = VAETask(vae_dp, num_training_steps=10_000, mesh=mesh)
+        state = dp.init_state(g32.manual_seed(seed))
+        fd.DECODER_TAIL_FWD_LAUNCHES.reset()
+        fd.DECODER_TAIL_BWD_LAUNCHES.reset()
+        loss, _ = dp.loss(shard_batch(b, mesh))
+        g_dp = synced(dp, state, loss)
+        l_dp = dp.layout.sync(state, {"loss": loss.detach()})["loss"].item()
+        launches = [fd.DECODER_TAIL_FWD_LAUNCHES.count, fd.DECODER_TAIL_BWD_LAUNCHES.count]
+        # rows 3-4 round their operands to bf16: a batch of 64 moves the f32 sums under
+        # them (cuBLAS's products at 64 rows against 128) and flips roundings of operands
+        # that a cell's every gene shares, so against B in one process each gradient is
+        # held to `held_bf16`'s 1e-2 of its largest (the share beyond 1e-4 is printed, not
+        # bounded: the flips cascade, as the tail's own plain version shows in another
+        # summation order); against the halves' mean, the same shapes, to 1e-6
+        skip = "decoder_head.params.bias"  # softmax-invariant: its true gradient is 0
+        gap_b = max((bf16_distance(g_dp[n], w)[0] / (w.abs().max().item() + 1e-30), n)
+                    for n, w in g_one.items() if n != skip)
+        beyond = max(bf16_distance(g_dp[n], w)[2] for n, w in g_one.items() if n != skip)
+        gap_h = max(((g_dp[n] - (halves[0][n] + halves[1][n]) / 2).abs().max().item()
+                     / (w.abs().max().item() + 1e-30), n) for n, w in g_one.items() if n != skip)
+        if gap_b[0] > 1e-2 or gap_h[0] > 1e-6:
+            raise AssertionError(f"phase16 DP VAE: gradient {gap_b[1]} {gap_b[0]:.3e} of its "
+                                 f"largest from B={batch}; {gap_h[1]} {gap_h[0]:.3e} from the "
+                                 "halves' mean")
+        # the steps' ms in turns: the DP step at B / 2 a rank, one process at B
+        one_state = one.init_state(g32.manual_seed(seed))
+        ms = {"dp": [], "one": []}
+        for _ in range(P16_TURNS):
+            for arm, step in (("dp", lambda: dp.train_step(state, shard_batch(b, mesh))),
+                              ("one", lambda: one.train_step(one_state, b))):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(P16_STEPS):
+                    step()
+                torch.cuda.synchronize()
+                ms[arm].append(round((time.perf_counter() - t0) / P16_STEPS * 1e3, 3))
+        out["dp_vae"] = {"loss": [l_dp, l_one], "grad_gap": list(gap_b), "grad_beyond": beyond,
+                         "halves_gap": list(gap_h), "launches": launches, "ms": ms}
+        del vae_dp, vae_one, one, dp, state, one_state, g_one, g_dp, halves
+
+        # -- DP on the dentate LDM: the global draws, each rank its rows; rows 1-2 in f32
+        vae_f, _ = build_models(seed)
+        dit_dp, dit_one = p16_twins(lambda: build_models(seed)[1], 2)
+        lb = ldm_batches(rng, batch, 1)[0]
+        g = torch.Generator(device="cuda").manual_seed(seed + 5)
+        noise = {"t": torch.rand(batch, generator=g, device="cuda"),
+                 "x0": torch.randn(batch, dit_one.seq_len, dit_one.n_embed_input, generator=g,
+                                   device="cuda"),
+                 "drop_mask": torch.rand(batch, generator=g, device="cuda")
+                 < dit_one.cfg_dropout_prob}
+        one = LDMTask(vae_f, dit_one, create_transport())
+        l_one, g_one = ldm_loss_and_grads(one, lb, g, noise)
+        dp = LDMTask(vae_f, dit_dp, create_transport(), mesh=mesh)
+        state = dp.init_state(g32.manual_seed(seed))
+        fused_dit.DIT_BLOCK_LAUNCHES.reset()
+        fused_dit.DIT_BLOCK_BWD_LAUNCHES.reset()
+        loss = dp.loss(shard_batch(lb, mesh), g, shard_batch(noise, mesh))
+        g_dp = synced(dp, state, loss)
+        # the loss is this rank's mean: the global one is the ranks' mean
+        l_dp = dp.layout.sync(state, {"loss": loss.detach()})["loss"].item()
+        gap = max(((g_dp[n] - w).abs().max().item() / (w.abs().max().item() + 1e-30), n)
+                  for n, w in g_one.items())
+        out["dp_ldm"] = {"loss": [l_dp, l_one], "grad_gap": list(gap),
+                         "launches": [fused_dit.DIT_BLOCK_LAUNCHES.count,
+                                      fused_dit.DIT_BLOCK_BWD_LAUNCHES.count]}
+        del vae_f, dit_dp, dit_one, one, dp, state
+        torch.cuda.empty_cache()
+    else:
+        out["left_out"] += ["dp_vae", "dp_ldm"]
+
+    # -- FSDP on the census VAE as shipped (bf16, remat) through the fused gate (rows
+    #    16-17 in bf16, on the gathered weights): 8 cells a rank against 16
+    if dp_ok and {"all_gather_into_tensor", "reduce_scatter_tensor"} <= took:
+        from scldm_torch.ops import fused_swiglu as fs
+
+        def census():
+            return init_reference_(build_transformer_vae(**CENSUS, dtype=torch.bfloat16,
+                                                         remat=True, device="cuda"),
+                                   torch.Generator(device="cuda").manual_seed(seed))
+
+        cb = {k: torch.from_numpy(v).to("cuda") for k, v in lean_batch(
+            rng, CENSUS_BATCH, CENSUS["n_genes"], CENSUS_WINDOW,
+            (CENSUS_WINDOW // 2, CENSUS_WINDOW)).items()}
+        opt = dict(learning_rate=3e-4, betas=(0.9, 0.95),  # vae_census.yaml's
+                   algebraic_fused_gate=True)
+
+        def bytes_of(ts):
+            return sum(t.numel() * t.element_size() for t in ts)
+
+        arms, slices = {}, {}
+        for arm in ("fsdp", "one"):
+            m = census()
+            task = (VAETask(m, mesh=mesh, fsdp=True, **opt) if arm == "fsdp"
+                    else VAETask(m, **opt))
+            state = task.init_state(g32.manual_seed(seed))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fs.SWIGLU_VEC_FWD_LAUNCHES.reset()
+            fs.SWIGLU_VEC_BWD_LAUNCHES.reset()
+            _, mets = task.train_step(state, shard_batch(cb, mesh) if arm == "fsdp" else cb)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            launches = [fs.SWIGLU_VEC_FWD_LAUNCHES.count, fs.SWIGLU_VEC_BWD_LAUNCHES.count]
+            params = [p for p in m.parameters()] + (
+                [s for _, _, s, _ in state.shards.entries] if state.shards else [])
+            moments = [v for st in state.optimizer.state.values() for v in st.values()
+                       if torch.is_tensor(v) and v.ndim]
+            grads = {}
+            for name, p in m.named_parameters():
+                q = state.shards.shard_of(p) if state.shards else p
+                if q.grad is None:
+                    continue
+                flat = q.grad.reshape(-1)
+                if arm == "one" and name in slices:  # the reference's part of this rank's slice
+                    k, r = slices[name]
+                    flat = flat[r * k:(r + 1) * k]
+                grads[name] = flat.clone()
+            if arm == "fsdp":
+                slices = {n: (s.numel(), state.shards.rank) for n, _, s, _ in state.shards.entries}
+            arms[arm] = {"loss": mets["train_loss"].item(), "peak": peak,
+                         "param_bytes": bytes_of(params), "adamw_bytes": bytes_of(moments),
+                         "grads": grads, "launches": launches,
+                         "gates": [task.fused_decoder, task.algebraic_fused_gate]}
+            del m, task, state, mets
+            torch.cuda.empty_cache()
+        worst = p16_rel_gap(arms["fsdp"].pop("grads"), arms["one"].pop("grads"))
+        out["fsdp_census"] = {**arms, "grad_gap": worst}
+    else:
+        out["left_out"].append("fsdp_census")
+
+    # -- gene-SP census generation at n_model=2, batch 16, the draws injected
+    if {"all_reduce", "all_reduce_max", "broadcast", "all_gather_into_tensor"} <= took:
+        mesh12 = make_mesh(n_data=1, n_model=2)
+        vae_c, dit_c = build_census_ldm_models(seed, torch.bfloat16)
+        B, G = CENSUS_LDM_BATCH, CENSUS["n_genes"]
+        g = torch.Generator(device="cuda").manual_seed(seed + 7)
+        z0 = torch.randn(B, dit_c.seq_len, dit_c.n_embed_input, generator=g, device="cuda")
+        log_sf = torch.full((B,), 8.6, device="cuda")
+        cond = {"clusters": torch.randint(0, N_CLUSTERS, (B,), generator=g, device="cuda")}
+        genes = canonical_gene_ids(G, device="cuda")
+        kw = dict(guidance_weight=GUIDANCE, sampling_method="euler", num_steps=P16_GEN_STEPS)
+        res = {}
+        for arm in ("gene_sp", "one"):
+            task = (LDMTask(vae_c, dit_c, create_transport(), mesh=mesh12, gene_sp=True)
+                    if arm == "gene_sp" else LDMTask(vae_c, dit_c, create_transport()))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            z, dec, _ = task.generate_from_noise(z0, log_sf, genes, cond, fused_blocks=False, **kw)
+            torch.cuda.synchronize()
+            res[arm] = {"z": z, "mu": dec["mu"], "s": time.perf_counter() - t0,
+                        "peak": torch.cuda.max_memory_allocated(), "sp": task._sp}
+            del task, dec
+            torch.cuda.empty_cache()
+        sp = res["gene_sp"].pop("sp")
+        err, rel, beyond, near = held_bf16("phase16 gene-SP mu", res["gene_sp"]["mu"],
+                                           res["one"]["mu"])
+        out["gene_sp_generation"] = {
+            "z_gap": (res["gene_sp"]["z"] - res["one"]["z"]).abs().max().item(),
+            "mu_bf16": [err, rel, beyond, near], "genes": [sp.lo, sp.hi],
+            "peak": [res["gene_sp"]["peak"], res["one"]["peak"]],
+            "s": [round(res["gene_sp"]["s"], 3), round(res["one"]["s"], 3)]}
+        del res, vae_c, dit_c
+    else:
+        out["left_out"].append("gene_sp_generation")
+    dist.destroy_process_group()
+    p16_result(**out)
+
+
+def p16_check_ranks(tag: str, ranks: list, batch: int, smi: str, launches: dict) -> None:
+    """Hold and print a two-rank arm's results (`p16_two_ranks`), adding its
+    DP steps' and its FSDP step's launches to `launches`."""
+    probe = ranks[0]["probe"]
+    log(f"phase16 {tag} collectives on CUDA tensors: {probe}; left out: "
+        f"{ranks[0]['left_out'] or 'none'}")
+    for r, res in enumerate(ranks):
+        for part, names in (("dp_vae", ("decoder_tail_fwd", "decoder_tail_bwd")),
+                            ("dp_ldm", ("dit_block", "dit_block_bwd"))):
+            if part not in res:
+                continue
+            (lg, lo), (gap, name) = res[part]["loss"], res[part]["grad_gap"]
+            # the LDM's rows 1-2 compute in f32: each gradient within P16_NEAR of its
+            # largest; the VAE's bf16 tail was held on the rank (see there)
+            if abs(lg - lo) > P16_NEAR * abs(lo) or (part == "dp_ldm" and gap > P16_NEAR):
+                raise AssertionError(f"phase16 {tag} {part} rank {r}: loss {lg} vs {lo}, gradient "
+                                     f"{name} {gap:.3e} of its largest")
+            beyond = ""
+            if part == "dp_vae":
+                hg, hn = res[part]["halves_gap"]
+                beyond = (f" ({res[part]['grad_beyond']:.1e} of a tensor's entries beyond 1e-4 "
+                          f"of it at most); from the mean of one process's gradients at each "
+                          f"half (B={batch // 2}) {hg:.3e} ({hn})")
+            if min(res[part]["launches"]) <= 0:
+                raise AssertionError(f"phase16 {tag} {part} rank {r}: launches "
+                                     f"{res[part]['launches']}")
+            for n, k in zip(names, res[part]["launches"]):
+                launches[n] += k
+            log(f"phase16 {tag} {part} rank {r}: B={batch // 2} a rank vs B={batch} in one "
+                f"process: loss {lg:.6f} vs {lo:.6f}, largest gradient gap {gap:.3e} of its max "
+                f"({name}){beyond}; launches {res[part]['launches']}")
+        if "fsdp_census" in res:
+            f, o = res["fsdp_census"]["fsdp"], res["fsdp_census"]["one"]
+            (gap, name) = res["fsdp_census"]["grad_gap"]
+            loss_near, grad_near = CENSUS_BF16_BOUNDS["bf16 plain"]
+            if abs(f["loss"] - o["loss"]) > loss_near * abs(o["loss"]) or gap > grad_near:
+                raise AssertionError(f"phase16 {tag} FSDP census rank {r}: loss {f['loss']} vs "
+                                     f"{o['loss']}, gradient {name} {gap:.3e} of its largest")
+            # the gates stay as on one card under FSDP: the fused gate's rows 16-17 on
+            # the gathered weights, once each way a step
+            if f["gates"] != o["gates"] or f["launches"] != [1, 1]:
+                raise AssertionError(f"phase16 {tag} FSDP census rank {r}: gates {f['gates']} "
+                                     f"vs {o['gates']}, launches {f['launches']}")
+            for n, k in zip(("swiglu_vec_fwd", "swiglu_vec_bwd"), f["launches"]):
+                launches[n] += k
+            log(f"phase16 {tag} FSDP census VAE (bf16, remat, the fused gate) rank {r}: launches "
+                f"{f['launches']}; 8 cells vs 16 in one "
+                f"process: loss {f['loss']:.4f} vs {o['loss']:.4f}, gradient slices' largest gap "
+                f"{gap:.3e} of its max ({name}); parameter bytes {f['param_bytes'] / 2**30:.3f} "
+                f"vs {o['param_bytes'] / 2**30:.3f} GiB, AdamW {f['adamw_bytes'] / 2**30:.3f} vs "
+                f"{o['adamw_bytes'] / 2**30:.3f} GiB, peak {f['peak'] / 2**30:.3f} vs "
+                f"{o['peak'] / 2**30:.3f} GiB ({smi})")
+        if "gene_sp_generation" in res:
+            gsp = res["gene_sp_generation"]
+            err, rel, beyond, near = gsp["mu_bf16"]
+            log(f"phase16 {tag} gene-SP census generation rank {r} (genes {gsp['genes']}), batch "
+                f"{CENSUS_LDM_BATCH}, euler-{P16_GEN_STEPS}: latents max gap {gsp['z_gap']:.3e}, "
+                f"mu {err:.2e} ({rel:.1e} of max, {beyond:.1e} beyond {near:g}); peak "
+                f"{gsp['peak'][0] / 2**30:.3f} vs {gsp['peak'][1] / 2**30:.3f} GiB one process; "
+                f"{gsp['s'][0]} s vs {gsp['s'][1]} s ({smi})")
+    if "dp_vae" in ranks[0]:
+        ms = ranks[0]["dp_vae"]["ms"]
+        log(f"phase16 {tag} dentate VAE ms a step in turns: DP at B={batch // 2} a rank "
+            f"{ms['dp']} vs one process at B={batch} {ms['one']} ({smi})")
+
+
+def phase16_parallel(seed: int, batch: int, smi: str) -> dict:
+    """Phase 16, the parallel layouts on the one card (the kernels already
+    built here, so that no child builds them): (a) one rank over NCCL, the
+    DP steps against the steps without a process group, bit for bit; (b) two
+    ranks sharing the card over gloo, DP, FSDP and gene-SP against one
+    process; (c) on a machine with two cards or more, (b) over NCCL, a card
+    a rank. Returns the DP steps' and the FSDP steps' launches (every arm,
+    every rank) for the kernels line."""
+    phase_t0 = time.perf_counter()
+    (a,) = p16_children("nccl1", 1, seed, batch)
+    for part in ("vae", "ldm"):
+        r = a[part]
+        if not (r["bits"] and a[f"{part}_first_step_bits"]):
+            raise AssertionError(f"phase16 (a) {part}: the DP step's bits differ from the step "
+                                 "without a process group")
+        if min(r["launches"]) <= 0:
+            raise AssertionError(f"phase16 (a) {part}: launches {r['launches']}")
+        log(f"phase16 (a) NCCL at world 1, dentate {part.upper()} B={batch}: the DP step "
+            f"(the all-reduce of a 1-rank mesh) repeats the step without a process group bit for "
+            f"bit over {1 + P16_TURNS * P16_STEPS} steps; ms a step in turns, DP "
+            f"{r['ms']['mesh']} vs none {r['ms']['one']}; launches {r['launches']} ({smi})")
+    cli = a["cli_fsdp_world1"]
+    if cli["rc"] != 0 or cli["steps"] != [P16_CLI_STEPS]:
+        raise AssertionError(f"phase16 (a) cli.train training.fsdp=true: {cli}")
+    log(f"phase16 (a) cli.train with training.fsdp=true at world 1: rc 0, checkpoint at step "
+        f"{cli['steps']}, {cli['wall_s']} s")
+
+    # the main path's launches: (a)'s DP steps, then (b)'s on each rank
+    launches = dict(zip(("decoder_tail_fwd", "decoder_tail_bwd"), a["vae"]["launches"]))
+    launches.update(zip(("dit_block", "dit_block_bwd"), a["ldm"]["launches"]))
+    launches.update(swiglu_vec_fwd=0, swiglu_vec_bwd=0)  # (b)'s FSDP arm
+    p16_check_ranks("(b) gloo, two ranks on one card",
+                    p16_children("gloo2", 2, seed, batch), batch, smi, launches)
+    import torch
+
+    if torch.cuda.device_count() >= 2:  # a machine with two cards: NCCL across them
+        p16_check_ranks("(c) NCCL, two cards", p16_children("nccl2", 2, seed, batch), batch,
+                        smi, launches)
+    log(f"phase16 took {time.perf_counter() - phase_t0:.1f} s ({smi})")
+    return launches
+
+
+def phase16_child(arm: str, seed: int, batch: int) -> int:
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    if arm == "nccl1":
+        p16_nccl_world1(seed, batch)
+    else:
+        p16_two_ranks(seed, batch, {"gloo2": "gloo", "nccl2": "nccl"}[arm])
+    return 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--batch", type=int, default=128,
                    help="cells per CFG half, and cells per training step")
+    p.add_argument("--phase16", default=None, help=argparse.SUPPRESS)  # a phase-16 child's arm
     args = p.parse_args(argv)
 
     import torch
@@ -5141,6 +5734,8 @@ def main(argv=None) -> int:
         print(f"chip_smoke: no scldm_torch sources beside {__file__}", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
+    if args.phase16:
+        return phase16_child(args.phase16, args.seed, args.batch)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
@@ -5219,6 +5814,9 @@ def main(argv=None) -> int:
     # -- phase 15: the transports, joint finetuning and the lean loss -------------------
     p15 = phase15_transports_joint_lean(args.seed, args.batch, smi)
 
+    # -- phase 16: data parallelism, FSDP and gene-SP on the one card -----------------
+    p16 = phase16_parallel(args.seed, args.batch, smi)
+
     tail_src = "scldm_torch/kernels/csrc/decoder_tail.cu"
     pool_src = "scldm_torch/kernels/csrc/encoder_pool.cu"
     pool_launches = {"dense_fwd": parse["encoder_pool_fwd"] + cli["encoder_pool_fwd"],
@@ -5239,13 +5837,14 @@ def main(argv=None) -> int:
         {"name": "dit_block", "route": "cuda", "source": dit_src,
          "replaces": "scldm_tpu/ops/fused_dit.py:155",
          "launches": launches + ldm_fwd + ldm_gen + joint["dit_block"] + cli["dit_block"]
-         + evals["dit_block"] + variants["dit_block"] + p15["dit_block"],
+         + evals["dit_block"] + variants["dit_block"] + p15["dit_block"] + p16["dit_block"],
          **dit_block[(16, 384)],
          **dit_block_bound(3 * args.batch, backward=False), "library_ms": None},
         {"name": "dit_block_bwd", "route": "cuda", "source": dit_bwd_src,
          "replaces": "scldm_tpu/ops/fused_dit.py:205",
          "launches": ldm_bwd + joint["dit_block_bwd"] + cli["dit_block_bwd"]
-         + evals["dit_block_bwd"] + variants["dit_block_bwd"] + p15["dit_block_bwd"],
+         + evals["dit_block_bwd"] + variants["dit_block_bwd"] + p15["dit_block_bwd"]
+         + p16["dit_block_bwd"],
          **dit_block_bwd[(16, 128)], **dit_block_bound(128, backward=True),
          "library_ms": None},
         {"name": "dit_block_t64", "route": "cuda", "source": dit_src,
@@ -5267,13 +5866,13 @@ def main(argv=None) -> int:
         {"name": "decoder_tail_fwd", "route": "cuda", "source": tail_src,
          "replaces": "scldm_tpu/ops/fused_decoder.py:262",
          "launches": fwd_launches + parse["decoder_tail_fwd"] + cli["decoder_tail_fwd"]
-         + variants["decoder_tail_fwd"] + p15["decoder_tail_fwd"],
+         + variants["decoder_tail_fwd"] + p15["decoder_tail_fwd"] + p16["decoder_tail_fwd"],
          **tail_fwd,
          **decoder_tail_bound(128, N_GENES, backward=False), "library_ms": None},
         {"name": "decoder_tail_bwd", "route": "cuda", "source": tail_src,
          "replaces": "scldm_tpu/ops/fused_decoder.py:294",
          "launches": bwd_launches + parse["decoder_tail_bwd"] + cli["decoder_tail_bwd"]
-         + variants["decoder_tail_bwd"] + p15["decoder_tail_bwd"],
+         + variants["decoder_tail_bwd"] + p15["decoder_tail_bwd"] + p16["decoder_tail_bwd"],
          **tail_bwd,
          **decoder_tail_bound(128, N_GENES, backward=True), "library_ms": None},
     ] + [
@@ -5292,7 +5891,8 @@ def main(argv=None) -> int:
          "source": "scldm_torch/kernels/csrc/swiglu_vec.cu",
          "replaces": f"scldm_tpu/ops/fused_swiglu.py:{line}",
          "launches": census_swiglu[(tag, part)]
-         + (p15[f"swiglu_vec_{part}"] if tag == "bf16" else 0), **swiglu[(tag, part)],
+         + (p15[f"swiglu_vec_{part}"] + p16[f"swiglu_vec_{part}"] if tag == "bf16" else 0),
+         **swiglu[(tag, part)],
          **(swiglu_vec_bound if tag == "f32" else swiglu_vec_bf16_bound)(
              CENSUS_BATCH * CENSUS["n_genes"], CENSUS["n_embed"], CENSUS_HIDDEN, part == "bwd"),
          "library_ms": None}

@@ -12,8 +12,15 @@ Three modes, chosen by the config:
 - `vae_only=true`: encode and reconstruct with the VAE alone (no LDM
   checkpoint needed).
 
-One process on one card (`device`, default cuda); JAX's mesh branches have no
-counterpart, and `n_model > 1` raises.
+One process a card (`device`, default cuda), one or several under torchrun.
+With several, `n_model` (default 1) must divide the world, as JAX's must
+divide its devices; the ranks form a (world / n_model, n_model) mesh, and
+`n_model > 1` sets `training.gene_sp`: each "model" rank decodes a range of
+the genes (never Megatron tensor parallelism, as in JAX). The data ranks
+split each generation batch and gather it back (`make_sample_fn
+(split_over_data=True)`); rank 0 writes the h5ad files. The encode paths
+(`inference_args`, `vae_only`) run on rank 0 alone. One process with
+`n_model=2` exits with JAX's message.
 """
 
 from __future__ import annotations
@@ -27,15 +34,14 @@ import torch
 from scldm_torch.cli._common import parse_config, setup_device
 from scldm_torch.cli.train_ldm import load_vae_from_checkpoint
 from scldm_torch.config.build import (
-    MULTI_CARD,
     build_datamodule,
     build_dit,
     build_ldm_task,
     build_vocabulary_encoder,
-    refuse,
 )
 from scldm_torch.ops.distributions import nb_sample
 from scldm_torch.ops.transforms import COUNTS, NON_CONDITION_KEYS
+from scldm_torch.parallel import make_mesh, maybe_initialize_distributed, rank, world_size
 from scldm_torch.sampling.size_factors import SizeFactorSampler
 from scldm_torch.training.checkpoint import CheckpointManager
 from scldm_torch.training.loop import to_device
@@ -67,10 +73,17 @@ def device_batch(batch: dict, device) -> dict:
 
 def main(argv=None) -> int:
     cfg = parse_config(argv, DEFAULT_CONFIG, __doc__)
+    maybe_initialize_distributed(cfg.get("device") or "cuda")
+    world = world_size()
     n_model = int(cfg.get("n_model") or 1)
-    if n_model > 1:
-        refuse(f"n_model={n_model}", MULTI_CARD)
+    if world % max(n_model, 1):
+        raise SystemExit(f"n_model={n_model} must divide the device count {world}")
     device = setup_device(cfg)
+    if device.type == "cuda" and world > 1:
+        device = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh(n_data=world // n_model, n_model=n_model) if world > 1 else None
+    if mesh is not None:
+        logger.info(f"inference mesh: {mesh}")
 
     vocab = build_vocabulary_encoder(cfg)
     datamodule = build_datamodule(cfg, vocab)
@@ -85,10 +98,15 @@ def main(argv=None) -> int:
     out_dir.mkdir(parents=True, exist_ok=True)
     dataset = cfg["datamodule"]["dataset"]
     if cfg.get("vae_only"):
+        if rank() != 0:
+            return 0
         return _vae_inference(vae, datamodule, vocab, out_dir, dataset, device)
 
     dit = build_dit(cfg)
-    task = build_ldm_task(cfg, vae, dit, max_steps=1)
+    if mesh is not None and n_model > 1:
+        # n_model means the gene-SP decode here, never Megatron TP (JAX's rule)
+        cfg["training"]["gene_sp"] = True
+    task = build_ldm_task(cfg, vae, dit, max_steps=1, mesh=mesh)
     # under vae_as_tokenizer.train the LDM checkpoint carries the finetuned
     # VAE, which the restore loads into `vae` for generation; the encode
     # path keeps the VAE checkpoint's weights, as JAX's (`task.vae_params`)
@@ -109,6 +127,7 @@ def main(argv=None) -> int:
             sampling_method=gen_args.get("sampling_method", "dopri5"),
             num_steps=int(gen_args.get("timesteps", 50)),
             use_ema=bool(gen_args.get("use_ema", True)),
+            split_over_data=True,
         )
         batches = []
         n_batches = int(gen_args.get("n_batches", 4))
@@ -131,10 +150,13 @@ def main(argv=None) -> int:
             out["z_generated_conditional"] = z[half:].reshape(half, -1)
             batches.append(out)
             logger.info(f"generated batch {i + 1}/{n_batches}")
-        path = process_generation_output(batches, vocab, out_dir, dataset=dataset)
-        logger.info(f"wrote {path}")
+        if rank() == 0:
+            path = process_generation_output(batches, vocab, out_dir, dataset=dataset)
+            logger.info(f"wrote {path}")
         return 0
 
+    if rank() != 0:
+        return 0
     inf_args = cfg.get("inference_args") or {}
     for i, batch in enumerate(datamodule.predict_batches()):
         dev = device_batch(batch, device)

@@ -11,6 +11,10 @@ the LDM checkpoints carry it (`LDMTask(train_vae=True)`).
 Usage:
     python -m scldm_torch.cli.train_ldm --config configs/ldm_training.yaml \
         datamodule.datamodule.train_adata_path=...
+    torchrun --nproc_per_node=N -m scldm_torch.cli.train_ldm ...  # data-parallel
+
+With several processes each rank reads the VAE checkpoint, trains on its
+own rows, and the ranks meet in the steps' collectives (`cli._common`).
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from scldm_torch.cli._common import parse_config, run_fit, setup_device
+from scldm_torch.cli._common import parse_config, run_fit, scale_lr, setup_parallel
 from scldm_torch.config.build import (
     build_datamodule,
     build_dit,
@@ -31,6 +35,7 @@ from scldm_torch.config.build import (
 )
 from scldm_torch.training.checkpoint import CheckpointManager, read_payload
 from scldm_torch.training.loop import CSVLogger
+from scldm_torch.parallel import rank, world_size
 from scldm_torch.utils.logger import logger
 
 DEFAULT_CONFIG = Path(__file__).resolve().parents[2] / "configs" / "ldm_training.yaml"
@@ -86,7 +91,11 @@ def generation_eval_hook(cfg: dict, task, vocab, datamodule, ckpt_dir, seed: int
     `on_validation_end` that, on the epochs `should_run` picks, generates
     from the EMA weights without guidance and writes the metrics of
     `evals.generation_eval.run_generation_eval` to `generation_eval.csv`
-    beside `metrics.csv`. None where disabled."""
+    beside `metrics.csv`. None where disabled. On several ranks each rank
+    evaluates against its own validation rows, as each JAX process does
+    against its host's; the file holds rank 0's figures, which cover 1/N of
+    the validation set (MMD and Sinkhorn are not means, so they are not
+    averaged over the ranks)."""
     gen_cfg = cfg["model"].get("eval_generation") or {}
     if not gen_cfg.get("enabled"):
         return None
@@ -100,15 +109,17 @@ def generation_eval_hook(cfg: dict, task, vocab, datamodule, ckpt_dir, seed: int
         num_steps=int(gen_cfg.get("timesteps", 50)),
         use_ema=True,
     )
-    csv_logger = CSVLogger(Path(ckpt_dir) / "generation_eval.csv")
+    csv_logger = CSVLogger(Path(ckpt_dir) / "generation_eval.csv") if rank() == 0 else None
 
     def on_validation_end(epoch, val_metrics, state):
         if not should_run(epoch, gen_cfg):
             return
+        # every rank generates from its own validation rows; rank 0 writes its own
         mets = run_generation_eval(sample_fn, state, datamodule.val_batches(),
                                    sample_size=int(gen_cfg.get("sample_size", 1024)),
                                    rng_seed=seed + epoch)
-        csv_logger.log({"epoch": epoch, **mets})
+        if csv_logger is not None:
+            csv_logger.log({"epoch": epoch, **mets})
 
     return on_validation_end
 
@@ -117,23 +128,25 @@ def main(argv=None) -> int:
     cfg = parse_config(argv, DEFAULT_CONFIG, __doc__)
     seed = int(cfg.get("seed", 42))
     np.random.seed(seed)
-    device = setup_device(cfg)
+    device, mesh = setup_parallel(cfg)
 
     vocab = build_vocabulary_encoder(cfg)
-    datamodule = build_datamodule(cfg, vocab)
+    datamodule = build_datamodule(cfg, vocab, num_hosts=world_size(), host_index=rank())
     datamodule.setup("fit")
-    max_steps = compute_max_steps(cfg, datamodule.n_cells)
+    max_steps = compute_max_steps(cfg, datamodule.n_cells, world_size=world_size())
+    base_lr = scale_lr(cfg)
 
     vae = load_vae_from_checkpoint(cfg)
     dit = build_dit(cfg)
-    task = build_ldm_task(cfg, vae, dit, max_steps)
-    state = task.init_state(torch.Generator(device).manual_seed(seed))
+    task = build_ldm_task(cfg, vae, dit, max_steps, mesh=mesh)
+    state = task.init_state(torch.Generator(device).manual_seed(seed + rank()))
     n_params = sum(p.numel() for p in dit.parameters())
     logger.info(f"DiT params: {n_params:,}; max_steps={max_steps}")
 
     ckpt_dir = cfg.get("checkpoint_dir", "outputs/checkpoints/ldm")
     on_validation_end = generation_eval_hook(cfg, task, vocab, datamodule, ckpt_dir, seed)
-    run_fit(cfg, task, datamodule, state, max_steps, ckpt_dir, on_validation_end)
+    run_fit(cfg, task, datamodule, state, max_steps, ckpt_dir, on_validation_end, mesh=mesh,
+            base_lr=base_lr)
     return 0
 
 

@@ -6,10 +6,11 @@ Usage:
     python -m scldm_torch.cli.train_scvi --config configs/vae_scvi_training.yaml \
         datamodule.datamodule.train_adata_path=data/dentate_gyrus_train.h5ad
 
-One process on one card (`device`, default cuda; `device=cpu` for the CPU):
-config -> vocabulary -> DataModule -> max_steps -> scVI VAE and task ->
-state -> checkpoint manager with the config snapshot -> preemption guard ->
-fit.
+One process a card (`device`, default cuda; `device=cpu` for the CPU), one
+or several under torchrun (data-parallel; `cli._common`): config -> process
+group and mesh -> vocabulary -> this rank's DataModule -> max_steps -> scVI
+VAE and task -> state -> checkpoint manager with the config snapshot ->
+preemption guard -> fit.
 """
 
 from __future__ import annotations
@@ -19,13 +20,14 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from scldm_torch.cli._common import parse_config, run_fit, setup_device
+from scldm_torch.cli._common import parse_config, run_fit, scale_lr, setup_parallel
 from scldm_torch.config.build import (
     build_datamodule,
     build_scvi_task,
     build_vocabulary_encoder,
     compute_max_steps,
 )
+from scldm_torch.parallel import rank, world_size
 from scldm_torch.utils.logger import logger
 
 DEFAULT_CONFIG = Path(__file__).resolve().parents[2] / "configs" / "vae_scvi_training.yaml"
@@ -35,22 +37,22 @@ def main(argv=None) -> int:
     cfg = parse_config(argv, DEFAULT_CONFIG, __doc__)
     seed = int(cfg.get("seed", 42))
     np.random.seed(seed)
-    device = setup_device(cfg)
-    logger.info(f"device: {device}")
+    device, mesh = setup_parallel(cfg)
 
     vocab = build_vocabulary_encoder(cfg)
-    datamodule = build_datamodule(cfg, vocab)
+    datamodule = build_datamodule(cfg, vocab, num_hosts=world_size(), host_index=rank())
     datamodule.setup("fit")
-    max_steps = compute_max_steps(cfg, datamodule.n_cells)
+    max_steps = compute_max_steps(cfg, datamodule.n_cells, world_size=world_size())
     logger.info(f"n_cells={datamodule.n_cells} max_steps={max_steps}")
+    base_lr = scale_lr(cfg)
 
-    task = build_scvi_task(cfg, max_steps)
-    state = task.init_state(torch.Generator(device).manual_seed(seed))
+    task = build_scvi_task(cfg, max_steps, mesh=mesh)
+    state = task.init_state(torch.Generator(device).manual_seed(seed + rank()))
     n_params = sum(p.numel() for p in task.vae.parameters())
     logger.info(f"scVI params: {n_params:,}")
 
     ckpt_dir = cfg.get("checkpoint_dir", "outputs/checkpoints/scvi")
-    run_fit(cfg, task, datamodule, state, max_steps, ckpt_dir)
+    run_fit(cfg, task, datamodule, state, max_steps, ckpt_dir, mesh=mesh, base_lr=base_lr)
     return 0
 
 

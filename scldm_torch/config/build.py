@@ -14,12 +14,14 @@ both as in JAX.
 Every model value JAX's builders take is passed on: the VAE's dropout,
 `positional_encoding`, `shared_embedding`, `agg_func`, `decoder_name`,
 `remat_cross` and `cross_chunks`, and the DiT's dropout; an unknown
-`agg_func` or `decoder_name` raises a ValueError, as in JAX. A config value
-the port cannot honour raises NotImplementedError naming the ROADMAP item
-that would bring it; none is ignored: `fsdp`, `gene_sp` and
-`pipeline_microbatches` (queue 1, item 11). Every transport JAX's factory
-takes is built, and `vae_as_tokenizer.train: true` finetunes the VAE inside
-the LDM (`LDMTask(train_vae=True)`), as in JAX.
+`agg_func` or `decoder_name` raises a ValueError, as in JAX. The parallel
+keys `training.fsdp`, `gene_sp` and `pipeline_microbatches` go to the tasks
+with the CLIs' `mesh`, as JAX's builders pass them: without a mesh (one
+process) or at a "model" axis of 1 they change nothing, as in JAX; a
+pipeline over a "model" axis above 1 raises in `LDMTask` (ROADMAP item 11b).
+Every transport JAX's factory takes is built, and
+`vae_as_tokenizer.train: true` finetunes the VAE inside the LDM
+(`LDMTask(train_vae=True)`), as in JAX.
 """
 
 from __future__ import annotations
@@ -42,14 +44,6 @@ from scldm_torch.utils.weights import init_reference_
 # JAX's `_DTYPES`: the compute dtypes a config may name
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
-# what each config value the port refuses waits for (ROADMAP.md)
-MULTI_CARD = "ROADMAP queue 1, item 11 (more than one card)"
-
-
-def refuse(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported: {item}")
-
-
 def resolve_device(cfg: Dict) -> torch.device:
     """The config's `device` (default "cuda"). A card that is not there
     raises: nothing falls back to the CPU."""
@@ -67,12 +61,6 @@ def compute_dtype(cfg: Dict) -> torch.dtype:
     if name not in DTYPES:
         raise ValueError(f"model.compute_dtype={name}: expected one of {sorted(DTYPES)}")
     return DTYPES[name]
-
-
-def _check_parallel(tr: Dict) -> None:
-    for key in ("fsdp", "gene_sp"):
-        if tr.get(key):
-            refuse(f"training.{key}=true", MULTI_CARD)
 
 
 def _generator(cfg: Dict, device: torch.device) -> torch.Generator:
@@ -175,12 +163,11 @@ def build_scvi_vae(cfg: Dict) -> ScviVAE:
     return init_reference_(vae, _generator(cfg, device))
 
 
-def build_scvi_task(cfg: Dict, max_steps: int) -> ScviTask:
+def build_scvi_task(cfg: Dict, max_steps: int, mesh=None) -> ScviTask:
     m = cfg["model"]["scvi"]
     opt = cfg["model"]["optimizer"]
     sch = cfg["model"]["scheduler"]
     tr = cfg["training"]
-    _check_parallel(tr)
     return ScviTask(
         build_scvi_vae(cfg),
         n_latent=m.get("n_latent", 10),
@@ -193,14 +180,14 @@ def build_scvi_task(cfg: Dict, max_steps: int) -> ScviTask:
         num_warmup_steps=sch.get("num_warmup_steps"),
         decay_type=sch.get("decay_type", "sqrt"),
         fract_decay=float(sch.get("fract_decay", 0.1)),
+        mesh=mesh,
     )
 
 
-def build_vae_task(cfg: Dict, vae: TransformerVAE, max_steps: int) -> VAETask:
+def build_vae_task(cfg: Dict, vae: TransformerVAE, max_steps: int, mesh=None) -> VAETask:
     opt = cfg["model"]["optimizer"]
     sch = cfg["model"]["scheduler"]
     tr = cfg["training"]
-    _check_parallel(tr)
     return VAETask(
         vae,
         learning_rate=float(opt.get("lr", 1e-3)),
@@ -215,6 +202,9 @@ def build_vae_task(cfg: Dict, vae: TransformerVAE, max_steps: int) -> VAETask:
         fract_decay=float(sch.get("fract_decay", 0.1)),
         decay_type=sch.get("decay_type", "sqrt"),
         calculate_grad_norms=tr.get("calculate_grad_norms", False),
+        mesh=mesh,
+        fsdp=bool(tr.get("fsdp", False)),
+        gene_sp=bool(tr.get("gene_sp", False)),
         # None = on at E > 128, as in JAX; configs may pin true / false
         algebraic_tail=tr.get("algebraic_tail"),
     )
@@ -260,7 +250,8 @@ def _maybe_float(v):
     return float(v) if v is not None else None
 
 
-def build_ldm_task(cfg: Dict, vae: TransformerVAE, dit: DiT, max_steps: int) -> LDMTask:
+def build_ldm_task(cfg: Dict, vae: TransformerVAE, dit: DiT, max_steps: int,
+                   mesh=None) -> LDMTask:
     """The LDM task over `vae` (the port's task holds the VAE module with
     its weights, so JAX's separate `vae_params` has no counterpart here),
     frozen, or finetuned with the DiT under `vae_as_tokenizer.train`."""
@@ -268,9 +259,6 @@ def build_ldm_task(cfg: Dict, vae: TransformerVAE, dit: DiT, max_steps: int) -> 
     sch = cfg["model"]["scheduler"]
     ema = cfg["model"].get("ema", {})
     tr = cfg["training"]
-    _check_parallel(tr)
-    if tr.get("pipeline_microbatches"):
-        refuse(f"training.pipeline_microbatches={tr['pipeline_microbatches']}", MULTI_CARD)
     return LDMTask(
         vae,
         dit,
@@ -289,6 +277,10 @@ def build_ldm_task(cfg: Dict, vae: TransformerVAE, dit: DiT, max_steps: int) -> 
         ema_update_after_step=int(ema.get("update_after_step", 10_000)),
         train_vae=bool((cfg["model"].get("vae_as_tokenizer") or {}).get("train", False)),
         calculate_grad_norms=tr.get("calculate_grad_norms", False),
+        mesh=mesh,
+        fsdp=bool(tr.get("fsdp", False)),
+        pipeline_microbatches=tr.get("pipeline_microbatches"),
+        gene_sp=bool(tr.get("gene_sp", False)),
         algebraic_decode=bool(tr.get("algebraic_decode", False)),
     )
 

@@ -3,13 +3,18 @@ posterior and NB heads (counterpart of scldm_tpu/nn/heads.py)."""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from scldm_torch.nn.layers import LayerNormFP32, Linear, linear_f32
+
+
+def softmax_genes(x: torch.Tensor) -> torch.Tensor:
+    """The softmax over the gene axis of (B, G) logits."""
+    return torch.softmax(x, dim=1)
 
 
 class NegativeBinomialTransformerHead(nn.Module):
@@ -20,7 +25,9 @@ class NegativeBinomialTransformerHead(nn.Module):
     f32. With `shared_theta` the logit is Linear(E -> 1)(h) and theta =
     exp(theta_table[genes]) from an (n_genes + 1, 1) f32 table; without it
     `params` is Linear(E -> 2)(h), the logit and log-theta of each gene token.
-    theta is exponentiated in f32."""
+    theta is exponentiated in f32. `softmax` takes the scaled logits (B, G)
+    to their softmax over the genes: under gene-SP each rank holds a range
+    of the genes, and `parallel.gene_sp.GeneSP.softmax` spans the ranks."""
 
     def __init__(self, n_genes: int, n_embed: int, dtype: torch.dtype = torch.float32,
                  shared_theta: bool = True, t: float = 1.0):
@@ -35,6 +42,7 @@ class NegativeBinomialTransformerHead(nn.Module):
         h: torch.Tensor,  # (B, G, E)
         genes: torch.Tensor,  # (G,) or (B, G) gene ids
         library_size: torch.Tensor,  # (B, 1)
+        softmax: Callable[[torch.Tensor], torch.Tensor] = softmax_genes,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         out = linear_f32(h, self.params, self.params.compute_dtype)
         if self.shared_theta:
@@ -42,7 +50,7 @@ class NegativeBinomialTransformerHead(nn.Module):
         else:
             mu, log_theta = out[..., 0], out[..., 1]
         theta = torch.exp(log_theta.float())
-        mu = torch.softmax(mu.float() / self.t, dim=1) * library_size
+        mu = softmax(mu.float() / self.t) * library_size
         return mu, theta
 
 

@@ -39,11 +39,16 @@ class BatchNorm(nn.Module):
     updated with the biased batch variance E[x^2] - E[x]^2 (clipped at 0,
     the variance it normalises by), eps 1e-5. With `train` the batch's
     statistics normalise and the buffers move; otherwise the running
-    averages normalise. The buffers are JAX's `batch_stats` (`mean`, `var`)."""
+    averages normalise. The buffers are JAX's `batch_stats` (`mean`, `var`).
+    With `group` (the data ranks of a mesh) the batch is every rank's rows:
+    the row sums of x and x^2 and the row count are summed over it
+    (`parallel.data_parallel.sync_sum`), as JAX's statistics of a batch
+    sharded over its mesh."""
 
     def __init__(self, n: int, momentum: float = 0.99, eps: float = 1e-5):
         super().__init__()
         self.momentum, self.eps = momentum, eps
+        self.group = None
         self.weight = nn.Parameter(torch.ones(n))
         self.bias = nn.Parameter(torch.zeros(n))
         self.register_buffer("running_mean", torch.zeros(n))
@@ -52,8 +57,16 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if train:
             dims = tuple(range(x.ndim - 1))
-            mean = x.mean(dims)
-            var = torch.clamp_min(x.square().mean(dims) - mean.square(), 0.0)
+            if self.group is None:
+                mean, mean_sq = x.mean(dims), x.square().mean(dims)
+            else:
+                from scldm_torch.parallel.data_parallel import sync_sum
+
+                n = x.shape[-1]
+                rows = x.new_tensor([x.numel() // n])
+                sums = sync_sum(torch.cat([x.sum(dims), x.square().sum(dims), rows]), self.group)
+                mean, mean_sq = sums[:n] / sums[-1], sums[n: 2 * n] / sums[-1]
+            var = torch.clamp_min(mean_sq - mean.square(), 0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)

@@ -11,7 +11,7 @@ MLP baseline with an explicit Gaussian posterior."""
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -21,6 +21,7 @@ from scldm_torch.nn.heads import (
     GaussianTransformerHead,
     NegativeBinomialLinearHead,
     NegativeBinomialTransformerHead,
+    softmax_genes,
 )
 from scldm_torch.nn.layers import Drops, InputTransformerVAE
 from scldm_torch.nn.nnets import Decoder, DecoderScvi, Encoder, EncoderScvi
@@ -52,11 +53,12 @@ class TransformerVAE(nn.Module):
         return genes
 
     def _head_params(
-        self, h_x: torch.Tensor, genes: torch.Tensor, library_size: torch.Tensor
+        self, h_x: torch.Tensor, genes: torch.Tensor, library_size: torch.Tensor,
+        softmax: Callable[[torch.Tensor], torch.Tensor] = softmax_genes,
     ) -> Dict[str, torch.Tensor]:
         if isinstance(self.decoder_head, GaussianTransformerHead):
             return {"mu": self.decoder_head(h_x)}
-        mu, theta = self.decoder_head(h_x, genes, library_size)
+        mu, theta = self.decoder_head(h_x, genes, library_size, softmax)
         return {"mu": mu, "theta": theta}
 
     def forward(

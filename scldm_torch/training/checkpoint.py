@@ -19,6 +19,15 @@ never leaves a checkpoint that looks whole; a step directory without
 `state.pt` is not a checkpoint. A JSON config snapshot (`config.json`) sits
 beside the steps. Checkpoints load with `torch.load(weights_only=True)`:
 tensors, numbers and strings only.
+
+Under a process group the payload is the one-process format: rank 0 writes
+full tensors, the module and the optimizer state gathered out of FSDP
+slices, and `generators` holds every rank's generator state; the other ranks
+take part in the gathers and wait at a barrier. So a run saved at one world
+size resumes at another: a load slices the full tensors for FSDP, and a
+rank without a saved generator state draws a seed from rank 0's. Where the
+ranks span machines, a directory under /tmp, /var or /dev/shm is refused
+(JAX's guard): every rank must read what rank 0 wrote.
 """
 
 from __future__ import annotations
@@ -31,6 +40,9 @@ from pathlib import Path
 from typing import Any, Dict, List, Optional
 
 import torch
+import torch.distributed as dist
+
+from scldm_torch.parallel.distributed import barrier, rank, spans_nodes, world_size
 
 STATE_FILE = "state.pt"
 METRICS_FILE = "metrics.json"
@@ -47,27 +59,68 @@ def _to_host(obj):
     return obj
 
 
-def snapshot(state, metrics: Optional[dict] = None) -> Dict[str, Any]:
-    """The checkpoint payload of a `training.state.TrainState`, in host memory."""
-    return {
-        "module": _to_host(state.module.state_dict()),
-        "optimizer": _to_host(state.optimizer.state_dict()),
+def snapshot(state, metrics: Optional[dict] = None) -> Optional[Dict[str, Any]]:
+    """The checkpoint payload of a `training.state.TrainState`, in host
+    memory. Under a process group every rank must call it (FSDP slices and
+    the generators are gathered); rank 0 gets the payload, the others None."""
+    world, first = world_size(), rank() == 0
+    generators = None
+    if world > 1:
+        generators = [None] * world
+        dist.all_gather_object(generators, state.generator.get_state())
+    if state.shards is not None:
+        with state.shards.gathered():
+            module = _to_host(state.module.state_dict()) if first else None
+        optimizer = state.shards.full_optimizer_state(state.optimizer)
+    else:
+        module = _to_host(state.module.state_dict()) if first else None
+        optimizer = state.optimizer.state_dict()
+    if not first:
+        return None
+    payload = {
+        "module": module,
+        "optimizer": _to_host(optimizer),
         "step": int(state.step),
         "generator": state.generator.get_state().clone(),
         "ema": None if state.ema is None else {
             "params": _to_host(state.ema.params), "step": int(state.ema.step)},
         "metrics": dict(metrics or {}),
     }
+    if generators is not None:
+        payload["generators"] = [g.clone() for g in generators]
+    return payload
+
+
+def _set_generator(generator: torch.Generator, payload: Dict[str, Any]) -> None:
+    """This rank's saved generator state, or for a rank the saved run did not
+    have, a seed drawn from rank 0's plus the rank."""
+    r = rank()
+    saved = payload.get("generators") or [payload["generator"]]
+    if r < len(saved):
+        generator.set_state(saved[r])
+        return
+    generator.set_state(payload["generator"])
+    seed = int(torch.randint(0, 2**62, (1,), generator=generator, device=generator.device))
+    generator.manual_seed(seed + r)
 
 
 @torch.no_grad()
 def load_into(template, payload: Dict[str, Any]):
     """Copy a payload into the train state `template`, in place, on the
-    template's device; returns it."""
-    template.module.load_state_dict(payload["module"])
-    template.optimizer.load_state_dict(payload["optimizer"])
+    template's device; returns it. Under FSDP each rank keeps its slices of
+    the full tensors."""
+    shards = template.shards
+    if shards is None:
+        template.module.load_state_dict(payload["module"])
+        template.optimizer.load_state_dict(payload["optimizer"])
+    else:
+        with shards.gathered():
+            template.module.load_state_dict(payload["module"])
+            shards.load_slices()
+        template.optimizer.load_state_dict(
+            shards.sliced_optimizer_state(payload["optimizer"], template.optimizer))
     template.step = int(payload["step"])
-    template.generator.set_state(payload["generator"])
+    _set_generator(template.generator, payload)
     if (payload["ema"] is None) != (template.ema is None):
         raise ValueError("the checkpoint and the template disagree on having an EMA")
     if template.ema is not None:
@@ -140,7 +193,9 @@ class CheckpointManager:
 
     `async_save=True` copies the state to host memory in the caller, then
     writes on one background thread, so the write overlaps training;
-    `close()` and every reader wait for the writes in flight."""
+    `close()` and every reader wait for the writes in flight. Under a
+    process group every rank calls `save` (the snapshot gathers), rank 0
+    writes, and the ranks meet at a barrier once the write is done."""
 
     def __init__(
         self,
@@ -152,6 +207,10 @@ class CheckpointManager:
         async_save: bool = False,
     ):
         self.directory = Path(directory).absolute()
+        if spans_nodes() and str(self.directory).startswith(("/tmp/", "/var/", "/dev/shm/")):
+            raise ValueError(
+                f"checkpoint dir {self.directory} is host-local but this run's ranks span "
+                "machines; use a filesystem every rank reads (NFS, a bucket mount)")
         self._steps = _StepDirs(self.directory, max_to_keep)
         self.monitor = monitor
         self._best = (_StepDirs(self.directory / "best", save_top_k, monitor, mode)
@@ -159,6 +218,7 @@ class CheckpointManager:
         self.async_save = async_save
         self._writer = ThreadPoolExecutor(max_workers=1) if async_save else None
         self._pending: list = []
+        self._barrier_due = False
 
     def _write(self, step: int, payload: Dict[str, Any]) -> None:
         self._steps.write(step, payload)
@@ -173,18 +233,28 @@ class CheckpointManager:
             return False
         metrics = {k: float(v) for k, v in (metrics or {}).items()}
         payload = snapshot(state, metrics)
-        if self._writer is None:
+        if payload is None:
+            pass  # another rank than 0: rank 0 writes
+        elif self._writer is None:
             self._write(step, payload)
         else:
             self._pending.append(self._writer.submit(self._write, step, payload))
+        if world_size() > 1:
+            self._barrier_due = True
+            if self._writer is None:
+                self.wait_until_finished()
         return True
 
     def wait_until_finished(self) -> None:
-        """Wait for the writes in flight (none with synchronous saves);
-        re-raises a write's error."""
+        """Wait for the writes in flight (none with synchronous saves), and
+        under a process group for rank 0's last write; re-raises a write's
+        error."""
         pending, self._pending = self._pending, []
         for f in pending:
             f.result()
+        if self._barrier_due:
+            self._barrier_due = False
+            barrier()
 
     def latest_step(self) -> Optional[int]:
         self.wait_until_finished()
@@ -224,7 +294,10 @@ class CheckpointManager:
         return self.restore(template, step), step
 
     def save_config(self, config: dict, name: str = "config.json") -> None:
-        (self.directory / name).write_text(json.dumps(config, indent=2, default=str))
+        """Write the config snapshot (rank 0; the others wait for it)."""
+        if rank() == 0:
+            (self.directory / name).write_text(json.dumps(config, indent=2, default=str))
+        barrier()
 
     def load_config(self, name: str = "config.json") -> Optional[dict]:
         p = self.directory / name

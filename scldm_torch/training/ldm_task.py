@@ -38,10 +38,26 @@ bf16 first, as in JAX). CPU tensors, `fused_training=False` and
 `make_sample_fn(fused_blocks=False)` run the module DiT in its dtype, as
 JAX does off the TPU; so does a DiT with dropout, in training and in
 sampling, as JAX's gates close there.
+
+On a mesh (`parallel.make_mesh`; a rank is a JAX process) the steps are
+data-parallel over "data", as `vae_task.VAETask`'s: the initial weights from
+rank 0, the gradients averaged over "data" before the clip, the metrics the
+global means, the EMA replicated. The kernel gates stay as on one card, under
+FSDP too (each rank runs a one-card step, under FSDP on the gathered
+weights; JAX closes them under a multi-device mesh, which changes the
+dispatch, not the math); under gene-SP they close, as JAX's. `fsdp` slices the train state's module over
+"data" (`parallel.data_parallel.FlatShards`); `gene_sp` with a "model" axis
+above 1 decodes the generation's genes in contiguous ranges over the model
+ranks (`parallel.gene_sp`), and `make_sample_fn(split_over_data=True)`
+splits a generation batch over the data ranks and gathers it back. A model
+axis above 1 without gene-SP, and `pipeline_microbatches` there, are JAX's
+Megatron and GPipe layouts and raise NotImplementedError (ROADMAP item 11b);
+at a model axis of 1 both keys are ignored, as in JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 from typing import Dict, Optional, Tuple
 
@@ -64,6 +80,14 @@ from scldm_torch.ops.transforms import (
     NON_CONDITION_KEYS,
     widen_lean,
 )
+from scldm_torch.parallel.data_parallel import (
+    Layout,
+    full_weights,
+    step_gradients,
+    trained_params,
+)
+from scldm_torch.parallel.gene_sp import GeneSP
+from scldm_torch.parallel.mesh import TENSOR_PARALLEL
 from scldm_torch.sampling.size_factors import SizeFactorSampler
 from scldm_torch.training import metrics as M
 from scldm_torch.training.ema import ema_init, ema_update
@@ -74,6 +98,7 @@ from scldm_torch.training.vae_task import (
     _fused_window_ok,
     algebraic_decode,
     fused_window_pooling,
+    gene_sp_decode,
 )
 from scldm_torch.transport import Sampler, Transport
 
@@ -148,6 +173,10 @@ class LDMTask:
         algebraic_vw_fold: Optional[bool] = None,
         algebraic_fused_gate: bool = False,
         train_vae: bool = False,
+        mesh=None,
+        fsdp: bool = False,
+        gene_sp: bool = False,
+        pipeline_microbatches: Optional[int] = None,
     ):
         self.vae = vae
         self.train_vae = bool(train_vae)
@@ -158,7 +187,21 @@ class LDMTask:
         if fused_training and dit.dropout > 0:
             raise ValueError(f"fused_training=True: the DiT kernels have no dropout, and this "
                              f"DiT's is {dit.dropout}")
-        self.fused_training = False if self.train_vae else fused_training
+        self.layout = None if mesh is None else Layout(mesh, fsdp=fsdp)
+        n_model = 1 if mesh is None else self.layout.n_model
+        if n_model > 1 and pipeline_microbatches:
+            raise NotImplementedError(f"pipeline_microbatches={pipeline_microbatches} over a "
+                                      f"'model' axis of {n_model} is not ported: {TENSOR_PARALLEL}")
+        if n_model > 1 and not gene_sp:
+            raise NotImplementedError(f"a 'model' axis of {n_model} without gene_sp is not "
+                                      f"ported: {TENSOR_PARALLEL}")
+        self.gene_sp = bool(gene_sp) and n_model > 1
+        self._sp = GeneSP(self.layout.model_group, vae.decoder.n_genes) if self.gene_sp else None
+        # JAX's gates close under a multi-device mesh; the port's ranks run
+        # one-card steps (under FSDP on the gathered weights), so only
+        # gene-SP, whose NB softmax spans the ranks, closes them
+        self._closed = self.gene_sp
+        self.fused_training = False if (self.train_vae or self._closed) else fused_training
         self.fused_encode = bool(fused_encode) and not self.train_vae
         if algebraic_decode is None:
             algebraic_decode = vae.decoder.n_embed > 128
@@ -166,7 +209,8 @@ class LDMTask:
         if algebraic_vw_fold is None:
             algebraic_vw_fold = self.algebraic_decode
         self.algebraic_vw_fold = bool(algebraic_vw_fold) and self.algebraic_decode
-        self.algebraic_fused_gate = bool(algebraic_fused_gate) and self.algebraic_decode
+        self.algebraic_fused_gate = (bool(algebraic_fused_gate) and self.algebraic_decode
+                                     and not self._closed)
         self.grad_clip = grad_clip
         self.ema_cfg = dict(beta=ema_decay, update_every=ema_update_every,
                             update_after_step=ema_update_after_step)
@@ -188,16 +232,22 @@ class LDMTask:
         """A fresh optimizer and EMA over `self.dit` (and with `train_vae` an
         optimizer over `self.vae` too, the state's module a `JointLDM`),
         whose modules keep the weights they hold; `generator` is the source
-        of the steps' draws. The EMA covers the DiT alone."""
+        of the steps' draws. The EMA covers the DiT alone. On a mesh every
+        rank takes rank 0's weights; under FSDP the optimizer updates the
+        module's slices and its sharded tensors are emptied."""
         module = self.dit
         if self.train_vae:
             module = JointLDM(self.dit, self.vae.requires_grad_(True))
             if self.vae.encoder.pos_embed is not None:
                 # the all-zeros positional table stays frozen (JAX stops its gradient)
                 self.vae.encoder.pos_embed.requires_grad_(False)
-        params = [p for p in module.parameters() if p.requires_grad]
-        return create_train_state(module, AdamW(params, **self._opt_kwargs), generator,
-                                  ema=ema_init(self.dit.named_parameters()))
+        params, shards = trained_params(self.layout, module,
+                                        *(() if self.train_vae else (self.vae,)))
+        state = create_train_state(module, AdamW(params, **self._opt_kwargs), generator,
+                                   ema=ema_init(self.dit.named_parameters()), shards=shards)
+        if shards is not None:
+            shards.free()
+        return state
 
     @staticmethod
     def state_dit(state: TrainState) -> DiT:
@@ -265,36 +315,43 @@ class LDMTask:
                    noise: Optional[Dict[str, torch.Tensor]] = None) -> Tuple[TrainState, Dict]:
         """One optimizer step and EMA tick; updates `state` in place and
         returns it with the step's metrics (0-d tensors on the batch's
-        device). `noise` as in `loss`."""
+        device). `noise` as in `loss`. Under FSDP the full weights are
+        gathered for the forward and backward."""
         state.optimizer.zero_grad(set_to_none=True)
+        if state.shards is not None:
+            state.shards.gather()
         loss = self.loss(batch, state.generator, noise)
         loss.backward()
-        return state, {"train_loss": loss.detach(), **self.apply_gradients(state)}
+        return state, self.apply_gradients(state, {"train_loss": loss.detach()})
 
-    def apply_gradients(self, state: TrainState) -> Dict[str, torch.Tensor]:
-        """The step after the backward: the global-norm clip of the module's
+    def apply_gradients(self, state: TrainState, metrics: Optional[Dict] = None
+                        ) -> Dict[str, torch.Tensor]:
+        """The step after the backward: on a mesh the gradients' reduction
+        (and `metrics`' means over "data"), the global-norm clip of the
         gradients, the optimizer step on the schedule and the EMA tick.
-        Updates `state` in place and returns grad_norm, lr_mult and, with
-        `calculate_grad_norms`, the per-module norms. Under `train_vae` a
-        parameter the loss did not reach takes a zero gradient, so the
-        optimizer updates it as optax updates every leaf."""
+        Updates `state` in place and returns `metrics` with grad_norm,
+        lr_mult and, with `calculate_grad_norms`, the per-module norms.
+        Under `train_vae` a parameter the loss did not reach takes a zero
+        gradient, so the optimizer updates it as optax updates every leaf."""
         if self.train_vae:
             for p in state.module.parameters():
                 if p.requires_grad and p.grad is None:
                     p.grad = torch.zeros_like(p)
-        named = [(n, p.grad) for n, p in state.module.named_parameters() if p.grad is not None]
+        metrics, named, norm = step_gradients(self.layout, state, metrics)
         grads = [g for _, g in named]
-        gnorm = M.global_norm(grads)
+        gnorm = norm(grads)
         torch._foreach_mul_(grads, torch.clamp(self.grad_clip / (gnorm + 1e-12), max=1.0))
         lr_mult = self.schedule(state.step)
         state.optimizer.step()
         state.step += 1
-        state.ema = ema_update(state.ema, self.state_dit(state).named_parameters(),
-                               **self.ema_cfg)
-        mets = {"grad_norm": gnorm.detach(), "lr_mult": torch.tensor(lr_mult, device=gnorm.device)}
+        blend = (state.ema.step + 1) % self.ema_cfg["update_every"] == 0
+        with full_weights(self.layout, state) if blend else contextlib.nullcontext():
+            state.ema = ema_update(state.ema, self.state_dit(state).named_parameters(),
+                                   **self.ema_cfg)
+        metrics.update(grad_norm=gnorm.detach(), lr_mult=torch.tensor(lr_mult, device=gnorm.device))
         if self.calculate_grad_norms:
-            mets.update(M.grad_norms_by_module(named, prefix="grad_norm/diffusion"))
-        return mets
+            metrics.update(M.grad_norms_by_module(named, prefix="grad_norm/diffusion", norm=norm))
+        return metrics
 
     def train_steps(self, state: TrainState, stacked: Dict) -> Tuple[TrainState, Dict]:
         """K steps, one per slice of the leading axis of `stacked`'s leaves
@@ -313,7 +370,10 @@ class LDMTask:
         """Validation loss on the module path, with the online or the EMA
         weights, without CFG dropout (the encode under `train_vae` with the
         finetuned VAE); draws and `noise` as in `loss`."""
-        noise = noise or {}
+        with full_weights(self.layout, state):
+            return self._eval_step(state, batch, generator, use_ema, noise or {})
+
+    def _eval_step(self, state, batch, generator, use_ema, noise):
         z = self._encode(batch)
         condition = split_condition(batch, self.dit.class_vocab_sizes)
         dit = self.ema_module(state) if use_ema else self.state_dit(state)
@@ -350,6 +410,7 @@ class LDMTask:
         num_steps: int = 50,
         use_ema: bool = True,
         fused_blocks: bool = True,
+        split_over_data: bool = False,
     ):
         """Returns fn(generator, genes, condition=None, batch_size=None,
         state=None) -> (counts (2B, G), z (2B, M, E_latent)): the first half
@@ -367,7 +428,15 @@ class LDMTask:
         gate closes at any DiT dropout) the denoiser is the module path,
         `DiT.forward_with_cfg_batched`. After each call `fn.drift_evals`
         holds the number of DiT evaluations it made. The counts are NB
-        draws: a Gaussian-head VAE, which has no theta, raises at the call."""
+        draws: a Gaussian-head VAE, which has no theta, raises at the call.
+
+        On a mesh with `split_over_data` every rank passes the same global
+        batch and draws the same noise; each data rank integrates its block
+        of rows (dopri5's error norm taken over every rank's rows, so all
+        take JAX's steps) and the rows are gathered back before the NB draw,
+        so every rank returns the whole batch. A batch the data axis does not
+        divide runs whole on every rank (JAX leaves it replicated). Under
+        FSDP the state's full weights are gathered for the call."""
         if guidance_weight and self.dit.cfg_dropout_prob <= 0:
             raise ValueError(
                 "CFG guidance needs null-token embedding rows, which only exist "
@@ -394,14 +463,31 @@ class LDMTask:
             device = generator.device
             log_sf = size_factor_sampler.sample(generator, condition, batch_size, device)
             z0 = torch.randn((batch_size, seq_len, latent), generator=generator, device=device)
-            samples, out, fn.drift_evals = self.generate_from_noise(
-                z0, log_sf, genes, condition,
-                guidance_weight=guidance_weight, sampling_method=sampling_method,
-                num_steps=num_steps,
-                dit=None if state is None else (
-                    self.ema_module(state) if use_ema else self.state_dit(state)),
-                fused_blocks=fused_blocks,
-            )
+            layout = self.layout
+            split = (split_over_data and layout is not None and layout.n_data > 1
+                     and batch_size % layout.n_data == 0)
+            if split:
+                b = batch_size // layout.n_data
+                rows = slice(layout.data_rank * b, (layout.data_rank + 1) * b)
+                z0, log_sf = z0[rows], log_sf[rows]
+                condition = {k: v[rows] for k, v in condition.items()} if condition else condition
+                genes = genes[rows] if genes.ndim == 2 else genes
+            with full_weights(layout, state):
+                samples, out, fn.drift_evals = self.generate_from_noise(
+                    z0, log_sf, genes, condition,
+                    guidance_weight=guidance_weight, sampling_method=sampling_method,
+                    num_steps=num_steps,
+                    dit=None if state is None else (
+                        self.ema_module(state) if use_ema else self.state_dit(state)),
+                    fused_blocks=fused_blocks,
+                    error_mean=layout.data_mean if split else None,
+                )
+            if split:
+                def gather(x):  # [uncond rows; cond rows] of every rank, in rank order
+                    return torch.cat([layout.gather_rows(x[:b]), layout.gather_rows(x[b:])])
+
+                samples = gather(samples)
+                out = {k: gather(v) if k == "mu" or v.ndim == 2 else v for k, v in out.items()}
             return nb_sample(out["mu"], out["theta"], generator), samples
 
         fn.drift_evals = 0
@@ -420,18 +506,21 @@ class LDMTask:
         num_steps: int = 50,
         dit: Optional[DiT] = None,
         fused_blocks: bool = True,
+        error_mean=None,
     ):
         """The deterministic part of sampling, from given noise and size
         factors, with `dit` (default the task's): returns (samples (2B, M,
         E_latent), {"mu", "theta"}, number of DiT evaluations). The decode
         takes `vae_task.algebraic_decode` where the task resolved it on and
         `genes` is the canonical row 1..G (checked on the host, once per
-        call), the module decode otherwise."""
+        call), the module decode otherwise; under gene-SP each "model" rank
+        decodes its genes and the ranks' genes are gathered. `error_mean`
+        is dopri5's mean in its error norm (`Sampler.sample_ode`)."""
         sample_ode = self.transport_sampler.sample_ode(
-            sampling_method=sampling_method, num_steps=num_steps
+            sampling_method=sampling_method, num_steps=num_steps, error_mean=error_mean
         )
         dit = self.dit if dit is None else dit
-        fused_blocks = self._fused_sampler(dit, fused_blocks)
+        fused_blocks = self._fused_sampler(dit, fused_blocks) and not self._closed
         z_cfg = torch.cat([z0, z0]).float()
         condition_cfg = {k: torch.cat([v, v]) for k, v in condition.items()} if condition else None
         block_params = [extract_block_params(b) for b in dit.blocks] if fused_blocks else None
@@ -456,11 +545,17 @@ class LDMTask:
         genes_cfg = genes if genes.ndim == 1 else torch.cat([genes, genes])
         sf = torch.exp(log_sf.float()).reshape(-1, 1)
         sf_cfg = torch.cat([sf, sf])
+        sp = self._sp
         if self._decode_is_algebraic(genes):
             out = algebraic_decode(self.vae, samples, sf_cfg, fused_gate=self.algebraic_fused_gate,
-                                   vw_fold=self.algebraic_vw_fold)
+                                   vw_fold=self.algebraic_vw_fold,
+                                   **({} if sp is None else {"gene_sp": sp}))
+        elif sp is not None:
+            out = gene_sp_decode(self.vae, samples, genes_cfg, sf_cfg, sp)
         else:
             out = self.vae.decode(samples, genes_cfg, sf_cfg)
+        if sp is not None:
+            out = {k: sp.gather(v, -1) for k, v in out.items()}
         return samples, out, evals
 
     @staticmethod

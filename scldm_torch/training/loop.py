@@ -6,6 +6,11 @@ as the reference uses it (train.py:62-88).
 Batches come from the DataModule as numpy arrays and become tensors on the
 task's device in one place, `to_device` (uint16 wire arrays stay uint16;
 the task widens them on the device).
+
+On a mesh every rank runs the loop over its own batches (the DataModule's
+host split gives each the same count), the steps' collectives keeping the
+ranks in lockstep; validation means are reduced over the data ranks. The
+CLIs pass the loggers (metrics.csv, wandb) and the profiler on rank 0 only.
 """
 
 from __future__ import annotations
@@ -18,7 +23,10 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from scldm_torch.parallel.distributed import collective_device
+from scldm_torch.parallel.mesh import axis_rank, axis_size
 from scldm_torch.training.checkpoint import CheckpointManager
 from scldm_torch.utils.logger import logger
 from scldm_torch.utils.profiling import StepProfiler
@@ -118,6 +126,7 @@ def fit(
     profile_dir: Optional[str] = None,  # trace the dispatches after the first here
     profile_steps: int = 3,
     preemption=None,  # training.preemption.PreemptionGuard (installed by the caller)
+    mesh=None,  # parallel.make_mesh: validation means over the data ranks
 ):
     """Train until max_steps or the epochs run out, or a preemption signal
     arrives (the guard is polled at dispatch boundaries; on a stop the loop
@@ -277,7 +286,7 @@ def fit(
 
         # -- validation (raw, and EMA where the state has one) -------------------
         if (epoch + 1) % val_every_epochs == 0 and datamodule.n_val_batches > 0:
-            val_metrics = validate(task, datamodule, state, seed=eval_rng_seed)
+            val_metrics = validate(task, datamodule, state, mesh=mesh, seed=eval_rng_seed)
             logger.info(
                 f"epoch {epoch} validation "
                 + " ".join(f"{k}={v:.4g}" for k, v in val_metrics.items())
@@ -305,18 +314,21 @@ def fit(
     return state
 
 
-def validate(task, datamodule, state, seed: int = 0) -> Dict[str, float]:
+def validate(task, datamodule, state, mesh=None, seed: int = 0) -> Dict[str, float]:
     """The means of `task.eval_step`'s metrics over the validation stream,
     and of the EMA weights' where the state has an EMA (the reference's
     BaseModel.validation_step). Batch i draws from a generator seeded
-    seed * 100_003 + i, the same for both."""
+    seed * 100_003 + i, the same for both; on a mesh i counts the data
+    ranks' batches in turn (this rank's j-th is j * n_data + its data rank),
+    and the means are over every data rank's batches."""
     device = _device_of(state)
     sums: Dict[str, float] = {}
     count = 0
     has_ema = getattr(state, "ema", None) is not None
+    n_data, data_rank = axis_size(mesh, "data"), axis_rank(mesh, "data")
 
     def generator(i):
-        return torch.Generator(device).manual_seed(seed * 100_003 + i)
+        return torch.Generator(device).manual_seed(seed * 100_003 + i * n_data + data_rank)
 
     for i, batch in enumerate(datamodule.val_batches()):
         dev_batch = to_device(batch, device)
@@ -328,4 +340,10 @@ def validate(task, datamodule, state, seed: int = 0) -> Dict[str, float]:
         for k, v in metrics.items():
             sums[k] = sums.get(k, 0.0) + float(v)
         count += 1
+    if n_data > 1:
+        keys = sorted(sums)
+        totals = torch.tensor([sums[k] for k in keys] + [count], dtype=torch.float64,
+                              device=collective_device())
+        dist.all_reduce(totals, group=mesh.get_group("data"))
+        sums, count = dict(zip(keys, totals[:-1].tolist())), int(totals[-1])
     return {k: v / max(count, 1) for k, v in sums.items()}

@@ -3,7 +3,7 @@ scldm_tpu/training/metrics.py; torchmetrics semantics)."""
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Tuple
+from typing import Callable, Dict, Iterable, Tuple
 
 import torch
 
@@ -46,14 +46,18 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
 
 
 def grad_norms_by_module(
-    named_grads: Iterable[Tuple[str, torch.Tensor]], depth: int = 2, prefix: str = "grad_norm"
+    named_grads: Iterable[Tuple[str, torch.Tensor]], depth: int = 2, prefix: str = "grad_norm",
+    norm: Callable = None,
 ) -> Dict[str, torch.Tensor]:
     """L2 norms of the gradients under each module path, down to `depth`
     levels of the parameter names: {"grad_norm/encoder": ...,
-    "grad_norm/encoder/ca_layer": ...}. The parameter itself is not a group."""
+    "grad_norm/encoder/ca_layer": ...}. The parameter itself is not a group.
+    `norm` (default `global_norm`) takes each group's gradients: FSDP passes
+    one that all-reduces its slices' squares."""
+    norm = norm or global_norm
     groups: Dict[str, list] = {}
     for name, grad in named_grads:
         path = name.split(".")
         for d in range(1, min(depth, len(path) - 1) + 1):
             groups.setdefault("/".join(path[:d]), []).append(grad)
-    return {f"{prefix}/{name}": global_norm(gs) for name, gs in groups.items()}
+    return {f"{prefix}/{name}": norm(gs) for name, gs in groups.items()}

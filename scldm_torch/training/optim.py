@@ -79,7 +79,9 @@ class AdamWLegacy(_StepCount, torch.optim.Optimizer):
         caution: m *= mask / max(mean(mask), 1e-3), mask = (m * g > 0)
         p -= lr / bc1 * m / denom
 
-    Parameters whose `grad` is None are skipped."""
+    Parameters whose `grad` is None are skipped. Where a parameter is an
+    FSDP slice (`set_slices`), the cautious mask's mean is taken over the
+    whole tensor: the slices' mask sums are all-reduced over the data ranks."""
 
     def __init__(
         self,
@@ -97,6 +99,25 @@ class AdamWLegacy(_StepCount, torch.optim.Optimizer):
         super().__init__(params, defaults)
         self.schedule = schedule or (lambda step: 1.0)
         self.step_count = 0
+        self._slices: dict = {}  # id(slice) -> the full tensor's numel
+        self._slice_group = None
+
+    def set_slices(self, numels: dict, group) -> None:
+        """Mark parameters as FSDP slices: {id(slice): the full tensor's
+        numel}, their ranks `group`."""
+        self._slices, self._slice_group = dict(numels), group
+
+    def _mask_means(self, params, masks):
+        means = [k.mean() for k in masks]
+        sliced = [i for i, p in enumerate(params) if id(p) in self._slices]
+        if sliced:
+            import torch.distributed as dist
+
+            sums = torch.stack([masks[i].sum() for i in sliced])
+            dist.all_reduce(sums, group=self._slice_group)
+            for j, i in enumerate(sliced):
+                means[i] = sums[j] / self._slices[id(params[i])]
+        return means
 
     @torch.no_grad()
     def step(self, closure=None):  # noqa: ARG002 (torch.optim signature)
@@ -134,7 +155,8 @@ class AdamWLegacy(_StepCount, torch.optim.Optimizer):
             torch._foreach_add_(denom, group["eps"])
             if group["caution"]:
                 masks = [(m * g > 0).to(g.dtype) for m, g in zip(ms, grads)]
-                ms = [m * (k / k.mean().clamp_min(1e-3)) for m, k in zip(ms, masks)]
+                ms = [m * (k / mean.clamp_min(1e-3))
+                      for m, k, mean in zip(ms, masks, self._mask_means(params, masks))]
             update = torch._foreach_div(ms, denom)
             torch._foreach_mul_(params, 1 - lr * group["weight_decay"])
             torch._foreach_add_(params, update, alpha=-lr / bc1)

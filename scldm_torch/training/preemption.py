@@ -7,10 +7,13 @@ polls the guard at dispatch boundaries, breaks out, writes a checkpoint
 through the normal path and returns, so auto-resume continues from the
 preempted step.
 
-The port trains in one process on one card, so the agreement that JAX's
-multi-host runs reach before a collective save (an allgather every
-`poll_every` batches) is the identity here: `stop_requested_global` is the
-local flag. The method stays so that the fit loop reads as JAX's does.
+Ranks must agree on stopping: the checkpoint save is collective, so one
+rank saving while the others train on would hang both. Under a process
+group `stop_requested_global` all-reduces the local flag (MAX) over the world
+once every `poll_every` calls (the loop calls it once a batch on every rank,
+in lockstep), so every rank stops at the same step; in between it returns
+the last agreed decision, never the bare local flag. With one process it is
+the local flag.
 """
 
 from __future__ import annotations
@@ -19,17 +22,26 @@ import signal
 import threading
 from typing import Iterable
 
+import torch
+import torch.distributed as dist
+
+from scldm_torch.parallel.distributed import collective_device, world_size
 from scldm_torch.utils.logger import logger
 
 
 class PreemptionGuard:
-    """Installable SIGTERM (by default) stop flag for the fit loop."""
+    """Installable SIGTERM (by default) stop flag for the fit loop.
+    `poll_every` is the cadence of the ranks' agreement (JAX's default 8):
+    a stop costs up to `poll_every` - 1 more batches of the grace window."""
 
-    def __init__(self, signals: Iterable[int] = (signal.SIGTERM,)):
+    def __init__(self, signals: Iterable[int] = (signal.SIGTERM,), poll_every: int = 8):
         self._signals = tuple(signals)
         self._event = threading.Event()
         self._prev: dict = {}
         self._installed = False
+        self._poll_every = max(int(poll_every), 1)
+        self._calls = 0
+        self._agreed = False  # the ranks' decision, which latches
 
     # -- lifecycle ----------------------------------------------------------
     def install(self) -> "PreemptionGuard":
@@ -85,6 +97,21 @@ class PreemptionGuard:
         return self._event.is_set()
 
     def stop_requested_global(self) -> bool:
-        """The decision every process must share before the checkpoint
-        save: with one process, its own flag."""
-        return self._event.is_set()
+        """The decision every rank must share before the checkpoint save:
+        whether any rank was signalled, agreed at the `poll_every` cadence
+        (with one process, its own flag)."""
+        local = self._event.is_set()
+        if world_size() == 1:
+            return local
+        if self._agreed:
+            return True
+        refresh = self._calls % self._poll_every == 0
+        self._calls += 1
+        if not refresh:
+            return False
+        flag = torch.tensor([1.0 if local else 0.0], device=collective_device())
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        self._agreed = bool(flag.item() > 0)
+        if self._agreed and not local:
+            logger.info("another rank was preempted; stopping in lockstep")
+        return self._agreed

@@ -13,6 +13,14 @@ one; `noise` injects them (`nn.vae.ScviVAE`).
 
 JAX computes the scVI MLP in plain XLA (no Pallas kernel lies under it), so
 the port computes it in plain PyTorch.
+
+On a mesh (`parallel.make_mesh`) the steps are data-parallel over "data" as
+the VAE task's: the initial weights from rank 0, the gradients averaged
+over "data" before the clip, the metrics the global means. JAX's BatchNorm
+under a mesh normalises by the global batch's statistics, so the port's
+BatchNorm layers all-reduce their row sums over "data" (`nn.nnets.BatchNorm`'s
+`group`). JAX replicates the scVI state on any mesh, so a "model" axis only
+repeats the work.
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from scldm_torch.nn.nnets import BatchNorm
 from scldm_torch.nn.priors import StandardPrior
 from scldm_torch.nn.vae import ScviVAE
 from scldm_torch.ops.distributions import log_nb_positive, nb_sample, normal_log_prob
@@ -32,6 +41,7 @@ from scldm_torch.ops.transforms import (
     densify_expressed,
     widen_lean,
 )
+from scldm_torch.parallel.data_parallel import Layout, step_gradients, trained_params
 from scldm_torch.training import metrics as M
 from scldm_torch.training.optim import AdamWLegacy, wsd_schedule
 from scldm_torch.training.state import TrainState, create_train_state
@@ -52,8 +62,14 @@ class ScviTask:
         num_warmup_steps: Optional[int] = None,
         decay_type: str = "sqrt",
         fract_decay: float = 0.1,
+        mesh=None,
     ):
         self.vae = vae
+        self.layout = None if mesh is None else Layout(mesh)
+        if self.layout is not None and self.layout.n_data > 1:
+            for m in vae.modules():
+                if isinstance(m, BatchNorm):
+                    m.group = self.layout.data_group
         self.prior = StandardPrior(n_latent)
         self.kl_weight = kl_weight
         self.grad_clip = grad_clip
@@ -70,8 +86,9 @@ class ScviTask:
 
     def init_state(self, generator: torch.Generator) -> TrainState:
         """A fresh optimizer over `self.vae`, whose module keeps the weights
-        and BatchNorm buffers it holds; `generator` is the steps' draws."""
-        params = [p for p in self.vae.parameters() if p.requires_grad]
+        and BatchNorm buffers it holds (on a mesh, rank 0's); `generator` is
+        the steps' draws."""
+        params, _ = trained_params(self.layout, self.vae)
         return create_train_state(self.vae, AdamWLegacy(params, **self._opt_kwargs), generator)
 
     def _materialize(self, batch: Dict) -> Dict:
@@ -114,12 +131,13 @@ class ScviTask:
         state.optimizer.zero_grad(set_to_none=True)
         loss, aux = self.loss(batch, state.generator, noise)
         loss.backward()
-        grads = [p.grad for p in state.module.parameters() if p.grad is not None]
-        gnorm = M.global_norm(grads)
+        mets, named, norm = step_gradients(self.layout, state, {"train_loss": loss.detach(), **aux})
+        grads = [g for _, g in named]
+        gnorm = norm(grads)
         torch._foreach_mul_(grads, torch.clamp(self.grad_clip / (gnorm + 1e-12), max=1.0))
         state.optimizer.step()
         state.step += 1
-        return state, {"train_loss": loss.detach(), **aux}
+        return state, mets
 
     def train_steps(self, state: TrainState, stacked: Dict) -> Tuple[TrainState, Dict]:
         """K steps, one per slice of the leading axis of `stacked`'s leaves;

@@ -3,7 +3,7 @@
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 
@@ -13,18 +13,22 @@ from scldm_torch.training.ema import EMAState
 @dataclass
 class TrainState:
     """The module (which holds the parameters), its optimizer, the number of
-    optimizer steps taken, the generator for the step's random draws, and
-    optionally the EMA of the parameters."""
+    optimizer steps taken, the generator for the step's random draws,
+    optionally the EMA of the parameters, and under FSDP the parameters'
+    slices (`parallel.data_parallel.FlatShards`), which the optimizer
+    updates; between steps the module's sharded tensors are then empty."""
 
     module: torch.nn.Module
     optimizer: torch.optim.Optimizer
     step: int
     generator: torch.Generator
     ema: Optional[EMAState] = None
+    shards: Optional[Any] = None
 
 
 def create_train_state(
     module: torch.nn.Module, optimizer: torch.optim.Optimizer, generator: torch.Generator,
-    ema: Optional[EMAState] = None,
+    ema: Optional[EMAState] = None, shards: Optional[Any] = None,
 ) -> TrainState:
-    return TrainState(module=module, optimizer=optimizer, step=0, generator=generator, ema=ema)
+    return TrainState(module=module, optimizer=optimizer, step=0, generator=generator, ema=ema,
+                      shards=shards)

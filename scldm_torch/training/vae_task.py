@@ -66,6 +66,14 @@ from scldm_torch.ops.transforms import (
     log1p_cpm,
     widen_lean,
 )
+from scldm_torch.parallel.data_parallel import (
+    Layout,
+    full_weights,
+    step_gradients,
+    trained_params,
+)
+from scldm_torch.parallel.gene_sp import GeneSP
+from scldm_torch.parallel.mesh import TENSOR_PARALLEL
 from scldm_torch.training import metrics as M
 from scldm_torch.training.optim import AdamWLegacy, wsd_schedule
 from scldm_torch.training.state import TrainState, create_train_state
@@ -321,6 +329,7 @@ def _algebraic_tail(
     library_size: torch.Tensor,  # (B, 1)
     fused_gate: bool = False,
     vw_fold: bool = False,
+    gene_sp: Optional[GeneSP] = None,
 ) -> Dict[str, torch.Tensor]:
     """The decoder's cross block and NB head over the canonical gene list,
     reassociated (JAX `_algebraic_tail`): the SwiGLU down projection's only
@@ -333,7 +342,9 @@ def _algebraic_tail(
     Differentiable in every parameter. The casts to the decoder's compute
     dtype sit where JAX's do (identities in f32), and the contractions JAX
     sums in f32 (`preferred_element_type`) take f32 copies of their bf16
-    operands."""
+    operands. With `gene_sp` the tail runs over this "model" rank's genes,
+    the NB mean's softmax across every rank's (JAX's gene-SP constraint on
+    the query table)."""
     ca = vae.decoder.decoder_cross_attention
     head = vae.decoder_head
     eps = ca.ln_1.eps
@@ -343,6 +354,8 @@ def _algebraic_tail(
     hd = E // n_head
 
     q32 = vae.input_layer.gene_embedding.weight[1:].float()  # canonical genes 1..G
+    if gene_sp is not None:
+        q32 = gene_sp.take(q32, 0)
     qp = _ln_affine(q32, ca.ln_1q, eps).to(dt) @ ca.attn.c_attn_q.weight.t().to(dt)  # (G, E)
     xn = _ln_affine(x.float(), ca.ln_1, eps).to(dt)
     k, v = (xn @ ca.attn.c_attn.weight.t().to(dt)).chunk(2, dim=-1)  # (B, M, E) each
@@ -382,12 +395,16 @@ def _algebraic_tail(
         + head.params.bias[0].float()
     )
     theta = torch.exp(head.theta.weight[1:, 0].float())
+    if gene_sp is not None:
+        return {"mu": gene_sp.softmax(logits / head.t) * library_size,
+                "theta": gene_sp.take(theta, 0)}
     mu = torch.softmax(logits / head.t, dim=1) * library_size
     return {"mu": mu, "theta": theta}
 
 
 def algebraic_nb_apply(
-    vae: TransformerVAE, batch: Dict, fused_gate: bool = False, vw_fold: bool = False
+    vae: TransformerVAE, batch: Dict, fused_gate: bool = False, vw_fold: bool = False,
+    gene_sp: Optional[GeneSP] = None,
 ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """`TransformerVAE.forward` with the decoder's cross block and NB head
     reassociated (`_algebraic_tail`), over the canonical gene list 1..G, from
@@ -396,7 +413,8 @@ def algebraic_nb_apply(
     ({"mu", "theta"}, h_z)."""
     h_z = vae.encoder(vae.input_layer(batch[C_SUB], batch[G_SUB]))
     x = vae.decoder.trunk(h_z)  # (B, M, E) pre-cross latents
-    return _algebraic_tail(vae, x, batch[LIB], fused_gate=fused_gate, vw_fold=vw_fold), h_z
+    return _algebraic_tail(vae, x, batch[LIB], fused_gate=fused_gate, vw_fold=vw_fold,
+                           gene_sp=gene_sp), h_z
 
 
 def algebraic_decode(
@@ -405,13 +423,36 @@ def algebraic_decode(
     library_size: torch.Tensor,  # (B, 1)
     fused_gate: bool = False,
     vw_fold: bool = False,
+    gene_sp: Optional[GeneSP] = None,
 ) -> Dict[str, torch.Tensor]:
     """`TransformerVAE.decode` over the canonical gene list 1..G with the
     cross block and NB head reassociated (`_algebraic_tail`): the decoder
     trunk, then the tail. The generation decode at E > 128 (JAX
-    `algebraic_decode`)."""
+    `algebraic_decode`); with `gene_sp`, of this rank's genes."""
     return _algebraic_tail(vae, vae.decoder.trunk(z), library_size, fused_gate=fused_gate,
-                           vw_fold=vw_fold)
+                           vw_fold=vw_fold, gene_sp=gene_sp)
+
+
+def gene_sp_decode(vae: TransformerVAE, z: torch.Tensor, genes: torch.Tensor,
+                   library_size: torch.Tensor, sp: GeneSP) -> Dict[str, torch.Tensor]:
+    """`TransformerVAE.decode` of this "model" rank's genes of `genes` ((G,)
+    or (B, G)): the decoder's queries of those genes, then the head, whose
+    NB softmax spans every rank's genes (`GeneSP.softmax`)."""
+    genes = sp.take(genes, -1)
+    return vae._head_params(vae.decoder(z, vae._decoder_queries(genes)), genes, library_size,
+                            softmax=sp.softmax)
+
+
+def gene_sp_loss(counts: torch.Tensor, out: Dict[str, torch.Tensor], gaussian_head: bool,
+                 sp: GeneSP) -> torch.Tensor:
+    """`vae_loss` of the whole gene axis from this rank's part of the head's
+    parameters: each rank's gene sum, summed across the ranks
+    (`GeneSP.sum`). `counts` are the whole (B, G) counts."""
+    if gaussian_head:
+        recon = log_gaussian(sp.take(log1p_cpm(counts), -1), out["mu"])
+    else:
+        recon = -log_nb_positive(sp.take(counts, -1), out["mu"], out["theta"])
+    return sp.sum(recon.sum(dim=1).mean())
 
 
 def vae_loss(counts: torch.Tensor, params: Dict[str, torch.Tensor],
@@ -516,7 +557,28 @@ class VAETask:
     steps take the module path, with the dropout draws seeded from the
     state's generator (`layers.Drops.draw`); evaluation does not drop. Under
     the Gaussian head (`gaussian_head`) the loss is the squared error of its
-    mean against log1p-CPM and there is no theta metric."""
+    mean against log1p-CPM and there is no theta metric.
+
+    `mesh` (`parallel.make_mesh`; one process per card, so a rank is a JAX
+    process) trains data-parallel over its "data" axis: each rank steps on
+    its own rows, the initial weights come from rank 0, and the gradients
+    are averaged over "data" before the clip and the metrics come back as
+    the global means (`parallel.data_parallel.Layout`). JAX closes every
+    Pallas gate under a multi-device mesh (GSPMD cannot partition a
+    `pallas_call`); under the port's data parallelism each rank runs a
+    one-card step, so the kernel gates stay as on one card: the dispatch
+    differs from JAX's, the math does not. `fsdp` keeps 1/n of every
+    parameter JAX's rule shards, and of its AdamW moments, on each of n data
+    ranks (`FlatShards`), and its step runs on the gathered full weights, so
+    the kernel gates stay open there too; `gene_sp` with a "model" axis
+    above 1 decodes a contiguous range of the genes on each model rank
+    (`parallel.gene_sp`; the algebraic tail composes with it, and an
+    unshared decoder raises JAX's ValueError). Under gene-SP the kernel
+    gates close, as JAX's do: the tail kernels take the NB softmax over
+    the whole gene axis, which there spans the ranks. A "model" axis above
+    1 without gene-SP is JAX's Megatron layout and raises
+    NotImplementedError (ROADMAP item 11b); at a model axis of 1 `gene_sp`
+    is ignored, as in JAX."""
 
     def __init__(
         self,
@@ -542,21 +604,41 @@ class VAETask:
         algebraic_fused_gate: bool = False,
         fused_trunk: Optional[bool] = None,
         lean_loss: bool = False,
+        mesh=None,
+        fsdp: bool = False,
+        gene_sp: bool = False,
     ):
         self.vae = vae
         self.gaussian_head = isinstance(vae.decoder_head, GaussianTransformerHead)
         self.lean_loss = bool(lean_loss)
-        self.fused_trunk = bool(fused_trunk) and _fused_trunk_ok(vae)
-        self.fused_pool = bool(fused_pool) and _fused_window_ok(vae)
+        self.layout = None if mesh is None else Layout(mesh, fsdp=fsdp)
+        n_model = 1 if mesh is None else self.layout.n_model
+        if n_model > 1 and not gene_sp:
+            raise NotImplementedError(f"a 'model' axis of {n_model} without gene_sp is not "
+                                      f"ported: {TENSOR_PARALLEL}")
+        self.gene_sp = bool(gene_sp) and n_model > 1
+        if self.gene_sp and not vae.decoder.shared_embedding:
+            raise ValueError(
+                "gene_sp requires the shared-embedding decoder (the default): unshared queries "
+                "cannot be sharding-constrained on the gene axis before the cross block")
+        self._sp = GeneSP(self.layout.model_group, vae.decoder.n_genes) if self.gene_sp else None
+        # JAX's gates close under a multi-device mesh; the port's ranks run
+        # one-card steps (under FSDP on the gathered weights), so only
+        # gene-SP, whose NB softmax spans the ranks, closes them
+        closed = self.gene_sp
+        self.fused_trunk = bool(fused_trunk) and _fused_trunk_ok(vae) and not closed
+        self.fused_pool = bool(fused_pool) and _fused_window_ok(vae) and not closed
         if algebraic_tail is None:
             algebraic_tail = vae.decoder.n_embed > 128
         self.algebraic_tail = bool(algebraic_tail) and _algebraic_path_ok(vae)
-        self.algebraic_fused_gate = bool(algebraic_fused_gate) and self.algebraic_tail
+        self.algebraic_fused_gate = (bool(algebraic_fused_gate) and self.algebraic_tail
+                                     and not closed)
         if algebraic_vw_fold is None:
             algebraic_vw_fold = self.algebraic_tail
         self.algebraic_vw_fold = bool(algebraic_vw_fold) and self.algebraic_tail
         self.calculate_grad_norms = calculate_grad_norms
-        self.fused_decoder = fused_decoder if fused_decoder is None else bool(fused_decoder)
+        self.fused_decoder = False if closed else (
+            fused_decoder if fused_decoder is None else bool(fused_decoder))
         self.fused_batch_chunk = fused_batch_chunk
         if num_warmup_steps is None:
             num_warmup_steps = max(1, int(0.1 * num_training_steps))
@@ -576,9 +658,15 @@ class VAETask:
     def init_state(self, generator: torch.Generator) -> TrainState:
         """A fresh optimizer state over `self.vae`, whose module keeps the
         weights it holds (draw them with `utils.weights.init_reference_`, or
-        load them); `generator` is the state's source of random draws."""
-        params = [p for p in self.vae.parameters() if p.requires_grad]
-        return create_train_state(self.vae, AdamWLegacy(params, **self._opt_kwargs), generator)
+        load them); `generator` is the state's source of random draws. On a
+        mesh every rank takes rank 0's weights; under FSDP the optimizer
+        updates the slices and the module's sharded tensors are emptied."""
+        params, shards = trained_params(self.layout, self.vae)
+        optimizer = AdamWLegacy(params, **self._opt_kwargs)
+        if shards is not None:
+            optimizer.set_slices(shards.numels(), shards.group)
+            shards.free()
+        return create_train_state(self.vae, optimizer, generator, shards=shards)
 
     # -- dispatch --------------------------------------------------------------
     def _materialize(self, batch: Dict) -> Dict:
@@ -601,7 +689,10 @@ class VAETask:
                ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
         """The module path: `TransformerVAE.forward` (with the dropout draws
         `drops` where given), its MCAB pooling the window pool with
-        `fused_pool` (whose gate excludes dropout)."""
+        `fused_pool` (whose gate excludes dropout); under gene-SP over this
+        rank's genes (`_apply_gene_sp`)."""
+        if self.gene_sp:
+            return self._apply_gene_sp(batch, drops)
         if self.fused_pool:
             return self._apply_fused_pool(batch)
         return self.vae(
@@ -624,6 +715,16 @@ class VAETask:
         h_x = vae.decoder(h_z, vae._decoder_queries(genes))
         return vae._head_params(h_x, genes, batch[LIB]), h_z
 
+    def _apply_gene_sp(self, batch: Dict, drops: Optional[Drops] = None
+                       ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+        """`TransformerVAE.forward` with the decoder's gene axis split over
+        the "model" ranks (JAX `_apply_gene_sp`): the encoder on every rank,
+        the decoder's cross block and head over this rank's genes."""
+        vae = self.vae
+        emb = vae.input_layer(batch.get(C_SUB, batch[COUNTS]), batch.get(G_SUB, batch[GENES]))
+        h_z = vae.encoder(emb, drops)
+        return gene_sp_decode(vae, h_z, batch[GENES], batch[LIB], self._sp), h_z
+
     def _use_fused(self, batch: Dict) -> bool:
         """The kernel path needs a lean batch (the canonical gene list) and an
         eligible architecture; with `fused_decoder=None`, CUDA tensors too."""
@@ -639,14 +740,15 @@ class VAETask:
 
     def _algebraic(self, batch: Dict) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
         return algebraic_nb_apply(self.vae, batch, fused_gate=self.algebraic_fused_gate,
-                                  vw_fold=self.algebraic_vw_fold)
+                                  vw_fold=self.algebraic_vw_fold,
+                                  **({} if self._sp is None else {"gene_sp": self._sp}))
 
     def _use_lean_loss(self, batch: Dict, on_reassoc_path: bool) -> bool:
         """JAX's gate of the densify-free NB loss: opted in, on the kernel
-        path or the algebraic tail, the NB head, and a lean batch (no dense
-        counts, the expressed subsets)."""
+        path or the algebraic tail, the NB head, no gene-SP, and a lean
+        batch (no dense counts, the expressed subsets)."""
         return (self.lean_loss and on_reassoc_path and not self.gaussian_head
-                and COUNTS not in batch and C_SUB in batch)
+                and not self.gene_sp and COUNTS not in batch and C_SUB in batch)
 
     def _has_dropout(self) -> bool:
         return self.vae.encoder.dropout > 0 or self.vae.decoder.dropout > 0
@@ -670,44 +772,55 @@ class VAETask:
             out, _ = self._apply(batch, drops)
         if use_lean:
             loss = vae_loss_lean(batch[G_SUB], batch[C_SUB], out)
+        elif self.gene_sp:
+            loss = gene_sp_loss(batch[COUNTS], out, self.gaussian_head, self._sp)
         else:
             loss = vae_loss(batch[COUNTS], out, self.gaussian_head)
         aux = {"llh": loss.detach()}
         if "theta" in out:
-            aux["theta"] = out["theta"].detach().mean()
+            theta = out["theta"].detach()
+            if self.gene_sp:  # the mean over every rank's genes
+                sums = self._sp.total(torch.stack([theta.sum(), theta.new_tensor(theta.numel())]))
+                aux["theta"] = sums[0] / sums[1]
+            else:
+                aux["theta"] = theta.mean()
         return loss, aux
 
     def train_step(self, state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
         """One optimizer step; updates `state` in place and returns it with the
         step's metrics (0-d tensors on the batch's device). A VAE with
-        dropout draws the step's masks from the state's generator."""
+        dropout draws the step's masks from the state's generator. Under
+        FSDP the full weights are gathered for the forward and backward."""
         state.optimizer.zero_grad(set_to_none=True)
+        if state.shards is not None:
+            state.shards.gather()
         drops = Drops.draw(self.vae, state.generator) if self._has_dropout() else None
         loss, aux = self.loss(batch, drops)
         loss.backward()
         mets = {"train_loss": loss.detach(), "train_llh": aux["llh"]}
         if "theta" in aux:
             mets["train_theta"] = aux["theta"]
-        return state, {**mets, **self.apply_gradients(state)}
+        return state, self.apply_gradients(state, mets)
 
-    def apply_gradients(self, state: TrainState) -> Dict:
-        """The step after the backward: the global-norm clip of the module's
+    def apply_gradients(self, state: TrainState, metrics: Optional[Dict] = None) -> Dict:
+        """The step after the backward: on a mesh the gradients' reduction
+        (and `metrics`' means over "data"), the global-norm clip of the
         gradients and the optimizer step on the schedule. Updates `state` in
-        place and returns grad_norm, lr_mult and, with
+        place and returns `metrics` with grad_norm, lr_mult and, with
         `calculate_grad_norms`, the per-module norms."""
-        named = [(n, p.grad) for n, p in state.module.named_parameters() if p.grad is not None]
+        metrics, named, norm = step_gradients(self.layout, state, metrics, self.gene_sp)
         grads = [g for _, g in named]
         # one global-norm pass shared by the clip and the metric
-        gnorm = M.global_norm(grads)
+        gnorm = norm(grads)
         scale = torch.clamp(self.grad_clip / (gnorm + 1e-12), max=1.0)
         torch._foreach_mul_(grads, scale)
         lr_mult = self.schedule(state.step)
         state.optimizer.step()
         state.step += 1
-        mets = {"grad_norm": gnorm.detach(), "lr_mult": torch.tensor(lr_mult, device=gnorm.device)}
+        metrics.update(grad_norm=gnorm.detach(), lr_mult=torch.tensor(lr_mult, device=gnorm.device))
         if self.calculate_grad_norms:
-            mets.update(M.grad_norms_by_module(named))
-        return mets
+            metrics.update(M.grad_norms_by_module(named, norm=norm))
+        return metrics
 
     def train_steps(self, state: TrainState, stacked: Dict) -> Tuple[TrainState, Dict]:
         """K steps, one per slice of the leading axis of `stacked`'s leaves
@@ -723,19 +836,25 @@ class VAETask:
     def eval_step(self, state: TrainState, batch: Dict, generator: torch.Generator) -> Dict:
         """Validation metrics on the module path, or on the algebraic tail
         where JAX takes it; the NB draw comes from `generator` (on the batch's
-        device). Under the Gaussian head the prediction is its mean."""
+        device). Under the Gaussian head the prediction is its mean. Under
+        gene-SP the ranks' genes are gathered before the draw."""
         use_algebraic = self._use_algebraic(batch)
         batch = self._materialize(batch)
-        out, _ = self._algebraic(batch) if use_algebraic else self._apply(batch)
+        with full_weights(self.layout, state):
+            out, _ = self._algebraic(batch) if use_algebraic else self._apply(batch)
+        if self.gene_sp:
+            out = {k: self._sp.gather(v, -1) for k, v in out.items()}
         pred = out["mu"] if self.gaussian_head else nb_sample(out["mu"], out["theta"], generator)
         return validation_metrics(batch[COUNTS], out, pred)
 
     @torch.no_grad()
-    def encode(self, batch: Dict) -> torch.Tensor:
-        """Latents of a batch from the expressed subsets (or the full counts)."""
+    def encode(self, batch: Dict, state: Optional[TrainState] = None) -> torch.Tensor:
+        """Latents of a batch from the expressed subsets (or the full counts);
+        under FSDP pass the train state, whose full weights are gathered."""
         batch = widen_lean(batch)
         counts = batch.get(C_SUB, batch.get(COUNTS))
         genes = batch.get(G_SUB, batch.get(GENES))
         if counts is None or genes is None:
             raise KeyError("encode needs counts/genes or counts_subset/genes_subset in the batch")
-        return self.vae.encode(counts, genes)
+        with full_weights(self.layout, state):
+            return self.vae.encode(counts, genes)

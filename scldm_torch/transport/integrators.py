@@ -135,6 +135,7 @@ def odeint_dopri5(
     min_factor: float = 0.2,
     max_factor: float = 10.0,
     save_ts: Optional[Sequence[float]] = None,
+    mean=torch.mean,
 ):
     """Adaptive RK45 from t0 to t1, over a tensor or a tuple state.
 
@@ -147,7 +148,9 @@ def odeint_dopri5(
     With `save_ts` (ascending points spanning [t0, t1]) each stretch between
     consecutive points is integrated adaptively on its own, from a fresh
     first step, and the states at every point come back stacked on a new
-    leading axis (per leaf for a tuple), the initial one first."""
+    leading axis (per leaf for a tuple), the initial one first. `mean` is
+    the error norm's mean (a batch split over ranks passes one over every
+    rank's rows, so that all ranks take the same steps)."""
     flat, unravel = _ravel(x)
     lead = x if isinstance(x, torch.Tensor) else x[0]
     batch = lead.shape[0]
@@ -177,7 +180,7 @@ def odeint_dopri5(
             v5 = v + dt * sum(b * k for b, k in zip(_DP_B5, ks))
             v4 = v + dt * sum(b * k for b, k in zip(_DP_B4, ks))
             scale = atol + rtol * torch.maximum(v.abs(), v5.abs())
-            err = torch.sqrt(torch.mean(torch.square((v5 - v4) / scale)))
+            err = torch.sqrt(mean(torch.square((v5 - v4) / scale)))
             accept = err <= 1.0
             factor = torch.clamp(safety * err.clamp_min(1e-10) ** -0.2, min_factor, max_factor)
             t = torch.where(accept, t + dt, t)

@@ -274,13 +274,14 @@ class Sampler:
         return _sample
 
     def sample_ode(self, *, sampling_method="dopri5", num_steps=50, atol=1e-5, rtol=1e-5,
-                   reverse=False, return_trajectory=False):
+                   reverse=False, return_trajectory=False, error_mean=None):
         """Returns fn(init, model, **model_kwargs): the probability-flow ODE
         from noise (t0) to data (t1) by euler, heun or dopri5, the final
         state or, with `return_trajectory`, the (num_steps, ...) states at
         linspace(t0, t1, num_steps) (dopri5 adaptive on each stretch).
         `reverse` runs data to noise: over (1 - t1, 1 - t0) with drift
-        -f(x, 1 - s)."""
+        -f(x, 1 - s). `error_mean` replaces the mean of dopri5's error norm
+        (a batch split over ranks takes it over every rank's rows)."""
         if sampling_method not in ("euler", "heun", "dopri5"):
             raise NotImplementedError(sampling_method)
         t0, t1 = self.transport.check_interval(sde=False, eval=True, reverse=False,
@@ -304,7 +305,8 @@ class Sampler:
                 return odeint_heun(drift, init, t0, t1, num_steps,
                                    return_trajectory=return_trajectory)
             save_ts = torch.linspace(t0, t1, num_steps) if return_trajectory else None
-            return odeint_dopri5(drift, init, t0, t1, rtol=rtol, atol=atol, save_ts=save_ts)
+            return odeint_dopri5(drift, init, t0, t1, rtol=rtol, atol=atol, save_ts=save_ts,
+                                 mean=error_mean or torch.mean)
 
         return _sample
 

@@ -5,7 +5,8 @@ resolved trees of the top-level configs and of every dataset switch against
 JAX's `resolve`, `${repo_root:}` from another working directory, each
 builder's parameter names and shapes against JAX's builder's (through the
 weight bridge's names), `compute_max_steps`, the compute dtypes and remat the
-builders take, and every config value the port refuses. Everything here is
+builders take, the parallel keys' one-process meaning (JAX's: without a mesh
+they change nothing) and inference's `n_model` check. Everything here is
 exact."""
 
 import math
@@ -207,14 +208,29 @@ def test_compute_max_steps_matches_jax(overrides, n_cells):
                 == jax_build.compute_max_steps(cfg, n_cells, world))
 
 
-# -- refusals --------------------------------------------------------------------------------
+# -- the parallel keys on one process ----------------------------------------------------------
 
 def _vae_task(cfg):
-    return build.build_vae_task(cfg, None, 10)
+    return build.build_vae_task(cfg, build.build_vae(cfg), 10)
 
 
 def _ldm_task(cfg):
-    return build.build_ldm_task(cfg, None, None, 10)
+    return build.build_ldm_task(cfg, build.build_vae(cfg), build.build_dit(cfg), 10)
+
+
+def _one_step(task):
+    """One train step of a fresh state on a fixed batch: the metrics and the
+    module's parameters after it."""
+    rng = np.random.default_rng(0)
+    counts = rng.poisson(2.0, size=(8, 40)).astype(np.float32)
+    genes = np.tile(np.arange(1, 41, dtype=np.int64), (8, 1))
+    batch = {k: torch.from_numpy(v) for k, v in {
+        "counts": counts, "genes": genes, "library_size": counts.sum(1, keepdims=True),
+        "counts_subset": counts[:, :20], "genes_subset": genes[:, :20],
+        "clusters": rng.integers(0, 14, size=8)}.items()}
+    state, mets = task.train_step(task.init_state(torch.Generator().manual_seed(0)), batch)
+    return ({k: float(v) for k, v in mets.items()},
+            {k: v.detach().clone() for k, v in state.module.state_dict().items()})
 
 
 @pytest.mark.parametrize("config,overrides,call,item", [
@@ -225,9 +241,15 @@ def _ldm_task(cfg):
     ("ldm_training.yaml", ["training.pipeline_microbatches=4"], _ldm_task, "item 11"),
 ])
 def test_unsupported_values_raise(config, overrides, call, item):
-    cfg = small_cfg(config, SMALL_DIT + overrides)
-    with pytest.raises(NotImplementedError, match=item):
-        call(cfg)
+    """The parallel keys the port refused until ROADMAP queue 1, `item`,
+    with JAX's meaning on one process: without a mesh (the CLIs build none
+    on one card) `fsdp` shards nothing and `gene_sp` and
+    `pipeline_microbatches` need a "model" axis above 1, so the task trains
+    the same step, bit for bit, as without the key."""
+    with_key = _one_step(call(small_cfg(config, SMALL_DIT + overrides)))
+    without = _one_step(call(small_cfg(config, SMALL_DIT)))
+    assert with_key[0] == without[0], item
+    assert all(torch.equal(with_key[1][k], without[1][k]) for k in without[1])
 
 
 @pytest.mark.parametrize("overrides", [
@@ -300,9 +322,12 @@ def test_unknown_compute_dtype_raises():
 
 
 def test_inference_refuses_n_model():
+    """One process with `n_model=2` exits with JAX's message
+    (scldm_tpu/cli/inference.py:74-76): the model axis must divide the
+    devices, here the one rank."""
     from scldm_torch.cli import inference
 
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(SystemExit, match="^n_model=2 must divide the device count 1$"):
         inference.main(["--config", str(ROOT / "configs/generation.yaml"), "n_model=2",
                         "device=cpu"])
 

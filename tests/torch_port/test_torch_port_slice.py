@@ -170,6 +170,8 @@ def test_import_without_jax():
         "import scldm_torch.cli.train_ldm, scldm_torch.cli.inference, scldm_torch.cli.train_scvi\n"
         "import scldm_torch.training.scvi_task, scldm_torch.nn.priors, scldm_torch.evals.mmd\n"
         "import scldm_torch.evals.wasserstein, scldm_torch.evals.generation_eval\n"
+        "import scldm_torch.parallel, scldm_torch.parallel.distributed, scldm_torch.parallel.mesh\n"
+        "import scldm_torch.parallel.data_parallel, scldm_torch.parallel.gene_sp\n"
         "host = [m for m in ('h5py', 'pandas', 'yaml', 'orbax', 'wandb') if m in sys.modules]\n"
         "assert not host, f'the chip path loads {host}'\n"
         "import scldm_torch.data.h5ad, scldm_torch.cli.extract_metadata, scldm_torch.utils.output\n"
