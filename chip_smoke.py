@@ -230,7 +230,18 @@ shipped through the fused gate (rows 16-17 in bf16 on the gathered weights,
 once each way a step; 8 cells a rank against 16 in one process at phase 6's
 bf16 bound, each rank's parameter, AdamW and peak bytes), and gene-SP census generation
 at n_model=2 (batch 16, euler-50, the draws injected) against one process
-at `held_bf16`'s bound with each rank's peak memory. The
+at `held_bf16`'s bound with each rank's peak memory. Phase 17 runs the
+"model" axis's Megatron and GPipe layouts the same way: (b) two gloo ranks
+sharing the card, (c) on a machine with two or four cards NCCL a card a
+rank: the census DiT as GPipe stages (B = 16 in 4 microbatches, rows 1-2 on
+each stage's blocks, held to the one-process fused step at 1e-4) and
+euler-50 generation from the pipeline task (row 1 on each rank, the decode
+gene-parallel; latents and mu against one process), the census VAE as
+shipped at n_model = W (rows 16-17 in bf16 on each rank's hidden slice,
+loss and gathered gradients at phase 6's bf16 bound, each rank's parameter,
+AdamW and peak bytes), one f32 Megatron census LDM step and euler-50
+generation from its state at 1e-4, beside a probe of gloo's point-to-point
+send of a CUDA tensor (its answer printed). The
 line before the last is a JSON summary of the kernels, each with its time
 beside the least time the card could take for the same work; the last is
 {"ok": true, "device": {...}}. Any failure
@@ -411,19 +422,24 @@ def time_in_turns(kernel, plain, reps: int) -> tuple:
     return (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
 
 
+P17_MICRO = 4  # pipeline microbatches of the census DiT step (B = 16: 4 rows each)
 # (T, R) of phase 1: the dentate sampler's rows (T = 16, R = 3B = 384) and a
 # ragged R, the census DiT's (T = 64): the sampler's 3B rows at a generation
-# batch of 16, the training step's B = 16, twice that, and a ragged R; and
-# the long-latent pair's (T = 1,024: 3 x LONG_GEN_BATCH rows)
+# batch of 16, the training step's B = 16, twice that, a pipeline stage's
+# microbatch of it (phase 17) and a ragged R; and the long-latent pair's
+# (T = 1,024: 3 x LONG_GEN_BATCH rows)
 DIT_FWD_CASES = ((16, 384), (16, 5), (64, 3 * CENSUS_LDM_BATCH), (64, CENSUS_LDM_BATCH),
-                 (64, 2 * CENSUS_LDM_BATCH), (64, 5), (1024, 12))
+                 (64, 2 * CENSUS_LDM_BATCH), (64, CENSUS_LDM_BATCH // P17_MICRO), (64, 5),
+                 (1024, 12))
 # the shapes whose forward is run twice and held to the same bits
 DIT_FWD_REPEAT = ((16, 384), (64, 3 * CENSUS_LDM_BATCH))
 # (T, R) of phase 1c: the dentate LDM step's rows (T = 16, R = B = 128) and a
-# ragged R, the census step's (T = 64: B = 16, twice that, a ragged R) and
-# the long-latent pair's (T = 1,024: B = 16, and a ragged R = 3)
-DIT_BWD_CASES = ((16, 128), (16, 5), (64, CENSUS_LDM_BATCH), (64, 2 * CENSUS_LDM_BATCH), (64, 5),
-                 (1024, CENSUS_LDM_BATCH), (1024, 3))
+# ragged R, the census step's (T = 64: B = 16, twice that, a pipeline stage's
+# microbatch of it, a ragged R) and the long-latent pair's (T = 1,024: B = 16,
+# and a ragged R = 3)
+DIT_BWD_CASES = ((16, 128), (16, 5), (64, CENSUS_LDM_BATCH), (64, 2 * CENSUS_LDM_BATCH),
+                 (64, CENSUS_LDM_BATCH // P17_MICRO), (64, 5), (1024, CENSUS_LDM_BATCH),
+                 (1024, 3))
 # the shapes whose backward is run twice and held to the same bits
 DIT_BWD_REPEAT = ((16, 128), (64, CENSUS_LDM_BATCH))
 # from this T on the kernel is held against the plain version on f64 inputs
@@ -435,7 +451,8 @@ def phase1_dit_block(seed: int) -> dict:
     in other orders; the kernel's three TF32 passes a product keep f32
     accuracy) at DIT_FWD_CASES: the dentate sampler's rows (R = 3B = 384 of
     T = 16), the census sampler's (R = 48 of T = 64 at a generation batch of
-    16) and training step's (R = 16, and 32), ragged Rs and the long-latent
+    16) and training step's (R = 16, and 32, and a pipeline stage's
+    microbatch of 4), ragged Rs and the long-latent
     pair's (R = 12 of T = 1,024); the same bits on a second run at
     DIT_FWD_REPEAT; kernel and plain timed in turns. Returns {(T, R):
     {max_abs_err, ms, plain_ms}}."""
@@ -643,7 +660,8 @@ def phase1b_decoder_tail(seed: int) -> tuple[dict, dict]:
 def phase1c_dit_block_bwd(seed: int) -> dict:
     """dit_block_bwd vs dit_block_backward_reference (autograd through the
     plain block) at DIT_BWD_CASES: the dentate LDM step's shape (R = 128 rows
-    of T = 16), the census step's (R = 16 of T = 64, and 32), the long-latent
+    of T = 16), the census step's (R = 16 of T = 64, 32, and a pipeline
+    stage's microbatch of 4), the long-latent
     pair's (R = 16 of T = 1,024) and ragged Rs. dx and dc at rtol = atol =
     1e-4; each weight gradient within 1e-4 of its tensor's largest magnitude:
     f32 both, the weight gradients summed over R*T tokens in other orders.
@@ -1361,8 +1379,9 @@ def phase1e_swiglu_vec(seed: int) -> dict:
     whose row pitches are not multiples of 16 bytes), out, dx, dw12 and dwv
     each within 1e-4 of its tensor's largest magnitude (f32 both, sums in
     another order). bf16 (the census decoder under the configs' bf16
-    compute): a ragged R and E = 30, Hd = 70, against the bf16 plain version
-    (the same roundings: g to bf16 before `@ wv`, du to bf16) by
+    compute): the census rows at a Megatron rank's half of the hidden width
+    (Hd = 704, phase 17), a ragged R and E = 30, Hd = 70, against the bf16
+    plain version (the same roundings: g to bf16 before `@ wv`, du to bf16) by
     `held_bf16`'s bounds, dx in bf16, dw12 and dwv rounded to bf16 after
     their f32 sums. Every shape runs twice and repeats its bits, backward
     included (no atomics, no race in the kernels' rings). At the census
@@ -1377,7 +1396,8 @@ def phase1e_swiglu_vec(seed: int) -> dict:
     g = torch.Generator(device="cuda").manual_seed(seed + 6)
     census = (CENSUS_BATCH * CENSUS["n_genes"], CENSUS["n_embed"], CENSUS_HIDDEN)
     shapes = {"f32": (census, (1_001, 512, 1_408), (1_001, 512, 1_400), (777, 30, 70)),
-              "bf16": (census, (1_001, 512, 1_408), (777, 30, 70))}
+              "bf16": (census, census[:2] + (CENSUS_HIDDEN // 2,), (1_001, 512, 1_408),
+                       (777, 30, 70))}
     out = {}
     for tag, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         errs, timing = {}, {}
@@ -5717,12 +5737,405 @@ def phase16_child(arm: str, seed: int, batch: int) -> int:
     return 0
 
 
+P17_GEN_STEPS = 50  # euler steps of each census generation
+P17_TIMEOUT = 420  # seconds a child may take
+P17_PROBE_TIMEOUT = 60  # seconds the point-to-point probe's pair may take
+
+
+def p17_result(**out) -> None:
+    """A child's result, as the last line of its output."""
+    print("P17 " + json.dumps(out), flush=True)
+
+
+def p17_start(arm: str, world: int, seed: int) -> list:
+    """Start `world` children of this script for phase 17's `arm` under
+    torchrun's environment; the gloo ranks share the one card, NCCL's take a
+    card each."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    return [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--phase17", arm, "--seed", str(seed)],
+        env=dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
+                 LOCAL_RANK=str(r) if arm == "nccl" else "0", LOCAL_WORLD_SIZE=str(world),
+                 MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(world)]
+
+
+def p17_collect(arm: str, procs: list, timeout: float, strict: bool = True) -> list:
+    """Each child's output and result (None for a child that failed, where
+    not `strict`); a late child is killed, and with `strict` a failing or
+    late child fails the phase."""
+    outs, late = [], False
+    try:
+        for p in procs:
+            try:
+                outs.append(p.communicate(timeout=timeout)[0])
+            except subprocess.TimeoutExpired:
+                late = True
+                p.kill()
+                outs.append(p.communicate()[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = []
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        lines = (out or "").rstrip().splitlines()
+        found = [line[4:] for line in lines if line.startswith("P17 ")]
+        for line in lines:
+            if not line.startswith("P17 ") and (strict or p.returncode != 0):
+                log(f"phase17 [{arm} rank {r}] {line}")
+        ok = p.returncode == 0 and len(found) == 1 and not late
+        if strict and not ok:
+            raise AssertionError(f"phase17 {arm} rank {r}: exit {p.returncode}, "
+                                 f"{len(found)} results{', late' if late else ''}")
+        results.append(json.loads(found[0]) if ok else
+                       {"exit": p.returncode, "late": late})
+    return results
+
+
+def p17_probe() -> None:
+    """gloo's point-to-point send and recv of a CUDA tensor between the two
+    ranks sharing the card; the answer is printed. The pipeline's hop is a
+    broadcast on a two-rank group under every backend, which gloo takes on
+    CUDA tensors."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method="env://")
+    x = torch.arange(8.0, device="cuda") + 1
+    try:
+        if dist.get_rank() == 0:
+            dist.send(x, 1)
+            got = "sent"
+        else:
+            y = torch.zeros(8, device="cuda")
+            dist.recv(y, 0)
+            torch.cuda.synchronize()
+            got = "received the values" if torch.equal(y, x) else "received other values"
+    except Exception as e:  # noqa: BLE001 (the probe's answer)
+        got = f"{type(e).__name__}: {str(e)[:160]}"
+    p17_result(p2p=got)
+
+
+def p17_grads(module, mt) -> dict:
+    """Every gradient of `module` whole (Megatron slices gathered: every rank
+    takes part), by name."""
+    out = {}
+    for name, p in module.named_parameters():
+        if p.grad is None:
+            continue
+        g = p.grad
+        if mt is not None and id(p) in mt.by_id:
+            g = mt.whole(mt.by_id[id(p)], g)
+        out[name] = g.detach().clone()
+    return out
+
+
+def p17_ranks(seed: int, backend: str) -> None:
+    """Phase 17's arm on every rank (world W): the GPipe census DiT step over
+    W stages and generation from the pipeline task, the Megatron census VAE
+    as shipped at n_model = W, and one Megatron census LDM step and
+    generation. Each is held against one process on rank 0, the Megatron
+    gradients gathered whole."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from scldm_torch.nn.vae import build_transformer_vae
+    from scldm_torch.ops import fused_dit
+    from scldm_torch.ops import fused_swiglu as fs
+    from scldm_torch.ops.transforms import canonical_gene_ids
+    from scldm_torch.parallel import make_mesh
+    from scldm_torch.parallel.tensor_parallel import megatron_of
+    from scldm_torch.training.ldm_task import LDMTask
+    from scldm_torch.training.vae_task import VAETask
+    from scldm_torch.transport import create_transport
+    from scldm_torch.utils.weights import init_reference_, load_reference_state_dict
+
+    torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+    dist.init_process_group(backend, init_method="env://",
+                            timeout=datetime.timedelta(seconds=P17_TIMEOUT))
+    W, first = dist.get_world_size(), dist.get_rank() == 0
+    mesh = make_mesh(n_data=1, n_model=W)
+    rng = np.random.default_rng(seed)
+    g32 = torch.Generator(device="cuda")
+    B, G = CENSUS_LDM_BATCH, CENSUS["n_genes"]
+    lb = census_ldm_batches(rng, 1)[0]
+    g = torch.Generator(device="cuda").manual_seed(seed + 5)
+    noise = {"t": torch.rand(B, generator=g, device="cuda"),
+             "x0": torch.randn(B, CENSUS_DIT["seq_len"], CENSUS_DIT["n_embed_input"], generator=g,
+                               device="cuda"),
+             "drop_mask": torch.rand(B, generator=g, device="cuda") < CENSUS_DIT["cfg_dropout_prob"]}
+    z0 = torch.randn(B, CENSUS_DIT["seq_len"], CENSUS_DIT["n_embed_input"], generator=g,
+                     device="cuda")
+    log_sf = torch.full((B,), 8.6, device="cuda")
+    cond = {"clusters": torch.randint(0, N_CLUSTERS, (B,), generator=g, device="cuda")}
+    genes = canonical_gene_ids(G, device="cuda")
+    gen_kw = dict(guidance_weight=GUIDANCE, sampling_method="euler", num_steps=P17_GEN_STEPS)
+    out = {"world": W}
+
+    def bytes_of(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    def measured(fn):
+        """fn()'s result, seconds and peak bytes."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+    def counters(*cs):
+        for c in cs:
+            c.reset()
+        return cs
+
+    def ldm_step(task, state):
+        _, m = task.train_step(state, lb, noise)
+        return m["train_loss"].item()
+
+    def held_step(part, loss, grads, ref_loss, ref_grads, near):
+        gap = p16_rel_gap(grads, ref_grads)
+        if abs(loss - ref_loss) > near[0] * abs(ref_loss) or gap[0] > near[1]:
+            raise AssertionError(f"phase17 {part}: loss {loss} vs {ref_loss}, gradient "
+                                 f"{gap[1]} {gap[0]:.3e} of its largest")
+        return {"loss": [loss, ref_loss], "grad_gap": list(gap)}
+
+    # -- the GPipe census DiT over W stages: one step (rows 1-2 at T = 64, once a block
+    #    a microbatch on each stage), then euler-50 generation from the pipeline task
+    #    (row 1 on every rank, the decode gene-parallel), against one process
+    vae_c, dit_c = build_census_ldm_models(seed, torch.bfloat16)
+    task = LDMTask(vae_c, dit_c, create_transport(), mesh=mesh, pipeline_microbatches=P17_MICRO)
+    state = task.init_state(g32.manual_seed(seed))
+    fwd, bwd = counters(fused_dit.DIT_BLOCK_LAUNCHES, fused_dit.DIT_BLOCK_BWD_LAUNCHES)
+    loss, step_s, step_peak = measured(lambda: ldm_step(task, state))
+    step_launches = [fwd.count, bwd.count]
+    grads = p17_grads(dit_c, None)
+    fwd.reset()
+    (z, dec, _), gen_s, gen_peak = measured(lambda: task.generate_from_noise(
+        z0, log_sf, genes, cond, **gen_kw))
+    pp = {"stage": task._hops.stage, "blocks": list(range(
+        task._hops.stage * CENSUS_DIT["n_layer"] // W,
+        (task._hops.stage + 1) * CENSUS_DIT["n_layer"] // W)),
+        "step_launches": step_launches, "gen_launches": fwd.count, "s": [step_s, gen_s],
+        "peak": [step_peak, gen_peak], "genes": [task._sp.lo, task._sp.hi]}
+    if first:  # the one-process references: the same draws, the same weights
+        one = LDMTask(vae_c, dit_c, create_transport())
+        (z1, dec1, _), gen1_s, gen1_peak = measured(lambda: one.generate_from_noise(
+            z0, log_sf, genes, cond, **gen_kw))
+        ref_vae, ref_dit = build_census_ldm_models(seed, torch.bfloat16)
+        ref = LDMTask(ref_vae, ref_dit, create_transport(), fused_training=True)
+        ref_loss, ref_s, ref_peak = measured(lambda: ldm_step(ref, ref.init_state(
+            g32.manual_seed(seed))))
+        pp.update(held_step("pipeline step", loss, grads, ref_loss, p17_grads(ref_dit, None),
+                            (P16_NEAR, P16_NEAR)))
+        err, rel, beyond, near = held_bf16("phase17 pipeline generation mu", dec["mu"],
+                                           dec1["mu"])
+        pp.update(z_gap=(z - z1).abs().max().item(), mu_bf16=[err, rel, beyond, near],
+                  one_s=[ref_s, gen1_s], one_peak=[ref_peak, gen1_peak])
+        del one, ref, ref_vae, ref_dit, z1, dec1
+    out["pipeline"] = pp
+    del task, state, vae_c, dit_c, grads, z, dec
+    torch.cuda.empty_cache()
+
+    # -- Megatron: the census VAE as shipped (bf16, remat, the fused gate: rows 16-17 in
+    #    bf16 on each rank's hidden slice, Hd = 1,408 / W), 16 cells on every rank
+    cb = {k: torch.from_numpy(v).to("cuda") for k, v in lean_batch(
+        rng, CENSUS_BATCH, G, CENSUS_WINDOW, (CENSUS_WINDOW // 2, CENSUS_WINDOW)).items()}
+    opt = dict(learning_rate=3e-4, betas=(0.9, 0.95), algebraic_fused_gate=True)
+
+    def census():
+        return init_reference_(build_transformer_vae(**CENSUS, dtype=torch.bfloat16, remat=True,
+                                                     device="cuda"),
+                               torch.Generator(device="cuda").manual_seed(seed))
+
+    def vae_step(task, state):
+        return task.train_step(state, cb)[1]["train_loss"].item()
+
+    def state_bytes(state):
+        moments = [v for st in state.optimizer.state.values() for v in st.values()
+                   if torch.is_tensor(v) and v.ndim]
+        return bytes_of(list(state.module.parameters())), bytes_of(moments)
+
+    vae = census()
+    task = VAETask(vae, mesh=mesh, **opt)
+    state = task.init_state(g32.manual_seed(seed))
+    vf, vb = counters(fs.SWIGLU_VEC_FWD_LAUNCHES, fs.SWIGLU_VEC_BWD_LAUNCHES)
+    loss, step_s, peak = measured(lambda: vae_step(task, state))
+    mt_vae = {"launches": [vf.count, vb.count], "hidden": vae.decoder.decoder_cross_attention
+              .mlp.w1.weight.shape[0], "gates": [task.megatron, task.fused_decoder,
+                                                 task.algebraic_fused_gate],
+              "bytes": state_bytes(state), "peak": peak, "s": step_s}
+    grads = p17_grads(vae, megatron_of(vae))
+    del task, state, vae
+    torch.cuda.empty_cache()
+    if first:
+        vae = census()
+        ref = VAETask(vae, **opt)
+        ref_state = ref.init_state(g32.manual_seed(seed))
+        ref_loss, ref_s, ref_peak = measured(lambda: vae_step(ref, ref_state))
+        mt_vae.update(held_step("Megatron census VAE", loss, grads, ref_loss,
+                                p17_grads(vae, None), CENSUS_BF16_BOUNDS["bf16 plain"]),
+                      one_bytes=state_bytes(ref_state), one_peak=ref_peak, one_s=ref_s)
+        del vae, ref, ref_state
+    out["megatron_vae"] = mt_vae
+    del grads
+    torch.cuda.empty_cache()
+
+    # -- Megatron: one census LDM step (the frozen encode through the Megatron VAE, the
+    #    DiT on its modules) and euler-50 generation from its state, in f32: a Megatron
+    #    rank sums its row-parallel products in another order than one process, so the
+    #    f32 pair is held at P16_NEAR (a bf16 pair would differ by the flips it rounds)
+    vae_c, dit_c = build_census_ldm_models(seed)
+    task = LDMTask(vae_c, dit_c, create_transport(), mesh=mesh)
+    state = task.init_state(g32.manual_seed(seed))
+    loss, step_s, step_peak = measured(lambda: ldm_step(task, state))
+    mt = megatron_of(dit_c)
+    grads = p17_grads(dit_c, mt)
+    (z, dec, _), gen_s, gen_peak = measured(lambda: task.generate_from_noise(
+        z0, log_sf, genes, cond, fused_blocks=False, **gen_kw))
+    stepped = mt.whole_state_dict(dit_c.state_dict())
+    mt_ldm = {"s": [step_s, gen_s], "peak": [step_peak, gen_peak],
+              "gates": [task.megatron, task.fused_training]}
+    del task, state, vae_c, dit_c
+    torch.cuda.empty_cache()
+    if first:
+        ref_vae, ref_dit = build_census_ldm_models(seed)
+        ref = LDMTask(ref_vae, ref_dit, create_transport(), fused_training=False)
+        ref_loss, ref_s, ref_peak = measured(lambda: ldm_step(ref, ref.init_state(
+            g32.manual_seed(seed))))
+        mt_ldm.update(held_step("Megatron census LDM", loss, grads, ref_loss,
+                                p17_grads(ref_dit, None), (P16_NEAR, P16_NEAR)))
+        load_reference_state_dict(ref_dit, stepped)  # generation from the same weights
+        (z1, dec1, _), gen1_s, gen1_peak = measured(lambda: ref.generate_from_noise(
+            z0, log_sf, genes, cond, fused_blocks=False, **gen_kw))
+        gaps = {k: (a - b).abs().max().item() / (b.abs().max().item() + 1e-30)
+                for k, a, b in (("z", z, z1), ("mu", dec["mu"], dec1["mu"]))}
+        if max(gaps.values()) > P16_NEAR:
+            raise AssertionError(f"phase17 Megatron generation: gaps {gaps} of the largest")
+        mt_ldm.update(gen_gaps=gaps, one_s=[ref_s, gen1_s], one_peak=[ref_peak, gen1_peak])
+    out["megatron_ldm"] = mt_ldm
+    dist.destroy_process_group()
+    p17_result(**out)
+
+
+def p17_check(tag: str, ranks: list, smi: str, launches: dict) -> None:
+    """Hold and print an arm's results (`p17_ranks`), adding its launches to
+    `launches`."""
+    W = ranks[0]["world"]
+    per = P17_MICRO * CENSUS_DIT["n_layer"] // W
+    for r, res in enumerate(ranks):
+        pp, mv, ml = res["pipeline"], res["megatron_vae"], res["megatron_ldm"]
+        if pp["step_launches"] != [per, per] or pp["gen_launches"] <= 0:
+            raise AssertionError(f"phase17 {tag} rank {r}: pipeline launches "
+                                 f"{pp['step_launches']} (want {per} each way), generation "
+                                 f"{pp['gen_launches']}")
+        if mv["launches"] != [1, 1] or mv["gates"] != [True, False, True]:
+            raise AssertionError(f"phase17 {tag} rank {r}: Megatron VAE launches "
+                                 f"{mv['launches']}, gates {mv['gates']}")
+        if ml["gates"] != [True, False]:
+            raise AssertionError(f"phase17 {tag} rank {r}: Megatron LDM gates {ml['gates']}")
+        launches["dit_block"] += pp["step_launches"][0] + pp["gen_launches"]
+        launches["dit_block_bwd"] += pp["step_launches"][1]
+        launches["swiglu_vec_fwd"] += mv["launches"][0]
+        launches["swiglu_vec_bwd"] += mv["launches"][1]
+        log(f"phase17 {tag} pipeline rank {r} (stage {pp['stage']}, blocks {pp['blocks']}, genes "
+            f"{pp['genes']}): step rows 1-2 launches {pp['step_launches']} ({P17_MICRO} "
+            f"microbatches x {CENSUS_DIT['n_layer'] // W} blocks), {pp['s'][0]:.3f} s, peak "
+            f"{pp['peak'][0] / 2**30:.3f} GiB; euler-{P17_GEN_STEPS} generation row-1 launches "
+            f"{pp['gen_launches']}, {pp['s'][1]:.3f} s, peak {pp['peak'][1] / 2**30:.3f} GiB "
+            f"({smi})")
+        log(f"phase17 {tag} Megatron census VAE rank {r}: rows 16-17 launches {mv['launches']} "
+            f"at Hd = {mv['hidden']}; parameter bytes {mv['bytes'][0] / 2**30:.3f} GiB, AdamW "
+            f"{mv['bytes'][1] / 2**30:.3f} GiB, peak {mv['peak'] / 2**30:.3f} GiB, step "
+            f"{mv['s']:.3f} s ({smi})")
+        log(f"phase17 {tag} Megatron census LDM rank {r}: step {ml['s'][0]:.3f} s, peak "
+            f"{ml['peak'][0] / 2**30:.3f} GiB; euler-{P17_GEN_STEPS} generation {ml['s'][1]:.3f} s, "
+            f"peak {ml['peak'][1] / 2**30:.3f} GiB ({smi})")
+    pp, mv, ml = (ranks[0][k] for k in ("pipeline", "megatron_vae", "megatron_ldm"))
+    (l_pp, l_one), (gap, name) = pp["loss"], pp["grad_gap"]
+    err, rel, beyond, near = pp["mu_bf16"]
+    log(f"phase17 {tag} pipeline step vs the one-process fused step (B={CENSUS_LDM_BATCH}): loss "
+        f"{l_pp:.6f} vs {l_one:.6f}, largest gradient gap {gap:.3e} of its max ({name}); one "
+        f"process {pp['one_s'][0]:.3f} s, peak {pp['one_peak'][0] / 2**30:.3f} GiB; generation "
+        f"latents max gap {pp['z_gap']:.3e}, mu {err:.2e} ({rel:.1e} of max, {beyond:.1e} beyond "
+        f"{near:g}); one process {pp['one_s'][1]:.3f} s, peak {pp['one_peak'][1] / 2**30:.3f} GiB "
+        f"({smi})")
+    (l_mt, l_one), (gap, name) = mv["loss"], mv["grad_gap"]
+    log(f"phase17 {tag} Megatron census VAE vs one process ({CENSUS_BATCH} cells): loss "
+        f"{l_mt:.4f} vs "
+        f"{l_one:.4f}, gathered gradients' largest gap {gap:.3e} of its max ({name}); bytes a "
+        f"rank: parameters {mv['bytes'][0] / 2**30:.3f} vs {mv['one_bytes'][0] / 2**30:.3f} GiB, "
+        f"AdamW {mv['bytes'][1] / 2**30:.3f} vs {mv['one_bytes'][1] / 2**30:.3f} GiB, peak "
+        f"{mv['peak'] / 2**30:.3f} vs {mv['one_peak'] / 2**30:.3f} GiB; step {mv['s']:.3f} vs "
+        f"{mv['one_s']:.3f} s ({smi})")
+    (l_mt, l_one), (gap, name) = ml["loss"], ml["grad_gap"]
+    log(f"phase17 {tag} Megatron census LDM (f32) vs one process on the module DiT: loss "
+        f"{l_mt:.6f} vs {l_one:.6f}, gathered gradients' largest gap {gap:.3e} of its max "
+        f"({name}); generation latents {ml['gen_gaps']['z']:.3e} and mu {ml['gen_gaps']['mu']:.3e} "
+        f"of the largest; one process step {ml['one_s'][0]:.3f} s, generation "
+        f"{ml['one_s'][1]:.3f} s ({smi})")
+
+
+def phase17_model_axis(seed: int, smi: str) -> dict:
+    """Phase 17, the "model" axis's Megatron and GPipe layouts (the kernels
+    already built here): (b) two ranks sharing the card over gloo, beside
+    the probe of gloo's point-to-point hop on CUDA tensors; (c) on a machine
+    with two cards or more, the same over NCCL, a card a rank (four ranks
+    where there are four cards). Returns the launches of rows 1-2 at T = 64
+    and rows 16-17 in bf16 (every arm, every rank) for the kernels line."""
+    import torch
+
+    phase_t0 = time.perf_counter()
+    launches = dict(dit_block=0, dit_block_bwd=0, swiglu_vec_fwd=0, swiglu_vec_bwd=0)
+    probe = p17_start("probe", 2, seed)
+    arm = p17_start("gloo", 2, seed)
+    p17_check("(b) gloo, two ranks on one card", p17_collect("gloo", arm, P17_TIMEOUT), smi,
+              launches)
+    answers = p17_collect("probe", probe, max(1.0, P17_PROBE_TIMEOUT - (time.perf_counter()
+                                                                         - phase_t0)), strict=False)
+    log(f"phase17 gloo point-to-point on CUDA tensors (the pipeline's hop is a broadcast on "
+        f"a two-rank group under every backend): " + "; ".join(
+            f"rank {r} {a.get('p2p', a)}" for r, a in enumerate(answers)))
+    n = torch.cuda.device_count()
+    if n >= 2:
+        world = 4 if n >= 4 else 2
+        p17_check(f"(c) NCCL, {world} cards", p17_collect("nccl", p17_start("nccl", world, seed),
+                                                          P17_TIMEOUT), smi, launches)
+    log(f"phase17 took {time.perf_counter() - phase_t0:.1f} s ({smi})")
+    return launches
+
+
+def phase17_child(arm: str, seed: int) -> int:
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    if arm == "probe":
+        p17_probe()
+    else:
+        p17_ranks(seed, {"gloo": "gloo", "nccl": "nccl"}[arm])
+    return 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--batch", type=int, default=128,
                    help="cells per CFG half, and cells per training step")
     p.add_argument("--phase16", default=None, help=argparse.SUPPRESS)  # a phase-16 child's arm
+    p.add_argument("--phase17", default=None, help=argparse.SUPPRESS)  # a phase-17 child's arm
     args = p.parse_args(argv)
 
     import torch
@@ -5736,6 +6149,8 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT))
     if args.phase16:
         return phase16_child(args.phase16, args.seed, args.batch)
+    if args.phase17:
+        return phase17_child(args.phase17, args.seed)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
@@ -5817,6 +6232,9 @@ def main(argv=None) -> int:
     # -- phase 16: data parallelism, FSDP and gene-SP on the one card -----------------
     p16 = phase16_parallel(args.seed, args.batch, smi)
 
+    # -- phase 17: Megatron tensor parallelism and the GPipe DiT trunk ----------------
+    p17 = phase17_model_axis(args.seed, smi)
+
     tail_src = "scldm_torch/kernels/csrc/decoder_tail.cu"
     pool_src = "scldm_torch/kernels/csrc/encoder_pool.cu"
     pool_launches = {"dense_fwd": parse["encoder_pool_fwd"] + cli["encoder_pool_fwd"],
@@ -5848,11 +6266,13 @@ def main(argv=None) -> int:
          **dit_block_bwd[(16, 128)], **dit_block_bound(128, backward=True),
          "library_ms": None},
         {"name": "dit_block_t64", "route": "cuda", "source": dit_src,
-         "replaces": "scldm_tpu/ops/fused_dit.py:155", "launches": census_ldm["dit_block"],
+         "replaces": "scldm_tpu/ops/fused_dit.py:155",
+         "launches": census_ldm["dit_block"] + p17["dit_block"],
          **dit_block[(64, census_rows[0])],
          **dit_block_bound(census_rows[0], backward=False, T=64), "library_ms": None},
         {"name": "dit_block_bwd_t64", "route": "cuda", "source": dit_bwd_src,
-         "replaces": "scldm_tpu/ops/fused_dit.py:205", "launches": census_ldm["dit_block_bwd"],
+         "replaces": "scldm_tpu/ops/fused_dit.py:205",
+         "launches": census_ldm["dit_block_bwd"] + p17["dit_block_bwd"],
          **dit_block_bwd[(64, census_rows[1])],
          **dit_block_bound(census_rows[1], backward=True, T=64), "library_ms": None},
         {"name": "dit_block_t1024", "route": "cuda", "source": dit_src,
@@ -5891,7 +6311,8 @@ def main(argv=None) -> int:
          "source": "scldm_torch/kernels/csrc/swiglu_vec.cu",
          "replaces": f"scldm_tpu/ops/fused_swiglu.py:{line}",
          "launches": census_swiglu[(tag, part)]
-         + (p15[f"swiglu_vec_{part}"] + p16[f"swiglu_vec_{part}"] if tag == "bf16" else 0),
+         + (p15[f"swiglu_vec_{part}"] + p16[f"swiglu_vec_{part}"] + p17[f"swiglu_vec_{part}"]
+            if tag == "bf16" else 0),
          **swiglu[(tag, part)],
          **(swiglu_vec_bound if tag == "f32" else swiglu_vec_bf16_bound)(
              CENSUS_BATCH * CENSUS["n_genes"], CENSUS["n_embed"], CENSUS_HIDDEN, part == "bwd"),

@@ -17,8 +17,10 @@ Every model value JAX's builders take is passed on: the VAE's dropout,
 `agg_func` or `decoder_name` raises a ValueError, as in JAX. The parallel
 keys `training.fsdp`, `gene_sp` and `pipeline_microbatches` go to the tasks
 with the CLIs' `mesh`, as JAX's builders pass them: without a mesh (one
-process) or at a "model" axis of 1 they change nothing, as in JAX; a
-pipeline over a "model" axis above 1 raises in `LDMTask` (ROADMAP item 11b).
+process) or at a "model" axis of 1 they change nothing, as in JAX; over a
+"model" axis above 1 (a task built with such a mesh through its API) the
+pipeline trains the DiT trunk as GPipe stages and a task without gene-SP or
+the pipeline takes Megatron's layout, as in JAX.
 Every transport JAX's factory takes is built, and
 `vae_as_tokenizer.train: true` finetunes the VAE inside the LDM
 (`LDMTask(train_vae=True)`), as in JAX.

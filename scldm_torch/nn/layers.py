@@ -16,6 +16,16 @@ Dropout (JAX's `nn.Dropout` after each attention's output projection) is
 drawn only where a forward is given a `Drops`, the draws of one training
 pass; without one every module is deterministic, as JAX's at
 `deterministic=True`.
+
+Megatron tensor parallelism (`parallel/sharding_rules.shard_module_`): a
+layer bound to a "model" group holds its slice of the sharded parameters in
+`tp` (`parallel.tensor_parallel.TensorParallel`; None on one card, whose
+code path is unchanged). An attention attends over its heads and a SwiGLU
+over its hidden slice, their row-parallel `c_proj` sums all-reduced; an
+adaLN `Linear` gathers its output, an embedding its lookups, and an
+attention `Linear` whose heads do not split gathers its weights. Every
+dropout site follows a reduction or a gather, so each model rank draws the
+same mask from the same `Drops`.
 """
 
 from __future__ import annotations
@@ -37,8 +47,17 @@ from scldm_torch.ops.transforms import COUNT_TRANSFORMS, LEARNED_TRANSFORMS
 
 def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
     """flax `Dense(dtype=dtype)` on an f32 `layer`: input, kernel and bias
-    cast to `dtype`, the product in it (no-op casts in f32)."""
-    w, b = layer.weight, layer.bias
+    cast to `dtype`, the product in it (no-op casts in f32). A Megatron
+    `Linear` gathers its output or its weights (the module docstring)."""
+    tp = getattr(layer, "tp", None)
+    if tp is not None and layer.tp_mode == "output":
+        return tp.gather(column(column_input(x, tp, dtype), layer, dtype))
+    w, b = weights(layer)
+    return _linear(x, w, b, dtype)
+
+
+def _linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
+            dtype: torch.dtype) -> torch.Tensor:
     if w.dtype != dtype:
         w, b = w.to(dtype), None if b is None else b.to(dtype)
     return F.linear(x if x.dtype == dtype else x.to(dtype), w, b)
@@ -49,13 +68,59 @@ def linear_f32(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.T
     output to f32 at once (the NB head's logit, the DiT's output), XLA keeps
     the f32 sum of the `dtype` products rather than rounding it to `dtype`
     and back. The same as `linear` in f32."""
-    bias = None if layer.bias is None else layer.bias.to(dtype).float()
-    return F.linear(x.to(dtype).float(), layer.weight.to(dtype).float(), bias)
+    w, b = weights(layer)
+    bias = None if b is None else b.to(dtype).float()
+    return F.linear(x.to(dtype).float(), w.to(dtype).float(), bias)
+
+
+def weights(layer: nn.Linear):
+    """(weight, bias) of `layer` as its product uses them: a Megatron layer
+    that gathers its weights (`tp_mode` "weight") returns them whole, any
+    other its own (a slice where it is sharded)."""
+    w, b = layer.weight, layer.bias
+    tp = getattr(layer, "tp", None)
+    if tp is not None and layer.tp_mode == "weight":
+        w = tp.gather(w, layer.tp_dim)
+        if b is not None and layer.tp_dim == 0:
+            b = tp.gather(b, 0)
+    return w, b
+
+
+def column_input(x: torch.Tensor, tp, dtype: torch.dtype) -> torch.Tensor:
+    """A replicated activation entering column-parallel products under
+    Megatron: rounded to `dtype` (the products' operand), held in f32, so
+    that each rank's part of its gradient stays an f32 sum until the ranks'
+    parts are summed (`copy_to`) and is rounded to `dtype` once, as one
+    process's whole product rounds it."""
+    return tp.copy_to(x.to(dtype).float())
+
+
+def column(xc: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
+    """A column-parallel product of `column_input`'s operand with this rank's
+    output rows of `layer`: the f32 sum of `dtype`-rounded operands, rounded
+    to `dtype` once."""
+    b = None if layer.bias is None else layer.bias.to(dtype).float()
+    return F.linear(xc, layer.weight.to(dtype).float(), b).to(dtype)
+
+
+def row_parallel(x: torch.Tensor, layer: nn.Linear, tp, dtype: torch.dtype) -> torch.Tensor:
+    """A row-parallel product: this rank's input slice through its input
+    columns of `layer`, in `dtype`'s rounding with f32 partial sums, the sums
+    all-reduced over the group and rounded to `dtype` once, then the
+    (replicated) bias."""
+    y = tp.reduce_from(F.linear(x.to(dtype).float(), layer.weight.to(dtype).float())).to(dtype)
+    return y if layer.bias is None else y + layer.bias.to(dtype)
 
 
 class Linear(nn.Linear):
     """An f32 `nn.Linear` that computes in `compute_dtype` (`linear`); a call
-    may name another dtype, as the kernel paths' f32 operands do."""
+    may name another dtype, as the kernel paths' f32 operands do. `tp`,
+    `tp_mode` and `tp_dim` bind it to a Megatron group
+    (`sharding_rules.shard_module_`)."""
+
+    tp = None
+    tp_mode: Optional[str] = None
+    tp_dim = 0
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  compute_dtype: torch.dtype = torch.float32):
@@ -68,8 +133,17 @@ class Linear(nn.Linear):
 
 def embed(table: nn.Embedding, ids: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """flax `Embed(dtype=dtype)` on an f32 table: the table cast to `dtype`,
-    then the lookup."""
-    return F.embedding(ids, table.weight.to(dtype))
+    then the lookup; a feature-sharded (Megatron) table's lookups gathered."""
+    out = F.embedding(ids, table.weight.to(dtype))
+    tp = getattr(table, "tp", None)
+    return out if tp is None else tp.gather(out)
+
+
+def table(emb: nn.Embedding) -> torch.Tensor:
+    """The whole (vocab, E) table of `emb`, gathered where it is
+    feature-sharded (differentiable)."""
+    tp = getattr(emb, "tp", None)
+    return emb.weight if tp is None else tp.gather(emb.weight, 1)
 
 
 def checkpointed(block: nn.Module, *args: torch.Tensor) -> torch.Tensor:
@@ -273,6 +347,8 @@ class SelfAttention(nn.Module):
     """Fused-qkv multi-head self-attention, dropout after the output
     projection."""
 
+    tp = None  # a Megatron group: this rank's heads (`sharding_rules.shard_module_`)
+
     def __init__(self, n_embed: int, n_head: int, bias: bool = False,
                  dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
@@ -282,15 +358,35 @@ class SelfAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, drops: Optional[Drops] = None) -> torch.Tensor:
         B, S, D = x.shape
-        q, k, v = (a.reshape(B, S, self.n_head, D // self.n_head)
-                   for a in self.c_attn(x).chunk(3, dim=-1))
-        return drop(self.c_proj(sdpa(q, k, v).reshape(B, S, D)), self.dropout, self, drops)
+        hd, heads = D // self.n_head, _local_heads(self)
+        if self.tp is None:
+            qkv = self.c_attn(x)
+        else:
+            dt = self.c_attn.compute_dtype
+            qkv = column(column_input(x, self.tp, dt), self.c_attn, dt)
+        q, k, v = (a.reshape(B, S, heads, hd) for a in qkv.chunk(3, dim=-1))
+        y = _out_proj(self, sdpa(q, k, v).reshape(B, S, heads * hd))
+        return drop(y, self.dropout, self, drops)
+
+
+def _local_heads(attn: nn.Module) -> int:
+    return attn.n_head if attn.tp is None else attn.n_head // attn.tp.size
+
+
+def _out_proj(attn: nn.Module, y: torch.Tensor) -> torch.Tensor:
+    """The attention's output projection; row-parallel over its heads under
+    Megatron."""
+    if attn.tp is None:
+        return attn.c_proj(y)
+    return row_parallel(y, attn.c_proj, attn.tp, attn.c_proj.compute_dtype)
 
 
 class CrossAttention(nn.Module):
     """Cross-attention: k/v from x, queries projected separately, dropout
     after the output projection. 2-D queries (M, E) are shared by the whole
     batch; 3-D queries (B, M, E) are not."""
+
+    tp = None  # a Megatron group: this rank's heads (`sharding_rules.shard_module_`)
 
     def __init__(self, n_embed: int, n_head: int, bias: bool = False,
                  dtype: torch.dtype = torch.float32, dropout: float = 0.0):
@@ -304,18 +400,26 @@ class CrossAttention(nn.Module):
                 drops: Optional[Drops] = None) -> torch.Tensor:
         B, S, _ = x.shape
         M, D = q.shape[-2], q.shape[-1]
-        hd = D // self.n_head
-        k, v = (a.reshape(B, S, self.n_head, hd) for a in self.c_attn(x).chunk(2, dim=-1))
-        q = self.c_attn_q(q)
-        if q.ndim == 2:
-            y = sdpa_shared_q(q.reshape(M, self.n_head, hd), k, v)
+        hd, heads = D // self.n_head, _local_heads(self)
+        if self.tp is None:
+            kv, q = self.c_attn(x), self.c_attn_q(q)
         else:
-            y = sdpa(q.reshape(B, M, self.n_head, hd), k, v)
-        return drop(self.c_proj(y.reshape(B, M, D)), self.dropout, self, drops)
+            dt = self.c_attn.compute_dtype
+            kv = column(column_input(x, self.tp, dt), self.c_attn, dt)
+            q = column(column_input(q, self.tp, dt), self.c_attn_q, dt)
+        k, v = (a.reshape(B, S, heads, hd) for a in kv.chunk(2, dim=-1))
+        if q.ndim == 2:
+            y = sdpa_shared_q(q.reshape(M, heads, hd), k, v)
+        else:
+            y = sdpa(q.reshape(B, M, heads, hd), k, v)
+        return drop(_out_proj(self, y.reshape(B, M, heads * hd)), self.dropout, self, drops)
 
 
 class MLP(nn.Module):
-    """SwiGLU MLP, hidden = 2/3 * 4E rounded up to a multiple of `multiple_of`."""
+    """SwiGLU MLP, hidden = 2/3 * 4E rounded up to a multiple of `multiple_of`;
+    under Megatron (`tp`) over this rank's hidden slice."""
+
+    tp = None
 
     def __init__(self, n_embed: int, multiple_of: int = 4, dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -327,7 +431,12 @@ class MLP(nn.Module):
 
     def forward(self, x: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         """In the module's dtype, or in `dtype` where a call names one."""
-        return self.c_proj(silu(self.w1(x, dtype)) * self.w2(x, dtype), dtype)
+        if self.tp is None:
+            return self.c_proj(silu(self.w1(x, dtype)) * self.w2(x, dtype), dtype)
+        dt = self.w1.compute_dtype if dtype is None else dtype
+        xc = column_input(x, self.tp, dt)
+        h = silu(column(xc, self.w1, dt)) * column(xc, self.w2, dt)
+        return row_parallel(h, self.c_proj, self.tp, dt)
 
 
 def _adaln(n_embed: int, chunks: int, dtype: torch.dtype) -> nn.Sequential:

@@ -8,7 +8,10 @@ class selection of the mutually exclusive strategy, with every draw from a
 `dtype` is JAX's compute dtype (`nn/layers.py`); `remat` recomputes each
 trunk block in the backward (JAX `nn.remat` around `Block`), which changes
 memory, not numbers. `dropout` acts in every attention of the trunks and
-the cross blocks where a forward is given `drops` (`layers.Drops`)."""
+the cross blocks where a forward is given `drops` (`layers.Drops`). Cut to
+a Megatron rank's slices (`parallel/sharding_rules.shard_module_`), the
+Encoder, the Decoder (its own gene table too) and the DiT (its class tables
+and adaLN projections) run on them through `nn/layers.py`'s layers."""
 
 from __future__ import annotations
 

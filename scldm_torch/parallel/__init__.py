@@ -1,8 +1,8 @@
 """Multi-card layouts (counterpart of scldm_tpu/parallel/): the bootstrap,
-the ("data", "model") mesh, data parallelism and FSDP over "data", and
-gene-sequence parallelism over "model". JAX's Megatron rules
-(`sharding_rules.param_pspec`) and GPipe trunk (`pipeline.py`) wait for
-ROADMAP queue 1, item 11b."""
+the ("data", "model") mesh, data parallelism and FSDP over "data", and over
+"model" gene-sequence parallelism (`gene_sp.py`), the GPipe DiT trunk
+(`pipeline.py`) and Megatron tensor parallelism (`sharding_rules.py` with
+`tensor_parallel.py`)."""
 
 from scldm_torch.parallel.distributed import (  # noqa: F401
     maybe_initialize_distributed,

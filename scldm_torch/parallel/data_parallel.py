@@ -14,8 +14,9 @@ initial weights are broadcast from rank 0 (`Layout.broadcast_`).
 `FlatShards` is the FSDP layout (`training.fsdp`), chosen over FSDP2's
 `fully_shard`, which leaves DTensors outside a wrapped module's `forward`
 where the tasks and the kernels' raw pointers read the weights. Every
-trained parameter that JAX's rule shards (`shardable`: at least 1,024
-elements and a dimension the data axis divides) keeps 1/n of its elements,
+trained parameter that JAX's rule shards (`sharding_rules.fit_spec` with
+fsdp: at least 1,024 elements and a dimension the data axis divides) keeps
+1/n of its elements,
 and its optimizer moments are made from that slice: between steps its
 module tensor is empty. A step all-gathers the full weights into the module
 (`gather`), and after the backward reduce-scatters the gradients into the
@@ -33,11 +34,11 @@ from typing import Dict, Iterable, List, Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from scldm_torch.parallel.distributed import sync_generator_
 from scldm_torch.parallel.mesh import axis_rank, axis_size
+from scldm_torch.parallel.sharding_rules import fit_spec, shard_module_
+from scldm_torch.parallel.tensor_parallel import TensorParallel, megatron_of
 from scldm_torch.training import metrics as M
-
-FSDP_MIN_NUMEL = 1024  # JAX's size floor: the all-gather latency outweighs the memory win below
-
 
 @torch.no_grad()
 def all_reduce_flat_(tensors: Sequence[torch.Tensor], group, divide: Optional[int] = None) -> None:
@@ -81,28 +82,21 @@ def sync_sum(x: torch.Tensor, group) -> torch.Tensor:
     return _SyncSum.apply(x, group)
 
 
-def shardable(shape: Sequence[int], n: int) -> bool:
-    """JAX's FSDP rule (`sharding_rules._fit_spec` with fsdp): a parameter of
-    at least `FSDP_MIN_NUMEL` elements with a dimension of at least `n` that
-    `n` divides is split over the `n` data ranks; the rest replicate."""
-    return n > 1 and math.prod(shape) >= FSDP_MIN_NUMEL and any(
-        d % n == 0 and d >= n for d in shape)
-
-
 class FlatShards:
     """The FSDP slices of a module's trained parameters over `group` (the
     module docstring). Rank r keeps elements [r k, (r + 1) k) of each
-    shardable parameter's flattened tensor, k = numel / n, as a parameter of
-    its own (`shard_of`), which the optimizer updates in place of the full
-    one. Built with the full weights in the module; `free` empties them."""
+    parameter that `decide(name, parameter)` picks (`Layout.shard`: JAX's
+    rule) of its flattened tensor, k = numel / n, as a parameter of its own
+    (`shard_of`), which the optimizer updates in place of the full one.
+    Built with the full weights in the module; `free` empties them."""
 
-    def __init__(self, module: torch.nn.Module, group):
+    def __init__(self, module: torch.nn.Module, group, decide):
         self.group = group
         self.n = dist.get_world_size(group)
         self.rank = dist.get_rank(group)
         self.entries = []  # (name, parameter, its slice, its shape)
         for name, p in module.named_parameters():
-            if p.requires_grad and shardable(tuple(p.shape), self.n):
+            if p.requires_grad and decide(name, p):
                 k = p.numel() // self.n
                 piece = p.detach().reshape(-1)[self.rank * k: (self.rank + 1) * k]
                 self.entries.append((name, p, torch.nn.Parameter(piece.clone()), tuple(p.shape)))
@@ -114,13 +108,6 @@ class FlatShards:
     def shard_of(self, p: torch.nn.Parameter) -> torch.nn.Parameter:
         """`p`'s slice if it is sharded, else `p`."""
         return self._shard.get(id(p), p)
-
-    def numels(self) -> Dict[int, int]:
-        """{id(slice): the full tensor's numel} (`AdamWLegacy.set_slices`)."""
-        return {id(s): math.prod(shape) for _, _, s, shape in self.entries}
-
-    def shard_grad_ids(self) -> set:
-        return {id(s.grad) for _, _, s, _ in self.entries if s.grad is not None}
 
     @torch.no_grad()
     def free(self) -> None:
@@ -216,12 +203,16 @@ class FlatShards:
 def trained_params(layout: Optional["Layout"], module: torch.nn.Module, *others):
     """(the parameters an optimizer over `module` updates, the FSDP slices or
     None). On a mesh the ranks first take rank 0's weights of `module` and
-    `others`; the caller builds the optimizer, then frees the slices'
-    full tensors (`FlatShards.free`)."""
+    `others`, under Megatron cut to each model rank's slices; the caller
+    builds the optimizer, then frees the FSDP slices' full tensors
+    (`FlatShards.free`)."""
     params = [p for p in module.parameters() if p.requires_grad]
     if layout is None:
         return params, None
     layout.broadcast_(module, *others)
+    if layout.tp is not None:
+        for m in (module, *others):
+            shard_module_(m, layout.tp)
     shards = layout.shard(module)
     if shards is not None:
         params = [shards.shard_of(p) for p in params]
@@ -230,16 +221,27 @@ def trained_params(layout: Optional["Layout"], module: torch.nn.Module, *others)
 
 class Layout:
     """What a task does on a mesh: the groups and sizes of its axes, the
-    broadcast of the initial weights, FSDP slices (`fsdp` with more than one
-    data rank) and the gradient and metric reductions of a step."""
+    broadcast of the initial weights, Megatron slices over "model"
+    (`megatron` with more than one model rank), FSDP slices (`fsdp` with
+    more than one data rank) and the gradient and metric reductions of a
+    step."""
 
-    def __init__(self, mesh, fsdp: bool = False):
+    def __init__(self, mesh, fsdp: bool = False, megatron: bool = False):
         self.mesh = mesh
         self.n_data, self.n_model = axis_size(mesh, "data"), axis_size(mesh, "model")
         self.data_rank, self.model_rank = axis_rank(mesh, "data"), axis_rank(mesh, "model")
         self.data_group = mesh.get_group("data")
         self.model_group = mesh.get_group("model")
         self.fsdp = bool(fsdp) and self.n_data > 1
+        self.tp = TensorParallel(self.model_group) if megatron and self.n_model > 1 else None
+
+    def share_draws_(self, state) -> None:
+        """Where several model ranks share a data row's rows, they take its
+        first one's generator state and keep their group in the state, so
+        that a checkpoint load re-syncs them (`training.checkpoint`)."""
+        if self.n_model > 1:
+            state.sync_group = self.model_group
+            sync_generator_(state.generator, self.model_group)
 
     @torch.no_grad()
     def broadcast_(self, *modules: torch.nn.Module) -> None:
@@ -256,14 +258,26 @@ class Layout:
                 t.copy_(piece.view_as(t))
 
     def shard(self, module: torch.nn.Module) -> Optional[FlatShards]:
-        """The FSDP slices of `module` over "data", or None without FSDP."""
-        return FlatShards(module, self.data_group) if self.fsdp else None
+        """The FSDP slices of `module` over "data", or None without FSDP:
+        JAX's rule (`fit_spec`) decides on each leaf's whole shape, with
+        "model" where the module is cut by Megatron."""
+        if not self.fsdp:
+            return None
+        mt = megatron_of(module)
+        n_model = 1 if mt is None else self.n_model
+
+        def decide(name, p):
+            s = mt.by_id.get(id(p)) if mt is not None else None
+            shape = s.shape if s is not None else tuple(p.shape)
+            return fit_spec(name, shape, n_model, self.n_data, True)[1]
+
+        return FlatShards(module, self.data_group, decide)
 
     @torch.no_grad()
     def sync(self, state, metrics: Dict[str, torch.Tensor], sum_over_model: bool = False
              ) -> Dict[str, torch.Tensor]:
         """After a backward: the gradients summed over "model" where each
-        model rank holds a part of them (gene-SP), then averaged over
+        model rank holds a part of them (gene-SP, the pipeline), then averaged over
         "data" (reduce-scattered into the FSDP slices, the rest in one flat
         all-reduce with the metrics). Returns the metrics' means over
         "data" (0-d f32 tensors)."""
@@ -282,25 +296,61 @@ class Layout:
         all_reduce_flat_(grads + vals, self.data_group, divide=self.n_data)
         return {k: v.reshape(()) for k, v in zip(keys, vals)}
 
+    def slice_axes(self, state) -> Dict[int, tuple]:
+        """{id(trained tensor): (the mesh axes its slices spread over, the
+        whole tensor's numel)} for every slice: FSDP over "data", Megatron
+        over "model", or both. The trained tensor is the FSDP slice where
+        there is one, else the module's parameter."""
+        shards, mt = state.shards, megatron_of(state.module)
+        fs = {} if shards is None else {id(p): (s, shape) for _, p, s, shape in shards.entries}
+        out = {}
+        for p in state.module.parameters():
+            s = None if mt is None else mt.by_id.get(id(p))
+            axes = (("data",) if id(p) in fs else ()) + (("model",) if s is not None else ())
+            if axes:
+                shape = s.shape if s is not None else fs[id(p)][1]
+                q = fs[id(p)][0] if id(p) in fs else p
+                out[id(q)] = (axes, math.prod(shape))
+        return out
+
+    def _groups(self, axes: tuple) -> tuple:
+        return tuple(self.data_group if a == "data" else self.model_group for a in axes)
+
+    def mark_slices(self, state) -> None:
+        """Tell the state's AdamWLegacy which tensors are slices (the
+        cautious mask's mean over the whole tensor)."""
+        for key, (axes, numel) in self.slice_axes(state).items():
+            state.optimizer.set_slices({key: numel}, *self._groups(axes))
+
     def norm_fn(self, state):
-        """The global L2 norm of a list of the step's gradients, FSDP slices'
-        squared norms all-reduced over "data"."""
-        shards = state.shards
-        if shards is None:
+        """The global L2 norm of a list of the step's gradients: each slice's
+        squared norm all-reduced over the axes it spreads over (FSDP's
+        "data", Megatron's "model"), each replicated gradient counted once."""
+        if state.shards is None and megatron_of(state.module) is None:
             return M.global_norm
-        ids = shards.shard_grad_ids()
+        axes = {k: a for k, (a, _) in self.slice_axes(state).items()}
+        kinds = sorted(set(axes.values()))  # one order on every rank
 
         def norm(grads: Iterable[torch.Tensor]) -> torch.Tensor:
             grads = list(grads)
-            sq = [g.float().square().sum() for g in grads if id(g) in ids]
-            sq = torch.stack(sq).sum() if sq else grads[0].new_zeros((), dtype=torch.float32)
-            dist.all_reduce(sq, group=self.data_group)
-            rep = [g for g in grads if id(g) not in ids]
-            if rep:
-                sq = sq + M.global_norm(rep).square()
+            of_grad = {id(q.grad): axes[id(q)] for q in self._trained(state)
+                       if id(q) in axes and q.grad is not None}
+            rep = [g for g in grads if id(g) not in of_grad]
+            sq = M.global_norm(rep).square() if rep else grads[0].new_zeros((), dtype=torch.float32)
+            for kind in kinds:  # every rank reduces every kind, zeros where it has none
+                mine = [g.float().square().sum() for g in grads if of_grad.get(id(g)) == kind]
+                part = torch.stack(mine).sum() if mine else sq.new_zeros(())
+                for group in self._groups(kind):
+                    dist.all_reduce(part, group=group)
+                sq = sq + part
             return sq.sqrt()
 
         return norm
+
+    @staticmethod
+    def _trained(state) -> List[torch.Tensor]:
+        shards = state.shards
+        return [p if shards is None else shards.shard_of(p) for p in state.module.parameters()]
 
     def named_grads(self, state) -> List[tuple]:
         """(name, gradient) of every trained parameter with one: the FSDP

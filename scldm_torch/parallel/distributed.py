@@ -108,3 +108,11 @@ def spans_nodes() -> bool:
     `LOCAL_WORLD_SIZE` below the world size)."""
     world = world_size()
     return world > 1 and int(os.environ.get("LOCAL_WORLD_SIZE", world)) < world
+
+
+def sync_generator_(generator: torch.Generator, group) -> None:
+    """Every rank of `group` takes the state of the group's first rank's
+    `generator`, so the ranks that share rows draw what one process draws."""
+    state = [generator.get_state()]
+    dist.broadcast_object_list(state, src=dist.get_global_rank(group, 0), group=group)
+    generator.set_state(state[0])

@@ -5,7 +5,10 @@ mesh, ("data", "model"), whose "data" axis carries the batch. The port's mesh
 is a `torch.distributed.device_mesh.DeviceMesh` over every rank with the same
 axis names, the "model" axis the inner one (ranks d * n_model + m), as JAX's
 `reshape(n_data, n_model)`. The tasks read their process groups from it.
-On one process the CLIs pass `mesh=None`, as JAX's do on one device.
+On one process the CLIs pass `mesh=None`, as JAX's do on one device. The
+"model" axis carries gene-SP, the GPipe trunk's stages or Megatron's
+parameter slices, as the task's keys choose (`parallel/gene_sp.py`,
+`pipeline.py`, `sharding_rules.py`).
 
 `shard_batch` and `shard_stacked_batch` return a rank's rows of a global
 batch (the tests use them); under the CLIs each rank already loads its own
@@ -18,10 +21,6 @@ from typing import Dict, Optional
 
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
-
-# what a mesh with a "model" axis above 1 waits for where gene-SP is off
-TENSOR_PARALLEL = ("ROADMAP queue 1, item 11b (Megatron tensor parallelism over the 'model' axis "
-                   "and the GPipe trunk)")
 
 
 def make_mesh(n_data: Optional[int] = None, n_model: int = 1,

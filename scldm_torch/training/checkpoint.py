@@ -23,9 +23,12 @@ tensors, numbers and strings only.
 Under a process group the payload is the one-process format: rank 0 writes
 full tensors, the module and the optimizer state gathered out of FSDP
 slices, and `generators` holds every rank's generator state; the other ranks
-take part in the gathers and wait at a barrier. So a run saved at one world
-size resumes at another: a load slices the full tensors for FSDP, and a
-rank without a saved generator state draws a seed from rank 0's. Where the
+take part in the gathers and wait at a barrier. Megatron slices (the
+module's, their AdamW moments and EMA) are gathered whole the same way. So a
+run saved at one world size resumes at another: a load slices the full
+tensors for Megatron and FSDP, a rank without a saved generator state
+draws a seed from rank 0's, and the ranks that share rows (a data row's
+model ranks) then take their first one's. Where the
 ranks span machines, a directory under /tmp, /var or /dev/shm is refused
 (JAX's guard): every rank must read what rank 0 wrote.
 """
@@ -42,7 +45,14 @@ from typing import Any, Dict, List, Optional
 import torch
 import torch.distributed as dist
 
-from scldm_torch.parallel.distributed import barrier, rank, spans_nodes, world_size
+from scldm_torch.parallel.distributed import (
+    barrier,
+    rank,
+    spans_nodes,
+    sync_generator_,
+    world_size,
+)
+from scldm_torch.parallel.tensor_parallel import megatron_of
 
 STATE_FILE = "state.pt"
 METRICS_FILE = "metrics.json"
@@ -61,20 +71,28 @@ def _to_host(obj):
 
 def snapshot(state, metrics: Optional[dict] = None) -> Optional[Dict[str, Any]]:
     """The checkpoint payload of a `training.state.TrainState`, in host
-    memory. Under a process group every rank must call it (FSDP slices and
-    the generators are gathered); rank 0 gets the payload, the others None."""
+    memory. Under a process group every rank must call it (Megatron and FSDP
+    slices and the generators are gathered); rank 0 gets the payload, the
+    others None."""
     world, first = world_size(), rank() == 0
     generators = None
     if world > 1:
         generators = [None] * world
         dist.all_gather_object(generators, state.generator.get_state())
+    mt = megatron_of(state.module)
+    trained = [p for p in state.module.parameters() if p.requires_grad]
     if state.shards is not None:
         with state.shards.gathered():
-            module = _to_host(state.module.state_dict()) if first else None
+            module = _module_state(state.module, mt, first)
         optimizer = state.shards.full_optimizer_state(state.optimizer)
     else:
-        module = _to_host(state.module.state_dict()) if first else None
+        module = _module_state(state.module, mt, first)
         optimizer = state.optimizer.state_dict()
+    ema = None if state.ema is None else state.ema.params
+    if mt is not None:
+        optimizer = mt.whole_optimizer_state(optimizer, trained)
+        if ema is not None:
+            ema = mt.whole_named(state.module, ema)
     if not first:
         return None
     payload = {
@@ -83,12 +101,21 @@ def snapshot(state, metrics: Optional[dict] = None) -> Optional[Dict[str, Any]]:
         "step": int(state.step),
         "generator": state.generator.get_state().clone(),
         "ema": None if state.ema is None else {
-            "params": _to_host(state.ema.params), "step": int(state.ema.step)},
+            "params": _to_host(ema), "step": int(state.ema.step)},
         "metrics": dict(metrics or {}),
     }
     if generators is not None:
         payload["generators"] = [g.clone() for g in generators]
     return payload
+
+
+def _module_state(module, mt, first: bool):
+    """The module's state dict on the host for rank 0 (None elsewhere), its
+    Megatron slices gathered whole (every rank takes part)."""
+    if mt is None:
+        return _to_host(module.state_dict()) if first else None
+    sd = mt.whole_state_dict(module.state_dict())
+    return _to_host(sd) if first else None
 
 
 def _set_generator(generator: torch.Generator, payload: Dict[str, Any]) -> None:
@@ -109,22 +136,31 @@ def load_into(template, payload: Dict[str, Any]):
     """Copy a payload into the train state `template`, in place, on the
     template's device; returns it. Under FSDP each rank keeps its slices of
     the full tensors."""
-    shards = template.shards
+    shards, mt = template.shards, megatron_of(template.module)
+    module, optimizer = payload["module"], payload["optimizer"]
+    if mt is not None:
+        trained = [p for p in template.module.parameters() if p.requires_grad]
+        module = mt.sliced_state_dict(module)
+        optimizer = mt.sliced_optimizer_state(optimizer, trained)
     if shards is None:
-        template.module.load_state_dict(payload["module"])
-        template.optimizer.load_state_dict(payload["optimizer"])
+        template.module.load_state_dict(module)
+        template.optimizer.load_state_dict(optimizer)
     else:
         with shards.gathered():
-            template.module.load_state_dict(payload["module"])
+            template.module.load_state_dict(module)
             shards.load_slices()
         template.optimizer.load_state_dict(
-            shards.sliced_optimizer_state(payload["optimizer"], template.optimizer))
+            shards.sliced_optimizer_state(optimizer, template.optimizer))
     template.step = int(payload["step"])
     _set_generator(template.generator, payload)
+    if template.sync_group is not None:
+        sync_generator_(template.generator, template.sync_group)
     if (payload["ema"] is None) != (template.ema is None):
         raise ValueError("the checkpoint and the template disagree on having an EMA")
     if template.ema is not None:
         params = payload["ema"]["params"]
+        if mt is not None:
+            params = mt.sliced_named(template.module, params)
         if set(params) != set(template.ema.params):
             raise KeyError("the checkpoint's EMA parameters are not the template's")
         for name, t in template.ema.params.items():

@@ -49,10 +49,24 @@ dispatch, not the math); under gene-SP they close, as JAX's. `fsdp` slices the t
 "data" (`parallel.data_parallel.FlatShards`); `gene_sp` with a "model" axis
 above 1 decodes the generation's genes in contiguous ranges over the model
 ranks (`parallel.gene_sp`), and `make_sample_fn(split_over_data=True)`
-splits a generation batch over the data ranks and gathers it back. A model
-axis above 1 without gene-SP, and `pipeline_microbatches` there, are JAX's
-Megatron and GPipe layouts and raise NotImplementedError (ROADMAP item 11b);
-at a model axis of 1 both keys are ignored, as in JAX.
+splits a generation batch over the data ranks and gathers it back. At a
+model axis of 1 `gene_sp` and `pipeline_microbatches` are ignored, as in JAX.
+
+A "model" axis above 1 carries one of JAX's three layouts:
+
+- gene-SP (`gene_sp`), above;
+- the GPipe trunk (`pipeline_microbatches`, `parallel.pipeline`): the DiT's
+  blocks in contiguous stages over the model ranks, the parameters and AdamW
+  state replicated there; each stage runs its blocks through the DiT kernels
+  (rows 1-2) on every microbatch, the conditioning through the module, and
+  each rank's gradients are summed over "model" before the mean over
+  "data". Generation runs the DiT on each rank (row 1 through
+  `fused_dit_forward`) and decodes gene-parallel over "model", as JAX's
+  `make_sample_fn` does under a pipeline;
+- Megatron otherwise (`parallel.sharding_rules`): the DiT and the frozen VAE
+  cut to each model rank's slices, the DiT step, the frozen encode and
+  generation on the modules (the DiT kernels and the window pool close, as
+  in JAX; the decode's `swiglu_vec` runs on each rank's hidden slice).
 """
 
 from __future__ import annotations
@@ -87,7 +101,8 @@ from scldm_torch.parallel.data_parallel import (
     trained_params,
 )
 from scldm_torch.parallel.gene_sp import GeneSP
-from scldm_torch.parallel.mesh import TENSOR_PARALLEL
+from scldm_torch.parallel.mesh import axis_size
+from scldm_torch.parallel.pipeline import Hops, pipeline_dit_apply
 from scldm_torch.sampling.size_factors import SizeFactorSampler
 from scldm_torch.training import metrics as M
 from scldm_torch.training.ema import ema_init, ema_update
@@ -146,7 +161,12 @@ class LDMTask:
     (`_algebraic_path_ok`), for the canonical gene row only;
     `algebraic_vw_fold=None` folds the output projection wherever that
     decode runs; `algebraic_fused_gate=True` (off unless asked) runs its
-    SwiGLU through the `swiglu_vec` kernel."""
+    SwiGLU through the `swiglu_vec` kernel.
+
+    `pipeline_microbatches` on a "model" axis above 1 trains the DiT trunk
+    as a GPipe pipeline (the module docstring); it raises JAX's ValueErrors
+    at DiT dropout, at a layer count the stages do not divide, and beside
+    `gene_sp`."""
 
     def __init__(
         self,
@@ -187,22 +207,32 @@ class LDMTask:
         if fused_training and dit.dropout > 0:
             raise ValueError(f"fused_training=True: the DiT kernels have no dropout, and this "
                              f"DiT's is {dit.dropout}")
-        self.layout = None if mesh is None else Layout(mesh, fsdp=fsdp)
-        n_model = 1 if mesh is None else self.layout.n_model
-        if n_model > 1 and pipeline_microbatches:
-            raise NotImplementedError(f"pipeline_microbatches={pipeline_microbatches} over a "
-                                      f"'model' axis of {n_model} is not ported: {TENSOR_PARALLEL}")
-        if n_model > 1 and not gene_sp:
-            raise NotImplementedError(f"a 'model' axis of {n_model} without gene_sp is not "
-                                      f"ported: {TENSOR_PARALLEL}")
+        n_model = 1 if mesh is None else axis_size(mesh, "model")
+        self.pipeline = int(pipeline_microbatches) if pipeline_microbatches and n_model > 1 else None
+        if self.pipeline:
+            if dit.dropout != 0.0:
+                raise ValueError("pipeline_microbatches requires DiT dropout=0")
+            if dit.n_layer % n_model:
+                raise ValueError(f"DiT n_layer={dit.n_layer} must divide into {n_model} "
+                                 "pipeline stages")
         self.gene_sp = bool(gene_sp) and n_model > 1
-        self._sp = GeneSP(self.layout.model_group, vae.decoder.n_genes) if self.gene_sp else None
+        if self.gene_sp and self.pipeline:
+            raise ValueError("gene_sp and pipeline_microbatches both claim the mesh 'model' "
+                             "axis: enable at most one")
+        self.megatron = n_model > 1 and not (self.gene_sp or self.pipeline)
+        self.layout = None if mesh is None else Layout(mesh, fsdp=fsdp, megatron=self.megatron)
+        self._hops = Hops(mesh) if self.pipeline else None
+        # the generation decode is gene-parallel under gene-SP and the pipeline, as JAX's
+        self._sp = (GeneSP(self.layout.model_group, vae.decoder.n_genes)
+                    if self.gene_sp or self.pipeline else None)
         # JAX's gates close under a multi-device mesh; the port's ranks run
-        # one-card steps (under FSDP on the gathered weights), so only
-        # gene-SP, whose NB softmax spans the ranks, closes them
-        self._closed = self.gene_sp
+        # one-card steps (under FSDP on the gathered weights, under the
+        # pipeline each stage its blocks), so only gene-SP, whose NB softmax
+        # spans the ranks, and Megatron, where no rank holds a block's
+        # weights, close them
+        self._closed = self.gene_sp or self.megatron
         self.fused_training = False if (self.train_vae or self._closed) else fused_training
-        self.fused_encode = bool(fused_encode) and not self.train_vae
+        self.fused_encode = bool(fused_encode) and not (self.train_vae or self.megatron)
         if algebraic_decode is None:
             algebraic_decode = vae.decoder.n_embed > 128
         self.algebraic_decode = bool(algebraic_decode) and _algebraic_path_ok(vae)
@@ -210,7 +240,7 @@ class LDMTask:
             algebraic_vw_fold = self.algebraic_decode
         self.algebraic_vw_fold = bool(algebraic_vw_fold) and self.algebraic_decode
         self.algebraic_fused_gate = (bool(algebraic_fused_gate) and self.algebraic_decode
-                                     and not self._closed)
+                                     and self._sp is None)
         self.grad_clip = grad_clip
         self.ema_cfg = dict(beta=ema_decay, update_every=ema_update_every,
                             update_after_step=ema_update_after_step)
@@ -233,7 +263,9 @@ class LDMTask:
         optimizer over `self.vae` too, the state's module a `JointLDM`),
         whose modules keep the weights they hold; `generator` is the source
         of the steps' draws. The EMA covers the DiT alone. On a mesh every
-        rank takes rank 0's weights; under FSDP the optimizer updates the
+        rank takes rank 0's weights and the model ranks of a data row its
+        first one's generator state; under Megatron the DiT and the VAE are
+        cut to each model rank's slices; under FSDP the optimizer updates the
         module's slices and its sharded tensors are emptied."""
         module = self.dit
         if self.train_vae:
@@ -245,6 +277,8 @@ class LDMTask:
                                         *(() if self.train_vae else (self.vae,)))
         state = create_train_state(module, AdamW(params, **self._opt_kwargs), generator,
                                    ema=ema_init(self.dit.named_parameters()), shards=shards)
+        if self.layout is not None:
+            self.layout.share_draws_(state)
         if shards is not None:
             shards.free()
         return state
@@ -276,7 +310,7 @@ class LDMTask:
         return vae.encode(counts, genes, batch.get(C_SUB), batch.get(G_SUB))
 
     def _use_fused(self, z: torch.Tensor) -> bool:
-        if self.train_vae:
+        if self.train_vae or self.pipeline:
             return False
         if self.fused_training is None:
             return z.is_cuda and self.dit.dropout == 0.0
@@ -297,10 +331,14 @@ class LDMTask:
         fused = self._use_fused(z)
 
         def model_fn(xt, t, condition):
-            if fused:
+            if fused or self.pipeline:
                 t_emb = self.dit.embed_condition(t, condition, generator, train=True,
                                                  selected=draws.get("selected"),
                                                  drop_mask=draws.get("drop_mask"))
+                if self.pipeline:
+                    return pipeline_dit_apply(self.dit, xt, t_emb, hops=self._hops,
+                                              group=self.layout.model_group,
+                                              n_micro=self.pipeline)
                 return fused_dit_train_apply(self.dit, xt, t_emb)
             return self.dit(xt, t, condition, train=True, generator=generator, **draws)
 
@@ -316,12 +354,18 @@ class LDMTask:
         """One optimizer step and EMA tick; updates `state` in place and
         returns it with the step's metrics (0-d tensors on the batch's
         device). `noise` as in `loss`. Under FSDP the full weights are
-        gathered for the forward and backward."""
+        gathered for the forward and backward. Under the pipeline every rank
+        computes the loss and runs the backward, whose seed is 1 on the last
+        stage and 0 elsewhere: the loss is taken once, where the last block
+        ran (`parallel.pipeline`)."""
         state.optimizer.zero_grad(set_to_none=True)
         if state.shards is not None:
             state.shards.gather()
         loss = self.loss(batch, state.generator, noise)
-        loss.backward()
+        seed = None
+        if self.pipeline:
+            seed = torch.full_like(loss, float(self._hops.stage == self._hops.stages - 1))
+        loss.backward(seed)
         return state, self.apply_gradients(state, {"train_loss": loss.detach()})
 
     def apply_gradients(self, state: TrainState, metrics: Optional[Dict] = None
@@ -337,7 +381,8 @@ class LDMTask:
             for p in state.module.parameters():
                 if p.requires_grad and p.grad is None:
                     p.grad = torch.zeros_like(p)
-        metrics, named, norm = step_gradients(self.layout, state, metrics)
+        metrics, named, norm = step_gradients(self.layout, state, metrics,
+                                              sum_over_model=bool(self.pipeline))
         grads = [g for _, g in named]
         gnorm = norm(grads)
         torch._foreach_mul_(grads, torch.clamp(self.grad_clip / (gnorm + 1e-12), max=1.0))

@@ -79,9 +79,10 @@ class AdamWLegacy(_StepCount, torch.optim.Optimizer):
         caution: m *= mask / max(mean(mask), 1e-3), mask = (m * g > 0)
         p -= lr / bc1 * m / denom
 
-    Parameters whose `grad` is None are skipped. Where a parameter is an
-    FSDP slice (`set_slices`), the cautious mask's mean is taken over the
-    whole tensor: the slices' mask sums are all-reduced over the data ranks."""
+    Parameters whose `grad` is None are skipped. Where a parameter is a
+    slice (`set_slices`: FSDP over the data ranks, Megatron over the model
+    ranks, or both), the cautious mask's mean is taken over the whole
+    tensor: the slices' mask sums are all-reduced over their groups."""
 
     def __init__(
         self,
@@ -99,24 +100,27 @@ class AdamWLegacy(_StepCount, torch.optim.Optimizer):
         super().__init__(params, defaults)
         self.schedule = schedule or (lambda step: 1.0)
         self.step_count = 0
-        self._slices: dict = {}  # id(slice) -> the full tensor's numel
-        self._slice_group = None
+        self._slices: dict = {}  # id(slice) -> (the full tensor's numel, its groups)
 
-    def set_slices(self, numels: dict, group) -> None:
-        """Mark parameters as FSDP slices: {id(slice): the full tensor's
-        numel}, their ranks `group`."""
-        self._slices, self._slice_group = dict(numels), group
+    def set_slices(self, numels: dict, *groups) -> None:
+        """Mark parameters as slices: {id(slice): the full tensor's numel},
+        the slices spread over the ranks of each of `groups`."""
+        self._slices.update({i: (n, groups) for i, n in numels.items()})
 
     def _mask_means(self, params, masks):
         means = [k.mean() for k in masks]
-        sliced = [i for i, p in enumerate(params) if id(p) in self._slices]
-        if sliced:
+        by_groups: dict = {}
+        for i, p in enumerate(params):
+            if id(p) in self._slices:
+                by_groups.setdefault(self._slices[id(p)][1], []).append(i)
+        for groups, sliced in by_groups.items():
             import torch.distributed as dist
 
             sums = torch.stack([masks[i].sum() for i in sliced])
-            dist.all_reduce(sums, group=self._slice_group)
+            for group in groups:
+                dist.all_reduce(sums, group=group)
             for j, i in enumerate(sliced):
-                means[i] = sums[j] / self._slices[id(params[i])]
+                means[i] = sums[j] / self._slices[id(params[i])][0]
         return means
 
     @torch.no_grad()

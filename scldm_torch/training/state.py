@@ -16,7 +16,9 @@ class TrainState:
     optimizer steps taken, the generator for the step's random draws,
     optionally the EMA of the parameters, and under FSDP the parameters'
     slices (`parallel.data_parallel.FlatShards`), which the optimizer
-    updates; between steps the module's sharded tensors are then empty."""
+    updates; between steps the module's sharded tensors are then empty.
+    `sync_group` is the group of ranks that share rows and so draw alike (a
+    data row's model ranks), or None."""
 
     module: torch.nn.Module
     optimizer: torch.optim.Optimizer
@@ -24,6 +26,7 @@ class TrainState:
     generator: torch.Generator
     ema: Optional[EMAState] = None
     shards: Optional[Any] = None
+    sync_group: Optional[Any] = None
 
 
 def create_train_state(

@@ -43,7 +43,15 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from scldm_torch.nn.heads import GaussianTransformerHead, NegativeBinomialTransformerHead
-from scldm_torch.nn.layers import Drops, LayerNormFP32, silu
+from scldm_torch.nn.layers import (
+    Drops,
+    LayerNormFP32,
+    column,
+    column_input,
+    silu,
+    table,
+    weights,
+)
 from scldm_torch.nn.vae import TransformerVAE
 from scldm_torch.ops.attention import sdpa_shared_q
 from scldm_torch.ops.distributions import log_gaussian, log_nb_positive, nb_sample
@@ -73,7 +81,7 @@ from scldm_torch.parallel.data_parallel import (
     trained_params,
 )
 from scldm_torch.parallel.gene_sp import GeneSP
-from scldm_torch.parallel.mesh import TENSOR_PARALLEL
+from scldm_torch.parallel.mesh import axis_size
 from scldm_torch.training import metrics as M
 from scldm_torch.training.optim import AdamWLegacy, wsd_schedule
 from scldm_torch.training.state import TrainState, create_train_state
@@ -344,51 +352,73 @@ def _algebraic_tail(
     sums in f32 (`preferred_element_type`) take f32 copies of their bf16
     operands. With `gene_sp` the tail runs over this "model" rank's genes,
     the NB mean's softmax across every rank's (JAX's gene-SP constraint on
-    the query table)."""
+    the query table). Under Megatron (the layers' `tp`) each rank contracts
+    its heads and its hidden slice (`swiglu_vec` over its Hd columns of
+    `w12` and rows of `wv`), the partial `y` and mlp term all-reduced."""
     ca = vae.decoder.decoder_cross_attention
     head = vae.decoder_head
     eps = ca.ln_1.eps
-    n_head = ca.attn.n_head
+    attn, mlp = ca.attn, ca.mlp
     dt = vae.decoder.dtype
     E = vae.decoder.n_embed
-    hd = E // n_head
+    hd = E // attn.n_head
+    # under Megatron: this rank's heads and hidden slice (`attn.tp`, `mlp.tp`)
+    at, mt = attn.tp, mlp.tp
+    heads = attn.n_head if at is None else attn.n_head // at.size
 
-    q32 = vae.input_layer.gene_embedding.weight[1:].float()  # canonical genes 1..G
+    q32 = table(vae.input_layer.gene_embedding)[1:].float()  # canonical genes 1..G
     if gene_sp is not None:
         q32 = gene_sp.take(q32, 0)
-    qp = _ln_affine(q32, ca.ln_1q, eps).to(dt) @ ca.attn.c_attn_q.weight.t().to(dt)  # (G, E)
+    qn = _ln_affine(q32, ca.ln_1q, eps).to(dt)
     xn = _ln_affine(x.float(), ca.ln_1, eps).to(dt)
-    k, v = (xn @ ca.attn.c_attn.weight.t().to(dt)).chunk(2, dim=-1)  # (B, M, E) each
+    if at is None:
+        qp = qn @ weights(attn.c_attn_q)[0].t().to(dt)  # (G, heads * hd)
+        kv = xn @ weights(attn.c_attn)[0].t().to(dt)  # (B, M, 2 * heads * hd)
+    else:
+        qp = column(column_input(qn, at, dt), attn.c_attn_q, dt)
+        kv = column(column_input(xn, at, dt), attn.c_attn, dt)
+    k, v = kv.chunk(2, dim=-1)
     B, M = k.shape[0], k.shape[1]
     G = qp.shape[0]
-    wo = ca.attn.c_proj.weight.t().to(dt)  # (E, E), (in, out)
+    wo = weights(attn.c_proj)[0].t().to(dt)  # (heads * hd, E), (in, out)
     if vw_fold:
         # y @ wo = sum_h probs_h @ (v_h @ wo_h): one product with K = H*M
-        scores = torch.einsum("mhd,bshd->bhms", qp.reshape(G, n_head, hd).float(),
-                              k.reshape(B, M, n_head, hd).float())
+        scores = torch.einsum("mhd,bshd->bhms", qp.reshape(G, heads, hd).float(),
+                              k.reshape(B, M, heads, hd).float())
         probs = torch.softmax(scores * (1.0 / math.sqrt(hd)), dim=-1).to(dt)
-        vw = torch.einsum("bshd,hde->bhse", v.reshape(B, M, n_head, hd),
-                          wo.reshape(n_head, hd, E))  # (B, H, M, E)
-        y = torch.einsum("bhms,bhse->bme", probs, vw)  # (B, G, E)
+        vw = torch.einsum("bshd,hde->bhse", v.reshape(B, M, heads, hd),
+                          wo.reshape(heads, hd, E))  # (B, H, M, E)
+        if at is None:
+            y = torch.einsum("bhms,bhse->bme", probs, vw)  # (B, G, E)
+        else:  # the heads' partial sums in f32, rounded to dt once summed
+            y = at.reduce_from(torch.einsum("bhms,bhse->bme", probs.float(), vw.float())).to(dt)
     else:
-        y = sdpa_shared_q(qp.reshape(G, n_head, hd), k.reshape(B, M, n_head, hd),
-                          v.reshape(B, M, n_head, hd)).reshape(B, G, E)
-        y = y @ wo
+        y = sdpa_shared_q(qp.reshape(G, heads, hd), k.reshape(B, M, heads, hd),
+                          v.reshape(B, M, heads, hd)).reshape(B, G, heads * hd)
+        y = y @ wo if at is None else at.reduce_from(y.float() @ wo.float()).to(dt)
 
     h = q32.to(dt)[None] + y  # the residual connects to the raw queries
     hn = _ln_affine(h.float(), ca.ln_2, eps).to(dt)
-    mlp = ca.mlp
     wmu = head.params.weight.t()  # (E, 1)
-    wv = (mlp.c_proj.weight.t() @ wmu).to(dt)  # (Hd, 1): the fusion
+    # the fusion, wv (Hd, 1); under Megatron of this rank's Hd rows, so the
+    # replicated wmu enters it as a column-parallel operand
+    wv = (mlp.c_proj.weight.t() @ (wmu if mt is None else mt.copy_to(wmu))).to(dt)
     if fused_gate:
         w12 = torch.cat([mlp.w1.weight.t(), mlp.w2.weight.t()], dim=1).to(dt)
-        mlp_term = swiglu_vec(hn.reshape(-1, E), w12, wv).reshape(B, G)
+        x12 = hn if mt is None else mt.copy_to(hn)  # the kernels' dx is in hn's dtype
+        mlp_term = swiglu_vec(x12.reshape(-1, E), w12, wv).reshape(B, G)
     else:
         # two separate products, not hn @ w12: no (B, G, 2Hd) up projection
-        a = hn @ mlp.w1.weight.t().to(dt)  # (B, G, Hd)
-        b = hn @ mlp.w2.weight.t().to(dt)
+        if mt is None:
+            a = hn @ mlp.w1.weight.t().to(dt)  # (B, G, Hd)
+            b = hn @ mlp.w2.weight.t().to(dt)
+        else:
+            hc = column_input(hn, mt, dt)
+            a, b = column(hc, mlp.w1, dt), column(hc, mlp.w2, dt)
         g3 = silu(a) * b  # the largest live tensor
         mlp_term = torch.einsum("bgh,h->bg", g3.float(), wv[:, 0].float())
+    if mt is not None:  # the hidden slices' partial sums
+        mlp_term = mt.reduce_from(mlp_term)
     logits = (
         torch.einsum("bge,e->bg", h.float(), wmu[:, 0].to(dt).float())
         + mlp_term
@@ -576,9 +606,14 @@ class VAETask:
     unshared decoder raises JAX's ValueError). Under gene-SP the kernel
     gates close, as JAX's do: the tail kernels take the NB softmax over
     the whole gene axis, which there spans the ranks. A "model" axis above
-    1 without gene-SP is JAX's Megatron layout and raises
-    NotImplementedError (ROADMAP item 11b); at a model axis of 1 `gene_sp`
-    is ignored, as in JAX."""
+    1 without gene-SP is JAX's Megatron layout (`parallel.sharding_rules`):
+    each model rank keeps its slices of the column- and row-parallel
+    weights and the embeddings' features, and their AdamW moments, and the
+    steps run on the module path or the algebraic tail, whose
+    `algebraic_fused_gate` runs `swiglu_vec` on each rank's hidden slice;
+    the whole-module kernels (the decoder tail, the pools, the trunk) close,
+    as JAX's do, since no rank holds their weights. At a model axis of 1
+    `gene_sp` is ignored, as in JAX."""
 
     def __init__(
         self,
@@ -611,12 +646,10 @@ class VAETask:
         self.vae = vae
         self.gaussian_head = isinstance(vae.decoder_head, GaussianTransformerHead)
         self.lean_loss = bool(lean_loss)
-        self.layout = None if mesh is None else Layout(mesh, fsdp=fsdp)
-        n_model = 1 if mesh is None else self.layout.n_model
-        if n_model > 1 and not gene_sp:
-            raise NotImplementedError(f"a 'model' axis of {n_model} without gene_sp is not "
-                                      f"ported: {TENSOR_PARALLEL}")
+        n_model = 1 if mesh is None else axis_size(mesh, "model")
         self.gene_sp = bool(gene_sp) and n_model > 1
+        self.megatron = n_model > 1 and not self.gene_sp
+        self.layout = None if mesh is None else Layout(mesh, fsdp=fsdp, megatron=self.megatron)
         if self.gene_sp and not vae.decoder.shared_embedding:
             raise ValueError(
                 "gene_sp requires the shared-embedding decoder (the default): unshared queries "
@@ -624,15 +657,16 @@ class VAETask:
         self._sp = GeneSP(self.layout.model_group, vae.decoder.n_genes) if self.gene_sp else None
         # JAX's gates close under a multi-device mesh; the port's ranks run
         # one-card steps (under FSDP on the gathered weights), so only
-        # gene-SP, whose NB softmax spans the ranks, closes them
-        closed = self.gene_sp
+        # gene-SP, whose NB softmax spans the ranks, and Megatron, where no
+        # rank holds the whole-module kernels' weights, close them
+        closed = self.gene_sp or self.megatron
         self.fused_trunk = bool(fused_trunk) and _fused_trunk_ok(vae) and not closed
         self.fused_pool = bool(fused_pool) and _fused_window_ok(vae) and not closed
         if algebraic_tail is None:
             algebraic_tail = vae.decoder.n_embed > 128
         self.algebraic_tail = bool(algebraic_tail) and _algebraic_path_ok(vae)
         self.algebraic_fused_gate = (bool(algebraic_fused_gate) and self.algebraic_tail
-                                     and not closed)
+                                     and not self.gene_sp)
         if algebraic_vw_fold is None:
             algebraic_vw_fold = self.algebraic_tail
         self.algebraic_vw_fold = bool(algebraic_vw_fold) and self.algebraic_tail
@@ -659,14 +693,19 @@ class VAETask:
         """A fresh optimizer state over `self.vae`, whose module keeps the
         weights it holds (draw them with `utils.weights.init_reference_`, or
         load them); `generator` is the state's source of random draws. On a
-        mesh every rank takes rank 0's weights; under FSDP the optimizer
-        updates the slices and the module's sharded tensors are emptied."""
+        mesh every rank takes rank 0's weights and the model ranks of a data
+        row its first one's generator state; under Megatron the module is
+        cut to each model rank's slices; under FSDP the optimizer updates
+        the slices and the module's sharded tensors are emptied."""
         params, shards = trained_params(self.layout, self.vae)
-        optimizer = AdamWLegacy(params, **self._opt_kwargs)
+        state = create_train_state(self.vae, AdamWLegacy(params, **self._opt_kwargs), generator,
+                                   shards=shards)
+        if self.layout is not None:
+            self.layout.mark_slices(state)
+            self.layout.share_draws_(state)
         if shards is not None:
-            optimizer.set_slices(shards.numels(), shards.group)
             shards.free()
-        return create_train_state(self.vae, optimizer, generator, shards=shards)
+        return state
 
     # -- dispatch --------------------------------------------------------------
     def _materialize(self, batch: Dict) -> Dict:

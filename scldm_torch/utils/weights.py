@@ -7,6 +7,8 @@ loads with a transpose-free `load_state_dict`; `batch_stats_state_dict`
 names a flax `batch_stats` collection the same way. `load_reference_ema_` carries
 an EMA tree (the JAX `EMAState.params`, or the reference checkpoint's
 `ema_model.ema_model.` weights) into a `training.ema.EMAState` the same way.
+Into a module cut to Megatron slices (`parallel.sharding_rules.shard_module_`)
+both load this rank's slices of the whole tensors.
 
 `init_reference_` gives a module fresh weights from a `torch.Generator`,
 with the initialisers of the JAX package (xavier-uniform Linear, zero
@@ -21,11 +23,13 @@ identity.
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
 import torch.nn as nn
+
+from scldm_torch.parallel.tensor_parallel import megatron_of
 
 _LIGHTNING_PREFIXES = ("vae_model.", "diffusion_model.", "ema_model.ema_model.")
 
@@ -58,18 +62,26 @@ def batch_stats_state_dict(batch_stats: Mapping, prefix: str = "") -> Dict[str, 
 
 def load_reference_state_dict(module: nn.Module, state_dict: Mapping, strict: bool = True):
     """Load a reference-named state dict (numpy arrays or tensors) into
-    `module`, casting to each parameter's dtype and device. Lightning
-    prefixes are stripped. Returns `load_state_dict`'s result."""
-    return module.load_state_dict(_cleaned(state_dict), strict=strict)
+    `module`, casting to each parameter's dtype and device; a Megatron
+    module takes this rank's slices. Lightning prefixes are stripped. Returns
+    `load_state_dict`'s result."""
+    cleaned = _cleaned(state_dict)
+    mt = megatron_of(module)
+    return module.load_state_dict(cleaned if mt is None else mt.sliced_state_dict(cleaned),
+                                  strict=strict)
 
 
 @torch.no_grad()
-def load_reference_ema_(ema, state_dict: Mapping):
+def load_reference_ema_(ema, state_dict: Mapping, module: Optional[nn.Module] = None):
     """Copy a reference-named state dict into the averaged parameters of
     `ema` (a `training.ema.EMAState`), in place, casting to each tensor's
-    dtype and device. Every averaged parameter must be present and no other
+    dtype and device; with the EMA's `module` cut to Megatron slices, this
+    rank's slices. Every averaged parameter must be present and no other
     key. Returns `ema`."""
     cleaned = _cleaned(state_dict)
+    mt = None if module is None else megatron_of(module)
+    if mt is not None:
+        cleaned = mt.sliced_named(module, cleaned)
     if set(cleaned) != set(ema.params):
         raise KeyError(f"EMA keys differ: missing {sorted(set(ema.params) - set(cleaned))[:5]}, "
                        f"unexpected {sorted(set(cleaned) - set(ema.params))[:5]}")

@@ -14,7 +14,8 @@ injected; this process computes JAX's steps on `make_mesh` meanwhile.
 - gene-SP at `n_model=2` with an odd gene count (:324, :509): the VAE step on
   the module path and on the algebraic tail, with FSDP on a 2 x 2 mesh (:366),
   the generation decode, the unshared decoder's ValueError (:388), and the
-  Megatron and GPipe refusals (ROADMAP item 11b);
+  Megatron and GPipe layouts building where JAX builds them and raising its
+  ValueErrors where it raises (test_torch_port_model_axis.py runs them);
 - `make_sample_fn(split_over_data=True)` against one process;
 - `cli.train` with `training.fsdp=true`: a world-1 checkpoint resumed at two
   ranks, a two-rank run whose rank 1 takes SIGTERM (both stop at the same
@@ -58,8 +59,8 @@ from scldm_tpu.training.vae_task import VAETask as JaxVAETask
 from scldm_tpu.transport import create_transport as jax_create_transport
 from scldm_tpu.utils.torch_import import export_torch_state_dict
 from scldm_torch.parallel import distributed
-from scldm_torch.parallel.data_parallel import shardable
 from scldm_torch.parallel.gene_sp import split_sizes
+from scldm_torch.parallel.sharding_rules import fit_spec
 from scldm_torch.training.checkpoint import read_payload
 from scldm_torch.utils.weights import batch_stats_state_dict
 from tests.test_training import make_batch
@@ -562,18 +563,21 @@ def test_split_generation_matches_one_process(runs, name):
 
 
 def test_refusals_on_a_model_axis(runs):
-    """A "model" axis of 2 without gene-SP is JAX's Megatron layout and a
-    pipeline there its GPipe trunk: both wait for ROADMAP item 11b; gene-SP
-    on an unshared decoder raises JAX's ValueError. Also the bootstrap at two
-    ranks (a second call does nothing) and `shard_batch` /
-    `shard_stacked_batch`, each rank its rows."""
+    """A "model" axis of 2 without gene-SP builds JAX's Megatron layout, and
+    a pipeline there its GPipe trunk; they raise JAX's ValueErrors where JAX
+    does (a pipeline beside gene-SP names "model", DiT dropout "dropout", a
+    layer count the stages do not divide "stages"), as does gene-SP on an
+    unshared decoder. Also the bootstrap at two ranks (a second call does
+    nothing) and `shard_batch` / `shard_stacked_batch`, each rank its rows."""
     results, _, _ = runs
     for r, res in enumerate(results["refusals"]):
         for key in ("vae_without_gene_sp", "ldm_without_gene_sp", "ldm_pipeline"):
+            assert res[key] is None, (key, res[key])
+        for key, word in (("ldm_pipeline_gene_sp", "model"), ("ldm_pipeline_dropout", "dropout"),
+                          ("ldm_pipeline_stages", "stages"),
+                          ("vae_unshared_gene_sp", "shared-embedding")):
             kind, msg = res[key]
-            assert kind == "NotImplementedError" and "item 11b" in msg, (key, msg)
-        kind, msg = res["vae_unshared_gene_sp"]
-        assert kind == "ValueError" and "shared-embedding" in msg
+            assert kind == "ValueError" and word in msg, (key, msg)
         assert (res["world"], res["rank"], res["again"]) == (2, r, True)
         x = np.arange(24).reshape(2, 4, 3)
         assert res["rows"] == x[0, 2 * r: 2 * r + 2].tolist()
@@ -723,6 +727,7 @@ def test_gene_ranges(n, parts, want):
                                           ((33, 63), 2, False), ((16, 16), 2, False),
                                           ((2048,), 1, False), ((2048,), 4, True)])
 def test_fsdp_rule_is_jax_rule(shape, n, want):
-    """`shardable` is JAX's `_fit_spec` with fsdp: 1,024 elements or more and a
-    dimension the data axis divides (n = 1 shards nothing)."""
-    assert shardable(shape, n) is want
+    """`fit_spec` with fsdp and no "model" axis is JAX's `_fit_spec`: 1,024
+    elements or more and a dimension the data axis divides (n = 1 shards
+    nothing)."""
+    assert fit_spec("w", shape, 1, n, True) == (None, want)
